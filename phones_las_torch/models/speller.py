@@ -1,0 +1,144 @@
+"""Speller: attention decoder over the listener's output (port of
+``phones_las_tpu/models/speller.py``, decode side).
+
+TF1 ``AttentionWrapper`` semantics: the cell input is ``[embedding;
+previous attention vector]``, the attention vector is a linear projection
+of ``[cell_output; context]``, and an output projection gives the vocab
+logits. Binf modes 'none' and 'head' are ported; 'logits' and
+'embedding' raise ``NotImplementedError``. Teacher forcing waits for the
+training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Tuple
+
+import torch
+from torch import nn
+
+from phones_las_torch.ops.attention import AttentionParams, attention_context, attention_scores
+from phones_las_torch.ops.lstm import LSTMParams, rec_dot
+
+PORTED_BINF_MODES = ("none", "head")
+
+
+@dataclasses.dataclass(frozen=True)
+class SpellerConfig:
+    vocab_size: int = 50
+    embedding_dim: int = 128
+    num_layers: int = 1
+    units: int = 256
+    memory_dim: int = 512  # listener output dim (2 × encoder units)
+    attention_type: str = "bahdanau"
+    attention_units: int = 256
+    monotonic_noise: float = 1.0
+    monotonic_mode: str = "parallel"
+    monotonic_bias: float = 0.0
+    attention_layer_size: int = 256  # 0 → raw [cell_out; context] as attn vector
+    sampling_probability: float = 0.0
+    bos_id: int = 1
+    eos_id: int = 2
+    num_binf: int = 0  # 0 → no binf machinery
+    binf_mode: str = "none"  # 'none' | 'head' | 'logits' | 'embedding'
+
+    @property
+    def attn_vec_dim(self) -> int:
+        if self.attention_layer_size > 0:
+            return self.attention_layer_size
+        return self.units + self.memory_dim
+
+
+class SpellerParams(nn.Module):
+    """Decoder parameters with the reference's layout; absent leaves are None."""
+
+    def __init__(self, cfg: SpellerConfig, device=None):
+        super().__init__()
+
+        def slot(name, shape):
+            t = None if shape is None else nn.Parameter(
+                torch.zeros(shape, device=device), requires_grad=False
+            )
+            self.register_parameter(name, t)
+
+        emb_rows = cfg.num_binf if cfg.binf_mode == "embedding" else cfg.vocab_size
+        slot("embedding", (emb_rows, cfg.embedding_dim))
+        in_dims = [cfg.embedding_dim + cfg.attn_vec_dim] + [cfg.units] * (cfg.num_layers - 1)
+        self.cells = nn.ModuleList([LSTMParams(d, cfg.units, device) for d in in_dims])
+        self.attention = AttentionParams(
+            cfg.attention_type, cfg.units, cfg.memory_dim, cfg.attention_units, device
+        )
+        al = cfg.attention_layer_size
+        slot("attention_layer", (cfg.units + cfg.memory_dim, al) if al > 0 else None)
+        out_dim = cfg.num_binf if cfg.binf_mode == "logits" else cfg.vocab_size
+        slot("out_w", (cfg.attn_vec_dim, out_dim))
+        slot("out_b", (out_dim,))
+        head = cfg.binf_mode == "head"
+        slot("binf_w", (cfg.attn_vec_dim, cfg.num_binf) if head else None)
+        slot("binf_b", (cfg.num_binf,) if head else None)
+        slot("binf_codes", (cfg.vocab_size, cfg.num_binf) if cfg.binf_mode != "none" else None)
+
+
+class SpellerCarry(NamedTuple):
+    states: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]  # per layer (h, c)
+    attn_vec: torch.Tensor  # [B, attn_vec_dim]
+    alignment: torch.Tensor  # [B, T_enc] previous attention distribution
+
+
+def _check_binf(cfg: SpellerConfig) -> None:
+    if cfg.binf_mode not in PORTED_BINF_MODES:
+        raise NotImplementedError(f"binf_mode={cfg.binf_mode!r} is not ported yet")
+
+
+def init_speller_carry(cfg: SpellerConfig, batch: int, enc_len: int = 1, device=None) -> SpellerCarry:
+    """Zero decoder state, float32 (the monotonic variants' dirac start
+    alignment waits with those variants)."""
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
+    states = tuple((z(batch, cfg.units), z(batch, cfg.units)) for _ in range(cfg.num_layers))
+    return SpellerCarry(states, z(batch, cfg.attn_vec_dim), z(batch, enc_len))
+
+
+def embed_tokens(params: SpellerParams, cfg: SpellerConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Token ids [B] → embeddings [B, E]."""
+    _check_binf(cfg)
+    return params.embedding[tokens]
+
+
+def speller_step(
+    params: SpellerParams,
+    cfg: SpellerConfig,
+    carry: SpellerCarry,
+    token_emb: torch.Tensor,  # [B, E]
+    keys: torch.Tensor,  # [B, Tenc, A] precomputed attention keys
+    memory: torch.Tensor,  # [B, Tenc, M] listener outputs
+    enc_mask: torch.Tensor,  # [B, Tenc]
+    forget_bias: float = 1.0,
+    prec: str = "highest",
+):
+    """One decode step → (carry', logits [B, V], extras dict with 'probs'
+    and, in binf 'head' mode, 'binf_logits'). ``prec`` is the recurrent
+    dot's precision, as in ``ops.lstm``."""
+    _check_binf(cfg)
+    x = torch.cat([token_emb, carry.attn_vec], dim=-1)
+    new_states = []
+    for (h, c), cell in zip(carry.states, params.cells):
+        gates = torch.matmul(x, cell.wx) + cell.b + rec_dot(h, cell.wh, prec)
+        i, f, g, o = torch.chunk(gates, 4, dim=-1)
+        c = torch.sigmoid(f + forget_bias) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        new_states.append((h, c))
+        x = h
+    cell_out = x
+
+    probs = attention_scores(params.attention, cfg.attention_type, cell_out, keys, enc_mask)
+    ctx = attention_context(probs, memory)
+    combined = torch.cat([cell_out, ctx], dim=-1)
+    attn_vec = (
+        torch.matmul(combined, params.attention_layer)
+        if params.attention_layer is not None else combined
+    )
+    logits = torch.matmul(attn_vec, params.out_w) + params.out_b
+    extras = {"probs": probs}
+    if cfg.binf_mode == "head":
+        extras["binf_logits"] = torch.matmul(attn_vec, params.binf_w) + params.binf_b
+    return SpellerCarry(tuple(new_states), attn_vec, probs), logits, extras
