@@ -20,7 +20,25 @@ then:
      path on the CPU and against the reference's PER;
   3. runs the same path at the flagship shape (64 × 10 s of random PCM,
      200 greedy steps) and prints utt/s and the split among front-end,
-     listener and decoder.
+     listener and decoder;
+  4. the training slice, with gradients on:
+     a. holds the three training LSTM kernels (``recurrence``,
+        ``recurrence_residual``, ``recurrence_bwd``) against their plain
+        versions at B = 32 and the listener's widths, and times them as
+        phase 1 does, beside cuDNN's ``torch.nn.LSTM``;
+     b. one step of the committed checkpoint on the eval set
+        (``compute_loss(train=False)``, backward, one optimizer step) on
+        the card and on the CPU plain path: loss, every gradient leaf and
+        every updated leaf held within the bounds stated below;
+     c. ``Trainer.train_step`` at full width (32 × 10 s of random PCM,
+        200-token targets, dropout and scheduled sampling on), 6 steps on
+        one batch: ms per step, peak device memory, the loss of each step
+        (finite and falling) and each step's kernel launches; then the
+        device time of one more step under ``torch.profiler``, and 3 more
+        steps driven in their three parts (``Trainer.loss``, backward,
+        ``Trainer.apply_gradients``) for the split of a step into
+        forward, backward and optimizer;
+     d. the ops API: ``lstm_layer`` without and with gradients.
 
 Every phase that fails ends the script with a non-zero exit code. The
 line before the last holds the card's name and power limit as
@@ -61,6 +79,16 @@ DEV = "cuda"
 # BiLSTM checks: (T, listener layer whose wh is used, recurrent-dot precision)
 LSTM_CASES = ((999, 0, "highest"), (999, 0, "bf16"), (250, 2, "highest"), (250, 2, "bf16"))
 DECODER_BATCHES = (8, 64)
+TRAIN_B = 32
+TRAIN_STEPS = 6
+SPLIT_STEPS = 3  # further steps timed in their three parts
+EOS_ID = 2
+# phase 4b bounds, card against the CPU plain path: the loss relative to
+# the CPU's; each gradient leaf's max |d| over its max |g_cpu|; each
+# updated leaf's max |d| (a tenth of Adam's first step, lr = 1e-3)
+LOSS_TOL = 1e-5
+GRAD_TOL = 1e-4
+PARAM_TOL = 1e-4
 
 
 def emit(obj: dict) -> None:
@@ -242,6 +270,344 @@ def check_greedy(params, cfg, memory, enc_mask, b):
     return rec
 
 
+def rel_err(got, want) -> float:
+    """max |got − want| over max |want|."""
+    return float((got.double() - want.double()).abs().max()) / max(float(want.double().abs().max()), 1e-30)
+
+
+def cudnn_lstm(d, u, bidirectional):
+    """A torch.nn.LSTM (cuDNN) of the listener layer's width, for library_ms."""
+    return torch.nn.LSTM(d, u, bidirectional=bidirectional).to(DEV)
+
+
+def check_lstm_train(params, t, layer, prec, seed):
+    """Phase 4a: the training path's three LSTM kernels against their
+    plain versions at B = TRAIN_B, both directions → (recurrence record,
+    residual record, VJP record)."""
+    from phones_las_torch.ops import lstm as L
+    from phones_las_torch.ops.masking import length_mask
+
+    pf, pb = params.listener.layers[layer]
+    u, d, b = pf.units, pf.wx.shape[0], TRAIN_B
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=DEV)
+    lengths[0] = t
+    xpf, xpb = (torch.randn((t, b, 4 * u), generator=g, device=DEV) for _ in range(2))
+    mask = length_mask(lengths, t).transpose(0, 1).contiguous()
+    whs = [pf.wh.detach(), pb.wh.detach()]
+    bf16 = prec == "bf16"
+    tol = 2e-2 if bf16 else 1e-5
+    res_tol = 3e-2 if bf16 else 1e-5
+    vjp_tol = 3e-2 if bf16 else 1e-4
+    peak = BF16_FLOPS if bf16 else F32_FLOPS
+    wbytes = rbytes = 2 if bf16 else 4
+    dot = 2 * t * b * u * 4 * u  # one direction's recurrent dots
+    shape = f"T={t} B={b} U={u} prec={prec}"
+
+    # library yardsticks: cuDNN LSTMs of the layer's width over full-length rows
+    x_in = torch.randn((t, b, d), generator=g, device=DEV, requires_grad=True)
+    uni, bi = cudnn_lstm(d, u, False), cudnn_lstm(d, u, True)
+    g_out = torch.randn((t, b, 2 * u), generator=g, device=DEV)
+
+    def lib_fwd_bwd():
+        torch.autograd.backward(bi(x_in)[0], g_out)
+
+    with torch.no_grad():
+        lib_uni_ms = time_ms(lambda: uni(x_in))
+    lib_fwd_ms = time_ms(lambda: bi(x_in))
+    lib_fwd_bwd_ms = time_ms(lib_fwd_bwd)
+
+    # recurrence (one direction a call): forward on xpf, reverse on xpb
+    recs = []
+    ok = True
+    max_abs = 0.0
+    for xp, wh, rev in ((xpf, whs[0], False), (xpb, whs[1], True)):
+        out, (h, c) = L.recurrence(xp, mask, wh, 1.0, rev, prec)
+        pout, (ph, pc) = L.recurrence_plain(xp, mask, wh, 1.0, rev, prec)
+        torch.cuda.synchronize()
+        a, _, k_ok = compare((out, h, c), (pout, ph, pc), tol, tol)
+        ok, max_abs = ok and k_ok, max(max_abs, a)
+    nbytes = 4 * (t * b * 4 * u + t * b + t * b * u + 2 * b * u) + wbytes * u * 4 * u
+    bms, by = bound(nbytes, dot, peak)
+    recs.append({
+        "phase": "4a", "kernel": "recurrence", "shape": shape + " one direction",
+        "max_abs_err": max_abs, "tol": f"atol=rtol={tol}", "ok": ok,
+        "ms": time_ms(lambda: L.recurrence(xpf, mask, whs[0], 1.0, False, prec)),
+        "plain_ms": time_ms(lambda: L.recurrence_plain(xpf, mask, whs[0], 1.0, False, prec)),
+        "library_ms": lib_uni_ms, "library": f"torch.nn.LSTM({d}, {u}) forward, no grad",
+        "library_fwd_bwd_ms": lib_fwd_bwd_ms, "bound_ms": bms, "bound_by": by,
+    })
+
+    # recurrence_residual: both directions in one launch
+    args = ([xpf, xpb], mask, whs, 1.0, [False, True], prec)
+    res = L.recurrence_residual(*args)
+    pres = L.recurrence_residual_plain(*args)
+    torch.cuda.synchronize()
+    max_abs, ok = 0.0, True
+    for k, pk in zip(res, pres):
+        a, _, s_ok = compare((k[0], k[3], k[4]), (pk[0], pk[3], pk[4]), tol, tol)
+        ar, _, r_ok = compare((k[1], k[2]), (pk[1], pk[2]), res_tol, res_tol)
+        ok, max_abs = ok and s_ok and r_ok, max(max_abs, a, ar)
+    nbytes = 2 * (4 * t * b * 4 * u + 4 * t * b * u + 2 * rbytes * t * b * u + 4 * 2 * b * u + wbytes * u * 4 * u) + 4 * t * b
+    bms, by = bound(nbytes, 2 * dot, peak)
+    recs.append({
+        "phase": "4a", "kernel": "recurrence_residual", "shape": shape + " both directions",
+        "max_abs_err": max_abs, "tol": f"out, h, c atol=rtol={tol}; hprev, cprev atol=rtol={res_tol}", "ok": ok,
+        "ms": time_ms(lambda: L.recurrence_residual(*args)),
+        "plain_ms": time_ms(lambda: L.recurrence_residual_plain(*args)),
+        "library_ms": lib_fwd_ms, "library": f"torch.nn.LSTM({d}, {u}, bidirectional=True) forward under grad",
+        "library_fwd_bwd_ms": lib_fwd_bwd_ms, "bound_ms": bms, "bound_by": by,
+    })
+
+    # recurrence_bwd on the kernel's own residuals, both directions in one launch
+    douts = [torch.randn((t, b, u), generator=g, device=DEV) for _ in range(2)]
+    dhs = [torch.randn((b, u), generator=g, device=DEV) for _ in range(2)]
+    dcs = [torch.randn((b, u), generator=g, device=DEV) for _ in range(2)]
+    bargs = ([xpf, xpb], mask, whs, [r[1] for r in res], [r[2] for r in res], douts, dhs, dcs,
+             1.0, [False, True], prec)
+    grads = L.recurrence_bwd(*bargs)
+    pgrads = L.recurrence_bwd_plain(*bargs)
+    again = L.recurrence_bwd(*bargs)
+    torch.cuda.synchronize()
+    errs = [rel_err(k, p) for kg, pg in zip(grads, pgrads) for k, p in zip(kg, pg)]
+    deterministic = all(torch.equal(x, y) for kg, ag in zip(grads, again) for x, y in zip(kg, ag))
+    nbytes = 2 * (2 * 4 * t * b * 4 * u + (2 * rbytes + 4) * t * b * u + 4 * 2 * b * u + 2 * wbytes * u * 4 * u + 4 * u * 4 * u) + 4 * t * b
+    bms, by = bound(nbytes, 3 * 2 * dot, peak)
+    recs.append({
+        "phase": "4a", "kernel": "recurrence_bwd", "shape": shape + " both directions",
+        "max_abs_err": max(float((k - p).abs().max()) for kg, pg in zip(grads, pgrads) for k, p in zip(kg, pg)),
+        "max_rel_to_max": max(errs), "tol": f"dxp, dwh max|d|/max|plain| <= {vjp_tol}",
+        "bitwise_repeatable": deterministic, "ok": max(errs) <= vjp_tol and deterministic,
+        "ms": time_ms(lambda: L.recurrence_bwd(*bargs)),
+        "plain_ms": time_ms(lambda: L.recurrence_bwd_plain(*bargs)),
+        "library_ms": lib_fwd_bwd_ms, "library": f"torch.nn.LSTM({d}, {u}, bidirectional=True) forward + backward",
+        "library_fwd_bwd_ms": lib_fwd_bwd_ms, "bound_ms": bms, "bound_by": by,
+    })
+    for rec in recs:
+        emit(rec)
+    bad = [r["kernel"] for r in recs if not r["ok"]]
+    if bad:
+        fail(f"training LSTM kernels disagree with their plain versions at {shape}: {bad}")
+    return recs
+
+
+def eval_batch(data) -> dict:
+    """All utterances of the committed eval set, targets = refs + <eos>."""
+    refs = data["refs"]
+    ref_lens = (refs >= 0).sum(axis=1)
+    targets = np.zeros((len(refs), int(ref_lens.max()) + 1), np.int32)
+    for i, n in enumerate(ref_lens):
+        targets[i, :n] = refs[i, :n]
+        targets[i, n] = EOS_ID
+    return {
+        "audio": data["audio"], "audio_lengths": data["lengths"],
+        "targets": targets, "target_lengths": (ref_lens + 1).astype(np.int32),
+    }
+
+
+def check_train_step(ckpt, data, kernels):
+    """Phase 4b: compute_loss(train=False), backward and one optimizer step
+    of the committed checkpoint on the eval set, on the card and on the
+    CPU plain path; loss, every gradient leaf and every updated leaf held."""
+    from phones_las_torch.models.las import compute_loss
+    from phones_las_torch.train.loop import Trainer
+    from phones_las_torch.train.state import TrainConfig
+    from phones_las_torch.utils.param_io import load_artifact, named_leaves
+
+    batch = eval_batch(data)
+    runs = {}
+    for dev in (DEV, "cpu"):
+        params, cfg, _ = load_artifact(ckpt, device=dev)
+        tr = Trainer(cfg, TrainConfig(), device=dev)
+        tr.warm_start(params)
+        if dev == DEV:
+            reset_counters(kernels)
+        loss, _ = compute_loss(tr.state.params, cfg, tr.device_batch(batch), train=False, prec=tr.prec)
+        loss.backward()
+        grads = {k: t.grad.detach().cpu() for k, t in named_leaves(tr.state.params) if t.grad is not None}
+        tr.apply_gradients()
+        if dev == DEV:
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in kernels}
+        runs[dev] = (loss.item(), grads, {k: t.detach().cpu() for k, t in named_leaves(tr.state.params)})
+    (gl, gg, gp), (cl, cg, cp) = runs[DEV], runs["cpu"]
+    loss_rel = abs(gl - cl) / abs(cl)
+    grad_rel = {k: rel_err(gg[k], cg[k]) for k in cg}
+    param_abs = {k: float((gp[k] - cp[k]).abs().max()) for k in cp}
+    worst_g = max(grad_rel, key=grad_rel.get)
+    worst_p = max(param_abs, key=param_abs.get)
+    rec = {
+        "phase": "4b", "utterances": len(batch["audio"]), "loss_gpu": gl, "loss_cpu": cl,
+        "loss_rel_err": loss_rel, "loss_tol": LOSS_TOL,
+        "grad_leaves": len(grad_rel), "grad_max_rel_to_max": grad_rel[worst_g], "grad_worst_leaf": worst_g,
+        "grad_tol": GRAD_TOL, "param_max_abs_err": param_abs[worst_p], "param_worst_leaf": worst_p,
+        "param_tol": PARAM_TOL, "launches": launches,
+    }
+    emit(rec)
+    if set(gg) != set(cg):
+        fail(f"gradient leaves differ between the card and the CPU: {sorted(set(gg) ^ set(cg))}")
+    if loss_rel > LOSS_TOL or grad_rel[worst_g] > GRAD_TOL or param_abs[worst_p] > PARAM_TOL:
+        fail(f"the training step on the card disagrees with the CPU plain path: {rec}")
+    if launches["bidir_recurrence"] or not (launches["recurrence_residual"] and launches["recurrence_bwd"]):
+        fail(f"the step under grad did not run the residual and VJP kernels alone: {launches}")
+    return rec
+
+
+def profile_step(step, step_ms: float, top: int = 8) -> dict:
+    """One more call of ``step`` under ``torch.profiler`` (not part of any
+    timing or check): the device time its kernels took, summed (one
+    stream, so they do not overlap), their share of ``step_ms`` (the
+    unprofiled median step) and the kernels that took the most. A
+    profiler that records no device time gives "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    # only the profiler's own failures (no CUPTI on the machine) give "not
+    # measured": a failure of the step itself propagates
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as e:
+        return {"device_ms": "not measured", "error": str(e)[:200]}
+    stop_error = None
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        try:
+            prof.stop()
+        except RuntimeError as e:
+            stop_error = str(e)[:200]
+    if stop_error is not None:
+        return {"device_ms": "not measured", "error": stop_error}
+    from torch.autograd import DeviceType
+
+    dev_us = lambda e: e.self_device_time_total
+    # the kernels' own events (an operator's row repeats its kernels' time)
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation and dev_us(e) > 0
+    ]
+    total_ms = sum(dev_us(e) for e in events) / 1e3
+    if not total_ms:
+        return {"device_ms": "not measured"}
+    events.sort(key=dev_us, reverse=True)
+    return {
+        "device_ms": total_ms, "device_busy_share": total_ms / step_ms,
+        "device_launches": sum(e.count for e in events),
+        "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3, "count": e.count} for e in events[:top]],
+    }
+
+
+def split_step(tr, batch) -> dict:
+    """One optimizer step driven as ``Trainer.train_step`` composes it
+    (``loss``, backward, ``apply_gradients``), the device synchronised
+    between the three so that each is timed on the host clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = tr.loss(batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tr.apply_gradients()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return {"loss": float(loss), "forward_ms": (t1 - t0) * 1e3, "backward_ms": (t2 - t1) * 1e3,
+            "optimizer_ms": (t3 - t2) * 1e3}
+
+
+def train_flagship(ckpt, kernels):
+    """Phase 4c: Trainer.train_step at full width on B = TRAIN_B × 10 s of
+    random PCM with 200-token targets, TRAIN_STEPS steps on one batch."""
+    from phones_las_torch.train.loop import Trainer
+    from phones_las_torch.train.state import TrainConfig
+    from phones_las_torch.utils.param_io import load_artifact
+
+    device = None if DEV == "cuda" else DEV  # the entry points' default is CUDA
+    params, cfg, _ = load_artifact(ckpt, device=device)
+    tr = Trainer(cfg, TrainConfig(), device=device)
+    tr.warm_start(params)
+    del params
+    rs = np.random.RandomState(0)  # as bench.py::bench_train
+    n = int(SECONDS * SAMPLE_RATE)
+    batch = {
+        "audio": torch.from_numpy((rs.randn(TRAIN_B, n) * 2000).astype(np.float32)).to(DEV),
+        "audio_lengths": torch.full((TRAIN_B,), n, dtype=torch.int32, device=DEV),
+        "targets": torch.from_numpy(rs.randint(4, cfg.speller.vocab_size, (TRAIN_B, DECODE_STEPS))).to(DEV),
+        "target_lengths": torch.full((TRAIN_B,), DECODE_STEPS, dtype=torch.int32, device=DEV),
+    }
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        reset_counters(kernels)
+        t0 = time.perf_counter()
+        out = tr.train_step(batch)
+        loss = float(out["loss"])
+        torch.cuda.synchronize()
+        steps.append({
+            "step": i + 1, "loss": loss, "grad_norm": float(out["grad_norm"]),
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "launches": {fn.__name__: fn.launches for fn in kernels},
+        })
+        emit({"phase": "4c", **steps[-1]})
+    step_ms = statistics.median(s["ms"] for s in steps[1:])
+    totals = {name: sum(s["launches"][name] for s in steps) for name in steps[0]["launches"]}
+    profiled = profile_step(lambda: tr.train_step(batch), step_ms)
+    splits = [split_step(tr, batch) for _ in range(SPLIT_STEPS)]
+    med = lambda key: statistics.median(s[key] for s in splits)
+    rec = {
+        "phase": "4c", "shape": f"B={TRAIN_B} x {SECONDS} s, {DECODE_STEPS}-token targets, {TRAIN_STEPS} steps",
+        "step_ms": step_ms, "timed_steps": f"2-{TRAIN_STEPS}",
+        "forward_ms": med("forward_ms"), "backward_ms": med("backward_ms"),
+        "optimizer_ms": med("optimizer_ms"), "split_steps": f"{TRAIN_STEPS + 2}-{TRAIN_STEPS + 1 + SPLIT_STEPS}",
+        "split_losses": [s["loss"] for s in splits],
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": [s["loss"] for s in steps], "launches_total": totals,
+        "prec": tr.prec, "card": card_line(), "device_profile": profiled,
+    }
+    emit(rec)
+    losses = rec["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"training losses are not finite and falling: {losses}")
+    for s in steps:
+        la = s["launches"]
+        if la["recurrence_residual"] != cfg.listener.num_layers or la["recurrence_bwd"] != cfg.listener.num_layers:
+            fail(f"step {s['step']}: the residual and VJP kernels must launch once per listener layer: {la}")
+        if la["bidir_recurrence"] != 0 or la["fused_logmel"] != 1:
+            fail(f"step {s['step']}: unexpected launches under grad: {la}")
+    return rec, totals
+
+
+def drive_lstm_layer(params, kernels):
+    """Phase 4d: the ops API, ``lstm_layer`` at the listener's first-layer
+    width (T = 250), without grad (the ``recurrence`` kernel, both
+    directions) and under grad (residual + VJP kernels, one direction)."""
+    from phones_las_torch.ops.lstm import lstm_layer
+
+    p = params.listener.layers[0][0]
+    g = torch.Generator(device=DEV).manual_seed(7)
+    t, d = 250, p.wx.shape[0]
+    x = torch.randn((TRAIN_B, t, d), generator=g, device=DEV)
+    lens = torch.randint(t // 2, t + 1, (TRAIN_B,), generator=g, device=DEV)
+    reset_counters(kernels)
+    with torch.no_grad():
+        outs = [lstm_layer(p, x, lens, reverse=rev)[0] for rev in (False, True)]
+    x.requires_grad_(True)
+    out, (h, c) = lstm_layer(p, x, lens, reverse=True)
+    (out.square().sum() + h.sum() + c.sum()).backward()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    finite = all(bool(torch.isfinite(v).all()) for v in (*outs, out, x.grad))
+    rec = {"phase": "4d", "shape": f"lstm_layer B={TRAIN_B} T={t} D={d}", "finite": finite, "launches": launches}
+    emit(rec)
+    if not finite or not (launches["recurrence"] == 2 and launches["recurrence_residual"] == 1
+                          and launches["recurrence_bwd"] == 1):
+        fail(f"lstm_layer did not run its kernels as expected: {rec}")
+    return launches
+
+
 def reset_counters(kernels) -> None:
     for fn in kernels:
         fn.launches = 0
@@ -258,13 +624,18 @@ def main() -> int:
     from phones_las_torch.frontend.fused_frontend import fused_logmel
     from phones_las_torch.models.las import encode, featurize
     from phones_las_torch.models.listener import listen
-    from phones_las_torch.ops.lstm import bidir_recurrence
+    from phones_las_torch.ops.lstm import bidir_recurrence, recurrence, recurrence_bwd, recurrence_residual
     from phones_las_torch.ops.masking import length_mask
     from phones_las_torch.utils.device import set_parity_mode
     from phones_las_torch.utils.metrics import edit_distance_stats, per_from_stats
     from phones_las_torch.utils.param_io import load_artifact
 
-    kernels = (fused_logmel, bidir_recurrence, greedy_decode_fused)
+    serve_kernels = (fused_logmel, bidir_recurrence, greedy_decode_fused)
+    train_kernels = (recurrence, recurrence_residual, recurrence_bwd)
+    kernels = serve_kernels + train_kernels
+    serving_ran_only_its_kernels = lambda la: (
+        all(la[fn.__name__] for fn in serve_kernels) and not any(la[fn.__name__] for fn in train_kernels)
+    )
     card = card_line()
     _build.library()
     emit({
@@ -323,8 +694,8 @@ def main() -> int:
         fail(f"{len(diff)} token rows differ from the CPU plain path (at most {MAX_DIFF_ROWS})")
     if abs(per - REF_GREEDY_PER) > PER_TOL:
         fail(f"greedy PER {per} is not within {PER_TOL} of {REF_GREEDY_PER}")
-    if not all(launches.values()):
-        fail(f"a kernel of the main path never launched: {launches}")
+    if not serving_ran_only_its_kernels(launches):
+        fail(f"a kernel of the main path never launched, or a training kernel did: {launches}")
 
     # ---- phase 3: the flagship shape, 64 × 10 s, 200 greedy steps
     def flagship():
@@ -344,8 +715,8 @@ def main() -> int:
     reset_counters(kernels)
     tok3, _ = flagship()
     flag_launches = {fn.__name__: fn.launches for fn in kernels}
-    if not all(flag_launches.values()):
-        fail(f"a kernel of the main path never launched at the flagship shape: {flag_launches}")
+    if not serving_ran_only_its_kernels(flag_launches):
+        fail(f"a kernel of the main path never launched at the flagship shape, or a training kernel did: {flag_launches}")
     if tok3.shape != (FLAGSHIP_B, DECODE_STEPS):
         fail(f"flagship tokens have shape {tuple(tok3.shape)}")
     splits = [flagship()[1] for _ in range(5)]
@@ -358,21 +729,40 @@ def main() -> int:
         "card": card,
     })
 
-    def kernel_entry(name, source, replaces, rec):
+    # ---- phase 4: the training slice, under grad
+    with torch.enable_grad():
+        train_recs = [
+            check_lstm_train(params, t, layer, prec, seed=20 + i)
+            for i, (t, layer, prec) in enumerate(LSTM_CASES)
+        ]
+        check_train_step(ckpt, data, kernels)
+        _, train_launches = train_flagship(ckpt, kernels)
+        api_launches = drive_lstm_layer(params, kernels)
+
+    def kernel_entry(name, source, replaces, rec, n_launches):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": rec["max_abs_err"],
+            "launches": n_launches, "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         }
 
+    lstm_cu = "phones_las_torch/csrc/lstm.cu"
     emit({"kernels": [
         kernel_entry("fused_logmel", "phones_las_torch/csrc/frontend.cu",
-                     "phones_las_tpu/frontend/pallas_frontend.py:110", fe_rec),
-        kernel_entry("bidir_recurrence", "phones_las_torch/csrc/bilstm.cu",
-                     "phones_las_tpu/ops/lstm.py:269", lstm_recs[0]),
+                     "phones_las_tpu/frontend/pallas_frontend.py:110", fe_rec, launches["fused_logmel"]),
+        kernel_entry("bidir_recurrence", lstm_cu,
+                     "phones_las_tpu/ops/lstm.py:269", lstm_recs[0], launches["bidir_recurrence"]),
         kernel_entry("greedy_decode_fused", "phones_las_torch/csrc/greedy.cu",
-                     "phones_las_tpu/decode/pallas_greedy.py:134", dec_recs[-1]),
+                     "phones_las_tpu/decode/pallas_greedy.py:134", dec_recs[-1], launches["greedy_decode_fused"]),
+        # the unidirectional primal runs on no model path: its launches are
+        # the ops API's (phase 4d); the other two the training run's (4c)
+        kernel_entry("recurrence", lstm_cu, "phones_las_tpu/ops/lstm.py:164",
+                     train_recs[0][0], api_launches["recurrence"]),
+        kernel_entry("recurrence_residual", lstm_cu, "phones_las_tpu/ops/lstm.py:485",
+                     train_recs[0][1], train_launches["recurrence_residual"]),
+        kernel_entry("recurrence_bwd", lstm_cu, "phones_las_tpu/ops/lstm.py:536",
+                     train_recs[0][2], train_launches["recurrence_bwd"]),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {

@@ -1,22 +1,32 @@
-"""Full LAS model, inference side (port of ``phones_las_tpu/models/las.py``):
-configs, the parameter container, ``featurize`` (front-end + CMVN) and
-``encode`` (+ listener). Losses and training augmentation wait for the
-training slice; their config fields are declared so every stored config
-loads."""
+"""Full LAS model (port of ``phones_las_tpu/models/las.py``): configs, the
+parameter container and its initialisation, ``featurize`` (front-end +
+CMVN), ``encode`` (+ listener, with dropout in training) and the losses:
+masked sequence cross-entropy with label smoothing, the binf sigmoid
+head, the CTC head and the multitask grapheme head, combined by
+``compute_loss``. SpecAugment and the frequency warp are declared in the
+config but not ported: a training forward that would apply them raises
+``NotImplementedError``."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as Fn
 from torch import nn
 
 from phones_las_torch.frontend.cmvn import apply_cmvn
 from phones_las_torch.frontend.features import FrontendConfig, num_frames
 from phones_las_torch.frontend.fused_frontend import extract_features_fused
-from phones_las_torch.models.listener import ListenerConfig, ListenerParams, listen
-from phones_las_torch.models.speller import SpellerConfig, SpellerParams
+from phones_las_torch.models.listener import ListenerConfig, ListenerParams, init_listener, listen
+from phones_las_torch.models.speller import (
+    SpellerConfig,
+    SpellerParams,
+    init_speller,
+    teacher_forced_decode,
+)
+from phones_las_torch.ops.lstm import glorot_
 from phones_las_torch.ops.masking import length_mask
 
 
@@ -69,6 +79,32 @@ class LASParams(nn.Module):
         self.register_parameter("ctc_b", z(v) if ctc else None)
 
 
+def init_las(cfg: LASConfig, seed: int = 0, binf_codes=None, device=None) -> LASParams:
+    """Random model from ``seed`` with the reference's initialisers
+    (``init_listener``, ``init_speller``, glorot CTC head, zero-mean /
+    unit-std CMVN). The numbers differ from JAX's for the same seed."""
+    g = torch.Generator().manual_seed(seed)
+    p = LASParams(cfg, device)
+    p.listener = init_listener(cfg.listener, g, device)
+    p.speller = init_speller(cfg.speller, g, binf_codes, device)
+    if cfg.grapheme_speller is not None:
+        p.grapheme_speller = init_speller(cfg.grapheme_speller, g, device=device)
+    if p.ctc_w is not None:
+        glorot_(p.ctc_w, g)
+    return p
+
+
+def trainable_filter(params: LASParams) -> Dict[str, bool]:
+    """{leaf path: trainable} over ``utils.param_io.named_leaves``: every
+    weight is trainable; CMVN stats and the static binf codes are data."""
+    from phones_las_torch.utils.param_io import named_leaves
+
+    return {
+        key: not (key in (".cmvn_mean", ".cmvn_std") or key.endswith(".binf_codes"))
+        for key, _ in named_leaves(params)
+    }
+
+
 def featurize(
     params: LASParams,
     cfg: LASConfig,
@@ -94,9 +130,146 @@ def encode(
     audio_lengths: torch.Tensor,
     *,
     prec: str = "highest",
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
 ):
-    """Front-end + listener → (memory [B, T', M], enc_lengths, enc_mask)."""
+    """Front-end + listener → (memory [B, T', M], enc_lengths, enc_mask).
+    ``train`` turns on the listener's dropout (masks from ``generator``)."""
     feats, flens = featurize(params, cfg, audio, audio_lengths)
-    memory, enc_lens = listen(params.listener, cfg.listener, feats, flens, prec=prec)
+    if train and generator is not None:
+        if cfg.freq_warp:
+            raise NotImplementedError("freq_warp is not ported yet (ROADMAP A9)")
+        if cfg.specaugment is not None:
+            raise NotImplementedError("specaugment is not ported yet (ROADMAP A9)")
+    memory, enc_lens = listen(
+        params.listener, cfg.listener, feats, flens, prec=prec, train=train, generator=generator
+    )
     enc_mask = length_mask(enc_lens, memory.shape[1], memory.dtype)
     return memory, enc_lens, enc_mask
+
+
+def masked_ce_loss(
+    logits: torch.Tensor,  # [B, S, V]
+    targets: torch.Tensor,  # [B, S]
+    target_mask: torch.Tensor,  # [B, S]
+    label_smoothing: float = 0.0,
+) -> torch.Tensor:
+    """``tf.contrib.seq2seq.sequence_loss`` semantics: mean CE over valid
+    target positions; ``label_smoothing`` ε mixes the one-hot target with
+    the uniform distribution."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    if label_smoothing > 0.0:
+        nll = (1.0 - label_smoothing) * nll + label_smoothing * (-torch.mean(logp, dim=-1))
+    denom = torch.clamp_min(torch.sum(target_mask), 1.0)
+    return torch.sum(nll * target_mask) / denom
+
+
+def binf_sigmoid_loss(
+    binf_logits: torch.Tensor,  # [B, S, F]
+    targets: torch.Tensor,  # [B, S] phone ids
+    codes: torch.Tensor,  # [V, F] static phone→binf map
+    target_mask: torch.Tensor,  # [B, S]
+) -> torch.Tensor:
+    """Sigmoid CE of the binf head against each target phone's code."""
+    y = codes[targets.long()]
+    z = binf_logits
+    per = torch.clamp_min(z, 0) - z * y + torch.log1p(torch.exp(-torch.abs(z)))
+    per = torch.mean(per, dim=-1)
+    denom = torch.clamp_min(torch.sum(target_mask), 1.0)
+    return torch.sum(per * target_mask) / denom
+
+
+def ctc_head_loss(
+    params: LASParams,
+    cfg: LASConfig,
+    memory: torch.Tensor,  # [B, T', M]
+    enc_mask: torch.Tensor,  # [B, T']
+    targets: torch.Tensor,  # [B, S] phone ids ending in <eos>
+    target_lengths: torch.Tensor,  # [B] counting the <eos>
+) -> torch.Tensor:
+    """CTC loss of the encoder head against the targets without their
+    <eos>. Blank = <pad> (id 0). Per-sequence losses are normalised by
+    label length; rows whose transcript is empty (only <eos>) are weighted
+    out. ``torch.nn.functional.ctc_loss`` replaces ``optax.ctc_loss``; a
+    row with no valid alignment (infinite loss) counts 0, where optax's
+    log-epsilon floor gives a large finite value."""
+    logits = torch.matmul(memory, params.ctc_w) + params.ctc_b  # [B, T', V]
+    valid = (target_lengths > 1).to(torch.float32)
+    label_lens = torch.clamp_min(target_lengths.long() - 1, 1)
+    in_lens = enc_mask.sum(dim=1).long()
+    logp = torch.log_softmax(logits.float(), dim=-1).transpose(0, 1)  # [T', B, V]
+    per_seq = Fn.ctc_loss(
+        logp, targets.long(), in_lens, label_lens, blank=0, reduction="none", zero_infinity=True
+    )
+    per_seq = per_seq * valid / label_lens.to(torch.float32)
+    return torch.sum(per_seq) / torch.clamp_min(torch.sum(valid), 1.0)
+
+
+def _shift_right(targets: torch.Tensor, bos_id: int) -> torch.Tensor:
+    return torch.cat([torch.full_like(targets[:, :1], bos_id), targets[:, :-1]], dim=1)
+
+
+def compute_loss(
+    params: LASParams,
+    cfg: LASConfig,
+    batch: dict,
+    *,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+    encoded: Optional[Tuple] = None,
+    sampling_probability: Optional[Union[float, torch.Tensor]] = None,
+    prec: str = "highest",
+):
+    """Full forward + losses → (loss, aux) as the reference's.
+
+    ``batch`` keys: 'audio' [B, S] + 'audio_lengths' [B] (or features if
+    ``input_is_pcm=False``); 'targets' [B, St] phone ids ending in <eos>;
+    'target_lengths' [B] counting the <eos>; optionally
+    'grapheme_targets'/'grapheme_lengths'. ``train`` turns on dropout,
+    scheduled sampling and label smoothing, with every random draw taken
+    from ``generator`` in that order. Pass ``encoded=(memory, enc_lens,
+    enc_mask)`` to reuse an encoder pass."""
+    gen = generator if train else None
+    if encoded is not None:
+        memory, enc_lens, enc_mask = encoded
+    else:
+        memory, enc_lens, enc_mask = encode(
+            params, cfg, batch["audio"], batch["audio_lengths"], prec=prec, train=train, generator=gen
+        )
+    targets = batch["targets"].long()
+    t_mask = length_mask(batch["target_lengths"], targets.shape[1], memory.dtype)
+    smoothing = cfg.label_smoothing if train else 0.0
+    logits, attn_probs, binf_logits = teacher_forced_decode(
+        params.speller, cfg.speller, _shift_right(targets, cfg.speller.bos_id), memory, enc_mask,
+        generator=gen, sampling_probability=sampling_probability, prec=prec,
+    )
+    phone_loss = masked_ce_loss(logits, targets, t_mask, label_smoothing=smoothing)
+    aux = {"phone_loss": phone_loss, "logits": logits, "attention": attn_probs, "enc_lengths": enc_lens}
+    loss = phone_loss
+
+    if cfg.ctc_weight > 0.0:
+        cl = ctc_head_loss(params, cfg, memory, enc_mask, targets, batch["target_lengths"])
+        aux["ctc_loss"] = cl
+        loss = (1.0 - cfg.ctc_weight) * loss + cfg.ctc_weight * cl
+
+    if cfg.speller.binf_mode == "head" and binf_logits is not None:
+        bl = binf_sigmoid_loss(binf_logits, targets, params.speller.binf_codes, t_mask)
+        aux["binf_loss"] = bl
+        loss = loss + cfg.binf_weight * bl
+
+    if params.grapheme_speller is not None:
+        g_targets = batch["grapheme_targets"].long()
+        g_mask = length_mask(batch["grapheme_lengths"], g_targets.shape[1], memory.dtype)
+        g_logits, _, _ = teacher_forced_decode(
+            params.grapheme_speller, cfg.grapheme_speller,
+            _shift_right(g_targets, cfg.grapheme_speller.bos_id), memory, enc_mask,
+            generator=gen, sampling_probability=sampling_probability, prec=prec,
+        )
+        g_loss = masked_ce_loss(g_logits, g_targets, g_mask, label_smoothing=smoothing)
+        aux["grapheme_loss"] = g_loss
+        w = cfg.multitask_weight
+        loss = w * loss + (1.0 - w) * g_loss
+
+    aux["loss"] = loss
+    return loss, aux

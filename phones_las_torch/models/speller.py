@@ -4,21 +4,29 @@
 TF1 ``AttentionWrapper`` semantics: the cell input is ``[embedding;
 previous attention vector]``, the attention vector is a linear projection
 of ``[cell_output; context]``, and an output projection gives the vocab
-logits. Binf modes 'none' and 'head' are ported; 'logits' and
-'embedding' raise ``NotImplementedError``. Teacher forcing waits for the
-training slice.
+logits. Training runs ``teacher_forced_decode``, with optional
+scheduled sampling (``ScheduledEmbeddingTrainingHelper``-style per-step
+Bernoulli mixing) from an explicit ``torch.Generator``. Binf modes 'none'
+and 'head' are ported; 'logits' and 'embedding' raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
-from phones_las_torch.ops.attention import AttentionParams, attention_context, attention_scores
-from phones_las_torch.ops.lstm import LSTMParams, rec_dot
+from phones_las_torch.ops.attention import (
+    AttentionParams,
+    attention_context,
+    attention_scores,
+    init_attention_params,
+    precompute_keys,
+)
+from phones_las_torch.ops.lstm import LSTMParams, glorot_, glorot_lstm_, rec_dot
 
 PORTED_BINF_MODES = ("none", "head")
 
@@ -77,6 +85,36 @@ class SpellerParams(nn.Module):
         slot("binf_w", (cfg.attn_vec_dim, cfg.num_binf) if head else None)
         slot("binf_b", (cfg.num_binf,) if head else None)
         slot("binf_codes", (cfg.vocab_size, cfg.num_binf) if cfg.binf_mode != "none" else None)
+
+
+def init_speller(
+    cfg: SpellerConfig,
+    generator: torch.Generator,
+    binf_codes=None,
+    device=None,
+) -> SpellerParams:
+    """The reference's initialisation: embedding N(0, 1), LSTM cells by
+    the TF fan-in rule, glorot-uniform attention layer, output and binf
+    heads, zero biases; ``binf_codes`` [V, F] is data, required when a
+    binf mode is on (draws from ``generator``, on the CPU)."""
+    _check_binf(cfg)
+    p = SpellerParams(cfg, device)
+    with torch.no_grad():
+        p.embedding.copy_(torch.randn(p.embedding.shape, generator=generator))
+    for cell in p.cells:
+        glorot_lstm_(cell, generator)
+    p.attention = init_attention_params(
+        cfg.attention_type, cfg.units, cfg.memory_dim, cfg.attention_units, generator, device
+    )
+    for t in (p.attention_layer, p.out_w, p.binf_w):
+        if t is not None:
+            glorot_(t, generator)
+    if p.binf_codes is not None:
+        if binf_codes is None:
+            raise ValueError(f"binf_mode={cfg.binf_mode!r} needs binf_codes")
+        with torch.no_grad():
+            p.binf_codes.copy_(torch.as_tensor(binf_codes, dtype=torch.float32))
+    return p
 
 
 class SpellerCarry(NamedTuple):
@@ -142,3 +180,60 @@ def speller_step(
     if cfg.binf_mode == "head":
         extras["binf_logits"] = torch.matmul(attn_vec, params.binf_w) + params.binf_b
     return SpellerCarry(tuple(new_states), attn_vec, probs), logits, extras
+
+
+def teacher_forced_decode(
+    params: SpellerParams,
+    cfg: SpellerConfig,
+    decoder_inputs: torch.Tensor,  # [B, S] token ids, column 0 = <sos>
+    memory: torch.Tensor,  # [B, Tenc, M]
+    enc_mask: torch.Tensor,  # [B, Tenc]
+    *,
+    generator: Optional[torch.Generator] = None,
+    sampling_probability: Optional[Union[float, torch.Tensor]] = None,
+    prec: str = "highest",
+):
+    """Teacher-forced (optionally scheduled-sampling) pass → (logits
+    [B, S, V], attention probs [B, S, Tenc], binf logits [B, S, F] or None).
+
+    With a ``generator`` and an effective sampling probability ``sp``
+    (``sampling_probability`` when given, else the config's; the override
+    counts even when the config's is 0), each step's input token is, per
+    row, with probability ``sp``, the token *sampled* from the softmax of
+    the previous step's logits (never at step 0, where nothing was
+    sampled yet). The bits come from ``generator``, which lies on
+    ``memory``'s device; they cannot match JAX's.
+
+    The reference rematerialises each step in its VJP (``jax.checkpoint``);
+    here autograd keeps each step's activations (the [B, Tenc, A]
+    attention tanh is the largest), trading memory for host time."""
+    _check_binf(cfg)
+    b, s = decoder_inputs.shape
+    dev = memory.device
+    keys = precompute_keys(params.attention, memory)
+    carry = init_speller_carry(cfg, b, memory.shape[1], dev)
+    sp = sampling_probability if sampling_probability is not None else cfg.sampling_probability
+    use_ss = generator is not None and (
+        sampling_probability is not None or cfg.sampling_probability > 0.0
+    )
+    prev_sampled = torch.full((b,), -1, dtype=torch.long, device=dev)
+    logits_all, probs_all, binf_all = [], [], []
+    for step in range(s):
+        token = decoder_inputs[:, step].long()
+        if use_ss:
+            take = (torch.rand((b,), generator=generator, device=dev) < sp) & (prev_sampled >= 0)
+            token = torch.where(take, prev_sampled.clamp_min(0), token)
+        emb = embed_tokens(params, cfg, token)
+        carry, logits, extras = speller_step(
+            params, cfg, carry, emb, keys, memory, enc_mask, prec=prec
+        )
+        if use_ss:
+            with torch.no_grad():
+                probs = torch.softmax(logits.float(), dim=-1)
+                prev_sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        logits_all.append(logits)
+        probs_all.append(extras["probs"])
+        if "binf_logits" in extras:
+            binf_all.append(extras["binf_logits"])
+    binf = torch.stack(binf_all, dim=1) if binf_all else None
+    return torch.stack(logits_all, dim=1), torch.stack(probs_all, dim=1), binf

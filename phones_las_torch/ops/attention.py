@@ -2,12 +2,17 @@
 ``phones_las_tpu/ops/attention.py``): Bahdanau (additive, optionally
 weight-normalised) and Luong (multiplicative, optionally scaled) with a
 softmax over masked encoder positions. The ``*_monotonic`` variants are
-not ported yet and raise ``NotImplementedError``."""
+not ported yet and raise ``NotImplementedError``. Parameters are created
+frozen (``requires_grad=False``); a trainer turns gradients on."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+
+from phones_las_torch.ops.lstm import glorot_, uniform_
 
 _NEG = -1e9
 SOFTMAX_VARIANTS = ("bahdanau", "bahdanau_norm", "luong", "luong_scaled")
@@ -44,6 +49,28 @@ class AttentionParams(nn.Module):
         slot("b", (attn_units,) if base == "bahdanau_norm" else None)
         slot("score_bias", () if monotonic else None)
         slot("g", () if base == "bahdanau_norm" else None)
+
+
+def init_attention_params(
+    variant: str, query_dim: int, memory_dim: int, attn_units: int,
+    generator: torch.Generator, device=None,
+) -> AttentionParams:
+    """The reference's initialisation: glorot-uniform projections, v
+    uniform in ±sqrt(3/A), zero bias; ``bahdanau_norm``'s gain starts at
+    sqrt(1/A) and ``luong_scaled``'s at 1 (draws from ``generator``, on
+    the CPU)."""
+    p = AttentionParams(variant, query_dim, memory_dim, attn_units, device)
+    if p.wq is not None:  # bahdanau: query projection and score vector
+        glorot_(p.wq, generator)
+    glorot_(p.wk, generator)
+    with torch.no_grad():
+        if p.wq is not None:
+            uniform_(p.v, math.sqrt(3.0 / attn_units), generator)
+        elif p.v is not None:  # luong_scaled: scalar gain
+            p.v.fill_(1.0)
+        if p.g is not None:
+            p.g.fill_(math.sqrt(1.0 / attn_units))
+    return p
 
 
 def precompute_keys(params: AttentionParams, memory: torch.Tensor) -> torch.Tensor:

@@ -8,20 +8,32 @@ run time, not folded into the stored bias. Per-step masking reproduces
 is zero past each row's length. ``torch.nn.LSTM`` is not used.
 
 The input projection ``x @ wx + b`` for all steps is one matrix product;
-the serial recurrence ``gates = xp[t] + h @ wh`` runs either as the plain
-PyTorch loop ``recurrence_plain`` (the mirror of ``_recurrence_xla``) or,
-for both directions of a BiLSTM layer on a CUDA tensor, as the CUDA
-kernel ``csrc/bilstm.cu`` behind ``bidir_recurrence``.
+the serial recurrence ``gates = xp[t] + h @ wh`` runs as a CUDA kernel
+(``csrc/lstm.cu``) on CUDA tensors and as its plain PyTorch version on
+CPU tensors:
+
+* without gradients, ``bidir_recurrence`` runs both directions of a
+  BiLSTM layer and ``recurrence`` one direction of ``lstm_layer``, each
+  one launch of the same primal kernel;
+* under gradients, ``RecurrenceFunction`` and ``BidirRecurrenceFunction``
+  (the reference's custom VJPs ``pallas_recurrence`` and
+  ``pallas_bidir_recurrence``) run ``recurrence_residual`` forward, which
+  also saves the carried state before each step, and ``recurrence_bwd``
+  backward.
 
 Recurrent-dot precision is an explicit argument ``prec`` (the reference
 reads it from the ambient ``jax.default_matmul_precision`` scope):
 'highest' is float32; 'bf16' rounds h and wh to bf16 and accumulates in
-float32, with the gate math and the cell state in float32.
+float32, with the gate math and the cell state in float32. In bf16 mode
+the reference streams ``xp``, the outputs and ``dxp`` in bf16; the port
+keeps them float32 and stores only the residuals ``hprev``/``cprev`` in
+bf16, as the reference does.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -47,6 +59,49 @@ class LSTMParams(nn.Module):
         return self.wh.shape[0]
 
 
+def uniform_(t: torch.Tensor, limit: float, generator: torch.Generator) -> torch.Tensor:
+    """Fill ``t`` with U(-limit, limit) drawn on the CPU from ``generator``
+    (so one seed gives the same weights on every device)."""
+    with torch.no_grad():
+        r = torch.rand(t.shape, generator=generator, dtype=torch.float32)
+        return t.copy_((r * 2.0 - 1.0) * limit)
+
+
+def glorot_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Glorot-uniform fill of a [fan_in, fan_out] matrix, in place."""
+    return uniform_(t, math.sqrt(6.0 / (t.shape[0] + t.shape[1])), generator)
+
+
+def glorot_lstm_(p: LSTMParams, generator: torch.Generator) -> LSTMParams:
+    """Glorot-uniform kernels (TF1 default initializer), zero bias, in place.
+
+    TF1's LSTMCell holds ONE concatenated kernel [D+U, 4U], so glorot's
+    fan-in is D+U for both halves: wx and wh share the limit
+    sqrt(6/(D+U+4U))."""
+    d, u = p.wx.shape[0], p.units
+    limit = math.sqrt(6.0 / (d + u + 4 * u))
+    uniform_(p.wx, limit, generator)
+    uniform_(p.wh, limit, generator)
+    with torch.no_grad():
+        p.b.zero_()
+    return p
+
+
+def init_lstm_params(input_dim: int, units: int, generator: torch.Generator, device=None) -> LSTMParams:
+    """The reference's ``init_lstm_params``: ``glorot_lstm_`` of fresh parameters."""
+    return glorot_lstm_(LSTMParams(input_dim, units, device), generator)
+
+
+def resolve_rnn_precision(matmul_precision: Optional[str] = None) -> str:
+    """The reference's rule, with its ambient matmul-precision scope given
+    explicitly (``LASConfig.matmul_precision``): 'highest' and 'bf16' are
+    kept; 'default', 'fastest' and 'bfloat16' map to the bf16 recurrent
+    dot; anything else (including None) to the float32 one."""
+    if matmul_precision in PRECISIONS:
+        return matmul_precision
+    return "bf16" if matmul_precision in ("default", "fastest", "bfloat16") else "highest"
+
+
 def _check_prec(prec: str) -> None:
     if prec not in PRECISIONS:
         raise ValueError(f"prec must be one of {PRECISIONS}, got {prec!r}")
@@ -63,6 +118,11 @@ def _bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def _dot_operand(x: torch.Tensor, prec: str) -> torch.Tensor:
+    """``x`` as the recurrent dots read it: float32, rounded to bf16 in bf16 mode."""
+    return _bf16_round(x) if prec == "bf16" else x.float()
+
+
 def rec_dot(h: torch.Tensor, wh: torch.Tensor, prec: str) -> torch.Tensor:
     """h @ wh at the recurrent-dot precision: float32, or bf16 operands
     with float32 accumulation (a product of two bf16 values is exact in
@@ -71,6 +131,40 @@ def rec_dot(h: torch.Tensor, wh: torch.Tensor, prec: str) -> torch.Tensor:
     if prec == "bf16":
         return torch.matmul(_bf16_round(h), _bf16_round(wh))
     return torch.matmul(h, wh)
+
+
+def _res_dtype(prec: str) -> torch.dtype:
+    """Residual storage: bf16 in bf16 mode (the dot rounds h_prev anyway,
+    so only c_prev loses precision), float32 otherwise."""
+    return torch.bfloat16 if prec == "bf16" else torch.float32
+
+
+def _time_order(t: int, reverse: bool):
+    return range(t - 1, -1, -1) if reverse else range(t)
+
+
+def _recurrence_loop(xp_tm, mask_tm, wh, forget_bias, reverse, prec, save_res):
+    """The plain step loop → (out, hprev or None, cprev or None, h, c)."""
+    _check_prec(prec)
+    t, b, four_u = xp_tm.shape
+    u = four_u // 4
+    dev = xp_tm.device
+    h = torch.zeros((b, u), dtype=torch.float32, device=dev)
+    c = torch.zeros_like(h)
+    out = torch.empty((t, b, u), dtype=torch.float32, device=dev)
+    hprev = torch.empty((t, b, u), dtype=_res_dtype(prec), device=dev) if save_res else None
+    cprev = torch.empty_like(hprev) if save_res else None
+    for tt in _time_order(t, reverse):
+        if save_res:
+            hprev[tt] = h
+            cprev[tt] = c
+        gates = xp_tm[tt] + rec_dot(h, wh, prec)
+        h_new, c_new = _cell_math(gates, c, forget_bias)
+        m = mask_tm[tt][:, None]
+        h = m * h_new + (1.0 - m) * h
+        c = m * c_new + (1.0 - m) * c
+        out[tt] = m * h_new
+    return out, hprev, cprev, h, c
 
 
 def recurrence_plain(
@@ -83,19 +177,7 @@ def recurrence_plain(
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Plain recurrence, the mirror of ``_recurrence_xla``:
     → (out [T, B, U], (h, c) final state)."""
-    _check_prec(prec)
-    t, b, four_u = xp_tm.shape
-    u = four_u // 4
-    h = torch.zeros((b, u), dtype=torch.float32, device=xp_tm.device)
-    c = torch.zeros_like(h)
-    out = torch.empty((t, b, u), dtype=torch.float32, device=xp_tm.device)
-    for tt in (range(t - 1, -1, -1) if reverse else range(t)):
-        gates = xp_tm[tt] + rec_dot(h, wh, prec)
-        h_new, c_new = _cell_math(gates, c, forget_bias)
-        m = mask_tm[tt][:, None]
-        h = m * h_new + (1.0 - m) * h
-        c = m * c_new + (1.0 - m) * c
-        out[tt] = m * h_new
+    out, _, _, h, c = _recurrence_loop(xp_tm, mask_tm, wh, forget_bias, reverse, prec, False)
     return out, (h, c)
 
 
@@ -104,6 +186,285 @@ def bidir_recurrence_plain(xpf_tm, xpb_tm, mask_tm, whf, whb, forget_bias=1.0, p
     out_f, st_f = recurrence_plain(xpf_tm, mask_tm, whf, forget_bias, False, prec)
     out_b, st_b = recurrence_plain(xpb_tm, mask_tm, whb, forget_bias, True, prec)
     return out_f, out_b, st_f, st_b
+
+
+def _check_recurrence_args(xps, mask_tm, whs, name: str) -> Tuple[int, int, int]:
+    """Shapes and types the kernels of this module take → (T, B, U)."""
+    if not 1 <= len(xps) <= 2 or len(whs) != len(xps):
+        raise ValueError(f"{name}: one or two directions, got {len(xps)} inputs and {len(whs)} weights")
+    t, b, four_u = xps[0].shape
+    u = four_u // 4
+    for xp in xps:
+        if xp.shape != (t, b, four_u) or xp.dtype != torch.float32:
+            raise ValueError(f"{name}: xp must be [T, B, 4U] float32, got {tuple(xp.shape)} {xp.dtype}")
+    for wh in whs:
+        if wh.shape != (u, four_u):
+            raise ValueError(f"{name}: wh must be [{u}, {four_u}], got {tuple(wh.shape)}")
+    if mask_tm.shape != (t, b) or mask_tm.dtype != torch.float32:
+        raise ValueError(f"{name}: mask must be [{t}, {b}] float32, got {tuple(mask_tm.shape)} {mask_tm.dtype}")
+    if four_u % 32 or four_u > 1024:
+        raise ValueError(f"{name}: the kernel takes 4U a multiple of 32 up to 1024, got 4U={four_u}")
+    return t, b, u
+
+
+def _ptrs(ts: Sequence[torch.Tensor]) -> List[Optional[int]]:
+    """Two pointer slots, the second None (NULL) for one direction."""
+    return [t.data_ptr() for t in ts] + [None] * (2 - len(ts))
+
+
+def _rev_bits(reverse: Sequence[bool]) -> int:
+    return sum(1 << d for d, r in enumerate(reverse) if r)
+
+
+def recurrence(
+    xp_tm: torch.Tensor,  # [T, B, 4U] float32
+    mask_tm: torch.Tensor,  # [T, B] float32
+    wh: torch.Tensor,  # [U, 4U]
+    forget_bias: float = 1.0,
+    reverse: bool = False,
+    prec: str = "highest",
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One direction's recurrence → (out [T, B, U], (h, c) final state),
+    with ``lax.scan(reverse=reverse)`` semantics.
+
+    Replaces ``phones_las_tpu/ops/lstm.py::_recurrence_pallas`` (the primal
+    of ``pallas_recurrence``). A CPU tensor runs ``recurrence_plain``; a
+    CUDA tensor launches ``plt_lstm_recurrence`` of ``csrc/lstm.cu`` for
+    one direction or raises."""
+    _check_prec(prec)
+    if not check_kernel_device(xp_tm, mask_tm, wh):
+        return recurrence_plain(xp_tm, mask_tm, wh, forget_bias, reverse, prec)
+    (out, _, _, h, c), = _launch_forward("plt_lstm_recurrence", [xp_tm], mask_tm, [wh], forget_bias, [reverse], prec)
+    recurrence.launches += 1
+    return out, (h, c)
+
+
+recurrence.launches = 0
+
+
+def recurrence_residual_plain(xps, mask_tm, whs, forget_bias, reverse, prec="highest"):
+    """Plain version of ``recurrence_residual``: per direction (out,
+    hprev, cprev, h, c), with hprev[t], cprev[t] the carried state before
+    step t in the direction's own order (bf16 in bf16 mode)."""
+    return [
+        _recurrence_loop(xp, mask_tm, wh, forget_bias, rev, prec, True)
+        for xp, wh, rev in zip(xps, whs, reverse)
+    ]
+
+
+def recurrence_residual(
+    xps: Sequence[torch.Tensor],  # per direction [T, B, 4U] float32
+    mask_tm: torch.Tensor,  # [T, B] float32
+    whs: Sequence[torch.Tensor],  # per direction [U, 4U]
+    forget_bias: float = 1.0,
+    reverse: Sequence[bool] = (False,),
+    prec: str = "highest",
+) -> List[Tuple[torch.Tensor, ...]]:
+    """The training forward of one or two directions → per direction
+    (out [T, B, U], hprev [T, B, U], cprev [T, B, U], h [B, U], c [B, U]);
+    hprev/cprev are the carried state before each step, bf16 in bf16 mode.
+
+    Replaces ``phones_las_tpu/ops/lstm.py::_recurrence_pallas_residual``
+    (the forward rules ``_pallas_rec_fwd`` and ``_bidir_fwd``, which call it
+    once per direction; here both directions of a layer are one launch of
+    ``plt_lstm_residual``, ``csrc/lstm.cu``). A CPU tensor runs the
+    plain version; a CUDA tensor launches the kernel or raises."""
+    _check_prec(prec)
+    if len(reverse) != len(xps):
+        raise ValueError(f"one reverse flag per direction, got {len(reverse)} for {len(xps)}")
+    if not check_kernel_device(*xps, mask_tm, *whs):
+        return recurrence_residual_plain(xps, mask_tm, whs, forget_bias, reverse, prec)
+    res = _launch_forward("plt_lstm_residual", xps, mask_tm, whs, forget_bias, reverse, prec)
+    recurrence_residual.launches += 1
+    return res
+
+
+recurrence_residual.launches = 0
+
+
+def _launch_forward(entry, xps, mask_tm, whs, forget_bias, reverse, prec):
+    t, b, u = _check_recurrence_args(xps, mask_tm, whs, entry)
+    from phones_las_torch.csrc import _build
+
+    lib = _build.library()
+    wdt = torch.bfloat16 if prec == "bf16" else torch.float32
+    xps = [x.contiguous() for x in xps]
+    whs = [w.detach().to(wdt).contiguous() for w in whs]
+    mask = mask_tm.contiguous()
+    dev = xps[0].device
+    nd = len(xps)
+    outs = [torch.empty((t, b, u), dtype=torch.float32, device=dev) for _ in range(nd)]
+    save = entry == "plt_lstm_residual"
+    hprevs = [torch.empty((t, b, u), dtype=wdt, device=dev) for _ in range(nd)] if save else []
+    cprevs = [torch.empty((t, b, u), dtype=wdt, device=dev) for _ in range(nd)] if save else []
+    hs = [torch.empty((b, u), dtype=torch.float32, device=dev) for _ in range(nd)]
+    cs = [torch.empty((b, u), dtype=torch.float32, device=dev) for _ in range(nd)]
+    err = getattr(lib, entry)(
+        *_ptrs(xps), mask.data_ptr(), *_ptrs(whs), nd, _rev_bits(reverse),
+        int(prec == "bf16"), *_ptrs(outs), *_ptrs(hprevs), *_ptrs(cprevs),
+        *_ptrs(hs), *_ptrs(cs), t, b, u, float(forget_bias),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, entry)
+    none = [None] * nd
+    return list(zip(outs, hprevs or none, cprevs or none, hs, cs))
+
+
+def recurrence_bwd_plain(xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins,
+                         forget_bias, reverse, prec="highest"):
+    """Plain version of ``recurrence_bwd``: per direction (dxp [T, B, 4U],
+    dwh [U, 4U]), a step loop that writes out the reference's equations
+    (``phones_las_tpu/ops/lstm.py:397-403``), not autograd."""
+    _check_prec(prec)
+    res = []
+    for xp, wh, hprev, cprev, dout, dh, dc, rev in zip(
+        xps, whs, hprevs, cprevs, douts, dhfins, dcfins, reverse
+    ):
+        t = xp.shape[0]
+        wh_d = _dot_operand(wh, prec)
+        hp = hprev.float()
+        gates_all = xp + torch.matmul(_dot_operand(hp, prec), wh_d)
+        dh, dc = dh.float(), dc.float()
+        dxp = torch.empty_like(xp, dtype=torch.float32)
+        for tt in _time_order(t, not rev):  # opposite order to the forward
+            m = mask_tm[tt][:, None]
+            cp = cprev[tt].float()
+            gi, gf, gg, go = torch.chunk(gates_all[tt], 4, dim=-1)
+            si, sf = torch.sigmoid(gi), torch.sigmoid(gf + forget_bias)
+            sg, so = torch.tanh(gg), torch.sigmoid(go)
+            c_new = sf * cp + si * sg
+            tch = torch.tanh(c_new)
+            dh_tot = m * (dout[tt] + dh)
+            dc_new = m * dc + dh_tot * so * (1.0 - tch * tch)
+            d_o = dh_tot * tch * so * (1.0 - so)
+            d_f = dc_new * cp * sf * (1.0 - sf)
+            d_i = dc_new * sg * si * (1.0 - si)
+            d_g = dc_new * si * (1.0 - sg * sg)
+            dgates = torch.cat([d_i, d_f, d_g, d_o], dim=-1)
+            dxp[tt] = dgates
+            dh = (1.0 - m) * dh + torch.matmul(_dot_operand(dgates, prec), wh_d.t())
+            dc = (1.0 - m) * dc + dc_new * sf
+        u4 = xp.shape[-1]
+        dwh = torch.matmul(
+            _dot_operand(hp, prec).reshape(-1, u4 // 4).t(), _dot_operand(dxp, prec).reshape(-1, u4)
+        )
+        res.append((dxp, dwh))
+    return res
+
+
+def recurrence_bwd(
+    xps: Sequence[torch.Tensor],  # per direction [T, B, 4U] float32
+    mask_tm: torch.Tensor,  # [T, B]
+    whs: Sequence[torch.Tensor],  # [U, 4U]
+    hprevs: Sequence[torch.Tensor],  # [T, B, U] residuals of recurrence_residual
+    cprevs: Sequence[torch.Tensor],
+    douts: Sequence[torch.Tensor],  # [T, B, U] cotangent of out
+    dhfins: Sequence[torch.Tensor],  # [B, U] cotangents of the final (h, c)
+    dcfins: Sequence[torch.Tensor],
+    forget_bias: float = 1.0,
+    reverse: Sequence[bool] = (False,),
+    prec: str = "highest",
+) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The LSTM VJP of one or two directions → per direction (dxp
+    [T, B, 4U] float32, dwh [U, 4U] float32).
+
+    Replaces ``phones_las_tpu/ops/lstm.py::_recurrence_pallas_bwd`` (the
+    backward rules ``_pallas_rec_bwd`` and ``_bidir_bwd``). A CPU tensor
+    runs the plain version; a CUDA tensor launches ``plt_lstm_bwd``
+    (``csrc/lstm.cu``: gate-recompute GEMM, serial reverse loop,
+    split-K dWh GEMM and its ordered reduction) or raises."""
+    _check_prec(prec)
+    nd = len(xps)
+    if not (len(reverse) == len(hprevs) == len(cprevs) == len(douts) == len(dhfins) == len(dcfins) == nd):
+        raise ValueError("recurrence_bwd: one of each argument per direction")
+    args = (*xps, mask_tm, *whs, *hprevs, *cprevs, *douts, *dhfins, *dcfins)
+    if not check_kernel_device(*args):
+        return recurrence_bwd_plain(xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins,
+                                    forget_bias, reverse, prec)
+    t, b, u = _check_recurrence_args(xps, mask_tm, whs, "plt_lstm_bwd")
+    wdt = torch.bfloat16 if prec == "bf16" else torch.float32
+    for x in (*hprevs, *cprevs):
+        if x.shape != (t, b, u) or x.dtype != wdt:
+            raise ValueError(f"plt_lstm_bwd: residuals must be [{t}, {b}, {u}] {wdt}, got {tuple(x.shape)} {x.dtype}")
+
+    from phones_las_torch.csrc import _build
+
+    lib = _build.library()
+    f32 = lambda ts: [x.float().contiguous() for x in ts]
+    xps, douts, dhfins, dcfins = f32(xps), f32(douts), f32(dhfins), f32(dcfins)
+    whs_d = [w.detach().to(wdt).contiguous() for w in whs]
+    whts = [w.t().contiguous() for w in whs_d]
+    hprevs = [x.contiguous() for x in hprevs]
+    cprevs = [x.contiguous() for x in cprevs]
+    mask = mask_tm.contiguous()
+    dev = xps[0].device
+    dxps = [torch.empty((t, b, 4 * u), dtype=torch.float32, device=dev) for _ in range(nd)]
+    dwhs = [torch.empty((u, 4 * u), dtype=torch.float32, device=dev) for _ in range(nd)]
+    # split-K of the dWh product over T*B rows: enough blocks to fill the card
+    ksplit = max(1, min(16, (t * b) // 1024))
+    partials = torch.empty((nd, ksplit, u, 4 * u), dtype=torch.float32, device=dev)
+    err = lib.plt_lstm_bwd(
+        *_ptrs(xps), mask.data_ptr(), *_ptrs(whs_d), *_ptrs(whts), *_ptrs(hprevs),
+        *_ptrs(cprevs), *_ptrs(douts), *_ptrs(dhfins), *_ptrs(dcfins), nd,
+        _rev_bits(reverse), int(prec == "bf16"), *_ptrs(dxps), *_ptrs(dwhs),
+        partials.data_ptr(), ksplit, t, b, u, float(forget_bias),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "plt_lstm_bwd")
+    recurrence_bwd.launches += 1
+    return list(zip(dxps, dwhs))
+
+
+recurrence_bwd.launches = 0
+
+
+class RecurrenceFunction(torch.autograd.Function):
+    """Differentiable one-direction recurrence, the mirror of the custom
+    VJP ``pallas_recurrence``: forward ``recurrence_residual``, backward
+    ``recurrence_bwd``. → (out [T, B, U], h, c). The mask gets no
+    gradient; a final-state cotangent that is not used arrives as zeros."""
+
+    @staticmethod
+    def forward(ctx, xp_tm, mask_tm, wh, forget_bias, reverse, prec):
+        (out, hprev, cprev, h, c), = recurrence_residual([xp_tm], mask_tm, [wh], forget_bias, [reverse], prec)
+        ctx.save_for_backward(xp_tm, mask_tm, wh, hprev, cprev)
+        ctx.static = (forget_bias, reverse, prec)
+        return out, h, c
+
+    @staticmethod
+    def backward(ctx, dout, dh, dc):
+        xp, mask, wh, hprev, cprev = ctx.saved_tensors
+        forget_bias, reverse, prec = ctx.static
+        (dxp, dwh), = recurrence_bwd(
+            [xp], mask, [wh], [hprev], [cprev], [dout], [dh], [dc], forget_bias, [reverse], prec
+        )
+        return dxp, None, dwh, None, None, None
+
+
+class BidirRecurrenceFunction(torch.autograd.Function):
+    """Differentiable two-direction recurrence, the mirror of the custom
+    VJP ``pallas_bidir_recurrence``: forward one ``recurrence_residual``
+    launch for both directions, backward one ``recurrence_bwd`` launch.
+    → (out_f, out_b, hf, cf, hb, cb)."""
+
+    @staticmethod
+    def forward(ctx, xpf, xpb, mask_tm, whf, whb, forget_bias, prec):
+        (of, hpf, cpf, hf, cf), (ob, hpb, cpb, hb, cb) = recurrence_residual(
+            [xpf, xpb], mask_tm, [whf, whb], forget_bias, [False, True], prec
+        )
+        ctx.save_for_backward(xpf, xpb, mask_tm, whf, whb, hpf, cpf, hpb, cpb)
+        ctx.static = (forget_bias, prec)
+        return of, ob, hf, cf, hb, cb
+
+    @staticmethod
+    def backward(ctx, dof, dob, dhf, dcf, dhb, dcb):
+        xpf, xpb, mask, whf, whb, hpf, cpf, hpb, cpb = ctx.saved_tensors
+        forget_bias, prec = ctx.static
+        (dxpf, dwhf), (dxpb, dwhb) = recurrence_bwd(
+            [xpf, xpb], mask, [whf, whb], [hpf, hpb], [cpf, cpb], [dof, dob], [dhf, dhb],
+            [dcf, dcb], forget_bias, [False, True], prec,
+        )
+        return dxpf, dxpb, None, dwhf, dwhb, None, None
 
 
 def bidir_recurrence(
@@ -120,54 +481,24 @@ def bidir_recurrence(
 
     Replaces ``phones_las_tpu/ops/lstm.py::_recurrence_pallas_bidir``
     (reached through ``pallas_bidir_recurrence``). A CPU tensor runs the
-    plain version; a CUDA tensor launches ``csrc/bilstm.cu`` or raises.
+    plain version; a CUDA tensor launches ``plt_lstm_recurrence`` of
+    ``csrc/lstm.cu`` once for both directions (each direction's blocks run
+    concurrently) or raises. The reference's batch chunking at 64 rows (a
+    VMEM limit) is dropped: the kernel takes any batch.
 
     The kernel's bound on the H100 at the main path's first layer
     (T = 999, B = 64, U = 256): 2·2·T·B·U·4U ≈ 67 GFLOP of float32 for the
     recurrent dots, about 1.0 ms at 67 TFLOP/s, against 0.5 GB of xp read
     and 0.13 GB of output written (≈ 0.2 ms): operations bound it in
     float32; in bf16 mode the dots count at the bf16 rate and bytes bound
-    it. Each block runs one direction for 4 rows and reads wh (1 MB in
-    float32, 512 KB in bf16 — more than a block's 227 KB of shared memory)
-    from L2 at every step, one thread per gate column; h and c stay in
-    shared memory and registers. The reference's batch chunking at 64
-    rows (a VMEM limit) is dropped: the kernel takes any batch.
+    it.
     """
     _check_prec(prec)
     if not check_kernel_device(xpf_tm, xpb_tm, mask_tm, whf, whb):
         return bidir_recurrence_plain(xpf_tm, xpb_tm, mask_tm, whf, whb, forget_bias, prec)
-
-    t, b, four_u = xpf_tm.shape
-    u = four_u // 4
-    if xpb_tm.shape != xpf_tm.shape or mask_tm.shape != (t, b):
-        raise ValueError(f"shape mismatch: {tuple(xpf_tm.shape)} {tuple(xpb_tm.shape)} {tuple(mask_tm.shape)}")
-    if whf.shape != (u, four_u) or whb.shape != (u, four_u):
-        raise ValueError(f"wh must be [{u}, {four_u}], got {tuple(whf.shape)} {tuple(whb.shape)}")
-    if four_u % 32 or four_u > 1024:
-        raise ValueError(f"the BiLSTM kernel takes 4U a multiple of 32 up to 1024, got 4U={four_u}")
-    for x in (xpf_tm, xpb_tm, mask_tm):
-        if x.dtype != torch.float32:
-            raise ValueError(f"expected float32 inputs, got {x.dtype}")
-
-    from phones_las_torch.csrc import _build
-
-    lib = _build.library()
-    wdt = torch.bfloat16 if prec == "bf16" else torch.float32
-    xpf, xpb, mask = xpf_tm.contiguous(), xpb_tm.contiguous(), mask_tm.contiguous()
-    whf_k = whf.to(wdt).contiguous()
-    whb_k = whb.to(wdt).contiguous()
-    dev = xpf.device
-    out_f = torch.empty((t, b, u), dtype=torch.float32, device=dev)
-    out_b = torch.empty_like(out_f)
-    hf, cf, hb, cb = (torch.empty((b, u), dtype=torch.float32, device=dev) for _ in range(4))
-    err = lib.plt_bilstm(
-        xpf.data_ptr(), xpb.data_ptr(), mask.data_ptr(), whf_k.data_ptr(),
-        whb_k.data_ptr(), int(prec == "bf16"), out_f.data_ptr(),
-        out_b.data_ptr(), hf.data_ptr(), cf.data_ptr(), hb.data_ptr(),
-        cb.data_ptr(), t, b, u, float(forget_bias),
-        torch.cuda.current_stream(dev).cuda_stream,
+    (out_f, _, _, hf, cf), (out_b, _, _, hb, cb) = _launch_forward(
+        "plt_lstm_recurrence", [xpf_tm, xpb_tm], mask_tm, [whf, whb], forget_bias, [False, True], prec
     )
-    _build.check(err, "plt_bilstm")
     bidir_recurrence.launches += 1
     return out_f, out_b, (hf, cf), (hb, cb)
 
@@ -180,6 +511,10 @@ def _project_tm(p: LSTMParams, x: torch.Tensor) -> torch.Tensor:
     return (torch.matmul(x, p.wx) + p.b).transpose(0, 1).contiguous()
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def lstm_layer(
     params: LSTMParams,
     x: torch.Tensor,  # [B, T, D]
@@ -190,13 +525,15 @@ def lstm_layer(
     prec: str = "highest",
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Unidirectional LSTM over a padded batch → (outputs [B, T, U] with
-    zeros past each length, (h, c) final state). Runs the plain
-    recurrence on every device: its kernel (the reference's
-    ``_recurrence_pallas``) is not ported yet."""
-    mask_tm = length_mask(lengths, x.shape[1]).transpose(0, 1)
-    out_tm, state = recurrence_plain(
-        _project_tm(params, x), mask_tm, params.wh, forget_bias, reverse, prec
-    )
+    zeros past each length, (h, c) final state). Without gradients the
+    recurrence is ``recurrence``; under gradients ``RecurrenceFunction``."""
+    mask_tm = length_mask(lengths, x.shape[1]).transpose(0, 1).contiguous()
+    xp_tm = _project_tm(params, x)
+    if _needs_grad(xp_tm, params.wh):
+        out_tm, h, c = RecurrenceFunction.apply(xp_tm, mask_tm, params.wh, forget_bias, reverse, prec)
+        state = (h, c)
+    else:
+        out_tm, state = recurrence(xp_tm, mask_tm, params.wh, forget_bias, reverse, prec)
     return out_tm.transpose(0, 1), state
 
 
@@ -210,11 +547,16 @@ def bilstm_layer(
     prec: str = "highest",
 ) -> Tuple[torch.Tensor, Tuple]:
     """Bidirectional LSTM: concat(fwd, bwd) over the feature axis
-    (``tf.nn.bidirectional_dynamic_rnn`` layout), both recurrences in one
-    ``bidir_recurrence`` call. → (out [B, T, 2U], ((hf, cf), (hb, cb)))."""
+    (``tf.nn.bidirectional_dynamic_rnn`` layout). Without gradients both
+    recurrences are one ``bidir_recurrence`` call; under gradients one
+    ``BidirRecurrenceFunction``. → (out [B, T, 2U], ((hf, cf), (hb, cb)))."""
     mask_tm = length_mask(lengths, x.shape[1]).transpose(0, 1).contiguous()
-    out_f, out_b, st_f, st_b = bidir_recurrence(
-        _project_tm(fwd, x), _project_tm(bwd, x), mask_tm, fwd.wh, bwd.wh,
-        forget_bias, prec,
-    )
+    xpf, xpb = _project_tm(fwd, x), _project_tm(bwd, x)
+    if _needs_grad(xpf, xpb, fwd.wh, bwd.wh):
+        out_f, out_b, hf, cf, hb, cb = BidirRecurrenceFunction.apply(
+            xpf, xpb, mask_tm, fwd.wh, bwd.wh, forget_bias, prec
+        )
+        st_f, st_b = (hf, cf), (hb, cb)
+    else:
+        out_f, out_b, st_f, st_b = bidir_recurrence(xpf, xpb, mask_tm, fwd.wh, bwd.wh, forget_bias, prec)
     return torch.cat([out_f, out_b], dim=-1).transpose(0, 1), (st_f, st_b)
