@@ -12,7 +12,13 @@ then:
      the main path's shapes, with the tolerance stated in each line, and
      times kernel, plain version and, where one exists, a single PyTorch
      library call computing the same function (CUDA events, median of
-     10 runs, warm L2);
+     10 runs, warm L2); for the two cluster kernels (the LSTM forward and
+     the greedy decoder) it also prints the cluster size, the rows of a
+     tile or group, what ``cudaOccupancyMaxActiveClusters`` says, shared
+     memory and registers, µs per step and the SM cycles a step spends in
+     each of its parts; then holds both on ragged cases (a batch that is no
+     multiple of the tile, rows of very different lengths, widths that
+     only a cluster of one serves) at a short T;
   2. decodes the committed checkpoint on all 64 utterances of the
      committed eval set on the card (load_artifact → encode →
      greedy_decode, launch counters set to 0 just before and read just
@@ -39,6 +45,13 @@ then:
         ``Trainer.apply_gradients``) for the split of a step into
         forward, backward and optimizer;
      d. the ops API: ``lstm_layer`` without and with gradients.
+
+``python3 chip_smoke.py --sweep`` runs none of the phases: it times the
+LSTM forward kernel under every plan it takes at the flagship width
+(cluster 8 or 16 blocks, tiles of 8 or 16 rows, both precisions, the
+serving and the ops-API shape), each held against the chosen plan's
+output, and prints one line a plan; the numbers behind the choice of
+``CLUSTER_SIZES`` in ``ops/lstm.py``.
 
 Every phase that fails ends the script with a non-zero exit code. The
 line before the last holds the card's name and power limit as
@@ -76,8 +89,14 @@ F32_FLOPS = 67e12  # float32 outside the tensor cores
 BF16_FLOPS = 989e12
 
 DEV = "cuda"
-# BiLSTM checks: (T, listener layer whose wh is used, recurrent-dot precision)
-LSTM_CASES = ((999, 0, "highest"), (999, 0, "bf16"), (250, 2, "highest"), (250, 2, "bf16"))
+# BiLSTM checks: (T, listener layer whose wh is used, recurrent-dot precision);
+# the three float32 cases are the three launches of one serving call
+LSTM_CASES = ((999, 0, "highest"), (999, 0, "bf16"), (250, 2, "highest"), (250, 2, "bf16"), (500, 1, "highest"))
+# ragged agreement checks of the LSTM forward kernel: (T, B, U), each in both
+# precisions, one and two directions, with and without the residuals
+RAGGED_LSTM = ((37, 13, 256), (20, 5, 40), (20, 9, 248))
+RAGGED_DECODER_B = 13
+RAGGED_DECODER_STEPS = 60
 DECODER_BATCHES = (8, 64)
 TRAIN_B = 32
 TRAIN_STEPS = 6
@@ -180,6 +199,31 @@ def check_frontend(cfg_fe, audio):
     return rec
 
 
+def forward_report(entry, xps, mask, whs, reverse, prec, ms=None):
+    """The plan of the forward kernel's last launch, what the card gives it,
+    and (one more launch) the SM cycles a step spends in its parts."""
+    from phones_las_torch.ops import lstm as L
+
+    plan = L._launch_forward.last_plan
+    t, _, four_u = xps[0].shape
+    info = L.forward_kernel_info(four_u // 4, prec == "bf16", entry == "plt_lstm_residual",
+                                 plan.cluster, plan.bt, plan.ksplit, plan.resident)
+    clocks = torch.zeros(4, dtype=torch.int64, device=DEV)
+    L._launch_forward(entry, xps, mask, whs, 1.0, reverse, prec, None, clocks)
+    torch.cuda.synchronize()
+    rep = {
+        "cluster": plan.cluster, "bt": plan.bt, "ksplit": plan.ksplit, "wh_in_smem": plan.resident,
+        "clusters_launched": -(-xps[0].shape[1] // plan.bt) * len(xps), **info,
+        "cycles_per_step": dict(zip(("product", "cell_update", "stores_prefetch", "h_wait"),
+                                    (c / t for c in clocks.tolist()))),
+    }
+    if ms is not None:
+        rep["us_per_step"] = ms * 1e3 / t
+    if info["smem_bytes"] != plan.smem:
+        fail(f"the kernel's shared memory ({info['smem_bytes']}) is not what forward_plan computed ({plan.smem})")
+    return rep
+
+
 def check_bilstm(params, b, t, layer, prec, seed):
     from phones_las_torch.ops.lstm import bidir_recurrence, bidir_recurrence_plain
     from phones_las_torch.ops.masking import length_mask
@@ -218,10 +262,12 @@ def check_bilstm(params, b, t, layer, prec, seed):
     nbytes = 4 * (2 * t * b * 4 * u + t * b + 2 * t * b * u + 4 * b * u) + 2 * wbytes * u * 4 * u
     flops = 2 * t * b * (2 * u * 4 * u)
     bms, by = bound(nbytes, flops, BF16_FLOPS if prec == "bf16" else F32_FLOPS)
+    ms = time_ms(lambda: bidir_recurrence(*args))
+    launch = forward_report("plt_lstm_recurrence", [xpf, xpb], mask, [pf.wh, pb.wh], [False, True], prec, ms)
     rec = {
         "phase": 1, "kernel": "bidir_recurrence", "shape": f"T={t} B={b} U={u} prec={prec}",
         "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": f"atol={atol} rtol={rtol}",
-        "ms": time_ms(lambda: bidir_recurrence(*args)),
+        "ms": ms, "launch": launch,
         "plain_ms": time_ms(lambda: bidir_recurrence_plain(*args)),
         "library_ms": time_ms(lambda: lstm(x_in)),
         "library": f"torch.nn.LSTM({d}, {u}, bidirectional=True), includes the input projection",
@@ -230,22 +276,72 @@ def check_bilstm(params, b, t, layer, prec, seed):
     emit(rec)
     if not ok:
         fail(f"BiLSTM kernel disagrees with its plain version: {rec}")
+    if launch["cluster"] <= 1 or not launch["wh_in_smem"]:
+        fail(f"the BiLSTM kernel did not run as a cluster with wh in shared memory: {launch}")
+    if launch["clusters_launched"] > launch["max_active_clusters"]:
+        fail(f"the BiLSTM kernel's clusters do not fit in one wave: {launch}")
     return rec
 
 
-def check_greedy(params, cfg, memory, enc_mask, b):
-    from phones_las_torch.decode.fused_greedy import greedy_decode_fused, greedy_decode_fused_plain
+def check_lstm_ragged(t, b, u, seed):
+    """The forward kernel on a batch that is no multiple of its tile, rows
+    of lengths from 1 to T, and (U = 40, 248) widths only a cluster of one
+    serves: both precisions, one and two directions, both entries."""
+    from phones_las_torch.ops import lstm as L
+    from phones_las_torch.ops.masking import length_mask
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    lengths = torch.randint(1, t + 1, (b,), generator=g, device=DEV)
+    lengths[0], lengths[1] = t, 1
+    mask = length_mask(lengths, t).transpose(0, 1).contiguous()
+    worst = {}
+    plans = set()
+    ok = True
+    for prec in ("highest", "bf16"):
+        tol, res_tol = (1e-5, 1e-5) if prec == "highest" else (2e-2, 3e-2)
+        for nd in (1, 2):
+            xps = [torch.randn((t, b, 4 * u), generator=g, device=DEV) for _ in range(nd)]
+            whs = [torch.randn((u, 4 * u), generator=g, device=DEV) / u ** 0.5 for _ in range(nd)]
+            rev = [False, True][:nd] if nd == 2 else [True]
+            want = L.recurrence_residual_plain(xps, mask, whs, 1.0, rev, prec)
+            got = L.recurrence_residual(xps, mask, whs, 1.0, rev, prec)
+            plans.add(tuple(L._launch_forward.last_plan))
+            if nd == 1:
+                out, (h, c) = L.recurrence(xps[0], mask, whs[0], 1.0, rev[0], prec)
+                primal = [(out, h, c)]
+            else:
+                of, ob, (hf, cf), (hb, cb) = L.bidir_recurrence(xps[0], xps[1], mask, whs[0], whs[1], 1.0, prec)
+                primal = [(of, hf, cf), (ob, hb, cb)]
+            plans.add(tuple(L._launch_forward.last_plan))
+            torch.cuda.synchronize()
+            for k, p, pr in zip(got, want, primal):
+                a, _, k_ok = compare((k[0], k[3], k[4]), (p[0], p[3], p[4]), tol, tol)
+                ar, _, r_ok = compare((k[1], k[2]), (p[1], p[2]), res_tol, res_tol)
+                ap, _, p_ok = compare(pr, (p[0], p[3], p[4]), tol, tol)
+                ok = ok and k_ok and r_ok and p_ok
+                worst[prec] = max(worst.get(prec, 0.0), a, ar, ap)
+    rec = {"phase": 1, "kernel": "lstm forward, ragged", "shape": f"T={t} B={b} U={u} lengths 1..{t}",
+           "max_abs_err": worst, "tol": "highest 1e-5; bf16 2e-2, residuals 3e-2",
+           "plans (cluster, bt, ksplit, wh_in_smem, smem_bytes)": sorted(plans), "ok": ok}
+    emit(rec)
+    if not ok:
+        fail(f"the LSTM forward kernel disagrees with its plain version on a ragged case: {rec}")
+    return rec
+
+
+def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=True):
+    from phones_las_torch.decode.fused_greedy import CLOCK_NAMES, greedy_decode_fused, greedy_decode_fused_plain
 
     sp, sc = params.speller, cfg.speller
     mem, mask = memory[:b].contiguous(), enc_mask[:b].contiguous()
-    tok, _ = greedy_decode_fused(sp, sc, mem, mask, DECODE_STEPS)
-    ptok, _ = greedy_decode_fused_plain(sp, sc, mem, mask, DECODE_STEPS)
+    tok, _ = greedy_decode_fused(sp, sc, mem, mask, steps)
+    ptok, _ = greedy_decode_fused_plain(sp, sc, mem, mask, steps)
     torch.cuda.synchronize()
     diff_rows = int((tok != ptok).any(dim=1).sum())
     t = mem.shape[1]
     # row-steps this data runs: each row up to and including its <eos>
     is_eos = (tok == sc.eos_id).int()
-    first = torch.where(is_eos.any(1), is_eos.argmax(1) + 1, torch.full_like(is_eos[:, 0], DECODE_STEPS))
+    first = torch.where(is_eos.any(1), is_eos.argmax(1) + 1, torch.full_like(is_eos[:, 0], steps))
     row_steps = int(first.sum())
     u, a, m, al, v, e = sc.units, sc.attention_units, sc.memory_dim, sc.attention_layer_size, sc.vocab_size, sc.embedding_dim
     per_step = (
@@ -253,20 +349,40 @@ def check_greedy(params, cfg, memory, enc_mask, b):
         + 2 * u * a + t * (3 * a + 2 * m + 4) + 2 * (u + m) * al + 2 * al * v
     )
     wparams = sum(p.numel() for p in sp.parameters())
-    nbytes = 4 * (b * t * (a + m + 1) + wparams + b * DECODE_STEPS)
+    nbytes = 4 * (b * t * (a + m + 1) + wparams + b * steps)
     bms, by = bound(nbytes, row_steps * per_step, F32_FLOPS)
+    clocks = torch.zeros(len(CLOCK_NAMES), dtype=torch.int64, device=DEV)
+    greedy_decode_fused(sp, sc, mem, mask, steps, clocks)
+    torch.cuda.synchronize()
+    launch = dict(greedy_decode_fused.last_launch)
+    counts = clocks.tolist()
+    steps_run = max(counts[-1], 1)  # of the first group
+    launch["steps_of_first_group"] = counts[-1]
+    launch["cycles_per_step"] = {n: c / steps_run for n, c in zip(CLOCK_NAMES[:-1], counts)}
+    # the design's own floor: the weights once a group and step, keys and
+    # memory once a row and step, all from L2
+    groups = -(-b // launch["rows"])
+    launch["l2_bytes_per_step"] = 4 * (groups * wparams + b * t * (a + m))
     rec = {
-        "phase": 1, "kernel": "greedy_decode_fused", "shape": f"B={b} T={t} steps={DECODE_STEPS}",
+        "phase": 1, "kernel": "greedy_decode_fused", "shape": f"B={b} T={t} steps={steps}",
         "max_abs_err": float((tok - ptok).abs().max()), "token_rows_differing": diff_rows,
         "tol": "tokens equal",
-        "row_steps": row_steps,
-        "ms": time_ms(lambda: greedy_decode_fused(sp, sc, mem, mask, DECODE_STEPS)),
-        "plain_ms": time_ms(lambda: greedy_decode_fused_plain(sp, sc, mem, mask, DECODE_STEPS)),
+        "row_steps": row_steps, "launch": launch,
         "library_ms": None, "bound_ms": bms, "bound_by": by,
     }
+    if timed:
+        rec["ms"] = time_ms(lambda: greedy_decode_fused(sp, sc, mem, mask, steps))
+        rec["plain_ms"] = time_ms(lambda: greedy_decode_fused_plain(sp, sc, mem, mask, steps))
+        launch["us_per_step"] = rec["ms"] * 1e3 / max(int(first.max()), 1)
+    if diff_rows:
+        bad = [{"row": r, "first_step": int((tok[r] != ptok[r]).nonzero()[0])}
+               for r in (tok != ptok).any(dim=1).nonzero().flatten().tolist()]
+        rec["rows_differing"] = bad
     emit(rec)
     if diff_rows:
         fail(f"greedy kernel tokens differ from its plain version: {rec}")
+    if timed and launch["cluster"] <= 1:
+        fail(f"the greedy kernel did not run as a cluster: {launch}")
     return rec
 
 
@@ -329,10 +445,11 @@ def check_lstm_train(params, t, layer, prec, seed):
         ok, max_abs = ok and k_ok, max(max_abs, a)
     nbytes = 4 * (t * b * 4 * u + t * b + t * b * u + 2 * b * u) + wbytes * u * 4 * u
     bms, by = bound(nbytes, dot, peak)
+    ms = time_ms(lambda: L.recurrence(xpf, mask, whs[0], 1.0, False, prec))
     recs.append({
         "phase": "4a", "kernel": "recurrence", "shape": shape + " one direction",
         "max_abs_err": max_abs, "tol": f"atol=rtol={tol}", "ok": ok,
-        "ms": time_ms(lambda: L.recurrence(xpf, mask, whs[0], 1.0, False, prec)),
+        "ms": ms, "launch": forward_report("plt_lstm_recurrence", [xpf], mask, whs[:1], [False], prec, ms),
         "plain_ms": time_ms(lambda: L.recurrence_plain(xpf, mask, whs[0], 1.0, False, prec)),
         "library_ms": lib_uni_ms, "library": f"torch.nn.LSTM({d}, {u}) forward, no grad",
         "library_fwd_bwd_ms": lib_fwd_bwd_ms, "bound_ms": bms, "bound_by": by,
@@ -350,10 +467,11 @@ def check_lstm_train(params, t, layer, prec, seed):
         ok, max_abs = ok and s_ok and r_ok, max(max_abs, a, ar)
     nbytes = 2 * (4 * t * b * 4 * u + 4 * t * b * u + 2 * rbytes * t * b * u + 4 * 2 * b * u + wbytes * u * 4 * u) + 4 * t * b
     bms, by = bound(nbytes, 2 * dot, peak)
+    ms = time_ms(lambda: L.recurrence_residual(*args))
     recs.append({
         "phase": "4a", "kernel": "recurrence_residual", "shape": shape + " both directions",
         "max_abs_err": max_abs, "tol": f"out, h, c atol=rtol={tol}; hprev, cprev atol=rtol={res_tol}", "ok": ok,
-        "ms": time_ms(lambda: L.recurrence_residual(*args)),
+        "ms": ms, "launch": forward_report("plt_lstm_residual", [xpf, xpb], mask, whs, [False, True], prec, ms),
         "plain_ms": time_ms(lambda: L.recurrence_residual_plain(*args)),
         "library_ms": lib_fwd_ms, "library": f"torch.nn.LSTM({d}, {u}, bidirectional=True) forward under grad",
         "library_fwd_bwd_ms": lib_fwd_bwd_ms, "bound_ms": bms, "bound_by": by,
@@ -608,6 +726,43 @@ def drive_lstm_layer(params, kernels):
     return launches
 
 
+def sweep_forward_plans(params) -> None:
+    """``--sweep``: the forward kernel under each plan at U = 256, T = 999."""
+    from phones_las_torch.ops import lstm as L
+    from phones_las_torch.ops.masking import length_mask
+
+    t, u = 999, 256
+    pf, pb = params.listener.layers[0]
+    entry = "plt_lstm_recurrence"
+    for b, nd in ((FLAGSHIP_B, 2), (TRAIN_B, 1)):
+        g = torch.Generator(device=DEV).manual_seed(60)
+        lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=DEV)
+        mask = length_mask(lengths, t).transpose(0, 1).contiguous()
+        xps = [torch.randn((t, b, 4 * u), generator=g, device=DEV) for _ in range(nd)]
+        whs, rev = [pf.wh, pb.wh][:nd], [False, True][:nd]
+        for prec in ("highest", "bf16"):
+            want = L._launch_forward(entry, xps, mask, whs, 1.0, rev, prec)
+            chosen = L._launch_forward.last_plan
+            for c in (8, 16):
+                for bt in L.ROW_TILES:
+                    ks = L._ksplit(u, c, bt, prec == "bf16")
+                    smem = L.forward_smem_bytes(u, c, bt, ks, True, prec == "bf16")
+                    if smem > L.SMEM_MAX:
+                        continue
+                    plan = L.ForwardPlan(c, bt, ks, True, smem)
+                    got = L._launch_forward(entry, xps, mask, whs, 1.0, rev, prec, plan)
+                    torch.cuda.synchronize()
+                    err, _, _ = compare([k[0] for k in got], [k[0] for k in want], 0.0, 0.0)
+                    ms = time_ms(lambda: L._launch_forward(entry, xps, mask, whs, 1.0, rev, prec, plan), reps=5)
+                    info = L.forward_kernel_info(u, prec == "bf16", False, c, bt, ks, True)
+                    emit({
+                        "sweep": "lstm forward", "shape": f"T={t} B={b} U={u} nd={nd} prec={prec}",
+                        "cluster": c, "bt": bt, "ksplit": ks, "chosen": plan == chosen,
+                        "clusters_launched": -(-b // bt) * nd, **info, "ms": ms, "us_per_step": ms * 1e3 / t,
+                        "max_abs_diff_to_chosen_plan": err,
+                    })
+
+
 def reset_counters(kernels) -> None:
     for fn in kernels:
         fn.launches = 0
@@ -648,6 +803,10 @@ def main() -> int:
 
     ckpt = os.path.join(ASSETS, "ckpt.npz")
     params, cfg, _ = load_artifact(ckpt, device=None if DEV == "cuda" else DEV)
+    if sys.argv[1:] == ["--sweep"]:
+        sweep_forward_plans(params)
+        print(card, flush=True)
+        return 0
 
     # ---- phase 1: each kernel against its plain version, at main-path shapes
     audio64 = torch.from_numpy(make_audio(FLAGSHIP_B)).to(DEV)
@@ -657,8 +816,17 @@ def main() -> int:
         check_bilstm(params, FLAGSHIP_B, t, layer, prec, seed=10 + i)
         for i, (t, layer, prec) in enumerate(LSTM_CASES)
     ]
+    for i, (t, b, u) in enumerate(RAGGED_LSTM):
+        check_lstm_ragged(t, b, u, seed=40 + i)
     memory, _, enc_mask = encode(params, cfg, audio64, full_len)
     dec_recs = [check_greedy(params, cfg, memory, enc_mask, b) for b in DECODER_BATCHES]
+    # a batch that is no multiple of the group, rows of very different lengths
+    g = torch.Generator(device=DEV).manual_seed(50)
+    t_enc = memory.shape[1]
+    rag_len = torch.randint(1, t_enc + 1, (RAGGED_DECODER_B,), generator=g, device=DEV)
+    rag_len[0], rag_len[1] = t_enc, 1
+    check_greedy(params, cfg, memory, length_mask(rag_len, t_enc), RAGGED_DECODER_B,
+                 steps=RAGGED_DECODER_STEPS, timed=False)
 
     # ---- phase 2: the committed checkpoint on the committed eval set
     data = np.load(os.path.join(ASSETS, "eval_set.npz"), allow_pickle=False)

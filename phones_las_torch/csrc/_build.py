@@ -38,7 +38,7 @@ last_build_seconds = 0.0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_LSTM_FWD = (_P,) * 5 + (_I, _I, _I) + (_P,) * 10 + (_I, _I, _I, _F, _P)
+_LSTM_FWD = (_P,) * 5 + (_I, _I, _I) + (_P,) * 10 + (_I, _I, _I, _F, _I, _I, _I, _I, _P, _P)
 # C entry points: (argtypes) — every pointer and the stream are c_void_p,
 # or ctypes would pass them as 32-bit ints and cut them
 _SIGNATURES = {
@@ -46,17 +46,19 @@ _SIGNATURES = {
     "plt_fused_logmel": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # xp0, xp1, mask, wh0, wh1, nd, rev_bits, wh_bf16, out0, out1, hprev0,
     # hprev1, cprev0, cprev1, hfin0, hfin1, cfin0, cfin1, T, B, U,
-    # forget_bias, stream
+    # forget_bias, cluster, bt, ksplit, resident, clocks, stream
     "plt_lstm_recurrence": _LSTM_FWD,
     "plt_lstm_residual": _LSTM_FWD,
+    # U, wh_bf16, save_res, cluster, bt, ksplit, resident, info[4]
+    "plt_lstm_fwd_info": (_I,) * 7 + (_P,),
     # xp0, xp1, mask, wh0, wh1, wht0, wht1, hprev0, hprev1, cprev0, cprev1,
     # dout0, dout1, dhfin0, dhfin1, dcfin0, dcfin1, nd, rev_bits, wh_bf16,
     # dxp0, dxp1, dwh0, dwh1, partials, ksplit, T, B, U, forget_bias, stream
     "plt_lstm_bwd": (_P,) * 17 + (_I, _I, _I) + (_P,) * 5 + (_I, _I, _I, _I, _F, _P),
     # keys, mem, mask, B, T, A, M, emb, V, E, wq, v, attn_w, AL, out_w,
-    # out_b, cell_ptrs, n_cells, U, bos, eos, steps, tokens, stream
+    # out_b, cell_ptrs, n_cells, U, bos, eos, steps, cluster, tokens, info[4], clocks, stream
     "plt_greedy_decode": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P,
-                          _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+                          _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
 }
 
 

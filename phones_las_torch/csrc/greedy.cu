@@ -3,8 +3,8 @@
 // Replaces the Pallas TPU kernel phones_las_tpu/decode/pallas_greedy.py:
 // greedy_decode_fused (kernel body _kernel).
 //
-// What it computes: the whole greedy decode of one utterance, state kept
-// across steps. Each step, from the previous token (first <bos>):
+// What it computes: the whole greedy decode of a batch, state kept across
+// steps. Each step, from the previous token (first <bos>), for every row:
 //   x      = [embedding[token]; attention vector]
 //   cells  = n LSTM cells, gates = x@wx + b + h@wh, forget bias 1.0
 //            (hard-coded, as in the reference kernel), gate order (i,f,g,o)
@@ -14,41 +14,78 @@
 //   ctx    = probs @ memory
 //   attn   = [cell_out; ctx] @ attention_layer
 //   token  = argmax(attn @ out_w + out_b)       (first index of the maximum)
-// A row stops computing once it has emitted <eos> and writes <eos> for the
-// remaining steps. This masked softmax differs from attention_scores's
-// where(mask, s, -1e9) softmax only for a row with no valid position, where
-// it gives zero weights instead of uniform ones; it is reproduced exactly.
+// A row that has emitted <eos> writes <eos> for the remaining steps. This
+// masked softmax differs from attention_scores's where(mask, s, -1e9)
+// softmax only for a row with no valid position, where it gives zero weights
+// instead of uniform ones; it is reproduced exactly.
 //
-// Design. The TPU kernel runs groups of 8 rows one after another on its one
-// core and keeps state in VMEM across the step axis of its grid. Here one
-// block decodes one batch row and loops over the steps inside the block, so
-// rows decode in parallel on different SMs and each block stops on its own
-// <eos>. The token, the finished flag, the attention vector and every cell's
-// h and c live in shared memory. The row's keys [T, A] and memory [T, M] are
-// staged in shared memory when they fit (T = 41: 42 KB + 84 KB) and read from
-// L2 otherwise (T = 250: 768 KB). The embedding row is gathered, which is
-// bit-identical to the reference's one-hot product. The weights (about 5.5 MB
-// in float32 for the flagship speller) are read from L2 at every step with
-// one thread per output column, coalesced.
+// What bounds it on this card. At the main path's shape (B = 64, T = 250,
+// up to 200 steps, the checkpoint's 2 x 256 cells) a row and step is about
+// 3.3 MFLOP of float32, so the operations bound is about 0.6 ms at
+// 67 TFLOP/s for 64 x 200 row-steps. That bound assumes the operands lie
+// on chip. They do not: the speller's weights are 5.6 MB in float32 and a
+// row's keys and memory 768 KB, more than a cluster's shared memory
+// (8 x 227 KB), so both stream from L2 at every step. The first port ran
+// one block a row, each re-reading all weights (408 MB of L2 traffic a step
+// at B = 64) with one thread per output column and a serial k loop: 200 us
+// a step, latency of dependent L2 loads.
 //
-// Bound at the main path's shape (B = 64, T = 250, up to 200 steps, the
-// checkpoint's 2 x 256 cells): per row and step about 3.3 MFLOP of float32
-// (the cell dots dominate), so operations bound it when rows run to the cap
-// (about 0.6 ms at 67 TFLOP/s for 64 x 200 row-steps); the keys and memory
-// are 49 MB. This simple form waits on the per-step weight reads from L2.
+// Design: a cluster of C blocks decodes a group of R = 8 rows (the TPU
+// kernel's own group) and loops over the steps inside the kernel; groups
+// run in parallel (grid = C * ceil(B/8)).
+//   - Dense stages (each cell, wq, the attention layer): block c owns a
+//     slice of the output columns (for a cell a slice of units with their
+//     four gates, so the cell update is local) and computes it for all 8
+//     rows: each weight element is loaded once per cluster and step, as
+//     16-byte loads with several in flight, and used 8 times from
+//     registers (8 rows x 4 columns a thread, k split over the warps, the
+//     partial sums met in shared memory). Weight traffic is B/8 x 5.6 MB a
+//     step (45 MB at B = 64). The caller regroups the weights so that a
+//     block's slice is contiguous (decode/fused_greedy.py).
+//   - Activations move through distributed shared memory: a block stores
+//     its slice of h, q, the context and the attention vector into the
+//     shared memory of the blocks that read it, and one cluster barrier
+//     ends the stage (five a step); h is double-buffered, because a cell
+//     reads the last step's h while its peers already write this step's.
+//   - Attention is per row: block c takes row c of the group (rows c,
+//     c + C, ... when C < 8). Scores: a warp per encoder position, lanes
+//     over A in 16-byte loads; block-wide max and sum; the context is split
+//     over T as well as M; positions past the last valid one are skipped
+//     (their weight is exactly zero). Keys and memory stream from L2:
+//     768 KB a row and step, 49 MB a step at B = 64.
+//   - The logits (V = 26 columns) and the argmax are computed by every
+//     block for all 8 rows from the same broadcast attention vector, by the
+//     same instructions, so all blocks hold the same tokens and finished
+//     flags without another exchange; block 0 writes the tokens.
+//   - A group stops when all its rows have emitted <eos> (the TPU kernel's
+//     predicate); a finished row in a live group writes <eos>, skips its
+//     attention, and its other results are discarded. Rows past B in the
+//     last group start finished.
+// With the weights, ~94 MB of L2 traffic a step at B = 64 is this design's
+// own floor: ~17 us a step at ~5.5 TB/s, 3.4 ms for 200 steps.
+//
+// Prediction, made before the first run on the card: 25-40 us a step at
+// B = 64 (5-8 ms for 200 steps against 40.9 ms), the scores' 64 k tanhf a
+// row (~9 us on one SM) and the L2 streams the largest parts, and B = 8
+// (one cluster) no slower than B = 64.
 //
 // Precision: float32 throughout, as the reference kernel's HIGHEST dots.
+// Sums run in another order than the plain version's (k split in parts).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float NEG = -1e9f;
-constexpr int THREADS = 1024;
-// bytes of dynamic shared memory a block may use: the 232448 of the card
-// less room for the kernel's static token and finished flags
-constexpr size_t SMEM_MAX = 232448 - 64;
+constexpr int THREADS = 512;
+constexpr int NWARPS = THREADS / 32;
+constexpr int DR = 8;  // rows of a group = rows of a thread's register tile
+constexpr int SCORE_T = 8;  // encoder positions a warp scores at a time
+constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block may use
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -64,189 +101,542 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-size_t state_floats(int T, int A, int M, int V, int E, int AL, int U, int n_cells) {
-  return (size_t)(E + AL) + 2 * n_cells * U + 4 * U + A + T + U + M + V + 1;
+struct DecArgs {
+  const float* keys;    // [B, T, A]
+  const float* mem;     // [B, T, M]
+  const float* mask;    // [B, T]
+  const float* emb;     // [V, E]
+  const float* wq;      // [C][U][A/C]
+  const float* v;       // [A]
+  const float* attn_w;  // [C][U + M][AL/C]
+  const float* out_w;   // [AL, V]
+  const float* out_b;   // [V]
+  const float* const* cells;  // per cell: [C][din + U][4U/C] (wx over wh), [C][4U/C] bias
+  int B, T, A, M, V, E, AL, U, n_cells, bos, eos, steps, C;
+};
+
+// float offsets of a block's shared memory
+struct DecLayout {
+  int Kmax;  // widest staged input: max(E + AL + U, 2U, U + M)
+  int ldo;   // row stride of the transposed out_w: AL + 4, so that the rows of
+             // neighbouring vocabulary entries start in different banks
+  size_t stage, hbuf, cst, attn, q, ctx, part, outw, outb, emb, bias, sc, mk, v, lg, red, total;  // in floats
+};
+
+__host__ __device__ inline size_t pad4(size_t n) { return (n + 3) / 4 * 4; }
+__host__ __device__ inline size_t smax(size_t x, size_t y) { return x > y ? x : y; }
+
+__host__ __device__ inline DecLayout dec_layout(int T, int A, int M, int V, int E, int AL,
+                                                int U, int n_cells, int C) {
+  DecLayout L;
+  L.Kmax = (int)smax(smax(E + AL + U, 2 * U), U + M);
+  size_t off = 0;
+  L.stage = off, off += (size_t)DR * L.Kmax;
+  L.hbuf = off, off += (size_t)n_cells * 2 * DR * U;
+  L.cst = off, off += (size_t)n_cells * DR * (U / C);
+  L.attn = off, off += (size_t)DR * AL;
+  L.q = off, off += (size_t)DR * A;
+  L.ctx = off, off += (size_t)DR * M;
+  const size_t widest = smax(smax(4 * U / C, A / C), AL / C);  // columns of a dense stage
+  // partial sums: a dense stage's [k parts][8][columns], the context's [T
+  // parts][M], the logits' [k parts][8][V]
+  L.part = off, off += smax(smax((size_t)THREADS * 4 * DR, DR * widest),
+                            smax(smax((size_t)THREADS * 4, (size_t)M), pad4((size_t)NWARPS * DR * V)));
+  // small operands that every step reads: out_w transposed, out_b, the
+  // embedding table, this block's slices of the cells' biases
+  L.ldo = AL + 4;
+  L.outw = off, off += (size_t)V * L.ldo;
+  L.outb = off, off += pad4(V);
+  L.emb = off, off += (size_t)V * E;
+  L.bias = off, off += (size_t)n_cells * 4 * (U / C);
+  L.sc = off, off += pad4(T);
+  L.mk = off, off += pad4(T);
+  L.v = off, off += pad4(A);
+  L.lg = off, off += pad4((size_t)DR * V);
+  L.red = off, off += 64;
+  L.total = off;
+  return L;
 }
 
-__global__ void __launch_bounds__(THREADS)
-greedy_kernel(const float* __restrict__ keys, const float* __restrict__ mem,
-              const float* __restrict__ mask, const float* __restrict__ emb,
-              const float* __restrict__ wq, const float* __restrict__ v,
-              const float* __restrict__ attn_w, const float* __restrict__ out_w,
-              const float* __restrict__ out_b, const float* const* __restrict__ cells,
-              int T, int A, int M, int V, int E, int AL, int U, int n_cells,
-              int bos, int eos, int steps, int staged, int* __restrict__ tokens) {
-  extern __shared__ float smem[];
-  __shared__ int tok_s, fin_s;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
-  const int G = 4 * U;
-
-  float* x_s = smem;                       // [E + AL]: embedding | attention vector
-  float* hc_s = x_s + E + AL;              // [n_cells][h U | c U]
-  float* gates_s = hc_s + 2 * n_cells * U;  // [4U]
-  float* q_s = gates_s + G;                // [A]
-  float* sc_s = q_s + A;                   // [T] scores, then weights
-  float* cat_s = sc_s + T;                 // [U + M]: cell output | context
-  float* lg_s = cat_s + U + M;             // [V]
-  float* sum_s = lg_s + V;                 // [1] softmax denominator
-  float* kv_s = sum_s + 1;                 // staged keys [T, A] | memory [T, M]
-
-  const float* K = keys + (long)b * T * A;
-  const float* Mm = mem + (long)b * T * M;
-  const float* mk = mask + (long)b * T;
-  if (staged) {
-    for (int i = tid; i < T * A; i += nthreads) kv_s[i] = K[i];
-    for (int i = tid; i < T * M; i += nthreads) kv_s[T * A + i] = Mm[i];
-    K = kv_s;
-    Mm = kv_s + T * A;
+// part[ks][r][col] = sum over k part ks of in[r][k] * w[k][col] for the 8
+// rows of the group; w [K, ncols] streams from L2, an item = (k part, 4
+// columns) a thread -> the number of k parts
+__device__ __forceinline__ int dense(const float* __restrict__ w, int K, int ncols,
+                                     const float* __restrict__ in, int ldin,
+                                     float* __restrict__ part) {
+  const int ncg = ncols / 4, k4n = K / 4;
+  const int KS = max(1, min(THREADS / ncg, k4n));
+  const int kper = (k4n + KS - 1) / KS;
+  for (int item = threadIdx.x; item < ncg * KS; item += THREADS) {
+    const int cgi = item % ncg, ks = item / ncg;
+    const int kb = ks * kper, ke = min(k4n, kb + kper);
+    float acc[DR][4];
+#pragma unroll
+    for (int r = 0; r < DR; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
+    const float* wp = w + cgi * 4;
+#pragma unroll 2
+    for (int k4 = kb; k4 < ke; ++k4) {
+      const float4 w0 = __ldg(reinterpret_cast<const float4*>(wp + (size_t)(4 * k4) * ncols));
+      const float4 w1 = __ldg(reinterpret_cast<const float4*>(wp + (size_t)(4 * k4 + 1) * ncols));
+      const float4 w2 = __ldg(reinterpret_cast<const float4*>(wp + (size_t)(4 * k4 + 2) * ncols));
+      const float4 w3 = __ldg(reinterpret_cast<const float4*>(wp + (size_t)(4 * k4 + 3) * ncols));
+#pragma unroll
+      for (int r = 0; r < DR; ++r) {
+        const float4 x = *reinterpret_cast<const float4*>(in + r * ldin + 4 * k4);
+        acc[r][0] = fmaf(x.x, w0.x, acc[r][0]);
+        acc[r][1] = fmaf(x.x, w0.y, acc[r][1]);
+        acc[r][2] = fmaf(x.x, w0.z, acc[r][2]);
+        acc[r][3] = fmaf(x.x, w0.w, acc[r][3]);
+        acc[r][0] = fmaf(x.y, w1.x, acc[r][0]);
+        acc[r][1] = fmaf(x.y, w1.y, acc[r][1]);
+        acc[r][2] = fmaf(x.y, w1.z, acc[r][2]);
+        acc[r][3] = fmaf(x.y, w1.w, acc[r][3]);
+        acc[r][0] = fmaf(x.z, w2.x, acc[r][0]);
+        acc[r][1] = fmaf(x.z, w2.y, acc[r][1]);
+        acc[r][2] = fmaf(x.z, w2.z, acc[r][2]);
+        acc[r][3] = fmaf(x.z, w2.w, acc[r][3]);
+        acc[r][0] = fmaf(x.w, w3.x, acc[r][0]);
+        acc[r][1] = fmaf(x.w, w3.y, acc[r][1]);
+        acc[r][2] = fmaf(x.w, w3.z, acc[r][2]);
+        acc[r][3] = fmaf(x.w, w3.w, acc[r][3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < DR; ++r)
+      *reinterpret_cast<float4*>(part + ((size_t)(ks * DR + r) * ncols + cgi * 4)) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
   }
-  for (int i = tid; i < AL; i += nthreads) x_s[E + i] = 0.0f;
-  for (int i = tid; i < 2 * n_cells * U; i += nthreads) hc_s[i] = 0.0f;
-  if (tid == 0) {
-    tok_s = bos;
-    fin_s = 0;
+  return KS;
+}
+
+// sum over the k parts of one output, in a fixed order: four chains, so
+// that the loads of a chain do not wait for its adds
+__device__ __forceinline__ float gather(const float* part, int KS, int ncols, int r, int col) {
+  const float* p = part + (size_t)r * ncols + col;
+  const size_t stride = (size_t)DR * ncols;
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int ks = 0;
+  for (; ks + 4 <= KS; ks += 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j] += p[(ks + j) * stride];
+  }
+  for (; ks < KS; ++ks) s[0] += p[ks * stride];
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+// n floats (a multiple of 4, 16-byte aligned) by 64 threads, l0 this one's index
+__device__ __forceinline__ void copy_row(float* dst, const float* src, int n, int l0) {
+  for (int i = l0; i < n / 4; i += 64)
+    reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(src)[i];
+}
+
+// This block's columns [c0, c0 + n) of a [8][ld] buffer, already written
+// in its own copy, to the same place in every other block of the cluster,
+// as 16-byte stores (n a multiple of 4). The caller synchronises the block
+// before and the cluster after.
+__device__ __forceinline__ void share_columns(cg::cluster_group& cluster, float* buf, int ld,
+                                              int c0, int n, int C, int rank) {
+  const int nq = n / 4, total = DR * nq * (C - 1);
+  for (int i = threadIdx.x; i < total; i += THREADS) {
+    const int p = i / (DR * nq), j = i - p * DR * nq;
+    const int r = j / nq, q = j - r * nq;
+    float* mine = buf + r * ld + c0 + 4 * q;
+    const int peer = p + (p >= rank);
+    *reinterpret_cast<float4*>(cluster.map_shared_rank(mine, peer)) =
+        *reinterpret_cast<const float4*>(mine);
+  }
+}
+
+// block-wide max or sum of one value a thread; red holds 32 floats
+template <bool MAX>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  v = MAX ? warp_max(v) : warp_sum(v);
+  __syncthreads();  // red may still be read from the last reduction
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = lane < NWARPS ? red[lane] : (MAX ? -CUDART_INF_F : 0.0f);
+  return MAX ? warp_max(v) : warp_sum(v);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clocks) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int tok_s[DR], fin_s[DR], tlen_s[DR];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = a.C, rank = (int)cluster.block_rank();
+  const int row0 = (blockIdx.x / C) * DR;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int T = a.T, A = a.A, M = a.M, V = a.V, E = a.E, AL = a.AL, U = a.U;
+  const int Us = U / C, Nc = 4 * Us, Ac = A / C, ALc = AL / C;
+  const DecLayout L = dec_layout(T, A, M, V, E, AL, U, a.n_cells, C);
+  float* stage_s = smem + L.stage;  // [8][Kmax] a dense stage's input
+  float* h_s = smem + L.hbuf;       // [n_cells][2][8][U]
+  float* c_s = smem + L.cst;        // [n_cells][8][Us] this block's units
+  float* attn_s = smem + L.attn;    // [8][AL]
+  float* q_s = smem + L.q;          // [8][A] (the rows this block attends for)
+  float* ctx_s = smem + L.ctx;      // [8][M]
+  float* part_s = smem + L.part;
+  float* outw_s = smem + L.outw;    // [V][ldo] out_w transposed
+  float* outb_s = smem + L.outb;    // [V]
+  float* emb_s = smem + L.emb;      // [V][E]
+  float* bias_s = smem + L.bias;    // [n_cells][4 Us] this block's slices
+  float* sc_s = smem + L.sc;        // [T] scores, then weights
+  float* mk_s = smem + L.mk;        // [T]
+  float* v_s = smem + L.v;          // [A]
+  float* lg_s = smem + L.lg;        // [8][V]
+  float* red_s = smem + L.red;
+
+  for (size_t i = tid; i < L.total; i += THREADS) smem[i] = 0.0f;
+  __syncthreads();
+  for (int i = tid; i < A; i += THREADS) v_s[i] = a.v[i];
+  for (int i = tid; i < V * AL; i += THREADS)
+    outw_s[(i / AL) * L.ldo + i % AL] = a.out_w[(size_t)(i % AL) * V + i / AL];
+  for (int i = tid; i < V; i += THREADS) outb_s[i] = a.out_b[i];
+  for (int i = tid; i < V * E; i += THREADS) emb_s[i] = a.emb[i];
+  for (int i = tid; i < a.n_cells * Nc; i += THREADS)
+    bias_s[i] = a.cells[2 * (i / Nc) + 1][(size_t)rank * Nc + i % Nc];
+  if (tid < DR) {
+    tok_s[tid] = a.bos;
+    fin_s[tid] = row0 + tid >= a.B;  // rows past the batch start finished
+    tlen_s[tid] = 0;
+  }
+  // one past the last valid encoder position of the rows this block attends for
+  for (int r = rank + C * warp; r < DR; r += C * NWARPS) {
+    if (row0 + r >= a.B) continue;
+    int last = 0;
+    for (int t = lane; t < T; t += 32)
+      if (a.mask[(size_t)(row0 + r) * T + t] != 0.0f) last = t + 1;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) last = max(last, __shfl_xor_sync(0xffffffffu, last, o));
+    if (lane == 0) tlen_s[r] = last;
   }
   __syncthreads();
+  // no block may store into a peer before that peer has zeroed its buffers
+  cluster.sync();
 
-  int* out = tokens + (long)b * steps;
-  for (int s = 0; s < steps; ++s) {
-    if (fin_s) {  // uniform: read after a barrier, written before one
-      for (int i = s + tid; i < steps; i += nthreads) out[i] = eos;
-      break;
+  // clocks (optional, 16 counters): SM cycles thread 0 of block 0 spent in
+  // 0-3 the cells (input staging, product, cell update and stores, barrier),
+  // 4-5 the query (product, exchange and barrier), 6 the scores, 7 the
+  // softmax, 8 the context, 9 its exchange and barrier, 10-12 the attention
+  // layer (staging, product, exchange and barrier), 13 the logits, 14 the
+  // argmax; 15 counts the steps
+  const bool timed = clocks != nullptr && tid == 0 && blockIdx.x == 0;
+  long long tick = timed ? clock64() : 0;
+  auto lap = [&](int i) {
+    if (timed) {
+      const long long now = clock64();
+      clocks[i] += now - tick;
+      tick = now;
     }
-    for (int e = tid; e < E; e += nthreads) x_s[e] = emb[(long)tok_s * E + e];
-    __syncthreads();
+  };
+  int s = 0;
+  for (; s < a.steps; ++s) {
+    bool all_fin = true;
+#pragma unroll
+    for (int r = 0; r < DR; ++r) all_fin = all_fin && fin_s[r];
+    if (all_fin) break;  // the same in every block of the cluster
+    const int cur = s & 1, nxt = cur ^ 1;
 
-    // LSTM cell stack
-    const float* xin = x_s;
-    int din = E + AL;
-    for (int l = 0; l < n_cells; ++l) {
-      const float* wx = cells[3 * l];
-      const float* wh = cells[3 * l + 1];
-      const float* bb = cells[3 * l + 2];
-      float* h = hc_s + 2 * l * U;
-      float* c = h + U;
-      for (int j = tid; j < G; j += nthreads) {
-        float ax = 0.0f, ah = 0.0f;
-#pragma unroll 8
-        for (int k = 0; k < din; ++k) ax = fmaf(xin[k], wx[(long)k * G + j], ax);
-#pragma unroll 8
-        for (int k = 0; k < U; ++k) ah = fmaf(h[k], wh[(long)k * G + j], ah);
-        gates_s[j] = (ax + bb[j]) + ah;
+    // LSTM cell stack: block `rank` owns units [rank*Us, (rank+1)*Us)
+    for (int l = 0; l < a.n_cells; ++l) {
+      const int din = l == 0 ? E + AL : U, K = din + U;
+      float* hl = h_s + (size_t)l * 2 * DR * U;
+      // [input; h of the last step], a row a pair of warps
+      for (int r = warp >> 1; r < DR; r += NWARPS / 2) {
+        const int l0 = lane + 32 * (warp & 1);
+        float* dst = stage_s + r * K;
+        if (l > 0) {
+          copy_row(dst, hl - 2 * DR * U + (nxt * DR + r) * U, U, l0);
+        } else {
+          copy_row(dst, emb_s + tok_s[r] * E, E, l0);
+          copy_row(dst + E, attn_s + r * AL, AL, l0);
+        }
+        copy_row(dst + din, hl + (cur * DR + r) * U, U, l0);
       }
       __syncthreads();
-      for (int u = tid; u < U; u += nthreads) {
-        const float gi = gates_s[u], gf = gates_s[U + u];
-        const float gg = gates_s[2 * U + u], go = gates_s[3 * U + u];
-        const float c_new = sigmoidf(gf + 1.0f) * c[u] + sigmoidf(gi) * tanhf(gg);
-        c[u] = c_new;
-        h[u] = sigmoidf(go) * tanhf(c_new);
+      lap(0);
+      const float* bias = bias_s + l * Nc;
+      const int KS = dense(a.cells[2 * l] + (size_t)rank * K * Nc, K, Nc, stage_s, K, part_s);
+      __syncthreads();
+      lap(1);
+      float* cl = c_s + (size_t)l * DR * Us;
+      for (int i = tid; i < DR * Us; i += THREADS) {
+        const int r = i / Us, u = i - r * Us;
+        const float gi = gather(part_s, KS, Nc, r, u) + bias[u];
+        const float gf = gather(part_s, KS, Nc, r, Us + u) + bias[Us + u];
+        const float gg = gather(part_s, KS, Nc, r, 2 * Us + u) + bias[2 * Us + u];
+        const float go = gather(part_s, KS, Nc, r, 3 * Us + u) + bias[3 * Us + u];
+        const float c_new = sigmoidf(gf + 1.0f) * cl[i] + sigmoidf(gi) * tanhf(gg);
+        const float h_new = sigmoidf(go) * tanhf(c_new);
+        cl[i] = c_new;
+        hl[(nxt * DR + r) * U + rank * Us + u] = h_new;
       }
       __syncthreads();
-      xin = h;
-      din = U;
+      share_columns(cluster, hl + nxt * DR * U, U, rank * Us, Us, C, rank);
+      lap(2);
+      cluster.sync();
+      lap(3);
+    }
+    const float* hout = h_s + ((size_t)(a.n_cells - 1) * 2 + nxt) * DR * U;  // [8][U]
+
+    // query: block `rank` owns A/C columns; row r's go to the block that attends for it
+    {
+      const int KS = dense(a.wq + (size_t)rank * U * Ac, U, Ac, hout, U, part_s);
+      __syncthreads();
+      lap(4);
+      for (int i = tid; i < DR * Ac; i += THREADS) {
+        const int r = i / Ac, c = i - r * Ac;
+        *cluster.map_shared_rank(q_s + r * A + rank * Ac + c, r % C) =
+            gather(part_s, KS, Ac, r, c);
+      }
+      cluster.sync();
+      lap(5);
     }
 
-    // query, and the cell output into [cell_out; ctx]
-    for (int a = tid; a < A; a += nthreads) {
-      float acc = 0.0f;
-#pragma unroll 8
-      for (int k = 0; k < U; ++k) acc = fmaf(xin[k], wq[(long)k * A + a], acc);
-      q_s[a] = acc;
-    }
-    for (int u = tid; u < U; u += nthreads) cat_s[u] = xin[u];
-    __syncthreads();
-
-    // additive scores: one warp per encoder position
-    for (int t = warp; t < T; t += nwarps) {
-      float acc = 0.0f;
-      for (int a = lane; a < A; a += 32) acc += tanhf(K[(long)t * A + a] + q_s[a]) * v[a];
-      acc = warp_sum(acc);
-      if (lane == 0) sc_s[t] = acc + (1.0f - mk[t]) * NEG;
-    }
-    __syncthreads();
-
-    // masked softmax: exp(s - max) * mask / max(sum, 1e-30)
-    if (warp == 0) {
+    // attention of this block's rows: scores, masked softmax, context
+    for (int r = rank; r < DR; r += C) {
+      if (fin_s[r]) continue;
+      const int tl = tlen_s[r];
+      const float* Kr = a.keys + (size_t)(row0 + r) * T * A;
+      const float* Mr = a.mem + (size_t)(row0 + r) * T * M;
+      for (int t = tid; t < tl; t += THREADS) mk_s[t] = a.mask[(size_t)(row0 + r) * T + t];
+      __syncthreads();
+      // a warp takes SCORE_T positions at a time, so that many key loads are
+      // in flight before the first tanhf
+      for (int t0 = warp * SCORE_T; t0 < tl; t0 += NWARPS * SCORE_T) {
+        float acc[SCORE_T];
+#pragma unroll
+        for (int j = 0; j < SCORE_T; ++j) acc[j] = 0.0f;
+        for (int a4 = lane; a4 < A / 4; a4 += 32) {
+          float4 k[SCORE_T];
+#pragma unroll
+          for (int j = 0; j < SCORE_T; ++j)
+            k[j] = __ldg(reinterpret_cast<const float4*>(Kr + (size_t)min(t0 + j, tl - 1) * A) + a4);
+          const float4 q = *reinterpret_cast<const float4*>(q_s + r * A + 4 * a4);
+          const float4 vv = *reinterpret_cast<const float4*>(v_s + 4 * a4);
+#pragma unroll
+          for (int j = 0; j < SCORE_T; ++j) {
+            if (t0 + j >= tl) break;
+            acc[j] += tanhf(k[j].x + q.x) * vv.x;
+            acc[j] += tanhf(k[j].y + q.y) * vv.y;
+            acc[j] += tanhf(k[j].z + q.z) * vv.z;
+            acc[j] += tanhf(k[j].w + q.w) * vv.w;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < SCORE_T; ++j) {
+          const float sum = warp_sum(acc[j]);
+          if (lane == 0 && t0 + j < tl) sc_s[t0 + j] = sum + (1.0f - mk_s[t0 + j]) * NEG;
+        }
+      }
+      __syncthreads();
+      lap(6);
+      // exp(s - max) * mask / max(sum, 1e-30); a row with no valid position has tl = 0
       float mx = -CUDART_INF_F;
-      for (int t = lane; t < T; t += 32) mx = fmaxf(mx, sc_s[t]);
-      mx = warp_max(mx);
+      for (int t = tid; t < tl; t += THREADS) mx = fmaxf(mx, sc_s[t]);
+      mx = block_reduce<true>(mx, red_s);
       float sum = 0.0f;
-      for (int t = lane; t < T; t += 32) {
-        const float e = expf(sc_s[t] - mx) * mk[t];
+      for (int t = tid; t < tl; t += THREADS) {
+        const float e = expf(sc_s[t] - mx) * mk_s[t];
         sc_s[t] = e;
         sum += e;
       }
-      sum = warp_sum(sum);
-      if (lane == 0) sum_s[0] = fmaxf(sum, 1e-30f);
-    }
-    __syncthreads();
-    for (int t = tid; t < T; t += nthreads) sc_s[t] = sc_s[t] / sum_s[0];
-    __syncthreads();
-
-    // context
-    for (int m = tid; m < M; m += nthreads) {
-      float acc = 0.0f;
-      for (int t = 0; t < T; ++t) acc = fmaf(sc_s[t], Mm[(long)t * M + m], acc);
-      cat_s[U + m] = acc;
-    }
-    __syncthreads();
-
-    // attention vector, written where the next step's cell input reads it
-    for (int n = tid; n < AL; n += nthreads) {
-      float acc = 0.0f;
+      sum = fmaxf(block_reduce<false>(sum, red_s), 1e-30f);
+      for (int t = tid; t < tl; t += THREADS) sc_s[t] = sc_s[t] / sum;
+      __syncthreads();
+      lap(7);
+      // context: an item = (part of T, 4 columns of M)
+      const int mq = M / 4;
+      const int TS = max(1, THREADS / mq), tper = (tl + TS - 1) / TS;
+      for (int item = tid; item < mq * TS; item += THREADS) {
+        const int m4 = item % mq, ts = item / mq;
+        const int tb = ts * tper, te = min(tl, tb + tper);
+        float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll 8
-      for (int k = 0; k < U + M; ++k) acc = fmaf(cat_s[k], attn_w[(long)k * AL + n], acc);
-      x_s[E + n] = acc;
+        for (int t = tb; t < te; ++t) {
+          const float p = sc_s[t];
+          const float4 mv = __ldg(reinterpret_cast<const float4*>(Mr + (size_t)t * M) + m4);
+          acc.x = fmaf(p, mv.x, acc.x);
+          acc.y = fmaf(p, mv.y, acc.y);
+          acc.z = fmaf(p, mv.z, acc.z);
+          acc.w = fmaf(p, mv.w, acc.w);
+        }
+        *reinterpret_cast<float4*>(part_s + (size_t)ts * M + 4 * m4) = acc;
+      }
+      __syncthreads();
+      lap(8);
+      for (int m = tid; m < M; m += THREADS) {
+        float c = part_s[m];
+        for (int ts = 1; ts < TS; ++ts) c += part_s[(size_t)ts * M + m];
+        ctx_s[r * M + m] = c;
+      }
+      __syncthreads();  // part_s, sc_s and mk_s are reused by the next row
+      for (int i = tid; i < (C - 1) * (M / 4); i += THREADS) {  // the row to every block
+        const int p = i / (M / 4), q = i - p * (M / 4);
+        float* mine = ctx_s + r * M + 4 * q;
+        *reinterpret_cast<float4*>(cluster.map_shared_rank(mine, p + (p >= rank))) =
+            *reinterpret_cast<const float4*>(mine);
+      }
     }
-    __syncthreads();
+    cluster.sync();
+    lap(9);
 
-    // logits: one warp per vocabulary entry
-    for (int o = warp; o < V; o += nwarps) {
-      float acc = 0.0f;
-      for (int k = lane; k < AL; k += 32) acc += x_s[E + k] * out_w[(long)k * V + o];
-      acc = warp_sum(acc);
-      if (lane == 0) lg_s[o] = acc + out_b[o];
+    // attention vector: block `rank` owns AL/C columns, written where the
+    // next step's first cell and the logits read it
+    {
+      const int K = U + M;
+      for (int r = warp >> 1; r < DR; r += NWARPS / 2) {
+        const int l0 = lane + 32 * (warp & 1);
+        copy_row(stage_s + r * K, hout + r * U, U, l0);
+        copy_row(stage_s + r * K + U, ctx_s + r * M, M, l0);
+      }
+      __syncthreads();
+      lap(10);
+      const int KS = dense(a.attn_w + (size_t)rank * K * ALc, K, ALc, stage_s, K, part_s);
+      __syncthreads();
+      lap(11);
+      for (int i = tid; i < DR * ALc; i += THREADS) {
+        const int r = i / ALc, c = i - r * ALc;
+        attn_s[r * AL + rank * ALc + c] = gather(part_s, KS, ALc, r, c);
+      }
+      __syncthreads();
+      share_columns(cluster, attn_s, AL, rank * ALc, ALc, C, rank);
+      cluster.sync();
+      lap(12);
     }
-    __syncthreads();
 
-    if (tid == 0) {
-      int best = 0;
-      for (int o = 1; o < V; ++o)
-        if (lg_s[o] > lg_s[best]) best = o;
-      out[s] = best;
-      tok_s = best;
-      fin_s = best == eos;
+    // logits of all 8 rows in every block: a warp per part of k, a lane per
+    // vocabulary entry, all 8 rows a thread (out_w is read once a block)
+    {
+      const int kq = AL / 4, kper = (kq + NWARPS - 1) / NWARPS;  // in float4s
+      const int kb = warp * kper, ke = min(kq, kb + kper);
+      for (int o = lane; o < V; o += 32) {
+        const float4* w = reinterpret_cast<const float4*>(outw_s + o * L.ldo);
+        float acc[DR];
+#pragma unroll
+        for (int r = 0; r < DR; ++r) acc[r] = 0.0f;
+        for (int k = kb; k < ke; ++k) {
+          const float4 wv = w[k];
+#pragma unroll
+          for (int r = 0; r < DR; ++r) {
+            const float4 x = reinterpret_cast<const float4*>(attn_s + r * AL)[k];
+            acc[r] = fmaf(x.x, wv.x, acc[r]);
+            acc[r] = fmaf(x.y, wv.y, acc[r]);
+            acc[r] = fmaf(x.z, wv.z, acc[r]);
+            acc[r] = fmaf(x.w, wv.w, acc[r]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < DR; ++r) part_s[(warp * DR + r) * V + o] = acc[r];
+      }
+      __syncthreads();
+      for (int i = tid; i < DR * V; i += THREADS) {
+        float sum = 0.0f;
+#pragma unroll
+        for (int ks = 0; ks < NWARPS; ++ks) sum += part_s[ks * DR * V + i];
+        lg_s[i] = sum + outb_s[i % V];
+      }
     }
     __syncthreads();
+    lap(13);
+    // argmax, the first index of the maximum: a warp per row
+    if (warp < DR) {
+      const int r = warp;
+      float best = -CUDART_INF_F;
+      int bi = V;
+      for (int o = lane; o < V; o += 32) {
+        const float x = lg_s[r * V + o];
+        if (x > best || bi == V) best = x, bi = o;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+        if (oi < V && (bi == V || ob > best || (ob == best && oi < bi))) best = ob, bi = oi;
+      }
+      if (lane == 0) {
+        const int token = fin_s[r] ? a.eos : bi;
+        tok_s[r] = token;
+        fin_s[r] = fin_s[r] || token == a.eos;
+        if (rank == 0 && row0 + r < a.B) tokens[(size_t)(row0 + r) * a.steps + s] = token;
+      }
+    }
+    __syncthreads();
+    lap(14);
+    if (timed) clocks[15] += 1;
   }
+  // <eos> for the steps the group did not run
+  if (rank == 0)
+    for (int r = 0; r < DR && row0 + r < a.B; ++r)
+      for (int i = s + tid; i < a.steps; i += THREADS)
+        tokens[(size_t)(row0 + r) * a.steps + i] = a.eos;
+}
+
+bool bad_shape(const DecArgs& a) {
+  const int C = a.C;
+  if (a.B <= 0 || a.T <= 0 || a.n_cells <= 0 || a.steps < 0 || a.V <= 0) return true;
+  if (C < 1 || C > 8) return true;
+  // 16-byte loads of every input row and weight slice
+  if (a.E % 4 || a.AL % 8 || a.U % 4 || a.A % 4 || a.M % 4) return true;
+  if (a.U % C || a.A % (4 * C) || a.AL % (4 * C)) return true;
+  const DecLayout L = dec_layout(a.T, a.A, a.M, a.V, a.E, a.AL, a.U, a.n_cells, C);
+  return L.total * sizeof(float) > SMEM_MAX;
+}
+
+cudaError_t prepare(const DecArgs& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  const DecLayout L = dec_layout(a.T, a.A, a.M, a.V, a.E, a.AL, a.U, a.n_cells, a.C);
+  const size_t smem = L.total * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(greedy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = a.C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->gridDim = dim3(a.C * ((a.B + DR - 1) / DR));
+  cfg->blockDim = dim3(THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
 
+// The whole greedy decode -> tokens [B, steps]. wq, attn_w and the cells'
+// weights are regrouped into `cluster` column slices (see DecArgs); info, if
+// not null, receives what the card gives this launch: info[0] = clusters it
+// can run at once (cudaOccupancyMaxActiveClusters), info[1] = dynamic
+// shared memory bytes a block, info[2] = registers a thread, info[3] =
+// static shared memory bytes; clocks is null or 16 cycle counters the kernel
+// adds to (see the kernel).
 extern "C" int plt_greedy_decode(const float* keys, const float* mem, const float* mask,
                                  int B, int T, int A, int M, const float* emb, int V,
                                  int E, const float* wq, const float* v,
                                  const float* attn_w, int AL, const float* out_w,
                                  const float* out_b, const void* cell_ptrs, int n_cells,
-                                 int U, int bos, int eos, int steps, int* tokens,
-                                 void* stream) {
-  if (B <= 0 || n_cells <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t base = sizeof(float) * state_floats(T, A, M, V, E, AL, U, n_cells);
-  const size_t with_kv = base + sizeof(float) * (size_t)T * (A + M);
-  const int staged = with_kv <= SMEM_MAX;
-  const size_t smem = staged ? with_kv : base;
-  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        greedy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                 int U, int bos, int eos, int steps, int cluster,
+                                 int* tokens, int* info, long long* clocks, void* stream) {
+  DecArgs a{keys, mem, mask, emb, wq, v, attn_w, out_w, out_b,
+            static_cast<const float* const*>(cell_ptrs),
+            B, T, A, M, V, E, AL, U, n_cells, bos, eos, steps, cluster};
+  if (bad_shape(a)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cudaError_t e = prepare(a, &cfg, &attr);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  if (info) {
+    e = cudaOccupancyMaxActiveClusters(&info[0], greedy_kernel, &cfg);
     if (e != cudaSuccess) return static_cast<int>(e);
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, greedy_kernel);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    info[1] = (int)cfg.dynamicSmemBytes;
+    info[2] = fa.numRegs;
+    info[3] = (int)fa.sharedSizeBytes;
   }
-  greedy_kernel<<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      keys, mem, mask, emb, wq, v, attn_w, out_w, out_b,
-      static_cast<const float* const*>(cell_ptrs), T, A, M, V, E, AL, U, n_cells,
-      bos, eos, steps, staged, tokens);
-  return static_cast<int>(cudaGetLastError());
+  e = cudaLaunchKernelEx(&cfg, greedy_kernel, a, tokens, clocks);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }

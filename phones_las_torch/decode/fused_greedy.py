@@ -2,18 +2,26 @@
 PyTorch version.
 
 Replaces the Pallas kernel ``phones_las_tpu/decode/pallas_greedy.py::
-greedy_decode_fused``. One CUDA block decodes one batch row and loops
-over the steps inside the block, with the token, finished flag, attention
-vector and every cell's h/c in shared memory, and the row's keys and
-memory staged there when they fit. The reference runs 8-row groups one
-after another on its single core, which confined it to batch ≤ 8; on the
-H100 blocks run in parallel, so the kernel serves every batch size.
+greedy_decode_fused``. A thread-block cluster of C blocks decodes a group
+of ``GROUP_ROWS`` = 8 batch rows (the reference kernel's own group) and
+loops over the steps inside the kernel; groups run in parallel, so every
+batch size is served. In the dense stages (the cells, ``wq``, the
+attention layer) each block owns a slice of the output columns and
+computes it for all 8 rows, so a weight is read once per group and step;
+activations travel between the blocks through distributed shared memory,
+one cluster barrier a stage; attention runs per row, one row a block. A
+group stops when all its rows have emitted <eos>; the last group is padded
+with rows that start finished. The layout work the kernel needs
+(``column_slices``: each block's weight slice made contiguous) and the
+choice of C (``decoder_plan``) are here, where the CPU tests reach them.
 
-Bound on the H100 at the main path's shape (B = 64, T = 250, 200 steps,
-2 × 256 cells): about 3.3 MFLOP of float32 per row and step, so
-operations bound it (≈ 0.6 ms at 67 TFLOP/s when every row runs to the
-cap; a row that emits <eos> stops), against 49 MB of keys and memory.
-The kernel re-reads the speller weights (≈ 5.5 MB) from L2 at every step.
+Bounds on the H100 at the main path's shape (B = 64, T = 250, 200 steps,
+2 × 256 cells): about 3.3 MFLOP of float32 per row and step, ≈ 0.6 ms at
+67 TFLOP/s when every row runs to the cap — if the operands lay on chip.
+The weights (≈ 5.6 MB) and a row's keys and memory (768 KB) exceed a
+cluster's shared memory, so they stream from L2 each step: ≈ 94 MB a step
+at B = 64, which at ≈ 5.5 TB/s is the design's own floor of ≈ 17 µs a
+step (3.4 ms for 200 steps).
 
 Reproduced exactly from the reference kernel: the forget bias
 hard-coded to 1.0, float32 dots, and the masked softmax
@@ -23,7 +31,8 @@ hard-coded to 1.0, float32 dots, and the masked softmax
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,6 +41,14 @@ from phones_las_torch.ops.attention import precompute_keys
 from phones_las_torch.utils.device import check_kernel_device
 
 _NEG = -1e9
+GROUP_ROWS = 8  # rows a cluster decodes together
+DECODER_CLUSTERS = (8, 4, 2, 1)  # cluster sizes, tried in this order
+# what the kernel's optional cycle counters count, in order
+CLOCK_NAMES = (
+    "cell_staging", "cell_product", "cell_update", "cell_barrier", "query_product", "query_exchange",
+    "scores", "softmax", "context", "context_exchange", "layer_staging", "layer_product",
+    "layer_exchange", "logits", "argmax", "steps",
+)
 
 
 def supports(cfg: SpellerConfig) -> bool:
@@ -95,17 +112,61 @@ def greedy_decode_fused_plain(
     return tokens, decoded_lengths(tokens, cfg.eos_id)
 
 
+class DecoderPlan(NamedTuple):
+    """How one launch of the decoder kernel cuts its work."""
+
+    cluster: int  # C: blocks of a cluster = column slices of every dense stage
+    rows: int  # rows of a group (GROUP_ROWS)
+    groups: int  # clusters of the launch: ceil(B / rows)
+
+
+def decoder_plan(b: int, cfg: SpellerConfig) -> DecoderPlan:
+    """The kernel's cluster size for a batch and a config — a pure function.
+
+    C is the largest of ``DECODER_CLUSTERS`` that cuts the units, the
+    attention units and the attention layer into slices of a multiple of 4
+    columns (16-byte loads). Raises for widths the kernel does not take:
+    every width must be a multiple of 4."""
+    widths = {
+        "embedding_dim": cfg.embedding_dim, "units": cfg.units, "attention_units": cfg.attention_units,
+        "attention_layer_size": cfg.attention_layer_size, "memory_dim": cfg.memory_dim,
+    }
+    odd = {k: v for k, v in widths.items() if v % 4}
+    if odd or b < 1:
+        raise ValueError(f"the fused greedy decoder takes a batch >= 1 and widths that are multiples of 4, got B={b}, {odd}")
+    for c in DECODER_CLUSTERS:
+        if cfg.units % (4 * c) == 0 and cfg.attention_units % (4 * c) == 0 and cfg.attention_layer_size % (4 * c) == 0:
+            return DecoderPlan(c, GROUP_ROWS, -(-b // GROUP_ROWS))
+    raise AssertionError("unreachable: C = 1 takes every width that is a multiple of 4")
+
+
+def column_slices(w: torch.Tensor, c: int, gates: int = 1) -> torch.Tensor:
+    """``w [..., gates·N]`` (gate-major columns) → ``[C, ..., gates·N/C]``:
+    slice ``s`` holds columns ``[s·N/C, (s+1)·N/C)`` of every gate side by
+    side, contiguous, as block ``s`` of a cluster streams them."""
+    n = w.shape[-1] // gates
+    if w.shape[-1] != gates * n or n % c:
+        raise ValueError(f"column_slices: {tuple(w.shape)} does not cut into {c} slices of {gates} gates")
+    lead = w.shape[:-1]
+    x = w.reshape(*lead, gates, c, n // c)
+    return x.movedim(-2, 0).reshape(c, *lead, gates * (n // c)).contiguous()
+
+
 def greedy_decode_fused(
     params: SpellerParams,
     cfg: SpellerConfig,
     memory: torch.Tensor,  # [B, T, M] float32
     enc_mask: torch.Tensor,  # [B, T]
     max_steps: int,
+    clocks: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (tokens [B, max_steps] <eos>-padded, lengths [B]).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel (built at first use) or raises."""
+    kernel (built at first use) or raises. ``clocks`` (measurements
+    only), an int64 CUDA tensor of 16, receives the SM cycles the first
+    block spent in each part of a step (``CLOCK_NAMES``) and, last, the
+    steps it ran."""
     if not supports(cfg):
         raise ValueError("the fused greedy decoder takes bahdanau attention with an attention layer")
     if memory.ndim != 3 or memory.dtype != torch.float32:
@@ -125,26 +186,41 @@ def greedy_decode_fused(
     from phones_las_torch.csrc import _build
 
     lib = _build.library()
+    plan = decoder_plan(b, cfg)
+    c = plan.cluster
     dev = memory.device
     keys = precompute_keys(params.attention, memory).contiguous()
     mem = memory.contiguous()
     mask = enc_mask.to(torch.float32).contiguous()
-    w = [x.detach().to(torch.float32).contiguous() for x in weights]
-    emb, wq, v, attn_w, out_w, out_b = w[:6]
-    cell_ptrs = torch.tensor([x.data_ptr() for x in w[6:]], dtype=torch.int64, device=dev)
+    f32 = lambda x: x.detach().to(torch.float32).contiguous()
+    emb, v, out_w, out_b = f32(params.embedding), f32(params.attention.v), f32(params.out_w), f32(params.out_b)
+    wq = column_slices(f32(params.attention.wq), c)
+    attn_w = column_slices(f32(params.attention_layer), c)
+    cells = []  # per cell: wx over wh [C, din + U, 4U/C], bias [C, 4U/C]
+    for cell in params.cells:
+        cells += [column_slices(torch.cat([f32(cell.wx), f32(cell.wh)]), c, gates=4),
+                  column_slices(f32(cell.b), c, gates=4)]
+    cell_ptrs = torch.tensor([x.data_ptr() for x in cells], dtype=torch.int64, device=dev)
     tokens = torch.empty((b, max_steps), dtype=torch.int32, device=dev)
+    info = (ctypes.c_int * 4)()
     err = lib.plt_greedy_decode(
         keys.data_ptr(), mem.data_ptr(), mask.data_ptr(), b, t,
         cfg.attention_units, m, emb.data_ptr(), cfg.vocab_size,
         cfg.embedding_dim, wq.data_ptr(), v.data_ptr(), attn_w.data_ptr(),
         cfg.attention_layer_size, out_w.data_ptr(), out_b.data_ptr(),
         cell_ptrs.data_ptr(), len(params.cells), cfg.units, cfg.bos_id,
-        cfg.eos_id, max_steps, tokens.data_ptr(),
+        cfg.eos_id, max_steps, c, tokens.data_ptr(), info,
+        None if clocks is None else clocks.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "plt_greedy_decode")
     greedy_decode_fused.launches += 1
+    greedy_decode_fused.last_launch = {
+        "cluster": c, "rows": plan.rows, "groups": plan.groups, "max_active_clusters": info[0],
+        "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3],
+    }
     return tokens, decoded_lengths(tokens, cfg.eos_id)
 
 
 greedy_decode_fused.launches = 0
+greedy_decode_fused.last_launch = None  # plan and occupancy of the last launch, for reports

@@ -21,6 +21,18 @@ CPU tensors:
   also saves the carried state before each step, and ``recurrence_bwd``
   backward.
 
+The forward kernel is one template launched as thread-block clusters: a
+cluster of C blocks runs one direction for a tile of Bt batch rows over
+all T steps, block c owning units ``[c·U/C, (c+1)·U/C)`` with their four
+gate columns and holding that slice of ``wh`` in shared memory for the
+whole time loop; each step the blocks exchange their h slices through
+distributed shared memory and meet at one cluster barrier. What of this
+is layout and choice lives here, where the CPU tests reach it:
+``regroup_wh``/``ungroup_wh`` (``wh`` by unit slice) and ``forward_plan``
+(C, Bt, the k split and the shared-memory bytes from the shape, a pure
+function); ``tests/test_torch_cluster_layout.py`` emulates the
+decomposition in plain PyTorch on them.
+
 Recurrent-dot precision is an explicit argument ``prec`` (the reference
 reads it from the ambient ``jax.default_matmul_precision`` scope):
 'highest' is float32; 'bf16' rounds h and wh to bf16 and accumulates in
@@ -32,8 +44,10 @@ bf16, as the reference does.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -282,32 +296,172 @@ def recurrence_residual(
 recurrence_residual.launches = 0
 
 
-def _launch_forward(entry, xps, mask_tm, whs, forget_bias, reverse, prec):
+# the forward kernel's constants, as csrc/lstm.cu has them
+FWD_THREADS = 256
+SMEM_MAX = 232448  # dynamic shared memory a block may use on the H100
+CLUSTER_SIZES = (8, 4, 2, 1)  # tried in this order; 8 is the portable maximum
+ROW_TILES = (8, 16)
+XP_RING = 3  # xp tiles a block keeps in flight
+
+
+class ForwardPlan(NamedTuple):
+    """How one launch of the forward kernel cuts its work."""
+
+    cluster: int  # C: blocks of a cluster = slices of the units
+    bt: int  # batch rows of a cluster's tile
+    ksplit: int  # float32: parts the k range is split into among the warps
+    resident: bool  # the block's wh slice lies in shared memory
+    smem: int  # dynamic shared memory bytes of a block
+
+
+def regroup_wh(wh: torch.Tensor, c: int) -> torch.Tensor:
+    """``wh [U, 4U]`` (gate-major columns i|f|g|o) → ``[C, U, 4·U/C]``:
+    slice ``s`` holds, for units ``[s·U/C, (s+1)·U/C)``, their four gate
+    columns side by side, so a block's cell update is local."""
+    u = wh.shape[0]
+    if wh.shape != (u, 4 * u) or u % c:
+        raise ValueError(f"regroup_wh: wh must be [U, 4U] with U a multiple of C={c}, got {tuple(wh.shape)}")
+    return wh.reshape(u, 4, c, u // c).permute(2, 0, 1, 3).reshape(c, u, 4 * (u // c)).contiguous()
+
+
+def ungroup_wh(wg: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``regroup_wh``: ``[C, U, 4·U/C]`` → ``[U, 4U]``."""
+    c, u, nc = wg.shape
+    return wg.reshape(c, u, 4, nc // 4).permute(1, 2, 0, 3).reshape(u, 4 * u).contiguous()
+
+
+def _kernel_wh(wh: torch.Tensor, c: int, prec: str) -> torch.Tensor:
+    """``wh`` as the forward kernel reads it: float32 ``[C, U, 4·U/C]``, or
+    for the tensor cores bf16 ``[C, 4·U/C, K]`` with k contiguous and zero
+    padded to K = U rounded up to 16."""
+    wg = regroup_wh(wh.detach(), c)
+    if prec != "bf16":
+        return wg.to(torch.float32).contiguous()
+    u = wg.shape[1]
+    wt = wg.to(torch.bfloat16).transpose(1, 2)
+    return torch.nn.functional.pad(wt, (0, -u % 16)).contiguous()
+
+
+def forward_smem_bytes(u: int, c: int, bt: int, ksplit: int, resident: bool, bf16: bool) -> int:
+    """A block's dynamic shared memory, as ``fwd_layout`` of csrc/lstm.cu
+    lays it out: the wh slice, two h buffers, the partial sums, three xp
+    tiles (gates and mask) and the state (c, h, out)."""
+    us = u // c
+    nc = 4 * us
+    kp = -(-u // 16) * 16
+    if bf16:
+        w = nc * (kp + 8) * 2
+        h = 2 * 16 * (kp + 8) * 2
+    else:
+        w = u * nc * 4
+        h = 2 * bt * u * 4
+    return (w if resident else 0) + h + ksplit * bt * nc * 4 + XP_RING * (bt * nc + bt) * 4 + 3 * bt * us * 4
+
+
+def _ksplit(u: int, c: int, bt: int, bf16: bool) -> int:
+    """float32: as many k parts as give every thread an item of 8 rows × 4
+    columns (at most 16, at most one part per 4 k); bf16: the tensor-core
+    product is not split."""
+    if bf16:
+        return 1
+    items = (bt // 8) * (u // c)
+    return max(1, min(16, FWD_THREADS // items, u // 4))
+
+
+def forward_plan(
+    b: int, u: int, nd: int, prec: str = "highest",
+    max_active: Optional[Callable[[int, int, int, bool], int]] = None,
+) -> ForwardPlan:
+    """The forward kernel's (C, Bt, k split) for a shape — a pure function.
+
+    C is the largest of ``CLUSTER_SIZES`` that divides U into slices of a
+    multiple of 8 units whose wh slice fits in shared memory beside the
+    rest; if none does, C = 1 streams wh from L2. Bt is the smallest tile
+    (the shortest step) whose ``ceil(B/Bt)·nd`` clusters the card runs at
+    once, as ``max_active(C, Bt, ksplit, resident)`` says (on the card:
+    ``cudaOccupancyMaxActiveClusters``); without that knowledge, or if no
+    tile fits in one wave, the largest tile that fits in shared memory.
+    Raises for a U the kernel does not take."""
+    _check_prec(prec)
+    if u % 8 or not 0 < 4 * u <= 1024:
+        raise ValueError(f"the kernel takes 4U a multiple of 32 up to 1024, got 4U={4 * u}")
+    bf16 = prec == "bf16"
+    for c, resident in [(c, True) for c in CLUSTER_SIZES] + [(1, False)]:
+        if u % c or (u // c) % 8:
+            continue
+        fits = []
+        for bt in ROW_TILES:
+            ks = _ksplit(u, c, bt, bf16)
+            smem = forward_smem_bytes(u, c, bt, ks, resident, bf16)
+            if smem <= SMEM_MAX:
+                fits.append(ForwardPlan(c, bt, ks, resident, smem))
+        if not fits:
+            continue
+        if max_active is not None:
+            for plan in fits:
+                if -(-b // plan.bt) * nd <= max_active(plan.cluster, plan.bt, plan.ksplit, plan.resident):
+                    return plan
+            return fits[-1]
+        return fits[0] if b <= fits[0].bt else fits[-1]
+    raise ValueError(f"no plan of the forward kernel fits U={u} in shared memory")
+
+
+@functools.lru_cache(maxsize=None)
+def forward_kernel_info(u: int, bf16: bool, save_res: bool, c: int, bt: int, ksplit: int, resident: bool) -> dict:
+    """What the card gives one plan of the forward kernel (built at first
+    use): the clusters it runs at once, its dynamic and static shared
+    memory bytes and its registers a thread."""
+    from phones_las_torch.csrc import _build
+
+    info = (ctypes.c_int * 4)()
+    err = _build.library().plt_lstm_fwd_info(u, int(bf16), int(save_res), c, bt, ksplit, int(resident), info)
+    _build.check(err, "plt_lstm_fwd_info")
+    return {"max_active_clusters": info[0], "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3]}
+
+
+def _launch_forward(entry, xps, mask_tm, whs, forget_bias, reverse, prec, plan: Optional[ForwardPlan] = None,
+                    clocks: Optional[torch.Tensor] = None):
+    """One launch of the forward kernel. ``plan`` overrides ``forward_plan``
+    (measurements only); ``clocks``, an int64 CUDA tensor of 4, receives the
+    SM cycles one block spent in the product, the cell update, the output
+    stores and the wait for the peers' h."""
     t, b, u = _check_recurrence_args(xps, mask_tm, whs, entry)
     from phones_las_torch.csrc import _build
 
     lib = _build.library()
-    wdt = torch.bfloat16 if prec == "bf16" else torch.float32
+    bf16 = prec == "bf16"
+    save = entry == "plt_lstm_residual"
+    nd = len(xps)
+    if plan is None:
+        plan = forward_plan(
+            b, u, nd, prec,
+            lambda c, bt, ks, res: forward_kernel_info(u, bf16, save, c, bt, ks, res)["max_active_clusters"],
+        )
+    wdt = torch.bfloat16 if bf16 else torch.float32
     xps = [x.contiguous() for x in xps]
-    whs = [w.detach().to(wdt).contiguous() for w in whs]
+    whs = [_kernel_wh(w, plan.cluster, prec) for w in whs]
     mask = mask_tm.contiguous()
     dev = xps[0].device
-    nd = len(xps)
     outs = [torch.empty((t, b, u), dtype=torch.float32, device=dev) for _ in range(nd)]
-    save = entry == "plt_lstm_residual"
     hprevs = [torch.empty((t, b, u), dtype=wdt, device=dev) for _ in range(nd)] if save else []
     cprevs = [torch.empty((t, b, u), dtype=wdt, device=dev) for _ in range(nd)] if save else []
     hs = [torch.empty((b, u), dtype=torch.float32, device=dev) for _ in range(nd)]
     cs = [torch.empty((b, u), dtype=torch.float32, device=dev) for _ in range(nd)]
     err = getattr(lib, entry)(
         *_ptrs(xps), mask.data_ptr(), *_ptrs(whs), nd, _rev_bits(reverse),
-        int(prec == "bf16"), *_ptrs(outs), *_ptrs(hprevs), *_ptrs(cprevs),
+        int(bf16), *_ptrs(outs), *_ptrs(hprevs), *_ptrs(cprevs),
         *_ptrs(hs), *_ptrs(cs), t, b, u, float(forget_bias),
+        plan.cluster, plan.bt, plan.ksplit, int(plan.resident),
+        None if clocks is None else clocks.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, entry)
+    _launch_forward.last_plan = plan
     none = [None] * nd
     return list(zip(outs, hprevs or none, cprevs or none, hs, cs))
+
+
+_launch_forward.last_plan = None  # the plan of the last launch, for reports
 
 
 def recurrence_bwd_plain(xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins,
@@ -482,8 +636,8 @@ def bidir_recurrence(
     Replaces ``phones_las_tpu/ops/lstm.py::_recurrence_pallas_bidir``
     (reached through ``pallas_bidir_recurrence``). A CPU tensor runs the
     plain version; a CUDA tensor launches ``plt_lstm_recurrence`` of
-    ``csrc/lstm.cu`` once for both directions (each direction's blocks run
-    concurrently) or raises. The reference's batch chunking at 64 rows (a
+    ``csrc/lstm.cu`` once for both directions (each direction's clusters
+    run concurrently; ``forward_plan`` cuts the work) or raises. The reference's batch chunking at 64 rows (a
     VMEM limit) is dropped: the kernel takes any batch.
 
     The kernel's bound on the H100 at the main path's first layer
