@@ -12,7 +12,10 @@ then:
      the main path's shapes, with the tolerance stated in each line, and
      times kernel, plain version and, where one exists, a single PyTorch
      library call computing the same function (CUDA events, median of
-     10 runs, warm L2); for the two cluster kernels (the LSTM forward and
+     10 runs, warm L2); the front-end kernel also at the eval set's shape,
+     under an odd window and hop and at transforms of 1024 and 2048
+     points (smaller frame tiles), with the SM cycles one block spends
+     in each part; for the two cluster kernels (the LSTM forward and
      the greedy decoder) it also prints the cluster size, the rows of a
      tile or group, what ``cudaOccupancyMaxActiveClusters`` says, shared
      memory and registers, µs per step and the SM cycles a step spends in
@@ -31,7 +34,11 @@ then:
      a. holds the three training LSTM kernels (``recurrence``,
         ``recurrence_residual``, ``recurrence_bwd``) against their plain
         versions at B = 32 and the listener's widths, and times them as
-        phase 1 does, beside cuDNN's ``torch.nn.LSTM``;
+        phase 1 does, beside cuDNN's ``torch.nn.LSTM``; for the VJP it
+        also prints the plan of its cluster kernel, what the card gives
+        it, µs per step, the SM cycles a step spends in each part, the
+        milliseconds of each of its four kernels and whether two runs
+        are bitwise equal, and holds it on the ragged cases of phase 1;
      b. one step of the committed checkpoint on the eval set
         (``compute_loss(train=False)``, backward, one optimizer step) on
         the card and on the CPU plain path: loss, every gradient leaf and
@@ -50,8 +57,18 @@ then:
 LSTM forward kernel under every plan it takes at the flagship width
 (cluster 8 or 16 blocks, tiles of 8 or 16 rows, both precisions, the
 serving and the ops-API shape), each held against the chosen plan's
-output, and prints one line a plan; the numbers behind the choice of
+output, and prints one line a plan; then the VJP's loop kernel the same
+way at the training shape; the numbers behind the choice of
 ``CLUSTER_SIZES`` in ``ops/lstm.py``.
+
+``python3 chip_smoke.py --compare DIR`` runs none of the phases either: it
+times the front-end kernel (flagship shape) and the VJP (T = 999, B = 32,
+both precisions) of another checkout of this repository unpacked at DIR
+(say the parent commit, ``git archive`` into an ignored directory) and of
+this one, each in a process of its own, in the order other, this, this,
+other on the same card, and prints one line a run: the numbers behind a
+"[was …]" in ``PERF.md``. ``--time-kernels DIR`` is one such run, of the
+package in the checkout at DIR.
 
 Every phase that fails ends the script with a non-zero exit code. The
 line before the last holds the card's name and power limit as
@@ -62,6 +79,7 @@ device the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -168,9 +186,11 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def check_frontend(cfg_fe, audio):
+def check_frontend(cfg_fe, audio, what="flagship"):
     from phones_las_torch.frontend import features as F
-    from phones_las_torch.frontend.fused_frontend import fused_logmel, fused_logmel_plain
+    from phones_las_torch.frontend.fused_frontend import (
+        CLOCK_NAMES, frame_tile, fused_logmel, fused_logmel_plain,
+    )
 
     b, s = audio.shape
     t = F.frames_for_samples(s, cfg_fe)
@@ -183,10 +203,17 @@ def check_frontend(cfg_fe, audio):
     en_abs, en_rel, en_ok = compare([en], [pen], 0.0, tol)
     win, nb, nm = cfg_fe.win_samples, cfg_fe.num_bins, cfg_fe.num_mel
     nbytes = 4 * (b * s + win * 2 * nb + nb * nm + b * t * (nm + 1))
-    flops = b * t * (2 * win * 2 * nb + 4 * nb + 2 * nb * nm)
+    # the mel matrix is sparse (narrow triangles): only its non-zero entries are work
+    mel_nnz = int((F.mel_matrix(cfg_fe, x.device) != 0).sum())
+    flops = b * t * (2 * win * 2 * nb + 4 * nb + 2 * mel_nnz)
     bms, by = bound(nbytes, flops, F32_FLOPS)
+    clocks = torch.zeros(len(CLOCK_NAMES), dtype=torch.int64, device=DEV)
+    fused_logmel(x, cfg_fe, t, clocks)
+    torch.cuda.synchronize()
     rec = {
-        "phase": 1, "kernel": "fused_logmel", "shape": f"B={b} S={s} T={t}",
+        "phase": 1, "kernel": "fused_logmel", "shape": f"B={b} S={s} T={t} ({what})",
+        "nfft": cfg_fe.nfft, "frame_tile": frame_tile(cfg_fe), "mel_nonzeros": mel_nnz,
+        "cycles_of_one_block": dict(zip(CLOCK_NAMES, clocks.tolist())),
         "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": f"logmel atol=rtol={tol}",
         "energy_max_abs_err": en_abs, "energy_max_rel_err": en_rel, "energy_tol": f"rtol={tol}",
         "ms": time_ms(lambda: fused_logmel(x, cfg_fe, t)),
@@ -391,6 +418,85 @@ def rel_err(got, want) -> float:
     return float((got.double() - want.double()).abs().max()) / max(float(want.double().abs().max()), 1e-30)
 
 
+BWD_PARTS = ("gates_gemm", "loop", "dwh_partial", "dwh_reduce")
+BWD_CLOCKS = ("dgates", "product", "send", "prefetch", "wait")
+
+
+def backward_report(bargs, t):
+    """The plan of the VJP's last launch, what the card gives its loop
+    kernel, the milliseconds of its four kernels (median of 5 launches) and
+    (one more launch) the SM cycles a step of the loop spends in its parts."""
+    from phones_las_torch.ops import lstm as L
+
+    plan = L._launch_backward.last_plan
+    xps, prec = bargs[0], bargs[-1]
+    u = xps[0].shape[2] // 4
+    info = L.backward_kernel_info(u, prec == "bf16", plan)
+    runs = []
+    for _ in range(5):
+        ms = []
+        L._launch_backward(*bargs, part_ms=ms)
+        runs.append(ms)
+    parts = {name: statistics.median(r[i] for r in runs) for i, name in enumerate(BWD_PARTS)}
+    clocks = torch.zeros(len(BWD_CLOCKS), dtype=torch.int64, device=DEV)
+    L._launch_backward(*bargs, clocks=clocks)
+    torch.cuda.synchronize()
+    rep = {
+        "cluster": plan.cluster, "bt": plan.bt, "ksplit": plan.ksplit,
+        "wh_in_smem": plan.resident, "clusters_launched": -(-xps[0].shape[1] // plan.bt) * len(xps), **info,
+        "kernel_ms": parts, "us_per_step": parts["loop"] * 1e3 / t,
+        "cycles_per_step": dict(zip(BWD_CLOCKS, (c / t for c in clocks.tolist()))),
+    }
+    if info["smem_bytes"] != plan.smem:
+        fail(f"the loop kernel's shared memory ({info['smem_bytes']}) is not what backward_plan computed ({plan.smem})")
+    return rep
+
+
+def check_lstm_bwd_ragged(t, b, u, seed):
+    """The VJP on a batch that is no multiple of its tile, rows of lengths
+    from 1 to T, and (U = 40, 248) widths only a cluster of one serves:
+    both precisions, one and two directions, against the plain version on
+    the plain version's residuals; two runs bitwise equal."""
+    from phones_las_torch.ops import lstm as L
+    from phones_las_torch.ops.masking import length_mask
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    lengths = torch.randint(1, t + 1, (b,), generator=g, device=DEV)
+    lengths[0], lengths[1] = t, 1
+    mask = length_mask(lengths, t).transpose(0, 1).contiguous()
+    worst, plans = {}, set()
+    ok = True
+    for prec in ("highest", "bf16"):
+        tol = 1e-4 if prec == "highest" else 3e-2
+        for nd in (1, 2):
+            rnd = lambda *shape: torch.randn(shape, generator=g, device=DEV)
+            xps = [rnd(t, b, 4 * u) for _ in range(nd)]
+            whs = [rnd(u, 4 * u) / u ** 0.5 for _ in range(nd)]
+            rev = [False, True][:nd] if nd == 2 else [True]
+            res = L.recurrence_residual_plain(xps, mask, whs, 1.0, rev, prec)
+            bargs = (xps, mask, whs, [r[1] for r in res], [r[2] for r in res],
+                     [rnd(t, b, u) for _ in range(nd)], [rnd(b, u) for _ in range(nd)],
+                     [rnd(b, u) for _ in range(nd)], 1.0, rev, prec)
+            got = L.recurrence_bwd(*bargs)
+            plans.add(tuple(L._launch_backward.last_plan))
+            again = L.recurrence_bwd(*bargs)
+            want = L.recurrence_bwd_plain(*bargs)
+            torch.cuda.synchronize()
+            err = max(rel_err(k, p) for kg, pg in zip(got, want) for k, p in zip(kg, pg))
+            same = all(torch.equal(x, y) for kg, ag in zip(got, again) for x, y in zip(kg, ag))
+            # masked steps pass no gradient into xp
+            dead = all(float((kg[0] * (1.0 - mask)[:, :, None]).abs().max()) == 0.0 for kg in got)
+            ok = ok and err <= tol and same and dead
+            worst[prec] = max(worst.get(prec, 0.0), err)
+    rec = {"phase": "4a", "kernel": "recurrence_bwd, ragged", "shape": f"T={t} B={b} U={u} lengths 1..{t}",
+           "max_rel_to_max": worst, "tol": "dxp, dwh max|d|/max|plain|: highest 1e-4, bf16 3e-2; bitwise repeatable",
+           "plans (cluster, bt, ksplit, wh_in_smem, smem_bytes)": sorted(plans), "ok": ok}
+    emit(rec)
+    if not ok:
+        fail(f"the VJP kernel disagrees with its plain version on a ragged case: {rec}")
+    return rec
+
+
 def cudnn_lstm(d, u, bidirectional):
     """A torch.nn.LSTM (cuDNN) of the listener layer's width, for library_ms."""
     return torch.nn.LSTM(d, u, bidirectional=bidirectional).to(DEV)
@@ -491,12 +597,13 @@ def check_lstm_train(params, t, layer, prec, seed):
     deterministic = all(torch.equal(x, y) for kg, ag in zip(grads, again) for x, y in zip(kg, ag))
     nbytes = 2 * (2 * 4 * t * b * 4 * u + (2 * rbytes + 4) * t * b * u + 4 * 2 * b * u + 2 * wbytes * u * 4 * u + 4 * u * 4 * u) + 4 * t * b
     bms, by = bound(nbytes, 3 * 2 * dot, peak)
+    launch = backward_report(bargs, t)
     recs.append({
         "phase": "4a", "kernel": "recurrence_bwd", "shape": shape + " both directions",
         "max_abs_err": max(float((k - p).abs().max()) for kg, pg in zip(grads, pgrads) for k, p in zip(kg, pg)),
         "max_rel_to_max": max(errs), "tol": f"dxp, dwh max|d|/max|plain| <= {vjp_tol}",
         "bitwise_repeatable": deterministic, "ok": max(errs) <= vjp_tol and deterministic,
-        "ms": time_ms(lambda: L.recurrence_bwd(*bargs)),
+        "ms": time_ms(lambda: L.recurrence_bwd(*bargs)), "launch": launch,
         "plain_ms": time_ms(lambda: L.recurrence_bwd_plain(*bargs)),
         "library_ms": lib_fwd_bwd_ms, "library": f"torch.nn.LSTM({d}, {u}, bidirectional=True) forward + backward",
         "library_fwd_bwd_ms": lib_fwd_bwd_ms, "bound_ms": bms, "bound_by": by,
@@ -506,6 +613,10 @@ def check_lstm_train(params, t, layer, prec, seed):
     bad = [r["kernel"] for r in recs if not r["ok"]]
     if bad:
         fail(f"training LSTM kernels disagree with their plain versions at {shape}: {bad}")
+    if launch["cluster"] <= 1 or not launch["wh_in_smem"]:
+        fail(f"the VJP's loop did not run as a cluster with its slice of wh in shared memory: {launch}")
+    if launch["clusters_launched"] > launch["max_active_clusters"]:
+        fail(f"the VJP's clusters do not fit in one wave: {launch}")
     return recs
 
 
@@ -763,6 +874,93 @@ def sweep_forward_plans(params) -> None:
                     })
 
 
+def vjp_cases(L, params, seed):
+    """The VJP's arguments at the training shape (the listener's first layer,
+    T = 999, B = TRAIN_B, both directions, random lengths and cotangents),
+    once per precision → (prec, the arguments of ``L.recurrence_bwd``)."""
+    from phones_las_torch.ops.masking import length_mask
+
+    t, b = 999, TRAIN_B
+    pf, pb = params.listener.layers[0]
+    u = pf.units
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=DEV)
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=DEV)
+    mask = length_mask(lengths, t).transpose(0, 1).contiguous()
+    xps, whs, rev = [rnd(t, b, 4 * u) for _ in range(2)], [pf.wh.detach(), pb.wh.detach()], [False, True]
+    cots = ([rnd(t, b, u) for _ in range(2)], [rnd(b, u) for _ in range(2)], [rnd(b, u) for _ in range(2)])
+    for prec in ("highest", "bf16"):
+        res = L.recurrence_residual(xps, mask, whs, 1.0, rev, prec)
+        yield prec, (xps, mask, whs, [r[1] for r in res], [r[2] for r in res], *cots, 1.0, rev, prec)
+
+
+def sweep_backward_plans(params) -> None:
+    """``--sweep``: the VJP under each plan of its loop at U = 256, T = 999, B = TRAIN_B."""
+    from phones_las_torch.ops import lstm as L
+
+    t, u, b = 999, 256, TRAIN_B
+    for prec, bargs in vjp_cases(L, params, seed=61):
+        want = L.recurrence_bwd(*bargs)
+        chosen = L._launch_backward.last_plan
+        for c in (8, 16):
+            for bt in L.ROW_TILES:
+                ks = L._bwd_ksplit(u, c, bt, prec == "bf16")
+                while ks > 1 and L.backward_smem_bytes(u, c, bt, ks, True, prec == "bf16") > L.SMEM_MAX:
+                    ks //= 2
+                smem = L.backward_smem_bytes(u, c, bt, ks, True, prec == "bf16")
+                if smem > L.SMEM_MAX:
+                    continue
+                plan = L.BackwardPlan(c, bt, ks, True, smem)
+                got = L._launch_backward(*bargs, plan=plan)
+                torch.cuda.synchronize()
+                err = max(rel_err(k, p) for kg, pg in zip(got, want) for k, p in zip(kg, pg))
+                runs = []
+                for _ in range(5):
+                    ms = []
+                    L._launch_backward(*bargs, plan=plan, part_ms=ms)
+                    runs.append(ms[1])
+                loop_ms = statistics.median(runs)
+                emit({
+                    "sweep": "lstm vjp loop", "shape": f"T={t} B={b} U={u} nd=2 prec={prec}",
+                    "cluster": c, "bt": bt, "ksplit": ks, "chosen": plan == chosen,
+                    "clusters_launched": -(-b // bt) * 2, **L.backward_kernel_info(u, prec == "bf16", plan),
+                    "loop_ms": loop_ms, "us_per_step": loop_ms * 1e3 / t, "max_rel_diff_to_chosen_plan": err,
+                })
+
+
+def time_kernels(tree: str) -> None:
+    """``--time-kernels DIR``: the two kernels a ``--compare`` is about, of
+    the package in the checkout at DIR, through calls that every slice of
+    the port since the training slice has."""
+    sys.path.insert(0, tree)
+    from phones_las_torch.frontend import features as F
+    from phones_las_torch.frontend.fused_frontend import fused_logmel
+    from phones_las_torch.ops import lstm as L
+    from phones_las_torch.utils.param_io import load_artifact
+
+    torch.set_grad_enabled(False)
+    params, cfg, _ = load_artifact(os.path.join(ASSETS, "ckpt.npz"), device=None)
+    audio = torch.from_numpy(make_audio(FLAGSHIP_B)).to(DEV)
+    x = F.preemphasize(audio, cfg.frontend.preemphasis).contiguous()
+    t_fe = F.frames_for_samples(x.shape[1], cfg.frontend)
+    rec = {"tree": tree, "card": card_line(),
+           "fused_logmel_ms": time_ms(lambda: fused_logmel(x, cfg.frontend, t_fe))}
+    for prec, bargs in vjp_cases(L, params, seed=62):
+        rec[f"recurrence_bwd_{prec}_ms"] = time_ms(lambda: L.recurrence_bwd(*bargs))
+    emit(rec)
+
+
+def compare_trees(other: str) -> int:
+    """``--compare DIR``: ``--time-kernels`` of the checkout at DIR and of
+    this one, in turns, each in its own process."""
+    other = os.path.abspath(other)
+    for tree in (other, REPO, REPO, other):
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-kernels", tree])
+        if run.returncode:
+            return run.returncode
+    return 0
+
+
 def reset_counters(kernels) -> None:
     for fn in kernels:
         fn.launches = 0
@@ -772,6 +970,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--compare"]:
+        return compare_trees(sys.argv[2])
+    if sys.argv[1:2] == ["--time-kernels"]:
+        time_kernels(sys.argv[2])
+        return 0
     sys.path.insert(0, REPO)
     from phones_las_torch.csrc import _build
     from phones_las_torch.decode.fused_greedy import greedy_decode_fused
@@ -805,6 +1008,7 @@ def main() -> int:
     params, cfg, _ = load_artifact(ckpt, device=None if DEV == "cuda" else DEV)
     if sys.argv[1:] == ["--sweep"]:
         sweep_forward_plans(params)
+        sweep_backward_plans(params)
         print(card, flush=True)
         return 0
 
@@ -812,6 +1016,18 @@ def main() -> int:
     audio64 = torch.from_numpy(make_audio(FLAGSHIP_B)).to(DEV)
     full_len = torch.full((FLAGSHIP_B,), audio64.shape[1], dtype=torch.int32, device=DEV)
     fe_rec = check_frontend(cfg.frontend, audio64)
+    data = np.load(os.path.join(ASSETS, "eval_set.npz"), allow_pickle=False)
+    check_frontend(cfg.frontend, torch.from_numpy(data["audio"]).to(DEV), "the eval set")
+    # a window of 401 samples (padded to 416 rows) under a hop of 161: the
+    # frames' samples are not 8-byte aligned in the staged window
+    odd = dataclasses.replace(cfg.frontend, win_ms=25.0625, hop_ms=10.0625, window="hamming")
+    check_frontend(odd, audio64[:3, :20000], "odd window and hop")
+    # longer transforms, whose power tile leaves room for fewer frames a block
+    for nfft, tile in ((1024, 32), (2048, 16)):
+        long_fft = dataclasses.replace(cfg.frontend, nfft=nfft, win_ms=40.0)
+        rec = check_frontend(long_fft, audio64[:3, :40000], f"nfft {nfft}")
+        if rec["frame_tile"] != tile:
+            fail(f"the front-end kernel took an unexpected frame tile at nfft {nfft}: {rec}")
     lstm_recs = [
         check_bilstm(params, FLAGSHIP_B, t, layer, prec, seed=10 + i)
         for i, (t, layer, prec) in enumerate(LSTM_CASES)
@@ -829,7 +1045,6 @@ def main() -> int:
                  steps=RAGGED_DECODER_STEPS, timed=False)
 
     # ---- phase 2: the committed checkpoint on the committed eval set
-    data = np.load(os.path.join(ASSETS, "eval_set.npz"), allow_pickle=False)
     cap = int(data["decode_cap"][0])
     refs = data["refs"]
     ref_lens = (refs >= 0).sum(axis=1)
@@ -903,6 +1118,8 @@ def main() -> int:
             check_lstm_train(params, t, layer, prec, seed=20 + i)
             for i, (t, layer, prec) in enumerate(LSTM_CASES)
         ]
+        for i, (t, b, u) in enumerate(RAGGED_LSTM):
+            check_lstm_bwd_ragged(t, b, u, seed=70 + i)
         check_train_step(ckpt, data, kernels)
         _, train_launches = train_flagship(ckpt, kernels)
         api_launches = drive_lstm_layer(params, kernels)

@@ -42,8 +42,9 @@ _LSTM_FWD = (_P,) * 5 + (_I, _I, _I) + (_P,) * 10 + (_I, _I, _I, _F, _I, _I, _I,
 # C entry points: (argtypes) — every pointer and the stream are c_void_p,
 # or ctypes would pass them as 32-bit ints and cut them
 _SIGNATURES = {
-    # x, B, S, basis, mel, logmel, energy, T, win, hop, nbins, nmel, nfft, stream
-    "plt_fused_logmel": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, B, S, basis, tail, mel, mel_range, logmel, energy, T, win, hop, nfft,
+    # nmel, frame_tile, clocks, stream
+    "plt_fused_logmel": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     # xp0, xp1, mask, wh0, wh1, nd, rev_bits, wh_bf16, out0, out1, hprev0,
     # hprev1, cprev0, cprev1, hfin0, hfin1, cfin0, cfin1, T, B, U,
     # forget_bias, cluster, bt, ksplit, resident, clocks, stream
@@ -51,10 +52,14 @@ _SIGNATURES = {
     "plt_lstm_residual": _LSTM_FWD,
     # U, wh_bf16, save_res, cluster, bt, ksplit, resident, info[4]
     "plt_lstm_fwd_info": (_I,) * 7 + (_P,),
-    # xp0, xp1, mask, wh0, wh1, wht0, wht1, hprev0, hprev1, cprev0, cprev1,
+    # U, wh_bf16, cluster, bt, ksplit, resident, info[4]
+    "plt_lstm_bwd_info": (_I,) * 6 + (_P,),
+    # xp0, xp1, mask, wh0, wh1, whg0, whg1, wht0, wht1, hprev0, hprev1, cprev0, cprev1,
     # dout0, dout1, dhfin0, dhfin1, dcfin0, dcfin1, nd, rev_bits, wh_bf16,
-    # dxp0, dxp1, dwh0, dwh1, partials, ksplit, T, B, U, forget_bias, stream
-    "plt_lstm_bwd": (_P,) * 17 + (_I, _I, _I) + (_P,) * 5 + (_I, _I, _I, _I, _F, _P),
+    # dxp0, dxp1, fac0, fac1, dwh0, dwh1, partials, dwh_split, T, B, U,
+    # forget_bias, cluster, bt, ksplit, resident, clocks, part_ms, stream
+    "plt_lstm_bwd": (_P,) * 19 + (_I, _I, _I) + (_P,) * 7 + (_I, _I, _I, _I, _F)
+                    + (_I,) * 4 + (_P, _P, _P),
     # keys, mem, mask, B, T, A, M, emb, V, E, wq, v, attn_w, AL, out_w,
     # out_b, cell_ptrs, n_cells, U, bos, eos, steps, cluster, tokens, info[4], clocks, stream
     "plt_greedy_decode": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P,

@@ -26,12 +26,18 @@ cluster of C blocks runs one direction for a tile of Bt batch rows over
 all T steps, block c owning units ``[c·U/C, (c+1)·U/C)`` with their four
 gate columns and holding that slice of ``wh`` in shared memory for the
 whole time loop; each step the blocks exchange their h slices through
-distributed shared memory and meet at one cluster barrier. What of this
-is layout and choice lives here, where the CPU tests reach it:
-``regroup_wh``/``ungroup_wh`` (``wh`` by unit slice) and ``forward_plan``
-(C, Bt, the k split and the shared-memory bytes from the shape, a pure
-function); ``tests/test_torch_cluster_layout.py`` emulates the
-decomposition in plain PyTorch on them.
+distributed shared memory (``st.async`` onto transaction barriers). The
+VJP's serial loop is the same design run backwards in time: block c
+multiplies the gate gradients of its own units by its resident slice of
+``whᵀ`` into a partial dh of every unit, the blocks send each other the
+parts they own and add them in rank order (so repeated runs are bitwise
+equal). What of this is layout and choice lives here, where the CPU tests
+reach it: ``regroup_wh``/``ungroup_wh`` (``wh`` by unit slice),
+``forward_plan`` and ``backward_plan`` (C, Bt, the k split and the
+shared-memory bytes from the shape, pure functions);
+``tests/test_torch_cluster_layout.py`` and
+``tests/test_torch_lstm_bwd_layout.py`` emulate the two decompositions in
+plain PyTorch on them.
 
 Recurrent-dot precision is an explicit argument ``prec`` (the reference
 reads it from the ambient ``jax.default_matmul_precision`` scope):
@@ -368,6 +374,19 @@ def _ksplit(u: int, c: int, bt: int, bf16: bool) -> int:
     return max(1, min(16, FWD_THREADS // items, u // 4))
 
 
+def _choose_tile(fits, b: int, nd: int, max_active):
+    """Of one cluster size's plans, by rising tile: the smallest tile whose
+    ``ceil(B/Bt)·nd`` clusters the card runs at once, as ``max_active(plan)``
+    says; without that knowledge, or if no tile fits in one wave, the
+    largest tile (the smallest if the batch fits in it)."""
+    if max_active is not None:
+        for plan in fits:
+            if -(-b // plan.bt) * nd <= max_active(plan):
+                return plan
+        return fits[-1]
+    return fits[0] if b <= fits[0].bt else fits[-1]
+
+
 def forward_plan(
     b: int, u: int, nd: int, prec: str = "highest",
     max_active: Optional[Callable[[int, int, int, bool], int]] = None,
@@ -395,14 +414,9 @@ def forward_plan(
             smem = forward_smem_bytes(u, c, bt, ks, resident, bf16)
             if smem <= SMEM_MAX:
                 fits.append(ForwardPlan(c, bt, ks, resident, smem))
-        if not fits:
-            continue
-        if max_active is not None:
-            for plan in fits:
-                if -(-b // plan.bt) * nd <= max_active(plan.cluster, plan.bt, plan.ksplit, plan.resident):
-                    return plan
-            return fits[-1]
-        return fits[0] if b <= fits[0].bt else fits[-1]
+        if fits:
+            active = None if max_active is None else (lambda p: max_active(p.cluster, p.bt, p.ksplit, p.resident))
+            return _choose_tile(fits, b, nd, active)
     raise ValueError(f"no plan of the forward kernel fits U={u} in shared memory")
 
 
@@ -462,6 +476,114 @@ def _launch_forward(entry, xps, mask_tm, whs, forget_bias, reverse, prec, plan: 
 
 
 _launch_forward.last_plan = None  # the plan of the last launch, for reports
+
+
+class BackwardPlan(NamedTuple):
+    """How one launch of the VJP's loop kernel cuts its work."""
+
+    cluster: int  # C: blocks of a cluster = slices of the units
+    bt: int  # batch rows of a cluster's tile
+    ksplit: int  # float32: parts the k range (a block's 4·U/C gate columns) is split into
+    resident: bool  # the block's slice of whᵀ lies in shared memory
+    smem: int  # dynamic shared memory bytes of a block
+
+
+BWD_RING = 2  # tiles of factors, dout and mask a block keeps: one in use, one in flight
+
+
+def _kernel_wht(wh: torch.Tensor, c: int, prec: str) -> torch.Tensor:
+    """The slices of ``whᵀ`` as the VJP's loop kernel reads them. Block s
+    multiplies the gate gradients of its units (its 4·U/C columns, in
+    ``regroup_wh``'s order) by the matching rows of ``whᵀ``: float32
+    ``[C, 4·U/C, U]`` (U contiguous), or for the tensor cores bf16
+    ``[C, Up, 4·U/C]`` with the contracted gate columns contiguous and the
+    units zero padded to Up = U rounded up to 16."""
+    wg = regroup_wh(wh.detach(), c)  # [C, U, 4·Us]
+    if prec != "bf16":
+        return wg.to(torch.float32).transpose(1, 2).contiguous()
+    u = wg.shape[1]
+    return torch.nn.functional.pad(wg.to(torch.bfloat16), (0, 0, 0, -u % 16)).contiguous()
+
+
+def backward_smem_bytes(u: int, c: int, bt: int, ksplit: int, resident: bool, bf16: bool) -> int:
+    """A block's dynamic shared memory in the VJP's loop kernel, as
+    ``bwd_layout`` of csrc/lstm.cu lays it out: the slice of whᵀ, two
+    buffers of received partial dh, this step's dgates, the k parts of the
+    product, ``BWD_RING`` tiles (a step's four factors a gate column, then
+    dout and two more factors a unit, then the mask) and the kept dh and dc."""
+    us = u // c
+    nc = 4 * us
+    up = -(-u // 16) * 16
+    if bf16:
+        w = up * (nc + 8) * 2
+        dg = 16 * (nc + 8) * 2
+        part = ksplit * bt * up * 4
+    else:
+        w = nc * u * 4
+        dg = bt * nc * 4
+        part = ksplit * bt * u * 4
+    tile = (bt * (nc + 3 * us) + bt) * 4
+    return (w if resident else 0) + 2 * bt * u * 4 + dg + part + BWD_RING * tile + 2 * bt * us * 4
+
+
+def _bwd_ksplit(u: int, c: int, bt: int, bf16: bool) -> int:
+    """float32: as many k parts as give every thread an item of 8 rows × 4
+    of the U output columns (at most 16, at most one part per 4 k); bf16:
+    the tensor-core product is not split."""
+    if bf16:
+        return 1
+    items = (bt // 8) * (u // 4)
+    return max(1, min(16, FWD_THREADS // items, u // c))
+
+
+def backward_plan(
+    b: int, u: int, nd: int, prec: str = "highest",
+    max_active: Optional[Callable[[BackwardPlan], int]] = None,
+) -> BackwardPlan:
+    """The (C, Bt, k split) of the VJP's loop kernel for a shape — a pure
+    function, the companion of ``forward_plan``.
+
+    C is the largest of ``CLUSTER_SIZES`` that divides U into slices of a
+    multiple of 8 units whose slice of whᵀ fits in shared memory beside the
+    rest; if none does, C = 1 streams it from L2. For each tile Bt the k
+    split is the largest that fits (halved until it does). Bt is then chosen as ``forward_plan`` chooses
+    it: the smallest tile whose ``ceil(B/Bt)·nd`` clusters the card runs at
+    once, as ``max_active(plan)`` says (on the card:
+    ``cudaOccupancyMaxActiveClusters``); without that knowledge, or if no
+    tile fits in one wave, the largest tile that fits in shared memory.
+    Raises for a U the kernel does not take."""
+    _check_prec(prec)
+    if u % 8 or not 0 < 4 * u <= 1024:
+        raise ValueError(f"the kernel takes 4U a multiple of 32 up to 1024, got 4U={4 * u}")
+    bf16 = prec == "bf16"
+    for c, resident in [(c, True) for c in CLUSTER_SIZES] + [(1, False)]:
+        if u % c or (u // c) % 8:
+            continue
+        fits = []
+        for bt in ROW_TILES:
+            ks = _bwd_ksplit(u, c, bt, bf16)
+            while ks > 1 and backward_smem_bytes(u, c, bt, ks, resident, bf16) > SMEM_MAX:
+                ks //= 2
+            smem = backward_smem_bytes(u, c, bt, ks, resident, bf16)
+            if smem <= SMEM_MAX:
+                fits.append(BackwardPlan(c, bt, ks, resident, smem))
+        if fits:
+            return _choose_tile(fits, b, nd, max_active)
+    raise ValueError(f"no plan of the VJP's loop kernel fits U={u} in shared memory")
+
+
+@functools.lru_cache(maxsize=None)
+def backward_kernel_info(u: int, bf16: bool, plan: BackwardPlan) -> dict:
+    """What the card gives one plan of the VJP's loop kernel (built at
+    first use), as ``forward_kernel_info``."""
+    from phones_las_torch.csrc import _build
+
+    info = (ctypes.c_int * 4)()
+    err = _build.library().plt_lstm_bwd_info(
+        u, int(bf16), plan.cluster, plan.bt, plan.ksplit, int(plan.resident), info
+    )
+    _build.check(err, "plt_lstm_bwd_info")
+    return {"max_active_clusters": info[0], "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3]}
 
 
 def recurrence_bwd_plain(xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins,
@@ -525,18 +647,44 @@ def recurrence_bwd(
     Replaces ``phones_las_tpu/ops/lstm.py::_recurrence_pallas_bwd`` (the
     backward rules ``_pallas_rec_bwd`` and ``_bidir_bwd``). A CPU tensor
     runs the plain version; a CUDA tensor launches ``plt_lstm_bwd``
-    (``csrc/lstm.cu``: gate-recompute GEMM, serial reverse loop,
-    split-K dWh GEMM and its ordered reduction) or raises."""
+    (``csrc/lstm.cu``) or raises. That is four kernels on one stream: the
+    gate-recompute GEMM, whose epilogue turns the gates and cprev into the
+    factors of each step that do not depend on dh (the sigmoids and tanhs
+    leave the serial chain); the serial reverse loop as thread-block
+    clusters (``backward_plan``: a cluster of C blocks per direction and
+    tile of Bt rows, each block with its slice of whᵀ in shared memory,
+    the partial dh exchanged through distributed shared memory and added
+    in rank order); the split-K dWh GEMM and its ordered reduction. In
+    bf16 mode the loop's product and both GEMMs run on the tensor cores.
+    Repeated runs give bitwise equal results."""
     _check_prec(prec)
     nd = len(xps)
     if not (len(reverse) == len(hprevs) == len(cprevs) == len(douts) == len(dhfins) == len(dcfins) == nd):
         raise ValueError("recurrence_bwd: one of each argument per direction")
-    args = (*xps, mask_tm, *whs, *hprevs, *cprevs, *douts, *dhfins, *dcfins)
-    if not check_kernel_device(*args):
-        return recurrence_bwd_plain(xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins,
-                                    forget_bias, reverse, prec)
+    args = (xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins, forget_bias, reverse, prec)
+    if not check_kernel_device(*xps, mask_tm, *whs, *hprevs, *cprevs, *douts, *dhfins, *dcfins):
+        return recurrence_bwd_plain(*args)
+    res = _launch_backward(*args)
+    recurrence_bwd.launches += 1
+    return res
+
+
+recurrence_bwd.launches = 0
+
+
+def _launch_backward(xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins, forget_bias, reverse, prec,
+                     plan: Optional[BackwardPlan] = None, clocks: Optional[torch.Tensor] = None,
+                     part_ms: Optional[list] = None):
+    """One launch of ``plt_lstm_bwd``. For measurements: ``plan`` overrides
+    ``backward_plan``; ``clocks``, an int64 CUDA tensor of 5, receives the SM
+    cycles one block of the loop spent forming dgates, in the product,
+    sending the partials, requesting a later tile, and waiting for the
+    peers; ``part_ms``, a list, receives the milliseconds of the four
+    kernels (the call then waits for the stream)."""
     t, b, u = _check_recurrence_args(xps, mask_tm, whs, "plt_lstm_bwd")
-    wdt = torch.bfloat16 if prec == "bf16" else torch.float32
+    nd = len(xps)
+    bf16 = prec == "bf16"
+    wdt = torch.bfloat16 if bf16 else torch.float32
     for x in (*hprevs, *cprevs):
         if x.shape != (t, b, u) or x.dtype != wdt:
             raise ValueError(f"plt_lstm_bwd: residuals must be [{t}, {b}, {u}] {wdt}, got {tuple(x.shape)} {x.dtype}")
@@ -544,32 +692,41 @@ def recurrence_bwd(
     from phones_las_torch.csrc import _build
 
     lib = _build.library()
+    if plan is None:
+        plan = backward_plan(b, u, nd, prec, lambda p: backward_kernel_info(u, bf16, p)["max_active_clusters"])
     f32 = lambda ts: [x.float().contiguous() for x in ts]
     xps, douts, dhfins, dcfins = f32(xps), f32(douts), f32(dhfins), f32(dcfins)
     whs_d = [w.detach().to(wdt).contiguous() for w in whs]
-    whts = [w.t().contiguous() for w in whs_d]
+    whgs = [_kernel_wht(w, plan.cluster, prec) for w in whs]
+    whts = [w.t().contiguous() for w in whs_d] if bf16 else []  # the tensor-core gates GEMM reads k contiguous
     hprevs = [x.contiguous() for x in hprevs]
     cprevs = [x.contiguous() for x in cprevs]
     mask = mask_tm.contiguous()
     dev = xps[0].device
     dxps = [torch.empty((t, b, 4 * u), dtype=torch.float32, device=dev) for _ in range(nd)]
     dwhs = [torch.empty((u, 4 * u), dtype=torch.float32, device=dev) for _ in range(nd)]
+    facs = [torch.empty((t, b, 2 * u), dtype=torch.float32, device=dev) for _ in range(nd)]
     # split-K of the dWh product over T*B rows: enough blocks to fill the card
-    ksplit = max(1, min(16, (t * b) // 1024))
-    partials = torch.empty((nd, ksplit, u, 4 * u), dtype=torch.float32, device=dev)
+    dwh_split = max(1, min(16, (t * b) // 1024))
+    partials = torch.empty((nd, dwh_split, u, 4 * u), dtype=torch.float32, device=dev)
+    ms = (ctypes.c_float * 4)() if part_ms is not None else None
     err = lib.plt_lstm_bwd(
-        *_ptrs(xps), mask.data_ptr(), *_ptrs(whs_d), *_ptrs(whts), *_ptrs(hprevs),
+        *_ptrs(xps), mask.data_ptr(), *_ptrs(whs_d), *_ptrs(whgs), *_ptrs(whts), *_ptrs(hprevs),
         *_ptrs(cprevs), *_ptrs(douts), *_ptrs(dhfins), *_ptrs(dcfins), nd,
-        _rev_bits(reverse), int(prec == "bf16"), *_ptrs(dxps), *_ptrs(dwhs),
-        partials.data_ptr(), ksplit, t, b, u, float(forget_bias),
+        _rev_bits(reverse), int(bf16), *_ptrs(dxps), *_ptrs(facs), *_ptrs(dwhs),
+        partials.data_ptr(), dwh_split, t, b, u, float(forget_bias),
+        plan.cluster, plan.bt, plan.ksplit, int(plan.resident),
+        None if clocks is None else clocks.data_ptr(), ms,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "plt_lstm_bwd")
-    recurrence_bwd.launches += 1
+    if part_ms is not None:
+        part_ms[:] = list(ms)
+    _launch_backward.last_plan = plan
     return list(zip(dxps, dwhs))
 
 
-recurrence_bwd.launches = 0
+_launch_backward.last_plan = None  # the plan of the last launch, for reports
 
 
 class RecurrenceFunction(torch.autograd.Function):
