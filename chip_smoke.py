@@ -51,7 +51,28 @@ then:
         steps driven in their three parts (``Trainer.loss``, backward,
         ``Trainer.apply_gradients``) for the split of a step into
         forward, backward and optimizer;
-     d. the ops API: ``lstm_layer`` without and with gradients.
+     d. the ops API: ``lstm_layer`` without and with gradients;
+  5. the decode and serving slice (phase 1 has also held the LSTM forward
+     kernel at the long-gate listener's width, U = 96):
+     a. beam-8 of the committed checkpoint on the eval set on the card
+        (launch counters set to 0 just before and read just after) against
+        the CPU plain path: the best tokens and all K beams compared, at
+        most 2 utterances' best tokens differing, PER within 0.005 of the
+        reference's beam-8 PER, the front-end and BiLSTM kernels launched,
+        no training kernel and no greedy kernel;
+     b. beam-8 at ``bench.py``'s beam shape (32 × 10 s of random PCM, 200
+        steps, parity mode), without and with a CTC head of the
+        checkpoint's widths drawn from a seeded generator (one-pass joint
+        decoding, α = 0.7): utt/s, the split among front-end, listener and
+        decoder, µs per decode step, the device launches per step and the
+        device-busy share of one profiled call and of its decoder;
+     c. ``Transcriber.from_artifact`` of ``tests/goldens/long_gate.npz``
+        (monotonic attention, CTC head) on the card and with
+        ``device="cpu"``: ``transcribe_batch`` of 16 eval-set utterances
+        (int16 PCM) greedy, beam-8 and beam-8 + CTC 0.7, at most 2
+        utterances differing a mode; ``transcribe_long`` of their
+        concatenation with and without ``adapt_cmvn``, at most 2 tokens
+        of edit distance a stream.
 
 ``python3 chip_smoke.py --sweep`` runs none of the phases: it times the
 LSTM forward kernel under every plan it takes at the flagship width
@@ -116,6 +137,14 @@ RAGGED_LSTM = ((37, 13, 256), (20, 5, 40), (20, 9, 248))
 RAGGED_DECODER_B = 13
 RAGGED_DECODER_STEPS = 60
 DECODER_BATCHES = (8, 64)
+GATE_LSTM = (240, 16, 96)  # (T, B, U) at the long-gate listener's width, held in phase 1
+BEAM_K = 8
+BEAM_B = 32  # bench.py's beam batch
+CTC_ALPHA = 0.7
+REF_BEAM8_PER = 0.0319  # the reference's beam-8 PER on the eval set
+GATE_ASSET = os.path.join(REPO, "tests", "goldens", "long_gate.npz")
+GATE_UTTS = 16
+MAX_STREAM_EDITS = 2  # long-form tokens allowed to differ from the CPU plain path
 TRAIN_B = 32
 TRAIN_STEPS = 6
 SPLIT_STEPS = 3  # further steps timed in their three parts
@@ -657,7 +686,7 @@ def check_train_step(ckpt, data, kernels):
         tr.apply_gradients()
         if dev == DEV:
             torch.cuda.synchronize()
-            launches = {fn.__name__: fn.launches for fn in kernels}
+            launches = launch_counts(kernels)
         runs[dev] = (loss.item(), grads, {k: t.detach().cpu() for k, t in named_leaves(tr.state.params)})
     (gl, gg, gp), (cl, cg, cp) = runs[DEV], runs["cpu"]
     loss_rel = abs(gl - cl) / abs(cl)
@@ -778,7 +807,7 @@ def train_flagship(ckpt, kernels):
         steps.append({
             "step": i + 1, "loss": loss, "grad_norm": float(out["grad_norm"]),
             "ms": (time.perf_counter() - t0) * 1e3,
-            "launches": {fn.__name__: fn.launches for fn in kernels},
+            "launches": launch_counts(kernels),
         })
         emit({"phase": "4c", **steps[-1]})
     step_ms = statistics.median(s["ms"] for s in steps[1:])
@@ -827,7 +856,7 @@ def drive_lstm_layer(params, kernels):
     out, (h, c) = lstm_layer(p, x, lens, reverse=True)
     (out.square().sum() + h.sum() + c.sum()).backward()
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches = launch_counts(kernels)
     finite = all(bool(torch.isfinite(v).all()) for v in (*outs, out, x.grad))
     rec = {"phase": "4d", "shape": f"lstm_layer B={TRAIN_B} T={t} D={d}", "finite": finite, "launches": launches}
     emit(rec)
@@ -961,6 +990,180 @@ def compare_trees(other: str) -> int:
     return 0
 
 
+def launch_counts(kernels) -> dict:
+    return {fn.__name__: fn.launches for fn in kernels}
+
+
+def check_beam_eval(params, params_cpu, cfg, data, kernels) -> dict:
+    """Phase 5a: beam-8 on the eval set, card against the CPU plain path."""
+    from phones_las_torch.decode import beam_decode
+    from phones_las_torch.models.las import encode
+    from phones_las_torch.utils.metrics import edit_distance_stats, per_from_stats
+
+    cap = int(data["decode_cap"][0])
+
+    def run(p, device):
+        audio = torch.from_numpy(data["audio"]).to(device)
+        lens = torch.from_numpy(data["lengths"]).to(device)
+        mem, _, mask = encode(p, cfg, audio, lens)
+        res = beam_decode(p.speller, cfg.speller, mem, mask, cap, beam_width=BEAM_K)
+        return {k: getattr(res, k).cpu() for k in ("tokens", "lengths", "beam_tokens", "beam_logp")}
+
+    reset_counters(kernels)
+    gpu = run(params, DEV)
+    torch.cuda.synchronize()
+    launches = launch_counts(kernels)
+    cpu = run(params_cpu, "cpu")
+    best_rows = [i for i in range(len(gpu["tokens"])) if not torch.equal(gpu["tokens"][i], cpu["tokens"][i])]
+    beams_differing = int((gpu["beam_tokens"] != cpu["beam_tokens"]).any(dim=-1).sum())
+    refs = data["refs"]
+    per = per_from_stats(*edit_distance_stats(
+        gpu["tokens"].numpy(), gpu["lengths"].numpy(), np.where(refs >= 0, refs, 0), (refs >= 0).sum(axis=1)
+    ))
+    rec = {
+        "phase": "5a", "utterances": len(gpu["tokens"]), "beam_width": BEAM_K, "decode_cap": cap,
+        "beam8_per": per, "reference_per": REF_BEAM8_PER, "best_rows_differing_from_cpu_plain": best_rows,
+        "beams_differing_from_cpu_plain": f"{beams_differing} of {gpu['beam_tokens'].shape[0] * BEAM_K}",
+        "beam_logp_max_abs_diff": float((gpu["beam_logp"] - cpu["beam_logp"]).abs().max()),
+        "launches": launches,
+    }
+    emit(rec)
+    if len(best_rows) > MAX_DIFF_ROWS:
+        fail(f"{len(best_rows)} best-beam rows differ from the CPU plain path (at most {MAX_DIFF_ROWS})")
+    if abs(per - REF_BEAM8_PER) > PER_TOL:
+        fail(f"beam-8 PER {per} is not within {PER_TOL} of {REF_BEAM8_PER}")
+    if not (launches["fused_logmel"] and launches["bidir_recurrence"]) or any(
+        n for name, n in launches.items() if name not in ("fused_logmel", "bidir_recurrence")
+    ):
+        fail(f"the beam path must launch the front-end and BiLSTM kernels and no other: {launches}")
+    return rec
+
+
+def beam_flagship(params, cfg, audio, lens, ctc_head):
+    """PCM → front-end → listener → beam-8 (200 steps), the phases
+    synchronised apart → (BeamResult, (memory, mask), (front-end,
+    listener, decoder) seconds)."""
+    from phones_las_torch.decode import beam_decode
+    from phones_las_torch.models.las import ctc_logp, featurize
+    from phones_las_torch.models.listener import listen
+    from phones_las_torch.ops.masking import length_mask
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats, flens = featurize(params, cfg, audio, lens)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mem, enc_lens = listen(params.listener, cfg.listener, feats, flens)
+    mask = length_mask(enc_lens, mem.shape[1])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    res = beam_decode(
+        params.speller, cfg.speller, mem, mask, DECODE_STEPS, beam_width=BEAM_K,
+        ctc_logp=None if ctc_head is None else ctc_logp(ctc_head, mem),
+        ctc_alpha=1.0 if ctc_head is None else CTC_ALPHA,
+    )
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return res, (mem, mask), (t1 - t0, t2 - t1, t3 - t2)
+
+
+def time_beam_flagship(params, cfg, kernels, card) -> list:
+    """Phase 5b: beam-8 at bench.py's beam shape, without and with joint CTC."""
+    from types import SimpleNamespace
+
+    from phones_las_torch.decode import beam_decode
+    from phones_las_torch.models.las import ctc_logp
+    from phones_las_torch.ops.lstm import glorot_
+
+    audio = torch.from_numpy(make_audio(BEAM_B)).to(DEV)
+    lens = torch.full((BEAM_B,), audio.shape[1], dtype=torch.int32, device=DEV)
+    m, v = cfg.listener.output_dim, cfg.speller.vocab_size
+    w = torch.zeros((m, v))
+    glorot_(w, torch.Generator().manual_seed(5))  # the reference's CTC-head initialiser
+    head = SimpleNamespace(ctc_w=w.to(DEV), ctc_b=torch.zeros(v, device=DEV))
+    recs = []
+    for name, ctc_head in (("beam8", None), ("beam8_ctc", head)):
+        reset_counters(kernels)
+        res, (mem, mask), _ = beam_flagship(params, cfg, audio, lens, ctc_head)
+        launches = launch_counts(kernels)
+        finite = bool(torch.isfinite(res.beam_logp).all())
+        if res.beam_tokens.shape != (BEAM_B, BEAM_K, DECODE_STEPS) or not finite:
+            fail(f"{name}: beam tokens {tuple(res.beam_tokens.shape)}, finite log-probs {finite}")
+        if launches["fused_logmel"] != 1 or launches["bidir_recurrence"] != cfg.listener.num_layers or any(
+            n for k, n in launches.items() if k not in ("fused_logmel", "bidir_recurrence")
+        ):
+            fail(f"{name}: unexpected launches on the beam path: {launches}")
+        splits = [beam_flagship(params, cfg, audio, lens, ctc_head)[2] for _ in range(5)]
+        fe_s, li_s, de_s = (statistics.median(x) for x in zip(*splits))
+        total_ms = (fe_s + li_s + de_s) * 1e3
+        call = profile_step(lambda: beam_flagship(params, cfg, audio, lens, ctc_head), total_ms)
+        lp = None if ctc_head is None else ctc_logp(ctc_head, mem)
+        decode = profile_step(
+            lambda: beam_decode(params.speller, cfg.speller, mem, mask, DECODE_STEPS, beam_width=BEAM_K,
+                                ctc_logp=lp, ctc_alpha=1.0 if lp is None else CTC_ALPHA),
+            de_s * 1e3,
+        )
+        per_step = decode.get("device_launches")
+        rec = {
+            "phase": "5b", "mode": name, "shape": f"B={BEAM_B} x {SECONDS} s, K={BEAM_K}, {DECODE_STEPS} steps",
+            "utt_per_s": BEAM_B / (total_ms / 1e3), "total_ms": total_ms, "frontend_ms": fe_s * 1e3,
+            "listener_ms": li_s * 1e3, "decoder_ms": de_s * 1e3, "us_per_step": de_s * 1e6 / DECODE_STEPS,
+            "launches_per_step": per_step / DECODE_STEPS if isinstance(per_step, int) else "not measured",
+            "call_device_busy_share": call.get("device_busy_share", "not measured"),
+            "decoder_device_busy_share": decode.get("device_busy_share", "not measured"),
+            "call_profile": call, "decoder_profile": decode, "launches": launches, "card": card,
+        }
+        emit(rec)
+        recs.append(rec)
+    return recs
+
+
+def check_gate_transcriber(data, kernels) -> dict:
+    """Phase 5c: the long-gate artifact's Transcriber on the card against
+    the same calls with device='cpu'."""
+    from phones_las_torch.api import Transcriber
+    from phones_las_torch.utils.metrics import _edit_distance
+
+    utts = [np.clip(np.rint(data["audio"][i, : data["lengths"][i]]), -32768, 32767).astype(np.int16)
+            for i in range(GATE_UTTS)]
+    stream = np.concatenate(utts)
+    modes = {"greedy": {}, "beam8": {"beam_width": BEAM_K},
+             "beam8_ctc": {"beam_width": BEAM_K, "ctc_joint": CTC_ALPHA}}
+    rec = {"phase": "5c", "artifact": os.path.relpath(GATE_ASSET, REPO), "utterances": GATE_UTTS,
+           "stream_seconds": len(stream) / SAMPLE_RATE}
+    bad = []
+    for name, kw in modes.items():
+        gpu = Transcriber.from_artifact(GATE_ASSET, device=None if DEV == "cuda" else DEV, **kw)
+        cpu = Transcriber.from_artifact(GATE_ASSET, device="cpu", **kw)
+        reset_counters(kernels)
+        t0 = time.perf_counter()
+        got = gpu.transcribe_batch(utts)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts(kernels)
+        want = cpu.transcribe_batch(utts)
+        rows = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        rec[name] = {"rows_differing_from_cpu_plain": rows, "tokens": sum(map(len, got)),
+                     "ms_first_call": ms, "launches": launches}
+        if len(rows) > MAX_DIFF_ROWS or not (launches["fused_logmel"] and launches["bidir_recurrence"]):
+            bad.append(name)
+        if name != "greedy":
+            continue
+        for adapt in (False, True):
+            t0 = time.perf_counter()
+            hyp = gpu.transcribe_long(stream, adapt_cmvn=adapt)
+            ms = (time.perf_counter() - t0) * 1e3
+            ref = cpu.transcribe_long(stream, adapt_cmvn=adapt)
+            edits = _edit_distance(gpu.vocab.encode(hyp), gpu.vocab.encode(ref))
+            key = f"long_adapt_cmvn_{str(adapt).lower()}"
+            rec[key] = {"tokens": len(hyp), "tokens_cpu": len(ref), "edit_distance": edits, "ms": ms}
+            if edits > MAX_STREAM_EDITS or not hyp:
+                bad.append(key)
+    emit(rec)
+    if bad:
+        fail(f"the long-gate Transcriber on the card disagrees with the CPU plain path in {bad}: {rec}")
+    return rec
+
+
 def reset_counters(kernels) -> None:
     for fn in kernels:
         fn.launches = 0
@@ -1034,6 +1237,7 @@ def main() -> int:
     ]
     for i, (t, b, u) in enumerate(RAGGED_LSTM):
         check_lstm_ragged(t, b, u, seed=40 + i)
+    check_lstm_ragged(*GATE_LSTM, seed=45)
     memory, _, enc_mask = encode(params, cfg, audio64, full_len)
     dec_recs = [check_greedy(params, cfg, memory, enc_mask, b) for b in DECODER_BATCHES]
     # a batch that is no multiple of the group, rows of very different lengths
@@ -1060,7 +1264,7 @@ def main() -> int:
     reset_counters(kernels)
     tok_gpu, len_gpu = decode_eval(params, DEV)
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches = launch_counts(kernels)
     params_cpu, _, _ = load_artifact(ckpt, device="cpu")
     tok_cpu, _ = decode_eval(params_cpu, "cpu")
     diff = [
@@ -1097,7 +1301,7 @@ def main() -> int:
 
     reset_counters(kernels)
     tok3, _ = flagship()
-    flag_launches = {fn.__name__: fn.launches for fn in kernels}
+    flag_launches = launch_counts(kernels)
     if not serving_ran_only_its_kernels(flag_launches):
         fail(f"a kernel of the main path never launched at the flagship shape, or a training kernel did: {flag_launches}")
     if tok3.shape != (FLAGSHIP_B, DECODE_STEPS):
@@ -1123,6 +1327,11 @@ def main() -> int:
         check_train_step(ckpt, data, kernels)
         _, train_launches = train_flagship(ckpt, kernels)
         api_launches = drive_lstm_layer(params, kernels)
+
+    # ---- phase 5: beam search, joint CTC, and the artifact Transcriber
+    check_beam_eval(params, params_cpu, cfg, data, kernels)
+    time_beam_flagship(params, cfg, kernels, card)
+    check_gate_transcriber(data, kernels)
 
     def kernel_entry(name, source, replaces, rec, n_launches):
         return {

@@ -5,8 +5,11 @@ TF ``GreedyEmbeddingHelper`` + ``dynamic_decode`` semantics: start from
 (finished rows keep emitting <eos>). A CUDA tensor whose config the
 fused decoder supports goes through the CUDA kernel
 (``decode/fused_greedy.py``) at every batch size; otherwise the decode is
-a Python loop over ``speller_step``. A kernel that fails to build or
-launch raises: it never gives way to the loop.
+a Python loop over ``speller_step``. That loop is also the reference's
+own path for what the kernel does not compute (the ``*_monotonic``
+attention variants, binf 'logits' and 'embedding', no attention layer).
+A kernel that fails to build or launch raises: it never gives way to the
+loop.
 """
 
 from __future__ import annotations

@@ -206,6 +206,12 @@ def ctc_head_loss(
     return torch.sum(per_seq) / torch.clamp_min(torch.sum(valid), 1.0)
 
 
+def ctc_logp(params: LASParams, memory: torch.Tensor) -> torch.Tensor:
+    """Log-softmax of the encoder CTC head, [B, T', V]: what one-pass
+    joint CTC/attention beam decoding scores prefixes with."""
+    return torch.log_softmax(torch.matmul(memory, params.ctc_w) + params.ctc_b, dim=-1)
+
+
 def _shift_right(targets: torch.Tensor, bos_id: int) -> torch.Tensor:
     return torch.cat([torch.full_like(targets[:, :1], bos_id), targets[:, :-1]], dim=1)
 

@@ -6,9 +6,16 @@ previous attention vector]``, the attention vector is a linear projection
 of ``[cell_output; context]``, and an output projection gives the vocab
 logits. Training runs ``teacher_forced_decode``, with optional
 scheduled sampling (``ScheduledEmbeddingTrainingHelper``-style per-step
-Bernoulli mixing) from an explicit ``torch.Generator``. Binf modes 'none'
-and 'head' are ported; 'logits' and 'embedding' raise
-``NotImplementedError``.
+Bernoulli mixing) from an explicit ``torch.Generator``, which also draws
+the sigmoid noise of the ``*_monotonic`` attention variants. The same
+``speller_step`` serves the teacher-forced loop, the greedy loop and the
+beam search, whose carry has an explicit beam axis ``[B, K, ·]``.
+
+Binf output modes:
+  * ``head``      — auxiliary sigmoid head on the attention vector;
+  * ``logits``    — output projection into binf space, phone logits
+    recovered through the static phone-code matrix;
+  * ``embedding`` — token embeddings derived from the phone codes.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from phones_las_torch.ops.attention import (
 )
 from phones_las_torch.ops.lstm import LSTMParams, glorot_, glorot_lstm_, rec_dot
 
-PORTED_BINF_MODES = ("none", "head")
+BINF_MODES = ("none", "head", "logits", "embedding")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,12 +102,17 @@ def init_speller(
 ) -> SpellerParams:
     """The reference's initialisation: embedding N(0, 1), LSTM cells by
     the TF fan-in rule, glorot-uniform attention layer, output and binf
-    heads, zero biases; ``binf_codes`` [V, F] is data, required when a
-    binf mode is on (draws from ``generator``, on the CPU)."""
+    heads, zero biases (``binf_mode='embedding'``: a glorot [F, E]
+    projection in place of the table); ``binf_codes`` [V, F] is data,
+    required when a binf mode is on (draws from ``generator``, on the
+    CPU)."""
     _check_binf(cfg)
     p = SpellerParams(cfg, device)
-    with torch.no_grad():
-        p.embedding.copy_(torch.randn(p.embedding.shape, generator=generator))
+    if cfg.binf_mode == "embedding":  # a [num_binf, E] projection
+        glorot_(p.embedding, generator)
+    else:
+        with torch.no_grad():
+            p.embedding.copy_(torch.randn(p.embedding.shape, generator=generator))
     for cell in p.cells:
         glorot_lstm_(cell, generator)
     p.attention = init_attention_params(
@@ -124,21 +136,27 @@ class SpellerCarry(NamedTuple):
 
 
 def _check_binf(cfg: SpellerConfig) -> None:
-    if cfg.binf_mode not in PORTED_BINF_MODES:
-        raise NotImplementedError(f"binf_mode={cfg.binf_mode!r} is not ported yet")
+    if cfg.binf_mode not in BINF_MODES:
+        raise ValueError(f"unknown binf_mode {cfg.binf_mode!r}")
 
 
 def init_speller_carry(cfg: SpellerConfig, batch: int, enc_len: int = 1, device=None) -> SpellerCarry:
-    """Zero decoder state, float32 (the monotonic variants' dirac start
-    alignment waits with those variants)."""
+    """Zero decoder state, float32; the ``*_monotonic`` variants start
+    from a dirac alignment on the first frame (TF's initial alignment)."""
     z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
     states = tuple((z(batch, cfg.units), z(batch, cfg.units)) for _ in range(cfg.num_layers))
-    return SpellerCarry(states, z(batch, cfg.attn_vec_dim), z(batch, enc_len))
+    align = z(batch, enc_len)
+    if cfg.attention_type.endswith("_monotonic"):
+        align[:, 0] = 1.0
+    return SpellerCarry(states, z(batch, cfg.attn_vec_dim), align)
 
 
 def embed_tokens(params: SpellerParams, cfg: SpellerConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Token ids [B] → embeddings [B, E]."""
+    """Token ids [...] → embeddings [..., E]; ``binf_mode='embedding'``
+    goes through the code matrix (``binf_codes[tokens] @ embedding``)."""
     _check_binf(cfg)
+    if cfg.binf_mode == "embedding":
+        return torch.matmul(params.binf_codes[tokens], params.embedding)
     return params.embedding[tokens]
 
 
@@ -146,16 +164,22 @@ def speller_step(
     params: SpellerParams,
     cfg: SpellerConfig,
     carry: SpellerCarry,
-    token_emb: torch.Tensor,  # [B, E]
+    token_emb: torch.Tensor,  # [B, E] or [B, K, E]
     keys: torch.Tensor,  # [B, Tenc, A] precomputed attention keys
     memory: torch.Tensor,  # [B, Tenc, M] listener outputs
     enc_mask: torch.Tensor,  # [B, Tenc]
     forget_bias: float = 1.0,
     prec: str = "highest",
+    *,
+    generator: Optional[torch.Generator] = None,
+    sigmoid_noise: float = 0.0,
+    monotonic_mode: Optional[str] = None,  # None → cfg.monotonic_mode
 ):
-    """One decode step → (carry', logits [B, V], extras dict with 'probs'
-    and, in binf 'head' mode, 'binf_logits'). ``prec`` is the recurrent
-    dot's precision, as in ``ops.lstm``."""
+    """One decode step → (carry', logits [B, V] ([B, K, V] on a beamed
+    carry), extras dict with 'probs' and, in binf 'head' and 'logits'
+    modes, 'binf_logits'). ``prec`` is the recurrent dot's precision, as
+    in ``ops.lstm``; ``generator`` and ``sigmoid_noise`` feed the
+    monotonic variants' training noise."""
     _check_binf(cfg)
     x = torch.cat([token_emb, carry.attn_vec], dim=-1)
     new_states = []
@@ -168,17 +192,27 @@ def speller_step(
         x = h
     cell_out = x
 
-    probs = attention_scores(params.attention, cfg.attention_type, cell_out, keys, enc_mask)
+    probs = attention_scores(
+        params.attention, cfg.attention_type, cell_out, keys, enc_mask,
+        prev_align=carry.alignment, sigmoid_noise=sigmoid_noise, generator=generator,
+        monotonic_mode=monotonic_mode or cfg.monotonic_mode, monotonic_bias=cfg.monotonic_bias,
+    )
     ctx = attention_context(probs, memory)
     combined = torch.cat([cell_out, ctx], dim=-1)
     attn_vec = (
         torch.matmul(combined, params.attention_layer)
         if params.attention_layer is not None else combined
     )
-    logits = torch.matmul(attn_vec, params.out_w) + params.out_b
+    raw = torch.matmul(attn_vec, params.out_w) + params.out_b
     extras = {"probs": probs}
-    if cfg.binf_mode == "head":
-        extras["binf_logits"] = torch.matmul(attn_vec, params.binf_w) + params.binf_b
+    if cfg.binf_mode == "logits":
+        # raw are binf-space logits; a phone's score is its code match
+        extras["binf_logits"] = raw
+        logits = torch.matmul(raw, params.binf_codes.t())
+    else:
+        logits = raw
+        if cfg.binf_mode == "head":
+            extras["binf_logits"] = torch.matmul(attn_vec, params.binf_w) + params.binf_b
     return SpellerCarry(tuple(new_states), attn_vec, probs), logits, extras
 
 
@@ -201,8 +235,11 @@ def teacher_forced_decode(
     counts even when the config's is 0), each step's input token is, per
     row, with probability ``sp``, the token *sampled* from the softmax of
     the previous step's logits (never at step 0, where nothing was
-    sampled yet). The bits come from ``generator``, which lies on
-    ``memory``'s device; they cannot match JAX's.
+    sampled yet). With a ``generator``, the ``*_monotonic`` variants add
+    ``cfg.monotonic_noise`` Gaussian noise to their pre-sigmoid scores, and
+    teacher forcing always runs their parallel recursion. The bits come
+    from ``generator``, which lies on ``memory``'s device; they cannot
+    match JAX's.
 
     The reference rematerialises each step in its VJP (``jax.checkpoint``);
     here autograd keeps each step's activations (the [B, Tenc, A]
@@ -216,6 +253,8 @@ def teacher_forced_decode(
     use_ss = generator is not None and (
         sampling_probability is not None or cfg.sampling_probability > 0.0
     )
+    monotonic = cfg.attention_type.endswith("_monotonic")
+    noise = cfg.monotonic_noise if monotonic and generator is not None else 0.0
     prev_sampled = torch.full((b,), -1, dtype=torch.long, device=dev)
     logits_all, probs_all, binf_all = [], [], []
     for step in range(s):
@@ -225,7 +264,8 @@ def teacher_forced_decode(
             token = torch.where(take, prev_sampled.clamp_min(0), token)
         emb = embed_tokens(params, cfg, token)
         carry, logits, extras = speller_step(
-            params, cfg, carry, emb, keys, memory, enc_mask, prec=prec
+            params, cfg, carry, emb, keys, memory, enc_mask, prec=prec,
+            generator=generator, sigmoid_noise=noise, monotonic_mode="parallel",
         )
         if use_ss:
             with torch.no_grad():

@@ -160,10 +160,17 @@ def test_attention_scores_match_jax(variant):
 
 
 def test_monotonic_attention_not_ported_yet():
+    """Ported since: a monotonic variant needs its previous alignment, and
+    from the dirac start with zero scores the recursion gives
+    p_choose · cumprod(1 − p_choose) = 0.5, 0.25, 0.125 (the tests against
+    JAX are in ``test_torch_attention_variants.py``)."""
     tp = AttentionParams("bahdanau_monotonic", 4, 4, 4)
     assert tp.score_bias is not None
-    with pytest.raises(NotImplementedError):
-        attention_scores(tp, "bahdanau_monotonic", torch.zeros(1, 4), torch.zeros(1, 3, 4), torch.ones(1, 3))
+    args = (tp, "bahdanau_monotonic", torch.zeros(1, 4), torch.zeros(1, 3, 4), torch.ones(1, 3))
+    with pytest.raises(ValueError, match="prev_align"):
+        attention_scores(*args)
+    probs = attention_scores(*args, prev_align=torch.tensor([[1.0, 0.0, 0.0]]))
+    torch.testing.assert_close(probs, torch.tensor([[0.5, 0.25, 0.125]]))
 
 
 def test_config_round_trip_matches_jax_loader():

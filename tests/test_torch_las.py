@@ -147,14 +147,27 @@ def test_bad_artifact_leaf_fails_loudly():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port (the decode and serving modules included)
+    imports without pulling in JAX or the JAX package, and so does
+    ``chip_smoke.py``, whose imports are also read from its source."""
+    import ast
+
     code = (
         "import pkgutil, importlib, sys, phones_las_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(phones_las_torch.__path__, 'phones_las_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'phones_las_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 15, names\n"
+        "need = {'api', 'data.vocab', 'decode.beam', 'decode.ctc', 'decode.lm', 'decode.greedy', 'ops.attention'}\n"
+        "missing = {'phones_las_torch.' + n for n in need} - set(names)\n"
+        "assert not missing and len(names) >= 20, (missing, names)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True)
     assert r.returncode == 0, r.stderr
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    imported = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    imported |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module}
+    assert not {m for m in imported if m.split(".")[0] in ("jax", "jaxlib", "phones_las_tpu")}, imported
