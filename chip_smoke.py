@@ -72,7 +72,36 @@ then:
         (int16 PCM) greedy, beam-8 and beam-8 + CTC 0.7, at most 2
         utterances differing a mode; ``transcribe_long`` of their
         concatenation with and without ``adapt_cmvn``, at most 2 tokens
-        of edit distance a stream.
+        of edit distance a stream;
+  6. production (bf16) mode, augmentation and persistence, each driven with
+     the launch counters set to 0 just before and read just after:
+     a. the committed checkpoint in production mode (``matmul_precision=
+        'default'``, front-end ``precision='high'``: bf16 recurrent dots,
+        TF32 in the other GEMMs) on the eval set, greedy and beam-8: PER
+        within 0.005 of the reference's, at most 2 of 64 best-token rows
+        differing from the CPU plain path in production mode (the fused
+        decoder computes float32 on the card, the CPU loop bf16), the bf16
+        forward launched on every listener layer;
+     b. parity against production mode, timed in turns on the card: at
+        phase 3's greedy shape (utt/s, the split, the device-busy share of
+        one profiled call each), and at phase 4c's training shape with a
+        third mode, TF32 alone, to tell TF32's share of the difference
+        from the bf16 dots' (ms a step, losses finite and falling, the bf16
+        residual and VJP launched in production mode only, the busy share
+        and the host's top operators of a profiled step);
+     c. the long-gate configuration with its SpecAugment and a frequency
+        warp of 0.1 trains 5 steps on the card (losses finite); the masks
+        and the warp on the card against the CPU on the same uniforms and α;
+     d. ``Trainer(workdir)`` at the checkpoint's widths (the
+        ``librispeech_char_las`` preset over a data dir of its vocabulary,
+        warm-started from it) trains 3 steps on the eval set with a
+        checkpoint at 2 and 3; a second workdir holding only checkpoint 2
+        resumes silently and takes the 3rd step, held to the uninterrupted
+        one within 1e-6 of each leaf's largest magnitude; averaging of the
+        last 2 against their mean; ``Transcriber(workdir)`` against
+        ``Transcriber.from_artifact`` of its export on 16 eval-set
+        utterances (equal tokens). Its files go to a directory under
+        ``_runs/`` that is removed at the end.
 
 ``python3 chip_smoke.py --sweep`` runs none of the phases: it times the
 LSTM forward kernel under every plan it takes at the flagship width
@@ -145,6 +174,15 @@ REF_BEAM8_PER = 0.0319  # the reference's beam-8 PER on the eval set
 GATE_ASSET = os.path.join(REPO, "tests", "goldens", "long_gate.npz")
 GATE_UTTS = 16
 MAX_STREAM_EDITS = 2  # long-form tokens allowed to differ from the CPU plain path
+# production mode as bench.py defines it: bf16 recurrent dots and TF32 in
+# the other GEMMs (matmul_precision 'default'), front-end precision 'high'
+PROD_PRECISION = "default"
+GATE_WARP = 0.1  # the frequency warp phase 6c trains the long-gate configuration with
+GATE_TRAIN_STEPS = 5
+SERVE_ROUNDS = 6  # phase 6b: timed rounds of parity and production serving calls, in turns
+TRAIN_ROUNDS = 4  # phase 6b: timed rounds of a step in each numerics mode, in turns
+RESUME_TOL = 1e-6  # phase 6d: a resumed step against the uninterrupted one, of each leaf's max
+WORKDIR_PRESET = "librispeech_char_las"  # the preset of the checkpoint's widths
 TRAIN_B = 32
 TRAIN_STEPS = 6
 SPLIT_STEPS = 3  # further steps timed in their three parts
@@ -157,7 +195,13 @@ GRAD_TOL = 1e-4
 PARAM_TOL = 1e-4
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's record also gets the seconds since start."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -749,10 +793,17 @@ def profile_step(step, step_ms: float, top: int = 8) -> dict:
     if not total_ms:
         return {"device_ms": "not measured"}
     events.sort(key=dev_us, reverse=True)
+    # the host's side: operators by their own CPU time (inflated by the
+    # profiler's per-event cost, so read as shares, not as times)
+    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
+    host.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
     return {
         "device_ms": total_ms, "device_busy_share": total_ms / step_ms,
         "device_launches": sum(e.count for e in events),
         "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3, "count": e.count} for e in events[:top]],
+        "host_self_ms": sum(e.self_cpu_time_total for e in host) / 1e3,
+        "host_top": [{"name": e.key[:60], "self_ms": e.self_cpu_time_total / 1e3, "count": e.count}
+                     for e in host[:top]],
     }
 
 
@@ -775,6 +826,25 @@ def split_step(tr, batch) -> dict:
             "optimizer_ms": (t3 - t2) * 1e3}
 
 
+def production_cfg(cfg):
+    """The configuration in production mode, as bench.py defines it."""
+    return dataclasses.replace(
+        cfg, matmul_precision=PROD_PRECISION, frontend=dataclasses.replace(cfg.frontend, precision="high")
+    )
+
+
+def flagship_train_batch(vocab_size: int) -> dict:
+    """B = TRAIN_B × 10 s of random PCM with 200-token targets, on the card."""
+    rs = np.random.RandomState(0)  # as bench.py::bench_train
+    n = int(SECONDS * SAMPLE_RATE)
+    return {
+        "audio": torch.from_numpy((rs.randn(TRAIN_B, n) * 2000).astype(np.float32)).to(DEV),
+        "audio_lengths": torch.full((TRAIN_B,), n, dtype=torch.int32, device=DEV),
+        "targets": torch.from_numpy(rs.randint(4, vocab_size, (TRAIN_B, DECODE_STEPS))).to(DEV),
+        "target_lengths": torch.full((TRAIN_B,), DECODE_STEPS, dtype=torch.int32, device=DEV),
+    }
+
+
 def train_flagship(ckpt, kernels):
     """Phase 4c: Trainer.train_step at full width on B = TRAIN_B × 10 s of
     random PCM with 200-token targets, TRAIN_STEPS steps on one batch."""
@@ -787,14 +857,7 @@ def train_flagship(ckpt, kernels):
     tr = Trainer(cfg, TrainConfig(), device=device)
     tr.warm_start(params)
     del params
-    rs = np.random.RandomState(0)  # as bench.py::bench_train
-    n = int(SECONDS * SAMPLE_RATE)
-    batch = {
-        "audio": torch.from_numpy((rs.randn(TRAIN_B, n) * 2000).astype(np.float32)).to(DEV),
-        "audio_lengths": torch.full((TRAIN_B,), n, dtype=torch.int32, device=DEV),
-        "targets": torch.from_numpy(rs.randint(4, cfg.speller.vocab_size, (TRAIN_B, DECODE_STEPS))).to(DEV),
-        "target_lengths": torch.full((TRAIN_B,), DECODE_STEPS, dtype=torch.int32, device=DEV),
-    }
+    batch = flagship_train_batch(cfg.speller.vocab_size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     steps = []
@@ -994,6 +1057,11 @@ def launch_counts(kernels) -> dict:
     return {fn.__name__: fn.launches for fn in kernels}
 
 
+def bf16_counts(kernels) -> dict:
+    """Of each LSTM wrapper's launches, those in bf16 mode."""
+    return {fn.__name__: fn.bf16_launches for fn in kernels if hasattr(fn, "bf16_launches")}
+
+
 def check_beam_eval(params, params_cpu, cfg, data, kernels) -> dict:
     """Phase 5a: beam-8 on the eval set, card against the CPU plain path."""
     from phones_las_torch.decode import beam_decode
@@ -1164,9 +1232,350 @@ def check_gate_transcriber(data, kernels) -> dict:
     return rec
 
 
+def eval_per(tokens, lengths, data) -> float:
+    from phones_las_torch.utils.metrics import edit_distance_stats, per_from_stats
+
+    refs = data["refs"]
+    return per_from_stats(*edit_distance_stats(tokens, lengths, np.where(refs >= 0, refs, 0), (refs >= 0).sum(axis=1)))
+
+
+def check_production_eval(params, params_cpu, cfg, data, kernels) -> dict:
+    """Phase 6a: the committed checkpoint in production mode on the eval
+    set, greedy and beam-8, card against the CPU plain path."""
+    from phones_las_torch.decode import beam_decode, greedy_decode
+    from phones_las_torch.models.las import encode
+    from phones_las_torch.ops.lstm import resolve_rnn_precision
+    from phones_las_torch.utils.device import matmul_precision_scope
+
+    pcfg = production_cfg(cfg)
+    prec = resolve_rnn_precision(pcfg.matmul_precision)
+    cap = int(data["decode_cap"][0])
+
+    def run(p, device, beam):
+        with matmul_precision_scope(pcfg.matmul_precision):
+            audio = torch.from_numpy(data["audio"]).to(device)
+            lens = torch.from_numpy(data["lengths"]).to(device)
+            mem, _, mask = encode(p, pcfg, audio, lens, prec=prec)
+            if beam:
+                res = beam_decode(p.speller, pcfg.speller, mem, mask, cap, beam_width=beam, prec=prec)
+                tok, tl = res.tokens, res.lengths
+            else:
+                tok, tl, _ = greedy_decode(p.speller, pcfg.speller, mem, mask, cap, prec=prec)
+        return tok.cpu().numpy(), tl.cpu().numpy()
+
+    rec = {"phase": "6a", "mode": f"matmul_precision={pcfg.matmul_precision!r}, front-end precision='high'",
+           "recurrent_dots": prec, "utterances": len(data["audio"]), "decode_cap": cap}
+    bad = []
+    for name, beam in (("greedy", 0), ("beam8", BEAM_K)):
+        reset_counters(kernels)
+        t0 = time.perf_counter()
+        tok_g, len_g = run(params, DEV, beam)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches, bf16 = launch_counts(kernels), bf16_counts(kernels)
+        tok_c, _ = run(params_cpu, "cpu", beam)
+        rows = [i for i in range(len(tok_g)) if (tok_g[i] != tok_c[i]).any()]
+        per = eval_per(tok_g, len_g, data)
+        ref = REF_GREEDY_PER if not beam else REF_BEAM8_PER
+        rec[name] = {"per": per, "reference_per": ref, "rows_differing_from_cpu_plain": rows,
+                     "ms_first_call": ms, "launches": launches, "bf16_launches": bf16}
+        n_layers = cfg.listener.num_layers
+        ok = (
+            len(rows) <= MAX_DIFF_ROWS and abs(per - ref) <= PER_TOL
+            and launches["fused_logmel"] == 1 and launches["bidir_recurrence"] == n_layers
+            and bf16["bidir_recurrence"] == n_layers and launches["greedy_decode_fused"] == (0 if beam else 1)
+            and not any(launches[k] for k in ("recurrence", "recurrence_residual", "recurrence_bwd"))
+        )
+        if not ok:
+            bad.append(name)
+    emit(rec)
+    if bad:
+        fail(f"production mode on the eval set failed in {bad}: {rec}")
+    return rec
+
+
+def in_turns(names, rounds: int):
+    """The order of ``rounds`` rounds, each running every name once,
+    reversed every other round (a, b, b, a, a, b, ...), after one round of
+    warm-up (round 0)."""
+    for r in range(rounds + 1):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            yield r, n
+
+
+def serve_modes_in_turns(params, cfg, kernels, card) -> dict:
+    """Phase 6b, serving: phase 3's greedy shape in parity and in
+    production mode, the calls in turns."""
+    from phones_las_torch.decode.greedy import greedy_decode
+    from phones_las_torch.models.las import featurize
+    from phones_las_torch.models.listener import listen
+    from phones_las_torch.ops.lstm import resolve_rnn_precision
+    from phones_las_torch.ops.masking import length_mask
+    from phones_las_torch.utils.device import matmul_precision_scope
+
+    modes = {"parity": cfg, "production": production_cfg(cfg)}
+    audio = torch.from_numpy(make_audio(FLAGSHIP_B)).to(DEV)
+    lens = torch.full((FLAGSHIP_B,), audio.shape[1], dtype=torch.int32, device=DEV)
+
+    def call(c):
+        prec = resolve_rnn_precision(c.matmul_precision)
+        with matmul_precision_scope(c.matmul_precision):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats, flens = featurize(params, c, audio, lens)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mem, enc_lens = listen(params.listener, c.listener, feats, flens, prec=prec)
+            mask = length_mask(enc_lens, mem.shape[1])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            tok, _, _ = greedy_decode(params.speller, c.speller, mem, mask, DECODE_STEPS, prec=prec)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+        return tok, (t1 - t0, t2 - t1, t3 - t2)
+
+    splits = {n: [] for n in modes}
+    launches = {}
+    for r, n in in_turns(list(modes), SERVE_ROUNDS):
+        reset_counters(kernels)
+        tok, split = call(modes[n])
+        launches[n] = (launch_counts(kernels), bf16_counts(kernels))
+        if r:
+            splits[n].append(split)
+    rec = {"phase": "6b", "mode": "greedy serving, parity and production in turns",
+           "shape": f"B={FLAGSHIP_B} x {SECONDS} s, {DECODE_STEPS} greedy steps", "rounds": SERVE_ROUNDS}
+    for n, c in modes.items():
+        fe_s, li_s, de_s = (statistics.median(x) for x in zip(*splits[n]))
+        total = fe_s + li_s + de_s
+        profiled = profile_step(lambda: call(c), total * 1e3)
+        rec[n] = {
+            "utt_per_s": FLAGSHIP_B / total, "total_ms": total * 1e3, "frontend_ms": fe_s * 1e3,
+            "listener_ms": li_s * 1e3, "decoder_ms": de_s * 1e3,
+            "total_ms_each": [sum(x) * 1e3 for x in splits[n]],
+            "device_busy_share": profiled.get("device_busy_share", "not measured"),
+            "launches": launches[n][0], "bf16_launches": launches[n][1], "device_profile": profiled,
+        }
+    rec["card"] = card
+    emit(rec)
+    n_layers = cfg.listener.num_layers
+    la, bf = launches["production"]
+    if tok.shape != (FLAGSHIP_B, DECODE_STEPS) or la["greedy_decode_fused"] != 1 or (
+        la["bidir_recurrence"] != n_layers or bf["bidir_recurrence"] != n_layers
+    ):
+        fail(f"production serving did not run the bf16 forward and the decoder kernel: {rec}")
+    return rec
+
+
+def train_modes_in_turns(ckpt, kernels, card) -> dict:
+    """Phase 6b, training: phase 4c's step with one Trainer per numerics
+    mode on the same batch, stepped in turns: parity ('highest'), TF32
+    alone ('high': TF32 in the GEMMs, float32 recurrent dots) and
+    production ('default': TF32 and bf16 recurrent dots); the difference
+    between the last two is the bf16 dots', between the first two TF32's."""
+    from phones_las_torch.train.loop import Trainer
+    from phones_las_torch.train.state import TrainConfig
+    from phones_las_torch.utils.param_io import load_artifact
+
+    device = None if DEV == "cuda" else DEV
+    params, cfg, _ = load_artifact(ckpt, device=device)
+    modes = {"parity": cfg, "tf32": dataclasses.replace(cfg, matmul_precision="high"),
+             "production": production_cfg(cfg)}
+    trainers = {}
+    for n, c in modes.items():
+        trainers[n] = Trainer(c, TrainConfig(), device=device)
+        trainers[n].warm_start(params)
+    del params
+    batch = flagship_train_batch(cfg.speller.vocab_size)
+    steps = {n: [] for n in modes}
+    for r, n in in_turns(list(modes), TRAIN_ROUNDS):
+        reset_counters(kernels)
+        t0 = time.perf_counter()
+        out = trainers[n].train_step(batch)
+        loss = float(out["loss"])
+        torch.cuda.synchronize()
+        steps[n].append({"round": r, "loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                         "launches": launch_counts(kernels), "bf16_launches": bf16_counts(kernels)})
+    rec = {"phase": "6b", "mode": "training, three numerics modes in turns",
+           "shape": f"B={TRAIN_B} x {SECONDS} s, {DECODE_STEPS}-token targets", "rounds": TRAIN_ROUNDS}
+    for n in modes:
+        ms = [s["ms"] for s in steps[n] if s["round"]]
+        med = statistics.median(ms)
+        profiled = profile_step(lambda: trainers[n].train_step(batch), med)
+        rec[n] = {
+            "matmul_precision": modes[n].matmul_precision, "prec": trainers[n].prec, "step_ms": med,
+            "step_ms_each": ms, "losses": [s["loss"] for s in steps[n]],
+            "device_busy_share": profiled.get("device_busy_share", "not measured"),
+            "launches": steps[n][-1]["launches"], "bf16_launches": steps[n][-1]["bf16_launches"],
+            "device_profile": profiled,
+        }
+    rec["card"] = card
+    emit(rec)
+    n_layers = cfg.listener.num_layers
+    for n in modes:
+        losses = rec[n]["losses"]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"phase 6b, {n}: training losses are not finite and falling: {losses}")
+        want_bf16 = n_layers if n == "production" else 0
+        for s in steps[n]:
+            la, bf = s["launches"], s["bf16_launches"]
+            if la["recurrence_residual"] != n_layers or la["recurrence_bwd"] != n_layers or la["fused_logmel"] != 1:
+                fail(f"phase 6b, {n}: the step did not launch its kernels once per layer: {la}")
+            if bf["recurrence_residual"] != want_bf16 or bf["recurrence_bwd"] != want_bf16:
+                fail(f"phase 6b, {n}: {want_bf16} bf16 launches of the residual and VJP expected: {bf}")
+    return rec
+
+
+def train_gate_augmented(data, kernels) -> dict:
+    """Phase 6c: the long-gate configuration with its SpecAugment and a
+    frequency warp trains on the card; the masks and the warp on the card
+    against the CPU on the same uniforms and α."""
+    from phones_las_torch.frontend.freq_warp import apply_freq_warp, draw_alpha
+    from phones_las_torch.frontend.specaugment import apply_specaugment, draw_uniforms
+    from phones_las_torch.models.las import featurize
+    from phones_las_torch.train.loop import Trainer
+    from phones_las_torch.train.state import TrainConfig
+    from phones_las_torch.utils.param_io import load_artifact
+
+    device = None if DEV == "cuda" else DEV
+    params, cfg, _ = load_artifact(GATE_ASSET, device=device)
+    cfg = dataclasses.replace(cfg, freq_warp=GATE_WARP)
+    tr = Trainer(cfg, TrainConfig(), device=device)
+    tr.warm_start(params)
+    batch = eval_batch(data)
+    reset_counters(kernels)
+    t0 = time.perf_counter()
+    losses = [float(tr.train_step(batch)["loss"]) for _ in range(GATE_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / GATE_TRAIN_STEPS
+    launches = launch_counts(kernels)
+
+    # the augmentation alone, card against CPU, on draws made once on the CPU
+    with torch.no_grad():
+        audio = torch.from_numpy(data["audio"]).to(DEV)
+        feats, flens = featurize(params, cfg, audio, torch.from_numpy(data["lengths"]).to(DEV))
+        b, bins = feats.shape[0], feats.shape[-1] // 3
+        g = torch.Generator().manual_seed(60)
+        alpha = draw_alpha(b, GATE_WARP, g)
+        sa = cfg.specaugment
+        fu, tu = draw_uniforms(b, sa.freq_masks, g), draw_uniforms(b, sa.time_masks, g)
+        on = lambda t, dev: tuple(x.to(dev) for x in t)
+        out = {}
+        for dev, f, fl in ((DEV, feats, flens), ("cpu", feats.cpu(), flens.cpu())):
+            w = apply_freq_warp(f, GATE_WARP, bins, alpha=alpha.to(dev))
+            keep = apply_specaugment(torch.ones_like(w), fl, sa, bins, freq_uniforms=on(fu, dev),
+                                     time_uniforms=on(tu, dev))
+            out[dev] = (w.cpu(), keep.cpu())
+    warp_err = float((out[DEV][0] - out["cpu"][0]).abs().max())
+    masks_equal = torch.equal(out[DEV][1], out["cpu"][1])
+    rec = {
+        "phase": "6c", "artifact": os.path.relpath(GATE_ASSET, REPO), "freq_warp": GATE_WARP,
+        "specaugment": dataclasses.asdict(sa), "utterances": len(batch["audio"]),
+        "losses": losses, "ms_per_step": ms, "launches": launches,
+        "warp_max_abs_diff_card_cpu": warp_err, "masked_cells": int((out["cpu"][1] == 0).sum()),
+        "masks_equal_card_cpu": masks_equal,
+    }
+    emit(rec)
+    n_layers = cfg.listener.num_layers
+    if not all(np.isfinite(losses)) or not masks_equal or warp_err > 1e-5 or not rec["masked_cells"]:
+        fail(f"the augmented long-gate training or its augmentation on the card failed: {rec}")
+    if launches["recurrence_residual"] != n_layers * GATE_TRAIN_STEPS or launches["recurrence_bwd"] != n_layers * GATE_TRAIN_STEPS:
+        fail(f"the augmented training did not run the residual and VJP kernels on every step: {launches}")
+    return rec
+
+
+def check_workdir(ckpt, data, kernels) -> dict:
+    """Phase 6d: a training workdir at the checkpoint's widths: 3 steps with
+    checkpoints at 2 and 3, a silent resume from 2, averaging, the export
+    and the workdir Transcriber against the exported artifact's."""
+    import shutil
+    import tempfile
+
+    from phones_las_torch.api import Transcriber
+    from phones_las_torch.cli.common import resolve_preset
+    from phones_las_torch.data.vocab import Vocab
+    from phones_las_torch.train.checkpoint import CheckpointManager, load_averaged_params
+    from phones_las_torch.train.loop import Trainer
+    from phones_las_torch.utils.param_io import load_artifact, named_leaves
+
+    device = None if DEV == "cuda" else DEV
+    params, cfg, _ = load_artifact(ckpt, device=device)
+    os.makedirs(os.path.join(REPO, "_runs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_workdir_", dir=os.path.join(REPO, "_runs"))
+    try:
+        data_dir, wd, wd2 = (os.path.join(work, n) for n in ("data", "run", "resumed"))
+        os.makedirs(data_dir)
+        Vocab([f"p{i}" for i in range(cfg.speller.vocab_size - 4)]).save(os.path.join(data_dir, "vocab.txt"))
+        cap = int(data["decode_cap"][0])
+        overrides = {"num_steps": 3, "checkpoint_every": 2, "max_target_len": cap, "buckets": [32000]}
+        os.makedirs(wd)
+        with open(os.path.join(wd, "config.json"), "w") as f:
+            json.dump({"preset": WORKDIR_PRESET, "data": data_dir, "overrides": overrides, "precision": None}, f)
+        preset, *_ = resolve_preset(WORKDIR_PRESET, data_dir, overrides)
+        if dataclasses.asdict(preset.model) != dataclasses.asdict(cfg):
+            fail(f"the {WORKDIR_PRESET} preset does not give the checkpoint's configuration")
+        full = eval_batch(data)
+        rows = [slice(0, 32), slice(32, 64), slice(16, 48)]
+        batches = [{k: v[r] for k, v in full.items()} for r in rows]
+
+        reset_counters(kernels)
+        tr = Trainer(preset.model, preset.train, wd, device=device)
+        tr.warm_start(params)
+        tr.fit(iter(batches), log_fn=lambda m: None)
+        torch.cuda.synchronize()
+        launches = launch_counts(kernels)
+        steps = tr.ckpt.all_steps()
+        os.makedirs(os.path.join(wd2, "checkpoints"))
+        shutil.copytree(os.path.join(wd, "checkpoints", "2"), os.path.join(wd2, "checkpoints", "2"))
+        resumed = Trainer(preset.model, preset.train, wd2, device=device)
+        resumed_from = resumed.state.step
+        resumed.fit(iter(batches[2:]), log_fn=lambda m: None)
+        want = dict(named_leaves(tr.state.params))
+        diffs = {k: rel_err(t.detach(), want[k].detach()) for k, t in named_leaves(resumed.state.params)}
+        worst = max(diffs, key=diffs.get)
+
+        avg, used = load_averaged_params(wd, tr.state, 2)
+        ck = [CheckpointManager(wd).read(s)[0] for s in used]
+        avg_err = max(
+            float(np.abs(t.detach().cpu().numpy().astype(np.float64) - (ck[0][k] + ck[1][k]) / 2.0).max())
+            for k, t in named_leaves(avg)
+        )
+
+        utts = [np.clip(np.rint(data["audio"][i, : data["lengths"][i]]), -32768, 32767).astype(np.int16)
+                for i in range(GATE_UTTS)]
+        served = Transcriber(wd, beam_width=0, device=device)
+        art = os.path.join(work, "model.npz")
+        extras = served.export_artifact(art)
+        reset_counters(kernels)
+        got = served.transcribe_batch(utts)
+        serve_launches = launch_counts(kernels)
+        want_tok = Transcriber.from_artifact(art, device=device).transcribe_batch(utts)
+        differing = [i for i, (a, b) in enumerate(zip(got, want_tok)) if a != b]
+        rec = {
+            "phase": "6d", "preset": WORKDIR_PRESET, "overrides": overrides, "checkpoints": steps,
+            "train_launches": launches, "resumed_from_step": resumed_from,
+            "resumed_step3_max_rel_to_max": diffs[worst], "resumed_worst_leaf": worst, "tol": RESUME_TOL,
+            "averaged_steps": used, "average_max_abs_err": avg_err,
+            "export": {k: v for k, v in extras.items() if k != "vocab"},
+            "transcriber_utterances": len(utts), "rows_differing_from_artifact": differing,
+            "tokens": sum(map(len, got)), "serve_launches": serve_launches,
+        }
+        emit(rec)
+        n_layers = cfg.listener.num_layers
+        if steps != [2, 3] or resumed_from != 2 or resumed.state.step != 3 or diffs[worst] > RESUME_TOL:
+            fail(f"checkpoint and resume on the card failed: {rec}")
+        if used != [2, 3] or avg_err > 1e-6 or differing or extras["step"] != 3:
+            fail(f"averaging, export or the workdir Transcriber failed: {rec}")
+        if launches["recurrence_residual"] != 3 * n_layers or serve_launches["greedy_decode_fused"] != 1:
+            fail(f"the workdir run did not launch its kernels as expected: {rec}")
+        return rec
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def reset_counters(kernels) -> None:
     for fn in kernels:
         fn.launches = 0
+        if hasattr(fn, "bf16_launches"):
+            fn.bf16_launches = 0
 
 
 def main() -> int:
@@ -1333,6 +1742,14 @@ def main() -> int:
     time_beam_flagship(params, cfg, kernels, card)
     check_gate_transcriber(data, kernels)
 
+    # ---- phase 6: production mode, augmentation, checkpoints and the workdir Transcriber
+    check_production_eval(params, params_cpu, cfg, data, kernels)
+    serve_modes_in_turns(params, cfg, kernels, card)
+    with torch.enable_grad():
+        train_modes_in_turns(ckpt, kernels, card)
+        train_gate_augmented(data, kernels)
+        check_workdir(ckpt, data, kernels)
+
     def kernel_entry(name, source, replaces, rec, n_launches):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1341,6 +1758,7 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         }
 
+    emit({"phase": "end"})
     lstm_cu = "phones_las_torch/csrc/lstm.cu"
     emit({"kernels": [
         kernel_entry("fused_logmel", "phones_las_torch/csrc/frontend.cu",

@@ -5,24 +5,31 @@ Example::
 
     from phones_las_torch.api import Transcriber
 
-    t = Transcriber.from_artifact("model.npz", beam_width=8)   # on CUDA
+    t = Transcriber("runs/timit", beam_width=8)                # a training workdir, on CUDA
+    t = Transcriber.from_artifact("model.npz", beam_width=8)   # or one exported file
     print(t.transcribe(pcm_int16_array))                      # ['sil', 'ʃ', ...]
     print(t.transcribe_long(one_hour_of_pcm))
+    t.export_artifact("model.npz")                            # workdir → one file
 
 ``device=None`` means CUDA and raises without one; ``device="cpu"`` runs the
 plain PyTorch path. On CUDA the front-end and the listener run their CUDA
 kernels, and greedy decoding of a configuration the fused decoder takes
-runs its kernel (at every batch size); beam search, the speller-step loop,
-CTC and LM fusion are plain PyTorch on either device.
+runs its kernel (at every batch size, float32 in both numerics modes);
+beam search, the speller-step loop, CTC and LM fusion are plain PyTorch
+on either device. Every decode runs inside the config's
+``matmul_precision`` scope (``utils/device.py::matmul_precision_scope``).
 
-Not ported yet: the workdir constructor (it needs the checkpoint
-manager), ``replicate`` and ``data_parallel``, ``transcribe_files`` (the
-native audio decoders), and the ``implementation`` switch.
+Not ported yet: ``replicate`` and ``data_parallel`` (ROADMAP A8),
+``transcribe_files`` (the native audio decoders), and the
+``implementation`` switch.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
+import json
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -154,14 +161,114 @@ def merge_window_hypotheses(
 
 
 class Transcriber:
-    """A loaded model and its decode settings; build one with
-    ``Transcriber.from_artifact``."""
+    """A loaded model and its decode settings: from a training workdir
+    (``Transcriber(workdir)``) or from one artifact file
+    (``Transcriber.from_artifact``)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the workdir constructor needs the checkpoint manager, which is not "
-            "ported yet; use Transcriber.from_artifact"
+    def __init__(
+        self,
+        workdir: str,
+        *,
+        beam_width: Optional[int] = None,
+        length_penalty: float = 0.0,
+        head: str = "phone",
+        max_device_batch: int = 64,
+        data_parallel: int = 1,
+        average_checkpoints: int = 1,
+        lm: Optional[str] = None,
+        lm_weight: float = 0.3,
+        ctc_joint: Optional[float] = None,
+        device=None,
+    ):
+        """Serve a training run: replay its ``config.json`` (preset, data
+        dir, overrides, precision) through ``resolve_preset``, restore the
+        latest checkpoint (or the mean of the newest
+        ``average_checkpoints``). ``beam_width=None`` takes the preset's;
+        ``head='grapheme'`` decodes the multitask grapheme speller; ``lm``
+        is an n-gram table file fused into beam search at ``lm_weight``;
+        ``ctc_joint`` α turns on joint CTC/attention beam decoding."""
+        from phones_las_torch.cli.common import resolve_preset
+        from phones_las_torch.train.loop import Trainer
+        from phones_las_torch.utils.param_io import named_leaves
+
+        n_dp = data_parallel or (torch.cuda.device_count() if torch.cuda.is_available() else 1)
+        if n_dp > 1:
+            raise NotImplementedError("data_parallel is not ported yet (ROADMAP A8)")
+        if head not in ("phone", "grapheme"):
+            raise ValueError(f"head must be 'phone' or 'grapheme', got {head!r}")
+        with open(os.path.join(workdir, "config.json")) as f:
+            cfg_file = json.load(f)
+        # replay the overrides the run was trained with (shapes must match)
+        preset, vocab, gvocab, _, binf_codes = resolve_preset(
+            cfg_file["preset"], cfg_file["data"], cfg_file.get("overrides") or None
         )
+        if cfg_file.get("precision"):
+            preset = dataclasses.replace(
+                preset, model=dataclasses.replace(preset.model, matmul_precision=cfg_file["precision"])
+            )
+        trainer = Trainer(preset.model, preset.train, workdir=workdir, binf_codes=binf_codes, device=device)
+        if trainer.state.step <= 0:
+            raise FileNotFoundError(f"no checkpoint in {workdir}")
+        params = trainer.state.params
+        if average_checkpoints > 1:
+            from phones_las_torch.train.checkpoint import load_averaged_params
+
+            params, _ = load_averaged_params(workdir, trainer.state, average_checkpoints)
+        for _, t in named_leaves(params):
+            t.requires_grad_(False)
+        self._setup(params.eval(), preset.model, trainer.device, max_device_batch,
+                    preset.beam_width if beam_width is None else beam_width, length_penalty)
+        self.head = head
+        if lm is not None:
+            if not self.beam:
+                raise ValueError("lm fusion requires beam decoding (beam_width > 0)")
+            from phones_las_torch.decode.lm import load_lm
+
+            self.lm_logp = torch.from_numpy(load_lm(lm)).to(self.device)
+            self.lm_weight = float(lm_weight)
+        if ctc_joint is not None and head != "phone":
+            raise ValueError("the CTC head scores phone targets: ctc_joint needs head='phone'")
+        self._set_ctc_joint(ctc_joint)
+        if head == "grapheme":
+            if preset.model.grapheme_speller is None:
+                raise ValueError(f"preset {cfg_file['preset']!r} has no grapheme speller")
+            self.speller_cfg, self.vocab = preset.model.grapheme_speller, gvocab
+            self.max_steps = preset.pipeline.max_grapheme_len or preset.pipeline.max_target_len
+        else:
+            self.speller_cfg, self.vocab = preset.model.speller, vocab
+            self.max_steps = preset.pipeline.max_target_len
+        self._set_buckets(preset.pipeline.buckets)
+        self.step = int(trainer.state.step)
+        self.preset_name = cfg_file["preset"]
+
+    def _setup(self, params, cfg, device, max_device_batch, beam_width, length_penalty) -> None:
+        from phones_las_torch.ops.lstm import resolve_rnn_precision
+
+        self.device = device
+        self.max_device_batch = max_device_batch
+        self.params = params
+        self.model_cfg = cfg
+        self.prec = resolve_rnn_precision(cfg.matmul_precision)
+        self.beam = beam_width
+        self.length_penalty = length_penalty
+        self.lm_logp = None  # an n-gram table (decode/lm.py) for beam fusion
+        self.lm_weight = 0.0
+        self.head = "phone"
+        self._sample_rate = cfg.frontend.sample_rate
+
+    def _set_ctc_joint(self, ctc_joint: Optional[float]) -> None:
+        self.ctc_joint = None if ctc_joint is None else float(ctc_joint)
+        if self.ctc_joint is not None:
+            if not self.beam:
+                raise ValueError("ctc_joint requires beam decoding (beam_width > 0)")
+            if self.params.ctc_w is None:
+                raise ValueError("ctc_joint needs a model trained with ctc_weight > 0")
+
+    def _set_buckets(self, buckets) -> None:
+        self.buckets = [int(b) for b in buckets]
+        # the longest audio of one training example: long-form windows are
+        # sized to it
+        self.train_max_samples = max(self.buckets)
 
     @classmethod
     def from_artifact(
@@ -180,7 +287,6 @@ class Transcriber:
         one-pass joint CTC/attention beam decoding (needs the CTC head);
         ``device=None`` means CUDA."""
         from phones_las_torch.data.vocab import Vocab
-        from phones_las_torch.ops.lstm import resolve_rnn_precision
         from phones_las_torch.utils.device import resolve_device
         from phones_las_torch.utils.param_io import load_artifact
 
@@ -190,29 +296,37 @@ class Transcriber:
             if k not in extras:
                 raise ValueError(f"{path}: artifact has no '{k}' in __extras__")
         t = object.__new__(cls)
-        t.device = dev
-        t.max_device_batch = max_device_batch
-        t.params = params
-        t.model_cfg = cfg
-        t.prec = resolve_rnn_precision(cfg.matmul_precision)
-        t.beam = beam_width
-        t.length_penalty = length_penalty
-        t.lm_logp = None  # an n-gram table (decode/lm.py) for beam fusion
-        t.lm_weight = 0.0
-        t.ctc_joint = None if ctc_joint is None else float(ctc_joint)
-        if t.ctc_joint is not None:
-            if not t.beam:
-                raise ValueError("ctc_joint requires beam decoding (beam_width > 0)")
-            if params.ctc_w is None:
-                raise ValueError("ctc_joint needs a model trained with ctc_weight > 0")
+        t._setup(params, cfg, dev, max_device_batch, beam_width, length_penalty)
+        t._set_ctc_joint(ctc_joint)
         t.speller_cfg = cfg.speller
         t.vocab = Vocab(list(extras["vocab"]))
         t.max_steps = int(extras["max_target_len"])
-        t._sample_rate = cfg.frontend.sample_rate
-        # the longest audio of one training example: long-form windows are
-        # sized to it
-        t.train_max_samples = int(max(extras["buckets"]))
+        t._set_buckets(extras["buckets"])
+        t.step = extras.get("step")
+        t.preset_name = extras.get("preset")
         return t
+
+    def export_artifact(self, path: str) -> dict:
+        """Write the served model as one flat-npz artifact that
+        ``from_artifact`` (and the JAX package's ``load_artifact``) reads:
+        the params, the config, and as extras the preset, vocab, training
+        buckets, target cap and step → the extras."""
+        from phones_las_torch.utils.param_io import save_params_npz
+
+        if self.head != "phone":
+            raise ValueError("an artifact serves the phone head; export with head='phone'")
+        extras = {
+            "preset": self.preset_name,
+            "vocab": list(self.vocab.tokens),
+            "buckets": self.buckets,
+            "max_target_len": int(self.max_steps),
+            "step": self.step,
+        }
+        save_params_npz(path, self.params, self.model_cfg, extras=extras)
+        return extras
+
+    def _speller(self, params):
+        return params.grapheme_speller if self.head == "grapheme" else params.speller
 
     @property
     def sample_rate(self) -> int:
@@ -228,15 +342,16 @@ class Transcriber:
         peaks [B, S] or None), as device tensors (not fetched)."""
         from phones_las_torch.decode import beam_decode, greedy_decode
         from phones_las_torch.models.las import ctc_logp, encode
+        from phones_las_torch.utils.device import matmul_precision_scope
 
         p = self.params if params is None else params
         audio = torch.from_numpy(wav_batch).to(self.device)
         lengths = torch.from_numpy(wav_lens).to(self.device)
-        with torch.no_grad():
+        with torch.no_grad(), matmul_precision_scope(self.model_cfg.matmul_precision):
             memory, _, enc_mask = encode(p, self.model_cfg, audio, lengths, prec=self.prec)
             if self.beam:
                 res = beam_decode(
-                    p.speller, self.speller_cfg, memory, enc_mask, max_steps,
+                    self._speller(p), self.speller_cfg, memory, enc_mask, max_steps,
                     beam_width=self.beam, length_penalty=self.length_penalty,
                     lm_logp=self.lm_logp, lm_weight=self.lm_weight,
                     ctc_logp=None if self.ctc_joint is None else ctc_logp(p, memory),
@@ -245,7 +360,8 @@ class Transcriber:
                 )
                 return res.tokens, res.lengths, res.peaks
             toks, lens, aligns = greedy_decode(
-                p.speller, self.speller_cfg, memory, enc_mask, max_steps, return_alignments=aligned
+                self._speller(p), self.speller_cfg, memory, enc_mask, max_steps,
+                return_alignments=aligned, prec=self.prec,
             )
             peaks = torch.argmax(aligns, dim=-1).to(torch.int32) if aligned else None
             return toks, lens, peaks
@@ -304,6 +420,7 @@ class Transcriber:
         1e-3."""
         from phones_las_torch.frontend.features import num_frames
         from phones_las_torch.frontend.fused_frontend import extract_features_fused
+        from phones_las_torch.utils.device import matmul_precision_scope
 
         cfg = self.model_cfg
         if not cfg.cmvn:
@@ -319,7 +436,7 @@ class Transcriber:
                 seg = np.pad(seg, (0, chunk - n))
             wav = torch.from_numpy(np.ascontiguousarray(seg)).to(self.device)[None]
             n_t = torch.tensor([n], dtype=torch.int32, device=self.device)
-            with torch.no_grad():
+            with torch.no_grad(), matmul_precision_scope(cfg.matmul_precision):
                 feats = extract_features_fused(wav, cfg.frontend, sample_lengths=n_t)
             f = num_frames(n, cfg.frontend)
             m = (torch.arange(feats.shape[1], device=self.device) < f)[None, :, None]
@@ -470,6 +587,7 @@ class Transcriber:
         ``[(token, time_seconds), ...]``, one entry per token."""
         from phones_las_torch.models.las import encode
         from phones_las_torch.models.speller import teacher_forced_decode
+        from phones_las_torch.utils.device import matmul_precision_scope
 
         tokens = list(tokens)
         as_strings = len(tokens) > 0 and isinstance(tokens[0], str)
@@ -488,13 +606,13 @@ class Transcriber:
         audio_b = np.zeros((1, pad_samples), audio.dtype)
         audio_b[0, : audio.shape[0]] = audio
         dev = self.device
-        with torch.no_grad():
+        with torch.no_grad(), matmul_precision_scope(self.model_cfg.matmul_precision):
             memory, _, enc_mask = encode(
                 self.params, self.model_cfg, torch.from_numpy(audio_b).to(dev),
                 torch.tensor([audio.shape[0]], dtype=torch.int32, device=dev), prec=self.prec,
             )
             _, probs, _ = teacher_forced_decode(
-                self.params.speller, self.speller_cfg, torch.from_numpy(dec_in).to(dev),
+                self._speller(self.params), self.speller_cfg, torch.from_numpy(dec_in).to(dev),
                 memory, enc_mask, prec=self.prec,
             )
         peaks = torch.argmax(probs, dim=-1)[0, :n].cpu().numpy()

@@ -10,6 +10,11 @@ own path for what the kernel does not compute (the ``*_monotonic``
 attention variants, binf 'logits' and 'embedding', no attention layer).
 A kernel that fails to build or launch raises: it never gives way to the
 loop.
+
+``prec`` is the speller's recurrent-dot precision ('highest' or 'bf16',
+``ops.lstm.resolve_rnn_precision`` of the config's ``matmul_precision``):
+the loop runs its dots at it. The fused kernel computes float32 whatever
+``prec`` says, as the reference kernel runs HIGHEST dots in every mode.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ def greedy_decode_steps(
     max_steps: int,
     *,
     return_alignments: bool = False,
+    prec: str = "highest",
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The speller-step loop, a fixed ``max_steps`` trips as the
     reference's ``lax.scan`` → (tokens [B, max_steps], lengths [B]
@@ -51,7 +57,7 @@ def greedy_decode_steps(
     aligns = torch.empty((b, max_steps, t_enc), device=dev) if return_alignments else None
     for s in range(max_steps):
         emb = embed_tokens(params, cfg, token)
-        carry, logits, extras = speller_step(params, cfg, carry, emb, keys, memory, enc_mask)
+        carry, logits, extras = speller_step(params, cfg, carry, emb, keys, memory, enc_mask, prec=prec)
         nxt = torch.where(finished, cfg.eos_id, torch.argmax(logits, dim=-1))
         finished = finished | (nxt == cfg.eos_id)
         tokens[:, s] = nxt.to(torch.int32)
@@ -69,13 +75,15 @@ def greedy_decode(
     max_steps: int,
     *,
     return_alignments: bool = False,
+    prec: str = "highest",
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """→ (tokens [B, max_steps] (<eos>-padded), lengths [B] excluding
     <eos>, alignments or None). The fused kernel returns no alignments,
     so ``return_alignments=True`` takes the loop."""
     if memory.is_cuda and supports(cfg) and not return_alignments:
+        # float32 in both modes: the kernel ignores ``prec``
         tokens, lengths = greedy_decode_fused(params, cfg, memory, enc_mask, max_steps)
         return tokens, lengths, None
     return greedy_decode_steps(
-        params, cfg, memory, enc_mask, max_steps, return_alignments=return_alignments
+        params, cfg, memory, enc_mask, max_steps, return_alignments=return_alignments, prec=prec
     )

@@ -3,9 +3,8 @@ parameter container and its initialisation, ``featurize`` (front-end +
 CMVN), ``encode`` (+ listener, with dropout in training) and the losses:
 masked sequence cross-entropy with label smoothing, the binf sigmoid
 head, the CTC head and the multitask grapheme head, combined by
-``compute_loss``. SpecAugment and the frequency warp are declared in the
-config but not ported: a training forward that would apply them raises
-``NotImplementedError``."""
+``compute_loss``. A training forward augments the features after CMVN:
+the frequency warp, then SpecAugment."""
 
 from __future__ import annotations
 
@@ -18,7 +17,9 @@ from torch import nn
 
 from phones_las_torch.frontend.cmvn import apply_cmvn
 from phones_las_torch.frontend.features import FrontendConfig, num_frames
+from phones_las_torch.frontend.freq_warp import apply_freq_warp
 from phones_las_torch.frontend.fused_frontend import extract_features_fused
+from phones_las_torch.frontend.specaugment import SpecAugmentConfig, apply_specaugment
 from phones_las_torch.models.listener import ListenerConfig, ListenerParams, init_listener, listen
 from phones_las_torch.models.speller import (
     SpellerConfig,
@@ -28,17 +29,6 @@ from phones_las_torch.models.speller import (
 )
 from phones_las_torch.ops.lstm import glorot_
 from phones_las_torch.ops.masking import length_mask
-
-
-@dataclasses.dataclass(frozen=True)
-class SpecAugmentConfig:
-    """Same fields and defaults as the reference's (training only)."""
-
-    freq_masks: int = 2
-    freq_mask_width: int = 10
-    time_masks: int = 2
-    time_mask_width: int = 50
-    time_mask_ratio: float = 0.2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,13 +124,27 @@ def encode(
     generator: Optional[torch.Generator] = None,
 ):
     """Front-end + listener → (memory [B, T', M], enc_lengths, enc_mask).
-    ``train`` turns on the listener's dropout (masks from ``generator``)."""
+
+    With ``train`` and a ``generator``, the features after CMVN go through
+    the frequency warp (``cfg.freq_warp`` > 0, log-mel only), then
+    SpecAugment (``cfg.specaugment``), then the listener with dropout.
+    The draws on the one generator come in that order: α, then the
+    frequency widths and starts, then the time widths and starts, then the
+    dropout masks (and, in ``compute_loss``, scheduled sampling)."""
     feats, flens = featurize(params, cfg, audio, audio_lengths)
     if train and generator is not None:
+        blocks = 3 if cfg.frontend.add_deltas else 1
         if cfg.freq_warp:
-            raise NotImplementedError("freq_warp is not ported yet (ROADMAP A9)")
+            if cfg.frontend.feature_type != "logmel":
+                raise ValueError(
+                    "freq_warp warps the log-mel channel axis; it is not a "
+                    f"spectral warp for feature_type={cfg.frontend.feature_type!r}"
+                )
+            feats = apply_freq_warp(feats, cfg.freq_warp, feats.shape[-1] // blocks, generator=generator)
         if cfg.specaugment is not None:
-            raise NotImplementedError("specaugment is not ported yet (ROADMAP A9)")
+            feats = apply_specaugment(
+                feats, flens, cfg.specaugment, feats.shape[-1] // blocks, generator=generator
+            )
     memory, enc_lens = listen(
         params.listener, cfg.listener, feats, flens, prec=prec, train=train, generator=generator
     )

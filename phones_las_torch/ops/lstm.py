@@ -256,10 +256,12 @@ def recurrence(
         return recurrence_plain(xp_tm, mask_tm, wh, forget_bias, reverse, prec)
     (out, _, _, h, c), = _launch_forward("plt_lstm_recurrence", [xp_tm], mask_tm, [wh], forget_bias, [reverse], prec)
     recurrence.launches += 1
+    recurrence.bf16_launches += prec == "bf16"  # of them, in bf16 mode
     return out, (h, c)
 
 
 recurrence.launches = 0
+recurrence.bf16_launches = 0
 
 
 def recurrence_residual_plain(xps, mask_tm, whs, forget_bias, reverse, prec="highest"):
@@ -296,10 +298,12 @@ def recurrence_residual(
         return recurrence_residual_plain(xps, mask_tm, whs, forget_bias, reverse, prec)
     res = _launch_forward("plt_lstm_residual", xps, mask_tm, whs, forget_bias, reverse, prec)
     recurrence_residual.launches += 1
+    recurrence_residual.bf16_launches += prec == "bf16"  # of them, in bf16 mode
     return res
 
 
 recurrence_residual.launches = 0
+recurrence_residual.bf16_launches = 0
 
 
 # the forward kernel's constants, as csrc/lstm.cu has them
@@ -666,10 +670,12 @@ def recurrence_bwd(
         return recurrence_bwd_plain(*args)
     res = _launch_backward(*args)
     recurrence_bwd.launches += 1
+    recurrence_bwd.bf16_launches += prec == "bf16"  # of them, in bf16 mode
     return res
 
 
 recurrence_bwd.launches = 0
+recurrence_bwd.bf16_launches = 0
 
 
 def _launch_backward(xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins, forget_bias, reverse, prec,
@@ -811,10 +817,12 @@ def bidir_recurrence(
         "plt_lstm_recurrence", [xpf_tm, xpb_tm], mask_tm, [whf, whb], forget_bias, [False, True], prec
     )
     bidir_recurrence.launches += 1
+    bidir_recurrence.bf16_launches += prec == "bf16"  # of them, in bf16 mode
     return out_f, out_b, (hf, cf), (hb, cb)
 
 
 bidir_recurrence.launches = 0
+bidir_recurrence.bf16_launches = 0
 
 
 def _project_tm(p: LSTMParams, x: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,19 @@
-"""Trainer: the training step, the outer loop and the greedy eval leg
-(port of ``phones_las_tpu/train/loop.py``).
+"""Trainer: the training step, the outer loop with its checkpoints, and
+the greedy eval leg (port of ``phones_las_tpu/train/loop.py``).
 
 One ``train_step`` is ``compute_loss(train=True)`` (front-end kernel,
-listener with dropout, teacher-forced speller with scheduled sampling,
-masked CE), its backward (the residual and VJP kernels in every listener
-layer on CUDA), ``mask_grads``, the clipped Adam update and the
-learning-rate schedule. PyTorch runs eagerly, so there is no jit; the
-step's randomness comes from the state's ``torch.Generator``.
+frequency warp and SpecAugment, listener with dropout, teacher-forced
+speller with scheduled sampling, masked CE), its backward (the residual
+and VJP kernels in every listener layer on CUDA), ``mask_grads``, the
+clipped Adam update and the learning-rate schedule, all inside the
+config's ``matmul_precision`` scope. PyTorch runs eagerly, so there is
+no jit; the step's randomness comes from the state's ``torch.Generator``.
+With a ``workdir`` the trainer resumes silently from its latest
+checkpoint and ``fit`` saves under the ``CheckpointManager``'s policy.
 
-Not ported yet (ROADMAP A8): ``CheckpointManager`` and resume, the
-epoch-tracked ``DataSource`` loop, the device mesh, beam-search eval and
-the eval leg's WER and attention image.
+Not ported yet: the epoch-tracked ``DataSource`` loop (ROADMAP A5), the
+device mesh (A8), beam-search eval and the eval leg's WER and attention
+image.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from phones_las_torch.decode.greedy import greedy_decode
 from phones_las_torch.frontend.features import frames_for_samples
 from phones_las_torch.models.las import LASConfig, LASParams, compute_loss, encode
 from phones_las_torch.ops.lstm import resolve_rnn_precision
+from phones_las_torch.train.checkpoint import CheckpointManager
 from phones_las_torch.train.state import (
     Optimizer,
     TrainConfig,
@@ -36,7 +40,7 @@ from phones_las_torch.train.state import (
     mask_grads,
 )
 from phones_las_torch.utils import metrics as M
-from phones_las_torch.utils.device import DeviceLike, resolve_device
+from phones_las_torch.utils.device import DeviceLike, matmul_precision_scope, resolve_device
 from phones_las_torch.utils.param_io import named_leaves
 
 _DEVICE_KEYS = (
@@ -50,6 +54,7 @@ class Trainer:
         self,
         model_cfg: LASConfig,
         train_cfg: TrainConfig,
+        workdir: Optional[str] = None,
         *,
         binf_codes: Optional[np.ndarray] = None,
         score_fold: Optional[Dict[int, Optional[int]]] = None,
@@ -58,7 +63,9 @@ class Trainer:
         """``device=None`` means CUDA (raises without one); pass
         ``device='cpu'`` for the plain PyTorch path. The recurrent dots'
         precision follows ``model_cfg.matmul_precision``
-        (``resolve_rnn_precision``)."""
+        (``resolve_rnn_precision``), the other GEMMs its scope. A
+        ``workdir`` with a checkpoint restores the state from the latest
+        one (``start_epoch`` is its data epoch)."""
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
@@ -66,6 +73,17 @@ class Trainer:
         self.prec = resolve_rnn_precision(model_cfg.matmul_precision)
         self.tx = Optimizer(train_cfg)
         self.state: TrainState = create_train_state(model_cfg, train_cfg, binf_codes, self.device)
+        self.start_epoch = 0
+        self.ckpt: Optional[CheckpointManager] = None
+        if workdir is not None:
+            self.ckpt = CheckpointManager(
+                workdir, keep=train_cfg.keep_checkpoints, save_every=train_cfg.checkpoint_every
+            )
+            if self.ckpt.latest_step() is not None:
+                self.state, self.start_epoch = self.ckpt.restore(self.state)
+
+    def _scope(self):
+        return matmul_precision_scope(self.model_cfg.matmul_precision)
 
     def warm_start(self, params: LASParams) -> None:
         """Set every leaf of the state's params (CMVN stats included) from
@@ -86,10 +104,11 @@ class Trainer:
         sp = None
         if tc.sampling_ramp_steps > 0:
             sp = cfg.speller.sampling_probability * min(1.0, st.step / tc.sampling_ramp_steps)
-        return compute_loss(
-            st.params, cfg, self.device_batch(batch), train=True, generator=st.generator,
-            sampling_probability=sp, prec=self.prec,
-        )
+        with self._scope():
+            return compute_loss(
+                st.params, cfg, self.device_batch(batch), train=True, generator=st.generator,
+                sampling_probability=sp, prec=self.prec,
+            )
 
     def apply_gradients(self) -> Dict:
         """The optimizer half of a step, on the gradients the leaves hold:
@@ -114,9 +133,10 @@ class Trainer:
         detached tensors (no device sync)."""
         for _, t in named_leaves(self.state.params):
             t.grad = None
-        loss, aux = self.loss(batch)
-        loss.backward()
-        out = {"loss": loss.detach(), **self.apply_gradients()}
+        with self._scope():
+            loss, aux = self.loss(batch)
+            loss.backward()
+            out = {"loss": loss.detach(), **self.apply_gradients()}
         for k in ("phone_loss", "grapheme_loss", "binf_loss", "ctc_loss"):
             if k in aux:
                 out[k] = aux[k].detach()
@@ -131,9 +151,14 @@ class Trainer:
     ) -> TrainState:
         """Train over a plain batch iterator until ``num_steps``, logging
         the mean loss of each window of ``log_every`` steps and evaluating
-        every ``eval_every`` steps when ``eval_batches_fn`` is given."""
+        every ``eval_every`` steps when ``eval_batches_fn`` is given. With a
+        workdir, each step is saved under the manager's policy
+        (``checkpoint_every``), and also when ``checkpoint_every_secs``
+        have passed since the last save; the last step is saved at the end.
+        The data epoch saved is 0 (a plain iterator has none)."""
         tc = self.train_cfg
         t0, window = time.time(), []
+        last_ckpt_time = time.time()
         step = self.state.step
         for batch in batches:
             if step >= tc.num_steps:
@@ -152,6 +177,18 @@ class Trainer:
                 t0, window = time.time(), []
             if eval_batches_fn is not None and step % tc.eval_every == 0:
                 log_fn({"tag": "eval", "step": step, **self.evaluate(eval_batches_fn())})
+            if self.ckpt is not None:
+                force = (
+                    tc.checkpoint_every_secs > 0
+                    and time.time() - last_ckpt_time >= tc.checkpoint_every_secs
+                    and self.ckpt.latest_step() != step
+                )
+                if self.ckpt.save(step, self.state, epoch=0, force=force):
+                    last_ckpt_time = time.time()
+        if self.ckpt is not None:
+            if self.ckpt.latest_step() != self.state.step:
+                self.ckpt.save(self.state.step, self.state, epoch=0, force=True)
+            self.ckpt.wait()
         return self.state
 
     def evaluate(self, batches: Iterable[Dict], max_steps: Optional[int] = None) -> Dict:
@@ -160,7 +197,7 @@ class Trainer:
         cfg, params = self.model_cfg, self.state.params
         dist = tokens = g_dist = g_tokens = cap_hits = eval_utts = 0
         losses = []
-        with torch.no_grad():
+        with torch.no_grad(), self._scope():
             for batch in batches:
                 steps_cap = max_steps or self.decode_cap(batch)
                 b = self.device_batch(batch)
@@ -168,7 +205,9 @@ class Trainer:
                 memory, _, enc_mask = encoded
                 loss, _ = compute_loss(params, cfg, b, train=False, encoded=encoded, prec=self.prec)
                 losses.append(float(loss))
-                toks, lens, _ = greedy_decode(params.speller, cfg.speller, memory, enc_mask, steps_cap)
+                toks, lens, _ = greedy_decode(
+                    params.speller, cfg.speller, memory, enc_mask, steps_cap, prec=self.prec
+                )
                 toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
                 n_real = batch.get("num_real")
                 n_real = lens.shape[0] if n_real is None else int(n_real)
@@ -182,7 +221,8 @@ class Trainer:
                 dist, tokens = dist + d, tokens + t
                 if params.grapheme_speller is not None and "grapheme_targets" in batch:
                     gt, gl, _ = greedy_decode(
-                        params.grapheme_speller, cfg.grapheme_speller, memory, enc_mask, steps_cap
+                        params.grapheme_speller, cfg.grapheme_speller, memory, enc_mask, steps_cap,
+                        prec=self.prec,
                     )
                     d, t = M.edit_distance_stats(
                         gt.cpu().numpy(), gl.cpu().numpy(), np.asarray(batch["grapheme_targets"]),

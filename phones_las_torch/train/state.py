@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from phones_las_torch.models.las import LASConfig, LASParams, init_las, trainable_filter
@@ -156,3 +157,43 @@ def create_train_state(
     gen = torch.Generator(device=dev).manual_seed(train_cfg.seed + 1)
     return TrainState(0, params, Optimizer(train_cfg).init(leaves), gen)
 
+
+def state_arrays(state: TrainState) -> Dict[str, np.ndarray]:
+    """The state as host arrays: each param leaf under its keystr path, its
+    Adam moments under ``mu<path>`` and ``nu<path>``, the optimizer's
+    ``count`` and the generator's state bytes as uint8 (``generator``).
+    The step is not among them: a checkpoint keeps it beside the arrays."""
+    from phones_las_torch.utils.param_io import named_leaves
+
+    out = {}
+    for (key, t), m, v in zip(named_leaves(state.params), state.opt_state.mu, state.opt_state.nu):
+        out[key] = t.detach().cpu().numpy()
+        out["mu" + key] = m.cpu().numpy()
+        out["nu" + key] = v.cpu().numpy()
+    out["count"] = np.asarray(state.opt_state.count, np.int64)
+    out["generator"] = state.generator.get_state().numpy()
+    return out
+
+
+def load_state_arrays(state: TrainState, arrays: Dict[str, np.ndarray]) -> None:
+    """Fill ``state`` in place from ``state_arrays`` output (the step is
+    the caller's). A missing or misshapen leaf, moment or generator state
+    raises, naming it."""
+    from phones_las_torch.utils.param_io import copy_arrays_, named_leaves
+
+    leaves = list(named_leaves(state.params))
+    copy_arrays_(leaves, arrays)
+    for prefix, moments in (("mu", state.opt_state.mu), ("nu", state.opt_state.nu)):
+        copy_arrays_([(prefix + key, m) for (key, _), m in zip(leaves, moments)], arrays)
+    for key in ("count", "generator"):
+        if key not in arrays:
+            raise KeyError(f"missing leaf {key}")
+    state.opt_state.count = int(arrays["count"])
+    gen = torch.from_numpy(np.asarray(arrays["generator"], np.uint8).copy())
+    have = state.generator.get_state().numel()
+    if gen.numel() != have:
+        raise ValueError(
+            f"leaf generator: {gen.numel()} state bytes, the state's {state.generator.device.type} "
+            f"generator holds {have} (a checkpoint resumes on the device type it was written on)"
+        )
+    state.generator.set_state(gen)

@@ -7,7 +7,8 @@ plain PyTorch path on the CPU runs only when the caller asks for it
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -40,6 +41,25 @@ def set_parity_mode() -> dict:
         "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
     }
+
+
+@contextlib.contextmanager
+def matmul_precision_scope(matmul_precision: str) -> Iterator[None]:
+    """The counterpart of ``jax.default_matmul_precision`` for the GEMMs
+    outside the recurrences: 'highest' (parity mode) turns TF32 off for
+    matrix products and cuDNN; any other value ('default', production
+    mode) allows it, as XLA runs float32 dots as TF32 under 'default' on
+    an NVIDIA GPU. The recurrent dots take their precision from ``prec``
+    instead. Both flags are restored on exit, so process-wide state is
+    never left changed."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    tf32 = matmul_precision != "highest"
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def check_kernel_device(*tensors: torch.Tensor) -> bool:

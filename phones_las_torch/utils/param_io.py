@@ -1,17 +1,20 @@
-"""Load the flat-npz model artifact (port of ``phones_las_tpu/utils/param_io.py``).
+"""The flat-npz model artifact (port of ``phones_las_tpu/utils/param_io.py``).
 
 The artifact holds each parameter leaf under its JAX ``keystr`` tree path
-(``'.listener.layers[0][1].wh'``, ``'.speller.cells[0].wx'``, ...) and the
-``LASConfig`` as JSON bytes in ``__config__``. ``params_from_numpy``
-carries such a flat dict of arrays into the port's ``LASParams`` modules;
-``load_artifact`` reads the file with numpy alone. A missing or
-misshapen leaf fails loudly.
+(``'.listener.layers[0][1].wh'``, ``'.speller.cells[0].wx'``, ...), the
+``LASConfig`` as ``dataclasses.asdict`` JSON bytes in ``__config__`` and
+optional decode metadata as JSON bytes in ``__extras__``.
+``params_from_numpy`` carries such a flat dict of arrays into the port's
+``LASParams`` modules; ``load_artifact`` reads the file with numpy alone
+and ``save_params_npz`` writes one (the JAX package's ``load_artifact``
+reads it). A missing or misshapen leaf fails loudly.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,22 +76,47 @@ def named_leaves(params: LASParams) -> Iterator[Tuple[str, torch.Tensor]]:
             yield f".{name}", t
 
 
-def params_from_numpy(
-    flat: Dict[str, np.ndarray], cfg: LASConfig, device: DeviceLike = None
-) -> LASParams:
-    """Carry the JAX model's leaves, keyed by ``keystr`` path, into a
-    ``LASParams`` on ``device`` (``None`` → CUDA). Leaves are cast to
-    float32, as the JAX loader casts them to its template's dtype."""
-    dev = resolve_device(device)
-    params = LASParams(cfg, device=dev)
+def params_to_numpy(params: LASParams) -> Dict[str, np.ndarray]:
+    """{keystr path: float32 array} of every leaf, fetched to the host."""
+    return {key: t.detach().cpu().numpy() for key, t in named_leaves(params)}
+
+
+def _json_bytes(obj) -> np.ndarray:
+    return np.frombuffer(json.dumps(obj).encode(), dtype=np.uint8)
+
+
+def save_params_npz(path: str, params: LASParams, cfg: LASConfig, extras: Optional[dict] = None) -> None:
+    """Write the artifact: the leaves under their paths, the config in
+    ``__config__`` and ``extras`` (JSON-serialisable decode metadata:
+    vocab, buckets, max_target_len) in ``__extras__``."""
+    flat = params_to_numpy(params)
+    flat["__config__"] = _json_bytes(dataclasses.asdict(cfg))
+    if extras is not None:
+        flat["__extras__"] = _json_bytes(extras)
+    np.savez_compressed(path, **flat)
+
+
+def copy_arrays_(leaves: Iterable[Tuple[str, torch.Tensor]], flat: Dict[str, np.ndarray]) -> None:
+    """Copy ``flat[key]`` (cast to float32) into each ``(key, tensor)`` of
+    ``leaves``, in place; a missing or misshapen array raises, naming it."""
     with torch.no_grad():
-        for key, t in named_leaves(params):
+        for key, t in leaves:
             if key not in flat:
                 raise KeyError(f"missing leaf {key}")
             arr = np.asarray(flat[key])
             if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(f"leaf {key}: shape {arr.shape}, model expects {tuple(t.shape)}")
             t.copy_(torch.from_numpy(arr.astype(np.float32)))
+
+
+def params_from_numpy(
+    flat: Dict[str, np.ndarray], cfg: LASConfig, device: DeviceLike = None
+) -> LASParams:
+    """Carry the JAX model's leaves, keyed by ``keystr`` path, into a
+    ``LASParams`` on ``device`` (``None`` → CUDA). Leaves are cast to
+    float32, as the JAX loader casts them to its template's dtype."""
+    params = LASParams(cfg, device=resolve_device(device))
+    copy_arrays_(named_leaves(params), flat)
     return params.eval()
 
 
@@ -108,3 +136,9 @@ def load_artifact(path: str, device: DeviceLike = None) -> Tuple[LASParams, LASC
     except (KeyError, ValueError) as e:
         raise ValueError(f"{path}: {e}") from e
     return params, cfg, extras
+
+
+def load_params_npz(path: str, device: DeviceLike = None) -> Tuple[LASParams, LASConfig]:
+    """→ (LASParams on ``device`` (``None`` → CUDA), LASConfig)."""
+    params, cfg, _ = load_artifact(path, device)
+    return params, cfg

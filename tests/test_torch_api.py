@@ -166,9 +166,9 @@ def test_align_matches_jax(utterances):
     assert [tok for tok, _ in got] == refs[1]
 
 
-def test_transcriber_rules(monkeypatch):
-    with pytest.raises(NotImplementedError, match="from_artifact"):
-        api.Transcriber("some/workdir")
+def test_transcriber_rules(monkeypatch, tmp_path):
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        api.Transcriber(str(tmp_path / "no_such_run"), device="cpu")  # a workdir without a run
     with pytest.raises(ValueError, match="beam"):
         api.Transcriber.from_artifact(ASSET, device="cpu", ctc_joint=0.7)
     t = api.Transcriber.from_artifact(ASSET, device="cpu", max_device_batch=2)

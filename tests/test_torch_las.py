@@ -159,7 +159,9 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'phones_las_tpu'))\n"
         "assert not bad, bad\n"
-        "need = {'api', 'data.vocab', 'decode.beam', 'decode.ctc', 'decode.lm', 'decode.greedy', 'ops.attention'}\n"
+        "need = {'api', 'data.vocab', 'decode.beam', 'decode.ctc', 'decode.lm', 'decode.greedy', 'ops.attention',\n"
+        "        'frontend.specaugment', 'frontend.freq_warp', 'frontend.cmvn', 'data.ipa', 'data.pipeline',\n"
+        "        'utils.config', 'cli.common', 'train.checkpoint', 'train.state'}\n"
         "missing = {'phones_las_torch.' + n for n in need} - set(names)\n"
         "assert not missing and len(names) >= 20, (missing, names)\n"
     )
