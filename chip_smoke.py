@@ -95,13 +95,46 @@ then:
      d. ``Trainer(workdir)`` at the checkpoint's widths (the
         ``librispeech_char_las`` preset over a data dir of its vocabulary,
         warm-started from it) trains 3 steps on the eval set with a
-        checkpoint at 2 and 3; a second workdir holding only checkpoint 2
+        checkpoint at 1 (the first step a fresh workdir is offered, as
+        orbax saves it), 2 and 3; a second workdir holding only checkpoint 2
         resumes silently and takes the 3rd step, held to the uninterrupted
         one within 1e-6 of each leaf's largest magnitude; averaging of the
         last 2 against their mean; ``Transcriber(workdir)`` against
         ``Transcriber.from_artifact`` of its export on 16 eval-set
         utterances (equal tokens). Its files go to a directory under
         ``_runs/`` that is removed at the end.
+  7. the data layer and the rest of the ``Trainer``, in parity mode, in a
+     temporary directory under ``_runs/`` removed at the end:
+     a. the port's formant corpus (``data/speechlike.py``, phonotactics
+        seed 1234, 2–6 syllables) written as record files, a train split
+        of 256 utterances (seed 7) and a held-out split of 64 (seed 8); the
+        data dir's CMVN over every training utterance through the
+        front-end kernel (``finalize_split_dir``) against the same pass on
+        the CPU (mean and std within 1e-4 of their largest magnitude);
+     b. a ``DataSource`` over the train split (B = 32, buckets of 1 and
+        2 s, 32-token rows): epoch 0 filled by the native C++ reader equal
+        to the Python fill in every key; batches an epoch, ms a batch;
+     c. the committed checkpoint fine-tuned from the record files: the
+        ``librispeech_char_las`` preset over the corpus's data dir (its
+        CMVN injected after the warm start, as the training CLI does),
+        ``fit`` over the DataSource for two epochs with an eval of the
+        held-out split after each (a recording writer gets the scalars and
+        the attention image); PER before and after each epoch, ms a step,
+        the launches of the five kernels of the path; the held-out eval on
+        the card against the CPU (PER within 0.005, loss within 1e-4
+        relative, at most 2 of 64 rows differing), beam-8 on its first
+        batch (PER within 0.005); the run exported as one artifact (the
+        committed ``ckpt.npz`` carries no vocabulary);
+     d. one epoch in a second workdir, then a trainer resumed from its
+        checkpoint: epoch 0 recorded, the leaves restored bitwise, and
+        epoch 0 replayed from its first batch, as the reference does;
+     e. the held-out split as 16 kHz WAV files (16 also at 48 kHz) through
+        ``transcribe_files`` of that artifact: equal to ``transcribe_batch``
+        at 16 kHz, PER at 48 kHz within 0.02 of 16 kHz;
+     f. the long-regime gate of ``tests/test_long_regime_gate.py`` through
+        the long-gate artifact on the port's synthesized audio: no
+        derailment, batch PER ≤ 0.035, stitched PER ≤ 0.04, the stream at
+        0.03 gain with stream CMVN ≤ 0.08.
 
 ``python3 chip_smoke.py --sweep`` runs none of the phases: it times the
 LSTM forward kernel under every plan it takes at the flagship width
@@ -193,6 +226,20 @@ EOS_ID = 2
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
 PARAM_TOL = 1e-4
+# phase 7: the formant corpus (phonotactics seed 1234, 2-6 syllables), its
+# splits, the DataSource's shapes and the bounds, card against the CPU
+DATA_TRAIN_UTTS, DATA_TRAIN_SEED = 256, 7
+DATA_HELD_UTTS, DATA_HELD_SEED = 64, 8
+DATA_BUCKETS = (16000, 32000)
+DATA_MAX_TARGET = 32
+DATA_EPOCHS = 2
+CMVN_RTOL = 1e-4  # the stats' max |d| over their max |x|, mean and std each
+FIT_LOSS_RTOL = 1e-4  # the held-out eval loss
+FILES_48K = 16  # held-out files also written at 48 kHz
+FILES_PER_TOL = 0.02  # their PER against the same files at 16 kHz
+# the long-regime gate's bounds (tests/test_long_regime_gate.py)
+GATE_BATCH_PER, GATE_STITCH_PER, GATE_QUIET_PER = 0.035, 0.04, 0.08
+DERAIL_SLACK = 15
 
 
 T0 = time.perf_counter()
@@ -1484,7 +1531,7 @@ def train_gate_augmented(data, kernels) -> dict:
 
 def check_workdir(ckpt, data, kernels) -> dict:
     """Phase 6d: a training workdir at the checkpoint's widths: 3 steps with
-    checkpoints at 2 and 3, a silent resume from 2, averaging, the export
+    checkpoints at 1, 2 and 3, a silent resume from 2, averaging, the export
     and the workdir Transcriber against the exported artifact's."""
     import shutil
     import tempfile
@@ -1560,13 +1607,391 @@ def check_workdir(ckpt, data, kernels) -> dict:
         }
         emit(rec)
         n_layers = cfg.listener.num_layers
-        if steps != [2, 3] or resumed_from != 2 or resumed.state.step != 3 or diffs[worst] > RESUME_TOL:
+        if steps != [1, 2, 3] or resumed_from != 2 or resumed.state.step != 3 or diffs[worst] > RESUME_TOL:
             fail(f"checkpoint and resume on the card failed: {rec}")
         if used != [2, 3] or avg_err > 1e-6 or differing or extras["step"] != 3:
             fail(f"averaging, export or the workdir Transcriber failed: {rec}")
         if launches["recurrence_residual"] != 3 * n_layers or serve_launches["greedy_decode_fused"] != 1:
             fail(f"the workdir run did not launch its kernels as expected: {rec}")
         return rec
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ---- phase 7: the data layer and fit over record files
+
+
+class RecordingWriter:
+    """The metric writer ``Trainer.fit`` takes (any object with these two
+    methods): keeps what it is given, by step."""
+
+    def __init__(self):
+        self.scalars, self.images = {}, {}
+
+    def write_scalars(self, step, values):
+        self.scalars.setdefault(step, {}).update(values)
+
+    def write_images(self, step, images):
+        self.images.setdefault(step, {}).update(images)
+
+
+class NotingSource:
+    """A ``DataSource`` that notes the real ``utt_ids`` of each batch it
+    hands out, with its epoch."""
+
+    def __init__(self, src):
+        self.src, self.batches = src, []
+
+    def epoch(self, epoch=0, prefetch=4):
+        for b in self.src.epoch(epoch, prefetch):
+            self.batches.append((epoch, b["utt_ids"][: b["num_real"]]))
+            yield b
+
+    def repeat(self, start_epoch=0):
+        return self.src.repeat(start_epoch)
+
+
+def vector_err(got, want) -> float:
+    """max |got − want| over max |want| of a stats vector (Δ means sit at 0)."""
+    return float(np.abs(got - want).max() / max(float(np.abs(want).max()), 1e-30))
+
+
+def token_per(hyps, refs, vocab) -> float:
+    from phones_las_torch.utils.metrics import _edit_distance
+
+    pairs = list(zip(hyps, refs))
+    errs = sum(_edit_distance(vocab.encode(h), vocab.encode(r)) for h, r in pairs)
+    return errs / max(sum(len(r) for _, r in pairs), 1)
+
+
+def check_corpus_prep(work, cfg, kernels) -> dict:
+    """Phase 7a: the formant corpus's train and held-out splits written as
+    record files by the port, and the data dir's CMVN through the
+    front-end kernel over every training utterance, against the CPU."""
+    from phones_las_torch.data.prep_common import compute_cmvn, finalize_split_dir
+    from phones_las_torch.data.speechlike import write_speechlike_corpus
+    from phones_las_torch.frontend.cmvn import CmvnStats
+
+    t0 = time.perf_counter()
+    train, vocab = write_speechlike_corpus(os.path.join(work, "train.plu"), n_utts=DATA_TRAIN_UTTS,
+                                           seed=DATA_TRAIN_SEED)
+    held, _ = write_speechlike_corpus(os.path.join(work, "held.plu"), n_utts=DATA_HELD_UTTS, seed=DATA_HELD_SEED)
+    synth_s = time.perf_counter() - t0
+    data_dir = os.path.join(work, "data")
+    os.makedirs(data_dir)
+    reset_counters(kernels)
+    t0 = time.perf_counter()
+    finalize_split_dir(data_dir, vocab, cmvn_from=train, frontend_cfg=cfg.frontend, cmvn_max_utts=None,
+                       device=None if DEV == "cuda" else DEV)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = launch_counts(kernels)
+    card = CmvnStats.load(os.path.join(data_dir, "cmvn.json"))
+    t0 = time.perf_counter()
+    cpu = compute_cmvn(train, cfg.frontend, max_utts=None, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    errs = {"mean": vector_err(card.mean, cpu.mean), "std": vector_err(card.std, cpu.std)}
+    mb = sum(os.path.getsize(p) + os.path.getsize(p + ".idx") for p in (train, held)) / 1e6
+    rec = {
+        "phase": "7a", "train": {"utterances": DATA_TRAIN_UTTS, "seed": DATA_TRAIN_SEED},
+        "held_out": {"utterances": DATA_HELD_UTTS, "seed": DATA_HELD_SEED}, "record_mb": mb,
+        "synthesis_s": synth_s, "cmvn_frames": card.count, "cmvn_card_s": card_s, "cmvn_cpu_s": cpu_s,
+        "cmvn_err_card_cpu": errs, "tol": CMVN_RTOL, "launches": launches,
+    }
+    emit(rec)
+    if max(errs.values()) > CMVN_RTOL or card.count != cpu.count:
+        fail(f"the card's CMVN stats are not within {CMVN_RTOL} of the CPU's: {rec}")
+    if launches["fused_logmel"] != DATA_TRAIN_UTTS:
+        fail(f"the CMVN pass did not run the front-end kernel once an utterance: {launches}")
+    return train, held, vocab, data_dir
+
+
+def check_datasource(train, vocab) -> int:
+    """Phase 7b: epoch 0 of the training split through the native fill and
+    the Python fill, batch for batch → the number of batches an epoch."""
+    from phones_las_torch.data.pipeline import DataSource, PipelineConfig
+    from phones_las_torch.data.records import RecordReader
+
+    pipe = PipelineConfig(batch_size=TRAIN_B, buckets=DATA_BUCKETS, max_target_len=DATA_MAX_TARGET,
+                          eos_id=vocab.eos_id, pad_id=vocab.pad_id)
+    native, python = DataSource([train], pipe), DataSource([train], pipe, use_native="never")
+    if native.native is None:
+        fail("the native record reader did not build on this host: the DataSource filled in Python")
+    out, secs = {}, {}
+    for name, src in (("native", native), ("python", python)):
+        t0 = time.perf_counter()
+        out[name] = list(src.epoch(0))
+        secs[name] = time.perf_counter() - t0
+    same = len(out["native"]) == len(out["python"]) and all(
+        sorted(a) == sorted(b) and all(
+            np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray) else a[k] == b[k] for k in a)
+        for a, b in zip(out["native"], out["python"])
+    )
+    lens = RecordReader(train).lengths()
+    n = len(out["native"])
+    rec = {
+        "phase": "7b", "batch": TRAIN_B, "buckets": list(DATA_BUCKETS), "max_target_len": DATA_MAX_TARGET,
+        "batches_epoch0": n, "epoch1_batches": sum(1 for _ in native.epoch(1)),
+        "utterances_in_batches": sum(b["num_real"] for b in out["native"]),
+        "dropped_long_targets": int((lens[:, 1] > DATA_MAX_TARGET - 1).sum()),
+        "dropped_long_audio": int((lens[:, 0] > DATA_BUCKETS[-1]).sum()),
+        "max_targets": int(lens[:, 1].max()), "max_seconds": float(lens[:, 0].max()) / SAMPLE_RATE,
+        "ms_per_batch_native": secs["native"] * 1e3 / max(n, 1),
+        "ms_per_batch_python": secs["python"] * 1e3 / max(len(out["python"]), 1),
+        "native_equals_python": same, "audio_dtype": str(out["native"][0]["audio"].dtype),
+    }
+    emit(rec)
+    if not same or not n:
+        fail(f"the native fill does not equal the Python fill: {rec}")
+    return n
+
+
+def eval_rows(tr, batches) -> list:
+    """Greedy tokens of every real row of ``batches`` at their decode caps."""
+    from phones_las_torch.decode.greedy import greedy_decode
+    from phones_las_torch.models.las import encode
+
+    rows = []
+    p, cfg = tr.state.params, tr.model_cfg
+    with torch.no_grad():
+        for b in batches:
+            db = tr.device_batch(b)
+            mem, _, mask = encode(p, cfg, db["audio"], db["audio_lengths"], prec=tr.prec)
+            toks, lens, _ = greedy_decode(p.speller, cfg.speller, mem, mask, tr.decode_cap(b), prec=tr.prec)
+            toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
+            rows += [toks[i, : lens[i]].tolist() for i in range(b["num_real"])]
+    return rows
+
+
+def check_fit(ckpt, cfg, train, held, data_dir, n_epoch, kernels) -> dict:
+    """Phases 7c and 7d: fine-tune the committed checkpoint from the record
+    files for two epochs at full width (the user's path: preset over the
+    data dir, warm start, the data dir's CMVN, ``fit`` over a DataSource
+    with an eval every epoch), the eval on the card against the CPU; then
+    an epoch resumed by the reference's rule."""
+    import shutil
+
+    from phones_las_torch.api import Transcriber
+    from phones_las_torch.cli.common import apply_cmvn_to_params, resolve_preset
+    from phones_las_torch.data.pipeline import DataSource
+    from phones_las_torch.train.checkpoint import CheckpointManager
+    from phones_las_torch.train.loop import Trainer
+    from phones_las_torch.utils.param_io import load_artifact, named_leaves
+
+    device = None if DEV == "cuda" else DEV
+    overrides = {"num_steps": DATA_EPOCHS * n_epoch, "eval_every": n_epoch, "checkpoint_every": n_epoch,
+                 "log_every": 1, "batch_size": TRAIN_B, "max_target_len": DATA_MAX_TARGET,
+                 "buckets": list(DATA_BUCKETS)}
+    preset, vocab, _, cmvn, _ = resolve_preset(WORKDIR_PRESET, data_dir, overrides)
+    if dataclasses.asdict(preset.model) != dataclasses.asdict(cfg):
+        fail(f"the {WORKDIR_PRESET} preset over the corpus's data dir does not give the checkpoint's configuration")
+    params, _, _ = load_artifact(ckpt, device=device)
+
+    def trainer(tc, workdir=None, on=device):
+        tr = Trainer(preset.model, tc, workdir, device=on)
+        if tr.state.step == 0:
+            tr.warm_start(params)
+            apply_cmvn_to_params(tr.state.params, cmvn)
+        return tr
+
+    held_src = DataSource([held], dataclasses.replace(preset.pipeline, shuffle=False, drop_remainder=False))
+    held_batches = lambda: held_src.epoch(0)
+    run = os.path.join(os.path.dirname(held), "run")
+    os.makedirs(run)
+    with open(os.path.join(run, "config.json"), "w") as f:  # as the training CLI writes it
+        json.dump({"preset": WORKDIR_PRESET, "data": data_dir, "overrides": overrides, "precision": None}, f)
+    tr = trainer(preset.train, run)
+    before = tr.evaluate(held_batches())
+    source = NotingSource(DataSource([train], preset.pipeline))
+    writer, logs = RecordingWriter(), []
+    reset_counters(kernels)
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        tr.fit(source, eval_batches_fn=held_batches, writer=writer, log_fn=logs.append)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = launch_counts(kernels)
+    steps = [m for m in logs if m["tag"] == "train"]
+    evals = [{k: v for k, v in m.items() if k != "tag"} for m in logs if m["tag"] == "eval"]
+    step_ms = [TRAIN_B * 1e3 / m["utt_per_sec"] for m in steps[1:]]
+    images = [im["attention_alignment"] for im in writer.images.values()]
+    image_ok = len(images) == len(evals) and all(
+        im.ndim == 4 and im.shape[0] == 1 and im.shape[-1] == 1 and 0.0 <= im.min() and im.max() <= 1.0
+        for im in images
+    )
+
+    # the eval on the card against the same params on the CPU
+    cpu_tr = trainer(preset.train, on="cpu")
+    cpu_tr.warm_start(tr.state.params)
+    t0 = time.perf_counter()
+    gpu_ev = tr.evaluate(held_batches())
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    cpu_ev = cpu_tr.evaluate(held_batches())
+    gpu_rows, cpu_rows = eval_rows(tr, held_batches()), eval_rows(cpu_tr, held_batches())
+    differing = [i for i, (a, b) in enumerate(zip(gpu_rows, cpu_rows)) if a != b]
+    first = list(held_batches())[:1]
+    gpu_beam = tr.evaluate(first, beam_width=BEAM_K)
+    cpu_beam = cpu_tr.evaluate(first, beam_width=BEAM_K)
+    rec = {
+        "phase": "7c", "preset": WORKDIR_PRESET, "overrides": overrides, "steps": tr.state.step,
+        "epochs_seen": sorted({e for e, _ in source.batches}), "per_before": before["per"],
+        "evals": evals, "losses": [m["loss"] for m in steps], "fit_s": fit_s,
+        "ms_per_step_median": statistics.median(step_ms), "ms_per_step_min": min(step_ms),
+        "utt_per_s_median": statistics.median(m["utt_per_sec"] for m in steps[1:]),
+        "launches": launches, "writer_scalar_steps": sorted(writer.scalars),
+        "images": [list(im.shape) for im in images], "checkpoints": tr.ckpt.all_steps(),
+        "eval_card": gpu_ev, "eval_cpu": cpu_ev, "eval_card_s": eval_s,
+        "rows_differing_from_cpu": differing, "rows": len(gpu_rows),
+        "beam8_first_batch": {"card": gpu_beam, "cpu": cpu_beam, "utterances": first[0]["num_real"]},
+        "card": card_line(),
+    }
+    emit(rec)
+    finite = all(np.isfinite(rec["losses"])) and len(steps) == DATA_EPOCHS * n_epoch
+    if not finite or not image_ok or any("eval/per" not in writer.scalars.get(e["step"], {}) for e in evals):
+        fail(f"fit over the DataSource: losses not finite, or the writer missed its scalars or images: {rec}")
+    if len(evals) != DATA_EPOCHS or rec["epochs_seen"] != list(range(DATA_EPOCHS)):
+        fail(f"fit over the DataSource did not run {DATA_EPOCHS} epochs with an eval after each: {rec}")
+    if not all(launches[n] for n in ("fused_logmel", "bidir_recurrence", "recurrence_residual", "recurrence_bwd",
+                                     "greedy_decode_fused")):
+        fail(f"a kernel of the fit path never launched: {launches}")
+    if (abs(gpu_ev["per"] - cpu_ev["per"]) > PER_TOL or len(differing) > MAX_DIFF_ROWS
+            or abs(gpu_ev["loss"] - cpu_ev["loss"]) > FIT_LOSS_RTOL * abs(cpu_ev["loss"])):
+        fail(f"the held-out eval on the card disagrees with the CPU: {rec}")
+    if abs(gpu_beam["per"] - cpu_beam["per"]) > PER_TOL:
+        fail(f"the held-out beam-8 eval on the card disagrees with the CPU: {rec}")
+    # the fine-tuned run served as one artifact (the committed ckpt.npz
+    # carries no vocabulary, which from_artifact needs)
+    artifact = os.path.join(os.path.dirname(held), "model.npz")
+    Transcriber(run, beam_width=0, device=device).export_artifact(artifact)
+
+    # 7d: one epoch with a checkpoint at its end, then a trainer resumed from it
+    wd = os.path.join(os.path.dirname(held), "resume")
+    one = dataclasses.replace(preset.train, num_steps=n_epoch)
+    with torch.enable_grad():
+        trainer(one, wd).fit(DataSource([train], preset.pipeline), log_fn=lambda m: None)
+    saved, meta = CheckpointManager(wd).read()
+    t0 = time.perf_counter()
+    resumed = trainer(dataclasses.replace(preset.train, num_steps=2 * n_epoch), wd)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    bitwise = all(np.array_equal(t.detach().cpu().numpy(), saved[k]) for k, t in named_leaves(resumed.state.params))
+    noted = NotingSource(DataSource([train], preset.pipeline))
+    with torch.enable_grad():
+        resumed.fit(noted, log_fn=lambda m: None)
+    replay = [ids for _, ids in noted.batches] == [ids for e, ids in source.batches if e == 0]
+    rec = {
+        "phase": "7d", "saved": meta, "restored_step": n_epoch, "start_epoch": resumed.start_epoch,
+        "restored_bitwise": bitwise, "restore_s": restore_s, "replayed_epoch": sorted({e for e, _ in noted.batches}),
+        "replay_equals_first_epoch": replay, "steps_after": resumed.state.step,
+    }
+    emit(rec)
+    if (meta != {"step": n_epoch, "epoch": 0} or resumed.start_epoch != 0 or not bitwise or not replay
+            or resumed.state.step != 2 * n_epoch):
+        fail(f"the epoch resume did not follow the reference's rule: {rec}")
+    shutil.rmtree(wd, ignore_errors=True)
+    return artifact
+
+
+def check_transcribe_files(artifact, held, vocab, kernels) -> dict:
+    """Phase 7e: the held-out split as 16 kHz WAV files (and some at 48 kHz)
+    through ``Transcriber.transcribe_files`` of the fine-tuned run's
+    artifact."""
+    from phones_las_torch.api import Transcriber
+    from phones_las_torch.data.audio_io import resample, write_wav
+    from phones_las_torch.data.records import RecordReader
+
+    utts = list(RecordReader(held))
+    d = os.path.join(os.path.dirname(held), "wav")
+    os.makedirs(d)
+    p16 = [os.path.join(d, f"{u.utt_id}.wav") for u in utts]
+    for p, u in zip(p16, utts):
+        write_wav(p, u.audio, SAMPLE_RATE)
+    p48 = [os.path.join(d, f"{u.utt_id}_48k.wav") for u in utts[:FILES_48K]]
+    for p, u in zip(p48, utts):
+        write_wav(p, resample(u.audio, SAMPLE_RATE, 48000), 48000)
+    t = Transcriber.from_artifact(artifact, device=None if DEV == "cuda" else DEV)
+    reset_counters(kernels)
+    t0 = time.perf_counter()
+    got16 = t.transcribe_files(p16)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts(kernels)
+    want = t.transcribe_batch([u.audio for u in utts])
+    got48 = t.transcribe_files(p48)
+    refs = [vocab.decode(u.targets) for u in utts]
+    per16, per48 = token_per(got16[:FILES_48K], refs, vocab), token_per(got48, refs, vocab)
+    rec = {
+        "phase": "7e", "files_16k": len(p16), "files_48k": len(p48), "ms_16k_files": ms,
+        "rows_differing_from_transcribe_batch": [i for i, (a, b) in enumerate(zip(got16, want)) if a != b],
+        "per_16k_all": token_per(got16, refs, vocab), "per_16k_first": per16, "per_48k": per48,
+        "tol": FILES_PER_TOL, "launches": launches,
+    }
+    emit(rec)
+    if rec["rows_differing_from_transcribe_batch"] or abs(per48 - per16) > FILES_PER_TOL:
+        fail(f"transcribe_files disagrees with transcribe_batch, or 48 kHz files with 16 kHz ones: {rec}")
+    if not all(launches[n] for n in ("fused_logmel", "bidir_recurrence", "greedy_decode_fused")):
+        fail(f"transcribe_files did not run the serving kernels: {launches}")
+    return rec
+
+
+def check_long_gate(kernels) -> dict:
+    """Phase 7f: the long-regime gate of ``tests/test_long_regime_gate.py``
+    (its seeds and bounds) on the card, through the long-gate artifact's
+    ``Transcriber``, on audio the port's ``speechlike`` synthesizes."""
+    from phones_las_torch.api import Transcriber
+    from phones_las_torch.data.speechlike import make_phonotactics, speechlike_phone_inventory, synth_speech_utterance
+    from phones_las_torch.data.vocab import Vocab
+
+    vocab, lang = Vocab(speechlike_phone_inventory()), make_phonotactics(1234)
+    t = Transcriber.from_artifact(GATE_ASSET, device=None if DEV == "cuda" else DEV)
+    rng = np.random.RandomState(9001)
+    utts = [synth_speech_utterance(rng, vocab, f"gate-{i}", model=lang, n_syllables_range=(22, 28),
+                                   word_syllables=(1, 3), snr_db_range=(8.0, 30.0)) for i in range(8)]
+    stream = synth_speech_utterance(np.random.RandomState(9002), vocab, "gate-stream", model=lang,
+                                    n_syllables_range=(170, 170), word_syllables=(1, 3), snr_db_range=(10.0, 30.0))
+    reset_counters(kernels)
+    t0 = time.perf_counter()
+    hyps = [t.transcribe(u.audio) for u in utts]
+    refs = [vocab.decode(u.targets) for u in utts]
+    batch_s = time.perf_counter() - t0
+    derailed = [i for i, (h, r) in enumerate(zip(hyps, refs)) if len(h) >= len(r) + DERAIL_SLACK]
+    ref = vocab.decode(stream.targets)
+    t0 = time.perf_counter()
+    stitched = t.transcribe_long(stream.audio)
+    quiet = t.transcribe_long((stream.audio * 0.03).astype(np.float32), adapt_cmvn=True)
+    stream_s = time.perf_counter() - t0
+    launches = launch_counts(kernels)
+    rec = {
+        "phase": "7f", "artifact": os.path.relpath(GATE_ASSET, REPO), "utterances": len(utts),
+        "seconds": [round(len(u.audio) / SAMPLE_RATE, 2) for u in utts], "derailments": derailed,
+        "batch_per": token_per(hyps, refs, vocab), "stream_seconds": len(stream.audio) / SAMPLE_RATE,
+        "stitched_per": token_per([stitched], [ref], vocab), "quiet_adapted_per": token_per([quiet], [ref], vocab),
+        "bounds": [GATE_BATCH_PER, GATE_STITCH_PER, GATE_QUIET_PER], "batch_s": batch_s, "stream_s": stream_s,
+        "launches": launches,
+    }
+    emit(rec)
+    if (derailed or rec["batch_per"] > GATE_BATCH_PER or rec["stitched_per"] > GATE_STITCH_PER
+            or rec["quiet_adapted_per"] > GATE_QUIET_PER):
+        fail(f"the long-regime gate failed on the card: {rec}")
+    if not (launches["fused_logmel"] and launches["bidir_recurrence"]):
+        fail(f"the long-gate Transcriber did not run the front-end and LSTM kernels: {launches}")
+    return rec
+
+
+def check_data_layer(ckpt, cfg, kernels) -> None:
+    """Phase 7, in a temporary directory under ``_runs/`` removed at the end."""
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(REPO, "_runs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_data_", dir=os.path.join(REPO, "_runs"))
+    try:
+        train, held, vocab, data_dir = check_corpus_prep(work, cfg, kernels)
+        n_epoch = check_datasource(train, vocab)
+        artifact = check_fit(ckpt, cfg, train, held, data_dir, n_epoch, kernels)
+        check_transcribe_files(artifact, held, vocab, kernels)
+        check_long_gate(kernels)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1749,6 +2174,9 @@ def main() -> int:
         train_modes_in_turns(ckpt, kernels, card)
         train_gate_augmented(data, kernels)
         check_workdir(ckpt, data, kernels)
+
+    # ---- phase 7: the data layer and fit over record files
+    check_data_layer(ckpt, cfg, kernels)
 
     def kernel_entry(name, source, replaces, rec, n_launches):
         return {

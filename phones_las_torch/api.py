@@ -19,8 +19,7 @@ beam search, the speller-step loop, CTC and LM fusion are plain PyTorch
 on either device. Every decode runs inside the config's
 ``matmul_precision`` scope (``utils/device.py::matmul_precision_scope``).
 
-Not ported yet: ``replicate`` and ``data_parallel`` (ROADMAP A8),
-``transcribe_files`` (the native audio decoders), and the
+Not ported yet: ``replicate`` and ``data_parallel`` (ROADMAP A8) and the
 ``implementation`` switch.
 """
 
@@ -404,6 +403,14 @@ class Transcriber:
 
     def transcribe(self, audio: np.ndarray) -> List[str]:
         return self.transcribe_batch([audio])[0]
+
+    def transcribe_files(self, paths: Sequence[str]) -> List[List[str]]:
+        """Audio files (WAV, SPHERE, FLAC, MP3) → token sequences; other
+        sample rates are resampled to the model rate (the native polyphase
+        resampler, ``data/audio_io.py``)."""
+        from phones_las_torch.data.audio_io import read_audio
+
+        return self.transcribe_batch([read_audio(p, target_rate=self._sample_rate)[0] for p in paths])
 
     def frame_samples(self) -> float:
         """Input samples per encoder frame (front-end hop × pyramid

@@ -31,8 +31,10 @@ _STATE, _META = "state.npz", "meta.json"
 
 class CheckpointManager:
     """``keep`` newest checkpoints of a workdir, one every ``save_every``
-    steps (orbax's save decision: never at or below the latest saved step,
-    else when forced or when the step is a multiple of ``save_every``).
+    steps (orbax's save decision under the reference's options: never at
+    or below the latest saved step; else when forced, when the step is a
+    multiple of ``save_every``, or when the workdir holds no checkpoint
+    yet, so a fresh run saves the first step it offers).
     Writes are synchronous; ``wait`` and ``close`` exist for the
     reference's call sites."""
 
@@ -54,7 +56,9 @@ class CheckpointManager:
 
     def should_save(self, step: int, force: bool = False) -> bool:
         latest = self.latest_step()
-        if latest is not None and step <= latest:
+        if latest is None:
+            return True
+        if step <= latest:
             return False
         return force or step % self.save_every == 0
 

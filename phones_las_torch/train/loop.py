@@ -1,5 +1,5 @@
 """Trainer: the training step, the outer loop with its checkpoints, and
-the greedy eval leg (port of ``phones_las_tpu/train/loop.py``).
+the eval legs (port of ``phones_las_tpu/train/loop.py``).
 
 One ``train_step`` is ``compute_loss(train=True)`` (front-end kernel,
 frequency warp and SpecAugment, listener with dropout, teacher-forced
@@ -9,22 +9,26 @@ clipped Adam update and the learning-rate schedule, all inside the
 config's ``matmul_precision`` scope. PyTorch runs eagerly, so there is
 no jit; the step's randomness comes from the state's ``torch.Generator``.
 With a ``workdir`` the trainer resumes silently from its latest
-checkpoint and ``fit`` saves under the ``CheckpointManager``'s policy.
+checkpoint and ``fit`` saves under the ``CheckpointManager``'s policy;
+over a ``DataSource`` it tracks the data epoch, saves it with each
+checkpoint and resumes at it. The eval leg decodes greedily (the fused
+kernel on CUDA) with PER, the grapheme head's CER and WER and the
+attention image, or with beam search (``beam_width``).
 
-Not ported yet: the epoch-tracked ``DataSource`` loop (ROADMAP A5), the
-device mesh (A8), beam-search eval and the eval leg's WER and attention
-image.
+Not ported yet: the device mesh and the metrics' all-reduce across
+processes (ROADMAP A8).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
-from phones_las_torch.decode.greedy import greedy_decode
+from phones_las_torch.decode.beam import beam_decode
+from phones_las_torch.decode.greedy import greedy_decode, greedy_decode_steps
 from phones_las_torch.frontend.features import frames_for_samples
 from phones_las_torch.models.las import LASConfig, LASParams, compute_loss, encode
 from phones_las_torch.ops.lstm import resolve_rnn_precision
@@ -58,6 +62,10 @@ class Trainer:
         *,
         binf_codes: Optional[np.ndarray] = None,
         score_fold: Optional[Dict[int, Optional[int]]] = None,
+        default_decode_steps: int = 100,
+        eval_beam_width: int = 0,
+        decode_cap_ratio: float = 1.0,
+        grapheme_word_sep_id: Optional[int] = None,
         device: DeviceLike = None,
     ):
         """``device=None`` means CUDA (raises without one); pass
@@ -65,8 +73,19 @@ class Trainer:
         precision follows ``model_cfg.matmul_precision``
         (``resolve_rnn_precision``), the other GEMMs its scope. A
         ``workdir`` with a checkpoint restores the state from the latest
-        one (``start_epoch`` is its data epoch)."""
+        one (``start_epoch`` is its data epoch).
+
+        ``eval_beam_width`` > 0 makes ``fit``'s periodic eval a beam
+        search of that width; ``decode_cap_ratio`` scales the eval's decode
+        cap (``decode_cap``); ``grapheme_word_sep_id`` (the grapheme
+        stream's word-break id) adds the grapheme head's WER to the greedy
+        eval. ``default_decode_steps`` is kept as the reference keeps it,
+        for its CLI (the preset's ``max_target_len``)."""
         self.device = resolve_device(device)
+        self.default_decode_steps = default_decode_steps
+        self.eval_beam_width = eval_beam_width
+        self.decode_cap_ratio = decode_cap_ratio
+        self.grapheme_word_sep_id = grapheme_word_sep_id
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.score_fold = score_fold
@@ -142,77 +161,234 @@ class Trainer:
                 out[k] = aux[k].detach()
         return out
 
+    # ------------------------------------------------------------------
+    def _prefetched(self, batches: Iterable[Dict]) -> Iterator[Tuple[Dict, Dict[str, torch.Tensor]]]:
+        """→ (host batch, device batch) pairs, with batch N+1's host→device
+        copy started before batch N is handed out, so it runs while step N
+        does. On CUDA the host arrays are pinned and copied without
+        blocking on a stream of their own; the step's stream waits for the
+        copy's event before it uses the tensors. The pinned tensors live in
+        the pair until the step that consumes it. Audio stays int16."""
+        cuda = self.device.type == "cuda"
+        copy_stream = torch.cuda.Stream(self.device) if cuda else None
+
+        def start(batch):
+            host = {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items() if k in _DEVICE_KEYS}
+            if not cuda:
+                return batch, host, None
+            pinned = {k: t.pin_memory() for k, t in host.items()}
+            with torch.cuda.stream(copy_stream):
+                dev = {k: t.to(self.device, non_blocking=True) for k, t in pinned.items()}
+                done = copy_stream.record_event()
+            return batch, dev, (done, pinned)
+
+        def finish(item):
+            batch, dev, pending = item
+            if pending is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(pending[0])
+                for t in dev.values():
+                    t.record_stream(stream)  # allocated on the copy stream, used on this one
+            return batch, dev
+
+        prev = None
+        for b in batches:
+            item = start(b)
+            if prev is not None:
+                yield finish(prev)
+            prev = item
+        if prev is not None:
+            yield finish(prev)
+
     def fit(
         self,
-        batches: Iterable[Dict],
+        batches,
         *,
         eval_batches_fn: Optional[Callable[[], Iterable[Dict]]] = None,
+        writer=None,
         log_fn=print,
     ) -> TrainState:
-        """Train over a plain batch iterator until ``num_steps``, logging
-        the mean loss of each window of ``log_every`` steps and evaluating
-        every ``eval_every`` steps when ``eval_batches_fn`` is given. With a
-        workdir, each step is saved under the manager's policy
+        """Train until ``num_steps``. ``batches`` is a plain batch iterator
+        or a ``DataSource``. Over a ``DataSource`` the data epoch is tracked
+        and saved with each checkpoint, and a resumed trainer replays its
+        ``start_epoch`` from the epoch's first batch, as the reference does
+        (a save at the last step of epoch e records e, so a run resumed
+        from it trains epoch e again). A plain iterator saves epoch 0.
+
+        Each window of ``log_every`` steps logs its mean loss and utt/s;
+        every ``eval_every`` steps, with ``eval_batches_fn``, the eval leg
+        runs (beam search at ``eval_beam_width`` when it is > 0). With a
+        workdir each step is saved under the manager's policy
         (``checkpoint_every``), and also when ``checkpoint_every_secs``
         have passed since the last save; the last step is saved at the end.
-        The data epoch saved is 0 (a plain iterator has none)."""
+        ``writer`` (any object with ``write_scalars(step, dict)`` and
+        ``write_images(step, dict)``) receives the train and ``eval/``
+        scalars and the eval's attention image."""
+        kw = dict(eval_batches_fn=eval_batches_fn, writer=writer, log_fn=log_fn)
+        if hasattr(batches, "epoch") and hasattr(batches, "repeat"):
+            return self._fit_source(batches, **kw)
+        return self._fit_iter(batches, None, **kw)
+
+    def _fit_source(self, source, **kw) -> TrainState:
+        epoch = self.start_epoch
+        while self.state.step < self.train_cfg.num_steps:
+            before = self.state.step
+            self._fit_iter(source.epoch(epoch), epoch, final_save=False, **kw)
+            if self.state.step == before:
+                raise ValueError(f"epoch {epoch} of the data source gave no batch: nothing to train on")
+            epoch += 1
+        if self.ckpt is not None:
+            if self.ckpt.latest_step() != self.state.step:
+                self.ckpt.save(self.state.step, self.state, epoch=epoch, force=True)
+            self.ckpt.wait()
+        return self.state
+
+    def _fit_iter(
+        self,
+        batches: Iterable[Dict],
+        epoch: Optional[int],
+        *,
+        eval_batches_fn=None,
+        writer=None,
+        log_fn=print,
+        final_save: bool = True,
+    ) -> TrainState:
         tc = self.train_cfg
         t0, window = time.time(), []
         last_ckpt_time = time.time()
         step = self.state.step
-        for batch in batches:
-            if step >= tc.num_steps:
-                break
-            out = self.train_step(batch)
-            # losses stay on the device until a log line needs them
-            window.append(out["loss"])
-            step += 1
-            if step % tc.log_every == 0 or step == tc.num_steps:
-                rate = len(window) * len(batch["audio"]) / (time.time() - t0)
-                log_fn({
-                    "tag": "train", "step": step, "loss": float(torch.stack(window).mean()),
-                    "utt_per_sec": round(rate, 2), "lr": float(out["lr"]),
-                    "grad_norm": float(out["grad_norm"]),
-                })
-                t0, window = time.time(), []
-            if eval_batches_fn is not None and step % tc.eval_every == 0:
-                log_fn({"tag": "eval", "step": step, **self.evaluate(eval_batches_fn())})
-            if self.ckpt is not None:
-                force = (
-                    tc.checkpoint_every_secs > 0
-                    and time.time() - last_ckpt_time >= tc.checkpoint_every_secs
-                    and self.ckpt.latest_step() != step
-                )
-                if self.ckpt.save(step, self.state, epoch=0, force=force):
-                    last_ckpt_time = time.time()
-        if self.ckpt is not None:
+        pairs = self._prefetched(batches)
+        try:
+            for batch, dbatch in pairs:
+                if step >= tc.num_steps:
+                    break
+                out = self.train_step(dbatch)
+                # losses stay on the device until a log line needs them
+                window.append(out["loss"])
+                step += 1
+                if step % tc.log_every == 0 or step == tc.num_steps:
+                    msg = {
+                        "step": step, "loss": float(torch.stack(window).mean()),
+                        "utt_per_sec": round(len(window) * len(batch["audio"]) / (time.time() - t0), 2),
+                        "lr": float(out["lr"]), "grad_norm": float(out["grad_norm"]),
+                    }
+                    log_fn({"tag": "train", **msg})
+                    if writer is not None:
+                        writer.write_scalars(step, {k: v for k, v in msg.items() if k != "step"})
+                    t0, window = time.time(), []
+                if eval_batches_fn is not None and step % tc.eval_every == 0:
+                    ev = self.evaluate(eval_batches_fn(), writer=writer, step=step, beam_width=self.eval_beam_width)
+                    log_fn({"tag": "eval", "step": step, **ev})
+                    if writer is not None:
+                        writer.write_scalars(step, {f"eval/{k}": v for k, v in ev.items()})
+                if self.ckpt is not None:
+                    force = (
+                        tc.checkpoint_every_secs > 0
+                        and time.time() - last_ckpt_time >= tc.checkpoint_every_secs
+                        and self.ckpt.latest_step() != step
+                    )
+                    if self.ckpt.save(step, self.state, epoch=epoch or 0, force=force):
+                        last_ckpt_time = time.time()
+        finally:
+            pairs.close()  # an abandoned DataSource epoch cancels its producer
+        if final_save and self.ckpt is not None:
             if self.ckpt.latest_step() != self.state.step:
-                self.ckpt.save(self.state.step, self.state, epoch=0, force=True)
+                self.ckpt.save(self.state.step, self.state, epoch=epoch or 0, force=True)
             self.ckpt.wait()
         return self.state
 
-    def evaluate(self, batches: Iterable[Dict], max_steps: Optional[int] = None) -> Dict:
-        """Greedy eval leg: teacher-forced loss + greedy decode + edit-distance
-        PER (and the grapheme head's CER), with the cap-hit rate."""
+    # ------------------------------------------------------------------
+    def evaluate(
+        self,
+        batches: Iterable[Dict],
+        max_steps: Optional[int] = None,
+        *,
+        writer=None,
+        step: Optional[int] = None,
+        beam_width: int = 0,
+    ) -> Dict:
+        """Eval leg: the teacher-forced loss on the same encoding, then a
+        greedy decode (or a beam search when ``beam_width`` > 0) at
+        ``max_steps`` or the batch's ``decode_cap``, scored by edit-distance
+        PER (under ``score_fold``), with the rate of rows that hit the cap.
+        Greedy also scores the grapheme head (CER, and WER with
+        ``grapheme_word_sep_id``) and, given a ``writer``, writes the
+        attention image of the first batch's row 0 at ``step``."""
+        if beam_width:
+            return self._evaluate_beam(batches, max_steps, beam_width)
+        return self._evaluate_greedy(batches, max_steps, writer, step)
+
+    def _encode_eval(self, batch: Dict):
+        """→ (device batch, (memory, enc_lens, enc_mask), teacher-forced loss)."""
         cfg, params = self.model_cfg, self.state.params
-        dist = tokens = g_dist = g_tokens = cap_hits = eval_utts = 0
+        b = self.device_batch(batch)
+        encoded = encode(params, cfg, b["audio"], b["audio_lengths"], prec=self.prec)
+        loss, _ = compute_loss(params, cfg, b, train=False, encoded=encoded, prec=self.prec)
+        return b, encoded, float(loss)
+
+    @staticmethod
+    def _num_real(batch: Dict, rows: int) -> int:
+        n_real = batch.get("num_real")
+        return rows if n_real is None else int(n_real)
+
+    def _evaluate_beam(self, batches: Iterable[Dict], max_steps: Optional[int], beam_width: int) -> Dict:
+        cfg, params = self.model_cfg, self.state.params
+        dist = tokens = cap_hits = eval_utts = 0
         losses = []
         with torch.no_grad(), self._scope():
             for batch in batches:
                 steps_cap = max_steps or self.decode_cap(batch)
-                b = self.device_batch(batch)
-                encoded = encode(params, cfg, b["audio"], b["audio_lengths"], prec=self.prec)
-                memory, _, enc_mask = encoded
-                loss, _ = compute_loss(params, cfg, b, train=False, encoded=encoded, prec=self.prec)
-                losses.append(float(loss))
-                toks, lens, _ = greedy_decode(
-                    params.speller, cfg.speller, memory, enc_mask, steps_cap, prec=self.prec
+                _, (memory, _, enc_mask), loss = self._encode_eval(batch)
+                losses.append(loss)
+                res = beam_decode(
+                    params.speller, cfg.speller, memory, enc_mask, steps_cap, beam_width=beam_width, prec=self.prec
                 )
-                toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
-                n_real = batch.get("num_real")
-                n_real = lens.shape[0] if n_real is None else int(n_real)
+                toks, lens = res.tokens.cpu().numpy(), res.lengths.cpu().numpy()
+                n_real = self._num_real(batch, lens.shape[0])
                 cap_hits += int((lens[:n_real] >= steps_cap).sum())
                 eval_utts += n_real
+                d, t = M.edit_distance_stats(
+                    toks, lens, np.asarray(batch["targets"]), np.asarray(batch["target_lengths"]) - 1,
+                    num_real=batch.get("num_real"), fold=self.score_fold,
+                )
+                dist, tokens = dist + d, tokens + t
+        res = {
+            "loss": float(np.sum(losses)) / len(losses) if losses else float("nan"),
+            "per": M.per_from_stats(dist, tokens),
+            "ref_tokens": tokens,
+        }
+        if eval_utts:
+            res["cap_hit_rate"] = cap_hits / eval_utts
+        return res
+
+    def _evaluate_greedy(
+        self, batches: Iterable[Dict], max_steps: Optional[int], writer=None, step: Optional[int] = None
+    ) -> Dict:
+        cfg, params = self.model_cfg, self.state.params
+        dist = tokens = g_dist = g_tokens = w_dist = w_words = cap_hits = eval_utts = 0
+        losses = []
+        first_image = None
+        with torch.no_grad(), self._scope():
+            for batch in batches:
+                steps_cap = max_steps or self.decode_cap(batch)
+                _, (memory, enc_lens, enc_mask), loss = self._encode_eval(batch)
+                losses.append(loss)
+                # tokens through the fused kernel on CUDA, which returns no
+                # alignments; the image re-decodes one row in the loop
+                toks, lens, _ = greedy_decode(params.speller, cfg.speller, memory, enc_mask, steps_cap, prec=self.prec)
+                toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
+                n_real = self._num_real(batch, lens.shape[0])
+                # derailment signal: a decode that never emitted <eos> ran to the cap
+                cap_hits += int((lens[:n_real] >= steps_cap).sum())
+                eval_utts += n_real
+                if writer is not None and first_image is None and batch.get("num_real", 1) > 0:
+                    _, row_len, aligns = greedy_decode_steps(
+                        params.speller, cfg.speller, memory[:1], enc_mask[:1], steps_cap,
+                        return_alignments=True, prec=self.prec,
+                    )
+                    first_image = M.attention_image(
+                        aligns[0].cpu().numpy(), int(row_len[0]) or 1, int(enc_lens[0])
+                    )
                 d, t = M.edit_distance_stats(
                     toks, lens, np.asarray(batch["targets"]),
                     np.asarray(batch["target_lengths"]) - 1,  # exclude <eos>
@@ -221,16 +397,24 @@ class Trainer:
                 dist, tokens = dist + d, tokens + t
                 if params.grapheme_speller is not None and "grapheme_targets" in batch:
                     gt, gl, _ = greedy_decode(
-                        params.grapheme_speller, cfg.grapheme_speller, memory, enc_mask, steps_cap,
-                        prec=self.prec,
+                        params.grapheme_speller, cfg.grapheme_speller, memory, enc_mask, steps_cap, prec=self.prec
                     )
-                    d, t = M.edit_distance_stats(
-                        gt.cpu().numpy(), gl.cpu().numpy(), np.asarray(batch["grapheme_targets"]),
-                        np.asarray(batch["grapheme_lengths"]) - 1, num_real=batch.get("num_real"),
-                    )
+                    gt, gl = gt.cpu().numpy(), gl.cpu().numpy()
+                    g_ref = np.asarray(batch["grapheme_targets"])
+                    g_ref_lens = np.asarray(batch["grapheme_lengths"]) - 1
+                    d, t = M.edit_distance_stats(gt, gl, g_ref, g_ref_lens, num_real=batch.get("num_real"))
                     g_dist, g_tokens = g_dist + d, g_tokens + t
+                    if self.grapheme_word_sep_id is not None:
+                        d, t = M.word_error_stats(
+                            gt, gl, g_ref, g_ref_lens, self.grapheme_word_sep_id, num_real=batch.get("num_real")
+                        )
+                        w_dist, w_words = w_dist + d, w_words + t
+        if writer is not None and first_image is not None:
+            writer.write_images(
+                step if step is not None else self.state.step, {"attention_alignment": first_image[None]}
+            )
         res = {
-            "loss": float(np.mean(losses)) if losses else float("nan"),
+            "loss": float(np.sum(losses)) / len(losses) if losses else float("nan"),
             "per": M.per_from_stats(dist, tokens),
             "ref_tokens": tokens,
         }
@@ -239,11 +423,14 @@ class Trainer:
         if g_tokens:
             res["cer"] = M.per_from_stats(g_dist, g_tokens)
             res["grapheme_ref_tokens"] = g_tokens
+        if w_words:
+            res["wer"] = M.per_from_stats(w_dist, w_words)
+            res["ref_words"] = w_words
         return res
 
     def decode_cap(self, batch: Dict) -> int:
-        """Per-batch decode-step cap: the batch's encoder frames, at least 16
-        (the reference's rule at its default ratio of 1)."""
+        """Per-batch decode-step cap: ``decode_cap_ratio`` × the batch's
+        encoder frames, at least 16 (the reference's rule)."""
         cfg = self.model_cfg
         audio = batch["audio"]
         if cfg.input_is_pcm and getattr(audio, "ndim", 2) == 2:
@@ -252,4 +439,4 @@ class Trainer:
             t = audio.shape[1]
         for _ in range(cfg.listener.num_layers - 1):
             t = (t + 1) // 2
-        return max(16, t)
+        return max(16, int(self.decode_cap_ratio * t))

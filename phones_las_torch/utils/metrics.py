@@ -1,6 +1,6 @@
-"""Edit-distance PER (a copy of ``phones_las_tpu/train/metrics.py::
-edit_distance_stats`` and its helpers, so the port imports nothing of the
-JAX package)."""
+"""Eval metrics: edit-distance PER/CER, word error rate and the attention
+alignment image (a copy of ``phones_las_tpu/train/metrics.py``, so the port
+imports nothing of the JAX package)."""
 
 from __future__ import annotations
 
@@ -69,3 +69,56 @@ def edit_distance_stats(
 
 def per_from_stats(dist: int, tokens: int) -> float:
     return dist / max(tokens, 1)
+
+
+def attention_image(
+    probs: np.ndarray,  # [S_dec, T_enc]
+    dec_len: int,
+    enc_len: int,
+) -> np.ndarray:
+    """Alignment heatmap, cropped to true lengths and normalized to [0, 1],
+    shaped [S, T, 1] for image summaries."""
+    img = np.asarray(probs[:dec_len, :enc_len], np.float32)
+    mx = img.max() or 1.0
+    return (img / mx)[..., None]
+
+
+def word_error_stats(
+    hyp_ids: np.ndarray,  # [B, S]
+    hyp_lengths: np.ndarray,  # [B]
+    ref_ids: np.ndarray,  # [B, S']
+    ref_lengths: np.ndarray,  # [B]
+    sep_id: int,
+    *,
+    num_real: Optional[int] = None,
+) -> Tuple[int, int]:
+    """→ (total word edit distance, total reference words): token id
+    sequences are split on ``sep_id`` (the word-break token of char or
+    grapheme targets) and Levenshtein runs over whole words."""
+
+    def words(seq):
+        out, cur = [], []
+        for t in seq:
+            if t == sep_id:
+                if cur:
+                    out.append(tuple(cur))
+                cur = []
+            else:
+                cur.append(t)
+        if cur:
+            out.append(tuple(cur))
+        return out
+
+    intern: Dict[tuple, int] = {}
+
+    def ids(ws):
+        return [intern.setdefault(w, len(intern)) for w in ws]
+
+    n = num_real if num_real is not None else hyp_ids.shape[0]
+    dist = nwords = 0
+    for i in range(n):
+        h = words(_trim(hyp_ids[i], int(hyp_lengths[i])))
+        r = words(_trim(ref_ids[i], int(ref_lengths[i])))
+        dist += _edit_distance(ids(h), ids(r))
+        nwords += len(r)
+    return dist, nwords

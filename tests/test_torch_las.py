@@ -161,7 +161,9 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "need = {'api', 'data.vocab', 'decode.beam', 'decode.ctc', 'decode.lm', 'decode.greedy', 'ops.attention',\n"
         "        'frontend.specaugment', 'frontend.freq_warp', 'frontend.cmvn', 'data.ipa', 'data.pipeline',\n"
-        "        'utils.config', 'cli.common', 'train.checkpoint', 'train.state'}\n"
+        "        'utils.config', 'cli.common', 'train.checkpoint', 'train.state', 'data.records',\n"
+        "        'data.audio_io', 'data.native_records', 'data.speechlike', 'data.synthetic', 'data.prep_common',\n"
+        "        'data.timit', 'data.librispeech', 'parallel.multihost'}\n"
         "missing = {'phones_las_torch.' + n for n in need} - set(names)\n"
         "assert not missing and len(names) >= 20, (missing, names)\n"
     )

@@ -187,13 +187,14 @@ def _leaves(params):
 
 
 def test_checkpoint_manager_policy(tmp_path):
-    """orbax's save decision (never at or below the latest step; forced or
-    every save_every), keep-N deleting the oldest, atomic step directories."""
+    """orbax's save decision (the first step offered to an empty workdir;
+    then never at or below the latest step, forced or every save_every),
+    keep-N deleting the oldest, atomic step directories."""
     tr = Trainer(_tiny_cfg(), TrainConfig(), device="cpu")
     mgr = CheckpointManager(str(tmp_path / "run"), keep=2, save_every=3)
     assert mgr.latest_step() is None and mgr.all_steps() == []
     saved = [s for s in range(1, 8) if mgr.save(s, tr.state)]
-    assert saved == [3, 6] and mgr.all_steps() == [3, 6]
+    assert saved == [1, 3, 6] and mgr.all_steps() == [3, 6]
     assert not mgr.save(6, tr.state, force=True) and not mgr.save(5, tr.state, force=True)
     assert mgr.save(7, tr.state, epoch=4, force=True)
     assert mgr.all_steps() == [6, 7] and mgr.latest_step() == 7
@@ -231,12 +232,12 @@ def test_resume_takes_the_uninterrupted_step_bitwise(tmp_path):
     whole.fit(iter(b), log_fn=lambda m: None)
     wd = str(tmp_path / "run")
     first = Trainer(cfg, tc, wd, device="cpu")
-    first.fit(iter(b[:2]), log_fn=lambda m: None)  # saved at its end: step 2
-    assert first.ckpt.all_steps() == [2]
+    first.fit(iter(b[:2]), log_fn=lambda m: None)  # saved at its first step and at its end
+    assert first.ckpt.all_steps() == [1, 2]
     resumed = Trainer(cfg, tc, wd, device="cpu")
     assert resumed.state.step == 2 and resumed.start_epoch == 0
     resumed.fit(iter(b[2:]), log_fn=lambda m: None)
-    assert resumed.state.step == whole.state.step == 3 and resumed.ckpt.all_steps() == [2, 3]
+    assert resumed.state.step == whole.state.step == 3 and resumed.ckpt.all_steps() == [1, 2, 3]
     want = _leaves(whole.state.params)
     for k, t in _leaves(resumed.state.params).items():
         assert torch.equal(t, want[k]), k
