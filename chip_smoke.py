@@ -136,6 +136,32 @@ then:
         derailment, batch PER ≤ 0.035, stitched PER ≤ 0.04, the stream at
         0.03 gain with stream CMVN ≤ 0.08.
 
+  8. the front doors, in a temporary directory under ``_runs/`` removed
+     at the end, every process it starts stopped:
+     a. the CLIs as processes on the card (``python -m
+        phones_las_torch.cli.*``): ``prepare speechlike`` (256 + 64
+        utterances, seeds 7 and 8), ``train`` warm-started with
+        ``--init-checkpoint`` from the committed checkpoint written as a
+        workdir by the library, 2 profiled steps and 2 more (its trace must
+        name the residual and VJP kernels); then at once ``infer`` on the
+        card and with ``--device cpu`` (PER equal to ``Trainer.evaluate``'s,
+        at most 2 of 64 rows differing), ``lm``, ``transcribe`` of 16 WAV
+        files (equal to ``transcribe_files``), ``export`` and ``serve``;
+     b. the ``serve`` process answers /healthz and one request and stops;
+        ``make_server`` in this process at ``max_batch`` 16: 64 held-out WAV
+        uploads from 16 client threads (at most 2 rows differing from one
+        ``transcribe_batch``, mean fill above 1, requests/s, p50/p99, the
+        serving kernels launched once (the BiLSTM once a layer) a batch), a
+        /stream session of the 51.6 s long-regime stream in 0.5 s feeds, a
+        ``?stream=1`` upload and a long upload of it (PER within 0.005 of
+        ``transcribe_long``'s, real-time factor);
+     c. the exported programs (1, 16, 64 × 10 s, greedy): each holds the
+        three kernel operators once a call (the BiLSTM once a layer), their
+        tokens against the live ``Transcriber`` (at most 2 of 64 rows), the
+        kernels launched by the exported call, a fresh process that imports
+        only ``phones_las_torch.export`` equal, and 64 × 10 s of random PCM
+        exported against live, in turns, median of 6.
+
 ``python3 chip_smoke.py --sweep`` runs none of the phases: it times the
 LSTM forward kernel under every plan it takes at the flagship width
 (cluster 8 or 16 blocks, tiles of 8 or 16 rows, both precisions, the
@@ -148,7 +174,8 @@ way at the training shape; the numbers behind the choice of
 times the front-end kernel (flagship shape) and the VJP (T = 999, B = 32,
 both precisions) of another checkout of this repository unpacked at DIR
 (say the parent commit, ``git archive`` into an ignored directory) and of
-this one, each in a process of its own, in the order other, this, this,
+this one, and the greedy serving call at the flagship shape (phase 3's
+path), each in a process of its own, in the order other, this, this,
 other on the same card, and prints one line a run: the numbers behind a
 "[was …]" in ``PERF.md``. ``--time-kernels DIR`` is one such run, of the
 package in the checkout at DIR.
@@ -163,8 +190,10 @@ device the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -307,7 +336,7 @@ def card_line() -> str:
 
 
 def check_frontend(cfg_fe, audio, what="flagship"):
-    from phones_las_torch.frontend import features as F
+    from phones_las_torch.frontend import features as F, fused_frontend
     from phones_las_torch.frontend.fused_frontend import (
         CLOCK_NAMES, frame_tile, fused_logmel, fused_logmel_plain,
     )
@@ -328,7 +357,7 @@ def check_frontend(cfg_fe, audio, what="flagship"):
     flops = b * t * (2 * win * 2 * nb + 4 * nb + 2 * mel_nnz)
     bms, by = bound(nbytes, flops, F32_FLOPS)
     clocks = torch.zeros(len(CLOCK_NAMES), dtype=torch.int64, device=DEV)
-    fused_logmel(x, cfg_fe, t, clocks)
+    fused_frontend._launch(x, cfg_fe, t, clocks)
     torch.cuda.synchronize()
     rec = {
         "phase": 1, "kernel": "fused_logmel", "shape": f"B={b} S={s} T={t} ({what})",
@@ -477,6 +506,7 @@ def check_lstm_ragged(t, b, u, seed):
 
 
 def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=True):
+    from phones_las_torch.decode import fused_greedy
     from phones_las_torch.decode.fused_greedy import CLOCK_NAMES, greedy_decode_fused, greedy_decode_fused_plain
 
     sp, sc = params.speller, cfg.speller
@@ -499,7 +529,8 @@ def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=Tru
     nbytes = 4 * (b * t * (a + m + 1) + wparams + b * steps)
     bms, by = bound(nbytes, row_steps * per_step, F32_FLOPS)
     clocks = torch.zeros(len(CLOCK_NAMES), dtype=torch.int64, device=DEV)
-    greedy_decode_fused(sp, sc, mem, mask, steps, clocks)
+    wp, widths = fused_greedy._unflatten(fused_greedy.flat_weights(sp), mem, sc.bos_id, sc.eos_id)
+    fused_greedy._launch(wp, widths, mem, mask, steps, clocks)
     torch.cuda.synchronize()
     launch = dict(greedy_decode_fused.last_launch)
     counts = clocks.tolist()
@@ -1068,12 +1099,16 @@ def sweep_backward_plans(params) -> None:
 
 
 def time_kernels(tree: str) -> None:
-    """``--time-kernels DIR``: the two kernels a ``--compare`` is about, of
-    the package in the checkout at DIR, through calls that every slice of
-    the port since the training slice has."""
+    """``--time-kernels DIR``: the two kernels a ``--compare`` is about and
+    the greedy serving call at the flagship shape (encode and decode, the
+    host's dispatch included), of the package in the checkout at DIR,
+    through calls that every slice of the port since the training slice
+    has."""
     sys.path.insert(0, tree)
+    from phones_las_torch.decode.greedy import greedy_decode
     from phones_las_torch.frontend import features as F
     from phones_las_torch.frontend.fused_frontend import fused_logmel
+    from phones_las_torch.models.las import encode
     from phones_las_torch.ops import lstm as L
     from phones_las_torch.utils.param_io import load_artifact
 
@@ -1086,6 +1121,13 @@ def time_kernels(tree: str) -> None:
            "fused_logmel_ms": time_ms(lambda: fused_logmel(x, cfg.frontend, t_fe))}
     for prec, bargs in vjp_cases(L, params, seed=62):
         rec[f"recurrence_bwd_{prec}_ms"] = time_ms(lambda: L.recurrence_bwd(*bargs))
+    lens = torch.full((FLAGSHIP_B,), audio.shape[1], dtype=torch.int32, device=DEV)
+
+    def serve():
+        mem, _, mask = encode(params, cfg, audio, lens)
+        greedy_decode(params.speller, cfg.speller, mem, mask, DECODE_STEPS)
+
+    rec["serving_call_ms"] = time_ms(serve)
     emit(rec)
 
 
@@ -1996,6 +2038,437 @@ def check_data_layer(ckpt, cfg, kernels) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---- phase 8: the front doors — the CLIs, the HTTP server, exported programs
+
+FRONT_TRAIN_UTTS = 256  # prepare speechlike: 256 training utterances, 64 held out (seeds 7 and 8)
+FRONT_STEPS, FRONT_PROFILE_STEPS = 2, 2  # the training CLI's steps after its profiled ones
+FRONT_FILES = 16  # held-out utterances through the transcribe CLI as WAV files
+SERVE_BATCH, SERVE_CLIENTS = 16, 16
+STREAM_CHUNK = SAMPLE_RATE // 2  # /stream feeds of 0.5 s
+STREAM_PER_TOL = 0.005  # streamed tokens' PER against transcribe_long's
+EXPORT_BATCHES = (1, 16, 64)
+EXPORT_ROUNDS = 6  # timed rounds of exported against live, in turns
+CLI_TIMEOUT = 600
+OPS = ("phones_las_torch.fused_logmel.default", "phones_las_torch.bidir_recurrence.default",
+       "phones_las_torch.greedy_decode_fused.default")
+
+
+def cli(name: str, *args: str, started=None):
+    """``python -m phones_las_torch.cli.<name> ARGS`` in a process of its own,
+    from the checkout, on the card (``DEV``) unless ARGS name a device →
+    the completed process (its stdout); given a list ``started``, the
+    running ``Popen``, appended to it. A failed command fails the phase."""
+    if DEV != "cuda" and name != "lm" and "--device" not in args:
+        args = (*args, "--device", DEV)
+    cmd = [sys.executable, "-m", f"phones_las_torch.cli.{name}", *args]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    if started is not None:
+        started.append(subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True))
+        return started[-1]
+    r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    if r.returncode:
+        fail(f"cli.{name} {' '.join(args)} exited {r.returncode}: {r.stderr[-3000:]}")
+    return r
+
+
+def finish(proc: subprocess.Popen, name: str) -> str:
+    """Wait for a started CLI → its stdout; a failure fails the phase."""
+    out, err = proc.communicate(timeout=CLI_TIMEOUT)
+    if proc.returncode:
+        fail(f"cli.{name} exited {proc.returncode}: {err[-3000:]}")
+    return out
+
+
+def per_footer(out: str):
+    """The infer CLI's last line → (utterances, edit distance, reference tokens)."""
+    m = re.search(r"^# (\d+) utterances, PER=[0-9.]+ \((\d+)/(\d+)\)", out, re.M)
+    if not m:
+        fail(f"the infer CLI printed no PER footer: {out[-2000:]}")
+    return int(m.group(1)), int(m.group(2)), int(m.group(3))
+
+
+def check_clis(ckpt, cfg, work, started):
+    """Phase 8a: prepare → train (warm-started, profiled), then infer (card
+    and CPU), lm, transcribe, export and serve at once, each a process of
+    its own on the card, against the library in this process → (workdir,
+    held-out utterances, vocab, the running server process, the export
+    directory, the flagship export directory: the warm start's source
+    exported at 64 × 10 s with the flagship's 200-step cap)."""
+    from phones_las_torch.api import Transcriber
+    from phones_las_torch.cli.common import resolve_preset
+    from phones_las_torch.data.audio_io import write_wav
+    from phones_las_torch.data.pipeline import DataSource
+    from phones_las_torch.data.records import RecordReader
+    from phones_las_torch.decode.lm import load_lm
+    from phones_las_torch.train.checkpoint import CheckpointManager
+    from phones_las_torch.train.loop import Trainer
+    from phones_las_torch.utils.param_io import load_artifact
+
+    data, source, run = (os.path.join(work, n) for n in ("data", "source", "run"))
+    secs = {}
+    t0 = time.perf_counter()
+    cli("prepare", "speechlike", "--out", data, "--n-utts", str(FRONT_TRAIN_UTTS), "--seed", str(DATA_TRAIN_SEED))
+    secs["prepare"] = time.perf_counter() - t0
+    # the warm start's source: the committed checkpoint as a workdir, written by the library
+    preset, vocab, *_ = resolve_preset(WORKDIR_PRESET, data, None)
+    if dataclasses.asdict(preset.model) != dataclasses.asdict(cfg):
+        fail(f"the {WORKDIR_PRESET} preset over the prepared data dir does not give the checkpoint's configuration")
+    device = None if DEV == "cuda" else DEV
+    tr = Trainer(preset.model, preset.train, device=device)
+    tr.warm_start(load_artifact(ckpt, device=device)[0])
+    CheckpointManager(source).save(0, tr.state, force=True)
+    del tr
+    with open(os.path.join(source, "config.json"), "w") as f:  # as the training CLI writes it
+        json.dump({"preset": WORKDIR_PRESET, "data": data, "overrides": {"max_target_len": DECODE_STEPS},
+                   "precision": None}, f)
+    n_steps = FRONT_PROFILE_STEPS + FRONT_STEPS
+    t0 = time.perf_counter()
+    train_out = cli(
+        "train", "--preset", WORKDIR_PRESET, "--data", data, "--workdir", run, "--num-steps", str(n_steps),
+        "--profile-steps", str(FRONT_PROFILE_STEPS), "--batch-size", str(TRAIN_B), "--buckets",
+        *map(str, DATA_BUCKETS), "--max-target-len", str(DATA_MAX_TARGET), "--init-checkpoint", source,
+    ).stdout
+    secs["train"] = time.perf_counter() - t0
+    traces = sorted(glob.glob(os.path.join(run, "profile", "trace_*.json")))
+    kernels_traced = set()
+    for path in traces:
+        with open(path) as f:
+            kernels_traced |= {e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+    # the kernels' base names (a CUDA name reads "void (anonymous namespace)::name<T>(args)")
+    lstm_traced = sorted({m for n in kernels_traced for m in re.findall(r"\w+_kernel(?:<[^>]*>)?", n)
+                          if m.startswith(("lstm_", "gates_", "dwh_"))})
+    # the commands that read the run, at once: infer on the card and on the
+    # CPU, lm, transcribe, export (8c) and serve (8b, left running)
+    test = os.path.join(data, "test.plu")
+    held = list(RecordReader(test))
+    wavs = [os.path.join(work, f"{u.utt_id}.wav") for u in held[:FRONT_FILES]]
+    for p, u in zip(wavs, held):
+        write_wav(p, u.audio, SAMPLE_RATE)
+    export_dir, flagship_dir = os.path.join(work, "export"), os.path.join(work, "export_flagship")
+    t0 = time.perf_counter()
+    procs = {
+        "infer": cli("infer", "--workdir", run, "--data", test, "--beam-width", "0",
+                     "--output", os.path.join(run, "hyps.tsv"), started=started),
+        "infer --device cpu": cli("infer", "--workdir", run, "--data", test, "--beam-width", "0", "--device", "cpu",
+                                  "--output", os.path.join(run, "hyps_cpu.tsv"), started=started),
+        "lm": cli("lm", "--data", data, "--out", os.path.join(run, "lm.npz"), started=started),
+        "transcribe": cli("transcribe", "--workdir", run, "--beam-width", "0", *wavs, started=started),
+        "export": cli("export", "--workdir", run, "--out", export_dir, "--batch-sizes",
+                      ",".join(map(str, EXPORT_BATCHES)), "--pad-seconds", str(SECONDS), "--beam-width", "0",
+                      started=started),
+        "export flagship": cli("export", "--workdir", source, "--out", flagship_dir, "--batch-sizes",
+                               str(FLAGSHIP_B), "--pad-seconds", str(SECONDS), "--beam-width", "0",
+                               started=started),
+        "serve": cli("serve", "--workdir", run, "--host", "127.0.0.1", "--port", "0", "--beam-width", "0",
+                     "--max-batch", str(SERVE_BATCH), started=started),
+    }
+    with open(os.path.join(run, "config.json")) as f:
+        cfg_file = json.load(f)
+    preset, vocab, *_ = resolve_preset(cfg_file["preset"], cfg_file["data"], cfg_file["overrides"])
+    tr = Trainer(preset.model, preset.train, run, device=device)
+    eval_src = DataSource([test], dataclasses.replace(preset.pipeline, shuffle=False, drop_remainder=False))
+    ev = tr.evaluate(eval_src.epoch(0), max_steps=preset.pipeline.max_target_len)
+    want = Transcriber(run, beam_width=0, device=device).transcribe_files(wavs)
+    outs = {name: finish(p, name) for name, p in procs.items() if name != "serve"}
+    secs["infer_lm_transcribe_export"] = time.perf_counter() - t0
+    footer = per_footer(outs["infer"])
+    files_equal = outs["transcribe"].splitlines() == [f"{p}\t{' '.join(t)}" for p, t in zip(wavs, want)]
+    rows = {}
+    for name in ("hyps.tsv", "hyps_cpu.tsv"):
+        with open(os.path.join(run, name)) as f:
+            rows[name] = [line.rstrip("\n") for line in f]
+    differing = [i for i, (a, b) in enumerate(zip(rows["hyps.tsv"], rows["hyps_cpu.tsv"])) if a != b]
+    lm_shape = list(load_lm(os.path.join(run, "lm.npz")).shape)
+    train_lines = [line for line in train_out.splitlines() if line.startswith("{'tag': 'train'")]
+    rec = {
+        "phase": "8a", "preset": WORKDIR_PRESET, "steps": n_steps, "profiled_steps": FRONT_PROFILE_STEPS,
+        "checkpoints": CheckpointManager(run).all_steps(), "warm_started": "warm-started [all]" in train_out,
+        "train_log": train_lines[-1:], "trace_files": len(traces),
+        "trace_mb": sum(os.path.getsize(p) for p in traces) / 1e6, "lstm_kernels_traced": lstm_traced,
+        "infer_utterances": footer[0], "infer_per": footer[1] / max(footer[2], 1), "infer_ref_tokens": footer[2],
+        "evaluate_per": ev["per"], "evaluate_ref_tokens": ev["ref_tokens"],
+        "infer_rows_differing_from_cpu": differing, "transcribe_files": len(wavs),
+        "transcribe_equals_library": files_equal, "lm_shape": lm_shape, "export": outs["export"].strip(),
+        "export_flagship": outs["export flagship"].strip(),
+        "seconds": secs,
+    }
+    emit(rec)
+    if rec["checkpoints"][-1:] != [n_steps] or not rec["warm_started"] or not train_lines:
+        fail(f"the training CLI did not warm-start and train {n_steps} steps: {rec}")
+    if DEV == "cuda" and not (any("lstm_fwd_kernel" in n for n in lstm_traced)
+                              and any("lstm_bwd_kernel" in n for n in lstm_traced)):
+        fail(f"the training CLI's trace does not name the residual and VJP kernels: {rec}")
+    if footer[0] != len(held) or abs(rec["infer_per"] - ev["per"]) > 1e-9 or footer[2] != ev["ref_tokens"]:
+        fail(f"the infer CLI's PER is not Trainer.evaluate's: {rec}")
+    if len(differing) > MAX_DIFF_ROWS or not files_equal or lm_shape != [len(vocab)] * 3:
+        fail(f"infer against the CPU, transcribe against the library, or the LM file failed: {rec}")
+    return run, held, vocab, procs["serve"], export_dir, flagship_dir
+
+
+def http_post(url: str, body: bytes):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=body), timeout=300) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def check_server(run, held, vocab, serve_proc, kernels) -> dict:
+    """Phase 8b: the ``cli.serve`` process started in 8a (up, one request,
+    down), then the same ``make_server`` in this process: 64 held-out WAV
+    uploads from 16 client threads against ``transcribe_batch``, a /stream
+    session and a ``?stream=1`` upload of the long-regime stream against
+    ``transcribe_long``."""
+    import threading
+    import urllib.request
+
+    from phones_las_torch.api import Transcriber
+    from phones_las_torch.cli.serve import make_server
+    from phones_las_torch.data.audio_io import write_wav
+    from phones_las_torch.data.speechlike import make_phonotactics, synth_speech_utterance
+
+    utts = [u.audio for u in held]
+    try:
+        line = serve_proc.stdout.readline()
+        if not line.startswith("serving "):
+            serve_proc.kill()
+            fail(f"cli.serve did not come up: {line!r} {serve_proc.communicate(timeout=60)[1][-3000:]}")
+        base = "http://" + line.split(" on ")[1].split(" ")[0]
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        code, body = http_post(base + "/transcribe?raw=1", utts[0].tobytes())
+        cli_answer = (code, json.loads(body))
+    finally:
+        serve_proc.terminate()
+        serve_proc.wait(timeout=60)
+
+    t = Transcriber(run, beam_width=0, device=None if DEV == "cuda" else DEV)
+    t.transcribe_batch([np.zeros(SAMPLE_RATE, np.int16)] * SERVE_BATCH)  # as cli.serve warms it
+    want = t.transcribe_batch(utts)
+    wav_bodies = []
+    path = os.path.join(os.path.dirname(run), "serve.wav")
+    for u in utts:
+        write_wav(path, u, SAMPLE_RATE)
+        with open(path, "rb") as f:
+            wav_bodies.append(f.read())
+    server, worker = make_server(t, "127.0.0.1", 0, max_batch=SERVE_BATCH)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        got, lat = [None] * len(utts), [0.0] * len(utts)
+
+        def client(c):
+            for i in range(c, len(utts), SERVE_CLIENTS):
+                t0 = time.perf_counter()
+                code, body = http_post(base + "/transcribe", wav_bodies[i])
+                lat[i] = time.perf_counter() - t0
+                got[i] = json.loads(body)["tokens"] if code == 200 else f"HTTP {code}: {body[:200]!r}"
+
+        reset_counters(kernels)
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        [th.start() for th in threads]
+        [th.join(timeout=300) for th in threads]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(kernels)
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        counter = lambda name: int(float(next(
+            ln.split()[1] for ln in metrics.splitlines() if ln.startswith(name + " "))))
+        batches, filled = counter("plu_batches_total"), counter("plu_batched_requests_total")
+        differing = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+
+        # the long-regime stream (as phase 7f) through /stream in 0.5 s feeds
+        stream = synth_speech_utterance(np.random.RandomState(9002), vocab, "gate-stream", model=make_phonotactics(1234),
+                                        n_syllables_range=(170, 170), word_syllables=(1, 3),
+                                        snr_db_range=(10.0, 30.0))
+        audio, ref = stream.audio, vocab.decode(stream.targets)
+        offline = t.transcribe_long(audio)
+        reset_counters(kernels)
+        t0 = time.perf_counter()
+        sid = json.loads(http_post(base + "/stream/start", b"")[1])["id"]
+        streamed, feeds = [], 0
+        for ofs in range(0, len(audio), STREAM_CHUNK):
+            code, body = http_post(base + f"/stream/{sid}", audio[ofs: ofs + STREAM_CHUNK].tobytes())
+            if code != 200:
+                fail(f"/stream/{sid} answered {code}: {body[:500]!r}")
+            streamed += json.loads(body)["tokens"]
+            feeds += 1
+        end = json.loads(http_post(base + f"/stream/{sid}/end", b"")[1])
+        streamed += end["tokens"]
+        stream_s = time.perf_counter() - t0
+        stream_launches = launch_counts(kernels)
+        code, body = http_post(base + "/transcribe?raw=1&stream=1", audio.tobytes())
+        ndjson = [json.loads(x) for x in body.decode().splitlines()]
+        upload = [tok for ln in ndjson for tok in ln.get("tokens", [])]
+        code_long, body_long = http_post(base + "/transcribe?raw=1", audio.tobytes())
+        routed = json.loads(body_long).get("tokens")
+    finally:
+        worker.stop()
+        server.shutdown()
+        server.server_close()
+    seconds = len(audio) / SAMPLE_RATE
+    per = {name: token_per([toks], [ref], vocab) for name, toks in
+           (("transcribe_long", offline), ("stream", streamed), ("stream_upload", upload), ("long_upload", routed))}
+    lat_ms = sorted(x * 1e3 for x in lat)
+    rec = {
+        "phase": "8b", "cli_serve": {"healthz": health, "answer_status": cli_answer[0],
+                                      "answer_equals": cli_answer[1].get("tokens") == want[0]},
+        "requests": len(utts), "clients": SERVE_CLIENTS, "max_batch": SERVE_BATCH, "batches": batches,
+        "mean_fill": filled / max(batches, 1), "rows_differing_from_transcribe_batch": differing,
+        "req_per_s": len(utts) / wall, "p50_ms": lat_ms[len(lat_ms) // 2],
+        "p99_ms": lat_ms[min(len(lat_ms) - 1, int(0.99 * len(lat_ms)))], "launches": launches,
+        "stream_seconds": seconds, "stream_feeds": feeds, "stream_rtf": stream_s / seconds,
+        "stream_equals_transcribe_long": streamed == offline, "stream_upload_equals": upload == offline,
+        "stream_upload_final": bool(ndjson) and ndjson[-1].get("final") is True,
+        "long_upload_equals": routed == offline, "per": per, "stream_launches": stream_launches,
+        "card": card_line(),
+    }
+    emit(rec)
+    if cli_answer[0] != 200 or not rec["cli_serve"]["answer_equals"] or health.get("status") != "ok":
+        fail(f"cli.serve did not answer as the library does: {rec}")
+    if len(differing) > MAX_DIFF_ROWS or filled != len(utts) or rec["mean_fill"] <= 1.0:
+        fail(f"the served tokens or the micro-batches are off: {rec}")
+    n_layers = t.model_cfg.listener.num_layers
+    if DEV == "cuda" and ((launches["fused_logmel"], launches["bidir_recurrence"], launches["greedy_decode_fused"]) != (
+            batches, n_layers * batches, batches) or launches["recurrence_residual"] or launches["recurrence_bwd"]):
+        fail(f"the server's kernel launches do not follow its batches: {rec}")
+    if any(abs(p - per["transcribe_long"]) > STREAM_PER_TOL for p in per.values()) or not rec["stream_upload_final"]:
+        fail(f"the streamed transcripts are not within {STREAM_PER_TOL} PER of transcribe_long's: {rec}")
+    if code != 200 or code_long != 200 or DEV == "cuda" and not (
+            stream_launches["fused_logmel"] and stream_launches["bidir_recurrence"]):
+        fail(f"the long-form routes failed or ran no kernel: {rec}")
+    return rec
+
+
+def check_export(run, out, flagship_dir, held, kernels) -> dict:
+    """Phase 8c: the programs ``cli.export`` wrote in 8a (1, 16 and 64 × 10 s,
+    greedy, the run's 32-step cap): their operators, their tokens against
+    the live ``Transcriber``, a fresh process that imports only
+    ``phones_las_torch.export``; and the flagship shape (64 × 10 s, 200
+    steps, the checkpoint's workdir) exported against live, in turns."""
+    from phones_las_torch.api import Transcriber
+    from phones_las_torch.export import ExportedTranscriber
+
+    utts = [u.audio for u in held]
+    device = None if DEV == "cuda" else DEV
+    # the fresh process runs while this one checks the programs
+    inputs = os.path.join(os.path.dirname(run), "export_inputs.npz")
+    np.savez(inputs, *[np.asarray(u) for u in utts])
+    code = (
+        "import json, sys, numpy as np\n"
+        "from phones_las_torch.export import ExportedTranscriber\n"
+        f"z = np.load({inputs!r})\n"
+        "utts = [z[f'arr_{i}'] for i in range(len(z.files))]\n"
+        f"print(json.dumps(ExportedTranscriber({out!r}, device={device!r}).transcribe_batch(utts)))\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.startswith(('phones_las_torch.models', "
+        "'phones_las_torch.api', 'phones_las_torch.train')))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    fresh_proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+    try:
+        with open(os.path.join(out, "export.json")) as f:
+            meta = json.load(f)
+        with open(os.path.join(flagship_dir, "export.json")) as f:
+            flag_meta = json.load(f)
+        ops = {}
+        for d, m in ((out, meta), (flagship_dir, flag_meta)):
+            for e in m["entries"]:
+                ep = torch.export.load(os.path.join(d, e["file"]))
+                targets = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
+                ops[f"{os.path.basename(d)}/{e['file']}"] = (
+                    {op.split(".")[1]: targets.count(op) for op in OPS} | {"nodes": len(targets)})
+        live = Transcriber(run, beam_width=0, device=device)
+        exported = ExportedTranscriber(out, device=device)
+        want = live.transcribe_batch(utts)
+        exported.transcribe_batch(utts)  # loads the b=64 program
+        reset_counters(kernels)
+        got = exported.transcribe_batch(utts)
+        torch.cuda.synchronize()
+        launches = launch_counts(kernels)
+        differing = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        fresh_out, fresh_err = fresh_proc.communicate(timeout=CLI_TIMEOUT)
+    finally:
+        if fresh_proc.poll() is None:
+            fresh_proc.kill()
+            fresh_proc.wait(timeout=60)
+    if fresh_proc.returncode:
+        fail(f"a fresh process could not serve the export: {fresh_err[-3000:]}")
+    fresh_lines = fresh_out.strip().splitlines()
+    fresh, model_modules = json.loads(fresh_lines[-2]), json.loads(fresh_lines[-1])
+
+    audio = [np.clip(np.rint(a), -32768, 32767).astype(np.int16) for a in make_audio(FLAGSHIP_B, seed=8)]
+    flag_live = Transcriber(os.path.join(os.path.dirname(run), "source"), beam_width=0, device=device)
+    flag_exported = ExportedTranscriber(flagship_dir, device=device)
+    if flag_live.max_steps != DECODE_STEPS:
+        fail(f"the flagship workdir decodes {flag_live.max_steps} steps, not {DECODE_STEPS}")
+    calls = {"live": lambda: flag_live.transcribe_batch(audio),
+             "exported": lambda: flag_exported.transcribe_batch(audio)}
+    times = {n: [] for n in calls}
+    for r_, n in in_turns(list(calls), EXPORT_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calls[n]()
+        torch.cuda.synchronize()
+        if r_:
+            times[n].append((time.perf_counter() - t0) * 1e3)
+    reset_counters(kernels)
+    flag_tokens = calls["exported"]()
+    torch.cuda.synchronize()
+    flag_launches = launch_counts(kernels)
+    flag_differing = [i for i, (a, b) in enumerate(zip(flag_tokens, calls["live"]())) if a != b]
+    rec = {
+        "phase": "8c", "entries": meta["entries"], "platforms": meta["platforms"],
+        "pt2_mb": sum(os.path.getsize(os.path.join(out, e["file"])) for e in meta["entries"]) / 1e6,
+        "operators": ops, "utterances": len(utts), "rows_differing_from_live": differing, "launches": launches,
+        "fresh_process_equal": fresh == got, "fresh_process_model_modules": model_modules,
+        "flagship": f"B={FLAGSHIP_B} x {SECONDS} s random PCM, greedy, {flag_live.max_steps} steps",
+        "flagship_rows_differing_from_live": flag_differing, "flagship_launches": flag_launches,
+        "flagship_longest_hypothesis": max(map(len, flag_tokens)),
+        "live_ms": times["live"], "exported_ms": times["exported"],
+        "live_ms_median": statistics.median(times["live"]), "exported_ms_median": statistics.median(times["exported"]),
+        "card": card_line(),
+    }
+    emit(rec)
+    n_layers = live.model_cfg.listener.num_layers
+    if any(o[op.split(".")[1]] != (n_layers if "bidir" in op else 1) for o in ops.values() for op in OPS):
+        fail(f"an exported program does not hold the three operators once a kernel call: {rec}")
+    if len(differing) > MAX_DIFF_ROWS or not rec["fresh_process_equal"] or model_modules:
+        fail(f"the exported programs' tokens disagree, or the loader needed the model code: {rec}")
+    if DEV == "cuda" and any((n["fused_logmel"], n["bidir_recurrence"], n["greedy_decode_fused"]) != (1, n_layers, 1)
+                             for n in (launches, flag_launches)):
+        fail(f"the exported programs did not launch the three kernels once a call each: {launches} {flag_launches}")
+    if len(flag_differing) > MAX_DIFF_ROWS:
+        fail(f"the flagship program's tokens disagree with the live Transcriber's: {rec}")
+    return rec
+
+
+def check_front_doors(ckpt, cfg, kernels) -> None:
+    """Phase 8, in a temporary directory under ``_runs/`` removed at the end;
+    every process it starts is stopped."""
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(REPO, "_runs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_front_", dir=os.path.join(REPO, "_runs"))
+    started = []
+    try:
+        run, held, vocab, serve_proc, export_dir, flagship_dir = check_clis(ckpt, cfg, work, started)
+        check_server(run, held, vocab, serve_proc, kernels)
+        check_export(run, export_dir, flagship_dir, held, kernels)
+    finally:
+        for p in started:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        shutil.rmtree(work, ignore_errors=True)
+
 def reset_counters(kernels) -> None:
     for fn in kernels:
         fn.launches = 0
@@ -2177,6 +2650,9 @@ def main() -> int:
 
     # ---- phase 7: the data layer and fit over record files
     check_data_layer(ckpt, cfg, kernels)
+
+    # ---- phase 8: the CLIs, the HTTP server and exported programs
+    check_front_doors(ckpt, cfg, kernels)
 
     def kernel_entry(name, source, replaces, rec, n_launches):
         return {

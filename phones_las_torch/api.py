@@ -180,13 +180,14 @@ class Transcriber:
         device=None,
     ):
         """Serve a training run: replay its ``config.json`` (preset, data
-        dir, overrides, precision) through ``resolve_preset``, restore the
-        latest checkpoint (or the mean of the newest
-        ``average_checkpoints``). ``beam_width=None`` takes the preset's;
+        dir, overrides, precision) through ``resolve_preset``, read the
+        params of the latest checkpoint (or the mean of the newest
+        ``average_checkpoints``), whatever device type wrote it. ``beam_width=None`` takes the preset's;
         ``head='grapheme'`` decodes the multitask grapheme speller; ``lm``
         is an n-gram table file fused into beam search at ``lm_weight``;
         ``ctc_joint`` α turns on joint CTC/attention beam decoding."""
         from phones_las_torch.cli.common import resolve_preset
+        from phones_las_torch.train.checkpoint import load_averaged_params
         from phones_las_torch.train.loop import Trainer
         from phones_las_torch.utils.param_io import named_leaves
 
@@ -205,14 +206,10 @@ class Transcriber:
             preset = dataclasses.replace(
                 preset, model=dataclasses.replace(preset.model, matmul_precision=cfg_file["precision"])
             )
-        trainer = Trainer(preset.model, preset.train, workdir=workdir, binf_codes=binf_codes, device=device)
-        if trainer.state.step <= 0:
-            raise FileNotFoundError(f"no checkpoint in {workdir}")
-        params = trainer.state.params
-        if average_checkpoints > 1:
-            from phones_las_torch.train.checkpoint import load_averaged_params
-
-            params, _ = load_averaged_params(workdir, trainer.state, average_checkpoints)
+        trainer = Trainer(preset.model, preset.train, binf_codes=binf_codes, device=device)
+        # the params alone (no optimizer state, no generator), so a checkpoint
+        # written on one device type serves on another
+        params, used = load_averaged_params(workdir, trainer.state, max(1, average_checkpoints))
         for _, t in named_leaves(params):
             t.requires_grad_(False)
         self._setup(params.eval(), preset.model, trainer.device, max_device_batch,
@@ -237,7 +234,7 @@ class Transcriber:
             self.speller_cfg, self.vocab = preset.model.speller, vocab
             self.max_steps = preset.pipeline.max_target_len
         self._set_buckets(preset.pipeline.buckets)
-        self.step = int(trainer.state.step)
+        self.step = used[-1]
         self.preset_name = cfg_file["preset"]
 
     def _setup(self, params, cfg, device, max_device_batch, beam_width, length_penalty) -> None:

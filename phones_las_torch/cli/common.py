@@ -1,10 +1,13 @@
 """Shared CLI wiring (port of ``phones_las_tpu/cli/common.py``): bind a
 named preset to a prepared data directory (its vocabularies, CMVN stats
-and binf codes), apply the hparam overrides a run was trained with, and
-the TIMIT scoring fold."""
+and binf codes), apply the hparam overrides a run was trained with, the
+TIMIT scoring fold, and the ``--device`` argument every CLI that touches
+a device takes (the counterpart of ``honor_jax_platforms_env``: no
+environment variable moves work to the CPU)."""
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 from typing import Dict, Optional, Tuple
@@ -29,6 +32,19 @@ _SPELLER_KEYS = {
     "monotonic_mode": "monotonic_mode", "monotonic_noise": "monotonic_noise",
     "monotonic_bias": "monotonic_bias",
 }
+
+
+def add_device_arg(p: argparse.ArgumentParser) -> None:
+    """``--device``: unset means CUDA (the command fails without a card);
+    ``--device cpu`` runs the plain PyTorch path, as the tests do."""
+    p.add_argument("--device", default=None,
+                   help="torch device to run on (default: cuda, which must be present; "
+                        "'cpu' runs the plain PyTorch path)")
+
+
+def not_ported(flag: str, item: str) -> NotImplementedError:
+    """The error of a flag whose machinery the port does not have yet."""
+    return NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
 
 
 def load_data_dir(data_dir: str):

@@ -14,6 +14,10 @@ group stops when all its rows have emitted <eos>; the last group is padded
 with rows that start finished. The layout work the kernel needs
 (``column_slices``: each block's weight slice made contiguous) and the
 choice of C (``decoder_plan``) are here, where the CPU tests reach them.
+The kernel is the operator ``torch.ops.phones_las_torch.greedy_decode_fused``
+(the speller's weights flattened by ``flat_weights``; CPU: the plain
+version, CUDA: the launch, widths read from the weights' shapes), so an
+exported program holds it as one node.
 
 Bounds on the H100 at the main path's shape (B = 64, T = 250, 200 steps,
 2 × 256 cells): about 3.3 MFLOP of float32 per row and step, ≈ 0.6 ms at
@@ -32,13 +36,16 @@ hard-coded to 1.0, float32 dots, and the masked softmax
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from types import SimpleNamespace
+from typing import TYPE_CHECKING, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from phones_las_torch.models.speller import SpellerConfig, SpellerParams
 from phones_las_torch.ops.attention import precompute_keys
 from phones_las_torch.utils.device import check_kernel_device
+
+if TYPE_CHECKING:  # the model code stays out of an exported program's loader
+    from phones_las_torch.models.speller import SpellerConfig, SpellerParams
 
 _NEG = -1e9
 GROUP_ROWS = 8  # rows a cluster decodes together
@@ -51,7 +58,7 @@ CLOCK_NAMES = (
 )
 
 
-def supports(cfg: SpellerConfig) -> bool:
+def supports(cfg: "SpellerConfig") -> bool:
     return (
         cfg.attention_type == "bahdanau"
         and cfg.attention_layer_size > 0
@@ -65,8 +72,8 @@ def decoded_lengths(tokens: torch.Tensor, eos_id: int) -> torch.Tensor:
 
 
 def greedy_decode_fused_plain(
-    params: SpellerParams,
-    cfg: SpellerConfig,
+    params: "SpellerParams",
+    cfg: "SpellerConfig",
     memory: torch.Tensor,
     enc_mask: torch.Tensor,
     max_steps: int,
@@ -120,7 +127,7 @@ class DecoderPlan(NamedTuple):
     groups: int  # clusters of the launch: ceil(B / rows)
 
 
-def decoder_plan(b: int, cfg: SpellerConfig) -> DecoderPlan:
+def decoder_plan(b: int, cfg: "SpellerConfig") -> DecoderPlan:
     """The kernel's cluster size for a batch and a config — a pure function.
 
     C is the largest of ``DECODER_CLUSTERS`` that cuts the units, the
@@ -152,41 +159,85 @@ def column_slices(w: torch.Tensor, c: int, gates: int = 1) -> torch.Tensor:
     return x.movedim(-2, 0).reshape(c, *lead, gates * (n // c)).contiguous()
 
 
-def greedy_decode_fused(
-    params: SpellerParams,
-    cfg: SpellerConfig,
-    memory: torch.Tensor,  # [B, T, M] float32
-    enc_mask: torch.Tensor,  # [B, T]
-    max_steps: int,
-    clocks: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """→ (tokens [B, max_steps] <eos>-padded, lengths [B]).
+class DecoderWidths(NamedTuple):
+    """What the kernel and its plain version read of a ``SpellerConfig``,
+    taken from the weights' shapes inside the operator."""
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel (built at first use) or raises. ``clocks`` (measurements
-    only), an int64 CUDA tensor of 16, receives the SM cycles the first
-    block spent in each part of a step (``CLOCK_NAMES``) and, last, the
-    steps it ran."""
-    if not supports(cfg):
-        raise ValueError("the fused greedy decoder takes bahdanau attention with an attention layer")
-    if memory.ndim != 3 or memory.dtype != torch.float32:
-        raise ValueError(f"memory must be [B, T, M] float32, got {tuple(memory.shape)} {memory.dtype}")
-    b, t, m = memory.shape
-    if enc_mask.shape != (b, t) or m != cfg.memory_dim:
-        raise ValueError(f"enc_mask {tuple(enc_mask.shape)} / memory {tuple(memory.shape)} do not match the config")
-    weights = [
-        params.embedding, params.attention.wq, params.attention.v,
-        params.attention_layer, params.out_w, params.out_b,
-    ]
+    vocab_size: int
+    embedding_dim: int
+    units: int
+    attention_units: int
+    attention_layer_size: int
+    memory_dim: int
+    bos_id: int
+    eos_id: int
+
+    @property
+    def attn_vec_dim(self) -> int:
+        return self.attention_layer_size
+
+
+def flat_weights(params: "SpellerParams") -> List[torch.Tensor]:
+    """The speller's weights as the operator takes them: embedding, wk, wq,
+    v, attention layer, out_w, out_b, then wx, wh, b of each cell."""
+    a = params.attention
+    ws = [params.embedding, a.wk, a.wq, a.v, params.attention_layer, params.out_w, params.out_b]
     for cell in params.cells:
-        weights += [cell.wx, cell.wh, cell.b]
-    if not check_kernel_device(memory, enc_mask, *weights):
-        return greedy_decode_fused_plain(params, cfg, memory, enc_mask, max_steps)
+        ws += [cell.wx, cell.wh, cell.b]
+    return ws
 
+
+def _unflatten(weights, memory: torch.Tensor, bos_id: int, eos_id: int):
+    """``flat_weights``' list → (a view with the parameters' attribute
+    names, ``DecoderWidths``)."""
+    emb, wk, wq, v, attn_layer, out_w, out_b = weights[:7]
+    cells = [SimpleNamespace(wx=weights[i], wh=weights[i + 1], b=weights[i + 2]) for i in range(7, len(weights), 3)]
+    params = SimpleNamespace(
+        embedding=emb, attention=SimpleNamespace(wk=wk, wq=wq, v=v), attention_layer=attn_layer,
+        out_w=out_w, out_b=out_b, cells=cells,
+    )
+    widths = DecoderWidths(
+        out_w.shape[1], emb.shape[1], cells[0].wh.shape[0], wq.shape[1], attn_layer.shape[1],
+        memory.shape[2], bos_id, eos_id,
+    )
+    return params, widths
+
+
+@torch.library.custom_op("phones_las_torch::greedy_decode_fused", mutates_args=(), device_types="cpu")
+def greedy_decode_fused_op(
+    memory: torch.Tensor, enc_mask: torch.Tensor, weights: List[torch.Tensor], bos_id: int, eos_id: int,
+    max_steps: int,
+) -> torch.Tensor:
+    """The kernel as an operator → tokens [B, max_steps] int32: the plain
+    version on the CPU, the kernel on CUDA, exact shapes for tracing.
+    ``weights`` is ``flat_weights`` of the speller."""
+    params, widths = _unflatten(weights, memory, bos_id, eos_id)
+    return greedy_decode_fused_plain(params, widths, memory, enc_mask, max_steps)[0]
+
+
+@greedy_decode_fused_op.register_kernel("cuda")
+def _(memory, enc_mask, weights, bos_id, eos_id, max_steps):
+    check_kernel_device(memory, enc_mask, *weights)  # raises on mixed devices
+    params, widths = _unflatten(weights, memory, bos_id, eos_id)
+    return _launch(params, widths, memory, enc_mask, max_steps)
+
+
+@greedy_decode_fused_op.register_fake
+def _(memory, enc_mask, weights, bos_id, eos_id, max_steps):
+    return memory.new_empty((memory.shape[0], max_steps), dtype=torch.int32)
+
+
+def _launch(params, widths: DecoderWidths, memory, enc_mask, max_steps: int,
+            clocks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the kernel (built at first use) → tokens. ``clocks``
+    (measurements only), an int64 CUDA tensor of 16, receives the SM cycles
+    the first block spent in each part of a step (``CLOCK_NAMES``) and,
+    last, the steps it ran."""
     from phones_las_torch.csrc import _build
 
     lib = _build.library()
-    plan = decoder_plan(b, cfg)
+    b, t, m = memory.shape
+    plan = decoder_plan(b, widths)
     c = plan.cluster
     dev = memory.device
     keys = precompute_keys(params.attention, memory).contiguous()
@@ -205,11 +256,11 @@ def greedy_decode_fused(
     info = (ctypes.c_int * 4)()
     err = lib.plt_greedy_decode(
         keys.data_ptr(), mem.data_ptr(), mask.data_ptr(), b, t,
-        cfg.attention_units, m, emb.data_ptr(), cfg.vocab_size,
-        cfg.embedding_dim, wq.data_ptr(), v.data_ptr(), attn_w.data_ptr(),
-        cfg.attention_layer_size, out_w.data_ptr(), out_b.data_ptr(),
-        cell_ptrs.data_ptr(), len(params.cells), cfg.units, cfg.bos_id,
-        cfg.eos_id, max_steps, c, tokens.data_ptr(), info,
+        widths.attention_units, m, emb.data_ptr(), widths.vocab_size,
+        widths.embedding_dim, wq.data_ptr(), v.data_ptr(), attn_w.data_ptr(),
+        widths.attention_layer_size, out_w.data_ptr(), out_b.data_ptr(),
+        cell_ptrs.data_ptr(), len(params.cells), widths.units, widths.bos_id,
+        widths.eos_id, max_steps, c, tokens.data_ptr(), info,
         None if clocks is None else clocks.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -219,6 +270,31 @@ def greedy_decode_fused(
         "cluster": c, "rows": plan.rows, "groups": plan.groups, "max_active_clusters": info[0],
         "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3],
     }
+    return tokens
+
+
+def greedy_decode_fused(
+    params: "SpellerParams",
+    cfg: "SpellerConfig",
+    memory: torch.Tensor,  # [B, T, M] float32
+    enc_mask: torch.Tensor,  # [B, T]
+    max_steps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (tokens [B, max_steps] <eos>-padded, lengths [B]), through the
+    operator ``torch.ops.phones_las_torch.greedy_decode_fused``.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the
+    kernel (built at first use) or raises."""
+    if not supports(cfg):
+        raise ValueError("the fused greedy decoder takes bahdanau attention with an attention layer")
+    if memory.ndim != 3 or memory.dtype != torch.float32:
+        raise ValueError(f"memory must be [B, T, M] float32, got {tuple(memory.shape)} {memory.dtype}")
+    b, t, m = memory.shape
+    if enc_mask.shape != (b, t) or m != cfg.memory_dim:
+        raise ValueError(f"enc_mask {tuple(enc_mask.shape)} / memory {tuple(memory.shape)} do not match the config")
+    weights = flat_weights(params)
+    check_kernel_device(memory, enc_mask, *weights)
+    tokens = torch.ops.phones_las_torch.greedy_decode_fused(memory, enc_mask, weights, cfg.bos_id, cfg.eos_id, max_steps)
     return tokens, decoded_lengths(tokens, cfg.eos_id)
 
 

@@ -26,11 +26,17 @@ kernel's tiling on them.
 
 Pre-emphasis and length masking stay outside the kernel, and so do Δ,
 DCT and CMVN, as in the reference.
+
+The kernel is the operator ``torch.ops.phones_las_torch.fused_logmel``
+(the config passed as a JSON string; CPU: the plain version, CUDA: the
+launch), so an exported program holds it as one node.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import json
 from typing import Optional, Tuple
 
 import torch
@@ -116,31 +122,26 @@ def mel_ranges(cfg: F.FrontendConfig, device: torch.device) -> torch.Tensor:
     return torch.stack([first, last]).to(device=device, dtype=torch.int32).contiguous()
 
 
-def fused_logmel(
-    signal: torch.Tensor,  # [B, S] float32, already pre-emphasised and masked
-    cfg: F.FrontendConfig,
-    n_frames: int,
-    clocks: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """→ (logmel [B, n_frames, n_mel], energy [B, n_frames]).
+@functools.lru_cache(maxsize=8)
+def _cfg_key(cfg: F.FrontendConfig) -> str:
+    """The config as the op's string argument (an exported program keeps it)."""
+    return json.dumps(dataclasses.asdict(cfg), sort_keys=True)
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel (built at first use) at the tile ``frame_tile(cfg)`` or raises
-    (an nfft that is no multiple of 8, a window too long for shared memory
-    at any tile). The kernel computes in float32
-    for both ``precision='highest'`` and ``'high'``. For measurements,
-    ``clocks`` (an int64 CUDA tensor of ``len(CLOCK_NAMES)``) receives the
-    SM cycles one block spent in each part."""
-    if signal.ndim != 2 or signal.dtype != torch.float32:
-        raise ValueError(f"fused_logmel expects [B, S] float32, got {tuple(signal.shape)} {signal.dtype}")
-    if not check_kernel_device(signal):
-        return fused_logmel_plain(signal, cfg, n_frames)
 
+@functools.lru_cache(maxsize=8)
+def _cfg_from_key(key: str) -> F.FrontendConfig:
+    return F.FrontendConfig(**json.loads(key))
+
+
+def _launch(x: torch.Tensor, cfg: F.FrontendConfig, n_frames: int, clocks: Optional[torch.Tensor] = None):
+    """One launch of the kernel (built at first use) → (logmel, energy).
+    ``clocks`` (measurements only), an int64 CUDA tensor of
+    ``len(CLOCK_NAMES)``, receives the SM cycles one block spent in each part."""
     from phones_las_torch.csrc import _build
 
     fm = frame_tile(cfg)
     lib = _build.library()
-    x = signal.contiguous()
+    x = x.contiguous()
     b, s = x.shape
     basis, tail = kernel_basis(cfg, x.device)
     mel = F.mel_matrix(cfg, x.device)
@@ -157,6 +158,44 @@ def fused_logmel(
     _build.check(err, "plt_fused_logmel")
     fused_logmel.launches += 1
     return logmel, energy
+
+
+@torch.library.custom_op("phones_las_torch::fused_logmel", mutates_args=(), device_types="cpu")
+def fused_logmel_op(signal: torch.Tensor, cfg: str, n_frames: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel as an operator: the plain version on the CPU, the kernel
+    on CUDA (``_launch``), exact output shapes for tracing; ``cfg`` is the
+    ``FrontendConfig`` as ``_cfg_key`` writes it."""
+    return fused_logmel_plain(signal, _cfg_from_key(cfg), n_frames)
+
+
+@fused_logmel_op.register_kernel("cuda")
+def _(signal, cfg, n_frames):
+    return _launch(signal, _cfg_from_key(cfg), n_frames)
+
+
+@fused_logmel_op.register_fake
+def _(signal, cfg, n_frames):
+    num_mel = _cfg_from_key(cfg).num_mel
+    return signal.new_empty((signal.shape[0], n_frames, num_mel)), signal.new_empty((signal.shape[0], n_frames))
+
+
+def fused_logmel(
+    signal: torch.Tensor,  # [B, S] float32, already pre-emphasised and masked
+    cfg: F.FrontendConfig,
+    n_frames: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (logmel [B, n_frames, n_mel], energy [B, n_frames]), through the
+    operator ``torch.ops.phones_las_torch.fused_logmel``.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the
+    kernel (built at first use) at the tile ``frame_tile(cfg)`` or raises
+    (an nfft that is no multiple of 8, a window too long for shared memory
+    at any tile). The kernel computes in float32
+    for both ``precision='highest'`` and ``'high'``."""
+    if signal.ndim != 2 or signal.dtype != torch.float32:
+        raise ValueError(f"fused_logmel expects [B, S] float32, got {tuple(signal.shape)} {signal.dtype}")
+    check_kernel_device(signal)
+    return torch.ops.phones_las_torch.fused_logmel(signal, _cfg_key(cfg), n_frames)
 
 
 fused_logmel.launches = 0

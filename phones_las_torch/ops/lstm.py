@@ -13,8 +13,10 @@ the serial recurrence ``gates = xp[t] + h @ wh`` runs as a CUDA kernel
 CPU tensors:
 
 * without gradients, ``bidir_recurrence`` runs both directions of a
-  BiLSTM layer and ``recurrence`` one direction of ``lstm_layer``, each
-  one launch of the same primal kernel;
+  BiLSTM layer (through the operator
+  ``torch.ops.phones_las_torch.bidir_recurrence``, which an exported
+  program holds as one node) and ``recurrence`` one direction of
+  ``lstm_layer``, each one launch of the same primal kernel;
 * under gradients, ``RecurrenceFunction`` and ``BidirRecurrenceFunction``
   (the reference's custom VJPs ``pallas_recurrence`` and
   ``pallas_bidir_recurrence``) run ``recurrence_residual`` forward, which
@@ -784,6 +786,38 @@ class BidirRecurrenceFunction(torch.autograd.Function):
         return dxpf, dxpb, None, dwhf, dwhb, None, None
 
 
+@torch.library.custom_op("phones_las_torch::bidir_recurrence", mutates_args=(), device_types="cpu")
+def bidir_recurrence_op(
+    xpf_tm: torch.Tensor, xpb_tm: torch.Tensor, mask_tm: torch.Tensor, whf: torch.Tensor, whb: torch.Tensor,
+    forget_bias: float, prec: str,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The inference kernel of both directions as an operator → (out_f,
+    out_b, hf, cf, hb, cb): the plain version on the CPU, one launch of
+    ``plt_lstm_recurrence`` on CUDA, exact output shapes for tracing."""
+    _check_prec(prec)
+    out_f, out_b, (hf, cf), (hb, cb) = bidir_recurrence_plain(xpf_tm, xpb_tm, mask_tm, whf, whb, forget_bias, prec)
+    return out_f, out_b, hf, cf, hb, cb
+
+
+@bidir_recurrence_op.register_kernel("cuda")
+def _(xpf_tm, xpb_tm, mask_tm, whf, whb, forget_bias, prec):
+    _check_prec(prec)
+    check_kernel_device(xpf_tm, xpb_tm, mask_tm, whf, whb)  # raises on mixed devices
+    (out_f, _, _, hf, cf), (out_b, _, _, hb, cb) = _launch_forward(
+        "plt_lstm_recurrence", [xpf_tm, xpb_tm], mask_tm, [whf, whb], forget_bias, [False, True], prec
+    )
+    bidir_recurrence.launches += 1
+    bidir_recurrence.bf16_launches += prec == "bf16"  # of them, in bf16 mode
+    return out_f, out_b, hf, cf, hb, cb
+
+
+@bidir_recurrence_op.register_fake
+def _(xpf_tm, xpb_tm, mask_tm, whf, whb, forget_bias, prec):
+    t, b, u4 = xpf_tm.shape
+    new = lambda *shape: xpf_tm.new_empty(shape, dtype=torch.float32)
+    return new(t, b, u4 // 4), new(t, b, u4 // 4), new(b, u4 // 4), new(b, u4 // 4), new(b, u4 // 4), new(b, u4 // 4)
+
+
 def bidir_recurrence(
     xpf_tm: torch.Tensor,  # [T, B, 4U] float32, forward direction's projected input
     xpb_tm: torch.Tensor,  # [T, B, 4U] float32, backward direction's
@@ -794,7 +828,8 @@ def bidir_recurrence(
     prec: str = "highest",
 ):
     """Both directions of one BiLSTM layer → (out_f [T, B, U], out_b,
-    (hf, cf), (hb, cb)), with ``lax.scan`` semantics for each direction.
+    (hf, cf), (hb, cb)), with ``lax.scan`` semantics for each direction,
+    through the operator ``torch.ops.phones_las_torch.bidir_recurrence``.
 
     Replaces ``phones_las_tpu/ops/lstm.py::_recurrence_pallas_bidir``
     (reached through ``pallas_bidir_recurrence``). A CPU tensor runs the
@@ -811,13 +846,10 @@ def bidir_recurrence(
     it.
     """
     _check_prec(prec)
-    if not check_kernel_device(xpf_tm, xpb_tm, mask_tm, whf, whb):
-        return bidir_recurrence_plain(xpf_tm, xpb_tm, mask_tm, whf, whb, forget_bias, prec)
-    (out_f, _, _, hf, cf), (out_b, _, _, hb, cb) = _launch_forward(
-        "plt_lstm_recurrence", [xpf_tm, xpb_tm], mask_tm, [whf, whb], forget_bias, [False, True], prec
+    check_kernel_device(xpf_tm, xpb_tm, mask_tm, whf, whb)
+    out_f, out_b, hf, cf, hb, cb = torch.ops.phones_las_torch.bidir_recurrence(
+        xpf_tm, xpb_tm, mask_tm, whf, whb, float(forget_bias), prec
     )
-    bidir_recurrence.launches += 1
-    bidir_recurrence.bf16_launches += prec == "bf16"  # of them, in bf16 mode
     return out_f, out_b, (hf, cf), (hb, cb)
 
 

@@ -8,6 +8,7 @@ plain PyTorch path on the CPU runs only when the caller asks for it
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator, Optional, Union
 
 import torch
@@ -43,6 +44,45 @@ def set_parity_mode() -> dict:
     }
 
 
+class _PrecisionScopes:
+    """The process's open precision scopes. The TF32 flags are process-wide
+    (``jax.default_matmul_precision`` is thread-local), so scopes held by
+    several threads at once must agree: one lock, one depth count, the
+    flags saved and set by the first scope to enter and restored by the
+    last to leave."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.depth = 0
+        self.tf32: Optional[bool] = None
+        self.saved = (False, False)
+
+    def enter(self, tf32: bool) -> None:
+        with self.lock:
+            if self.depth == 0:
+                self.saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                torch.backends.cudnn.allow_tf32 = tf32
+                self.tf32 = tf32
+            elif tf32 != self.tf32:
+                raise RuntimeError(
+                    f"a matmul precision scope with TF32 {'on' if self.tf32 else 'off'} is open "
+                    f"(in this thread or another); one with TF32 {'on' if tf32 else 'off'} cannot "
+                    "enter while it is: the flags are process-wide"
+                )
+            self.depth += 1
+
+    def leave(self) -> None:
+        with self.lock:
+            self.depth -= 1
+            if self.depth == 0:
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.saved
+                self.tf32 = None
+
+
+_SCOPES = _PrecisionScopes()
+
+
 @contextlib.contextmanager
 def matmul_precision_scope(matmul_precision: str) -> Iterator[None]:
     """The counterpart of ``jax.default_matmul_precision`` for the GEMMs
@@ -50,16 +90,18 @@ def matmul_precision_scope(matmul_precision: str) -> Iterator[None]:
     matrix products and cuDNN; any other value ('default', production
     mode) allows it, as XLA runs float32 dots as TF32 under 'default' on
     an NVIDIA GPU. The recurrent dots take their precision from ``prec``
-    instead. Both flags are restored on exit, so process-wide state is
-    never left changed."""
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    tf32 = matmul_precision != "highest"
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.backends.cudnn.allow_tf32 = tf32
+    instead.
+
+    Scopes may be held by several threads at once (a server's drainer and
+    its request threads) as long as they ask for the same TF32 setting;
+    asking for the other one while a scope is open raises. The flags are
+    set when the first scope enters and restored when the last one leaves,
+    so process-wide state is never left changed."""
+    _SCOPES.enter(matmul_precision != "highest")
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        _SCOPES.leave()
 
 
 def check_kernel_device(*tensors: torch.Tensor) -> bool:
