@@ -161,6 +161,31 @@ then:
         kernels launched by the exported call, a fresh process that imports
         only ``phones_las_torch.export`` equal, and 64 × 10 s of random PCM
         exported against live, in turns, median of 6.
+  9. the seq2seq G2P at its own widths, in a temporary directory under
+     ``_runs/`` removed at the end, every process it starts stopped:
+     a. its four kernels against their plain versions: the BiLSTM at the
+        bundled model's U = 160 (C = 4, 40 units a block) on 64 rows of
+        1..28 letters, the decoder on that memory (U = A = 160, M = 320,
+        V = 45, 24 steps: tokens equal), the residual forward and the VJP
+        at the training widths (B = 256, U = 128, T = the lexicon's
+        longest word, lengths 1..T; two waves of clusters), with plans,
+        kernel, plain and cuDNN milliseconds and the bounds;
+     b. ``NeuralG2P.bundled()`` on the 70 gold words of
+        ``tests/test_g2p_coverage.py`` at beam 4 and greedy: PER <= 0.05,
+        exact words >= 0.8, at most 1 word differing from the CPU plain
+        path; then every lexicon word in 64-word batches (words/s, one
+        BiLSTM and, greedy, one decoder launch a batch);
+     c. 5 steps of ``_train_from`` at the CLI's widths on the card and the
+        CPU from one init (losses within 1e-5 relative, leaves within 1e-5
+        outside Adam's eps region), 10 timed steps and one profiled; then
+        ``cli.g2p train`` (1,200 steps) as a process: dev PER at each
+        eval, the saved model's gold PER <= 0.15 beside the shipped
+        model's and the rule tables', and ``cli.g2p apply`` on 5 words;
+     d. mini LibriSpeech (FLAC) and Common Voice (es, it, en WAV) trees
+        through ``cli.prepare ... --g2p-model bundled`` on the card and
+        with ``--device cpu``, at once with the training process: records,
+        indexes and vocabularies byte-equal (but for the targets of a word
+        the model transcribes differently, at most 1), CMVN within 1e-6.
 
 ``python3 chip_smoke.py --sweep`` runs none of the phases: it times the
 LSTM forward kernel under every plan it takes at the flagship width
@@ -401,9 +426,6 @@ def forward_report(entry, xps, mask, whs, reverse, prec, ms=None):
 
 
 def check_bilstm(params, b, t, layer, prec, seed):
-    from phones_las_torch.ops.lstm import bidir_recurrence, bidir_recurrence_plain
-    from phones_las_torch.ops.masking import length_mask
-
     pf, pb = params.listener.layers[layer]
     u = pf.units
     g = torch.Generator(device=DEV).manual_seed(seed)
@@ -411,6 +433,17 @@ def check_bilstm(params, b, t, layer, prec, seed):
     lengths[0] = t
     xpf = torch.randn((t, b, 4 * u), generator=g, device=DEV)
     xpb = torch.randn((t, b, 4 * u), generator=g, device=DEV)
+    return check_bilstm_inputs(pf, pb, xpf, xpb, lengths, prec, g)
+
+
+def check_bilstm_inputs(pf, pb, xpf, xpb, lengths, prec, g, phase=1):
+    """The BiLSTM kernel against its plain version on given projected
+    inputs [T, B, 4U] and lengths, timed beside cuDNN's ``torch.nn.LSTM``."""
+    from phones_las_torch.ops.lstm import bidir_recurrence, bidir_recurrence_plain
+    from phones_las_torch.ops.masking import length_mask
+
+    t, b, u4 = xpf.shape
+    u = u4 // 4
     mask = length_mask(lengths, t).transpose(0, 1).contiguous()
     args = (xpf, xpb, mask, pf.wh, pb.wh, 1.0, prec)
     of, ob, (hf, cf), (hb, cb) = bidir_recurrence(*args)
@@ -441,8 +474,9 @@ def check_bilstm(params, b, t, layer, prec, seed):
     ms = time_ms(lambda: bidir_recurrence(*args))
     launch = forward_report("plt_lstm_recurrence", [xpf, xpb], mask, [pf.wh, pb.wh], [False, True], prec, ms)
     rec = {
-        "phase": 1, "kernel": "bidir_recurrence", "shape": f"T={t} B={b} U={u} prec={prec}",
+        "phase": phase, "kernel": "bidir_recurrence", "shape": f"T={t} B={b} U={u} prec={prec}",
         "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": f"atol={atol} rtol={rtol}",
+        "max_rel_to_max": max(rel_err(x, y) for x, y in zip((of, ob, hf, cf, hb, cb), (pof, pob, phf, pcf, phb, pcb))),
         "ms": ms, "launch": launch,
         "plain_ms": time_ms(lambda: bidir_recurrence_plain(*args)),
         "library_ms": time_ms(lambda: lstm(x_in)),
@@ -505,7 +539,7 @@ def check_lstm_ragged(t, b, u, seed):
     return rec
 
 
-def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=True):
+def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=True, phase=1):
     from phones_las_torch.decode import fused_greedy
     from phones_las_torch.decode.fused_greedy import CLOCK_NAMES, greedy_decode_fused, greedy_decode_fused_plain
 
@@ -542,7 +576,7 @@ def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=Tru
     groups = -(-b // launch["rows"])
     launch["l2_bytes_per_step"] = 4 * (groups * wparams + b * t * (a + m))
     rec = {
-        "phase": 1, "kernel": "greedy_decode_fused", "shape": f"B={b} T={t} steps={steps}",
+        "phase": phase, "kernel": "greedy_decode_fused", "shape": f"B={b} T={t} steps={steps}",
         "max_abs_err": float((tok - ptok).abs().max()), "token_rows_differing": diff_rows,
         "tol": "tokens equal",
         "row_steps": row_steps, "launch": launch,
@@ -653,18 +687,23 @@ def cudnn_lstm(d, u, bidirectional):
     return torch.nn.LSTM(d, u, bidirectional=bidirectional).to(DEV)
 
 
-def check_lstm_train(params, t, layer, prec, seed):
+def check_lstm_train(pair, t, prec, seed, b=TRAIN_B, ragged=False, phase="4a", one_wave=True):
     """Phase 4a: the training path's three LSTM kernels against their
-    plain versions at B = TRAIN_B, both directions → (recurrence record,
-    residual record, VJP record)."""
+    plain versions at B = TRAIN_B, both directions, with the weights of
+    ``pair`` (forward, backward LSTMParams) → (recurrence record, residual
+    record, VJP record). ``ragged`` draws lengths 1..T in place of T/2..T;
+    ``one_wave`` fails a VJP whose clusters take more than one wave (a batch
+    that no plan fits in one wave runs in several)."""
     from phones_las_torch.ops import lstm as L
     from phones_las_torch.ops.masking import length_mask
 
-    pf, pb = params.listener.layers[layer]
-    u, d, b = pf.units, pf.wx.shape[0], TRAIN_B
+    pf, pb = pair
+    u, d = pf.units, pf.wx.shape[0]
     g = torch.Generator(device=DEV).manual_seed(seed)
-    lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=DEV)
+    lengths = torch.randint(1 if ragged else t // 2, t + 1, (b,), generator=g, device=DEV)
     lengths[0] = t
+    if ragged:
+        lengths[1] = 1
     xpf, xpb = (torch.randn((t, b, 4 * u), generator=g, device=DEV) for _ in range(2))
     mask = length_mask(lengths, t).transpose(0, 1).contiguous()
     whs = [pf.wh.detach(), pb.wh.detach()]
@@ -704,7 +743,7 @@ def check_lstm_train(params, t, layer, prec, seed):
     bms, by = bound(nbytes, dot, peak)
     ms = time_ms(lambda: L.recurrence(xpf, mask, whs[0], 1.0, False, prec))
     recs.append({
-        "phase": "4a", "kernel": "recurrence", "shape": shape + " one direction",
+        "phase": phase, "kernel": "recurrence", "shape": shape + " one direction",
         "max_abs_err": max_abs, "tol": f"atol=rtol={tol}", "ok": ok,
         "ms": ms, "launch": forward_report("plt_lstm_recurrence", [xpf], mask, whs[:1], [False], prec, ms),
         "plain_ms": time_ms(lambda: L.recurrence_plain(xpf, mask, whs[0], 1.0, False, prec)),
@@ -722,12 +761,14 @@ def check_lstm_train(params, t, layer, prec, seed):
         a, _, s_ok = compare((k[0], k[3], k[4]), (pk[0], pk[3], pk[4]), tol, tol)
         ar, _, r_ok = compare((k[1], k[2]), (pk[1], pk[2]), res_tol, res_tol)
         ok, max_abs = ok and s_ok and r_ok, max(max_abs, a, ar)
+    res_rel = max(rel_err(x, y) for k, pk in zip(res, pres) for x, y in zip(k, pk))
     nbytes = 2 * (4 * t * b * 4 * u + 4 * t * b * u + 2 * rbytes * t * b * u + 4 * 2 * b * u + wbytes * u * 4 * u) + 4 * t * b
     bms, by = bound(nbytes, 2 * dot, peak)
     ms = time_ms(lambda: L.recurrence_residual(*args))
     recs.append({
-        "phase": "4a", "kernel": "recurrence_residual", "shape": shape + " both directions",
-        "max_abs_err": max_abs, "tol": f"out, h, c atol=rtol={tol}; hprev, cprev atol=rtol={res_tol}", "ok": ok,
+        "phase": phase, "kernel": "recurrence_residual", "shape": shape + " both directions",
+        "max_abs_err": max_abs, "max_rel_to_max": res_rel,
+        "tol": f"out, h, c atol=rtol={tol}; hprev, cprev atol=rtol={res_tol}", "ok": ok,
         "ms": ms, "launch": forward_report("plt_lstm_residual", [xpf, xpb], mask, whs, [False, True], prec, ms),
         "plain_ms": time_ms(lambda: L.recurrence_residual_plain(*args)),
         "library_ms": lib_fwd_ms, "library": f"torch.nn.LSTM({d}, {u}, bidirectional=True) forward under grad",
@@ -750,7 +791,7 @@ def check_lstm_train(params, t, layer, prec, seed):
     bms, by = bound(nbytes, 3 * 2 * dot, peak)
     launch = backward_report(bargs, t)
     recs.append({
-        "phase": "4a", "kernel": "recurrence_bwd", "shape": shape + " both directions",
+        "phase": phase, "kernel": "recurrence_bwd", "shape": shape + " both directions",
         "max_abs_err": max(float((k - p).abs().max()) for kg, pg in zip(grads, pgrads) for k, p in zip(kg, pg)),
         "max_rel_to_max": max(errs), "tol": f"dxp, dwh max|d|/max|plain| <= {vjp_tol}",
         "bitwise_repeatable": deterministic, "ok": max(errs) <= vjp_tol and deterministic,
@@ -766,7 +807,7 @@ def check_lstm_train(params, t, layer, prec, seed):
         fail(f"training LSTM kernels disagree with their plain versions at {shape}: {bad}")
     if launch["cluster"] <= 1 or not launch["wh_in_smem"]:
         fail(f"the VJP's loop did not run as a cluster with its slice of wh in shared memory: {launch}")
-    if launch["clusters_launched"] > launch["max_active_clusters"]:
+    if one_wave and launch["clusters_launched"] > launch["max_active_clusters"]:
         fail(f"the VJP's clusters do not fit in one wave: {launch}")
     return recs
 
@@ -2469,6 +2510,407 @@ def check_front_doors(ckpt, cfg, kernels) -> None:
                 p.wait(timeout=60)
         shutil.rmtree(work, ignore_errors=True)
 
+
+# ---- phase 9: the seq2seq G2P at its own widths: kernels, serving, training, corpus prep
+
+# the 70 held-out gold words, a copy of tests/test_g2p_coverage.py::_EN_GOLD
+# (this script imports nothing of the JAX package or its tests)
+G2P_GOLD = {
+    "make": "m eɪ k", "making": "m eɪ k ɪ ŋ", "time": "t aɪ m",
+    "times": "t aɪ m z", "hope": "h oʊ p", "cake": "k eɪ k",
+    "name": "n eɪ m", "home": "h oʊ m", "side": "s aɪ d",
+    "bright": "b ɹ aɪ t", "teacher": "t i tʃ ɚ", "station": "s t eɪ ʃ ə n",
+    "nation": "n eɪ ʃ ə n", "nature": "n eɪ tʃ ɚ", "famous": "f eɪ m ə s",
+    "played": "p l eɪ d", "table": "t eɪ b ə l", "little": "l ɪ t ə l",
+    "apple": "æ p ə l", "find": "f aɪ n d", "cold": "k oʊ l d",
+    "car": "k ɑ ɹ", "care": "k ɛ ɹ", "bird": "b ɝ d", "turn": "t ɝ n",
+    "corner": "k ɔ ɹ n ɚ", "store": "s t ɔ ɹ", "near": "n ɪ ɹ",
+    "rain": "ɹ eɪ n", "boat": "b oʊ t", "moon": "m u n",
+    "mouse": "m aʊ s", "snow": "s n oʊ", "coin": "k ɔɪ n",
+    "blue": "b l u", "fruit": "f ɹ u t", "judge": "dʒ ʌ dʒ",
+    "bridge": "b ɹ ɪ dʒ", "city": "s ɪ t i", "page": "p eɪ dʒ",
+    "phone": "f oʊ n", "green": "ɡ ɹ i n", "street": "s t ɹ i t",
+    "spring": "s p ɹ ɪ ŋ", "think": "θ ɪ ŋ k", "catch": "k æ tʃ",
+    "lunch": "l ʌ n tʃ", "stand": "s t æ n d", "plant": "p l æ n t",
+    "walking": "w ɔ k ɪ ŋ", "started": "s t ɑ ɹ t ɪ d",
+    "stopped": "s t ɑ p t", "running": "ɹ ʌ n ɪ ŋ", "happy": "h æ p i",
+    "yellow": "j ɛ l oʊ", "window": "w ɪ n d oʊ", "paper": "p eɪ p ɚ",
+    "open": "oʊ p ɛ n", "music": "m j u z ɪ k", "riding": "ɹ aɪ d ɪ ŋ",
+    "red": "ɹ ɛ d", "bed": "b ɛ d", "fed": "f ɛ d", "led": "l ɛ d",
+    "wed": "w ɛ d", "shed": "ʃ ɛ d", "yes": "j ɛ s", "ring": "ɹ ɪ ŋ",
+    "sing": "s ɪ ŋ", "king": "k ɪ ŋ",
+}
+G2P_PAD_B, G2P_PAD_T = 64, 28  # NeuralG2P's padded batch: 64 words x 28 chars
+G2P_STEPS = 24  # predict's decode cap
+G2P_TRAIN_B, G2P_TRAIN_U, G2P_LR = 256, 128, 2e-3  # cli.g2p train's defaults
+G2P_TRAIN = dict(batch_size=G2P_TRAIN_B, learning_rate=G2P_LR, label_smoothing=0.1, dev_fraction=0.05,
+                 eval_every=150, seed=0)  # train_g2p's defaults, the CLI's widths
+G2P_LIB_STEPS = 5  # 9c: library steps, card against CPU
+G2P_TIMED_STEPS = 10
+G2P_CLI_STEPS = 1200
+G2P_LOSS_RTOL = 1e-5  # 9c: each step's loss, card against CPU, relative
+G2P_LEAF_TOL = 1e-5  # 9c: every leaf after 5 steps, max |d|
+# 9c: gradient elements in Adam's eps region (|g| below this on the CPU's
+# first step), where rounding moves the update by ~1e-5: held to lr a step
+ADAM_FLAT = 1e-7
+G2P_GOLD_PER, G2P_GOLD_EXACT = 0.05, 0.8  # the bundled model's gate (tests/test_g2p_coverage.py)
+G2P_TRAINED_PER = 0.15  # the rule tables' gate, for the card-trained model
+G2P_MAX_DIFF_WORDS = 1  # words whose hypothesis may differ from the CPU plain path
+G2P_CMVN_TOL = 1e-6  # 9d: CMVN mean and std, card against CPU, of their max |x|
+# 9d: the mini corpora; their out-of-lexicon words go through the model
+G2P_LS = {
+    ("train-clean-100", "19", "198"): [
+        "CHAPTER ONE THE STATIONMASTER OF KNIGHTSBRIDGE",
+        "HE PAINTED THE XYLOPHONES WITH ZEPHYRS AND PLOVERS",
+        "THE THIRTY NINE STEPS WERE GRANITE AND MARBLE",
+        "SHE WHISPERED TO THE CARTOGRAPHER ABOUT THE GLACIERS",
+    ],
+    ("dev-clean", "84", "121"): [
+        "THE LIGHTHOUSE KEEPER COUNTED FORTY TWO PELICANS",
+        "WONDERFULLY QUIET MEADOWS STRETCHED BEYOND THE ORCHARD",
+    ],
+}
+G2P_CV = {
+    "es": ["Hola mundo, buenos días.", "El pingüino come churros."],
+    "it": ["Ciao, perché no?", "Gli gnocchi della nonna."],
+    "en": ["The stations of 42 xylophones.", "Hello, zephyrs and plovers!", "Wonderfully quiet meadows."],
+}
+
+
+def g2p_gold_per(hyps: dict):
+    """→ (PER, exact-word share) of ``hyps`` on the gold words."""
+    from phones_las_torch.utils.metrics import _edit_distance
+
+    dist = total = exact = 0
+    for word, gold in G2P_GOLD.items():
+        ref, hyp = gold.split(), list(hyps[word])
+        ids = {t: i for i, t in enumerate(dict.fromkeys(hyp + ref))}
+        dist += _edit_distance([ids[t] for t in hyp], [ids[t] for t in ref])
+        total += len(ref)
+        exact += hyp == ref
+    return dist / total, exact / len(G2P_GOLD)
+
+
+def check_g2p_kernels(model) -> None:
+    """Phase 9a: the four kernels of the G2P path at its widths against
+    their plain versions: the BiLSTM at the bundled model's U = 160 on 64
+    rows of 1..28 letters, the decoder on that memory (U = A = 160, M =
+    320, V = 45, 24 steps), the residual forward and the VJP at the
+    training widths (B = 256, U = 128, T = the lexicon's longest word)."""
+    from phones_las_torch.data.lexicon_en import expanded_lexicon
+    from phones_las_torch.models.g2p_model import encode_chars, g2p_setup, init_g2p
+    from phones_las_torch.ops.lstm import _project_tm
+    from phones_las_torch.ops.masking import length_mask
+
+    g = torch.Generator(device=DEV).manual_seed(90)
+    lengths = torch.randint(1, G2P_PAD_T + 1, (G2P_PAD_B,), generator=g, device=DEV)
+    lengths[0], lengths[1] = G2P_PAD_T, 1
+    letters = torch.randint(4, 4 + 28, (G2P_PAD_B, G2P_PAD_T), generator=g, device=DEV)
+    chars = letters * length_mask(lengths, G2P_PAD_T, torch.long)
+    pf, pb = model.params.listener.layers[0]
+    emb = model.params.char_embed[chars]
+    bi = check_bilstm_inputs(pf, pb, _project_tm(pf, emb), _project_tm(pb, emb), lengths, "highest", g, phase="9a")
+    if bi["launch"]["cluster"] != 4:
+        fail(f"forward_plan did not take C = 4 at U = 160: {bi['launch']}")
+    memory, mask = encode_chars(model.params, model.cfg, chars, lengths)
+    check_greedy(model.params, model.cfg, memory, mask, G2P_PAD_B, steps=G2P_STEPS, phase="9a")
+    lex = expanded_lexicon()
+    cfg, _, _ = g2p_setup(lex, G2P_TRAIN_U)
+    fresh = init_g2p(cfg, torch.Generator().manual_seed(0), DEV)
+    with torch.enable_grad():
+        # 2 x 16 tiles of 16 rows: two waves of the card's 15 clusters of 8
+        check_lstm_train(fresh.listener.layers[0], max(len(w) for w in lex), "highest", seed=91, b=G2P_TRAIN_B,
+                         ragged=True, phase="9a", one_wave=False)
+
+
+def serve_g2p(kernels) -> dict:
+    """Phase 9b: the bundled model served on the card, beam 4 and greedy:
+    gold PER and exact words against the gate and the CPU plain path, then
+    every lexicon word in 64-word batches (words/s: readings) → the
+    launches of these lookups."""
+    from phones_las_torch.data.g2p import text_to_ipa
+    from phones_las_torch.data.lexicon_en import expanded_lexicon
+    from phones_las_torch.models.g2p_model import NeuralG2P
+
+    gold = list(G2P_GOLD)
+    total = dict.fromkeys(launch_counts(kernels), 0)
+    rec = {"phase": "9b", "gold_words": len(gold), "rules": dict(zip(
+        ("gold_per", "exact"), g2p_gold_per({w: text_to_ipa(w, "en") for w in gold})))}
+    words = sorted(expanded_lexicon())
+    batches = -(-len(words) // G2P_PAD_B)
+    for bw in (4, 1):
+        m = NeuralG2P.bundled(beam_width=bw, device=DEV)
+        reset_counters(kernels)
+        hyps = m.lookup(gold)
+        torch.cuda.synchronize()
+        la = launch_counts(kernels)
+        cpu = NeuralG2P.bundled(beam_width=bw, device="cpu").lookup(gold)
+        per, exact = g2p_gold_per(hyps)
+        diff = sorted(w for w in gold if hyps[w] != cpu[w])
+        m = NeuralG2P.bundled(beam_width=bw, device=DEV)  # an empty cache
+        reset_counters(kernels)
+        t0 = time.perf_counter()
+        m.lookup(words)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        lex_la = launch_counts(kernels)
+        for k in total:
+            total[k] += la[k] + lex_la[k]
+        rec[f"beam{bw}"] = {
+            "gold_per": per, "exact": exact, "words_differing_from_cpu": diff, "gold_launches": la,
+            "lexicon_words": len(words), "batches": batches, "words_per_s": len(words) / secs,
+            "launches_per_batch": {k: v / batches for k, v in lex_la.items()},
+        }
+        if per > G2P_GOLD_PER or exact < G2P_GOLD_EXACT:
+            fail(f"the bundled G2P at beam {bw} misses its gate (PER <= {G2P_GOLD_PER}, exact >= {G2P_GOLD_EXACT}): {rec}")
+        if len(diff) > G2P_MAX_DIFF_WORDS:
+            fail(f"{len(diff)} gold words differ from the CPU plain path at beam {bw}: {diff}")
+        want = {"bidir_recurrence": batches, "greedy_decode_fused": batches if bw == 1 else 0}
+        if any(lex_la[k] != v for k, v in want.items()):
+            fail(f"the lookups at beam {bw} did not launch the kernels once a batch: {lex_la}, {batches} batches")
+    emit(rec)
+    return total
+
+
+def g2p_first_gradient(cfg, vc, vp, lex):
+    """The first step's gradient of ``_train_from`` (``G2P_TRAIN``) on the
+    CPU, drawn as it draws (the dev permutation, then one batch) → a list
+    over the leaves."""
+    from phones_las_torch.models import g2p_model as G
+
+    items = sorted(lex.items())
+    rng = np.random.RandomState(G2P_TRAIN["seed"])
+    perm = rng.permutation(len(items))
+    train = [items[i] for i in perm[max(int(len(items) * G2P_TRAIN["dev_fraction"]), 1):]]
+    max_word, max_pron = max(len(w) for w, _ in train), max(len(p) for _, p in train) + 1
+    idx = rng.randint(0, len(train), G2P_TRAIN["batch_size"])
+    batch = G._pad_batch(vc, vp, [train[i] for i in idx], max_word, max_pron)
+    p0 = G.init_g2p(cfg, torch.Generator().manual_seed(G2P_TRAIN["seed"]), "cpu")
+    leaves = [t.requires_grad_(True) for _, t in G.named_leaves(p0)]
+    with torch.enable_grad():
+        loss = G.g2p_loss(p0, cfg, {k: torch.from_numpy(v) for k, v in batch.items()}, G2P_TRAIN["label_smoothing"])
+        return torch.autograd.grad(loss, leaves)
+
+
+def train_g2p_library(kernels) -> dict:
+    """Phase 9c, the library: 5 steps of ``_train_from`` at the CLI's
+    widths on the card and on the CPU from one init (losses and leaves
+    held), then 10 timed steps and one profiled step on the card → the
+    launches of the card's steps."""
+    from phones_las_torch.data.lexicon_en import expanded_lexicon
+    from phones_las_torch.models import g2p_model as G
+
+    lex = expanded_lexicon()
+    cfg, vc, vp = G.g2p_setup(lex, G2P_TRAIN_U)
+    runs = {}
+    for dev in ("cpu", DEV):
+        p = G.init_g2p(cfg, torch.Generator().manual_seed(0), dev)
+        reset_counters(kernels)
+        p, losses = G._train_from(p, cfg, vc, vp, lex, steps=G2P_LIB_STEPS, **G2P_TRAIN)
+        runs[dev] = (p, losses, launch_counts(kernels))
+    (pc, lc, _), (pg, lg, la) = runs["cpu"], runs[DEV]
+    g1 = g2p_first_gradient(cfg, vc, vp, lex)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    worst, worst_flat, n_flat = 0.0, 0.0, 0
+    for (_, a), (_, b), g in zip(G.named_leaves(pg), G.named_leaves(pc), g1):
+        d = (a.detach().cpu() - b.detach()).abs()
+        flat = g.abs() < ADAM_FLAT
+        n_flat += int(flat.sum())
+        worst = max(worst, float(d[~flat].max()) if (~flat).any() else 0.0)
+        worst_flat = max(worst_flat, float(d[flat].max()) if flat.any() else 0.0)
+    total = dict(la)
+    p = G.init_g2p(cfg, torch.Generator().manual_seed(0), DEV)
+    reset_counters(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    G._train_from(p, cfg, vc, vp, lex, steps=G2P_TIMED_STEPS, **G2P_TRAIN)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / G2P_TIMED_STEPS
+    timed = launch_counts(kernels)
+    for k in total:
+        total[k] += timed[k]
+    prof = profile_step(lambda: G._train_from(p, cfg, vc, vp, lex, steps=1, **G2P_TRAIN), step_ms)
+    rec = {
+        "phase": "9c", "shape": f"B={G2P_TRAIN_B} U={G2P_TRAIN_U} lr={G2P_LR}, the expanded lexicon",
+        "losses_card": lg, "losses_cpu": lc, "loss_max_rel": loss_rel, "leaf_max_abs": worst,
+        "adam_flat_elements": n_flat, "adam_flat_max_abs": worst_flat,
+        "tol": f"loss rel {G2P_LOSS_RTOL}; leaves {G2P_LEAF_TOL}, elements with |g1| < {ADAM_FLAT} {G2P_LR} a step",
+        "step_ms": step_ms, "launches_per_step": {k: v / G2P_TIMED_STEPS for k, v in timed.items()},
+        "profiled_step": prof,
+    }
+    emit(rec)
+    if loss_rel > G2P_LOSS_RTOL or worst > G2P_LEAF_TOL or worst_flat > G2P_LR * G2P_LIB_STEPS:
+        fail(f"G2P training on the card disagrees with the CPU: {rec}")
+    if timed["recurrence_residual"] != G2P_TIMED_STEPS or timed["recurrence_bwd"] != G2P_TIMED_STEPS:
+        fail(f"a G2P training step did not launch the residual forward and the VJP once: {timed}")
+    return total
+
+
+def write_g2p_corpora(work: str):
+    """The mini LibriSpeech tree (FLAC, ``tests/flac_encoder.py``) and the
+    mini Common Voice tree (WAV clips in es, it, en) → their roots."""
+    import importlib.util
+
+    from phones_las_torch.data.audio_io import write_wav
+
+    # by path: the card's Python may have another top-level ``tests`` package
+    spec = importlib.util.spec_from_file_location("flac_encoder", os.path.join(REPO, "tests", "flac_encoder.py"))
+    flac = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(flac)
+    encode_flac = flac.encode_flac
+
+    rs = np.random.RandomState(9)
+    pcm = lambda: (rs.randn(rs.randint(16000, 32000)) * 2000).astype(np.int16)
+    ls = os.path.join(work, "LibriSpeech")
+    for (split, speaker, chapter), texts in G2P_LS.items():
+        d = os.path.join(ls, split, speaker, chapter)
+        os.makedirs(d)
+        lines = []
+        for i, text in enumerate(texts):
+            uid = f"{speaker}-{chapter}-{i:04d}"
+            with open(os.path.join(d, uid + ".flac"), "wb") as f:
+                f.write(encode_flac(pcm(), mode="fixed2"))
+            lines.append(f"{uid} {text}")
+        with open(os.path.join(d, f"{speaker}-{chapter}.trans.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    cv = os.path.join(work, "cv")
+    for lang, sents in G2P_CV.items():
+        d = os.path.join(cv, lang, "clips")
+        os.makedirs(d)
+        rows = ["client_id\tpath\tsentence"]
+        for i, s in enumerate(sents):
+            write_wav(os.path.join(d, f"clip{i}.wav"), pcm())
+            rows.append(f"c{i}\tclip{i}.mp3\t{s}")
+        with open(os.path.join(cv, lang, "validated.tsv"), "w", encoding="utf-8") as f:
+            f.write("\n".join(rows) + "\n")
+    return ls, cv
+
+
+def g2p_words_differing(texts) -> list:
+    """The words of ``texts`` the bundled model transcribes (out of the
+    lexicon, in its alphabet) whose hypothesis differs card against CPU."""
+    from phones_las_torch.data.g2p import _EN_LEXICON, normalize_text
+    from phones_las_torch.models.g2p_model import NeuralG2P
+
+    words = sorted({w for t in texts for w in normalize_text(t) if w not in _EN_LEXICON})
+    card, cpu = NeuralG2P.bundled(device=DEV).lookup(words), NeuralG2P.bundled(device="cpu").lookup(words)
+    return sorted(w for w in card if card[w] != cpu[w])
+
+
+def compare_prep(card_dir: str, cpu_dir: str, differing: list) -> dict:
+    """Phase 9d's comparison of two prepared directories → a report; the
+    files byte for byte, the records one by one (the targets of an
+    utterance holding a word of ``differing`` may differ), CMVN within
+    ``G2P_CMVN_TOL`` of its largest magnitude."""
+    import filecmp
+
+    from phones_las_torch.data.g2p import normalize_text
+    from phones_las_torch.data.records import RecordReader
+    from phones_las_torch.frontend.cmvn import CmvnStats
+
+    names = sorted(f for f in os.listdir(card_dir) if f.endswith((".plu", ".idx", ".txt")))
+    if names != sorted(f for f in os.listdir(cpu_dir) if f.endswith((".plu", ".idx", ".txt"))):
+        fail(f"the card's and the CPU's prep wrote other files: {names}")
+    unequal = [f for f in names if not filecmp.cmp(os.path.join(card_dir, f), os.path.join(cpu_dir, f), shallow=False)]
+    excused, utts = [], 0
+    for f in names:
+        if not f.endswith(".plu"):
+            continue
+        a, b = RecordReader(os.path.join(card_dir, f)), RecordReader(os.path.join(cpu_dir, f))
+        if len(a) != len(b):
+            fail(f"{f}: {len(a)} records on the card, {len(b)} on the CPU")
+        for i in range(len(a)):
+            x, y = a[i], b[i]
+            utts += 1
+            same = x.utt_id == y.utt_id and x.text == y.text and np.array_equal(x.audio, y.audio) and (
+                np.array_equal(x.grapheme_targets, y.grapheme_targets))
+            if not same:
+                fail(f"{f}: record {i} differs beyond its targets")
+            if not np.array_equal(x.targets, y.targets):
+                if not set(normalize_text(x.text)) & set(differing):
+                    fail(f"{f}: record {i}'s targets differ and it holds no word the model transcribes differently")
+                excused.append(x.utt_id)
+    if unequal and not excused:
+        fail(f"files differ between the card's and the CPU's prep: {unequal}")
+    sa, sb = CmvnStats.load(os.path.join(card_dir, "cmvn.json")), CmvnStats.load(os.path.join(cpu_dir, "cmvn.json"))
+    cmvn = max(float(np.abs(p - q).max() / np.abs(q).max()) for p, q in ((sa.mean, sb.mean), (sa.std, sb.std)))
+    if sa.count != sb.count or cmvn > G2P_CMVN_TOL:
+        fail(f"CMVN stats differ between the card's and the CPU's prep: {cmvn}, counts {sa.count} {sb.count}")
+    return {"files": len(names), "records": utts, "files_unequal": unequal, "records_excused": excused,
+            "cmvn_max_rel_to_max": cmvn}
+
+
+def check_g2p(kernels) -> dict:
+    """Phase 9, its files under ``_runs/`` (removed at the end), every
+    process it starts stopped → the launches of its main path (the lookups
+    of 9b, the card's training steps of 9c)."""
+    import shutil
+    import tempfile
+
+    from phones_las_torch.models.g2p_model import NeuralG2P
+
+    bundled = NeuralG2P.bundled(device=DEV)
+    check_g2p_kernels(bundled)
+    launches = serve_g2p(kernels)
+    for k, v in train_g2p_library(kernels).items():
+        launches[k] += v
+    os.makedirs(os.path.join(REPO, "_runs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_g2p_", dir=os.path.join(REPO, "_runs"))
+    started = []
+    try:
+        ls, cv = write_g2p_corpora(work)
+        model_path = os.path.join(work, "g2p.npz")
+        t0 = time.perf_counter()
+        train = cli("g2p", "train", "--out", model_path, "--steps", str(G2P_CLI_STEPS), started=started)
+        preps = {}
+        for dev in ("card", "cpu"):
+            extra = ("--device", "cpu") if dev == "cpu" else ()
+            preps["librispeech", dev] = cli(
+                "prepare", "librispeech", "--root", ls, "--out", os.path.join(work, f"ls_{dev}"), "--targets", "phone",
+                "--g2p-model", "bundled", "--splits", "train-clean-100", "dev-clean", *extra, started=started)
+            preps["common_voice", dev] = cli(
+                "prepare", "common_voice", "--root", cv, "--out", os.path.join(work, f"cv_{dev}"), "--langs",
+                *G2P_CV, "--g2p-model", "bundled", *extra, started=started)
+        for (corpus, dev), proc in preps.items():
+            finish(proc, f"prepare {corpus} ({dev})")
+        prep_s = time.perf_counter() - t0
+        differing = g2p_words_differing([t for ts in G2P_LS.values() for t in ts] + G2P_CV["en"])
+        if len(differing) > G2P_MAX_DIFF_WORDS:
+            fail(f"{len(differing)} corpus words transcribed differently on the card and the CPU: {differing}")
+        emit({
+            "phase": "9d", "seconds_four_preps_at_once": prep_s, "words_differing_from_cpu": differing,
+            "librispeech": compare_prep(os.path.join(work, "ls_card"), os.path.join(work, "ls_cpu"), differing),
+            "common_voice": compare_prep(os.path.join(work, "cv_card"), os.path.join(work, "cv_cpu"), differing),
+        })
+        out = finish(train, "g2p train")
+        train_s = time.perf_counter() - t0
+        evals = [dict(zip(("step", "loss", "dev_per", "best"), map(float, m)))
+                 for m in re.findall(r"g2p step (\d+): loss ([0-9.]+) dev_per ([0-9.]+) best ([0-9.]+)", out)]
+        trained = NeuralG2P(model_path, device=DEV)
+        per, exact = g2p_gold_per(trained.lookup(list(G2P_GOLD)))
+        shipped = g2p_gold_per(bundled.lookup(list(G2P_GOLD)))
+        words = ("make", "station", "xylophone", "running", "zephyr")
+        applied = cli("g2p", "apply", "--model", model_path, *words).stdout.strip().split("\n")
+        rec = {
+            "phase": "9c", "cli": f"g2p train --steps {G2P_CLI_STEPS} (B={G2P_TRAIN_B}, U={G2P_TRAIN_U}, lr={G2P_LR})",
+            "seconds_with_the_preps_beside_it": train_s, "evals": evals, "gold_per": per, "exact": exact,
+            "shipped_gold_per": shipped[0], "shipped_exact": shipped[1], "apply": applied,
+        }
+        emit(rec)
+        if len(evals) != G2P_CLI_STEPS // 150 or per > G2P_TRAINED_PER:
+            fail(f"the card-trained G2P misses its gate (gold PER <= {G2P_TRAINED_PER}, an eval every 150 steps): {rec}")
+        if [ln.split("\t")[0] for ln in applied] != list(words) or any(len(ln.split("\t")[1].split()) < 2
+                                                                      for ln in applied):
+            fail(f"cli.g2p apply did not transcribe its five words: {applied}")
+    finally:
+        for p in started:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def reset_counters(kernels) -> None:
     for fn in kernels:
         fn.launches = 0
@@ -2626,7 +3068,7 @@ def main() -> int:
     # ---- phase 4: the training slice, under grad
     with torch.enable_grad():
         train_recs = [
-            check_lstm_train(params, t, layer, prec, seed=20 + i)
+            check_lstm_train(params.listener.layers[layer], t, prec, seed=20 + i)
             for i, (t, layer, prec) in enumerate(LSTM_CASES)
         ]
         for i, (t, b, u) in enumerate(RAGGED_LSTM):
@@ -2654,6 +3096,9 @@ def main() -> int:
     # ---- phase 8: the CLIs, the HTTP server and exported programs
     check_front_doors(ckpt, cfg, kernels)
 
+    # ---- phase 9: the seq2seq G2P at its widths: kernels, serving, training, corpus prep
+    g2p_launches = check_g2p(kernels)
+
     def kernel_entry(name, source, replaces, rec, n_launches):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2664,21 +3109,26 @@ def main() -> int:
 
     emit({"phase": "end"})
     lstm_cu = "phones_las_torch/csrc/lstm.cu"
+    # launches: the main path's (phase 2 serving, 4c training, 4d the ops
+    # API) and the G2P's (9b lookups, 9c training steps)
     emit({"kernels": [
         kernel_entry("fused_logmel", "phones_las_torch/csrc/frontend.cu",
-                     "phones_las_tpu/frontend/pallas_frontend.py:110", fe_rec, launches["fused_logmel"]),
+                     "phones_las_tpu/frontend/pallas_frontend.py:110", fe_rec,
+                     launches["fused_logmel"] + g2p_launches["fused_logmel"]),
         kernel_entry("bidir_recurrence", lstm_cu,
-                     "phones_las_tpu/ops/lstm.py:269", lstm_recs[0], launches["bidir_recurrence"]),
+                     "phones_las_tpu/ops/lstm.py:269", lstm_recs[0],
+                     launches["bidir_recurrence"] + g2p_launches["bidir_recurrence"]),
         kernel_entry("greedy_decode_fused", "phones_las_torch/csrc/greedy.cu",
-                     "phones_las_tpu/decode/pallas_greedy.py:134", dec_recs[-1], launches["greedy_decode_fused"]),
+                     "phones_las_tpu/decode/pallas_greedy.py:134", dec_recs[-1],
+                     launches["greedy_decode_fused"] + g2p_launches["greedy_decode_fused"]),
         # the unidirectional primal runs on no model path: its launches are
-        # the ops API's (phase 4d); the other two the training run's (4c)
+        # the ops API's (phase 4d); the other two the training runs' (4c, 9c)
         kernel_entry("recurrence", lstm_cu, "phones_las_tpu/ops/lstm.py:164",
-                     train_recs[0][0], api_launches["recurrence"]),
+                     train_recs[0][0], api_launches["recurrence"] + g2p_launches["recurrence"]),
         kernel_entry("recurrence_residual", lstm_cu, "phones_las_tpu/ops/lstm.py:485",
-                     train_recs[0][1], train_launches["recurrence_residual"]),
+                     train_recs[0][1], train_launches["recurrence_residual"] + g2p_launches["recurrence_residual"]),
         kernel_entry("recurrence_bwd", lstm_cu, "phones_las_tpu/ops/lstm.py:536",
-                     train_recs[0][2], train_launches["recurrence_bwd"]),
+                     train_recs[0][2], train_launches["recurrence_bwd"] + g2p_launches["recurrence_bwd"]),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {

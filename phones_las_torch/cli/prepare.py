@@ -1,9 +1,13 @@
 """Data preparation CLI (port of ``phones_las_tpu/cli/prepare.py``): record
 files, vocabularies and CMVN stats for a corpus. The CMVN pass runs the
-front-end kernel on the card (``--device cpu``: the plain path).
+front-end kernel, and ``--g2p-model`` the seq2seq G2P, on the card
+(``--device cpu``: the plain path).
 
     python -m phones_las_torch.cli.prepare speechlike --out data/spl --n-utts 256
     python -m phones_las_torch.cli.prepare timit --root /data/TIMIT --out data/timit
+    python -m phones_las_torch.cli.prepare librispeech --root /data/LibriSpeech --out data/ls \
+        --targets phone --g2p-model bundled
+    python -m phones_las_torch.cli.prepare common_voice --root /data/cv --out data/cv --langs en es it
 """
 
 from __future__ import annotations
@@ -79,10 +83,6 @@ def main(argv=None):
         add_device_arg(sp)
     args = p.parse_args(argv)
     cmvn_utts = getattr(args, "cmvn_utts", 500) or None  # 0 → None → all
-    if args.corpus in ("librispeech", "common_voice"):
-        raise NotImplementedError(
-            f"prepare {args.corpus} needs the G2P modules, which are not ported yet (ROADMAP A7)"
-        )
     from phones_las_torch.data.prep_common import finalize_split_dir
     from phones_las_torch.data.vocab import Vocab
 
@@ -91,6 +91,16 @@ def main(argv=None):
 
         prepare_timit(args.root, args.out, output_ipa=not args.arpabet,
                       include_sa=args.include_sa, cmvn_max_utts=cmvn_utts, device=args.device)
+    elif args.corpus == "librispeech":
+        from phones_las_torch.data.librispeech import prepare_librispeech
+
+        prepare_librispeech(args.root, args.out, splits=tuple(args.splits), g2p_model=args.g2p_model,
+                            targets=args.targets, cmvn_max_utts=cmvn_utts, device=args.device)
+    elif args.corpus == "common_voice":
+        from phones_las_torch.data.common_voice import prepare_common_voice
+
+        prepare_common_voice(args.root, args.out, args.langs, tsv=args.tsv, g2p_model=args.g2p_model,
+                             max_per_lang=args.max_per_lang, cmvn_max_utts=cmvn_utts, device=args.device)
     elif args.corpus == "speechlike":
         from phones_las_torch.data.speechlike import speechlike_grapheme_inventory, write_speechlike_corpus
 

@@ -21,6 +21,9 @@ from phones_las_tpu.data.vocab import Vocab as JaxVocab
 
 from phones_las_torch import api
 from phones_las_torch.data.vocab import Vocab
+from tests.torch_threads import one_thread
+
+one_thread()
 
 ASSET = os.path.join(os.path.dirname(__file__), "goldens", "long_gate.npz")
 SR = 16000

@@ -43,6 +43,9 @@ from phones_las_torch.ops.attention import (
     precompute_keys,
 )
 from phones_las_torch.utils.param_io import config_from_dict, named_leaves, params_from_numpy
+from tests.torch_threads import one_thread
+
+one_thread()
 
 V, BOS, EOS, F_BINF = 11, 1, 2, 6
 M = 16

@@ -22,6 +22,9 @@ from phones_las_torch import api
 from phones_las_torch.data import audio_io
 from tests import mp3_encoder
 from tests.flac_encoder import encode_flac
+from tests.torch_threads import one_thread, subprocess_env
+
+one_thread()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSET = os.path.join(ROOT, "tests", "goldens", "long_gate.npz")
@@ -165,7 +168,7 @@ def test_fuzz_corpus_never_crashes_the_port(path):
     """Every committed hostile input decodes or raises a Python exception
     in the port's decoders; a crash of the native parser fails the test
     instead of the run (each file replays in a subprocess)."""
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env = subprocess_env(PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run([sys.executable, "-c", _REPLAY, path], capture_output=True, text=True, timeout=120,
                           env=env, cwd=ROOT)
     assert proc.returncode == 0, f"{os.path.basename(path)} crashed the decoder:\n{proc.stderr[-2000:]}"

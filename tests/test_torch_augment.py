@@ -25,6 +25,9 @@ from phones_las_torch.models.listener import listen
 from phones_las_torch.train.loop import Trainer
 from phones_las_torch.train.state import TrainConfig
 from phones_las_torch.utils.param_io import load_artifact
+from tests.torch_threads import one_thread
+
+one_thread()
 
 GATE = os.path.join(os.path.dirname(__file__), "goldens", "long_gate.npz")
 BINS = 40

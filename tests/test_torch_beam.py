@@ -30,6 +30,9 @@ from phones_las_torch.models.speller import embed_tokens, init_speller_carry, sp
 from phones_las_torch.ops.attention import precompute_keys
 from phones_las_torch.utils.metrics import edit_distance_stats, per_from_stats
 from phones_las_torch.utils.param_io import config_from_dict, load_artifact, params_from_numpy
+from tests.torch_threads import one_thread
+
+one_thread()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "phones_las_tpu", "assets", "bench")

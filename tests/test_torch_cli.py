@@ -24,6 +24,9 @@ from phones_las_torch.data.audio_io import write_wav
 from phones_las_torch.data.pipeline import DataSource
 from phones_las_torch.data.records import RecordReader
 from phones_las_torch.train.loop import Trainer
+from tests.torch_threads import one_thread
+
+one_thread()
 
 CPU = ["--device", "cpu"]
 TRAIN = ["--preset", "timit_phone_las", "--num-steps", "3", "--batch-size", "4", "--checkpoint-every", "2",
@@ -232,15 +235,24 @@ def test_lm_file_matches_jax(run, tmp_path, order):
     (infer, ["--mesh"], "A8"),
     (serve, ["--replicas", "2"], "A8"),
     (serve, ["--data-parallel", "0"], "A8"),
-    (prepare, ["librispeech", "--root", "r", "--out", "o"], "A7"),
-    (prepare, ["common_voice", "--root", "r", "--out", "o", "--langs", "en"], "A7"),
 ])
 def test_not_ported_flags_raise(run, cli, argv, item):
     data, wd = run
     base = {train: ["--data", data, "--workdir", wd], infer: ["--workdir", wd, "--data", data],
-            serve: ["--workdir", wd], prepare: []}[cli]
+            serve: ["--workdir", wd]}[cli]
     with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}"):
         cli.main(base + argv + CPU)
+
+
+@pytest.mark.parametrize("argv,missing", [
+    (["librispeech", "--root", "r", "--targets", "phone", "--g2p-model", "bundled"], "train-clean-100"),
+    (["common_voice", "--root", "r", "--langs", "en", "--g2p-model", "bundled"], "validated.tsv"),
+])
+def test_g2p_corpora_prepare_reads_their_tree(tmp_path, argv, missing):
+    """``prepare librispeech|common_voice`` are ported: they load the G2P
+    model and then fail on the missing corpus tree, not as unported."""
+    with pytest.raises(FileNotFoundError, match=missing):
+        prepare.main(argv + ["--out", str(tmp_path / "o")] + CPU)
 
 
 def test_only_the_auto_implementation(run, capsys):

@@ -25,6 +25,9 @@ from phones_las_torch.decode import fused_greedy as FG
 from phones_las_torch.models.speller import SpellerConfig
 from phones_las_torch.ops import lstm as L
 from phones_las_torch.utils.param_io import config_from_dict, params_from_numpy
+from tests.torch_threads import one_thread
+
+one_thread()
 
 # the emulation against the plain loop: the same float32 sums cut into
 # slices; against JAX: the tolerances of tests/test_torch_lstm.py (float32

@@ -27,6 +27,9 @@ from phones_las_torch.data.vocab import Vocab
 from phones_las_torch.frontend.cmvn import CmvnStats
 from phones_las_torch.frontend.features import FrontendConfig
 from tests.test_audio_io import _write_sphere
+from tests.torch_threads import one_thread
+
+one_thread()
 
 CMVN_RTOL = 1e-4
 

@@ -21,6 +21,9 @@ from phones_las_torch.decode import ctc as C
 from phones_las_torch.decode import lm as LM
 
 from test_torch_beam import _assert_results_equal, _memory, _models
+from tests.torch_threads import one_thread
+
+one_thread()
 
 BOS, EOS = 1, 2
 

@@ -28,6 +28,9 @@ from phones_las_torch.data.pipeline import DataSource, PipelineConfig, plan_batc
 from phones_las_torch.data.records import RecordReader, RecordWriter, Utterance
 from phones_las_torch.data.synthetic import write_synth_corpus
 from phones_las_torch.parallel.multihost import shard_plan
+from tests.torch_threads import one_thread
+
+one_thread()
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "phones_las_torch", "csrc")
 

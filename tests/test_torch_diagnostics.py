@@ -12,6 +12,9 @@ import torch
 
 from phones_las_torch.models.las import LASConfig, init_las
 from phones_las_torch.utils.diagnostics import annotate, assert_all_finite, enable_nan_checks, profile_trace
+from tests.torch_threads import one_thread
+
+one_thread()
 
 
 def test_assert_all_finite_names_the_leaf():

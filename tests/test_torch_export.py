@@ -26,6 +26,9 @@ from phones_las_torch.export import ExportedTranscriber, export_model
 from phones_las_torch.frontend import features as F
 from phones_las_torch.frontend import fused_frontend as FF
 from phones_las_torch.ops import lstm as L
+from tests.torch_threads import one_thread, subprocess_env
+
+one_thread()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OPS = {"phones_las_torch.fused_logmel.default", "phones_las_torch.bidir_recurrence.default",
@@ -113,7 +116,7 @@ def test_fresh_process_loads_without_model_code(workdir, greedy_export, clips):
         " 'phones_las_torch.decode.beam', 'phones_las_torch.train', 'jax', 'phones_las_tpu')))\n"
         "assert not loaded, loaded\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env = subprocess_env(PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == str(Transcriber(workdir, beam_width=0, device="cpu").transcribe_batch(clips[:2]))

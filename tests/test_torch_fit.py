@@ -25,6 +25,9 @@ from phones_las_torch.data.vocab import Vocab
 from phones_las_torch.train.loop import Trainer
 from phones_las_torch.train.state import TrainConfig
 from phones_las_torch.utils.param_io import config_from_dict, load_artifact, named_leaves, params_from_numpy
+from tests.torch_threads import one_thread
+
+one_thread()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(REPO, "phones_las_tpu", "assets", "bench", "ckpt.npz")

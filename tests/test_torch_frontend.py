@@ -1,6 +1,7 @@
 """The port's front-end (plain PyTorch path, CPU) against the JAX
 reference: ``extract_features`` and the Pallas ``extract_features_pallas``
-in interpret mode, on the same seeded PCM with uneven lengths."""
+in interpret mode, on the same seeded PCM with uneven lengths, and
+against the float64 NumPy oracle of the reference's own tests."""
 
 import numpy as np
 import pytest
@@ -21,6 +22,10 @@ from phones_las_torch.frontend.fused_frontend import (
     fused_logmel,
     fused_logmel_plain,
 )
+from tests import oracle_features as oracle
+from tests.torch_threads import one_thread
+
+one_thread()
 
 # float32 sums over 400-sample frames in another order than XLA's: the
 # bound the reference's own Pallas-vs-XLA front-end test uses
@@ -41,6 +46,14 @@ def _cfgs(**kw):
 @pytest.mark.parametrize("window", ["rect", "hamming"])
 @pytest.mark.parametrize("feature_type", ["logmel", "mfcc"])
 def test_features_match_jax(feature_type, window):
+    """Each row against JAX's features and against the float64 NumPy oracle
+    (``tests/oracle_features.py``), both within TOL.
+
+    The MFCC lifter multiplies c11 by 12, and with it the float32 rounding
+    of the log-mel below it: on an AMD EPYC host (AVX-512) XLA's c11 lies
+    3.4e-4 from the float64 value where the port's lies 4.5e-5 from it. So
+    the oracle is the reference everywhere, and JAX wherever it lies within
+    half the bound of the exact value (at most 1 % of the elements do not)."""
     jcfg, tcfg = _cfgs(feature_type=feature_type, window=window)
     lens = [8000, 5000, 6789]
     x = _batch(lens, 8000)
@@ -49,10 +62,15 @@ def test_features_match_jax(feature_type, window):
     plain = F.extract_features(torch.from_numpy(x), tcfg, sample_lengths=sl).numpy()
     fused = extract_features_fused(torch.from_numpy(x), tcfg, sample_lengths=sl).numpy()
     assert plain.shape == fused.shape == ref.shape
+    winfunc = np.hamming if window == "hamming" else None
     for i, n in enumerate(lens):
         fl = jax_num_frames(n, jcfg)
-        np.testing.assert_allclose(plain[i, :fl], ref[i, :fl], rtol=TOL, atol=TOL)
-        np.testing.assert_allclose(fused[i, :fl], ref[i, :fl], rtol=TOL, atol=TOL)
+        exact = oracle.full_frontend(x[i, :n].astype(np.float64), feature_type, winfunc=winfunc)[:fl]
+        close = np.abs(ref[i, :fl] - exact) <= (TOL + TOL * np.abs(exact)) / 2
+        assert close.mean() >= 0.99, close.mean()
+        for got in (plain[i, :fl], fused[i, :fl]):
+            np.testing.assert_allclose(got, exact, rtol=TOL, atol=TOL)
+            np.testing.assert_allclose(got[close], ref[i, :fl][close], rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("feature_type", ["logmel", "mfcc"])

@@ -18,6 +18,9 @@ from phones_las_tpu.frontend.pallas_frontend import fused_logmel as jax_fused_lo
 
 from phones_las_torch.frontend import features as F
 from phones_las_torch.frontend import fused_frontend as FF
+from tests.torch_threads import one_thread
+
+one_thread()
 
 # float32 sums over 400-sample frames in another order: the bound of
 # tests/test_torch_frontend.py; the energy (~1e9 for this PCM) relatively

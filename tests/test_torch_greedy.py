@@ -30,6 +30,9 @@ from phones_las_torch.decode.greedy import greedy_decode, greedy_decode_steps
 from phones_las_torch.models.speller import SpellerConfig, embed_tokens, init_speller_carry, speller_step
 from phones_las_torch.ops.attention import AttentionParams, attention_scores, precompute_keys
 from phones_las_torch.utils.param_io import config_from_dict, params_from_numpy
+from tests.torch_threads import one_thread
+
+one_thread()
 
 V, BOS, EOS = 11, 1, 2
 M = 16

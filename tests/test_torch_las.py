@@ -32,6 +32,9 @@ from phones_las_torch.utils.param_io import (
     named_leaves,
     params_from_numpy,
 )
+from tests.torch_threads import one_thread, subprocess_env
+
+one_thread()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "phones_las_tpu", "assets", "bench")
@@ -146,6 +149,29 @@ def test_bad_artifact_leaf_fails_loudly():
         params_from_numpy(bad, cfg, device="cpu")
 
 
+def test_every_port_test_file_runs_one_thread():
+    """Each ``tests/test_torch_*.py`` sets one torch intra-op thread through
+    ``tests/torch_threads.py`` after its imports, and starts its
+    subprocesses with that module's environment."""
+    import ast
+    import glob
+
+    files = sorted(glob.glob(os.path.join(REPO, "tests", "test_torch_*.py")))
+    assert len(files) >= 24
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            src = f.read()
+        tree = ast.parse(src)
+        calls = [n for n in tree.body if isinstance(n, ast.Expr) and isinstance(n.value, ast.Call)
+                 and getattr(n.value.func, "id", None) == "one_thread"]
+        assert calls, f"{os.path.basename(path)} does not call one_thread() at module level"
+        imported = {a.name for n in tree.body if isinstance(n, ast.ImportFrom) and n.module == "tests.torch_threads"
+                    for a in n.names}
+        assert "one_thread" in imported, os.path.basename(path)
+        if "subprocess.run(" in src or "subprocess.Popen(" in src:
+            assert "subprocess_env(" in src, f"{os.path.basename(path)} starts processes without subprocess_env"
+
+
 def test_port_imports_no_jax():
     """Every module of the port (the decode and serving modules included)
     imports without pulling in JAX or the JAX package, and so does
@@ -164,11 +190,12 @@ def test_port_imports_no_jax():
         "        'utils.config', 'cli.common', 'train.checkpoint', 'train.state', 'data.records',\n"
         "        'data.audio_io', 'data.native_records', 'data.speechlike', 'data.synthetic', 'data.prep_common',\n"
         "        'data.timit', 'data.librispeech', 'parallel.multihost', 'export', 'utils.diagnostics',\n"
-        "        'cli.serve', 'cli.train', 'cli.infer', 'cli.transcribe', 'cli.prepare', 'cli.lm', 'cli.export'}\n"
+        "        'cli.serve', 'cli.train', 'cli.infer', 'cli.transcribe', 'cli.prepare', 'cli.lm', 'cli.export',\n"
+        "        'data.g2p', 'data.lexicon_en', 'models.g2p_model', 'data.common_voice', 'cli.g2p'}\n"
         "missing = {'phones_las_torch.' + n for n in need} - set(names)\n"
         "assert not missing and len(names) >= 20, (missing, names)\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env = subprocess_env(PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True)
     assert r.returncode == 0, r.stderr
     with open(os.path.join(REPO, "chip_smoke.py")) as f:

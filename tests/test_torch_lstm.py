@@ -23,6 +23,9 @@ from phones_las_torch.ops.lstm import (
 )
 from phones_las_torch.ops.masking import length_mask
 from phones_las_torch.ops.pyramid import pyramid_reduce
+from tests.torch_threads import one_thread
+
+one_thread()
 
 B, T, D, U = 3, 11, 6, 8
 LENS = np.array([11, 7, 4])

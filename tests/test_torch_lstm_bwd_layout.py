@@ -16,6 +16,9 @@ import jax.numpy as jnp
 from phones_las_tpu.ops.lstm import _recurrence_pallas_bwd, _recurrence_pallas_residual, _recurrence_xla
 
 from phones_las_torch.ops import lstm as L
+from tests.torch_threads import one_thread
+
+one_thread()
 
 # max |got − want| over max |want|: float32 sums in another order; bf16 the
 # bound the port's VJP kernel is held to on the card

@@ -22,6 +22,9 @@ from phones_las_tpu.ops.lstm import (
 
 from phones_las_torch.ops import lstm as L
 from phones_las_torch.ops.masking import length_mask
+from tests.torch_threads import one_thread
+
+one_thread()
 
 B, T, D, U = 3, 11, 6, 8
 LENS = {11: np.array([11, 7, 4]), 70: np.array([70, 33, 9])}

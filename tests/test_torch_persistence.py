@@ -42,6 +42,9 @@ from phones_las_torch.utils.param_io import (
     params_from_numpy,
     save_params_npz,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 
 def _jax_cfg(multitask=False):

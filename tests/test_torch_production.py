@@ -32,6 +32,9 @@ from phones_las_torch.train.loop import Trainer
 from phones_las_torch.train.state import TrainConfig
 from phones_las_torch.utils.device import matmul_precision_scope
 from phones_las_torch.utils.param_io import load_artifact, save_params_npz
+from tests.torch_threads import one_thread
+
+one_thread()
 
 GATE = os.path.join(os.path.dirname(__file__), "goldens", "long_gate.npz")
 LOGIT_TOL = 3e-3  # teacher-forced logits, absolute (9.4e-3 with the loop left float32)

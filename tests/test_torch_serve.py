@@ -31,6 +31,9 @@ from phones_las_torch.cli.serve import StreamSession, make_server
 from phones_las_torch.data.audio_io import write_wav
 from phones_las_torch.data.vocab import Vocab
 from phones_las_torch.utils.device import matmul_precision_scope
+from tests.torch_threads import one_thread
+
+one_thread()
 
 ASSET = os.path.join(os.path.dirname(__file__), "goldens", "long_gate.npz")
 SR = 16000
