@@ -186,6 +186,33 @@ then:
         with ``--device cpu``, at once with the training process: records,
         indexes and vocabularies byte-equal (but for the targets of a word
         the model transcribes differently, at most 1), CMVN within 1e-6.
+ 10. several devices, in parity mode at the committed checkpoint's widths,
+     in a temporary directory under ``_runs/`` removed at the end, every
+     process it starts stopped and its exit code checked (the kernels are
+     built before any rank starts; the ranks only load them):
+     a. the sharded training step: ranks sharing the card over gloo (NCCL
+        takes one card a rank), data 2 × model 1 and data 2 × model 2, each
+        rank a process (``python3 chip_smoke.py --mesh-rank JOB RANK``), on
+        32 × 10 s of random PCM whose audio and target lengths differ by
+        row, so the shards hold different token counts (``train=False``):
+        the loss within 1e-4 and every gradient leaf within 5e-5 of its
+        largest magnitude of the unsharded step on the card, the leaves
+        after one Adam step gathered within 1e-4, each rank's launches (the
+        front-end once, the residual and the VJP once a listener layer),
+        ms a step beside the unsharded step's (readings: gloo stages the
+        tensors through the host);
+     b. NCCL, a world of 1 on the card: a mesh ``Trainer`` against the
+        plain one for 3 training steps from one state (losses and leaves
+        within 1e-6), then ``cli.train --mesh`` as a process, 4 steps
+        warm-started from the checkpoint on ``prepare speechlike`` records;
+     c. ``Transcriber(data_parallel=2, devices=["cuda:0", "cuda:0"])`` on
+        the eval set, greedy and beam-8, and at the flagship shape: tokens
+        equal to ``data_parallel=1``'s, PER within 0.005 of the
+        reference's, the launches of each shard, ms of both in turns;
+     d. ``replicate(2)`` on the card behind ``make_server``: 64 eval-set
+        requests from 8 client threads, tokens equal to the library's, both
+        drainers serving, nothing pending at the end; ``cli.infer --mesh``
+        over two shards against ``cli.infer``, the same lines.
 
 ``python3 chip_smoke.py --sweep`` runs none of the phases: it times the
 LSTM forward kernel under every plan it takes at the flagship width
@@ -204,6 +231,8 @@ path), each in a process of its own, in the order other, this, this,
 other on the same card, and prints one line a run: the numbers behind a
 "[was …]" in ``PERF.md``. ``--time-kernels DIR`` is one such run, of the
 package in the checkout at DIR.
+
+``python3 chip_smoke.py --mesh-rank JOB RANK`` is one rank of phase 10a.
 
 Every phase that fails ends the script with a non-zero exit code. The
 line before the last holds the card's name and power limit as
@@ -317,6 +346,11 @@ def make_audio(b: int, seed: int = 0) -> np.ndarray:
     return (rs.randn(b, int(SECONDS * SAMPLE_RATE)) * 2000).astype(np.float32)
 
 
+# the plain versions (20–200× slower than their kernels) are timed as the
+# median of fewer runs, so the whole script keeps to half its time limit
+PLAIN_REPS = 3
+
+
 def time_ms(fn, reps: int = 10, warmup: int = 1) -> float:
     """Median over ``reps`` runs of ``fn`` timed with CUDA events."""
     for _ in range(warmup):
@@ -391,7 +425,7 @@ def check_frontend(cfg_fe, audio, what="flagship"):
         "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": f"logmel atol=rtol={tol}",
         "energy_max_abs_err": en_abs, "energy_max_rel_err": en_rel, "energy_tol": f"rtol={tol}",
         "ms": time_ms(lambda: fused_logmel(x, cfg_fe, t)),
-        "plain_ms": time_ms(lambda: fused_logmel_plain(x, cfg_fe, t)),
+        "plain_ms": time_ms(lambda: fused_logmel_plain(x, cfg_fe, t), reps=PLAIN_REPS),
         "library_ms": None, "bound_ms": bms, "bound_by": by,
     }
     emit(rec)
@@ -478,7 +512,7 @@ def check_bilstm_inputs(pf, pb, xpf, xpb, lengths, prec, g, phase=1):
         "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": f"atol={atol} rtol={rtol}",
         "max_rel_to_max": max(rel_err(x, y) for x, y in zip((of, ob, hf, cf, hb, cb), (pof, pob, phf, pcf, phb, pcb))),
         "ms": ms, "launch": launch,
-        "plain_ms": time_ms(lambda: bidir_recurrence_plain(*args)),
+        "plain_ms": time_ms(lambda: bidir_recurrence_plain(*args), reps=PLAIN_REPS),
         "library_ms": time_ms(lambda: lstm(x_in)),
         "library": f"torch.nn.LSTM({d}, {u}, bidirectional=True), includes the input projection",
         "bound_ms": bms, "bound_by": by,
@@ -584,7 +618,7 @@ def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=Tru
     }
     if timed:
         rec["ms"] = time_ms(lambda: greedy_decode_fused(sp, sc, mem, mask, steps))
-        rec["plain_ms"] = time_ms(lambda: greedy_decode_fused_plain(sp, sc, mem, mask, steps))
+        rec["plain_ms"] = time_ms(lambda: greedy_decode_fused_plain(sp, sc, mem, mask, steps), reps=PLAIN_REPS)
         launch["us_per_step"] = rec["ms"] * 1e3 / max(int(first.max()), 1)
     if diff_rows:
         bad = [{"row": r, "first_step": int((tok[r] != ptok[r]).nonzero()[0])}
@@ -746,7 +780,7 @@ def check_lstm_train(pair, t, prec, seed, b=TRAIN_B, ragged=False, phase="4a", o
         "phase": phase, "kernel": "recurrence", "shape": shape + " one direction",
         "max_abs_err": max_abs, "tol": f"atol=rtol={tol}", "ok": ok,
         "ms": ms, "launch": forward_report("plt_lstm_recurrence", [xpf], mask, whs[:1], [False], prec, ms),
-        "plain_ms": time_ms(lambda: L.recurrence_plain(xpf, mask, whs[0], 1.0, False, prec)),
+        "plain_ms": time_ms(lambda: L.recurrence_plain(xpf, mask, whs[0], 1.0, False, prec), reps=PLAIN_REPS),
         "library_ms": lib_uni_ms, "library": f"torch.nn.LSTM({d}, {u}) forward, no grad",
         "library_fwd_bwd_ms": lib_fwd_bwd_ms, "bound_ms": bms, "bound_by": by,
     })
@@ -770,7 +804,7 @@ def check_lstm_train(pair, t, prec, seed, b=TRAIN_B, ragged=False, phase="4a", o
         "max_abs_err": max_abs, "max_rel_to_max": res_rel,
         "tol": f"out, h, c atol=rtol={tol}; hprev, cprev atol=rtol={res_tol}", "ok": ok,
         "ms": ms, "launch": forward_report("plt_lstm_residual", [xpf, xpb], mask, whs, [False, True], prec, ms),
-        "plain_ms": time_ms(lambda: L.recurrence_residual_plain(*args)),
+        "plain_ms": time_ms(lambda: L.recurrence_residual_plain(*args), reps=PLAIN_REPS),
         "library_ms": lib_fwd_ms, "library": f"torch.nn.LSTM({d}, {u}, bidirectional=True) forward under grad",
         "library_fwd_bwd_ms": lib_fwd_bwd_ms, "bound_ms": bms, "bound_by": by,
     })
@@ -796,7 +830,7 @@ def check_lstm_train(pair, t, prec, seed, b=TRAIN_B, ragged=False, phase="4a", o
         "max_rel_to_max": max(errs), "tol": f"dxp, dwh max|d|/max|plain| <= {vjp_tol}",
         "bitwise_repeatable": deterministic, "ok": max(errs) <= vjp_tol and deterministic,
         "ms": time_ms(lambda: L.recurrence_bwd(*bargs)), "launch": launch,
-        "plain_ms": time_ms(lambda: L.recurrence_bwd_plain(*bargs)),
+        "plain_ms": time_ms(lambda: L.recurrence_bwd_plain(*bargs), reps=PLAIN_REPS),
         "library_ms": lib_fwd_bwd_ms, "library": f"torch.nn.LSTM({d}, {u}, bidirectional=True) forward + backward",
         "library_fwd_bwd_ms": lib_fwd_bwd_ms, "bound_ms": bms, "bound_by": by,
     })
@@ -2911,6 +2945,471 @@ def check_g2p(kernels) -> dict:
     return launches
 
 
+# ---- phase 10: several devices: the sharded step, NCCL, data-parallel and replica serving
+
+MESH_B = 32  # the sharded step's global batch: 32 × 10 s
+MESH_LAYOUTS = ((2, 1), (2, 2))  # (data, model), ranks sharing the card over gloo
+MESH_LOSS_TOL = 1e-4  # |Δloss| against the unsharded step (__graft_entry__.py's bound)
+MESH_GRAD_TOL = 5e-5  # each gradient leaf's max |d| over its max |g| (the same)
+MESH_TIMED_STEPS = 3
+NCCL_STEPS = 3
+NCCL_TOL = 1e-6  # the NCCL world-1 trainer against the plain one, relative
+MESH_CLI_STEPS = 4
+MESH_TRAIN_UTTS = 128  # prepare speechlike for cli.train --mesh (32 held out)
+DP_DEVICES = ("cuda:0", "cuda:0")  # two shards, or two replicas, on the one card
+REPLICA_BATCH, REPLICA_CLIENTS = 8, 8
+RANK_TIMEOUT = 600
+
+
+def mesh_batch(vocab_size: int) -> dict:
+    """Host batch of MESH_B × 10 s of random PCM whose audio lengths
+    (5–10 s) and target lengths (50–200 tokens) are drawn per row, so the
+    data ranks' shards hold different token counts."""
+    rs = np.random.RandomState(10)
+    n = int(SECONDS * SAMPLE_RATE)
+    audio = (rs.randn(MESH_B, n) * 2000).astype(np.float32)
+    lens = rs.randint(n // 2, n + 1, MESH_B).astype(np.int32)
+    tl = rs.randint(DECODE_STEPS // 4, DECODE_STEPS + 1, MESH_B).astype(np.int32)
+    targets = rs.randint(4, vocab_size, (MESH_B, DECODE_STEPS)).astype(np.int32)
+    for i in range(MESH_B):
+        audio[i, lens[i]:] = 0
+        targets[i, tl[i] - 1] = EOS_ID
+        targets[i, tl[i]:] = 0
+    return {"audio": audio, "audio_lengths": lens, "targets": targets, "target_lengths": tl}
+
+
+def mesh_step(tr, batch):
+    """One step without dropout or sampling (``train=False``, as the
+    reference's multi-chip dry run): loss, backward, the whole gradients,
+    one Adam update → (the global batch's loss, {leaf: whole gradient})."""
+    loss, _ = tr.loss(batch, train=False)
+    loss.backward()
+    grads = tr.gradients()
+    total = loss.detach().clone()
+    if tr.mesh is not None:
+        tr.mesh.sum_data(total)
+    tr.apply_gradients(grads)
+    return total, grads
+
+
+def timed_steps(tr, batch) -> float:
+    """Median ms of MESH_TIMED_STEPS ``mesh_step``s (host clock around a
+    synchronised step)."""
+    times = []
+    for _ in range(MESH_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh_step(tr, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def train_kernels():
+    from phones_las_torch.decode.fused_greedy import greedy_decode_fused
+    from phones_las_torch.frontend.fused_frontend import fused_logmel
+    from phones_las_torch.ops.lstm import bidir_recurrence, recurrence, recurrence_bwd, recurrence_residual
+
+    return (fused_logmel, bidir_recurrence, greedy_decode_fused, recurrence, recurrence_residual, recurrence_bwd)
+
+
+def mesh_rank(job_path: str, rank: int) -> int:
+    """One rank of phase 10a: join the gloo group, take its rows of the
+    batch on the card, run the sharded step, write rank 0's results (the
+    global loss, the whole gradients and the gathered leaves after the
+    update), then time MESH_TIMED_STEPS more steps; one JSON line."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from phones_las_torch.parallel import initialize_distributed, make_mesh
+    from phones_las_torch.train.loop import Trainer
+    from phones_las_torch.train.state import TrainConfig
+    from phones_las_torch.utils.device import set_parity_mode
+    from phones_las_torch.utils.param_io import load_artifact, named_leaves
+
+    with open(job_path) as f:
+        job = json.load(f)
+    world = job["data"] * job["model"]
+    set_parity_mode()
+    initialize_distributed(job["init"], world, rank, backend="gloo")
+    mesh = make_mesh(job["data"], job["model"], [DP_DEVICES[0]] * world)
+    params, cfg, _ = load_artifact(os.path.join(ASSETS, "ckpt.npz"), device=mesh.device)
+    tr = Trainer(cfg, TrainConfig(), mesh=mesh)
+    tr.warm_start(params)
+    batch = mesh_batch(cfg.speller.vocab_size)
+    kernels = train_kernels()
+    reset_counters(kernels)
+    total, grads = mesh_step(tr, batch)
+    torch.cuda.synchronize()
+    launches = launch_counts(kernels)
+    whole = tr.whole_state()
+    if rank == 0:
+        arrays = {"loss": total.cpu().numpy()}
+        arrays.update({"grad" + k: g.cpu().numpy() for k, g in grads.items()})
+        arrays.update({"param" + k: t.detach().cpu().numpy() for k, t in named_leaves(whole.params)})
+        np.savez(job["out"], **arrays)
+    ms = timed_steps(tr, batch)
+    print(json.dumps({"rank": rank, "data_index": mesh.data_index, "model_index": mesh.model_index,
+                      "rows": len(batch["audio"]) // job["data"], "launches": launches, "ms": ms}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(cmds, started, logs: str, what: str, timeout: float = RANK_TIMEOUT) -> list:
+    """Start every rank at once (stdout and stderr to files under
+    ``logs``) and wait for all → their stdouts. A rank that fails or
+    outlives ``timeout`` fails the phase at once, and the others are
+    stopped (they would wait in a collective for it)."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    files = [(os.path.join(logs, f"rank{i}.out"), os.path.join(logs, f"rank{i}.err")) for i in range(len(cmds))]
+    procs = []
+    for cmd, (out, err) in zip(cmds, files):
+        with open(out, "w") as fo, open(err, "w") as fe:
+            procs.append(subprocess.Popen(cmd, cwd=REPO, env=env, stdout=fo, stderr=fe, text=True))
+    started.extend(procs)
+    deadline = time.monotonic() + timeout
+    while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+        if any(p.poll() not in (None, 0) for p in procs):
+            break
+        time.sleep(0.2)
+    read = lambda path: open(path).read()
+    for i, p in enumerate(procs):
+        if p.poll() != 0:
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+                    q.wait(timeout=60)
+            bad = next((j for j, q in enumerate(procs) if q.returncode not in (None, 0, -9)), i)
+            fail(f"{what} {bad} exited {procs[bad].returncode} (or timed out): {read(files[bad][1])[-3000:]}")
+    return [read(out) for out, _ in files]
+
+
+def check_mesh_training(ckpt, kernels, work, started, card) -> dict:
+    """Phase 10a → the launches of every rank's checked step, summed."""
+    from phones_las_torch.train.loop import Trainer
+    from phones_las_torch.train.state import TrainConfig
+    from phones_las_torch.utils.param_io import load_artifact, named_leaves
+
+    params, cfg, _ = load_artifact(ckpt, device=None if DEV == "cuda" else DEV)
+    tr = Trainer(cfg, TrainConfig(), device=params.cmvn_mean.device)
+    tr.warm_start(params)
+    batch = mesh_batch(cfg.speller.vocab_size)
+    with torch.enable_grad():
+        reset_counters(kernels)
+        total, grads = mesh_step(tr, batch)
+        torch.cuda.synchronize()
+        unsharded_launches = launch_counts(kernels)
+        ref_loss = float(total)
+        ref_grads = {k: g.cpu() for k, g in grads.items()}
+        ref_params = {k: t.detach().cpu().clone() for k, t in named_leaves(tr.state.params)}
+        unsharded_ms = timed_steps(tr, batch)
+    del tr
+    torch.cuda.empty_cache()
+    n_layers = cfg.listener.num_layers
+    summed = {fn.__name__: 0 for fn in kernels}
+    for data_ranks, model_ranks in MESH_LAYOUTS:
+        world = data_ranks * model_ranks
+        name = f"d{data_ranks}m{model_ranks}"
+        job = {"data": data_ranks, "model": model_ranks, "init": f"file://{os.path.join(work, name + '.rendezvous')}",
+               "out": os.path.join(work, name + ".npz")}
+        job_path = os.path.join(work, name + ".json")
+        with open(job_path, "w") as f:
+            json.dump(job, f)
+        logs = os.path.join(work, name)
+        os.makedirs(logs)
+        t0 = time.perf_counter()
+        outs = run_ranks([[sys.executable, os.path.join(REPO, "chip_smoke.py"), "--mesh-rank", job_path, str(r)]
+                          for r in range(world)], started, logs, f"phase 10a {name}: rank")
+        wall = time.perf_counter() - t0
+        ranks = [json.loads(out.strip().splitlines()[-1]) for out in outs]
+        with np.load(job["out"]) as z:
+            got = {k: z[k] for k in z.files}
+        d_loss = abs(float(got["loss"]) - ref_loss)
+        grad_rel = {k: rel_err(torch.from_numpy(got["grad" + k]), g) for k, g in ref_grads.items()}
+        param_abs = {k: float((torch.from_numpy(got["param" + k]) - t).abs().max()) for k, t in ref_params.items()}
+        worst_g, worst_p = max(grad_rel, key=grad_rel.get), max(param_abs, key=param_abs.get)
+        rec = {
+            "phase": "10a", "mesh": f"data {data_ranks} x model {model_ranks}", "backend": "gloo",
+            "shape": f"B={MESH_B} x {SECONDS} s, audio {SECONDS / 2}-{SECONDS} s and targets "
+                     f"{DECODE_STEPS // 4}-{DECODE_STEPS} tokens a row, train=False",
+            "rows_a_rank": MESH_B // data_ranks, "loss_unsharded": ref_loss, "loss_sharded": float(got["loss"]),
+            "loss_abs_diff": d_loss, "loss_tol": MESH_LOSS_TOL, "grad_leaves": len(grad_rel),
+            "grad_max_rel_to_max": grad_rel[worst_g], "grad_worst_leaf": worst_g, "grad_tol": MESH_GRAD_TOL,
+            "param_max_abs_err": param_abs[worst_p], "param_worst_leaf": worst_p, "param_tol": PARAM_TOL,
+            "rank_launches": [r["launches"] for r in ranks], "unsharded_launches": unsharded_launches,
+            "ms_a_step_ranks": [r["ms"] for r in ranks], "ms_a_step_unsharded": unsharded_ms,
+            "seconds_ranks_alive": wall, "card": card,
+        }
+        emit(rec)
+        if d_loss > MESH_LOSS_TOL or grad_rel[worst_g] > MESH_GRAD_TOL or param_abs[worst_p] > PARAM_TOL:
+            fail(f"the sharded step disagrees with the unsharded one: {rec}")
+        for r in ranks:
+            la = r["launches"]
+            if DEV == "cuda" and (la["fused_logmel"], la["recurrence_residual"], la["recurrence_bwd"],
+                                  la["bidir_recurrence"]) != (1, n_layers, n_layers, 0):
+                fail(f"rank {r['rank']} did not launch the front-end once and the residual and VJP once a layer: {rec}")
+            for k, v in la.items():
+                summed[k] += v
+    return summed
+
+
+def write_source_workdir(ckpt, data_dir: str, source: str, cap: int) -> None:
+    """The committed checkpoint as a training workdir (step 0), decoding
+    with the eval set's cap, as phase 8a writes it."""
+    from phones_las_torch.cli.common import resolve_preset
+    from phones_las_torch.train.checkpoint import CheckpointManager
+    from phones_las_torch.train.loop import Trainer
+    from phones_las_torch.utils.param_io import load_artifact
+
+    preset, *_ = resolve_preset(WORKDIR_PRESET, data_dir, None)
+    device = None if DEV == "cuda" else DEV
+    tr = Trainer(preset.model, preset.train, device=device)
+    tr.warm_start(load_artifact(ckpt, device=device)[0])
+    CheckpointManager(source).save(0, tr.state, force=True)
+    with open(os.path.join(source, "config.json"), "w") as f:
+        json.dump({"preset": WORKDIR_PRESET, "data": data_dir, "overrides": {"max_target_len": cap},
+                   "precision": None}, f)
+
+
+def check_nccl_world(ckpt, kernels, work, data_dir, source, card):
+    """Phase 10b → (the launches of the mesh trainer's steps, the
+    ``cli.train --mesh`` run's workdir)."""
+    import torch.distributed as dist
+
+    from phones_las_torch.parallel import initialize_distributed, make_mesh
+    from phones_las_torch.train.checkpoint import CheckpointManager
+    from phones_las_torch.train.loop import Trainer
+    from phones_las_torch.train.state import TrainConfig
+    from phones_las_torch.utils.param_io import load_artifact, named_leaves
+
+    initialize_distributed(f"file://{os.path.join(work, 'nccl.rendezvous')}", 1, 0, backend="nccl")
+    try:
+        backend = dist.get_backend()
+        mesh = make_mesh(1, 1, DP_DEVICES[:1])
+        params, cfg, _ = load_artifact(ckpt, device=mesh.device)
+        batch = mesh_batch(cfg.speller.vocab_size)
+        plain, meshed = Trainer(cfg, TrainConfig(), device=mesh.device), Trainer(cfg, TrainConfig(), mesh=mesh)
+        plain.warm_start(params)
+        meshed.warm_start(params)
+        del params
+        losses = {"plain": [], "mesh": []}
+        with torch.enable_grad():
+            for i in range(NCCL_STEPS):
+                losses["plain"].append(float(plain.train_step(batch)["loss"]))
+                if i == NCCL_STEPS - 1:
+                    reset_counters(kernels)
+                losses["mesh"].append(float(meshed.train_step(batch)["loss"]))
+        torch.cuda.synchronize()
+        launches = launch_counts(kernels)
+        whole = dict(named_leaves(meshed.whole_state().params))
+        leaf_rel = max(rel_err(whole[k].detach(), t.detach()) for k, t in named_leaves(plain.state.params))
+        bitwise = all(torch.equal(whole[k], t) for k, t in named_leaves(plain.state.params))
+        del plain, meshed, whole
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"], losses["plain"]))
+    run = os.path.join(work, "run")
+    t0 = time.perf_counter()
+    out = cli("train", "--preset", WORKDIR_PRESET, "--data", data_dir, "--workdir", run, "--num-steps",
+              str(MESH_CLI_STEPS), "--batch-size", str(TRAIN_B), "--buckets", *map(str, DATA_BUCKETS),
+              "--max-target-len", str(DATA_MAX_TARGET), "--init-checkpoint", source, "--mesh").stdout
+    cli_s = time.perf_counter() - t0
+    train_lines = [line for line in out.splitlines() if line.startswith("{'tag': 'train'")]
+    rec = {
+        "phase": "10b", "backend": backend, "world": 1, "steps": NCCL_STEPS, "losses": losses,
+        "loss_max_rel_diff": loss_rel, "leaf_max_rel_to_max": leaf_rel, "bitwise_equal": bitwise,
+        "tol": NCCL_TOL, "launches_last_step": launches,
+        "cli_train_mesh": {"steps": MESH_CLI_STEPS, "mesh_1x1": "mesh=1x1" in out, "train_log": train_lines[-1:],
+                           "checkpoints": CheckpointManager(run).all_steps(),
+                           "final_eval": "final eval:" in out, "seconds": cli_s},
+        "card": card,
+    }
+    emit(rec)
+    if backend != "nccl" or loss_rel > NCCL_TOL or leaf_rel > NCCL_TOL:
+        fail(f"the NCCL world-1 mesh trainer is not the plain trainer: {rec}")
+    n_layers = cfg.listener.num_layers
+    if DEV == "cuda" and (launches["fused_logmel"], launches["recurrence_residual"],
+                          launches["recurrence_bwd"]) != (1, n_layers, n_layers):
+        fail(f"the mesh trainer's step did not launch the front-end once and the residual and VJP once a layer: {rec}")
+    c = rec["cli_train_mesh"]
+    if not (c["mesh_1x1"] and train_lines and c["checkpoints"][-1:] == [MESH_CLI_STEPS] and c["final_eval"]):
+        fail(f"cli.train --mesh did not train {MESH_CLI_STEPS} steps and evaluate: {rec}")
+    return launches, run
+
+
+def rows_differing(a, b) -> list:
+    return [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+
+
+def check_dp_serving(source, data, kernels, card) -> dict:
+    """Phase 10c → the launches of the greedy data-parallel eval-set call."""
+    from phones_las_torch.api import Transcriber
+
+    device = None if DEV == "cuda" else DEV
+    utts = [np.asarray(data["audio"][i, : data["lengths"][i]], np.int16) for i in range(len(data["lengths"]))]
+    refs = [[int(x) for x in r if x >= 0] for r in data["refs"]]
+    rec = {"phase": "10c", "shards": list(DP_DEVICES), "utterances": len(utts)}
+    n_layers = None
+    launches = None
+    for beam in (0, BEAM_K):
+        one = Transcriber(source, beam_width=beam, device=device)
+        two = Transcriber(source, beam_width=beam, data_parallel=len(DP_DEVICES), devices=DP_DEVICES)
+        n_layers = one.model_cfg.listener.num_layers
+        want = one.transcribe_batch(utts)
+        reset_counters(kernels)
+        got = two.transcribe_batch(utts)
+        torch.cuda.synchronize()
+        la = launch_counts(kernels)
+        ids = [one.vocab.encode(t) for t in got]
+        lens = np.asarray([len(t) for t in ids])
+        toks = np.zeros((len(ids), max(1, lens.max())), np.int32)
+        for i, t in enumerate(ids):
+            toks[i, : len(t)] = t
+        per = eval_per(toks, lens, data)
+        name = "greedy" if beam == 0 else f"beam{beam}"
+        rec[name] = {"rows_differing": rows_differing(got, want), "per": per, "launches": la}
+        if beam == 0:
+            launches = la
+    # the flagship shape: 64 × 10 s, 200 greedy steps, the two in turns
+    audio = list(make_audio(FLAGSHIP_B))
+    one = Transcriber(source, beam_width=0, device=device)
+    two = Transcriber(source, beam_width=0, data_parallel=len(DP_DEVICES), devices=DP_DEVICES)
+    one.max_steps = two.max_steps = DECODE_STEPS
+    times = {"data_parallel=1": [], "data_parallel=2": []}
+    outs = {}
+    for r, name in in_turns(list(times), 2):
+        t = one if name == "data_parallel=1" else two
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = t.transcribe_batch(audio)
+        torch.cuda.synchronize()
+        if r:
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    rec["flagship"] = {
+        "shape": f"B={FLAGSHIP_B} x {SECONDS} s, {DECODE_STEPS} greedy steps",
+        "rows_differing": rows_differing(outs["data_parallel=2"], outs["data_parallel=1"]),
+        "ms_in_turns": times,
+    }
+    rec["card"] = card
+    emit(rec)
+    for name in ("greedy", f"beam{BEAM_K}"):
+        r = rec[name]
+        if r["rows_differing"] or abs(r["per"] - (REF_GREEDY_PER if name == "greedy" else REF_BEAM8_PER)) > PER_TOL:
+            fail(f"data-parallel {name} is not single-device {name}, or its PER is off: {rec}")
+    if rec["flagship"]["rows_differing"]:
+        fail(f"data-parallel decoding at the flagship shape is not single-device decoding: {rec}")
+    shards = len(DP_DEVICES)
+    if DEV == "cuda" and (launches["fused_logmel"], launches["bidir_recurrence"], launches["greedy_decode_fused"]) != (
+            shards, n_layers * shards, shards):
+        fail(f"each shard did not launch the serving kernels once (the BiLSTM once a layer): {rec}")
+    return launches
+
+
+def check_replica_serving(source, run, data_dir, data, kernels, card, started) -> dict:
+    """Phase 10d → the launches of the replicated server's run."""
+    import threading
+
+    from phones_las_torch.api import Transcriber
+    from phones_las_torch.cli.serve import make_server
+
+    device = None if DEV == "cuda" else DEV
+    utts = [np.asarray(data["audio"][i, : data["lengths"][i]], np.int16) for i in range(len(data["lengths"]))]
+    test = os.path.join(data_dir, "test.plu")
+    infer_procs = {
+        "infer": cli("infer", "--workdir", run, "--data", test, "--beam-width", "0", started=started),
+        "infer --mesh": cli("infer", "--workdir", run, "--data", test, "--beam-width", "0", "--mesh", "--devices",
+                            ",".join(DP_DEVICES), started=started),
+    }
+    base = Transcriber(source, beam_width=0, device=device)
+    reps = base.replicate(len(DP_DEVICES), devices=DP_DEVICES)
+    # the library in the server's shapes: micro-batches of REPLICA_BATCH rows
+    want = []
+    for i in range(0, len(utts), REPLICA_BATCH):
+        want += base.transcribe_batch(utts[i: i + REPLICA_BATCH])
+    for r in reps:  # as cli.serve warms each replica
+        r.transcribe_batch([np.zeros(SAMPLE_RATE, np.int16)] * REPLICA_BATCH)
+    server, worker = make_server(reps, "127.0.0.1", 0, max_batch=REPLICA_BATCH, batch_wait_ms=5.0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/transcribe?raw=1"
+    got = [None] * len(utts)
+    try:
+        def client(c):
+            for i in range(c, len(utts), REPLICA_CLIENTS):
+                code, body = http_post(url, utts[i].tobytes())
+                got[i] = json.loads(body)["tokens"] if code == 200 else f"HTTP {code}: {body[:200]!r}"
+
+        reset_counters(kernels)
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(REPLICA_CLIENTS)]
+        t0 = time.perf_counter()
+        [th.start() for th in threads]
+        [th.join(timeout=300) for th in threads]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(kernels)
+        pending = worker.q.qsize()
+        alive = sum(th.is_alive() for th in threads)
+    finally:
+        worker.stop()
+        server.shutdown()
+        server.server_close()
+    outs = {name: finish(p, name) for name, p in infer_procs.items()}
+    lines = {name: [ln for ln in out.splitlines() if ln.strip()] for name, out in outs.items()}
+    batches = sum(worker.served)
+    rec = {
+        "phase": "10d", "replicas": list(DP_DEVICES), "requests": len(utts), "clients": REPLICA_CLIENTS,
+        "max_batch": REPLICA_BATCH, "batches_a_replica": list(worker.served), "pending_at_stop": pending,
+        "client_threads_alive": alive, "rows_differing_from_library": rows_differing(got, want),
+        "req_per_s": len(utts) / wall, "launches": launches,
+        "cli_infer_mesh": {"lines": len(lines["infer --mesh"]), "equal": lines["infer --mesh"] == lines["infer"],
+                           "footer": lines["infer"][-1:]},
+        "card": card,
+    }
+    emit(rec)
+    if rec["rows_differing_from_library"] or pending or alive or not all(worker.served):
+        fail(f"replica serving: tokens differ from the library, a drainer served nothing, or requests are left: {rec}")
+    n_layers = base.model_cfg.listener.num_layers
+    if DEV == "cuda" and (launches["fused_logmel"], launches["bidir_recurrence"], launches["greedy_decode_fused"]) != (
+            batches, n_layers * batches, batches):
+        fail(f"the replicas' kernel launches do not follow their batches: {rec}")
+    if not rec["cli_infer_mesh"]["equal"] or not lines["infer"] or not lines["infer"][-1].startswith("# "):
+        fail(f"cli.infer --mesh does not print cli.infer's lines: {rec}")
+    return launches
+
+
+def check_multi_device(ckpt, data, kernels) -> dict:
+    """Phase 10, in a temporary directory under ``_runs/`` removed at the
+    end; every process it starts is stopped → its launches, summed over
+    the runs it counts (10a's ranks, 10b's mesh step, 10c's greedy call,
+    10d's server)."""
+    import shutil
+    import tempfile
+
+    card = card_line()
+    os.makedirs(os.path.join(REPO, "_runs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=os.path.join(REPO, "_runs"))
+    started = []
+    try:
+        data_dir, source = os.path.join(work, "data"), os.path.join(work, "source")
+        # the records of 10b, prepared on the host while 10a's ranks run
+        prep = cli("prepare", "speechlike", "--out", data_dir, "--n-utts", str(MESH_TRAIN_UTTS), "--seed",
+                   str(DATA_TRAIN_SEED), started=started)
+        launches = [check_mesh_training(ckpt, kernels, work, started, card)]
+        finish(prep, "prepare")
+        write_source_workdir(ckpt, data_dir, source, int(data["decode_cap"][0]))
+        la, run = check_nccl_world(ckpt, kernels, work, data_dir, source, card)
+        launches.append(la)
+        launches.append(check_dp_serving(source, data, kernels, card))
+        launches.append(check_replica_serving(source, run, data_dir, data, kernels, card, started))
+    finally:
+        for p in started:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        shutil.rmtree(work, ignore_errors=True)
+    return {k: sum(la.get(k, 0) for la in launches) for k in launches[0]}
+
+
 def reset_counters(kernels) -> None:
     for fn in kernels:
         fn.launches = 0
@@ -2928,6 +3427,8 @@ def main() -> int:
         time_kernels(sys.argv[2])
         return 0
     sys.path.insert(0, REPO)
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(sys.argv[2], int(sys.argv[3]))
     from phones_las_torch.csrc import _build
     from phones_las_torch.decode.fused_greedy import greedy_decode_fused
     from phones_las_torch.decode.greedy import greedy_decode
@@ -3099,6 +3600,9 @@ def main() -> int:
     # ---- phase 9: the seq2seq G2P at its widths: kernels, serving, training, corpus prep
     g2p_launches = check_g2p(kernels)
 
+    # ---- phase 10: several devices: the sharded step, NCCL, data-parallel and replica serving
+    mesh_launches = check_multi_device(ckpt, data, kernels)
+
     def kernel_entry(name, source, replaces, rec, n_launches):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3109,26 +3613,27 @@ def main() -> int:
 
     emit({"phase": "end"})
     lstm_cu = "phones_las_torch/csrc/lstm.cu"
-    # launches: the main path's (phase 2 serving, 4c training, 4d the ops
-    # API) and the G2P's (9b lookups, 9c training steps)
+    # launches: the main path's (phase 2 serving, 4c training; the
+    # unidirectional primal runs on no model path, so the ops API's, 4d),
+    # the G2P's (9b lookups, 9c training steps) and phase 10's (the ranks'
+    # sharded steps, the NCCL mesh step, a data-parallel call, the
+    # replicated server)
+    main_path = {**launches, "recurrence": api_launches["recurrence"],
+                 "recurrence_residual": train_launches["recurrence_residual"],
+                 "recurrence_bwd": train_launches["recurrence_bwd"]}
+    total = lambda name: main_path[name] + g2p_launches[name] + mesh_launches[name]
     emit({"kernels": [
         kernel_entry("fused_logmel", "phones_las_torch/csrc/frontend.cu",
-                     "phones_las_tpu/frontend/pallas_frontend.py:110", fe_rec,
-                     launches["fused_logmel"] + g2p_launches["fused_logmel"]),
-        kernel_entry("bidir_recurrence", lstm_cu,
-                     "phones_las_tpu/ops/lstm.py:269", lstm_recs[0],
-                     launches["bidir_recurrence"] + g2p_launches["bidir_recurrence"]),
+                     "phones_las_tpu/frontend/pallas_frontend.py:110", fe_rec, total("fused_logmel")),
+        kernel_entry("bidir_recurrence", lstm_cu, "phones_las_tpu/ops/lstm.py:269", lstm_recs[0],
+                     total("bidir_recurrence")),
         kernel_entry("greedy_decode_fused", "phones_las_torch/csrc/greedy.cu",
-                     "phones_las_tpu/decode/pallas_greedy.py:134", dec_recs[-1],
-                     launches["greedy_decode_fused"] + g2p_launches["greedy_decode_fused"]),
-        # the unidirectional primal runs on no model path: its launches are
-        # the ops API's (phase 4d); the other two the training runs' (4c, 9c)
-        kernel_entry("recurrence", lstm_cu, "phones_las_tpu/ops/lstm.py:164",
-                     train_recs[0][0], api_launches["recurrence"] + g2p_launches["recurrence"]),
-        kernel_entry("recurrence_residual", lstm_cu, "phones_las_tpu/ops/lstm.py:485",
-                     train_recs[0][1], train_launches["recurrence_residual"] + g2p_launches["recurrence_residual"]),
-        kernel_entry("recurrence_bwd", lstm_cu, "phones_las_tpu/ops/lstm.py:536",
-                     train_recs[0][2], train_launches["recurrence_bwd"] + g2p_launches["recurrence_bwd"]),
+                     "phones_las_tpu/decode/pallas_greedy.py:134", dec_recs[-1], total("greedy_decode_fused")),
+        kernel_entry("recurrence", lstm_cu, "phones_las_tpu/ops/lstm.py:164", train_recs[0][0], total("recurrence")),
+        kernel_entry("recurrence_residual", lstm_cu, "phones_las_tpu/ops/lstm.py:485", train_recs[0][1],
+                     total("recurrence_residual")),
+        kernel_entry("recurrence_bwd", lstm_cu, "phones_las_tpu/ops/lstm.py:536", train_recs[0][2],
+                     total("recurrence_bwd")),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {

@@ -19,8 +19,13 @@ beam search, the speller-step loop, CTC and LM fusion are plain PyTorch
 on either device. Every decode runs inside the config's
 ``matmul_precision`` scope (``utils/device.py::matmul_precision_scope``).
 
-Not ported yet: ``replicate`` and ``data_parallel`` (ROADMAP A8) and the
-``implementation`` switch.
+Several cards: ``data_parallel=N`` splits each wave into N equal shards,
+each decoded on its own card with its own copy of the parameters, all
+launched from one thread and gathered on the host (one giant offline
+batch); ``replicate(N)`` makes N single-card copies for a server whose
+drainers take whole micro-batches each (``cli/serve.py``). Both take a
+``devices=`` list that may name one device more than once. The reference's
+``implementation`` switch has no counterpart: the port has one.
 """
 
 from __future__ import annotations
@@ -159,6 +164,18 @@ def merge_window_hypotheses(
     return merged
 
 
+def _devices(data_parallel: int, devices: Optional[Sequence], device) -> list:
+    """The devices a transcriber decodes on (see ``Transcriber.__init__``)."""
+    from phones_las_torch.parallel.mesh import pick_devices
+    from phones_las_torch.utils.device import resolve_device
+
+    if devices is not None and device is not None:
+        raise ValueError("give device= or devices=, not both")
+    if data_parallel == 1 and devices is None:
+        return [resolve_device(device)]
+    return pick_devices(data_parallel, devices, device)
+
+
 class Transcriber:
     """A loaded model and its decode settings: from a training workdir
     (``Transcriber(workdir)``) or from one artifact file
@@ -178,6 +195,7 @@ class Transcriber:
         lm_weight: float = 0.3,
         ctc_joint: Optional[float] = None,
         device=None,
+        devices: Optional[Sequence] = None,
     ):
         """Serve a training run: replay its ``config.json`` (preset, data
         dir, overrides, precision) through ``resolve_preset``, read the
@@ -185,15 +203,16 @@ class Transcriber:
         ``average_checkpoints``), whatever device type wrote it. ``beam_width=None`` takes the preset's;
         ``head='grapheme'`` decodes the multitask grapheme speller; ``lm``
         is an n-gram table file fused into beam search at ``lm_weight``;
-        ``ctc_joint`` α turns on joint CTC/attention beam decoding."""
+        ``ctc_joint`` α turns on joint CTC/attention beam decoding.
+        ``data_parallel`` > 1 shards each wave over that many devices (0:
+        every card): the first of ``devices`` or else of the cards
+        (``parallel/mesh.py::pick_devices``; more than there are raises)."""
         from phones_las_torch.cli.common import resolve_preset
         from phones_las_torch.train.checkpoint import load_averaged_params
         from phones_las_torch.train.loop import Trainer
         from phones_las_torch.utils.param_io import named_leaves
 
-        n_dp = data_parallel or (torch.cuda.device_count() if torch.cuda.is_available() else 1)
-        if n_dp > 1:
-            raise NotImplementedError("data_parallel is not ported yet (ROADMAP A8)")
+        devs = _devices(data_parallel, devices, device)
         if head not in ("phone", "grapheme"):
             raise ValueError(f"head must be 'phone' or 'grapheme', got {head!r}")
         with open(os.path.join(workdir, "config.json")) as f:
@@ -206,13 +225,13 @@ class Transcriber:
             preset = dataclasses.replace(
                 preset, model=dataclasses.replace(preset.model, matmul_precision=cfg_file["precision"])
             )
-        trainer = Trainer(preset.model, preset.train, binf_codes=binf_codes, device=device)
+        trainer = Trainer(preset.model, preset.train, binf_codes=binf_codes, device=devs[0])
         # the params alone (no optimizer state, no generator), so a checkpoint
         # written on one device type serves on another
         params, used = load_averaged_params(workdir, trainer.state, max(1, average_checkpoints))
         for _, t in named_leaves(params):
             t.requires_grad_(False)
-        self._setup(params.eval(), preset.model, trainer.device, max_device_batch,
+        self._setup(params.eval(), preset.model, devs, max_device_batch,
                     preset.beam_width if beam_width is None else beam_width, length_penalty)
         self.head = head
         if lm is not None:
@@ -237,12 +256,11 @@ class Transcriber:
         self.step = used[-1]
         self.preset_name = cfg_file["preset"]
 
-    def _setup(self, params, cfg, device, max_device_batch, beam_width, length_penalty) -> None:
+    def _setup(self, params, cfg, devices, max_device_batch, beam_width, length_penalty) -> None:
         from phones_las_torch.ops.lstm import resolve_rnn_precision
 
-        self.device = device
         self.max_device_batch = max_device_batch
-        self.params = params
+        self._set_devices(devices, params)
         self.model_cfg = cfg
         self.prec = resolve_rnn_precision(cfg.matmul_precision)
         self.beam = beam_width
@@ -251,6 +269,17 @@ class Transcriber:
         self.lm_weight = 0.0
         self.head = "phone"
         self._sample_rate = cfg.frontend.sample_rate
+
+    def _set_devices(self, devices, params) -> None:
+        """Decode on ``devices``: ``params`` on the first, a copy on each
+        other (a shard of every wave each)."""
+        from phones_las_torch.parallel.mesh import replicate
+
+        self.devices = list(devices)
+        self.device = self.devices[0]
+        self.data_parallel = len(self.devices)
+        self.params = params
+        self._shard_params = [params] + replicate(params, self.devices[1:])
 
     def _set_ctc_joint(self, ctc_joint: Optional[float]) -> None:
         self.ctc_joint = None if ctc_joint is None else float(ctc_joint)
@@ -276,23 +305,25 @@ class Transcriber:
         max_device_batch: int = 64,
         ctc_joint: Optional[float] = None,
         device=None,
+        data_parallel: int = 1,
+        devices: Optional[Sequence] = None,
     ) -> "Transcriber":
         """Serve from a flat-npz artifact whose ``__extras__`` carry
         vocab, buckets and max_target_len (read with numpy alone).
         ``beam_width`` 0 decodes greedily; ``ctc_joint`` α turns on
         one-pass joint CTC/attention beam decoding (needs the CTC head);
-        ``device=None`` means CUDA."""
+        ``device=None`` means CUDA; ``data_parallel`` and ``devices`` as
+        for a workdir."""
         from phones_las_torch.data.vocab import Vocab
-        from phones_las_torch.utils.device import resolve_device
         from phones_las_torch.utils.param_io import load_artifact
 
-        dev = resolve_device(device)
-        params, cfg, extras = load_artifact(path, device=dev)
+        devs = _devices(data_parallel, devices, device)
+        params, cfg, extras = load_artifact(path, device=devs[0])
         for k in ("vocab", "buckets", "max_target_len"):
             if k not in extras:
                 raise ValueError(f"{path}: artifact has no '{k}' in __extras__")
         t = object.__new__(cls)
-        t._setup(params, cfg, dev, max_device_batch, beam_width, length_penalty)
+        t._setup(params, cfg, devs, max_device_batch, beam_width, length_penalty)
         t._set_ctc_joint(ctc_joint)
         t.speller_cfg = cfg.speller
         t.vocab = Vocab(list(extras["vocab"]))
@@ -328,28 +359,71 @@ class Transcriber:
     def sample_rate(self) -> int:
         return self._sample_rate
 
+    def replicate(self, n: int = 0, devices: Optional[Sequence] = None) -> List["Transcriber"]:
+        """``n`` single-device copies of this transcriber (0: one a card),
+        each with its own copy of the parameters: on the first ``n`` of
+        ``devices`` (which may repeat one) or of the cards of this one's
+        device type. Replica-per-card serving: each copy takes whole
+        micro-batches (``cli/serve.py::BatchingWorker``), where
+        ``data_parallel`` shards one batch over all of them; the two are
+        exclusive."""
+        import copy
+
+        from phones_las_torch.parallel.mesh import pick_devices, replicate
+
+        if self.data_parallel > 1:
+            raise ValueError("replicate() and data_parallel batch sharding are exclusive")
+        devs = pick_devices(n, devices, None if devices is not None else self.device)
+        out = []
+        for d, params in zip(devs, replicate(self.params, devs)):
+            t = copy.copy(self)
+            t._set_devices([d], params)
+            if self.lm_logp is not None:
+                t.lm_logp = self.lm_logp.to(d)
+            out.append(t)
+        return out
+
     def _wave_size(self, n: int) -> int:
-        """Utterances per device dispatch: up to ``max_device_batch``."""
-        return min(n, self.max_device_batch)
+        """Utterances per dispatch: up to ``max_device_batch`` a device,
+        a multiple of the data-parallel shards so they split evenly."""
+        dp = self.data_parallel
+        wave = min(n, self.max_device_batch * dp)
+        return -(-wave // dp) * dp
 
     def _decode(self, wav_batch: np.ndarray, wav_lens: np.ndarray, max_steps: int,
                 params=None, aligned: bool = False):
-        """One wave on the device → (tokens [B, S], lengths [B], attention
-        peaks [B, S] or None), as device tensors (not fetched)."""
+        """One wave → (tokens [B, S], lengths [B], attention peaks [B, S] or
+        None): on the device, as device tensors (not fetched); with
+        ``data_parallel`` shards, gathered on the host."""
+        from phones_las_torch.parallel.mesh import map_row_shards, replicate
+
+        if self.data_parallel == 1:
+            p = self.params if params is None else params
+            return self._decode_on(p, torch.from_numpy(wav_batch).to(self.device),
+                                   torch.from_numpy(wav_lens).to(self.device), max_steps, aligned)
+        if params is None:
+            shard_params = self._shard_params
+        else:  # stream-adapted params: one copy for each shard's device
+            shard_params = [params] + replicate(params, self.devices[1:])
+        return map_row_shards(
+            lambda p, audio, lengths: self._decode_on(p, audio, lengths, max_steps, aligned),
+            list(zip(self.devices, shard_params)), wav_batch, wav_lens,
+        )
+
+    def _decode_on(self, p, audio: torch.Tensor, lengths: torch.Tensor, max_steps: int, aligned: bool):
+        """One wave on ``audio``'s device with the params ``p`` there."""
         from phones_las_torch.decode import beam_decode, greedy_decode
         from phones_las_torch.models.las import ctc_logp, encode
         from phones_las_torch.utils.device import matmul_precision_scope
 
-        p = self.params if params is None else params
-        audio = torch.from_numpy(wav_batch).to(self.device)
-        lengths = torch.from_numpy(wav_lens).to(self.device)
+        lm_logp = None if self.lm_logp is None else self.lm_logp.to(audio.device)
         with torch.no_grad(), matmul_precision_scope(self.model_cfg.matmul_precision):
             memory, _, enc_mask = encode(p, self.model_cfg, audio, lengths, prec=self.prec)
             if self.beam:
                 res = beam_decode(
                     self._speller(p), self.speller_cfg, memory, enc_mask, max_steps,
                     beam_width=self.beam, length_penalty=self.length_penalty,
-                    lm_logp=self.lm_logp, lm_weight=self.lm_weight,
+                    lm_logp=lm_logp, lm_weight=self.lm_weight,
                     ctc_logp=None if self.ctc_joint is None else ctc_logp(p, memory),
                     ctc_alpha=1.0 if self.ctc_joint is None else self.ctc_joint,
                     prec=self.prec,

@@ -10,7 +10,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,9 +42,18 @@ def add_device_arg(p: argparse.ArgumentParser) -> None:
                         "'cpu' runs the plain PyTorch path)")
 
 
-def not_ported(flag: str, item: str) -> NotImplementedError:
-    """The error of a flag whose machinery the port does not have yet."""
-    return NotImplementedError(f"{flag} is not ported yet (ROADMAP {item})")
+def parse_devices(text: Optional[str], device: Optional[str] = None) -> Optional[List[torch.device]]:
+    """``--devices cuda:0,cuda:0`` → the devices, in order (one may repeat:
+    ranks, shards or replicas that share a card), or None when unset. With
+    ``--device`` beside it, every entry must be of its type."""
+    if text is None:
+        return None
+    devs = [torch.device(d.strip()) for d in text.split(",") if d.strip()]
+    if not devs:
+        raise ValueError(f"--devices {text!r} names no device")
+    if device is not None and any(d.type != torch.device(device).type for d in devs):
+        raise ValueError(f"--devices {text} are not all of --device {device}'s type")
+    return devs
 
 
 def load_data_dir(data_dir: str):

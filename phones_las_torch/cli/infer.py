@@ -5,7 +5,8 @@ of a workdir, whatever device type wrote it, decodes record files greedily (the 
 card) or with beam search (joint CTC, CTC rescoring, n-gram fusion), maps
 ids back through the vocab, writes or prints hypotheses, and reports PER
 (and WER where the target stream has a word break) when references are
-present.
+present. ``--mesh`` splits every batch over the cards (or ``--devices``),
+one copy of the model on each: offline data-parallel decoding.
 
     python -m phones_las_torch.cli.infer --workdir runs/timit --data data/timit/test.plu
 """
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import argparse
 
-from phones_las_torch.cli.common import add_device_arg, not_ported
+from phones_las_torch.cli.common import add_device_arg, parse_devices
 
 
 def _dump_alignments(out_dir: str, aligns, lens, enc_lens, batch) -> None:
@@ -56,7 +57,10 @@ def main(argv=None):
     p.add_argument("--monotonic-bias", type=float, default=None, metavar="B",
                    help="decode-time pre-sigmoid energy bias for *_monotonic attention")
     p.add_argument("--output", default=None, help="write hypotheses TSV here")
-    p.add_argument("--mesh", action="store_true", help="shard batches over devices (not ported: ROADMAP A8)")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard each batch over every card (offline data-parallel decoding)")
+    p.add_argument("--devices", default=None, metavar="DEV,DEV,...",
+                   help="the devices --mesh shards over, in order, one may repeat (default: every card)")
     p.add_argument("--head", default="phone", choices=["phone", "grapheme"],
                    help="which decoder head to decode (multitask models)")
     p.add_argument("--dump-alignments", default=None, metavar="DIR",
@@ -74,8 +78,7 @@ def main(argv=None):
                    help="one-pass joint decoding: CTC prefix scores inside the beam loop")
     add_device_arg(p)
     args = p.parse_args(argv)
-    if args.mesh:
-        raise not_ported("--mesh", "A8")
+    devices = parse_devices(args.devices, args.device)
 
     import dataclasses
     import glob
@@ -90,6 +93,7 @@ def main(argv=None):
     from phones_las_torch.decode import beam_decode, greedy_decode
     from phones_las_torch.decode.ctc import rescore_beams
     from phones_las_torch.models.las import ctc_logp, encode
+    from phones_las_torch.parallel.mesh import local_devices, map_row_shards, replicate
     from phones_las_torch.train.checkpoint import load_averaged_params
     from phones_las_torch.train.loop import Trainer
     from phones_las_torch.utils.device import matmul_precision_scope
@@ -120,7 +124,16 @@ def main(argv=None):
             preset, model=dataclasses.replace(preset.model, matmul_precision=cfg_file["precision"])
         )
 
-    trainer = Trainer(preset.model, preset.train, binf_codes=binf_codes, device=args.device)
+    mesh_devices = None
+    if args.mesh:
+        mesh_devices = devices or local_devices(args.device)
+        if preset.pipeline.batch_size % len(mesh_devices):
+            p.error(f"--mesh: the batch size {preset.pipeline.batch_size} does not split over "
+                    f"{len(mesh_devices)} devices")
+    elif devices is not None:
+        p.error("--devices names the devices of --mesh")
+    trainer = Trainer(preset.model, preset.train, binf_codes=binf_codes,
+                      device=mesh_devices[0] if mesh_devices else args.device)
     # the params alone, so a checkpoint written on one device type decodes on another
     params, used = load_averaged_params(args.workdir, trainer.state, max(1, args.average_checkpoints))
     if args.average_checkpoints > 1:
@@ -133,10 +146,9 @@ def main(argv=None):
         if model_cfg.grapheme_speller is None or gvocab is None:
             p.error("the model has no grapheme head")
         speller_cfg, vocab = model_cfg.grapheme_speller, gvocab
-        speller = params.grapheme_speller
         max_steps = preset.pipeline.max_grapheme_len or preset.pipeline.max_target_len
     else:
-        speller_cfg, speller = model_cfg.speller, params.speller
+        speller_cfg = model_cfg.speller
         max_steps = preset.pipeline.max_target_len
     want_aligns = bool(args.dump_alignments) and not beam
 
@@ -162,8 +174,11 @@ def main(argv=None):
         if params.ctc_w is None:
             p.error(f"{flag} needs a model trained with --ctc-weight > 0")
 
-    def infer_fn(audio, lengths, aligned: bool):
-        """→ (tokens, lengths, alignments or None, encoder lengths)."""
+    def infer_fn(params, audio, lengths, aligned: bool):
+        """One batch on ``audio``'s device with ``params`` there → (tokens,
+        lengths, alignments or None, encoder lengths)."""
+        speller = params.grapheme_speller if args.head == "grapheme" else params.speller
+        lm = None if lm_logp is None else lm_logp.to(audio.device)
         with torch.no_grad(), matmul_precision_scope(model_cfg.matmul_precision):
             memory, enc_lens, enc_mask = encode(params, model_cfg, audio, lengths, prec=prec)
             if not beam:
@@ -173,7 +188,7 @@ def main(argv=None):
                 return toks, lens, aligns, enc_lens
             res = beam_decode(
                 speller, speller_cfg, memory, enc_mask, max_steps, beam_width=beam,
-                length_penalty=args.length_penalty, lm_logp=lm_logp, lm_weight=args.lm_weight,
+                length_penalty=args.length_penalty, lm_logp=lm, lm_weight=args.lm_weight,
                 ctc_logp=None if joint_alpha is None else ctc_logp(params, memory),
                 ctc_alpha=1.0 if joint_alpha is None else joint_alpha, prec=prec,
             )
@@ -203,14 +218,21 @@ def main(argv=None):
     )
     # word-level scoring where the target stream has a word-break token
     sep_id = next((vocab.encode([t])[0] for t in ("<space>", "|") if t in vocab), None)
+    # --mesh: a copy of the model on each device, a part of every batch each
+    shards = list(zip(mesh_devices, [params] + replicate(params, mesh_devices[1:]))) if mesh_devices else None
     out_f = open(args.output, "w") if args.output else None
     try:
         dist = tokens_total = wdist = words_total = n_utts = 0
         dumped = False
         for batch in source.epoch(0):
-            db = trainer.device_batch(batch)
             aligned = want_aligns and not dumped
-            toks, lens, aligns, enc_lens = infer_fn(db["audio"], db["audio_lengths"], aligned)
+            if shards:
+                toks, lens, aligns, enc_lens = map_row_shards(
+                    lambda p, a, n: infer_fn(p, a, n, aligned), shards, batch["audio"], batch["audio_lengths"]
+                )
+            else:
+                db = trainer.device_batch(batch)
+                toks, lens, aligns, enc_lens = infer_fn(params, db["audio"], db["audio_lengths"], aligned)
             toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
             if aligned:
                 _dump_alignments(args.dump_alignments, aligns.cpu().numpy(), lens, enc_lens.cpu().numpy(), batch)

@@ -3,10 +3,11 @@
 answers).
 
 Requests are collected into micro-batches so the card always sees batched
-work, and one ``Transcriber`` (one model on the card) serves every
-request: the front-end, BiLSTM and greedy-decoder kernels run each
+work: the front-end, BiLSTM and greedy-decoder kernels run each
 micro-batch; streaming sessions and long uploads decode their segments
-through ``Transcriber.decode_aligned``.
+through ``Transcriber.decode_aligned``. One ``Transcriber`` serves, or
+with ``--replicas`` one copy a card, each drained by a thread of its own
+from one queue; ``--data-parallel`` shards each micro-batch over cards.
 
     python -m phones_las_torch.cli.serve --workdir runs/ls --port 8080
 
@@ -46,7 +47,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from phones_las_torch.cli.common import add_device_arg, not_ported
+from phones_las_torch.cli.common import add_device_arg, parse_devices
 
 
 class _Pending:
@@ -142,12 +143,20 @@ class Metrics:
 
 class BatchingWorker:
     """Collects pending requests into micro-batches and transcribes each
-    batch with one device dispatch, on a drainer thread of its own."""
+    batch with one device dispatch, on a drainer thread of its own.
+
+    Given a list of transcribers (``Transcriber.replicate()``) for
+    replica-per-card serving, each has a drainer thread on the one shared
+    queue, so an idle card takes the next micro-batch as soon as it is
+    free (no router). ``served[i]`` counts replica i's batches."""
 
     def __init__(self, transcriber, max_batch: int = 16,
                  batch_wait_ms: float = 20.0, metrics: "Metrics" = None,
                  max_pending: int = 128):
-        self.t = transcriber
+        ts = list(transcriber) if isinstance(transcriber, (list, tuple)) else [transcriber]
+        self.t = ts[0]
+        self.replicas = ts
+        self.served = [0] * len(ts)
         self.metrics = metrics
         self.max_batch = max_batch
         self.wait_s = batch_wait_ms / 1000.0
@@ -160,8 +169,9 @@ class BatchingWorker:
         # seeded with the batch-open window until the first measurement
         self.batch_seconds = max(self.wait_s, 0.05)
         self._stop = False
-        self._thread = threading.Thread(target=self._run, daemon=True)
-        self._thread.start()
+        self._threads = [threading.Thread(target=self._run, args=(i,), daemon=True) for i in range(len(ts))]
+        for th in self._threads:
+            th.start()
 
     def submit(self, pcm: np.ndarray) -> _Pending:
         """Raises ``queue.Full`` when ``max_pending`` requests are already
@@ -188,8 +198,8 @@ class BatchingWorker:
             pass
         return batch
 
-    def _run(self):
-        t = self.t
+    def _run(self, replica: int):
+        t = self.replicas[replica]
         while not self._stop:
             try:
                 batch = self._drain()
@@ -214,6 +224,7 @@ class BatchingWorker:
                 self.batch_seconds = 0.8 * self.batch_seconds + 0.2 * dt
                 for p, r in zip(batch, results):
                     p.result = r
+                self.served[replica] += 1
             except BaseException as e:  # answer the whole batch with the
                 # error — including KeyboardInterrupt/SystemExit: dying
                 # without setting the events would hang every waiting
@@ -437,8 +448,10 @@ def make_server(transcriber, host: str, port: int, *, max_batch: int = 16,
                 max_pending: int = 128, max_inflight: int = 256):
     """→ (ThreadingHTTPServer, BatchingWorker). ``serve_forever()`` to run.
 
-    One ``Transcriber`` serves every path: the worker's micro-batches and,
-    from the request threads, long-form uploads and streaming sessions.
+    ``transcriber`` may be a list (``Transcriber.replicate()``) for
+    replica-per-card serving: the micro-batches go to whichever replica is
+    idle, and the first serves the non-batched paths (long-form uploads and
+    streaming sessions, from the request threads).
     ``session_ttl_s``: streaming sessions whose client vanished without
     ``/end`` are evicted after this idle time (otherwise abandoned
     sessions pin the ``max_sessions`` cap forever).
@@ -462,6 +475,7 @@ def make_server(transcriber, host: str, port: int, *, max_batch: int = 16,
     metrics = Metrics()
     worker = BatchingWorker(transcriber, max_batch, batch_wait_ms, metrics,
                             max_pending=max_pending)
+    transcriber = worker.t  # the first replica serves the non-batched paths
     sample_rate = transcriber._sample_rate
     sessions: Dict[str, StreamSession] = {}
     sessions_lock = threading.Lock()
@@ -887,9 +901,15 @@ def main(argv=None):
     p.add_argument("--beam-width", type=int, default=None)
     p.add_argument("--head", default="phone", choices=["phone", "grapheme"])
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="shard micro-batches over cards (not ported: ROADMAP A8)")
+                   help="shard each micro-batch over this many cards (0 = every card): one "
+                        "server drives them all")
     p.add_argument("--replicas", type=int, default=1,
-                   help="one model copy per card (not ported: ROADMAP A8)")
+                   help="replica-per-card serving (0 = every card): each card holds a whole "
+                        "model and takes whole micro-batches off the shared queue (better tail "
+                        "latency under independent requests than --data-parallel)")
+    p.add_argument("--devices", default=None, metavar="DEV,DEV,...",
+                   help="the devices --data-parallel or --replicas take, in order, "
+                        "one may repeat (default: every card)")
     p.add_argument("--average-checkpoints", type=int, default=1, metavar="K",
                    help="serve the mean of the newest K checkpoints")
     p.add_argument("--lm", default=None, metavar="LM.npz",
@@ -900,9 +920,10 @@ def main(argv=None):
                         "(score = ALPHA*attn + (1-ALPHA)*ctc prefix)")
     add_device_arg(p)
     args = p.parse_args(argv)
-    for flag, n in (("--data-parallel", args.data_parallel), ("--replicas", args.replicas)):
-        if n != 1:
-            raise not_ported(flag, "A8")
+    if args.replicas != 1 and args.data_parallel != 1:
+        p.error("--replicas and --data-parallel are exclusive "
+                "(a whole model a card against one batch sharded over cards)")
+    devices = parse_devices(args.devices, args.device)
 
     from phones_las_torch.api import Transcriber
 
@@ -910,19 +931,24 @@ def main(argv=None):
         args.workdir, beam_width=args.beam_width, head=args.head,
         average_checkpoints=args.average_checkpoints,
         lm=args.lm, lm_weight=args.lm_weight, ctc_joint=args.ctc_joint,
-        device=args.device,
+        data_parallel=args.data_parallel, device=args.device if devices is None else None, devices=devices,
     )
-    # run the shapes the worker dispatches (a full max_batch micro-batch at
-    # the smallest pad quantum) before any request thread exists: the
-    # kernels are built at their first launch
-    t.transcribe_batch([np.zeros(16000, np.int16)] * args.max_batch)
+    if args.max_batch % t.data_parallel:
+        p.error(f"--max-batch {args.max_batch} must be a multiple of --data-parallel {t.data_parallel}")
+    serve_t = t.replicate(args.replicas, devices) if args.replicas != 1 else [t]
+    for rep in serve_t:
+        # run the shapes the worker dispatches (a full max_batch micro-batch
+        # at the smallest pad quantum) before any request thread exists: the
+        # kernels are built at their first launch
+        rep.transcribe_batch([np.zeros(16000, np.int16)] * args.max_batch)
     if args.long_form_threshold_s > 0:
         # and the aligned decode of the long-form and streaming paths
-        # (pause-snapped segments pad to window + 2 × search)
+        # (pause-snapped segments pad to window + 2 × search), which the
+        # first replica serves
         win = 20 * t.sample_rate
-        t.decode_aligned([np.zeros(win, np.int16)], window_samples=win + 4 * t.sample_rate)
+        serve_t[0].decode_aligned([np.zeros(win, np.int16)], window_samples=win + 4 * t.sample_rate)
     server, worker = make_server(
-        t, args.host, args.port, max_batch=args.max_batch,
+        serve_t, args.host, args.port, max_batch=args.max_batch,
         batch_wait_ms=args.batch_wait_ms, head=args.head,
         session_ttl_s=args.session_ttl_s,
         long_form_threshold_s=args.long_form_threshold_s,

@@ -8,6 +8,16 @@ cpu``: the plain path).
 
     python -m phones_las_torch.cli.train --preset timit_phone_las \\
         --data data/timit --workdir runs/timit --num-steps 20000
+
+Several cards: ``--mesh`` trains data-parallel (× ``--model-parallel``
+model-sharded) with one process a card. Run alone, it starts those
+processes itself (``torch.multiprocessing.spawn``, one a card or an entry
+of ``--devices``); under a launcher that sets ``WORLD_SIZE``/``RANK``
+(``torchrun``) each process is one rank. The global batch is the
+preset's ``batch_size``, split over the data ranks. ``--multihost``: every
+process, started by a launcher on each host, feeds its own slice of the
+epoch plan, and the global batch is data ranks × ``batch_size``. The
+ranks meet over NCCL on cards (one card a rank) and over gloo on the CPU.
 """
 
 from __future__ import annotations
@@ -16,10 +26,10 @@ import argparse
 import glob
 import os
 
-from phones_las_torch.cli.common import add_device_arg, not_ported
+from phones_las_torch.cli.common import add_device_arg, parse_devices
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--preset", default="timit_phone_las", help="one of utils.config.PRESETS")
     p.add_argument("--data", required=True, help="prepared data dir")
@@ -76,9 +86,18 @@ def main(argv=None):
                    help="'encoder' restores only the listener + CMVN (phone sets differ)")
     p.add_argument("--implementation", default="auto", choices=["auto"],
                    help="kept for the reference's command lines: the port has one implementation")
-    p.add_argument("--mesh", action="store_true", help="data-parallel training (not ported: ROADMAP A8)")
-    p.add_argument("--model-parallel", type=int, default=1, help="(not ported: ROADMAP A8)")
-    p.add_argument("--multihost", action="store_true", help="multi-process training (not ported: ROADMAP A8)")
+    p.add_argument("--mesh", action="store_true",
+                   help="train data-parallel over every card (or --devices), one process a card: "
+                        "a ('data', 'model') mesh")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="size of the mesh's 'model' axis (with --mesh or --multihost)")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-process training started by a launcher (MASTER_ADDR/MASTER_PORT, "
+                        "WORLD_SIZE, RANK), each process feeding its slice of the epoch plan; "
+                        "implies --mesh over all ranks")
+    p.add_argument("--devices", default=None, metavar="DEV,DEV,...",
+                   help="each rank's device, in rank order (default: every card; the CPU may "
+                        "repeat, a card may not)")
     p.add_argument("--precision", default=None, choices=["highest", "high", "default"],
                    help="model matmul precision: 'highest' = fp32 parity (default), "
                         "'default' = bf16 recurrent dots and TF32 elsewhere")
@@ -90,19 +109,78 @@ def main(argv=None):
                    help="trace N diagnostic train steps into <workdir>/profile (a Chrome "
                         "trace; the steps advance the model but are not checkpointed)")
     add_device_arg(p)
+    return p
+
+
+def main(argv=None):
+    p = _parser()
     args = p.parse_args(argv)
+    if args.model_parallel != 1 and not (args.mesh or args.multihost):
+        p.error("--model-parallel sizes the mesh of --mesh or --multihost")
+    devices = parse_devices(args.devices, args.device)
+    if devices is not None and not (args.mesh or args.multihost):
+        p.error("--devices names the ranks' devices of --mesh or --multihost")
+    if args.mesh and not args.multihost and "WORLD_SIZE" not in os.environ:
+        _spawn_mesh(args, devices)
+    else:
+        _train(args, devices)
 
-    for flag, on in (("--mesh", args.mesh), ("--multihost", args.multihost),
-                     ("--model-parallel", args.model_parallel != 1)):
-        if on:
-            raise not_ported(flag, "A8")
 
+def _spawn_mesh(args, devices) -> None:
+    """``--mesh`` outside a launcher: one process a device, rendezvous on
+    a file in the workdir; a rank that fails fails the command."""
+    import torch.multiprocessing as mp
+
+    from phones_las_torch.parallel.mesh import local_devices
+
+    devs = devices or local_devices(args.device)
+    backend = "nccl" if devs[0].type == "cuda" else "gloo"
+    os.makedirs(args.workdir, exist_ok=True)
+    rendezvous = os.path.join(os.path.abspath(args.workdir), f".rendezvous-{os.getpid()}")
+    try:
+        mp.spawn(_mesh_rank, args=(args, devs, f"file://{rendezvous}", backend), nprocs=len(devs), join=True)
+    finally:
+        if os.path.exists(rendezvous):
+            os.remove(rendezvous)
+
+
+def _mesh_rank(rank: int, args, devices, init_method: str, backend: str) -> None:
+    from phones_las_torch.parallel.multihost import initialize_distributed
+
+    initialize_distributed(init_method, len(devices), rank, backend)
+    _train(args, devices)
+
+
+def _train(args, devices) -> None:
     import dataclasses
     import json
+
+    import torch
 
     from phones_las_torch.cli.common import apply_cmvn_to_params, resolve_preset, timit_score_fold
     from phones_las_torch.data.pipeline import DataSource
     from phones_las_torch.train.loop import Trainer
+
+    p = _parser()
+    mesh = None
+    if args.mesh or args.multihost:
+        import torch.distributed as dist
+
+        from phones_las_torch.parallel.mesh import make_mesh
+        from phones_las_torch.parallel.multihost import initialize_distributed
+
+        cpu = args.device is not None and torch.device(args.device).type == "cpu"
+        if not dist.is_initialized():
+            initialize_distributed(backend="gloo" if cpu else None)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if devices is None and cpu:
+            devices = [torch.device("cpu")] * world
+        mesh = make_mesh(model=args.model_parallel, devices=devices, local_batches=args.multihost)
+        if args.multihost and not _same_workdir(mesh, args.workdir):
+            raise ValueError("--multihost needs the same --workdir on every process: "
+                             "rank 0 writes the checkpoints that every rank reads")
+    rank0 = mesh is None or mesh.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
 
     overrides = {
         "num_steps": args.num_steps,
@@ -150,16 +228,17 @@ def main(argv=None):
         )
 
     os.makedirs(args.workdir, exist_ok=True)
-    with open(os.path.join(args.workdir, "config.json"), "w") as f:
-        json.dump(
-            {"preset": args.preset, "data": args.data,
-             # non-None overrides, replayed by infer and the Transcriber so a
-             # run trained with hparam flags restores with the right shapes
-             "overrides": {k: v for k, v in overrides.items() if v is not None},
-             "precision": args.precision,
-             "resolved": dataclasses.asdict(preset)},
-            f, indent=2, default=str,
-        )
+    if rank0:
+        with open(os.path.join(args.workdir, "config.json"), "w") as f:
+            json.dump(
+                {"preset": args.preset, "data": args.data,
+                 # non-None overrides, replayed by infer and the Transcriber so a
+                 # run trained with hparam flags restores with the right shapes
+                 "overrides": {k: v for k, v in overrides.items() if v is not None},
+                 "precision": args.precision,
+                 "resolved": dataclasses.asdict(preset)},
+                f, indent=2, default=str,
+            )
 
     train_glob = args.train_records or "train*.plu"
     train_paths = sorted(glob.glob(os.path.join(args.data, train_glob)))
@@ -177,9 +256,12 @@ def main(argv=None):
         if meta.get("corpus") == "timit":
             fold = timit_score_fold(vocab, meta.get("output_ipa", True))
 
-    source = DataSource(train_paths, preset.pipeline)
+    # --multihost: each data rank reads its own slice of the epoch plan (the
+    # ranks of one data row the same), and evaluates its slice of the eval set
+    shard = (mesh.data_index, mesh.data) if mesh is not None and mesh.local_batches else None
+    source = DataSource(train_paths, preset.pipeline, shard=shard)
     eval_cfg = dataclasses.replace(preset.pipeline, shuffle=False, drop_remainder=False)
-    eval_source = DataSource(eval_paths, eval_cfg) if eval_paths else None
+    eval_source = DataSource(eval_paths, eval_cfg, shard=shard) if eval_paths else None
 
     g_sep = None
     if gvocab is not None:
@@ -189,7 +271,7 @@ def main(argv=None):
         default_decode_steps=preset.pipeline.max_target_len,
         eval_beam_width=preset.beam_width,  # periodic eval honors the preset
         grapheme_word_sep_id=g_sep,  # grapheme-head WER in periodic eval
-        device=args.device,
+        device=None if mesh is not None else args.device, mesh=mesh,
     )
     if args.init_checkpoint and trainer.state.step == 0:
         from phones_las_torch.train.checkpoint import load_params_for_warm_start
@@ -197,7 +279,7 @@ def main(argv=None):
         trainer.warm_start(load_params_for_warm_start(
             args.init_checkpoint, trainer.state, scope=args.init_scope, target_params=trainer.state.params,
         ))
-        print(f"warm-started [{args.init_scope}] from {args.init_checkpoint}")
+        say(f"warm-started [{args.init_scope}] from {args.init_checkpoint}")
     apply_cmvn_to_params(trainer.state.params, cmvn)
 
     if args.debug_nans:
@@ -214,14 +296,35 @@ def main(argv=None):
         ckpt, trainer.ckpt = trainer.ckpt, None
         try:
             with profile_trace(os.path.join(args.workdir, "profile")):
-                trainer.fit(itertools.islice(source.repeat(trainer.start_epoch), args.profile_steps))
+                trainer.fit(itertools.islice(source.repeat(trainer.start_epoch), args.profile_steps), log_fn=say)
         finally:
             trainer.ckpt = ckpt
 
-    print(f"training {args.preset}: vocab={len(vocab)} steps={preset.train.num_steps} workdir={args.workdir}")
-    trainer.fit(source, eval_batches_fn=(lambda: eval_source.epoch(0)) if eval_source else None)
+    say(f"training {args.preset}: vocab={len(vocab)} steps={preset.train.num_steps} workdir={args.workdir}"
+        + ("" if mesh is None else f" mesh={mesh.data}x{mesh.model}"))
+    trainer.fit(source, eval_batches_fn=(lambda: eval_source.epoch(0)) if eval_source else None, log_fn=say)
     if eval_source:
-        print("final eval:", trainer.evaluate(eval_source.epoch(0), beam_width=preset.beam_width))
+        ev = trainer.evaluate(eval_source.epoch(0), beam_width=preset.beam_width)
+        say("final eval:", ev)
+    if mesh is not None and mesh.distributed:
+        torch.distributed.destroy_process_group()
+
+
+def _same_workdir(mesh, workdir: str) -> bool:
+    """Whether every rank names rank 0's workdir (a collective)."""
+    import zlib
+
+    import torch
+    import torch.distributed as dist
+
+    if not mesh.distributed:
+        return True
+    h = zlib.crc32(os.path.abspath(workdir).encode()) & 0x7FFFFFFF
+    t = torch.tensor([h], device=mesh.device)
+    dist.broadcast(t, 0)
+    differ = torch.tensor([int(int(t.item()) != h)], device=mesh.device)
+    dist.all_reduce(differ)
+    return int(differ.item()) == 0
 
 
 if __name__ == "__main__":

@@ -9,7 +9,7 @@ the frequency warp, then SpecAugment."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as Fn
@@ -152,21 +152,31 @@ def encode(
     return memory, enc_lens, enc_mask
 
 
+def _denominator(count: torch.Tensor, global_count) -> torch.Tensor:
+    """A mean's denominator, at least 1: this batch's count, or under a
+    data-parallel mesh the count over the global batch, so that each rank
+    divides its sum by the same number and the gradients add up."""
+    if global_count is not None:
+        count = global_count(count.detach())
+    return torch.clamp_min(count, 1.0)
+
+
 def masked_ce_loss(
     logits: torch.Tensor,  # [B, S, V]
     targets: torch.Tensor,  # [B, S]
     target_mask: torch.Tensor,  # [B, S]
     label_smoothing: float = 0.0,
+    global_count: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """``tf.contrib.seq2seq.sequence_loss`` semantics: mean CE over valid
     target positions; ``label_smoothing`` ε mixes the one-hot target with
-    the uniform distribution."""
+    the uniform distribution. ``global_count`` (``compute_loss``) turns
+    this batch's count of valid positions into the global batch's."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     if label_smoothing > 0.0:
         nll = (1.0 - label_smoothing) * nll + label_smoothing * (-torch.mean(logp, dim=-1))
-    denom = torch.clamp_min(torch.sum(target_mask), 1.0)
-    return torch.sum(nll * target_mask) / denom
+    return torch.sum(nll * target_mask) / _denominator(torch.sum(target_mask), global_count)
 
 
 def binf_sigmoid_loss(
@@ -174,14 +184,14 @@ def binf_sigmoid_loss(
     targets: torch.Tensor,  # [B, S] phone ids
     codes: torch.Tensor,  # [V, F] static phone→binf map
     target_mask: torch.Tensor,  # [B, S]
+    global_count: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Sigmoid CE of the binf head against each target phone's code."""
     y = codes[targets.long()]
     z = binf_logits
     per = torch.clamp_min(z, 0) - z * y + torch.log1p(torch.exp(-torch.abs(z)))
     per = torch.mean(per, dim=-1)
-    denom = torch.clamp_min(torch.sum(target_mask), 1.0)
-    return torch.sum(per * target_mask) / denom
+    return torch.sum(per * target_mask) / _denominator(torch.sum(target_mask), global_count)
 
 
 def ctc_head_loss(
@@ -191,6 +201,7 @@ def ctc_head_loss(
     enc_mask: torch.Tensor,  # [B, T']
     targets: torch.Tensor,  # [B, S] phone ids ending in <eos>
     target_lengths: torch.Tensor,  # [B] counting the <eos>
+    global_count: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """CTC loss of the encoder head against the targets without their
     <eos>. Blank = <pad> (id 0). Per-sequence losses are normalised by
@@ -207,7 +218,7 @@ def ctc_head_loss(
         logp, targets.long(), in_lens, label_lens, blank=0, reduction="none", zero_infinity=True
     )
     per_seq = per_seq * valid / label_lens.to(torch.float32)
-    return torch.sum(per_seq) / torch.clamp_min(torch.sum(valid), 1.0)
+    return torch.sum(per_seq) / _denominator(torch.sum(valid), global_count)
 
 
 def ctc_logp(params: LASParams, memory: torch.Tensor) -> torch.Tensor:
@@ -230,6 +241,7 @@ def compute_loss(
     encoded: Optional[Tuple] = None,
     sampling_probability: Optional[Union[float, torch.Tensor]] = None,
     prec: str = "highest",
+    global_count: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ):
     """Full forward + losses → (loss, aux) as the reference's.
 
@@ -239,7 +251,16 @@ def compute_loss(
     'grapheme_targets'/'grapheme_lengths'. ``train`` turns on dropout,
     scheduled sampling and label smoothing, with every random draw taken
     from ``generator`` in that order. Pass ``encoded=(memory, enc_lens,
-    enc_mask)`` to reuse an encoder pass."""
+    enc_mask)`` to reuse an encoder pass.
+
+    The reference's means run over the global batch (CE and binf over its
+    valid target positions, CTC over its rows with a transcript). Under a
+    data-parallel mesh each rank holds some rows: ``global_count`` maps a
+    count over this rank's rows to the count over all of them (a sum over
+    the data ranks), so the returned loss is this rank's share and the
+    shares and their gradients sum to the global batch's. A mean of
+    per-rank means would weigh rows wrongly whenever the ranks hold
+    different counts."""
     gen = generator if train else None
     if encoded is not None:
         memory, enc_lens, enc_mask = encoded
@@ -254,17 +275,17 @@ def compute_loss(
         params.speller, cfg.speller, _shift_right(targets, cfg.speller.bos_id), memory, enc_mask,
         generator=gen, sampling_probability=sampling_probability, prec=prec,
     )
-    phone_loss = masked_ce_loss(logits, targets, t_mask, label_smoothing=smoothing)
+    phone_loss = masked_ce_loss(logits, targets, t_mask, label_smoothing=smoothing, global_count=global_count)
     aux = {"phone_loss": phone_loss, "logits": logits, "attention": attn_probs, "enc_lengths": enc_lens}
     loss = phone_loss
 
     if cfg.ctc_weight > 0.0:
-        cl = ctc_head_loss(params, cfg, memory, enc_mask, targets, batch["target_lengths"])
+        cl = ctc_head_loss(params, cfg, memory, enc_mask, targets, batch["target_lengths"], global_count)
         aux["ctc_loss"] = cl
         loss = (1.0 - cfg.ctc_weight) * loss + cfg.ctc_weight * cl
 
     if cfg.speller.binf_mode == "head" and binf_logits is not None:
-        bl = binf_sigmoid_loss(binf_logits, targets, params.speller.binf_codes, t_mask)
+        bl = binf_sigmoid_loss(binf_logits, targets, params.speller.binf_codes, t_mask, global_count)
         aux["binf_loss"] = bl
         loss = loss + cfg.binf_weight * bl
 
@@ -276,7 +297,7 @@ def compute_loss(
             _shift_right(g_targets, cfg.grapheme_speller.bos_id), memory, enc_mask,
             generator=gen, sampling_probability=sampling_probability, prec=prec,
         )
-        g_loss = masked_ce_loss(g_logits, g_targets, g_mask, label_smoothing=smoothing)
+        g_loss = masked_ce_loss(g_logits, g_targets, g_mask, label_smoothing=smoothing, global_count=global_count)
         aux["grapheme_loss"] = g_loss
         w = cfg.multitask_weight
         loss = w * loss + (1.0 - w) * g_loss

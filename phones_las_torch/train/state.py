@@ -97,11 +97,16 @@ class Optimizer:
         return AdamState(0, zeros(), zeros())
 
     def update(
-        self, grads: Sequence[torch.Tensor], state: AdamState
+        self, grads: Sequence[torch.Tensor], state: AdamState, g_norm: Optional[torch.Tensor] = None
     ) -> Tuple[List[torch.Tensor], AdamState]:
-        """→ (updates to add to the params, new state)."""
+        """→ (updates to add to the params, new state). ``g_norm`` is the
+        global norm to clip by, ``global_norm(grads)`` when None; under a
+        model-sharded mesh ``grads`` are this rank's slices (Adam works
+        element by element) and the norm runs over every rank's slices
+        (``Trainer._grad_norm``), or each rank would clip by a part of it."""
         c = self.cfg
-        g_norm = global_norm(grads)
+        if g_norm is None:
+            g_norm = global_norm(grads)
         clip = lambda g: torch.where(g_norm < c.clip_norm, g, (g / g_norm) * c.clip_norm)
         grads = [clip(g) for g in grads]
         mu = [(1.0 - c.adam_b1) * g + c.adam_b1 * m for g, m in zip(grads, state.mu)]

@@ -2,14 +2,17 @@
 → infer → transcribe → lm through ``main([...])``; the workdir's
 ``config.json`` read by the JAX package's ``resolve_preset`` gives the
 port's model config; ``cli.lm`` writes the JAX CLI's file; infer's
-beam options give the JAX package's hypotheses; and the flags whose
-machinery is not ported raise, naming their ROADMAP item."""
+beam options give the JAX package's hypotheses; and the multi-device
+flags work."""
 
 import dataclasses
 import json
 import os
 import re
 import shutil
+import threading
+import time
+import urllib.request
 
 import numpy as np
 import pytest
@@ -24,7 +27,7 @@ from phones_las_torch.data.audio_io import write_wav
 from phones_las_torch.data.pipeline import DataSource
 from phones_las_torch.data.records import RecordReader
 from phones_las_torch.train.loop import Trainer
-from tests.torch_threads import one_thread
+from tests.torch_threads import one_thread, subprocess_env
 
 one_thread()
 
@@ -231,17 +234,61 @@ def test_lm_file_matches_jax(run, tmp_path, order):
 @pytest.mark.parametrize("cli,argv,item", [
     (train, ["--mesh"], "A8"),
     (train, ["--multihost"], "A8"),
-    (train, ["--model-parallel", "2"], "A8"),
+    (train, ["--mesh", "--devices", "cpu,cpu", "--model-parallel", "2"], "A8"),
     (infer, ["--mesh"], "A8"),
-    (serve, ["--replicas", "2"], "A8"),
-    (serve, ["--data-parallel", "0"], "A8"),
+    (serve, ["--replicas", "2", "--devices", "cpu,cpu"], "A8"),
+    (serve, ["--data-parallel", "0", "--devices", "cpu,cpu"], "A8"),
 ])
-def test_not_ported_flags_raise(run, cli, argv, item):
+def test_not_ported_flags_raise(run, cli, argv, item, tmp_path, capfd, monkeypatch):
+    """The multi-device flags, which raised until ROADMAP ``item`` ported
+    them, now work: ``train --mesh`` (its ranks started by the command,
+    here one, then two on the CPU with a model axis of 2), ``--multihost``
+    without a launcher (the 1 × 1 mesh), ``infer --mesh`` to the lines of
+    the plain infer, and ``serve`` over replicas or data-parallel shards,
+    answering a request."""
+    assert item == "A8"
     data, wd = run
-    base = {train: ["--data", data, "--workdir", wd], infer: ["--workdir", wd, "--data", data],
-            serve: ["--workdir", wd]}[cli]
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}"):
-        cli.main(base + argv + CPU)
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in subprocess_env().items():  # the ranks' environment: one OpenMP thread
+        monkeypatch.setenv(k, v)
+    if cli is train:
+        out_wd = str(tmp_path / "w")
+        train.main(["--data", data, "--workdir", out_wd, *TRAIN, "--num-steps", "1", *argv, *CPU])
+        out = capfd.readouterr().out
+        assert ("mesh=1x2" if "--model-parallel" in argv else "mesh=1x1") in out and "'tag': 'train'" in out
+        assert os.listdir(os.path.join(out_wd, "checkpoints")) == ["1"]
+    elif cli is infer:
+        test = os.path.join(data, "test.plu")
+        capfd.readouterr()
+        infer.main(["--workdir", wd, "--data", test, "--beam-width", "0", *CPU])
+        plain = capfd.readouterr().out
+        infer.main(["--workdir", wd, "--data", test, "--beam-width", "0", *argv, *CPU])
+        assert capfd.readouterr().out == plain and _footer(plain)[0] == 8
+    else:
+        made, make = [], serve.make_server
+        monkeypatch.setattr(serve, "make_server", lambda *a, **k: made.append(make(*a, **k)) or made[-1])
+        th = threading.Thread(target=serve.main, daemon=True, args=([
+            "--workdir", wd, "--host", "127.0.0.1", "--port", "0", "--max-batch", "2", "--beam-width", "0",
+            "--long-form-threshold-s", "0", *argv, *CPU],))
+        th.start()
+        deadline = time.time() + 180  # a server that never comes up ends the wait
+        while not made and th.is_alive() and time.time() < deadline:
+            time.sleep(0.05)
+        assert made, "the server did not come up"
+        server, worker = made[0]
+        try:
+            assert (len(worker.replicas), worker.t.data_parallel) == ((2, 1) if "--replicas" in argv else (1, 2))
+            clip = next(iter(RecordReader(os.path.join(data, "test.plu")))).audio
+            port = server.server_address[1]
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/transcribe?raw=1", data=clip.tobytes())
+            with urllib.request.urlopen(req, timeout=120) as r:
+                got = json.loads(r.read())["tokens"]
+            assert got == Transcriber(wd, beam_width=0, device="cpu").transcribe(clip)
+        finally:
+            server.shutdown()
+            th.join(60)
+        assert not th.is_alive()
 
 
 @pytest.mark.parametrize("argv,missing", [

@@ -189,7 +189,8 @@ def test_port_imports_no_jax():
         "        'frontend.specaugment', 'frontend.freq_warp', 'frontend.cmvn', 'data.ipa', 'data.pipeline',\n"
         "        'utils.config', 'cli.common', 'train.checkpoint', 'train.state', 'data.records',\n"
         "        'data.audio_io', 'data.native_records', 'data.speechlike', 'data.synthetic', 'data.prep_common',\n"
-        "        'data.timit', 'data.librispeech', 'parallel.multihost', 'export', 'utils.diagnostics',\n"
+        "        'data.timit', 'data.librispeech', 'parallel.multihost', 'parallel.mesh', 'export',\n"
+        "        'utils.diagnostics',\n"
         "        'cli.serve', 'cli.train', 'cli.infer', 'cli.transcribe', 'cli.prepare', 'cli.lm', 'cli.export',\n"
         "        'data.g2p', 'data.lexicon_en', 'models.g2p_model', 'data.common_voice', 'cli.g2p'}\n"
         "missing = {'phones_las_torch.' + n for n in need} - set(names)\n"

@@ -339,8 +339,10 @@ def test_workdir_transcriber_equals_its_export(tmp_path, data_dir, monkeypatch):
     assert g.vocab.tokens[-1] == "<space>" and len(g.transcribe_batch(pcm[:1])) == 1
     ctc = api.Transcriber(wd, device="cpu", beam_width=2, ctc_joint=0.7)
     assert len(ctc.transcribe_batch(pcm[:1])) == 1
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="2 devices asked for, but only 1 cpu"):
         api.Transcriber(wd, device="cpu", data_parallel=2)
+    dp = api.Transcriber(wd, data_parallel=2, devices=["cpu", "cpu"])
+    assert dp.data_parallel == 2 and dp.transcribe_batch(pcm) == api.Transcriber(wd, device="cpu").transcribe_batch(pcm)
     with pytest.raises(ValueError, match="beam"):
         api.Transcriber(wd, device="cpu", beam_width=0, ctc_joint=0.7)
     empty = str(tmp_path / "empty")
