@@ -64,8 +64,9 @@ then:
         steps, parity mode), without and with a CTC head of the
         checkpoint's widths drawn from a seeded generator (one-pass joint
         decoding, α = 0.7): utt/s, the split among front-end, listener and
-        decoder, µs per decode step, the device launches per step and the
-        device-busy share of one profiled call and of its decoder;
+        decoder (median of 3 calls), µs per decode step, the device launches
+        per step and the device-busy share of one profiled call and of its
+        decoder (the kernels launched inside its ``record_function``);
      c. ``Transcriber.from_artifact`` of ``tests/goldens/long_gate.npz``
         (monotonic attention, CTC head) on the card and with
         ``device="cpu"``: ``transcribe_batch`` of 16 eval-set utterances
@@ -213,6 +214,29 @@ then:
         requests from 8 client threads, tokens equal to the library's, both
         drainers serving, nothing pending at the end; ``cli.infer --mesh``
         over two shards against ``cli.infer``, the same lines.
+ 11. degenerate rows and pad content through every serving and training
+     kernel, at the committed checkpoint's widths in parity and production
+     mode, on B = 6 rows of 0 (a pad row), 1, 100, 400, 16000 and 32000
+     samples with targets of 0, 1, 2, 3, 20 and 40 tokens, and on the same
+     batch scribbled over (random audio at amplitude 30000 past each
+     length, token 9 past each target, as ``tests/test_masking_invariance.py``):
+     a. ``encode`` + ``greedy_decode`` / ``beam_decode`` (beam 8) on the
+        card against the CPU plain path: no row differing in parity mode
+        and at most 2 in production but ties (a differing row prints its
+        first differing step and the top-2 logit margin there, or the gap
+        between the best two beams; a margin below 1e-5 is a tie); the
+        scribbled batch's tokens and encoder lengths equal and its encoder
+        output at valid frames within 1e-6; a row with no valid encoder
+        position through the decoder kernel against the CPU loop;
+        ``phones_las_torch.Transcriber`` on the card against the CPU on
+        the batch, its 0- and 1-sample rows alone and an empty request
+        (refused with the same error); the launches of each kernel;
+     b. one ``Trainer.train_step`` a mode (dropout and sampling off) on the
+        card, clean and scribbled, and on the CPU: finite; the loss within
+        1e-5 relative (1e-4 in production: TF32 runs on the card only) and,
+        in parity, every gradient leaf within 1e-4 of its largest magnitude
+        of the CPU's; scribbled against clean, the loss bit-equal and, in
+        parity, every gradient leaf bit-equal.
 
 ``python3 chip_smoke.py --sweep`` runs none of the phases: it times the
 LSTM forward kernel under every plan it takes at the flagship width
@@ -285,6 +309,7 @@ DECODER_BATCHES = (8, 64)
 GATE_LSTM = (240, 16, 96)  # (T, B, U) at the long-gate listener's width, held in phase 1
 BEAM_K = 8
 BEAM_B = 32  # bench.py's beam batch
+BEAM_TIMED_CALLS = 3  # phase 5b: timed calls a mode (the median), after one profiled call
 CTC_ALPHA = 0.7
 REF_BEAM8_PER = 0.0319  # the reference's beam-8 PER on the eval set
 GATE_ASSET = os.path.join(REPO, "tests", "goldens", "long_gate.npz")
@@ -296,7 +321,7 @@ PROD_PRECISION = "default"
 GATE_WARP = 0.1  # the frequency warp phase 6c trains the long-gate configuration with
 GATE_TRAIN_STEPS = 5
 SERVE_ROUNDS = 6  # phase 6b: timed rounds of parity and production serving calls, in turns
-TRAIN_ROUNDS = 4  # phase 6b: timed rounds of a step in each numerics mode, in turns
+TRAIN_ROUNDS = 3  # phase 6b: timed rounds of a step in each numerics mode, in turns
 RESUME_TOL = 1e-6  # phase 6d: a resumed step against the uninterrupted one, of each leaf's max
 WORKDIR_PRESET = "librispeech_char_las"  # the preset of the checkpoint's widths
 TRAIN_B = 32
@@ -908,12 +933,48 @@ def check_train_step(ckpt, data, kernels):
     return rec
 
 
-def profile_step(step, step_ms: float, top: int = 8) -> dict:
+def profile_part(prof, part: str, part_ms: float, top: int) -> dict:
+    """The device kernels launched under ``record_function(part)`` in a
+    finished profile: their summed device time, its share of ``part_ms``,
+    their count and the heaviest, and the host self time of the operators
+    there. A kernel is the range's when the host operator that launched it
+    (the one the profiler links it to) lies inside the range."""
+    from torch.autograd import DeviceType
+
+    inside = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        p = e.cpu_parent
+        while p is not None and p.name != part:
+            p = p.cpu_parent
+        if p is not None:
+            inside.append(e)
+    kernels = [k for e in inside for k in e.kernels]
+    if not kernels:
+        return {"device_ms": "not measured"}
+    by_name = {}
+    for k in kernels:
+        n, us = by_name.get(k.name, (0, 0.0))
+        by_name[k.name] = (n + 1, us + k.duration)
+    device_ms = sum(k.duration for k in kernels) / 1e3
+    return {
+        "device_ms": device_ms, "device_busy_share": device_ms / part_ms, "device_launches": len(kernels),
+        "top": [{"name": n[:80], "ms": us / 1e3, "count": c}
+                for n, (c, us) in sorted(by_name.items(), key=lambda x: -x[1][1])[:top]],
+        "host_self_ms": sum(e.self_cpu_time_total for e in inside) / 1e3,
+    }
+
+
+def profile_step(step, step_ms: float, top: int = 8, part=None) -> dict:
     """One more call of ``step`` under ``torch.profiler`` (not part of any
     timing or check): the device time its kernels took, summed (one
     stream, so they do not overlap), their share of ``step_ms`` (the
     unprofiled median step) and the kernels that took the most. A
-    profiler that records no device time gives "not measured"."""
+    profiler that records no device time gives "not measured". ``part``,
+    a (name, ms) pair, adds under "part" the same record for the kernels
+    launched inside ``record_function(name)`` (``profile_part``), whose
+    unprofiled median is ms."""
     from torch.profiler import ProfilerActivity, profile
 
     # only the profiler's own failures (no CUPTI on the machine) give "not
@@ -950,7 +1011,7 @@ def profile_step(step, step_ms: float, top: int = 8) -> dict:
     # profiler's per-event cost, so read as shares, not as times)
     host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
     host.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
-    return {
+    rec = {
         "device_ms": total_ms, "device_busy_share": total_ms / step_ms,
         "device_launches": sum(e.count for e in events),
         "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3, "count": e.count} for e in events[:top]],
@@ -958,6 +1019,9 @@ def profile_step(step, step_ms: float, top: int = 8) -> dict:
         "host_top": [{"name": e.key[:60], "self_ms": e.self_cpu_time_total / 1e3, "count": e.count}
                      for e in host[:top]],
     }
+    if part is not None:
+        rec["part"] = profile_part(prof, *part, top)
+    return rec
 
 
 def split_step(tr, batch) -> dict:
@@ -1273,8 +1337,10 @@ def check_beam_eval(params, params_cpu, cfg, data, kernels) -> dict:
 
 def beam_flagship(params, cfg, audio, lens, ctc_head):
     """PCM → front-end → listener → beam-8 (200 steps), the phases
-    synchronised apart → (BeamResult, (memory, mask), (front-end,
-    listener, decoder) seconds)."""
+    synchronised apart, the decoder inside ``record_function('decoder')``
+    → (BeamResult, (front-end, listener, decoder) seconds)."""
+    from torch.profiler import record_function
+
     from phones_las_torch.decode import beam_decode
     from phones_las_torch.models.las import ctc_logp, featurize
     from phones_las_torch.models.listener import listen
@@ -1289,22 +1355,21 @@ def beam_flagship(params, cfg, audio, lens, ctc_head):
     mask = length_mask(enc_lens, mem.shape[1])
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    res = beam_decode(
-        params.speller, cfg.speller, mem, mask, DECODE_STEPS, beam_width=BEAM_K,
-        ctc_logp=None if ctc_head is None else ctc_logp(ctc_head, mem),
-        ctc_alpha=1.0 if ctc_head is None else CTC_ALPHA,
-    )
+    with record_function("decoder"):  # profile_step's part
+        res = beam_decode(
+            params.speller, cfg.speller, mem, mask, DECODE_STEPS, beam_width=BEAM_K,
+            ctc_logp=None if ctc_head is None else ctc_logp(ctc_head, mem),
+            ctc_alpha=1.0 if ctc_head is None else CTC_ALPHA,
+        )
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    return res, (mem, mask), (t1 - t0, t2 - t1, t3 - t2)
+    return res, (t1 - t0, t2 - t1, t3 - t2)
 
 
 def time_beam_flagship(params, cfg, kernels, card) -> list:
     """Phase 5b: beam-8 at bench.py's beam shape, without and with joint CTC."""
     from types import SimpleNamespace
 
-    from phones_las_torch.decode import beam_decode
-    from phones_las_torch.models.las import ctc_logp
     from phones_las_torch.ops.lstm import glorot_
 
     audio = torch.from_numpy(make_audio(BEAM_B)).to(DEV)
@@ -1316,7 +1381,7 @@ def time_beam_flagship(params, cfg, kernels, card) -> list:
     recs = []
     for name, ctc_head in (("beam8", None), ("beam8_ctc", head)):
         reset_counters(kernels)
-        res, (mem, mask), _ = beam_flagship(params, cfg, audio, lens, ctc_head)
+        res, _ = beam_flagship(params, cfg, audio, lens, ctc_head)
         launches = launch_counts(kernels)
         finite = bool(torch.isfinite(res.beam_logp).all())
         if res.beam_tokens.shape != (BEAM_B, BEAM_K, DECODE_STEPS) or not finite:
@@ -1325,16 +1390,13 @@ def time_beam_flagship(params, cfg, kernels, card) -> list:
             n for k, n in launches.items() if k not in ("fused_logmel", "bidir_recurrence")
         ):
             fail(f"{name}: unexpected launches on the beam path: {launches}")
-        splits = [beam_flagship(params, cfg, audio, lens, ctc_head)[2] for _ in range(5)]
+        splits = [beam_flagship(params, cfg, audio, lens, ctc_head)[1] for _ in range(BEAM_TIMED_CALLS)]
         fe_s, li_s, de_s = (statistics.median(x) for x in zip(*splits))
         total_ms = (fe_s + li_s + de_s) * 1e3
-        call = profile_step(lambda: beam_flagship(params, cfg, audio, lens, ctc_head), total_ms)
-        lp = None if ctc_head is None else ctc_logp(ctc_head, mem)
-        decode = profile_step(
-            lambda: beam_decode(params.speller, cfg.speller, mem, mask, DECODE_STEPS, beam_width=BEAM_K,
-                                ctc_logp=lp, ctc_alpha=1.0 if lp is None else CTC_ALPHA),
-            de_s * 1e3,
-        )
+        # one profile of the call; its decoder's share read off the same trace
+        call = profile_step(lambda: beam_flagship(params, cfg, audio, lens, ctc_head), total_ms,
+                            part=("decoder", de_s * 1e3))
+        decode = call.pop("part", {"device_ms": "not measured"})
         per_step = decode.get("device_launches")
         rec = {
             "phase": "5b", "mode": name, "shape": f"B={BEAM_B} x {SECONDS} s, K={BEAM_K}, {DECODE_STEPS} steps",
@@ -3410,6 +3472,265 @@ def check_multi_device(ckpt, data, kernels) -> dict:
     return {k: sum(la.get(k, 0) for la in launches) for k in launches[0]}
 
 
+# ---- phase 11: degenerate inputs and pad content through every serving and training kernel
+
+DEGEN_SAMPLES = (0, 1, 100, 400, 16000, 32000)  # the row of 0 samples is a pad row
+DEGEN_TARGETS = (0, 1, 2, 3, 20, 40)  # target lengths, <eos> counted; 0: the pad row
+DEGEN_STEPS = 48  # the decode cap
+SCRIBBLE_AMPLITUDE = 30000.0  # tests/test_masking_invariance.py's scribble over pad audio
+SCRIBBLE_TOKEN = 9  # and over pad targets
+TIE_MARGIN = 1e-5  # a top-2 margin below this at a differing step is a tie, not a fault
+PAD_MEMORY_TOL = 1e-6  # the encoder output at valid frames, scribbled against clean
+# phase 11b in production mode: the card's GEMMs run TF32 and the CPU's do
+# not; operands rounded to TF32 on the CPU move this batch's loss by
+# 2.5e-5–3.8e-5 relative, so the loss is held to 1e-4 there (LOSS_TOL in parity)
+PROD_LOSS_TOL = 1e-4
+
+
+def degenerate_batch(vocab_size: int, scribbled: bool = False) -> dict:
+    """B = 6 rows of 0, 1, 100, 400, 16000 and 32000 samples of integral
+    random PCM (so int16 carries them exactly), targets of 0 (the pad row),
+    1 (<eos> alone), 2, 3, 20 and 40; ``scribbled`` writes random audio at
+    amplitude 30000 past each row's length and token 9 past each target."""
+    rs = np.random.RandomState(11)
+    b, s, st = len(DEGEN_SAMPLES), max(DEGEN_SAMPLES), max(DEGEN_TARGETS)
+    audio = np.zeros((b, s), np.float32)
+    targets = np.zeros((b, st), np.int32)
+    for i, (n, t) in enumerate(zip(DEGEN_SAMPLES, DEGEN_TARGETS)):
+        audio[i, :n] = np.clip(np.rint(rs.randn(n) * 3000), -32768, 32767)
+        if t:
+            targets[i, : t - 1] = rs.randint(4, vocab_size, t - 1)
+            targets[i, t - 1] = EOS_ID
+    if scribbled:
+        rs = np.random.RandomState(12)
+        for i, (n, t) in enumerate(zip(DEGEN_SAMPLES, DEGEN_TARGETS)):
+            audio[i, n:] = rs.randn(s - n) * SCRIBBLE_AMPLITUDE
+            targets[i, t:] = SCRIBBLE_TOKEN
+    return {"audio": audio, "audio_lengths": np.asarray(DEGEN_SAMPLES, np.int32), "targets": targets,
+            "target_lengths": np.asarray(DEGEN_TARGETS, np.int32)}
+
+
+def rows_against(got, want, margin_at) -> list:
+    """Rows whose tokens differ → [{row, first_step, margin, tie}], the
+    margin being ``margin_at(row, step)`` on the reference side."""
+    out = []
+    for i in range(len(want)):
+        diff = np.nonzero(got[i] != want[i])[0]
+        if len(diff):
+            margin = margin_at(i, int(diff[0]))
+            out.append({"row": i, "first_step": int(diff[0]), "margin": margin, "tie": margin < TIE_MARGIN})
+    return out
+
+
+def transcriber_outcomes(t, batches) -> list:
+    """Each request's tokens, or the kind of error it raised."""
+    out = []
+    for batch in batches:
+        try:
+            out.append(t.transcribe_batch(batch))
+        except (ValueError, RuntimeError) as e:  # a refusal, or a kernel's error: its kind is compared
+            out.append(type(e).__name__)
+    return out
+
+
+def check_degenerate_serving(params, params_cpu, cfg, kernels, card) -> dict:
+    """Phase 11a → the launches of the card's serving runs: the degenerate
+    batch through encode + greedy_decode / beam_decode in parity and in
+    production mode, card against the CPU plain path, clean against
+    scribbled, a row with no valid encoder position through the decoder
+    kernel, and ``phones_las_torch.Transcriber`` on the card against the
+    CPU on the batch, its shortest rows alone and an empty request."""
+    import shutil
+    import tempfile
+
+    from phones_las_torch import Transcriber
+    from phones_las_torch.data.vocab import Vocab
+    from phones_las_torch.decode import beam_decode, greedy_decode
+    from phones_las_torch.models import encode, teacher_forced_decode
+    from phones_las_torch.ops.lstm import resolve_rnn_precision
+    from phones_las_torch.utils.device import matmul_precision_scope
+    from phones_las_torch.utils.param_io import save_params_npz
+
+    v = cfg.speller.vocab_size
+    clean, scribbled = degenerate_batch(v), degenerate_batch(v, scribbled=True)
+    rec = {"phase": "11a", "samples": list(DEGEN_SAMPLES), "decode_cap": DEGEN_STEPS, "beam_width": BEAM_K}
+    bad, launches = [], []
+    for mode, c in (("parity", cfg), ("production", production_cfg(cfg))):
+        prec = resolve_rnn_precision(c.matmul_precision)
+
+        def run(p, device, batch, mem_mask=None):
+            with matmul_precision_scope(c.matmul_precision):
+                if mem_mask is None:
+                    audio = torch.from_numpy(batch["audio"]).to(device)
+                    lens = torch.from_numpy(batch["audio_lengths"]).to(device)
+                    mem, el, mask = encode(p, c, audio, lens, prec=prec)
+                else:
+                    (mem, mask), el = (t.to(device) for t in mem_mask), None
+                tok, tl, _ = greedy_decode(p.speller, c.speller, mem, mask, DEGEN_STEPS, prec=prec)
+                beam = beam_decode(p.speller, c.speller, mem, mask, DEGEN_STEPS, beam_width=BEAM_K, prec=prec)
+            return {"mem": mem, "el": el, "mask": mask, "tok": tok.cpu().numpy(), "tl": tl.cpu().numpy(),
+                    "beam": beam.tokens.cpu().numpy(), "scores": beam.beam_scores.cpu(),
+                    "finite": bool(torch.isfinite(mem).all() and torch.isfinite(beam.beam_logp).all())}
+
+        def against_cpu(g, cpu):
+            logits = []  # the CPU loop's, computed once a row differs
+
+            def top2(i, s):
+                if not logits:  # the loop's own steps: fed its own tokens, <sos> first
+                    tok = torch.from_numpy(cpu["tok"]).long()
+                    fed = torch.cat([torch.full_like(tok[:, :1], c.speller.bos_id), tok[:, :-1]], dim=1)
+                    logits.append(teacher_forced_decode(params_cpu.speller, c.speller, fed, cpu["mem"],
+                                                        cpu["mask"], prec=prec)[0])
+                return float(logits[0][i, s].topk(2).values.diff().abs())
+
+            beam_gap = lambda i, s: float((cpu["scores"][i, 0] - cpu["scores"][i, 1]).abs())
+            return rows_against(g["tok"], cpu["tok"], top2), rows_against(g["beam"], cpu["beam"], beam_gap)
+
+        reset_counters(kernels)
+        g = run(params, DEV, clean)
+        torch.cuda.synchronize()
+        la = launch_counts(kernels)
+        gs = run(params, DEV, scribbled)
+        cpu = run(params_cpu, "cpu", clean)
+        greedy_rows, beam_rows = against_cpu(g, cpu)
+        valid = g["mask"] > 0
+        mem_dev = float((g["mem"] - gs["mem"]).abs()[valid].max())
+        # a row with no valid encoder position: row 0 masked whole, its
+        # memory zero as the listener leaves every frame past a length
+        mem0, mask0 = g["mem"].clone(), g["mask"].clone()
+        mem0[0], mask0[0] = 0.0, 0.0
+        reset_counters(kernels)
+        g0 = run(params, DEV, None, (mem0, mask0))
+        la0 = launch_counts(kernels)
+        c0 = run(params_cpu, "cpu", None, (mem0, mask0))
+        empty_rows, empty_beam_rows = against_cpu(g0, c0)
+        launches += [la, la0]
+        rec[mode] = {
+            "enc_lengths": g["el"].tolist(), "greedy_lengths": g["tl"].tolist(),
+            "greedy_rows_differing_from_cpu": greedy_rows, "beam_rows_differing_from_cpu": beam_rows,
+            "scribbled": {"tokens_equal": bool((g["tok"] == gs["tok"]).all()),
+                          "beam_tokens_equal": bool((g["beam"] == gs["beam"]).all()),
+                          "enc_lengths_equal": bool(torch.equal(g["el"], gs["el"])),
+                          "memory_max_abs_diff_at_valid_frames": mem_dev},
+            "empty_encoder_row": {"greedy_rows_differing_from_cpu": empty_rows,
+                                  "beam_rows_differing_from_cpu": empty_beam_rows,
+                                  "greedy_lengths": g0["tl"].tolist(), "launches": la0},
+            "finite": g["finite"] and gs["finite"] and g0["finite"], "launches": la,
+        }
+        faults = [r for r in greedy_rows + beam_rows + empty_rows + empty_beam_rows if not r["tie"]]
+        allowed = 0 if mode == "parity" else MAX_DIFF_ROWS
+        sc = rec[mode]["scribbled"]
+        if (len(faults) > allowed or not rec[mode]["finite"] or not (sc["tokens_equal"] and sc["beam_tokens_equal"])
+                or not sc["enc_lengths_equal"] or mem_dev > PAD_MEMORY_TOL):
+            bad.append(mode)
+        if DEV == "cuda" and not (la["fused_logmel"] == 1 and la["bidir_recurrence"] == cfg.listener.num_layers
+                                  and la["greedy_decode_fused"] == 1 and la0["greedy_decode_fused"] == 1
+                                  and not any(la[k] for k in ("recurrence", "recurrence_residual", "recurrence_bwd"))):
+            bad.append(f"{mode} launches")
+
+    # the top-level Transcriber on the card and on the CPU, parity mode
+    os.makedirs(os.path.join(REPO, "_runs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_degenerate_", dir=os.path.join(REPO, "_runs"))
+    try:
+        art = os.path.join(work, "ckpt_vocab.npz")
+        vocab = Vocab([f"p{i}" for i in range(v - 4)])
+        save_params_npz(art, params_cpu, cfg, extras={"vocab": vocab.tokens, "buckets": [max(DEGEN_SAMPLES)],
+                                                      "max_target_len": DEGEN_STEPS})
+        rows = [clean["audio"][i, :n].astype(np.int16) for i, n in enumerate(DEGEN_SAMPLES)]
+        requests = [rows, rows[:1], rows[1:2], []]
+        reset_counters(kernels)
+        on_card = transcriber_outcomes(Transcriber.from_artifact(art, device=None if DEV == "cuda" else DEV), requests)
+        la_t = launch_counts(kernels)
+        on_cpu = transcriber_outcomes(Transcriber.from_artifact(art, device="cpu"), requests)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches.append(la_t)
+    rec["transcriber"] = {
+        "requests": ["the batch", "0 samples alone", "1 sample alone", "empty"],
+        "card": [o if isinstance(o, str) else [len(t) for t in o] for o in on_card],
+        "equal_to_cpu": [a == b for a, b in zip(on_card, on_cpu)], "launches": la_t,
+    }
+    # the reference takes every row, a 0-sample one too, and refuses an
+    # empty request with ValueError (tests/test_torch_edge_cases.py)
+    if on_card != on_cpu or on_card[-1] != "ValueError" or any(isinstance(o, str) for o in on_card[:-1]):
+        bad.append("transcriber")
+    rec["card"] = card
+    emit(rec)
+    if bad:
+        fail(f"phase 11a: degenerate serving failed in {bad}: {rec}")
+    return {k: sum(la[k] for la in launches) for k in launches[0]}
+
+
+def check_degenerate_training(ckpt, kernels, card) -> dict:
+    """Phase 11b → the launches of the card's steps: one
+    ``Trainer.train_step`` per numerics mode on the degenerate batch
+    (dropout and scheduled sampling off) on the card, clean and scribbled,
+    and on the CPU plain path, the gradients read as the step applies them."""
+    from phones_las_torch.train import TrainConfig, Trainer
+    from phones_las_torch.utils.param_io import load_artifact
+
+    device = None if DEV == "cuda" else DEV
+    params, cfg, _ = load_artifact(ckpt, device=device)
+    params_cpu, _, _ = load_artifact(ckpt, device="cpu")
+    cfg = dataclasses.replace(cfg, listener=dataclasses.replace(cfg.listener, dropout=0.0),
+                              speller=dataclasses.replace(cfg.speller, sampling_probability=0.0))
+    v = cfg.speller.vocab_size
+    batches = {"clean": degenerate_batch(v), "scribbled": degenerate_batch(v, scribbled=True)}
+    n_layers = cfg.listener.num_layers
+    rec = {"phase": "11b", "samples": list(DEGEN_SAMPLES), "targets": list(DEGEN_TARGETS)}
+    bad, launches = [], []
+    for mode, c in (("parity", cfg), ("production", production_cfg(cfg))):
+        runs = {}
+        for name, dev, p, which in (("card", device, params, "clean"), ("card_scribbled", device, params, "scribbled"),
+                                    ("cpu", "cpu", params_cpu, "clean")):
+            tr = Trainer(c, TrainConfig(), device=dev)
+            tr.warm_start(p)
+            grads = {}
+            apply = tr.apply_gradients
+
+            def capture(g=None, tr=tr, apply=apply, grads=grads):
+                g = tr.gradients() if g is None else g
+                grads.update({k: t.detach().cpu().clone() for k, t in g.items()})
+                return apply(g)
+
+            tr.apply_gradients = capture
+            if name == "card":
+                reset_counters(kernels)
+            out = tr.train_step(batches[which])
+            loss = float(out["loss"])
+            if name == "card":
+                torch.cuda.synchronize()
+                launches.append(launch_counts(kernels))
+            runs[name] = (loss, grads)
+        (gl, gg), (sl, sg), (cl, cg) = runs["card"], runs["card_scribbled"], runs["cpu"]
+        grad_rel = {k: rel_err(gg[k], cg[k]) for k in cg}
+        worst = max(grad_rel, key=grad_rel.get)
+        bits = [k for k in gg if not torch.equal(gg[k], sg[k])]
+        finite = all(np.isfinite([gl, sl, cl])) and all(bool(torch.isfinite(t).all()) for t in gg.values())
+        parity = mode == "parity"
+        rec[mode] = {
+            "loss_card": gl, "loss_cpu": cl, "loss_rel_err": abs(gl - cl) / abs(cl),
+            "loss_tol": LOSS_TOL if parity else PROD_LOSS_TOL,
+            "grad_max_rel_to_max": grad_rel[worst], "grad_worst_leaf": worst,
+            "grad_tol": GRAD_TOL if parity else "not held: TF32 on the card only",
+            "scribbled_loss_bit_equal": gl == sl, "scribbled_grad_leaves_not_bit_equal": bits,
+            "scribbled_grad_max_abs_diff": max(float((gg[k] - sg[k]).abs().max()) for k in gg),
+            "finite": finite, "launches": launches[-1],
+        }
+        la = launches[-1]
+        ok = (finite and rec[mode]["loss_rel_err"] <= rec[mode]["loss_tol"] and gl == sl and set(gg) == set(cg)
+              and (not parity or (grad_rel[worst] <= GRAD_TOL and not bits)))
+        if not ok:
+            bad.append(mode)
+        if DEV == "cuda" and (la["recurrence_residual"], la["recurrence_bwd"], la["fused_logmel"]) != (n_layers, n_layers, 1):
+            bad.append(f"{mode} launches")
+    rec["card"] = card
+    emit(rec)
+    if bad:
+        fail(f"phase 11b: degenerate training failed in {bad}: {rec}")
+    return {k: sum(la[k] for la in launches) for k in launches[0]}
+
+
 def reset_counters(kernels) -> None:
     for fn in kernels:
         fn.launches = 0
@@ -3603,6 +3924,11 @@ def main() -> int:
     # ---- phase 10: several devices: the sharded step, NCCL, data-parallel and replica serving
     mesh_launches = check_multi_device(ckpt, data, kernels)
 
+    # ---- phase 11: degenerate rows and pad content through every serving and training kernel
+    degen_launches = check_degenerate_serving(params, params_cpu, cfg, kernels, card)
+    with torch.enable_grad():
+        degen_train_launches = check_degenerate_training(ckpt, kernels, card)
+
     def kernel_entry(name, source, replaces, rec, n_launches):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3615,13 +3941,15 @@ def main() -> int:
     lstm_cu = "phones_las_torch/csrc/lstm.cu"
     # launches: the main path's (phase 2 serving, 4c training; the
     # unidirectional primal runs on no model path, so the ops API's, 4d),
-    # the G2P's (9b lookups, 9c training steps) and phase 10's (the ranks'
+    # the G2P's (9b lookups, 9c training steps), phase 10's (the ranks'
     # sharded steps, the NCCL mesh step, a data-parallel call, the
-    # replicated server)
+    # replicated server) and phase 11's (the degenerate batch served and
+    # stepped on the card)
     main_path = {**launches, "recurrence": api_launches["recurrence"],
                  "recurrence_residual": train_launches["recurrence_residual"],
                  "recurrence_bwd": train_launches["recurrence_bwd"]}
-    total = lambda name: main_path[name] + g2p_launches[name] + mesh_launches[name]
+    total = lambda name: (main_path[name] + g2p_launches[name] + mesh_launches[name] + degen_launches[name]
+                          + degen_train_launches[name])
     emit({"kernels": [
         kernel_entry("fused_logmel", "phones_las_torch/csrc/frontend.cu",
                      "phones_las_tpu/frontend/pallas_frontend.py:110", fe_rec, total("fused_logmel")),

@@ -8,5 +8,12 @@ tensor runs the kernel's plain PyTorch version; given a CUDA tensor it
 launches the kernel or raises.
 
 This package imports ``torch`` and numpy, never ``jax`` and nothing of
-``phones_las_tpu``.
+``phones_las_tpu``. ``Transcriber``, ``Trainer`` and ``PRESETS`` resolve
+lazily, as the reference's top level does, so a bare import stays light.
 """
+
+from phones_las_torch._lazy import lazy_exports
+
+_LAZY = {"Transcriber": "api", "Trainer": "train", "PRESETS": "utils.config"}
+
+__getattr__, __dir__ = lazy_exports(__name__, _LAZY)

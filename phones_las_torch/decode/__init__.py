@@ -5,12 +5,8 @@ the vectorised beam search with optional joint CTC and n-gram fusion.
 importing ``decode.fused_greedy`` alone (an exported program's loader
 does, for the decoder's operator) brings in no model code."""
 
-import importlib
+from phones_las_torch._lazy import lazy_exports
 
 _LAZY = {"beam_decode": "beam", "greedy_decode": "greedy"}
 
-
-def __getattr__(name):
-    if name in _LAZY:
-        return getattr(importlib.import_module(f"{__name__}.{_LAZY[name]}"), name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__getattr__, __dir__ = lazy_exports(__name__, _LAZY)
