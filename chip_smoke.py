@@ -89,7 +89,8 @@ then:
         third mode, TF32 alone, to tell TF32's share of the difference
         from the bf16 dots' (ms a step, losses finite and falling, the bf16
         residual and VJP launched in production mode only, the busy share
-        and the host's top operators of a profiled step);
+        and the host's top operators of one profiled step, production
+        mode's: phase 4c profiles the parity step);
      c. the long-gate configuration with its SpecAugment and a frequency
         warp of 0.1 trains 5 steps on the card (losses finite); the masks
         and the warp on the card against the CPU on the same uniforms and α;
@@ -237,6 +238,44 @@ then:
         in parity, every gradient leaf within 1e-4 of its largest magnitude
         of the CPU's; scribbled against clean, the loss bit-equal and, in
         parity, every gradient leaf bit-equal.
+ 12. the reference's five presets (``timit_phone_las``, ``timit_multitask``,
+     ``librispeech_char_las``, ``common_voice_binf``,
+     ``librispeech_offline_infer``) at their own widths, each bound through
+     ``resolve_preset`` to a data dir of its published vocabulary (65, 65 +
+     32 graphemes, 34, 120 with binf codes, 34) and initialised at random
+     from one seed:
+     a. the decoder kernel against its plain version, parity mode, at each
+        preset's serving shape (TIMIT and the grapheme head: B = 32 × 8 s,
+        80 and 120 steps; Common Voice: 32 × 17.5 s, 200 steps; ragged
+        lengths; offline inference: 256 × 17.5 s, 300 steps), with the
+        checkpoint's shape from phase 1: tokens equal, the shared memory
+        the card reports equal to ``decoder_smem_bytes``, ms, µs a step,
+        cluster, occupancy and registers; a forced tie (a column of out_w
+        copied into another block's slice) taken by the smaller index; and
+        widths that clusters of 4, 2 and 1 take, ragged, at V = 65;
+     b. each preset's artifact through ``Transcriber.from_artifact`` on the
+        card and on the CPU (the grapheme head through a workdir), 8 rows of
+        its longest bucket, greedy and beam-8, both modes: 0 rows differing
+        in parity, at most 2 greedy rows in production (production beam-8
+        is not held: a random init's flat outputs part its beams on gaps
+        that TF32, on the card only, moves; ``librispeech_char_las``'s rows
+        differing are printed, the others' run on the card alone); launches:
+        front-end 1, BiLSTM one a layer, decoder 1 greedy and 0 beam; then
+        the checkpoint's widths with Luong attention (greedy through the
+        loop) the same way;
+     c. two ``Trainer`` steps of ``timit_phone_las``, ``timit_multitask``
+        and ``common_voice_binf`` at B = 4 (dropout and sampling off), card
+        against the CPU: in parity the loss and each auxiliary term within
+        1e-6 relative and the worst gradient leaf within 1e-5 of its
+        largest magnitude, in production the first step's terms within
+        1e-4 (the second's printed: Adam turns TF32's rounding of the
+        gradients into a larger drift); then one
+        step at the preset's own B = 32 and longest bucket, ms, device ms,
+        launches and busy share of a profiled step (readings);
+     d. ``cli.train --preset timit_multitask`` on ``prepare speechlike
+        --graphemes`` records, 4 steps and one eval, then ``cli.infer --head
+        grapheme`` on its workdir against ``Transcriber(head='grapheme')``:
+        the same tokens on every row.
 
 ``python3 chip_smoke.py --sweep`` runs none of the phases: it times the
 LSTM forward kernel under every plan it takes at the flagship width
@@ -258,6 +297,9 @@ package in the checkout at DIR.
 
 ``python3 chip_smoke.py --mesh-rank JOB RANK`` is one rank of phase 10a.
 
+``python3 chip_smoke.py --presets`` runs phase 12 alone (after the
+checkpoint's decoder check of phase 1) and prints no kernels record.
+
 Every phase that fails ends the script with a non-zero exit code. The
 line before the last holds the card's name and power limit as
 ``nvidia-smi`` prints them; the line before that the kernels' record;
@@ -276,6 +318,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -598,9 +642,14 @@ def check_lstm_ragged(t, b, u, seed):
     return rec
 
 
-def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=True, phase=1):
+def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=True, phase=1, what=None):
     from phones_las_torch.decode import fused_greedy
-    from phones_las_torch.decode.fused_greedy import CLOCK_NAMES, greedy_decode_fused, greedy_decode_fused_plain
+    from phones_las_torch.decode.fused_greedy import (
+        CLOCK_NAMES,
+        decoder_smem_bytes,
+        greedy_decode_fused,
+        greedy_decode_fused_plain,
+    )
 
     sp, sc = params.speller, cfg.speller
     mem, mask = memory[:b].contiguous(), enc_mask[:b].contiguous()
@@ -634,13 +683,20 @@ def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=Tru
     # memory once a row and step, all from L2
     groups = -(-b // launch["rows"])
     launch["l2_bytes_per_step"] = 4 * (groups * wparams + b * t * (a + m))
+    # the kernel's shared memory is the wrapper's mirror of its layout, all dynamic
+    launch["smem_expected"] = decoder_smem_bytes(b, t, sc, launch["cluster"])
     rec = {
         "phase": phase, "kernel": "greedy_decode_fused", "shape": f"B={b} T={t} steps={steps}",
+        "vocab": v, "cells": sc.num_layers,
         "max_abs_err": float((tok - ptok).abs().max()), "token_rows_differing": diff_rows,
         "tol": "tokens equal",
         "row_steps": row_steps, "launch": launch,
         "library_ms": None, "bound_ms": bms, "bound_by": by,
+        # the design's L2 floor: its bytes a step at 5.5 TB/s, over the steps the longest row ran
+        "l2_floor_ms": launch["l2_bytes_per_step"] / 5.5e12 * 1e3 * int(first.max()),
     }
+    if what is not None:
+        rec["what"] = what
     if timed:
         rec["ms"] = time_ms(lambda: greedy_decode_fused(sp, sc, mem, mask, steps))
         rec["plain_ms"] = time_ms(lambda: greedy_decode_fused_plain(sp, sc, mem, mask, steps), reps=PLAIN_REPS)
@@ -652,6 +708,8 @@ def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=Tru
     emit(rec)
     if diff_rows:
         fail(f"greedy kernel tokens differ from its plain version: {rec}")
+    if (launch["smem_bytes"], launch["static_smem_bytes"]) != (launch["smem_expected"], 0):
+        fail(f"the greedy kernel's shared memory is not decoder_smem_bytes: {rec}")
     if timed and launch["cluster"] <= 1:
         fail(f"the greedy kernel did not run as a cluster: {launch}")
     return rec
@@ -1625,7 +1683,9 @@ def train_modes_in_turns(ckpt, kernels, card) -> dict:
     for n in modes:
         ms = [s["ms"] for s in steps[n] if s["round"]]
         med = statistics.median(ms)
-        profiled = profile_step(lambda: trainers[n].train_step(batch), med)
+        # one profile, of production mode (phase 4c profiles the parity step)
+        profiled = (profile_step(lambda: trainers[n].train_step(batch), med) if n == "production"
+                    else {"device_ms": "not measured: one profile a run, of production mode"})
         rec[n] = {
             "matmul_precision": modes[n].matmul_precision, "prec": trainers[n].prec, "step_ms": med,
             "step_ms_each": ms, "losses": [s["loss"] for s in steps[n]],
@@ -3731,6 +3791,490 @@ def check_degenerate_training(ckpt, kernels, card) -> dict:
     return {k: sum(la[k] for la in launches) for k in launches[0]}
 
 
+# ---- phase 12: the reference's five presets at their own widths
+
+PRESET_NAMES = ("timit_phone_las", "timit_multitask", "librispeech_char_las", "common_voice_binf",
+                "librispeech_offline_infer")
+# the vocabularies of the published configurations (phones_las_tpu/utils/config.py)
+PRESET_VOCAB = {"timit_phone_las": 65, "timit_multitask": 65, "librispeech_char_las": 34,
+                "common_voice_binf": 120, "librispeech_offline_infer": 34}
+PRESET_GRAPHEME_VOCAB = 32  # timit_multitask's grapheme head
+PRESET_SEED = 12  # the random init of every preset
+# 12a: (preset, head, B, samples a row, decode steps, ragged lengths); the
+# checkpoint's shape (B = 64 × 10 s, 200 steps) is phase 1's
+PRESET_DECODES = (
+    ("timit_phone_las", "phone", 32, 128000, 80, True),
+    ("timit_multitask", "grapheme", 32, 128000, 120, True),
+    ("common_voice_binf", "phone", 32, 280000, 200, True),
+    ("librispeech_offline_infer", "phone", 256, 280000, 300, False),
+)
+# 12a: widths no 8-way cut takes (units, attention layer) → the cluster size
+# they get, at TIMIT's vocabulary: B = 13, T_enc = 37, 40 steps, ragged
+SMALL_CLUSTERS = ((48, 48, 4), (40, 40, 2), (36, 40, 1))
+PRESET_ROWS = 8  # 12b: rows of the preset's longest bucket through the Transcriber
+# 12b: the one preset whose production beam-8 is also decoded on the CPU, a
+# reading (the bench's configuration); the others' runs on the card alone
+PRESET_BEAM_READING = "librispeech_char_las"
+PRESET_TRAINED = ("timit_phone_las", "timit_multitask", "common_voice_binf")  # 12c
+PRESET_TRAIN_B = 4  # 12c: rows held against the CPU plain path
+PRESET_TRAIN_SAMPLES = 32000  # their longest row
+PRESET_TRAIN_TARGET = 30  # their longest target, <eos> counted
+PRESET_LOSS_TOL = 1e-6  # parity: the loss and each auxiliary term, relative
+PRESET_GRAD_TOL = 1e-5  # parity: the worst gradient leaf, of its largest magnitude
+FRONT12_UTTS = 128  # 12d: prepare speechlike --graphemes, training utterances (32 held out)
+FRONT12_STEPS = 4
+
+
+def preset_tokens(name: str):
+    """The phone tokens (and grapheme tokens) of a prepared data dir of the
+    preset at its published vocabulary size (four specials added): the 61
+    TIMIT phones, the LibriSpeech characters and two more, 116 IPA phones
+    of ``data/ipa.py``'s inventory (each with its binf code)."""
+    from phones_las_torch.data import ipa
+    from phones_las_torch.data.timit import _GRAPHEMES
+
+    n = PRESET_VOCAB[name] - 4
+    if name.startswith("timit"):
+        phones = list(ipa.ARPABET_TO_IPA)
+    elif name == "common_voice_binf":
+        phones = list(ipa._CONSONANTS) + list(ipa._AFFRICATES) + list(ipa._VOWELS) + list(ipa._DIPHTHONGS)
+    else:
+        phones = _GRAPHEMES + ["-", "."]
+    return phones[:n], (_GRAPHEMES if name == "timit_multitask" else None)
+
+
+def preset_model(name: str, work: str, device, **overrides):
+    """The preset bound to a data dir of its own vocabulary (written under
+    ``work``) through ``resolve_preset``, random params from PRESET_SEED
+    on ``device`` → (preset, data dir, params, vocab, grapheme vocab, binf codes)."""
+    from phones_las_torch.cli.common import resolve_preset
+    from phones_las_torch.data.vocab import Vocab
+    from phones_las_torch.models import init_las
+
+    data_dir = os.path.join(work, f"data_{name}")
+    if not os.path.isdir(data_dir):
+        os.makedirs(data_dir)
+        phones, graphemes = preset_tokens(name)
+        Vocab(phones).save(os.path.join(data_dir, "vocab.txt"))
+        if graphemes is not None:
+            Vocab(graphemes).save(os.path.join(data_dir, "grapheme_vocab.txt"))
+    preset, vocab, gvocab, _, codes = resolve_preset(name, data_dir, overrides or None)
+    m = preset.model
+    if m.speller.vocab_size != PRESET_VOCAB[name] or (
+        m.grapheme_speller is not None and m.grapheme_speller.vocab_size != PRESET_GRAPHEME_VOCAB
+    ):
+        fail(f"phase 12: the {name} data dir does not give the published vocabulary sizes: {m}")
+    return preset, data_dir, init_las(m, PRESET_SEED, codes, device=device), vocab, gvocab, codes
+
+
+def preset_pcm(b: int, n: int, seed: int, ragged: bool):
+    """B rows of integral random PCM of up to ``n`` samples (int16 carries
+    them exactly) → (audio [B, n] float32, lengths [B] int32); ragged rows
+    take 1/4 to all of ``n`` (row 0 all of it), the others all of it."""
+    rs = np.random.RandomState(seed)
+    audio = np.clip(np.rint(rs.randn(b, n) * 2000), -32768, 32767).astype(np.float32)
+    lens = rs.randint(n // 4, n + 1, b).astype(np.int32) if ragged else np.full(b, n, np.int32)
+    lens[0] = n
+    audio[np.arange(n)[None, :] >= lens[:, None]] = 0.0
+    return audio, lens
+
+
+def forced_tie(sp, sc, memory, mask, b, steps, tok, cluster):
+    """Two equal columns of out_w (and out_b) in different blocks' slices:
+    the most emitted real token's column copied one slice earlier and one
+    slice later; the kernel's tokens against the plain version's, and the
+    tie seen to go to the smaller index (the larger never emitted)."""
+    import copy
+
+    from phones_las_torch.decode.fused_greedy import _pad4, greedy_decode_fused
+
+    v = sc.vocab_size
+    vc = _pad4(-(-v // cluster))
+    counts = np.bincount(tok.cpu().numpy().ravel(), minlength=v)
+    counts[:4] = 0  # the specials
+    if not counts.any():
+        fail("phase 12a: the TIMIT shape emitted no real token to force a tie on")
+    j = int(counts.argmax())
+    out = []
+    for k in (j - vc, j + vc):
+        if not 4 <= k < v:
+            continue
+        tied = copy.deepcopy(sp)
+        with torch.no_grad():
+            tied.out_w[:, k] = tied.out_w[:, j]
+            tied.out_b[k] = tied.out_b[j]
+        rec = check_greedy(SimpleNamespace(speller=tied), SimpleNamespace(speller=sc), memory, mask, b, steps=steps,
+                           timed=False, phase="12a", what=f"forced tie: column {j} copied to {k}")
+        got = greedy_decode_fused(tied, sc, memory, mask, steps)[0]
+        lo, hi = min(j, k), max(j, k)
+        out.append({"columns": [lo, hi], "blocks": [lo // vc, hi // vc], "emitted_lower": int((got == lo).sum()),
+                    "emitted_higher": int((got == hi).sum()), "rows_differing": rec["token_rows_differing"]})
+        if out[-1]["emitted_lower"] == 0 or out[-1]["emitted_higher"] or lo // vc == hi // vc:
+            fail(f"phase 12a: the forced tie was not taken by the smaller index: {out[-1]}")
+    if not out:
+        fail(f"phase 12a: no column for a forced tie beside {j} (V = {v})")
+    return out
+
+
+def check_preset_decoders(work, ckpt_rec, card) -> list:
+    """Phase 12a: the decoder kernel against its plain version at every
+    preset's serving shape (random init, parity mode), with the forced tie
+    on the TIMIT shape → the records."""
+    from phones_las_torch.decode.fused_greedy import greedy_decode_fused
+    from phones_las_torch.models import encode
+    from phones_las_torch.models.speller import init_speller
+    from phones_las_torch.ops.masking import length_mask
+
+    recs, summary = [], []
+    for i, (name, head, b, samples, steps, ragged) in enumerate(PRESET_DECODES):
+        preset, _, params, *_ = preset_model(name, work, DEV)
+        cfg = preset.model
+        audio, lens = preset_pcm(b, samples, 120 + i, ragged)
+        memory, _, mask = encode(params, cfg, torch.from_numpy(audio).to(DEV), torch.from_numpy(lens).to(DEV))
+        sp, sc = (params.grapheme_speller, cfg.grapheme_speller) if head == "grapheme" else (params.speller, cfg.speller)
+        rec = check_greedy(SimpleNamespace(speller=sp), SimpleNamespace(speller=sc), memory, mask, b, steps=steps,
+                           phase="12a", what=f"{name}, {head} head, {samples} samples a row"
+                           + (", ragged" if ragged else ""))
+        if i == 0:
+            tok = greedy_decode_fused(sp, sc, memory, mask, steps)[0]
+            rec["forced_tie"] = forced_tie(sp, sc, memory, mask, b, steps, tok, rec["launch"]["cluster"])
+        recs.append(rec)
+        del params, memory, mask
+    small = []  # the cells, queries and vocabulary sliced C < 8 ways
+    for i, (units, layer, want) in enumerate(SMALL_CLUSTERS):
+        sc = dataclasses.replace(preset_model("timit_phone_las", work, "cpu")[0].model.speller, units=units,
+                                 attention_units=units, attention_layer_size=layer, memory_dim=2 * units)
+        sp = init_speller(sc, torch.Generator().manual_seed(150 + i), device=DEV)
+        g = torch.Generator(device=DEV).manual_seed(150 + i)
+        memory = torch.randn(13, 37, 2 * units, generator=g, device=DEV)
+        lens = torch.randint(1, 38, (13,), generator=g, device=DEV)
+        lens[0] = 37
+        rec = check_greedy(SimpleNamespace(speller=sp), SimpleNamespace(speller=sc), memory, length_mask(lens, 37),
+                           13, steps=40, timed=False, phase="12a", what=f"U={units} AL={layer} V={sc.vocab_size}")
+        small.append({"units": units, "cluster": rec["launch"]["cluster"], "smem_bytes": rec["launch"]["smem_bytes"]})
+        if rec["launch"]["cluster"] != want:
+            fail(f"phase 12a: U={units} took cluster {rec['launch']['cluster']}, not {want}")
+    for (name, head, b, samples, steps, _), rec in zip(PRESET_DECODES + (("checkpoint", "phone", FLAGSHIP_B,
+                                                                           int(SECONDS * SAMPLE_RATE), DECODE_STEPS,
+                                                                           False),), recs + [ckpt_rec]):
+        la = rec["launch"]
+        summary.append({"preset": name, "head": head, "shape": rec["shape"], "vocab": rec["vocab"],
+                        "cells": rec["cells"], "cluster": la["cluster"], "smem_bytes": la["smem_bytes"],
+                        "max_active_clusters": la["max_active_clusters"], "registers": la["registers"],
+                        "ms": rec["ms"], "us_per_step": la["us_per_step"], "plain_ms": rec["plain_ms"],
+                        "bound_ms": rec["bound_ms"], "l2_floor_ms": rec["l2_floor_ms"]})
+    emit({"phase": "12a", "decoders": summary, "forced_tie": recs[0]["forced_tie"], "small_clusters": small,
+          "card": card})
+    return recs
+
+
+def transcribe_modes(art_or_workdir, rows, kernels, beam: int, head=None, against_cpu=True) -> dict:
+    """One request through the ``Transcriber`` on the card and (unless
+    ``against_cpu`` is false) on the CPU → the rows differing, the card's
+    token counts and launches."""
+    from phones_las_torch import Transcriber
+
+    def make(device):
+        if head is None:
+            return Transcriber.from_artifact(art_or_workdir, beam_width=beam, device=device)
+        return Transcriber(art_or_workdir, beam_width=beam, head=head, device=device)
+
+    reset_counters(kernels)
+    card_tok = make(None if DEV == "cuda" else DEV).transcribe_batch(rows)
+    torch.cuda.synchronize()
+    la = launch_counts(kernels)
+    out = {"lengths": [len(t) for t in card_tok], "launches": la}
+    if against_cpu:
+        cpu_tok = make("cpu").transcribe_batch(rows)
+        out["rows_differing"] = [i for i, (a, b) in enumerate(zip(card_tok, cpu_tok)) if a != b]
+    return out
+
+
+def write_preset_workdir(wd: str, name: str, data_dir: str, preset, params_cpu, codes, mode: str) -> None:
+    """A training workdir (step 0 = ``params_cpu``), as the training CLI writes one."""
+    from phones_las_torch.train.checkpoint import CheckpointManager
+    from phones_las_torch.train.loop import Trainer
+
+    tr = Trainer(preset.model, preset.train, binf_codes=codes, device="cpu")
+    tr.warm_start(params_cpu)
+    CheckpointManager(wd).save(0, tr.state, force=True)
+    with open(os.path.join(wd, "config.json"), "w") as f:
+        json.dump({"preset": name, "data": data_dir,
+                   "overrides": {"frontend_precision": "high"} if mode == "production" else {},
+                   "precision": PROD_PRECISION if mode == "production" else None}, f)
+
+
+def serve_presets(work, ckpt_cfg, kernels, card) -> dict:
+    """Phase 12b: each preset's random-init artifact through
+    ``Transcriber.from_artifact`` on the card and on the CPU, 8 rows of its
+    longest bucket, greedy and beam-8, parity and production (the grapheme
+    head through a workdir); then the checkpoint's widths with Luong
+    attention (greedy through the loop) → the card's launches summed.
+    Production beam-8 is not held against the CPU: a random init's output
+    distributions are nearly flat, so its beams part on score gaps below
+    what TF32 (on the card only) moves; it runs on the card alone but for
+    PRESET_BEAM_READING, whose rows differing are printed. Phase 6a holds
+    production beam-8 on the trained checkpoint."""
+    from phones_las_torch.models import init_las
+    from phones_las_torch.utils.param_io import save_params_npz
+
+    rec = {"phase": "12b", "rows": PRESET_ROWS, "beam_width": BEAM_K}
+    bad, launches = [], []
+    served = {}  # model configuration → the preset that served it
+    for name in PRESET_NAMES:
+        preset, data_dir, params, vocab, _, codes = preset_model(name, work, "cpu")
+        cfg, pl = preset.model, preset.pipeline
+        key = json.dumps([dataclasses.asdict(cfg), pl.buckets, pl.max_target_len], sort_keys=True)
+        if key in served:
+            # the same model, seed and rows (librispeech_offline_infer differs from
+            # librispeech_char_las in its batch of 256 alone: 12a's shape)
+            rec[name] = {"same_model_and_rows_as": served[key]}
+            continue
+        served[key] = name
+        n = max(pl.buckets)
+        audio, lens = preset_pcm(PRESET_ROWS, n, 130, ragged=True)
+        rows = [audio[i, :k].astype(np.int16) for i, k in enumerate(lens)]
+        out = {"samples": [int(k) for k in lens], "cap": pl.max_target_len}
+        for mode, c in (("parity", cfg), ("production", production_cfg(cfg))):
+            art = os.path.join(work, f"{name}_{mode}.npz")
+            save_params_npz(art, params, c, extras={"preset": name, "vocab": vocab.tokens, "buckets": list(pl.buckets),
+                                                    "max_target_len": pl.max_target_len})
+            heads = {}
+            cpu = lambda beam: mode == "parity" or beam == 0 or name == PRESET_BEAM_READING
+            for beam in (0, BEAM_K):
+                heads[f"phone beam {beam}"] = transcribe_modes(art, rows, kernels, beam, against_cpu=cpu(beam))
+            if cfg.grapheme_speller is not None:
+                wd = os.path.join(work, f"{name}_{mode}_workdir")
+                write_preset_workdir(wd, name, data_dir, preset, params, codes, mode)
+                for beam in (0, BEAM_K):
+                    heads[f"grapheme beam {beam}"] = transcribe_modes(wd, rows, kernels, beam, head="grapheme",
+                                                                      against_cpu=cpu(beam))
+            out[mode] = heads
+            allowed = 0 if mode == "parity" else MAX_DIFF_ROWS
+            for h, r in heads.items():
+                launches.append(r["launches"])
+                la = r["launches"]
+                want_dec = 0 if f"beam {BEAM_K}" in h else 1
+                held = mode == "parity" or want_dec  # production beam-8: a reading
+                if held and len(r.get("rows_differing", ())) > allowed:
+                    bad.append(f"{name} {mode} {h}: rows differing")
+                if DEV == "cuda" and (la["fused_logmel"], la["bidir_recurrence"], la["greedy_decode_fused"]) != (
+                        1, cfg.listener.num_layers, want_dec):
+                    bad.append(f"{name} {mode} {h}: launches")
+        rec[name] = out
+    # Luong attention at the checkpoint's widths: the speller loop, not the kernel
+    luong = dataclasses.replace(ckpt_cfg, speller=dataclasses.replace(ckpt_cfg.speller, attention_type="luong"))
+    params = init_las(luong, PRESET_SEED, device="cpu")
+    audio, lens = preset_pcm(PRESET_ROWS, int(SECONDS * SAMPLE_RATE), 131, ragged=True)
+    rows = [audio[i, :k].astype(np.int16) for i, k in enumerate(lens)]
+    out = {"samples": [int(k) for k in lens], "cap": DECODE_STEPS}
+    vocab = [f"p{i}" for i in range(luong.speller.vocab_size - 4)]
+    for mode, c in (("parity", luong), ("production", production_cfg(luong))):
+        art = os.path.join(work, f"luong_{mode}.npz")
+        save_params_npz(art, params, c, extras={"vocab": vocab, "buckets": [len(rows[0])],
+                                                "max_target_len": DECODE_STEPS})
+        heads = {f"beam {beam}": transcribe_modes(art, rows, kernels, beam,
+                                                  against_cpu=mode == "parity" or beam == 0) for beam in (0, BEAM_K)}
+        out[mode] = heads
+        for h, r in heads.items():
+            launches.append(r["launches"])
+            if len(r.get("rows_differing", ())) > (0 if mode == "parity" else MAX_DIFF_ROWS):
+                bad.append(f"luong {mode} {h}: rows differing")
+            if DEV == "cuda" and (r["launches"]["greedy_decode_fused"]
+                                  or r["launches"]["bidir_recurrence"] != luong.listener.num_layers):
+                bad.append(f"luong {mode} {h}: launches")
+    rec["luong_checkpoint_widths"] = out
+    rec["card"] = card
+    emit(rec)
+    if bad:
+        fail(f"phase 12b: preset serving failed in {bad}")
+    return {k: sum(la[k] for la in launches) for k in launches[0]}
+
+
+def preset_train_batch(preset, b: int, n: int, t_max: int, seed: int, device) -> dict:
+    """B rows of up to ``n`` samples (ragged) with targets of up to
+    ``t_max`` tokens, <eos> counted (grapheme targets as well for a
+    multitask preset), random over the real tokens."""
+    rs = np.random.RandomState(seed)
+    audio, lens = preset_pcm(b, n, seed, ragged=True)
+    out = {"audio": audio, "audio_lengths": lens}
+    heads = [("targets", "target_lengths", preset.model.speller)]
+    if preset.model.grapheme_speller is not None:
+        heads.append(("grapheme_targets", "grapheme_lengths", preset.model.grapheme_speller))
+    for key, len_key, sc in heads:
+        t_lens = rs.randint(2, t_max + 1, b).astype(np.int32)
+        targets = np.zeros((b, t_max), np.int32)
+        for i, t in enumerate(t_lens):
+            targets[i, : t - 1] = rs.randint(4, sc.vocab_size, t - 1)
+            targets[i, t - 1] = sc.eos_id
+        out[key], out[len_key] = targets, t_lens
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def train_presets(work, kernels, card) -> dict:
+    """Phase 12c: two ``Trainer`` steps of each trained preset at B = 4,
+    dropout and sampling off, card against the CPU plain path in parity and
+    production mode; then one step at the preset's own B = 32 and longest
+    bucket, timed and profiled → the card's launches summed."""
+    from phones_las_torch.train.loop import Trainer
+
+    device = None if DEV == "cuda" else DEV
+    rec = {"phase": "12c", "batch": PRESET_TRAIN_B, "samples": PRESET_TRAIN_SAMPLES}
+    bad, launches = [], []
+    for name in PRESET_TRAINED:
+        preset, _, params, _, _, codes = preset_model(name, work, "cpu", dropout=0.0, sampling_probability=0.0)
+        cfg, n_layers = preset.model, preset.model.listener.num_layers
+        if cfg.grapheme_speller is not None:  # the override reaches the phone speller only
+            cfg = dataclasses.replace(cfg, grapheme_speller=dataclasses.replace(cfg.grapheme_speller,
+                                                                                sampling_probability=0.0))
+        batch = preset_train_batch(preset, PRESET_TRAIN_B, PRESET_TRAIN_SAMPLES, PRESET_TRAIN_TARGET, 140, "cpu")
+        out = {}
+        for mode, c in (("parity", cfg), ("production", production_cfg(cfg))):
+            runs = {}
+            for side, dev in (("card", device), ("cpu", "cpu")):
+                tr = Trainer(c, preset.train, binf_codes=codes, device=dev)
+                tr.warm_start(params)
+                grads, apply = {}, tr.apply_gradients
+
+                def capture(g=None, tr=tr, apply=apply, grads=grads):
+                    g = tr.gradients() if g is None else g
+                    if not grads:  # the first step's
+                        grads.update({k: t.detach().cpu().clone() for k, t in g.items()})
+                    return apply(g)
+
+                tr.apply_gradients = capture
+                steps = []
+                for _ in range(2):
+                    if side == "card":
+                        reset_counters(kernels)
+                    o = tr.train_step(batch)
+                    steps.append({k: float(v) for k, v in o.items() if k.endswith("loss")})
+                    if side == "card":
+                        torch.cuda.synchronize()
+                        launches.append(launch_counts(kernels))
+                runs[side] = (steps, grads)
+            (gs, gg), (cs, cg) = runs["card"], runs["cpu"]
+            terms = {f"step{i + 1} {k}": abs(g[k] - cs[i][k]) / max(abs(cs[i][k]), 1e-30)
+                     for i, g in enumerate(gs) for k in g}
+            # production holds the first step, as 11b: Adam turns the gradients'
+            # TF32 rounding into a second step's 1e-4-size drift (a reading)
+            held = {k: e for k, e in terms.items() if mode == "parity" or k.startswith("step1 ")}
+            grad_rel = {k: rel_err(gg[k], cg[k]) for k in cg}
+            worst = max(grad_rel, key=grad_rel.get)
+            parity = mode == "parity"
+            tol = PRESET_LOSS_TOL if parity else PROD_LOSS_TOL
+            keys = set(gs[0])
+            out[mode] = {"card": gs, "cpu": cs, "rel_err": terms, "tol": tol, "held": sorted(held),
+                         "grad_max_rel_to_max": grad_rel[worst], "grad_worst_leaf": worst,
+                         "grad_tol": PRESET_GRAD_TOL if parity else "not held: TF32 on the card only",
+                         "launches": launches[-1]}
+            finite = all(np.isfinite(list(s.values())).all() for s in gs + cs)
+            want = {"loss", "phone_loss"} | ({"grapheme_loss"} if cfg.grapheme_speller else set()) | (
+                {"binf_loss"} if cfg.speller.binf_mode != "none" else set())
+            if not finite or keys != want or max(held.values()) > tol or (parity and grad_rel[worst] > PRESET_GRAD_TOL):
+                bad.append(f"{name} {mode}")
+            la = launches[-1]
+            if DEV == "cuda" and (la["fused_logmel"], la["recurrence_residual"], la["recurrence_bwd"]) != (
+                    1, n_layers, n_layers):
+                bad.append(f"{name} {mode} launches")
+        # one step at the preset's own batch and longest bucket: a reading
+        pl = preset.pipeline
+        tr = Trainer(cfg, preset.train, binf_codes=codes, device=device)
+        tr.warm_start(params)
+        big = preset_train_batch(preset, pl.batch_size, max(pl.buckets), pl.max_target_len, 141, DEV)
+        tr.train_step(big)  # warm-up
+        torch.cuda.synchronize()
+        reset_counters(kernels)
+        t0 = time.perf_counter()
+        tr.train_step(big)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches.append(launch_counts(kernels))
+        prof = profile_step(lambda: tr.train_step(big), step_ms, top=4)
+        out["own_shape"] = {"batch": pl.batch_size, "samples": max(pl.buckets), "step_ms": step_ms,
+                            "device_ms": prof.get("device_ms"), "device_launches": prof.get("device_launches"),
+                            "device_busy_share": prof.get("device_busy_share", "not measured"),
+                            "launches": launches[-1]}
+        rec[name] = out
+        del tr, big
+    rec["card"] = card
+    emit(rec)
+    if bad:
+        fail(f"phase 12c: preset training failed in {bad}")
+    return {k: sum(la[k] for la in launches) for k in launches[0]}
+
+
+def start_preset_prepare(work, started):
+    """12d's records: ``prepare speechlike --graphemes`` started as a
+    process (appended to ``started``) → its data dir."""
+    data = os.path.join(work, "front_data")
+    cli("prepare", "speechlike", "--out", data, "--n-utts", str(FRONT12_UTTS), "--seed", str(DATA_TRAIN_SEED),
+        "--graphemes", started=started)
+    return data
+
+
+def check_preset_front_doors(work, data, prepare, kernels, card) -> dict:
+    """Phase 12d: once the ``prepare`` process has written ``data``,
+    ``cli.train --preset timit_multitask`` on its records, a few steps and
+    one eval, then ``cli.infer --head grapheme`` on its workdir against the
+    library's ``Transcriber(head='grapheme')``."""
+    from phones_las_torch import Transcriber
+    from phones_las_torch.data.records import RecordReader
+
+    run = os.path.join(work, "front_run")
+    t0 = time.perf_counter()
+    finish(prepare, "prepare")
+    train_out = cli("train", "--preset", "timit_multitask", "--data", data, "--workdir", run, "--num-steps",
+                    str(FRONT12_STEPS), "--eval-every", str(FRONT12_STEPS)).stdout
+    hyps = os.path.join(run, "hyps_grapheme.tsv")
+    infer_out = cli("infer", "--workdir", run, "--data", os.path.join(data, "test.plu"), "--beam-width", "0",
+                    "--head", "grapheme", "--output", hyps).stdout
+    seconds = time.perf_counter() - t0
+    held = list(RecordReader(os.path.join(data, "test.plu")))
+    reset_counters(kernels)
+    want = Transcriber(run, beam_width=0, head="grapheme", device=None if DEV == "cuda" else DEV).transcribe_batch(
+        [u.audio for u in held])
+    la = launch_counts(kernels)
+    with open(hyps) as f:
+        got = dict(line.rstrip("\n").split("\t", 1) for line in f)
+    differing = [u.utt_id for u, w in zip(held, want) if got.get(u.utt_id) != " ".join(w)]
+    evals = [line for line in train_out.splitlines() if "'tag': 'eval'" in line or line.startswith("final eval")]
+    rec = {"phase": "12d", "preset": "timit_multitask", "steps": FRONT12_STEPS, "eval_lines": evals[-2:],
+           "infer_footer": infer_out.strip().splitlines()[-1:], "utterances": len(held),
+           "rows_differing_from_library": differing, "library_launches": la, "seconds": seconds, "card": card}
+    emit(rec)
+    if not evals or len(got) != len(held) or differing or (DEV == "cuda" and la["greedy_decode_fused"] < 1):
+        fail(f"phase 12d: the preset's front doors failed: {rec}")
+    return la
+
+
+def check_presets(ckpt_cfg, ckpt_rec, kernels, card) -> dict:
+    """Phase 12, in a temporary directory under ``_runs/`` removed at the
+    end → the card's launches of 12b–d summed. 12d's records are prepared
+    by a process that runs beside 12b and 12c (after 12a's timings); every
+    process it starts is stopped."""
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(REPO, "_runs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_presets_", dir=os.path.join(REPO, "_runs"))
+    started = []
+    try:
+        check_preset_decoders(work, ckpt_rec, card)
+        data = start_preset_prepare(work, started)
+        parts = [serve_presets(work, ckpt_cfg, kernels, card)]
+        with torch.enable_grad():
+            parts.append(train_presets(work, kernels, card))
+        parts.append(check_preset_front_doors(work, data, started[0], kernels, card))
+    finally:
+        for p in started:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        shutil.rmtree(work, ignore_errors=True)
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
 def reset_counters(kernels) -> None:
     for fn in kernels:
         fn.launches = 0
@@ -3783,6 +4327,13 @@ def main() -> int:
     if sys.argv[1:] == ["--sweep"]:
         sweep_forward_plans(params)
         sweep_backward_plans(params)
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:] == ["--presets"]:
+        audio64 = torch.from_numpy(make_audio(FLAGSHIP_B)).to(DEV)
+        memory, _, enc_mask = encode(params, cfg, audio64, torch.full((FLAGSHIP_B,), audio64.shape[1],
+                                                                       dtype=torch.int32, device=DEV))
+        check_presets(cfg, check_greedy(params, cfg, memory, enc_mask, FLAGSHIP_B), kernels, card)
         print(card, flush=True)
         return 0
 
@@ -3929,6 +4480,9 @@ def main() -> int:
     with torch.enable_grad():
         degen_train_launches = check_degenerate_training(ckpt, kernels, card)
 
+    # ---- phase 12: the reference's five presets at their own widths: the decoder kernel, serving, training, CLIs
+    preset_launches = check_presets(cfg, dec_recs[-1], kernels, card)
+
     def kernel_entry(name, source, replaces, rec, n_launches):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3943,13 +4497,14 @@ def main() -> int:
     # unidirectional primal runs on no model path, so the ops API's, 4d),
     # the G2P's (9b lookups, 9c training steps), phase 10's (the ranks'
     # sharded steps, the NCCL mesh step, a data-parallel call, the
-    # replicated server) and phase 11's (the degenerate batch served and
-    # stepped on the card)
+    # replicated server), phase 11's (the degenerate batch served and
+    # stepped on the card) and phase 12's (the presets served, stepped and
+    # driven through the CLIs in this process)
     main_path = {**launches, "recurrence": api_launches["recurrence"],
                  "recurrence_residual": train_launches["recurrence_residual"],
                  "recurrence_bwd": train_launches["recurrence_bwd"]}
     total = lambda name: (main_path[name] + g2p_launches[name] + mesh_launches[name] + degen_launches[name]
-                          + degen_train_launches[name])
+                          + degen_train_launches[name] + preset_launches[name])
     emit({"kernels": [
         kernel_entry("fused_logmel", "phones_las_torch/csrc/frontend.cu",
                      "phones_las_tpu/frontend/pallas_frontend.py:110", fe_rec, total("fused_logmel")),

@@ -45,18 +45,26 @@
 //   - Activations move through distributed shared memory: a block stores
 //     its slice of h, q, the context and the attention vector into the
 //     shared memory of the blocks that read it, and one cluster barrier
-//     ends the stage (five a step); h is double-buffered, because a cell
-//     reads the last step's h while its peers already write this step's.
+//     ends the stage; h is double-buffered, because a cell reads the last
+//     step's h while its peers already write this step's.
 //   - Attention is per row: block c takes row c of the group (rows c,
 //     c + C, ... when C < 8). Scores: a warp per encoder position, lanes
 //     over A in 16-byte loads; block-wide max and sum; the context is split
 //     over T as well as M; positions past the last valid one are skipped
 //     (their weight is exactly zero). Keys and memory stream from L2:
 //     768 KB a row and step, 49 MB a step at B = 64.
-//   - The logits (V = 26 columns) and the argmax are computed by every
-//     block for all 8 rows from the same broadcast attention vector, by the
-//     same instructions, so all blocks hold the same tokens and finished
-//     flags without another exchange; block 0 writes the tokens.
+//   - The logits are sliced over the cluster like a dense stage: block c
+//     holds ceil(V / C) columns of out_w (rounded up to 4) in shared memory
+//     and computes those logits for the 8 rows; each row's (maximum, first
+//     index) over the block's columns goes to every block of the cluster,
+//     and after one more cluster barrier (six a step) every block reduces
+//     the C pairs in block order, the smallest index winning a tie, so all
+//     blocks hold the same tokens and finished flags; block 0 writes the
+//     tokens. The embedding row of each fed token is read from global
+//     memory (L2-resident) in 16-byte loads. So the shared memory a block
+//     needs grows by about (AL + 4 + 16 * 8 + 8) / C floats a vocabulary
+//     entry, and the phone vocabularies (65, 120) fit beside the 256-unit
+//     cells at every encoder length up to a few thousand.
 //   - A group stops when all its rows have emitted <eos> (the TPU kernel's
 //     predicate); a finished row in a live group writes <eos>, skips its
 //     attention, and its other results are discarded. Rows past B in the
@@ -115,12 +123,15 @@ struct DecArgs {
   int B, T, A, M, V, E, AL, U, n_cells, bos, eos, steps, C;
 };
 
-// float offsets of a block's shared memory
+// float offsets of a block's shared memory; decode/fused_greedy.py::
+// decoder_smem_bytes mirrors it
 struct DecLayout {
   int Kmax;  // widest staged input: max(E + AL + U, 2U, U + M)
-  int ldo;   // row stride of the transposed out_w: AL + 4, so that the rows of
-             // neighbouring vocabulary entries start in different banks
-  size_t stage, hbuf, cst, attn, q, ctx, part, outw, outb, emb, bias, sc, mk, v, lg, red, total;  // in floats
+  int Vc;    // vocabulary columns a block owns: ceil(V / C) rounded up to 4
+  int ldo;   // row stride of the transposed out_w slice: AL + 4, so that the
+             // rows of neighbouring vocabulary entries start in different banks
+  size_t stage, hbuf, cst, attn, q, ctx, part, outw, outb, bias, sc, mk, v, lg, pair, flags, red,
+      total;  // in floats
 };
 
 __host__ __device__ inline size_t pad4(size_t n) { return (n + 3) / 4 * 4; }
@@ -130,6 +141,7 @@ __host__ __device__ inline DecLayout dec_layout(int T, int A, int M, int V, int 
                                                 int U, int n_cells, int C) {
   DecLayout L;
   L.Kmax = (int)smax(smax(E + AL + U, 2 * U), U + M);
+  L.Vc = (int)pad4((V + C - 1) / C);
   size_t off = 0;
   L.stage = off, off += (size_t)DR * L.Kmax;
   L.hbuf = off, off += (size_t)n_cells * 2 * DR * U;
@@ -139,20 +151,23 @@ __host__ __device__ inline DecLayout dec_layout(int T, int A, int M, int V, int 
   L.ctx = off, off += (size_t)DR * M;
   const size_t widest = smax(smax(4 * U / C, A / C), AL / C);  // columns of a dense stage
   // partial sums: a dense stage's [k parts][8][columns], the context's [T
-  // parts][M], the logits' [k parts][8][V]
+  // parts][M], the logits' [k parts][8][Vc]
   L.part = off, off += smax(smax((size_t)THREADS * 4 * DR, DR * widest),
-                            smax(smax((size_t)THREADS * 4, (size_t)M), pad4((size_t)NWARPS * DR * V)));
-  // small operands that every step reads: out_w transposed, out_b, the
-  // embedding table, this block's slices of the cells' biases
+                            smax(smax((size_t)THREADS * 4, (size_t)M), (size_t)NWARPS * DR * L.Vc));
+  // small operands that every step reads: this block's columns of out_w
+  // (transposed) and out_b, its slices of the cells' biases
   L.ldo = AL + 4;
-  L.outw = off, off += (size_t)V * L.ldo;
-  L.outb = off, off += pad4(V);
-  L.emb = off, off += (size_t)V * E;
+  L.outw = off, off += (size_t)L.Vc * L.ldo;
+  L.outb = off, off += L.Vc;
   L.bias = off, off += (size_t)n_cells * 4 * (U / C);
   L.sc = off, off += pad4(T);
   L.mk = off, off += pad4(T);
   L.v = off, off += pad4(A);
-  L.lg = off, off += pad4((size_t)DR * V);
+  L.lg = off, off += (size_t)DR * L.Vc;
+  // each block's (maximum, index) of each row, written by that block:
+  // [8 blocks][8 rows] floats, then as many ints
+  L.pair = off, off += (size_t)2 * 8 * DR;
+  L.flags = off, off += (size_t)4 * DR;  // ints: the fed token, finished, tl of each row
   L.red = off, off += 64;
   L.total = off;
   return L;
@@ -230,6 +245,12 @@ __device__ __forceinline__ void copy_row(float* dst, const float* src, int n, in
     reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(src)[i];
 }
 
+// the same from global memory, through the read-only path
+__device__ __forceinline__ void load_row(float* dst, const float* __restrict__ src, int n, int l0) {
+  for (int i = l0; i < n / 4; i += 64)
+    reinterpret_cast<float4*>(dst)[i] = __ldg(reinterpret_cast<const float4*>(src) + i);
+}
+
 // This block's columns [c0, c0 + n) of a [8][ld] buffer, already written
 // in its own copy, to the same place in every other block of the cluster,
 // as 16-byte stores (n a multiple of 4). The caller synchronises the block
@@ -262,7 +283,6 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
 __global__ void __launch_bounds__(THREADS, 1)
 greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clocks) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ int tok_s[DR], fin_s[DR], tlen_s[DR];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = a.C, rank = (int)cluster.block_rank();
   const int row0 = (blockIdx.x / C) * DR;
@@ -270,6 +290,7 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
   const int T = a.T, A = a.A, M = a.M, V = a.V, E = a.E, AL = a.AL, U = a.U;
   const int Us = U / C, Nc = 4 * Us, Ac = A / C, ALc = AL / C;
   const DecLayout L = dec_layout(T, A, M, V, E, AL, U, a.n_cells, C);
+  const int Vc = L.Vc, v0 = rank * Vc, nv = max(0, min(V - v0, Vc));  // this block's vocabulary columns
   float* stage_s = smem + L.stage;  // [8][Kmax] a dense stage's input
   float* h_s = smem + L.hbuf;       // [n_cells][2][8][U]
   float* c_s = smem + L.cst;        // [n_cells][8][Us] this block's units
@@ -277,31 +298,35 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
   float* q_s = smem + L.q;          // [8][A] (the rows this block attends for)
   float* ctx_s = smem + L.ctx;      // [8][M]
   float* part_s = smem + L.part;
-  float* outw_s = smem + L.outw;    // [V][ldo] out_w transposed
-  float* outb_s = smem + L.outb;    // [V]
-  float* emb_s = smem + L.emb;      // [V][E]
+  float* outw_s = smem + L.outw;    // [Vc][ldo] columns v0.. of out_w, transposed
+  float* outb_s = smem + L.outb;    // [Vc]
   float* bias_s = smem + L.bias;    // [n_cells][4 Us] this block's slices
   float* sc_s = smem + L.sc;        // [T] scores, then weights
   float* mk_s = smem + L.mk;        // [T]
   float* v_s = smem + L.v;          // [A]
-  float* lg_s = smem + L.lg;        // [8][V]
+  float* lg_s = smem + L.lg;        // [8][Vc]
+  float* pmax_s = smem + L.pair;    // [8 blocks][8] each block's maximum of each row
+  int* pidx_s = reinterpret_cast<int*>(smem + L.pair + 8 * DR);  // [8 blocks][8] its index
+  int* tok_s = reinterpret_cast<int*>(smem + L.flags);  // [8] the token fed to each row
+  int* fin_s = tok_s + DR;                              // [8] finished
+  int* tlen_s = fin_s + DR;                             // [8] one past the last valid position
   float* red_s = smem + L.red;
 
   for (size_t i = tid; i < L.total; i += THREADS) smem[i] = 0.0f;
   __syncthreads();
   for (int i = tid; i < A; i += THREADS) v_s[i] = a.v[i];
-  for (int i = tid; i < V * AL; i += THREADS)
-    outw_s[(i / AL) * L.ldo + i % AL] = a.out_w[(size_t)(i % AL) * V + i / AL];
-  for (int i = tid; i < V; i += THREADS) outb_s[i] = a.out_b[i];
-  for (int i = tid; i < V * E; i += THREADS) emb_s[i] = a.emb[i];
+  for (int i = tid; i < nv * AL; i += THREADS)
+    outw_s[(i / AL) * L.ldo + i % AL] = a.out_w[(size_t)(i % AL) * V + v0 + i / AL];
+  for (int i = tid; i < nv; i += THREADS) outb_s[i] = a.out_b[v0 + i];
   for (int i = tid; i < a.n_cells * Nc; i += THREADS)
     bias_s[i] = a.cells[2 * (i / Nc) + 1][(size_t)rank * Nc + i % Nc];
   if (tid < DR) {
     tok_s[tid] = a.bos;
     fin_s[tid] = row0 + tid >= a.B;  // rows past the batch start finished
-    tlen_s[tid] = 0;
   }
-  // one past the last valid encoder position of the rows this block attends for
+  // one past the last valid encoder position of the rows this block attends
+  // for (0, as zeroed above, for a row past the batch); at C < 8 a row's
+  // warp is not warp 0, so no store here may race with one of warp 0's
   for (int r = rank + C * warp; r < DR; r += C * NWARPS) {
     if (row0 + r >= a.B) continue;
     int last = 0;
@@ -320,7 +345,8 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
   // 4-5 the query (product, exchange and barrier), 6 the scores, 7 the
   // softmax, 8 the context, 9 its exchange and barrier, 10-12 the attention
   // layer (staging, product, exchange and barrier), 13 the logits, 14 the
-  // argmax; 15 counts the steps
+  // argmax (the block's columns, the exchange of the pairs and its barrier,
+  // the reduction); 15 counts the steps
   const bool timed = clocks != nullptr && tid == 0 && blockIdx.x == 0;
   long long tick = timed ? clock64() : 0;
   auto lap = [&](int i) {
@@ -349,7 +375,7 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
         if (l > 0) {
           copy_row(dst, hl - 2 * DR * U + (nxt * DR + r) * U, U, l0);
         } else {
-          copy_row(dst, emb_s + tok_s[r] * E, E, l0);
+          load_row(dst, a.emb + (size_t)tok_s[r] * E, E, l0);
           copy_row(dst + E, attn_s + r * AL, AL, l0);
         }
         copy_row(dst + din, hl + (cur * DR + r) * U, U, l0);
@@ -506,12 +532,12 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
       lap(12);
     }
 
-    // logits of all 8 rows in every block: a warp per part of k, a lane per
-    // vocabulary entry, all 8 rows a thread (out_w is read once a block)
+    // logits of this block's columns for all 8 rows: a warp per part of k,
+    // a lane per vocabulary entry, all 8 rows a thread
     {
       const int kq = AL / 4, kper = (kq + NWARPS - 1) / NWARPS;  // in float4s
       const int kb = warp * kper, ke = min(kq, kb + kper);
-      for (int o = lane; o < V; o += 32) {
+      for (int o = lane; o < nv; o += 32) {
         const float4* w = reinterpret_cast<const float4*>(outw_s + o * L.ldo);
         float acc[DR];
 #pragma unroll
@@ -528,26 +554,29 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
           }
         }
 #pragma unroll
-        for (int r = 0; r < DR; ++r) part_s[(warp * DR + r) * V + o] = acc[r];
+        for (int r = 0; r < DR; ++r) part_s[(warp * DR + r) * Vc + o] = acc[r];
       }
       __syncthreads();
-      for (int i = tid; i < DR * V; i += THREADS) {
+      for (int i = tid; i < DR * nv; i += THREADS) {
+        const int r = i / nv, o = i - r * nv;
         float sum = 0.0f;
 #pragma unroll
-        for (int ks = 0; ks < NWARPS; ++ks) sum += part_s[ks * DR * V + i];
-        lg_s[i] = sum + outb_s[i % V];
+        for (int ks = 0; ks < NWARPS; ++ks) sum += part_s[(ks * DR + r) * Vc + o];
+        lg_s[r * Vc + o] = sum + outb_s[o];
       }
     }
     __syncthreads();
     lap(13);
-    // argmax, the first index of the maximum: a warp per row
+    // argmax, the first index of the maximum: a warp per row over this
+    // block's columns (index V: none), the pair to every block, then the C
+    // pairs in block order, so that the smallest index wins a tie
     if (warp < DR) {
       const int r = warp;
       float best = -CUDART_INF_F;
       int bi = V;
-      for (int o = lane; o < V; o += 32) {
-        const float x = lg_s[r * V + o];
-        if (x > best || bi == V) best = x, bi = o;
+      for (int o = lane; o < nv; o += 32) {
+        const float x = lg_s[r * Vc + o];
+        if (x > best || bi == V) best = x, bi = v0 + o;
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
@@ -555,12 +584,25 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
         const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
         if (oi < V && (bi == V || ob > best || (ob == best && oi < bi))) best = ob, bi = oi;
       }
-      if (lane == 0) {
-        const int token = fin_s[r] ? a.eos : bi;
-        tok_s[r] = token;
-        fin_s[r] = fin_s[r] || token == a.eos;
-        if (rank == 0 && row0 + r < a.B) tokens[(size_t)(row0 + r) * a.steps + s] = token;
+      if (lane < C) {
+        *cluster.map_shared_rank(pmax_s + rank * DR + r, lane) = best;
+        *cluster.map_shared_rank(pidx_s + rank * DR + r, lane) = bi;
       }
+    }
+    cluster.sync();
+    if (tid < DR) {
+      const int r = tid;
+      float best = -CUDART_INF_F;
+      int bi = V;
+      for (int p = 0; p < C; ++p) {
+        const float ob = pmax_s[p * DR + r];
+        const int oi = pidx_s[p * DR + r];
+        if (oi < V && (bi == V || ob > best || (ob == best && oi < bi))) best = ob, bi = oi;
+      }
+      const int token = fin_s[r] ? a.eos : bi;
+      tok_s[r] = token;
+      fin_s[r] = fin_s[r] || token == a.eos;
+      if (rank == 0 && row0 + r < a.B) tokens[(size_t)(row0 + r) * a.steps + s] = token;
     }
     __syncthreads();
     lap(14);
@@ -608,9 +650,11 @@ cudaError_t prepare(const DecArgs& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribu
 // weights are regrouped into `cluster` column slices (see DecArgs); info, if
 // not null, receives what the card gives this launch: info[0] = clusters it
 // can run at once (cudaOccupancyMaxActiveClusters), info[1] = dynamic
-// shared memory bytes a block, info[2] = registers a thread, info[3] =
-// static shared memory bytes; clocks is null or 16 cycle counters the kernel
-// adds to (see the kernel).
+// shared memory bytes a block (dec_layout's, all the shared memory the
+// kernel uses), info[2] = registers a thread, info[3] = static shared
+// memory bytes (0); clocks is null or 16 cycle counters the kernel adds to
+// (see the kernel). A shape whose layout passes SMEM_MAX returns
+// cudaErrorInvalidValue; the wrapper's decoder_plan refuses it first.
 extern "C" int plt_greedy_decode(const float* keys, const float* mem, const float* mask,
                                  int B, int T, int A, int M, const float* emb, int V,
                                  int E, const float* wq, const float* v,

@@ -9,11 +9,17 @@ batch size is served. In the dense stages (the cells, ``wq``, the
 attention layer) each block owns a slice of the output columns and
 computes it for all 8 rows, so a weight is read once per group and step;
 activations travel between the blocks through distributed shared memory,
-one cluster barrier a stage; attention runs per row, one row a block. A
-group stops when all its rows have emitted <eos>; the last group is padded
-with rows that start finished. The layout work the kernel needs
-(``column_slices``: each block's weight slice made contiguous) and the
-choice of C (``decoder_plan``) are here, where the CPU tests reach them.
+one cluster barrier a stage; attention runs per row, one row a block. The
+output projection is sliced over the blocks as well: each block holds
+``ceil(V / C)`` of its columns, and the rows' (maximum, first index) pairs
+meet in every block, so the shared memory a block needs grows with V / C
+(``decoder_smem_bytes``) and the phone vocabularies fit. A group stops
+when all its rows have emitted <eos>; the last group is padded with rows
+that start finished. The layout work the kernel needs (``column_slices``:
+each block's weight slice made contiguous), the kernel's shared-memory
+layout and the choice of C (``decoder_plan``, which refuses a shape that
+no cluster size fits before any launch) are here, where the CPU tests
+reach them.
 The kernel is the operator ``torch.ops.phones_las_torch.greedy_decode_fused``
 (the speller's weights flattened by ``flat_weights``; CPU: the plain
 version, CUDA: the launch, widths read from the weights' shapes), so an
@@ -50,6 +56,8 @@ if TYPE_CHECKING:  # the model code stays out of an exported program's loader
 _NEG = -1e9
 GROUP_ROWS = 8  # rows a cluster decodes together
 DECODER_CLUSTERS = (8, 4, 2, 1)  # cluster sizes, tried in this order
+THREADS = 512  # threads of a block (the kernel's THREADS)
+SMEM_MAX = 232448  # shared memory a block may use on the H100 (the kernel's SMEM_MAX)
 # what the kernel's optional cycle counters count, in order
 CLOCK_NAMES = (
     "cell_staging", "cell_product", "cell_update", "cell_barrier", "query_product", "query_exchange",
@@ -119,6 +127,31 @@ def greedy_decode_fused_plain(
     return tokens, decoded_lengths(tokens, cfg.eos_id)
 
 
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def decoder_smem_bytes(b: int, t: int, cfg, c: int) -> int:
+    """Shared memory a block of the kernel takes for ``t`` encoder
+    positions under a cluster of ``c`` blocks: the Python mirror of
+    ``csrc/greedy.cu::dec_layout`` (the same at every batch ``b``). ``cfg``
+    is a ``SpellerConfig`` or ``DecoderWidths``."""
+    del b  # a group's layout does not depend on the batch
+    e, u, a, al = cfg.embedding_dim, cfg.units, cfg.attention_units, cfg.attention_layer_size
+    m, n_cells, r = cfg.memory_dim, cfg.num_layers, GROUP_ROWS
+    vc = _pad4(-(-cfg.vocab_size // c))  # vocabulary columns a block owns
+    kmax = max(e + al + u, 2 * u, u + m)
+    widest = max(4 * u // c, a // c, al // c)
+    floats = (
+        r * kmax + n_cells * 2 * r * u + n_cells * r * (u // c) + r * al + r * a + r * m  # stage .. ctx
+        + max(THREADS * 4 * r, r * widest, THREADS * 4, m, (THREADS // 32) * r * vc)  # part
+        + vc * (al + 4) + vc + n_cells * 4 * (u // c)  # out_w slice, out_b slice, biases
+        + 2 * _pad4(t) + _pad4(a) + r * vc  # scores, mask, v, logits
+        + 2 * 8 * r + 4 * r + 64  # the blocks' pairs, the rows' flags, the reduction
+    )
+    return 4 * floats
+
+
 class DecoderPlan(NamedTuple):
     """How one launch of the decoder kernel cuts its work."""
 
@@ -127,24 +160,36 @@ class DecoderPlan(NamedTuple):
     groups: int  # clusters of the launch: ceil(B / rows)
 
 
-def decoder_plan(b: int, cfg: "SpellerConfig") -> DecoderPlan:
-    """The kernel's cluster size for a batch and a config — a pure function.
+def decoder_plan(b: int, cfg: "SpellerConfig", t: int = 1) -> DecoderPlan:
+    """The kernel's cluster size for a batch, ``t`` encoder positions and a
+    config — a pure function.
 
     C is the largest of ``DECODER_CLUSTERS`` that cuts the units, the
     attention units and the attention layer into slices of a multiple of 4
-    columns (16-byte loads). Raises for widths the kernel does not take:
-    every width must be a multiple of 4."""
+    columns (16-byte loads) and whose layout fits a block's shared memory
+    (``decoder_smem_bytes`` ≤ ``SMEM_MAX``). Raises ``ValueError`` for
+    widths the kernel does not take (every width a multiple of 4, the
+    attention layer of 8) and for a shape that no cluster size fits."""
     widths = {
         "embedding_dim": cfg.embedding_dim, "units": cfg.units, "attention_units": cfg.attention_units,
         "attention_layer_size": cfg.attention_layer_size, "memory_dim": cfg.memory_dim,
     }
-    odd = {k: v for k, v in widths.items() if v % 4}
-    if odd or b < 1:
-        raise ValueError(f"the fused greedy decoder takes a batch >= 1 and widths that are multiples of 4, got B={b}, {odd}")
-    for c in DECODER_CLUSTERS:
-        if cfg.units % (4 * c) == 0 and cfg.attention_units % (4 * c) == 0 and cfg.attention_layer_size % (4 * c) == 0:
+    odd = {k: v for k, v in widths.items() if v % (8 if k == "attention_layer_size" else 4)}
+    if odd or b < 1 or t < 1 or cfg.vocab_size < 1:
+        raise ValueError(
+            f"the fused greedy decoder takes a batch, encoder length and vocabulary >= 1 and widths that are "
+            f"multiples of 4 (the attention layer of 8), got B={b}, T={t}, V={cfg.vocab_size}, {odd}"
+        )
+    cuts = [c for c in DECODER_CLUSTERS
+            if cfg.units % (4 * c) == 0 and cfg.attention_units % (4 * c) == 0 and cfg.attention_layer_size % (4 * c) == 0]
+    for c in cuts:
+        if decoder_smem_bytes(b, t, cfg, c) <= SMEM_MAX:
             return DecoderPlan(c, GROUP_ROWS, -(-b // GROUP_ROWS))
-    raise AssertionError("unreachable: C = 1 takes every width that is a multiple of 4")
+    raise ValueError(
+        f"the fused greedy decoder needs {decoder_smem_bytes(b, t, cfg, cuts[0])} bytes of shared memory a block "
+        f"at T={t}, V={cfg.vocab_size}, {cfg.num_layers} cell(s) of {cfg.units} (cluster {cuts[0]}), over the "
+        f"{SMEM_MAX} bytes a block may use"
+    )
 
 
 def column_slices(w: torch.Tensor, c: int, gates: int = 1) -> torch.Tensor:
@@ -171,6 +216,7 @@ class DecoderWidths(NamedTuple):
     memory_dim: int
     bos_id: int
     eos_id: int
+    num_layers: int
 
     @property
     def attn_vec_dim(self) -> int:
@@ -198,7 +244,7 @@ def _unflatten(weights, memory: torch.Tensor, bos_id: int, eos_id: int):
     )
     widths = DecoderWidths(
         out_w.shape[1], emb.shape[1], cells[0].wh.shape[0], wq.shape[1], attn_layer.shape[1],
-        memory.shape[2], bos_id, eos_id,
+        memory.shape[2], bos_id, eos_id, len(cells),
     )
     return params, widths
 
@@ -237,7 +283,7 @@ def _launch(params, widths: DecoderWidths, memory, enc_mask, max_steps: int,
 
     lib = _build.library()
     b, t, m = memory.shape
-    plan = decoder_plan(b, widths)
+    plan = decoder_plan(b, widths, t)
     c = plan.cluster
     dev = memory.device
     keys = precompute_keys(params.attention, memory).contiguous()
@@ -245,6 +291,8 @@ def _launch(params, widths: DecoderWidths, memory, enc_mask, max_steps: int,
     mask = enc_mask.to(torch.float32).contiguous()
     f32 = lambda x: x.detach().to(torch.float32).contiguous()
     emb, v, out_w, out_b = f32(params.embedding), f32(params.attention.v), f32(params.out_w), f32(params.out_b)
+    if emb.data_ptr() % 16:  # the kernel reads embedding rows in 16-byte loads
+        emb = emb.clone()
     wq = column_slices(f32(params.attention.wq), c)
     attn_w = column_slices(f32(params.attention_layer), c)
     cells = []  # per cell: wx over wh [C, din + U, 4U/C], bias [C, 4U/C]
