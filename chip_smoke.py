@@ -276,6 +276,35 @@ then:
         --graphemes`` records, 4 steps and one eval, then ``cli.infer --head
         grapheme`` on its workdir against ``Transcriber(head='grapheme')``:
         the same tokens on every row.
+ 13. the reference's width flags, from ``librispeech_char_las`` (V = 34)
+     through ``resolve_preset`` at random init (seed 13): W1024, the
+     LAS-4-1024 widths (``--encoder-layers 4 --encoder-units 1024
+     --decoder-units 1024 --attention-units 1024``: M = 2048, E = 128, the
+     attention layer at 256), and W100 (``--encoder-units 100
+     --decoder-units 36 --attention-units 60 --embedding-dim 30``), in a
+     temporary directory under ``_runs/`` removed at the end:
+     a. the listener kernels (forward one and two directions, residual,
+        VJP) at U = 264, 320, 512, 1024 and 100 against their plain
+        versions in both modes, B = 32 of ragged lengths 1..24, with the
+        gates of phases 1 and 4a, each plan with the shared memory (held
+        to the plan's) and registers the card gives it; at U = 1024 and 512
+        (float32) the four kernels timed at T = 999 beside cuDNN as phases 1
+        and 4a time them (medians of 5); the decoder kernel at W1024's
+        speller (B = 32, T_enc 219 and 438, 200 steps; the streamed
+        layout), with an attention layer of 1024 (library-built), and at the
+        LAS paper's 2 × 512 speller (the held layout): tokens equal to the
+        plain version's, shared memory equal to ``decoder_smem_bytes``;
+     b. W1024 and W100 as artifacts through the ``Transcriber`` on the card
+        and on the CPU, 8 rows of 10 s decoded to at most 60 steps, greedy
+        and beam-8, both modes: 0 rows differing in parity, at most 2 greedy
+        rows in production (production beam-8 on the card alone, a
+        reading); launches: front-end 1, BiLSTM one a layer, decoder 1 greedy;
+     c. one W1024 ``Trainer.train_step`` at B = 8 × <= 4 s on the card and on
+        the CPU: the loss within 1e-5 relative in parity, 1e-4 in
+        production; then ``cli.train`` at the W1024 flags, 2 steps and an
+        eval, on ``prepare speechlike`` records (64 + 16 utterances, the
+        formant corpus of phase 7 at its seed), and ``cli.infer`` of its
+        workdir.
 
 ``python3 chip_smoke.py --sweep`` runs none of the phases: it times the
 LSTM forward kernel under every plan it takes at the flagship width
@@ -297,8 +326,14 @@ package in the checkout at DIR.
 
 ``python3 chip_smoke.py --mesh-rank JOB RANK`` is one rank of phase 10a.
 
+The random-init artifacts that phases 12b and 13b serve (compressed npz
+files of 30–150 M parameters, 5–30 s of host CPU each) are written by one
+thread beside phases 9–11 (``Prewritten``), under ``_runs/``, removed at
+the end.
+
 ``python3 chip_smoke.py --presets`` runs phase 12 alone (after the
-checkpoint's decoder check of phase 1) and prints no kernels record.
+checkpoint's decoder check of phase 1) and prints no kernels record;
+``python3 chip_smoke.py --widths`` runs phase 13 alone.
 
 Every phase that fails ends the script with a non-zero exit code. The
 line before the last holds the card's name and power limit as
@@ -509,15 +544,15 @@ def forward_report(entry, xps, mask, whs, reverse, prec, ms=None):
     from phones_las_torch.ops import lstm as L
 
     plan = L._launch_forward.last_plan
-    t, _, four_u = xps[0].shape
-    info = L.forward_kernel_info(four_u // 4, prec == "bf16", entry == "plt_lstm_residual",
+    t = xps[0].shape[0]
+    info = L.forward_kernel_info(plan.units, prec == "bf16", entry == "plt_lstm_residual",
                                  plan.cluster, plan.bt, plan.ksplit, plan.resident)
     clocks = torch.zeros(4, dtype=torch.int64, device=DEV)
     L._launch_forward(entry, xps, mask, whs, 1.0, reverse, prec, None, clocks)
     torch.cuda.synchronize()
     rep = {
         "cluster": plan.cluster, "bt": plan.bt, "ksplit": plan.ksplit, "wh_in_smem": plan.resident,
-        "clusters_launched": -(-xps[0].shape[1] // plan.bt) * len(xps), **info,
+        "kernel_units": plan.units, "clusters_launched": -(-xps[0].shape[1] // plan.bt) * len(xps), **info,
         "cycles_per_step": dict(zip(("product", "cell_update", "stores_prefetch", "h_wait"),
                                     (c / t for c in clocks.tolist()))),
     }
@@ -539,9 +574,11 @@ def check_bilstm(params, b, t, layer, prec, seed):
     return check_bilstm_inputs(pf, pb, xpf, xpb, lengths, prec, g)
 
 
-def check_bilstm_inputs(pf, pb, xpf, xpb, lengths, prec, g, phase=1):
+def check_bilstm_inputs(pf, pb, xpf, xpb, lengths, prec, g, phase=1, held=True, plain_reps=PLAIN_REPS, reps=10):
     """The BiLSTM kernel against its plain version on given projected
-    inputs [T, B, 4U] and lengths, timed beside cuDNN's ``torch.nn.LSTM``."""
+    inputs [T, B, 4U] and lengths, timed beside cuDNN's ``torch.nn.LSTM``;
+    ``held`` fails a launch whose wh slices are not held in shared memory
+    by a cluster, or whose clusters take more than one wave."""
     from phones_las_torch.ops.lstm import bidir_recurrence, bidir_recurrence_plain
     from phones_las_torch.ops.masking import length_mask
 
@@ -574,32 +611,34 @@ def check_bilstm_inputs(pf, pb, xpf, xpb, lengths, prec, g, phase=1):
     nbytes = 4 * (2 * t * b * 4 * u + t * b + 2 * t * b * u + 4 * b * u) + 2 * wbytes * u * 4 * u
     flops = 2 * t * b * (2 * u * 4 * u)
     bms, by = bound(nbytes, flops, BF16_FLOPS if prec == "bf16" else F32_FLOPS)
-    ms = time_ms(lambda: bidir_recurrence(*args))
+    ms = time_ms(lambda: bidir_recurrence(*args), reps=reps)
     launch = forward_report("plt_lstm_recurrence", [xpf, xpb], mask, [pf.wh, pb.wh], [False, True], prec, ms)
     rec = {
         "phase": phase, "kernel": "bidir_recurrence", "shape": f"T={t} B={b} U={u} prec={prec}",
         "max_abs_err": max_abs, "max_rel_err": max_rel, "tol": f"atol={atol} rtol={rtol}",
         "max_rel_to_max": max(rel_err(x, y) for x, y in zip((of, ob, hf, cf, hb, cb), (pof, pob, phf, pcf, phb, pcb))),
         "ms": ms, "launch": launch,
-        "plain_ms": time_ms(lambda: bidir_recurrence_plain(*args), reps=PLAIN_REPS),
-        "library_ms": time_ms(lambda: lstm(x_in)),
+        "plain_ms": time_ms(lambda: bidir_recurrence_plain(*args), reps=plain_reps, warmup=min(1, plain_reps - 1)),
+        "library_ms": time_ms(lambda: lstm(x_in), reps=reps),
         "library": f"torch.nn.LSTM({d}, {u}, bidirectional=True), includes the input projection",
         "bound_ms": bms, "bound_by": by,
     }
     emit(rec)
     if not ok:
         fail(f"BiLSTM kernel disagrees with its plain version: {rec}")
-    if launch["cluster"] <= 1 or not launch["wh_in_smem"]:
+    if held and (launch["cluster"] <= 1 or not launch["wh_in_smem"]):
         fail(f"the BiLSTM kernel did not run as a cluster with wh in shared memory: {launch}")
-    if launch["clusters_launched"] > launch["max_active_clusters"]:
+    if held and launch["clusters_launched"] > launch["max_active_clusters"]:
         fail(f"the BiLSTM kernel's clusters do not fit in one wave: {launch}")
     return rec
 
 
-def check_lstm_ragged(t, b, u, seed):
+def check_lstm_ragged(t, b, u, seed, phase=1):
     """The forward kernel on a batch that is no multiple of its tile, rows
     of lengths from 1 to T, and (U = 40, 248) widths only a cluster of one
-    serves: both precisions, one and two directions, both entries."""
+    serves: both precisions, one and two directions, both entries; each
+    plan with the shared memory and registers the card gives it (its
+    shared memory held to ``forward_plan``'s)."""
     from phones_las_torch.ops import lstm as L
     from phones_las_torch.ops.masking import length_mask
 
@@ -618,14 +657,14 @@ def check_lstm_ragged(t, b, u, seed):
             rev = [False, True][:nd] if nd == 2 else [True]
             want = L.recurrence_residual_plain(xps, mask, whs, 1.0, rev, prec)
             got = L.recurrence_residual(xps, mask, whs, 1.0, rev, prec)
-            plans.add(tuple(L._launch_forward.last_plan))
+            plans.add((prec, True, L._launch_forward.last_plan))
             if nd == 1:
                 out, (h, c) = L.recurrence(xps[0], mask, whs[0], 1.0, rev[0], prec)
                 primal = [(out, h, c)]
             else:
                 of, ob, (hf, cf), (hb, cb) = L.bidir_recurrence(xps[0], xps[1], mask, whs[0], whs[1], 1.0, prec)
                 primal = [(of, hf, cf), (ob, hb, cb)]
-            plans.add(tuple(L._launch_forward.last_plan))
+            plans.add((prec, False, L._launch_forward.last_plan))
             torch.cuda.synchronize()
             for k, p, pr in zip(got, want, primal):
                 a, _, k_ok = compare((k[0], k[3], k[4]), (p[0], p[3], p[4]), tol, tol)
@@ -633,12 +672,19 @@ def check_lstm_ragged(t, b, u, seed):
                 ap, _, p_ok = compare(pr, (p[0], p[3], p[4]), tol, tol)
                 ok = ok and k_ok and r_ok and p_ok
                 worst[prec] = max(worst.get(prec, 0.0), a, ar, ap)
-    rec = {"phase": 1, "kernel": "lstm forward, ragged", "shape": f"T={t} B={b} U={u} lengths 1..{t}",
-           "max_abs_err": worst, "tol": "highest 1e-5; bf16 2e-2, residuals 3e-2",
-           "plans (cluster, bt, ksplit, wh_in_smem, smem_bytes)": sorted(plans), "ok": ok}
+    infos = []
+    for prec, save, p in sorted(plans):
+        info = L.forward_kernel_info(p.units, prec == "bf16", save, p.cluster, p.bt, p.ksplit, p.resident)
+        infos.append({"prec": prec, "residual": save, "plan (cluster, bt, ksplit, wh_in_smem, smem_bytes, units)": p,
+                      "smem_bytes": info["smem_bytes"], "registers": info["registers"],
+                      "max_active_clusters": info["max_active_clusters"]})
+        ok = ok and info["smem_bytes"] == p.smem
+    rec = {"phase": phase, "kernel": "lstm forward, ragged", "shape": f"T={t} B={b} U={u} lengths 1..{t}",
+           "max_abs_err": worst, "tol": "highest 1e-5; bf16 2e-2, residuals 3e-2", "plans": infos, "ok": ok}
     emit(rec)
     if not ok:
-        fail(f"the LSTM forward kernel disagrees with its plain version on a ragged case: {rec}")
+        fail(f"the LSTM forward kernel disagrees with its plain version (or forward_plan's bytes) on a ragged "
+             f"case: {rec}")
     return rec
 
 
@@ -683,8 +729,10 @@ def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=Tru
     # memory once a row and step, all from L2
     groups = -(-b // launch["rows"])
     launch["l2_bytes_per_step"] = 4 * (groups * wparams + b * t * (a + m))
-    # the kernel's shared memory is the wrapper's mirror of its layout, all dynamic
-    launch["smem_expected"] = decoder_smem_bytes(b, t, sc, launch["cluster"])
+    # the kernel's shared memory is the wrapper's mirror of its layout (at the
+    # kernel's widths, held or streamed), all dynamic
+    kw = dataclasses.replace(sc, **launch["kernel_widths"])
+    launch["smem_expected"] = decoder_smem_bytes(b, t, kw, launch["cluster"], launch["streamed"])
     rec = {
         "phase": phase, "kernel": "greedy_decode_fused", "shape": f"B={b} T={t} steps={steps}",
         "vocab": v, "cells": sc.num_layers,
@@ -732,8 +780,7 @@ def backward_report(bargs, t):
 
     plan = L._launch_backward.last_plan
     xps, prec = bargs[0], bargs[-1]
-    u = xps[0].shape[2] // 4
-    info = L.backward_kernel_info(u, prec == "bf16", plan)
+    info = L.backward_kernel_info(prec == "bf16", plan)
     runs = []
     for _ in range(5):
         ms = []
@@ -744,8 +791,8 @@ def backward_report(bargs, t):
     L._launch_backward(*bargs, clocks=clocks)
     torch.cuda.synchronize()
     rep = {
-        "cluster": plan.cluster, "bt": plan.bt, "ksplit": plan.ksplit,
-        "wh_in_smem": plan.resident, "clusters_launched": -(-xps[0].shape[1] // plan.bt) * len(xps), **info,
+        "cluster": plan.cluster, "bt": plan.bt, "ksplit": plan.ksplit, "wh_in_smem": plan.resident,
+        "kernel_units": plan.units, "clusters_launched": -(-xps[0].shape[1] // plan.bt) * len(xps), **info,
         "kernel_ms": parts, "us_per_step": parts["loop"] * 1e3 / t,
         "cycles_per_step": dict(zip(BWD_CLOCKS, (c / t for c in clocks.tolist()))),
     }
@@ -754,7 +801,7 @@ def backward_report(bargs, t):
     return rep
 
 
-def check_lstm_bwd_ragged(t, b, u, seed):
+def check_lstm_bwd_ragged(t, b, u, seed, phase="4a"):
     """The VJP on a batch that is no multiple of its tile, rows of lengths
     from 1 to T, and (U = 40, 248) widths only a cluster of one serves:
     both precisions, one and two directions, against the plain version on
@@ -780,7 +827,7 @@ def check_lstm_bwd_ragged(t, b, u, seed):
                      [rnd(t, b, u) for _ in range(nd)], [rnd(b, u) for _ in range(nd)],
                      [rnd(b, u) for _ in range(nd)], 1.0, rev, prec)
             got = L.recurrence_bwd(*bargs)
-            plans.add(tuple(L._launch_backward.last_plan))
+            plans.add((prec, L._launch_backward.last_plan))
             again = L.recurrence_bwd(*bargs)
             want = L.recurrence_bwd_plain(*bargs)
             torch.cuda.synchronize()
@@ -790,9 +837,16 @@ def check_lstm_bwd_ragged(t, b, u, seed):
             dead = all(float((kg[0] * (1.0 - mask)[:, :, None]).abs().max()) == 0.0 for kg in got)
             ok = ok and err <= tol and same and dead
             worst[prec] = max(worst.get(prec, 0.0), err)
-    rec = {"phase": "4a", "kernel": "recurrence_bwd, ragged", "shape": f"T={t} B={b} U={u} lengths 1..{t}",
+    infos = []
+    for prec, p in sorted(plans):
+        info = L.backward_kernel_info(prec == "bf16", p)
+        infos.append({"prec": prec, "plan (cluster, bt, ksplit, wh_in_smem, smem_bytes, units)": p,
+                      "smem_bytes": info["smem_bytes"], "registers": info["registers"],
+                      "max_active_clusters": info["max_active_clusters"]})
+        ok = ok and info["smem_bytes"] == p.smem
+    rec = {"phase": phase, "kernel": "recurrence_bwd, ragged", "shape": f"T={t} B={b} U={u} lengths 1..{t}",
            "max_rel_to_max": worst, "tol": "dxp, dwh max|d|/max|plain|: highest 1e-4, bf16 3e-2; bitwise repeatable",
-           "plans (cluster, bt, ksplit, wh_in_smem, smem_bytes)": sorted(plans), "ok": ok}
+           "plans": infos, "ok": ok}
     emit(rec)
     if not ok:
         fail(f"the VJP kernel disagrees with its plain version on a ragged case: {rec}")
@@ -804,13 +858,16 @@ def cudnn_lstm(d, u, bidirectional):
     return torch.nn.LSTM(d, u, bidirectional=bidirectional).to(DEV)
 
 
-def check_lstm_train(pair, t, prec, seed, b=TRAIN_B, ragged=False, phase="4a", one_wave=True):
+def check_lstm_train(pair, t, prec, seed, b=TRAIN_B, ragged=False, phase="4a", one_wave=True, held=True,
+                     plain_reps=PLAIN_REPS, reps=10):
     """Phase 4a: the training path's three LSTM kernels against their
     plain versions at B = TRAIN_B, both directions, with the weights of
     ``pair`` (forward, backward LSTMParams) → (recurrence record, residual
     record, VJP record). ``ragged`` draws lengths 1..T in place of T/2..T;
     ``one_wave`` fails a VJP whose clusters take more than one wave (a batch
-    that no plan fits in one wave runs in several)."""
+    that no plan fits in one wave runs in several); ``held`` one whose loop
+    does not hold its slices of wh in shared memory; the plain versions are
+    timed over ``plain_reps`` runs, the kernels and cuDNN over ``reps``."""
     from phones_las_torch.ops import lstm as L
     from phones_las_torch.ops.masking import length_mask
 
@@ -842,9 +899,9 @@ def check_lstm_train(pair, t, prec, seed, b=TRAIN_B, ragged=False, phase="4a", o
         torch.autograd.backward(bi(x_in)[0], g_out)
 
     with torch.no_grad():
-        lib_uni_ms = time_ms(lambda: uni(x_in))
-    lib_fwd_ms = time_ms(lambda: bi(x_in))
-    lib_fwd_bwd_ms = time_ms(lib_fwd_bwd)
+        lib_uni_ms = time_ms(lambda: uni(x_in), reps=reps)
+    lib_fwd_ms = time_ms(lambda: bi(x_in), reps=reps)
+    lib_fwd_bwd_ms = time_ms(lib_fwd_bwd, reps=reps)
 
     # recurrence (one direction a call): forward on xpf, reverse on xpb
     recs = []
@@ -858,12 +915,13 @@ def check_lstm_train(pair, t, prec, seed, b=TRAIN_B, ragged=False, phase="4a", o
         ok, max_abs = ok and k_ok, max(max_abs, a)
     nbytes = 4 * (t * b * 4 * u + t * b + t * b * u + 2 * b * u) + wbytes * u * 4 * u
     bms, by = bound(nbytes, dot, peak)
-    ms = time_ms(lambda: L.recurrence(xpf, mask, whs[0], 1.0, False, prec))
+    ms = time_ms(lambda: L.recurrence(xpf, mask, whs[0], 1.0, False, prec), reps=reps)
     recs.append({
         "phase": phase, "kernel": "recurrence", "shape": shape + " one direction",
         "max_abs_err": max_abs, "tol": f"atol=rtol={tol}", "ok": ok,
         "ms": ms, "launch": forward_report("plt_lstm_recurrence", [xpf], mask, whs[:1], [False], prec, ms),
-        "plain_ms": time_ms(lambda: L.recurrence_plain(xpf, mask, whs[0], 1.0, False, prec), reps=PLAIN_REPS),
+        "plain_ms": time_ms(lambda: L.recurrence_plain(xpf, mask, whs[0], 1.0, False, prec), reps=plain_reps,
+                            warmup=min(1, plain_reps - 1)),
         "library_ms": lib_uni_ms, "library": f"torch.nn.LSTM({d}, {u}) forward, no grad",
         "library_fwd_bwd_ms": lib_fwd_bwd_ms, "bound_ms": bms, "bound_by": by,
     })
@@ -881,13 +939,13 @@ def check_lstm_train(pair, t, prec, seed, b=TRAIN_B, ragged=False, phase="4a", o
     res_rel = max(rel_err(x, y) for k, pk in zip(res, pres) for x, y in zip(k, pk))
     nbytes = 2 * (4 * t * b * 4 * u + 4 * t * b * u + 2 * rbytes * t * b * u + 4 * 2 * b * u + wbytes * u * 4 * u) + 4 * t * b
     bms, by = bound(nbytes, 2 * dot, peak)
-    ms = time_ms(lambda: L.recurrence_residual(*args))
+    ms = time_ms(lambda: L.recurrence_residual(*args), reps=reps)
     recs.append({
         "phase": phase, "kernel": "recurrence_residual", "shape": shape + " both directions",
         "max_abs_err": max_abs, "max_rel_to_max": res_rel,
         "tol": f"out, h, c atol=rtol={tol}; hprev, cprev atol=rtol={res_tol}", "ok": ok,
         "ms": ms, "launch": forward_report("plt_lstm_residual", [xpf, xpb], mask, whs, [False, True], prec, ms),
-        "plain_ms": time_ms(lambda: L.recurrence_residual_plain(*args), reps=PLAIN_REPS),
+        "plain_ms": time_ms(lambda: L.recurrence_residual_plain(*args), reps=plain_reps, warmup=min(1, plain_reps - 1)),
         "library_ms": lib_fwd_ms, "library": f"torch.nn.LSTM({d}, {u}, bidirectional=True) forward under grad",
         "library_fwd_bwd_ms": lib_fwd_bwd_ms, "bound_ms": bms, "bound_by": by,
     })
@@ -912,8 +970,8 @@ def check_lstm_train(pair, t, prec, seed, b=TRAIN_B, ragged=False, phase="4a", o
         "max_abs_err": max(float((k - p).abs().max()) for kg, pg in zip(grads, pgrads) for k, p in zip(kg, pg)),
         "max_rel_to_max": max(errs), "tol": f"dxp, dwh max|d|/max|plain| <= {vjp_tol}",
         "bitwise_repeatable": deterministic, "ok": max(errs) <= vjp_tol and deterministic,
-        "ms": time_ms(lambda: L.recurrence_bwd(*bargs)), "launch": launch,
-        "plain_ms": time_ms(lambda: L.recurrence_bwd_plain(*bargs), reps=PLAIN_REPS),
+        "ms": time_ms(lambda: L.recurrence_bwd(*bargs), reps=reps), "launch": launch,
+        "plain_ms": time_ms(lambda: L.recurrence_bwd_plain(*bargs), reps=plain_reps, warmup=min(1, plain_reps - 1)),
         "library_ms": lib_fwd_bwd_ms, "library": f"torch.nn.LSTM({d}, {u}, bidirectional=True) forward + backward",
         "library_fwd_bwd_ms": lib_fwd_bwd_ms, "bound_ms": bms, "bound_by": by,
     })
@@ -922,7 +980,7 @@ def check_lstm_train(pair, t, prec, seed, b=TRAIN_B, ragged=False, phase="4a", o
     bad = [r["kernel"] for r in recs if not r["ok"]]
     if bad:
         fail(f"training LSTM kernels disagree with their plain versions at {shape}: {bad}")
-    if launch["cluster"] <= 1 or not launch["wh_in_smem"]:
+    if held and (launch["cluster"] <= 1 or not launch["wh_in_smem"]):
         fail(f"the VJP's loop did not run as a cluster with its slice of wh in shared memory: {launch}")
     if one_wave and launch["clusters_launched"] > launch["max_active_clusters"]:
         fail(f"the VJP's clusters do not fit in one wave: {launch}")
@@ -1227,7 +1285,7 @@ def sweep_forward_plans(params) -> None:
                     smem = L.forward_smem_bytes(u, c, bt, ks, True, prec == "bf16")
                     if smem > L.SMEM_MAX:
                         continue
-                    plan = L.ForwardPlan(c, bt, ks, True, smem)
+                    plan = L.ForwardPlan(c, bt, ks, True, smem, u)
                     got = L._launch_forward(entry, xps, mask, whs, 1.0, rev, prec, plan)
                     torch.cuda.synchronize()
                     err, _, _ = compare([k[0] for k in got], [k[0] for k in want], 0.0, 0.0)
@@ -1277,7 +1335,7 @@ def sweep_backward_plans(params) -> None:
                 smem = L.backward_smem_bytes(u, c, bt, ks, True, prec == "bf16")
                 if smem > L.SMEM_MAX:
                     continue
-                plan = L.BackwardPlan(c, bt, ks, True, smem)
+                plan = L.BackwardPlan(c, bt, ks, True, smem, u)
                 got = L._launch_backward(*bargs, plan=plan)
                 torch.cuda.synchronize()
                 err = max(rel_err(k, p) for kg, pg in zip(got, want) for k, p in zip(kg, pg))
@@ -1290,7 +1348,7 @@ def sweep_backward_plans(params) -> None:
                 emit({
                     "sweep": "lstm vjp loop", "shape": f"T={t} B={b} U={u} nd=2 prec={prec}",
                     "cluster": c, "bt": bt, "ksplit": ks, "chosen": plan == chosen,
-                    "clusters_launched": -(-b // bt) * 2, **L.backward_kernel_info(u, prec == "bf16", plan),
+                    "clusters_launched": -(-b // bt) * 2, **L.backward_kernel_info(prec == "bf16", plan),
                     "loop_ms": loop_ms, "us_per_step": loop_ms * 1e3 / t, "max_rel_diff_to_chosen_plan": err,
                 })
 
@@ -3843,10 +3901,11 @@ def preset_tokens(name: str):
     return phones[:n], (_GRAPHEMES if name == "timit_multitask" else None)
 
 
-def preset_model(name: str, work: str, device, **overrides):
+def preset_model(name: str, work: str, device, seed: int = PRESET_SEED, **overrides):
     """The preset bound to a data dir of its own vocabulary (written under
-    ``work``) through ``resolve_preset``, random params from PRESET_SEED
-    on ``device`` → (preset, data dir, params, vocab, grapheme vocab, binf codes)."""
+    ``work``) through ``resolve_preset`` with the flags' ``overrides``,
+    random params from ``seed`` on ``device`` → (preset, data dir, params,
+    vocab, grapheme vocab, binf codes)."""
     from phones_las_torch.cli.common import resolve_preset
     from phones_las_torch.data.vocab import Vocab
     from phones_las_torch.models import init_las
@@ -3864,7 +3923,72 @@ def preset_model(name: str, work: str, device, **overrides):
         m.grapheme_speller is not None and m.grapheme_speller.vocab_size != PRESET_GRAPHEME_VOCAB
     ):
         fail(f"phase 12: the {name} data dir does not give the published vocabulary sizes: {m}")
-    return preset, data_dir, init_las(m, PRESET_SEED, codes, device=device), vocab, gvocab, codes
+    return preset, data_dir, init_las(m, seed, codes, device=device), vocab, gvocab, codes
+
+
+def write_preset_artifact(path: str, name: str, mode: str) -> None:
+    """12b's artifact of a preset in a mode: its random init (PRESET_SEED)
+    with its vocabulary, buckets and target cap."""
+    from phones_las_torch.utils.param_io import save_params_npz
+
+    preset, _, params, vocab, _, _ = preset_model(name, os.path.dirname(path), "cpu")
+    cfg, pl = preset.model, preset.pipeline
+    save_params_npz(path, params, cfg if mode == "parity" else production_cfg(cfg),
+                    extras={"preset": name, "vocab": vocab.tokens, "buckets": list(pl.buckets),
+                            "max_target_len": pl.max_target_len})
+
+
+class Prewritten:
+    """The random-init artifacts that phases 12b and 13b serve, written
+    ahead by one thread beside earlier phases: ``np.savez_compressed`` of
+    30–150 M random parameters takes 5–30 s a file on the host's CPU, which
+    those phases leave mostly idle. ``ahead(key, write)`` queues
+    ``write(path)``; ``get(key, write)`` waits for it (or, not queued,
+    writes now) → the path. ``close`` waits for the thread and removes the
+    files (a directory under ``_runs/``)."""
+
+    def __init__(self):
+        import tempfile
+        from concurrent.futures import ThreadPoolExecutor
+
+        os.makedirs(os.path.join(REPO, "_runs"), exist_ok=True)
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_artifacts_", dir=os.path.join(REPO, "_runs"))
+        self.pool = ThreadPoolExecutor(max_workers=1)
+        self.futures = {}
+
+    def path(self, key: str) -> str:
+        return os.path.join(self.dir, f"{key}.npz")
+
+    def ahead(self, key: str, write) -> None:
+        self.futures[key] = self.pool.submit(write, self.path(key))
+
+    def get(self, key: str, write) -> str:
+        fut = self.futures.pop(key, None)
+        if fut is None:
+            write(self.path(key))
+        else:
+            fut.result()
+        return self.path(key)
+
+    def close(self) -> None:
+        import shutil
+
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        for fut in self.futures.values():  # a write's failure, unless a phase failed first
+            if fut.done() and not fut.cancelled() and fut.exception() is not None:
+                print(f"chip_smoke: an artifact written ahead failed: {fut.exception()!r}", file=sys.stderr)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+    def queue_served(self) -> None:
+        """Every artifact of 12b and 13b, in the order they are served."""
+        for name in PRESET_NAMES:
+            for mode in ("parity", "production"):
+                self.ahead(f"preset_{name}_{mode}", lambda path, name=name, mode=mode: write_preset_artifact(
+                    path, name, mode))
+        for name in WIDTH_FLAGS:
+            for mode in ("parity", "production"):
+                self.ahead(f"width_{name}_{mode}", lambda path, name=name, mode=mode: write_width_artifact(
+                    path, name, mode))
 
 
 def preset_pcm(b: int, n: int, seed: int, ragged: bool):
@@ -4004,7 +4128,7 @@ def write_preset_workdir(wd: str, name: str, data_dir: str, preset, params_cpu, 
                    "precision": PROD_PRECISION if mode == "production" else None}, f)
 
 
-def serve_presets(work, ckpt_cfg, kernels, card) -> dict:
+def serve_presets(work, ckpt_cfg, kernels, card, artifacts) -> dict:
     """Phase 12b: each preset's random-init artifact through
     ``Transcriber.from_artifact`` on the card and on the CPU, 8 rows of its
     longest bucket, greedy and beam-8, parity and production (the grapheme
@@ -4014,7 +4138,8 @@ def serve_presets(work, ckpt_cfg, kernels, card) -> dict:
     distributions are nearly flat, so its beams part on score gaps below
     what TF32 (on the card only) moves; it runs on the card alone but for
     PRESET_BEAM_READING, whose rows differing are printed. Phase 6a holds
-    production beam-8 on the trained checkpoint."""
+    production beam-8 on the trained checkpoint. The artifacts come from
+    ``artifacts`` (``Prewritten``)."""
     from phones_las_torch.models import init_las
     from phones_las_torch.utils.param_io import save_params_npz
 
@@ -4022,7 +4147,7 @@ def serve_presets(work, ckpt_cfg, kernels, card) -> dict:
     bad, launches = [], []
     served = {}  # model configuration → the preset that served it
     for name in PRESET_NAMES:
-        preset, data_dir, params, vocab, _, codes = preset_model(name, work, "cpu")
+        preset, data_dir, params, _, _, codes = preset_model(name, work, "cpu")
         cfg, pl = preset.model, preset.pipeline
         key = json.dumps([dataclasses.asdict(cfg), pl.buckets, pl.max_target_len], sort_keys=True)
         if key in served:
@@ -4035,10 +4160,8 @@ def serve_presets(work, ckpt_cfg, kernels, card) -> dict:
         audio, lens = preset_pcm(PRESET_ROWS, n, 130, ragged=True)
         rows = [audio[i, :k].astype(np.int16) for i, k in enumerate(lens)]
         out = {"samples": [int(k) for k in lens], "cap": pl.max_target_len}
-        for mode, c in (("parity", cfg), ("production", production_cfg(cfg))):
-            art = os.path.join(work, f"{name}_{mode}.npz")
-            save_params_npz(art, params, c, extras={"preset": name, "vocab": vocab.tokens, "buckets": list(pl.buckets),
-                                                    "max_target_len": pl.max_target_len})
+        for mode in ("parity", "production"):
+            art = artifacts.get(f"preset_{name}_{mode}", lambda path: write_preset_artifact(path, name, mode))
             heads = {}
             cpu = lambda beam: mode == "parity" or beam == 0 or name == PRESET_BEAM_READING
             for beam in (0, BEAM_K):
@@ -4248,7 +4371,7 @@ def check_preset_front_doors(work, data, prepare, kernels, card) -> dict:
     return la
 
 
-def check_presets(ckpt_cfg, ckpt_rec, kernels, card) -> dict:
+def check_presets(ckpt_cfg, ckpt_rec, kernels, card, artifacts) -> dict:
     """Phase 12, in a temporary directory under ``_runs/`` removed at the
     end → the card's launches of 12b–d summed. 12d's records are prepared
     by a process that runs beside 12b and 12c (after 12a's timings); every
@@ -4262,10 +4385,268 @@ def check_presets(ckpt_cfg, ckpt_rec, kernels, card) -> dict:
     try:
         check_preset_decoders(work, ckpt_rec, card)
         data = start_preset_prepare(work, started)
-        parts = [serve_presets(work, ckpt_cfg, kernels, card)]
+        parts = [serve_presets(work, ckpt_cfg, kernels, card, artifacts)]
         with torch.enable_grad():
             parts.append(train_presets(work, kernels, card))
         parts.append(check_preset_front_doors(work, data, started[0], kernels, card))
+    finally:
+        for p in started:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        shutil.rmtree(work, ignore_errors=True)
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
+# ---- phase 13: the reference's width flags (fault C8)
+WIDTH_SEED = 13  # the random init of both configurations
+WIDTH_PRESET = "librispeech_char_las"
+# the flags of cli/train.py: the LAS-4-1024 widths (SpecAugment paper:
+# bidirectional layers of 1024 cells, a 1024-wide decoder; M = 2048, E = 128
+# and the attention layer at the preset's 256), and an odd width that runs
+# the padding path of every kernel
+WIDTH_FLAGS = {
+    "W1024": {"encoder_layers": 4, "encoder_units": 1024, "decoder_units": 1024, "attention_units": 1024},
+    "W100": {"encoder_units": 100, "decoder_units": 36, "attention_units": 60, "embedding_dim": 30},
+}
+WIDTH_UNITS = (264, 320, 512, 1024, 100)  # 13a: the listener kernels against their plain versions, both modes
+WIDTH_KERNEL_T, WIDTH_KERNEL_B = 24, 32  # ... on ragged lengths 1..T
+WIDTH_TIMED = ((1024, "highest"), (512, "highest"))  # 13a: T = 999, with cuDNN beside (float32)
+WIDTH_REPS = 5  # ... timed as the median of 5 runs (the plain versions once)
+# 13a: the decoder kernel at B = 32, 200 steps: (label, T_enc, U, A, AL, M)
+WIDTH_DECODES = (("W1024", 219, 1024, 1024, 256, 2048), ("W1024", 438, 1024, 1024, 256, 2048),
+                 ("W1024, attention layer 1024 (library-built)", 219, 1024, 1024, 1024, 2048),
+                 ("LAS paper speller", 438, 512, 512, 256, 512))
+WIDTH_ROWS, WIDTH_SAMPLES, WIDTH_CAP = 8, 160000, 60  # 13b: 8 rows of 10 s through the Transcriber, cap 60
+WIDTH_TRAIN_B, WIDTH_TRAIN_SAMPLES, WIDTH_TRAIN_TARGET = 8, 64000, 30  # 13c: B = 8 × <= 4 s
+WIDTH_CLI_UTTS, WIDTH_CLI_STEPS = 64, 2  # 13c: prepare speechlike (16 held out), cli.train steps
+
+
+def width_flags_argv(name: str) -> list:
+    return [a for k, v in WIDTH_FLAGS[name].items() for a in (f"--{k.replace('_', '-')}", str(v))]
+
+
+def check_width_kernels(work) -> dict:
+    """Phase 13a: the listener kernels at U = 264, 320, 512, 1024 and 100 (a
+    cut of one block streaming wh, clusters of 8 streaming it, the padding
+    path) against their plain versions in both modes on ragged lengths;
+    timed at T = 999 beside cuDNN at U = 1024 and 512; the decoder kernel at
+    W1024's speller (the streamed layout), with an attention layer of 1024,
+    and at the LAS paper's (the held layout, 6.4 KB under the limit)."""
+    from phones_las_torch.models.speller import SpellerConfig, init_speller
+    from phones_las_torch.ops import lstm as L
+    from phones_las_torch.ops.masking import length_mask
+
+    fwd, vjp = [], []
+    for i, u in enumerate(WIDTH_UNITS):
+        fwd.append(check_lstm_ragged(WIDTH_KERNEL_T, WIDTH_KERNEL_B, u, 130 + i, phase="13a"))
+        vjp.append(check_lstm_bwd_ragged(WIDTH_KERNEL_T, WIDTH_KERNEL_B, u, 140 + i, phase="13a"))
+    emit({"phase": "13a", "what": "listener kernels at the new widths against their plain versions",
+          "forward_max_abs_err": {r["shape"]: r["max_abs_err"] for r in fwd},
+          "vjp_max_rel_to_max": {r["shape"]: r["max_rel_to_max"] for r in vjp},
+          "readings_at_u256": "forward within 3.6e-7, VJP 9.4e-7 / 6.0e-4 (f32 / bf16) of the plain version's "
+                              "largest (PERF.md, section 6)"})
+    timed = []
+    for i, (u, prec) in enumerate(WIDTH_TIMED):
+        gen = torch.Generator().manual_seed(WIDTH_SEED + i)
+        pair = [L.init_lstm_params(4 * u, u, gen, device=DEV) for _ in range(2)]  # a pyramid layer's input width
+        g = torch.Generator(device=DEV).manual_seed(150 + i)
+        t, b = 999, FLAGSHIP_B
+        lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=DEV)
+        lengths[0] = t
+        xpf, xpb = (torch.randn((t, b, 4 * u), generator=g, device=DEV) for _ in range(2))
+        rec = check_bilstm_inputs(pair[0], pair[1], xpf, xpb, lengths, prec, g, phase="13a", held=False, plain_reps=1,
+                                  reps=WIDTH_REPS)
+        del xpf, xpb
+        with torch.enable_grad():
+            train = check_lstm_train(pair, t, prec, 160 + i, phase="13a", one_wave=False, held=False, plain_reps=1,
+                                     reps=WIDTH_REPS)
+        timed.append({"u": u, "prec": prec, "bidir_recurrence": rec, "recurrence": train[0],
+                      "recurrence_residual": train[1], "recurrence_bwd": train[2]})
+    decs = []
+    for i, (label, t, u, a, al, m) in enumerate(WIDTH_DECODES):
+        sc = SpellerConfig(vocab_size=PRESET_VOCAB[WIDTH_PRESET], embedding_dim=128, num_layers=2, units=u,
+                           memory_dim=m, attention_units=a, attention_layer_size=al)
+        sp = init_speller(sc, torch.Generator().manual_seed(WIDTH_SEED + i), device=DEV)
+        g = torch.Generator(device=DEV).manual_seed(170 + i)
+        memory = torch.randn(WIDTH_KERNEL_B, t, m, generator=g, device=DEV)
+        lens = torch.randint(t // 4, t + 1, (WIDTH_KERNEL_B,), generator=g, device=DEV)
+        lens[0] = t
+        rec = check_greedy(SimpleNamespace(speller=sp), SimpleNamespace(speller=sc), memory, length_mask(lens, t),
+                           WIDTH_KERNEL_B, steps=DECODE_STEPS, phase="13a", what=f"{label}, T_enc {t}, ragged")
+        if rec["launch"]["streamed"] != (u == 1024):
+            fail(f"phase 13a: the decoder took the wrong layout at {label}: {rec['launch']}")
+        decs.append(rec)
+        del sp, memory
+    return {"timed": timed, "decoders": decs}
+
+
+def write_width_artifact(path: str, name: str, mode: str) -> None:
+    """13b's artifact of a width configuration in a mode: its random init
+    (WIDTH_SEED), decoded to at most WIDTH_CAP steps."""
+    from phones_las_torch.utils.param_io import save_params_npz
+
+    preset, _, params, vocab, _, _ = preset_model(WIDTH_PRESET, os.path.dirname(path), "cpu", seed=WIDTH_SEED,
+                                                  **WIDTH_FLAGS[name])
+    cfg = preset.model
+    save_params_npz(path, params, cfg if mode == "parity" else production_cfg(cfg),
+                    extras={"preset": WIDTH_PRESET, "vocab": vocab.tokens, "buckets": [WIDTH_SAMPLES],
+                            "max_target_len": WIDTH_CAP})
+
+
+def serve_widths(work, kernels, card, artifacts) -> dict:
+    """Phase 13b: W1024 and W100 as random-init artifacts through
+    ``Transcriber.from_artifact`` on the card and on the CPU, 8 rows of 10 s,
+    greedy and beam-8 (one ``Transcriber`` a mode and device, its beam width
+    set between the two), both modes: 0 rows differing in parity, at most 2
+    greedy rows in production; production beam-8 runs on the card alone (a
+    reading, as 12b's) → the card's launches summed. The artifacts come
+    from ``artifacts`` (``Prewritten``)."""
+    from phones_las_torch import Transcriber
+
+    rec = {"phase": "13b", "rows": WIDTH_ROWS, "samples": WIDTH_SAMPLES, "cap": WIDTH_CAP, "beam_width": BEAM_K}
+    bad, launches = [], []
+    audio, lens = preset_pcm(WIDTH_ROWS, WIDTH_SAMPLES, 180, ragged=True)
+    rows = [audio[i, :k].astype(np.int16) for i, k in enumerate(lens)]
+    for name in WIDTH_FLAGS:
+        preset = preset_model(WIDTH_PRESET, work, "cpu", seed=WIDTH_SEED, **WIDTH_FLAGS[name])[0]
+        cfg = preset.model
+        out = {"listener": [cfg.listener.num_layers, cfg.listener.units],
+               "speller": [cfg.speller.units, cfg.speller.attention_units, cfg.speller.memory_dim,
+                           cfg.speller.embedding_dim, cfg.speller.attention_layer_size]}
+        for mode in ("parity", "production"):
+            art = artifacts.get(f"width_{name}_{mode}", lambda path: write_width_artifact(path, name, mode))
+            card_t = Transcriber.from_artifact(art, device=None if DEV == "cuda" else DEV)
+            cpu_t = Transcriber.from_artifact(art, device="cpu")
+            heads = {}
+            for beam in (0, BEAM_K):
+                card_t.beam = cpu_t.beam = beam
+                reset_counters(kernels)
+                card_tok = card_t.transcribe_batch(rows)
+                torch.cuda.synchronize()
+                r = {"lengths": [len(x) for x in card_tok], "launches": launch_counts(kernels)}
+                if mode == "parity" or beam == 0:
+                    cpu_tok = cpu_t.transcribe_batch(rows)
+                    r["rows_differing"] = [i for i, (a, b) in enumerate(zip(card_tok, cpu_tok)) if a != b]
+                heads[f"beam {beam}"] = r
+                launches.append(r["launches"])
+                la = r["launches"]
+                if len(r.get("rows_differing", ())) > (0 if mode == "parity" else MAX_DIFF_ROWS):
+                    bad.append(f"{name} {mode} beam {beam}: rows differing")
+                if DEV == "cuda" and (la["fused_logmel"], la["bidir_recurrence"], la["greedy_decode_fused"]) != (
+                        1, cfg.listener.num_layers, 0 if beam else 1):
+                    bad.append(f"{name} {mode} beam {beam}: launches")
+            out[mode] = heads
+            del card_t, cpu_t
+        rec[name] = out
+    rec["card"] = card
+    emit(rec)
+    if bad:
+        fail(f"phase 13b: serving at the width flags failed in {bad}")
+    return {k: sum(la[k] for la in launches) for k in launches[0]}
+
+
+def train_widths(work, kernels, card) -> dict:
+    """Phase 13c (library): one ``Trainer.train_step`` of W1024 at B = 8 × <= 4 s,
+    dropout and sampling off, card against the CPU plain path: the loss
+    within 1e-5 relative in parity, 1e-4 in production (TF32 on the card
+    only), every term finite, the residual and VJP kernels once a listener
+    layer → the card's launches summed."""
+    from phones_las_torch.train.loop import Trainer
+
+    device = None if DEV == "cuda" else DEV
+    preset, _, params, _, _, codes = preset_model(WIDTH_PRESET, work, "cpu", seed=WIDTH_SEED, dropout=0.0,
+                                                  sampling_probability=0.0, **WIDTH_FLAGS["W1024"])
+    cfg, n_layers = preset.model, preset.model.listener.num_layers
+    batch = preset_train_batch(preset, WIDTH_TRAIN_B, WIDTH_TRAIN_SAMPLES, WIDTH_TRAIN_TARGET, 190, "cpu")
+    rec = {"phase": "13c", "config": "W1024", "batch": WIDTH_TRAIN_B, "samples": WIDTH_TRAIN_SAMPLES}
+    bad, launches = [], []
+    for mode, c in (("parity", cfg), ("production", production_cfg(cfg))):
+        runs = {}
+        for side, dev in (("card", device), ("cpu", "cpu")):
+            tr = Trainer(c, preset.train, binf_codes=codes, device=dev)
+            tr.warm_start(params)
+            if side == "card":
+                reset_counters(kernels)
+            t0 = time.perf_counter()
+            o = tr.train_step(batch)
+            runs[side] = {k: float(v) for k, v in o.items() if k.endswith("loss")}
+            if side == "card":
+                torch.cuda.synchronize()
+                runs["card_step_ms"] = (time.perf_counter() - t0) * 1e3
+                launches.append(launch_counts(kernels))
+            del tr
+        tol = LOSS_TOL if mode == "parity" else PROD_LOSS_TOL
+        err = abs(runs["card"]["loss"] - runs["cpu"]["loss"]) / abs(runs["cpu"]["loss"])
+        rec[mode] = {**runs, "loss_rel_err": err, "tol": tol, "launches": launches[-1]}
+        la = launches[-1]
+        if err > tol or not np.isfinite(list(runs["card"].values()) + list(runs["cpu"].values())).all():
+            bad.append(f"{mode}: loss")
+        if DEV == "cuda" and (la["fused_logmel"], la["recurrence_residual"], la["recurrence_bwd"]) != (
+                1, n_layers, n_layers):
+            bad.append(f"{mode}: launches")
+    rec["card"] = card
+    emit(rec)
+    if bad:
+        fail(f"phase 13c: the W1024 training step disagrees with the CPU: {bad}")
+    return {k: sum(la[k] for la in launches) for k in launches[0]}
+
+
+def start_width_train(work, data, prepare, started):
+    """13c's CLI run: once the ``prepare`` process has written ``data``,
+    ``cli.train`` at the W1024 flags (2 steps and an eval) started as a
+    process beside 13b and 13c's library step (appended to ``started``) →
+    (its workdir, the ``Popen``, its start time)."""
+    run = os.path.join(work, "w1024_run")
+    t0 = time.perf_counter()
+    finish(prepare, "prepare")
+    proc = cli("train", "--preset", WIDTH_PRESET, "--data", data, "--workdir", run, "--num-steps",
+               str(WIDTH_CLI_STEPS), "--eval-every", str(WIDTH_CLI_STEPS), "--batch-size", str(WIDTH_TRAIN_B),
+               *width_flags_argv("W1024"), started=started)
+    return run, proc, t0
+
+
+def check_width_clis(data, run, train, t0, card) -> None:
+    """Phase 13c (CLIs): the ``cli.train`` process at the W1024 flags
+    finishes, then ``cli.infer`` of its workdir: the footer counts every
+    held-out utterance."""
+    from phones_las_torch.data.records import RecordReader
+
+    train_out = finish(train, "train")
+    infer_out = cli("infer", "--workdir", run, "--data", os.path.join(data, "test.plu"), "--beam-width", "0").stdout
+    n, _, _ = per_footer(infer_out)
+    held = len(list(RecordReader(os.path.join(data, "test.plu"))))
+    evals = [line for line in train_out.splitlines() if "'tag': 'eval'" in line or line.startswith("final eval")]
+    rec = {"phase": "13c", "what": "cli.train then cli.infer at the W1024 flags", "flags": width_flags_argv("W1024"),
+           "steps": WIDTH_CLI_STEPS, "eval_lines": evals[-2:], "infer_footer": infer_out.strip().splitlines()[-1:],
+           "seconds_since_train_started": time.perf_counter() - t0, "card": card}
+    emit(rec)
+    if not evals or n != held:
+        fail(f"phase 13c: the CLIs at the W1024 flags failed: {rec}")
+
+
+def check_widths(kernels, card, artifacts) -> dict:
+    """Phase 13, in a temporary directory under ``_runs/`` removed at the
+    end → the card's launches of 13b and 13c summed. 13c's records are
+    prepared by a process that runs beside 13a, and its ``cli.train``
+    beside 13b and 13c's library step; every process it starts is
+    stopped."""
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(REPO, "_runs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_widths_", dir=os.path.join(REPO, "_runs"))
+    started = []
+    try:
+        data = os.path.join(work, "data")
+        cli("prepare", "speechlike", "--out", data, "--n-utts", str(WIDTH_CLI_UTTS), "--seed", str(DATA_TRAIN_SEED),
+            started=started)
+        check_width_kernels(work)
+        run, train, t0 = start_width_train(work, data, started[0], started)
+        parts = [serve_widths(work, kernels, card, artifacts)]
+        with torch.enable_grad():
+            parts.append(train_widths(work, kernels, card))
+        check_width_clis(data, run, train, t0, card)
     finally:
         for p in started:
             if p.poll() is None:
@@ -4333,7 +4714,19 @@ def main() -> int:
         audio64 = torch.from_numpy(make_audio(FLAGSHIP_B)).to(DEV)
         memory, _, enc_mask = encode(params, cfg, audio64, torch.full((FLAGSHIP_B,), audio64.shape[1],
                                                                        dtype=torch.int32, device=DEV))
-        check_presets(cfg, check_greedy(params, cfg, memory, enc_mask, FLAGSHIP_B), kernels, card)
+        artifacts = Prewritten()
+        try:
+            check_presets(cfg, check_greedy(params, cfg, memory, enc_mask, FLAGSHIP_B), kernels, card, artifacts)
+        finally:
+            artifacts.close()
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:] == ["--widths"]:
+        artifacts = Prewritten()
+        try:
+            check_widths(kernels, card, artifacts)
+        finally:
+            artifacts.close()
         print(card, flush=True)
         return 0
 
@@ -4469,19 +4862,28 @@ def main() -> int:
     # ---- phase 8: the CLIs, the HTTP server and exported programs
     check_front_doors(ckpt, cfg, kernels)
 
-    # ---- phase 9: the seq2seq G2P at its widths: kernels, serving, training, corpus prep
-    g2p_launches = check_g2p(kernels)
+    # the artifacts that phases 12b and 13b serve, written by a thread beside phases 9–11
+    artifacts = Prewritten()
+    artifacts.queue_served()
+    try:
+        # ---- phase 9: the seq2seq G2P at its widths: kernels, serving, training, corpus prep
+        g2p_launches = check_g2p(kernels)
 
-    # ---- phase 10: several devices: the sharded step, NCCL, data-parallel and replica serving
-    mesh_launches = check_multi_device(ckpt, data, kernels)
+        # ---- phase 10: several devices: the sharded step, NCCL, data-parallel and replica serving
+        mesh_launches = check_multi_device(ckpt, data, kernels)
 
-    # ---- phase 11: degenerate rows and pad content through every serving and training kernel
-    degen_launches = check_degenerate_serving(params, params_cpu, cfg, kernels, card)
-    with torch.enable_grad():
-        degen_train_launches = check_degenerate_training(ckpt, kernels, card)
+        # ---- phase 11: degenerate rows and pad content through every serving and training kernel
+        degen_launches = check_degenerate_serving(params, params_cpu, cfg, kernels, card)
+        with torch.enable_grad():
+            degen_train_launches = check_degenerate_training(ckpt, kernels, card)
 
-    # ---- phase 12: the reference's five presets at their own widths: the decoder kernel, serving, training, CLIs
-    preset_launches = check_presets(cfg, dec_recs[-1], kernels, card)
+        # ---- phase 12: the reference's five presets at their own widths: the decoder kernel, serving, training, CLIs
+        preset_launches = check_presets(cfg, dec_recs[-1], kernels, card, artifacts)
+
+        # ---- phase 13: the reference's width flags: LAS-4-1024 and an odd width through every kernel
+        width_launches = check_widths(kernels, card, artifacts)
+    finally:
+        artifacts.close()
 
     def kernel_entry(name, source, replaces, rec, n_launches):
         return {
@@ -4498,13 +4900,14 @@ def main() -> int:
     # the G2P's (9b lookups, 9c training steps), phase 10's (the ranks'
     # sharded steps, the NCCL mesh step, a data-parallel call, the
     # replicated server), phase 11's (the degenerate batch served and
-    # stepped on the card) and phase 12's (the presets served, stepped and
-    # driven through the CLIs in this process)
+    # stepped on the card), phase 12's (the presets served, stepped and
+    # driven through the CLIs in this process) and phase 13's (W1024 and
+    # W100 served, W1024 stepped)
     main_path = {**launches, "recurrence": api_launches["recurrence"],
                  "recurrence_residual": train_launches["recurrence_residual"],
                  "recurrence_bwd": train_launches["recurrence_bwd"]}
     total = lambda name: (main_path[name] + g2p_launches[name] + mesh_launches[name] + degen_launches[name]
-                          + degen_train_launches[name] + preset_launches[name])
+                          + degen_train_launches[name] + preset_launches[name] + width_launches[name])
     emit({"kernels": [
         kernel_entry("fused_logmel", "phones_las_torch/csrc/frontend.cu",
                      "phones_las_tpu/frontend/pallas_frontend.py:110", fe_rec, total("fused_logmel")),

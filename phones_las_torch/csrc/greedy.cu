@@ -69,8 +69,27 @@
 //     predicate); a finished row in a live group writes <eos>, skips its
 //     attention, and its other results are discarded. Rows past B in the
 //     last group start finished.
+//   - Two layouts (DecLayout). The held one keeps in every block what every
+//     block reads whole: h of each cell (double-buffered), the attention
+//     vector and the context, each [8][width], and its out_w slice. Past
+//     what a block holds (the LAS-4-1024 speller, U = A = 1024, M = 2048:
+//     about 430 KB a block), the streamed layout keeps those activations in
+//     global memory, one set a group (act): a block stores its slice there
+//     instead of into its peers, the cluster barrier that ends the stage
+//     orders the stores, and the readers copy the rows a stage multiplies
+//     into their stage from L2 (ld.global.cg, past the SM's own L1); q is
+//     held only for the rows a block attends for, and the logits read out_w
+//     from L2, a lane a column. Both layouts run the same stages in the same
+//     order with the same sums; the held one where it fits
+//     (decode/fused_greedy.py::decoder_plan picks). The widths: U, A, AL up
+//     to 1024, M up to 2048, V up to 120 and T_enc up to 2000 (every
+//     combination, one or two cells) fit the streamed layout at C = 8;
+//     the wrapper pads any width to a multiple of the cut (E, U, A, M of 4,
+//     AL of 8, U, A and AL of 4 C) with zeros.
 // With the weights, ~94 MB of L2 traffic a step at B = 64 is this design's
-// own floor: ~17 us a step at ~5.5 TB/s, 3.4 ms for 200 steps.
+// own floor: ~17 us a step at ~5.5 TB/s, 3.4 ms for 200 steps. At the
+// LAS-4-1024 widths the speller's weights are about 77 MB, more than the
+// L2 holds, so every group streams them from device memory at each step.
 //
 // Prediction, made before the first run on the card: 25-40 us a step at
 // B = 64 (5-8 ms for 200 steps against 40.9 ms), the scores' 64 k tanhf a
@@ -120,11 +139,15 @@ struct DecArgs {
   const float* out_w;   // [AL, V]
   const float* out_b;   // [V]
   const float* const* cells;  // per cell: [C][din + U][4U/C] (wx over wh), [C][4U/C] bias
+  float* act;  // streamed layout: a group's activations in global memory (act_floats each)
   int B, T, A, M, V, E, AL, U, n_cells, bos, eos, steps, C;
 };
 
 // float offsets of a block's shared memory; decode/fused_greedy.py::
-// decoder_smem_bytes mirrors it
+// decoder_smem_bytes mirrors it. The streamed layout (STREAMED) holds none
+// of the activations that every block reads whole (h of every cell, the
+// attention vector, the context) and no out_w slice: they lie in global
+// memory (act, out_w), and a stage copies what it multiplies into `stage`.
 struct DecLayout {
   int Kmax;  // widest staged input: max(E + AL + U, 2U, U + M)
   int Vc;    // vocabulary columns a block owns: ceil(V / C) rounded up to 4
@@ -138,17 +161,19 @@ __host__ __device__ inline size_t pad4(size_t n) { return (n + 3) / 4 * 4; }
 __host__ __device__ inline size_t smax(size_t x, size_t y) { return x > y ? x : y; }
 
 __host__ __device__ inline DecLayout dec_layout(int T, int A, int M, int V, int E, int AL,
-                                                int U, int n_cells, int C) {
+                                                int U, int n_cells, int C, bool streamed) {
   DecLayout L;
   L.Kmax = (int)smax(smax(E + AL + U, 2 * U), U + M);
   L.Vc = (int)pad4((V + C - 1) / C);
+  const size_t qrows = streamed ? (DR + C - 1) / C : DR;  // all 8, or the rows the block attends for
+  const size_t held = streamed ? 0 : 1;  // the activations every block reads whole
   size_t off = 0;
   L.stage = off, off += (size_t)DR * L.Kmax;
-  L.hbuf = off, off += (size_t)n_cells * 2 * DR * U;
+  L.hbuf = off, off += held * n_cells * 2 * DR * U;
   L.cst = off, off += (size_t)n_cells * DR * (U / C);
-  L.attn = off, off += (size_t)DR * AL;
-  L.q = off, off += (size_t)DR * A;
-  L.ctx = off, off += (size_t)DR * M;
+  L.attn = off, off += held * DR * AL;
+  L.q = off, off += qrows * A;
+  L.ctx = off, off += held * DR * M;
   const size_t widest = smax(smax(4 * U / C, A / C), AL / C);  // columns of a dense stage
   // partial sums: a dense stage's [k parts][8][columns], the context's [T
   // parts][M], the logits' [k parts][8][Vc]
@@ -157,7 +182,7 @@ __host__ __device__ inline DecLayout dec_layout(int T, int A, int M, int V, int 
   // small operands that every step reads: this block's columns of out_w
   // (transposed) and out_b, its slices of the cells' biases
   L.ldo = AL + 4;
-  L.outw = off, off += (size_t)L.Vc * L.ldo;
+  L.outw = off, off += held * L.Vc * L.ldo;
   L.outb = off, off += L.Vc;
   L.bias = off, off += (size_t)n_cells * 4 * (U / C);
   L.sc = off, off += pad4(T);
@@ -251,6 +276,20 @@ __device__ __forceinline__ void load_row(float* dst, const float* __restrict__ s
     reinterpret_cast<float4*>(dst)[i] = __ldg(reinterpret_cast<const float4*>(src) + i);
 }
 
+// ... from global memory that the blocks of the cluster write during the
+// kernel: from L2, past the SM's own L1 (which another block's stores do not
+// reach); the cluster barrier since those stores orders them
+__device__ __forceinline__ void load_row_cg(float* dst, const float* src, int n, int l0) {
+  for (int i = l0; i < n / 4; i += 64)
+    reinterpret_cast<float4*>(dst)[i] = __ldcg(reinterpret_cast<const float4*>(src) + i);
+}
+
+// floats of one group's activations in the streamed layout: h of every cell
+// [n_cells][2][8][U], the attention vector [8][AL], the context [8][M]
+__host__ __device__ inline size_t act_floats(int n_cells, int U, int AL, int M) {
+  return (size_t)n_cells * 2 * DR * U + (size_t)DR * AL + (size_t)DR * M;
+}
+
 // This block's columns [c0, c0 + n) of a [8][ld] buffer, already written
 // in its own copy, to the same place in every other block of the cluster,
 // as 16-byte stores (n a multiple of 4). The caller synchronises the block
@@ -280,6 +319,7 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
   return MAX ? warp_max(v) : warp_sum(v);
 }
 
+template <bool STREAMED>
 __global__ void __launch_bounds__(THREADS, 1)
 greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clocks) {
   extern __shared__ __align__(16) float smem[];
@@ -289,16 +329,19 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int T = a.T, A = a.A, M = a.M, V = a.V, E = a.E, AL = a.AL, U = a.U;
   const int Us = U / C, Nc = 4 * Us, Ac = A / C, ALc = AL / C;
-  const DecLayout L = dec_layout(T, A, M, V, E, AL, U, a.n_cells, C);
+  const DecLayout L = dec_layout(T, A, M, V, E, AL, U, a.n_cells, C, STREAMED);
   const int Vc = L.Vc, v0 = rank * Vc, nv = max(0, min(V - v0, Vc));  // this block's vocabulary columns
   float* stage_s = smem + L.stage;  // [8][Kmax] a dense stage's input
-  float* h_s = smem + L.hbuf;       // [n_cells][2][8][U]
+  // the activations every block reads whole: in its own shared memory, or
+  // (streamed) the group's in global memory, read through load_row_cg
+  float* act = STREAMED ? a.act + (size_t)(blockIdx.x / C) * act_floats(a.n_cells, U, AL, M) : nullptr;
+  float* hbuf = STREAMED ? act : smem + L.hbuf;                                    // [n_cells][2][8][U]
+  float* attn = STREAMED ? act + (size_t)a.n_cells * 2 * DR * U : smem + L.attn;   // [8][AL]
+  float* ctx = STREAMED ? attn + (size_t)DR * AL : smem + L.ctx;                   // [8][M]
   float* c_s = smem + L.cst;        // [n_cells][8][Us] this block's units
-  float* attn_s = smem + L.attn;    // [8][AL]
-  float* q_s = smem + L.q;          // [8][A] (the rows this block attends for)
-  float* ctx_s = smem + L.ctx;      // [8][M]
+  float* q_s = smem + L.q;          // [qrows][A] (the rows this block attends for: row qrow(r))
   float* part_s = smem + L.part;
-  float* outw_s = smem + L.outw;    // [Vc][ldo] columns v0.. of out_w, transposed
+  float* outw_s = smem + L.outw;    // [Vc][ldo] columns v0.. of out_w, transposed (held layout)
   float* outb_s = smem + L.outb;    // [Vc]
   float* bias_s = smem + L.bias;    // [n_cells][4 Us] this block's slices
   float* sc_s = smem + L.sc;        // [T] scores, then weights
@@ -315,8 +358,9 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
   for (size_t i = tid; i < L.total; i += THREADS) smem[i] = 0.0f;
   __syncthreads();
   for (int i = tid; i < A; i += THREADS) v_s[i] = a.v[i];
-  for (int i = tid; i < nv * AL; i += THREADS)
-    outw_s[(i / AL) * L.ldo + i % AL] = a.out_w[(size_t)(i % AL) * V + v0 + i / AL];
+  if (!STREAMED)
+    for (int i = tid; i < nv * AL; i += THREADS)
+      outw_s[(i / AL) * L.ldo + i % AL] = a.out_w[(size_t)(i % AL) * V + v0 + i / AL];
   for (int i = tid; i < nv; i += THREADS) outb_s[i] = a.out_b[v0 + i];
   for (int i = tid; i < a.n_cells * Nc; i += THREADS)
     bias_s[i] = a.cells[2 * (i / Nc) + 1][(size_t)rank * Nc + i % Nc];
@@ -348,6 +392,12 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
   // argmax (the block's columns, the exchange of the pairs and its barrier,
   // the reduction); 15 counts the steps
   const bool timed = clocks != nullptr && tid == 0 && blockIdx.x == 0;
+  // an activation row into the stage: from shared memory, or (streamed) from L2
+  auto fill = [&](float* dst, const float* src, int n, int l0) {
+    if (STREAMED) load_row_cg(dst, src, n, l0);
+    else copy_row(dst, src, n, l0);
+  };
+  auto qrow = [&](int r) { return STREAMED ? r / C : r; };
   long long tick = timed ? clock64() : 0;
   auto lap = [&](int i) {
     if (timed) {
@@ -367,18 +417,18 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
     // LSTM cell stack: block `rank` owns units [rank*Us, (rank+1)*Us)
     for (int l = 0; l < a.n_cells; ++l) {
       const int din = l == 0 ? E + AL : U, K = din + U;
-      float* hl = h_s + (size_t)l * 2 * DR * U;
+      float* hl = hbuf + (size_t)l * 2 * DR * U;
       // [input; h of the last step], a row a pair of warps
       for (int r = warp >> 1; r < DR; r += NWARPS / 2) {
         const int l0 = lane + 32 * (warp & 1);
         float* dst = stage_s + r * K;
         if (l > 0) {
-          copy_row(dst, hl - 2 * DR * U + (nxt * DR + r) * U, U, l0);
+          fill(dst, hl - 2 * DR * U + (nxt * DR + r) * U, U, l0);
         } else {
           load_row(dst, a.emb + (size_t)tok_s[r] * E, E, l0);
-          copy_row(dst + E, attn_s + r * AL, AL, l0);
+          fill(dst + E, attn + r * AL, AL, l0);
         }
-        copy_row(dst + din, hl + (cur * DR + r) * U, U, l0);
+        fill(dst + din, hl + (cur * DR + r) * U, U, l0);
       }
       __syncthreads();
       lap(0);
@@ -399,21 +449,27 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
         hl[(nxt * DR + r) * U + rank * Us + u] = h_new;
       }
       __syncthreads();
-      share_columns(cluster, hl + nxt * DR * U, U, rank * Us, Us, C, rank);
+      if (!STREAMED) share_columns(cluster, hl + nxt * DR * U, U, rank * Us, Us, C, rank);
       lap(2);
       cluster.sync();
       lap(3);
     }
-    const float* hout = h_s + ((size_t)(a.n_cells - 1) * 2 + nxt) * DR * U;  // [8][U]
+    const float* hout = hbuf + ((size_t)(a.n_cells - 1) * 2 + nxt) * DR * U;  // [8][U]
 
     // query: block `rank` owns A/C columns; row r's go to the block that attends for it
     {
-      const int KS = dense(a.wq + (size_t)rank * U * Ac, U, Ac, hout, U, part_s);
+      const float* hin = hout;
+      if (STREAMED) {
+        for (int r = warp >> 1; r < DR; r += NWARPS / 2) load_row_cg(stage_s + r * U, hout + r * U, U, lane + 32 * (warp & 1));
+        __syncthreads();
+        hin = stage_s;
+      }
+      const int KS = dense(a.wq + (size_t)rank * U * Ac, U, Ac, hin, U, part_s);
       __syncthreads();
       lap(4);
       for (int i = tid; i < DR * Ac; i += THREADS) {
         const int r = i / Ac, c = i - r * Ac;
-        *cluster.map_shared_rank(q_s + r * A + rank * Ac + c, r % C) =
+        *cluster.map_shared_rank(q_s + qrow(r) * A + rank * Ac + c, r % C) =
             gather(part_s, KS, Ac, r, c);
       }
       cluster.sync();
@@ -439,7 +495,7 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
 #pragma unroll
           for (int j = 0; j < SCORE_T; ++j)
             k[j] = __ldg(reinterpret_cast<const float4*>(Kr + (size_t)min(t0 + j, tl - 1) * A) + a4);
-          const float4 q = *reinterpret_cast<const float4*>(q_s + r * A + 4 * a4);
+          const float4 q = *reinterpret_cast<const float4*>(q_s + qrow(r) * A + 4 * a4);
           const float4 vv = *reinterpret_cast<const float4*>(v_s + 4 * a4);
 #pragma unroll
           for (int j = 0; j < SCORE_T; ++j) {
@@ -495,12 +551,12 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
       for (int m = tid; m < M; m += THREADS) {
         float c = part_s[m];
         for (int ts = 1; ts < TS; ++ts) c += part_s[(size_t)ts * M + m];
-        ctx_s[r * M + m] = c;
+        ctx[r * M + m] = c;
       }
       __syncthreads();  // part_s, sc_s and mk_s are reused by the next row
-      for (int i = tid; i < (C - 1) * (M / 4); i += THREADS) {  // the row to every block
+      for (int i = tid; !STREAMED && i < (C - 1) * (M / 4); i += THREADS) {  // the row to every block
         const int p = i / (M / 4), q = i - p * (M / 4);
-        float* mine = ctx_s + r * M + 4 * q;
+        float* mine = ctx + r * M + 4 * q;
         *reinterpret_cast<float4*>(cluster.map_shared_rank(mine, p + (p >= rank))) =
             *reinterpret_cast<const float4*>(mine);
       }
@@ -514,8 +570,8 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
       const int K = U + M;
       for (int r = warp >> 1; r < DR; r += NWARPS / 2) {
         const int l0 = lane + 32 * (warp & 1);
-        copy_row(stage_s + r * K, hout + r * U, U, l0);
-        copy_row(stage_s + r * K + U, ctx_s + r * M, M, l0);
+        fill(stage_s + r * K, hout + r * U, U, l0);
+        fill(stage_s + r * K + U, ctx + r * M, M, l0);
       }
       __syncthreads();
       lap(10);
@@ -524,29 +580,39 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
       lap(11);
       for (int i = tid; i < DR * ALc; i += THREADS) {
         const int r = i / ALc, c = i - r * ALc;
-        attn_s[r * AL + rank * ALc + c] = gather(part_s, KS, ALc, r, c);
+        attn[r * AL + rank * ALc + c] = gather(part_s, KS, ALc, r, c);
       }
       __syncthreads();
-      share_columns(cluster, attn_s, AL, rank * ALc, ALc, C, rank);
+      if (!STREAMED) share_columns(cluster, attn, AL, rank * ALc, ALc, C, rank);
       cluster.sync();
       lap(12);
     }
 
     // logits of this block's columns for all 8 rows: a warp per part of k,
-    // a lane per vocabulary entry, all 8 rows a thread
+    // a lane per vocabulary entry, all 8 rows a thread; streamed, the rows
+    // are staged and the columns of out_w read from L2, a lane a column
     {
+      const float* xs = attn;
+      if (STREAMED) {
+        for (int r = warp >> 1; r < DR; r += NWARPS / 2) load_row_cg(stage_s + r * AL, attn + r * AL, AL, lane + 32 * (warp & 1));
+        __syncthreads();
+        xs = stage_s;
+      }
       const int kq = AL / 4, kper = (kq + NWARPS - 1) / NWARPS;  // in float4s
       const int kb = warp * kper, ke = min(kq, kb + kper);
       for (int o = lane; o < nv; o += 32) {
         const float4* w = reinterpret_cast<const float4*>(outw_s + o * L.ldo);
+        const float* wg = a.out_w + v0 + o;  // streamed: column v0 + o of out_w [AL, V]
         float acc[DR];
 #pragma unroll
         for (int r = 0; r < DR; ++r) acc[r] = 0.0f;
         for (int k = kb; k < ke; ++k) {
-          const float4 wv = w[k];
+          const float4 wv = STREAMED ? make_float4(__ldg(wg + (size_t)(4 * k) * V), __ldg(wg + (size_t)(4 * k + 1) * V),
+                                                   __ldg(wg + (size_t)(4 * k + 2) * V), __ldg(wg + (size_t)(4 * k + 3) * V))
+                                     : w[k];
 #pragma unroll
           for (int r = 0; r < DR; ++r) {
-            const float4 x = reinterpret_cast<const float4*>(attn_s + r * AL)[k];
+            const float4 x = reinterpret_cast<const float4*>(xs + r * AL)[k];
             acc[r] = fmaf(x.x, wv.x, acc[r]);
             acc[r] = fmaf(x.y, wv.y, acc[r]);
             acc[r] = fmaf(x.z, wv.z, acc[r]);
@@ -615,21 +681,23 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
         tokens[(size_t)(row0 + r) * a.steps + i] = a.eos;
 }
 
-bool bad_shape(const DecArgs& a) {
+bool bad_shape(const DecArgs& a, bool streamed) {
   const int C = a.C;
   if (a.B <= 0 || a.T <= 0 || a.n_cells <= 0 || a.steps < 0 || a.V <= 0) return true;
   if (C < 1 || C > 8) return true;
   // 16-byte loads of every input row and weight slice
   if (a.E % 4 || a.AL % 8 || a.U % 4 || a.A % 4 || a.M % 4) return true;
   if (a.U % C || a.A % (4 * C) || a.AL % (4 * C)) return true;
-  const DecLayout L = dec_layout(a.T, a.A, a.M, a.V, a.E, a.AL, a.U, a.n_cells, C);
+  if (streamed && a.act == nullptr) return true;
+  const DecLayout L = dec_layout(a.T, a.A, a.M, a.V, a.E, a.AL, a.U, a.n_cells, C, streamed);
   return L.total * sizeof(float) > SMEM_MAX;
 }
 
+template <bool STREAMED>
 cudaError_t prepare(const DecArgs& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  const DecLayout L = dec_layout(a.T, a.A, a.M, a.V, a.E, a.AL, a.U, a.n_cells, a.C);
+  const DecLayout L = dec_layout(a.T, a.A, a.M, a.V, a.E, a.AL, a.U, a.n_cells, a.C, STREAMED);
   const size_t smem = L.total * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(greedy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t e = cudaFuncSetAttribute(greedy_kernel<STREAMED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -644,43 +712,53 @@ cudaError_t prepare(const DecArgs& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribu
   return cudaSuccess;
 }
 
-}  // namespace
-
-// The whole greedy decode -> tokens [B, steps]. wq, attn_w and the cells'
-// weights are regrouped into `cluster` column slices (see DecArgs); info, if
-// not null, receives what the card gives this launch: info[0] = clusters it
-// can run at once (cudaOccupancyMaxActiveClusters), info[1] = dynamic
-// shared memory bytes a block (dec_layout's, all the shared memory the
-// kernel uses), info[2] = registers a thread, info[3] = static shared
-// memory bytes (0); clocks is null or 16 cycle counters the kernel adds to
-// (see the kernel). A shape whose layout passes SMEM_MAX returns
-// cudaErrorInvalidValue; the wrapper's decoder_plan refuses it first.
-extern "C" int plt_greedy_decode(const float* keys, const float* mem, const float* mask,
-                                 int B, int T, int A, int M, const float* emb, int V,
-                                 int E, const float* wq, const float* v,
-                                 const float* attn_w, int AL, const float* out_w,
-                                 const float* out_b, const void* cell_ptrs, int n_cells,
-                                 int U, int bos, int eos, int steps, int cluster,
-                                 int* tokens, int* info, long long* clocks, void* stream) {
-  DecArgs a{keys, mem, mask, emb, wq, v, attn_w, out_w, out_b,
-            static_cast<const float* const*>(cell_ptrs),
-            B, T, A, M, V, E, AL, U, n_cells, bos, eos, steps, cluster};
-  if (bad_shape(a)) return static_cast<int>(cudaErrorInvalidValue);
+template <bool STREAMED>
+int launch(const DecArgs& a, int* tokens, int* info, long long* clocks, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cudaError_t e = prepare(a, &cfg, &attr);
+  cudaError_t e = prepare<STREAMED>(a, &cfg, &attr);
   if (e != cudaSuccess) return static_cast<int>(e);
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.stream = stream;
   if (info) {
-    e = cudaOccupancyMaxActiveClusters(&info[0], greedy_kernel, &cfg);
+    e = cudaOccupancyMaxActiveClusters(&info[0], greedy_kernel<STREAMED>, &cfg);
     if (e != cudaSuccess) return static_cast<int>(e);
     cudaFuncAttributes fa;
-    e = cudaFuncGetAttributes(&fa, greedy_kernel);
+    e = cudaFuncGetAttributes(&fa, greedy_kernel<STREAMED>);
     if (e != cudaSuccess) return static_cast<int>(e);
     info[1] = (int)cfg.dynamicSmemBytes;
     info[2] = fa.numRegs;
     info[3] = (int)fa.sharedSizeBytes;
   }
-  e = cudaLaunchKernelEx(&cfg, greedy_kernel, a, tokens, clocks);
+  e = cudaLaunchKernelEx(&cfg, greedy_kernel<STREAMED>, a, tokens, clocks);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+}  // namespace
+
+// The whole greedy decode -> tokens [B, steps]. wq, attn_w and the cells'
+// weights are regrouped into `cluster` column slices (see DecArgs);
+// `streamed` picks the layout that keeps the activations every block reads
+// whole in `act` (ceil(B / 8) groups of act_floats, zeroed by the caller)
+// and out_w in global memory (null `act` otherwise); info, if not null,
+// receives what the card gives this launch: info[0] = clusters it can run at
+// once (cudaOccupancyMaxActiveClusters), info[1] = dynamic shared memory
+// bytes a block (dec_layout's, all the shared memory the kernel uses),
+// info[2] = registers a thread, info[3] = static shared memory bytes (0);
+// clocks is null or 16 cycle counters the kernel adds to (see the kernel). A
+// shape whose layout passes SMEM_MAX returns cudaErrorInvalidValue; the
+// wrapper's decoder_plan refuses it first.
+extern "C" int plt_greedy_decode(const float* keys, const float* mem, const float* mask,
+                                 int B, int T, int A, int M, const float* emb, int V,
+                                 int E, const float* wq, const float* v,
+                                 const float* attn_w, int AL, const float* out_w,
+                                 const float* out_b, const void* cell_ptrs, int n_cells,
+                                 int U, int bos, int eos, int steps, int cluster, int streamed,
+                                 float* act, int* tokens, int* info, long long* clocks,
+                                 void* stream) {
+  DecArgs a{keys, mem, mask, emb, wq, v, attn_w, out_w, out_b,
+            static_cast<const float* const*>(cell_ptrs), act,
+            B, T, A, M, V, E, AL, U, n_cells, bos, eos, steps, cluster};
+  if (bad_shape(a, streamed != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return streamed ? launch<true>(a, tokens, info, clocks, s) : launch<false>(a, tokens, info, clocks, s);
 }

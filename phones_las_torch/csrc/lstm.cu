@@ -57,10 +57,16 @@
 //      and starts the cp.async of a later xp tile; the next step begins
 //      when the block's own barrier has seen all Bt * U values. No fence
 //      and no cluster-wide barrier is paid per step.
-// C = 1 is one block that owns every unit; where no slice fits in shared
-// memory (C = 1 at a large U) the same code streams Wh from L2. The caller
-// chooses C, Bt and the k split from the shape (ops/lstm.py::forward_plan)
-// and this file refuses what does not fit: there is no second route.
+// C = 1 is one block that owns every unit. Where a block's slice does not
+// fit in shared memory (float32 past U = 256: at U = 1024, C = 8 a slice is
+// [1024][512] floats, 2 MB) the same code streams it from L2 at every step,
+// 16-byte loads of its rows, each element used for the Bt rows of the tile
+// from registers: a step then reads C x 2 MB a cluster from L2 instead of
+// nothing, and the product waits on those reads. U is a multiple of 8 up to
+// 1024; the caller chooses C, Bt, the k split and whether the slice is
+// resident from the shape (ops/lstm.py::forward_plan), pads any other U with
+// zeros to one that a plan takes, and this file refuses what does not fit:
+// there is no second route.
 //
 // Prediction, made before the first run on the card (H100, B = 64, U = 256,
 // C = 8): the float32 product is 16*256*128 FMA a step and block at
@@ -131,9 +137,11 @@
 // recompute stays a separate GEMM: its rows are independent, and inside the
 // loop it would double the loop's product.
 // C = 1 serves the widths no cluster divides (U = 40; at U = 248 the slice
-// streams from L2). The caller chooses C, Bt and the k split from the
-// shape (ops/lstm.py::backward_plan); this file refuses what does not
-// fit: there is no second route.
+// streams from L2); past U = 256 in float32 the slices of a cluster stream
+// from L2 at every step as the forward's do. The caller chooses C, Bt, the
+// k split and residency from the shape (ops/lstm.py::backward_plan); this
+// file refuses what does not fit: there is no second route. The two GEMMs
+// take any U of the range (columns by blocks of 32 units, rows of T*B).
 //
 // Prediction, made before the first run on the card (H100, T = 999, B = 32,
 // U = 256, both directions, C = 8, Bt = 8: 8 clusters): the loop's product
@@ -1344,18 +1352,21 @@ __global__ void dwh_reduce_kernel(BwdArgs a, const float* __restrict__ partials,
   }
 }
 
+// U a multiple of 8 (the slices of a block) up to MAX_UNITS; ops/lstm.py
+// pads any other U with zeros to one the plan takes
+constexpr int MAX_UNITS = 1024;
 bool bad_shape(int nd, int T, int B, int U) {
-  return nd < 1 || nd > 2 || T <= 0 || B <= 0 || 4 * U > 1024 || (4 * U) % 32 != 0;
+  return nd < 1 || nd > 2 || T <= 0 || B <= 0 || U <= 0 || U > MAX_UNITS || U % 8 != 0;
 }
 
 // what the forward kernel takes: C divides U into slices of a multiple of 8
 // units (16-byte column groups, 8-column mma tiles), tiles of 8 or 16 rows,
-// and a layout that fits a block's shared memory
+// and a layout that fits a block's shared memory, the Wh slice resident or
+// streamed from L2 at any C
 bool bad_plan(int U, FwdPlan p, bool bf) {
   if (p.C < 1 || p.C > 16 || U % p.C || (U / p.C) % 8) return true;
   if (p.Bt != 8 && p.Bt != 16) return true;
   if (p.KS < 1 || p.KS > 16 || (bf && p.KS != 1)) return true;
-  if (!p.resident && p.C != 1) return true;
   return fwd_layout(U, p, bf).total > SMEM_MAX;
 }
 
@@ -1364,7 +1375,6 @@ bool bad_bwd_plan(int U, BwdPlan p, bool bf) {
   if (p.C < 1 || p.C > 16 || U % p.C || (U / p.C) % 8) return true;
   if (p.Bt != 8 && p.Bt != 16) return true;
   if (p.KS < 1 || p.KS > 16 || (bf && p.KS != 1)) return true;
-  if (!p.resident && p.C != 1) return true;
   return bwd_layout(U, p, bf).total > SMEM_MAX;
 }
 

@@ -13,13 +13,21 @@ one cluster barrier a stage; attention runs per row, one row a block. The
 output projection is sliced over the blocks as well: each block holds
 ``ceil(V / C)`` of its columns, and the rows' (maximum, first index) pairs
 meet in every block, so the shared memory a block needs grows with V / C
-(``decoder_smem_bytes``) and the phone vocabularies fit. A group stops
+(``decoder_smem_bytes``) and the phone vocabularies fit. Where the
+activations that every block reads whole (each cell's h, the context, the
+attention vector) do not fit in every block beside the rest — the speller
+widths of LAS-4-1024, U = A = 1024, M = 2048 — the streamed layout keeps
+them, and ``out_w``, in global memory (L2), written by their owners and
+staged by the readers after the cluster barrier that already ends each
+stage. Every width runs: a width that is no multiple of the kernel's
+granularity is zero padded (``ops/padding.py``, exact) to one that a plan
+takes (``kernel_widths``). A group stops
 when all its rows have emitted <eos>; the last group is padded with rows
 that start finished. The layout work the kernel needs (``column_slices``:
-each block's weight slice made contiguous), the kernel's shared-memory
-layout and the choice of C (``decoder_plan``, which refuses a shape that
-no cluster size fits before any launch) are here, where the CPU tests
-reach them.
+each block's weight slice made contiguous; ``pad_speller``), the kernel's
+shared-memory layout and the choice of C and layout (``decoder_plan``,
+which refuses a shape that no plan fits before any launch) are here, where
+the CPU tests reach them.
 The kernel is the operator ``torch.ops.phones_las_torch.greedy_decode_fused``
 (the speller's weights flattened by ``flat_weights``; CPU: the plain
 version, CUDA: the launch, widths read from the weights' shapes), so an
@@ -42,12 +50,14 @@ hard-coded to 1.0, float32 dots, and the masked softmax
 from __future__ import annotations
 
 import ctypes
+import math
 from types import SimpleNamespace
 from typing import TYPE_CHECKING, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from phones_las_torch.ops.attention import precompute_keys
+from phones_las_torch.ops.padding import pad_blocks, pad_gates, round_up
 from phones_las_torch.utils.device import check_kernel_device
 
 if TYPE_CHECKING:  # the model code stays out of an exported program's loader
@@ -131,25 +141,37 @@ def _pad4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def decoder_smem_bytes(b: int, t: int, cfg, c: int) -> int:
+def decoder_smem_bytes(b: int, t: int, cfg, c: int, streamed: bool = False) -> int:
     """Shared memory a block of the kernel takes for ``t`` encoder
-    positions under a cluster of ``c`` blocks: the Python mirror of
-    ``csrc/greedy.cu::dec_layout`` (the same at every batch ``b``). ``cfg``
-    is a ``SpellerConfig`` or ``DecoderWidths``."""
+    positions under a cluster of ``c`` blocks, in the held or the streamed
+    layout: the Python mirror of ``csrc/greedy.cu::dec_layout`` (the same
+    at every batch ``b``). ``cfg`` is a ``SpellerConfig`` or
+    ``DecoderWidths``."""
     del b  # a group's layout does not depend on the batch
     e, u, a, al = cfg.embedding_dim, cfg.units, cfg.attention_units, cfg.attention_layer_size
     m, n_cells, r = cfg.memory_dim, cfg.num_layers, GROUP_ROWS
     vc = _pad4(-(-cfg.vocab_size // c))  # vocabulary columns a block owns
     kmax = max(e + al + u, 2 * u, u + m)
     widest = max(4 * u // c, a // c, al // c)
+    held = 0 if streamed else 1  # each cell's h, the attention vector, the context, the out_w slice
+    qrows = -(-r // c) if streamed else r
     floats = (
-        r * kmax + n_cells * 2 * r * u + n_cells * r * (u // c) + r * al + r * a + r * m  # stage .. ctx
+        r * kmax + held * n_cells * 2 * r * u + n_cells * r * (u // c) + held * r * al + qrows * a
+        + held * r * m  # stage .. ctx
         + max(THREADS * 4 * r, r * widest, THREADS * 4, m, (THREADS // 32) * r * vc)  # part
-        + vc * (al + 4) + vc + n_cells * 4 * (u // c)  # out_w slice, out_b slice, biases
+        + held * vc * (al + 4) + vc + n_cells * 4 * (u // c)  # out_w slice, out_b slice, biases
         + 2 * _pad4(t) + _pad4(a) + r * vc  # scores, mask, v, logits
         + 2 * 8 * r + 4 * r + 64  # the blocks' pairs, the rows' flags, the reduction
     )
     return 4 * floats
+
+
+def decoder_act_floats(cfg) -> int:
+    """Floats of one group's activations in global memory in the streamed
+    layout (``csrc/greedy.cu::act_floats``): each cell's h [2][8][U], the
+    attention vector [8][AL], the context [8][M]."""
+    r = GROUP_ROWS
+    return cfg.num_layers * 2 * r * cfg.units + r * cfg.attention_layer_size + r * cfg.memory_dim
 
 
 class DecoderPlan(NamedTuple):
@@ -158,18 +180,37 @@ class DecoderPlan(NamedTuple):
     cluster: int  # C: blocks of a cluster = column slices of every dense stage
     rows: int  # rows of a group (GROUP_ROWS)
     groups: int  # clusters of the launch: ceil(B / rows)
+    streamed: bool = False  # the activations every block reads whole, and out_w, in global memory
+
+
+def _cuts(cfg) -> List[int]:
+    """The cluster sizes that cut the units, the attention units and the
+    attention layer into slices of a multiple of 4 columns."""
+    return [c for c in DECODER_CLUSTERS
+            if cfg.units % (4 * c) == 0 and cfg.attention_units % (4 * c) == 0
+            and cfg.attention_layer_size % (4 * c) == 0]
+
+
+def _first_fit(b: int, cfg, t: int) -> Optional[DecoderPlan]:
+    for streamed in (False, True):
+        for c in _cuts(cfg):
+            if decoder_smem_bytes(b, t, cfg, c, streamed) <= SMEM_MAX:
+                return DecoderPlan(c, GROUP_ROWS, -(-b // GROUP_ROWS), streamed)
+    return None
 
 
 def decoder_plan(b: int, cfg: "SpellerConfig", t: int = 1) -> DecoderPlan:
-    """The kernel's cluster size for a batch, ``t`` encoder positions and a
-    config — a pure function.
+    """The kernel's cluster size and layout for a batch, ``t`` encoder
+    positions and a config — a pure function.
 
     C is the largest of ``DECODER_CLUSTERS`` that cuts the units, the
     attention units and the attention layer into slices of a multiple of 4
-    columns (16-byte loads) and whose layout fits a block's shared memory
-    (``decoder_smem_bytes`` ≤ ``SMEM_MAX``). Raises ``ValueError`` for
-    widths the kernel does not take (every width a multiple of 4, the
-    attention layer of 8) and for a shape that no cluster size fits."""
+    columns (16-byte loads) and whose held layout fits a block's shared
+    memory (``decoder_smem_bytes`` ≤ ``SMEM_MAX``); where no cut's held
+    layout fits, the largest cut whose streamed layout does. Raises
+    ``ValueError`` for widths the kernel does not take (every width a
+    multiple of 4, the attention layer of 8: ``kernel_widths`` pads the
+    others) and for a shape that no plan fits."""
     widths = {
         "embedding_dim": cfg.embedding_dim, "units": cfg.units, "attention_units": cfg.attention_units,
         "attention_layer_size": cfg.attention_layer_size, "memory_dim": cfg.memory_dim,
@@ -180,16 +221,64 @@ def decoder_plan(b: int, cfg: "SpellerConfig", t: int = 1) -> DecoderPlan:
             f"the fused greedy decoder takes a batch, encoder length and vocabulary >= 1 and widths that are "
             f"multiples of 4 (the attention layer of 8), got B={b}, T={t}, V={cfg.vocab_size}, {odd}"
         )
-    cuts = [c for c in DECODER_CLUSTERS
-            if cfg.units % (4 * c) == 0 and cfg.attention_units % (4 * c) == 0 and cfg.attention_layer_size % (4 * c) == 0]
-    for c in cuts:
-        if decoder_smem_bytes(b, t, cfg, c) <= SMEM_MAX:
-            return DecoderPlan(c, GROUP_ROWS, -(-b // GROUP_ROWS))
-    raise ValueError(
-        f"the fused greedy decoder needs {decoder_smem_bytes(b, t, cfg, cuts[0])} bytes of shared memory a block "
-        f"at T={t}, V={cfg.vocab_size}, {cfg.num_layers} cell(s) of {cfg.units} (cluster {cuts[0]}), over the "
-        f"{SMEM_MAX} bytes a block may use"
-    )
+    plan = _first_fit(b, cfg, t)
+    if plan is None:
+        c = _cuts(cfg)[0]
+        raise ValueError(
+            f"the fused greedy decoder needs {decoder_smem_bytes(b, t, cfg, c, True)} bytes of shared memory a "
+            f"block at T={t}, V={cfg.vocab_size}, {cfg.num_layers} cell(s) of {cfg.units} (cluster {c}, streamed), "
+            f"over the {SMEM_MAX} bytes a block may use"
+        )
+    return plan
+
+
+def kernel_widths(b: int, cfg, t: int) -> Tuple["DecoderWidths", DecoderPlan]:
+    """The widths the kernel runs ``cfg`` at, and its plan there: each width
+    rounded up to the kernel's granularity (E, U, A and M to 4, the
+    attention layer to 8); where no plan fits those, also to the cut of C
+    blocks (U, A and the attention layer to 4·C) for the largest C that
+    fits. The padding is exact (``ops/padding.py``); raises ``ValueError``
+    where nothing fits (``decoder_plan``'s message)."""
+    w = DecoderWidths(cfg.vocab_size, round_up(cfg.embedding_dim, 4), round_up(cfg.units, 4),
+                      round_up(cfg.attention_units, 4), round_up(cfg.attention_layer_size, 8),
+                      round_up(cfg.memory_dim, 4), cfg.bos_id, cfg.eos_id, cfg.num_layers)
+    candidates = [w] + [w._replace(units=round_up(w.units, 4 * c), attention_units=round_up(w.attention_units, 4 * c),
+                                   attention_layer_size=round_up(w.attention_layer_size, math.lcm(8, 4 * c)))
+                        for c in DECODER_CLUSTERS]
+    for cand in candidates:
+        if b >= 1 and t >= 1 and (plan := _first_fit(b, cand, t)) is not None:
+            return cand, plan
+    return w, decoder_plan(b, w, t)  # raises
+
+
+def pad_speller(weights: List[torch.Tensor], memory: torch.Tensor, widths, kw) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """``flat_weights`` of a speller of ``widths`` and its memory, zero
+    padded to the kernel widths ``kw`` (``kernel_widths``) → (weights,
+    memory): the embedding's columns; wk's rows (memory) and columns
+    (attention units); wq's rows (units) and columns; v; the attention
+    layer's rows ([h; context] → [Up; Mp]) and columns; out_w's rows; each
+    cell's wx rows (the first cell's [embedding; attention vector], the
+    others' h), wh rows and every gate's columns, bias. Exact: see
+    ``ops/padding.py``. Unchanged where nothing grows."""
+    e, u, a, al, m = (widths.embedding_dim, widths.units, widths.attention_units, widths.attention_layer_size,
+                      widths.memory_dim)
+    ep, up, ap, alp, mp = kw.embedding_dim, kw.units, kw.attention_units, kw.attention_layer_size, kw.memory_dim
+    emb, wk, wq, v, attn_layer, out_w, out_b = weights[:7]
+    out = [
+        pad_blocks(emb, 1, [e], [ep]),
+        pad_blocks(pad_blocks(wk, 0, [m], [mp]), 1, [a], [ap]),
+        pad_blocks(pad_blocks(wq, 0, [u], [up]), 1, [a], [ap]),
+        pad_blocks(v, 0, [a], [ap]),
+        pad_blocks(pad_blocks(attn_layer, 0, [u, m], [up, mp]), 1, [al], [alp]),
+        pad_blocks(out_w, 0, [al], [alp]),
+        out_b,
+    ]
+    for i in range(7, len(weights), 3):
+        wx, wh, bias = weights[i:i + 3]
+        rows = ([e, al], [ep, alp]) if i == 7 else ([u], [up])
+        out += [pad_gates(pad_blocks(wx, 0, *rows), u, up), pad_gates(pad_blocks(wh, 0, [u], [up]), u, up),
+                pad_gates(bias, u, up)]
+    return out, pad_blocks(memory, 2, [m], [mp])
 
 
 def column_slices(w: torch.Tensor, c: int, gates: int = 1) -> torch.Tensor:
@@ -278,18 +367,22 @@ def _launch(params, widths: DecoderWidths, memory, enc_mask, max_steps: int,
     """One launch of the kernel (built at first use) → tokens. ``clocks``
     (measurements only), an int64 CUDA tensor of 16, receives the SM cycles
     the first block spent in each part of a step (``CLOCK_NAMES``) and,
-    last, the steps it ran."""
+    last, the steps it ran. Widths the kernel does not take as they are
+    run zero padded (``kernel_widths``, ``pad_speller``)."""
     from phones_las_torch.csrc import _build
 
     lib = _build.library()
-    b, t, m = memory.shape
-    plan = decoder_plan(b, widths, t)
+    b, t, _ = memory.shape
+    kw, plan = kernel_widths(b, widths, t)
     c = plan.cluster
     dev = memory.device
+    f32 = lambda x: x.detach().to(torch.float32).contiguous()
+    weights, memory = pad_speller([f32(w) for w in flat_weights(params)], memory, widths, kw)
+    params, _ = _unflatten(weights, memory, kw.bos_id, kw.eos_id)
+    m = kw.memory_dim
     keys = precompute_keys(params.attention, memory).contiguous()
     mem = memory.contiguous()
     mask = enc_mask.to(torch.float32).contiguous()
-    f32 = lambda x: x.detach().to(torch.float32).contiguous()
     emb, v, out_w, out_b = f32(params.embedding), f32(params.attention.v), f32(params.out_w), f32(params.out_b)
     if emb.data_ptr() % 16:  # the kernel reads embedding rows in 16-byte loads
         emb = emb.clone()
@@ -300,23 +393,28 @@ def _launch(params, widths: DecoderWidths, memory, enc_mask, max_steps: int,
         cells += [column_slices(torch.cat([f32(cell.wx), f32(cell.wh)]), c, gates=4),
                   column_slices(f32(cell.b), c, gates=4)]
     cell_ptrs = torch.tensor([x.data_ptr() for x in cells], dtype=torch.int64, device=dev)
+    # the streamed layout's activations, a group's each, zero before the first step
+    act = torch.zeros((plan.groups, decoder_act_floats(kw)), device=dev) if plan.streamed else None
     tokens = torch.empty((b, max_steps), dtype=torch.int32, device=dev)
     info = (ctypes.c_int * 4)()
     err = lib.plt_greedy_decode(
         keys.data_ptr(), mem.data_ptr(), mask.data_ptr(), b, t,
-        widths.attention_units, m, emb.data_ptr(), widths.vocab_size,
-        widths.embedding_dim, wq.data_ptr(), v.data_ptr(), attn_w.data_ptr(),
-        widths.attention_layer_size, out_w.data_ptr(), out_b.data_ptr(),
-        cell_ptrs.data_ptr(), len(params.cells), widths.units, widths.bos_id,
-        widths.eos_id, max_steps, c, tokens.data_ptr(), info,
-        None if clocks is None else clocks.data_ptr(),
+        kw.attention_units, m, emb.data_ptr(), kw.vocab_size,
+        kw.embedding_dim, wq.data_ptr(), v.data_ptr(), attn_w.data_ptr(),
+        kw.attention_layer_size, out_w.data_ptr(), out_b.data_ptr(),
+        cell_ptrs.data_ptr(), len(params.cells), kw.units, kw.bos_id,
+        kw.eos_id, max_steps, c, int(plan.streamed), None if act is None else act.data_ptr(),
+        tokens.data_ptr(), info, None if clocks is None else clocks.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "plt_greedy_decode")
     greedy_decode_fused.launches += 1
     greedy_decode_fused.last_launch = {
-        "cluster": c, "rows": plan.rows, "groups": plan.groups, "max_active_clusters": info[0],
-        "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3],
+        "cluster": c, "rows": plan.rows, "groups": plan.groups, "streamed": plan.streamed,
+        "kernel_widths": {k: getattr(kw, k) for k in ("embedding_dim", "units", "attention_units",
+                                                        "attention_layer_size", "memory_dim")},
+        "smem_expected": decoder_smem_bytes(b, t, kw, c, plan.streamed),
+        "max_active_clusters": info[0], "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3],
     }
     return tokens
 

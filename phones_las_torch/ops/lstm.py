@@ -27,7 +27,9 @@ The forward kernel is one template launched as thread-block clusters: a
 cluster of C blocks runs one direction for a tile of Bt batch rows over
 all T steps, block c owning units ``[c·U/C, (c+1)·U/C)`` with their four
 gate columns and holding that slice of ``wh`` in shared memory for the
-whole time loop; each step the blocks exchange their h slices through
+whole time loop where it fits (U up to 256 in float32), else streaming it
+from L2 at every step (up to U = 1024, where a block's float32 slice is
+2 MB); each step the blocks exchange their h slices through
 distributed shared memory (``st.async`` onto transaction barriers). The
 VJP's serial loop is the same design run backwards in time: block c
 multiplies the gate gradients of its own units by its resident slice of
@@ -35,8 +37,11 @@ multiplies the gate gradients of its own units by its resident slice of
 parts they own and add them in rank order (so repeated runs are bitwise
 equal). What of this is layout and choice lives here, where the CPU tests
 reach it: ``regroup_wh``/``ungroup_wh`` (``wh`` by unit slice),
-``forward_plan`` and ``backward_plan`` (C, Bt, the k split and the
-shared-memory bytes from the shape, pure functions);
+``forward_plan`` and ``backward_plan`` (C, Bt, the k split, the
+shared-memory bytes and the width the kernel runs at, from the shape, pure
+functions). Every U from 1 to ``MAX_UNITS`` runs on the card: a U that is
+no multiple of 8, or that no cut fits, runs at a wider U with zero
+padding (``ops/padding.py``: exact), the results sliced back;
 ``tests/test_torch_cluster_layout.py`` and
 ``tests/test_torch_lstm_bwd_layout.py`` emulate the two decompositions in
 plain PyTorch on them.
@@ -61,6 +66,7 @@ import torch
 from torch import nn
 
 from phones_las_torch.ops.masking import length_mask
+from phones_las_torch.ops.padding import pad_gates, pad_lstm_wh, pad_units, round_up, slice_gates
 from phones_las_torch.utils.device import check_kernel_device
 
 PRECISIONS = ("highest", "bf16")
@@ -224,8 +230,8 @@ def _check_recurrence_args(xps, mask_tm, whs, name: str) -> Tuple[int, int, int]
             raise ValueError(f"{name}: wh must be [{u}, {four_u}], got {tuple(wh.shape)}")
     if mask_tm.shape != (t, b) or mask_tm.dtype != torch.float32:
         raise ValueError(f"{name}: mask must be [{t}, {b}] float32, got {tuple(mask_tm.shape)} {mask_tm.dtype}")
-    if four_u % 32 or four_u > 1024:
-        raise ValueError(f"{name}: the kernel takes 4U a multiple of 32 up to 1024, got 4U={four_u}")
+    if four_u % 4 or not 0 < u <= MAX_UNITS:
+        raise ValueError(f"{name}: the kernels take U from 1 to {MAX_UNITS}, got U={four_u / 4:g}")
     return t, b, u
 
 
@@ -314,6 +320,7 @@ SMEM_MAX = 232448  # dynamic shared memory a block may use on the H100
 CLUSTER_SIZES = (8, 4, 2, 1)  # tried in this order; 8 is the portable maximum
 ROW_TILES = (8, 16)
 XP_RING = 3  # xp tiles a block keeps in flight
+MAX_UNITS = 1024  # the widest U the kernels take (csrc/lstm.cu's bad_shape)
 
 
 class ForwardPlan(NamedTuple):
@@ -322,8 +329,31 @@ class ForwardPlan(NamedTuple):
     cluster: int  # C: blocks of a cluster = slices of the units
     bt: int  # batch rows of a cluster's tile
     ksplit: int  # float32: parts the k range is split into among the warps
-    resident: bool  # the block's wh slice lies in shared memory
+    resident: bool  # the block's wh slice lies in shared memory (else it streams from L2)
     smem: int  # dynamic shared memory bytes of a block
+    units: int  # the U the kernel runs at: the layer's, or wider with zero padding
+
+
+def kernel_units(u: int, c: int) -> int:
+    """The U a cluster of ``c`` blocks runs a layer of ``u`` units at:
+    ``u`` rounded up to slices of a multiple of 8 units a block."""
+    return round_up(u, 8 * c)
+
+
+def _plan_candidates(u: int) -> List[Tuple[int, bool, int]]:
+    """The (C, resident, kernel U) the plans try, in order: the cuts of U
+    itself into slices of a multiple of 8 units, first with the block's
+    slice of wh resident in shared memory, then streamed from L2; then the
+    cuts of a U padded to a multiple of 8·C, resident, then streamed."""
+    exact = [c for c in CLUSTER_SIZES if u % (8 * c) == 0]
+    padded = [c for c in CLUSTER_SIZES if c not in exact]
+    return ([(c, True, u) for c in exact] + [(c, False, u) for c in exact]
+            + [(c, res, kernel_units(u, c)) for c in padded for res in (True, False)])
+
+
+def _check_units(u: int) -> None:
+    if u % 8 or not 0 < u <= MAX_UNITS:
+        raise ValueError(f"the kernels take U a multiple of 8 from 8 to {MAX_UNITS}, got U={u}")
 
 
 def regroup_wh(wh: torch.Tensor, c: int) -> torch.Tensor:
@@ -356,8 +386,8 @@ def _kernel_wh(wh: torch.Tensor, c: int, prec: str) -> torch.Tensor:
 
 def forward_smem_bytes(u: int, c: int, bt: int, ksplit: int, resident: bool, bf16: bool) -> int:
     """A block's dynamic shared memory, as ``fwd_layout`` of csrc/lstm.cu
-    lays it out: the wh slice, two h buffers, the partial sums, three xp
-    tiles (gates and mask) and the state (c, h, out)."""
+    lays it out: the wh slice (when resident), two h buffers, the partial
+    sums, three xp tiles (gates and mask) and the state (c, h, out)."""
     us = u // c
     nc = 4 * us
     kp = -(-u // 16) * 16
@@ -397,29 +427,34 @@ def forward_plan(
     b: int, u: int, nd: int, prec: str = "highest",
     max_active: Optional[Callable[[int, int, int, bool], int]] = None,
 ) -> ForwardPlan:
-    """The forward kernel's (C, Bt, k split) for a shape — a pure function.
+    """The forward kernel's (C, Bt, k split, kernel U) for a shape — a pure
+    function. Takes every U that is a multiple of 8 from 8 to
+    ``MAX_UNITS`` (the wrappers pad any other U to the next multiple of 8).
 
     C is the largest of ``CLUSTER_SIZES`` that divides U into slices of a
     multiple of 8 units whose wh slice fits in shared memory beside the
-    rest; if none does, C = 1 streams wh from L2. Bt is the smallest tile
-    (the shortest step) whose ``ceil(B/Bt)·nd`` clusters the card runs at
-    once, as ``max_active(C, Bt, ksplit, resident)`` says (on the card:
-    ``cudaOccupancyMaxActiveClusters``); without that knowledge, or if no
-    tile fits in one wave, the largest tile that fits in shared memory.
-    Raises for a U the kernel does not take."""
+    rest; if none does, the largest such C whose layout fits with each
+    block streaming its slice of wh from L2 at every step (U past 256 in
+    float32: a block's slice is 2 MB at U = 1024, C = 8); if none does
+    either (a U of 8·k, k prime, past what one block holds), U is zero
+    padded to a multiple of 8·C for the largest C that fits
+    (``_plan_candidates``, ``ForwardPlan.units``). Bt is the smallest
+    tile (the shortest step) whose ``ceil(B/Bt)·nd`` clusters the card runs
+    at once, as ``max_active(C, Bt, ksplit, resident)`` says for the
+    plan's kernel U (on the card: ``cudaOccupancyMaxActiveClusters``);
+    without that knowledge, or if no tile fits in one wave, the largest
+    tile that fits in shared memory. Raises ``ValueError`` for a U outside
+    that range."""
     _check_prec(prec)
-    if u % 8 or not 0 < 4 * u <= 1024:
-        raise ValueError(f"the kernel takes 4U a multiple of 32 up to 1024, got 4U={4 * u}")
+    _check_units(u)
     bf16 = prec == "bf16"
-    for c, resident in [(c, True) for c in CLUSTER_SIZES] + [(1, False)]:
-        if u % c or (u // c) % 8:
-            continue
+    for c, resident, units in _plan_candidates(u):
         fits = []
         for bt in ROW_TILES:
-            ks = _ksplit(u, c, bt, bf16)
-            smem = forward_smem_bytes(u, c, bt, ks, resident, bf16)
+            ks = _ksplit(units, c, bt, bf16)
+            smem = forward_smem_bytes(units, c, bt, ks, resident, bf16)
             if smem <= SMEM_MAX:
-                fits.append(ForwardPlan(c, bt, ks, resident, smem))
+                fits.append(ForwardPlan(c, bt, ks, resident, smem, units))
         if fits:
             active = None if max_active is None else (lambda p: max_active(p.cluster, p.bt, p.ksplit, p.resident))
             return _choose_tile(fits, b, nd, active)
@@ -444,7 +479,9 @@ def _launch_forward(entry, xps, mask_tm, whs, forget_bias, reverse, prec, plan: 
     """One launch of the forward kernel. ``plan`` overrides ``forward_plan``
     (measurements only); ``clocks``, an int64 CUDA tensor of 4, receives the
     SM cycles one block spent in the product, the cell update, the output
-    stores and the wait for the peers' h."""
+    stores and the wait for the peers' h. Where the plan's kernel U is wider
+    than the layer's, xp and wh are zero padded to it and the results
+    sliced back (``ops/padding.py``)."""
     t, b, u = _check_recurrence_args(xps, mask_tm, whs, entry)
     from phones_las_torch.csrc import _build
 
@@ -453,30 +490,36 @@ def _launch_forward(entry, xps, mask_tm, whs, forget_bias, reverse, prec, plan: 
     save = entry == "plt_lstm_residual"
     nd = len(xps)
     if plan is None:
+        u8 = round_up(u, 8)
         plan = forward_plan(
-            b, u, nd, prec,
-            lambda c, bt, ks, res: forward_kernel_info(u, bf16, save, c, bt, ks, res)["max_active_clusters"],
+            b, u8, nd, prec,
+            lambda c, bt, ks, res: forward_kernel_info(kernel_units(u8, c), bf16, save, c, bt, ks, res)[
+                "max_active_clusters"],
         )
+    up = plan.units
     wdt = torch.bfloat16 if bf16 else torch.float32
-    xps = [x.contiguous() for x in xps]
-    whs = [_kernel_wh(w, plan.cluster, prec) for w in whs]
+    xps = [pad_gates(x, u, up).contiguous() for x in xps]
+    whs = [_kernel_wh(pad_lstm_wh(w.detach(), up), plan.cluster, prec) for w in whs]
     mask = mask_tm.contiguous()
     dev = xps[0].device
-    outs = [torch.empty((t, b, u), dtype=torch.float32, device=dev) for _ in range(nd)]
-    hprevs = [torch.empty((t, b, u), dtype=wdt, device=dev) for _ in range(nd)] if save else []
-    cprevs = [torch.empty((t, b, u), dtype=wdt, device=dev) for _ in range(nd)] if save else []
-    hs = [torch.empty((b, u), dtype=torch.float32, device=dev) for _ in range(nd)]
-    cs = [torch.empty((b, u), dtype=torch.float32, device=dev) for _ in range(nd)]
+    outs = [torch.empty((t, b, up), dtype=torch.float32, device=dev) for _ in range(nd)]
+    hprevs = [torch.empty((t, b, up), dtype=wdt, device=dev) for _ in range(nd)] if save else []
+    cprevs = [torch.empty((t, b, up), dtype=wdt, device=dev) for _ in range(nd)] if save else []
+    hs = [torch.empty((b, up), dtype=torch.float32, device=dev) for _ in range(nd)]
+    cs = [torch.empty((b, up), dtype=torch.float32, device=dev) for _ in range(nd)]
     err = getattr(lib, entry)(
         *_ptrs(xps), mask.data_ptr(), *_ptrs(whs), nd, _rev_bits(reverse),
         int(bf16), *_ptrs(outs), *_ptrs(hprevs), *_ptrs(cprevs),
-        *_ptrs(hs), *_ptrs(cs), t, b, u, float(forget_bias),
+        *_ptrs(hs), *_ptrs(cs), t, b, up, float(forget_bias),
         plan.cluster, plan.bt, plan.ksplit, int(plan.resident),
         None if clocks is None else clocks.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, entry)
     _launch_forward.last_plan = plan
+    if up != u:
+        cut = lambda ts: [x[..., :u].contiguous() for x in ts]
+        outs, hprevs, cprevs, hs, cs = cut(outs), cut(hprevs), cut(cprevs), cut(hs), cut(cs)
     none = [None] * nd
     return list(zip(outs, hprevs or none, cprevs or none, hs, cs))
 
@@ -490,8 +533,9 @@ class BackwardPlan(NamedTuple):
     cluster: int  # C: blocks of a cluster = slices of the units
     bt: int  # batch rows of a cluster's tile
     ksplit: int  # float32: parts the k range (a block's 4·U/C gate columns) is split into
-    resident: bool  # the block's slice of whᵀ lies in shared memory
+    resident: bool  # the block's slice of whᵀ lies in shared memory (else it streams from L2)
     smem: int  # dynamic shared memory bytes of a block
+    units: int  # the U the kernels run at: the layer's, or wider with zero padding
 
 
 BWD_RING = 2  # tiles of factors, dout and mask a block keeps: one in use, one in flight
@@ -546,47 +590,48 @@ def backward_plan(
     b: int, u: int, nd: int, prec: str = "highest",
     max_active: Optional[Callable[[BackwardPlan], int]] = None,
 ) -> BackwardPlan:
-    """The (C, Bt, k split) of the VJP's loop kernel for a shape — a pure
-    function, the companion of ``forward_plan``.
+    """The (C, Bt, k split, kernel U) of the VJP's loop kernel for a shape —
+    a pure function, the companion of ``forward_plan``, over the same U
+    (multiples of 8 from 8 to ``MAX_UNITS``).
 
     C is the largest of ``CLUSTER_SIZES`` that divides U into slices of a
     multiple of 8 units whose slice of whᵀ fits in shared memory beside the
-    rest; if none does, C = 1 streams it from L2. For each tile Bt the k
-    split is the largest that fits (halved until it does). Bt is then chosen as ``forward_plan`` chooses
-    it: the smallest tile whose ``ceil(B/Bt)·nd`` clusters the card runs at
-    once, as ``max_active(plan)`` says (on the card:
-    ``cudaOccupancyMaxActiveClusters``); without that knowledge, or if no
-    tile fits in one wave, the largest tile that fits in shared memory.
-    Raises for a U the kernel does not take."""
+    rest; if none does, the largest such C whose layout fits with each
+    block streaming its slice of whᵀ from L2 at every step; if none does
+    either, U is zero padded to a multiple of 8·C for the largest C that
+    fits (``_plan_candidates``). For each tile Bt the k split is the
+    largest that fits (halved until it does). Bt is then chosen as
+    ``forward_plan`` chooses it: the smallest tile whose ``ceil(B/Bt)·nd``
+    clusters the card runs at once, as ``max_active(plan)`` says (on the
+    card: ``cudaOccupancyMaxActiveClusters``); without that knowledge, or
+    if no tile fits in one wave, the largest tile that fits in shared
+    memory. Raises ``ValueError`` for a U outside that range."""
     _check_prec(prec)
-    if u % 8 or not 0 < 4 * u <= 1024:
-        raise ValueError(f"the kernel takes 4U a multiple of 32 up to 1024, got 4U={4 * u}")
+    _check_units(u)
     bf16 = prec == "bf16"
-    for c, resident in [(c, True) for c in CLUSTER_SIZES] + [(1, False)]:
-        if u % c or (u // c) % 8:
-            continue
+    for c, resident, units in _plan_candidates(u):
         fits = []
         for bt in ROW_TILES:
-            ks = _bwd_ksplit(u, c, bt, bf16)
-            while ks > 1 and backward_smem_bytes(u, c, bt, ks, resident, bf16) > SMEM_MAX:
+            ks = _bwd_ksplit(units, c, bt, bf16)
+            while ks > 1 and backward_smem_bytes(units, c, bt, ks, resident, bf16) > SMEM_MAX:
                 ks //= 2
-            smem = backward_smem_bytes(u, c, bt, ks, resident, bf16)
+            smem = backward_smem_bytes(units, c, bt, ks, resident, bf16)
             if smem <= SMEM_MAX:
-                fits.append(BackwardPlan(c, bt, ks, resident, smem))
+                fits.append(BackwardPlan(c, bt, ks, resident, smem, units))
         if fits:
             return _choose_tile(fits, b, nd, max_active)
     raise ValueError(f"no plan of the VJP's loop kernel fits U={u} in shared memory")
 
 
 @functools.lru_cache(maxsize=None)
-def backward_kernel_info(u: int, bf16: bool, plan: BackwardPlan) -> dict:
+def backward_kernel_info(bf16: bool, plan: BackwardPlan) -> dict:
     """What the card gives one plan of the VJP's loop kernel (built at
-    first use), as ``forward_kernel_info``."""
+    first use) at the plan's kernel U, as ``forward_kernel_info``."""
     from phones_las_torch.csrc import _build
 
     info = (ctypes.c_int * 4)()
     err = _build.library().plt_lstm_bwd_info(
-        u, int(bf16), plan.cluster, plan.bt, plan.ksplit, int(plan.resident), info
+        plan.units, int(bf16), plan.cluster, plan.bt, plan.ksplit, int(plan.resident), info
     )
     _build.check(err, "plt_lstm_bwd_info")
     return {"max_active_clusters": info[0], "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3]}
@@ -658,9 +703,10 @@ def recurrence_bwd(
     factors of each step that do not depend on dh (the sigmoids and tanhs
     leave the serial chain); the serial reverse loop as thread-block
     clusters (``backward_plan``: a cluster of C blocks per direction and
-    tile of Bt rows, each block with its slice of whᵀ in shared memory,
-    the partial dh exchanged through distributed shared memory and added
-    in rank order); the split-K dWh GEMM and its ordered reduction. In
+    tile of Bt rows, each block with its slice of whᵀ in shared memory or,
+    past U = 256 in float32, streamed from L2, the partial dh exchanged
+    through distributed shared memory and added in rank order); the
+    split-K dWh GEMM and its ordered reduction. In
     bf16 mode the loop's product and both GEMMs run on the tensor cores.
     Repeated runs give bitwise equal results."""
     _check_prec(prec)
@@ -701,28 +747,33 @@ def _launch_backward(xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins, f
 
     lib = _build.library()
     if plan is None:
-        plan = backward_plan(b, u, nd, prec, lambda p: backward_kernel_info(u, bf16, p)["max_active_clusters"])
-    f32 = lambda ts: [x.float().contiguous() for x in ts]
-    xps, douts, dhfins, dcfins = f32(xps), f32(douts), f32(dhfins), f32(dcfins)
-    whs_d = [w.detach().to(wdt).contiguous() for w in whs]
+        plan = backward_plan(b, round_up(u, 8), nd, prec, lambda p: backward_kernel_info(bf16, p)["max_active_clusters"])
+    up = plan.units
+    f32 = lambda ts: [pad_units(x.float(), u, up).contiguous() for x in ts]
+    xps = [pad_gates(x.float(), u, up).contiguous() for x in xps]
+    douts, dhfins, dcfins = f32(douts), f32(dhfins), f32(dcfins)
+    whs = [pad_lstm_wh(w.detach(), up) for w in whs]
+    whs_d = [w.to(wdt).contiguous() for w in whs]
     whgs = [_kernel_wht(w, plan.cluster, prec) for w in whs]
     whts = [w.t().contiguous() for w in whs_d] if bf16 else []  # the tensor-core gates GEMM reads k contiguous
-    hprevs = [x.contiguous() for x in hprevs]
-    cprevs = [x.contiguous() for x in cprevs]
+    hprevs = [pad_units(x, u, up).contiguous() for x in hprevs]
+    cprevs = [pad_units(x, u, up).contiguous() for x in cprevs]
     mask = mask_tm.contiguous()
     dev = xps[0].device
-    dxps = [torch.empty((t, b, 4 * u), dtype=torch.float32, device=dev) for _ in range(nd)]
-    dwhs = [torch.empty((u, 4 * u), dtype=torch.float32, device=dev) for _ in range(nd)]
-    facs = [torch.empty((t, b, 2 * u), dtype=torch.float32, device=dev) for _ in range(nd)]
-    # split-K of the dWh product over T*B rows: enough blocks to fill the card
-    dwh_split = max(1, min(16, (t * b) // 1024))
-    partials = torch.empty((nd, dwh_split, u, 4 * u), dtype=torch.float32, device=dev)
+    dxps = [torch.empty((t, b, 4 * up), dtype=torch.float32, device=dev) for _ in range(nd)]
+    dwhs = [torch.empty((up, 4 * up), dtype=torch.float32, device=dev) for _ in range(nd)]
+    facs = [torch.empty((t, b, 2 * up), dtype=torch.float32, device=dev) for _ in range(nd)]
+    # split-K of the dWh product over T*B rows: enough blocks to fill the
+    # card, the partials at most 2^25 floats (128 MB; U = 1024 both
+    # directions: 4 parts)
+    dwh_split = max(1, min(16, (t * b) // 1024, (1 << 25) // (nd * up * 4 * up)))
+    partials = torch.empty((nd, dwh_split, up, 4 * up), dtype=torch.float32, device=dev)
     ms = (ctypes.c_float * 4)() if part_ms is not None else None
     err = lib.plt_lstm_bwd(
         *_ptrs(xps), mask.data_ptr(), *_ptrs(whs_d), *_ptrs(whgs), *_ptrs(whts), *_ptrs(hprevs),
         *_ptrs(cprevs), *_ptrs(douts), *_ptrs(dhfins), *_ptrs(dcfins), nd,
         _rev_bits(reverse), int(bf16), *_ptrs(dxps), *_ptrs(facs), *_ptrs(dwhs),
-        partials.data_ptr(), dwh_split, t, b, u, float(forget_bias),
+        partials.data_ptr(), dwh_split, t, b, up, float(forget_bias),
         plan.cluster, plan.bt, plan.ksplit, int(plan.resident),
         None if clocks is None else clocks.data_ptr(), ms,
         torch.cuda.current_stream(dev).cuda_stream,
@@ -731,6 +782,9 @@ def _launch_backward(xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins, f
     if part_ms is not None:
         part_ms[:] = list(ms)
     _launch_backward.last_plan = plan
+    if up != u:
+        dxps = [slice_gates(x, u, up) for x in dxps]
+        dwhs = [slice_gates(w[:u], u, up) for w in dwhs]
     return list(zip(dxps, dwhs))
 
 
@@ -836,7 +890,8 @@ def bidir_recurrence(
     plain version; a CUDA tensor launches ``plt_lstm_recurrence`` of
     ``csrc/lstm.cu`` once for both directions (each direction's clusters
     run concurrently; ``forward_plan`` cuts the work) or raises. The reference's batch chunking at 64 rows (a
-    VMEM limit) is dropped: the kernel takes any batch.
+    VMEM limit) is dropped: the kernel takes any batch, and any U up to
+    ``MAX_UNITS`` (zero padded where the plan runs a wider one).
 
     The kernel's bound on the H100 at the main path's first layer
     (T = 999, B = 64, U = 256): 2·2·T·B·U·4U ≈ 67 GFLOP of float32 for the

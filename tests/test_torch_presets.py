@@ -262,12 +262,14 @@ def test_every_preset_fits_the_decoder(what, v, n_cells, t):
     assert (_old_layout_bytes(t, cfg, 8) > FG.SMEM_MAX) == (v >= 65)
 
 
-@pytest.mark.parametrize("v,n_cells,t", [(481, 2, 438), (641, 1, 438), (120, 1, 9065), (34, 2, 7901)])
+@pytest.mark.parametrize("v,n_cells,t", [(2881, 2, 438), (2913, 1, 438), (120, 1, 17161), (34, 2, 17005)])
 def test_decoder_plan_refuses_what_no_cluster_fits(v, n_cells, t):
-    """Past the largest vocabulary (480 with two cells, 640 with one at
-    T_enc = 438) or encoder length (9064 at V = 120, 7900 at V = 34), no
-    cluster size fits: ``decoder_plan`` raises before any launch, naming
-    the bytes and the limit; one less fits."""
+    """Past the largest vocabulary (2880 with two cells, 2912 with one at
+    T_enc = 438) or encoder length (17160 at V = 120, 17004 at V = 34), no
+    cluster size fits in either layout (the streamed one holds no cell
+    state, context or out_w slice whole: these limits were 480, 640, 9064
+    and 7900 with the held layout alone): ``decoder_plan`` raises before
+    any launch, naming the bytes and the limit; one less fits."""
     cfg = _speller(v, n_cells)
     with pytest.raises(ValueError, match=f"bytes of shared memory.*over the {FG.SMEM_MAX} bytes"):
         FG.decoder_plan(8, cfg, t)

@@ -1,0 +1,377 @@
+"""The reference's width flags on the port's kernels, on the CPU.
+
+The listener kernels take every U that is a multiple of 8 up to 1024 (past
+256 in float32 each block of a cluster streams its slice of wh from L2),
+the decoder kernel the LAS-4-1024 speller (U = A = 1024, M = 2048) in its
+streamed layout, and the wrappers pad any other width with zeros. Here:
+the plans over that whole range; the streamed cluster decomposition
+emulated in plain PyTorch (as ``tests/test_torch_cluster_layout.py`` and
+``tests/test_torch_lstm_bwd_layout.py`` emulate the resident one) against
+the plain versions, JAX's XLA scan, the Pallas kernels in interpret mode
+and ``jax.grad``; the padding against the unpadded plain versions and JAX;
+and a W1024 model (one listener layer, short inputs) against JAX's encoder,
+greedy decoder and loss from the same weights."""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from phones_las_tpu.cli.common import resolve_preset as jax_resolve_preset
+from phones_las_tpu.decode import greedy_decode as jax_greedy_decode
+from phones_las_tpu.models.las import compute_loss as jax_compute_loss
+from phones_las_tpu.models.las import encode as jax_encode
+from phones_las_tpu.models.las import init_las as jax_init_las
+from phones_las_tpu.ops.lstm import _recurrence_pallas_bwd, _recurrence_pallas_residual, _recurrence_xla
+
+from phones_las_torch.cli.common import resolve_preset
+from phones_las_torch.data.timit import _GRAPHEMES
+from phones_las_torch.data.vocab import Vocab
+from phones_las_torch.decode import greedy_decode
+from phones_las_torch.decode import fused_greedy as FG
+from phones_las_torch.models import las as LAS
+from phones_las_torch.models.speller import SpellerConfig
+from phones_las_torch.ops import lstm as L
+from phones_las_torch.ops import padding as P
+from phones_las_torch.utils.param_io import params_from_numpy
+from tests.test_torch_cluster_layout import cluster_recurrence_emulated
+from tests.test_torch_lstm_bwd_layout import cluster_bwd_emulated
+from tests.torch_threads import one_thread
+
+one_thread()
+
+# the emulation against the plain loop: float32 sums of up to 1024 terms cut
+# into other slices (bf16: one bf16 step of a rounded h, as the resident
+# emulation's bound); against JAX and the Pallas kernels: the bounds of
+# tests/test_torch_lstm.py and tests/test_torch_lstm_bwd_layout.py
+EMU_TOL = {"highest": 1e-5, "bf16": 1e-2}
+JAX_TOL = {"highest": 1e-5, "bf16": 2e-2}
+JAX_RES_TOL = {"highest": 1e-5, "bf16": 3e-2}
+VJP_TOL = {"highest": 1e-5, "bf16": 3e-2}  # max |d| over max |want|
+# padded-then-sliced against unpadded: the same sums plus exact zeros, which
+# the CPU's BLAS blocks by another k (a few float32 roundings: max |d| over
+# max |want|)
+PAD_TOL = 1e-6
+LOSS_RTOL = 1e-5
+
+T, B = 6, 3
+W1024 = {"encoder_units": 1024, "decoder_units": 1024, "attention_units": 1024}
+W100 = {"encoder_units": 100, "decoder_units": 36, "attention_units": 60, "embedding_dim": 30}
+
+
+# ---- the plans over the whole range
+
+
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_plans_take_every_width_to_1024(which, prec):
+    """Every U that is a multiple of 8 from 8 to 1024 has a plan in both
+    modes, at the serving and the training batch: its bytes are the
+    layout's mirror and fit a block, its kernel U is U or (a prime number
+    of 8-unit slices past what one block holds) a wider multiple of 8·C;
+    past 1024, and for a U that is no multiple of 8, the plans raise."""
+    plan_fn = L.forward_plan if which == "forward" else L.backward_plan
+    smem_fn = L.forward_smem_bytes if which == "forward" else L.backward_smem_bytes
+    streamed = 0
+    for u in range(8, L.MAX_UNITS + 1, 8):
+        for b in (32, 64):
+            p = plan_fn(b, u, 2, prec)
+            assert p.smem == smem_fn(p.units, p.cluster, p.bt, p.ksplit, p.resident, prec == "bf16")
+            assert p.smem <= L.SMEM_MAX
+            assert p.units >= u and p.units % (8 * p.cluster) == 0
+            assert p.units == u or u % (8 * p.cluster)  # padded only where no cut of U itself fits
+            streamed += not p.resident
+    assert streamed > 0
+    # the flagship widths keep their plans; the widest is cut 8 ways and streams
+    assert plan_fn(32, 256, 2, prec).resident and plan_fn(32, 256, 2, prec).cluster == 8
+    wide = plan_fn(64, 1024, 2, prec)
+    assert (wide.cluster, wide.resident, wide.units) == (8, False, 1024)
+    for u in (1032, 2048, 100, 0):
+        with pytest.raises(ValueError):
+            plan_fn(8, u, 1, prec)
+
+
+@pytest.mark.parametrize("u,want", [(264, (1, False, 264)), (320, (8, False, 320)), (512, (8, False, 512)),
+                                    (360, (8, False, 384)), (1016, (8, False, 1024))])
+def test_forward_plan_streams_or_pads(u, want):
+    """Float32 past U = 256: the largest cut of U itself with a streamed
+    slice (U = 264 is 33 slices of 8: one block), and where no cut fits
+    (360 = 45 · 8 and 1016 = 127 · 8 past what one block holds), the next
+    multiple of 64 cut 8 ways."""
+    p = L.forward_plan(64, u, 2, "highest")
+    assert (p.cluster, p.resident, p.units) == want
+
+
+def test_decoder_plan_takes_the_wide_spellers():
+    """The LAS paper's speller (2 × 512, attention 512, listener 256 a
+    direction) fits the held layout at 226,016 bytes; the LAS-4-1024 speller
+    (U = A = 1024, M = 2048) the streamed one at every encoder length to
+    2000, the attention layer at 256 or 1024, V up to 120, one or two
+    cells; both at C = 8, at the mirror's bytes."""
+    las = SpellerConfig(vocab_size=34, embedding_dim=128, num_layers=2, units=512, memory_dim=512,
+                        attention_units=512, attention_layer_size=256)
+    assert FG.decoder_plan(32, las, 438) == FG.DecoderPlan(8, 8, 4, False)
+    assert FG.decoder_smem_bytes(32, 438, las, 8) == 226016
+    for v in (34, 120):
+        for al in (256, 1024):
+            for n_cells in (1, 2):
+                for t in (219, 438, 2000):
+                    w = SpellerConfig(vocab_size=v, embedding_dim=128, num_layers=n_cells, units=1024,
+                                      memory_dim=2048, attention_units=1024, attention_layer_size=al)
+                    plan = FG.decoder_plan(32, w, t)
+                    assert plan == FG.DecoderPlan(8, 8, 4, True)
+                    assert FG.decoder_smem_bytes(32, t, w, 8, True) <= FG.SMEM_MAX
+                    assert FG.decoder_smem_bytes(32, t, w, 8) > FG.SMEM_MAX  # the held layout does not fit
+    w = SpellerConfig(vocab_size=34, embedding_dim=128, num_layers=2, units=1024, memory_dim=2048,
+                      attention_units=1024, attention_layer_size=256)
+    assert FG.decoder_act_floats(w) == 2 * 2 * 8 * 1024 + 8 * 256 + 8 * 2048
+
+
+def test_kernel_widths_pad_to_what_a_plan_takes():
+    """W100's speller (E = 30, U = 36, A = 60, the preset's AL = 256, M =
+    200) runs its embedding at 32; widths no cut of 4 · C takes at any C
+    where they fit are rounded to the granularity of the cut that fits."""
+    w100 = FG.DecoderWidths(34, 30, 36, 60, 256, 200, 1, 2, 2)
+    kw, plan = FG.kernel_widths(8, w100, 125)
+    assert kw == w100._replace(embedding_dim=32) and plan.cluster == 1 and not plan.streamed
+    odd = FG.DecoderWidths(34, 30, 1018, 1022, 250, 2046, 1, 2, 2)  # only C = 1 cuts them; it does not fit
+    kw, plan = FG.kernel_widths(8, odd, 438)
+    assert (kw.embedding_dim, kw.memory_dim) == (32, 2048)
+    c = plan.cluster
+    assert c > 1 and kw.units % (4 * c) == 0 and kw.attention_units % (4 * c) == 0
+    assert kw.attention_layer_size % 8 == 0 and kw.attention_layer_size % (4 * c) == 0
+    assert FG.decoder_plan(8, kw, 438) == plan
+
+
+# ---- the streamed cluster decomposition, emulated
+
+
+def _lstm_case(u, seed):
+    rs = np.random.RandomState(seed)
+    xp = rs.randn(T, B, 4 * u).astype(np.float32)
+    wh = (rs.randn(u, 4 * u) / np.sqrt(u)).astype(np.float32)
+    lens = np.array([T, 1, 4])
+    mask = (np.arange(T)[:, None] < lens[None, :]).astype(np.float32)
+    return xp, mask, wh
+
+
+def _emulate_forward(xp, mask, wh, reverse, prec, plan):
+    """The kernel's forward at its plan: the padding of ``_launch_forward``,
+    the cluster decomposition of ``plan`` (a block's slice of wh is the
+    same regrouped slice whether it is held or streamed), the slicing."""
+    u, up = wh.shape[0], plan.units
+    got = cluster_recurrence_emulated(P.pad_gates(xp, u, up), mask, P.pad_lstm_wh(wh, up), 1.0, reverse, prec,
+                                      plan.cluster, plan.bt, save_res=True)
+    return [x[..., :u] for x in got]
+
+
+@pytest.mark.parametrize("u", [264, 1024, 360])
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+def test_streamed_forward_matches_plain_xla_and_pallas(prec, u):
+    xp, mask, wh = _lstm_case(u, 13)
+    plan = L.forward_plan(B, u, 1, prec)
+    assert not plan.resident or plan.units > u  # streamed, or (bf16 at 360) padded and held
+    reverse = u == 1024
+    txp, tmask, twh = torch.from_numpy(xp), torch.from_numpy(mask), torch.from_numpy(wh)
+    got = _emulate_forward(txp, tmask, twh, reverse, prec, plan)
+    (plain,) = L.recurrence_residual_plain([txp], tmask, [twh], 1.0, [reverse], prec)
+    ref = _recurrence_pallas_residual(jnp.asarray(xp), jnp.asarray(mask), jnp.asarray(wh), reverse=reverse,
+                                      interpret=True, prec=prec)
+    xla_out, (xla_h, xla_c) = _recurrence_xla(jnp.asarray(xp), jnp.asarray(mask), jnp.asarray(wh), 1.0, reverse, prec)
+    for i, (g, p, r) in enumerate(zip(got, plain, ref)):
+        res = i in (1, 2)
+        tol = JAX_RES_TOL[prec] if res else JAX_TOL[prec]
+        np.testing.assert_allclose(g.float().numpy(), p.float().numpy(), rtol=0,
+                                   atol=JAX_RES_TOL[prec] if res and prec == "bf16" else EMU_TOL[prec])
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(r, np.float32), rtol=tol, atol=tol)
+    for g, x in zip((got[0], got[3], got[4]), (xla_out, xla_h, xla_c)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(x, np.float32), rtol=JAX_TOL[prec], atol=JAX_TOL[prec])
+
+
+@pytest.mark.parametrize("u", [264, 1024])
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+def test_streamed_vjp_matches_plain_pallas_and_jax_grad(prec, u):
+    xp, mask, wh = _lstm_case(u, 14)
+    reverse = u == 264
+    rs = np.random.RandomState(u)
+    dout = rs.randn(T, B, u).astype(np.float32)
+    dh, dc = rs.randn(B, u).astype(np.float32), rs.randn(B, u).astype(np.float32)
+    _, hprev, cprev, _, _ = _recurrence_pallas_residual(jnp.asarray(xp), jnp.asarray(mask), jnp.asarray(wh),
+                                                        reverse=reverse, interpret=True, prec=prec)
+    plan = L.backward_plan(B, u, 1, prec)
+    assert not plan.resident and plan.units == u
+    rdt = torch.bfloat16 if prec == "bf16" else torch.float32
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32).copy())
+    args = (t(xp), t(mask), t(wh), t(hprev).to(rdt), t(cprev).to(rdt), t(dout), t(dh), t(dc))
+    dxp, dwh = cluster_bwd_emulated(*args, 1.0, reverse, prec, plan.cluster, plan.bt)
+    ((pdxp, pdwh),) = L.recurrence_bwd_plain(*[[a] if i != 1 else a for i, a in enumerate(args)], 1.0, [reverse],
+                                             prec)
+    ref_dxp, ref_dwh = _recurrence_pallas_bwd(
+        jnp.asarray(xp), jnp.asarray(mask), jnp.asarray(wh), hprev, cprev, jnp.asarray(dout),
+        jnp.asarray(dh), jnp.asarray(dc), reverse=reverse, interpret=True, prec=prec,
+    )
+
+    def loss(xp_, wh_):
+        out, (h, c) = _recurrence_xla(xp_, jnp.asarray(mask), wh_, 1.0, reverse, prec)
+        return jnp.sum(out * dout) + jnp.sum(h * dh) + jnp.sum(c * dc)
+
+    jdxp, jdwh = jax.grad(loss, argnums=(0, 1))(jnp.asarray(xp), jnp.asarray(wh))
+    rel = lambda g, w: float(np.abs(g - np.asarray(w, np.float32)).max()) / float(np.abs(np.asarray(w)).max())
+    for got, plain, ref, jg in ((dxp, pdxp, ref_dxp, jdxp), (dwh, pdwh, ref_dwh, jdwh)):
+        assert rel(got.numpy(), plain.numpy()) <= VJP_TOL[prec]
+        assert rel(got.numpy(), ref) <= VJP_TOL[prec]
+        assert rel(got.numpy(), jg) <= VJP_TOL[prec]
+
+
+# ---- padding
+
+
+@pytest.mark.parametrize("u,up", [(100, 104), (100, 128), (36, 64)])
+@pytest.mark.parametrize("prec", ["highest", "bf16"])
+def test_lstm_padding_is_exact(prec, u, up):
+    """The forward and the VJP of a padded layer, sliced back, against the
+    unpadded plain versions (the padded units stay zero and add zeros);
+    U = 100 also against JAX's scan and ``jax.grad``."""
+    xp, mask, wh = _lstm_case(u, 15)
+    txp, tmask, twh = torch.from_numpy(xp), torch.from_numpy(mask), torch.from_numpy(wh)
+    (want,) = L.recurrence_residual_plain([txp], tmask, [twh], 1.0, [False], prec)
+    (padded,) = L.recurrence_residual_plain([P.pad_gates(txp, u, up)], tmask, [P.pad_lstm_wh(twh, up)], 1.0,
+                                            [False], prec)
+    rel = lambda g, w: float((g.float() - w.float()).abs().max()) / float(w.float().abs().max())
+    for g, w in zip(padded, want):
+        assert float(g[..., u:].float().abs().max()) == 0.0  # the padded units stay zero
+        assert rel(g[..., :u], w) <= PAD_TOL
+    rs = np.random.RandomState(16)
+    dout, dh, dc = (torch.from_numpy(rs.randn(*s).astype(np.float32)) for s in ((T, B, u), (B, u), (B, u)))
+    ((wdxp, wdwh),) = L.recurrence_bwd_plain([txp], tmask, [twh], [want[1]], [want[2]], [dout], [dh], [dc], 1.0,
+                                             [False], prec)
+    pu = lambda x: P.pad_units(x, u, up)
+    ((pdxp, pdwh),) = L.recurrence_bwd_plain([P.pad_gates(txp, u, up)], tmask, [P.pad_lstm_wh(twh, up)],
+                                             [pu(want[1])], [pu(want[2])], [pu(dout)], [pu(dh)], [pu(dc)], 1.0,
+                                             [False], prec)
+    assert rel(P.slice_gates(pdxp, u, up), wdxp) <= PAD_TOL
+    assert rel(P.slice_gates(pdwh[:u], u, up), wdwh) <= PAD_TOL
+    if u == 100:
+        out, (h, c) = _recurrence_xla(jnp.asarray(xp), jnp.asarray(mask), jnp.asarray(wh), 1.0, False, prec)
+        for g, x in zip((padded[0], padded[3], padded[4]), (out, h, c)):
+            np.testing.assert_allclose(g[..., :u].numpy(), np.asarray(x, np.float32), rtol=JAX_TOL[prec],
+                                       atol=JAX_TOL[prec])
+
+        def loss(xp_, wh_):
+            o, (h_, c_) = _recurrence_xla(xp_, jnp.asarray(mask), wh_, 1.0, False, prec)
+            return jnp.sum(o * dout.numpy()) + jnp.sum(h_ * dh.numpy()) + jnp.sum(c_ * dc.numpy())
+
+        jdxp, jdwh = jax.grad(loss, argnums=(0, 1))(jnp.asarray(xp), jnp.asarray(wh))
+        for g, jg in ((P.slice_gates(pdxp, u, up), jdxp), (P.slice_gates(pdwh[:u], u, up), jdwh)):
+            jg = np.asarray(jg, np.float32)
+            assert float(np.abs(g.numpy() - jg).max()) <= VJP_TOL[prec] * float(np.abs(jg).max())
+
+
+def test_pad_blocks_round_trip():
+    x = torch.arange(2 * 12, dtype=torch.float32).reshape(2, 12)
+    y = P.pad_blocks(x, 1, [5, 7], [8, 7])
+    assert y.shape == (2, 15) and torch.equal(y[:, 5:8], torch.zeros(2, 3))
+    assert torch.equal(P.slice_blocks(y, 1, [5, 7], [8, 7]), x)
+    assert P.pad_blocks(x, 1, [12], [12]) is x
+    with pytest.raises(ValueError):
+        P.pad_blocks(x, 1, [5, 6], [8, 7])
+
+
+# ---- the W100 and W1024 models against JAX
+
+
+def _resolve(tmp_path, overrides):
+    d = str(tmp_path / "data")
+    os.makedirs(d, exist_ok=True)
+    Vocab(_GRAPHEMES + ["-", "."]).save(os.path.join(d, "vocab.txt"))  # the preset's 34 tokens
+    ov = {"dropout": 0.0, **overrides}
+    jpreset = jax_resolve_preset("librispeech_char_las", d, ov)[0]
+    preset = resolve_preset("librispeech_char_las", d, ov)[0]
+    assert dataclasses.asdict(preset.model) == dataclasses.asdict(jpreset.model)
+    return jpreset.model, preset.model
+
+
+def _flat(tree):
+    return {jax.tree_util.keystr(p): np.asarray(x) for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _batch(seed, samples=(8000, 5600), targets=(7, 4), vocab=34):
+    rs = np.random.RandomState(seed)
+    audio = (rs.randn(len(samples), max(samples)) * 2000).astype(np.float32)
+    for i, n in enumerate(samples):
+        audio[i, n:] = 0.0
+    tg = np.zeros((len(samples), max(targets)), np.int32)
+    for i, n in enumerate(targets):
+        tg[i, : n - 1] = rs.randint(4, vocab, n - 1)
+        tg[i, n - 1] = 2
+    return {"audio": audio, "audio_lengths": np.asarray(samples, np.int32), "targets": tg,
+            "target_lengths": np.asarray(targets, np.int32)}
+
+
+STEPS = 6
+
+
+@pytest.mark.parametrize("widths", ["W1024", "W100"])
+def test_wide_and_odd_models_match_jax(widths, tmp_path):
+    """The reference's flags at LAS-4-1024's widths (one listener layer
+    here, short inputs) and at W100's: the port's encoder and greedy
+    decoders (the loop, the kernel's plain version on the kernel's padded
+    widths) at JAX's tokens, and the loss within 1e-5, from JAX's init
+    carried across by ``params_from_numpy``."""
+    overrides = {**(W1024 if widths == "W1024" else W100), "encoder_layers": 1}
+    jcfg, cfg = _resolve(tmp_path, overrides)
+    assert cfg.speller.memory_dim == 2 * cfg.listener.units
+    jp = jax_init_las(jax.random.PRNGKey(13), jcfg)
+    params = params_from_numpy(_flat(jp), cfg, device="cpu")
+    batch = _batch(13)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jloss, _ = jax.jit(lambda p: jax_compute_loss(p, jcfg, jb, train=False, implementation="xla"))(jp)
+    jmem, _, jmask = jax.jit(lambda p: jax_encode(p, jcfg, jb["audio"], jb["audio_lengths"]))(jp)
+    jtok = np.asarray(jax_greedy_decode(jp.speller, jcfg.speller, jmem, jmask, STEPS)[0])
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.no_grad():
+        loss, _ = LAS.compute_loss(params, cfg, tb, train=False)
+        mem, _, mask = LAS.encode(params, cfg, tb["audio"], tb["audio_lengths"])
+        tok, _, _ = greedy_decode(params.speller, cfg.speller, mem, mask, STEPS)
+        sc = cfg.speller
+        widths_ = FG.DecoderWidths(sc.vocab_size, sc.embedding_dim, sc.units, sc.attention_units,
+                                   sc.attention_layer_size, sc.memory_dim, sc.bos_id, sc.eos_id, sc.num_layers)
+        kw, _ = FG.kernel_widths(mem.shape[0], widths_, mem.shape[1])
+        weights, pmem = FG.pad_speller(FG.flat_weights(params.speller), mem, widths_, kw)
+        pparams, _ = FG._unflatten(weights, pmem, sc.bos_id, sc.eos_id)
+        ptok, _ = FG.greedy_decode_fused_plain(pparams, kw, pmem, mask, STEPS)
+    assert (kw != widths_) == (widths == "W100")
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=LOSS_RTOL)
+    np.testing.assert_allclose(mem.numpy(), np.asarray(jmem), rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(tok.numpy(), jtok)
+    np.testing.assert_array_equal(ptok.numpy(), jtok)
+
+
+def test_speller_padding_is_exact():
+    """Every width of a speller padded (E 30 → 32, U 34 → 64, A 62 → 64, AL
+    250 → 256, M 202 → 204, the granularity of a cut of 8 blocks): the
+    kernel's plain version on the padded weights and memory gives the
+    unpadded tokens."""
+    from phones_las_torch.models.speller import init_speller
+
+    sc = SpellerConfig(vocab_size=34, embedding_dim=30, num_layers=2, units=34, memory_dim=202,
+                       attention_units=62, attention_layer_size=250)
+    sp = init_speller(sc, torch.Generator().manual_seed(17))
+    rs = np.random.RandomState(17)
+    mem = torch.from_numpy(rs.randn(5, 11, 202).astype(np.float32))
+    lens = torch.tensor([11, 3, 7, 1, 11])
+    mask = (torch.arange(11)[None, :] < lens[:, None]).float()
+    w = FG.DecoderWidths(34, 30, 34, 62, 250, 202, sc.bos_id, sc.eos_id, 2)
+    kw = FG.DecoderWidths(34, 32, 64, 64, 256, 204, sc.bos_id, sc.eos_id, 2)
+    weights, pmem = FG.pad_speller(FG.flat_weights(sp), mem, w, kw)
+    pp, _ = FG._unflatten(weights, pmem, sc.bos_id, sc.eos_id)
+    with torch.no_grad():
+        want, _ = FG.greedy_decode_fused_plain(sp, sc, mem, mask, 12)
+        got, _ = FG.greedy_decode_fused_plain(pp, kw, pmem, mask, 12)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert len(set(want.flatten().tolist())) > 2  # the rows emit more than <eos>
