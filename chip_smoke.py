@@ -44,7 +44,7 @@ then:
         the card and on the CPU plain path: loss, every gradient leaf and
         every updated leaf held within the bounds stated below;
      c. ``Trainer.train_step`` at full width (32 × 10 s of random PCM,
-        200-token targets, dropout and scheduled sampling on), 6 steps on
+        200-token targets, dropout and scheduled sampling on), 4 steps on
         one batch: ms per step, peak device memory, the loss of each step
         (finite and falling) and each step's kernel launches; then the
         device time of one more step under ``torch.profiler``, and 3 more
@@ -64,9 +64,11 @@ then:
         steps, parity mode), without and with a CTC head of the
         checkpoint's widths drawn from a seeded generator (one-pass joint
         decoding, α = 0.7): utt/s, the split among front-end, listener and
-        decoder (median of 3 calls), µs per decode step, the device launches
-        per step and the device-busy share of one profiled call and of its
-        decoder (the kernels launched inside its ``record_function``);
+        decoder (one timed call), µs per decode step; without CTC also the
+        device launches per step and the device-busy share of one profiled
+        call and of its decoder (the kernels launched inside its
+        ``record_function``; one profile a run: the bench times both modes
+        at this shape, phase 14a);
      c. ``Transcriber.from_artifact`` of ``tests/goldens/long_gate.npz``
         (monotonic attention, CTC head) on the card and with
         ``device="cpu"``: ``transcribe_batch`` of 16 eval-set utterances
@@ -88,9 +90,9 @@ then:
         one profiled call each), and at phase 4c's training shape with a
         third mode, TF32 alone, to tell TF32's share of the difference
         from the bf16 dots' (ms a step, losses finite and falling, the bf16
-        residual and VJP launched in production mode only, the busy share
-        and the host's top operators of one profiled step, production
-        mode's: phase 4c profiles the parity step);
+        residual and VJP launched in production mode only; phase 4c
+        profiles a step, and the bench times both modes at this shape,
+        phase 14a);
      c. the long-gate configuration with its SpecAugment and a frequency
         warp of 0.1 trains 5 steps on the card (losses finite); the masks
         and the warp on the card against the CPU on the same uniforms and α;
@@ -144,7 +146,7 @@ then:
         phones_las_torch.cli.*``): ``prepare speechlike`` (256 + 64
         utterances, seeds 7 and 8), ``train`` warm-started with
         ``--init-checkpoint`` from the committed checkpoint written as a
-        workdir by the library, 2 profiled steps and 2 more (its trace must
+        workdir by the library, 1 profiled step and 1 more (its trace must
         name the residual and VJP kernels); then at once ``infer`` on the
         card and with ``--device cpu`` (PER equal to ``Trainer.evaluate``'s,
         at most 2 of 64 rows differing), ``lm``, ``transcribe`` of 16 WAV
@@ -269,9 +271,10 @@ then:
         1e-6 relative and the worst gradient leaf within 1e-5 of its
         largest magnitude, in production the first step's terms within
         1e-4 (the second's printed: Adam turns TF32's rounding of the
-        gradients into a larger drift); then one
-        step at the preset's own B = 32 and longest bucket, ms, device ms,
-        launches and busy share of a profiled step (readings);
+        gradients into a larger drift); then, for ``common_voice_binf``
+        (the largest vocabulary, the longest bucket), one step at its own
+        B = 32 and longest bucket, ms, device ms, launches and busy share
+        of a profiled step (readings);
      d. ``cli.train --preset timit_multitask`` on ``prepare speechlike
         --graphemes`` records, 4 steps and one eval, then ``cli.infer --head
         grapheme`` on its workdir against ``Transcriber(head='grapheme')``:
@@ -305,6 +308,23 @@ then:
         eval, on ``prepare speechlike`` records (64 + 16 utterances, the
         formant corpus of phase 7 at its seed), and ``cli.infer`` of its
         workdir.
+ 14. the reference's entry points as the port's (``bench.py``,
+     ``__graft_entry__.py``, ``tools/``):
+     a. ``python -m phones_las_torch.bench`` as a process, at the
+        reference's shapes and iterations (greedy B = 64 × 10 s, 200 steps,
+        both modes; beam-8 at B = 32 in parity, production, with joint CTC
+        and with Luong attention; the training step at B = 32, both modes;
+        the accuracy row; the CPU baseline): its one JSON line printed in a
+        record beside the card's name and power limit; it fails on an
+        ``errors`` field, a missing row or key, a PER not within 0.005 of
+        0.0319, a ``value*`` or ``mfu*`` not finite and positive, or a row
+        that did not launch exactly its kernels;
+     b. ``entry()`` (4 × 4 s, 100 greedy steps, parity) on the card against
+        the same forward on the CPU plain path: tokens equal;
+     c. ``tools.make_bench_assets`` on phase 7's fine-tuned run (kept until
+        here), then the bench's accuracy row on those assets
+        (``PLU_BENCH_ASSETS_DIR``): the checkpoint's leaves bitwise, greedy
+        PER within 0.005 of phase 7c's held-out eval of the same params.
 
 ``python3 chip_smoke.py --sweep`` runs none of the phases: it times the
 LSTM forward kernel under every plan it takes at the flagship width
@@ -333,7 +353,8 @@ the end.
 
 ``python3 chip_smoke.py --presets`` runs phase 12 alone (after the
 checkpoint's decoder check of phase 1) and prints no kernels record;
-``python3 chip_smoke.py --widths`` runs phase 13 alone.
+``python3 chip_smoke.py --widths`` runs phase 13 alone;
+``python3 chip_smoke.py --bench`` runs phases 7 and 14.
 
 Every phase that fails ends the script with a non-zero exit code. The
 line before the last holds the card's name and power limit as
@@ -349,6 +370,7 @@ import glob
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -388,7 +410,7 @@ DECODER_BATCHES = (8, 64)
 GATE_LSTM = (240, 16, 96)  # (T, B, U) at the long-gate listener's width, held in phase 1
 BEAM_K = 8
 BEAM_B = 32  # bench.py's beam batch
-BEAM_TIMED_CALLS = 3  # phase 5b: timed calls a mode (the median), after one profiled call
+BEAM_TIMED_CALLS = 1  # phase 5b: timed calls a mode (the median); the bench times beam-8 at this shape (14a)
 CTC_ALPHA = 0.7
 REF_BEAM8_PER = 0.0319  # the reference's beam-8 PER on the eval set
 GATE_ASSET = os.path.join(REPO, "tests", "goldens", "long_gate.npz")
@@ -404,7 +426,7 @@ TRAIN_ROUNDS = 3  # phase 6b: timed rounds of a step in each numerics mode, in t
 RESUME_TOL = 1e-6  # phase 6d: a resumed step against the uninterrupted one, of each leaf's max
 WORKDIR_PRESET = "librispeech_char_las"  # the preset of the checkpoint's widths
 TRAIN_B = 32
-TRAIN_STEPS = 6
+TRAIN_STEPS = 4  # phase 4c; the bench times 30 steps at this shape (14a)
 SPLIT_STEPS = 3  # further steps timed in their three parts
 EOS_ID = 2
 # phase 4b bounds, card against the CPU plain path: the loss relative to
@@ -1509,9 +1531,10 @@ def time_beam_flagship(params, cfg, kernels, card) -> list:
         splits = [beam_flagship(params, cfg, audio, lens, ctc_head)[1] for _ in range(BEAM_TIMED_CALLS)]
         fe_s, li_s, de_s = (statistics.median(x) for x in zip(*splits))
         total_ms = (fe_s + li_s + de_s) * 1e3
-        # one profile of the call; its decoder's share read off the same trace
-        call = profile_step(lambda: beam_flagship(params, cfg, audio, lens, ctc_head), total_ms,
-                            part=("decoder", de_s * 1e3))
+        # one profile a run, of the call without CTC; its decoder's share read off the same trace
+        call = (profile_step(lambda: beam_flagship(params, cfg, audio, lens, ctc_head), total_ms,
+                             part=("decoder", de_s * 1e3)) if ctc_head is None
+                else {"device_ms": "not measured: one profile a run, of beam-8 without CTC"})
         decode = call.pop("part", {"device_ms": "not measured"})
         per_step = decode.get("device_launches")
         rec = {
@@ -1740,16 +1763,10 @@ def train_modes_in_turns(ckpt, kernels, card) -> dict:
            "shape": f"B={TRAIN_B} x {SECONDS} s, {DECODE_STEPS}-token targets", "rounds": TRAIN_ROUNDS}
     for n in modes:
         ms = [s["ms"] for s in steps[n] if s["round"]]
-        med = statistics.median(ms)
-        # one profile, of production mode (phase 4c profiles the parity step)
-        profiled = (profile_step(lambda: trainers[n].train_step(batch), med) if n == "production"
-                    else {"device_ms": "not measured: one profile a run, of production mode"})
         rec[n] = {
-            "matmul_precision": modes[n].matmul_precision, "prec": trainers[n].prec, "step_ms": med,
-            "step_ms_each": ms, "losses": [s["loss"] for s in steps[n]],
-            "device_busy_share": profiled.get("device_busy_share", "not measured"),
+            "matmul_precision": modes[n].matmul_precision, "prec": trainers[n].prec,
+            "step_ms": statistics.median(ms), "step_ms_each": ms, "losses": [s["loss"] for s in steps[n]],
             "launches": steps[n][-1]["launches"], "bf16_launches": steps[n][-1]["bf16_launches"],
-            "device_profile": profiled,
         }
     rec["card"] = card
     emit(rec)
@@ -2187,7 +2204,7 @@ def check_fit(ckpt, cfg, train, held, data_dir, n_epoch, kernels) -> dict:
             or resumed.state.step != 2 * n_epoch):
         fail(f"the epoch resume did not follow the reference's rule: {rec}")
     shutil.rmtree(wd, ignore_errors=True)
-    return artifact
+    return artifact, run, gpu_ev
 
 
 def check_transcribe_files(artifact, held, vocab, kernels) -> dict:
@@ -2276,8 +2293,10 @@ def check_long_gate(kernels) -> dict:
     return rec
 
 
-def check_data_layer(ckpt, cfg, kernels) -> None:
-    """Phase 7, in a temporary directory under ``_runs/`` removed at the end."""
+def check_data_layer(ckpt, cfg, kernels) -> SimpleNamespace:
+    """Phase 7, in a temporary directory under ``_runs/`` → its fine-tuned
+    run for phase 14 (``work``, removed by the caller; the directory is
+    removed here if the phase fails)."""
     import shutil
     import tempfile
 
@@ -2286,17 +2305,19 @@ def check_data_layer(ckpt, cfg, kernels) -> None:
     try:
         train, held, vocab, data_dir = check_corpus_prep(work, cfg, kernels)
         n_epoch = check_datasource(train, vocab)
-        artifact = check_fit(ckpt, cfg, train, held, data_dir, n_epoch, kernels)
+        artifact, run, held_eval = check_fit(ckpt, cfg, train, held, data_dir, n_epoch, kernels)
         check_transcribe_files(artifact, held, vocab, kernels)
         check_long_gate(kernels)
-    finally:
+    except BaseException:
         shutil.rmtree(work, ignore_errors=True)
+        raise
+    return SimpleNamespace(work=work, run=run, held=held, data_dir=data_dir, eval_per=held_eval["per"])
 
 
 # ---- phase 8: the front doors — the CLIs, the HTTP server, exported programs
 
 FRONT_TRAIN_UTTS = 256  # prepare speechlike: 256 training utterances, 64 held out (seeds 7 and 8)
-FRONT_STEPS, FRONT_PROFILE_STEPS = 2, 2  # the training CLI's steps after its profiled ones
+FRONT_STEPS, FRONT_PROFILE_STEPS = 1, 1  # the training CLI's steps after its profiled ones
 FRONT_FILES = 16  # held-out utterances through the transcribe CLI as WAV files
 SERVE_BATCH, SERVE_CLIENTS = 16, 16
 STREAM_CHUNK = SAMPLE_RATE // 2  # /stream feeds of 0.5 s
@@ -3131,7 +3152,7 @@ MESH_B = 32  # the sharded step's global batch: 32 × 10 s
 MESH_LAYOUTS = ((2, 1), (2, 2))  # (data, model), ranks sharing the card over gloo
 MESH_LOSS_TOL = 1e-4  # |Δloss| against the unsharded step (__graft_entry__.py's bound)
 MESH_GRAD_TOL = 5e-5  # each gradient leaf's max |d| over its max |g| (the same)
-MESH_TIMED_STEPS = 3
+MESH_TIMED_STEPS = 1
 NCCL_STEPS = 3
 NCCL_TOL = 1e-6  # the NCCL world-1 trainer against the plain one, relative
 MESH_CLI_STEPS = 4
@@ -3158,28 +3179,16 @@ def mesh_batch(vocab_size: int) -> dict:
     return {"audio": audio, "audio_lengths": lens, "targets": targets, "target_lengths": tl}
 
 
-def mesh_step(tr, batch):
-    """One step without dropout or sampling (``train=False``, as the
-    reference's multi-chip dry run): loss, backward, the whole gradients,
-    one Adam update → (the global batch's loss, {leaf: whole gradient})."""
-    loss, _ = tr.loss(batch, train=False)
-    loss.backward()
-    grads = tr.gradients()
-    total = loss.detach().clone()
-    if tr.mesh is not None:
-        tr.mesh.sum_data(total)
-    tr.apply_gradients(grads)
-    return total, grads
-
-
 def timed_steps(tr, batch) -> float:
-    """Median ms of MESH_TIMED_STEPS ``mesh_step``s (host clock around a
-    synchronised step)."""
+    """Median ms of MESH_TIMED_STEPS ``entry.sharded_step``s (host clock
+    around a synchronised step)."""
+    from phones_las_torch.entry import sharded_step
+
     times = []
     for _ in range(MESH_TIMED_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mesh_step(tr, batch)
+        sharded_step(tr, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
@@ -3201,6 +3210,7 @@ def mesh_rank(job_path: str, rank: int) -> int:
     import torch.distributed as dist
 
     sys.path.insert(0, REPO)
+    from phones_las_torch.entry import sharded_step
     from phones_las_torch.parallel import initialize_distributed, make_mesh
     from phones_las_torch.train.loop import Trainer
     from phones_las_torch.train.state import TrainConfig
@@ -3219,7 +3229,7 @@ def mesh_rank(job_path: str, rank: int) -> int:
     batch = mesh_batch(cfg.speller.vocab_size)
     kernels = train_kernels()
     reset_counters(kernels)
-    total, grads = mesh_step(tr, batch)
+    total, grads = sharded_step(tr, batch)
     torch.cuda.synchronize()
     launches = launch_counts(kernels)
     whole = tr.whole_state()
@@ -3266,6 +3276,7 @@ def run_ranks(cmds, started, logs: str, what: str, timeout: float = RANK_TIMEOUT
 
 def check_mesh_training(ckpt, kernels, work, started, card) -> dict:
     """Phase 10a → the launches of every rank's checked step, summed."""
+    from phones_las_torch.entry import sharded_step
     from phones_las_torch.train.loop import Trainer
     from phones_las_torch.train.state import TrainConfig
     from phones_las_torch.utils.param_io import load_artifact, named_leaves
@@ -3276,7 +3287,7 @@ def check_mesh_training(ckpt, kernels, work, started, card) -> dict:
     batch = mesh_batch(cfg.speller.vocab_size)
     with torch.enable_grad():
         reset_counters(kernels)
-        total, grads = mesh_step(tr, batch)
+        total, grads = sharded_step(tr, batch)
         torch.cuda.synchronize()
         unsharded_launches = launch_counts(kernels)
         ref_loss = float(total)
@@ -3874,6 +3885,7 @@ PRESET_ROWS = 8  # 12b: rows of the preset's longest bucket through the Transcri
 # reading (the bench's configuration); the others' runs on the card alone
 PRESET_BEAM_READING = "librispeech_char_las"
 PRESET_TRAINED = ("timit_phone_las", "timit_multitask", "common_voice_binf")  # 12c
+PRESET_OWN_SHAPE = "common_voice_binf"  # 12c: the one preset also stepped at its own B = 32 (a reading)
 PRESET_TRAIN_B = 4  # 12c: rows held against the CPU plain path
 PRESET_TRAIN_SAMPLES = 32000  # their longest row
 PRESET_TRAIN_TARGET = 30  # their longest target, <eos> counted
@@ -4237,8 +4249,8 @@ def preset_train_batch(preset, b: int, n: int, t_max: int, seed: int, device) ->
 def train_presets(work, kernels, card) -> dict:
     """Phase 12c: two ``Trainer`` steps of each trained preset at B = 4,
     dropout and sampling off, card against the CPU plain path in parity and
-    production mode; then one step at the preset's own B = 32 and longest
-    bucket, timed and profiled → the card's launches summed."""
+    production mode; then, for PRESET_OWN_SHAPE, one step at its own B = 32
+    and longest bucket, timed and profiled → the card's launches summed."""
     from phones_las_torch.train.loop import Trainer
 
     device = None if DEV == "cuda" else DEV
@@ -4300,6 +4312,9 @@ def train_presets(work, kernels, card) -> dict:
             if DEV == "cuda" and (la["fused_logmel"], la["recurrence_residual"], la["recurrence_bwd"]) != (
                     1, n_layers, n_layers):
                 bad.append(f"{name} {mode} launches")
+        rec[name] = out
+        if name != PRESET_OWN_SHAPE:
+            continue
         # one step at the preset's own batch and longest bucket: a reading
         pl = preset.pipeline
         tr = Trainer(cfg, preset.train, binf_codes=codes, device=device)
@@ -4318,7 +4333,6 @@ def train_presets(work, kernels, card) -> dict:
                             "device_ms": prof.get("device_ms"), "device_launches": prof.get("device_launches"),
                             "device_busy_share": prof.get("device_busy_share", "not measured"),
                             "launches": launches[-1]}
-        rec[name] = out
         del tr, big
     rec["card"] = card
     emit(rec)
@@ -4656,6 +4670,164 @@ def check_widths(kernels, card, artifacts) -> dict:
     return {k: sum(p[k] for p in parts) for k in parts[0]}
 
 
+# ---- phase 14: the reference's entry points as the port's: the bench, entry(), the tools
+
+BENCH_TIMEOUT = 900  # the bench process, its worker's rows included
+SERVE_KERNELS = ("fused_logmel", "bidir_recurrence", "greedy_decode_fused")
+TRAIN_KERNELS = ("recurrence", "recurrence_residual", "recurrence_bwd")
+# the kernels each bench row must launch; a row launches no other
+BENCH_ROW_KERNELS = {
+    "parity": SERVE_KERNELS, "production": SERVE_KERNELS, "accuracy": SERVE_KERNELS,
+    "beam8_parity": SERVE_KERNELS[:2], "beam8_production": SERVE_KERNELS[:2],
+    "beam8_ctcjoint_production": SERVE_KERNELS[:2], "beam8_luong_production": SERVE_KERNELS[:2],
+    "train_parity": ("fused_logmel", "recurrence_residual", "recurrence_bwd"),
+    "train_production": ("fused_logmel", "recurrence_residual", "recurrence_bwd"),
+}
+# every key bench.py's rows and summary write, beside the card's
+BENCH_KEYS = ("value", "vs_baseline", "value_parity", "rtf_x_parity", "value_production", "rtf_x_production",
+              "value_beam8_parity", "value_beam8_production", "value_beam8_ctcjoint_production",
+              "value_beam8_luong_production", "value_train_step_ms_parity", "value_train_step_ms_production",
+              "bench_per_greedy", "bench_per_beam8", "cpu_baseline_utt_per_s", "vs_baseline_production",
+              "mfu_production", "mfu_parity", "mfu_beam8_production", "mfu_train_production", "mfu_train_parity",
+              "card", "power_limit")
+
+
+def run_bench(card) -> dict:
+    """Phase 14a: ``python -m phones_las_torch.bench`` as a process, as a
+    user runs it (the reference's shapes and iterations; its worker
+    reuses the kernels built in phase 0) → the launches of its rows,
+    summed. Its progress lines go to this script's stderr."""
+    import signal
+
+    from phones_las_torch.bench import ROW_ORDER
+
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for key in ("PLU_BENCH_TINY", "PLU_BENCH_ASSETS_DIR", "PLU_BENCH_FORCE_FAIL", "PLU_BENCH_PREWARM"):
+        env.pop(key, None)
+    t0 = time.perf_counter()
+    # a process group of its own, so that a timeout stops its worker too
+    proc = subprocess.Popen([sys.executable, "-m", "phones_las_torch.bench"], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        stdout, _ = proc.communicate(timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"the bench did not finish in {BENCH_TIMEOUT} s")
+    seconds = time.perf_counter() - t0
+    lines = stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        fail(f"the bench exited {proc.returncode} or printed {len(lines)} lines, not one: {stdout[-3000:]}")
+    out = json.loads(lines[0])
+    emit({"phase": "14a", "command": "python -m phones_las_torch.bench", "seconds": seconds, "bench": out,
+          "card": card})
+    if out.get("errors"):
+        fail(f"the bench reported errors: {out['errors']}")
+    missing = [k for k in BENCH_KEYS if out.get(k) is None] + [r for r in ROW_ORDER if r not in out["launches"]]
+    if missing:
+        fail(f"the bench's JSON lacks {missing}")
+    for key in ("bench_per_greedy", "bench_per_beam8"):
+        if abs(out[key] - REF_GREEDY_PER) > PER_TOL:  # greedy and beam-8 alike (phases 2 and 5a)
+            fail(f"the bench's {key} {out[key]} is not within {PER_TOL} of {REF_GREEDY_PER}")
+    bad = [k for k, v in out.items() if k.startswith(("value", "mfu")) and not (np.isfinite(v) and v > 0)]
+    if bad:
+        fail(f"the bench's {bad} are not finite and positive")
+    if out["card"] not in card:
+        fail(f"the bench names the card {out['card']!r}, nvidia-smi says {card!r}")
+    for row, want in BENCH_ROW_KERNELS.items():
+        got = out["launches"][row]
+        if set(got) != set(want):
+            fail(f"the bench's {row} row launched {got}, not each of {want}")
+    steps = [out[f"greedy_steps_run_{m}"] for m in ("parity", "production")]
+    if steps != [DECODE_STEPS, DECODE_STEPS]:
+        print(f"chip_smoke: the random init ended the greedy rows after {steps} of {DECODE_STEPS} steps",
+              file=sys.stderr, flush=True)
+    totals = {fn: 0 for fn in SERVE_KERNELS + TRAIN_KERNELS}
+    for row in out["launches"].values():
+        for fn, n in row.items():
+            totals[fn] += n
+    return totals
+
+
+def check_entry(kernels) -> dict:
+    """Phase 14b: ``entry()``'s forward on the card (4 × 4 s, 100 greedy
+    steps, parity) against the same forward on the CPU plain path, on the
+    card's weights → its launches."""
+    import copy
+
+    from phones_las_torch.entry import entry
+
+    fn, (params, audio, lengths) = entry()
+    reset_counters(kernels)
+    t0 = time.perf_counter()
+    tokens, lens = fn(params, audio, lengths)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts(kernels)
+    cpu_tokens, cpu_lens = fn(copy.deepcopy(params).to("cpu"), audio.cpu(), lengths.cpu())
+    tokens, lens = tokens.cpu(), lens.cpu()
+    differing = [i for i in range(len(tokens)) if not torch.equal(tokens[i], cpu_tokens[i])]
+    rec = {"phase": "14b", "entry": "phones_las_torch.entry.entry()", "shape": list(tokens.shape), "ms": ms,
+           "lengths": lens.tolist(), "rows_differing_from_cpu_plain": differing, "launches": launches}
+    emit(rec)
+    if differing or not torch.equal(lens, cpu_lens) or tuple(tokens.shape) != (4, 100):
+        fail(f"entry() on the card disagrees with the CPU plain path: {rec}")
+    if [launches[n] for n in SERVE_KERNELS] != [1, 3, 1] or any(launches[n] for n in TRAIN_KERNELS):
+        fail(f"entry() did not launch the serving kernels once (the BiLSTM once a layer): {launches}")
+    return launches
+
+
+def check_bench_assets(tuned, kernels) -> dict:
+    """Phase 14c: ``tools.make_bench_assets`` on phase 7's fine-tuned run
+    (its held-out split), then the bench's accuracy row on those assets
+    (``PLU_BENCH_ASSETS_DIR``) in this process → its launches. The
+    greedy PER is held to phase 7c's held-out eval of the same params."""
+    import contextlib
+    import io
+
+    from phones_las_torch import bench
+    from phones_las_torch.tools import make_bench_assets
+    from phones_las_torch.train.checkpoint import CheckpointManager
+    from phones_las_torch.utils.param_io import load_params_npz, named_leaves
+
+    out = os.path.join(tuned.work, "bench_assets")
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        make_bench_assets.main(["--workdir", tuned.run, "--out", out, "--n-utts", "64",
+                                "--split", os.path.relpath(tuned.held, tuned.data_dir)])
+    assets_s = time.perf_counter() - t0
+    saved, _ = CheckpointManager(tuned.run).read()
+    params, _ = load_params_npz(os.path.join(out, "ckpt.npz"), device="cpu")
+    same = all(np.array_equal(t.numpy(), saved[k]) for k, t in named_leaves(params))
+    os.environ["PLU_BENCH_ASSETS_DIR"] = out
+    try:
+        reset_counters(kernels)
+        t0 = time.perf_counter()
+        fields = bench.bench_accuracy()
+        torch.cuda.synchronize()
+        row_s = time.perf_counter() - t0
+        launches = launch_counts(kernels)
+    finally:
+        del os.environ["PLU_BENCH_ASSETS_DIR"]
+    rec = {"phase": "14c", "tool": said.getvalue().strip(), "assets_s": assets_s, "ckpt_equals_checkpoint": same,
+           "accuracy_row": fields, "accuracy_row_s": row_s, "phase_7c_eval_per": tuned.eval_per, "tol": PER_TOL,
+           "launches": launches}
+    emit(rec)
+    if not same or not fields or abs(fields["bench_per_greedy"] - tuned.eval_per) > PER_TOL:
+        fail(f"the bench assets of the fine-tuned run, or their accuracy row, disagree with phase 7: {rec}")
+    if not np.isfinite(fields["bench_per_beam8"]) or [launches[n] for n in SERVE_KERNELS] != [1, 3, 1]:
+        fail(f"the accuracy row did not run greedy and beam-8 through the serving kernels: {rec}")
+    return launches
+
+
+def check_entry_points(tuned, kernels, card) -> dict:
+    """Phase 14 → the launches of its paths, summed (the bench's rows as
+    its process reports them)."""
+    parts = [run_bench(card), check_entry(kernels), check_bench_assets(tuned, kernels)]
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
 def reset_counters(kernels) -> None:
     for fn in kernels:
         fn.launches = 0
@@ -4727,6 +4899,14 @@ def main() -> int:
             check_widths(kernels, card, artifacts)
         finally:
             artifacts.close()
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:] == ["--bench"]:
+        tuned = check_data_layer(ckpt, cfg, kernels)
+        try:
+            check_entry_points(tuned, kernels, card)
+        finally:
+            shutil.rmtree(tuned.work, ignore_errors=True)
         print(card, flush=True)
         return 0
 
@@ -4856,34 +5036,41 @@ def main() -> int:
         train_gate_augmented(data, kernels)
         check_workdir(ckpt, data, kernels)
 
-    # ---- phase 7: the data layer and fit over record files
-    check_data_layer(ckpt, cfg, kernels)
+    # ---- phase 7: the data layer and fit over record files (its fine-tuned run kept for phase 14)
+    tuned = check_data_layer(ckpt, cfg, kernels)
 
-    # ---- phase 8: the CLIs, the HTTP server and exported programs
-    check_front_doors(ckpt, cfg, kernels)
-
-    # the artifacts that phases 12b and 13b serve, written by a thread beside phases 9–11
-    artifacts = Prewritten()
-    artifacts.queue_served()
     try:
-        # ---- phase 9: the seq2seq G2P at its widths: kernels, serving, training, corpus prep
-        g2p_launches = check_g2p(kernels)
+        # ---- phase 8: the CLIs, the HTTP server and exported programs
+        check_front_doors(ckpt, cfg, kernels)
 
-        # ---- phase 10: several devices: the sharded step, NCCL, data-parallel and replica serving
-        mesh_launches = check_multi_device(ckpt, data, kernels)
+        # the artifacts that phases 12b and 13b serve, written by a thread beside phases 9–11
+        artifacts = Prewritten()
+        artifacts.queue_served()
+        try:
+            # ---- phase 9: the seq2seq G2P at its widths: kernels, serving, training, corpus prep
+            g2p_launches = check_g2p(kernels)
 
-        # ---- phase 11: degenerate rows and pad content through every serving and training kernel
-        degen_launches = check_degenerate_serving(params, params_cpu, cfg, kernels, card)
-        with torch.enable_grad():
-            degen_train_launches = check_degenerate_training(ckpt, kernels, card)
+            # ---- phase 10: several devices: the sharded step, NCCL, data-parallel and replica serving
+            mesh_launches = check_multi_device(ckpt, data, kernels)
 
-        # ---- phase 12: the reference's five presets at their own widths: the decoder kernel, serving, training, CLIs
-        preset_launches = check_presets(cfg, dec_recs[-1], kernels, card, artifacts)
+            # ---- phase 11: degenerate rows and pad content through every serving and training kernel
+            degen_launches = check_degenerate_serving(params, params_cpu, cfg, kernels, card)
+            with torch.enable_grad():
+                degen_train_launches = check_degenerate_training(ckpt, kernels, card)
 
-        # ---- phase 13: the reference's width flags: LAS-4-1024 and an odd width through every kernel
-        width_launches = check_widths(kernels, card, artifacts)
+            # ---- phase 12: the reference's five presets at their own widths: the decoder kernel, serving,
+            # training, CLIs
+            preset_launches = check_presets(cfg, dec_recs[-1], kernels, card, artifacts)
+
+            # ---- phase 13: the reference's width flags: LAS-4-1024 and an odd width through every kernel
+            width_launches = check_widths(kernels, card, artifacts)
+        finally:
+            artifacts.close()
+
+        # ---- phase 14: the reference's entry points: the bench's rows, entry(), the bench assets
+        bench_launches = check_entry_points(tuned, kernels, card)
     finally:
-        artifacts.close()
+        shutil.rmtree(tuned.work, ignore_errors=True)
 
     def kernel_entry(name, source, replaces, rec, n_launches):
         return {
@@ -4901,13 +5088,16 @@ def main() -> int:
     # sharded steps, the NCCL mesh step, a data-parallel call, the
     # replicated server), phase 11's (the degenerate batch served and
     # stepped on the card), phase 12's (the presets served, stepped and
-    # driven through the CLIs in this process) and phase 13's (W1024 and
-    # W100 served, W1024 stepped)
+    # driven through the CLIs in this process), phase 13's (W1024 and
+    # W100 served, W1024 stepped) and phase 14's (the bench's rows as its
+    # process reports them, entry() and the accuracy row on the fine-tuned
+    # run's assets)
     main_path = {**launches, "recurrence": api_launches["recurrence"],
                  "recurrence_residual": train_launches["recurrence_residual"],
                  "recurrence_bwd": train_launches["recurrence_bwd"]}
     total = lambda name: (main_path[name] + g2p_launches[name] + mesh_launches[name] + degen_launches[name]
-                          + degen_train_launches[name] + preset_launches[name] + width_launches[name])
+                          + degen_train_launches[name] + preset_launches[name] + width_launches[name]
+                          + bench_launches[name])
     emit({"kernels": [
         kernel_entry("fused_logmel", "phones_las_torch/csrc/frontend.cu",
                      "phones_las_tpu/frontend/pallas_frontend.py:110", fe_rec, total("fused_logmel")),

@@ -173,9 +173,11 @@ def test_every_port_test_file_runs_one_thread():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (the decode and serving modules included)
-    imports without pulling in JAX or the JAX package, and so does
-    ``chip_smoke.py``, whose imports are also read from its source."""
+    """Every module of the port (the decode and serving modules, the bench,
+    the entry points and the tools included) imports without pulling in
+    JAX, the JAX package or the reference's root ``bench`` and
+    ``__graft_entry__``, and so does ``chip_smoke.py``, whose imports are
+    also read from its source."""
     import ast
 
     code = (
@@ -183,7 +185,8 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(phones_las_torch.__path__, 'phones_las_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'phones_las_tpu'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'phones_las_tpu', 'bench', '__graft_entry__'))\n"
         "assert not bad, bad\n"
         "need = {'api', 'data.vocab', 'decode.beam', 'decode.ctc', 'decode.lm', 'decode.greedy', 'ops.attention',\n"
         "        'frontend.specaugment', 'frontend.freq_warp', 'frontend.cmvn', 'data.ipa', 'data.pipeline',\n"
@@ -192,7 +195,9 @@ def test_port_imports_no_jax():
         "        'data.timit', 'data.librispeech', 'parallel.multihost', 'parallel.mesh', 'export',\n"
         "        'utils.diagnostics',\n"
         "        'cli.serve', 'cli.train', 'cli.infer', 'cli.transcribe', 'cli.prepare', 'cli.lm', 'cli.export',\n"
-        "        'data.g2p', 'data.lexicon_en', 'models.g2p_model', 'data.common_voice', 'cli.g2p'}\n"
+        "        'data.g2p', 'data.lexicon_en', 'models.g2p_model', 'data.common_voice', 'cli.g2p',\n"
+        "        'bench', 'entry', 'tools.make_bench_assets', 'tools.export_artifact', 'tools.decode_stats',\n"
+        "        'tools.sample_lm_text', 'tools.longform_eval', 'tools.longform_debug'}\n"
         "missing = {'phones_las_torch.' + n for n in need} - set(names)\n"
         "assert not missing and len(names) >= 20, (missing, names)\n"
     )
@@ -203,4 +208,5 @@ def test_port_imports_no_jax():
         tree = ast.parse(f.read())
     imported = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
     imported |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module}
-    assert not {m for m in imported if m.split(".")[0] in ("jax", "jaxlib", "phones_las_tpu")}, imported
+    assert not {m for m in imported if m.split(".")[0] in ("jax", "jaxlib", "phones_las_tpu", "bench",
+                                                            "__graft_entry__")}, imported
