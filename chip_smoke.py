@@ -332,7 +332,11 @@ LSTM forward kernel under every plan it takes at the flagship width
 serving and the ops-API shape), each held against the chosen plan's
 output, and prints one line a plan; then the VJP's loop kernel the same
 way at the training shape; the numbers behind the choice of
-``CLUSTER_SIZES`` in ``ops/lstm.py``.
+``CLUSTER_SIZES`` in ``ops/lstm.py``; then the float32 streamed slice at
+U = 1024 (the forward at B = 64 both directions, the VJP's loop at
+B = 32) under every template and ring plan that fits, with the clusters
+the card runs at once (and the template's at C = 12, U = 1056): the
+numbers behind ``RING_CLUSTER_SIZES`` and ``RING_ROW_TILES``.
 
 ``python3 chip_smoke.py --compare DIR`` runs none of the phases either: it
 times the front-end kernel (flagship shape) and the VJP (T = 999, B = 32,
@@ -560,6 +564,12 @@ def check_frontend(cfg_fe, audio, what="flagship"):
     return rec
 
 
+# the forward kernel's cycle counters: the product, the cell update with its
+# sends, the output stores and prefetch, the wait for the peers' h (the
+# exchange), and (the ring route) the wait for chunks of wh (L2)
+FWD_CLOCKS = ("product", "cell_update", "stores_prefetch", "h_wait", "ring_wait")
+
+
 def forward_report(entry, xps, mask, whs, reverse, prec, ms=None):
     """The plan of the forward kernel's last launch, what the card gives it,
     and (one more launch) the SM cycles a step spends in its parts."""
@@ -568,15 +578,14 @@ def forward_report(entry, xps, mask, whs, reverse, prec, ms=None):
     plan = L._launch_forward.last_plan
     t = xps[0].shape[0]
     info = L.forward_kernel_info(plan.units, prec == "bf16", entry == "plt_lstm_residual",
-                                 plan.cluster, plan.bt, plan.ksplit, plan.resident)
-    clocks = torch.zeros(4, dtype=torch.int64, device=DEV)
+                                 plan.cluster, plan.bt, plan.ksplit, plan.resident, plan.ring)
+    clocks = torch.zeros(len(FWD_CLOCKS), dtype=torch.int64, device=DEV)
     L._launch_forward(entry, xps, mask, whs, 1.0, reverse, prec, None, clocks)
     torch.cuda.synchronize()
     rep = {
         "cluster": plan.cluster, "bt": plan.bt, "ksplit": plan.ksplit, "wh_in_smem": plan.resident,
         "kernel_units": plan.units, "clusters_launched": -(-xps[0].shape[1] // plan.bt) * len(xps), **info,
-        "cycles_per_step": dict(zip(("product", "cell_update", "stores_prefetch", "h_wait"),
-                                    (c / t for c in clocks.tolist()))),
+        "wh_ring": plan.ring, "cycles_per_step": dict(zip(FWD_CLOCKS, (c / t for c in clocks.tolist()))),
     }
     if ms is not None:
         rep["us_per_step"] = ms * 1e3 / t
@@ -696,7 +705,7 @@ def check_lstm_ragged(t, b, u, seed, phase=1):
                 worst[prec] = max(worst.get(prec, 0.0), a, ar, ap)
     infos = []
     for prec, save, p in sorted(plans):
-        info = L.forward_kernel_info(p.units, prec == "bf16", save, p.cluster, p.bt, p.ksplit, p.resident)
+        info = L.forward_kernel_info(p.units, prec == "bf16", save, p.cluster, p.bt, p.ksplit, p.resident, p.ring)
         infos.append({"prec": prec, "residual": save, "plan (cluster, bt, ksplit, wh_in_smem, smem_bytes, units)": p,
                       "smem_bytes": info["smem_bytes"], "registers": info["registers"],
                       "max_active_clusters": info["max_active_clusters"]})
@@ -791,7 +800,7 @@ def rel_err(got, want) -> float:
 
 
 BWD_PARTS = ("gates_gemm", "loop", "dwh_partial", "dwh_reduce")
-BWD_CLOCKS = ("dgates", "product", "send", "prefetch", "wait")
+BWD_CLOCKS = ("dgates", "product", "send", "prefetch", "wait", "ring_wait")
 
 
 def backward_report(bargs, t):
@@ -814,8 +823,8 @@ def backward_report(bargs, t):
     torch.cuda.synchronize()
     rep = {
         "cluster": plan.cluster, "bt": plan.bt, "ksplit": plan.ksplit, "wh_in_smem": plan.resident,
-        "kernel_units": plan.units, "clusters_launched": -(-xps[0].shape[1] // plan.bt) * len(xps), **info,
-        "kernel_ms": parts, "us_per_step": parts["loop"] * 1e3 / t,
+        "wh_ring": plan.ring, "kernel_units": plan.units,
+        "clusters_launched": -(-xps[0].shape[1] // plan.bt) * len(xps), **info, "kernel_ms": parts, "us_per_step": parts["loop"] * 1e3 / t,
         "cycles_per_step": dict(zip(BWD_CLOCKS, (c / t for c in clocks.tolist()))),
     }
     if info["smem_bytes"] != plan.smem:
@@ -1319,6 +1328,86 @@ def sweep_forward_plans(params) -> None:
                         "clusters_launched": -(-b // bt) * nd, **info, "ms": ms, "us_per_step": ms * 1e3 / t,
                         "max_abs_diff_to_chosen_plan": err,
                     })
+
+
+def sweep_streamed_plans() -> None:
+    """``--sweep``: float32 at U = 1024, T = 999: the forward (B = 64, both
+    directions) and the VJP's loop (B = 32) under every plan of the template
+    (C of 8 and 16, tiles of 8 and 16, the k split halved until the layout
+    fits) and of the ring (C of 8 and 16, tiles of 8, 16 and 24) that fits
+    in shared memory, each timed (median of 3) with the clusters the card
+    runs at once, and held against the chosen plan's output; and how many
+    clusters of 12 the card runs (the template at U = 1056)."""
+    from phones_las_torch.ops import lstm as L
+    from phones_las_torch.ops.masking import length_mask
+
+    t, u = 999, 1024
+    g = torch.Generator(device=DEV).manual_seed(63)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=DEV)
+
+    def candidates(bwd):
+        for ring in (False, True):
+            for c in (8, 16):
+                for bt in (L.RING_ROW_TILES if ring else L.ROW_TILES):
+                    if ring:
+                        ks = L._ring_ksplit(u // 4 if bwd else u // c)
+                        kc, smem = L.ring_slots(u, c, bt, ks, bwd)
+                        if kc < 4:
+                            continue
+                    else:
+                        ks = (L._bwd_ksplit if bwd else L._ksplit)(u, c, bt, False)
+                        size = L.backward_smem_bytes if bwd else L.forward_smem_bytes
+                        while ks > 1 and size(u, c, bt, ks, False, False) > L.SMEM_MAX:
+                            ks //= 2
+                        smem = size(u, c, bt, ks, False, False)
+                        if smem > L.SMEM_MAX:
+                            continue
+                    yield (L.BackwardPlan if bwd else L.ForwardPlan)(c, bt, ks, False, smem, u, ring)
+
+    b, nd = FLAGSHIP_B, 2
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=DEV)
+    mask = length_mask(lengths, t).transpose(0, 1).contiguous()
+    xps, whs, rev = [rnd(t, b, 4 * u) for _ in range(nd)], [rnd(u, 4 * u) / u ** 0.5 for _ in range(nd)], [False, True]
+    entry = "plt_lstm_recurrence"
+    want = L._launch_forward(entry, xps, mask, whs, 1.0, rev, "highest")
+    chosen = L._launch_forward.last_plan
+    for plan in candidates(False):
+        got = L._launch_forward(entry, xps, mask, whs, 1.0, rev, "highest", plan)
+        torch.cuda.synchronize()
+        err, _, _ = compare([k[0] for k in got], [k[0] for k in want], 0.0, 0.0)
+        ms = time_ms(lambda: L._launch_forward(entry, xps, mask, whs, 1.0, rev, "highest", plan), reps=3)
+        info = L.forward_kernel_info(u, False, False, plan.cluster, plan.bt, plan.ksplit, False, plan.ring)
+        emit({"sweep": "streamed forward", "shape": f"T={t} B={b} U={u} nd={nd} prec=highest",
+              **route_plan_record(plan, b, nd, info), "chosen": plan == chosen, "ms": ms,
+              "us_per_step": ms * 1e3 / t, "max_abs_diff_to_chosen_plan": err})
+    del xps, want
+    b = TRAIN_B
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=DEV)
+    mask = length_mask(lengths, t).transpose(0, 1).contiguous()
+    xps = [rnd(t, b, 4 * u) for _ in range(nd)]
+    res = L.recurrence_residual(xps, mask, whs, 1.0, rev, "highest")
+    bargs = (xps, mask, whs, [r[1] for r in res], [r[2] for r in res], [rnd(t, b, u) for _ in range(nd)],
+             [rnd(b, u) for _ in range(nd)], [rnd(b, u) for _ in range(nd)], 1.0, rev, "highest")
+    want = L.recurrence_bwd(*bargs)
+    chosen = L._launch_backward.last_plan
+    for plan in candidates(True):
+        got = L._launch_backward(*bargs, plan=plan)
+        torch.cuda.synchronize()
+        err = max(rel_err(k, p) for kg, pg in zip(got, want) for k, p in zip(kg, pg))
+        loops = []
+        for _ in range(3):
+            part = []
+            L._launch_backward(*bargs, plan=plan, part_ms=part)
+            loops.append(part[1])
+        loop_ms = statistics.median(loops)
+        emit({"sweep": "streamed vjp loop", "shape": f"T={t} B={b} U={u} nd={nd} prec=highest",
+              **route_plan_record(plan, b, nd, L.backward_kernel_info(False, plan)), "chosen": plan == chosen,
+              "loop_ms": loop_ms, "us_per_step": loop_ms * 1e3 / t, "max_rel_diff_to_chosen_plan": err})
+    ks = L._ksplit(1056, 12, 8, False)
+    while L.forward_smem_bytes(1056, 12, 8, ks, False, False) > L.SMEM_MAX:
+        ks //= 2
+    emit({"sweep": "clusters of 12", "shape": "U=1056 (the template, float32, Bt = 8)",
+          **L.forward_kernel_info(1056, False, False, 12, 8, ks, False)})
 
 
 def vjp_cases(L, params, seed):
@@ -3881,6 +3970,7 @@ PRESET_DECODES = (
 # they get, at TIMIT's vocabulary: B = 13, T_enc = 37, 40 steps, ragged
 SMALL_CLUSTERS = ((48, 48, 4), (40, 40, 2), (36, 40, 1))
 PRESET_ROWS = 8  # 12b: rows of the preset's longest bucket through the Transcriber
+LUONG_CAP = 60  # 12b: the Luong check's decode cap (a random init runs to it), as 13b's WIDTH_CAP
 # 12b: the one preset whose production beam-8 is also decoded on the CPU, a
 # reading (the bench's configuration); the others' runs on the card alone
 PRESET_BEAM_READING = "librispeech_char_las"
@@ -4145,7 +4235,8 @@ def serve_presets(work, ckpt_cfg, kernels, card, artifacts) -> dict:
     ``Transcriber.from_artifact`` on the card and on the CPU, 8 rows of its
     longest bucket, greedy and beam-8, parity and production (the grapheme
     head through a workdir); then the checkpoint's widths with Luong
-    attention (greedy through the loop) → the card's launches summed.
+    attention (greedy through the loop, to LUONG_CAP steps) → the card's
+    launches summed.
     Production beam-8 is not held against the CPU: a random init's output
     distributions are nearly flat, so its beams part on score gaps below
     what TF32 (on the card only) moves; it runs on the card alone but for
@@ -4202,12 +4293,12 @@ def serve_presets(work, ckpt_cfg, kernels, card, artifacts) -> dict:
     params = init_las(luong, PRESET_SEED, device="cpu")
     audio, lens = preset_pcm(PRESET_ROWS, int(SECONDS * SAMPLE_RATE), 131, ragged=True)
     rows = [audio[i, :k].astype(np.int16) for i, k in enumerate(lens)]
-    out = {"samples": [int(k) for k in lens], "cap": DECODE_STEPS}
+    out = {"samples": [int(k) for k in lens], "cap": LUONG_CAP}
     vocab = [f"p{i}" for i in range(luong.speller.vocab_size - 4)]
     for mode, c in (("parity", luong), ("production", production_cfg(luong))):
         art = os.path.join(work, f"luong_{mode}.npz")
         save_params_npz(art, params, c, extras={"vocab": vocab, "buckets": [len(rows[0])],
-                                                "max_target_len": DECODE_STEPS})
+                                                "max_target_len": LUONG_CAP})
         heads = {f"beam {beam}": transcribe_modes(art, rows, kernels, beam,
                                                   against_cpu=mode == "parity" or beam == 0) for beam in (0, BEAM_K)}
         out[mode] = heads
@@ -4425,8 +4516,10 @@ WIDTH_FLAGS = {
 }
 WIDTH_UNITS = (264, 320, 512, 1024, 100)  # 13a: the listener kernels against their plain versions, both modes
 WIDTH_KERNEL_T, WIDTH_KERNEL_B = 24, 32  # ... on ragged lengths 1..T
-WIDTH_TIMED = ((1024, "highest"), (512, "highest"))  # 13a: T = 999, with cuDNN beside (float32)
+WIDTH_TIMED = ((1024, "highest"), (512, "highest"), (1024, "bf16"))  # 13a: T = 999, with cuDNN beside
 WIDTH_REPS = 5  # ... timed as the median of 5 runs (the plain versions once)
+ROUTE_UNITS = (1024, 512)  # 13a: float32, the streamed slice's two routes in turns on one card
+ROUTE_REPS = 3  # ... each turn the median of 3 launches
 # 13a: the decoder kernel at B = 32, 200 steps: (label, T_enc, U, A, AL, M)
 WIDTH_DECODES = (("W1024", 219, 1024, 1024, 256, 2048), ("W1024", 438, 1024, 1024, 256, 2048),
                  ("W1024, attention layer 1024 (library-built)", 219, 1024, 1024, 1024, 2048),
@@ -4436,17 +4529,187 @@ WIDTH_TRAIN_B, WIDTH_TRAIN_SAMPLES, WIDTH_TRAIN_TARGET = 8, 64000, 30  # 13c: B 
 WIDTH_CLI_UTTS, WIDTH_CLI_STEPS = 64, 2  # 13c: prepare speechlike (16 held out), cli.train steps
 
 
+def check_ring_ragged(t, b, u, seed, phase="13a"):
+    """The ring kernels at a float32 width whose plan takes the template
+    (U = 264, 320, 512), through the ring's plan (``ring=True``): the
+    forward's two entries and the VJP, one and two directions, on a batch
+    that is no multiple of its tile with lengths 1..T, against the plain
+    versions at the gates of ``check_lstm_ragged`` and
+    ``check_lstm_bwd_ragged`` (VJP bitwise repeatable, masked steps pass
+    no gradient); each plan's shared memory held to the mirror's."""
+    from phones_las_torch.ops import lstm as L
+    from phones_las_torch.ops.masking import length_mask
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=DEV)
+    lengths = torch.randint(1, t + 1, (b,), generator=g, device=DEV)
+    lengths[0], lengths[1] = t, 1
+    mask = length_mask(lengths, t).transpose(0, 1).contiguous()
+    tol, vjp_tol = 1e-5, 1e-4
+    ok, fwd_err, vjp_err, plans = True, 0.0, 0.0, []
+    for nd in (1, 2):
+        xps = [rnd(t, b, 4 * u) for _ in range(nd)]
+        whs = [rnd(u, 4 * u) / u ** 0.5 for _ in range(nd)]
+        rev = [False, True][:nd] if nd == 2 else [True]
+        want = L.recurrence_residual_plain(xps, mask, whs, 1.0, rev, "highest")
+        for entry in ("plt_lstm_recurrence", "plt_lstm_residual"):
+            save = entry == "plt_lstm_residual"
+            active = lambda c, bt, ks, res, ring=False: L.forward_kernel_info(
+                L.kernel_units(u, c), False, save, c, bt, ks, res, ring)["max_active_clusters"]
+            plan = L.forward_plan(b, u, nd, "highest", active, ring=True)
+            got = L._launch_forward(entry, xps, mask, whs, 1.0, rev, "highest", plan)
+            torch.cuda.synchronize()
+            for k, p in zip(got, want):
+                pairs = [(k[0], p[0]), (k[3], p[3]), (k[4], p[4])] + ([(k[1], p[1]), (k[2], p[2])] if save else [])
+                a, _, k_ok = compare([x for x, _ in pairs], [y for _, y in pairs], tol, tol)
+                ok, fwd_err = ok and k_ok, max(fwd_err, a)
+            info = L.forward_kernel_info(plan.units, False, save, plan.cluster, plan.bt, plan.ksplit, False, True)
+            plans.append({"entry": entry, "nd": nd, "plan": plan, "smem_bytes": info["smem_bytes"],
+                          "registers": info["registers"], "max_active_clusters": info["max_active_clusters"]})
+            ok = ok and info["smem_bytes"] == plan.smem
+        bargs = (xps, mask, whs, [r[1] for r in want], [r[2] for r in want], [rnd(t, b, u) for _ in range(nd)],
+                 [rnd(b, u) for _ in range(nd)], [rnd(b, u) for _ in range(nd)], 1.0, rev, "highest")
+        plan = L.backward_plan(b, u, nd, "highest", lambda p: L.backward_kernel_info(False, p)["max_active_clusters"],
+                               ring=True)
+        got = L._launch_backward(*bargs, plan=plan)
+        again = L._launch_backward(*bargs, plan=plan)
+        pwant = L.recurrence_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        err = max(rel_err(k, p) for kg, pg in zip(got, pwant) for k, p in zip(kg, pg))
+        same = all(torch.equal(x, y) for kg, ag in zip(got, again) for x, y in zip(kg, ag))
+        dead = all(float((kg[0] * (1.0 - mask)[:, :, None]).abs().max()) == 0.0 for kg in got)
+        info = L.backward_kernel_info(False, plan)
+        plans.append({"entry": "plt_lstm_bwd", "nd": nd, "plan": plan, "smem_bytes": info["smem_bytes"],
+                      "registers": info["registers"], "max_active_clusters": info["max_active_clusters"]})
+        ok = ok and err <= vjp_tol and same and dead and info["smem_bytes"] == plan.smem
+        vjp_err = max(vjp_err, err)
+    rec = {"phase": phase, "kernel": "the ring kernels, ragged", "shape": f"T={t} B={b} U={u} lengths 1..{t}",
+           "forward_max_abs_err": fwd_err, "vjp_max_rel_to_max": vjp_err,
+           "tol": f"forward atol=rtol={tol}; dxp, dwh max|d|/max|plain| <= {vjp_tol}, bitwise repeatable",
+           "plans": plans, "ok": ok}
+    emit(rec)
+    if not ok:
+        fail(f"a ring kernel disagrees with its plain version (or the mirror's bytes) on a ragged case: {rec}")
+    return rec
+
+
+def route_plan_record(plan, b: int, nd: int, info: dict) -> dict:
+    """A plan of the listener kernels as 13a prints it: the cut, the
+    clusters of the launch against what the card runs at once, the waves."""
+    clusters = -(-b // plan.bt) * nd
+    return {"cluster": plan.cluster, "bt": plan.bt, "ksplit": plan.ksplit, "ring": plan.ring,
+            "wh_in_smem": plan.resident, "kernel_units": plan.units, "clusters": clusters,
+            "max_active_clusters": info["max_active_clusters"],
+            "waves": -(-clusters // info["max_active_clusters"]), "smem_bytes": info["smem_bytes"],
+            "registers": info["registers"]}
+
+
+def compare_routes(u: int, seed: int) -> list:
+    """13a: the four listener kernels at U, float32, T = 999 (the BiLSTM
+    forward at B = 64, the others at the training batch), under the
+    template (``ring=False``: each block's slice of wh streamed by its
+    threads' loads) and the ring (``ring=True``), in turns on one card
+    (template, ring, ring, template): each plan with its clusters,
+    ``max_active_clusters`` and waves, the ms, and the SM cycles a step
+    spends in each part; the two routes' outputs against each other and
+    which was faster (``forward_plan`` takes the ring past ``RING_UNITS``).
+    The plain versions and the gates are the other records'."""
+    from phones_las_torch.ops import lstm as L
+    from phones_las_torch.ops.masking import length_mask
+
+    t = 999
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=DEV)
+
+    def case(b, nd):
+        lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=DEV)
+        lengths[0] = t
+        mask = length_mask(lengths, t).transpose(0, 1).contiguous()
+        return [rnd(t, b, 4 * u) for _ in range(nd)], mask, [rnd(u, 4 * u) / u ** 0.5 for _ in range(nd)]
+
+    def in_turns(run):
+        ms = {"template": [], "ring": []}
+        for name in ("template", "ring", "ring", "template"):
+            ms[name].append(time_ms(lambda: run(name), reps=ROUTE_REPS))
+        return {name: statistics.median(v) for name, v in ms.items()}
+
+    recs = []
+    for kernel, entry, b, nd in (("bidir_recurrence", "plt_lstm_recurrence", FLAGSHIP_B, 2),
+                                 ("recurrence", "plt_lstm_recurrence", TRAIN_B, 1),
+                                 ("recurrence_residual", "plt_lstm_residual", TRAIN_B, 2)):
+        xps, mask, whs = case(b, nd)
+        rev = [False, True][:nd]
+        save = entry == "plt_lstm_residual"
+        info = lambda p: L.forward_kernel_info(p.units, False, save, p.cluster, p.bt, p.ksplit, p.resident, p.ring)
+        active = lambda c, bt, ks, res, ring=False: L.forward_kernel_info(
+            L.kernel_units(u, c), False, save, c, bt, ks, res, ring)["max_active_clusters"]
+        plans = {"template": L.forward_plan(b, u, nd, "highest", active, ring=False),
+                 "ring": L.forward_plan(b, u, nd, "highest", active, ring=True)}
+        run = lambda name: L._launch_forward(entry, xps, mask, whs, 1.0, rev, "highest", plans[name])
+        outs = {name: run(name) for name in plans}
+        torch.cuda.synchronize()
+        diff = max(float((x - y).abs().max()) for kt, kr in zip(outs["template"], outs["ring"])
+                   for x, y in zip(kt, kr) if x is not None)
+        ms = in_turns(run)
+        routes = {}
+        for name, plan in plans.items():
+            clocks = torch.zeros(len(FWD_CLOCKS), dtype=torch.int64, device=DEV)
+            L._launch_forward(entry, xps, mask, whs, 1.0, rev, "highest", plan, clocks)
+            torch.cuda.synchronize()
+            routes[name] = {**route_plan_record(plan, b, nd, info(plan)), "ms": ms[name],
+                            "us_per_step": ms[name] * 1e3 / t,
+                            "cycles_per_step": dict(zip(FWD_CLOCKS, (c / t for c in clocks.tolist())))}
+        recs.append({"phase": "13a", "kernel": kernel, "what": "the streamed slice's two routes, in turns",
+                     "shape": f"T={t} B={b} U={u} nd={nd} prec=highest", "routes": routes,
+                     "max_abs_diff_between_routes": diff, "faster": min(ms, key=ms.get)})
+        del xps, outs
+    xps, mask, whs = case(TRAIN_B, 2)
+    res = L.recurrence_residual(xps, mask, whs, 1.0, [False, True], "highest")
+    bargs = (xps, mask, whs, [r[1] for r in res], [r[2] for r in res], [rnd(t, TRAIN_B, u) for _ in range(2)],
+             [rnd(TRAIN_B, u) for _ in range(2)], [rnd(TRAIN_B, u) for _ in range(2)], 1.0, [False, True], "highest")
+    active = lambda p: L.backward_kernel_info(False, p)["max_active_clusters"]
+    plans = {"template": L.backward_plan(TRAIN_B, u, 2, "highest", active, ring=False),
+             "ring": L.backward_plan(TRAIN_B, u, 2, "highest", active, ring=True)}
+    outs = {name: L._launch_backward(*bargs, plan=plan) for name, plan in plans.items()}
+    torch.cuda.synchronize()
+    diff = max(rel_err(x, y) for kt, kr in zip(outs["template"], outs["ring"]) for x, y in zip(kt, kr))
+    loops = {"template": [], "ring": []}
+    for name in ("template", "ring", "ring", "template"):
+        for _ in range(ROUTE_REPS):
+            part = []
+            L._launch_backward(*bargs, plan=plans[name], part_ms=part)
+            loops[name].append(part[1])
+    routes = {}
+    for name, plan in plans.items():
+        clocks = torch.zeros(len(BWD_CLOCKS), dtype=torch.int64, device=DEV)
+        L._launch_backward(*bargs, plan=plan, clocks=clocks)
+        torch.cuda.synchronize()
+        loop_ms = statistics.median(loops[name])
+        routes[name] = {**route_plan_record(plan, TRAIN_B, 2, L.backward_kernel_info(False, plan)),
+                        "loop_ms": loop_ms, "us_per_step": loop_ms * 1e3 / t,
+                        "cycles_per_step": dict(zip(BWD_CLOCKS, (c / t for c in clocks.tolist())))}
+    recs.append({"phase": "13a", "kernel": "recurrence_bwd (the loop)", "what": "the streamed slice's two routes, in turns",
+                 "shape": f"T={t} B={TRAIN_B} U={u} nd=2 prec=highest", "routes": routes,
+                 "max_rel_diff_between_routes": diff,
+                 "faster": min(routes, key=lambda k: routes[k]["loop_ms"])})
+    for rec in recs:
+        emit(rec)
+    return recs
+
+
 def width_flags_argv(name: str) -> list:
     return [a for k, v in WIDTH_FLAGS[name].items() for a in (f"--{k.replace('_', '-')}", str(v))]
 
 
 def check_width_kernels(work) -> dict:
-    """Phase 13a: the listener kernels at U = 264, 320, 512, 1024 and 100 (a
-    cut of one block streaming wh, clusters of 8 streaming it, the padding
-    path) against their plain versions in both modes on ragged lengths;
-    timed at T = 999 beside cuDNN at U = 1024 and 512; the decoder kernel at
-    W1024's speller (the streamed layout), with an attention layer of 1024,
-    and at the LAS paper's (the held layout, 6.4 KB under the limit)."""
+    """Phase 13a: the listener kernels at U = 264, 320, 512, 1024 and 100
+    (float32 past 256 through the ring, bf16 streaming its slice, the
+    padding path) against their plain versions in both modes on ragged
+    lengths; timed at T = 999 beside cuDNN at U = 1024 and 512 in float32
+    and at 1024 in bf16; the two routes of a streamed float32 slice in turns
+    (``compare_routes``); the decoder kernel at W1024's speller (the
+    streamed layout), with an attention layer of 1024, and at the LAS
+    paper's (the held layout, 6.4 KB under the limit)."""
     from phones_las_torch.models.speller import SpellerConfig, init_speller
     from phones_las_torch.ops import lstm as L
     from phones_las_torch.ops.masking import length_mask
@@ -4455,6 +4718,8 @@ def check_width_kernels(work) -> dict:
     for i, u in enumerate(WIDTH_UNITS):
         fwd.append(check_lstm_ragged(WIDTH_KERNEL_T, WIDTH_KERNEL_B, u, 130 + i, phase="13a"))
         vjp.append(check_lstm_bwd_ragged(WIDTH_KERNEL_T, WIDTH_KERNEL_B, u, 140 + i, phase="13a"))
+        if 256 < u <= 512:  # where the plan takes the template, the ring's plan too
+            check_ring_ragged(WIDTH_KERNEL_T, WIDTH_KERNEL_B, u, 190 + i)
     emit({"phase": "13a", "what": "listener kernels at the new widths against their plain versions",
           "forward_max_abs_err": {r["shape"]: r["max_abs_err"] for r in fwd},
           "vjp_max_rel_to_max": {r["shape"]: r["max_rel_to_max"] for r in vjp},
@@ -4477,6 +4742,7 @@ def check_width_kernels(work) -> dict:
                                      reps=WIDTH_REPS)
         timed.append({"u": u, "prec": prec, "bidir_recurrence": rec, "recurrence": train[0],
                       "recurrence_residual": train[1], "recurrence_bwd": train[2]})
+    routes = [compare_routes(u, 180 + i) for i, u in enumerate(ROUTE_UNITS)]
     decs = []
     for i, (label, t, u, a, al, m) in enumerate(WIDTH_DECODES):
         sc = SpellerConfig(vocab_size=PRESET_VOCAB[WIDTH_PRESET], embedding_dim=128, num_layers=2, units=u,
@@ -4492,7 +4758,7 @@ def check_width_kernels(work) -> dict:
             fail(f"phase 13a: the decoder took the wrong layout at {label}: {rec['launch']}")
         decs.append(rec)
         del sp, memory
-    return {"timed": timed, "decoders": decs}
+    return {"timed": timed, "routes": routes, "decoders": decs}
 
 
 def write_width_artifact(path: str, name: str, mode: str) -> None:
@@ -4880,6 +5146,7 @@ def main() -> int:
     if sys.argv[1:] == ["--sweep"]:
         sweep_forward_plans(params)
         sweep_backward_plans(params)
+        sweep_streamed_plans()
         print(card, flush=True)
         return 0
     if sys.argv[1:] == ["--presets"]:

@@ -59,14 +59,41 @@
 //      and no cluster-wide barrier is paid per step.
 // C = 1 is one block that owns every unit. Where a block's slice does not
 // fit in shared memory (float32 past U = 256: at U = 1024, C = 8 a slice is
-// [1024][512] floats, 2 MB) the same code streams it from L2 at every step,
-// 16-byte loads of its rows, each element used for the Bt rows of the tile
-// from registers: a step then reads C x 2 MB a cluster from L2 instead of
-// nothing, and the product waits on those reads. U is a multiple of 8 up to
-// 1024; the caller chooses C, Bt, the k split and whether the slice is
-// resident from the shape (ops/lstm.py::forward_plan), pads any other U with
-// zeros to one that a plan takes, and this file refuses what does not fit:
-// there is no second route.
+// [1024][512] floats, 2 MB) it streams from L2 at every step, by one of two
+// routes. Up to U = 512 this template loads the slice's rows with 16-byte
+// loads, each element used for the Bt rows of the tile from registers; the
+// product waits on those reads (about 23 bytes a cycle an SM). Past U = 512
+// the ring (lstm_fwd_ring_kernel, below): a producer warp keeps a ring of
+// shared-memory slots filled with bulk copies of the slice's rows, one
+// chunk ahead of each k part of the product, and the product multiplies
+// each chunk once it has landed; h is held once, which leaves the ring room.
+// The caller's plan (ops/lstm.py::forward_plan) takes the ring's C and Bt
+// from a step's cost, the FMAs of a block on its busy threads against the L2
+// bytes of a wave, and clusters of 16 (non-portable; the H100 runs 7 at
+// once, 15 of 8) only where the grid runs in one wave: at U = 1024, B = 64,
+// both directions, 6 clusters of 16 at Bt = 24 (96 SMs; 16 clusters of 8
+// in two waves before), at B = 32 4 clusters of 16 at Bt = 16. On the card
+// the ring runs U = 1024 1.2-1.4x faster than the template and U = 512
+// slower (PERF.md), so the template keeps U <= 512. Multicast (one L2 read
+// landing in the blocks that share a slice) is not used: a cluster covers
+// all units and reads all of Wh once a step however its rows are cut, and
+// what bounds the ring at U = 1024 is one SM's intake from L2 (about 21
+// bytes a cycle; a block takes in its whole slice, 1 MB at C = 16, every
+// step) and the product's FMA rate, neither of which multicast moves. U is
+// a multiple of 8 up to 1024; the caller chooses the route, C, Bt, the k
+// split and whether the slice is resident from the shape, pads any other U
+// with zeros to one that a plan takes, and this file refuses what does not
+// fit.
+//
+// Prediction for the ring, made before its first run on the card (H100, T =
+// 999, float32, U = 1024): a step is 49 k FMA cycles a block against 36 k
+// cycles of L2 reads at B = 64 (6 clusters of 16, Bt = 24), 32.8 k against
+// 24 k at B = 32 (4 of 16, Bt = 16); with 3-6 k cycles of cell update and
+// exchange and 70-100 % of the FMA rate, the forward at B = 64 25-37 ms
+// (93.16 before), the residual forward and the VJP's loop at B = 32 17-28
+// ms (53.73, 54.61), one direction 12-20 ms (38.99). The measurements, and
+// why they fall short (the product at 50-60 % of the FMA rate, the SM's
+// intake), are in PERF.md.
 //
 // Prediction, made before the first run on the card (H100, B = 64, U = 256,
 // C = 8): the float32 product is 16*256*128 FMA a step and block at
@@ -138,10 +165,15 @@
 // loop it would double the loop's product.
 // C = 1 serves the widths no cluster divides (U = 40; at U = 248 the slice
 // streams from L2); past U = 256 in float32 the slices of a cluster stream
-// from L2 at every step as the forward's do. The caller chooses C, Bt, the
-// k split and residency from the shape (ops/lstm.py::backward_plan); this
-// file refuses what does not fit: there is no second route. The two GEMMs
-// take any U of the range (columns by blocks of 32 units, rows of T*B).
+// from L2 at every step by the forward's two routes: the template's loads up
+// to U = 512, past it the ring (lstm_bwd_ring_kernel: the slice of Wh^T
+// through the ring, a thread's 4 units of the partial dh for every row of
+// the tile sent to their owner from its registers; at B = 32, U = 1024, 4
+// clusters of 16 at Bt = 16 where the template ran 8 of 8 at Bt = 8). The
+// caller chooses the route, C, Bt, the k split and residency from the shape
+// (ops/lstm.py::backward_plan); this file refuses what does not fit. The
+// two GEMMs take any U of the range (columns by blocks of 32 units, rows of
+// T*B).
 //
 // Prediction, made before the first run on the card (H100, T = 999, B = 32,
 // U = 256, both directions, C = 8, Bt = 8: 8 clusters): the loop's product
@@ -218,9 +250,10 @@ struct FwdArgs {
 // how one launch cuts the work, chosen by the caller from the shape
 struct FwdPlan {
   int C;         // blocks of a cluster = slices of the units
-  int Bt;        // batch rows of a cluster's tile (8 or 16)
+  int Bt;        // batch rows of a cluster's tile (8 or 16; the ring also 24)
   int KS;        // float32: parts the k range is split into
   int resident;  // the block's slice of Wh lies in shared memory
+  int ring;      // float32: the slice streams through a ring of bulk copies (lstm_fwd_ring_kernel)
 };
 
 // byte offsets of a block's shared memory; ops/lstm.py::forward_smem_bytes mirrors it
@@ -660,6 +693,408 @@ lstm_fwd_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, int U, 
   }
 }
 
+// ------------------------------------------- the ring (a streamed float32 slice)
+//
+// A block's slice of Wh arrives in chunks of whole rows (k) through a ring of
+// shared-memory slots: one producer warp keeps the slots filled with bulk
+// copies (cp.async.bulk, counted on a transaction barrier a slot, wh kept in
+// L2 by an evict_last hint) and walks the slice over and over, step after
+// step, so the next step's first chunks arrive while this step's cell update
+// and exchange run; eight consumer warps multiply each chunk as it lands
+// and release its slot. A consumer thread owns 4 gate columns for all Bt
+// rows of the tile (Bt * 4 float32 sums in registers, each element of Wh
+// read once from shared memory a step; sixteen warps with half the rows
+// each measured slower: 96 registers a thread, and spills), and where the
+// columns leave threads idle the threads form KS k parts: part p takes the
+// chunks p, p + KS, ... of a pass whole, each part with two slots of its
+// own, so a thread runs several groups of four rows between two waits; the
+// parts meet in one buffer, added in part order. h is held once: a block
+// sends its slice of h(t + 1) only after every block of the cluster has
+// said (one remote arrival on its h_free barrier, C threads each sending
+// one) that it has finished reading h(t), which frees the 64 KB of the
+// second buffer for the ring.
+
+constexpr int RING_WARPS = FWD_THREADS / 32;     // consumer warps
+constexpr int RING_THREADS = FWD_THREADS + 32;   // and the producer warp
+constexpr int RING_CHUNK_MAX = 32768;           // bytes of a ring slot at most
+constexpr int RING_KS_MAX = 8;                   // k parts at most
+constexpr int RING_SLOTS = 2 * RING_KS_MAX;      // two slots a part
+// the dynamic shared memory a ring kernel may take: its barriers are static
+constexpr size_t RING_SMEM_MAX = SMEM_MAX - 1024;
+
+struct Ring {
+  int KC, nch, NS;  // rows of a chunk, chunks a pass over the slice, slots
+  size_t slot;      // bytes of a slot
+};
+
+// the ring in the shared memory left after `used` bytes, over a depth of K
+// rows of `row_bytes`: two slots for each of the KS parts (one chunk in
+// flight while the other is multiplied; three slots of smaller chunks
+// measured slower), chunks of the most rows (a multiple of 4) that fit, at
+// most RING_CHUNK_MAX bytes and the rows a part takes in a pass; KC < 4
+// means it does not fit. ops/lstm.py::ring_slots mirrors it.
+__host__ __device__ inline Ring ring_after(size_t used, int row_bytes, int KS, int K) {
+  Ring r;
+  r.NS = 2 * KS;
+  size_t per = used < RING_SMEM_MAX ? (RING_SMEM_MAX - used) / r.NS : 0;
+  if (per > RING_CHUNK_MAX) per = RING_CHUNK_MAX;
+  const int share = ((K + KS - 1) / KS + 3) / 4 * 4;
+  const int kc = (int)(per / row_bytes) / 4 * 4;
+  r.KC = kc < share ? kc : share;
+  r.nch = r.KC > 0 ? (K + r.KC - 1) / r.KC : 0;
+  r.slot = (size_t)r.KC * row_bytes;
+  return r;
+}
+
+// byte offsets of a block of the streamed forward; ops/lstm.py::forward_smem_bytes mirrors it
+struct FwdRingLayout {
+  int Us, Nc, xp_tile;
+  Ring r;
+  size_t h, part, xp, cst, hst, ring, total;
+};
+
+__host__ __device__ inline FwdRingLayout fwd_ring_layout(int U, FwdPlan p) {
+  FwdRingLayout L;
+  L.Us = U / p.C;
+  L.Nc = 4 * L.Us;
+  size_t off = 0;
+  L.h = off;  // [Bt][U]: h of the step, as the product reads it
+  off += (size_t)p.Bt * U * 4;
+  L.part = off;  // [Bt][Nc]: the k parts of the product, added in order
+  off += (size_t)p.Bt * L.Nc * 4;
+  L.xp_tile = p.Bt * L.Nc + p.Bt;  // [Bt, Nc] gates, then [Bt] mask: one tile, a step ahead
+  L.xp = off;
+  off += (size_t)L.xp_tile * 4;
+  L.cst = off;
+  off += (size_t)p.Bt * L.Us * 4;
+  L.hst = off;
+  off += (size_t)p.Bt * L.Us * 4;
+  L.ring = off;  // every size above is a multiple of 32 bytes
+  L.r = ring_after(off, L.Nc * 4, p.KS, U);
+  L.total = off + (size_t)L.r.NS * L.r.slot;
+  return L;
+}
+
+// `n` arrivals at once
+__device__ __forceinline__ void mbar_arrive(unsigned bar, unsigned n) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(n) : "memory");
+}
+// one arrival on a barrier of a block of the cluster (a shared::cluster address)
+__device__ __forceinline__ void mbar_arrive_remote(unsigned bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// as mbar_wait, for a phase completed by the blocks of the cluster
+__device__ __forceinline__ bool mbar_done_cluster(unsigned bar, unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+  return ok != 0;
+}
+__device__ __forceinline__ void mbar_wait_cluster(unsigned bar, unsigned parity) {
+  if (mbar_done_cluster(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_done_cluster(bar, parity))
+    if (clock64() - t0 > 4000000000LL) __trap();
+}
+__device__ __forceinline__ unsigned long long evict_last_policy() {
+  unsigned long long p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+// `bytes` from global memory into this block's shared memory, counted on `bar`
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes,
+                                          unsigned bar, unsigned long long policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar), "l"(policy) : "memory");
+}
+// the consumer warps' own block barrier (the producer warp never joins it)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(FWD_THREADS) : "memory");
+}
+
+// The producer: `passes` passes over a slice of K rows of `row_floats`
+// float32 values each, chunk after chunk, into the ring's slots
+__device__ __forceinline__ void ring_produce(const float* src, int passes, int K, int row_floats,
+                                            const Ring& r, unsigned ring0,
+                                            unsigned long long* full, unsigned long long* empty) {
+  const unsigned long long policy = evict_last_policy();
+  int slot = 0, round = 0;
+  for (int pass = 0; pass < passes; ++pass)
+    for (int i = 0; i < r.nch; ++i) {
+      // the slot's previous chunk has been released by every consumer warp
+      if (round > 0) mbar_wait(smem_addr(&empty[slot]), (round - 1) & 1);
+      const int rows = min(r.KC, K - i * r.KC);
+      const unsigned bytes = (unsigned)(rows * row_floats * 4);
+      const unsigned fb = smem_addr(&full[slot]);
+      mbar_expect(fb, bytes);
+      bulk_load(ring0 + (unsigned)(slot * r.slot), src + (size_t)i * r.KC * row_floats, bytes, fb,
+                policy);
+      if (++slot == r.NS) slot = 0, ++round;
+    }
+}
+
+// A consumer thread's share of the pass over the ring that starts at chunk
+// c0 (chunk c lies in slot c % NS): acc[r][j] = sum over the rows k of the
+// chunks c = part (mod KS) of a[r][k] * w[k][col0 + j], a = [TR][lda] in
+// shared memory (row r of the tile). A thread waits for each of its chunks;
+// the first lane of each run of its part's lanes in a warp releases the
+// chunk for all of them (`same`: those lanes). `waited` gathers the cycles
+// thread 0 of the timed block spent waiting for chunks.
+template <int TR>
+__device__ __forceinline__ void ring_consume(float (&acc)[TR][4], const float* __restrict__ ring_s,
+                                             const Ring& r, int K, int ncols, int col0,
+                                             const float* __restrict__ a, int lda, int part,
+                                             int KS, int c0, unsigned same,
+                                             unsigned long long* full, unsigned long long* empty,
+                                             bool timed, long long& waited) {
+#pragma unroll
+  for (int i = 0; i < TR; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+  const bool leader = __ffs(same) - 1 == (int)(threadIdx.x & 31);
+  for (int c = c0 + ((part - c0 % KS) % KS + KS) % KS; c < c0 + r.nch; c += KS) {
+    const int slot = c % r.NS, i = c - c0;
+    const long long w0 = timed ? clock64() : 0;
+    mbar_wait(smem_addr(&full[slot]), (unsigned)(c / r.NS) & 1);
+    if (timed) waited += clock64() - w0;
+    {
+      const float* wc = ring_s + slot * (r.slot / 4) + col0;
+      const float* ak = a + i * r.KC;
+      const int k4n = min(r.KC, K - i * r.KC) / 4;
+#pragma unroll 2
+      for (int k4 = 0; k4 < k4n; ++k4) {
+        const float4 w0v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4) * ncols);
+        const float4 w1v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4 + 1) * ncols);
+        const float4 w2v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4 + 2) * ncols);
+        const float4 w3v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4 + 3) * ncols);
+#pragma unroll
+        for (int rr = 0; rr < TR; ++rr) {
+          const float4 hv = *reinterpret_cast<const float4*>(ak + rr * lda + 4 * k4);
+          acc[rr][0] = fmaf(hv.x, w0v.x, acc[rr][0]);
+          acc[rr][1] = fmaf(hv.x, w0v.y, acc[rr][1]);
+          acc[rr][2] = fmaf(hv.x, w0v.z, acc[rr][2]);
+          acc[rr][3] = fmaf(hv.x, w0v.w, acc[rr][3]);
+          acc[rr][0] = fmaf(hv.y, w1v.x, acc[rr][0]);
+          acc[rr][1] = fmaf(hv.y, w1v.y, acc[rr][1]);
+          acc[rr][2] = fmaf(hv.y, w1v.z, acc[rr][2]);
+          acc[rr][3] = fmaf(hv.y, w1v.w, acc[rr][3]);
+          acc[rr][0] = fmaf(hv.z, w2v.x, acc[rr][0]);
+          acc[rr][1] = fmaf(hv.z, w2v.y, acc[rr][1]);
+          acc[rr][2] = fmaf(hv.z, w2v.z, acc[rr][2]);
+          acc[rr][3] = fmaf(hv.z, w2v.w, acc[rr][3]);
+          acc[rr][0] = fmaf(hv.w, w3v.x, acc[rr][0]);
+          acc[rr][1] = fmaf(hv.w, w3v.y, acc[rr][1]);
+          acc[rr][2] = fmaf(hv.w, w3v.z, acc[rr][2]);
+          acc[rr][3] = fmaf(hv.w, w3v.w, acc[rr][3]);
+        }
+      }
+    }
+    __syncwarp(same);
+    if (leader) mbar_arrive(smem_addr(&empty[slot]), __popc(same));
+  }
+}
+
+// the streamed forward: as lstm_fwd_kernel, float32, the tile's Bt = TR rows
+// a consumer thread, the slice of Wh through the ring (see above)
+template <bool SAVE_RES, int TR>
+__global__ void __launch_bounds__(RING_THREADS, 1)
+lstm_fwd_ring_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, int U, FwdPlan plan,
+                     float forget_bias, long long* __restrict__ clocks) {
+  extern __shared__ __align__(16) unsigned char fwd_ring_smem[];
+  __shared__ __align__(8) unsigned long long full_bar[RING_SLOTS], empty_bar[RING_SLOTS];
+  __shared__ __align__(8) unsigned long long hfull_bar, hfree_bar;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = plan.C, KS = plan.KS;
+  constexpr int Bt = TR;
+  const int rank = (int)cluster.block_rank();
+  const int d = blockIdx.y;
+  const int row0 = (blockIdx.x / C) * Bt;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const FwdRingLayout L = fwd_ring_layout(U, plan);
+  const int Us = L.Us, Nc = L.Nc, G = 4 * U;
+
+  const float* __restrict__ xp = a.xp[d];
+  float* __restrict__ out = a.out[d];
+  float* hprev = static_cast<float*>(a.hprev[d]);
+  float* cprev = static_cast<float*>(a.cprev[d]);
+  const bool reverse = a.reverse[d] != 0;
+  const float* wg = static_cast<const float*>(a.wh[d]) + (size_t)rank * U * Nc;
+
+  float* h_s = reinterpret_cast<float*>(fwd_ring_smem + L.h);
+  float* part_s = reinterpret_cast<float*>(fwd_ring_smem + L.part);
+  float* xp_s = reinterpret_cast<float*>(fwd_ring_smem + L.xp);
+  float* c_st = reinterpret_cast<float*>(fwd_ring_smem + L.cst);  // [Bt][Us] float32 state
+  float* h_st = reinterpret_cast<float*>(fwd_ring_smem + L.hst);
+  const float* ring_s = reinterpret_cast<const float*>(fwd_ring_smem + L.ring);
+
+  // everything but the ring starts at zero: h, the state, the xp tile
+  for (size_t i = tid; i < L.ring / 16; i += RING_THREADS)
+    reinterpret_cast<float4*>(fwd_ring_smem)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int ncg = Nc / 4;  // a thread's 4 columns, all Bt rows; the k range in KS parts
+  const unsigned hfull = smem_addr(&hfull_bar), hfree = smem_addr(&hfree_bar);
+  const unsigned h_bytes = (unsigned)(Bt * U * 4);
+  if (tid == 0) {
+    for (int s = 0; s < L.r.NS; ++s) {
+      mbar_init(smem_addr(&full_bar[s]), 1);
+      mbar_init(smem_addr(&empty_bar[s]), ncg);  // the threads of one k part
+    }
+    mbar_init(hfull, 1);
+    mbar_init(hfree, C);  // one arrival from each block of the cluster a step
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (T > 1) mbar_expect(hfull, h_bytes);  // step 1's h
+  }
+  // no block may store into a peer before that peer has zeroed its buffers
+  // and set up its barriers
+  cluster.sync();
+
+  if (warp == RING_WARPS) {
+    if ((tid & 31) == 0)
+      ring_produce(wg, T, U, Nc, L.r, smem_addr(ring_s), full_bar, empty_bar);
+    __syncwarp();
+    cluster.sync();
+    return;
+  }
+
+  const int part = tid / ncg, cgi = tid - part * ncg;
+  const unsigned same = __match_any_sync(0xffffffffu, part);
+  const int uqn = Us / 4, nq = Bt * uqn;  // the cell update's items: 4 units of a row
+  // xp[t] columns of this block and mask[t] for the tile -> xp_s
+  auto prefetch = [&](int t) {
+    for (int i = tid; i < Bt * Us; i += FWD_THREADS) {
+      const int row = i / Us, rem = i - row * Us;
+      const int gate = rem / uqn, j = rem - gate * uqn;
+      if (row0 + row < B)
+        cp_async16(xp_s + row * Nc + gate * Us + 4 * j,
+                   xp + ((size_t)t * B + row0 + row) * G + gate * U + rank * Us + 4 * j);
+    }
+    if (tid < Bt && row0 + tid < B) cp_async4(xp_s + Bt * Nc + tid, mask + (size_t)t * B + row0 + tid);
+    cp_async_commit();
+  };
+  auto save_state = [&](int t) {
+    for (int q = tid; q < nq; q += FWD_THREADS) {
+      const int row = q / uqn, u0 = (q - row * uqn) * 4;
+      if (row0 + row >= B) continue;
+      const size_t idx = ((size_t)t * B + row0 + row) * U + rank * Us + u0;
+      *reinterpret_cast<float4*>(hprev + idx) = *reinterpret_cast<const float4*>(h_st + row * Us + u0);
+      *reinterpret_cast<float4*>(cprev + idx) = *reinterpret_cast<const float4*>(c_st + row * Us + u0);
+    }
+  };
+  prefetch(reverse ? T - 1 : 0);
+  if (SAVE_RES) save_state(reverse ? T - 1 : 0);
+
+  // clocks (optional, 5 counters): SM cycles thread 0 of block (0, 0) spent
+  // in the product, the cell update with its stores to the peers, the output
+  // stores and prefetch, the wait for the peers' h, and (out of the product)
+  // the wait for chunks of Wh
+  const bool timed = clocks != nullptr && tid == 0 && blockIdx.x == 0 && blockIdx.y == 0;
+  long long tick = timed ? clock64() : 0;
+  long long spent[5] = {};
+  auto lap = [&](int i) {
+    if (timed) {
+      const long long now = clock64();
+      spent[i] += now - tick;
+      tick = now;
+    }
+  };
+  for (int step = 0; step < T; ++step) {
+    const int t = reverse ? T - 1 - step : step;
+    if (step > 0) {
+      // h(step) has landed; the barrier then counts h(step + 1), whose
+      // stores cannot come before this block has said it is done with h(step)
+      mbar_wait(hfull, (step - 1) & 1);
+      if (tid == 0 && step + 1 < T) mbar_expect(hfull, h_bytes);
+    }
+    lap(3);
+    float acc[TR][4];
+    long long waited = 0;
+    if (part < KS)
+      ring_consume<TR>(acc, ring_s, L.r, U, Nc, cgi * 4, h_s, U, part, KS, step * L.r.nch, same,
+                       full_bar, empty_bar, timed, waited);
+    cp_async_wait_all();  // this step's xp tile, requested a step ago
+    // the k parts into part_s, in part order
+    for (int g = 0; g < KS; ++g) {
+      if (part == g) {
+#pragma unroll
+        for (int r = 0; r < TR; ++r) {
+          float4* p = reinterpret_cast<float4*>(part_s + r * Nc + cgi * 4);
+          float4 v = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+          if (g > 0) {
+            const float4 s = *p;
+            v = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+          }
+          *p = v;
+        }
+      }
+      consumers_sync();
+    }
+    // h(step) is read: every block may send this one h(step + 1)
+    if (tid < C && step + 1 < T) mbar_arrive_remote(peer_addr(hfree, tid));
+    lap(0);
+    if (timed) spent[0] -= waited, spent[4] += waited;
+
+    // cell update of this block's units and this step's output
+    for (int q = tid; q < nq; q += FWD_THREADS) {
+      const int row = q / uqn, u0 = (q - row * uqn) * 4;
+      float gate[4][4];
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi) {
+        const int col = row * Nc + gi * Us + u0;
+        const float4 sv = *reinterpret_cast<const float4*>(part_s + col);
+        const float4 x = *reinterpret_cast<const float4*>(xp_s + col);
+        gate[gi][0] = x.x + sv.x, gate[gi][1] = x.y + sv.y, gate[gi][2] = x.z + sv.z, gate[gi][3] = x.w + sv.w;
+      }
+      const float m = xp_s[Bt * Nc + row];
+      const float4 c4 = *reinterpret_cast<const float4*>(c_st + row * Us + u0);
+      const float4 h4 = *reinterpret_cast<const float4*>(h_st + row * Us + u0);
+      float cv[4] = {c4.x, c4.y, c4.z, c4.w}, hv[4] = {h4.x, h4.y, h4.z, h4.w}, ov[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float c_new = sigmoidf_(gate[1][i] + forget_bias) * cv[i] +
+                            sigmoidf_(gate[0][i]) * tanhf(gate[2][i]);
+        const float h_new = sigmoidf_(gate[3][i]) * tanhf(c_new);
+        hv[i] = m * h_new + (1.0f - m) * hv[i];
+        cv[i] = m * c_new + (1.0f - m) * cv[i];
+        ov[i] = m * h_new;
+      }
+      *reinterpret_cast<float4*>(c_st + row * Us + u0) = make_float4(cv[0], cv[1], cv[2], cv[3]);
+      *reinterpret_cast<float4*>(h_st + row * Us + u0) = make_float4(hv[0], hv[1], hv[2], hv[3]);
+      if (row0 + row < B)
+        *reinterpret_cast<float4*>(out + ((size_t)t * B + row0 + row) * U + rank * Us + u0) =
+            make_float4(ov[0], ov[1], ov[2], ov[3]);
+    }
+    // this block's slice of h(step + 1) into every block, once all have read h(step)
+    if (step + 1 < T) {
+      mbar_wait_cluster(hfree, step & 1);
+      for (int q = tid; q < nq; q += FWD_THREADS) {
+        const int row = q / uqn, u0 = (q - row * uqn) * 4;
+        const float4 h4 = *reinterpret_cast<const float4*>(h_st + row * Us + u0);
+        const unsigned dst = smem_addr(h_s + row * U + rank * Us + u0);
+        for (int r = 0; r < C; ++r) store4_async(peer_addr(dst, r), peer_addr(hfull, r), h4);
+      }
+    }
+    lap(1);
+
+    if (SAVE_RES && step + 1 < T) save_state(reverse ? t - 1 : t + 1);
+    consumers_sync();  // part_s and the xp tile are free
+    if (step + 1 < T) prefetch(reverse ? t - 1 : t + 1);
+    lap(2);
+  }
+  if (timed)
+    for (int i = 0; i < 5; ++i) clocks[i] += spent[i];
+  cluster.sync();  // no block leaves while a peer may still address it
+  for (int q = tid; q < nq; q += FWD_THREADS) {
+    const int row = q / uqn, u0 = (q - row * uqn) * 4;
+    if (row0 + row >= B) continue;
+    const size_t idx = (size_t)(row0 + row) * U + rank * Us + u0;
+    *reinterpret_cast<float4*>(a.hfin[d] + idx) = *reinterpret_cast<const float4*>(h_st + row * Us + u0);
+    *reinterpret_cast<float4*>(a.cfin[d] + idx) = *reinterpret_cast<const float4*>(c_st + row * Us + u0);
+  }
+}
+
 // ------------------------------------------------------------------- VJP
 
 struct BwdArgs {
@@ -1028,9 +1463,10 @@ dwh_partial_kernel_tc(BwdArgs a, float* __restrict__ partials, int M, int U, int
 // how one launch of the loop cuts the work, chosen by the caller from the shape
 struct BwdPlan {
   int C;         // blocks of a cluster = slices of the units
-  int Bt;        // batch rows of a cluster's tile (8 or 16)
+  int Bt;        // batch rows of a cluster's tile (8 or 16; the ring also 24)
   int KS;        // float32: parts the k range (the block's gate columns) is split into
   int resident;  // the block's slice of Wh^T lies in shared memory
+  int ring;      // float32: the slice streams through a ring of bulk copies (lstm_bwd_ring_kernel)
 };
 // tiles of factors, dout and mask a block keeps: one in use, one in flight,
 // requested a whole step before its use (a third measured no faster)
@@ -1284,6 +1720,242 @@ lstm_bwd_kernel(BwdArgs a, const float* __restrict__ mask, int T, int B, int U, 
   cluster.sync();  // no block leaves while a peer may still address it
 }
 
+// byte offsets of a block of the streamed loop; ops/lstm.py::backward_smem_bytes mirrors it
+struct BwdRingLayout {
+  int Us, Nc, tile;
+  Ring r;
+  size_t recv, dg, part, tl, dh, dc, ring, total;
+};
+
+__host__ __device__ inline BwdRingLayout bwd_ring_layout(int U, BwdPlan p) {
+  BwdRingLayout L;
+  L.Us = U / p.C;
+  L.Nc = 4 * L.Us;
+  size_t off = 0;
+  L.recv = off;  // [C][Bt][Us] partial dh of this block's units, one slot a sender
+  off += (size_t)p.Bt * U * 4;
+  L.dg = off;  // [Bt][Nc] dgates of the step, the product's operand
+  off += (size_t)p.Bt * L.Nc * 4;
+  L.part = off;  // [Bt][U]: the k parts but the last, added in order (KS > 1 only)
+  if (p.KS > 1) off += (size_t)p.Bt * U * 4;
+  L.tile = p.Bt * (L.Nc + 3 * L.Us) + p.Bt;  // as bwd_layout's ring tile: one, a step ahead
+  L.tl = off;
+  off += (size_t)L.tile * 4;
+  L.dh = off;
+  off += (size_t)p.Bt * L.Us * 4;
+  L.dc = off;
+  off += (size_t)p.Bt * L.Us * 4;
+  L.ring = off;
+  L.r = ring_after(off, U * 4, p.KS, L.Nc);
+  L.total = off + (size_t)L.r.NS * L.r.slot;
+  return L;
+}
+
+// the streamed loop: as lstm_bwd_kernel, float32, the tile's Bt = TR rows a
+// consumer thread, the slice of Wh^T ([Nc][U], a row a gate column) through
+// the ring; a thread owns 4 units of the partial dh for all rows and sends
+// them to their owner itself (the last k part's thread, after the others' sum)
+template <int TR>
+__global__ void __launch_bounds__(RING_THREADS, 1)
+lstm_bwd_ring_kernel(BwdArgs a, const float* __restrict__ mask, int T, int B, int U, BwdPlan plan,
+                     long long* __restrict__ clocks) {
+  extern __shared__ __align__(16) unsigned char bwd_ring_smem[];
+  __shared__ __align__(8) unsigned long long full_bar[RING_SLOTS], empty_bar[RING_SLOTS];
+  __shared__ __align__(8) unsigned long long pfull_bar, pfree_bar;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = plan.C, KS = plan.KS;
+  constexpr int Bt = TR;
+  const int rank = (int)cluster.block_rank();
+  const int d = blockIdx.y;
+  const int row0 = (blockIdx.x / C) * Bt;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const BwdRingLayout L = bwd_ring_layout(U, plan);
+  const int Us = L.Us, Nc = L.Nc, G = 4 * U;
+
+  float* dxp = a.dxp[d];  // the factors Fi, Ff, Fg, Fo of every step on entry, dgates on exit
+  const float* __restrict__ dout = a.dout[d];
+  const float* __restrict__ fac = a.fac[d];
+  const bool reverse = a.reverse[d] != 0;
+  const float* wg = static_cast<const float*>(a.whg[d]) + (size_t)rank * Nc * U;
+
+  float* recv_s = reinterpret_cast<float*>(bwd_ring_smem + L.recv);
+  float* dg_s = reinterpret_cast<float*>(bwd_ring_smem + L.dg);
+  float* part_s = reinterpret_cast<float*>(bwd_ring_smem + L.part);
+  float* tl = reinterpret_cast<float*>(bwd_ring_smem + L.tl);
+  float* dh_st = reinterpret_cast<float*>(bwd_ring_smem + L.dh);  // (1-m)*dh: what a row keeps of dh
+  float* dc_st = reinterpret_cast<float*>(bwd_ring_smem + L.dc);
+  const float* ring_s = reinterpret_cast<const float*>(bwd_ring_smem + L.ring);
+  const int nq = Bt * Us;
+  const Div by_us(Us), by_uq(Us / 4), by_q4(nq / 4);
+  const int o_dout = Bt * Nc, o_fa = o_dout + nq, o_fs = o_fa + nq, o_mask = o_fs + nq;
+
+  // everything but the ring starts at zero: rows past B are never loaded
+  for (size_t i = tid; i < L.ring / 16; i += RING_THREADS)
+    reinterpret_cast<float4*>(bwd_ring_smem)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __syncthreads();
+  for (int q = tid; q < nq; q += RING_THREADS) {
+    const int row = q / Us, u = q - row * Us;
+    if (row0 + row >= B) continue;
+    const size_t idx = (size_t)(row0 + row) * U + rank * Us + u;
+    dh_st[q] = a.dhfin[d][idx];
+    dc_st[q] = a.dcfin[d][idx];
+  }
+  const int uqn = Us / 4;
+  // what step t needs of this block's units for the tile's rows -> tl (consumer threads)
+  auto prefetch = [&](int t) {
+    for (int i = tid; i < nq; i += FWD_THREADS) {
+      const int row = by_us.quot(i), rem = i - row * Us;
+      const int gate = by_uq.quot(rem), j = rem - gate * uqn;
+      if (row0 + row < B)
+        cp_async16(tl + row * Nc + gate * Us + 4 * j,
+                   dxp + ((size_t)t * B + row0 + row) * G + gate * U + rank * Us + 4 * j);
+    }
+    for (int i = tid; i < 3 * (nq / 4); i += FWD_THREADS) {
+      const int pt = by_q4.quot(i), r = i - pt * (nq / 4);
+      const int row = by_uq.quot(r), j = r - row * uqn;
+      if (row0 + row >= B) continue;
+      const size_t at = (size_t)t * B + row0 + row;
+      const float* src = pt == 0 ? dout + at * U : fac + at * 2 * U + (pt - 1) * U;
+      cp_async16(tl + o_dout + pt * nq + row * Us + 4 * j, src + rank * Us + 4 * j);
+    }
+    if (tid < Bt && row0 + tid < B) cp_async4(tl + o_mask + tid, mask + (size_t)t * B + row0 + tid);
+    cp_async_commit();
+  };
+  auto time_of = [&](int step) { return reverse ? step : T - 1 - step; };  // opposite to the forward
+  if (tid < FWD_THREADS) prefetch(time_of(0));
+  const int ncg = U / 4;  // a thread's 4 units of the partial dh, all Bt rows; the k range in KS parts
+  const unsigned pfull = smem_addr(&pfull_bar), pfree = smem_addr(&pfree_bar);
+  const unsigned p_bytes = (unsigned)(Bt * U * 4);
+  if (tid == 0) {
+    for (int s = 0; s < L.r.NS; ++s) {
+      mbar_init(smem_addr(&full_bar[s]), 1);
+      mbar_init(smem_addr(&empty_bar[s]), ncg);  // the threads of one k part
+    }
+    mbar_init(pfull, 1);
+    mbar_init(pfree, C);  // one arrival from each block of the cluster a step
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (T > 1) mbar_expect(pfull, p_bytes);  // step 1's partials
+  }
+  cluster.sync();
+
+  if (warp == RING_WARPS) {  // the last step has no product
+    if ((tid & 31) == 0)
+      ring_produce(wg, T - 1, Nc, U, L.r, smem_addr(ring_s), full_bar, empty_bar);
+    __syncwarp();
+    cluster.sync();
+    return;
+  }
+
+  const int part = tid / ncg, cgi = tid - part * ncg;
+  const unsigned same = __match_any_sync(0xffffffffu, part);
+  const int owner = by_us.quot(4 * cgi);  // the block that owns those units
+
+  // clocks (optional, 6 counters): SM cycles thread 0 of block (0, 0) spent
+  // forming dgates, in the product, adding and sending the partials,
+  // requesting the next tile, waiting for the peers' partials, and (out of
+  // the product) waiting for chunks of Wh^T
+  const bool timed = clocks != nullptr && tid == 0 && blockIdx.x == 0 && blockIdx.y == 0;
+  long long tick = timed ? clock64() : 0;
+  long long spent[6] = {};
+  auto lap = [&](int i) {
+    if (timed) {
+      const long long now = clock64();
+      spent[i] += now - tick;
+      tick = now;
+    }
+  };
+  for (int step = 0; step < T; ++step) {
+    const int t = time_of(step);
+    if (step > 0) {
+      // as the forward's h: the barrier then counts the partials of step + 1,
+      // whose stores cannot come before this block has read these
+      mbar_wait(pfull, (step - 1) & 1);
+      if (tid == 0 && step + 1 < T) mbar_expect(pfull, p_bytes);
+    }
+    cp_async_wait_all();  // this step's tile
+    consumers_sync();
+    lap(4);
+
+    // 1. dh of this step, then dh', dc', dgates and what the row keeps
+    for (int q = tid; q < nq; q += FWD_THREADS) {
+      const int row = by_us.quot(q), u = q - row * Us;
+      float dh = dh_st[q];
+      if (step > 0)
+        for (int r = 0; r < C; ++r) dh += recv_s[r * nq + q];  // in rank order
+      const float m = tl[o_mask + row];
+      const float dc = dc_st[q];
+      const float dh_tot = m * (tl[o_dout + q] + dh);
+      const float dc_new = m * dc + dh_tot * tl[o_fa + q];
+      const float* f = tl + row * Nc + u;
+      const float dg[4] = {dc_new * f[0], dc_new * f[Us], dc_new * f[2 * Us], dh_tot * f[3 * Us]};
+      dh_st[q] = (1.0f - m) * dh;
+      dc_st[q] = (1.0f - m) * dc + dc_new * tl[o_fs + q];
+      float* ds = dg_s + row * Nc + u;
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi) ds[gi * Us] = dg[gi];
+      if (row0 + row < B) {
+        float* gx = dxp + ((size_t)t * B + row0 + row) * G + rank * Us + u;
+#pragma unroll
+        for (int gi = 0; gi < 4; ++gi) gx[gi * U] = dg[gi];
+      }
+    }
+    consumers_sync();
+    lap(0);
+    // the partials are read and the tile is free: every block may send this
+    // one its next partials, and the next step's tile is requested
+    if (step + 1 < T) {
+      if (tid < C) mbar_arrive_remote(peer_addr(pfree, tid));
+      prefetch(time_of(step + 1));
+    }
+    lap(3);
+    if (step + 1 == T) break;
+
+    // 2. partial dh of every unit from this block's gate columns
+    float acc[TR][4];
+    long long waited = 0;
+    if (part < KS)
+      ring_consume<TR>(acc, ring_s, L.r, Nc, U, cgi * 4, dg_s, Nc, part, KS, step * L.r.nch, same,
+                       full_bar, empty_bar, timed, waited);
+    lap(1);
+    if (timed) spent[1] -= waited, spent[5] += waited;
+
+    // 3. the k parts added in order, each thread's units to their owner
+    for (int g = 0; g + 1 < KS; ++g) {
+      if (part == g) {
+#pragma unroll
+        for (int r = 0; r < TR; ++r) {
+          float4* p = reinterpret_cast<float4*>(part_s + r * U + cgi * 4);
+          float4 v = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+          if (g > 0) {
+            const float4 s = *p;
+            v = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+          }
+          *p = v;
+        }
+      }
+      consumers_sync();
+    }
+    if (part == KS - 1) {
+      mbar_wait_cluster(pfree, step & 1);  // every block has read this step's partials
+      const unsigned base = smem_addr(recv_s + rank * nq) + (unsigned)((4 * cgi - owner * Us) * 4);
+      const unsigned bar = peer_addr(pfull, owner);
+#pragma unroll
+      for (int r = 0; r < TR; ++r) {
+        float4 v = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        if (KS > 1) {
+          const float4 s = *reinterpret_cast<const float4*>(part_s + r * U + cgi * 4);
+          v = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+        }
+        store4_async(peer_addr(base + (unsigned)(r * Us * 4), owner), bar, v);
+      }
+    }
+    lap(2);
+  }
+  if (timed)
+    for (int i = 0; i < 6; ++i) clocks[i] += spent[i];
+  cluster.sync();  // no block leaves while a peer may still address it
+}
+
 // 3a. partial[s][u, n] = sum over rows m of split s of hprev[m, u] * dgates[m, n]
 template <typename W>
 __global__ void __launch_bounds__(GEMM_THREADS, 2)
@@ -1363,25 +2035,41 @@ bool bad_shape(int nd, int T, int B, int U) {
 // units (16-byte column groups, 8-column mma tiles), tiles of 8 or 16 rows,
 // and a layout that fits a block's shared memory, the Wh slice resident or
 // streamed from L2 at any C
+// The ring takes float32 only, a thread's 4 columns for every
+// one of `cols` column groups (KS parts of the k range at most 256 threads)
+// and a ring whose chunks hold four rows at least.
+bool bad_ring(bool bf, int cols, int KS, const Ring& r, size_t total) {
+  return bf || cols > FWD_THREADS || KS > RING_KS_MAX || KS * cols > FWD_THREADS || r.KC < 4 ||
+         total > RING_SMEM_MAX;
+}
+
 bool bad_plan(int U, FwdPlan p, bool bf) {
   if (p.C < 1 || p.C > 16 || U % p.C || (U / p.C) % 8) return true;
-  if (p.Bt != 8 && p.Bt != 16) return true;
+  if (p.Bt != 8 && p.Bt != 16 && !(p.ring && p.Bt == 24)) return true;
   if (p.KS < 1 || p.KS > 16 || (bf && p.KS != 1)) return true;
+  if (p.ring) {
+    const FwdRingLayout L = fwd_ring_layout(U, p);
+    return p.resident || bad_ring(bf, L.Nc / 4, p.KS, L.r, L.total);
+  }
   return fwd_layout(U, p, bf).total > SMEM_MAX;
 }
 
 // what the loop of the VJP takes: as bad_plan
 bool bad_bwd_plan(int U, BwdPlan p, bool bf) {
   if (p.C < 1 || p.C > 16 || U % p.C || (U / p.C) % 8) return true;
-  if (p.Bt != 8 && p.Bt != 16) return true;
+  if (p.Bt != 8 && p.Bt != 16 && !(p.ring && p.Bt == 24)) return true;
   if (p.KS < 1 || p.KS > 16 || (bf && p.KS != 1)) return true;
+  if (p.ring) {
+    const BwdRingLayout L = bwd_ring_layout(U, p);
+    return p.resident || bad_ring(bf, U / 4, p.KS, L.r, L.total);
+  }
   return bwd_layout(U, p, bf).total > SMEM_MAX;
 }
 
-// a launch of `kernel` as clusters of C blocks with `smem` dynamic bytes
+// a launch of `kernel` as clusters of C blocks of `threads` with `smem` dynamic bytes
 template <typename K>
 cudaError_t prepare_cluster(K kernel, size_t smem, int C, cudaLaunchConfig_t* cfg,
-                            cudaLaunchAttribute* attr) {
+                            cudaLaunchAttribute* attr, int threads = FWD_THREADS) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
@@ -1392,29 +2080,46 @@ cudaError_t prepare_cluster(K kernel, size_t smem, int C, cudaLaunchConfig_t* cf
   attr->val.clusterDim.x = C;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
-  cfg->blockDim = dim3(FWD_THREADS);
+  cfg->blockDim = dim3(threads);
   cfg->dynamicSmemBytes = smem;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
   return cudaSuccess;
 }
 
+// the kernel of a forward plan, ready to launch or to ask about: the
+// template (resident or streamed by threads' loads), or the ring route
+// (float32 only: bad_plan refuses a bf16 ring)
 template <typename W, bool SAVE_RES>
-cudaError_t prepare_fwd(int U, FwdPlan p, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  const bool bf = std::is_same<W, __nv_bfloat16>::value;
-  return prepare_cluster(lstm_fwd_kernel<W, SAVE_RES>, fwd_layout(U, p, bf).total, p.C, cfg, attr);
-}
+struct FwdKernel {
+  using Fn = void (*)(FwdArgs, const float*, int, int, int, FwdPlan, float, long long*);
+  Fn fn;
+  size_t smem;
+  int threads;
+  FwdKernel(int U, FwdPlan p) {
+    const bool bf = std::is_same<W, __nv_bfloat16>::value;
+    if (!p.ring) {
+      fn = lstm_fwd_kernel<W, SAVE_RES>, smem = fwd_layout(U, p, bf).total, threads = FWD_THREADS;
+      return;
+    }
+    smem = fwd_ring_layout(U, p).total, threads = RING_THREADS;
+    fn = p.Bt == 24   ? lstm_fwd_ring_kernel<SAVE_RES, 24>
+         : p.Bt == 16 ? lstm_fwd_ring_kernel<SAVE_RES, 16>
+                      : lstm_fwd_ring_kernel<SAVE_RES, 8>;
+  }
+};
 
 template <typename W, bool SAVE_RES>
 int launch_fwd(const FwdArgs& a, const float* mask, int nd, int T, int B, int U, FwdPlan p,
                float fb, long long* clocks, cudaStream_t stream) {
+  const FwdKernel<W, SAVE_RES> k(U, p);
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cudaError_t e = prepare_fwd<W, SAVE_RES>(U, p, &cfg, &attr);
+  cudaError_t e = prepare_cluster(k.fn, k.smem, p.C, &cfg, &attr, k.threads);
   if (e != cudaSuccess) return static_cast<int>(e);
   cfg.gridDim = dim3(p.C * ((B + p.Bt - 1) / p.Bt), nd);
   cfg.stream = stream;
-  e = cudaLaunchKernelEx(&cfg, lstm_fwd_kernel<W, SAVE_RES>, a, mask, T, B, U, p, fb, clocks);
+  e = cudaLaunchKernelEx(&cfg, k.fn, a, mask, T, B, U, p, fb, clocks);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -1436,21 +2141,40 @@ int cluster_info(K kernel, cudaLaunchConfig_t* cfg, int C, int* out) {
 
 template <typename W, bool SAVE_RES>
 int info_fwd(int U, FwdPlan p, int* out) {
+  const FwdKernel<W, SAVE_RES> k(U, p);
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cudaError_t e = prepare_fwd<W, SAVE_RES>(U, p, &cfg, &attr);
+  cudaError_t e = prepare_cluster(k.fn, k.smem, p.C, &cfg, &attr, k.threads);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return cluster_info(lstm_fwd_kernel<W, SAVE_RES>, &cfg, p.C, out);
+  return cluster_info(k.fn, &cfg, p.C, out);
 }
+
+// the loop kernel of a VJP plan, as FwdKernel
+template <typename W>
+struct BwdKernel {
+  using Fn = void (*)(BwdArgs, const float*, int, int, int, BwdPlan, long long*);
+  Fn fn;
+  size_t smem;
+  int threads;
+  BwdKernel(int U, BwdPlan p) {
+    const bool bf = std::is_same<W, __nv_bfloat16>::value;
+    if (!p.ring) {
+      fn = lstm_bwd_kernel<W>, smem = bwd_layout(U, p, bf).total, threads = FWD_THREADS;
+      return;
+    }
+    smem = bwd_ring_layout(U, p).total, threads = RING_THREADS;
+    fn = p.Bt == 24 ? lstm_bwd_ring_kernel<24> : p.Bt == 16 ? lstm_bwd_ring_kernel<16> : lstm_bwd_ring_kernel<8>;
+  }
+};
 
 template <typename W>
 int info_bwd(int U, BwdPlan p, int* out) {
-  const bool bf = std::is_same<W, __nv_bfloat16>::value;
+  const BwdKernel<W> k(U, p);
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cudaError_t e = prepare_cluster(lstm_bwd_kernel<W>, bwd_layout(U, p, bf).total, p.C, &cfg, &attr);
+  cudaError_t e = prepare_cluster(k.fn, k.smem, p.C, &cfg, &attr, k.threads);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return cluster_info(lstm_bwd_kernel<W>, &cfg, p.C, out);
+  return cluster_info(k.fn, &cfg, p.C, out);
 }
 
 template <bool SAVE_RES>
@@ -1502,13 +2226,14 @@ int launch_bwd(const BwdArgs& a, const float* mask, float* partials, int nd, int
   else gates_kernel<W><<<gates_grid, GEMM_THREADS, 0, stream>>>(a, M, U, fb);
   if ((e = cudaGetLastError()) != cudaSuccess) return finish(e);
   mark(1);
+  const BwdKernel<W> k(U, p);
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  e = prepare_cluster(lstm_bwd_kernel<W>, bwd_layout(U, p, bf).total, p.C, &cfg, &attr);
+  e = prepare_cluster(k.fn, k.smem, p.C, &cfg, &attr, k.threads);
   if (e != cudaSuccess) return finish(e);
   cfg.gridDim = dim3(p.C * ((B + p.Bt - 1) / p.Bt), nd);
   cfg.stream = stream;
-  e = cudaLaunchKernelEx(&cfg, lstm_bwd_kernel<W>, a, mask, T, B, U, p, clocks);
+  e = cudaLaunchKernelEx(&cfg, k.fn, a, mask, T, B, U, p, clocks);
   if (e != cudaSuccess || (e = cudaGetLastError()) != cudaSuccess) return finish(e);
   mark(2);
   const int chunk = ((M + dwh_split - 1) / dwh_split + TK - 1) / TK * TK;
@@ -1526,22 +2251,32 @@ int launch_bwd(const BwdArgs& a, const float* mask, float* partials, int nd, int
   return finish(e);
 }
 
+// a plan from the entries' arguments: route 0 streams the slice by the
+// threads' loads, 1 holds it in shared memory, 2 streams it through the ring
+FwdPlan fwd_plan(int cluster, int bt, int ksplit, int route) {
+  return FwdPlan{cluster, bt, ksplit, route == 1, route == 2};
+}
+BwdPlan bwd_plan(int cluster, int bt, int ksplit, int route) {
+  return BwdPlan{cluster, bt, ksplit, route == 1, route == 2};
+}
+
 }  // namespace
 
 // one or two directions of the recurrence -> out, final (h, c). wh0/wh1 are
 // regrouped by unit slice for `cluster` blocks (see the header); cluster,
-// bt, ksplit and resident are the caller's plan for the launch; clocks is
-// null or 4 cycle counters the kernel adds to (see the kernel).
+// bt, ksplit and route (0 streamed, 1 resident, 2 the ring) are the caller's
+// plan for the launch; clocks is null or 5 cycle counters the kernel adds to
+// (see the kernels).
 extern "C" int plt_lstm_recurrence(const float* xp0, const float* xp1, const float* mask,
                                    const void* wh0, const void* wh1, int nd, int rev_bits,
                                    int wh_bf16, float* out0, float* out1, void* hprev0,
                                    void* hprev1, void* cprev0, void* cprev1, float* hfin0,
                                    float* hfin1, float* cfin0, float* cfin1, int T, int B,
                                    int U, float forget_bias, int cluster, int bt, int ksplit,
-                                   int resident, long long* clocks, void* stream) {
+                                   int route, long long* clocks, void* stream) {
   return fwd_entry<false>(xp0, xp1, mask, wh0, wh1, nd, rev_bits, wh_bf16, out0, out1,
                           hprev0, hprev1, cprev0, cprev1, hfin0, hfin1, cfin0, cfin1, T,
-                          B, U, forget_bias, FwdPlan{cluster, bt, ksplit, resident}, clocks, stream);
+                          B, U, forget_bias, fwd_plan(cluster, bt, ksplit, route), clocks, stream);
 }
 
 // as plt_lstm_recurrence, plus the carried state before each step
@@ -1551,10 +2286,10 @@ extern "C" int plt_lstm_residual(const float* xp0, const float* xp1, const float
                                  void* hprev1, void* cprev0, void* cprev1, float* hfin0,
                                  float* hfin1, float* cfin0, float* cfin1, int T, int B,
                                  int U, float forget_bias, int cluster, int bt, int ksplit,
-                                 int resident, long long* clocks, void* stream) {
+                                 int route, long long* clocks, void* stream) {
   return fwd_entry<true>(xp0, xp1, mask, wh0, wh1, nd, rev_bits, wh_bf16, out0, out1,
                          hprev0, hprev1, cprev0, cprev1, hfin0, hfin1, cfin0, cfin1, T,
-                         B, U, forget_bias, FwdPlan{cluster, bt, ksplit, resident}, clocks, stream);
+                         B, U, forget_bias, fwd_plan(cluster, bt, ksplit, route), clocks, stream);
 }
 
 // what the card gives a plan of the forward kernel: info[0] = clusters it
@@ -1562,8 +2297,8 @@ extern "C" int plt_lstm_residual(const float* xp0, const float* xp1, const float
 // memory bytes a block, info[2] = registers a thread, info[3] = static
 // shared memory bytes
 extern "C" int plt_lstm_fwd_info(int U, int wh_bf16, int save_res, int cluster, int bt,
-                                 int ksplit, int resident, int* info) {
-  const FwdPlan p{cluster, bt, ksplit, resident};
+                                 int ksplit, int route, int* info) {
+  const FwdPlan p = fwd_plan(cluster, bt, ksplit, route);
   if (bad_plan(U, p, wh_bf16 != 0)) return static_cast<int>(cudaErrorInvalidValue);
   if (wh_bf16)
     return save_res ? info_fwd<__nv_bfloat16, true>(U, p, info)
@@ -1573,8 +2308,8 @@ extern "C" int plt_lstm_fwd_info(int U, int wh_bf16, int save_res, int cluster, 
 
 // what the card gives a plan of the VJP's loop kernel: info as plt_lstm_fwd_info
 extern "C" int plt_lstm_bwd_info(int U, int wh_bf16, int cluster, int bt, int ksplit,
-                                 int resident, int* info) {
-  const BwdPlan p{cluster, bt, ksplit, resident};
+                                 int route, int* info) {
+  const BwdPlan p = bwd_plan(cluster, bt, ksplit, route);
   if (bad_bwd_plan(U, p, wh_bf16 != 0)) return static_cast<int>(cudaErrorInvalidValue);
   return wh_bf16 ? info_bwd<__nv_bfloat16>(U, p, info) : info_bwd<float>(U, p, info);
 }
@@ -1582,9 +2317,9 @@ extern "C" int plt_lstm_bwd_info(int U, int wh_bf16, int cluster, int bt, int ks
 // the VJP: dxp [T, B, 4U] and dWh [U, 4U] for each direction. wh0/wh1 are
 // Wh [U, 4U] for the float32 gates GEMM, wht0/wht1 Wh^T [4U, U] for the bf16
 // one (null in float32 mode), whg0/whg1 the loop's slices of Wh^T for
-// `cluster` blocks (see bwd_layout); cluster, bt, ksplit and resident are
-// the caller's plan for the loop; fac0/fac1 are scratch of T*B*2U
-// floats each, partials of nd*dwh_split*U*4U floats; clocks is null or 5 cycle counters the loop
+// `cluster` blocks (see bwd_layout); cluster, bt, ksplit and route (as
+// plt_lstm_recurrence's) are the caller's plan for the loop; fac0/fac1 are scratch of T*B*2U
+// floats each, partials of nd*dwh_split*U*4U floats; clocks is null or 6 cycle counters the loop
 // adds to; part_ms is null or 4 floats on the host for the milliseconds of
 // the four kernels (the call then waits for the stream).
 extern "C" int plt_lstm_bwd(const float* xp0, const float* xp1, const float* mask,
@@ -1596,9 +2331,9 @@ extern "C" int plt_lstm_bwd(const float* xp0, const float* xp1, const float* mas
                             const float* dcfin0, const float* dcfin1, int nd, int rev_bits,
                             int wh_bf16, float* dxp0, float* dxp1, float* fac0, float* fac1,
                             float* dwh0, float* dwh1, float* partials, int dwh_split, int T, int B, int U,
-                            float forget_bias, int cluster, int bt, int ksplit, int resident,
+                            float forget_bias, int cluster, int bt, int ksplit, int route,
                             long long* clocks, float* part_ms, void* stream) {
-  const BwdPlan p{cluster, bt, ksplit, resident};
+  const BwdPlan p = bwd_plan(cluster, bt, ksplit, route);
   if (bad_shape(nd, T, B, U) || dwh_split < 1 || bad_bwd_plan(U, p, wh_bf16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a{{xp0, xp1},       {wh0, wh1},       {whg0, whg1},   {wht0, wht1},     {hprev0, hprev1},

@@ -29,17 +29,20 @@ all T steps, block c owning units ``[c·U/C, (c+1)·U/C)`` with their four
 gate columns and holding that slice of ``wh`` in shared memory for the
 whole time loop where it fits (U up to 256 in float32), else streaming it
 from L2 at every step (up to U = 1024, where a block's float32 slice is
-2 MB); each step the blocks exchange their h slices through
-distributed shared memory (``st.async`` onto transaction barriers). The
-VJP's serial loop is the same design run backwards in time: block c
-multiplies the gate gradients of its own units by its resident slice of
-``whᵀ`` into a partial dh of every unit, the blocks send each other the
-parts they own and add them in rank order (so repeated runs are bitwise
-equal). What of this is layout and choice lives here, where the CPU tests
-reach it: ``regroup_wh``/``ungroup_wh`` (``wh`` by unit slice),
-``forward_plan`` and ``backward_plan`` (C, Bt, the k split, the
+2 MB): up to U = 512 by the threads' own loads, past it (float32) through
+a ring of bulk copies that a producer warp keeps filled
+(``lstm_fwd_ring_kernel``, clusters of up to 16 blocks); each step the
+blocks exchange their h slices through distributed shared memory
+(``st.async`` onto transaction barriers). The VJP's serial loop is the
+same design run backwards in time: block c multiplies the gate gradients
+of its own units by its slice of ``whᵀ`` (resident, or streamed by the
+same two routes) into a partial dh of every unit, the blocks send each
+other the parts they own and add them in rank order (so repeated runs are
+bitwise equal). What of this is layout and choice lives here, where the
+CPU tests reach it: ``regroup_wh``/``ungroup_wh`` (``wh`` by unit slice),
+``forward_plan`` and ``backward_plan`` (the route, C, Bt, the k split, the
 shared-memory bytes and the width the kernel runs at, from the shape, pure
-functions). Every U from 1 to ``MAX_UNITS`` runs on the card: a U that is
+functions; the ring's C and Bt from a step's cost, ``_ring_step_cycles``). Every U from 1 to ``MAX_UNITS`` runs on the card: a U that is
 no multiple of 8, or that no cut fits, runs at a wider U with zero
 padding (``ops/padding.py``: exact), the results sliced back;
 ``tests/test_torch_cluster_layout.py`` and
@@ -321,6 +324,24 @@ CLUSTER_SIZES = (8, 4, 2, 1)  # tried in this order; 8 is the portable maximum
 ROW_TILES = (8, 16)
 XP_RING = 3  # xp tiles a block keeps in flight
 MAX_UNITS = 1024  # the widest U the kernels take (csrc/lstm.cu's bad_shape)
+# the ring: a streamed slice of wh through bulk copies, csrc/lstm.cu's
+# lstm_fwd_ring_kernel / lstm_bwd_ring_kernel
+RESIDENT_UNITS = 256  # the widest float32 U whose slices a cluster holds in shared memory
+# float32 past this U takes the ring; up to it the template streams its
+# slice by the threads' loads (on the H100 the template measured faster at
+# U = 512, the ring at 1024: PERF.md)
+RING_UNITS = 512
+RING_CLUSTER_SIZES = (16, 8, 4, 2)  # 16 (non-portable) only where the grid runs in one wave
+RING_ROW_TILES = (8, 16, 24)  # a consumer thread takes every row of the tile
+RING_CHUNK_MAX = 32768  # bytes of a ring slot at most
+RING_KS_MAX = 8  # k parts at most
+RING_SMEM_MAX = SMEM_MAX - 1024  # a ring kernel's dynamic shared memory: its barriers are static
+# the step's cost a ring plan is chosen by, in SM cycles (H100 SXM at 1980
+# MHz; the two rates as the listener kernels' streamed routes measured them,
+# PERF.md)
+FMA_PER_CYCLE = 128  # float32 FMA lanes of an SM
+L2_BYTES_PER_CYCLE = 2800  # the card's L2 read rate, ≈ 5.5 TB/s
+SM_BYTES_PER_CYCLE = 22  # what one SM of a cluster of 16 takes in from L2
 
 
 class ForwardPlan(NamedTuple):
@@ -332,6 +353,7 @@ class ForwardPlan(NamedTuple):
     resident: bool  # the block's wh slice lies in shared memory (else it streams from L2)
     smem: int  # dynamic shared memory bytes of a block
     units: int  # the U the kernel runs at: the layer's, or wider with zero padding
+    ring: bool = False  # float32: the slice streams through the ring of bulk copies
 
 
 def kernel_units(u: int, c: int) -> int:
@@ -384,12 +406,49 @@ def _kernel_wh(wh: torch.Tensor, c: int, prec: str) -> torch.Tensor:
     return torch.nn.functional.pad(wt, (0, -u % 16)).contiguous()
 
 
-def forward_smem_bytes(u: int, c: int, bt: int, ksplit: int, resident: bool, bf16: bool) -> int:
-    """A block's dynamic shared memory, as ``fwd_layout`` of csrc/lstm.cu
-    lays it out: the wh slice (when resident), two h buffers, the partial
-    sums, three xp tiles (gates and mask) and the state (c, h, out)."""
+def ring_slots(u: int, c: int, bt: int, ksplit: int, bwd: bool = False) -> Tuple[int, int]:
+    """The ring's shared memory, as ``fwd_ring_layout`` and
+    ``bwd_ring_layout`` of csrc/lstm.cu → (rows of a ring chunk, bytes in
+    all). Besides the ring, the forward holds one h buffer [Bt, U], one sum
+    of the k parts [Bt, Nc], one xp tile and the state (c, h); the VJP's
+    loop one buffer of received partials [Bt, U], dgates [Bt, Nc], the sum
+    of the k parts but the last [Bt, U] (ksplit > 1), one tile of factors
+    and the kept dh and dc. The ring has two slots for each of the ksplit
+    parts (a part takes whole chunks); a chunk holds the most rows of wh (U
+    of them, Nc floats each) or of whᵀ (Nc rows of U floats), a multiple of
+    4, that fit, at most ``RING_CHUNK_MAX`` bytes and the rows a part takes
+    in a pass; fewer than 4 rows do not fit."""
     us = u // c
     nc = 4 * us
+    if bwd:
+        used = bt * u * 4 + bt * nc * 4 + (bt * u * 4 if ksplit > 1 else 0) + (bt * (nc + 3 * us) + bt) * 4
+        row_bytes, k = u * 4, nc
+    else:
+        used = bt * u * 4 + bt * nc * 4 + (bt * nc + bt) * 4
+        row_bytes, k = nc * 4, u
+    used += 2 * bt * us * 4
+    ns = 2 * ksplit
+    per = min(RING_CHUNK_MAX, max(0, RING_SMEM_MAX - used) // ns)
+    kc = min(per // row_bytes // 4 * 4, (-(-k // ksplit) + 3) // 4 * 4)
+    return kc, used + ns * kc * row_bytes
+
+
+def _ring_ksplit(cols: int) -> int:
+    """The ring's k parts: a thread takes 4 columns of all the
+    tile's rows, so ``cols`` column groups leave 256 // cols threads for
+    each (at most ``RING_KS_MAX``); 0 where the columns outnumber the threads."""
+    return min(RING_KS_MAX, FWD_THREADS // cols) if cols <= FWD_THREADS else 0
+
+
+def forward_smem_bytes(u: int, c: int, bt: int, ksplit: int, resident: bool, bf16: bool, ring: bool = False) -> int:
+    """A block's dynamic shared memory, as ``fwd_layout`` of csrc/lstm.cu
+    lays it out: the wh slice (when resident), two h buffers, the partial
+    sums, three xp tiles (gates and mask) and the state (c, h, out); the
+    ring's layout is ``ring_slots``'."""
+    us = u // c
+    nc = 4 * us
+    if ring:
+        return ring_slots(u, c, bt, ksplit)[1]
     kp = -(-u // 16) * 16
     if bf16:
         w = nc * (kp + 8) * 2
@@ -410,6 +469,53 @@ def _ksplit(u: int, c: int, bt: int, bf16: bool) -> int:
     return max(1, min(16, FWD_THREADS // items, u // 4))
 
 
+def _ring_step_cycles(u: int, c: int, bt: int, ksplit: int, cols: int, clusters: int, active: int) -> float:
+    """The ring's step in SM cycles: the product's float32 FMAs a block on
+    its busy threads, against the L2 reads of a wave (every block reads its
+    slice of wh, 16·U²/C bytes) at the card's rate and at one SM's, times
+    the waves."""
+    slice_bytes = 16 * u * u // c
+    fma = bt * 4 * u * u / c / (FMA_PER_CYCLE * min(1.0, ksplit * cols / FWD_THREADS))
+    l2 = max(min(clusters, active) * c * slice_bytes / L2_BYTES_PER_CYCLE, slice_bytes / SM_BYTES_PER_CYCLE)
+    return -(-clusters // active) * max(fma, l2)
+
+
+def _ring_plan(u: int, b: int, nd: int, bwd: bool, max_active):
+    """The ring's cheapest plan by ``_ring_step_cycles``
+    over C in ``RING_CLUSTER_SIZES`` (U zero padded to slices of a multiple
+    of 8 units where C does not cut it so) and Bt in ``RING_ROW_TILES``, or
+    None. Clusters of 16 only where ``max_active(plan)`` says the grid runs
+    in one wave; without it none, and the clusters of 8 or fewer count as
+    one wave. A thread takes 4 of the product's columns: a block's 4·U/C
+    gate columns forward, the U units of the partial dh backward."""
+    make = BackwardPlan if bwd else ForwardPlan
+    best, best_cost = None, None
+    for c in RING_CLUSTER_SIZES:
+        up = kernel_units(u, c)
+        cols = up // 4 if bwd else up // c
+        ks = _ring_ksplit(cols)
+        if not ks:
+            continue
+        for bt in RING_ROW_TILES:
+            kc, smem = ring_slots(up, c, bt, ks, bwd)
+            if kc < 4:
+                continue
+            plan = make(c, bt, ks, False, smem, up, True)
+            clusters = -(-b // bt) * nd
+            if max_active is None:
+                if c > 8:
+                    continue
+                active = clusters
+            else:
+                active = max_active(plan)
+                if active < 1 or (c > 8 and clusters > active):
+                    continue
+            cost = _ring_step_cycles(up, c, bt, ks, cols, clusters, active)
+            if best is None or cost < best_cost:
+                best, best_cost = plan, cost
+    return best
+
+
 def _choose_tile(fits, b: int, nd: int, max_active):
     """Of one cluster size's plans, by rising tile: the smallest tile whose
     ``ceil(B/Bt)·nd`` clusters the card runs at once, as ``max_active(plan)``
@@ -425,7 +531,7 @@ def _choose_tile(fits, b: int, nd: int, max_active):
 
 def forward_plan(
     b: int, u: int, nd: int, prec: str = "highest",
-    max_active: Optional[Callable[[int, int, int, bool], int]] = None,
+    max_active: Optional[Callable[..., int]] = None, ring: Optional[bool] = None,
 ) -> ForwardPlan:
     """The forward kernel's (C, Bt, k split, kernel U) for a shape — a pure
     function. Takes every U that is a multiple of 8 from 8 to
@@ -443,11 +549,20 @@ def forward_plan(
     at once, as ``max_active(C, Bt, ksplit, resident)`` says for the
     plan's kernel U (on the card: ``cudaOccupancyMaxActiveClusters``);
     without that knowledge, or if no tile fits in one wave, the largest
-    tile that fits in shared memory. Raises ``ValueError`` for a U outside
-    that range."""
+    tile that fits in shared memory. Float32 past ``RING_UNITS`` takes the
+    ring's cheapest plan instead (``_ring_plan``; its ``max_active`` gets a
+    fifth argument, True); ``ring=True`` takes it past ``RESIDENT_UNITS``,
+    ``ring=False`` never (the two routes of a streamed slice, for
+    comparisons). Raises ``ValueError`` for a U outside that range."""
     _check_prec(prec)
     _check_units(u)
     bf16 = prec == "bf16"
+    if (u > RING_UNITS if ring is None else ring) and not bf16 and u > RESIDENT_UNITS:
+        active = None if max_active is None else (
+            lambda p: max_active(p.cluster, p.bt, p.ksplit, p.resident, True))
+        plan = _ring_plan(u, b, nd, False, active)
+        if plan is not None:
+            return plan
     for c, resident, units in _plan_candidates(u):
         fits = []
         for bt in ROW_TILES:
@@ -461,15 +576,23 @@ def forward_plan(
     raise ValueError(f"no plan of the forward kernel fits U={u} in shared memory")
 
 
+def _route(plan) -> int:
+    """The kernels' route argument: 0 streamed by the threads' loads, 1
+    resident, 2 the ring."""
+    return 2 if plan.ring else int(plan.resident)
+
+
 @functools.lru_cache(maxsize=None)
-def forward_kernel_info(u: int, bf16: bool, save_res: bool, c: int, bt: int, ksplit: int, resident: bool) -> dict:
+def forward_kernel_info(u: int, bf16: bool, save_res: bool, c: int, bt: int, ksplit: int, resident: bool,
+                        ring: bool = False) -> dict:
     """What the card gives one plan of the forward kernel (built at first
     use): the clusters it runs at once, its dynamic and static shared
     memory bytes and its registers a thread."""
     from phones_las_torch.csrc import _build
 
     info = (ctypes.c_int * 4)()
-    err = _build.library().plt_lstm_fwd_info(u, int(bf16), int(save_res), c, bt, ksplit, int(resident), info)
+    err = _build.library().plt_lstm_fwd_info(u, int(bf16), int(save_res), c, bt, ksplit,
+                                              2 if ring else int(resident), info)
     _build.check(err, "plt_lstm_fwd_info")
     return {"max_active_clusters": info[0], "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3]}
 
@@ -477,11 +600,11 @@ def forward_kernel_info(u: int, bf16: bool, save_res: bool, c: int, bt: int, ksp
 def _launch_forward(entry, xps, mask_tm, whs, forget_bias, reverse, prec, plan: Optional[ForwardPlan] = None,
                     clocks: Optional[torch.Tensor] = None):
     """One launch of the forward kernel. ``plan`` overrides ``forward_plan``
-    (measurements only); ``clocks``, an int64 CUDA tensor of 4, receives the
+    (measurements only); ``clocks``, an int64 CUDA tensor of 5, receives the
     SM cycles one block spent in the product, the cell update, the output
-    stores and the wait for the peers' h. Where the plan's kernel U is wider
-    than the layer's, xp and wh are zero padded to it and the results
-    sliced back (``ops/padding.py``)."""
+    stores, the wait for the peers' h and (the ring) the wait for chunks of
+    wh. Where the plan's kernel U is wider than the layer's, xp and wh are
+    zero padded to it and the results sliced back (``ops/padding.py``)."""
     t, b, u = _check_recurrence_args(xps, mask_tm, whs, entry)
     from phones_las_torch.csrc import _build
 
@@ -493,8 +616,8 @@ def _launch_forward(entry, xps, mask_tm, whs, forget_bias, reverse, prec, plan: 
         u8 = round_up(u, 8)
         plan = forward_plan(
             b, u8, nd, prec,
-            lambda c, bt, ks, res: forward_kernel_info(kernel_units(u8, c), bf16, save, c, bt, ks, res)[
-                "max_active_clusters"],
+            lambda c, bt, ks, res, ring=False: forward_kernel_info(
+                kernel_units(u8, c), bf16, save, c, bt, ks, res, ring)["max_active_clusters"],
         )
     up = plan.units
     wdt = torch.bfloat16 if bf16 else torch.float32
@@ -511,7 +634,7 @@ def _launch_forward(entry, xps, mask_tm, whs, forget_bias, reverse, prec, plan: 
         *_ptrs(xps), mask.data_ptr(), *_ptrs(whs), nd, _rev_bits(reverse),
         int(bf16), *_ptrs(outs), *_ptrs(hprevs), *_ptrs(cprevs),
         *_ptrs(hs), *_ptrs(cs), t, b, up, float(forget_bias),
-        plan.cluster, plan.bt, plan.ksplit, int(plan.resident),
+        plan.cluster, plan.bt, plan.ksplit, _route(plan),
         None if clocks is None else clocks.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -536,6 +659,7 @@ class BackwardPlan(NamedTuple):
     resident: bool  # the block's slice of whᵀ lies in shared memory (else it streams from L2)
     smem: int  # dynamic shared memory bytes of a block
     units: int  # the U the kernels run at: the layer's, or wider with zero padding
+    ring: bool = False  # float32: the slice streams through the ring of bulk copies
 
 
 BWD_RING = 2  # tiles of factors, dout and mask a block keeps: one in use, one in flight
@@ -555,12 +679,16 @@ def _kernel_wht(wh: torch.Tensor, c: int, prec: str) -> torch.Tensor:
     return torch.nn.functional.pad(wg.to(torch.bfloat16), (0, 0, 0, -u % 16)).contiguous()
 
 
-def backward_smem_bytes(u: int, c: int, bt: int, ksplit: int, resident: bool, bf16: bool) -> int:
+def backward_smem_bytes(u: int, c: int, bt: int, ksplit: int, resident: bool, bf16: bool,
+                        ring: bool = False) -> int:
     """A block's dynamic shared memory in the VJP's loop kernel, as
     ``bwd_layout`` of csrc/lstm.cu lays it out: the slice of whᵀ, two
     buffers of received partial dh, this step's dgates, the k parts of the
     product, ``BWD_RING`` tiles (a step's four factors a gate column, then
-    dout and two more factors a unit, then the mask) and the kept dh and dc."""
+    dout and two more factors a unit, then the mask) and the kept dh and
+    dc; the ring's layout is ``ring_slots``'."""
+    if ring:
+        return ring_slots(u, c, bt, ksplit, bwd=True)[1]
     us = u // c
     nc = 4 * us
     up = -(-u // 16) * 16
@@ -588,7 +716,7 @@ def _bwd_ksplit(u: int, c: int, bt: int, bf16: bool) -> int:
 
 def backward_plan(
     b: int, u: int, nd: int, prec: str = "highest",
-    max_active: Optional[Callable[[BackwardPlan], int]] = None,
+    max_active: Optional[Callable[[BackwardPlan], int]] = None, ring: Optional[bool] = None,
 ) -> BackwardPlan:
     """The (C, Bt, k split, kernel U) of the VJP's loop kernel for a shape —
     a pure function, the companion of ``forward_plan``, over the same U
@@ -605,10 +733,16 @@ def backward_plan(
     clusters the card runs at once, as ``max_active(plan)`` says (on the
     card: ``cudaOccupancyMaxActiveClusters``); without that knowledge, or
     if no tile fits in one wave, the largest tile that fits in shared
-    memory. Raises ``ValueError`` for a U outside that range."""
+    memory. Float32 past ``RING_UNITS`` takes the ring's cheapest plan
+    instead (``_ring_plan``; ``ring`` as ``forward_plan``'s). Raises
+    ``ValueError`` for a U outside that range."""
     _check_prec(prec)
     _check_units(u)
     bf16 = prec == "bf16"
+    if (u > RING_UNITS if ring is None else ring) and not bf16 and u > RESIDENT_UNITS:
+        plan = _ring_plan(u, b, nd, True, max_active)
+        if plan is not None:
+            return plan
     for c, resident, units in _plan_candidates(u):
         fits = []
         for bt in ROW_TILES:
@@ -631,7 +765,7 @@ def backward_kernel_info(bf16: bool, plan: BackwardPlan) -> dict:
 
     info = (ctypes.c_int * 4)()
     err = _build.library().plt_lstm_bwd_info(
-        plan.units, int(bf16), plan.cluster, plan.bt, plan.ksplit, int(plan.resident), info
+        plan.units, int(bf16), plan.cluster, plan.bt, plan.ksplit, _route(plan), info
     )
     _build.check(err, "plt_lstm_bwd_info")
     return {"max_active_clusters": info[0], "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3]}
@@ -730,10 +864,10 @@ def _launch_backward(xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins, f
                      plan: Optional[BackwardPlan] = None, clocks: Optional[torch.Tensor] = None,
                      part_ms: Optional[list] = None):
     """One launch of ``plt_lstm_bwd``. For measurements: ``plan`` overrides
-    ``backward_plan``; ``clocks``, an int64 CUDA tensor of 5, receives the SM
+    ``backward_plan``; ``clocks``, an int64 CUDA tensor of 6, receives the SM
     cycles one block of the loop spent forming dgates, in the product,
-    sending the partials, requesting a later tile, and waiting for the
-    peers; ``part_ms``, a list, receives the milliseconds of the four
+    sending the partials, requesting a later tile, waiting for the peers
+    and (the ring) waiting for chunks of whᵀ; ``part_ms``, a list, receives the milliseconds of the four
     kernels (the call then waits for the stream)."""
     t, b, u = _check_recurrence_args(xps, mask_tm, whs, "plt_lstm_bwd")
     nd = len(xps)
@@ -774,7 +908,7 @@ def _launch_backward(xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins, f
         *_ptrs(cprevs), *_ptrs(douts), *_ptrs(dhfins), *_ptrs(dcfins), nd,
         _rev_bits(reverse), int(bf16), *_ptrs(dxps), *_ptrs(facs), *_ptrs(dwhs),
         partials.data_ptr(), dwh_split, t, b, up, float(forget_bias),
-        plan.cluster, plan.bt, plan.ksplit, int(plan.resident),
+        plan.cluster, plan.bt, plan.ksplit, _route(plan),
         None if clocks is None else clocks.data_ptr(), ms,
         torch.cuda.current_stream(dev).cuda_stream,
     )

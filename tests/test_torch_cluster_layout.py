@@ -109,7 +109,7 @@ def cluster_recurrence_emulated(xp_tm, mask_tm, wh, forget_bias, reverse, prec="
     return out, hprev, cprev, hfin, cfin
 
 
-@pytest.mark.parametrize("cluster,bt", [(1, 8), (4, 8), (8, 16)])
+@pytest.mark.parametrize("cluster,bt", [(1, 8), (4, 8), (8, 16), (16, 24)])
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("prec", ["highest", "bf16"])
 def test_cluster_emulation_matches_plain_and_jax(prec, reverse, cluster, bt):

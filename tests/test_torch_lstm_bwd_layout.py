@@ -105,7 +105,7 @@ def cluster_bwd_emulated(xp, mask, wh, hprev, cprev, dout, dhfin, dcfin, forget_
     return dxp, dwh
 
 
-@pytest.mark.parametrize("cluster,bt", [(1, 8), (4, 8), (8, 16)])
+@pytest.mark.parametrize("cluster,bt", [(1, 8), (4, 8), (8, 16), (16, 24)])
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("prec", ["highest", "bf16"])
 def test_bwd_cluster_emulation_matches_plain_pallas_and_jax_grad(prec, reverse, cluster, bt):

@@ -73,18 +73,21 @@ def test_plans_take_every_width_to_1024(which, prec):
     """Every U that is a multiple of 8 from 8 to 1024 has a plan in both
     modes, at the serving and the training batch: its bytes are the
     layout's mirror and fit a block, its kernel U is U or (a prime number
-    of 8-unit slices past what one block holds) a wider multiple of 8·C;
-    past 1024, and for a U that is no multiple of 8, the plans raise."""
+    of 8-unit slices past what one block holds, or a cut of the ring that
+    U does not divide into slices of 8) a wider multiple of 8·C; float32
+    past 512 takes the ring, nothing else does; past 1024, and for a U that
+    is no multiple of 8, the plans raise."""
     plan_fn = L.forward_plan if which == "forward" else L.backward_plan
     smem_fn = L.forward_smem_bytes if which == "forward" else L.backward_smem_bytes
     streamed = 0
     for u in range(8, L.MAX_UNITS + 1, 8):
         for b in (32, 64):
             p = plan_fn(b, u, 2, prec)
-            assert p.smem == smem_fn(p.units, p.cluster, p.bt, p.ksplit, p.resident, prec == "bf16")
+            assert p.smem == smem_fn(p.units, p.cluster, p.bt, p.ksplit, p.resident, prec == "bf16", ring=p.ring)
             assert p.smem <= L.SMEM_MAX
             assert p.units >= u and p.units % (8 * p.cluster) == 0
-            assert p.units == u or u % (8 * p.cluster)  # padded only where no cut of U itself fits
+            assert p.units == u or u % (8 * p.cluster)  # padded only where the plan's cut does not divide U
+            assert p.ring == (prec == "highest" and u > L.RING_UNITS)
             streamed += not p.resident
     assert streamed > 0
     # the flagship widths keep their plans; the widest is cut 8 ways and streams
@@ -102,9 +105,162 @@ def test_forward_plan_streams_or_pads(u, want):
     """Float32 past U = 256: the largest cut of U itself with a streamed
     slice (U = 264 is 33 slices of 8: one block), and where no cut fits
     (360 = 45 · 8 and 1016 = 127 · 8 past what one block holds), the next
-    multiple of 64 cut 8 ways."""
+    multiple of 64 cut 8 ways; past 512 through the ring (with nothing
+    known of the card, clusters of 8 at most)."""
     p = L.forward_plan(64, u, 2, "highest")
     assert (p.cluster, p.resident, p.units) == want
+    assert p.ring == (u > L.RING_UNITS)
+
+
+# what cudaOccupancyMaxActiveClusters gives every plan of the listener
+# kernels on the H100 (NVIDIA H100 80GB HBM3, whatever the shared memory, as
+# measured: PERF.md): 15 clusters of 8 blocks or fewer, 7 of 16
+def _h100_active(c, *_):
+    return 7 if c > 8 else 15
+
+
+def _h100_bwd_active(plan):
+    return _h100_active(plan.cluster)
+
+
+# the float32 plans of the W1024 and LAS-paper widths on the H100's
+# occupancy, forward and VJP: (C, Bt, k parts, ring); at U = 512 the
+# template's, past it the ring's
+STREAMED_PLANS = {
+    (1024, 64, 2): ((16, 24, 4, True), (16, 24, 1, True)),
+    (1024, 32, 2): ((16, 16, 4, True), (16, 16, 1, True)),
+    (1024, 32, 1): ((16, 8, 4, True), (16, 8, 1, True)),
+    (1024, 8, 2): ((16, 8, 4, True), (16, 8, 1, True)),
+    (512, 64, 2): ((8, 16, 2, False), (8, 16, 1, False)),
+    (512, 32, 2): ((8, 8, 4, False), (8, 8, 2, False)),
+    (512, 8, 2): ((8, 8, 4, False), (8, 8, 2, False)),
+}
+
+
+@pytest.mark.parametrize("u,b,nd", sorted(STREAMED_PLANS))
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_ring_plans_run_in_one_wave(which, u, b, nd):
+    """Float32 at U = 512 and 1024: the plan on the H100's occupancy runs
+    every cluster in one wave: at 1024 the ring's cheapest (clusters of
+    16, which the card holds 7 of, only where they fit; at B = 64 both
+    directions a tile of 24 rows makes 6), at the layout's bytes, the k
+    parts filling the consumer threads; at 512 the template's. The ring's
+    plan at 512 (asked for with ``ring=True``) runs in one wave too."""
+    fwd = which == "forward"
+
+    def plan(ring=None):
+        return (L.forward_plan(b, u, nd, "highest", _h100_active, ring=ring) if fwd
+                else L.backward_plan(b, u, nd, "highest", _h100_bwd_active, ring=ring))
+
+    p = plan()
+    assert (p.cluster, p.bt, p.ksplit, p.ring) == STREAMED_PLANS[(u, b, nd)][0 if fwd else 1]
+    assert not p.resident and p.units == u and -(-b // p.bt) * nd <= _h100_active(p.cluster)
+    q = p if p.ring else plan(ring=True)
+    assert q.ring and q.units == u and -(-b // q.bt) * nd <= _h100_active(q.cluster)
+    cols = u // q.cluster if fwd else u // 4
+    assert q.ksplit * cols <= L.FWD_THREADS and q.ksplit == min(L.RING_KS_MAX, L.FWD_THREADS // cols)
+    kc, smem = L.ring_slots(q.units, q.cluster, q.bt, q.ksplit, bwd=not fwd)
+    assert kc >= 4 and kc % 4 == 0 and q.smem == smem <= L.RING_SMEM_MAX
+
+
+def _declared_ring_bytes(u, c, bt, ks, bwd):
+    """A block's shared memory as ``fwd_ring_layout`` / ``bwd_ring_layout``
+    of csrc/lstm.cu declare it, region by region, and the ring's chunk rows."""
+    us, f = u // c, 4
+    nc = 4 * us
+    if bwd:
+        regions = [bt * u * f, bt * nc * f, bt * u * f if ks > 1 else 0, (bt * (nc + 3 * us) + bt) * f,
+                   bt * us * f, bt * us * f]
+        row, depth = u * f, nc
+    else:
+        regions = [bt * u * f, bt * nc * f, (bt * nc + bt) * f, bt * us * f, bt * us * f]
+        row, depth = nc * f, u
+    used = sum(regions)
+    slots = 2 * ks
+    per = min(_cu_constant("RING_CHUNK_MAX"), (_cu_constant("SMEM_MAX") - 1024 - used) // slots)
+    share = ((depth + ks - 1) // ks + 3) // 4 * 4
+    kc = min(per // row // 4 * 4, share)
+    return kc, used + slots * kc * row
+
+
+def _cu_constant(name):
+    import re
+
+    src = open(os.path.join(os.path.dirname(L.__file__), "..", "csrc", "lstm.cu")).read()
+    return int(re.search(rf"constexpr (?:int|size_t) {name} = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("u", [264, 320, 512, 1024, 100])
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_ring_bytes_are_the_kernels_layout(which, u):
+    """Every plan the planners return at the width cases (both modes, the
+    serving, training and small batches, one and two directions, with and
+    without the card's occupancy) at the bytes of the layout the kernel
+    declares; the constants the mirror reads are the .cu's."""
+    assert (L.SMEM_MAX, L.RING_CHUNK_MAX, L.RING_KS_MAX, L.FWD_THREADS) == tuple(
+        _cu_constant(n) for n in ("SMEM_MAX", "RING_CHUNK_MAX", "RING_KS_MAX", "FWD_THREADS"))
+    fwd = which == "forward"
+    u = P.round_up(u, 8)  # as the wrappers ask the planners
+    for prec in ("highest", "bf16"):
+        for b, nd in ((64, 2), (32, 2), (32, 1), (8, 2), (3, 1)):
+            for active, ring in ((None, None), (_h100_active, None), (_h100_active, True)):
+                if fwd:
+                    p = L.forward_plan(b, u, nd, prec, active, ring=ring)
+                    mirror = L.forward_smem_bytes
+                else:
+                    p = L.backward_plan(b, u, nd, prec, None if active is None else _h100_bwd_active, ring=ring)
+                    mirror = L.backward_smem_bytes
+                limit = L.RESIDENT_UNITS if ring else L.RING_UNITS
+                assert p.ring == (prec == "highest" and u > limit)
+                assert p.smem == mirror(p.units, p.cluster, p.bt, p.ksplit, p.resident, prec == "bf16", ring=p.ring)
+                if p.ring:
+                    kc, total = _declared_ring_bytes(p.units, p.cluster, p.bt, p.ksplit, not fwd)
+                    assert kc >= 4 and p.smem == total
+
+
+# every plan at U <= 256, and bf16 past it, as the listener kernels took
+# them before the ring: (B, U, nd, prec) -> forward, VJP
+# (C, Bt, k split, resident, bytes, kernel U), on the H100's occupancy
+UNCHANGED_PLANS = [
+    (64, 256, 2, "highest", (8, 16, 4, True, 227520, 256), (8, 16, 1, True, 221312, 256)),
+    (32, 256, 2, "highest", (8, 8, 8, True, 195680, 256), (8, 8, 4, True, 200768, 256)),
+    (32, 256, 1, "highest", (8, 8, 8, True, 195680, 256), (8, 8, 4, True, 200768, 256)),
+    (8, 256, 2, "highest", (8, 8, 8, True, 195680, 256), (8, 8, 4, True, 200768, 256)),
+    (256, 128, 2, "highest", (8, 16, 8, True, 97472, 128), (8, 16, 4, True, 102528, 128)),
+    (64, 160, 2, "highest", (4, 16, 3, True, 192192, 160), (4, 16, 3, True, 204928, 160)),
+    (64, 96, 2, "highest", (4, 16, 5, True, 103104, 96), (4, 16, 5, True, 110720, 96)),
+    (16, 96, 2, "highest", (4, 8, 10, True, 85344, 96), (4, 8, 10, True, 89152, 96)),
+    (64, 104, 2, "highest", (1, 16, 1, False, 139968, 104), (1, 16, 4, False, 173184, 104)),
+    (32, 248, 1, "highest", (1, 8, 1, False, 166752, 248), (1, 8, 4, False, 206400, 248)),
+    (20, 40, 2, "highest", (1, 8, 6, True, 78176, 40), (1, 8, 16, True, 74304, 40)),
+    (64, 256, 2, "bf16", (8, 16, 1, True, 123584, 256), (8, 16, 1, True, 156032, 256)),
+    (32, 256, 2, "bf16", (8, 8, 1, True, 104032, 256), (8, 8, 1, True, 115008, 256)),
+    (32, 256, 1, "bf16", (8, 8, 1, True, 104032, 256), (8, 8, 1, True, 115008, 256)),
+    (8, 256, 2, "bf16", (8, 8, 1, True, 104032, 256), (8, 8, 1, True, 115008, 256)),
+    (256, 128, 2, "bf16", (8, 16, 1, True, 45760, 128), (8, 16, 1, True, 61824, 128)),
+    (64, 160, 2, "bf16", (4, 16, 1, True, 113344, 160), (4, 16, 1, True, 130944, 160)),
+    (64, 96, 2, "bf16", (4, 16, 1, True, 56000, 96), (4, 16, 1, True, 66432, 96)),
+    (16, 96, 2, "bf16", (4, 8, 1, True, 41312, 96), (4, 8, 1, True, 44864, 96)),
+    (64, 104, 2, "bf16", (1, 8, 1, True, 170848, 104), (1, 8, 1, True, 172096, 104)),
+    (32, 248, 1, "bf16", (1, 8, 1, False, 167776, 248), (1, 8, 1, False, 183104, 248)),
+    (20, 40, 2, "bf16", (1, 8, 1, True, 45920, 40), (1, 8, 1, True, 46144, 40)),
+    (64, 512, 2, "bf16", (8, 16, 1, False, 111296, 512), None),
+    (32, 512, 2, "bf16", None, (8, 8, 1, False, 90432, 512)),
+    (64, 1024, 2, "bf16", (8, 16, 1, False, 221888, 1024), None),
+    (32, 1024, 2, "bf16", None, (8, 8, 1, False, 180544, 1024)),
+]
+
+
+@pytest.mark.parametrize("b,u,nd,prec,want_fwd,want_bwd", UNCHANGED_PLANS)
+def test_plans_the_ring_leaves_alone(b, u, nd, prec, want_fwd, want_bwd):
+    """The resident route, every plan at U <= 256 and bf16 at every width
+    keep the plans they had (the template's, never the ring)."""
+    if want_fwd is not None:
+        p = L.forward_plan(b, u, nd, prec, _h100_active)
+        assert tuple(p[:6]) == want_fwd and not p.ring
+    if want_bwd is not None:
+        p = L.backward_plan(b, u, nd, prec, _h100_bwd_active)
+        assert tuple(p[:6]) == want_bwd and not p.ring
 
 
 def test_decoder_plan_takes_the_wide_spellers():
