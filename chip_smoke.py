@@ -206,8 +206,8 @@ then:
         ms a step beside the unsharded step's (readings: gloo stages the
         tensors through the host);
      b. NCCL, a world of 1 on the card: a mesh ``Trainer`` against the
-        plain one for 3 training steps from one state (losses and leaves
-        within 1e-6), then ``cli.train --mesh`` as a process, 4 steps
+        plain one for 2 training steps from one state (losses and leaves
+        within 1e-6), then ``cli.train --mesh`` as a process, 2 steps
         warm-started from the checkpoint on ``prepare speechlike`` records;
      c. ``Transcriber(data_parallel=2, devices=["cuda:0", "cuda:0"])`` on
         the eval set, greedy and beam-8, and at the flagship shape: tokens
@@ -290,15 +290,20 @@ then:
         VJP) at U = 264, 320, 512, 1024 and 100 against their plain
         versions in both modes, B = 32 of ragged lengths 1..24, with the
         gates of phases 1 and 4a, each plan with the shared memory (held
-        to the plan's) and registers the card gives it; at U = 1024 and 512
-        (float32) the four kernels timed at T = 999 beside cuDNN as phases 1
-        and 4a time them (medians of 5); the decoder kernel at W1024's
+        to the plan's) and registers the card gives it, and at U = 1032,
+        1280 and 2048 on lengths 1..250 (fault C10); the ring forced at
+        U = 264, 320 (both modes) and 512 (float32); at U = 1024 and 512
+        (float32) and 1024 (bf16) the four kernels timed at T = 999 beside
+        cuDNN as phases 1 and 4a time them (medians of 5), and there and at
+        512 and 448 in bf16 the template and the ring in turns
+        (``compare_routes``: plans, clusters, ms and cycles a step); the
+        decoder kernel at W1024's
         speller (B = 32, T_enc 219 and 438, 200 steps; the streamed
         layout), with an attention layer of 1024 (library-built), and at the
         LAS paper's 2 × 512 speller (the held layout): tokens equal to the
         plain version's, shared memory equal to ``decoder_smem_bytes``;
      b. W1024 and W100 as artifacts through the ``Transcriber`` on the card
-        and on the CPU, 8 rows of 10 s decoded to at most 60 steps, greedy
+        and on the CPU, 8 rows of <= 4 s decoded to at most 60 steps, greedy
         and beam-8, both modes: 0 rows differing in parity, at most 2 greedy
         rows in production (production beam-8 on the card alone, a
         reading); launches: front-end 1, BiLSTM one a layer, decoder 1 greedy;
@@ -307,7 +312,21 @@ then:
         production; then ``cli.train`` at the W1024 flags, 2 steps and an
         eval, on ``prepare speechlike`` records (64 + 16 utterances, the
         formant corpus of phase 7 at its seed), and ``cli.infer`` of its
-        workdir.
+        workdir;
+     d. past the old limits (faults C9–C11): the decoder kernel through
+        ``greedy_decode`` at B = 8, 60 steps, in its tiled layout, at the
+        checkpoint's speller at T_enc = 17,100 and 40,000 and W1024's at
+        5,900 (tokens equal to the CPU loop's) and at U = A = AL = 2048,
+        M = 4096 (tokens equal to the plain version's), each timed; one
+        ``Transcriber.transcribe`` of 690 s at the checkpoint's widths
+        (random init) on the card, its tokens equal to the CPU loop's on the
+        card's own encoder memory; W2048 (one 2048-unit listener layer,
+        speller and attention 2048) through the ``Transcriber`` greedy at
+        8 × <= 2 s, 0 rows differing from the CPU in parity, and one
+        production ``Trainer.train_step`` at B = 4 × <= 2 s within 13c's
+        bound; each wide route
+        (the rings, the decoder's streamed and tiled layouts) counted and
+        listed in the last ``kernels`` line.
  14. the reference's entry points as the port's (``bench.py``,
      ``__graft_entry__.py``, ``tools/``):
      a. ``python -m phones_las_torch.bench`` as a process, at the
@@ -688,6 +707,8 @@ def check_lstm_ragged(t, b, u, seed, phase=1):
             rev = [False, True][:nd] if nd == 2 else [True]
             want = L.recurrence_residual_plain(xps, mask, whs, 1.0, rev, prec)
             got = L.recurrence_residual(xps, mask, whs, 1.0, rev, prec)
+            again = L.recurrence_residual(xps, mask, whs, 1.0, rev, prec)
+            ok = ok and all(torch.equal(x, y) for kg, ag in zip(got, again) for x, y in zip(kg, ag))
             plans.add((prec, True, L._launch_forward.last_plan))
             if nd == 1:
                 out, (h, c) = L.recurrence(xps[0], mask, whs[0], 1.0, rev[0], prec)
@@ -711,7 +732,8 @@ def check_lstm_ragged(t, b, u, seed, phase=1):
                       "max_active_clusters": info["max_active_clusters"]})
         ok = ok and info["smem_bytes"] == p.smem
     rec = {"phase": phase, "kernel": "lstm forward, ragged", "shape": f"T={t} B={b} U={u} lengths 1..{t}",
-           "max_abs_err": worst, "tol": "highest 1e-5; bf16 2e-2, residuals 3e-2", "plans": infos, "ok": ok}
+           "max_abs_err": worst, "tol": "highest 1e-5; bf16 2e-2, residuals 3e-2; the residual entry bitwise "
+                                        "repeatable", "plans": infos, "ok": ok}
     emit(rec)
     if not ok:
         fail(f"the LSTM forward kernel disagrees with its plain version (or forward_plan's bytes) on a ragged "
@@ -761,9 +783,9 @@ def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=Tru
     groups = -(-b // launch["rows"])
     launch["l2_bytes_per_step"] = 4 * (groups * wparams + b * t * (a + m))
     # the kernel's shared memory is the wrapper's mirror of its layout (at the
-    # kernel's widths, held or streamed), all dynamic
+    # kernel's widths, held, streamed or tiled), all dynamic
     kw = dataclasses.replace(sc, **launch["kernel_widths"])
-    launch["smem_expected"] = decoder_smem_bytes(b, t, kw, launch["cluster"], launch["streamed"])
+    launch["smem_expected"] = decoder_smem_bytes(b, t, kw, launch["cluster"], launch["streamed"], launch["tiled"])
     rec = {
         "phase": phase, "kernel": "greedy_decode_fused", "shape": f"B={b} T={t} steps={steps}",
         "vocab": v, "cells": sc.num_layers,
@@ -1510,6 +1532,20 @@ def compare_trees(other: str) -> int:
 
 def launch_counts(kernels) -> dict:
     return {fn.__name__: fn.launches for fn in kernels}
+
+
+# a wrapper's counts: all its launches, of them in bf16 mode, and through each
+# wide route (the float32 and bf16 rings, the decoder's streamed and tiled layouts)
+COUNTERS = ("launches", "bf16_launches", "ring_launches", "bf16_ring_launches", "streamed_launches",
+            "tiled_launches")
+ROUTE_COUNTERS = COUNTERS[2:]
+
+
+def route_counts(kernels) -> dict:
+    """Of each wrapper's launches, those through each wide route →
+    {"<wrapper> <route>": n}."""
+    return {f"{fn.__name__} {c[:-len('_launches')]}": getattr(fn, c) for fn in kernels for c in ROUTE_COUNTERS
+            if hasattr(fn, c)}
 
 
 def bf16_counts(kernels) -> dict:
@@ -3242,9 +3278,9 @@ MESH_LAYOUTS = ((2, 1), (2, 2))  # (data, model), ranks sharing the card over gl
 MESH_LOSS_TOL = 1e-4  # |Δloss| against the unsharded step (__graft_entry__.py's bound)
 MESH_GRAD_TOL = 5e-5  # each gradient leaf's max |d| over its max |g| (the same)
 MESH_TIMED_STEPS = 1
-NCCL_STEPS = 3
+NCCL_STEPS = 2
 NCCL_TOL = 1e-6  # the NCCL world-1 trainer against the plain one, relative
-MESH_CLI_STEPS = 4
+MESH_CLI_STEPS = 2
 MESH_TRAIN_UTTS = 128  # prepare speechlike for cli.train --mesh (32 held out)
 DP_DEVICES = ("cuda:0", "cuda:0")  # two shards, or two replicas, on the one card
 REPLICA_BATCH, REPLICA_CLIENTS = 8, 8
@@ -3971,6 +4007,7 @@ PRESET_DECODES = (
 SMALL_CLUSTERS = ((48, 48, 4), (40, 40, 2), (36, 40, 1))
 PRESET_ROWS = 8  # 12b: rows of the preset's longest bucket through the Transcriber
 LUONG_CAP = 60  # 12b: the Luong check's decode cap (a random init runs to it), as 13b's WIDTH_CAP
+LUONG_SAMPLES = 64000  # 12b: the Luong check's rows, <= 4 s
 # 12b: the one preset whose production beam-8 is also decoded on the CPU, a
 # reading (the bench's configuration); the others' runs on the card alone
 PRESET_BEAM_READING = "librispeech_char_las"
@@ -4091,6 +4128,8 @@ class Prewritten:
             for mode in ("parity", "production"):
                 self.ahead(f"width_{name}_{mode}", lambda path, name=name, mode=mode: write_width_artifact(
                     path, name, mode))
+        for name in ("checkpoint", "W2048"):  # 13d
+            self.ahead(f"width_{name}_parity", lambda path, name=name: write_width_artifact(path, name, "parity"))
 
 
 def preset_pcm(b: int, n: int, seed: int, ragged: bool):
@@ -4291,7 +4330,7 @@ def serve_presets(work, ckpt_cfg, kernels, card, artifacts) -> dict:
     # Luong attention at the checkpoint's widths: the speller loop, not the kernel
     luong = dataclasses.replace(ckpt_cfg, speller=dataclasses.replace(ckpt_cfg.speller, attention_type="luong"))
     params = init_las(luong, PRESET_SEED, device="cpu")
-    audio, lens = preset_pcm(PRESET_ROWS, int(SECONDS * SAMPLE_RATE), 131, ragged=True)
+    audio, lens = preset_pcm(PRESET_ROWS, LUONG_SAMPLES, 131, ragged=True)
     rows = [audio[i, :k].astype(np.int16) for i, k in enumerate(lens)]
     out = {"samples": [int(k) for k in lens], "cap": LUONG_CAP}
     vocab = [f"p{i}" for i in range(luong.speller.vocab_size - 4)]
@@ -4516,27 +4555,45 @@ WIDTH_FLAGS = {
 }
 WIDTH_UNITS = (264, 320, 512, 1024, 100)  # 13a: the listener kernels against their plain versions, both modes
 WIDTH_KERNEL_T, WIDTH_KERNEL_B = 24, 32  # ... on ragged lengths 1..T
+WIDE_UNITS, WIDE_T = (1032, 1280, 2048), 250  # 13a: past 1024 (fault C10), both modes, at T = 250
 WIDTH_TIMED = ((1024, "highest"), (512, "highest"), (1024, "bf16"))  # 13a: T = 999, with cuDNN beside
 WIDTH_REPS = 5  # ... timed as the median of 5 runs (the plain versions once)
-ROUTE_UNITS = (1024, 512)  # 13a: float32, the streamed slice's two routes in turns on one card
+# 13a: the streamed slice's two routes (template, ring) in turns on one card: float32 at 512 keeps the
+# template (RING_UNITS), bf16 takes the ring past 384 (RING_UNITS_BF16)
+ROUTE_CASES = WIDTH_TIMED + ((512, "bf16"), (448, "bf16"))
 ROUTE_REPS = 3  # ... each turn the median of 3 launches
 # 13a: the decoder kernel at B = 32, 200 steps: (label, T_enc, U, A, AL, M)
 WIDTH_DECODES = (("W1024", 219, 1024, 1024, 256, 2048), ("W1024", 438, 1024, 1024, 256, 2048),
                  ("W1024, attention layer 1024 (library-built)", 219, 1024, 1024, 1024, 2048),
                  ("LAS paper speller", 438, 512, 512, 256, 512))
-WIDTH_ROWS, WIDTH_SAMPLES, WIDTH_CAP = 8, 160000, 60  # 13b: 8 rows of 10 s through the Transcriber, cap 60
+WIDTH_ROWS, WIDTH_SAMPLES, WIDTH_CAP = 8, 64000, 60  # 13b: 8 rows of <= 4 s through the Transcriber, cap 60
 WIDTH_TRAIN_B, WIDTH_TRAIN_SAMPLES, WIDTH_TRAIN_TARGET = 8, 64000, 30  # 13c: B = 8 × <= 4 s
 WIDTH_CLI_UTTS, WIDTH_CLI_STEPS = 64, 2  # 13c: prepare speechlike (16 held out), cli.train steps
+# 13d: the decoder kernel past its old limits (faults C9, C11) at B = 8, 60
+# steps, timed: (label, T_enc, U, A, AL, M, tokens also against the CPU
+# loop's; the speller at U = A = AL = 2048 only against its plain version on
+# the card: its CPU loop would take a minute, and W2048's serving holds it)
+LONG_DECODES = (("the checkpoint's speller", 17100, 256, 256, 256, 512, True),
+                ("the checkpoint's speller", 40000, 256, 256, 256, 512, True),
+                ("W1024's speller", 5900, 1024, 1024, 256, 2048, True),
+                ("U = A = AL = 2048, M = 4096", 219, 2048, 2048, 2048, 4096, False))
+LONG_B, LONG_STEPS = 8, 60
+LONG_SECONDS = 690  # 13d: one Transcriber.transcribe of 690 s at the checkpoint's widths (T_enc ≈ 17,250)
+# 13d: W2048: encoder, decoder and attention units 2048, one listener layer (M = 4096), served at 8 × 2 s
+# greedy in parity, and one production training step at 13c's bounds
+W2048_FLAGS = {"encoder_layers": 1, "encoder_units": 2048, "decoder_units": 2048, "attention_units": 2048}
+W2048_ROWS, W2048_SAMPLES = 8, 32000
+W2048_TRAIN_B, W2048_TRAIN_SAMPLES = 4, 32000
 
 
-def check_ring_ragged(t, b, u, seed, phase="13a"):
-    """The ring kernels at a float32 width whose plan takes the template
-    (U = 264, 320, 512), through the ring's plan (``ring=True``): the
-    forward's two entries and the VJP, one and two directions, on a batch
-    that is no multiple of its tile with lengths 1..T, against the plain
-    versions at the gates of ``check_lstm_ragged`` and
-    ``check_lstm_bwd_ragged`` (VJP bitwise repeatable, masked steps pass
-    no gradient); each plan's shared memory held to the mirror's."""
+def check_ring_ragged(t, b, u, seed, phase="13a", prec="highest"):
+    """The ring kernels at a width whose plan takes the template (float32
+    U = 264, 320, 512; bf16 U = 264, 320), through the ring's plan
+    (``ring=True``): the forward's two entries and the VJP, one and two
+    directions, on a batch that is no multiple of its tile with lengths
+    1..T, against the plain versions at the gates of ``check_lstm_ragged``
+    and ``check_lstm_bwd_ragged`` (VJP bitwise repeatable, masked steps
+    pass no gradient); each plan's shared memory held to the mirror's."""
     from phones_las_torch.ops import lstm as L
     from phones_las_torch.ops.masking import length_mask
 
@@ -4545,31 +4602,32 @@ def check_ring_ragged(t, b, u, seed, phase="13a"):
     lengths = torch.randint(1, t + 1, (b,), generator=g, device=DEV)
     lengths[0], lengths[1] = t, 1
     mask = length_mask(lengths, t).transpose(0, 1).contiguous()
-    tol, vjp_tol = 1e-5, 1e-4
+    bf16 = prec == "bf16"
+    tol, res_tol, vjp_tol = (2e-2, 3e-2, 3e-2) if bf16 else (1e-5, 1e-5, 1e-4)
     ok, fwd_err, vjp_err, plans = True, 0.0, 0.0, []
     for nd in (1, 2):
         xps = [rnd(t, b, 4 * u) for _ in range(nd)]
         whs = [rnd(u, 4 * u) / u ** 0.5 for _ in range(nd)]
         rev = [False, True][:nd] if nd == 2 else [True]
-        want = L.recurrence_residual_plain(xps, mask, whs, 1.0, rev, "highest")
+        want = L.recurrence_residual_plain(xps, mask, whs, 1.0, rev, prec)
         for entry in ("plt_lstm_recurrence", "plt_lstm_residual"):
             save = entry == "plt_lstm_residual"
             active = lambda c, bt, ks, res, ring=False: L.forward_kernel_info(
-                L.kernel_units(u, c), False, save, c, bt, ks, res, ring)["max_active_clusters"]
-            plan = L.forward_plan(b, u, nd, "highest", active, ring=True)
-            got = L._launch_forward(entry, xps, mask, whs, 1.0, rev, "highest", plan)
+                L.kernel_units(u, c), bf16, save, c, bt, ks, res, ring)["max_active_clusters"]
+            plan = L.forward_plan(b, u, nd, prec, active, ring=True)
+            got = L._launch_forward(entry, xps, mask, whs, 1.0, rev, prec, plan)
             torch.cuda.synchronize()
             for k, p in zip(got, want):
-                pairs = [(k[0], p[0]), (k[3], p[3]), (k[4], p[4])] + ([(k[1], p[1]), (k[2], p[2])] if save else [])
-                a, _, k_ok = compare([x for x, _ in pairs], [y for _, y in pairs], tol, tol)
-                ok, fwd_err = ok and k_ok, max(fwd_err, a)
-            info = L.forward_kernel_info(plan.units, False, save, plan.cluster, plan.bt, plan.ksplit, False, True)
+                a, _, k_ok = compare([k[0], k[3], k[4]], [p[0], p[3], p[4]], tol, tol)
+                ar, _, r_ok = compare([k[1], k[2]], [p[1], p[2]], res_tol, res_tol) if save else (0.0, 0.0, True)
+                ok, fwd_err = ok and k_ok and r_ok, max(fwd_err, a, ar)
+            info = L.forward_kernel_info(plan.units, bf16, save, plan.cluster, plan.bt, plan.ksplit, False, True)
             plans.append({"entry": entry, "nd": nd, "plan": plan, "smem_bytes": info["smem_bytes"],
                           "registers": info["registers"], "max_active_clusters": info["max_active_clusters"]})
-            ok = ok and info["smem_bytes"] == plan.smem
+            ok = ok and info["smem_bytes"] == plan.smem and plan.ring
         bargs = (xps, mask, whs, [r[1] for r in want], [r[2] for r in want], [rnd(t, b, u) for _ in range(nd)],
-                 [rnd(b, u) for _ in range(nd)], [rnd(b, u) for _ in range(nd)], 1.0, rev, "highest")
-        plan = L.backward_plan(b, u, nd, "highest", lambda p: L.backward_kernel_info(False, p)["max_active_clusters"],
+                 [rnd(b, u) for _ in range(nd)], [rnd(b, u) for _ in range(nd)], 1.0, rev, prec)
+        plan = L.backward_plan(b, u, nd, prec, lambda p: L.backward_kernel_info(bf16, p)["max_active_clusters"],
                                ring=True)
         got = L._launch_backward(*bargs, plan=plan)
         again = L._launch_backward(*bargs, plan=plan)
@@ -4578,14 +4636,15 @@ def check_ring_ragged(t, b, u, seed, phase="13a"):
         err = max(rel_err(k, p) for kg, pg in zip(got, pwant) for k, p in zip(kg, pg))
         same = all(torch.equal(x, y) for kg, ag in zip(got, again) for x, y in zip(kg, ag))
         dead = all(float((kg[0] * (1.0 - mask)[:, :, None]).abs().max()) == 0.0 for kg in got)
-        info = L.backward_kernel_info(False, plan)
+        info = L.backward_kernel_info(bf16, plan)
         plans.append({"entry": "plt_lstm_bwd", "nd": nd, "plan": plan, "smem_bytes": info["smem_bytes"],
                       "registers": info["registers"], "max_active_clusters": info["max_active_clusters"]})
-        ok = ok and err <= vjp_tol and same and dead and info["smem_bytes"] == plan.smem
+        ok = ok and err <= vjp_tol and same and dead and info["smem_bytes"] == plan.smem and plan.ring
         vjp_err = max(vjp_err, err)
     rec = {"phase": phase, "kernel": "the ring kernels, ragged", "shape": f"T={t} B={b} U={u} lengths 1..{t}",
-           "forward_max_abs_err": fwd_err, "vjp_max_rel_to_max": vjp_err,
-           "tol": f"forward atol=rtol={tol}; dxp, dwh max|d|/max|plain| <= {vjp_tol}, bitwise repeatable",
+           "prec": prec, "forward_max_abs_err": fwd_err, "vjp_max_rel_to_max": vjp_err,
+           "tol": f"forward atol=rtol={tol} (residuals {res_tol}); dxp, dwh max|d|/max|plain| <= {vjp_tol}, "
+                  "bitwise repeatable",
            "plans": plans, "ok": ok}
     emit(rec)
     if not ok:
@@ -4604,16 +4663,17 @@ def route_plan_record(plan, b: int, nd: int, info: dict) -> dict:
             "registers": info["registers"]}
 
 
-def compare_routes(u: int, seed: int) -> list:
-    """13a: the four listener kernels at U, float32, T = 999 (the BiLSTM
+def compare_routes(u: int, seed: int, prec: str = "highest") -> list:
+    """13a: the four listener kernels at U in a mode, T = 999 (the BiLSTM
     forward at B = 64, the others at the training batch), under the
     template (``ring=False``: each block's slice of wh streamed by its
     threads' loads) and the ring (``ring=True``), in turns on one card
     (template, ring, ring, template): each plan with its clusters,
     ``max_active_clusters`` and waves, the ms, and the SM cycles a step
     spends in each part; the two routes' outputs against each other and
-    which was faster (``forward_plan`` takes the ring past ``RING_UNITS``).
-    The plain versions and the gates are the other records'."""
+    which was faster (``forward_plan`` takes the ring past ``RING_UNITS``,
+    in bf16 past ``RING_UNITS_BF16``). The plain versions and the gates
+    are the other records'."""
     from phones_las_torch.ops import lstm as L
     from phones_las_torch.ops.masking import length_mask
 
@@ -4640,12 +4700,13 @@ def compare_routes(u: int, seed: int) -> list:
         xps, mask, whs = case(b, nd)
         rev = [False, True][:nd]
         save = entry == "plt_lstm_residual"
-        info = lambda p: L.forward_kernel_info(p.units, False, save, p.cluster, p.bt, p.ksplit, p.resident, p.ring)
+        bf16 = prec == "bf16"
+        info = lambda p: L.forward_kernel_info(p.units, bf16, save, p.cluster, p.bt, p.ksplit, p.resident, p.ring)
         active = lambda c, bt, ks, res, ring=False: L.forward_kernel_info(
-            L.kernel_units(u, c), False, save, c, bt, ks, res, ring)["max_active_clusters"]
-        plans = {"template": L.forward_plan(b, u, nd, "highest", active, ring=False),
-                 "ring": L.forward_plan(b, u, nd, "highest", active, ring=True)}
-        run = lambda name: L._launch_forward(entry, xps, mask, whs, 1.0, rev, "highest", plans[name])
+            L.kernel_units(u, c), bf16, save, c, bt, ks, res, ring)["max_active_clusters"]
+        plans = {"template": L.forward_plan(b, u, nd, prec, active, ring=False),
+                 "ring": L.forward_plan(b, u, nd, prec, active, ring=True)}
+        run = lambda name: L._launch_forward(entry, xps, mask, whs, 1.0, rev, prec, plans[name])
         outs = {name: run(name) for name in plans}
         torch.cuda.synchronize()
         diff = max(float((x - y).abs().max()) for kt, kr in zip(outs["template"], outs["ring"])
@@ -4654,22 +4715,22 @@ def compare_routes(u: int, seed: int) -> list:
         routes = {}
         for name, plan in plans.items():
             clocks = torch.zeros(len(FWD_CLOCKS), dtype=torch.int64, device=DEV)
-            L._launch_forward(entry, xps, mask, whs, 1.0, rev, "highest", plan, clocks)
+            L._launch_forward(entry, xps, mask, whs, 1.0, rev, prec, plan, clocks)
             torch.cuda.synchronize()
             routes[name] = {**route_plan_record(plan, b, nd, info(plan)), "ms": ms[name],
                             "us_per_step": ms[name] * 1e3 / t,
                             "cycles_per_step": dict(zip(FWD_CLOCKS, (c / t for c in clocks.tolist())))}
         recs.append({"phase": "13a", "kernel": kernel, "what": "the streamed slice's two routes, in turns",
-                     "shape": f"T={t} B={b} U={u} nd={nd} prec=highest", "routes": routes,
+                     "shape": f"T={t} B={b} U={u} nd={nd} prec={prec}", "routes": routes,
                      "max_abs_diff_between_routes": diff, "faster": min(ms, key=ms.get)})
         del xps, outs
     xps, mask, whs = case(TRAIN_B, 2)
-    res = L.recurrence_residual(xps, mask, whs, 1.0, [False, True], "highest")
+    res = L.recurrence_residual(xps, mask, whs, 1.0, [False, True], prec)
     bargs = (xps, mask, whs, [r[1] for r in res], [r[2] for r in res], [rnd(t, TRAIN_B, u) for _ in range(2)],
-             [rnd(TRAIN_B, u) for _ in range(2)], [rnd(TRAIN_B, u) for _ in range(2)], 1.0, [False, True], "highest")
-    active = lambda p: L.backward_kernel_info(False, p)["max_active_clusters"]
-    plans = {"template": L.backward_plan(TRAIN_B, u, 2, "highest", active, ring=False),
-             "ring": L.backward_plan(TRAIN_B, u, 2, "highest", active, ring=True)}
+             [rnd(TRAIN_B, u) for _ in range(2)], [rnd(TRAIN_B, u) for _ in range(2)], 1.0, [False, True], prec)
+    active = lambda p: L.backward_kernel_info(prec == "bf16", p)["max_active_clusters"]
+    plans = {"template": L.backward_plan(TRAIN_B, u, 2, prec, active, ring=False),
+             "ring": L.backward_plan(TRAIN_B, u, 2, prec, active, ring=True)}
     outs = {name: L._launch_backward(*bargs, plan=plan) for name, plan in plans.items()}
     torch.cuda.synchronize()
     diff = max(rel_err(x, y) for kt, kr in zip(outs["template"], outs["ring"]) for x, y in zip(kt, kr))
@@ -4685,11 +4746,11 @@ def compare_routes(u: int, seed: int) -> list:
         L._launch_backward(*bargs, plan=plan, clocks=clocks)
         torch.cuda.synchronize()
         loop_ms = statistics.median(loops[name])
-        routes[name] = {**route_plan_record(plan, TRAIN_B, 2, L.backward_kernel_info(False, plan)),
+        routes[name] = {**route_plan_record(plan, TRAIN_B, 2, L.backward_kernel_info(prec == "bf16", plan)),
                         "loop_ms": loop_ms, "us_per_step": loop_ms * 1e3 / t,
                         "cycles_per_step": dict(zip(BWD_CLOCKS, (c / t for c in clocks.tolist())))}
     recs.append({"phase": "13a", "kernel": "recurrence_bwd (the loop)", "what": "the streamed slice's two routes, in turns",
-                 "shape": f"T={t} B={TRAIN_B} U={u} nd=2 prec=highest", "routes": routes,
+                 "shape": f"T={t} B={TRAIN_B} U={u} nd=2 prec={prec}", "routes": routes,
                  "max_rel_diff_between_routes": diff,
                  "faster": min(routes, key=lambda k: routes[k]["loop_ms"])})
     for rec in recs:
@@ -4718,8 +4779,13 @@ def check_width_kernels(work) -> dict:
     for i, u in enumerate(WIDTH_UNITS):
         fwd.append(check_lstm_ragged(WIDTH_KERNEL_T, WIDTH_KERNEL_B, u, 130 + i, phase="13a"))
         vjp.append(check_lstm_bwd_ragged(WIDTH_KERNEL_T, WIDTH_KERNEL_B, u, 140 + i, phase="13a"))
-        if 256 < u <= 512:  # where the plan takes the template, the ring's plan too
+        if 256 < u <= L.RING_UNITS:  # where the plan takes the template, the ring's plan too
             check_ring_ragged(WIDTH_KERNEL_T, WIDTH_KERNEL_B, u, 190 + i)
+        if 256 < u <= L.RING_UNITS_BF16:
+            check_ring_ragged(WIDTH_KERNEL_T, WIDTH_KERNEL_B, u, 195 + i, prec="bf16")
+    for i, u in enumerate(WIDE_UNITS):  # every route past 1024 (fault C10)
+        fwd.append(check_lstm_ragged(WIDE_T, WIDTH_KERNEL_B, u, 200 + i, phase="13a"))
+        vjp.append(check_lstm_bwd_ragged(WIDE_T, WIDTH_KERNEL_B, u, 210 + i, phase="13a"))
     emit({"phase": "13a", "what": "listener kernels at the new widths against their plain versions",
           "forward_max_abs_err": {r["shape"]: r["max_abs_err"] for r in fwd},
           "vjp_max_rel_to_max": {r["shape"]: r["max_rel_to_max"] for r in vjp},
@@ -4742,7 +4808,7 @@ def check_width_kernels(work) -> dict:
                                      reps=WIDTH_REPS)
         timed.append({"u": u, "prec": prec, "bidir_recurrence": rec, "recurrence": train[0],
                       "recurrence_residual": train[1], "recurrence_bwd": train[2]})
-    routes = [compare_routes(u, 180 + i) for i, u in enumerate(ROUTE_UNITS)]
+    routes = [compare_routes(u, 180 + i, prec) for i, (u, prec) in enumerate(ROUTE_CASES)]
     decs = []
     for i, (label, t, u, a, al, m) in enumerate(WIDTH_DECODES):
         sc = SpellerConfig(vocab_size=PRESET_VOCAB[WIDTH_PRESET], embedding_dim=128, num_layers=2, units=u,
@@ -4754,7 +4820,7 @@ def check_width_kernels(work) -> dict:
         lens[0] = t
         rec = check_greedy(SimpleNamespace(speller=sp), SimpleNamespace(speller=sc), memory, length_mask(lens, t),
                            WIDTH_KERNEL_B, steps=DECODE_STEPS, phase="13a", what=f"{label}, T_enc {t}, ragged")
-        if rec["launch"]["streamed"] != (u == 1024):
+        if rec["launch"]["streamed"] != (u == 1024) or rec["launch"]["tiled"]:
             fail(f"phase 13a: the decoder took the wrong layout at {label}: {rec['launch']}")
         decs.append(rec)
         del sp, memory
@@ -4762,12 +4828,13 @@ def check_width_kernels(work) -> dict:
 
 
 def write_width_artifact(path: str, name: str, mode: str) -> None:
-    """13b's artifact of a width configuration in a mode: its random init
-    (WIDTH_SEED), decoded to at most WIDTH_CAP steps."""
+    """13b's (and 13d's) artifact of a width configuration in a mode: its
+    random init (WIDTH_SEED), decoded to at most WIDTH_CAP steps."""
     from phones_las_torch.utils.param_io import save_params_npz
 
+    flags = {**WIDTH_FLAGS, "checkpoint": {}, "W2048": W2048_FLAGS}[name]
     preset, _, params, vocab, _, _ = preset_model(WIDTH_PRESET, os.path.dirname(path), "cpu", seed=WIDTH_SEED,
-                                                  **WIDTH_FLAGS[name])
+                                                  **flags)
     cfg = preset.model
     save_params_npz(path, params, cfg if mode == "parity" else production_cfg(cfg),
                     extras={"preset": WIDTH_PRESET, "vocab": vocab.tokens, "buckets": [WIDTH_SAMPLES],
@@ -4785,7 +4852,7 @@ def serve_widths(work, kernels, card, artifacts) -> dict:
     from phones_las_torch import Transcriber
 
     rec = {"phase": "13b", "rows": WIDTH_ROWS, "samples": WIDTH_SAMPLES, "cap": WIDTH_CAP, "beam_width": BEAM_K}
-    bad, launches = [], []
+    bad, launches, routes = [], [], []
     audio, lens = preset_pcm(WIDTH_ROWS, WIDTH_SAMPLES, 180, ragged=True)
     rows = [audio[i, :k].astype(np.int16) for i, k in enumerate(lens)]
     for name in WIDTH_FLAGS:
@@ -4805,6 +4872,7 @@ def serve_widths(work, kernels, card, artifacts) -> dict:
                 card_tok = card_t.transcribe_batch(rows)
                 torch.cuda.synchronize()
                 r = {"lengths": [len(x) for x in card_tok], "launches": launch_counts(kernels)}
+                routes.append(route_counts(kernels))
                 if mode == "parity" or beam == 0:
                     cpu_tok = cpu_t.transcribe_batch(rows)
                     r["rows_differing"] = [i for i, (a, b) in enumerate(zip(card_tok, cpu_tok)) if a != b]
@@ -4823,25 +4891,35 @@ def serve_widths(work, kernels, card, artifacts) -> dict:
     emit(rec)
     if bad:
         fail(f"phase 13b: serving at the width flags failed in {bad}")
-    return {k: sum(la[k] for la in launches) for k in launches[0]}
+    return summed(launches), summed(routes)
 
 
-def train_widths(work, kernels, card) -> dict:
-    """Phase 13c (library): one ``Trainer.train_step`` of W1024 at B = 8 × <= 4 s,
-    dropout and sampling off, card against the CPU plain path: the loss
-    within 1e-5 relative in parity, 1e-4 in production (TF32 on the card
-    only), every term finite, the residual and VJP kernels once a listener
-    layer → the card's launches summed."""
+def summed(counts: list) -> dict:
+    """Counts of several runs (dicts of the same keys), added key by key."""
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def train_widths(work, kernels, card, name="W1024", modes=("parity", "production"), b=WIDTH_TRAIN_B,
+                 samples=WIDTH_TRAIN_SAMPLES, phase="13c") -> tuple:
+    """Phase 13c (library): one ``Trainer.train_step`` of W1024 at B = 8 ×
+    <= 4 s (13d: of W2048 in production at B = 4 × <= 2 s), dropout and
+    sampling off, card against the CPU plain path: the loss within 1e-5 relative in parity,
+    1e-4 in production (TF32 on the card only), every term finite, the
+    residual and VJP kernels once a listener layer, through the ring in
+    either mode past U = 1024 → the card's launches and route counts
+    summed."""
     from phones_las_torch.train.loop import Trainer
 
     device = None if DEV == "cuda" else DEV
+    flags = {**WIDTH_FLAGS, "W2048": W2048_FLAGS}[name]
     preset, _, params, _, _, codes = preset_model(WIDTH_PRESET, work, "cpu", seed=WIDTH_SEED, dropout=0.0,
-                                                  sampling_probability=0.0, **WIDTH_FLAGS["W1024"])
+                                                  sampling_probability=0.0, **flags)
     cfg, n_layers = preset.model, preset.model.listener.num_layers
-    batch = preset_train_batch(preset, WIDTH_TRAIN_B, WIDTH_TRAIN_SAMPLES, WIDTH_TRAIN_TARGET, 190, "cpu")
-    rec = {"phase": "13c", "config": "W1024", "batch": WIDTH_TRAIN_B, "samples": WIDTH_TRAIN_SAMPLES}
-    bad, launches = [], []
-    for mode, c in (("parity", cfg), ("production", production_cfg(cfg))):
+    batch = preset_train_batch(preset, b, samples, WIDTH_TRAIN_TARGET, 190, "cpu")
+    rec = {"phase": phase, "config": name, "batch": b, "samples": samples}
+    bad, launches, routes = [], [], []
+    for mode in modes:
+        c = cfg if mode == "parity" else production_cfg(cfg)
         runs = {}
         for side, dev in (("card", device), ("cpu", "cpu")):
             tr = Trainer(c, preset.train, binf_codes=codes, device=dev)
@@ -4855,21 +4933,26 @@ def train_widths(work, kernels, card) -> dict:
                 torch.cuda.synchronize()
                 runs["card_step_ms"] = (time.perf_counter() - t0) * 1e3
                 launches.append(launch_counts(kernels))
+                routes.append(route_counts(kernels))
             del tr
         tol = LOSS_TOL if mode == "parity" else PROD_LOSS_TOL
         err = abs(runs["card"]["loss"] - runs["cpu"]["loss"]) / abs(runs["cpu"]["loss"])
-        rec[mode] = {**runs, "loss_rel_err": err, "tol": tol, "launches": launches[-1]}
-        la = launches[-1]
+        rec[mode] = {**runs, "loss_rel_err": err, "tol": tol, "launches": launches[-1], "routes": routes[-1]}
+        la, ro = launches[-1], routes[-1]
         if err > tol or not np.isfinite(list(runs["card"].values()) + list(runs["cpu"].values())).all():
             bad.append(f"{mode}: loss")
         if DEV == "cuda" and (la["fused_logmel"], la["recurrence_residual"], la["recurrence_bwd"]) != (
                 1, n_layers, n_layers):
             bad.append(f"{mode}: launches")
+        ring = "bf16_ring" if mode == "production" else "ring"
+        if DEV == "cuda" and cfg.listener.units > 1024 and (
+                ro[f"recurrence_residual {ring}"], ro[f"recurrence_bwd {ring}"]) != (n_layers, n_layers):
+            bad.append(f"{mode}: the {ring} route")
     rec["card"] = card
     emit(rec)
     if bad:
-        fail(f"phase 13c: the W1024 training step disagrees with the CPU: {bad}")
-    return {k: sum(la[k] for la in launches) for k in launches[0]}
+        fail(f"phase {phase}: the {name} training step disagrees with the CPU: {bad}")
+    return summed(launches), summed(routes)
 
 
 def start_width_train(work, data, prepare, started):
@@ -4905,12 +4988,139 @@ def check_width_clis(data, run, train, t0, card) -> None:
         fail(f"phase 13c: the CLIs at the W1024 flags failed: {rec}")
 
 
+def check_long_decodes(kernels) -> tuple:
+    """Phase 13d (1): the decoder kernel past its old limits, through
+    ``greedy_decode`` on the card at B = 8, 60 steps, ragged: the
+    checkpoint's speller at T_enc = 17,100 and 40,000 (fault C9), W1024's
+    at 5,900 and U = A = AL = 2048 with M = 4096 (fault C11), each one
+    launch of the kernel in its tiled layout (never the loop), tokens equal
+    to the CPU loop's (``greedy_decode_steps``, parity) on the same weights
+    and memory (but the widest); each timed against its plain version on
+    the card (``check_greedy``) → (the launches, the route counts, the
+    record at T_enc = 40,000)."""
+    import copy
+
+    from phones_las_torch.decode.greedy import greedy_decode, greedy_decode_steps
+    from phones_las_torch.models.speller import SpellerConfig, init_speller
+    from phones_las_torch.ops.masking import length_mask
+
+    launches, routes, timed = [], [], None
+    for i, (label, t, u, a, al, m, against_cpu) in enumerate(LONG_DECODES):
+        sc = SpellerConfig(vocab_size=PRESET_VOCAB[WIDTH_PRESET], embedding_dim=128, num_layers=2, units=u,
+                           memory_dim=m, attention_units=a, attention_layer_size=al)
+        sp = init_speller(sc, torch.Generator().manual_seed(WIDTH_SEED + 10 + i), device=DEV)
+        g = torch.Generator(device=DEV).manual_seed(220 + i)
+        memory = torch.randn(LONG_B, t, m, generator=g, device=DEV)
+        lens = torch.randint(t // 4, t + 1, (LONG_B,), generator=g, device=DEV)
+        lens[0] = t
+        mask = length_mask(lens, t)
+        reset_counters(kernels)
+        t0 = time.perf_counter()
+        tok, _, _ = greedy_decode(sp, sc, memory, mask, LONG_STEPS)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches.append(launch_counts(kernels))
+        routes.append(route_counts(kernels))
+        rows = []
+        if against_cpu:
+            cpu_tok, _, _ = greedy_decode_steps(copy.deepcopy(sp).cpu(), sc, memory.cpu(), mask.cpu(), LONG_STEPS)
+            rows = [r for r in range(LONG_B) if not torch.equal(tok[r].cpu(), cpu_tok[r])]
+        rec = check_greedy(SimpleNamespace(speller=sp), SimpleNamespace(speller=sc), memory, mask, LONG_B,
+                           steps=LONG_STEPS, phase="13d", what=f"{label}, T_enc {t}, ragged")
+        out = {"phase": "13d", "what": f"greedy_decode on the card against the CPU loop: {label}, T_enc {t}",
+               "against_cpu_loop": against_cpu, "rows_differing_from_cpu_loop": rows, "first_call_ms": first_ms,
+               "launches": launches[-1],
+               "routes": routes[-1], "tokens_emitted": int((tok != sc.eos_id).sum())}
+        emit(out)
+        if rows or DEV == "cuda" and (launches[-1]["greedy_decode_fused"], routes[-1]["greedy_decode_fused tiled"]) != (
+                1, 1):
+            fail(f"phase 13d: the decoder kernel past its old limits failed: {out}")
+        if t == 40000:
+            timed = rec
+        del sp, memory
+    return summed(launches), summed(routes), timed
+
+
+def check_long_transcriber(kernels, card, artifacts) -> tuple:
+    """Phase 13d (2): one ``Transcriber.transcribe`` of 690 s of speech-like
+    PCM (the eval set's utterances end to end, repeated) on the card, at
+    the checkpoint's widths (random init): its encoder length past the
+    streamed layout's (fault C9), so the decoder kernel takes the tiled
+    layout; its tokens equal to the CPU loop's (``greedy_decode_steps``) on
+    the card's own encoder memory, copied over → (launches, route counts)."""
+    from phones_las_torch import Transcriber
+    from phones_las_torch.decode.greedy import greedy_decode_steps
+    from phones_las_torch.models.las import encode
+    from phones_las_torch.utils.device import matmul_precision_scope
+
+    art = artifacts.get("width_checkpoint_parity", lambda path: write_width_artifact(path, "checkpoint", "parity"))
+    data = np.load(os.path.join(ASSETS, "eval_set.npz"), allow_pickle=False)
+    speech = np.concatenate([data["audio"][i, :k] for i, k in enumerate(data["lengths"])])
+    n = LONG_SECONDS * SAMPLE_RATE
+    pcm = np.clip(np.rint(np.resize(speech, n)), -32768, 32767).astype(np.int16)
+    card_t = Transcriber.from_artifact(art, device=None if DEV == "cuda" else DEV)
+    cpu_t = Transcriber.from_artifact(art, device="cpu")
+    reset_counters(kernels)
+    t0 = time.perf_counter()
+    got = card_t.transcribe(pcm)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    la, ro = launch_counts(kernels), route_counts(kernels)
+    with torch.no_grad(), matmul_precision_scope(card_t.model_cfg.matmul_precision):
+        memory, _, enc_mask = encode(card_t.params, card_t.model_cfg, torch.from_numpy(pcm[None]).to(DEV),
+                                     torch.tensor([n], dtype=torch.int32, device=DEV), prec=card_t.prec)
+    tok, lens, _ = greedy_decode_steps(cpu_t.params.speller, cpu_t.speller_cfg, memory.cpu(), enc_mask.cpu(),
+                                       card_t.max_steps, prec=cpu_t.prec)
+    want = cpu_t.vocab.decode(tok[0][: int(lens[0])].numpy())
+    rec = {"phase": "13d", "what": "Transcriber.transcribe of 690 s on the card against the CPU loop on its memory",
+           "seconds_of_audio": LONG_SECONDS, "encoder_length": int(memory.shape[1]), "cap": card_t.max_steps,
+           "tokens": len(got), "equal": got == want, "ms": sec * 1e3, "launches": la, "routes": ro, "card": card}
+    emit(rec)
+    if got != want or DEV == "cuda" and (la["fused_logmel"], la["greedy_decode_fused"],
+                                         ro["greedy_decode_fused tiled"]) != (1, 1, 1):
+        fail(f"phase 13d: the 690 s Transcriber call failed: {rec}")
+    return la, ro
+
+
+def serve_w2048(kernels, card, artifacts) -> tuple:
+    """Phase 13d (3): W2048 (encoder, decoder and attention units 2048,
+    one listener layer, M = 4096; random init) through
+    ``Transcriber.from_artifact`` greedy at 8 × <= 2 s, card against the
+    CPU in parity: 0 rows differing, the listener through the float32 ring
+    and the decoder in its tiled layout → (launches, route counts)."""
+    from phones_las_torch import Transcriber
+
+    art = artifacts.get("width_W2048_parity", lambda path: write_width_artifact(path, "W2048", "parity"))
+    audio, lens = preset_pcm(W2048_ROWS, W2048_SAMPLES, 230, ragged=True)
+    rows = [audio[i, :k].astype(np.int16) for i, k in enumerate(lens)]
+    card_t = Transcriber.from_artifact(art, device=None if DEV == "cuda" else DEV)
+    reset_counters(kernels)
+    t0 = time.perf_counter()
+    got = card_t.transcribe_batch(rows)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    la, ro = launch_counts(kernels), route_counts(kernels)
+    del card_t
+    want = Transcriber.from_artifact(art, device="cpu").transcribe_batch(rows)
+    differ = [i for i, (x, y) in enumerate(zip(got, want)) if x != y]
+    rec = {"phase": "13d", "what": "W2048 served greedy, card against the CPU (parity)", "flags": W2048_FLAGS,
+           "rows": W2048_ROWS, "samples": W2048_SAMPLES, "rows_differing": differ, "lengths": [len(x) for x in got],
+           "first_call_ms": ms, "launches": la, "routes": ro, "card": card}
+    emit(rec)
+    if differ or DEV == "cuda" and (la["bidir_recurrence"], ro["bidir_recurrence ring"], la["greedy_decode_fused"],
+                                    ro["greedy_decode_fused tiled"]) != (1, 1, 1, 1):
+        fail(f"phase 13d: W2048 serving failed: {rec}")
+    return la, ro
+
+
 def check_widths(kernels, card, artifacts) -> dict:
     """Phase 13, in a temporary directory under ``_runs/`` removed at the
-    end → the card's launches of 13b and 13c summed. 13c's records are
-    prepared by a process that runs beside 13a, and its ``cli.train``
-    beside 13b and 13c's library step; every process it starts is
-    stopped."""
+    end → {"launches", "routes": the card's launches and route counts of
+    13b–13d's model runs summed, "records": the timed records of the wide
+    routes (13a's ring at U = 1024 in each mode, the decoder's streamed and
+    tiled layouts)}. 13c's records are prepared by a process that runs
+    beside 13a, and its ``cli.train`` beside 13b and 13c's library step;
+    every process it starts is stopped."""
     import shutil
     import tempfile
 
@@ -4921,19 +5131,27 @@ def check_widths(kernels, card, artifacts) -> dict:
         data = os.path.join(work, "data")
         cli("prepare", "speechlike", "--out", data, "--n-utts", str(WIDTH_CLI_UTTS), "--seed", str(DATA_TRAIN_SEED),
             started=started)
-        check_width_kernels(work)
+        kern = check_width_kernels(work)
         run, train, t0 = start_width_train(work, data, started[0], started)
         parts = [serve_widths(work, kernels, card, artifacts)]
         with torch.enable_grad():
             parts.append(train_widths(work, kernels, card))
         check_width_clis(data, run, train, t0, card)
+        # ---- 13d: past the old limits: long encoder sequences, U = 2048
+        *dec, tiled = check_long_decodes(kernels)
+        parts += [tuple(dec), check_long_transcriber(kernels, card, artifacts), serve_w2048(kernels, card, artifacts)]
+        with torch.enable_grad():
+            parts.append(train_widths(work, kernels, card, "W2048", ("production",), W2048_TRAIN_B, W2048_TRAIN_SAMPLES,
+                                      "13d"))
     finally:
         for p in started:
             if p.poll() is None:
                 p.kill()
                 p.wait(timeout=60)
         shutil.rmtree(work, ignore_errors=True)
-    return {k: sum(p[k] for p in parts) for k in parts[0]}
+    ring = {prec: next(r for r in kern["timed"] if r["u"] == 1024 and r["prec"] == prec) for prec in ("highest", "bf16")}
+    return {"launches": summed([p[0] for p in parts]), "routes": summed([p[1] for p in parts]),
+            "records": {"ring": ring, "streamed": kern["decoders"][0], "tiled": tiled}}
 
 
 # ---- phase 14: the reference's entry points as the port's: the bench, entry(), the tools
@@ -5096,9 +5314,9 @@ def check_entry_points(tuned, kernels, card) -> dict:
 
 def reset_counters(kernels) -> None:
     for fn in kernels:
-        fn.launches = 0
-        if hasattr(fn, "bf16_launches"):
-            fn.bf16_launches = 0
+        for c in COUNTERS:
+            if hasattr(fn, c):
+                setattr(fn, c, 0)
 
 
 def main() -> int:
@@ -5330,7 +5548,8 @@ def main() -> int:
             preset_launches = check_presets(cfg, dec_recs[-1], kernels, card, artifacts)
 
             # ---- phase 13: the reference's width flags: LAS-4-1024 and an odd width through every kernel
-            width_launches = check_widths(kernels, card, artifacts)
+            widths = check_widths(kernels, card, artifacts)
+            width_launches = widths["launches"]
         finally:
             artifacts.close()
 
@@ -5349,6 +5568,25 @@ def main() -> int:
 
     emit({"phase": "end"})
     lstm_cu = "phones_las_torch/csrc/lstm.cu"
+    # each wide route a kernel of its own in the line: the listener's rings
+    # (U = 1024 at T = 999 as 13a times them) and the decoder's streamed and
+    # tiled layouts (13a, 13d), with the launches phase 13's model runs
+    # (13b–13d: W1024, W2048, the 690 s call) made through them
+    wrec, wroutes = widths["records"], widths["routes"]
+    route_entries = []
+    for prec, ring, label in (("highest", "ring", "float32 ring"), ("bf16", "bf16_ring", "bf16 ring")):
+        timed = wrec["ring"][prec]
+        for name, line in (("bidir_recurrence", 269), ("recurrence_residual", 485), ("recurrence_bwd", 536)):
+            route_entries.append(kernel_entry(f"{name} ({label}, U = 1024)", lstm_cu,
+                                              f"phones_las_tpu/ops/lstm.py:{line}", timed[name],
+                                              wroutes[f"{name} {ring}"]))
+    for layout in ("streamed", "tiled"):
+        route_entries.append(kernel_entry(f"greedy_decode_fused ({layout} layout)", "phones_las_torch/csrc/greedy.cu",
+                                          "phones_las_tpu/decode/pallas_greedy.py:134", wrec[layout],
+                                          wroutes[f"greedy_decode_fused {layout}"]))
+    idle = [e["name"] for e in route_entries if e["launches"] < 1]
+    if idle:
+        fail(f"phase 13's model runs never launched these routes: {idle}")
     # launches: the main path's (phase 2 serving, 4c training; the
     # unidirectional primal runs on no model path, so the ops API's, 4d),
     # the G2P's (9b lookups, 9c training steps), phase 10's (the ranks'
@@ -5377,6 +5615,7 @@ def main() -> int:
                      total("recurrence_residual")),
         kernel_entry("recurrence_bwd", lstm_cu, "phones_las_tpu/ops/lstm.py:536", train_recs[0][2],
                      total("recurrence_bwd")),
+        *route_entries,
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {

@@ -69,7 +69,7 @@
 //     predicate); a finished row in a live group writes <eos>, skips its
 //     attention, and its other results are discarded. Rows past B in the
 //     last group start finished.
-//   - Two layouts (DecLayout). The held one keeps in every block what every
+//   - Three layouts (DecLayout). The held one keeps in every block what every
 //     block reads whole: h of each cell (double-buffered), the attention
 //     vector and the context, each [8][width], and its out_w slice. Past
 //     what a block holds (the LAS-4-1024 speller, U = A = 1024, M = 2048:
@@ -81,11 +81,23 @@
 //     held only for the rows a block attends for, and the logits read out_w
 //     from L2, a lane a column. Both layouts run the same stages in the same
 //     order with the same sums; the held one where it fits
-//     (decode/fused_greedy.py::decoder_plan picks). The widths: U, A, AL up
-//     to 1024, M up to 2048, V up to 120 and T_enc up to 2000 (every
-//     combination, one or two cells) fit the streamed layout at C = 8;
-//     the wrapper pads any width to a multiple of the cut (E, U, A, M of 4,
-//     AL of 8, U, A and AL of 4 C) with zeros.
+//     (decode/fused_greedy.py::decoder_plan picks). Both still hold a row's
+//     scores and mask ([T] each) and a dense stage's whole input row, so
+//     past about T_enc = 17,000 (the 256-unit speller) or U + M = 5,000
+//     neither fits. The tiled layout, last, holds nothing that grows with
+//     T: each row's scores live in a workspace in global memory (ws), which
+//     the block reads back for the max and the sum (each thread its own
+//     positions, as before) and streams through a tile of TTILE weights for
+//     the context; a dense stage's input, and the logits' rows, come KTILE
+//     floats a row at a time, a tile holding the next float4s of every k
+//     part, the sums carried from tile to tile in the partial-sum buffer.
+//     Every reduction keeps the streamed layout's order, so the tiled
+//     layout's tokens are the streamed one's. The widths: U, A, AL up to
+//     1024, M up to 2048, V up to 120 and T_enc up to 2000 (every
+//     combination, one or two cells) fit the streamed layout at C = 8, U =
+//     A = AL = 2048 with M = 4096 the tiled one, at every T_enc; the
+//     wrapper pads any width to a multiple of the cut (E, U, A, M of 4, AL
+//     of 8, U, A and AL of 4 C) with zeros.
 // With the weights, ~94 MB of L2 traffic a step at B = 64 is this design's
 // own floor: ~17 us a step at ~5.5 TB/s, 3.4 ms for 200 steps. At the
 // LAS-4-1024 widths the speller's weights are about 77 MB, more than the
@@ -95,6 +107,9 @@
 // B = 64 (5-8 ms for 200 steps against 40.9 ms), the scores' 64 k tanhf a
 // row (~9 us on one SM) and the L2 streams the largest parts, and B = 8
 // (one cluster) no slower than B = 64.
+//
+// Every offset into keys, memory, the mask, the workspace and the tokens is
+// taken in 64 bits: B T M passes 2^32 at B = 64, T = 17,100, M = 4096.
 //
 // Precision: float32 throughout, as the reference kernel's HIGHEST dots.
 // Sums run in another order than the plain version's (k split in parts).
@@ -139,17 +154,31 @@ struct DecArgs {
   const float* out_w;   // [AL, V]
   const float* out_b;   // [V]
   const float* const* cells;  // per cell: [C][din + U][4U/C] (wx over wh), [C][4U/C] bias
-  float* act;  // streamed layout: a group's activations in global memory (act_floats each)
+  float* act;  // streamed and tiled layouts: a group's activations in global memory (act_floats each)
+  float* ws;   // tiled layout: each row's scores, then exp(score - max) * mask [rows of the groups][T]
   int B, T, A, M, V, E, AL, U, n_cells, bos, eos, steps, C;
 };
+
+// The three layouts of a block's shared memory, in the order the plan tries
+// them (decode/fused_greedy.py::decoder_plan).
+constexpr int LAYOUT_HELD = 0;      // every activation a block reads whole in its own shared memory
+constexpr int LAYOUT_STREAMED = 1;  // those activations and out_w in global memory (L2)
+constexpr int LAYOUT_TILED = 2;     // as streamed, and nothing that grows with T, or with K past KTILE
+constexpr int KTILE = 2048;  // tiled: floats of a row of the stage (a tile of a dense stage's k)
+constexpr int TTILE = 2048;  // tiled: encoder positions of a tile of attention weights
 
 // float offsets of a block's shared memory; decode/fused_greedy.py::
 // decoder_smem_bytes mirrors it. The streamed layout (STREAMED) holds none
 // of the activations that every block reads whole (h of every cell, the
 // attention vector, the context) and no out_w slice: they lie in global
 // memory (act, out_w), and a stage copies what it multiplies into `stage`.
+// The tiled layout (TILED) also keeps a row's scores in global memory (ws)
+// and stages a dense stage's input KTILE floats a row at a time and the
+// attention weights TTILE positions at a time, so that its size is bounded
+// whatever T, and whatever the widths up to KTILE.
 struct DecLayout {
   int Kmax;  // widest staged input: max(E + AL + U, 2U, U + M)
+  int kt;    // floats of a row of the stage: Kmax, or (tiled) at most KTILE
   int Vc;    // vocabulary columns a block owns: ceil(V / C) rounded up to 4
   int ldo;   // row stride of the transposed out_w slice: AL + 4, so that the
              // rows of neighbouring vocabulary entries start in different banks
@@ -161,14 +190,16 @@ __host__ __device__ inline size_t pad4(size_t n) { return (n + 3) / 4 * 4; }
 __host__ __device__ inline size_t smax(size_t x, size_t y) { return x > y ? x : y; }
 
 __host__ __device__ inline DecLayout dec_layout(int T, int A, int M, int V, int E, int AL,
-                                                int U, int n_cells, int C, bool streamed) {
+                                                int U, int n_cells, int C, int layout) {
   DecLayout L;
   L.Kmax = (int)smax(smax(E + AL + U, 2 * U), U + M);
+  L.kt = layout == LAYOUT_TILED && L.Kmax > KTILE ? KTILE : L.Kmax;
   L.Vc = (int)pad4((V + C - 1) / C);
-  const size_t qrows = streamed ? (DR + C - 1) / C : DR;  // all 8, or the rows the block attends for
-  const size_t held = streamed ? 0 : 1;  // the activations every block reads whole
+  const size_t qrows = layout != LAYOUT_HELD ? (DR + C - 1) / C : DR;  // all 8, or the rows the block attends for
+  const size_t held = layout == LAYOUT_HELD ? 1 : 0;  // the activations every block reads whole
+  const size_t tiled = layout == LAYOUT_TILED ? 1 : 0;
   size_t off = 0;
-  L.stage = off, off += (size_t)DR * L.Kmax;
+  L.stage = off, off += (size_t)DR * L.kt;
   L.hbuf = off, off += held * n_cells * 2 * DR * U;
   L.cst = off, off += (size_t)n_cells * DR * (U / C);
   L.attn = off, off += held * DR * AL;
@@ -185,8 +216,8 @@ __host__ __device__ inline DecLayout dec_layout(int T, int A, int M, int V, int 
   L.outw = off, off += held * L.Vc * L.ldo;
   L.outb = off, off += L.Vc;
   L.bias = off, off += (size_t)n_cells * 4 * (U / C);
-  L.sc = off, off += pad4(T);
-  L.mk = off, off += pad4(T);
+  L.sc = off, off += tiled ? TTILE : pad4(T);  // a row's scores, or (tiled) a tile of its weights
+  L.mk = off, off += tiled ? 0 : pad4(T);
   L.v = off, off += pad4(A);
   L.lg = off, off += (size_t)DR * L.Vc;
   // each block's (maximum, index) of each row, written by that block:
@@ -245,6 +276,79 @@ __device__ __forceinline__ int dense(const float* __restrict__ w, int K, int nco
     for (int r = 0; r < DR; ++r)
       *reinterpret_cast<float4*>(part + ((size_t)(ks * DR + r) * ncols + cgi * 4)) =
           make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
+  return KS;
+}
+
+// The tiled layout's dense stage: the same items, k parts and k order as
+// dense(), with the input rows [8][K] read through src(r, k4) (a float4 of
+// global memory) and staged a tile at a time: tile j holds, of every k
+// part, its float4s [j S4, (j + 1) S4), so every item works in every tile
+// (a tile of consecutive k would leave most parts idle); an item's sums are
+// carried from tile to tile in `part` (stored and reloaded exactly). One
+// tile where the rows fit kt (the streamed layout's sums, bit for bit).
+template <class Src>
+__device__ __forceinline__ int dense_tiled(const float* __restrict__ w, int K, int ncols, Src src,
+                                           int kt, float* __restrict__ stage,
+                                           float* __restrict__ part) {
+  const int ncg = ncols / 4, k4n = K / 4;
+  const int KS = max(1, min(THREADS / ncg, k4n));
+  const int kper = (k4n + KS - 1) / KS;
+  const int S4 = max(1, min(kper, kt / 4 / KS));  // float4s of a part in a tile
+  const int ld = 4 * KS * S4, ntiles = (kper + S4 - 1) / S4;
+  for (int j = 0; j < ntiles; ++j) {
+    __syncthreads();  // the last tile has been read
+    for (int i = threadIdx.x; i < DR * KS * S4; i += THREADS) {
+      const int r = i / (KS * S4), rem = i - r * KS * S4, ks = rem / S4, q = rem - ks * S4;
+      const int k4 = ks * kper + j * S4 + q;
+      *reinterpret_cast<float4*>(stage + r * ld + 4 * rem) =
+          j * S4 + q < kper && k4 < k4n ? src(r, k4) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    __syncthreads();
+    for (int item = threadIdx.x; item < ncg * KS; item += THREADS) {
+      const int cgi = item % ncg, ks = item / ncg;
+      const int kb = ks * kper + j * S4, ke = min(min(k4n, (ks + 1) * kper), kb + S4);
+      float* pp = part + (size_t)ks * DR * ncols + cgi * 4;
+      float acc[DR][4];
+#pragma unroll
+      for (int r = 0; r < DR; ++r) {
+        const float4 p0 = j > 0 ? *reinterpret_cast<const float4*>(pp + (size_t)r * ncols)
+                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        acc[r][0] = p0.x, acc[r][1] = p0.y, acc[r][2] = p0.z, acc[r][3] = p0.w;
+      }
+      const float* wp = w + cgi * 4;
+      const float* xs = stage + 4 * ks * S4;
+#pragma unroll 2
+      for (int k4 = kb; k4 < ke; ++k4) {
+        const float4 w0 = __ldg(reinterpret_cast<const float4*>(wp + (size_t)(4 * k4) * ncols));
+        const float4 w1 = __ldg(reinterpret_cast<const float4*>(wp + (size_t)(4 * k4 + 1) * ncols));
+        const float4 w2 = __ldg(reinterpret_cast<const float4*>(wp + (size_t)(4 * k4 + 2) * ncols));
+        const float4 w3 = __ldg(reinterpret_cast<const float4*>(wp + (size_t)(4 * k4 + 3) * ncols));
+#pragma unroll
+        for (int r = 0; r < DR; ++r) {
+          const float4 x = *reinterpret_cast<const float4*>(xs + r * ld + 4 * (k4 - kb));
+          acc[r][0] = fmaf(x.x, w0.x, acc[r][0]);
+          acc[r][1] = fmaf(x.x, w0.y, acc[r][1]);
+          acc[r][2] = fmaf(x.x, w0.z, acc[r][2]);
+          acc[r][3] = fmaf(x.x, w0.w, acc[r][3]);
+          acc[r][0] = fmaf(x.y, w1.x, acc[r][0]);
+          acc[r][1] = fmaf(x.y, w1.y, acc[r][1]);
+          acc[r][2] = fmaf(x.y, w1.z, acc[r][2]);
+          acc[r][3] = fmaf(x.y, w1.w, acc[r][3]);
+          acc[r][0] = fmaf(x.z, w2.x, acc[r][0]);
+          acc[r][1] = fmaf(x.z, w2.y, acc[r][1]);
+          acc[r][2] = fmaf(x.z, w2.z, acc[r][2]);
+          acc[r][3] = fmaf(x.z, w2.w, acc[r][3]);
+          acc[r][0] = fmaf(x.w, w3.x, acc[r][0]);
+          acc[r][1] = fmaf(x.w, w3.y, acc[r][1]);
+          acc[r][2] = fmaf(x.w, w3.z, acc[r][2]);
+          acc[r][3] = fmaf(x.w, w3.w, acc[r][3]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < DR; ++r)
+        *reinterpret_cast<float4*>(pp + (size_t)r * ncols) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
   }
   return KS;
 }
@@ -319,9 +423,10 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
   return MAX ? warp_max(v) : warp_sum(v);
 }
 
-template <bool STREAMED>
+template <int LAYOUT>
 __global__ void __launch_bounds__(THREADS, 1)
 greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clocks) {
+  constexpr bool STREAMED = LAYOUT != LAYOUT_HELD, TILED = LAYOUT == LAYOUT_TILED;
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = a.C, rank = (int)cluster.block_rank();
@@ -329,9 +434,9 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int T = a.T, A = a.A, M = a.M, V = a.V, E = a.E, AL = a.AL, U = a.U;
   const int Us = U / C, Nc = 4 * Us, Ac = A / C, ALc = AL / C;
-  const DecLayout L = dec_layout(T, A, M, V, E, AL, U, a.n_cells, C, STREAMED);
+  const DecLayout L = dec_layout(T, A, M, V, E, AL, U, a.n_cells, C, LAYOUT);
   const int Vc = L.Vc, v0 = rank * Vc, nv = max(0, min(V - v0, Vc));  // this block's vocabulary columns
-  float* stage_s = smem + L.stage;  // [8][Kmax] a dense stage's input
+  float* stage_s = smem + L.stage;  // [8][kt] a dense stage's input (tiled: a tile of it)
   // the activations every block reads whole: in its own shared memory, or
   // (streamed) the group's in global memory, read through load_row_cg
   float* act = STREAMED ? a.act + (size_t)(blockIdx.x / C) * act_floats(a.n_cells, U, AL, M) : nullptr;
@@ -344,8 +449,8 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
   float* outw_s = smem + L.outw;    // [Vc][ldo] columns v0.. of out_w, transposed (held layout)
   float* outb_s = smem + L.outb;    // [Vc]
   float* bias_s = smem + L.bias;    // [n_cells][4 Us] this block's slices
-  float* sc_s = smem + L.sc;        // [T] scores, then weights
-  float* mk_s = smem + L.mk;        // [T]
+  float* sc_s = smem + L.sc;        // [T] scores, then weights; tiled: [TTILE] a tile of weights
+  float* mk_s = smem + L.mk;        // [T] (not tiled: the mask is read from global memory)
   float* v_s = smem + L.v;          // [A]
   float* lg_s = smem + L.lg;        // [8][Vc]
   float* pmax_s = smem + L.pair;    // [8 blocks][8] each block's maximum of each row
@@ -418,22 +523,40 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
     for (int l = 0; l < a.n_cells; ++l) {
       const int din = l == 0 ? E + AL : U, K = din + U;
       float* hl = hbuf + (size_t)l * 2 * DR * U;
-      // [input; h of the last step], a row a pair of warps
-      for (int r = warp >> 1; r < DR; r += NWARPS / 2) {
-        const int l0 = lane + 32 * (warp & 1);
-        float* dst = stage_s + r * K;
-        if (l > 0) {
-          fill(dst, hl - 2 * DR * U + (nxt * DR + r) * U, U, l0);
-        } else {
-          load_row(dst, a.emb + (size_t)tok_s[r] * E, E, l0);
-          fill(dst + E, attn + r * AL, AL, l0);
+      const float* wl = a.cells[2 * l] + (size_t)rank * K * Nc;
+      int KS;
+      if (TILED) {
+        // [input; h of the last step] from global memory, k4 a float4 of the row
+        auto src = [&](int r, int k4) {
+          const int k = 4 * k4;
+          const float* p = l > 0 ? (k < U ? hl - 2 * DR * U + (nxt * DR + r) * U + k
+                                          : hl + (cur * DR + r) * U + k - U)
+                                 : (k < E ? nullptr
+                                          : k < E + AL ? attn + r * AL + k - E
+                                                       : hl + (cur * DR + r) * U + k - E - AL);
+          return p ? __ldcg(reinterpret_cast<const float4*>(p))
+                   : __ldg(reinterpret_cast<const float4*>(a.emb + (size_t)tok_s[r] * E + k));
+        };
+        lap(0);
+        KS = dense_tiled(wl, K, Nc, src, L.kt, stage_s, part_s);
+      } else {
+        // [input; h of the last step], a row a pair of warps
+        for (int r = warp >> 1; r < DR; r += NWARPS / 2) {
+          const int l0 = lane + 32 * (warp & 1);
+          float* dst = stage_s + r * K;
+          if (l > 0) {
+            fill(dst, hl - 2 * DR * U + (nxt * DR + r) * U, U, l0);
+          } else {
+            load_row(dst, a.emb + (size_t)tok_s[r] * E, E, l0);
+            fill(dst + E, attn + r * AL, AL, l0);
+          }
+          fill(dst + din, hl + (cur * DR + r) * U, U, l0);
         }
-        fill(dst + din, hl + (cur * DR + r) * U, U, l0);
+        __syncthreads();
+        lap(0);
+        KS = dense(wl, K, Nc, stage_s, K, part_s);
       }
-      __syncthreads();
-      lap(0);
       const float* bias = bias_s + l * Nc;
-      const int KS = dense(a.cells[2 * l] + (size_t)rank * K * Nc, K, Nc, stage_s, K, part_s);
       __syncthreads();
       lap(1);
       float* cl = c_s + (size_t)l * DR * Us;
@@ -459,12 +582,19 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
     // query: block `rank` owns A/C columns; row r's go to the block that attends for it
     {
       const float* hin = hout;
-      if (STREAMED) {
-        for (int r = warp >> 1; r < DR; r += NWARPS / 2) load_row_cg(stage_s + r * U, hout + r * U, U, lane + 32 * (warp & 1));
-        __syncthreads();
-        hin = stage_s;
+      const float* wq = a.wq + (size_t)rank * U * Ac;
+      int KS;
+      if (TILED) {
+        auto src = [&](int r, int k4) { return __ldcg(reinterpret_cast<const float4*>(hout + r * U) + k4); };
+        KS = dense_tiled(wq, U, Ac, src, L.kt, stage_s, part_s);
+      } else {
+        if (STREAMED) {
+          for (int r = warp >> 1; r < DR; r += NWARPS / 2) load_row_cg(stage_s + r * U, hout + r * U, U, lane + 32 * (warp & 1));
+          __syncthreads();
+          hin = stage_s;
+        }
+        KS = dense(wq, U, Ac, hin, U, part_s);
       }
-      const int KS = dense(a.wq + (size_t)rank * U * Ac, U, Ac, hin, U, part_s);
       __syncthreads();
       lap(4);
       for (int i = tid; i < DR * Ac; i += THREADS) {
@@ -482,8 +612,12 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
       const int tl = tlen_s[r];
       const float* Kr = a.keys + (size_t)(row0 + r) * T * A;
       const float* Mr = a.mem + (size_t)(row0 + r) * T * M;
-      for (int t = tid; t < tl; t += THREADS) mk_s[t] = a.mask[(size_t)(row0 + r) * T + t];
-      __syncthreads();
+      const float* mkr = a.mask + (size_t)(row0 + r) * T;
+      float* scr = TILED ? a.ws + (size_t)(row0 + r) * T : sc_s;  // the row's scores
+      if (!TILED) {
+        for (int t = tid; t < tl; t += THREADS) mk_s[t] = mkr[t];
+        __syncthreads();
+      }
       // a warp takes SCORE_T positions at a time, so that many key loads are
       // in flight before the first tanhf
       for (int t0 = warp * SCORE_T; t0 < tl; t0 += NWARPS * SCORE_T) {
@@ -509,42 +643,63 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
 #pragma unroll
         for (int j = 0; j < SCORE_T; ++j) {
           const float sum = warp_sum(acc[j]);
-          if (lane == 0 && t0 + j < tl) sc_s[t0 + j] = sum + (1.0f - mk_s[t0 + j]) * NEG;
+          if (lane == 0 && t0 + j < tl) scr[t0 + j] = sum + (1.0f - (TILED ? mkr : mk_s)[t0 + j]) * NEG;
         }
       }
       __syncthreads();
       lap(6);
       // exp(s - max) * mask / max(sum, 1e-30); a row with no valid position has tl = 0
+      // (tiled: each thread reads back only the scores it wrote, or that the
+      // block barrier above has made visible; exp(s - max) * mask stays there)
       float mx = -CUDART_INF_F;
-      for (int t = tid; t < tl; t += THREADS) mx = fmaxf(mx, sc_s[t]);
+      for (int t = tid; t < tl; t += THREADS) mx = fmaxf(mx, scr[t]);
       mx = block_reduce<true>(mx, red_s);
       float sum = 0.0f;
       for (int t = tid; t < tl; t += THREADS) {
-        const float e = expf(sc_s[t] - mx) * mk_s[t];
-        sc_s[t] = e;
+        const float e = expf(scr[t] - mx) * (TILED ? mkr : mk_s)[t];
+        scr[t] = e;
         sum += e;
       }
       sum = fmaxf(block_reduce<false>(sum, red_s), 1e-30f);
-      for (int t = tid; t < tl; t += THREADS) sc_s[t] = sc_s[t] / sum;
+      if (!TILED)
+        for (int t = tid; t < tl; t += THREADS) sc_s[t] = sc_s[t] / sum;
       __syncthreads();
       lap(7);
-      // context: an item = (part of T, 4 columns of M)
+      // context: an item = (part of T, 4 columns of M); tiled, the weights
+      // e / sum come in tiles that hold, of every part of T, its positions
+      // [j St, (j + 1) St), each item's sums carried in part_s from tile to
+      // tile, in the same order
       const int mq = M / 4;
       const int TS = max(1, THREADS / mq), tper = (tl + TS - 1) / TS;
-      for (int item = tid; item < mq * TS; item += THREADS) {
-        const int m4 = item % mq, ts = item / mq;
-        const int tb = ts * tper, te = min(tl, tb + tper);
-        float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll 8
-        for (int t = tb; t < te; ++t) {
-          const float p = sc_s[t];
-          const float4 mv = __ldg(reinterpret_cast<const float4*>(Mr + (size_t)t * M) + m4);
-          acc.x = fmaf(p, mv.x, acc.x);
-          acc.y = fmaf(p, mv.y, acc.y);
-          acc.z = fmaf(p, mv.z, acc.z);
-          acc.w = fmaf(p, mv.w, acc.w);
+      const int St = TILED ? max(1, min(tper, TTILE / TS)) : max(1, tper);
+      const int ntiles = TILED ? max(1, (tper + St - 1) / St) : 1;
+      for (int j = 0; j < ntiles; ++j) {
+        const float* wt = sc_s;  // the weights of positions tb.. at wt[tb - base]
+        if (TILED) {
+          __syncthreads();  // the last tile has been read
+          for (int i = tid; i < TS * St; i += THREADS) {
+            const int ts = i / St, q = i - ts * St, t = ts * tper + j * St + q;
+            sc_s[i] = j * St + q < tper && t < tl ? scr[t] / sum : 0.0f;
+          }
+          __syncthreads();
         }
-        *reinterpret_cast<float4*>(part_s + (size_t)ts * M + 4 * m4) = acc;
+        for (int item = tid; item < mq * TS; item += THREADS) {
+          const int m4 = item % mq, ts = item / mq;
+          const int tb = ts * tper + j * St, te = min(min(tl, (ts + 1) * tper), tb + St);
+          float* pp = part_s + (size_t)ts * M + 4 * m4;
+          float4 acc = TILED && j > 0 ? *reinterpret_cast<const float4*>(pp) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          const int at = TILED ? ts * St - tb : 0;  // position t's weight at wt[t + at]
+#pragma unroll 8
+          for (int t = tb; t < te; ++t) {
+            const float p = wt[t + at];
+            const float4 mv = __ldg(reinterpret_cast<const float4*>(Mr + (size_t)t * M) + m4);
+            acc.x = fmaf(p, mv.x, acc.x);
+            acc.y = fmaf(p, mv.y, acc.y);
+            acc.z = fmaf(p, mv.z, acc.z);
+            acc.w = fmaf(p, mv.w, acc.w);
+          }
+          *reinterpret_cast<float4*>(pp) = acc;
+        }
       }
       __syncthreads();
       lap(8);
@@ -568,14 +723,25 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
     // next step's first cell and the logits read it
     {
       const int K = U + M;
-      for (int r = warp >> 1; r < DR; r += NWARPS / 2) {
-        const int l0 = lane + 32 * (warp & 1);
-        fill(stage_s + r * K, hout + r * U, U, l0);
-        fill(stage_s + r * K + U, ctx + r * M, M, l0);
+      const float* wa = a.attn_w + (size_t)rank * K * ALc;
+      int KS;
+      if (TILED) {
+        auto src = [&](int r, int k4) {
+          const int k = 4 * k4;
+          return __ldcg(reinterpret_cast<const float4*>(k < U ? hout + r * U + k : ctx + r * M + k - U));
+        };
+        lap(10);
+        KS = dense_tiled(wa, K, ALc, src, L.kt, stage_s, part_s);
+      } else {
+        for (int r = warp >> 1; r < DR; r += NWARPS / 2) {
+          const int l0 = lane + 32 * (warp & 1);
+          fill(stage_s + r * K, hout + r * U, U, l0);
+          fill(stage_s + r * K + U, ctx + r * M, M, l0);
+        }
+        __syncthreads();
+        lap(10);
+        KS = dense(wa, K, ALc, stage_s, K, part_s);
       }
-      __syncthreads();
-      lap(10);
-      const int KS = dense(a.attn_w + (size_t)rank * K * ALc, K, ALc, stage_s, K, part_s);
       __syncthreads();
       lap(11);
       for (int i = tid; i < DR * ALc; i += THREADS) {
@@ -593,34 +759,55 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
     // are staged and the columns of out_w read from L2, a lane a column
     {
       const float* xs = attn;
-      if (STREAMED) {
+      int ldx = AL;
+      const int kq = AL / 4, kper = (kq + NWARPS - 1) / NWARPS;  // in float4s
+      // tiled: the rows come in tiles that hold, of every warp's part of k,
+      // its float4s [j S4, (j + 1) S4), the sums carried in part_s
+      const int S4 = TILED ? max(1, min(kper, L.kt / 4 / NWARPS)) : max(1, kper);
+      const int ntiles = TILED ? (kper + S4 - 1) / S4 : 1;
+      if (STREAMED && !TILED) {
         for (int r = warp >> 1; r < DR; r += NWARPS / 2) load_row_cg(stage_s + r * AL, attn + r * AL, AL, lane + 32 * (warp & 1));
         __syncthreads();
         xs = stage_s;
       }
-      const int kq = AL / 4, kper = (kq + NWARPS - 1) / NWARPS;  // in float4s
-      const int kb = warp * kper, ke = min(kq, kb + kper);
-      for (int o = lane; o < nv; o += 32) {
-        const float4* w = reinterpret_cast<const float4*>(outw_s + o * L.ldo);
-        const float* wg = a.out_w + v0 + o;  // streamed: column v0 + o of out_w [AL, V]
-        float acc[DR];
-#pragma unroll
-        for (int r = 0; r < DR; ++r) acc[r] = 0.0f;
-        for (int k = kb; k < ke; ++k) {
-          const float4 wv = STREAMED ? make_float4(__ldg(wg + (size_t)(4 * k) * V), __ldg(wg + (size_t)(4 * k + 1) * V),
-                                                   __ldg(wg + (size_t)(4 * k + 2) * V), __ldg(wg + (size_t)(4 * k + 3) * V))
-                                     : w[k];
-#pragma unroll
-          for (int r = 0; r < DR; ++r) {
-            const float4 x = reinterpret_cast<const float4*>(xs + r * AL)[k];
-            acc[r] = fmaf(x.x, wv.x, acc[r]);
-            acc[r] = fmaf(x.y, wv.y, acc[r]);
-            acc[r] = fmaf(x.z, wv.z, acc[r]);
-            acc[r] = fmaf(x.w, wv.w, acc[r]);
+      for (int j = 0; j < ntiles; ++j) {
+        if (TILED) {
+          ldx = 4 * NWARPS * S4;
+          __syncthreads();  // the last tile has been read
+          for (int i = tid; i < DR * NWARPS * S4; i += THREADS) {
+            const int r = i / (NWARPS * S4), rem = i - r * NWARPS * S4, ks = rem / S4, q = rem - ks * S4;
+            const int k4 = ks * kper + j * S4 + q;
+            *reinterpret_cast<float4*>(stage_s + r * ldx + 4 * rem) =
+                j * S4 + q < kper && k4 < kq ? __ldcg(reinterpret_cast<const float4*>(attn + r * AL) + k4)
+                                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
           }
+          __syncthreads();
+          xs = stage_s + 4 * warp * S4;
         }
+        const int kb = warp * kper + j * S4, ke = min(min(kq, (warp + 1) * kper), kb + S4);
+        const int at = TILED ? -kb : 0;  // the float4 k of a row at xs[r * ldx + 4 (k + at)]
+        for (int o = lane; o < nv; o += 32) {
+          const float4* w = reinterpret_cast<const float4*>(outw_s + o * L.ldo);
+          const float* wg = a.out_w + v0 + o;  // streamed: column v0 + o of out_w [AL, V]
+          float acc[DR];
 #pragma unroll
-        for (int r = 0; r < DR; ++r) part_s[(warp * DR + r) * Vc + o] = acc[r];
+          for (int r = 0; r < DR; ++r) acc[r] = TILED && j > 0 ? part_s[(warp * DR + r) * Vc + o] : 0.0f;
+          for (int k = kb; k < ke; ++k) {
+            const float4 wv = STREAMED ? make_float4(__ldg(wg + (size_t)(4 * k) * V), __ldg(wg + (size_t)(4 * k + 1) * V),
+                                                     __ldg(wg + (size_t)(4 * k + 2) * V), __ldg(wg + (size_t)(4 * k + 3) * V))
+                                       : w[k];
+#pragma unroll
+            for (int r = 0; r < DR; ++r) {
+              const float4 x = reinterpret_cast<const float4*>(xs + r * ldx)[k + at];
+              acc[r] = fmaf(x.x, wv.x, acc[r]);
+              acc[r] = fmaf(x.y, wv.y, acc[r]);
+              acc[r] = fmaf(x.z, wv.z, acc[r]);
+              acc[r] = fmaf(x.w, wv.w, acc[r]);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < DR; ++r) part_s[(warp * DR + r) * Vc + o] = acc[r];
+        }
       }
       __syncthreads();
       for (int i = tid; i < DR * nv; i += THREADS) {
@@ -681,23 +868,25 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
         tokens[(size_t)(row0 + r) * a.steps + i] = a.eos;
 }
 
-bool bad_shape(const DecArgs& a, bool streamed) {
+bool bad_shape(const DecArgs& a, int layout) {
   const int C = a.C;
   if (a.B <= 0 || a.T <= 0 || a.n_cells <= 0 || a.steps < 0 || a.V <= 0) return true;
   if (C < 1 || C > 8) return true;
   // 16-byte loads of every input row and weight slice
   if (a.E % 4 || a.AL % 8 || a.U % 4 || a.A % 4 || a.M % 4) return true;
   if (a.U % C || a.A % (4 * C) || a.AL % (4 * C)) return true;
-  if (streamed && a.act == nullptr) return true;
-  const DecLayout L = dec_layout(a.T, a.A, a.M, a.V, a.E, a.AL, a.U, a.n_cells, C, streamed);
+  if (layout < LAYOUT_HELD || layout > LAYOUT_TILED) return true;
+  if (layout != LAYOUT_HELD && a.act == nullptr) return true;
+  if (layout == LAYOUT_TILED && a.ws == nullptr) return true;
+  const DecLayout L = dec_layout(a.T, a.A, a.M, a.V, a.E, a.AL, a.U, a.n_cells, C, layout);
   return L.total * sizeof(float) > SMEM_MAX;
 }
 
-template <bool STREAMED>
+template <int LAYOUT>
 cudaError_t prepare(const DecArgs& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  const DecLayout L = dec_layout(a.T, a.A, a.M, a.V, a.E, a.AL, a.U, a.n_cells, a.C, STREAMED);
+  const DecLayout L = dec_layout(a.T, a.A, a.M, a.V, a.E, a.AL, a.U, a.n_cells, a.C, LAYOUT);
   const size_t smem = L.total * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(greedy_kernel<STREAMED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t e = cudaFuncSetAttribute(greedy_kernel<LAYOUT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -712,24 +901,24 @@ cudaError_t prepare(const DecArgs& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribu
   return cudaSuccess;
 }
 
-template <bool STREAMED>
+template <int LAYOUT>
 int launch(const DecArgs& a, int* tokens, int* info, long long* clocks, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cudaError_t e = prepare<STREAMED>(a, &cfg, &attr);
+  cudaError_t e = prepare<LAYOUT>(a, &cfg, &attr);
   if (e != cudaSuccess) return static_cast<int>(e);
   cfg.stream = stream;
   if (info) {
-    e = cudaOccupancyMaxActiveClusters(&info[0], greedy_kernel<STREAMED>, &cfg);
+    e = cudaOccupancyMaxActiveClusters(&info[0], greedy_kernel<LAYOUT>, &cfg);
     if (e != cudaSuccess) return static_cast<int>(e);
     cudaFuncAttributes fa;
-    e = cudaFuncGetAttributes(&fa, greedy_kernel<STREAMED>);
+    e = cudaFuncGetAttributes(&fa, greedy_kernel<LAYOUT>);
     if (e != cudaSuccess) return static_cast<int>(e);
     info[1] = (int)cfg.dynamicSmemBytes;
     info[2] = fa.numRegs;
     info[3] = (int)fa.sharedSizeBytes;
   }
-  e = cudaLaunchKernelEx(&cfg, greedy_kernel<STREAMED>, a, tokens, clocks);
+  e = cudaLaunchKernelEx(&cfg, greedy_kernel<LAYOUT>, a, tokens, clocks);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -737,9 +926,12 @@ int launch(const DecArgs& a, int* tokens, int* info, long long* clocks, cudaStre
 
 // The whole greedy decode -> tokens [B, steps]. wq, attn_w and the cells'
 // weights are regrouped into `cluster` column slices (see DecArgs);
-// `streamed` picks the layout that keeps the activations every block reads
-// whole in `act` (ceil(B / 8) groups of act_floats, zeroed by the caller)
-// and out_w in global memory (null `act` otherwise); info, if not null,
+// `layout` picks the held (0), streamed (1) or tiled (2) layout: the latter
+// two keep the activations every block reads whole in `act` (ceil(B / 8)
+// groups of act_floats, zeroed by the caller) and out_w in global memory
+// (null `act` otherwise), the tiled one also each row's scores in `ws`
+// (ceil(B / 8) * 8 rows of T floats, zeroed by the caller; null otherwise);
+// info, if not null,
 // receives what the card gives this launch: info[0] = clusters it can run at
 // once (cudaOccupancyMaxActiveClusters), info[1] = dynamic shared memory
 // bytes a block (dec_layout's, all the shared memory the kernel uses),
@@ -752,13 +944,15 @@ extern "C" int plt_greedy_decode(const float* keys, const float* mem, const floa
                                  int E, const float* wq, const float* v,
                                  const float* attn_w, int AL, const float* out_w,
                                  const float* out_b, const void* cell_ptrs, int n_cells,
-                                 int U, int bos, int eos, int steps, int cluster, int streamed,
-                                 float* act, int* tokens, int* info, long long* clocks,
+                                 int U, int bos, int eos, int steps, int cluster, int layout,
+                                 float* act, float* ws, int* tokens, int* info, long long* clocks,
                                  void* stream) {
   DecArgs a{keys, mem, mask, emb, wq, v, attn_w, out_w, out_b,
-            static_cast<const float* const*>(cell_ptrs), act,
+            static_cast<const float* const*>(cell_ptrs), act, ws,
             B, T, A, M, V, E, AL, U, n_cells, bos, eos, steps, cluster};
-  if (bad_shape(a, streamed != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(a, layout)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return streamed ? launch<true>(a, tokens, info, clocks, s) : launch<false>(a, tokens, info, clocks, s);
+  if (layout == LAYOUT_TILED) return launch<LAYOUT_TILED>(a, tokens, info, clocks, s);
+  return layout == LAYOUT_STREAMED ? launch<LAYOUT_STREAMED>(a, tokens, info, clocks, s)
+                                   : launch<LAYOUT_HELD>(a, tokens, info, clocks, s);
 }

@@ -79,11 +79,26 @@
 // all units and reads all of Wh once a step however its rows are cut, and
 // what bounds the ring at U = 1024 is one SM's intake from L2 (about 21
 // bytes a cycle; a block takes in its whole slice, 1 MB at C = 16, every
-// step) and the product's FMA rate, neither of which multicast moves. U is
-// a multiple of 8 up to 1024; the caller chooses the route, C, Bt, the k
-// split and whether the slice is resident from the shape, pads any other U
-// with zeros to one that a plan takes, and this file refuses what does not
-// fit.
+// step) and the product's FMA rate, neither of which multicast moves. In
+// bf16 (production mode) the template holds its slice up to U = 384 and
+// streams it by its threads' loads past that (1 MB a block a step at
+// U = 1024, C = 8, no copy in flight: about 49 us a step), and has no layout
+// at all past about U = 1280; past RING_UNITS_BF16 (ops/lstm.py) the bf16
+// ring (lstm_fwd_ring_bf16_kernel, below) takes it: the same producer and
+// slots, half the bytes a chunk, the slice stored in the tensor cores' B
+// fragment order so a lane's fragment is one 8-byte load, the consumer warps
+// running mma.sync on each chunk as it lands, n-tiles split among them. U is
+// a multiple of 8 up to MAX_UNITS = 2048; the caller chooses the route, C,
+// Bt, the k split and whether the slice is resident from the shape, pads
+// any other U with zeros to one that a plan takes (past U = 1024 only the
+// ring fits: clusters of 16 where nothing smaller does), and this file
+// refuses what does not fit.
+//
+// Prediction for the bf16 ring, made before its first timed run (PERF.md):
+// at U = 1024, T = 999, a 512 KB slice a block a step through one
+// SM's intake, 28-35 k cycles a step with the exchange: forward B = 64
+// 14-18 ms (48.77 the template), one direction 12-15 ms, residual 14-17 ms,
+// the VJP's loop 13-16 us a step.
 //
 // Prediction for the ring, made before its first run on the card (H100, T =
 // 999, float32, U = 1024): a step is 49 k FMA cycles a block against 36 k
@@ -168,8 +183,14 @@
 // from L2 at every step by the forward's two routes: the template's loads up
 // to U = 512, past it the ring (lstm_bwd_ring_kernel: the slice of Wh^T
 // through the ring, a thread's 4 units of the partial dh for every row of
-// the tile sent to their owner from its registers; at B = 32, U = 1024, 4
-// clusters of 16 at Bt = 16 where the template ran 8 of 8 at Bt = 8). The
+// the tile sent to their owner from its registers, 4 ceil(U / 1024) units
+// past U = 1024 so that 256 threads hold all U; at B = 32, U = 1024, 4
+// clusters of 16 at Bt = 16 where the template ran 8 of 8 at Bt = 8); in
+// bf16 past RING_UNITS_BF16 the bf16 ring (lstm_bwd_ring_bf16_kernel: the
+// partial dh on the tensor cores, each accumulator's two units sent to
+// their owner). Past U = 2048 the loop has no plan: a chunk of four rows of
+// Wh^T (U floats each) passes a 32 KB slot, and in bf16 a warp's n-tiles of
+// the U-wide partial dh pass the 32 its kernels are built for. The
 // caller chooses the route, C, Bt, the k split and residency from the shape
 // (ops/lstm.py::backward_plan); this file refuses what does not fit. The
 // two GEMMs take any U of the range (columns by blocks of 32 units, rows of
@@ -746,21 +767,50 @@ __host__ __device__ inline Ring ring_after(size_t used, int row_bytes, int KS, i
   return r;
 }
 
-// byte offsets of a block of the streamed forward; ops/lstm.py::forward_smem_bytes mirrors it
+// The bf16 ring: the slice of Wh (forward: [Nc][Kp], the gate columns by k;
+// the VJP: [Np][Nc], the units by the block's gate columns) is stored in the
+// order the tensor cores' B fragments read it (ops/lstm.py::ring_fragments):
+// k steps of 16, each holding the 8-column tiles of the slice, each 32 lanes
+// x 4 values, so a lane's fragment is one 8-byte load, the warp's 256
+// contiguous bytes. The tiles are cut into KS pieces (a piece = NT / KS
+// tiles, the part of the consumer warps that multiply it), and a chunk is
+// KC k steps of one piece: the pass is the KC-step groups in order, each
+// group piece after piece, and part p takes the chunks c = p (mod KS), as
+// the float32 ring's k parts do. Two slots a part where they fit, else one
+// slot more than there are parts (KC >= 1 k step either way).
+__host__ __device__ inline Ring ring_bf16(size_t used, int kstep_bytes, int KS, int K16) {
+  Ring r;
+  for (int t = 0; t < 2; ++t) {
+    r.NS = t == 0 ? 2 * KS : KS + 1;
+    size_t per = used < RING_SMEM_MAX ? (RING_SMEM_MAX - used) / r.NS : 0;
+    if (per > RING_CHUNK_MAX) per = RING_CHUNK_MAX;
+    const int kc = (int)(per / kstep_bytes);
+    r.KC = kc < K16 ? kc : K16;
+    if (r.KC >= 1) break;
+  }
+  r.nch = r.KC > 0 ? (K16 + r.KC - 1) / r.KC * KS : 0;
+  r.slot = (size_t)r.KC * kstep_bytes;
+  return r;
+}
+
+// byte offsets of a block of the streamed forward; ops/lstm.py::ring_slots mirrors it
 struct FwdRingLayout {
-  int Us, Nc, xp_tile;
+  int Us, Nc, xp_tile, Kp, ldh, MT;
   Ring r;
   size_t h, part, xp, cst, hst, ring, total;
 };
 
-__host__ __device__ inline FwdRingLayout fwd_ring_layout(int U, FwdPlan p) {
+__host__ __device__ inline FwdRingLayout fwd_ring_layout(int U, FwdPlan p, bool bf = false) {
   FwdRingLayout L;
   L.Us = U / p.C;
   L.Nc = 4 * L.Us;
+  L.Kp = (U + 15) / 16 * 16;
+  L.ldh = bf ? L.Kp + 8 : U;  // bf16 rows padded by 16 bytes: the fragments' rows in different banks
+  L.MT = (p.Bt + 15) / 16;    // bf16: 16-row tiles of the tensor cores' product
   size_t off = 0;
-  L.h = off;  // [Bt][U]: h of the step, as the product reads it
-  off += (size_t)p.Bt * U * 4;
-  L.part = off;  // [Bt][Nc]: the k parts of the product, added in order
+  L.h = off;  // h of the step, as the product reads it: [Bt][U] float32, or bf16 [16 MT][ldh]
+  off += bf ? (size_t)16 * L.MT * L.ldh * 2 : (size_t)p.Bt * U * 4;
+  L.part = off;  // [Bt][Nc]: the k parts of the product, added in order (bf16: the product)
   off += (size_t)p.Bt * L.Nc * 4;
   L.xp_tile = p.Bt * L.Nc + p.Bt;  // [Bt, Nc] gates, then [Bt] mask: one tile, a step ahead
   L.xp = off;
@@ -770,7 +820,7 @@ __host__ __device__ inline FwdRingLayout fwd_ring_layout(int U, FwdPlan p) {
   L.hst = off;
   off += (size_t)p.Bt * L.Us * 4;
   L.ring = off;  // every size above is a multiple of 32 bytes
-  L.r = ring_after(off, L.Nc * 4, p.KS, U);
+  L.r = bf ? ring_bf16(off, L.Nc / 8 / p.KS * 256, p.KS, L.Kp / 16) : ring_after(off, L.Nc * 4, p.KS, U);
   L.total = off + (size_t)L.r.NS * L.r.slot;
   return L;
 }
@@ -840,29 +890,33 @@ __device__ __forceinline__ void ring_produce(const float* src, int passes, int K
 }
 
 // A consumer thread's share of the pass over the ring that starts at chunk
-// c0 (chunk c lies in slot c % NS): acc[r][j] = sum over the rows k of the
-// chunks c = part (mod KS) of a[r][k] * w[k][col0 + j], a = [TR][lda] in
-// shared memory (row r of the tile). A thread waits for each of its chunks;
-// the first lane of each run of its part's lanes in a warp releases the
-// chunk for all of them (`same`: those lanes). `waited` gathers the cycles
-// thread 0 of the timed block spent waiting for chunks.
-template <int TR>
-__device__ __forceinline__ void ring_consume(float (&acc)[TR][4], const float* __restrict__ ring_s,
-                                             const Ring& r, int K, int ncols, int col0,
+// c0 (chunk c lies in slot c % NS): acc[r][4 j + i] = sum over the rows k of
+// the chunks c = part (mod KS) of a[r][k] * w[k][col0 + j * jstride + i]
+// (CW4 groups of 4 columns, jstride apart), a = [TR][lda] in shared memory
+// (row r of the tile). A thread waits for each of its chunks; the first lane
+// of each run of its part's lanes in a warp releases the chunk for all of
+// them (`same`: those lanes). `waited` gathers the cycles thread 0 of the
+// timed block spent waiting for chunks.
+template <int TR, int CW4 = 1>
+__device__ __forceinline__ void ring_consume(float (&acc)[TR][4 * CW4], const float* __restrict__ ring_s,
+                                             const Ring& r, int K, int ncols, int col0, int jstride,
                                              const float* __restrict__ a, int lda, int part,
                                              int KS, int c0, unsigned same,
                                              unsigned long long* full, unsigned long long* empty,
                                              bool timed, long long& waited) {
 #pragma unroll
-  for (int i = 0; i < TR; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * CW4; ++j) acc[i][j] = 0.0f;
   const bool leader = __ffs(same) - 1 == (int)(threadIdx.x & 31);
   for (int c = c0 + ((part - c0 % KS) % KS + KS) % KS; c < c0 + r.nch; c += KS) {
     const int slot = c % r.NS, i = c - c0;
     const long long w0 = timed ? clock64() : 0;
     mbar_wait(smem_addr(&full[slot]), (unsigned)(c / r.NS) & 1);
     if (timed) waited += clock64() - w0;
-    {
-      const float* wc = ring_s + slot * (r.slot / 4) + col0;
+#pragma unroll
+    for (int j = 0; j < CW4; ++j) {
+      const float* wc = ring_s + slot * (r.slot / 4) + col0 + j * jstride;
       const float* ak = a + i * r.KC;
       const int k4n = min(r.KC, K - i * r.KC) / 4;
 #pragma unroll 2
@@ -874,22 +928,22 @@ __device__ __forceinline__ void ring_consume(float (&acc)[TR][4], const float* _
 #pragma unroll
         for (int rr = 0; rr < TR; ++rr) {
           const float4 hv = *reinterpret_cast<const float4*>(ak + rr * lda + 4 * k4);
-          acc[rr][0] = fmaf(hv.x, w0v.x, acc[rr][0]);
-          acc[rr][1] = fmaf(hv.x, w0v.y, acc[rr][1]);
-          acc[rr][2] = fmaf(hv.x, w0v.z, acc[rr][2]);
-          acc[rr][3] = fmaf(hv.x, w0v.w, acc[rr][3]);
-          acc[rr][0] = fmaf(hv.y, w1v.x, acc[rr][0]);
-          acc[rr][1] = fmaf(hv.y, w1v.y, acc[rr][1]);
-          acc[rr][2] = fmaf(hv.y, w1v.z, acc[rr][2]);
-          acc[rr][3] = fmaf(hv.y, w1v.w, acc[rr][3]);
-          acc[rr][0] = fmaf(hv.z, w2v.x, acc[rr][0]);
-          acc[rr][1] = fmaf(hv.z, w2v.y, acc[rr][1]);
-          acc[rr][2] = fmaf(hv.z, w2v.z, acc[rr][2]);
-          acc[rr][3] = fmaf(hv.z, w2v.w, acc[rr][3]);
-          acc[rr][0] = fmaf(hv.w, w3v.x, acc[rr][0]);
-          acc[rr][1] = fmaf(hv.w, w3v.y, acc[rr][1]);
-          acc[rr][2] = fmaf(hv.w, w3v.z, acc[rr][2]);
-          acc[rr][3] = fmaf(hv.w, w3v.w, acc[rr][3]);
+          acc[rr][4 * j] = fmaf(hv.x, w0v.x, acc[rr][4 * j]);
+          acc[rr][4 * j + 1] = fmaf(hv.x, w0v.y, acc[rr][4 * j + 1]);
+          acc[rr][4 * j + 2] = fmaf(hv.x, w0v.z, acc[rr][4 * j + 2]);
+          acc[rr][4 * j + 3] = fmaf(hv.x, w0v.w, acc[rr][4 * j + 3]);
+          acc[rr][4 * j] = fmaf(hv.y, w1v.x, acc[rr][4 * j]);
+          acc[rr][4 * j + 1] = fmaf(hv.y, w1v.y, acc[rr][4 * j + 1]);
+          acc[rr][4 * j + 2] = fmaf(hv.y, w1v.z, acc[rr][4 * j + 2]);
+          acc[rr][4 * j + 3] = fmaf(hv.y, w1v.w, acc[rr][4 * j + 3]);
+          acc[rr][4 * j] = fmaf(hv.z, w2v.x, acc[rr][4 * j]);
+          acc[rr][4 * j + 1] = fmaf(hv.z, w2v.y, acc[rr][4 * j + 1]);
+          acc[rr][4 * j + 2] = fmaf(hv.z, w2v.z, acc[rr][4 * j + 2]);
+          acc[rr][4 * j + 3] = fmaf(hv.z, w2v.w, acc[rr][4 * j + 3]);
+          acc[rr][4 * j] = fmaf(hv.w, w3v.x, acc[rr][4 * j]);
+          acc[rr][4 * j + 1] = fmaf(hv.w, w3v.y, acc[rr][4 * j + 1]);
+          acc[rr][4 * j + 2] = fmaf(hv.w, w3v.z, acc[rr][4 * j + 2]);
+          acc[rr][4 * j + 3] = fmaf(hv.w, w3v.w, acc[rr][4 * j + 3]);
         }
       }
     }
@@ -1012,7 +1066,7 @@ lstm_fwd_ring_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, in
     float acc[TR][4];
     long long waited = 0;
     if (part < KS)
-      ring_consume<TR>(acc, ring_s, L.r, U, Nc, cgi * 4, h_s, U, part, KS, step * L.r.nch, same,
+      ring_consume<TR>(acc, ring_s, L.r, U, Nc, cgi * 4, 0, h_s, U, part, KS, step * L.r.nch, same,
                        full_bar, empty_bar, timed, waited);
     cp_async_wait_all();  // this step's xp tile, requested a step ago
     // the k parts into part_s, in part order
@@ -1079,6 +1133,294 @@ lstm_fwd_ring_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, in
     lap(1);
 
     if (SAVE_RES && step + 1 < T) save_state(reverse ? t - 1 : t + 1);
+    consumers_sync();  // part_s and the xp tile are free
+    if (step + 1 < T) prefetch(reverse ? t - 1 : t + 1);
+    lap(2);
+  }
+  if (timed)
+    for (int i = 0; i < 5; ++i) clocks[i] += spent[i];
+  cluster.sync();  // no block leaves while a peer may still address it
+  for (int q = tid; q < nq; q += FWD_THREADS) {
+    const int row = q / uqn, u0 = (q - row * uqn) * 4;
+    if (row0 + row >= B) continue;
+    const size_t idx = (size_t)(row0 + row) * U + rank * Us + u0;
+    *reinterpret_cast<float4*>(a.hfin[d] + idx) = *reinterpret_cast<const float4*>(h_st + row * Us + u0);
+    *reinterpret_cast<float4*>(a.cfin[d] + idx) = *reinterpret_cast<const float4*>(c_st + row * Us + u0);
+  }
+}
+
+// ------------------------------------------------ the bf16 ring (production mode)
+//
+// The bf16 streamed slice through the same ring: the producer warp copies
+// the fragment-ordered chunks (see ring_bf16), and each consumer warp of
+// part p multiplies every chunk of its piece as it lands on the tensor
+// cores (mma.sync m16n8k16, h or dgates rounded to bf16 in shared memory,
+// float32 accumulators kept in registers over the whole pass, the k steps
+// in order): its n-tiles are j WP + wl of the piece (WP warps a part, wl
+// its index among them, j < NTW). A chunk is half the bytes of a float32
+// one for the same k, and the threads spend no loads on it. Gate math and
+// cell state stay float32, as in the template.
+
+// four bf16 values (8 bytes) into a peer, counted on its barrier
+__device__ __forceinline__ void store4_async(unsigned dst, unsigned bar, const __nv_bfloat16*, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n"
+      ::"r"(dst), "r"(*reinterpret_cast<unsigned*>(&lo)), "r"(*reinterpret_cast<unsigned*>(&hi)), "r"(bar)
+      : "memory");
+}
+
+// four values of W type as one store
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<unsigned*>(&lo), *reinterpret_cast<unsigned*>(&hi));
+}
+
+// The bf16 producer: `passes` passes over a slice of K16 k steps, KS pieces
+// of `kstep_bytes` a k step, chunk after chunk into the ring's slots
+__device__ __forceinline__ void ring_produce_bf16(const unsigned char* src, int passes, int K16, int KS,
+                                                 int kstep_bytes, const Ring& r, unsigned ring0,
+                                                 unsigned long long* full, unsigned long long* empty) {
+  const unsigned long long policy = evict_last_policy();
+  const size_t group = (size_t)r.KC * KS * kstep_bytes;  // bytes of a whole group of KC k steps
+  int slot = 0, round = 0;
+  for (int pass = 0; pass < passes; ++pass)
+    for (int i = 0; i < r.nch; ++i) {
+      const int kg = i / KS, piece = i - kg * KS;
+      const int kc = min(r.KC, K16 - kg * r.KC);
+      if (round > 0) mbar_wait(smem_addr(&empty[slot]), (round - 1) & 1);
+      const unsigned bytes = (unsigned)(kc * kstep_bytes);
+      const unsigned fb = smem_addr(&full[slot]);
+      mbar_expect(fb, bytes);
+      bulk_load(ring0 + (unsigned)(slot * r.slot), src + kg * group + (size_t)piece * kc * kstep_bytes, bytes,
+                fb, policy);
+      if (++slot == r.NS) slot = 0, ++round;
+    }
+}
+
+// A consumer warp's share of the pass over the bf16 ring that starts at
+// chunk c0 (a multiple of KS): d[j][m] = the product of the rows of m tile m
+// of a ([16 MT][lda] bf16) and n-tile j WP + wl of piece `part`, over every k
+// step, in order. Lane 0 releases each chunk for its warp.
+template <int MT, int NTW>
+__device__ __forceinline__ void ring_consume_bf16(float (&d)[NTW][MT][4], const unsigned char* ring_s,
+                                                  const Ring& r, int K16, int NTp, int wl, int WP,
+                                                  const __nv_bfloat16* __restrict__ a, int lda, int part,
+                                                  int KS, int c0, unsigned long long* full,
+                                                  unsigned long long* empty, bool timed, long long& waited) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NTW; ++j)
+#pragma unroll
+    for (int m = 0; m < MT; ++m) d[j][m][0] = d[j][m][1] = d[j][m][2] = d[j][m][3] = 0.0f;
+  for (int c = c0 + part; c < c0 + r.nch; c += KS) {
+    const int slot = c % r.NS, kg = (c - c0) / KS;
+    const long long w0 = timed ? clock64() : 0;
+    mbar_wait(smem_addr(&full[slot]), (unsigned)(c / r.NS) & 1);
+    if (timed) waited += clock64() - w0;
+    const uint2* wc = reinterpret_cast<const uint2*>(ring_s + slot * r.slot);
+    const int kc = min(r.KC, K16 - kg * r.KC);
+#pragma unroll 2
+    for (int ks = 0; ks < kc; ++ks) {
+      // every fragment of the k step first (a warp's tiles past the piece
+      // read its last tile's, and skip the product), so that their loads
+      // are in flight together and not one behind each product
+      const int k0 = (kg * r.KC + ks) * 16 + tig * 2;
+      unsigned af[MT][4];
+      uint2 bf[NTW];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const __nv_bfloat16* h0 = a + (size_t)(16 * m + g) * lda + k0;
+        af[m][0] = *reinterpret_cast<const unsigned*>(h0);
+        af[m][1] = *reinterpret_cast<const unsigned*>(h0 + 8 * lda);
+        af[m][2] = *reinterpret_cast<const unsigned*>(h0 + 8);
+        af[m][3] = *reinterpret_cast<const unsigned*>(h0 + 8 * lda + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) bf[j] = wc[(ks * NTp + min(j * WP + wl, NTp - 1)) * 32 + lane];
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+        if (j * WP + wl < NTp)
+#pragma unroll
+          for (int m = 0; m < MT; ++m) mma_bf16(d[j][m], af[m], bf[j].x, bf[j].y);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_addr(&empty[slot]), 32);
+  }
+}
+
+// the streamed bf16 forward: as lstm_fwd_ring_kernel, the product on the
+// tensor cores over the bf16 ring (MT 16-row tiles, at most NTW n-tiles a
+// warp); the residuals are saved where the entry gives hprev (one kernel
+// for both entries: half the instances to build)
+template <int MT, int NTW>
+__global__ void __launch_bounds__(RING_THREADS, 1)
+lstm_fwd_ring_bf16_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, int U, FwdPlan plan,
+                          float forget_bias, long long* __restrict__ clocks) {
+  extern __shared__ __align__(16) unsigned char fwd_ring_smem[];
+  __shared__ __align__(8) unsigned long long full_bar[RING_SLOTS], empty_bar[RING_SLOTS];
+  __shared__ __align__(8) unsigned long long hfull_bar, hfree_bar;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = plan.C, KS = plan.KS, Bt = plan.Bt;
+  const int rank = (int)cluster.block_rank();
+  const int d = blockIdx.y;
+  const int row0 = (blockIdx.x / C) * Bt;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const FwdRingLayout L = fwd_ring_layout(U, plan, true);
+  const int Us = L.Us, Nc = L.Nc, G = 4 * U;
+  const int NT = Nc / 8, NTp = NT / KS, K16 = L.Kp / 16;
+
+  const float* __restrict__ xp = a.xp[d];
+  float* __restrict__ out = a.out[d];
+  __nv_bfloat16* hprev = static_cast<__nv_bfloat16*>(a.hprev[d]);
+  __nv_bfloat16* cprev = static_cast<__nv_bfloat16*>(a.cprev[d]);
+  const bool reverse = a.reverse[d] != 0, save_res = hprev != nullptr;
+  const unsigned char* wg = static_cast<const unsigned char*>(a.wh[d]) + (size_t)rank * K16 * NT * 256;
+
+  __nv_bfloat16* h_s = reinterpret_cast<__nv_bfloat16*>(fwd_ring_smem + L.h);  // [16 MT][ldh]
+  float* part_s = reinterpret_cast<float*>(fwd_ring_smem + L.part);
+  float* xp_s = reinterpret_cast<float*>(fwd_ring_smem + L.xp);
+  float* c_st = reinterpret_cast<float*>(fwd_ring_smem + L.cst);  // [Bt][Us] float32 state
+  float* h_st = reinterpret_cast<float*>(fwd_ring_smem + L.hst);
+  const unsigned char* ring_s = fwd_ring_smem + L.ring;
+
+  // everything but the ring starts at zero: h (its rows past Bt stay so), the state, the xp tile
+  for (size_t i = tid; i < L.ring / 16; i += RING_THREADS)
+    reinterpret_cast<float4*>(fwd_ring_smem)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const unsigned hfull = smem_addr(&hfull_bar), hfree = smem_addr(&hfree_bar);
+  const unsigned h_bytes = (unsigned)(Bt * U * 2);
+  if (tid == 0) {
+    for (int s = 0; s < L.r.NS; ++s) {
+      mbar_init(smem_addr(&full_bar[s]), 1);
+      mbar_init(smem_addr(&empty_bar[s]), FWD_THREADS / KS);  // the threads of one part
+    }
+    mbar_init(hfull, 1);
+    mbar_init(hfree, C);  // one arrival from each block of the cluster a step
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (T > 1) mbar_expect(hfull, h_bytes);  // step 1's h
+  }
+  cluster.sync();
+
+  if (warp == RING_WARPS) {
+    if (lane == 0)
+      ring_produce_bf16(wg, T, K16, KS, NTp * 256, L.r, smem_addr(ring_s), full_bar, empty_bar);
+    __syncwarp();
+    cluster.sync();
+    return;
+  }
+
+  const int WP = RING_WARPS / KS, part = warp / WP, wl = warp - part * WP;
+  const int g = lane >> 2, tig = lane & 3;
+  const int uqn = Us / 4, nq = Bt * uqn;  // the cell update's items: 4 units of a row
+  auto prefetch = [&](int t) {
+    for (int i = tid; i < Bt * Us; i += FWD_THREADS) {
+      const int row = i / Us, rem = i - row * Us;
+      const int gate = rem / uqn, j = rem - gate * uqn;
+      if (row0 + row < B)
+        cp_async16(xp_s + row * Nc + gate * Us + 4 * j,
+                   xp + ((size_t)t * B + row0 + row) * G + gate * U + rank * Us + 4 * j);
+    }
+    if (tid < Bt && row0 + tid < B) cp_async4(xp_s + Bt * Nc + tid, mask + (size_t)t * B + row0 + tid);
+    cp_async_commit();
+  };
+  auto save_state = [&](int t) {
+    for (int q = tid; q < nq; q += FWD_THREADS) {
+      const int row = q / uqn, u0 = (q - row * uqn) * 4;
+      if (row0 + row >= B) continue;
+      const size_t idx = ((size_t)t * B + row0 + row) * U + rank * Us + u0;
+      store4(hprev + idx, *reinterpret_cast<const float4*>(h_st + row * Us + u0));
+      store4(cprev + idx, *reinterpret_cast<const float4*>(c_st + row * Us + u0));
+    }
+  };
+  prefetch(reverse ? T - 1 : 0);
+  if (save_res) save_state(reverse ? T - 1 : 0);
+
+  // clocks: as lstm_fwd_ring_kernel's
+  const bool timed = clocks != nullptr && tid == 0 && blockIdx.x == 0 && blockIdx.y == 0;
+  long long tick = timed ? clock64() : 0;
+  long long spent[5] = {};
+  auto lap = [&](int i) {
+    if (timed) {
+      const long long now = clock64();
+      spent[i] += now - tick;
+      tick = now;
+    }
+  };
+  for (int step = 0; step < T; ++step) {
+    const int t = reverse ? T - 1 - step : step;
+    if (step > 0) {
+      mbar_wait(hfull, (step - 1) & 1);
+      if (tid == 0 && step + 1 < T) mbar_expect(hfull, h_bytes);
+    }
+    lap(3);
+    float acc[NTW][MT][4];
+    long long waited = 0;
+    ring_consume_bf16<MT, NTW>(acc, ring_s, L.r, K16, NTp, wl, WP, h_s, L.ldh, part, KS, step * L.r.nch,
+                               full_bar, empty_bar, timed, waited);
+    cp_async_wait_all();  // this step's xp tile, requested a step ago
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      const int ntl = j * WP + wl;
+      if (ntl >= NTp) continue;
+      const int col = (part * NTp + ntl) * 8 + tig * 2;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int row = 16 * m + g;
+        if (row < Bt) *reinterpret_cast<float2*>(part_s + row * Nc + col) = make_float2(acc[j][m][0], acc[j][m][1]);
+        if (row + 8 < Bt)
+          *reinterpret_cast<float2*>(part_s + (row + 8) * Nc + col) = make_float2(acc[j][m][2], acc[j][m][3]);
+      }
+    }
+    consumers_sync();
+    // h(step) is read: every block may send this one h(step + 1)
+    if (tid < C && step + 1 < T) mbar_arrive_remote(peer_addr(hfree, tid));
+    lap(0);
+    if (timed) spent[0] -= waited, spent[4] += waited;
+
+    // cell update of this block's units and this step's output
+    for (int q = tid; q < nq; q += FWD_THREADS) {
+      const int row = q / uqn, u0 = (q - row * uqn) * 4;
+      float gate[4][4];
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi) {
+        const int col = row * Nc + gi * Us + u0;
+        const float4 sv = *reinterpret_cast<const float4*>(part_s + col);
+        const float4 x = *reinterpret_cast<const float4*>(xp_s + col);
+        gate[gi][0] = x.x + sv.x, gate[gi][1] = x.y + sv.y, gate[gi][2] = x.z + sv.z, gate[gi][3] = x.w + sv.w;
+      }
+      const float m = xp_s[Bt * Nc + row];
+      const float4 c4 = *reinterpret_cast<const float4*>(c_st + row * Us + u0);
+      const float4 h4 = *reinterpret_cast<const float4*>(h_st + row * Us + u0);
+      float cv[4] = {c4.x, c4.y, c4.z, c4.w}, hv[4] = {h4.x, h4.y, h4.z, h4.w}, ov[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float c_new = sigmoidf_(gate[1][i] + forget_bias) * cv[i] +
+                            sigmoidf_(gate[0][i]) * tanhf(gate[2][i]);
+        const float h_new = sigmoidf_(gate[3][i]) * tanhf(c_new);
+        hv[i] = m * h_new + (1.0f - m) * hv[i];
+        cv[i] = m * c_new + (1.0f - m) * cv[i];
+        ov[i] = m * h_new;
+      }
+      *reinterpret_cast<float4*>(c_st + row * Us + u0) = make_float4(cv[0], cv[1], cv[2], cv[3]);
+      *reinterpret_cast<float4*>(h_st + row * Us + u0) = make_float4(hv[0], hv[1], hv[2], hv[3]);
+      if (row0 + row < B)
+        *reinterpret_cast<float4*>(out + ((size_t)t * B + row0 + row) * U + rank * Us + u0) =
+            make_float4(ov[0], ov[1], ov[2], ov[3]);
+    }
+    // this block's slice of h(step + 1), rounded to bf16, into every block, once all have read h(step)
+    if (step + 1 < T) {
+      mbar_wait_cluster(hfree, step & 1);
+      for (int q = tid; q < nq; q += FWD_THREADS) {
+        const int row = q / uqn, u0 = (q - row * uqn) * 4;
+        const float4 h4 = *reinterpret_cast<const float4*>(h_st + row * Us + u0);
+        const unsigned dst = smem_addr(h_s + row * L.ldh + rank * Us + u0);
+        for (int r = 0; r < C; ++r) store4_async(peer_addr(dst, r), peer_addr(hfull, r), h_s, h4);
+      }
+    }
+    lap(1);
+
+    if (save_res && step + 1 < T) save_state(reverse ? t - 1 : t + 1);
     consumers_sync();  // part_s and the xp tile are free
     if (step + 1 < T) prefetch(reverse ? t - 1 : t + 1);
     lap(2);
@@ -1720,24 +2062,27 @@ lstm_bwd_kernel(BwdArgs a, const float* __restrict__ mask, int T, int B, int U, 
   cluster.sync();  // no block leaves while a peer may still address it
 }
 
-// byte offsets of a block of the streamed loop; ops/lstm.py::backward_smem_bytes mirrors it
+// byte offsets of a block of the streamed loop; ops/lstm.py::ring_slots mirrors it
 struct BwdRingLayout {
-  int Us, Nc, tile;
+  int Us, Nc, tile, Np, ldg, MT;
   Ring r;
   size_t recv, dg, part, tl, dh, dc, ring, total;
 };
 
-__host__ __device__ inline BwdRingLayout bwd_ring_layout(int U, BwdPlan p) {
+__host__ __device__ inline BwdRingLayout bwd_ring_layout(int U, BwdPlan p, bool bf = false) {
   BwdRingLayout L;
   L.Us = U / p.C;
   L.Nc = 4 * L.Us;
+  L.Np = (U + 15) / 16 * 16;
+  L.ldg = bf ? L.Nc + 8 : L.Nc;
+  L.MT = (p.Bt + 15) / 16;
   size_t off = 0;
   L.recv = off;  // [C][Bt][Us] partial dh of this block's units, one slot a sender
   off += (size_t)p.Bt * U * 4;
-  L.dg = off;  // [Bt][Nc] dgates of the step, the product's operand
-  off += (size_t)p.Bt * L.Nc * 4;
-  L.part = off;  // [Bt][U]: the k parts but the last, added in order (KS > 1 only)
-  if (p.KS > 1) off += (size_t)p.Bt * U * 4;
+  L.dg = off;  // dgates of the step, the product's operand: [Bt][Nc] float32, or bf16 [16 MT][ldg]
+  off += bf ? (size_t)16 * L.MT * L.ldg * 2 : (size_t)p.Bt * L.Nc * 4;
+  L.part = off;  // [Bt][U]: the k parts but the last, added in order (float32, KS > 1 only)
+  if (!bf && p.KS > 1) off += (size_t)p.Bt * U * 4;
   L.tile = p.Bt * (L.Nc + 3 * L.Us) + p.Bt;  // as bwd_layout's ring tile: one, a step ahead
   L.tl = off;
   off += (size_t)L.tile * 4;
@@ -1746,16 +2091,18 @@ __host__ __device__ inline BwdRingLayout bwd_ring_layout(int U, BwdPlan p) {
   L.dc = off;
   off += (size_t)p.Bt * L.Us * 4;
   L.ring = off;
-  L.r = ring_after(off, U * 4, p.KS, L.Nc);
+  L.r = bf ? ring_bf16(off, L.Np / 8 / p.KS * 256, p.KS, L.Nc / 16) : ring_after(off, U * 4, p.KS, L.Nc);
   L.total = off + (size_t)L.r.NS * L.r.slot;
   return L;
 }
 
 // the streamed loop: as lstm_bwd_kernel, float32, the tile's Bt = TR rows a
 // consumer thread, the slice of Wh^T ([Nc][U], a row a gate column) through
-// the ring; a thread owns 4 units of the partial dh for all rows and sends
-// them to their owner itself (the last k part's thread, after the others' sum)
-template <int TR>
+// the ring; a thread owns CW4 groups of 4 units of the partial dh (U / CW4
+// apart; CW4 = ceil(U / 1024), so that U / (4 CW4) threads hold all U) for
+// all rows and sends them to their owners itself (the last k part's thread,
+// after the others' sum)
+template <int TR, int CW4>
 __global__ void __launch_bounds__(RING_THREADS, 1)
 lstm_bwd_ring_kernel(BwdArgs a, const float* __restrict__ mask, int T, int B, int U, BwdPlan plan,
                      long long* __restrict__ clocks) {
@@ -1823,7 +2170,7 @@ lstm_bwd_ring_kernel(BwdArgs a, const float* __restrict__ mask, int T, int B, in
   };
   auto time_of = [&](int step) { return reverse ? step : T - 1 - step; };  // opposite to the forward
   if (tid < FWD_THREADS) prefetch(time_of(0));
-  const int ncg = U / 4;  // a thread's 4 units of the partial dh, all Bt rows; the k range in KS parts
+  const int ncg = U / (4 * CW4);  // a thread's CW4 x 4 units of the partial dh, all Bt rows; the k range in KS parts
   const unsigned pfull = smem_addr(&pfull_bar), pfree = smem_addr(&pfree_bar);
   const unsigned p_bytes = (unsigned)(Bt * U * 4);
   if (tid == 0) {
@@ -1848,7 +2195,7 @@ lstm_bwd_ring_kernel(BwdArgs a, const float* __restrict__ mask, int T, int B, in
 
   const int part = tid / ncg, cgi = tid - part * ncg;
   const unsigned same = __match_any_sync(0xffffffffu, part);
-  const int owner = by_us.quot(4 * cgi);  // the block that owns those units
+  const int jstride = 4 * ncg;  // floats between a thread's groups of units
 
   // clocks (optional, 6 counters): SM cycles thread 0 of block (0, 0) spent
   // forming dgates, in the product, adding and sending the partials,
@@ -1911,11 +2258,11 @@ lstm_bwd_ring_kernel(BwdArgs a, const float* __restrict__ mask, int T, int B, in
     if (step + 1 == T) break;
 
     // 2. partial dh of every unit from this block's gate columns
-    float acc[TR][4];
+    float acc[TR][4 * CW4];
     long long waited = 0;
     if (part < KS)
-      ring_consume<TR>(acc, ring_s, L.r, Nc, U, cgi * 4, dg_s, Nc, part, KS, step * L.r.nch, same,
-                       full_bar, empty_bar, timed, waited);
+      ring_consume<TR, CW4>(acc, ring_s, L.r, Nc, U, cgi * 4, jstride, dg_s, Nc, part, KS, step * L.r.nch,
+                            same, full_bar, empty_bar, timed, waited);
     lap(1);
     if (timed) spent[1] -= waited, spent[5] += waited;
 
@@ -1923,31 +2270,220 @@ lstm_bwd_ring_kernel(BwdArgs a, const float* __restrict__ mask, int T, int B, in
     for (int g = 0; g + 1 < KS; ++g) {
       if (part == g) {
 #pragma unroll
-        for (int r = 0; r < TR; ++r) {
-          float4* p = reinterpret_cast<float4*>(part_s + r * U + cgi * 4);
-          float4 v = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-          if (g > 0) {
-            const float4 s = *p;
-            v = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+        for (int j = 0; j < CW4; ++j)
+#pragma unroll
+          for (int r = 0; r < TR; ++r) {
+            float4* p = reinterpret_cast<float4*>(part_s + r * U + cgi * 4 + j * jstride);
+            float4 v = make_float4(acc[r][4 * j], acc[r][4 * j + 1], acc[r][4 * j + 2], acc[r][4 * j + 3]);
+            if (g > 0) {
+              const float4 s = *p;
+              v = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+            }
+            *p = v;
           }
-          *p = v;
-        }
       }
       consumers_sync();
     }
     if (part == KS - 1) {
       mbar_wait_cluster(pfree, step & 1);  // every block has read this step's partials
-      const unsigned base = smem_addr(recv_s + rank * nq) + (unsigned)((4 * cgi - owner * Us) * 4);
+#pragma unroll
+      for (int j = 0; j < CW4; ++j) {
+        const int u0 = 4 * cgi + j * jstride, owner = by_us.quot(u0);  // the block that owns those units
+        const unsigned base = smem_addr(recv_s + rank * nq) + (unsigned)((u0 - owner * Us) * 4);
+        const unsigned bar = peer_addr(pfull, owner);
+#pragma unroll
+        for (int r = 0; r < TR; ++r) {
+          float4 v = make_float4(acc[r][4 * j], acc[r][4 * j + 1], acc[r][4 * j + 2], acc[r][4 * j + 3]);
+          if (KS > 1) {
+            const float4 s = *reinterpret_cast<const float4*>(part_s + r * U + u0);
+            v = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+          }
+          store4_async(peer_addr(base + (unsigned)(r * Us * 4), owner), bar, v);
+        }
+      }
+    }
+    lap(2);
+  }
+  if (timed)
+    for (int i = 0; i < 6; ++i) clocks[i] += spent[i];
+  cluster.sync();  // no block leaves while a peer may still address it
+}
+
+// the streamed bf16 loop: as lstm_bwd_ring_kernel, the product on the tensor
+// cores over the bf16 ring (the slice of Wh^T as [Np][Nc] fragments: the
+// n-tiles are units, k the block's gate columns); each thread sends the
+// partial dh of its accumulators' units (two a tile row) to their owners
+template <int MT, int NTW>
+__global__ void __launch_bounds__(RING_THREADS, 1)
+lstm_bwd_ring_bf16_kernel(BwdArgs a, const float* __restrict__ mask, int T, int B, int U, BwdPlan plan,
+                          long long* __restrict__ clocks) {
+  extern __shared__ __align__(16) unsigned char bwd_ring_smem[];
+  __shared__ __align__(8) unsigned long long full_bar[RING_SLOTS], empty_bar[RING_SLOTS];
+  __shared__ __align__(8) unsigned long long pfull_bar, pfree_bar;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = plan.C, KS = plan.KS, Bt = plan.Bt;
+  const int rank = (int)cluster.block_rank();
+  const int d = blockIdx.y;
+  const int row0 = (blockIdx.x / C) * Bt;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const BwdRingLayout L = bwd_ring_layout(U, plan, true);
+  const int Us = L.Us, Nc = L.Nc, G = 4 * U;
+  const int NT = L.Np / 8, NTp = NT / KS, K16 = Nc / 16;
+
+  float* dxp = a.dxp[d];  // the factors Fi, Ff, Fg, Fo of every step on entry, dgates on exit
+  const float* __restrict__ dout = a.dout[d];
+  const float* __restrict__ fac = a.fac[d];
+  const bool reverse = a.reverse[d] != 0;
+  const unsigned char* wg = static_cast<const unsigned char*>(a.whg[d]) + (size_t)rank * K16 * NT * 256;
+
+  float* recv_s = reinterpret_cast<float*>(bwd_ring_smem + L.recv);
+  __nv_bfloat16* dg_s = reinterpret_cast<__nv_bfloat16*>(bwd_ring_smem + L.dg);  // [16 MT][ldg]
+  float* tl = reinterpret_cast<float*>(bwd_ring_smem + L.tl);
+  float* dh_st = reinterpret_cast<float*>(bwd_ring_smem + L.dh);  // (1-m)*dh: what a row keeps of dh
+  float* dc_st = reinterpret_cast<float*>(bwd_ring_smem + L.dc);
+  const unsigned char* ring_s = bwd_ring_smem + L.ring;
+  const int nq = Bt * Us;
+  const Div by_us(Us), by_uq(Us / 4), by_q4(nq / 4);
+  const int o_dout = Bt * Nc, o_fa = o_dout + nq, o_fs = o_fa + nq, o_mask = o_fs + nq;
+
+  // everything but the ring starts at zero: rows past B are never loaded,
+  // the dgates' rows past Bt never written
+  for (size_t i = tid; i < L.ring / 16; i += RING_THREADS)
+    reinterpret_cast<float4*>(bwd_ring_smem)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __syncthreads();
+  for (int q = tid; q < nq; q += RING_THREADS) {
+    const int row = q / Us, u = q - row * Us;
+    if (row0 + row >= B) continue;
+    const size_t idx = (size_t)(row0 + row) * U + rank * Us + u;
+    dh_st[q] = a.dhfin[d][idx];
+    dc_st[q] = a.dcfin[d][idx];
+  }
+  const int uqn = Us / 4;
+  auto prefetch = [&](int t) {
+    for (int i = tid; i < nq; i += FWD_THREADS) {
+      const int row = by_us.quot(i), rem = i - row * Us;
+      const int gate = by_uq.quot(rem), j = rem - gate * uqn;
+      if (row0 + row < B)
+        cp_async16(tl + row * Nc + gate * Us + 4 * j,
+                   dxp + ((size_t)t * B + row0 + row) * G + gate * U + rank * Us + 4 * j);
+    }
+    for (int i = tid; i < 3 * (nq / 4); i += FWD_THREADS) {
+      const int pt = by_q4.quot(i), r = i - pt * (nq / 4);
+      const int row = by_uq.quot(r), j = r - row * uqn;
+      if (row0 + row >= B) continue;
+      const size_t at = (size_t)t * B + row0 + row;
+      const float* src = pt == 0 ? dout + at * U : fac + at * 2 * U + (pt - 1) * U;
+      cp_async16(tl + o_dout + pt * nq + row * Us + 4 * j, src + rank * Us + 4 * j);
+    }
+    if (tid < Bt && row0 + tid < B) cp_async4(tl + o_mask + tid, mask + (size_t)t * B + row0 + tid);
+    cp_async_commit();
+  };
+  auto time_of = [&](int step) { return reverse ? step : T - 1 - step; };  // opposite to the forward
+  if (tid < FWD_THREADS) prefetch(time_of(0));
+  const unsigned pfull = smem_addr(&pfull_bar), pfree = smem_addr(&pfree_bar);
+  const unsigned p_bytes = (unsigned)(Bt * U * 4);
+  if (tid == 0) {
+    for (int s = 0; s < L.r.NS; ++s) {
+      mbar_init(smem_addr(&full_bar[s]), 1);
+      mbar_init(smem_addr(&empty_bar[s]), FWD_THREADS / KS);  // the threads of one part
+    }
+    mbar_init(pfull, 1);
+    mbar_init(pfree, C);  // one arrival from each block of the cluster a step
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (T > 1) mbar_expect(pfull, p_bytes);  // step 1's partials
+  }
+  cluster.sync();
+
+  if (warp == RING_WARPS) {  // the last step has no product
+    if (lane == 0)
+      ring_produce_bf16(wg, T - 1, K16, KS, NTp * 256, L.r, smem_addr(ring_s), full_bar, empty_bar);
+    __syncwarp();
+    cluster.sync();
+    return;
+  }
+
+  const int WP = RING_WARPS / KS, part = warp / WP, wl = warp - part * WP;
+  const int g = lane >> 2, tig = lane & 3;
+
+  // clocks: as lstm_bwd_ring_kernel's
+  const bool timed = clocks != nullptr && tid == 0 && blockIdx.x == 0 && blockIdx.y == 0;
+  long long tick = timed ? clock64() : 0;
+  long long spent[6] = {};
+  auto lap = [&](int i) {
+    if (timed) {
+      const long long now = clock64();
+      spent[i] += now - tick;
+      tick = now;
+    }
+  };
+  for (int step = 0; step < T; ++step) {
+    const int t = time_of(step);
+    if (step > 0) {
+      mbar_wait(pfull, (step - 1) & 1);
+      if (tid == 0 && step + 1 < T) mbar_expect(pfull, p_bytes);
+    }
+    cp_async_wait_all();  // this step's tile
+    consumers_sync();
+    lap(4);
+
+    // 1. dh of this step, then dh', dc', dgates (rounded to bf16 for the product) and what the row keeps
+    for (int q = tid; q < nq; q += FWD_THREADS) {
+      const int row = by_us.quot(q), u = q - row * Us;
+      float dh = dh_st[q];
+      if (step > 0)
+        for (int r = 0; r < C; ++r) dh += recv_s[r * nq + q];  // in rank order
+      const float m = tl[o_mask + row];
+      const float dc = dc_st[q];
+      const float dh_tot = m * (tl[o_dout + q] + dh);
+      const float dc_new = m * dc + dh_tot * tl[o_fa + q];
+      const float* f = tl + row * Nc + u;
+      const float dg[4] = {dc_new * f[0], dc_new * f[Us], dc_new * f[2 * Us], dh_tot * f[3 * Us]};
+      dh_st[q] = (1.0f - m) * dh;
+      dc_st[q] = (1.0f - m) * dc + dc_new * tl[o_fs + q];
+      __nv_bfloat16* ds = dg_s + row * L.ldg + u;
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi) ds[gi * Us] = __float2bfloat16(dg[gi]);
+      if (row0 + row < B) {
+        float* gx = dxp + ((size_t)t * B + row0 + row) * G + rank * Us + u;
+#pragma unroll
+        for (int gi = 0; gi < 4; ++gi) gx[gi * U] = dg[gi];
+      }
+    }
+    consumers_sync();
+    lap(0);
+    if (step + 1 < T) {
+      if (tid < C) mbar_arrive_remote(peer_addr(pfree, tid));
+      prefetch(time_of(step + 1));
+    }
+    lap(3);
+    if (step + 1 == T) break;
+
+    // 2. partial dh of every unit from this block's gate columns
+    float acc[NTW][MT][4];
+    long long waited = 0;
+    ring_consume_bf16<MT, NTW>(acc, ring_s, L.r, K16, NTp, wl, WP, dg_s, L.ldg, part, KS, step * L.r.nch,
+                               full_bar, empty_bar, timed, waited);
+    lap(1);
+    if (timed) spent[1] -= waited, spent[5] += waited;
+
+    // 3. each accumulator's units to their owner, once every block has read this step's partials
+    mbar_wait_cluster(pfree, step & 1);
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      const int ntl = j * WP + wl, u = (part * NTp + ntl) * 8 + tig * 2;
+      if (ntl >= NTp || u >= U) continue;  // the tiles past U are zero padding
+      const int owner = by_us.quot(u);
+      const unsigned base = smem_addr(recv_s + rank * nq + (u - owner * Us));
       const unsigned bar = peer_addr(pfull, owner);
 #pragma unroll
-      for (int r = 0; r < TR; ++r) {
-        float4 v = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-        if (KS > 1) {
-          const float4 s = *reinterpret_cast<const float4*>(part_s + r * U + cgi * 4);
-          v = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = 16 * m + 8 * hh + g;
+          if (row < Bt)
+            store2_async(peer_addr(base + (unsigned)(row * Us * 4), owner), bar, recv_s,
+                         make_float2(acc[j][m][2 * hh], acc[j][m][2 * hh + 1]));
         }
-        store4_async(peer_addr(base + (unsigned)(r * Us * 4), owner), bar, v);
-      }
     }
     lap(2);
   }
@@ -2024,44 +2560,76 @@ __global__ void dwh_reduce_kernel(BwdArgs a, const float* __restrict__ partials,
   }
 }
 
-// U a multiple of 8 (the slices of a block) up to MAX_UNITS; ops/lstm.py
-// pads any other U with zeros to one the plan takes
-constexpr int MAX_UNITS = 1024;
+// U a multiple of 8 (the slices of a block) up to MAX_UNITS, the widest U at
+// which every route (float32 and bf16; forward, residual and the VJP's loop)
+// has a plan: past it the VJP's loop has none (ops/lstm.py::MAX_UNITS, which
+// a test derives); ops/lstm.py pads any other U with zeros to one the plan
+// takes
+constexpr int MAX_UNITS = 2048;
 bool bad_shape(int nd, int T, int B, int U) {
   return nd < 1 || nd > 2 || T <= 0 || B <= 0 || U <= 0 || U > MAX_UNITS || U % 8 != 0;
+}
+
+// groups of 4 units of the partial dh a thread of the VJP's float32 ring
+// owns: ceil(U / 1024), so that at most 256 threads hold all U of them
+__host__ __device__ inline int ring_cw4(int U) { return (U + 1023) / 1024; }
+
+// the bf16 ring's bound on the n-tiles a consumer warp takes (NT / 8 of
+// them, rounded up to the kernels' instances: a warp past its tiles still
+// loads a fragment and skips the product), or 0 where none is built: 2, 4,
+// 8 or 16 forward, 8, 16 or 32 the VJP, with one 16-row tile (MT = 1); 2,
+// 4 or 8 forward, 8 the VJP, with two
+inline int bf16_ring_ntw(int NT, int MT, bool bwd) {
+  const int need = (NT + 7) / 8;
+  for (int ntw = bwd ? 8 : 2; ntw <= (MT == 1 ? (bwd ? 32 : 16) : 8); ntw *= 2)
+    if (need <= ntw) return ntw;
+  return 0;
 }
 
 // what the forward kernel takes: C divides U into slices of a multiple of 8
 // units (16-byte column groups, 8-column mma tiles), tiles of 8 or 16 rows,
 // and a layout that fits a block's shared memory, the Wh slice resident or
 // streamed from L2 at any C
-// The ring takes float32 only, a thread's 4 columns for every
-// one of `cols` column groups (KS parts of the k range at most 256 threads)
-// and a ring whose chunks hold four rows at least.
-bool bad_ring(bool bf, int cols, int KS, const Ring& r, size_t total) {
-  return bf || cols > FWD_THREADS || KS > RING_KS_MAX || KS * cols > FWD_THREADS || r.KC < 4 ||
+// The float32 ring takes a thread's 4 columns for every one of `cols`
+// column groups (KS parts of the k range at most 256 threads) and a ring
+// whose chunks hold four rows at least.
+bool bad_ring(int cols, int KS, const Ring& r, size_t total) {
+  return cols > FWD_THREADS || KS > RING_KS_MAX || KS * cols > FWD_THREADS || r.KC < 4 ||
          total > RING_SMEM_MAX;
+}
+// The bf16 ring takes NT n-tiles cut into KS = 1, 2, 4 or 8 pieces (the
+// parts of the 8 consumer warps), a kernel instance for its tiles a warp,
+// and a ring whose chunks hold a k step at least.
+bool bad_ring_bf16(int NT, int KS, int MT, bool bwd, const Ring& r, size_t total) {
+  return (KS != 1 && KS != 2 && KS != 4 && KS != 8) || NT % KS || bf16_ring_ntw(NT, MT, bwd) == 0 ||
+         r.KC < 1 || total > RING_SMEM_MAX;
 }
 
 bool bad_plan(int U, FwdPlan p, bool bf) {
   if (p.C < 1 || p.C > 16 || U % p.C || (U / p.C) % 8) return true;
   if (p.Bt != 8 && p.Bt != 16 && !(p.ring && p.Bt == 24)) return true;
-  if (p.KS < 1 || p.KS > 16 || (bf && p.KS != 1)) return true;
+  if (p.KS < 1 || p.KS > 16 || (bf && !p.ring && p.KS != 1)) return true;
   if (p.ring) {
-    const FwdRingLayout L = fwd_ring_layout(U, p);
-    return p.resident || bad_ring(bf, L.Nc / 4, p.KS, L.r, L.total);
+    const FwdRingLayout L = fwd_ring_layout(U, p, bf);
+    if (p.resident) return true;
+    return bf ? bad_ring_bf16(L.Nc / 8, p.KS, L.MT, false, L.r, L.total) : bad_ring(L.Nc / 4, p.KS, L.r, L.total);
   }
   return fwd_layout(U, p, bf).total > SMEM_MAX;
 }
 
-// what the loop of the VJP takes: as bad_plan
+// what the loop of the VJP takes: as bad_plan; the float32 ring's thread
+// holds ring_cw4(U) groups of 4 units (at most 2) for all Bt rows, 96 sums
+// at most (Bt = 8 where it holds 2 groups: more sums spill)
 bool bad_bwd_plan(int U, BwdPlan p, bool bf) {
   if (p.C < 1 || p.C > 16 || U % p.C || (U / p.C) % 8) return true;
   if (p.Bt != 8 && p.Bt != 16 && !(p.ring && p.Bt == 24)) return true;
-  if (p.KS < 1 || p.KS > 16 || (bf && p.KS != 1)) return true;
+  if (p.KS < 1 || p.KS > 16 || (bf && !p.ring && p.KS != 1)) return true;
   if (p.ring) {
-    const BwdRingLayout L = bwd_ring_layout(U, p);
-    return p.resident || bad_ring(bf, U / 4, p.KS, L.r, L.total);
+    const BwdRingLayout L = bwd_ring_layout(U, p, bf);
+    if (p.resident) return true;
+    if (bf) return bad_ring_bf16(L.Np / 8, p.KS, L.MT, true, L.r, L.total);
+    const int cw4 = ring_cw4(U);
+    return cw4 > 2 || p.Bt * cw4 > 24 || bad_ring(U / (4 * cw4), p.KS, L.r, L.total);
   }
   return bwd_layout(U, p, bf).total > SMEM_MAX;
 }
@@ -2089,7 +2657,7 @@ cudaError_t prepare_cluster(K kernel, size_t smem, int C, cudaLaunchConfig_t* cf
 
 // the kernel of a forward plan, ready to launch or to ask about: the
 // template (resident or streamed by threads' loads), or the ring route
-// (float32 only: bad_plan refuses a bf16 ring)
+// (float32, or bf16 on the tensor cores)
 template <typename W, bool SAVE_RES>
 struct FwdKernel {
   using Fn = void (*)(FwdArgs, const float*, int, int, int, FwdPlan, float, long long*);
@@ -2102,7 +2670,19 @@ struct FwdKernel {
       fn = lstm_fwd_kernel<W, SAVE_RES>, smem = fwd_layout(U, p, bf).total, threads = FWD_THREADS;
       return;
     }
-    smem = fwd_ring_layout(U, p).total, threads = RING_THREADS;
+    const FwdRingLayout L = fwd_ring_layout(U, p, bf);
+    smem = L.total, threads = RING_THREADS;
+    if (bf) {
+      const int ntw = bf16_ring_ntw(L.Nc / 8, L.MT, false);
+      fn = L.MT == 2 ? (ntw == 2 ? lstm_fwd_ring_bf16_kernel<2, 2>
+                        : ntw == 4 ? lstm_fwd_ring_bf16_kernel<2, 4>
+                                   : lstm_fwd_ring_bf16_kernel<2, 8>)
+           : ntw == 2 ? lstm_fwd_ring_bf16_kernel<1, 2>
+           : ntw == 4 ? lstm_fwd_ring_bf16_kernel<1, 4>
+           : ntw == 8 ? lstm_fwd_ring_bf16_kernel<1, 8>
+                      : lstm_fwd_ring_bf16_kernel<1, 16>;
+      return;
+    }
     fn = p.Bt == 24   ? lstm_fwd_ring_kernel<SAVE_RES, 24>
          : p.Bt == 16 ? lstm_fwd_ring_kernel<SAVE_RES, 16>
                       : lstm_fwd_ring_kernel<SAVE_RES, 8>;
@@ -2162,8 +2742,23 @@ struct BwdKernel {
       fn = lstm_bwd_kernel<W>, smem = bwd_layout(U, p, bf).total, threads = FWD_THREADS;
       return;
     }
-    smem = bwd_ring_layout(U, p).total, threads = RING_THREADS;
-    fn = p.Bt == 24 ? lstm_bwd_ring_kernel<24> : p.Bt == 16 ? lstm_bwd_ring_kernel<16> : lstm_bwd_ring_kernel<8>;
+    const BwdRingLayout L = bwd_ring_layout(U, p, bf);
+    smem = L.total, threads = RING_THREADS;
+    if (bf) {
+      const int ntw = bf16_ring_ntw(L.Np / 8, L.MT, true);
+      fn = L.MT == 2   ? lstm_bwd_ring_bf16_kernel<2, 8>
+           : ntw == 8  ? lstm_bwd_ring_bf16_kernel<1, 8>
+           : ntw == 16 ? lstm_bwd_ring_bf16_kernel<1, 16>
+                       : lstm_bwd_ring_bf16_kernel<1, 32>;
+      return;
+    }
+    if (ring_cw4(U) == 2) {
+      fn = lstm_bwd_ring_kernel<8, 2>;
+      return;
+    }
+    fn = p.Bt == 24   ? lstm_bwd_ring_kernel<24, 1>
+         : p.Bt == 16 ? lstm_bwd_ring_kernel<16, 1>
+                      : lstm_bwd_ring_kernel<8, 1>;
   }
 };
 

@@ -19,7 +19,11 @@ attention vector) do not fit in every block beside the rest — the speller
 widths of LAS-4-1024, U = A = 1024, M = 2048 — the streamed layout keeps
 them, and ``out_w``, in global memory (L2), written by their owners and
 staged by the readers after the cluster barrier that already ends each
-stage. Every width runs: a width that is no multiple of the kernel's
+stage. Past what that layout holds (a row's scores grow with the encoder
+length, a stage's input row with the widths) the tiled layout keeps each
+row's scores in a global workspace and stages every input in tiles, so
+every encoder length runs, and spellers up to U = A = AL = 2048, M = 4096.
+Every width runs: a width that is no multiple of the kernel's
 granularity is zero padded (``ops/padding.py``, exact) to one that a plan
 takes (``kernel_widths``). A group stops
 when all its rows have emitted <eos>; the last group is padded with rows
@@ -141,26 +145,33 @@ def _pad4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def decoder_smem_bytes(b: int, t: int, cfg, c: int, streamed: bool = False) -> int:
+KTILE = 2048  # tiled layout: floats of a row of the stage (csrc/greedy.cu's KTILE)
+TTILE = 2048  # tiled layout: encoder positions of a tile of attention weights (TTILE)
+
+
+def decoder_smem_bytes(b: int, t: int, cfg, c: int, streamed: bool = False, tiled: bool = False) -> int:
     """Shared memory a block of the kernel takes for ``t`` encoder
-    positions under a cluster of ``c`` blocks, in the held or the streamed
-    layout: the Python mirror of ``csrc/greedy.cu::dec_layout`` (the same
-    at every batch ``b``). ``cfg`` is a ``SpellerConfig`` or
-    ``DecoderWidths``."""
+    positions under a cluster of ``c`` blocks, in the held, the streamed or
+    (``tiled``, which implies streamed) the tiled layout: the Python mirror
+    of ``csrc/greedy.cu::dec_layout`` (the same at every batch ``b``; the
+    tiled layout's is the same at every ``t``). ``cfg`` is a
+    ``SpellerConfig`` or ``DecoderWidths``."""
     del b  # a group's layout does not depend on the batch
     e, u, a, al = cfg.embedding_dim, cfg.units, cfg.attention_units, cfg.attention_layer_size
     m, n_cells, r = cfg.memory_dim, cfg.num_layers, GROUP_ROWS
+    streamed = streamed or tiled
     vc = _pad4(-(-cfg.vocab_size // c))  # vocabulary columns a block owns
     kmax = max(e + al + u, 2 * u, u + m)
+    kt = min(kmax, KTILE) if tiled else kmax  # a row of the stage
     widest = max(4 * u // c, a // c, al // c)
     held = 0 if streamed else 1  # each cell's h, the attention vector, the context, the out_w slice
     qrows = -(-r // c) if streamed else r
     floats = (
-        r * kmax + held * n_cells * 2 * r * u + n_cells * r * (u // c) + held * r * al + qrows * a
+        r * kt + held * n_cells * 2 * r * u + n_cells * r * (u // c) + held * r * al + qrows * a
         + held * r * m  # stage .. ctx
         + max(THREADS * 4 * r, r * widest, THREADS * 4, m, (THREADS // 32) * r * vc)  # part
         + held * vc * (al + 4) + vc + n_cells * 4 * (u // c)  # out_w slice, out_b slice, biases
-        + 2 * _pad4(t) + _pad4(a) + r * vc  # scores, mask, v, logits
+        + (TTILE if tiled else 2 * _pad4(t)) + _pad4(a) + r * vc  # scores (a tile of weights), mask, v, logits
         + 2 * 8 * r + 4 * r + 64  # the blocks' pairs, the rows' flags, the reduction
     )
     return 4 * floats
@@ -181,6 +192,12 @@ class DecoderPlan(NamedTuple):
     rows: int  # rows of a group (GROUP_ROWS)
     groups: int  # clusters of the launch: ceil(B / rows)
     streamed: bool = False  # the activations every block reads whole, and out_w, in global memory
+    tiled: bool = False  # (streamed, and) the scores in global memory, every stage's input in tiles
+
+    @property
+    def layout(self) -> int:
+        """The C API's layout argument: 0 held, 1 streamed, 2 tiled."""
+        return 2 if self.tiled else int(self.streamed)
 
 
 def _cuts(cfg) -> List[int]:
@@ -192,10 +209,10 @@ def _cuts(cfg) -> List[int]:
 
 
 def _first_fit(b: int, cfg, t: int) -> Optional[DecoderPlan]:
-    for streamed in (False, True):
+    for streamed, tiled in ((False, False), (True, False), (True, True)):
         for c in _cuts(cfg):
-            if decoder_smem_bytes(b, t, cfg, c, streamed) <= SMEM_MAX:
-                return DecoderPlan(c, GROUP_ROWS, -(-b // GROUP_ROWS), streamed)
+            if decoder_smem_bytes(b, t, cfg, c, streamed, tiled) <= SMEM_MAX:
+                return DecoderPlan(c, GROUP_ROWS, -(-b // GROUP_ROWS), streamed, tiled)
     return None
 
 
@@ -207,7 +224,9 @@ def decoder_plan(b: int, cfg: "SpellerConfig", t: int = 1) -> DecoderPlan:
     attention units and the attention layer into slices of a multiple of 4
     columns (16-byte loads) and whose held layout fits a block's shared
     memory (``decoder_smem_bytes`` ≤ ``SMEM_MAX``); where no cut's held
-    layout fits, the largest cut whose streamed layout does. Raises
+    layout fits, the largest cut whose streamed layout does; where none
+    does either (long encoder sequences, wide spellers), the largest cut
+    whose tiled layout does, which does not grow with T. Raises
     ``ValueError`` for widths the kernel does not take (every width a
     multiple of 4, the attention layer of 8: ``kernel_widths`` pads the
     others) and for a shape that no plan fits."""
@@ -225,8 +244,8 @@ def decoder_plan(b: int, cfg: "SpellerConfig", t: int = 1) -> DecoderPlan:
     if plan is None:
         c = _cuts(cfg)[0]
         raise ValueError(
-            f"the fused greedy decoder needs {decoder_smem_bytes(b, t, cfg, c, True)} bytes of shared memory a "
-            f"block at T={t}, V={cfg.vocab_size}, {cfg.num_layers} cell(s) of {cfg.units} (cluster {c}, streamed), "
+            f"the fused greedy decoder needs {decoder_smem_bytes(b, t, cfg, c, tiled=True)} bytes of shared memory "
+            f"a block at T={t}, V={cfg.vocab_size}, {cfg.num_layers} cell(s) of {cfg.units} (cluster {c}, tiled), "
             f"over the {SMEM_MAX} bytes a block may use"
         )
     return plan
@@ -393,8 +412,10 @@ def _launch(params, widths: DecoderWidths, memory, enc_mask, max_steps: int,
         cells += [column_slices(torch.cat([f32(cell.wx), f32(cell.wh)]), c, gates=4),
                   column_slices(f32(cell.b), c, gates=4)]
     cell_ptrs = torch.tensor([x.data_ptr() for x in cells], dtype=torch.int64, device=dev)
-    # the streamed layout's activations, a group's each, zero before the first step
+    # the streamed and tiled layouts' activations, a group's each, zero before
+    # the first step; the tiled layout's scores, a row's each
     act = torch.zeros((plan.groups, decoder_act_floats(kw)), device=dev) if plan.streamed else None
+    ws = torch.zeros((plan.groups * plan.rows, t), device=dev) if plan.tiled else None
     tokens = torch.empty((b, max_steps), dtype=torch.int32, device=dev)
     info = (ctypes.c_int * 4)()
     err = lib.plt_greedy_decode(
@@ -403,17 +424,19 @@ def _launch(params, widths: DecoderWidths, memory, enc_mask, max_steps: int,
         kw.embedding_dim, wq.data_ptr(), v.data_ptr(), attn_w.data_ptr(),
         kw.attention_layer_size, out_w.data_ptr(), out_b.data_ptr(),
         cell_ptrs.data_ptr(), len(params.cells), kw.units, kw.bos_id,
-        kw.eos_id, max_steps, c, int(plan.streamed), None if act is None else act.data_ptr(),
-        tokens.data_ptr(), info, None if clocks is None else clocks.data_ptr(),
+        kw.eos_id, max_steps, c, plan.layout, None if act is None else act.data_ptr(),
+        None if ws is None else ws.data_ptr(), tokens.data_ptr(), info, None if clocks is None else clocks.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "plt_greedy_decode")
     greedy_decode_fused.launches += 1
+    greedy_decode_fused.streamed_launches += plan.streamed and not plan.tiled  # of them, in each wide layout
+    greedy_decode_fused.tiled_launches += plan.tiled
     greedy_decode_fused.last_launch = {
-        "cluster": c, "rows": plan.rows, "groups": plan.groups, "streamed": plan.streamed,
+        "cluster": c, "rows": plan.rows, "groups": plan.groups, "streamed": plan.streamed, "tiled": plan.tiled,
         "kernel_widths": {k: getattr(kw, k) for k in ("embedding_dim", "units", "attention_units",
                                                         "attention_layer_size", "memory_dim")},
-        "smem_expected": decoder_smem_bytes(b, t, kw, c, plan.streamed),
+        "smem_expected": decoder_smem_bytes(b, t, kw, c, plan.streamed, plan.tiled),
         "max_active_clusters": info[0], "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3],
     }
     return tokens
@@ -445,4 +468,6 @@ def greedy_decode_fused(
 
 
 greedy_decode_fused.launches = 0
+greedy_decode_fused.streamed_launches = 0
+greedy_decode_fused.tiled_launches = 0
 greedy_decode_fused.last_launch = None  # plan and occupancy of the last launch, for reports

@@ -27,11 +27,13 @@ The forward kernel is one template launched as thread-block clusters: a
 cluster of C blocks runs one direction for a tile of Bt batch rows over
 all T steps, block c owning units ``[c·U/C, (c+1)·U/C)`` with their four
 gate columns and holding that slice of ``wh`` in shared memory for the
-whole time loop where it fits (U up to 256 in float32), else streaming it
-from L2 at every step (up to U = 1024, where a block's float32 slice is
-2 MB): up to U = 512 by the threads' own loads, past it (float32) through
-a ring of bulk copies that a producer warp keeps filled
-(``lstm_fwd_ring_kernel``, clusters of up to 16 blocks); each step the
+whole time loop where it fits (U up to 256 in float32, 384 in bf16), else
+streaming it from L2 at every step (up to U = ``MAX_UNITS`` = 2048): in
+float32 up to U = 512 by the threads' own loads, past it through a ring of
+bulk copies that a producer warp keeps filled (``lstm_fwd_ring_kernel``,
+clusters of up to 16 blocks); in bf16 past ``RING_UNITS_BF16`` through the
+same ring on the tensor cores (``lstm_fwd_ring_bf16_kernel``, the slice in
+``ring_fragments``' order); each step the
 blocks exchange their h slices through distributed shared memory
 (``st.async`` onto transaction barriers). The VJP's serial loop is the
 same design run backwards in time: block c multiplies the gate gradients
@@ -198,6 +200,15 @@ def _recurrence_loop(xp_tm, mask_tm, wh, forget_bias, reverse, prec, save_res):
     return out, hprev, cprev, h, c
 
 
+def _count(fn, prec: str, plan) -> None:
+    """One launch of a wrapper's kernel, counted on the wrapper: in all, in
+    bf16 mode, through the float32 ring and through the bf16 ring."""
+    fn.launches += 1
+    fn.bf16_launches += prec == "bf16"
+    fn.ring_launches += plan.ring and prec != "bf16"
+    fn.bf16_ring_launches += plan.ring and prec == "bf16"
+
+
 def recurrence_plain(
     xp_tm: torch.Tensor,  # [T, B, 4U] time-major projected input (bias included)
     mask_tm: torch.Tensor,  # [T, B] 1.0 for valid steps
@@ -266,13 +277,14 @@ def recurrence(
     if not check_kernel_device(xp_tm, mask_tm, wh):
         return recurrence_plain(xp_tm, mask_tm, wh, forget_bias, reverse, prec)
     (out, _, _, h, c), = _launch_forward("plt_lstm_recurrence", [xp_tm], mask_tm, [wh], forget_bias, [reverse], prec)
-    recurrence.launches += 1
-    recurrence.bf16_launches += prec == "bf16"  # of them, in bf16 mode
+    _count(recurrence, prec, _launch_forward.last_plan)
     return out, (h, c)
 
 
 recurrence.launches = 0
 recurrence.bf16_launches = 0
+recurrence.ring_launches = 0
+recurrence.bf16_ring_launches = 0
 
 
 def recurrence_residual_plain(xps, mask_tm, whs, forget_bias, reverse, prec="highest"):
@@ -308,13 +320,14 @@ def recurrence_residual(
     if not check_kernel_device(*xps, mask_tm, *whs):
         return recurrence_residual_plain(xps, mask_tm, whs, forget_bias, reverse, prec)
     res = _launch_forward("plt_lstm_residual", xps, mask_tm, whs, forget_bias, reverse, prec)
-    recurrence_residual.launches += 1
-    recurrence_residual.bf16_launches += prec == "bf16"  # of them, in bf16 mode
+    _count(recurrence_residual, prec, _launch_forward.last_plan)
     return res
 
 
 recurrence_residual.launches = 0
 recurrence_residual.bf16_launches = 0
+recurrence_residual.ring_launches = 0
+recurrence_residual.bf16_ring_launches = 0
 
 
 # the forward kernel's constants, as csrc/lstm.cu has them
@@ -323,23 +336,37 @@ SMEM_MAX = 232448  # dynamic shared memory a block may use on the H100
 CLUSTER_SIZES = (8, 4, 2, 1)  # tried in this order; 8 is the portable maximum
 ROW_TILES = (8, 16)
 XP_RING = 3  # xp tiles a block keeps in flight
-MAX_UNITS = 1024  # the widest U the kernels take (csrc/lstm.cu's bad_shape)
+# the widest U the kernels take (csrc/lstm.cu's bad_shape): every route,
+# float32 and bf16, forward, residual and the VJP's loop, has a plan at
+# every multiple of 8 up to it; at the next one the VJP's loop has none, its
+# partial dh being U wide: a ring chunk of four rows of whᵀ (U floats each)
+# passes a 32 KB slot in float32, and in bf16 a consumer warp's n-tiles of
+# it pass the 32 its kernels are built for (tests/test_torch_wide_kernels.py
+# derives it)
+MAX_UNITS = 2048
 # the ring: a streamed slice of wh through bulk copies, csrc/lstm.cu's
-# lstm_fwd_ring_kernel / lstm_bwd_ring_kernel
+# lstm_fwd_ring_kernel / lstm_bwd_ring_kernel and, in bf16 on the tensor
+# cores, lstm_fwd_ring_bf16_kernel / lstm_bwd_ring_bf16_kernel
 RESIDENT_UNITS = 256  # the widest float32 U whose slices a cluster holds in shared memory
 # float32 past this U takes the ring; up to it the template streams its
 # slice by the threads' loads (on the H100 the template measured faster at
 # U = 512, the ring at 1024: PERF.md)
 RING_UNITS = 512
-RING_CLUSTER_SIZES = (16, 8, 4, 2)  # 16 (non-portable) only where the grid runs in one wave
+# bf16 past this U takes the ring; up to it the template holds its slice
+# (U <= 384); past the template's last layout (U ≈ 1280) the ring is the
+# only route (on the H100 the ring measured faster than the template's
+# streamed slice at U = 448, 512 and 1024: PERF.md)
+RING_UNITS_BF16 = 384
+RING_CLUSTER_SIZES = (16, 8, 4, 2)  # 16 (non-portable) where the grid runs in one wave, or nothing else fits
 RING_ROW_TILES = (8, 16, 24)  # a consumer thread takes every row of the tile
 RING_CHUNK_MAX = 32768  # bytes of a ring slot at most
-RING_KS_MAX = 8  # k parts at most
+RING_KS_MAX = 8  # k parts at most (bf16: pieces of the n-tiles)
 RING_SMEM_MAX = SMEM_MAX - 1024  # a ring kernel's dynamic shared memory: its barriers are static
 # the step's cost a ring plan is chosen by, in SM cycles (H100 SXM at 1980
 # MHz; the two rates as the listener kernels' streamed routes measured them,
 # PERF.md)
 FMA_PER_CYCLE = 128  # float32 FMA lanes of an SM
+MMA_FMA_PER_CYCLE = 1024  # bf16 multiply-adds an SM's tensor cores run a cycle through mma.sync (about half the peak)
 L2_BYTES_PER_CYCLE = 2800  # the card's L2 read rate, ≈ 5.5 TB/s
 SM_BYTES_PER_CYCLE = 22  # what one SM of a cluster of 16 takes in from L2
 
@@ -394,19 +421,22 @@ def ungroup_wh(wg: torch.Tensor) -> torch.Tensor:
     return wg.reshape(c, u, 4, nc // 4).permute(1, 2, 0, 3).reshape(u, 4 * u).contiguous()
 
 
-def _kernel_wh(wh: torch.Tensor, c: int, prec: str) -> torch.Tensor:
+def _kernel_wh(wh: torch.Tensor, c: int, prec: str, plan: Optional["ForwardPlan"] = None) -> torch.Tensor:
     """``wh`` as the forward kernel reads it: float32 ``[C, U, 4·U/C]``, or
     for the tensor cores bf16 ``[C, 4·U/C, K]`` with k contiguous and zero
-    padded to K = U rounded up to 16."""
+    padded to K = U rounded up to 16; for the bf16 ring (``plan``) that
+    slice in ``ring_fragments``' order."""
     wg = regroup_wh(wh.detach(), c)
     if prec != "bf16":
         return wg.to(torch.float32).contiguous()
     u = wg.shape[1]
-    wt = wg.to(torch.bfloat16).transpose(1, 2)
-    return torch.nn.functional.pad(wt, (0, -u % 16)).contiguous()
+    wt = torch.nn.functional.pad(wg.to(torch.bfloat16).transpose(1, 2), (0, -u % 16))
+    if plan is not None and plan.ring:
+        return ring_fragments(wt, plan.ksplit, ring_slots(u, c, plan.bt, plan.ksplit, bf16=True)[0])
+    return wt.contiguous()
 
 
-def ring_slots(u: int, c: int, bt: int, ksplit: int, bwd: bool = False) -> Tuple[int, int]:
+def ring_slots(u: int, c: int, bt: int, ksplit: int, bwd: bool = False, bf16: bool = False) -> Tuple[int, int]:
     """The ring's shared memory, as ``fwd_ring_layout`` and
     ``bwd_ring_layout`` of csrc/lstm.cu → (rows of a ring chunk, bytes in
     all). Besides the ring, the forward holds one h buffer [Bt, U], one sum
@@ -417,16 +447,35 @@ def ring_slots(u: int, c: int, bt: int, ksplit: int, bwd: bool = False) -> Tuple
     parts (a part takes whole chunks); a chunk holds the most rows of wh (U
     of them, Nc floats each) or of whᵀ (Nc rows of U floats), a multiple of
     4, that fit, at most ``RING_CHUNK_MAX`` bytes and the rows a part takes
-    in a pass; fewer than 4 rows do not fit."""
+    in a pass; fewer than 4 rows do not fit.
+
+    ``bf16``: h (or dgates) is bf16 in 16-row tiles, rows padded by 8
+    values; the forward's [Bt, Nc] holds the product, the VJP keeps no k
+    parts; a "row" of a chunk is a k step of 16 of one piece (``ksplit``
+    pieces of the n-tiles: Nc / 8 forward, U / 8 rounded up to 2 the VJP's,
+    256 bytes a tile), two slots a piece where they fit, else one slot more
+    than pieces; fewer than 1 k step does not fit."""
     us = u // c
     nc = 4 * us
+    mt = -(-bt // 16)
     if bwd:
-        used = bt * u * 4 + bt * nc * 4 + (bt * u * 4 if ksplit > 1 else 0) + (bt * (nc + 3 * us) + bt) * 4
+        dg = 16 * mt * (nc + 8) * 2 if bf16 else bt * nc * 4
+        used = bt * u * 4 + dg + (bt * u * 4 if ksplit > 1 and not bf16 else 0) + (bt * (nc + 3 * us) + bt) * 4
         row_bytes, k = u * 4, nc
     else:
-        used = bt * u * 4 + bt * nc * 4 + (bt * nc + bt) * 4
+        h = 16 * mt * (-(-u // 16) * 16 + 8) * 2 if bf16 else bt * u * 4
+        used = h + bt * nc * 4 + (bt * nc + bt) * 4
         row_bytes, k = nc * 4, u
     used += 2 * bt * us * 4
+    if bf16:
+        nt = (-(-u // 16) * 16 if bwd else nc) // 8
+        kstep, k16 = nt // ksplit * 256, (nc if bwd else -(-u // 16) * 16) // 16
+        for ns in (2 * ksplit, ksplit + 1):
+            per = min(RING_CHUNK_MAX, max(0, RING_SMEM_MAX - used) // ns)
+            kc = min(per // kstep, k16)
+            if kc >= 1:
+                break
+        return kc, used + ns * kc * kstep
     ns = 2 * ksplit
     per = min(RING_CHUNK_MAX, max(0, RING_SMEM_MAX - used) // ns)
     kc = min(per // row_bytes // 4 * 4, (-(-k // ksplit) + 3) // 4 * 4)
@@ -440,6 +489,41 @@ def _ring_ksplit(cols: int) -> int:
     return min(RING_KS_MAX, FWD_THREADS // cols) if cols <= FWD_THREADS else 0
 
 
+def ring_cw4(u: int) -> int:
+    """Groups of 4 units of the partial dh a thread of the VJP's float32 ring
+    owns (csrc/lstm.cu::ring_cw4): ceil(U / 1024), so that U / (4·cw4) ≤ 256
+    threads hold all U; the kernels are built for 1 and 2."""
+    return -(-u // 1024)
+
+
+def bf16_ring_ntw(nt: int, mt: int, bwd: bool) -> int:
+    """The bf16 ring's bound on a consumer warp's n-tiles (csrc/lstm.cu::
+    bf16_ring_ntw): ``nt`` / 8 rounded up to a built instance, 2, 4, 8 or
+    16 forward, 8, 16 or 32 the VJP with one 16-row tile (``mt``); 2, 4 or
+    8 forward, 8 the VJP with two; 0 where none is built."""
+    need, ntw = -(-nt // 8), 8 if bwd else 2
+    while ntw <= (8 if mt == 2 else 32 if bwd else 16):
+        if need <= ntw:
+            return ntw
+        ntw *= 2
+    return 0
+
+
+def ring_fragments(w: torch.Tensor, ksplit: int, kc: int) -> torch.Tensor:
+    """A bf16 slice ``w [C, N, K]`` (N a multiple of 8: the product's
+    columns; K a multiple of 16: the contraction) in the order the bf16 ring
+    streams it: k steps of 16, each the N / 8 column tiles, each the 32
+    lanes' B fragments of ``mma.m16n8k16`` (lane 4·g + t holds column g's
+    k = 2t, 2t + 1, 2t + 8, 2t + 9), the tiles cut into ``ksplit`` pieces;
+    chunks of ``kc`` k steps of one piece, group after group, piece after
+    piece → [C, K·N] contiguous."""
+    c, n, k = w.shape
+    x = w.reshape(c, n // 8, 8, k // 16, 2, 4, 2).permute(0, 3, 1, 2, 5, 4, 6)  # [C, K16, NT, g, t, half, pair]
+    x = x.reshape(c, k // 16, ksplit, n // 8 // ksplit, 128)
+    groups = [x[:, g0:g0 + kc].transpose(1, 2).reshape(c, -1) for g0 in range(0, k // 16, kc)]
+    return torch.cat(groups, 1).contiguous()
+
+
 def forward_smem_bytes(u: int, c: int, bt: int, ksplit: int, resident: bool, bf16: bool, ring: bool = False) -> int:
     """A block's dynamic shared memory, as ``fwd_layout`` of csrc/lstm.cu
     lays it out: the wh slice (when resident), two h buffers, the partial
@@ -448,7 +532,7 @@ def forward_smem_bytes(u: int, c: int, bt: int, ksplit: int, resident: bool, bf1
     us = u // c
     nc = 4 * us
     if ring:
-        return ring_slots(u, c, bt, ksplit)[1]
+        return ring_slots(u, c, bt, ksplit, bf16=bf16)[1]
     kp = -(-u // 16) * 16
     if bf16:
         w = nc * (kp + 8) * 2
@@ -469,51 +553,87 @@ def _ksplit(u: int, c: int, bt: int, bf16: bool) -> int:
     return max(1, min(16, FWD_THREADS // items, u // 4))
 
 
-def _ring_step_cycles(u: int, c: int, bt: int, ksplit: int, cols: int, clusters: int, active: int) -> float:
+def _ring_step_cycles(u: int, c: int, bt: int, ksplit: int, cols: int, clusters: int, active: int,
+                      bf16: bool = False) -> float:
     """The ring's step in SM cycles: the product's float32 FMAs a block on
-    its busy threads, against the L2 reads of a wave (every block reads its
-    slice of wh, 16·U²/C bytes) at the card's rate and at one SM's, times
-    the waves."""
-    slice_bytes = 16 * u * u // c
-    fma = bt * 4 * u * u / c / (FMA_PER_CYCLE * min(1.0, ksplit * cols / FWD_THREADS))
+    its busy threads (bf16: the tensor cores' multiply-adds on 16-row
+    tiles), against the L2 reads of a wave (every block reads its slice of
+    wh, 16·U²/C bytes, bf16 8·U²/C) at the card's rate and at one SM's,
+    times the waves."""
+    slice_bytes = (8 if bf16 else 16) * u * u // c
+    if bf16:
+        fma = 16 * -(-bt // 16) * 4 * u * u / c / MMA_FMA_PER_CYCLE
+    else:
+        fma = bt * 4 * u * u / c / (FMA_PER_CYCLE * min(1.0, ksplit * cols / FWD_THREADS))
     l2 = max(min(clusters, active) * c * slice_bytes / L2_BYTES_PER_CYCLE, slice_bytes / SM_BYTES_PER_CYCLE)
     return -(-clusters // active) * max(fma, l2)
 
 
-def _ring_plan(u: int, b: int, nd: int, bwd: bool, max_active):
+def _ring_fits(up: int, c: int, bt: int, bwd: bool, bf16: bool) -> Optional[Tuple[int, int, int]]:
+    """(k parts or pieces, column groups a part, shared memory) of the
+    ring at a kernel U, C and Bt, or None where its kernels take no such
+    plan (csrc/lstm.cu's bad_plan / bad_bwd_plan). float32: a thread's 4
+    columns (the VJP's: ``ring_cw4`` groups of 4, Bt·cw4 ≤ 24); bf16: the
+    fewest pieces of the n-tiles whose chunks fit."""
+    if bf16:
+        nt = (round_up(up, 16) if bwd else 4 * up // c) // 8
+        if not bf16_ring_ntw(nt, -(-bt // 16), bwd):
+            return None
+        for ks in (1, 2, 4, 8):
+            if nt % ks == 0:
+                kc, smem = ring_slots(up, c, bt, ks, bwd, True)
+                if kc >= 1 and smem <= RING_SMEM_MAX:
+                    return ks, 0, smem
+        return None
+    cw4 = ring_cw4(up) if bwd else 1
+    if cw4 > 2 or bt * cw4 > 24:
+        return None
+    cols = up // (4 * cw4) if bwd else up // c
+    ks = _ring_ksplit(cols)
+    if not ks:
+        return None
+    kc, smem = ring_slots(up, c, bt, ks, bwd)
+    return (ks, cols, smem) if kc >= 4 else None
+
+
+def _ring_plan(u: int, b: int, nd: int, bwd: bool, max_active, bf16: bool = False):
     """The ring's cheapest plan by ``_ring_step_cycles``
     over C in ``RING_CLUSTER_SIZES`` (U zero padded to slices of a multiple
     of 8 units where C does not cut it so) and Bt in ``RING_ROW_TILES``, or
     None. Clusters of 16 only where ``max_active(plan)`` says the grid runs
     in one wave; without it none, and the clusters of 8 or fewer count as
-    one wave. A thread takes 4 of the product's columns: a block's 4·U/C
-    gate columns forward, the U units of the partial dh backward."""
+    one wave. Where nothing else fits (U past 1024), clusters of 16 in any
+    number of waves. A thread takes 4 of the product's columns: a block's
+    4·U/C gate columns forward, the U units of the partial dh backward
+    (``ring_cw4`` groups of 4 past U = 1024); bf16 warps take n-tiles."""
     make = BackwardPlan if bwd else ForwardPlan
-    best, best_cost = None, None
-    for c in RING_CLUSTER_SIZES:
-        up = kernel_units(u, c)
-        cols = up // 4 if bwd else up // c
-        ks = _ring_ksplit(cols)
-        if not ks:
-            continue
-        for bt in RING_ROW_TILES:
-            kc, smem = ring_slots(up, c, bt, ks, bwd)
-            if kc < 4:
+    for any_waves in (False, True):
+        best, best_cost = None, None
+        for c in RING_CLUSTER_SIZES:
+            if any_waves and c <= 8:
                 continue
-            plan = make(c, bt, ks, False, smem, up, True)
-            clusters = -(-b // bt) * nd
-            if max_active is None:
-                if c > 8:
+            up = kernel_units(u, c)
+            for bt in RING_ROW_TILES:
+                fit = _ring_fits(up, c, bt, bwd, bf16)
+                if fit is None:
                     continue
-                active = clusters
-            else:
-                active = max_active(plan)
-                if active < 1 or (c > 8 and clusters > active):
-                    continue
-            cost = _ring_step_cycles(up, c, bt, ks, cols, clusters, active)
-            if best is None or cost < best_cost:
-                best, best_cost = plan, cost
-    return best
+                ks, cols, smem = fit
+                plan = make(c, bt, ks, False, smem, up, True)
+                clusters = -(-b // bt) * nd
+                if max_active is None:
+                    if c > 8 and not any_waves:
+                        continue
+                    active = clusters if c <= 8 else 1
+                else:
+                    active = max_active(plan)
+                    if active < 1 or (c > 8 and clusters > active and not any_waves):
+                        continue
+                cost = _ring_step_cycles(up, c, bt, ks, cols, clusters, active, bf16)
+                if best is None or cost < best_cost:
+                    best, best_cost = plan, cost
+        if best is not None:
+            return best
+    return None
 
 
 def _choose_tile(fits, b: int, nd: int, max_active):
@@ -549,18 +669,20 @@ def forward_plan(
     at once, as ``max_active(C, Bt, ksplit, resident)`` says for the
     plan's kernel U (on the card: ``cudaOccupancyMaxActiveClusters``);
     without that knowledge, or if no tile fits in one wave, the largest
-    tile that fits in shared memory. Float32 past ``RING_UNITS`` takes the
-    ring's cheapest plan instead (``_ring_plan``; its ``max_active`` gets a
-    fifth argument, True); ``ring=True`` takes it past ``RESIDENT_UNITS``,
-    ``ring=False`` never (the two routes of a streamed slice, for
-    comparisons). Raises ``ValueError`` for a U outside that range."""
+    tile that fits in shared memory. Float32 past ``RING_UNITS`` and bf16
+    past ``RING_UNITS_BF16`` take the ring's cheapest plan instead
+    (``_ring_plan``; its ``max_active`` gets a fifth argument, True), as
+    does a U past the template's last layout; ``ring=True`` takes it past
+    ``RESIDENT_UNITS``, ``ring=False`` never (the two routes of a streamed
+    slice, for comparisons). Raises ``ValueError`` for a U outside that
+    range."""
     _check_prec(prec)
     _check_units(u)
     bf16 = prec == "bf16"
-    if (u > RING_UNITS if ring is None else ring) and not bf16 and u > RESIDENT_UNITS:
-        active = None if max_active is None else (
-            lambda p: max_active(p.cluster, p.bt, p.ksplit, p.resident, True))
-        plan = _ring_plan(u, b, nd, False, active)
+    active = None if max_active is None else (
+        lambda p: max_active(p.cluster, p.bt, p.ksplit, p.resident, True))
+    if _ring_first(u, bf16, ring):
+        plan = _ring_plan(u, b, nd, False, active, bf16)
         if plan is not None:
             return plan
     for c, resident, units in _plan_candidates(u):
@@ -571,9 +693,19 @@ def forward_plan(
             if smem <= SMEM_MAX:
                 fits.append(ForwardPlan(c, bt, ks, resident, smem, units))
         if fits:
-            active = None if max_active is None else (lambda p: max_active(p.cluster, p.bt, p.ksplit, p.resident))
-            return _choose_tile(fits, b, nd, active)
-    raise ValueError(f"no plan of the forward kernel fits U={u} in shared memory")
+            return _choose_tile(fits, b, nd, None if max_active is None else (
+                lambda p: max_active(p.cluster, p.bt, p.ksplit, p.resident)))
+    plan = None if ring is False else _ring_plan(u, b, nd, False, active, bf16)  # past the template's last layout
+    if plan is None:
+        raise ValueError(f"no plan of the forward kernel fits U={u} in shared memory")
+    return plan
+
+
+def _ring_first(u: int, bf16: bool, ring: Optional[bool]) -> bool:
+    """Whether a plan tries the ring before the template: past
+    ``RING_UNITS`` (bf16: ``RING_UNITS_BF16``), or as ``ring`` forces it,
+    and never for a slice a cluster holds (U ≤ ``RESIDENT_UNITS``)."""
+    return (u > (RING_UNITS_BF16 if bf16 else RING_UNITS) if ring is None else ring) and u > RESIDENT_UNITS
 
 
 def _route(plan) -> int:
@@ -622,7 +754,7 @@ def _launch_forward(entry, xps, mask_tm, whs, forget_bias, reverse, prec, plan: 
     up = plan.units
     wdt = torch.bfloat16 if bf16 else torch.float32
     xps = [pad_gates(x, u, up).contiguous() for x in xps]
-    whs = [_kernel_wh(pad_lstm_wh(w.detach(), up), plan.cluster, prec) for w in whs]
+    whs = [_kernel_wh(pad_lstm_wh(w.detach(), up), plan.cluster, prec, plan) for w in whs]
     mask = mask_tm.contiguous()
     dev = xps[0].device
     outs = [torch.empty((t, b, up), dtype=torch.float32, device=dev) for _ in range(nd)]
@@ -665,18 +797,22 @@ class BackwardPlan(NamedTuple):
 BWD_RING = 2  # tiles of factors, dout and mask a block keeps: one in use, one in flight
 
 
-def _kernel_wht(wh: torch.Tensor, c: int, prec: str) -> torch.Tensor:
+def _kernel_wht(wh: torch.Tensor, c: int, prec: str, plan: Optional["BackwardPlan"] = None) -> torch.Tensor:
     """The slices of ``whᵀ`` as the VJP's loop kernel reads them. Block s
     multiplies the gate gradients of its units (its 4·U/C columns, in
     ``regroup_wh``'s order) by the matching rows of ``whᵀ``: float32
     ``[C, 4·U/C, U]`` (U contiguous), or for the tensor cores bf16
     ``[C, Up, 4·U/C]`` with the contracted gate columns contiguous and the
-    units zero padded to Up = U rounded up to 16."""
+    units zero padded to Up = U rounded up to 16; for the bf16 ring
+    (``plan``) that slice in ``ring_fragments``' order."""
     wg = regroup_wh(wh.detach(), c)  # [C, U, 4·Us]
     if prec != "bf16":
         return wg.to(torch.float32).transpose(1, 2).contiguous()
     u = wg.shape[1]
-    return torch.nn.functional.pad(wg.to(torch.bfloat16), (0, 0, 0, -u % 16)).contiguous()
+    wp = torch.nn.functional.pad(wg.to(torch.bfloat16), (0, 0, 0, -u % 16))
+    if plan is not None and plan.ring:
+        return ring_fragments(wp, plan.ksplit, ring_slots(u, c, plan.bt, plan.ksplit, bwd=True, bf16=True)[0])
+    return wp.contiguous()
 
 
 def backward_smem_bytes(u: int, c: int, bt: int, ksplit: int, resident: bool, bf16: bool,
@@ -688,7 +824,7 @@ def backward_smem_bytes(u: int, c: int, bt: int, ksplit: int, resident: bool, bf
     dout and two more factors a unit, then the mask) and the kept dh and
     dc; the ring's layout is ``ring_slots``'."""
     if ring:
-        return ring_slots(u, c, bt, ksplit, bwd=True)[1]
+        return ring_slots(u, c, bt, ksplit, bwd=True, bf16=bf16)[1]
     us = u // c
     nc = 4 * us
     up = -(-u // 16) * 16
@@ -733,14 +869,15 @@ def backward_plan(
     clusters the card runs at once, as ``max_active(plan)`` says (on the
     card: ``cudaOccupancyMaxActiveClusters``); without that knowledge, or
     if no tile fits in one wave, the largest tile that fits in shared
-    memory. Float32 past ``RING_UNITS`` takes the ring's cheapest plan
-    instead (``_ring_plan``; ``ring`` as ``forward_plan``'s). Raises
+    memory. Float32 past ``RING_UNITS`` and bf16 past ``RING_UNITS_BF16``
+    take the ring's cheapest plan instead, as does a U past the template's
+    last layout (``_ring_plan``; ``ring`` as ``forward_plan``'s). Raises
     ``ValueError`` for a U outside that range."""
     _check_prec(prec)
     _check_units(u)
     bf16 = prec == "bf16"
-    if (u > RING_UNITS if ring is None else ring) and not bf16 and u > RESIDENT_UNITS:
-        plan = _ring_plan(u, b, nd, True, max_active)
+    if _ring_first(u, bf16, ring):
+        plan = _ring_plan(u, b, nd, True, max_active, bf16)
         if plan is not None:
             return plan
     for c, resident, units in _plan_candidates(u):
@@ -754,7 +891,10 @@ def backward_plan(
                 fits.append(BackwardPlan(c, bt, ks, resident, smem, units))
         if fits:
             return _choose_tile(fits, b, nd, max_active)
-    raise ValueError(f"no plan of the VJP's loop kernel fits U={u} in shared memory")
+    plan = None if ring is False else _ring_plan(u, b, nd, True, max_active, bf16)  # past the template's last layout
+    if plan is None:
+        raise ValueError(f"no plan of the VJP's loop kernel fits U={u} in shared memory")
+    return plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -851,13 +991,14 @@ def recurrence_bwd(
     if not check_kernel_device(*xps, mask_tm, *whs, *hprevs, *cprevs, *douts, *dhfins, *dcfins):
         return recurrence_bwd_plain(*args)
     res = _launch_backward(*args)
-    recurrence_bwd.launches += 1
-    recurrence_bwd.bf16_launches += prec == "bf16"  # of them, in bf16 mode
+    _count(recurrence_bwd, prec, _launch_backward.last_plan)
     return res
 
 
 recurrence_bwd.launches = 0
 recurrence_bwd.bf16_launches = 0
+recurrence_bwd.ring_launches = 0
+recurrence_bwd.bf16_ring_launches = 0
 
 
 def _launch_backward(xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins, forget_bias, reverse, prec,
@@ -888,7 +1029,7 @@ def _launch_backward(xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins, f
     douts, dhfins, dcfins = f32(douts), f32(dhfins), f32(dcfins)
     whs = [pad_lstm_wh(w.detach(), up) for w in whs]
     whs_d = [w.to(wdt).contiguous() for w in whs]
-    whgs = [_kernel_wht(w, plan.cluster, prec) for w in whs]
+    whgs = [_kernel_wht(w, plan.cluster, prec, plan) for w in whs]
     whts = [w.t().contiguous() for w in whs_d] if bf16 else []  # the tensor-core gates GEMM reads k contiguous
     hprevs = [pad_units(x, u, up).contiguous() for x in hprevs]
     cprevs = [pad_units(x, u, up).contiguous() for x in cprevs]
@@ -994,8 +1135,7 @@ def _(xpf_tm, xpb_tm, mask_tm, whf, whb, forget_bias, prec):
     (out_f, _, _, hf, cf), (out_b, _, _, hb, cb) = _launch_forward(
         "plt_lstm_recurrence", [xpf_tm, xpb_tm], mask_tm, [whf, whb], forget_bias, [False, True], prec
     )
-    bidir_recurrence.launches += 1
-    bidir_recurrence.bf16_launches += prec == "bf16"  # of them, in bf16 mode
+    _count(bidir_recurrence, prec, _launch_forward.last_plan)
     return out_f, out_b, hf, cf, hb, cb
 
 
@@ -1044,6 +1184,8 @@ def bidir_recurrence(
 
 bidir_recurrence.launches = 0
 bidir_recurrence.bf16_launches = 0
+bidir_recurrence.ring_launches = 0
+bidir_recurrence.bf16_ring_launches = 0
 
 
 def _project_tm(p: LSTMParams, x: torch.Tensor) -> torch.Tensor:

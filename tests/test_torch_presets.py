@@ -265,16 +265,22 @@ def test_every_preset_fits_the_decoder(what, v, n_cells, t):
 @pytest.mark.parametrize("v,n_cells,t", [(2881, 2, 438), (2913, 1, 438), (120, 1, 17161), (34, 2, 17005)])
 def test_decoder_plan_refuses_what_no_cluster_fits(v, n_cells, t):
     """Past the largest vocabulary (2880 with two cells, 2912 with one at
-    T_enc = 438) or encoder length (17160 at V = 120, 17004 at V = 34), no
-    cluster size fits in either layout (the streamed one holds no cell
-    state, context or out_w slice whole: these limits were 480, 640, 9064
-    and 7900 with the held layout alone): ``decoder_plan`` raises before
-    any launch, naming the bytes and the limit; one less fits."""
+    T_enc = 438), no cluster size fits in any layout (the streamed one
+    holds no cell state, context or out_w slice whole: these limits were
+    480 and 640 with the held layout alone; the tiled one saves nothing
+    that grows with V): ``decoder_plan`` raises before any launch, naming
+    the bytes and the limit; one less fits. Past the longest encoder
+    sequence the streamed layout holds (17160 at V = 120, 17004 at V = 34;
+    once the port's limit, fault C9) the tiled layout takes it, at C = 8,
+    while one position less stays streamed."""
     cfg = _speller(v, n_cells)
-    with pytest.raises(ValueError, match=f"bytes of shared memory.*over the {FG.SMEM_MAX} bytes"):
-        FG.decoder_plan(8, cfg, t)
-    smaller = (_speller(v - 1, n_cells), t) if t < 1000 else (cfg, t - 1)
-    assert FG.decoder_plan(8, smaller[0], smaller[1]).cluster == 8
+    if t < 1000:
+        with pytest.raises(ValueError, match=f"bytes of shared memory.*over the {FG.SMEM_MAX} bytes"):
+            FG.decoder_plan(8, cfg, t)
+        assert FG.decoder_plan(8, _speller(v - 1, n_cells), t).cluster == 8
+    else:
+        assert FG.decoder_plan(8, cfg, t) == FG.DecoderPlan(8, 8, 1, True, True)
+        assert FG.decoder_plan(8, cfg, t - 1) == FG.DecoderPlan(8, 8, 1, True, False)
 
 
 def test_decoder_smem_bytes_shrinks_with_the_cluster():

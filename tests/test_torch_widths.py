@@ -1,7 +1,9 @@
 """The reference's width flags on the port's kernels, on the CPU.
 
-The listener kernels take every U that is a multiple of 8 up to 1024 (past
-256 in float32 each block of a cluster streams its slice of wh from L2),
+The listener kernels take every U that is a multiple of 8 up to
+``MAX_UNITS`` = 2048 (past 256 in float32 each block of a cluster streams
+its slice of wh from L2; float32 past 512 and bf16 past 384 through the
+ring of bulk copies),
 the decoder kernel the LAS-4-1024 speller (U = A = 1024, M = 2048) in its
 streamed layout, and the wrappers pad any other width with zeros. Here:
 the plans over that whole range; the streamed cluster decomposition
@@ -70,13 +72,14 @@ W100 = {"encoder_units": 100, "decoder_units": 36, "attention_units": 60, "embed
 @pytest.mark.parametrize("prec", ["highest", "bf16"])
 @pytest.mark.parametrize("which", ["forward", "backward"])
 def test_plans_take_every_width_to_1024(which, prec):
-    """Every U that is a multiple of 8 from 8 to 1024 has a plan in both
-    modes, at the serving and the training batch: its bytes are the
-    layout's mirror and fit a block, its kernel U is U or (a prime number
-    of 8-unit slices past what one block holds, or a cut of the ring that
-    U does not divide into slices of 8) a wider multiple of 8·C; float32
-    past 512 takes the ring, nothing else does; past 1024, and for a U that
-    is no multiple of 8, the plans raise."""
+    """Every U that is a multiple of 8 from 8 to ``MAX_UNITS`` (2048) has a
+    plan in both modes, at the serving and the training batch: its bytes
+    are the layout's mirror and fit a block, its kernel U is U or (a prime
+    number of 8-unit slices past what one block holds, or a cut of the ring
+    that U does not divide into slices of 8) a wider multiple of 8·C;
+    float32 past 512 and bf16 past ``RING_UNITS_BF16`` take the ring,
+    nothing else does; past ``MAX_UNITS``, and for a U that is no multiple
+    of 8, the plans raise."""
     plan_fn = L.forward_plan if which == "forward" else L.backward_plan
     smem_fn = L.forward_smem_bytes if which == "forward" else L.backward_smem_bytes
     streamed = 0
@@ -87,14 +90,14 @@ def test_plans_take_every_width_to_1024(which, prec):
             assert p.smem <= L.SMEM_MAX
             assert p.units >= u and p.units % (8 * p.cluster) == 0
             assert p.units == u or u % (8 * p.cluster)  # padded only where the plan's cut does not divide U
-            assert p.ring == (prec == "highest" and u > L.RING_UNITS)
+            assert p.ring == (u > (L.RING_UNITS if prec == "highest" else L.RING_UNITS_BF16))
             streamed += not p.resident
     assert streamed > 0
     # the flagship widths keep their plans; the widest is cut 8 ways and streams
     assert plan_fn(32, 256, 2, prec).resident and plan_fn(32, 256, 2, prec).cluster == 8
     wide = plan_fn(64, 1024, 2, prec)
     assert (wide.cluster, wide.resident, wide.units) == (8, False, 1024)
-    for u in (1032, 2048, 100, 0):
+    for u in (L.MAX_UNITS + 8, 2 * L.MAX_UNITS, 100, 0):
         with pytest.raises(ValueError):
             plan_fn(8, u, 1, prec)
 
@@ -163,11 +166,27 @@ def test_ring_plans_run_in_one_wave(which, u, b, nd):
     assert kc >= 4 and kc % 4 == 0 and q.smem == smem <= L.RING_SMEM_MAX
 
 
-def _declared_ring_bytes(u, c, bt, ks, bwd):
+def _declared_ring_bytes(u, c, bt, ks, bwd, bf16=False):
     """A block's shared memory as ``fwd_ring_layout`` / ``bwd_ring_layout``
-    of csrc/lstm.cu declare it, region by region, and the ring's chunk rows."""
+    of csrc/lstm.cu declare it, region by region, and the ring's chunk rows
+    (bf16: its k steps of a piece, ``ring_bf16``)."""
     us, f = u // c, 4
     nc = 4 * us
+    if bf16:
+        up, mt = -(-u // 16) * 16, -(-bt // 16)
+        if bwd:
+            regions = [bt * u * f, 16 * mt * (nc + 8) * 2, (bt * (nc + 3 * us) + bt) * f, bt * us * f, bt * us * f]
+            step, depth = up // 8 // ks * 256, nc // 16
+        else:
+            regions = [16 * mt * (up + 8) * 2, bt * nc * f, (bt * nc + bt) * f, bt * us * f, bt * us * f]
+            step, depth = nc // 8 // ks * 256, up // 16
+        used = sum(regions)
+        for slots in (2 * ks, ks + 1):
+            per = min(_cu_constant("RING_CHUNK_MAX"), (_cu_constant("SMEM_MAX") - 1024 - used) // slots)
+            kc = min(per // step, depth)
+            if kc >= 1:
+                break
+        return kc, used + slots * kc * step
     if bwd:
         regions = [bt * u * f, bt * nc * f, bt * u * f if ks > 1 else 0, (bt * (nc + 3 * us) + bt) * f,
                    bt * us * f, bt * us * f]
@@ -190,13 +209,15 @@ def _cu_constant(name):
     return int(re.search(rf"constexpr (?:int|size_t) {name} = (\d+);", src).group(1))
 
 
-@pytest.mark.parametrize("u", [264, 320, 512, 1024, 100])
+@pytest.mark.parametrize("u", [264, 320, 512, 1024, 100, 1280, 2048])
 @pytest.mark.parametrize("which", ["forward", "backward"])
 def test_ring_bytes_are_the_kernels_layout(which, u):
     """Every plan the planners return at the width cases (both modes, the
     serving, training and small batches, one and two directions, with and
     without the card's occupancy) at the bytes of the layout the kernel
-    declares; the constants the mirror reads are the .cu's."""
+    declares; the constants the mirror reads are the .cu's. The ring is
+    taken past ``RING_UNITS`` (bf16: ``RING_UNITS_BF16``), or past
+    ``RESIDENT_UNITS`` where it is asked for."""
     assert (L.SMEM_MAX, L.RING_CHUNK_MAX, L.RING_KS_MAX, L.FWD_THREADS) == tuple(
         _cu_constant(n) for n in ("SMEM_MAX", "RING_CHUNK_MAX", "RING_KS_MAX", "FWD_THREADS"))
     fwd = which == "forward"
@@ -210,17 +231,18 @@ def test_ring_bytes_are_the_kernels_layout(which, u):
                 else:
                     p = L.backward_plan(b, u, nd, prec, None if active is None else _h100_bwd_active, ring=ring)
                     mirror = L.backward_smem_bytes
-                limit = L.RESIDENT_UNITS if ring else L.RING_UNITS
-                assert p.ring == (prec == "highest" and u > limit)
+                limit = L.RESIDENT_UNITS if ring else L.RING_UNITS if prec == "highest" else L.RING_UNITS_BF16
+                assert p.ring == (u > limit)
                 assert p.smem == mirror(p.units, p.cluster, p.bt, p.ksplit, p.resident, prec == "bf16", ring=p.ring)
                 if p.ring:
-                    kc, total = _declared_ring_bytes(p.units, p.cluster, p.bt, p.ksplit, not fwd)
-                    assert kc >= 4 and p.smem == total
+                    kc, total = _declared_ring_bytes(p.units, p.cluster, p.bt, p.ksplit, not fwd, prec == "bf16")
+                    assert kc >= (1 if prec == "bf16" else 4) and p.smem == total
 
 
-# every plan at U <= 256, and bf16 past it, as the listener kernels took
-# them before the ring: (B, U, nd, prec) -> forward, VJP
-# (C, Bt, k split, resident, bytes, kernel U), on the H100's occupancy
+# every plan at U <= 256, and bf16 up to RING_UNITS_BF16, as the listener
+# kernels took them before the ring; bf16 past it (U = 512, 1024) the bf16
+# ring's: (B, U, nd, prec) -> forward, VJP (C, Bt, k split, resident,
+# bytes, kernel U), on the H100's occupancy
 UNCHANGED_PLANS = [
     (64, 256, 2, "highest", (8, 16, 4, True, 227520, 256), (8, 16, 1, True, 221312, 256)),
     (32, 256, 2, "highest", (8, 8, 8, True, 195680, 256), (8, 8, 4, True, 200768, 256)),
@@ -244,23 +266,27 @@ UNCHANGED_PLANS = [
     (64, 104, 2, "bf16", (1, 8, 1, True, 170848, 104), (1, 8, 1, True, 172096, 104)),
     (32, 248, 1, "bf16", (1, 8, 1, False, 167776, 248), (1, 8, 1, False, 183104, 248)),
     (20, 40, 2, "bf16", (1, 8, 1, True, 45920, 40), (1, 8, 1, True, 46144, 40)),
-    (64, 512, 2, "bf16", (8, 16, 1, False, 111296, 512), None),
-    (32, 512, 2, "bf16", None, (8, 8, 1, False, 90432, 512)),
-    (64, 1024, 2, "bf16", (8, 16, 1, False, 221888, 1024), None),
-    (32, 1024, 2, "bf16", None, (8, 8, 1, False, 180544, 1024)),
+    (64, 512, 2, "bf16", (16, 24, 1, False, 129632, 512), None),
+    (32, 512, 2, "bf16", None, (16, 16, 1, False, 121152, 512)),
+    (64, 1024, 2, "bf16", (16, 24, 1, False, 193120, 1024), None),
+    (32, 1024, 2, "bf16", None, (16, 16, 1, False, 176448, 1024)),
+    (32, 512, 1, "bf16", (16, 8, 1, False, 92448, 512), None),
 ]
 
 
 @pytest.mark.parametrize("b,u,nd,prec,want_fwd,want_bwd", UNCHANGED_PLANS)
 def test_plans_the_ring_leaves_alone(b, u, nd, prec, want_fwd, want_bwd):
-    """The resident route, every plan at U <= 256 and bf16 at every width
-    keep the plans they had (the template's, never the ring)."""
+    """The resident route, every plan at U <= 256 and bf16 up to
+    ``RING_UNITS_BF16`` keep the plans they had (the template's, never the
+    ring); bf16 past it takes the bf16 ring's, as the card measured it
+    faster."""
+    bf16 = prec == "bf16"
     if want_fwd is not None:
         p = L.forward_plan(b, u, nd, prec, _h100_active)
-        assert tuple(p[:6]) == want_fwd and not p.ring
+        assert tuple(p[:6]) == want_fwd and p.ring == (bf16 and u > L.RING_UNITS_BF16)
     if want_bwd is not None:
         p = L.backward_plan(b, u, nd, prec, _h100_bwd_active)
-        assert tuple(p[:6]) == want_bwd and not p.ring
+        assert tuple(p[:6]) == want_bwd and p.ring == (bf16 and u > L.RING_UNITS_BF16)
 
 
 def test_decoder_plan_takes_the_wide_spellers():
