@@ -298,10 +298,13 @@ then:
         512 and 448 in bf16 the template and the ring in turns
         (``compare_routes``: plans, clusters, ms and cycles a step); the
         decoder kernel at W1024's
-        speller (B = 32, T_enc 219 and 438, 200 steps; the streamed
-        layout), with an attention layer of 1024 (library-built), and at the
-        LAS paper's 2 × 512 speller (the held layout): tokens equal to the
-        plain version's, shared memory equal to ``decoder_smem_bytes``;
+        speller (B = 32, T_enc 219 and 438, 200 steps; the grid layout),
+        with an attention layer of 1024 (library-built), and at the LAS
+        paper's 2 × 512 speller (the held layout): tokens equal to the
+        plain version's, shared memory equal to ``decoder_smem_bytes``; and
+        W1024's at B = 4096 (``PASS_DECODE``), past what one grid launch
+        holds: two launches, tokens against the plain version's (ties
+        excepted), two calls bitwise equal;
      b. W1024 and W100 as artifacts through the ``Transcriber`` on the card
         and on the CPU, 8 rows of <= 4 s decoded to at most 60 steps, greedy
         and beam-8, both modes: 0 rows differing in parity, at most 2 greedy
@@ -314,7 +317,7 @@ then:
         formant corpus of phase 7 at its seed), and ``cli.infer`` of its
         workdir;
      d. past the old limits (faults C9–C11): the decoder kernel through
-        ``greedy_decode`` at B = 8, 60 steps, in its tiled layout, at the
+        ``greedy_decode`` at B = 8, 60 steps, in its grid layout, at the
         checkpoint's speller at T_enc = 17,100 and 40,000 and W1024's at
         5,900 (tokens equal to the CPU loop's) and at U = A = AL = 2048,
         M = 4096 (tokens equal to the plain version's), each timed; one
@@ -325,8 +328,8 @@ then:
         8 × <= 2 s, 0 rows differing from the CPU in parity, and one
         production ``Trainer.train_step`` at B = 4 × <= 2 s within 13c's
         bound; each wide route
-        (the rings, the decoder's streamed and tiled layouts) counted and
-        listed in the last ``kernels`` line.
+        (the rings, the decoder's grid layout) counted and listed in the
+        last ``kernels`` line.
  14. the reference's entry points as the port's (``bench.py``,
      ``__graft_entry__.py``, ``tools/``):
      a. ``python -m phones_las_torch.bench`` as a process, at the
@@ -355,16 +358,19 @@ way at the training shape; the numbers behind the choice of
 U = 1024 (the forward at B = 64 both directions, the VJP's loop at
 B = 32) under every template and ring plan that fits, with the clusters
 the card runs at once (and the template's at C = 12, U = 1056): the
-numbers behind ``RING_CLUSTER_SIZES`` and ``RING_ROW_TILES``.
+numbers behind ``RING_CLUSTER_SIZES`` and ``RING_ROW_TILES``; then, as a
+reading with the plan unchanged, the decoder's grid layout in turns
+against the held layout at the flagship shape (``layouts_in_turns``).
 
 ``python3 chip_smoke.py --compare DIR`` runs none of the phases either: it
 times the front-end kernel (flagship shape) and the VJP (T = 999, B = 32,
 both precisions) of another checkout of this repository unpacked at DIR
 (say the parent commit, ``git archive`` into an ignored directory) and of
-this one, and the greedy serving call at the flagship shape (phase 3's
-path), each in a process of its own, in the order other, this, this,
-other on the same card, and prints one line a run: the numbers behind a
-"[was …]" in ``PERF.md``. ``--time-kernels DIR`` is one such run, of the
+this one, the greedy serving call at the flagship shape (phase 3's
+path) and the decoder kernel at 13a's W1024 shapes and 13d's (the layout
+each checkout plans there, ms and µs a step), each in a process of its
+own, in the order other, this, this, other on the same card, and prints
+one line a run: the numbers behind a "[was …]" in ``PERF.md``. ``--time-kernels DIR`` is one such run, of the
 package in the checkout at DIR.
 
 ``python3 chip_smoke.py --mesh-rank JOB RANK`` is one rank of phase 10a.
@@ -417,6 +423,8 @@ DECODE_STEPS = 200
 
 # published peaks of one H100 SXM (dense), for the least-time bound
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES_PER_S = 5.5e12  # the decoder's design floor where a step's bytes fit the L2
+L2_BYTES = 50e6
 F32_FLOPS = 67e12  # float32 outside the tensor cores
 BF16_FLOPS = 989e12
 
@@ -743,12 +751,7 @@ def check_lstm_ragged(t, b, u, seed, phase=1):
 
 def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=True, phase=1, what=None):
     from phones_las_torch.decode import fused_greedy
-    from phones_las_torch.decode.fused_greedy import (
-        CLOCK_NAMES,
-        decoder_smem_bytes,
-        greedy_decode_fused,
-        greedy_decode_fused_plain,
-    )
+    from phones_las_torch.decode.fused_greedy import greedy_decode_fused, greedy_decode_fused_plain
 
     sp, sc = params.speller, cfg.speller
     mem, mask = memory[:b].contiguous(), enc_mask[:b].contiguous()
@@ -769,7 +772,7 @@ def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=Tru
     wparams = sum(p.numel() for p in sp.parameters())
     nbytes = 4 * (b * t * (a + m + 1) + wparams + b * steps)
     bms, by = bound(nbytes, row_steps * per_step, F32_FLOPS)
-    clocks = torch.zeros(len(CLOCK_NAMES), dtype=torch.int64, device=DEV)
+    clocks = torch.zeros(len(fused_greedy.CLOCK_NAMES), dtype=torch.int64, device=DEV)
     wp, widths = fused_greedy._unflatten(fused_greedy.flat_weights(sp), mem, sc.bos_id, sc.eos_id)
     fused_greedy._launch(wp, widths, mem, mask, steps, clocks)
     torch.cuda.synchronize()
@@ -777,15 +780,17 @@ def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=Tru
     counts = clocks.tolist()
     steps_run = max(counts[-1], 1)  # of the first group
     launch["steps_of_first_group"] = counts[-1]
-    launch["cycles_per_step"] = {n: c / steps_run for n, c in zip(CLOCK_NAMES[:-1], counts)}
-    # the design's own floor: the weights once a group and step, keys and
-    # memory once a row and step, all from L2
-    groups = -(-b // launch["rows"])
-    launch["l2_bytes_per_step"] = 4 * (groups * wparams + b * t * (a + m))
-    # the kernel's shared memory is the wrapper's mirror of its layout (at the
-    # kernel's widths, held, streamed or tiled), all dynamic
-    kw = dataclasses.replace(sc, **launch["kernel_widths"])
-    launch["smem_expected"] = decoder_smem_bytes(b, t, kw, launch["cluster"], launch["streamed"], launch["tiled"])
+    launch["cycles_per_step"] = step_cycles(launch["layout"], counts)
+    # the design's own floor: the weights the kernel reads once a group (the
+    # grid layout: once) and step, each row's keys and memory up to its last
+    # valid position once a step; from L2 at 5.5 TB/s where what a step
+    # reads fits its 50 MB, else from device memory at 3.35 TB/s
+    groups = 1 if launch["layout"] == "grid" else -(-b // launch["rows"])
+    step_weights = wparams - sp.attention.wk.numel()  # the keys are made once a call, before the kernel
+    valid = (mask != 0).int()
+    positions = int(torch.where(valid.any(1), t - valid.flip(1).argmax(1), 0).sum())
+    launch["bytes_per_step"] = 4 * (groups * step_weights + positions * (a + m))
+    from_l2 = 4 * (step_weights + positions * (a + m)) <= L2_BYTES
     rec = {
         "phase": phase, "kernel": "greedy_decode_fused", "shape": f"B={b} T={t} steps={steps}",
         "vocab": v, "cells": sc.num_layers,
@@ -793,8 +798,10 @@ def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=Tru
         "tol": "tokens equal",
         "row_steps": row_steps, "launch": launch,
         "library_ms": None, "bound_ms": bms, "bound_by": by,
-        # the design's L2 floor: its bytes a step at 5.5 TB/s, over the steps the longest row ran
-        "l2_floor_ms": launch["l2_bytes_per_step"] / 5.5e12 * 1e3 * int(first.max()),
+        # the design's floor: its bytes a step at that rate, over the steps the longest row ran
+        "step_floor_ms": launch["bytes_per_step"] / (L2_BYTES_PER_S if from_l2 else HBM_BYTES_PER_S) * 1e3
+        * int(first.max()),
+        "step_floor_from": "L2" if from_l2 else "device memory",
     }
     if what is not None:
         rec["what"] = what
@@ -809,10 +816,68 @@ def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=Tru
     emit(rec)
     if diff_rows:
         fail(f"greedy kernel tokens differ from its plain version: {rec}")
+    # the kernel's shared memory is the wrapper's mirror of its layout (at the
+    # kernel's widths), all dynamic
     if (launch["smem_bytes"], launch["static_smem_bytes"]) != (launch["smem_expected"], 0):
         fail(f"the greedy kernel's shared memory is not decoder_smem_bytes: {rec}")
-    if timed and launch["cluster"] <= 1:
+    if timed and launch["cluster"] <= 1 and launch["layout"] != "grid":
         fail(f"the greedy kernel did not run as a cluster: {launch}")
+    return rec
+
+
+def step_cycles(layout: str, counts) -> dict:
+    """The decoder kernel's cycle counters (16, the steps last) → cycles a
+    step of each part, by the layout's names."""
+    from phones_las_torch.decode.fused_greedy import CLOCK_NAMES, GRID_CLOCK_NAMES
+
+    names = GRID_CLOCK_NAMES if layout == "grid" else CLOCK_NAMES
+    steps = max(counts[-1], 1)
+    return {n: c / steps for n, c in zip(names[:-1], counts)}
+
+
+def layouts_in_turns(sp, sc, mem, mask, steps, layouts=(None, "grid"), phase="sweep", what=None) -> dict:
+    """The decoder kernel in two layouts (``decoder_plan``'s ``layout``:
+    None the plan, "grid" the grid layout) on one card in turns (first, second, second, first; medians of ROUTE_REPS): each
+    layout's plan, ms, µs a step and cycles a part, its tokens against the
+    other's and the plain version's, and two launches of each bitwise equal
+    → the record (failed unless every launch gives the plain version's
+    tokens and repeats itself)."""
+    from phones_las_torch.decode import fused_greedy
+    from phones_las_torch.decode.fused_greedy import greedy_decode_fused, greedy_decode_fused_plain
+
+    wp, widths = fused_greedy._unflatten(fused_greedy.flat_weights(sp), mem, sc.bos_id, sc.eos_id)
+    run = lambda layout: fused_greedy._launch(wp, widths, mem, mask, steps, layout=layout)
+    plain, _ = greedy_decode_fused_plain(sp, sc, mem, mask, steps)
+    recs, toks, names = {}, {}, {}
+    for layout in layouts:
+        toks[layout] = [run(layout), run(layout)]
+        torch.cuda.synchronize()
+        launch = greedy_decode_fused.last_launch
+        names[layout] = launch["layout"]  # held or grid
+        clocks = torch.zeros(len(fused_greedy.CLOCK_NAMES), dtype=torch.int64, device=DEV)
+        fused_greedy._launch(wp, widths, mem, mask, steps, clocks, layout=layout)
+        torch.cuda.synchronize()
+        recs[names[layout]] = {
+            "cluster": launch["cluster"], "grid": launch["grid"], "smem_bytes": launch["smem_bytes"],
+            "registers": launch["registers"], "co_resident": launch["max_active_clusters"],
+            "steps_run": int(clocks[-1]), "cycles_per_step": step_cycles(launch["layout"], clocks.tolist()),
+            "rows_differing_from_plain": int((toks[layout][0] != plain).any(1).sum()),
+            "bitwise_repeatable": bool(torch.equal(*toks[layout]))}
+    ms = {x: [] for x in layouts}
+    for layout in (layouts[0], layouts[1], layouts[1], layouts[0]):
+        ms[layout].append(time_ms(lambda: run(layout), reps=ROUTE_REPS))
+    for layout in layouts:
+        r = recs[names[layout]]
+        r["ms"] = statistics.median(ms[layout])
+        r["us_per_step"] = r["ms"] * 1e3 / max(r["steps_run"], 1)
+    first, second = (recs[names[x]] for x in layouts)
+    rec = {"phase": phase, "kernel": "greedy_decode_fused", "what": what or "two layouts in turns",
+           "shape": f"B={mem.shape[0]} T={mem.shape[1]} steps={steps}", "layouts": recs,
+           "rows_differing_between": int((toks[layouts[0]][0] != toks[layouts[1]][0]).any(1).sum()),
+           "faster": min(recs, key=lambda k: recs[k]["ms"]), "speedup": first["ms"] / second["ms"]}
+    emit(rec)
+    if any(r["rows_differing_from_plain"] or not r["bitwise_repeatable"] for r in recs.values()):
+        fail(f"phase {phase}: a decoder layout disagrees with the plain version or with itself: {rec}")
     return rec
 
 
@@ -1487,17 +1552,22 @@ def sweep_backward_plans(params) -> None:
 
 
 def time_kernels(tree: str) -> None:
-    """``--time-kernels DIR``: the two kernels a ``--compare`` is about and
-    the greedy serving call at the flagship shape (encode and decode, the
-    host's dispatch included), of the package in the checkout at DIR,
-    through calls that every slice of the port since the training slice
-    has."""
+    """``--time-kernels DIR``: the two kernels a ``--compare`` is about, the
+    greedy serving call at the flagship shape (encode and decode, the
+    host's dispatch included) and the decoder kernel at 13a's W1024 shapes
+    and 13d's (``COMPARE_DECODES``: the layout the checkout plans there, ms,
+    µs a step, rows differing from its plain version), of the package in
+    the checkout at DIR, through calls that every slice of the port since
+    the training slice has."""
     sys.path.insert(0, tree)
+    from phones_las_torch.decode.fused_greedy import greedy_decode_fused, greedy_decode_fused_plain
     from phones_las_torch.decode.greedy import greedy_decode
     from phones_las_torch.frontend import features as F
     from phones_las_torch.frontend.fused_frontend import fused_logmel
     from phones_las_torch.models.las import encode
+    from phones_las_torch.models.speller import SpellerConfig, init_speller
     from phones_las_torch.ops import lstm as L
+    from phones_las_torch.ops.masking import length_mask
     from phones_las_torch.utils.param_io import load_artifact
 
     torch.set_grad_enabled(False)
@@ -1516,6 +1586,29 @@ def time_kernels(tree: str) -> None:
         greedy_decode(params.speller, cfg.speller, mem, mask, DECODE_STEPS)
 
     rec["serving_call_ms"] = time_ms(serve)
+    rec["decoders"] = []
+    for i, (label, t, u, a, al, m, b, steps) in enumerate(COMPARE_DECODES):
+        sc = SpellerConfig(vocab_size=PRESET_VOCAB[WIDTH_PRESET], embedding_dim=128, num_layers=2, units=u,
+                           memory_dim=m, attention_units=a, attention_layer_size=al)
+        sp = init_speller(sc, torch.Generator().manual_seed(WIDTH_SEED + 20 + i), device=DEV)
+        g = torch.Generator(device=DEV).manual_seed(240 + i)
+        memory = torch.randn(b, t, m, generator=g, device=DEV)
+        lens = torch.randint(t // 4, t + 1, (b,), generator=g, device=DEV)
+        lens[0] = t
+        mask = length_mask(lens, t)
+        tok, _ = greedy_decode_fused(sp, sc, memory, mask, steps)
+        launch = greedy_decode_fused.last_launch
+        plain, _ = greedy_decode_fused_plain(sp, sc, memory, mask, steps)
+        is_eos = (tok == sc.eos_id).int()
+        ran = int(torch.where(is_eos.any(1), is_eos.argmax(1) + 1, steps).max())  # the steps the launch ran
+        ms = time_ms(lambda: greedy_decode_fused(sp, sc, memory, mask, steps))
+        rec["decoders"].append({
+            "shape": f"{label}, B={b} T_enc={t} steps={steps}",
+            "layout": launch.get("layout") or ("tiled" if launch["tiled"] else "streamed" if launch["streamed"]
+                                               else "held"),
+            "ms": ms, "us_per_step": ms * 1e3 / max(ran, 1), "steps_run": ran,
+            "rows_differing_from_plain": int((tok != plain).any(1).sum())})
+        del sp, memory
     emit(rec)
 
 
@@ -1535,9 +1628,8 @@ def launch_counts(kernels) -> dict:
 
 
 # a wrapper's counts: all its launches, of them in bf16 mode, and through each
-# wide route (the float32 and bf16 rings, the decoder's streamed and tiled layouts)
-COUNTERS = ("launches", "bf16_launches", "ring_launches", "bf16_ring_launches", "streamed_launches",
-            "tiled_launches")
+# wide route (the float32 and bf16 rings, the decoder's grid layout)
+COUNTERS = ("launches", "bf16_launches", "ring_launches", "bf16_ring_launches", "grid_launches")
 ROUTE_COUNTERS = COUNTERS[2:]
 
 
@@ -4227,7 +4319,7 @@ def check_preset_decoders(work, ckpt_rec, card) -> list:
                         "cells": rec["cells"], "cluster": la["cluster"], "smem_bytes": la["smem_bytes"],
                         "max_active_clusters": la["max_active_clusters"], "registers": la["registers"],
                         "ms": rec["ms"], "us_per_step": la["us_per_step"], "plain_ms": rec["plain_ms"],
-                        "bound_ms": rec["bound_ms"], "l2_floor_ms": rec["l2_floor_ms"]})
+                        "bound_ms": rec["bound_ms"], "step_floor_ms": rec["step_floor_ms"], "step_floor_from": rec["step_floor_from"]})
     emit({"phase": "12a", "decoders": summary, "forced_tie": recs[0]["forced_tie"], "small_clusters": small,
           "card": card})
     return recs
@@ -4578,6 +4670,12 @@ LONG_DECODES = (("the checkpoint's speller", 17100, 256, 256, 256, 512, True),
                 ("W1024's speller", 5900, 1024, 1024, 256, 2048, True),
                 ("U = A = AL = 2048, M = 4096", 219, 2048, 2048, 2048, 4096, False))
 LONG_B, LONG_STEPS = 8, 60
+PASS_DECODE = (4096, 219, 12)  # 13a: W1024 at B = 4096 (two grid launches), T_enc 219, 12 steps
+# --compare: the decoder at 13a's W1024 shapes (B = 32, 200 steps) and 13d's (B = 8, 60 steps):
+# (label, T_enc, U, A, AL, M, B, steps)
+COMPARE_DECODES = tuple((label, t, u, a, al, m, WIDTH_KERNEL_B, DECODE_STEPS)
+                        for label, t, u, a, al, m in WIDTH_DECODES if u == 1024) + tuple(
+    (label, t, u, a, al, m, LONG_B, LONG_STEPS) for label, t, u, a, al, m, _ in LONG_DECODES)
 LONG_SECONDS = 690  # 13d: one Transcriber.transcribe of 690 s at the checkpoint's widths (T_enc ≈ 17,250)
 # 13d: W2048: encoder, decoder and attention units 2048, one listener layer (M = 4096), served at 8 × 2 s
 # greedy in parity, and one production training step at 13c's bounds
@@ -4768,9 +4866,10 @@ def check_width_kernels(work) -> dict:
     padding path) against their plain versions in both modes on ragged
     lengths; timed at T = 999 beside cuDNN at U = 1024 and 512 in float32
     and at 1024 in bf16; the two routes of a streamed float32 slice in turns
-    (``compare_routes``); the decoder kernel at W1024's speller (the
-    streamed layout), with an attention layer of 1024, and at the LAS
-    paper's (the held layout, 6.4 KB under the limit)."""
+    (``compare_routes``); the decoder kernel at W1024's speller (the grid
+    layout), with an attention layer of 1024, and at the LAS paper's (the
+    held layout, 6.4 KB under the limit); W1024's at B = 4096 in passes
+    (``check_grid_passes``)."""
     from phones_las_torch.models.speller import SpellerConfig, init_speller
     from phones_las_torch.ops import lstm as L
     from phones_las_torch.ops.masking import length_mask
@@ -4818,13 +4917,65 @@ def check_width_kernels(work) -> dict:
         memory = torch.randn(WIDTH_KERNEL_B, t, m, generator=g, device=DEV)
         lens = torch.randint(t // 4, t + 1, (WIDTH_KERNEL_B,), generator=g, device=DEV)
         lens[0] = t
-        rec = check_greedy(SimpleNamespace(speller=sp), SimpleNamespace(speller=sc), memory, length_mask(lens, t),
+        mask = length_mask(lens, t)
+        rec = check_greedy(SimpleNamespace(speller=sp), SimpleNamespace(speller=sc), memory, mask,
                            WIDTH_KERNEL_B, steps=DECODE_STEPS, phase="13a", what=f"{label}, T_enc {t}, ragged")
-        if rec["launch"]["streamed"] != (u == 1024) or rec["launch"]["tiled"]:
+        if rec["launch"]["layout"] != ("grid" if u == 1024 else "held"):
             fail(f"phase 13a: the decoder took the wrong layout at {label}: {rec['launch']}")
         decs.append(rec)
         del sp, memory
+    decs.append(check_grid_passes())
     return {"timed": timed, "routes": routes, "decoders": decs}
+
+
+def check_grid_passes() -> dict:
+    """Phase 13a: W1024's speller at a batch past what one grid launch
+    holds (``PASS_DECODE``: B = 4096, ``grid_rows`` 3,512), decoded in two
+    passes, a launch each: the grid launches counted, the tokens against
+    the plain version's (a row that differs fails unless the plain side's
+    top-2 margin at its first differing step, from ``teacher_forced_decode``
+    on the plain tokens, is below ``TIE_MARGIN``: a tie), two calls
+    bitwise equal, the call timed."""
+    from phones_las_torch.decode.fused_greedy import (decoder_plan, greedy_decode_fused, greedy_decode_fused_plain,
+                                                      grid_rows)
+    from phones_las_torch.models.speller import SpellerConfig, init_speller, teacher_forced_decode
+    from phones_las_torch.ops.masking import length_mask
+
+    b, t, steps = PASS_DECODE
+    sc = SpellerConfig(vocab_size=PRESET_VOCAB[WIDTH_PRESET], embedding_dim=128, num_layers=2, units=1024,
+                       memory_dim=2048, attention_units=1024, attention_layer_size=256)
+    sp = init_speller(sc, torch.Generator().manual_seed(WIDTH_SEED), device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(175)
+    memory = torch.randn(b, t, sc.memory_dim, generator=g, device=DEV)
+    lens = torch.randint(t // 4, t + 1, (b,), generator=g, device=DEV)
+    lens[0] = t
+    mask = length_mask(lens, t)
+    n0 = greedy_decode_fused.grid_launches
+    tok, _ = greedy_decode_fused(sp, sc, memory, mask, steps)
+    torch.cuda.synchronize()
+    launches, launch = greedy_decode_fused.grid_launches - n0, dict(greedy_decode_fused.last_launch)
+    again, _ = greedy_decode_fused(sp, sc, memory, mask, steps)
+    plain, _ = greedy_decode_fused_plain(sp, sc, memory, mask, steps)
+    logits = []  # the plain side's, computed once a row differs
+
+    def top2(i, s):
+        if not logits:  # fed the plain tokens, <sos> first
+            fed = torch.cat([torch.full_like(plain[:, :1], sc.bos_id), plain[:, :-1]], dim=1).long()
+            logits.append(teacher_forced_decode(sp, sc, fed, memory, mask)[0].cpu())
+        return float(logits[0][i, s].topk(2).values.diff().abs())
+
+    differ = rows_against(tok.cpu().numpy(), plain.cpu().numpy(), top2)
+    rec = {"phase": "13a", "kernel": "greedy_decode_fused", "what": "W1024 at a batch past one grid launch: passes",
+           "shape": f"B={b} T={t} steps={steps}", "grid_rows": grid_rows(sc),
+           "passes": decoder_plan(b, sc, t).passes, "grid_launches": launches, "launch": launch,
+           "rows_differing": differ, "bitwise_repeatable": bool(torch.equal(tok, again)),
+           "ms": time_ms(lambda: greedy_decode_fused(sp, sc, memory, mask, steps), reps=3),
+           "plain_ms": time_ms(lambda: greedy_decode_fused_plain(sp, sc, memory, mask, steps), reps=1)}
+    emit(rec)
+    if launches != rec["passes"] or rec["passes"] < 2 or any(not d["tie"] for d in differ) or not rec[
+            "bitwise_repeatable"] or launch["layout"] != "grid":
+        fail(f"phase 13a: the grid layout's passes failed: {rec}")
+    return rec
 
 
 def write_width_artifact(path: str, name: str, mode: str) -> None:
@@ -4993,7 +5144,7 @@ def check_long_decodes(kernels) -> tuple:
     ``greedy_decode`` on the card at B = 8, 60 steps, ragged: the
     checkpoint's speller at T_enc = 17,100 and 40,000 (fault C9), W1024's
     at 5,900 and U = A = AL = 2048 with M = 4096 (fault C11), each one
-    launch of the kernel in its tiled layout (never the loop), tokens equal
+    launch of the kernel in its grid layout (never the loop), tokens equal
     to the CPU loop's (``greedy_decode_steps``, parity) on the same weights
     and memory (but the widest); each timed against its plain version on
     the card (``check_greedy``) → (the launches, the route counts, the
@@ -5032,7 +5183,7 @@ def check_long_decodes(kernels) -> tuple:
                "launches": launches[-1],
                "routes": routes[-1], "tokens_emitted": int((tok != sc.eos_id).sum())}
         emit(out)
-        if rows or DEV == "cuda" and (launches[-1]["greedy_decode_fused"], routes[-1]["greedy_decode_fused tiled"]) != (
+        if rows or DEV == "cuda" and (launches[-1]["greedy_decode_fused"], routes[-1]["greedy_decode_fused grid"]) != (
                 1, 1):
             fail(f"phase 13d: the decoder kernel past its old limits failed: {out}")
         if t == 40000:
@@ -5044,8 +5195,8 @@ def check_long_decodes(kernels) -> tuple:
 def check_long_transcriber(kernels, card, artifacts) -> tuple:
     """Phase 13d (2): one ``Transcriber.transcribe`` of 690 s of speech-like
     PCM (the eval set's utterances end to end, repeated) on the card, at
-    the checkpoint's widths (random init): its encoder length past the
-    streamed layout's (fault C9), so the decoder kernel takes the tiled
+    the checkpoint's widths (random init): its encoder length past what
+    the held layout holds (fault C9), so the decoder kernel takes the grid
     layout; its tokens equal to the CPU loop's (``greedy_decode_steps``) on
     the card's own encoder memory, copied over → (launches, route counts)."""
     from phones_las_torch import Transcriber
@@ -5077,7 +5228,7 @@ def check_long_transcriber(kernels, card, artifacts) -> tuple:
            "tokens": len(got), "equal": got == want, "ms": sec * 1e3, "launches": la, "routes": ro, "card": card}
     emit(rec)
     if got != want or DEV == "cuda" and (la["fused_logmel"], la["greedy_decode_fused"],
-                                         ro["greedy_decode_fused tiled"]) != (1, 1, 1):
+                                         ro["greedy_decode_fused grid"]) != (1, 1, 1):
         fail(f"phase 13d: the 690 s Transcriber call failed: {rec}")
     return la, ro
 
@@ -5087,7 +5238,7 @@ def serve_w2048(kernels, card, artifacts) -> tuple:
     one listener layer, M = 4096; random init) through
     ``Transcriber.from_artifact`` greedy at 8 × <= 2 s, card against the
     CPU in parity: 0 rows differing, the listener through the float32 ring
-    and the decoder in its tiled layout → (launches, route counts)."""
+    and the decoder in its grid layout → (launches, route counts)."""
     from phones_las_torch import Transcriber
 
     art = artifacts.get("width_W2048_parity", lambda path: write_width_artifact(path, "W2048", "parity"))
@@ -5108,7 +5259,7 @@ def serve_w2048(kernels, card, artifacts) -> tuple:
            "first_call_ms": ms, "launches": la, "routes": ro, "card": card}
     emit(rec)
     if differ or DEV == "cuda" and (la["bidir_recurrence"], ro["bidir_recurrence ring"], la["greedy_decode_fused"],
-                                    ro["greedy_decode_fused tiled"]) != (1, 1, 1, 1):
+                                    ro["greedy_decode_fused grid"]) != (1, 1, 1, 1):
         fail(f"phase 13d: W2048 serving failed: {rec}")
     return la, ro
 
@@ -5117,8 +5268,8 @@ def check_widths(kernels, card, artifacts) -> dict:
     """Phase 13, in a temporary directory under ``_runs/`` removed at the
     end → {"launches", "routes": the card's launches and route counts of
     13b–13d's model runs summed, "records": the timed records of the wide
-    routes (13a's ring at U = 1024 in each mode, the decoder's streamed and
-    tiled layouts)}. 13c's records are prepared by a process that runs
+    routes (13a's ring at U = 1024 in each mode, the decoder's grid layout
+    at W1024)}. 13c's records are prepared by a process that runs
     beside 13a, and its ``cli.train`` beside 13b and 13c's library step;
     every process it starts is stopped."""
     import shutil
@@ -5138,7 +5289,7 @@ def check_widths(kernels, card, artifacts) -> dict:
             parts.append(train_widths(work, kernels, card))
         check_width_clis(data, run, train, t0, card)
         # ---- 13d: past the old limits: long encoder sequences, U = 2048
-        *dec, tiled = check_long_decodes(kernels)
+        *dec, long_rec = check_long_decodes(kernels)
         parts += [tuple(dec), check_long_transcriber(kernels, card, artifacts), serve_w2048(kernels, card, artifacts)]
         with torch.enable_grad():
             parts.append(train_widths(work, kernels, card, "W2048", ("production",), W2048_TRAIN_B, W2048_TRAIN_SAMPLES,
@@ -5151,7 +5302,7 @@ def check_widths(kernels, card, artifacts) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     ring = {prec: next(r for r in kern["timed"] if r["u"] == 1024 and r["prec"] == prec) for prec in ("highest", "bf16")}
     return {"launches": summed([p[0] for p in parts]), "routes": summed([p[1] for p in parts]),
-            "records": {"ring": ring, "streamed": kern["decoders"][0], "tiled": tiled}}
+            "records": {"ring": ring, "grid": kern["decoders"][0], "long": long_rec}}
 
 
 # ---- phase 14: the reference's entry points as the port's: the bench, entry(), the tools
@@ -5365,6 +5516,13 @@ def main() -> int:
         sweep_forward_plans(params)
         sweep_backward_plans(params)
         sweep_streamed_plans()
+        # a reading, the plan unchanged: the grid layout at the flagship shape
+        # in turns against the held layout the plan keeps there
+        audio64 = torch.from_numpy(make_audio(FLAGSHIP_B)).to(DEV)
+        memory, _, enc_mask = encode(params, cfg, audio64, torch.full((FLAGSHIP_B,), audio64.shape[1],
+                                                                       dtype=torch.int32, device=DEV))
+        layouts_in_turns(params.speller, cfg.speller, memory.contiguous(), enc_mask.contiguous(), DECODE_STEPS,
+                         what="the flagship shape: the held layout (the plan) against the grid layout, a reading")
         print(card, flush=True)
         return 0
     if sys.argv[1:] == ["--presets"]:
@@ -5569,8 +5727,8 @@ def main() -> int:
     emit({"phase": "end"})
     lstm_cu = "phones_las_torch/csrc/lstm.cu"
     # each wide route a kernel of its own in the line: the listener's rings
-    # (U = 1024 at T = 999 as 13a times them) and the decoder's streamed and
-    # tiled layouts (13a, 13d), with the launches phase 13's model runs
+    # (U = 1024 at T = 999 as 13a times them) and the decoder's grid layout
+    # (13a's W1024 at T_enc 219), with the launches phase 13's model runs
     # (13b–13d: W1024, W2048, the 690 s call) made through them
     wrec, wroutes = widths["records"], widths["routes"]
     route_entries = []
@@ -5580,10 +5738,9 @@ def main() -> int:
             route_entries.append(kernel_entry(f"{name} ({label}, U = 1024)", lstm_cu,
                                               f"phones_las_tpu/ops/lstm.py:{line}", timed[name],
                                               wroutes[f"{name} {ring}"]))
-    for layout in ("streamed", "tiled"):
-        route_entries.append(kernel_entry(f"greedy_decode_fused ({layout} layout)", "phones_las_torch/csrc/greedy.cu",
-                                          "phones_las_tpu/decode/pallas_greedy.py:134", wrec[layout],
-                                          wroutes[f"greedy_decode_fused {layout}"]))
+    route_entries.append(kernel_entry("greedy_decode_fused (grid layout)", "phones_las_torch/csrc/greedy.cu",
+                                      "phones_las_tpu/decode/pallas_greedy.py:134", wrec["grid"],
+                                      wroutes["greedy_decode_fused grid"]))
     idle = [e["name"] for e in route_entries if e["launches"] < 1]
     if idle:
         fail(f"phase 13's model runs never launched these routes: {idle}")

@@ -62,9 +62,9 @@ _SIGNATURES = {
                     + (_I,) * 4 + (_P, _P, _P),
     # keys, mem, mask, B, T, A, M, emb, V, E, wq, v, attn_w, AL, out_w,
     # out_b, cell_ptrs, n_cells, U, bos, eos, steps, cluster, layout, act, ws,
-    # tokens, info[4], clocks, stream
+    # cut, tokens, info[4], clocks, stream
     "plt_greedy_decode": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P,
-                          _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+                          _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
 }
 
 

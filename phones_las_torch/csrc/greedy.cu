@@ -30,9 +30,14 @@
 // at B = 64) with one thread per output column and a serial k loop: 200 us
 // a step, latency of dependent L2 loads.
 //
-// Design: a cluster of C blocks decodes a group of R = 8 rows (the TPU
-// kernel's own group) and loops over the steps inside the kernel; groups
-// run in parallel (grid = C * ceil(B/8)).
+// Two layouts: the held one (greedy_kernel) runs clusters, the grid one
+// (greedy_grid_kernel, below) the whole card. The plan keeps the held
+// layout wherever it fits a block's shared memory and takes the grid layout
+// everywhere else (decode/fused_greedy.py::decoder_plan).
+//
+// The held layout: a cluster of C blocks decodes a group of R = 8 rows (the
+// TPU kernel's own group) and loops over the steps inside the kernel;
+// groups run in parallel (grid = C * ceil(B/8)).
 //   - Dense stages (each cell, wq, the attention layer): block c owns a
 //     slice of the output columns (for a cell a slice of units with their
 //     four gates, so the cell update is local) and computes it for all 8
@@ -46,7 +51,10 @@
 //     its slice of h, q, the context and the attention vector into the
 //     shared memory of the blocks that read it, and one cluster barrier
 //     ends the stage; h is double-buffered, because a cell reads the last
-//     step's h while its peers already write this step's.
+//     step's h while its peers already write this step's. Every block holds
+//     what every block reads whole (DecLayout): h of each cell, the
+//     attention vector and the context, each [8][width], its out_w slice,
+//     and a row's scores and mask [T].
 //   - Attention is per row: block c takes row c of the group (rows c,
 //     c + C, ... when C < 8). Scores: a warp per encoder position, lanes
 //     over A in 16-byte loads; block-wide max and sum; the context is split
@@ -69,50 +77,82 @@
 //     predicate); a finished row in a live group writes <eos>, skips its
 //     attention, and its other results are discarded. Rows past B in the
 //     last group start finished.
-//   - Three layouts (DecLayout). The held one keeps in every block what every
-//     block reads whole: h of each cell (double-buffered), the attention
-//     vector and the context, each [8][width], and its out_w slice. Past
-//     what a block holds (the LAS-4-1024 speller, U = A = 1024, M = 2048:
-//     about 430 KB a block), the streamed layout keeps those activations in
-//     global memory, one set a group (act): a block stores its slice there
-//     instead of into its peers, the cluster barrier that ends the stage
-//     orders the stores, and the readers copy the rows a stage multiplies
-//     into their stage from L2 (ld.global.cg, past the SM's own L1); q is
-//     held only for the rows a block attends for, and the logits read out_w
-//     from L2, a lane a column. Both layouts run the same stages in the same
-//     order with the same sums; the held one where it fits
-//     (decode/fused_greedy.py::decoder_plan picks). Both still hold a row's
-//     scores and mask ([T] each) and a dense stage's whole input row, so
-//     past about T_enc = 17,000 (the 256-unit speller) or U + M = 5,000
-//     neither fits. The tiled layout, last, holds nothing that grows with
-//     T: each row's scores live in a workspace in global memory (ws), which
-//     the block reads back for the max and the sum (each thread its own
-//     positions, as before) and streams through a tile of TTILE weights for
-//     the context; a dense stage's input, and the logits' rows, come KTILE
-//     floats a row at a time, a tile holding the next float4s of every k
-//     part, the sums carried from tile to tile in the partial-sum buffer.
-//     Every reduction keeps the streamed layout's order, so the tiled
-//     layout's tokens are the streamed one's. The widths: U, A, AL up to
-//     1024, M up to 2048, V up to 120 and T_enc up to 2000 (every
-//     combination, one or two cells) fit the streamed layout at C = 8, U =
-//     A = AL = 2048 with M = 4096 the tiled one, at every T_enc; the
-//     wrapper pads any width to a multiple of the cut (E, U, A, M of 4, AL
-//     of 8, U, A and AL of 4 C) with zeros.
-// With the weights, ~94 MB of L2 traffic a step at B = 64 is this design's
-// own floor: ~17 us a step at ~5.5 TB/s, 3.4 ms for 200 steps. At the
-// LAS-4-1024 widths the speller's weights are about 77 MB, more than the
-// L2 holds, so every group streams them from device memory at each step.
+// What bounds it: ~94 MB of L2 traffic a step at B = 64 is the design's own
+// floor, ~17 us a step at ~5.5 TB/s, 3.4 ms for 200 steps. Prediction, made
+// before its first run on the card: 25-40 us a step at B = 64 (5-8 ms for
+// 200 steps against 40.9 ms), the scores' 64 k tanhf a row (~9 us on one
+// SM) and the L2 streams the largest parts, and B = 8 (one cluster) no
+// slower than B = 64. Past what a block holds (the LAS-4-1024 speller,
+// U = A = 1024, M = 2048: about 430 KB a block; a row's scores past a few
+// thousand positions; vocabularies past a few thousand entries) the layout
+// does not fit, and a cluster could only have streamed those operands: every
+// group reading every weight every step through the 8 SMs of its cluster
+// (64.0 MB at W1024: cells 23.1 + 33.6, wq 4.2, the attention layer 3.1;
+// 256 MB a step at B = 32 through 32 SMs) and each row's attention on one SM
+// (52 MB of keys and memory a step at T_enc = 17,100), the SMs' intake at
+// ~40 GB/s each. Hence the grid layout there.
 //
-// Prediction, made before the first run on the card: 25-40 us a step at
-// B = 64 (5-8 ms for 200 steps against 40.9 ms), the scores' 64 k tanhf a
-// row (~9 us on one SM) and the L2 streams the largest parts, and B = 8
-// (one cluster) no slower than B = 64.
+// The grid layout (greedy_grid_kernel): one cooperative launch of one block
+// an SM, every block in every stage of a step, a grid barrier (a counter in
+// the workspace) after each; the activations [B][width] in global memory
+// (act: grid_ws).
+//   - Dense stages (each cell, wq, the attention layer, the logits): the
+//     output columns are cut into column blocks over the grid (a cell's by
+//     units with their four gates), the rows into as many row groups as
+//     the block's intake k (width + rows) is least (decode/fused_greedy.py
+//     ::StageCut, ::grid_cuts): each weight is read once a step for the
+//     whole batch. A block takes its rows in passes of up to 8 P rows; a
+//     thread holds 8 rows x 4 columns of one k part; each tile of k comes
+//     through a ring of three slots in shared memory, its weight rows in one
+//     bulk copy (the Tensor Memory Accelerator, counted on the slot's
+//     transaction barrier), its input rows 16 bytes a thread (cp.async), two
+//     tiles in flight while one is multiplied; the parts meet in shared
+//     memory and are added in a fixed order (four chains).
+//   - Attention: each live row's valid positions are cut into chunks in
+//     proportion to its length, 1 + floor((blocks - live rows) tl / sum tl)
+//     a row (one each past as many live rows as blocks), recut only when a
+//     row finishes; chunk idx goes to block idx % grid. Pass 1: a chunk's
+//     keys come through the ring in bulk copies, a warp a position scores
+//     them into ws and the block writes the chunk's maximum. Pass 2: every
+//     block of the row takes the row's maximum over the chunks' (exact in
+//     any order), forms exp(s - max) * mask in ws and writes the chunk's
+//     sum. Pass 3: the row's sum of the chunks' sums in chunk order (the
+//     same in every block), the chunk's memory rows through the ring, its
+//     part of the context; after a barrier the parts are added in chunk
+//     order, each row's columns spread over the grid. Nothing grows with T
+//     but the workspace.
+//   - The logits are a dense stage; each column block writes each row's
+//     (maximum, first index), and after the barrier every block merges the
+//     pairs in column block order, the smallest index winning a tie, so all
+//     hold the same tokens and stop together (when every row has emitted
+//     <eos>; a finished row writes <eos>, skips its attention, and its other
+//     results are discarded).
+//   - Every block keeps every row's fed token, finished flag, length and
+//     chunks in its shared memory (five ints a row), so a launch takes at
+//     most a few thousand rows (3,512 at A = 1024); the wrapper decodes a
+//     larger batch in passes of rows, a launch each.
+//   - Nine grid barriers a step at two cells. The order of the sums differs
+//     from the held layout's (k parts, chunks), fixed by the shape, so a
+//     launch is bitwise repeatable.
+// What bounds it: a step's bytes (weights once, the rows' keys and memory
+// once: 150 MB at W1024, B = 32, T_enc 219; 426 MB at the checkpoint's
+// speller, B = 8, T_enc 17,100) from device memory over the whole card,
+// plus each block's intake of its row group's input rows from L2 and the
+// barriers.
+// Prediction, made before its first timed run on the card (PERF.md, section 6):
+// W1024 at B = 32 55-70 us a step (against 287 for a cluster layout that
+// streamed its operands), the checkpoint's speller at T_enc 17,100 100-140 us
+// (against 1582), U = A = AL = 2048 120-140 us (against 1084). Measured
+// (NVIDIA H100 80GB HBM3): 180, 179 and 264 us a step: the dense stages'
+// input rows (16-byte copies) and each stage's fixed costs (barriers, a
+// tile's first latency), not the bytes, bound it (PERF.md, section 6).
 //
 // Every offset into keys, memory, the mask, the workspace and the tokens is
 // taken in 64 bits: B T M passes 2^32 at B = 64, T = 17,100, M = 4096.
 //
-// Precision: float32 throughout, as the reference kernel's HIGHEST dots.
-// Sums run in another order than the plain version's (k split in parts).
+// Precision: float32 throughout, as the reference kernel's HIGHEST dots (no
+// TF32 anywhere). Sums run in another order than the plain version's (k
+// split in parts; the grid layout's chunks).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -143,6 +183,20 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// the grid layout: a dense stage's cut over the grid (decode/fused_greedy.py::
+// StageCut): block g < cols * groups computes column block g % cols (a
+// contiguous slice of width floats of every row of the stage's weights) for
+// the rows [g / cols * rows, + rows) of its row group, tiles row tiles of 8
+// a pass
+struct StageCut {
+  int cols, width, groups, rows, tiles;
+};
+constexpr int N_STAGES = 5;  // the first cell, the other cells, the query, the attention layer, the logits
+enum GridStage { ST_CELL0 = 0, ST_CELLS = 1, ST_QUERY = 2, ST_LAYER = 3, ST_LOGITS = 4 };
+struct GridCut {
+  StageCut st[N_STAGES];
+};
+
 struct DecArgs {
   const float* keys;    // [B, T, A]
   const float* mem;     // [B, T, M]
@@ -154,31 +208,25 @@ struct DecArgs {
   const float* out_w;   // [AL, V]
   const float* out_b;   // [V]
   const float* const* cells;  // per cell: [C][din + U][4U/C] (wx over wh), [C][4U/C] bias
-  float* act;  // streamed and tiled layouts: a group's activations in global memory (act_floats each)
-  float* ws;   // tiled layout: each row's scores, then exp(score - max) * mask [rows of the groups][T]
-  int B, T, A, M, V, E, AL, U, n_cells, bos, eos, steps, C;
+  float* act;  // grid layout: the workspace in global memory (grid_ws)
+  float* ws;   // grid layout: each row's scores, then exp(score - max) * mask [rows][T]
+  int B, T, A, M, V, E, AL, U, n_cells, bos, eos, steps, C;  // grid layout: C = blocks of the grid
+  GridCut g;   // grid layout: the cut
 };
 
-// The three layouts of a block's shared memory, in the order the plan tries
-// them (decode/fused_greedy.py::decoder_plan).
-constexpr int LAYOUT_HELD = 0;      // every activation a block reads whole in its own shared memory
-constexpr int LAYOUT_STREAMED = 1;  // those activations and out_w in global memory (L2)
-constexpr int LAYOUT_TILED = 2;     // as streamed, and nothing that grows with T, or with K past KTILE
-constexpr int KTILE = 2048;  // tiled: floats of a row of the stage (a tile of a dense stage's k)
-constexpr int TTILE = 2048;  // tiled: encoder positions of a tile of attention weights
+// The two layouts, in the order the plan tries them (decode/fused_greedy.py::
+// decoder_plan).
+constexpr int LAYOUT_HELD = 0;  // clusters: every activation a block reads whole in its own shared memory
+constexpr int LAYOUT_GRID = 1;  // no clusters: every block of the grid in every stage (greedy_grid_kernel)
+constexpr int SLOT = 12288;    // grid: floats of a slot of the ring that stages every streamed operand
+constexpr int NSLOT = 3;       // grid: slots of the ring (two tiles in flight while one is used)
+constexpr int KS_MAX = 32;     // grid: most k parts of a dense stage
+constexpr int MAX_TILES = 128; // grid: most row tiles of 8 in a pass
 
-// float offsets of a block's shared memory; decode/fused_greedy.py::
-// decoder_smem_bytes mirrors it. The streamed layout (STREAMED) holds none
-// of the activations that every block reads whole (h of every cell, the
-// attention vector, the context) and no out_w slice: they lie in global
-// memory (act, out_w), and a stage copies what it multiplies into `stage`.
-// The tiled layout (TILED) also keeps a row's scores in global memory (ws)
-// and stages a dense stage's input KTILE floats a row at a time and the
-// attention weights TTILE positions at a time, so that its size is bounded
-// whatever T, and whatever the widths up to KTILE.
+// float offsets of a held block's shared memory; decode/fused_greedy.py::
+// decoder_smem_bytes mirrors it
 struct DecLayout {
   int Kmax;  // widest staged input: max(E + AL + U, 2U, U + M)
-  int kt;    // floats of a row of the stage: Kmax, or (tiled) at most KTILE
   int Vc;    // vocabulary columns a block owns: ceil(V / C) rounded up to 4
   int ldo;   // row stride of the transposed out_w slice: AL + 4, so that the
              // rows of neighbouring vocabulary entries start in different banks
@@ -190,21 +238,17 @@ __host__ __device__ inline size_t pad4(size_t n) { return (n + 3) / 4 * 4; }
 __host__ __device__ inline size_t smax(size_t x, size_t y) { return x > y ? x : y; }
 
 __host__ __device__ inline DecLayout dec_layout(int T, int A, int M, int V, int E, int AL,
-                                                int U, int n_cells, int C, int layout) {
+                                                int U, int n_cells, int C) {
   DecLayout L;
   L.Kmax = (int)smax(smax(E + AL + U, 2 * U), U + M);
-  L.kt = layout == LAYOUT_TILED && L.Kmax > KTILE ? KTILE : L.Kmax;
   L.Vc = (int)pad4((V + C - 1) / C);
-  const size_t qrows = layout != LAYOUT_HELD ? (DR + C - 1) / C : DR;  // all 8, or the rows the block attends for
-  const size_t held = layout == LAYOUT_HELD ? 1 : 0;  // the activations every block reads whole
-  const size_t tiled = layout == LAYOUT_TILED ? 1 : 0;
   size_t off = 0;
-  L.stage = off, off += (size_t)DR * L.kt;
-  L.hbuf = off, off += held * n_cells * 2 * DR * U;
+  L.stage = off, off += (size_t)DR * L.Kmax;
+  L.hbuf = off, off += (size_t)n_cells * 2 * DR * U;
   L.cst = off, off += (size_t)n_cells * DR * (U / C);
-  L.attn = off, off += held * DR * AL;
-  L.q = off, off += qrows * A;
-  L.ctx = off, off += held * DR * M;
+  L.attn = off, off += (size_t)DR * AL;
+  L.q = off, off += (size_t)DR * A;
+  L.ctx = off, off += (size_t)DR * M;
   const size_t widest = smax(smax(4 * U / C, A / C), AL / C);  // columns of a dense stage
   // partial sums: a dense stage's [k parts][8][columns], the context's [T
   // parts][M], the logits' [k parts][8][Vc]
@@ -213,11 +257,11 @@ __host__ __device__ inline DecLayout dec_layout(int T, int A, int M, int V, int 
   // small operands that every step reads: this block's columns of out_w
   // (transposed) and out_b, its slices of the cells' biases
   L.ldo = AL + 4;
-  L.outw = off, off += held * L.Vc * L.ldo;
+  L.outw = off, off += (size_t)L.Vc * L.ldo;
   L.outb = off, off += L.Vc;
   L.bias = off, off += (size_t)n_cells * 4 * (U / C);
-  L.sc = off, off += tiled ? TTILE : pad4(T);  // a row's scores, or (tiled) a tile of its weights
-  L.mk = off, off += tiled ? 0 : pad4(T);
+  L.sc = off, off += pad4(T);  // a row's scores, then its weights
+  L.mk = off, off += pad4(T);
   L.v = off, off += pad4(A);
   L.lg = off, off += (size_t)DR * L.Vc;
   // each block's (maximum, index) of each row, written by that block:
@@ -280,79 +324,6 @@ __device__ __forceinline__ int dense(const float* __restrict__ w, int K, int nco
   return KS;
 }
 
-// The tiled layout's dense stage: the same items, k parts and k order as
-// dense(), with the input rows [8][K] read through src(r, k4) (a float4 of
-// global memory) and staged a tile at a time: tile j holds, of every k
-// part, its float4s [j S4, (j + 1) S4), so every item works in every tile
-// (a tile of consecutive k would leave most parts idle); an item's sums are
-// carried from tile to tile in `part` (stored and reloaded exactly). One
-// tile where the rows fit kt (the streamed layout's sums, bit for bit).
-template <class Src>
-__device__ __forceinline__ int dense_tiled(const float* __restrict__ w, int K, int ncols, Src src,
-                                           int kt, float* __restrict__ stage,
-                                           float* __restrict__ part) {
-  const int ncg = ncols / 4, k4n = K / 4;
-  const int KS = max(1, min(THREADS / ncg, k4n));
-  const int kper = (k4n + KS - 1) / KS;
-  const int S4 = max(1, min(kper, kt / 4 / KS));  // float4s of a part in a tile
-  const int ld = 4 * KS * S4, ntiles = (kper + S4 - 1) / S4;
-  for (int j = 0; j < ntiles; ++j) {
-    __syncthreads();  // the last tile has been read
-    for (int i = threadIdx.x; i < DR * KS * S4; i += THREADS) {
-      const int r = i / (KS * S4), rem = i - r * KS * S4, ks = rem / S4, q = rem - ks * S4;
-      const int k4 = ks * kper + j * S4 + q;
-      *reinterpret_cast<float4*>(stage + r * ld + 4 * rem) =
-          j * S4 + q < kper && k4 < k4n ? src(r, k4) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-    __syncthreads();
-    for (int item = threadIdx.x; item < ncg * KS; item += THREADS) {
-      const int cgi = item % ncg, ks = item / ncg;
-      const int kb = ks * kper + j * S4, ke = min(min(k4n, (ks + 1) * kper), kb + S4);
-      float* pp = part + (size_t)ks * DR * ncols + cgi * 4;
-      float acc[DR][4];
-#pragma unroll
-      for (int r = 0; r < DR; ++r) {
-        const float4 p0 = j > 0 ? *reinterpret_cast<const float4*>(pp + (size_t)r * ncols)
-                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        acc[r][0] = p0.x, acc[r][1] = p0.y, acc[r][2] = p0.z, acc[r][3] = p0.w;
-      }
-      const float* wp = w + cgi * 4;
-      const float* xs = stage + 4 * ks * S4;
-#pragma unroll 2
-      for (int k4 = kb; k4 < ke; ++k4) {
-        const float4 w0 = __ldg(reinterpret_cast<const float4*>(wp + (size_t)(4 * k4) * ncols));
-        const float4 w1 = __ldg(reinterpret_cast<const float4*>(wp + (size_t)(4 * k4 + 1) * ncols));
-        const float4 w2 = __ldg(reinterpret_cast<const float4*>(wp + (size_t)(4 * k4 + 2) * ncols));
-        const float4 w3 = __ldg(reinterpret_cast<const float4*>(wp + (size_t)(4 * k4 + 3) * ncols));
-#pragma unroll
-        for (int r = 0; r < DR; ++r) {
-          const float4 x = *reinterpret_cast<const float4*>(xs + r * ld + 4 * (k4 - kb));
-          acc[r][0] = fmaf(x.x, w0.x, acc[r][0]);
-          acc[r][1] = fmaf(x.x, w0.y, acc[r][1]);
-          acc[r][2] = fmaf(x.x, w0.z, acc[r][2]);
-          acc[r][3] = fmaf(x.x, w0.w, acc[r][3]);
-          acc[r][0] = fmaf(x.y, w1.x, acc[r][0]);
-          acc[r][1] = fmaf(x.y, w1.y, acc[r][1]);
-          acc[r][2] = fmaf(x.y, w1.z, acc[r][2]);
-          acc[r][3] = fmaf(x.y, w1.w, acc[r][3]);
-          acc[r][0] = fmaf(x.z, w2.x, acc[r][0]);
-          acc[r][1] = fmaf(x.z, w2.y, acc[r][1]);
-          acc[r][2] = fmaf(x.z, w2.z, acc[r][2]);
-          acc[r][3] = fmaf(x.z, w2.w, acc[r][3]);
-          acc[r][0] = fmaf(x.w, w3.x, acc[r][0]);
-          acc[r][1] = fmaf(x.w, w3.y, acc[r][1]);
-          acc[r][2] = fmaf(x.w, w3.z, acc[r][2]);
-          acc[r][3] = fmaf(x.w, w3.w, acc[r][3]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < DR; ++r)
-        *reinterpret_cast<float4*>(pp + (size_t)r * ncols) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    }
-  }
-  return KS;
-}
-
 // sum over the k parts of one output, in a fixed order: four chains, so
 // that the loads of a chain do not wait for its adds
 __device__ __forceinline__ float gather(const float* part, int KS, int ncols, int r, int col) {
@@ -378,20 +349,6 @@ __device__ __forceinline__ void copy_row(float* dst, const float* src, int n, in
 __device__ __forceinline__ void load_row(float* dst, const float* __restrict__ src, int n, int l0) {
   for (int i = l0; i < n / 4; i += 64)
     reinterpret_cast<float4*>(dst)[i] = __ldg(reinterpret_cast<const float4*>(src) + i);
-}
-
-// ... from global memory that the blocks of the cluster write during the
-// kernel: from L2, past the SM's own L1 (which another block's stores do not
-// reach); the cluster barrier since those stores orders them
-__device__ __forceinline__ void load_row_cg(float* dst, const float* src, int n, int l0) {
-  for (int i = l0; i < n / 4; i += 64)
-    reinterpret_cast<float4*>(dst)[i] = __ldcg(reinterpret_cast<const float4*>(src) + i);
-}
-
-// floats of one group's activations in the streamed layout: h of every cell
-// [n_cells][2][8][U], the attention vector [8][AL], the context [8][M]
-__host__ __device__ inline size_t act_floats(int n_cells, int U, int AL, int M) {
-  return (size_t)n_cells * 2 * DR * U + (size_t)DR * AL + (size_t)DR * M;
 }
 
 // This block's columns [c0, c0 + n) of a [8][ld] buffer, already written
@@ -423,10 +380,8 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
   return MAX ? warp_max(v) : warp_sum(v);
 }
 
-template <int LAYOUT>
 __global__ void __launch_bounds__(THREADS, 1)
 greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clocks) {
-  constexpr bool STREAMED = LAYOUT != LAYOUT_HELD, TILED = LAYOUT == LAYOUT_TILED;
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = a.C, rank = (int)cluster.block_rank();
@@ -434,23 +389,20 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int T = a.T, A = a.A, M = a.M, V = a.V, E = a.E, AL = a.AL, U = a.U;
   const int Us = U / C, Nc = 4 * Us, Ac = A / C, ALc = AL / C;
-  const DecLayout L = dec_layout(T, A, M, V, E, AL, U, a.n_cells, C, LAYOUT);
+  const DecLayout L = dec_layout(T, A, M, V, E, AL, U, a.n_cells, C);
   const int Vc = L.Vc, v0 = rank * Vc, nv = max(0, min(V - v0, Vc));  // this block's vocabulary columns
-  float* stage_s = smem + L.stage;  // [8][kt] a dense stage's input (tiled: a tile of it)
-  // the activations every block reads whole: in its own shared memory, or
-  // (streamed) the group's in global memory, read through load_row_cg
-  float* act = STREAMED ? a.act + (size_t)(blockIdx.x / C) * act_floats(a.n_cells, U, AL, M) : nullptr;
-  float* hbuf = STREAMED ? act : smem + L.hbuf;                                    // [n_cells][2][8][U]
-  float* attn = STREAMED ? act + (size_t)a.n_cells * 2 * DR * U : smem + L.attn;   // [8][AL]
-  float* ctx = STREAMED ? attn + (size_t)DR * AL : smem + L.ctx;                   // [8][M]
+  float* stage_s = smem + L.stage;  // [8][Kmax] a dense stage's input
+  float* hbuf = smem + L.hbuf;      // [n_cells][2][8][U]
   float* c_s = smem + L.cst;        // [n_cells][8][Us] this block's units
-  float* q_s = smem + L.q;          // [qrows][A] (the rows this block attends for: row qrow(r))
+  float* attn = smem + L.attn;      // [8][AL]
+  float* q_s = smem + L.q;          // [8][A]
+  float* ctx = smem + L.ctx;        // [8][M]
   float* part_s = smem + L.part;
-  float* outw_s = smem + L.outw;    // [Vc][ldo] columns v0.. of out_w, transposed (held layout)
+  float* outw_s = smem + L.outw;    // [Vc][ldo] columns v0.. of out_w, transposed
   float* outb_s = smem + L.outb;    // [Vc]
   float* bias_s = smem + L.bias;    // [n_cells][4 Us] this block's slices
-  float* sc_s = smem + L.sc;        // [T] scores, then weights; tiled: [TTILE] a tile of weights
-  float* mk_s = smem + L.mk;        // [T] (not tiled: the mask is read from global memory)
+  float* sc_s = smem + L.sc;        // [T] scores, then weights
+  float* mk_s = smem + L.mk;        // [T]
   float* v_s = smem + L.v;          // [A]
   float* lg_s = smem + L.lg;        // [8][Vc]
   float* pmax_s = smem + L.pair;    // [8 blocks][8] each block's maximum of each row
@@ -463,9 +415,8 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
   for (size_t i = tid; i < L.total; i += THREADS) smem[i] = 0.0f;
   __syncthreads();
   for (int i = tid; i < A; i += THREADS) v_s[i] = a.v[i];
-  if (!STREAMED)
-    for (int i = tid; i < nv * AL; i += THREADS)
-      outw_s[(i / AL) * L.ldo + i % AL] = a.out_w[(size_t)(i % AL) * V + v0 + i / AL];
+  for (int i = tid; i < nv * AL; i += THREADS)
+    outw_s[(i / AL) * L.ldo + i % AL] = a.out_w[(size_t)(i % AL) * V + v0 + i / AL];
   for (int i = tid; i < nv; i += THREADS) outb_s[i] = a.out_b[v0 + i];
   for (int i = tid; i < a.n_cells * Nc; i += THREADS)
     bias_s[i] = a.cells[2 * (i / Nc) + 1][(size_t)rank * Nc + i % Nc];
@@ -497,12 +448,6 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
   // argmax (the block's columns, the exchange of the pairs and its barrier,
   // the reduction); 15 counts the steps
   const bool timed = clocks != nullptr && tid == 0 && blockIdx.x == 0;
-  // an activation row into the stage: from shared memory, or (streamed) from L2
-  auto fill = [&](float* dst, const float* src, int n, int l0) {
-    if (STREAMED) load_row_cg(dst, src, n, l0);
-    else copy_row(dst, src, n, l0);
-  };
-  auto qrow = [&](int r) { return STREAMED ? r / C : r; };
   long long tick = timed ? clock64() : 0;
   auto lap = [&](int i) {
     if (timed) {
@@ -524,38 +469,21 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
       const int din = l == 0 ? E + AL : U, K = din + U;
       float* hl = hbuf + (size_t)l * 2 * DR * U;
       const float* wl = a.cells[2 * l] + (size_t)rank * K * Nc;
-      int KS;
-      if (TILED) {
-        // [input; h of the last step] from global memory, k4 a float4 of the row
-        auto src = [&](int r, int k4) {
-          const int k = 4 * k4;
-          const float* p = l > 0 ? (k < U ? hl - 2 * DR * U + (nxt * DR + r) * U + k
-                                          : hl + (cur * DR + r) * U + k - U)
-                                 : (k < E ? nullptr
-                                          : k < E + AL ? attn + r * AL + k - E
-                                                       : hl + (cur * DR + r) * U + k - E - AL);
-          return p ? __ldcg(reinterpret_cast<const float4*>(p))
-                   : __ldg(reinterpret_cast<const float4*>(a.emb + (size_t)tok_s[r] * E + k));
-        };
-        lap(0);
-        KS = dense_tiled(wl, K, Nc, src, L.kt, stage_s, part_s);
-      } else {
-        // [input; h of the last step], a row a pair of warps
-        for (int r = warp >> 1; r < DR; r += NWARPS / 2) {
-          const int l0 = lane + 32 * (warp & 1);
-          float* dst = stage_s + r * K;
-          if (l > 0) {
-            fill(dst, hl - 2 * DR * U + (nxt * DR + r) * U, U, l0);
-          } else {
-            load_row(dst, a.emb + (size_t)tok_s[r] * E, E, l0);
-            fill(dst + E, attn + r * AL, AL, l0);
-          }
-          fill(dst + din, hl + (cur * DR + r) * U, U, l0);
+      // [input; h of the last step], a row a pair of warps
+      for (int r = warp >> 1; r < DR; r += NWARPS / 2) {
+        const int l0 = lane + 32 * (warp & 1);
+        float* dst = stage_s + r * K;
+        if (l > 0) {
+          copy_row(dst, hl - 2 * DR * U + (nxt * DR + r) * U, U, l0);
+        } else {
+          load_row(dst, a.emb + (size_t)tok_s[r] * E, E, l0);
+          copy_row(dst + E, attn + r * AL, AL, l0);
         }
-        __syncthreads();
-        lap(0);
-        KS = dense(wl, K, Nc, stage_s, K, part_s);
+        copy_row(dst + din, hl + (cur * DR + r) * U, U, l0);
       }
+      __syncthreads();
+      lap(0);
+      const int KS = dense(wl, K, Nc, stage_s, K, part_s);
       const float* bias = bias_s + l * Nc;
       __syncthreads();
       lap(1);
@@ -572,7 +500,7 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
         hl[(nxt * DR + r) * U + rank * Us + u] = h_new;
       }
       __syncthreads();
-      if (!STREAMED) share_columns(cluster, hl + nxt * DR * U, U, rank * Us, Us, C, rank);
+      share_columns(cluster, hl + nxt * DR * U, U, rank * Us, Us, C, rank);
       lap(2);
       cluster.sync();
       lap(3);
@@ -581,26 +509,13 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
 
     // query: block `rank` owns A/C columns; row r's go to the block that attends for it
     {
-      const float* hin = hout;
       const float* wq = a.wq + (size_t)rank * U * Ac;
-      int KS;
-      if (TILED) {
-        auto src = [&](int r, int k4) { return __ldcg(reinterpret_cast<const float4*>(hout + r * U) + k4); };
-        KS = dense_tiled(wq, U, Ac, src, L.kt, stage_s, part_s);
-      } else {
-        if (STREAMED) {
-          for (int r = warp >> 1; r < DR; r += NWARPS / 2) load_row_cg(stage_s + r * U, hout + r * U, U, lane + 32 * (warp & 1));
-          __syncthreads();
-          hin = stage_s;
-        }
-        KS = dense(wq, U, Ac, hin, U, part_s);
-      }
+      const int KS = dense(wq, U, Ac, hout, U, part_s);
       __syncthreads();
       lap(4);
       for (int i = tid; i < DR * Ac; i += THREADS) {
         const int r = i / Ac, c = i - r * Ac;
-        *cluster.map_shared_rank(q_s + qrow(r) * A + rank * Ac + c, r % C) =
-            gather(part_s, KS, Ac, r, c);
+        *cluster.map_shared_rank(q_s + r * A + rank * Ac + c, r % C) = gather(part_s, KS, Ac, r, c);
       }
       cluster.sync();
       lap(5);
@@ -613,11 +528,8 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
       const float* Kr = a.keys + (size_t)(row0 + r) * T * A;
       const float* Mr = a.mem + (size_t)(row0 + r) * T * M;
       const float* mkr = a.mask + (size_t)(row0 + r) * T;
-      float* scr = TILED ? a.ws + (size_t)(row0 + r) * T : sc_s;  // the row's scores
-      if (!TILED) {
-        for (int t = tid; t < tl; t += THREADS) mk_s[t] = mkr[t];
-        __syncthreads();
-      }
+      for (int t = tid; t < tl; t += THREADS) mk_s[t] = mkr[t];
+      __syncthreads();
       // a warp takes SCORE_T positions at a time, so that many key loads are
       // in flight before the first tanhf
       for (int t0 = warp * SCORE_T; t0 < tl; t0 += NWARPS * SCORE_T) {
@@ -629,7 +541,7 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
 #pragma unroll
           for (int j = 0; j < SCORE_T; ++j)
             k[j] = __ldg(reinterpret_cast<const float4*>(Kr + (size_t)min(t0 + j, tl - 1) * A) + a4);
-          const float4 q = *reinterpret_cast<const float4*>(q_s + qrow(r) * A + 4 * a4);
+          const float4 q = *reinterpret_cast<const float4*>(q_s + r * A + 4 * a4);
           const float4 vv = *reinterpret_cast<const float4*>(v_s + 4 * a4);
 #pragma unroll
           for (int j = 0; j < SCORE_T; ++j) {
@@ -643,63 +555,42 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
 #pragma unroll
         for (int j = 0; j < SCORE_T; ++j) {
           const float sum = warp_sum(acc[j]);
-          if (lane == 0 && t0 + j < tl) scr[t0 + j] = sum + (1.0f - (TILED ? mkr : mk_s)[t0 + j]) * NEG;
+          if (lane == 0 && t0 + j < tl) sc_s[t0 + j] = sum + (1.0f - mk_s[t0 + j]) * NEG;
         }
       }
       __syncthreads();
       lap(6);
       // exp(s - max) * mask / max(sum, 1e-30); a row with no valid position has tl = 0
-      // (tiled: each thread reads back only the scores it wrote, or that the
-      // block barrier above has made visible; exp(s - max) * mask stays there)
       float mx = -CUDART_INF_F;
-      for (int t = tid; t < tl; t += THREADS) mx = fmaxf(mx, scr[t]);
+      for (int t = tid; t < tl; t += THREADS) mx = fmaxf(mx, sc_s[t]);
       mx = block_reduce<true>(mx, red_s);
       float sum = 0.0f;
       for (int t = tid; t < tl; t += THREADS) {
-        const float e = expf(scr[t] - mx) * (TILED ? mkr : mk_s)[t];
-        scr[t] = e;
+        const float e = expf(sc_s[t] - mx) * mk_s[t];
+        sc_s[t] = e;
         sum += e;
       }
       sum = fmaxf(block_reduce<false>(sum, red_s), 1e-30f);
-      if (!TILED)
-        for (int t = tid; t < tl; t += THREADS) sc_s[t] = sc_s[t] / sum;
+      for (int t = tid; t < tl; t += THREADS) sc_s[t] = sc_s[t] / sum;
       __syncthreads();
       lap(7);
-      // context: an item = (part of T, 4 columns of M); tiled, the weights
-      // e / sum come in tiles that hold, of every part of T, its positions
-      // [j St, (j + 1) St), each item's sums carried in part_s from tile to
-      // tile, in the same order
+      // context: an item = (part of T, 4 columns of M)
       const int mq = M / 4;
       const int TS = max(1, THREADS / mq), tper = (tl + TS - 1) / TS;
-      const int St = TILED ? max(1, min(tper, TTILE / TS)) : max(1, tper);
-      const int ntiles = TILED ? max(1, (tper + St - 1) / St) : 1;
-      for (int j = 0; j < ntiles; ++j) {
-        const float* wt = sc_s;  // the weights of positions tb.. at wt[tb - base]
-        if (TILED) {
-          __syncthreads();  // the last tile has been read
-          for (int i = tid; i < TS * St; i += THREADS) {
-            const int ts = i / St, q = i - ts * St, t = ts * tper + j * St + q;
-            sc_s[i] = j * St + q < tper && t < tl ? scr[t] / sum : 0.0f;
-          }
-          __syncthreads();
-        }
-        for (int item = tid; item < mq * TS; item += THREADS) {
-          const int m4 = item % mq, ts = item / mq;
-          const int tb = ts * tper + j * St, te = min(min(tl, (ts + 1) * tper), tb + St);
-          float* pp = part_s + (size_t)ts * M + 4 * m4;
-          float4 acc = TILED && j > 0 ? *reinterpret_cast<const float4*>(pp) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          const int at = TILED ? ts * St - tb : 0;  // position t's weight at wt[t + at]
+      for (int item = tid; item < mq * TS; item += THREADS) {
+        const int m4 = item % mq, ts = item / mq;
+        const int tb = ts * tper, te = min(tl, tb + tper);
+        float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll 8
-          for (int t = tb; t < te; ++t) {
-            const float p = wt[t + at];
-            const float4 mv = __ldg(reinterpret_cast<const float4*>(Mr + (size_t)t * M) + m4);
-            acc.x = fmaf(p, mv.x, acc.x);
-            acc.y = fmaf(p, mv.y, acc.y);
-            acc.z = fmaf(p, mv.z, acc.z);
-            acc.w = fmaf(p, mv.w, acc.w);
-          }
-          *reinterpret_cast<float4*>(pp) = acc;
+        for (int t = tb; t < te; ++t) {
+          const float p = sc_s[t];
+          const float4 mv = __ldg(reinterpret_cast<const float4*>(Mr + (size_t)t * M) + m4);
+          acc.x = fmaf(p, mv.x, acc.x);
+          acc.y = fmaf(p, mv.y, acc.y);
+          acc.z = fmaf(p, mv.z, acc.z);
+          acc.w = fmaf(p, mv.w, acc.w);
         }
+        *reinterpret_cast<float4*>(part_s + (size_t)ts * M + 4 * m4) = acc;
       }
       __syncthreads();
       lap(8);
@@ -709,7 +600,7 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
         ctx[r * M + m] = c;
       }
       __syncthreads();  // part_s, sc_s and mk_s are reused by the next row
-      for (int i = tid; !STREAMED && i < (C - 1) * (M / 4); i += THREADS) {  // the row to every block
+      for (int i = tid; i < (C - 1) * (M / 4); i += THREADS) {  // the row to every block
         const int p = i / (M / 4), q = i - p * (M / 4);
         float* mine = ctx + r * M + 4 * q;
         *reinterpret_cast<float4*>(cluster.map_shared_rank(mine, p + (p >= rank))) =
@@ -724,24 +615,14 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
     {
       const int K = U + M;
       const float* wa = a.attn_w + (size_t)rank * K * ALc;
-      int KS;
-      if (TILED) {
-        auto src = [&](int r, int k4) {
-          const int k = 4 * k4;
-          return __ldcg(reinterpret_cast<const float4*>(k < U ? hout + r * U + k : ctx + r * M + k - U));
-        };
-        lap(10);
-        KS = dense_tiled(wa, K, ALc, src, L.kt, stage_s, part_s);
-      } else {
-        for (int r = warp >> 1; r < DR; r += NWARPS / 2) {
-          const int l0 = lane + 32 * (warp & 1);
-          fill(stage_s + r * K, hout + r * U, U, l0);
-          fill(stage_s + r * K + U, ctx + r * M, M, l0);
-        }
-        __syncthreads();
-        lap(10);
-        KS = dense(wa, K, ALc, stage_s, K, part_s);
+      for (int r = warp >> 1; r < DR; r += NWARPS / 2) {
+        const int l0 = lane + 32 * (warp & 1);
+        copy_row(stage_s + r * K, hout + r * U, U, l0);
+        copy_row(stage_s + r * K + U, ctx + r * M, M, l0);
       }
+      __syncthreads();
+      lap(10);
+      const int KS = dense(wa, K, ALc, stage_s, K, part_s);
       __syncthreads();
       lap(11);
       for (int i = tid; i < DR * ALc; i += THREADS) {
@@ -749,65 +630,34 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
         attn[r * AL + rank * ALc + c] = gather(part_s, KS, ALc, r, c);
       }
       __syncthreads();
-      if (!STREAMED) share_columns(cluster, attn, AL, rank * ALc, ALc, C, rank);
+      share_columns(cluster, attn, AL, rank * ALc, ALc, C, rank);
       cluster.sync();
       lap(12);
     }
 
     // logits of this block's columns for all 8 rows: a warp per part of k,
-    // a lane per vocabulary entry, all 8 rows a thread; streamed, the rows
-    // are staged and the columns of out_w read from L2, a lane a column
+    // a lane per vocabulary entry, all 8 rows a thread
     {
-      const float* xs = attn;
-      int ldx = AL;
       const int kq = AL / 4, kper = (kq + NWARPS - 1) / NWARPS;  // in float4s
-      // tiled: the rows come in tiles that hold, of every warp's part of k,
-      // its float4s [j S4, (j + 1) S4), the sums carried in part_s
-      const int S4 = TILED ? max(1, min(kper, L.kt / 4 / NWARPS)) : max(1, kper);
-      const int ntiles = TILED ? (kper + S4 - 1) / S4 : 1;
-      if (STREAMED && !TILED) {
-        for (int r = warp >> 1; r < DR; r += NWARPS / 2) load_row_cg(stage_s + r * AL, attn + r * AL, AL, lane + 32 * (warp & 1));
-        __syncthreads();
-        xs = stage_s;
-      }
-      for (int j = 0; j < ntiles; ++j) {
-        if (TILED) {
-          ldx = 4 * NWARPS * S4;
-          __syncthreads();  // the last tile has been read
-          for (int i = tid; i < DR * NWARPS * S4; i += THREADS) {
-            const int r = i / (NWARPS * S4), rem = i - r * NWARPS * S4, ks = rem / S4, q = rem - ks * S4;
-            const int k4 = ks * kper + j * S4 + q;
-            *reinterpret_cast<float4*>(stage_s + r * ldx + 4 * rem) =
-                j * S4 + q < kper && k4 < kq ? __ldcg(reinterpret_cast<const float4*>(attn + r * AL) + k4)
-                                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const int kb = warp * kper, ke = min(kq, kb + kper);
+      for (int o = lane; o < nv; o += 32) {
+        const float4* w = reinterpret_cast<const float4*>(outw_s + o * L.ldo);
+        float acc[DR];
+#pragma unroll
+        for (int r = 0; r < DR; ++r) acc[r] = 0.0f;
+        for (int k = kb; k < ke; ++k) {
+          const float4 wv = w[k];
+#pragma unroll
+          for (int r = 0; r < DR; ++r) {
+            const float4 x = reinterpret_cast<const float4*>(attn + r * AL)[k];
+            acc[r] = fmaf(x.x, wv.x, acc[r]);
+            acc[r] = fmaf(x.y, wv.y, acc[r]);
+            acc[r] = fmaf(x.z, wv.z, acc[r]);
+            acc[r] = fmaf(x.w, wv.w, acc[r]);
           }
-          __syncthreads();
-          xs = stage_s + 4 * warp * S4;
         }
-        const int kb = warp * kper + j * S4, ke = min(min(kq, (warp + 1) * kper), kb + S4);
-        const int at = TILED ? -kb : 0;  // the float4 k of a row at xs[r * ldx + 4 (k + at)]
-        for (int o = lane; o < nv; o += 32) {
-          const float4* w = reinterpret_cast<const float4*>(outw_s + o * L.ldo);
-          const float* wg = a.out_w + v0 + o;  // streamed: column v0 + o of out_w [AL, V]
-          float acc[DR];
 #pragma unroll
-          for (int r = 0; r < DR; ++r) acc[r] = TILED && j > 0 ? part_s[(warp * DR + r) * Vc + o] : 0.0f;
-          for (int k = kb; k < ke; ++k) {
-            const float4 wv = STREAMED ? make_float4(__ldg(wg + (size_t)(4 * k) * V), __ldg(wg + (size_t)(4 * k + 1) * V),
-                                                     __ldg(wg + (size_t)(4 * k + 2) * V), __ldg(wg + (size_t)(4 * k + 3) * V))
-                                       : w[k];
-#pragma unroll
-            for (int r = 0; r < DR; ++r) {
-              const float4 x = reinterpret_cast<const float4*>(xs + r * ldx)[k + at];
-              acc[r] = fmaf(x.x, wv.x, acc[r]);
-              acc[r] = fmaf(x.y, wv.y, acc[r]);
-              acc[r] = fmaf(x.z, wv.z, acc[r]);
-              acc[r] = fmaf(x.w, wv.w, acc[r]);
-            }
-          }
-#pragma unroll
-          for (int r = 0; r < DR; ++r) part_s[(warp * DR + r) * Vc + o] = acc[r];
-        }
+        for (int r = 0; r < DR; ++r) part_s[(warp * DR + r) * Vc + o] = acc[r];
       }
       __syncthreads();
       for (int i = tid; i < DR * nv; i += THREADS) {
@@ -868,91 +718,860 @@ greedy_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clock
         tokens[(size_t)(row0 + r) * a.steps + i] = a.eos;
 }
 
+// ---- the grid layout: one block an SM, every block in every stage of a step
+
+__host__ __device__ inline int imin(int x, int y) { return x < y ? x : y; }
+__host__ __device__ inline int imax(int x, int y) { return x > y ? x : y; }
+__host__ __device__ inline size_t round8(size_t n) { return (n + 7) / 8 * 8; }
+
+// float offsets of a grid block's shared memory; decode/fused_greedy.py::
+// decoder_smem_bytes(grid=) mirrors it
+struct GridLayout {
+  size_t ring, mbar, pw, q, v, tok, fin, tl, nch, off, flag, red, total;
+};
+__host__ __device__ inline GridLayout grid_layout(int B, int A) {
+  GridLayout L;
+  size_t off = 0;
+  // the ring's slots: a dense stage's tiles of input rows and weights, the
+  // scores' tiles of keys and mask, the context's tiles of memory rows;
+  // after a dense stage's last tile its partial sums, after the context's
+  // its parts
+  L.ring = off, off += (size_t)NSLOT * SLOT;
+  L.mbar = off, off += 2 * 4;                  // the slots' transaction barriers (8 bytes each)
+  L.pw = off, off += (size_t)NSLOT * THREADS;  // each slot's mask (the scores) or weights e / sum (the context)
+  L.q = off, off += pad4(A);                   // q of the row being scored
+  L.v = off, off += pad4(A);
+  L.tok = off, off += round8(B);      // ints: the token fed to every row
+  L.fin = off, off += round8(B);      // ints: every row's finished flag
+  L.tl = off, off += round8(B);       // ints: one past every row's last valid position
+  L.nch = off, off += round8(B);      // ints: every row's chunks this step
+  L.off = off, off += round8(B + 1);  // ints: its first chunk's index among all rows' chunks
+  L.flag = off, off += 4;             // int: a row finished at the last step (the chunks are cut anew)
+  L.red = off, off += 64;
+  L.total = off;
+  return L;
+}
+
+// float offsets of the grid layout's workspace in global memory (act), B
+// rows padded to 8; decode/fused_greedy.py::grid_act_floats mirrors it
+struct GridWs {
+  size_t h, c, attn, q, ctx, cmax, csum, pctx, pmax, pidx, tl, bar, total;
+};
+__host__ __device__ inline GridWs grid_ws(int B, int A, int M, int AL, int U, int n_cells, int G, int lcols) {
+  const size_t bp = round8(B), chunks = pad4(bp > (size_t)G ? bp : (size_t)G);
+  GridWs W;
+  size_t off = 0;
+  W.h = off, off += (size_t)n_cells * 2 * bp * U;  // [n_cells][2][B][U], double-buffered by step
+  W.c = off, off += (size_t)n_cells * bp * U;      // [n_cells][B][U], each unit's owner's own
+  W.attn = off, off += bp * AL;                    // [B][AL]
+  W.q = off, off += bp * A;                        // [B][A]
+  W.ctx = off, off += bp * M;                      // [B][M]
+  W.cmax = off, off += chunks;                     // [chunks of all rows] each chunk's maximum score
+  W.csum = off, off += chunks;                     // each chunk's sum of exp(score - max) * mask
+  W.pctx = off, off += chunks * M;                 // [chunks][M] each chunk's part of its row's context
+  W.pmax = off, off += pad4(bp * lcols);           // [B][logits' column blocks] each block's maximum
+  W.pidx = off, off += pad4(bp * lcols);           // ints, its first index
+  W.tl = off, off += bp;                           // ints: every row's length
+  W.bar = off, off += 4;                           // the grid barrier's arrivals (unsigned)
+  W.total = off;
+  return W;
+}
+
+// How a pass of a dense stage cuts its k (decode/fused_greedy.py::
+// grid_tile): a thread an item (k part, row tile, column group of 4), at
+// most KS_MAX parts; tile j holds float4s [j KS S4, (j + 1) KS S4) of k,
+// part ks its float4s [ks S4, (ks + 1) S4) of each tile; a slot holds a
+// tile's input rows (Rp rows of ld floats) and its weight rows (kt rows of
+// wc floats).
+struct DenseTile {
+  int KS, S4, ld, ntiles;
+};
+__host__ __device__ inline DenseTile grid_tile(int k4n, int wc, int tiles) {
+  const int Rp = 8 * tiles, ncg = wc / 4;
+  DenseTile d;
+  d.KS = imax(1, imin(imin(KS_MAX, THREADS / (ncg * tiles)), imin(k4n, (SLOT - 4 * Rp) / (4 * Rp + 4 * wc))));
+  const int deep = (k4n + d.KS - 1) / d.KS;  // float4s of a part over all k
+  d.S4 = imax(1, imin(deep, (SLOT - 4 * Rp) / (4 * d.KS * (Rp + wc))));
+  d.ld = 4 * d.KS * d.S4 + 4;  // 4 floats of padding: neighbouring staged rows start in other banks
+  d.ntiles = (k4n + d.KS * d.S4 - 1) / (d.KS * d.S4);
+  return d;
+}
+
+// The ring's copies are bulk copies (the Tensor Memory Accelerator), each
+// counted in bytes on its slot's transaction barrier (mbarrier): an SM keeps
+// far more bytes in flight so than with 16-byte copies a thread.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(arrivals) : "memory");
+}
+// this thread's arrival, with the bytes its copies will add to the phase
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ bool mbar_done(unsigned bar, unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+  return ok != 0;
+}
+// wait for the phase of `parity`; a wait of seconds means a lost copy, and
+// the kernel ends with an error instead of hanging the card
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  if (mbar_done(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_done(bar, parity))
+    if (clock64() - t0 > 4000000000LL) __trap();
+}
+// 16 bytes from global memory (from L2, past this SM's L1) into shared memory
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+// `bytes` (a multiple of 16) from global memory (through L2) into this
+// block's shared memory, counted on `bar`
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, unsigned bytes, unsigned bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// The ring: NSLOT slots of SLOT floats, a transaction barrier each (a phase:
+// thread 0's arrival with the bytes of the tile's bulk copy), and the
+// parity each barrier's next phase completes with. A tile's 16-byte copies
+// are a cp.async group of each thread.
+struct Ring {
+  float* slots;
+  unsigned bar0;   // shared address of slot 0's barrier; slot s's at bar0 + 8 s
+  unsigned phase;  // bit s: the parity of slot s's next phase
+};
+
+// ntiles tiles through the ring: fill(j, slot, bar) issues tile j's copies
+// (thread 0 its bulk copy and its arrival on the slot's barrier with the
+// bytes, every thread its cp.async copies, committed as one group here); use(j, slot) reads the tile once its bytes have landed; the
+// next NSLOT - 1 tiles are in flight while one is used. Every thread of the
+// block calls it alike.
+template <class Fill, class Use>
+__device__ __forceinline__ void ring_run(int ntiles, Ring& rg, Fill fill, Use use, long long* clocks) {
+  long long t0 = clocks ? clock64() : 0;
+  auto lap = [&](int i) {  // the cycles of each part of the ring: 0 fills, 2 waits, 10 uses
+    if (clocks) {
+      const long long now = clock64();
+      clocks[i] += now - t0;
+      t0 = now;
+    }
+  };
+  for (int j = 0; j < NSLOT - 1; ++j) {
+    if (j < ntiles) fill(j, rg.slots + (size_t)j * SLOT, rg.bar0 + 8 * j);
+    cp_async_commit();
+  }
+  lap(0);
+  for (int j = 0; j < ntiles; ++j) {
+    if (j + NSLOT - 1 < ntiles) {
+      const int f = (j + NSLOT - 1) % NSLOT;
+      fill(j + NSLOT - 1, rg.slots + (size_t)f * SLOT, rg.bar0 + 8 * f);
+    }
+    cp_async_commit();
+    lap(0);
+    const int sl = j % NSLOT;
+    cp_async_wait<NSLOT - 1>();
+    mbar_wait(rg.bar0 + 8 * sl, (rg.phase >> sl) & 1u);
+    rg.phase ^= 1u << sl;
+    __syncthreads();  // and what the fills stored beside the copies
+    lap(2);
+    use(j, rg.slots + (size_t)sl * SLOT);
+    __syncthreads();  // the slot is refilled with tile j + NSLOT
+    lap(10);
+  }
+}
+
+// Every block of the grid arrives, then waits until all have. `bar` counts
+// arrivals over the whole launch (zeroed by the caller; a cooperative
+// launch keeps every block resident), `epoch` the barriers this block has
+// passed. The fences order the block's stores before its arrival and the
+// others' stores before what it reads next, through L2 (ld.cg, cp.async.cg)
+// or the bulk copies of the async proxy, which thread 0 alone issues
+// (fence.proxy.async).
+__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& epoch) {
+  __syncthreads();
+  epoch += 1;
+  if (threadIdx.x == 0) {
+    const unsigned target = epoch * gridDim.x;
+    __threadfence();
+    atomicAdd(bar, 1u);
+    unsigned seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(bar) : "memory");
+    } while ((int)(seen - target) < 0);
+    __threadfence();
+    asm volatile("fence.proxy.async;\n" ::: "memory");  // thread 0 issues the block's bulk copies
+  }
+  __syncthreads();
+}
+
+// One pass of a dense stage: part[ks][rl][col] = the sum over k part ks of
+// in[rl][k] * w[k][col] for the Rp = 8 P rows of the pass, w [K][wc] this
+// block's column block, read once a pass. Tile j (grid_tile's cut) brings
+// each row's k range [j kt, (j + 1) kt) through src(rl, k, n) (the address
+// of input float k of row rl, n floats on from it contiguous; null past
+// the pass's rows, whose sums are not read), 16 bytes a thread, and the
+// weight rows of that range in one bulk copy, through the ring. A thread an
+// item (k part, row tile, column group): 8 rows x 4 columns in registers
+// across the tiles.
+// Staged row rl lies at row (rl % 8) P + rl / 8 of a slot, so that a warp's
+// row tiles read other banks. The sums land in the ring once every tile has
+// been read; returns the number of k parts.
+template <class Src>
+__device__ __forceinline__ int grid_dense(const float* __restrict__ w, int K, int wc, int P, Src src, Ring& rg,
+                                          long long* clocks) {
+  const int ncg = wc / 4, k4n = K / 4, Rp = 8 * P;
+  const DenseTile d = grid_tile(k4n, wc, P);
+  const int KS = d.KS, S4 = d.S4, ld = d.ld, kt = 4 * KS * S4;
+  const int tid = threadIdx.x;
+  const int cg = tid % ncg, rt = (tid / ncg) % P, ks = tid / (ncg * P);
+  const bool active = ks < KS;
+  auto fill = [&](int j, float* slot, unsigned bar) {
+    const int kb = j * kt, kl = imin(kt, K - kb), kq = kl / 4;  // the tile's k
+    if (tid == 0) {
+      mbar_expect(bar, (unsigned)kl * wc * 4);
+      bulk_load(slot + (size_t)Rp * ld, w + (size_t)kb * wc, (unsigned)kl * wc * 4, bar);
+    }
+    // the input rows, a float4 a thread at a time (L2 hits, shared by the grid)
+    for (int i = tid; i < Rp * kq; i += THREADS) {
+      const int rl = i / kq, k = kb + 4 * (i - rl * kq);
+      int n;
+      const float* p = src(rl, k, n);
+      if (p) cp_async16(slot + (size_t)((rl & 7) * P + (rl >> 3)) * ld + (k - kb), p);
+    }
+  };
+  float acc[DR][4];
+#pragma unroll
+  for (int r = 0; r < DR; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
+  auto use = [&](int j, const float* slot) {
+    if (!active) return;
+    const int qn = imin(S4, k4n - j * KS * S4 - ks * S4);  // this part's float4s in the tile
+    // float4 k4 of row tile rt's row r at xs[r P ld + 4 k4], its 4 weight rows at wr[4 k4 wc]
+    const float* xs = slot + (size_t)rt * ld + 4 * ks * S4;
+    const float* wr = slot + (size_t)Rp * ld + (size_t)ks * S4 * 4 * wc + 4 * cg;
+    for (int k4 = 0; k4 < qn; ++k4) {
+      const float* wk = wr + (size_t)k4 * 4 * wc;
+      const float4 w0 = *reinterpret_cast<const float4*>(wk);
+      const float4 w1 = *reinterpret_cast<const float4*>(wk + wc);
+      const float4 w2 = *reinterpret_cast<const float4*>(wk + 2 * wc);
+      const float4 w3 = *reinterpret_cast<const float4*>(wk + 3 * wc);
+#pragma unroll
+      for (int r = 0; r < DR; ++r) {
+        const float4 x = *reinterpret_cast<const float4*>(xs + (size_t)r * P * ld + 4 * k4);
+        acc[r][0] = fmaf(x.x, w0.x, acc[r][0]);
+        acc[r][1] = fmaf(x.x, w0.y, acc[r][1]);
+        acc[r][2] = fmaf(x.x, w0.z, acc[r][2]);
+        acc[r][3] = fmaf(x.x, w0.w, acc[r][3]);
+        acc[r][0] = fmaf(x.y, w1.x, acc[r][0]);
+        acc[r][1] = fmaf(x.y, w1.y, acc[r][1]);
+        acc[r][2] = fmaf(x.y, w1.z, acc[r][2]);
+        acc[r][3] = fmaf(x.y, w1.w, acc[r][3]);
+        acc[r][0] = fmaf(x.z, w2.x, acc[r][0]);
+        acc[r][1] = fmaf(x.z, w2.y, acc[r][1]);
+        acc[r][2] = fmaf(x.z, w2.z, acc[r][2]);
+        acc[r][3] = fmaf(x.z, w2.w, acc[r][3]);
+        acc[r][0] = fmaf(x.w, w3.x, acc[r][0]);
+        acc[r][1] = fmaf(x.w, w3.y, acc[r][1]);
+        acc[r][2] = fmaf(x.w, w3.z, acc[r][2]);
+        acc[r][3] = fmaf(x.w, w3.w, acc[r][3]);
+      }
+    }
+  };
+  ring_run(d.ntiles, rg, fill, use, clocks);
+  if (active)
+#pragma unroll
+    for (int r = 0; r < DR; ++r)
+      *reinterpret_cast<float4*>(rg.slots + ((size_t)(ks * Rp + rt * DR + r) * wc + 4 * cg)) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  __syncthreads();
+  return KS;
+}
+
+// sum over the k parts of one output of a pass, in a fixed order: four
+// chains (parts ks = 4 i + j on chain j, the rest on chain 0), as gather()
+__device__ __forceinline__ float grid_gather(const float* part, int KS, int Rp, int wc, int rl, int col) {
+  const float* p = part + (size_t)rl * wc + col;
+  const size_t stride = (size_t)Rp * wc;
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int ks = 0;
+  for (; ks + 4 <= KS; ks += 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j] += p[(ks + j) * stride];
+  }
+  for (; ks < KS; ++ks) s[0] += p[ks * stride];
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+// the row whose chunks hold chunk index idx: the last r with off[r] <= idx
+// (a finished row has no chunks, off[r] == off[r + 1])
+__device__ __forceinline__ int chunk_row(const int* off, int B, int idx) {
+  int lo = 0, hi = B - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (off[mid] <= idx) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+greedy_grid_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clocks) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int G = gridDim.x, blk = blockIdx.x;
+  const int B = a.B, T = a.T, A = a.A, M = a.M, V = a.V, E = a.E, AL = a.AL, U = a.U;
+  const size_t Bp = round8(B);
+  const GridLayout L = grid_layout(B, A);
+  const int lcols = a.g.st[ST_LOGITS].cols;
+  const GridWs W = grid_ws(B, A, M, AL, U, a.n_cells, G, lcols);
+  Ring rg{smem + L.ring, smem_addr(smem + L.mbar), 0u};
+  float* pw_s = smem + L.pw;
+  float* q_s = smem + L.q;
+  float* v_s = smem + L.v;
+  int* tok_s = reinterpret_cast<int*>(smem + L.tok);
+  int* fin_s = reinterpret_cast<int*>(smem + L.fin);
+  int* tl_s = reinterpret_cast<int*>(smem + L.tl);
+  int* nch_s = reinterpret_cast<int*>(smem + L.nch);
+  int* off_s = reinterpret_cast<int*>(smem + L.off);
+  int* changed_s = reinterpret_cast<int*>(smem + L.flag);
+  float* red_s = smem + L.red;
+  float* h = a.act + W.h;
+  float* cst = a.act + W.c;
+  float* attn = a.act + W.attn;
+  float* qg = a.act + W.q;
+  float* ctx = a.act + W.ctx;
+  float* cmax = a.act + W.cmax;
+  float* csum = a.act + W.csum;
+  float* pctx = a.act + W.pctx;
+  float* pmax = a.act + W.pmax;
+  int* pidx = reinterpret_cast<int*>(a.act + W.pidx);
+  int* tlg = reinterpret_cast<int*>(a.act + W.tl);
+  unsigned* bar = reinterpret_cast<unsigned*>(a.act + W.bar);
+  unsigned epoch = 0;
+
+  for (int i = tid; i < A; i += THREADS) v_s[i] = a.v[i];
+  for (int r = tid; r < (int)Bp; r += THREADS) {
+    tok_s[r] = a.bos;
+    fin_s[r] = r >= B;
+  }
+  if (tid == 0) {
+    *changed_s = 1;
+    for (int i = 0; i < NSLOT; ++i) mbar_init(rg.bar0 + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // one past the last valid position of every row: block g scans rows g, g + G, ...
+  for (int r = blk; r < B; r += G) {
+    const float* mkr = a.mask + (size_t)r * T;
+    float last = 0.0f;
+    for (int t = tid; t < T; t += THREADS)
+      if (mkr[t] != 0.0f) last = (float)(t + 1);
+    last = block_reduce<true>(last, red_s);
+    if (tid == 0) tlg[r] = (int)last;
+  }
+  grid_sync(bar, epoch);
+  for (int r = tid; r < B; r += THREADS) tl_s[r] = __ldcg(tlg + r);
+  __syncthreads();
+
+  // clocks (optional): SM cycles thread 0 of block 0 spent in 1 the cells'
+  // products and updates, 3 their barriers, 4 the query's product, 5 its
+  // barrier, 6 the scores and their barrier, 7 the softmax's exponentials
+  // and chunk sums and their barrier, 8 the context, 9 its barrier, 11 the
+  // attention layer's product, 12 its barrier, 13 the logits and the block's
+  // pairs, 14 their barrier and the reduction of the pairs; 15 counts the
+  // steps (0, 2 and 10 stay 0: the staging overlaps the products)
+  const bool timed = clocks != nullptr && tid == 0 && blk == 0;
+  long long* rclk = timed ? clocks : nullptr;  // the ring's own parts
+  long long tick = timed ? clock64() : 0;
+  auto lap = [&](int i) {
+    if (timed) {
+      const long long now = clock64();
+      clocks[i] += now - tick;
+      tick = now;
+    }
+  };
+  // a dense stage: this block's column block for its row group's rows, in
+  // passes; epi(first row, end row, k parts, column block, rows of the pass)
+  // reads the pass's sums
+  auto dense_stage = [&](const StageCut sc, int K, const float* w, auto src, auto epi) {
+    const int grp = blk / sc.cols, cb = blk - grp * sc.cols;
+    if (grp >= sc.groups) return;
+    const float* wb = w + (size_t)cb * K * sc.width;
+    const int rend = imin(B, (grp + 1) * sc.rows), Rp = 8 * sc.tiles;
+    for (int rb = grp * sc.rows; rb < rend; rb += Rp) {
+      const int re = imin(rend, rb + Rp);
+      auto s = [&](int rl, int k, int& n) -> const float* { return rb + rl < re ? src(rb + rl, k, n) : nullptr; };
+      const int KS = grid_dense(wb, K, sc.width, sc.tiles, s, rg, rclk);
+      epi(rb, re, KS, cb, Rp);
+      __syncthreads();  // the sums are read before the next pass stages over them
+    }
+  };
+
+  int s = 0;
+  for (; s < a.steps; ++s) {
+    bool live = false;
+    for (int r = tid; r < B; r += THREADS) live = live || !fin_s[r];
+    if (!__syncthreads_or(live)) break;  // the same in every block
+    const int cur = s & 1, nxt = cur ^ 1;
+    // each live row's attention in 1 + floor((G - live rows) tl / sum of tl)
+    // chunks (1 each past G live rows), in row order: chunk index idx is
+    // taken by block idx % G; the same in every block
+    if (*changed_s) {
+      __syncthreads();
+      if (tid == 0) {
+        int nlive = 0;
+        long long wsum = 0;
+        for (int r = 0; r < B; ++r)
+          if (!fin_s[r]) nlive += 1, wsum += tl_s[r];
+        const long long spare = imax(0, G - nlive);
+        int off = 0;
+        for (int r = 0; r < B; ++r) {
+          const int n = fin_s[r] ? 0 : 1 + (wsum > 0 ? (int)(spare * tl_s[r] / wsum) : 0);
+          off_s[r] = off;
+          nch_s[r] = n;
+          off += n;
+        }
+        off_s[B] = off;
+        *changed_s = 0;
+      }
+      __syncthreads();
+    }
+    const int nchunks = off_s[B];
+
+    // the cells: each block its column block's units (4 gates each) for its rows
+    for (int l = 0; l < a.n_cells; ++l) {
+      const StageCut sc = a.g.st[l == 0 ? ST_CELL0 : ST_CELLS];
+      const int K = (l == 0 ? E + AL : U) + U, Us = sc.width / 4;
+      float* hl = h + (size_t)l * 2 * Bp * U;
+      const float* below = hl - 2 * Bp * U + (size_t)nxt * Bp * U;  // h of cell l - 1, this step
+      const float* mine = hl + (size_t)cur * Bp * U;                // h of cell l, the last step
+      auto src = [&](int r, int k, int& n) -> const float* {
+        if (l > 0) return k < U ? (n = U - k, below + (size_t)r * U + k) : (n = K - k, mine + (size_t)r * U + k - U);
+        if (k < E) return n = E - k, a.emb + (size_t)tok_s[r] * E + k;
+        if (k < E + AL) return n = E + AL - k, attn + (size_t)r * AL + k - E;
+        return n = K - k, mine + (size_t)r * U + k - E - AL;
+      };
+      auto epi = [&](int rb, int re, int KS, int cb, int Rp) {
+        const float* bias = a.cells[2 * l + 1] + (size_t)cb * sc.width;
+        for (int i = tid; i < (re - rb) * Us; i += THREADS) {
+          const int rl = i / Us, j = i - rl * Us, r = rb + rl, unit = cb * Us + j;
+          if (unit >= U) continue;
+          const float gi = grid_gather(rg.slots, KS, Rp, sc.width, rl, j) + __ldg(bias + j);
+          const float gf = grid_gather(rg.slots, KS, Rp, sc.width, rl, Us + j) + __ldg(bias + Us + j);
+          const float gg = grid_gather(rg.slots, KS, Rp, sc.width, rl, 2 * Us + j) + __ldg(bias + 2 * Us + j);
+          const float go = grid_gather(rg.slots, KS, Rp, sc.width, rl, 3 * Us + j) + __ldg(bias + 3 * Us + j);
+          float* cp = cst + ((size_t)l * Bp + r) * U + unit;
+          const float c_new = sigmoidf(gf + 1.0f) * *cp + sigmoidf(gi) * tanhf(gg);
+          *cp = c_new;
+          hl[((size_t)nxt * Bp + r) * U + unit] = sigmoidf(go) * tanhf(c_new);
+        }
+      };
+      dense_stage(sc, K, a.cells[2 * l], src, epi);
+      lap(1);
+      grid_sync(bar, epoch);
+      lap(3);
+    }
+    const float* hout = h + ((size_t)(a.n_cells - 1) * 2 + nxt) * Bp * U;  // [B][U]
+
+    // the query
+    {
+      const StageCut sc = a.g.st[ST_QUERY];
+      auto src = [&](int r, int k, int& n) -> const float* { return n = U - k, hout + (size_t)r * U + k; };
+      auto epi = [&](int rb, int re, int KS, int cb, int Rp) {
+        for (int i = tid; i < (re - rb) * sc.width; i += THREADS) {
+          const int rl = i / sc.width, j = i - rl * sc.width, col = cb * sc.width + j;
+          if (col < A) qg[(size_t)(rb + rl) * A + col] = grid_gather(rg.slots, KS, Rp, sc.width, rl, j);
+        }
+      };
+      dense_stage(sc, U, a.wq, src, epi);
+      lap(4);
+      grid_sync(bar, epoch);
+      lap(5);
+    }
+
+    // attention pass 1: chunk c of row r, a contiguous run of its valid
+    // positions, its keys and mask staged TP positions a tile through the
+    // ring; a warp a position, its lanes over A: the scores into ws, the
+    // chunk's maximum into cmax
+    const int TP = imax(1, imin(THREADS, SLOT / A));
+    for (int idx = blk; idx < nchunks; idx += G) {
+      const int r = chunk_row(off_s, B, idx), c = idx - off_s[r], n = nch_s[r];
+      const int tl = tl_s[r], cs = (tl + n - 1) / n, t0 = imin(tl, c * cs), t1 = imin(tl, t0 + cs);
+      const float* Kr = a.keys + (size_t)r * T * A;
+      const float* mkr = a.mask + (size_t)r * T;
+      float* scr = a.ws + (size_t)r * T;
+      const int ntiles = (t1 - t0 + TP - 1) / TP;
+      __syncthreads();  // q_s of the last chunk has been read
+      for (int i = tid; i < A / 4; i += THREADS)
+        reinterpret_cast<float4*>(q_s)[i] = __ldcg(reinterpret_cast<const float4*>(qg + (size_t)r * A) + i);
+      float mx = -CUDART_INF_F;
+      float mk = 0.0f;  // the mask of this thread's position of the tile NSLOT - 1 ahead
+      auto fill = [&](int j, float* slot, unsigned bar) {
+        const int tb = t0 + j * TP, np = imin(TP, t1 - tb);
+        if (tid == 0) {
+          mbar_expect(bar, (unsigned)np * A * 4);
+          bulk_load(slot, Kr + (size_t)tb * A, (unsigned)np * A * 4, bar);
+        }
+        const float x = tid < np ? __ldg(mkr + tb + tid) : 0.0f;
+        if (j < NSLOT - 1) pw_s[j * THREADS + tid] = x;
+        else mk = x;
+      };
+      auto use = [&](int j, const float* slot) {
+        const int tb = t0 + j * TP, np = imin(TP, t1 - tb);
+        const float* mks = pw_s + (j % NSLOT) * THREADS;
+        for (int p = warp; p < np; p += NWARPS) {
+          float acc = 0.0f;
+          for (int a4 = lane; a4 < A / 4; a4 += 32) {
+            const float4 k = reinterpret_cast<const float4*>(slot + (size_t)p * A)[a4];
+            const float4 q = reinterpret_cast<const float4*>(q_s)[a4];
+            const float4 vv = reinterpret_cast<const float4*>(v_s)[a4];
+            acc += tanhf(k.x + q.x) * vv.x;
+            acc += tanhf(k.y + q.y) * vv.y;
+            acc += tanhf(k.z + q.z) * vv.z;
+            acc += tanhf(k.w + q.w) * vv.w;
+          }
+          const float sum = warp_sum(acc);
+          if (lane == 0) {
+            const float sc = sum + (1.0f - mks[p]) * NEG;
+            scr[tb + p] = sc;
+            mx = fmaxf(mx, sc);
+          }
+        }
+        if (j + NSLOT - 1 < ntiles) pw_s[((j + NSLOT - 1) % NSLOT) * THREADS + tid] = mk;
+      };
+      ring_run(ntiles, rg, fill, use, rclk);
+      mx = block_reduce<true>(mx, red_s);
+      if (tid == 0) cmax[idx] = mx;
+    }
+    lap(6);
+    grid_sync(bar, epoch);
+    lap(6);
+
+    // pass 2: the row's maximum over its chunks' (exact in any order), then
+    // exp(s - max) * mask over the chunk into ws and the chunk's sum
+    for (int idx = blk; idx < nchunks; idx += G) {
+      const int r = chunk_row(off_s, B, idx), c = idx - off_s[r], n = nch_s[r];
+      const int tl = tl_s[r], cs = (tl + n - 1) / n, t0 = imin(tl, c * cs), t1 = imin(tl, t0 + cs);
+      const float* mkr = a.mask + (size_t)r * T;
+      float* scr = a.ws + (size_t)r * T;
+      __syncthreads();  // pw_s of the last chunk has been read
+      for (int cc = tid; cc < n; cc += THREADS) pw_s[cc] = __ldcg(cmax + off_s[r] + cc);
+      __syncthreads();
+      float mx = -CUDART_INF_F;
+      for (int cc = 0; cc < n; ++cc) mx = fmaxf(mx, pw_s[cc]);
+      float sum = 0.0f;
+      for (int t = t0 + tid; t < t1; t += THREADS) {
+        const float e = expf(__ldcg(scr + t) - mx) * __ldg(mkr + t);
+        scr[t] = e;
+        sum += e;
+      }
+      sum = block_reduce<false>(sum, red_s);
+      if (tid == 0) csum[idx] = sum;
+    }
+    lap(7);
+    grid_sync(bar, epoch);
+    lap(7);
+
+    // pass 3: each chunk's part of the context, sum over its positions of
+    // e / sum times the memory row, the row's sum of its chunks' sums taken
+    // in chunk order (the same in every block). The chunk's memory rows come
+    // TM positions a tile, whole, one bulk copy each, their weights beside
+    // (each loaded one tile ahead of use); an item (part of the tile's
+    // positions, 4 columns) a thread: part ts takes the tile's positions q
+    // with q % TS == ts, the parts added in order into pctx[chunk]
+    const int mq = M / 4, TS = imax(1, THREADS / mq), TM = imax(1, imin(THREADS, SLOT / M));
+    for (int idx = blk; idx < nchunks; idx += G) {
+      const int r = chunk_row(off_s, B, idx), c = idx - off_s[r], n = nch_s[r];
+      const int tl = tl_s[r], cs = (tl + n - 1) / n, t0 = imin(tl, c * cs), t1 = imin(tl, t0 + cs);
+      const float* Mr = a.mem + (size_t)r * T * M;
+      const float* scr = a.ws + (size_t)r * T;
+      for (int cc = tid; cc < n; cc += THREADS) pw_s[cc] = __ldcg(csum + off_s[r] + cc);
+      __syncthreads();
+      float sum = 0.0f;
+      for (int cc = 0; cc < n; ++cc) sum += pw_s[cc];
+      sum = fmaxf(sum, 1e-30f);
+      __syncthreads();  // pw_s is read before the ring's weights land there
+      const int ntiles = (t1 - t0 + TM - 1) / TM;
+      const int ts = tid / imin(mq, THREADS), m4 = tid - ts * imin(mq, THREADS);
+      const bool active = ts < TS;
+      float ev = 0.0f;  // the weight of this thread's position of the tile NSLOT - 1 ahead
+      auto fill = [&](int j, float* slot, unsigned bar) {
+        const int tb = t0 + j * TM, np = imin(TM, t1 - tb);
+        const unsigned bytes = tid == 0 ? (unsigned)np * M * 4 : 0u;
+        if (tid == 0) {
+          mbar_expect(bar, bytes);
+          bulk_load(slot, Mr + (size_t)tb * M, bytes, bar);
+        }
+        const float x = tid < np ? __ldcg(scr + tb + tid) : 0.0f;
+        if (j < NSLOT - 1) pw_s[j * THREADS + tid] = x / sum;
+        else ev = x;
+      };
+      float4 acc[2] = {make_float4(0.0f, 0.0f, 0.0f, 0.0f), make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
+      auto use = [&](int j, const float* slot) {
+        const int np = imin(TM, t1 - t0 - j * TM);
+        const float* pw = pw_s + (j % NSLOT) * THREADS;
+        if (active)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int col = m4 + h2 * THREADS;  // past THREADS float4 columns a thread takes two
+            if (col >= mq) break;
+            float4 s4 = acc[h2];
+            for (int q = ts; q < np; q += TS) {
+              const float pv = pw[q];
+              const float4 mv = reinterpret_cast<const float4*>(slot + (size_t)q * M)[col];
+              s4.x = fmaf(pv, mv.x, s4.x);
+              s4.y = fmaf(pv, mv.y, s4.y);
+              s4.z = fmaf(pv, mv.z, s4.z);
+              s4.w = fmaf(pv, mv.w, s4.w);
+            }
+            acc[h2] = s4;
+          }
+        if (j + NSLOT - 1 < ntiles) pw_s[((j + NSLOT - 1) % NSLOT) * THREADS + tid] = ev / sum;
+      };
+      ring_run(ntiles, rg, fill, use, rclk);
+      float* part = rg.slots;  // [TS][M], every tile read
+      if (active)
+        for (int h2 = 0; h2 < 2 && m4 + h2 * THREADS < mq; ++h2)
+          reinterpret_cast<float4*>(part + (size_t)ts * M)[m4 + h2 * THREADS] = acc[h2];
+      __syncthreads();
+      for (int m = tid; m < M; m += THREADS) {
+        float cv = part[m];
+        for (int p = 1; p < TS; ++p) cv += part[(size_t)p * M + m];
+        pctx[(size_t)idx * M + m] = cv;
+      }
+      __syncthreads();  // part is read before the ring is filled again
+    }
+    lap(8);
+    grid_sync(bar, epoch);
+    // the context of every live row: its chunks' parts added in chunk order,
+    // the rows' float4 columns spread over the grid
+    for (int o = blk * THREADS + tid; o < B * mq; o += G * THREADS) {
+      const int r = o / mq, m4 = o - r * mq;
+      const int n = nch_s[r];
+      if (n == 0) continue;
+      const float4* pr = reinterpret_cast<const float4*>(pctx + (size_t)off_s[r] * M) + m4;
+      float4 cv = __ldcg(pr);
+      for (int c0 = 1; c0 < n; c0 += 4) {  // four loads in flight, then added in order
+        float4 x[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c0 + j < n) x[j] = __ldcg(pr + (size_t)(c0 + j) * mq);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c0 + j < n) cv.x += x[j].x, cv.y += x[j].y, cv.z += x[j].z, cv.w += x[j].w;
+      }
+      reinterpret_cast<float4*>(ctx + (size_t)r * M)[m4] = cv;
+    }
+    lap(8);
+    grid_sync(bar, epoch);
+    lap(9);
+
+    // the attention vector, from [h; context]
+    {
+      const StageCut sc = a.g.st[ST_LAYER];
+      auto src = [&](int r, int k, int& n) -> const float* {
+        return k < U ? (n = U - k, hout + (size_t)r * U + k) : (n = U + M - k, ctx + (size_t)r * M + k - U);
+      };
+      auto epi = [&](int rb, int re, int KS, int cb, int Rp) {
+        for (int i = tid; i < (re - rb) * sc.width; i += THREADS) {
+          const int rl = i / sc.width, j = i - rl * sc.width, col = cb * sc.width + j;
+          if (col < AL) attn[(size_t)(rb + rl) * AL + col] = grid_gather(rg.slots, KS, Rp, sc.width, rl, j);
+        }
+      };
+      dense_stage(sc, U + M, a.attn_w, src, epi);
+      lap(11);
+      grid_sync(bar, epoch);
+      lap(12);
+    }
+
+    // the logits of each column block, and its (maximum, first index) of each row
+    {
+      const StageCut sc = a.g.st[ST_LOGITS];
+      auto src = [&](int r, int k, int& n) -> const float* { return n = AL - k, attn + (size_t)r * AL + k; };
+      auto epi = [&](int rb, int re, int KS, int cb, int Rp) {
+        for (int rl = tid; rl < re - rb; rl += THREADS) {
+          float best = -CUDART_INF_F;
+          int bi = V;
+          for (int j = 0; j < sc.width && cb * sc.width + j < V; ++j) {
+            const float x = grid_gather(rg.slots, KS, Rp, sc.width, rl, j) + __ldg(a.out_b + cb * sc.width + j);
+            if (x > best || bi == V) best = x, bi = cb * sc.width + j;
+          }
+          pmax[(size_t)(rb + rl) * lcols + cb] = best;
+          pidx[(size_t)(rb + rl) * lcols + cb] = bi;
+        }
+      };
+      dense_stage(sc, AL, a.out_w, src, epi);
+      lap(13);
+      grid_sync(bar, epoch);
+    }
+    // every block reduces the pairs of every row in column block order, the
+    // smallest index winning a tie: all hold the same tokens and flags
+    for (int r = tid; r < B; r += THREADS) {
+      float best = -CUDART_INF_F;
+      int bi = V;
+      for (int p = 0; p < lcols; ++p) {
+        const float ob = __ldcg(pmax + (size_t)r * lcols + p);
+        const int oi = __ldcg(pidx + (size_t)r * lcols + p);
+        if (oi < V && (bi == V || ob > best || (ob == best && oi < bi))) best = ob, bi = oi;
+      }
+      const int token = fin_s[r] ? a.eos : bi;
+      tok_s[r] = token;
+      if (!fin_s[r] && token == a.eos) fin_s[r] = 1, *changed_s = 1;
+      if (blk == 0) tokens[(size_t)r * a.steps + s] = token;
+    }
+    __syncthreads();
+    lap(14);
+    if (timed) clocks[15] += 1;
+  }
+  // <eos> for the steps the launch did not run
+  if (blk == 0)
+    for (int r = 0; r < B; ++r)
+      for (int i = s + tid; i < a.steps; i += THREADS) tokens[(size_t)r * a.steps + i] = a.eos;
+}
+
+// the grid layout's cut: every stage's blocks within the grid, its column
+// blocks covering its columns (a cell's units), its row groups the batch,
+// an item a thread
+bool bad_grid(const DecArgs& a) {
+  const GridCut& g = a.g;
+  if (a.C < 1 || a.act == nullptr || a.ws == nullptr) return true;
+  if (a.M > 8 * THREADS) return true;  // the context: two float4 columns a thread at most
+  const int outs[N_STAGES] = {a.U, a.U, a.A, a.AL, a.V};  // units (the cells) or columns
+  for (int i = 0; i < N_STAGES; ++i) {
+    const StageCut& c = g.st[i];
+    if (c.cols < 1 || c.groups < 1 || (long long)c.cols * c.groups > a.C) return true;
+    if (c.width < 4 || c.width % 4 || c.width / 4 > THREADS) return true;
+    if (c.rows < DR || c.rows % DR || (long long)c.rows * c.groups < a.B) return true;
+    if (c.tiles < 1 || c.tiles > MAX_TILES || c.tiles * (c.width / 4) > THREADS) return true;
+    if ((long long)c.cols * (i < ST_QUERY ? c.width / 4 : c.width) < outs[i]) return true;
+  }
+  return grid_layout(a.B, a.A).total * sizeof(float) > SMEM_MAX;
+}
+
 bool bad_shape(const DecArgs& a, int layout) {
   const int C = a.C;
   if (a.B <= 0 || a.T <= 0 || a.n_cells <= 0 || a.steps < 0 || a.V <= 0) return true;
-  if (C < 1 || C > 8) return true;
   // 16-byte loads of every input row and weight slice
   if (a.E % 4 || a.AL % 8 || a.U % 4 || a.A % 4 || a.M % 4) return true;
+  if (layout == LAYOUT_GRID) return bad_grid(a);
+  if (layout != LAYOUT_HELD || C < 1 || C > 8) return true;
   if (a.U % C || a.A % (4 * C) || a.AL % (4 * C)) return true;
-  if (layout < LAYOUT_HELD || layout > LAYOUT_TILED) return true;
-  if (layout != LAYOUT_HELD && a.act == nullptr) return true;
-  if (layout == LAYOUT_TILED && a.ws == nullptr) return true;
-  const DecLayout L = dec_layout(a.T, a.A, a.M, a.V, a.E, a.AL, a.U, a.n_cells, C, layout);
+  const DecLayout L = dec_layout(a.T, a.A, a.M, a.V, a.E, a.AL, a.U, a.n_cells, C);
   return L.total * sizeof(float) > SMEM_MAX;
 }
 
-template <int LAYOUT>
-cudaError_t prepare(const DecArgs& a, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  const DecLayout L = dec_layout(a.T, a.A, a.M, a.V, a.E, a.AL, a.U, a.n_cells, a.C, LAYOUT);
+// The held layout: clusters of C blocks, a cluster a group of 8 rows.
+int launch_held(const DecArgs& a, int* tokens, int* info, long long* clocks, cudaStream_t stream) {
+  const DecLayout L = dec_layout(a.T, a.A, a.M, a.V, a.E, a.AL, a.U, a.n_cells, a.C);
   const size_t smem = L.total * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(greedy_kernel<LAYOUT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return e;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = a.C;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg->gridDim = dim3(a.C * ((a.B + DR - 1) / DR));
-  cfg->blockDim = dim3(THREADS);
-  cfg->dynamicSmemBytes = smem;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaSuccess;
-}
-
-template <int LAYOUT>
-int launch(const DecArgs& a, int* tokens, int* info, long long* clocks, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(greedy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cudaError_t e = prepare<LAYOUT>(a, &cfg, &attr);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = a.C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(a.C * ((a.B + DR - 1) / DR));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
   cfg.stream = stream;
   if (info) {
-    e = cudaOccupancyMaxActiveClusters(&info[0], greedy_kernel<LAYOUT>, &cfg);
+    e = cudaOccupancyMaxActiveClusters(&info[0], greedy_kernel, &cfg);
     if (e != cudaSuccess) return static_cast<int>(e);
     cudaFuncAttributes fa;
-    e = cudaFuncGetAttributes(&fa, greedy_kernel<LAYOUT>);
+    e = cudaFuncGetAttributes(&fa, greedy_kernel);
     if (e != cudaSuccess) return static_cast<int>(e);
-    info[1] = (int)cfg.dynamicSmemBytes;
+    info[1] = (int)smem;
     info[2] = fa.numRegs;
     info[3] = (int)fa.sharedSizeBytes;
   }
-  e = cudaLaunchKernelEx(&cfg, greedy_kernel<LAYOUT>, a, tokens, clocks);
+  e = cudaLaunchKernelEx(&cfg, greedy_kernel, a, tokens, clocks);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The grid layout: a cooperative launch of `cluster` blocks, refused
+// (cudaErrorCooperativeLaunchTooLarge) unless the card holds them all at once.
+int launch_grid(const DecArgs& a, int* tokens, int* info, long long* clocks, cudaStream_t stream) {
+  const size_t smem = grid_layout(a.B, a.A).total * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(greedy_grid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, sms = 0, per_sm = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, greedy_grid_kernel, THREADS, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (info) {
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, greedy_grid_kernel);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    info[0] = per_sm * sms;
+    info[1] = (int)smem;
+    info[2] = fa.numRegs;
+    info[3] = (int)fa.sharedSizeBytes;
+  }
+  if ((long long)per_sm * sms < a.C) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cfg.gridDim = dim3(a.C);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, greedy_grid_kernel, a, tokens, clocks);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace
 
-// The whole greedy decode -> tokens [B, steps]. wq, attn_w and the cells'
-// weights are regrouped into `cluster` column slices (see DecArgs);
-// `layout` picks the held (0), streamed (1) or tiled (2) layout: the latter
-// two keep the activations every block reads whole in `act` (ceil(B / 8)
-// groups of act_floats, zeroed by the caller) and out_w in global memory
-// (null `act` otherwise), the tiled one also each row's scores in `ws`
-// (ceil(B / 8) * 8 rows of T floats, zeroed by the caller; null otherwise);
-// info, if not null,
-// receives what the card gives this launch: info[0] = clusters it can run at
-// once (cudaOccupancyMaxActiveClusters), info[1] = dynamic shared memory
-// bytes a block (dec_layout's, all the shared memory the kernel uses),
+// The whole greedy decode -> tokens [B, steps]. `layout` picks the held (0)
+// or the grid (1) layout. The held layout: wq, attn_w and the cells' weights
+// are regrouped into `cluster` column slices (see DecArgs); `act`, `ws` and
+// `cut` are null. The grid layout: `cluster` is the grid's blocks, `cut` its
+// GridCut as ints (each stage's cols, width, groups, rows, tiles), wq,
+// attn_w, each cell's weights and bias, out_w and out_b regrouped into each
+// stage's column blocks ([cols][K][width], the bias and out_b
+// [cols][width]), `act` the workspace (grid_ws, zeroed by the caller), `ws`
+// [B padded to 8][T].
+// info, if not null, receives what the card gives this launch: info[0] =
+// clusters it can run at once (cudaOccupancyMaxActiveClusters; grid: the
+// blocks it holds at once), info[1] = dynamic shared memory bytes a block
+// (dec_layout's or grid_layout's, all the shared memory the kernel uses),
 // info[2] = registers a thread, info[3] = static shared memory bytes (0);
-// clocks is null or 16 cycle counters the kernel adds to (see the kernel). A
-// shape whose layout passes SMEM_MAX returns cudaErrorInvalidValue; the
-// wrapper's decoder_plan refuses it first.
+// clocks is null or 16 cycle counters the kernel adds to (see the kernels).
+// A shape whose layout passes SMEM_MAX, or a cut that does not cover the
+// shape, returns cudaErrorInvalidValue; the wrapper's decoder_plan refuses
+// it first.
 extern "C" int plt_greedy_decode(const float* keys, const float* mem, const float* mask,
                                  int B, int T, int A, int M, const float* emb, int V,
                                  int E, const float* wq, const float* v,
                                  const float* attn_w, int AL, const float* out_w,
                                  const float* out_b, const void* cell_ptrs, int n_cells,
                                  int U, int bos, int eos, int steps, int cluster, int layout,
-                                 float* act, float* ws, int* tokens, int* info, long long* clocks,
-                                 void* stream) {
+                                 float* act, float* ws, const int* cut, int* tokens, int* info,
+                                 long long* clocks, void* stream) {
   DecArgs a{keys, mem, mask, emb, wq, v, attn_w, out_w, out_b,
             static_cast<const float* const*>(cell_ptrs), act, ws,
-            B, T, A, M, V, E, AL, U, n_cells, bos, eos, steps, cluster};
+            B, T, A, M, V, E, AL, U, n_cells, bos, eos, steps, cluster, {}};
+  if (layout == LAYOUT_GRID) {
+    if (cut == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    for (int i = 0; i < N_STAGES; ++i) a.g.st[i] = StageCut{cut[5 * i], cut[5 * i + 1], cut[5 * i + 2], cut[5 * i + 3],
+                                                            cut[5 * i + 4]};
+  }
   if (bad_shape(a, layout)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (layout == LAYOUT_TILED) return launch<LAYOUT_TILED>(a, tokens, info, clocks, s);
-  return layout == LAYOUT_STREAMED ? launch<LAYOUT_STREAMED>(a, tokens, info, clocks, s)
-                                   : launch<LAYOUT_HELD>(a, tokens, info, clocks, s);
+  return layout == LAYOUT_GRID ? launch_grid(a, tokens, info, clocks, s) : launch_held(a, tokens, info, clocks, s);
 }

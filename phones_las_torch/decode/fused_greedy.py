@@ -2,34 +2,45 @@
 PyTorch version.
 
 Replaces the Pallas kernel ``phones_las_tpu/decode/pallas_greedy.py::
-greedy_decode_fused``. A thread-block cluster of C blocks decodes a group
-of ``GROUP_ROWS`` = 8 batch rows (the reference kernel's own group) and
-loops over the steps inside the kernel; groups run in parallel, so every
-batch size is served. In the dense stages (the cells, ``wq``, the
-attention layer) each block owns a slice of the output columns and
-computes it for all 8 rows, so a weight is read once per group and step;
-activations travel between the blocks through distributed shared memory,
-one cluster barrier a stage; attention runs per row, one row a block. The
-output projection is sliced over the blocks as well: each block holds
-``ceil(V / C)`` of its columns, and the rows' (maximum, first index) pairs
-meet in every block, so the shared memory a block needs grows with V / C
-(``decoder_smem_bytes``) and the phone vocabularies fit. Where the
-activations that every block reads whole (each cell's h, the context, the
-attention vector) do not fit in every block beside the rest — the speller
-widths of LAS-4-1024, U = A = 1024, M = 2048 — the streamed layout keeps
-them, and ``out_w``, in global memory (L2), written by their owners and
-staged by the readers after the cluster barrier that already ends each
-stage. Past what that layout holds (a row's scores grow with the encoder
-length, a stage's input row with the widths) the tiled layout keeps each
-row's scores in a global workspace and stages every input in tiles, so
-every encoder length runs, and spellers up to U = A = AL = 2048, M = 4096.
+greedy_decode_fused``. Two layouts. The held one: a thread-block cluster
+of C blocks decodes a group of ``GROUP_ROWS`` = 8 batch rows (the reference
+kernel's own group) and loops over the steps inside the kernel; groups run
+in parallel, so every batch size is served. In the dense stages (the
+cells, ``wq``, the attention layer) each block owns a slice of the output
+columns and computes it for all 8 rows, so a weight is read once per group
+and step; activations travel between the blocks through distributed
+shared memory, one cluster barrier a stage; attention runs per row, one
+row a block. The output projection is sliced over the blocks as well: each
+block holds ``ceil(V / C)`` of its columns, and the rows' (maximum, first
+index) pairs meet in every block, so the shared memory a block needs grows
+with V / C (``decoder_smem_bytes``) and the phone vocabularies fit. A group
+stops when all its rows have emitted <eos>; the last group is padded with
+rows that start finished.
+
+Wherever the held layout does not fit a block (the speller widths of
+LAS-4-1024, U = A = 1024, M = 2048; encoder lengths past a few thousand;
+vocabularies past a few thousand entries), the plan takes the grid layout
+(``csrc/greedy.cu::greedy_grid_kernel``): one cooperative launch of one
+block an SM, every block in every stage of a step, a grid barrier after
+each. Each dense stage's columns are cut over the grid (``grid_cuts``:
+column blocks, and row groups where they cut the blocks' intake), so a
+weight is read once a step for the whole batch; each live row's attention
+is cut over the grid in chunks of positions in proportion to its length
+(``grid_chunks``), a two-pass softmax over the chunks' maxima and sums,
+the chunks' parts of the context merged in chunk order. It takes every
+encoder length and spellers up to U = A = AL = 2048, M = 4096, and stops
+when every row has emitted <eos>. Every block keeps each row's flags in its
+shared memory, so a launch takes at most ``grid_rows`` rows (3,512 at
+A = 1024, 3,104 at A = 2048); a larger batch is decoded in passes of rows,
+a launch each (``DecoderPlan.passes``), so no batch size is refused.
+``decoder_plan(..., layout="grid")`` forces the grid layout where the held
+one fits, for a reading of the two in turns.
 Every width runs: a width that is no multiple of the kernel's
 granularity is zero padded (``ops/padding.py``, exact) to one that a plan
-takes (``kernel_widths``). A group stops
-when all its rows have emitted <eos>; the last group is padded with rows
-that start finished. The layout work the kernel needs (``column_slices``:
-each block's weight slice made contiguous; ``pad_speller``), the kernel's
-shared-memory layout and the choice of C and layout (``decoder_plan``,
+takes (``kernel_widths``). The layout work the kernel needs
+(``column_slices``, ``grid_slices``: each block's weight slice made
+contiguous; ``pad_speller``), the kernel's shared-memory layouts, the grid
+layout's workspace and the choice of layout and cut (``decoder_plan``,
 which refuses a shape that no plan fits before any launch) are here, where
 the CPU tests reach them.
 The kernel is the operator ``torch.ops.phones_las_torch.greedy_decode_fused``
@@ -77,6 +88,13 @@ CLOCK_NAMES = (
     "cell_staging", "cell_product", "cell_update", "cell_barrier", "query_product", "query_exchange",
     "scores", "softmax", "context", "context_exchange", "layer_staging", "layer_product",
     "layer_exchange", "logits", "argmax", "steps",
+)
+# the grid layout's counters: the ring's fills, waits and uses (every streamed
+# stage's, counted inside the others), the stages, the barriers
+GRID_CLOCK_NAMES = (
+    "ring_fill", "cells", "ring_wait", "cell_barriers", "query_product", "query_barrier", "scores",
+    "softmax", "context", "context_merge_barrier", "ring_use", "layer_product", "layer_barrier", "logits",
+    "argmax", "steps",
 )
 
 
@@ -145,59 +163,188 @@ def _pad4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-KTILE = 2048  # tiled layout: floats of a row of the stage (csrc/greedy.cu's KTILE)
-TTILE = 2048  # tiled layout: encoder positions of a tile of attention weights (TTILE)
+# the grid layout (csrc/greedy.cu's constants of the same names)
+GRID_BLOCKS = 132  # blocks of the grid on an H100 SXM: one a streaming multiprocessor
+SLOT = 12288  # floats of a slot of the ring that stages every streamed operand
+NSLOT = 3  # slots of the ring: two tiles in flight while one is used
+KS_MAX = 32  # most parts a dense stage's k is split into
+MAX_TILES = 128  # most row tiles of 8 in one pass of a dense stage
+# the layouts a caller may ask for: None the plan (held where it fits, else
+# grid), "grid" the grid layout at every shape
+LAYOUTS = (None, "grid")
+# the grid layout's dense stages, in the order of GridPlan.stages
+GRID_STAGES = ("first cell", "other cells", "query", "attention layer", "logits")
 
 
-def decoder_smem_bytes(b: int, t: int, cfg, c: int, streamed: bool = False, tiled: bool = False) -> int:
+class StageCut(NamedTuple):
+    """A dense stage of the grid layout cut over the grid: block ``g`` <
+    ``cols * groups`` computes column block ``g % cols`` for the rows of
+    row group ``g // cols``; a block takes its rows in passes of ``tiles``
+    row tiles of 8."""
+
+    cols: int  # column blocks: each a contiguous slice of the stage's weights
+    width: int  # floats of a column block (a cell's: 4 gates of width / 4 units)
+    groups: int  # row groups
+    rows: int  # rows of a row group, a multiple of 8
+    tiles: int  # row tiles of 8 a pass
+
+
+class GridPlan(NamedTuple):
+    """How the grid layout cuts a launch: one block an SM, every block in
+    every stage of a step. (Each live row's attention is cut in the kernel,
+    step by step, into chunks in proportion to its length: ``grid_chunks``.)"""
+
+    blocks: int  # blocks of the grid, all co-resident
+    stages: Tuple[StageCut, ...]  # GRID_STAGES' cuts
+
+    def flat(self) -> List[int]:
+        """The C API's ``cut`` argument: each stage's five numbers."""
+        return [x for st in self.stages for x in st]
+
+
+class DenseTile(NamedTuple):
+    """How a pass of a grid dense stage cuts its k (``csrc/greedy.cu::
+    grid_tile``): a thread an item (k part, row tile, column group of 4);
+    tile j holds float4s [j·parts·s4, (j+1)·parts·s4) of k, part ks its
+    float4s [ks·s4, (ks+1)·s4) of each tile."""
+
+    parts: int  # k parts
+    s4: int  # float4s of a part in a tile
+    ld: int  # floats of a staged input row
+    ntiles: int
+
+
+def grid_tile(k4n: int, wc: int, tiles: int) -> DenseTile:
+    """The cut of a pass whose k has ``k4n`` float4s, with a column block
+    of ``wc`` columns and ``tiles`` row tiles: at most ``KS_MAX`` parts, as
+    many as the threads hold and a slot holds one float4 of each (its input
+    rows and its 4 weight rows), the tile as deep as a slot holds."""
+    rp = 8 * tiles
+    ks = max(1, min(KS_MAX, THREADS // (wc // 4 * tiles), k4n, (SLOT - 4 * rp) // (4 * rp + 4 * wc)))
+    s4 = max(1, min(-(-k4n // ks), (SLOT - 4 * rp) // (4 * ks * (rp + wc))))
+    return DenseTile(ks, s4, 4 * ks * s4 + 4, -(-k4n // (ks * s4)))
+
+
+def grid_part_k4(k4n: int, tile: DenseTile) -> List[List[int]]:
+    """The float4s of k each part of a pass sums, in the order it sums them."""
+    deep = tile.parts * tile.s4
+    return [[k4 for k4 in range(k4n) if (k4 % deep) // tile.s4 == ks] for ks in range(tile.parts)]
+
+
+def grid_chunks(tl: List[int], finished: List[bool], grid: int) -> List[int]:
+    """Each row's attention chunks at a step (``csrc/greedy.cu``'s cut):
+    a live row of ``tl`` valid positions takes 1 + floor((grid − live rows)
+    · tl / Σ tl) chunks (one each past ``grid`` live rows), a finished row
+    none; chunk index idx (rows in order) goes to block idx % grid."""
+    live = [t for t, f in zip(tl, finished) if not f]
+    spare, total = max(0, grid - len(live)), sum(live)
+    return [0 if f else 1 + (spare * t // total if total else 0) for t, f in zip(tl, finished)]
+
+
+def _stage_cut(b: int, n: int, grid: int, cells: bool) -> Optional[StageCut]:
+    """The cut of a dense stage with ``n`` output columns (``cells``: ``n``
+    units of 4 gate columns each) over ``grid`` blocks for ``b`` rows: the
+    number of row groups R whose column blocks (``grid // R`` of them)
+    take in the fewest floats a block, k · (width + rows) — a block reads
+    its weight slice and its rows' inputs once a step —, the fewest groups
+    on a tie."""
+    n_tiles, n4, best = -(-b // 8), -(-n // 4), None
+    for groups in range(1, min(n_tiles, grid) + 1):
+        cols_max = grid // groups
+        per = -(-n // cols_max) if cells else 4 * -(-n4 // cols_max)  # units, or columns, a block
+        width = 4 * per if cells else per
+        if width // 4 > THREADS:
+            continue
+        rows = 8 * -(-n_tiles // groups)
+        if best is None or width + rows < best.width + best.rows:
+            best = StageCut(-(-n // per), width, -(-b // rows), rows, min(rows // 8, THREADS // (width // 4), MAX_TILES))
+    return best
+
+
+def grid_cuts(b: int, cfg, grid: int = GRID_BLOCKS) -> Optional[GridPlan]:
+    """The grid layout's cut of a batch of ``b`` rows over ``grid`` blocks
+    (a pure function of the batch and the widths; no encoder length
+    enters): the five dense stages' cuts. None where a stage cannot be
+    cut."""
+    u, a, al, v = cfg.units, cfg.attention_units, cfg.attention_layer_size, cfg.vocab_size
+    stages = (_stage_cut(b, u, grid, True), _stage_cut(b, u, grid, True), _stage_cut(b, a, grid, False),
+              _stage_cut(b, al, grid, False), _stage_cut(b, v, grid, False))
+    if b < 1 or grid < 1 or any(st is None for st in stages):
+        return None
+    return GridPlan(grid, stages)
+
+
+def grid_stage_k(cfg) -> Tuple[int, ...]:
+    """The k (input floats) of each of GRID_STAGES' dense stages."""
+    e, u, al, m = cfg.embedding_dim, cfg.units, cfg.attention_layer_size, cfg.memory_dim
+    return (e + al + u, 2 * u, u, u + m, al)
+
+
+def decoder_smem_bytes(b: int, t: int, cfg, c: int, grid: Optional[GridPlan] = None) -> int:
     """Shared memory a block of the kernel takes for ``t`` encoder
-    positions under a cluster of ``c`` blocks, in the held, the streamed or
-    (``tiled``, which implies streamed) the tiled layout: the Python mirror
-    of ``csrc/greedy.cu::dec_layout`` (the same at every batch ``b``; the
-    tiled layout's is the same at every ``t``). ``cfg`` is a
-    ``SpellerConfig`` or ``DecoderWidths``."""
-    del b  # a group's layout does not depend on the batch
+    positions under a cluster of ``c`` blocks in the held layout, or in
+    the grid layout of ``grid`` for ``b`` rows (``c`` and ``t`` unused):
+    the Python mirror of ``csrc/greedy.cu::dec_layout`` and
+    ``grid_layout`` (the held layout's the same at every batch ``b``; the
+    grid layout's the same at every ``t``). ``cfg`` is a ``SpellerConfig``
+    or ``DecoderWidths``."""
+    if grid is not None:
+        # the ring's slots and their barriers, each slot's mask or context
+        # weights, q and v of a row, every row's fed token, finished flag,
+        # length, chunks and first chunk (B + 1), the flag of a finished row,
+        # the reduction
+        floats = (NSLOT * SLOT + 8 + NSLOT * THREADS + 2 * _pad4(cfg.attention_units) + 4 * round_up(b, 8)
+                  + round_up(b + 1, 8) + 4 + 64)
+        return 4 * floats
     e, u, a, al = cfg.embedding_dim, cfg.units, cfg.attention_units, cfg.attention_layer_size
     m, n_cells, r = cfg.memory_dim, cfg.num_layers, GROUP_ROWS
-    streamed = streamed or tiled
     vc = _pad4(-(-cfg.vocab_size // c))  # vocabulary columns a block owns
-    kmax = max(e + al + u, 2 * u, u + m)
-    kt = min(kmax, KTILE) if tiled else kmax  # a row of the stage
+    kmax = max(e + al + u, 2 * u, u + m)  # a row of the stage
     widest = max(4 * u // c, a // c, al // c)
-    held = 0 if streamed else 1  # each cell's h, the attention vector, the context, the out_w slice
-    qrows = -(-r // c) if streamed else r
     floats = (
-        r * kt + held * n_cells * 2 * r * u + n_cells * r * (u // c) + held * r * al + qrows * a
-        + held * r * m  # stage .. ctx
+        r * kmax + n_cells * 2 * r * u + n_cells * r * (u // c) + r * al + r * a + r * m  # stage .. ctx
         + max(THREADS * 4 * r, r * widest, THREADS * 4, m, (THREADS // 32) * r * vc)  # part
-        + held * vc * (al + 4) + vc + n_cells * 4 * (u // c)  # out_w slice, out_b slice, biases
-        + (TTILE if tiled else 2 * _pad4(t)) + _pad4(a) + r * vc  # scores (a tile of weights), mask, v, logits
+        + vc * (al + 4) + vc + n_cells * 4 * (u // c)  # out_w slice, out_b slice, biases
+        + 2 * _pad4(t) + _pad4(a) + r * vc  # scores, mask, v, logits
         + 2 * 8 * r + 4 * r + 64  # the blocks' pairs, the rows' flags, the reduction
     )
     return 4 * floats
 
 
-def decoder_act_floats(cfg) -> int:
-    """Floats of one group's activations in global memory in the streamed
-    layout (``csrc/greedy.cu::act_floats``): each cell's h [2][8][U], the
-    attention vector [8][AL], the context [8][M]."""
-    r = GROUP_ROWS
-    return cfg.num_layers * 2 * r * cfg.units + r * cfg.attention_layer_size + r * cfg.memory_dim
+def grid_rows(cfg) -> int:
+    """The most rows one grid launch takes: the largest multiple of 8 whose
+    flags (``decoder_smem_bytes``' five ints a row) fit a block beside the
+    ring; 0 where none do."""
+    fixed = decoder_smem_bytes(0, 1, cfg, 1, grid=GridPlan(0, ())) // 4 - 8  # the floats no row adds
+    return max(0, (SMEM_MAX // 4 - fixed - 8) // 5 // 8 * 8)
+
+
+def grid_act_floats(b: int, cfg, plan: GridPlan) -> int:
+    """Floats of the grid layout's workspace in global memory
+    (``csrc/greedy.cu::grid_ws``), for B rows padded to 8: each cell's h
+    [2][B][U] and c [B][U], the attention vector [B][AL], q [B][A], the
+    context [B][M], the chunks' maxima, sums and parts of the context (at
+    most max(B, blocks) chunks), the logits' column blocks' (maximum,
+    index) pairs [B][cols], every row's length, the barrier's counter."""
+    bp, n = round_up(b, 8), cfg.num_layers
+    cl, chunks = plan.stages[-1].cols, _pad4(max(bp, plan.blocks))
+    return (3 * n * bp * cfg.units + bp * (cfg.attention_layer_size + cfg.attention_units + cfg.memory_dim)
+            + chunks * (2 + cfg.memory_dim) + 2 * _pad4(bp * cl) + bp + 4)
 
 
 class DecoderPlan(NamedTuple):
-    """How one launch of the decoder kernel cuts its work."""
+    """How the decoder kernel cuts its work."""
 
-    cluster: int  # C: blocks of a cluster = column slices of every dense stage
+    cluster: int  # C: blocks of a cluster = column slices of every dense stage (grid: 1, no cluster)
     rows: int  # rows of a group (GROUP_ROWS)
     groups: int  # clusters of the launch: ceil(B / rows)
-    streamed: bool = False  # the activations every block reads whole, and out_w, in global memory
-    tiled: bool = False  # (streamed, and) the scores in global memory, every stage's input in tiles
+    grid: Optional[GridPlan] = None  # the grid layout: its cut (no clusters, every block in every stage)
+    passes: int = 1  # grid layout: launches, each a pass of ceil(B / passes) rows (the first pass's cut)
 
     @property
     def layout(self) -> int:
-        """The C API's layout argument: 0 held, 1 streamed, 2 tiled."""
-        return 2 if self.tiled else int(self.streamed)
+        """The C API's layout argument: 0 held, 1 grid."""
+        return int(self.grid is not None)
 
 
 def _cuts(cfg) -> List[int]:
@@ -208,66 +355,80 @@ def _cuts(cfg) -> List[int]:
             and cfg.attention_layer_size % (4 * c) == 0]
 
 
-def _first_fit(b: int, cfg, t: int) -> Optional[DecoderPlan]:
-    for streamed, tiled in ((False, False), (True, False), (True, True)):
-        for c in _cuts(cfg):
-            if decoder_smem_bytes(b, t, cfg, c, streamed, tiled) <= SMEM_MAX:
-                return DecoderPlan(c, GROUP_ROWS, -(-b // GROUP_ROWS), streamed, tiled)
+def _held_fit(b: int, cfg, t: int) -> Optional[DecoderPlan]:
+    for c in _cuts(cfg):
+        if decoder_smem_bytes(b, t, cfg, c) <= SMEM_MAX:
+            return DecoderPlan(c, GROUP_ROWS, -(-b // GROUP_ROWS))
     return None
 
 
-def decoder_plan(b: int, cfg: "SpellerConfig", t: int = 1) -> DecoderPlan:
-    """The kernel's cluster size and layout for a batch, ``t`` encoder
-    positions and a config — a pure function.
+def _grid_fit(b: int, cfg, blocks: int) -> Optional[DecoderPlan]:
+    most = grid_rows(cfg)
+    if most < 1 or cfg.memory_dim > 8 * THREADS:
+        return None
+    passes = -(-b // most)
+    g = grid_cuts(-(-b // passes), cfg, blocks)
+    return None if g is None else DecoderPlan(1, GROUP_ROWS, -(-b // GROUP_ROWS), grid=g, passes=passes)
 
-    C is the largest of ``DECODER_CLUSTERS`` that cuts the units, the
-    attention units and the attention layer into slices of a multiple of 4
-    columns (16-byte loads) and whose held layout fits a block's shared
-    memory (``decoder_smem_bytes`` ≤ ``SMEM_MAX``); where no cut's held
-    layout fits, the largest cut whose streamed layout does; where none
-    does either (long encoder sequences, wide spellers), the largest cut
-    whose tiled layout does, which does not grow with T. Raises
-    ``ValueError`` for widths the kernel does not take (every width a
-    multiple of 4, the attention layer of 8: ``kernel_widths`` pads the
-    others) and for a shape that no plan fits."""
+
+def decoder_plan(b: int, cfg: "SpellerConfig", t: int = 1, layout: Optional[str] = None,
+                 grid: int = GRID_BLOCKS) -> DecoderPlan:
+    """The kernel's layout (and cluster size, or grid cut) for a batch,
+    ``t`` encoder positions and a config — a pure function.
+
+    The held layout: C is the largest of ``DECODER_CLUSTERS`` that cuts
+    the units, the attention units and the attention layer into slices of
+    a multiple of 4 columns (16-byte loads) and whose layout fits a block's
+    shared memory (``decoder_smem_bytes`` ≤ ``SMEM_MAX``). Where no cut
+    fits, the grid layout of ``grid`` blocks, in as few passes of rows as
+    ``grid_rows`` allows. ``layout="grid"`` forces the grid layout, for a
+    reading of the two in turns. Raises ``ValueError`` for widths the
+    kernel does not take (every width a multiple of 4, the attention layer
+    of 8: ``kernel_widths`` pads the others) and for a shape that no layout
+    fits."""
     widths = {
         "embedding_dim": cfg.embedding_dim, "units": cfg.units, "attention_units": cfg.attention_units,
         "attention_layer_size": cfg.attention_layer_size, "memory_dim": cfg.memory_dim,
     }
     odd = {k: v for k, v in widths.items() if v % (8 if k == "attention_layer_size" else 4)}
+    if layout not in LAYOUTS:
+        raise ValueError(f"the fused greedy decoder's layout is one of {LAYOUTS}, got {layout!r}")
     if odd or b < 1 or t < 1 or cfg.vocab_size < 1:
         raise ValueError(
             f"the fused greedy decoder takes a batch, encoder length and vocabulary >= 1 and widths that are "
             f"multiples of 4 (the attention layer of 8), got B={b}, T={t}, V={cfg.vocab_size}, {odd}"
         )
-    plan = _first_fit(b, cfg, t)
+    plan = _held_fit(b, cfg, t) if layout is None else None
     if plan is None:
-        c = _cuts(cfg)[0]
-        raise ValueError(
-            f"the fused greedy decoder needs {decoder_smem_bytes(b, t, cfg, c, tiled=True)} bytes of shared memory "
-            f"a block at T={t}, V={cfg.vocab_size}, {cfg.num_layers} cell(s) of {cfg.units} (cluster {c}, tiled), "
-            f"over the {SMEM_MAX} bytes a block may use"
-        )
-    return plan
+        plan = _grid_fit(b, cfg, grid)
+    if plan is not None:
+        return plan
+    raise ValueError(f"the fused greedy decoder fits no layout at B={b}, T={t}, {cfg.num_layers} cell(s) of "
+                     f"{cfg.units}, attention {cfg.attention_units}, memory {cfg.memory_dim}: the grid layout of "
+                     f"{grid} blocks takes {grid_rows(cfg)} rows a pass and M <= {8 * THREADS}")
 
 
-def kernel_widths(b: int, cfg, t: int) -> Tuple["DecoderWidths", DecoderPlan]:
-    """The widths the kernel runs ``cfg`` at, and its plan there: each width
-    rounded up to the kernel's granularity (E, U, A and M to 4, the
-    attention layer to 8); where no plan fits those, also to the cut of C
-    blocks (U, A and the attention layer to 4·C) for the largest C that
-    fits. The padding is exact (``ops/padding.py``); raises ``ValueError``
-    where nothing fits (``decoder_plan``'s message)."""
+def kernel_widths(b: int, cfg, t: int, layout: Optional[str] = None,
+                  grid: int = GRID_BLOCKS) -> Tuple["DecoderWidths", DecoderPlan]:
+    """The widths the kernel runs ``cfg`` at, and ``layout``'s plan there
+    (``decoder_plan``): each width rounded up to the kernel's granularity
+    (E, U, A and M to 4, the attention layer to 8); where the held layout
+    fits no cut of those, also to the cut of C blocks (U, A and the
+    attention layer to 4·C) for the largest C whose held layout fits. Where
+    none does, the grid layout at the granular widths (it pads its own
+    column blocks). The padding is exact (``ops/padding.py``); raises
+    ``ValueError`` where nothing fits (``decoder_plan``'s message)."""
     w = DecoderWidths(cfg.vocab_size, round_up(cfg.embedding_dim, 4), round_up(cfg.units, 4),
                       round_up(cfg.attention_units, 4), round_up(cfg.attention_layer_size, 8),
                       round_up(cfg.memory_dim, 4), cfg.bos_id, cfg.eos_id, cfg.num_layers)
     candidates = [w] + [w._replace(units=round_up(w.units, 4 * c), attention_units=round_up(w.attention_units, 4 * c),
                                    attention_layer_size=round_up(w.attention_layer_size, math.lcm(8, 4 * c)))
                         for c in DECODER_CLUSTERS]
-    for cand in candidates:
-        if b >= 1 and t >= 1 and (plan := _first_fit(b, cand, t)) is not None:
-            return cand, plan
-    return w, decoder_plan(b, w, t)  # raises
+    if layout is None and b >= 1 and t >= 1:
+        for cand in candidates:
+            if (plan := _held_fit(b, cand, t)) is not None:
+                return cand, plan
+    return w, decoder_plan(b, w, t, layout or "grid", grid)  # raises where nothing fits
 
 
 def pad_speller(weights: List[torch.Tensor], memory: torch.Tensor, widths, kw) -> Tuple[List[torch.Tensor], torch.Tensor]:
@@ -310,6 +471,16 @@ def column_slices(w: torch.Tensor, c: int, gates: int = 1) -> torch.Tensor:
     lead = w.shape[:-1]
     x = w.reshape(*lead, gates, c, n // c)
     return x.movedim(-2, 0).reshape(c, *lead, gates * (n // c)).contiguous()
+
+
+def grid_slices(w: torch.Tensor, cut: StageCut, n: int, gates: int = 1) -> torch.Tensor:
+    """``w [..., gates·n]`` (gate-major columns) → ``[cut.cols, ...,
+    cut.width]``: each gate's ``n`` columns zero padded to ``cols ·
+    width / gates``, then ``column_slices``: column block ``s`` holds
+    columns ``[s·w, (s+1)·w)`` of every gate (w = width / gates), as block
+    ``s`` of a grid stage streams them."""
+    per = cut.width // gates
+    return column_slices(pad_blocks(w, -1, [n] * gates, [cut.cols * per] * gates), cut.cols, gates)
 
 
 class DecoderWidths(NamedTuple):
@@ -382,61 +553,80 @@ def _(memory, enc_mask, weights, bos_id, eos_id, max_steps):
 
 
 def _launch(params, widths: DecoderWidths, memory, enc_mask, max_steps: int,
-            clocks: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One launch of the kernel (built at first use) → tokens. ``clocks``
+            clocks: Optional[torch.Tensor] = None, layout: Optional[str] = None) -> torch.Tensor:
+    """The kernel's launches (built at first use) → tokens: one, or (the
+    grid layout past ``grid_rows``) one a pass of rows. ``clocks``
     (measurements only), an int64 CUDA tensor of 16, receives the SM cycles
-    the first block spent in each part of a step (``CLOCK_NAMES``) and,
-    last, the steps it ran. Widths the kernel does not take as they are
-    run zero padded (``kernel_widths``, ``pad_speller``)."""
+    the first block spent in each part of a step (``CLOCK_NAMES``; the grid
+    layout's ``GRID_CLOCK_NAMES``) and, last, the steps it ran. ``layout``
+    forces a layout (``decoder_plan``; measurements only); the grid layout
+    takes as many blocks as the card has SMs. Widths the kernel does not
+    take as they are run zero padded (``kernel_widths``, ``pad_speller``)."""
     from phones_las_torch.csrc import _build
 
     lib = _build.library()
     b, t, _ = memory.shape
-    kw, plan = kernel_widths(b, widths, t)
-    c = plan.cluster
     dev = memory.device
+    kw, plan = kernel_widths(b, widths, t, layout, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if plan.passes > 1:  # more rows than a grid launch holds: a launch a pass
+        n = -(-b // plan.passes)
+        tokens = torch.cat([_launch(params, widths, memory[r:r + n], enc_mask[r:r + n], max_steps, clocks, layout)
+                            for r in range(0, b, n)])
+        greedy_decode_fused.last_launch["passes"] = plan.passes
+        return tokens
+    g = plan.grid
+    c = g.blocks if g is not None else plan.cluster  # the C API's cluster argument: the grid's blocks there
     f32 = lambda x: x.detach().to(torch.float32).contiguous()
     weights, memory = pad_speller([f32(w) for w in flat_weights(params)], memory, widths, kw)
     params, _ = _unflatten(weights, memory, kw.bos_id, kw.eos_id)
-    m = kw.memory_dim
+    u, a, al, m, v_n = kw.units, kw.attention_units, kw.attention_layer_size, kw.memory_dim, kw.vocab_size
     keys = precompute_keys(params.attention, memory).contiguous()
     mem = memory.contiguous()
     mask = enc_mask.to(torch.float32).contiguous()
     emb, v, out_w, out_b = f32(params.embedding), f32(params.attention.v), f32(params.out_w), f32(params.out_b)
     if emb.data_ptr() % 16:  # the kernel reads embedding rows in 16-byte loads
         emb = emb.clone()
-    wq = column_slices(f32(params.attention.wq), c)
-    attn_w = column_slices(f32(params.attention_layer), c)
-    cells = []  # per cell: wx over wh [C, din + U, 4U/C], bias [C, 4U/C]
-    for cell in params.cells:
-        cells += [column_slices(torch.cat([f32(cell.wx), f32(cell.wh)]), c, gates=4),
-                  column_slices(f32(cell.b), c, gates=4)]
+    cells = []  # per cell: wx over wh [slices, din + U, width], bias [slices, width]
+    if g is None:  # a cluster's column slices
+        wq = column_slices(f32(params.attention.wq), c)
+        attn_w = column_slices(f32(params.attention_layer), c)
+        for cell in params.cells:
+            cells += [column_slices(torch.cat([f32(cell.wx), f32(cell.wh)]), c, gates=4),
+                      column_slices(f32(cell.b), c, gates=4)]
+    else:  # the grid's column blocks, each stage its own cut; out_w and out_b too
+        wq = grid_slices(f32(params.attention.wq), g.stages[2], a)
+        attn_w = grid_slices(f32(params.attention_layer), g.stages[3], al)
+        for i, cell in enumerate(params.cells):
+            cut = g.stages[0 if i == 0 else 1]
+            cells += [grid_slices(torch.cat([f32(cell.wx), f32(cell.wh)]), cut, u, 4), grid_slices(f32(cell.b), cut, u, 4)]
+        out_w, out_b = grid_slices(out_w, g.stages[4], v_n), grid_slices(out_b, g.stages[4], v_n)
     cell_ptrs = torch.tensor([x.data_ptr() for x in cells], dtype=torch.int64, device=dev)
-    # the streamed and tiled layouts' activations, a group's each, zero before
-    # the first step; the tiled layout's scores, a row's each
-    act = torch.zeros((plan.groups, decoder_act_floats(kw)), device=dev) if plan.streamed else None
-    ws = torch.zeros((plan.groups * plan.rows, t), device=dev) if plan.tiled else None
+    # the grid layout's workspace (zero: h, c and the attention vector before
+    # the first step, the barrier's counter) and its rows' scores
+    act = torch.zeros(grid_act_floats(b, kw, g), device=dev) if g is not None else None
+    ws = torch.empty((round_up(b, GROUP_ROWS), t), device=dev) if g is not None else None
+    cut = (ctypes.c_int * len(g.flat()))(*g.flat()) if g is not None else None
     tokens = torch.empty((b, max_steps), dtype=torch.int32, device=dev)
     info = (ctypes.c_int * 4)()
     err = lib.plt_greedy_decode(
-        keys.data_ptr(), mem.data_ptr(), mask.data_ptr(), b, t,
-        kw.attention_units, m, emb.data_ptr(), kw.vocab_size,
-        kw.embedding_dim, wq.data_ptr(), v.data_ptr(), attn_w.data_ptr(),
-        kw.attention_layer_size, out_w.data_ptr(), out_b.data_ptr(),
-        cell_ptrs.data_ptr(), len(params.cells), kw.units, kw.bos_id,
-        kw.eos_id, max_steps, c, plan.layout, None if act is None else act.data_ptr(),
-        None if ws is None else ws.data_ptr(), tokens.data_ptr(), info, None if clocks is None else clocks.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        keys.data_ptr(), mem.data_ptr(), mask.data_ptr(), b, t, a, m, emb.data_ptr(), v_n,
+        kw.embedding_dim, wq.data_ptr(), v.data_ptr(), attn_w.data_ptr(), al, out_w.data_ptr(), out_b.data_ptr(),
+        cell_ptrs.data_ptr(), len(params.cells), u, kw.bos_id, kw.eos_id, max_steps, c, plan.layout,
+        None if act is None else act.data_ptr(), None if ws is None else ws.data_ptr(), cut, tokens.data_ptr(),
+        info, None if clocks is None else clocks.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "plt_greedy_decode")
     greedy_decode_fused.launches += 1
-    greedy_decode_fused.streamed_launches += plan.streamed and not plan.tiled  # of them, in each wide layout
-    greedy_decode_fused.tiled_launches += plan.tiled
+    greedy_decode_fused.grid_launches += plan.layout == 1  # of them, in the grid layout
     greedy_decode_fused.last_launch = {
-        "cluster": c, "rows": plan.rows, "groups": plan.groups, "streamed": plan.streamed, "tiled": plan.tiled,
+        "layout": ("held", "grid")[plan.layout],
+        "cluster": plan.cluster, "rows": plan.rows, "groups": plan.groups, "passes": plan.passes,
+        "grid": None if g is None else {"blocks": g.blocks, **{
+            name: st._asdict() for name, st in zip(GRID_STAGES, g.stages)}},
         "kernel_widths": {k: getattr(kw, k) for k in ("embedding_dim", "units", "attention_units",
                                                         "attention_layer_size", "memory_dim")},
-        "smem_expected": decoder_smem_bytes(b, t, kw, c, plan.streamed, plan.tiled),
+        "smem_expected": decoder_smem_bytes(b, t, kw, plan.cluster, g),
+        # clusters (grid: blocks) the card runs at once
         "max_active_clusters": info[0], "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3],
     }
     return tokens
@@ -468,6 +658,5 @@ def greedy_decode_fused(
 
 
 greedy_decode_fused.launches = 0
-greedy_decode_fused.streamed_launches = 0
-greedy_decode_fused.tiled_launches = 0
+greedy_decode_fused.grid_launches = 0
 greedy_decode_fused.last_launch = None  # plan and occupancy of the last launch, for reports

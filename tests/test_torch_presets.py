@@ -7,8 +7,8 @@ every gradient leaf against ``jax.value_and_grad``; greedy tokens (phone
 and grapheme head) and beam-4 tokens against JAX's decoders on the same
 encoder output. Then the decoder kernel's shared-memory layout
 (``decoder_smem_bytes``, the mirror of ``csrc/greedy.cu::dec_layout``) at
-every preset's longest bucket, and ``decoder_plan``'s refusal of a shape
-no cluster size fits."""
+every preset's longest bucket, and the grid layout ``decoder_plan`` takes
+where no cluster size fits."""
 
 import dataclasses
 import functools
@@ -264,23 +264,24 @@ def test_every_preset_fits_the_decoder(what, v, n_cells, t):
 
 @pytest.mark.parametrize("v,n_cells,t", [(2881, 2, 438), (2913, 1, 438), (120, 1, 17161), (34, 2, 17005)])
 def test_decoder_plan_refuses_what_no_cluster_fits(v, n_cells, t):
-    """Past the largest vocabulary (2880 with two cells, 2912 with one at
-    T_enc = 438), no cluster size fits in any layout (the streamed one
-    holds no cell state, context or out_w slice whole: these limits were
-    480 and 640 with the held layout alone; the tiled one saves nothing
-    that grows with V): ``decoder_plan`` raises before any launch, naming
-    the bytes and the limit; one less fits. Past the longest encoder
-    sequence the streamed layout holds (17160 at V = 120, 17004 at V = 34;
-    once the port's limit, fault C9) the tiled layout takes it, at C = 8,
-    while one position less stays streamed."""
+    """Past the largest vocabulary (480 with two cells, 640 with one at
+    T_enc = 438) and the longest encoder sequence (9064 at V = 120, 7900 at
+    V = 34) whose held layout a block holds, no cluster size fits: the plan
+    takes the grid layout, which holds nothing that grows with V or T, and
+    one less stays held at C = 8. So does every shape past those limits,
+    such as these four (once past every cluster layout's limits)."""
     cfg = _speller(v, n_cells)
+    assert all(FG.decoder_smem_bytes(8, t, cfg, c) > FG.SMEM_MAX for c in FG.DECODER_CLUSTERS)
+    assert FG.decoder_plan(8, cfg, t) == FG.DecoderPlan(1, 8, 1, grid=FG.grid_cuts(8, cfg))
     if t < 1000:
-        with pytest.raises(ValueError, match=f"bytes of shared memory.*over the {FG.SMEM_MAX} bytes"):
-            FG.decoder_plan(8, cfg, t)
-        assert FG.decoder_plan(8, _speller(v - 1, n_cells), t).cluster == 8
+        limit = {2: 480, 1: 640}[n_cells]
+        edge = [_speller(limit, n_cells), _speller(limit + 1, n_cells)]
+        tt = [t, t]
     else:
-        assert FG.decoder_plan(8, cfg, t) == FG.DecoderPlan(8, 8, 1, True, True)
-        assert FG.decoder_plan(8, cfg, t - 1) == FG.DecoderPlan(8, 8, 1, True, False)
+        limit = {120: 9064, 34: 7900}[v]
+        edge, tt = [cfg, cfg], [limit, limit + 1]
+    assert FG.decoder_plan(8, edge[0], tt[0]) == FG.DecoderPlan(8, 8, 1)
+    assert FG.decoder_plan(8, edge[1], tt[1]).layout == 1
 
 
 def test_decoder_smem_bytes_shrinks_with_the_cluster():

@@ -1,12 +1,13 @@
-"""The kernels past their former limits, on the CPU: the decoder kernel's tiled
-layout (every encoder length; spellers up to U = A = AL = 2048, M = 4096),
+"""The kernels past their former limits, on the CPU: the decoder kernel's
+plans at every encoder length and at spellers up to U = A = AL = 2048,
+M = 4096 (the held layout where a block holds it, the grid layout past it),
 the listener kernels up to ``MAX_UNITS`` (the VJP's ring past U = 1024, the
 bf16 ring) and the plain versions against JAX at those widths.
 
 A CUDA kernel does not run here, so what can go wrong in its index
-arithmetic is emulated: the tiled layout's staging against the streamed
-layout's summation order, the bf16 ring's fragment order against the
-tensor cores' B fragments."""
+arithmetic is checked against the .cu: the held layout's shared memory
+region by region, the bf16 ring's fragment order against the tensor cores'
+B fragments."""
 
 import math
 import os
@@ -59,161 +60,71 @@ W2048 = _speller(2048, 4096)  # encoder, decoder and attention units 2048
 @pytest.mark.parametrize("name,cfg", [("checkpoint", CHECKPOINT), ("W1024", W1024), ("W2048", W2048)])
 def test_decoder_plans_every_encoder_length(name, cfg):
     """``kernel_widths`` plans, and never raises, for B >= 1 and T_enc up to
-    100,000 (past 17,020, the streamed layout's limit at the checkpoint's
-    speller, fault C9) at the checkpoint's, W1024's and W2048's speller
-    widths (fault C11): held, then streamed, then tiled, each plan at the
-    mirror's bytes within a block's; the tiled layout's bytes do not move
-    with T, and W2048 takes it at every T."""
+    100,000 (faults C9 and C11) at the checkpoint's, W1024's and W2048's
+    speller widths: the held layout (C = 8, at the mirror's bytes within a
+    block's) up to the longest sequence it holds, 8436 positions at the
+    checkpoint's speller and none at W1024's or W2048's; past it, at no
+    cluster size, the grid layout in one launch, its bytes the same at
+    every T."""
     for b in (1, 8, 64):
-        for t in (1, 219, 438, 5868, 5869, 17020, 17021, 17100, 40000, 100000):
+        grid_bytes = set()
+        for t in (1, 219, 438, 5868, 5869, 8436, 8437, 17020, 17021, 17100, 40000, 100000):
             kw, plan = FG.kernel_widths(b, cfg, t)
-            assert plan.groups == -(-b // 8) and plan.cluster == 8
-            smem = FG.decoder_smem_bytes(b, t, kw, plan.cluster, plan.streamed, plan.tiled)
-            assert smem <= FG.SMEM_MAX
-            # a layout is taken only where the ones before it do not fit
-            if plan.streamed:
-                assert FG.decoder_smem_bytes(b, t, kw, plan.cluster) > FG.SMEM_MAX
-            if plan.tiled:
-                assert FG.decoder_smem_bytes(b, t, kw, plan.cluster, True) > FG.SMEM_MAX
-                assert smem == FG.decoder_smem_bytes(b, 1, kw, plan.cluster, True, True)
-            assert plan.tiled == (name == "W2048" or t > {"checkpoint": 17020, "W1024": 5868}[name])
+            assert kw == FG.kernel_widths(1, cfg, 1, "grid")[0] and plan.groups == -(-b // 8)
+            assert plan.layout == (0 if name == "checkpoint" and t <= 8436 else 1)
+            if plan.layout == 0:
+                assert plan == FG.DecoderPlan(8, 8, -(-b // 8))
+                assert FG.decoder_smem_bytes(b, t, kw, 8) <= FG.SMEM_MAX
+            else:
+                assert all(FG.decoder_smem_bytes(b, t, kw, c) > FG.SMEM_MAX for c in FG.DECODER_CLUSTERS)
+                assert plan == FG.DecoderPlan(1, 8, -(-b // 8), grid=FG.grid_cuts(b, kw))
+                grid_bytes.add(FG.decoder_smem_bytes(b, t, kw, 1, grid=plan.grid))
+        assert len(grid_bytes) == 1 and grid_bytes.pop() <= FG.SMEM_MAX
 
 
-def test_tiled_layout_bytes_are_the_kernels():
-    """The tiled layout's bytes region by region as ``csrc/greedy.cu::
-    dec_layout`` declares them (its constants read from the .cu), at
-    W2048's speller and at the checkpoint's at T_enc = 40,000."""
-    threads, dr, ktile, ttile = (_cu_constant("greedy.cu", n) for n in ("THREADS", "DR", "KTILE", "TTILE"))
-    assert (FG.THREADS, FG.GROUP_ROWS, FG.KTILE, FG.TTILE) == (threads, dr, ktile, ttile)
-    assert FG.SMEM_MAX == _cu_constant("greedy.cu", "SMEM_MAX")
-    for cfg, t, want in ((W2048, 438, 181408), (CHECKPOINT, 40000, 104464)):
-        c, u, a, al, m, n = 8, cfg.units, cfg.attention_units, cfg.attention_layer_size, cfg.memory_dim, 2
-        vc = -(-(-(-cfg.vocab_size // c)) // 4) * 4
-        regions = [
-            dr * min(max(cfg.embedding_dim + al + u, 2 * u, u + m), ktile),  # stage: a tile of a row
-            n * dr * (u // c),  # the cells' c
-            -(-dr // c) * a,  # q of the rows the block attends for
-            max(threads * 4 * dr, dr * max(4 * u // c, a // c, al // c), threads * 4, m, threads // 32 * dr * vc),
-            vc, n * 4 * (u // c),  # out_b, biases
-            ttile, -(-a // 4) * 4, dr * vc,  # a tile of weights, v, logits
-            2 * 8 * dr, 4 * dr, 64,
-        ]
-        assert FG.decoder_smem_bytes(8, t, cfg, c, tiled=True) == 4 * sum(regions) == want
+def _cu_layout_regions(function, names):
+    """The sizes a .cu layout function adds region by region (``off +=
+    ...``), evaluated with ``names`` (its arguments and locals, C's integer
+    division as Python's)."""
+    src = open(os.path.join(CSRC, "greedy.cu")).read()
+    body = re.search(rf"{function}\(.*?\n}}\n", src, re.S).group(0)
+    env = {"pad4": lambda n: -(-n // 4) * 4, "smax": max, **names}
+    exprs = [re.sub(r"\((?:size_t|int)\)", "", x).replace("L.", "").replace(" / ", " // ")
+             for x in re.findall(r"off \+= ([^;]+);", body)]
+    return [eval(x, {}, env) for x in exprs]
 
 
-THREADS, DR, NWARPS = FG.THREADS, FG.GROUP_ROWS, FG.THREADS // 32
-
-
-def _dense_order(k, ncols):
-    """``dense``'s items (column group, k part) → the float4s of k each
-    sums, in order."""
-    ncg, k4n = ncols // 4, k // 4
-    ks_n = max(1, min(THREADS // ncg, k4n))
-    kper = -(-k4n // ks_n)
-    return {(c, ks): list(range(ks * kper, min(k4n, ks * kper + kper))) for c in range(ncg) for ks in range(ks_n)}
-
-
-def _dense_tiled_order(k, ncols, kt):
-    """``dense_tiled``'s items at a stage row of ``kt`` floats: each tile
-    staged as the kernel stages it, each item's float4s read back from the
-    stage where the item reads them (asserted to be the k it sums)."""
-    ncg, k4n = ncols // 4, k // 4
-    ks_n = max(1, min(THREADS // ncg, k4n))
-    kper = -(-k4n // ks_n)
-    s4 = max(1, min(kper, kt // 4 // ks_n))
-    assert 4 * ks_n * s4 <= kt  # the stage's row
-    order = {(c, ks): [] for c in range(ncg) for ks in range(ks_n)}
-    for j in range(-(-kper // s4)):
-        stage = {}
-        for i in range(ks_n * s4):  # one row's tile (every row is staged alike)
-            ks, q = divmod(i, s4)
-            k4 = ks * kper + j * s4 + q
-            stage[i] = k4 if j * s4 + q < kper and k4 < k4n else None
-        for (c, ks), seq in order.items():
-            kb = ks * kper + j * s4
-            for k4 in range(kb, min(k4n, (ks + 1) * kper, kb + s4)):
-                assert stage[ks * s4 + k4 - kb] == k4
-                seq.append(k4)
-    return order
-
-
-def _context_orders(tl, m, ttile):
-    """The context's items (4 columns of M, part of T) → the positions each
-    sums, in order: streamed (all weights in shared memory) and tiled
-    (weights staged ``ttile`` at a time, read back where the item reads
-    them)."""
-    mq = m // 4
-    ts_n = max(1, THREADS // mq)
-    tper = -(-tl // ts_n)
-    streamed = {ts: list(range(ts * tper, min(tl, ts * tper + tper))) for ts in range(ts_n)}
-    st = max(1, min(tper, ttile // ts_n))
-    assert ts_n * st <= ttile
-    tiled = {ts: [] for ts in range(ts_n)}
-    for j in range(max(1, -(-tper // st))):
-        stage = {}
-        for i in range(ts_n * st):
-            ts, q = divmod(i, st)
-            t = ts * tper + j * st + q
-            stage[i] = t if j * st + q < tper and t < tl else None
-        for ts, seq in tiled.items():
-            tb = ts * tper + j * st
-            for t in range(tb, min(tl, (ts + 1) * tper, tb + st)):
-                assert stage[ts * st + t - tb] == t
-                seq.append(t)
-    return streamed, tiled
-
-
-def _logit_orders(al, kt):
-    """The logits' k parts (a warp each) → the float4s of k each sums:
-    streamed and tiled, as ``_dense_tiled_order``."""
-    kq = al // 4
-    kper = -(-kq // NWARPS)
-    streamed = {w: list(range(w * kper, min(kq, w * kper + kper))) for w in range(NWARPS)}
-    s4 = max(1, min(kper, kt // 4 // NWARPS))
-    tiled = {w: [] for w in range(NWARPS)}
-    for j in range(-(-kper // s4)):
-        stage = {}
-        for i in range(NWARPS * s4):
-            ks, q = divmod(i, s4)
-            k4 = ks * kper + j * s4 + q
-            stage[i] = k4 if j * s4 + q < kper and k4 < kq else None
-        for w, seq in tiled.items():
-            kb = w * kper + j * s4
-            for k4 in range(kb, min(kq, (w + 1) * kper, kb + s4)):
-                assert stage[w * s4 + k4 - kb] == k4
-                seq.append(k4)
-    return streamed, tiled
-
-
-@pytest.mark.parametrize("cfg", [CHECKPOINT, W1024, W2048, _speller(36, 200, 60, 256, e=32)])
-def test_tiled_layout_keeps_the_streamed_order(cfg):
-    """Every sum the tiled layout takes (each dense stage's k parts, the
-    context's parts of T, the logits' parts of k) adds the same terms in
-    the same order as the streamed layout's, the staged tiles holding what
-    each item reads: so its tokens are the streamed layout's, bit for bit
-    (the card checks that too)."""
-    c = FG.decoder_plan(8, cfg, 438).cluster
-    kw = FG.KTILE
+@pytest.mark.parametrize("b,t,cfg,c", [
+    (64, 250, CHECKPOINT, 8), (32, 438, _speller(512, 512, al=256), 8), (8, 125, _speller(36, 200, 60, 256, e=32), 1),
+    (32, 438, _speller(256, 512, v=120, n_cells=1), 8), (8, 8436, CHECKPOINT, 8), (8, 438, _speller(256, 512, v=480), 4),
+])
+def test_held_layout_bytes_are_the_kernels(b, t, cfg, c):
+    """The held layout's bytes (``decoder_smem_bytes``) region by region as
+    ``csrc/greedy.cu::dec_layout`` adds them, its constants read from the
+    .cu, at the main path's shape, the LAS paper's speller, W100's, a
+    preset's one-cell phone speller, the checkpoint's longest held sequence
+    and a vocabulary of 480 at a cluster of 4."""
+    threads, dr = (_cu_constant("greedy.cu", n) for n in ("THREADS", "DR"))
+    assert (FG.THREADS, FG.GROUP_ROWS, FG.SMEM_MAX) == (threads, dr, _cu_constant("greedy.cu", "SMEM_MAX"))
     e, u, a, al, m = cfg.embedding_dim, cfg.units, cfg.attention_units, cfg.attention_layer_size, cfg.memory_dim
-    kt = min(max(e + al + u, 2 * u, u + m), kw)
-    for k, ncols in ((e + al + u, 4 * u // c), (2 * u, 4 * u // c), (u, a // c), (u + m, al // c)):
-        assert _dense_tiled_order(k, ncols, kt) == _dense_order(k, ncols)
-    for tl in (0, 1, 7, 438, 5000, 17100, 40000):
-        streamed, tiled = _context_orders(tl, m, FG.TTILE)
-        assert tiled == streamed
-    streamed, tiled = _logit_orders(al, kt)
-    assert tiled == streamed
+    vc = -(-(-(-cfg.vocab_size // c)) // 4) * 4
+    regions = _cu_layout_regions("DecLayout dec_layout", {
+        "DR": dr, "THREADS": threads, "NWARPS": threads // 32, "T": t, "A": a, "M": m, "AL": al, "U": u, "C": c,
+        "n_cells": cfg.num_layers, "Kmax": max(e + al + u, 2 * u, u + m), "Vc": vc, "ldo": al + 4,
+        "widest": max(4 * u // c, a // c, al // c)})
+    assert len(regions) == 17
+    assert FG.decoder_smem_bytes(b, t, cfg, c) == 4 * sum(regions)
 
 
 def test_greedy_past_the_streamed_layout_matches_jax():
-    """A narrow speller at an encoder length past what its held and
-    streamed layouts hold (T_enc = 30,000: the tiled layout's case): the
-    port's greedy decode (the plain path here) and the kernel's plain
-    version give JAX ``greedy_decode``'s tokens."""
+    """A narrow speller at an encoder length past what its held layout
+    holds at any cluster size (T_enc = 30,000, where the plan takes the
+    grid layout): the port's greedy decode (the plain path here) and the
+    kernel's plain version give JAX ``greedy_decode``'s tokens."""
     jcfg, jp, tcfg, tp = _models(2)
     b, t, steps = 2, 30000, 6
     kw, plan = FG.kernel_widths(b, tcfg.speller, t)
-    assert plan.tiled and FG.decoder_smem_bytes(b, t, kw, plan.cluster, True) > FG.SMEM_MAX
+    assert plan.layout == 1 and all(FG.decoder_smem_bytes(b, t, kw, c) > FG.SMEM_MAX for c in FG.DECODER_CLUSTERS)
     mem, mask = _memory(b, t, seed=5)
     ref, _, _ = jax_greedy_decode(jp.speller, jcfg.speller, jnp.asarray(mem), jnp.asarray(mask), max_steps=steps)
     with torch.no_grad():

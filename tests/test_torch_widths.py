@@ -291,13 +291,14 @@ def test_plans_the_ring_leaves_alone(b, u, nd, prec, want_fwd, want_bwd):
 
 def test_decoder_plan_takes_the_wide_spellers():
     """The LAS paper's speller (2 × 512, attention 512, listener 256 a
-    direction) fits the held layout at 226,016 bytes; the LAS-4-1024 speller
-    (U = A = 1024, M = 2048) the streamed one at every encoder length to
-    2000, the attention layer at 256 or 1024, V up to 120, one or two
-    cells; both at C = 8, at the mirror's bytes."""
+    direction) fits the held layout at 226,016 bytes, at C = 8; the
+    LAS-4-1024 speller (U = A = 1024, M = 2048) fits it at no cluster size
+    (the attention layer at 256 or 1024, V up to 120, one or two cells, every
+    encoder length to 2000), and the plan takes the grid layout there, in
+    one launch of the batch, its cut ``grid_cuts``'."""
     las = SpellerConfig(vocab_size=34, embedding_dim=128, num_layers=2, units=512, memory_dim=512,
                         attention_units=512, attention_layer_size=256)
-    assert FG.decoder_plan(32, las, 438) == FG.DecoderPlan(8, 8, 4, False)
+    assert FG.decoder_plan(32, las, 438) == FG.DecoderPlan(8, 8, 4)
     assert FG.decoder_smem_bytes(32, 438, las, 8) == 226016
     for v in (34, 120):
         for al in (256, 1024):
@@ -306,28 +307,34 @@ def test_decoder_plan_takes_the_wide_spellers():
                     w = SpellerConfig(vocab_size=v, embedding_dim=128, num_layers=n_cells, units=1024,
                                       memory_dim=2048, attention_units=1024, attention_layer_size=al)
                     plan = FG.decoder_plan(32, w, t)
-                    assert plan == FG.DecoderPlan(8, 8, 4, True)
-                    assert FG.decoder_smem_bytes(32, t, w, 8, True) <= FG.SMEM_MAX
-                    assert FG.decoder_smem_bytes(32, t, w, 8) > FG.SMEM_MAX  # the held layout does not fit
-    w = SpellerConfig(vocab_size=34, embedding_dim=128, num_layers=2, units=1024, memory_dim=2048,
-                      attention_units=1024, attention_layer_size=256)
-    assert FG.decoder_act_floats(w) == 2 * 2 * 8 * 1024 + 8 * 256 + 8 * 2048
+                    assert plan == FG.DecoderPlan(1, 8, 4, grid=FG.grid_cuts(32, w)) and plan.layout == 1
+                    assert FG.decoder_smem_bytes(32, t, w, 1, grid=plan.grid) <= FG.SMEM_MAX
+                    for c in FG.DECODER_CLUSTERS:  # the held layout does not fit
+                        assert FG.decoder_smem_bytes(32, t, w, c) > FG.SMEM_MAX
 
 
 def test_kernel_widths_pad_to_what_a_plan_takes():
     """W100's speller (E = 30, U = 36, A = 60, the preset's AL = 256, M =
-    200) runs its embedding at 32; widths no cut of 4 · C takes at any C
-    where they fit are rounded to the granularity of the cut that fits."""
+    200) runs its embedding at 32 in the held layout; widths that only a
+    cut of one block takes where the held layout does not fit it are
+    rounded to the granularity of the largest cut whose held layout fits
+    (U = A = 274: 276 does not fit at C = 1, 288 does at C = 8); where none
+    fits, the plan runs them in the grid layout, which pads its own column
+    blocks, at the granular widths."""
     w100 = FG.DecoderWidths(34, 30, 36, 60, 256, 200, 1, 2, 2)
     kw, plan = FG.kernel_widths(8, w100, 125)
-    assert kw == w100._replace(embedding_dim=32) and plan.cluster == 1 and not plan.streamed
-    odd = FG.DecoderWidths(34, 30, 1018, 1022, 250, 2046, 1, 2, 2)  # only C = 1 cuts them; it does not fit
+    assert kw == w100._replace(embedding_dim=32) and plan == FG.DecoderPlan(1, 8, 1) and plan.layout == 0
+    mid = FG.DecoderWidths(34, 30, 274, 274, 250, 548, 1, 2, 2)
+    kw, plan = FG.kernel_widths(8, mid, 438)
+    assert FG.decoder_smem_bytes(8, 438, mid._replace(embedding_dim=32, units=276, attention_units=276,
+                                                      attention_layer_size=256), 1) > FG.SMEM_MAX
+    assert (kw.embedding_dim, kw.units, kw.attention_units, kw.attention_layer_size, kw.memory_dim) == (
+        32, 288, 288, 256, 548)
+    assert plan == FG.DecoderPlan(8, 8, 1) and FG.decoder_plan(8, kw, 438) == plan
+    odd = FG.DecoderWidths(34, 30, 1018, 1022, 250, 2046, 1, 2, 2)  # the held layout fits no cut of them
     kw, plan = FG.kernel_widths(8, odd, 438)
-    assert (kw.embedding_dim, kw.memory_dim) == (32, 2048)
-    c = plan.cluster
-    assert c > 1 and kw.units % (4 * c) == 0 and kw.attention_units % (4 * c) == 0
-    assert kw.attention_layer_size % 8 == 0 and kw.attention_layer_size % (4 * c) == 0
-    assert FG.decoder_plan(8, kw, 438) == plan
+    assert plan.layout == 1 and (kw.units, kw.attention_units, kw.attention_layer_size) == (1020, 1024, 256)
+    assert (kw.embedding_dim, kw.memory_dim) == (32, 2048) and plan.grid == FG.grid_cuts(8, kw)
 
 
 # ---- the streamed cluster decomposition, emulated
