@@ -38,7 +38,7 @@ last_build_seconds = 0.0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_LSTM_FWD = (_P,) * 5 + (_I, _I, _I) + (_P,) * 10 + (_I, _I, _I, _F, _I, _I, _I, _I, _P, _P)
+_LSTM_FWD = (_P,) * 5 + (_I, _I, _I) + (_P,) * 10 + (_I, _I, _I, _F, _I, _I, _I, _I, _P, _P, _P, _P)
 # C entry points: (argtypes) — every pointer and the stream are c_void_p,
 # or ctypes would pass them as 32-bit ints and cut them
 _SIGNATURES = {
@@ -47,9 +47,11 @@ _SIGNATURES = {
     "plt_fused_logmel": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     # xp0, xp1, mask, wh0, wh1, nd, rev_bits, wh_bf16, out0, out1, hprev0,
     # hprev1, cprev0, cprev1, hfin0, hfin1, cfin0, cfin1, T, B, U,
-    # forget_bias, cluster, bt, ksplit, resident, clocks, stream
+    # forget_bias, cluster, bt, ksplit, route, cut, ws, clocks, stream
     "plt_lstm_recurrence": _LSTM_FWD,
     "plt_lstm_residual": _LSTM_FWD,
+    # U, nd, wh_bf16, cut, info[4]
+    "plt_lstm_grid_info": (_I, _I, _I, _P, _P),
     # U, wh_bf16, save_res, cluster, bt, ksplit, resident, info[4]
     "plt_lstm_fwd_info": (_I,) * 7 + (_P,),
     # U, wh_bf16, cluster, bt, ksplit, resident, info[4]

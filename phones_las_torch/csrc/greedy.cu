@@ -158,6 +158,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "grid_sync.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -890,29 +892,7 @@ __device__ __forceinline__ void ring_run(int ntiles, Ring& rg, Fill fill, Use us
   }
 }
 
-// Every block of the grid arrives, then waits until all have. `bar` counts
-// arrivals over the whole launch (zeroed by the caller; a cooperative
-// launch keeps every block resident), `epoch` the barriers this block has
-// passed. The fences order the block's stores before its arrival and the
-// others' stores before what it reads next, through L2 (ld.cg, cp.async.cg)
-// or the bulk copies of the async proxy, which thread 0 alone issues
-// (fence.proxy.async).
-__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& epoch) {
-  __syncthreads();
-  epoch += 1;
-  if (threadIdx.x == 0) {
-    const unsigned target = epoch * gridDim.x;
-    __threadfence();
-    atomicAdd(bar, 1u);
-    unsigned seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(bar) : "memory");
-    } while ((int)(seen - target) < 0);
-    __threadfence();
-    asm volatile("fence.proxy.async;\n" ::: "memory");  // thread 0 issues the block's bulk copies
-  }
-  __syncthreads();
-}
+// grid_sync (grid_sync.cuh): the grid barrier after each stage
 
 // One pass of a dense stage: part[ks][rl][col] = the sum over k part ks of
 // in[rl][k] * w[k][col] for the Rp = 8 P rows of the pass, w [K][wc] this

@@ -58,57 +58,36 @@
 //      when the block's own barrier has seen all Bt * U values. No fence
 //      and no cluster-wide barrier is paid per step.
 // C = 1 is one block that owns every unit. Where a block's slice does not
-// fit in shared memory (float32 past U = 256: at U = 1024, C = 8 a slice is
-// [1024][512] floats, 2 MB) it streams from L2 at every step, by one of two
-// routes. Up to U = 512 this template loads the slice's rows with 16-byte
-// loads, each element used for the Bt rows of the tile from registers; the
-// product waits on those reads (about 23 bytes a cycle an SM). Past U = 512
-// the ring (lstm_fwd_ring_kernel, below): a producer warp keeps a ring of
-// shared-memory slots filled with bulk copies of the slice's rows, one
-// chunk ahead of each k part of the product, and the product multiplies
-// each chunk once it has landed; h is held once, which leaves the ring room.
-// The caller's plan (ops/lstm.py::forward_plan) takes the ring's C and Bt
-// from a step's cost, the FMAs of a block on its busy threads against the L2
-// bytes of a wave, and clusters of 16 (non-portable; the H100 runs 7 at
-// once, 15 of 8) only where the grid runs in one wave: at U = 1024, B = 64,
-// both directions, 6 clusters of 16 at Bt = 24 (96 SMs; 16 clusters of 8
-// in two waves before), at B = 32 4 clusters of 16 at Bt = 16. On the card
-// the ring runs U = 1024 1.2-1.4x faster than the template and U = 512
-// slower (PERF.md), so the template keeps U <= 512. Multicast (one L2 read
-// landing in the blocks that share a slice) is not used: a cluster covers
-// all units and reads all of Wh once a step however its rows are cut, and
-// what bounds the ring at U = 1024 is one SM's intake from L2 (about 21
-// bytes a cycle; a block takes in its whole slice, 1 MB at C = 16, every
-// step) and the product's FMA rate, neither of which multicast moves. In
-// bf16 (production mode) the template holds its slice up to U = 384 and
-// streams it by its threads' loads past that (1 MB a block a step at
-// U = 1024, C = 8, no copy in flight: about 49 us a step), and has no layout
-// at all past about U = 1280; past RING_UNITS_BF16 (ops/lstm.py) the bf16
-// ring (lstm_fwd_ring_bf16_kernel, below) takes it: the same producer and
-// slots, half the bytes a chunk, the slice stored in the tensor cores' B
-// fragment order so a lane's fragment is one 8-byte load, the consumer warps
-// running mma.sync on each chunk as it lands, n-tiles split among them. U is
-// a multiple of 8 up to MAX_UNITS = 2048; the caller chooses the route, C,
-// Bt, the k split and whether the slice is resident from the shape, pads
-// any other U with zeros to one that a plan takes (past U = 1024 only the
-// ring fits: clusters of 16 where nothing smaller does), and this file
-// refuses what does not fit.
+// fit in shared memory it streams from L2 at every step by the threads'
+// 16-byte loads, each element used for the Bt rows of the tile from
+// registers (the planner takes that only where nothing else fits, e.g. a
+// U of a prime number of 8-unit slices).
 //
-// Prediction for the bf16 ring, made before its first timed run (PERF.md):
-// at U = 1024, T = 999, a 512 KB slice a block a step through one
-// SM's intake, 28-35 k cycles a step with the exchange: forward B = 64
-// 14-18 ms (48.77 the template), one direction 12-15 ms, residual 14-17 ms,
-// the VJP's loop 13-16 us a step.
+// Past the resident widths (float32 past U = 256, bf16 past 384; the
+// constants are ops/lstm.py's) the forward takes the grid layout
+// (lstm_grid_kernel, lstm_grid_bf16_kernel, below) up to MAX_UNITS = 2048:
+// a cluster has no room for its slices there, so the whole card holds Wh.
+// One cooperative launch of one block an SM, each block a run of units
+// with its slice of Wh in shared memory as far as it fits (at U = 1024 both
+// directions of bf16 Wh, 16.8 MB, fit the 132 SMs; float32, 33.5 MB, about
+// half of it), and only h moves each step: written by its blocks into
+// global memory, one grid barrier, then taken in chunk by chunk by every
+// block of its direction through a ring of bulk copies that overlaps the
+// product. It beat in turns on the card (PERF.md) both routes it
+// replaced: the rings (a cluster of 16 that streamed its whole slice of Wh
+// from L2 every step) and the template's streamed slice past U = 256.
+// Multicast is not used: the launch is not made in clusters,
+// and what bounds a step is the product (float32) and the per-step barrier
+// and h intake (bf16). U is a multiple of 8 up to MAX_UNITS = 2048; the
+// caller chooses the route and its cut from the shape, pads any other U
+// with zeros to one that a plan takes, and this file refuses what does not
+// fit.
 //
-// Prediction for the ring, made before its first run on the card (H100, T =
-// 999, float32, U = 1024): a step is 49 k FMA cycles a block against 36 k
-// cycles of L2 reads at B = 64 (6 clusters of 16, Bt = 24), 32.8 k against
-// 24 k at B = 32 (4 of 16, Bt = 16); with 3-6 k cycles of cell update and
-// exchange and 70-100 % of the FMA rate, the forward at B = 64 25-37 ms
-// (93.16 before), the residual forward and the VJP's loop at B = 32 17-28
-// ms (53.73, 54.61), one direction 12-20 ms (38.99). The measurements, and
-// why they fall short (the product at 50-60 % of the FMA rate, the SM's
-// intake), are in PERF.md.
+// Prediction for the grid layout, from the planner's step cost
+// (ops/lstm.py::_grid_step_cycles) before its first timed run (H100, T =
+// 999, U = 1024): float32 forward B = 64 19.8 ms (the ring 65.22), the
+// residual at B = 32 10.9 ms (43.93); bf16 4.8 ms (23.19) and 3.2 ms
+// (18.97). The measurements, and why they fall short, are in PERF.md.
 //
 // Prediction, made before the first run on the card (H100, B = 64, U = 256,
 // C = 8): the float32 product is 16*256*128 FMA a step and block at
@@ -216,6 +195,8 @@
 
 #include <type_traits>
 
+#include "grid_sync.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -271,10 +252,9 @@ struct FwdArgs {
 // how one launch cuts the work, chosen by the caller from the shape
 struct FwdPlan {
   int C;         // blocks of a cluster = slices of the units
-  int Bt;        // batch rows of a cluster's tile (8 or 16; the ring also 24)
+  int Bt;        // batch rows of a cluster's tile (8 or 16)
   int KS;        // float32: parts the k range is split into
   int resident;  // the block's slice of Wh lies in shared memory
-  int ring;      // float32: the slice streams through a ring of bulk copies (lstm_fwd_ring_kernel)
 };
 
 // byte offsets of a block's shared memory; ops/lstm.py::forward_smem_bytes mirrors it
@@ -714,26 +694,22 @@ lstm_fwd_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, int U, 
   }
 }
 
-// ------------------------------------------- the ring (a streamed float32 slice)
+// ------------------------------------------- the ring (the VJP's streamed float32 slice)
 //
-// A block's slice of Wh arrives in chunks of whole rows (k) through a ring of
+// The VJP's loop past U = 512 (lstm_bwd_ring_kernel, below; the forward
+// takes the grid layout there). A block's slice of Wh^T
+// arrives in chunks of whole rows (k) through a ring of
 // shared-memory slots: one producer warp keeps the slots filled with bulk
 // copies (cp.async.bulk, counted on a transaction barrier a slot, wh kept in
 // L2 by an evict_last hint) and walks the slice over and over, step after
 // step, so the next step's first chunks arrive while this step's cell update
 // and exchange run; eight consumer warps multiply each chunk as it lands
-// and release its slot. A consumer thread owns 4 gate columns for all Bt
-// rows of the tile (Bt * 4 float32 sums in registers, each element of Wh
-// read once from shared memory a step; sixteen warps with half the rows
-// each measured slower: 96 registers a thread, and spills), and where the
-// columns leave threads idle the threads form KS k parts: part p takes the
-// chunks p, p + KS, ... of a pass whole, each part with two slots of its
-// own, so a thread runs several groups of four rows between two waits; the
-// parts meet in one buffer, added in part order. h is held once: a block
-// sends its slice of h(t + 1) only after every block of the cluster has
-// said (one remote arrival on its h_free barrier, C threads each sending
-// one) that it has finished reading h(t), which frees the 64 KB of the
-// second buffer for the ring.
+// and release its slot. A consumer thread owns 4 columns for all Bt rows
+// of the tile (Bt * 4 float32 sums in registers, each element read once
+// from shared memory a step), and where the columns leave threads idle the
+// threads form KS k parts: part p takes the chunks p, p + KS, ... of a pass
+// whole, each part with two slots of its own; the parts meet in one
+// buffer, added in part order.
 
 constexpr int RING_WARPS = FWD_THREADS / 32;     // consumer warps
 constexpr int RING_THREADS = FWD_THREADS + 32;   // and the producer warp
@@ -767,8 +743,8 @@ __host__ __device__ inline Ring ring_after(size_t used, int row_bytes, int KS, i
   return r;
 }
 
-// The bf16 ring: the slice of Wh (forward: [Nc][Kp], the gate columns by k;
-// the VJP: [Np][Nc], the units by the block's gate columns) is stored in the
+// The bf16 ring: the VJP's slice of Wh ([Np][Nc], the units by the block's
+// gate columns) is stored in the
 // order the tensor cores' B fragments read it (ops/lstm.py::ring_fragments):
 // k steps of 16, each holding the 8-column tiles of the slice, each 32 lanes
 // x 4 values, so a lane's fragment is one 8-byte load, the warp's 256
@@ -791,38 +767,6 @@ __host__ __device__ inline Ring ring_bf16(size_t used, int kstep_bytes, int KS, 
   r.nch = r.KC > 0 ? (K16 + r.KC - 1) / r.KC * KS : 0;
   r.slot = (size_t)r.KC * kstep_bytes;
   return r;
-}
-
-// byte offsets of a block of the streamed forward; ops/lstm.py::ring_slots mirrors it
-struct FwdRingLayout {
-  int Us, Nc, xp_tile, Kp, ldh, MT;
-  Ring r;
-  size_t h, part, xp, cst, hst, ring, total;
-};
-
-__host__ __device__ inline FwdRingLayout fwd_ring_layout(int U, FwdPlan p, bool bf = false) {
-  FwdRingLayout L;
-  L.Us = U / p.C;
-  L.Nc = 4 * L.Us;
-  L.Kp = (U + 15) / 16 * 16;
-  L.ldh = bf ? L.Kp + 8 : U;  // bf16 rows padded by 16 bytes: the fragments' rows in different banks
-  L.MT = (p.Bt + 15) / 16;    // bf16: 16-row tiles of the tensor cores' product
-  size_t off = 0;
-  L.h = off;  // h of the step, as the product reads it: [Bt][U] float32, or bf16 [16 MT][ldh]
-  off += bf ? (size_t)16 * L.MT * L.ldh * 2 : (size_t)p.Bt * U * 4;
-  L.part = off;  // [Bt][Nc]: the k parts of the product, added in order (bf16: the product)
-  off += (size_t)p.Bt * L.Nc * 4;
-  L.xp_tile = p.Bt * L.Nc + p.Bt;  // [Bt, Nc] gates, then [Bt] mask: one tile, a step ahead
-  L.xp = off;
-  off += (size_t)L.xp_tile * 4;
-  L.cst = off;
-  off += (size_t)p.Bt * L.Us * 4;
-  L.hst = off;
-  off += (size_t)p.Bt * L.Us * 4;
-  L.ring = off;  // every size above is a multiple of 32 bytes
-  L.r = bf ? ring_bf16(off, L.Nc / 8 / p.KS * 256, p.KS, L.Kp / 16) : ring_after(off, L.Nc * 4, p.KS, U);
-  L.total = off + (size_t)L.r.NS * L.r.slot;
-  return L;
 }
 
 // `n` arrivals at once
@@ -952,230 +896,17 @@ __device__ __forceinline__ void ring_consume(float (&acc)[TR][4 * CW4], const fl
   }
 }
 
-// the streamed forward: as lstm_fwd_kernel, float32, the tile's Bt = TR rows
-// a consumer thread, the slice of Wh through the ring (see above)
-template <bool SAVE_RES, int TR>
-__global__ void __launch_bounds__(RING_THREADS, 1)
-lstm_fwd_ring_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, int U, FwdPlan plan,
-                     float forget_bias, long long* __restrict__ clocks) {
-  extern __shared__ __align__(16) unsigned char fwd_ring_smem[];
-  __shared__ __align__(8) unsigned long long full_bar[RING_SLOTS], empty_bar[RING_SLOTS];
-  __shared__ __align__(8) unsigned long long hfull_bar, hfree_bar;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = plan.C, KS = plan.KS;
-  constexpr int Bt = TR;
-  const int rank = (int)cluster.block_rank();
-  const int d = blockIdx.y;
-  const int row0 = (blockIdx.x / C) * Bt;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const FwdRingLayout L = fwd_ring_layout(U, plan);
-  const int Us = L.Us, Nc = L.Nc, G = 4 * U;
-
-  const float* __restrict__ xp = a.xp[d];
-  float* __restrict__ out = a.out[d];
-  float* hprev = static_cast<float*>(a.hprev[d]);
-  float* cprev = static_cast<float*>(a.cprev[d]);
-  const bool reverse = a.reverse[d] != 0;
-  const float* wg = static_cast<const float*>(a.wh[d]) + (size_t)rank * U * Nc;
-
-  float* h_s = reinterpret_cast<float*>(fwd_ring_smem + L.h);
-  float* part_s = reinterpret_cast<float*>(fwd_ring_smem + L.part);
-  float* xp_s = reinterpret_cast<float*>(fwd_ring_smem + L.xp);
-  float* c_st = reinterpret_cast<float*>(fwd_ring_smem + L.cst);  // [Bt][Us] float32 state
-  float* h_st = reinterpret_cast<float*>(fwd_ring_smem + L.hst);
-  const float* ring_s = reinterpret_cast<const float*>(fwd_ring_smem + L.ring);
-
-  // everything but the ring starts at zero: h, the state, the xp tile
-  for (size_t i = tid; i < L.ring / 16; i += RING_THREADS)
-    reinterpret_cast<float4*>(fwd_ring_smem)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  const int ncg = Nc / 4;  // a thread's 4 columns, all Bt rows; the k range in KS parts
-  const unsigned hfull = smem_addr(&hfull_bar), hfree = smem_addr(&hfree_bar);
-  const unsigned h_bytes = (unsigned)(Bt * U * 4);
-  if (tid == 0) {
-    for (int s = 0; s < L.r.NS; ++s) {
-      mbar_init(smem_addr(&full_bar[s]), 1);
-      mbar_init(smem_addr(&empty_bar[s]), ncg);  // the threads of one k part
-    }
-    mbar_init(hfull, 1);
-    mbar_init(hfree, C);  // one arrival from each block of the cluster a step
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if (T > 1) mbar_expect(hfull, h_bytes);  // step 1's h
-  }
-  // no block may store into a peer before that peer has zeroed its buffers
-  // and set up its barriers
-  cluster.sync();
-
-  if (warp == RING_WARPS) {
-    if ((tid & 31) == 0)
-      ring_produce(wg, T, U, Nc, L.r, smem_addr(ring_s), full_bar, empty_bar);
-    __syncwarp();
-    cluster.sync();
-    return;
-  }
-
-  const int part = tid / ncg, cgi = tid - part * ncg;
-  const unsigned same = __match_any_sync(0xffffffffu, part);
-  const int uqn = Us / 4, nq = Bt * uqn;  // the cell update's items: 4 units of a row
-  // xp[t] columns of this block and mask[t] for the tile -> xp_s
-  auto prefetch = [&](int t) {
-    for (int i = tid; i < Bt * Us; i += FWD_THREADS) {
-      const int row = i / Us, rem = i - row * Us;
-      const int gate = rem / uqn, j = rem - gate * uqn;
-      if (row0 + row < B)
-        cp_async16(xp_s + row * Nc + gate * Us + 4 * j,
-                   xp + ((size_t)t * B + row0 + row) * G + gate * U + rank * Us + 4 * j);
-    }
-    if (tid < Bt && row0 + tid < B) cp_async4(xp_s + Bt * Nc + tid, mask + (size_t)t * B + row0 + tid);
-    cp_async_commit();
-  };
-  auto save_state = [&](int t) {
-    for (int q = tid; q < nq; q += FWD_THREADS) {
-      const int row = q / uqn, u0 = (q - row * uqn) * 4;
-      if (row0 + row >= B) continue;
-      const size_t idx = ((size_t)t * B + row0 + row) * U + rank * Us + u0;
-      *reinterpret_cast<float4*>(hprev + idx) = *reinterpret_cast<const float4*>(h_st + row * Us + u0);
-      *reinterpret_cast<float4*>(cprev + idx) = *reinterpret_cast<const float4*>(c_st + row * Us + u0);
-    }
-  };
-  prefetch(reverse ? T - 1 : 0);
-  if (SAVE_RES) save_state(reverse ? T - 1 : 0);
-
-  // clocks (optional, 5 counters): SM cycles thread 0 of block (0, 0) spent
-  // in the product, the cell update with its stores to the peers, the output
-  // stores and prefetch, the wait for the peers' h, and (out of the product)
-  // the wait for chunks of Wh
-  const bool timed = clocks != nullptr && tid == 0 && blockIdx.x == 0 && blockIdx.y == 0;
-  long long tick = timed ? clock64() : 0;
-  long long spent[5] = {};
-  auto lap = [&](int i) {
-    if (timed) {
-      const long long now = clock64();
-      spent[i] += now - tick;
-      tick = now;
-    }
-  };
-  for (int step = 0; step < T; ++step) {
-    const int t = reverse ? T - 1 - step : step;
-    if (step > 0) {
-      // h(step) has landed; the barrier then counts h(step + 1), whose
-      // stores cannot come before this block has said it is done with h(step)
-      mbar_wait(hfull, (step - 1) & 1);
-      if (tid == 0 && step + 1 < T) mbar_expect(hfull, h_bytes);
-    }
-    lap(3);
-    float acc[TR][4];
-    long long waited = 0;
-    if (part < KS)
-      ring_consume<TR>(acc, ring_s, L.r, U, Nc, cgi * 4, 0, h_s, U, part, KS, step * L.r.nch, same,
-                       full_bar, empty_bar, timed, waited);
-    cp_async_wait_all();  // this step's xp tile, requested a step ago
-    // the k parts into part_s, in part order
-    for (int g = 0; g < KS; ++g) {
-      if (part == g) {
-#pragma unroll
-        for (int r = 0; r < TR; ++r) {
-          float4* p = reinterpret_cast<float4*>(part_s + r * Nc + cgi * 4);
-          float4 v = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-          if (g > 0) {
-            const float4 s = *p;
-            v = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
-          }
-          *p = v;
-        }
-      }
-      consumers_sync();
-    }
-    // h(step) is read: every block may send this one h(step + 1)
-    if (tid < C && step + 1 < T) mbar_arrive_remote(peer_addr(hfree, tid));
-    lap(0);
-    if (timed) spent[0] -= waited, spent[4] += waited;
-
-    // cell update of this block's units and this step's output
-    for (int q = tid; q < nq; q += FWD_THREADS) {
-      const int row = q / uqn, u0 = (q - row * uqn) * 4;
-      float gate[4][4];
-#pragma unroll
-      for (int gi = 0; gi < 4; ++gi) {
-        const int col = row * Nc + gi * Us + u0;
-        const float4 sv = *reinterpret_cast<const float4*>(part_s + col);
-        const float4 x = *reinterpret_cast<const float4*>(xp_s + col);
-        gate[gi][0] = x.x + sv.x, gate[gi][1] = x.y + sv.y, gate[gi][2] = x.z + sv.z, gate[gi][3] = x.w + sv.w;
-      }
-      const float m = xp_s[Bt * Nc + row];
-      const float4 c4 = *reinterpret_cast<const float4*>(c_st + row * Us + u0);
-      const float4 h4 = *reinterpret_cast<const float4*>(h_st + row * Us + u0);
-      float cv[4] = {c4.x, c4.y, c4.z, c4.w}, hv[4] = {h4.x, h4.y, h4.z, h4.w}, ov[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float c_new = sigmoidf_(gate[1][i] + forget_bias) * cv[i] +
-                            sigmoidf_(gate[0][i]) * tanhf(gate[2][i]);
-        const float h_new = sigmoidf_(gate[3][i]) * tanhf(c_new);
-        hv[i] = m * h_new + (1.0f - m) * hv[i];
-        cv[i] = m * c_new + (1.0f - m) * cv[i];
-        ov[i] = m * h_new;
-      }
-      *reinterpret_cast<float4*>(c_st + row * Us + u0) = make_float4(cv[0], cv[1], cv[2], cv[3]);
-      *reinterpret_cast<float4*>(h_st + row * Us + u0) = make_float4(hv[0], hv[1], hv[2], hv[3]);
-      if (row0 + row < B)
-        *reinterpret_cast<float4*>(out + ((size_t)t * B + row0 + row) * U + rank * Us + u0) =
-            make_float4(ov[0], ov[1], ov[2], ov[3]);
-    }
-    // this block's slice of h(step + 1) into every block, once all have read h(step)
-    if (step + 1 < T) {
-      mbar_wait_cluster(hfree, step & 1);
-      for (int q = tid; q < nq; q += FWD_THREADS) {
-        const int row = q / uqn, u0 = (q - row * uqn) * 4;
-        const float4 h4 = *reinterpret_cast<const float4*>(h_st + row * Us + u0);
-        const unsigned dst = smem_addr(h_s + row * U + rank * Us + u0);
-        for (int r = 0; r < C; ++r) store4_async(peer_addr(dst, r), peer_addr(hfull, r), h4);
-      }
-    }
-    lap(1);
-
-    if (SAVE_RES && step + 1 < T) save_state(reverse ? t - 1 : t + 1);
-    consumers_sync();  // part_s and the xp tile are free
-    if (step + 1 < T) prefetch(reverse ? t - 1 : t + 1);
-    lap(2);
-  }
-  if (timed)
-    for (int i = 0; i < 5; ++i) clocks[i] += spent[i];
-  cluster.sync();  // no block leaves while a peer may still address it
-  for (int q = tid; q < nq; q += FWD_THREADS) {
-    const int row = q / uqn, u0 = (q - row * uqn) * 4;
-    if (row0 + row >= B) continue;
-    const size_t idx = (size_t)(row0 + row) * U + rank * Us + u0;
-    *reinterpret_cast<float4*>(a.hfin[d] + idx) = *reinterpret_cast<const float4*>(h_st + row * Us + u0);
-    *reinterpret_cast<float4*>(a.cfin[d] + idx) = *reinterpret_cast<const float4*>(c_st + row * Us + u0);
-  }
-}
-
 // ------------------------------------------------ the bf16 ring (production mode)
 //
-// The bf16 streamed slice through the same ring: the producer warp copies
-// the fragment-ordered chunks (see ring_bf16), and each consumer warp of
-// part p multiplies every chunk of its piece as it lands on the tensor
-// cores (mma.sync m16n8k16, h or dgates rounded to bf16 in shared memory,
+// The VJP's bf16 streamed slice through the same ring: the producer warp
+// copies the fragment-ordered chunks (see ring_bf16), and each consumer
+// warp of part p multiplies every chunk of its piece as it lands on the
+// tensor cores (mma.sync m16n8k16, dgates rounded to bf16 in shared memory,
 // float32 accumulators kept in registers over the whole pass, the k steps
 // in order): its n-tiles are j WP + wl of the piece (WP warps a part, wl
 // its index among them, j < NTW). A chunk is half the bytes of a float32
 // one for the same k, and the threads spend no loads on it. Gate math and
 // cell state stay float32, as in the template.
-
-// four bf16 values (8 bytes) into a peer, counted on its barrier
-__device__ __forceinline__ void store4_async(unsigned dst, unsigned bar, const __nv_bfloat16*, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n"
-      ::"r"(dst), "r"(*reinterpret_cast<unsigned*>(&lo)), "r"(*reinterpret_cast<unsigned*>(&hi)), "r"(bar)
-      : "memory");
-}
-
-// four values of W type as one store
-__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
-  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<unsigned*>(&lo), *reinterpret_cast<unsigned*>(&hi));
-}
 
 // The bf16 producer: `passes` passes over a slice of K16 k steps, KS pieces
 // of `kstep_bytes` a k step, chunk after chunk into the ring's slots
@@ -1250,94 +981,200 @@ __device__ __forceinline__ void ring_consume_bf16(float (&d)[NTW][MT][4], const 
   }
 }
 
-// the streamed bf16 forward: as lstm_fwd_ring_kernel, the product on the
-// tensor cores over the bf16 ring (MT 16-row tiles, at most NTW n-tiles a
-// warp); the residuals are saved where the entry gives hprev (one kernel
-// for both entries: half the instances to build)
-template <int MT, int NTW>
-__global__ void __launch_bounds__(RING_THREADS, 1)
-lstm_fwd_ring_bf16_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, int U, FwdPlan plan,
-                          float forget_bias, long long* __restrict__ clocks) {
-  extern __shared__ __align__(16) unsigned char fwd_ring_smem[];
-  __shared__ __align__(8) unsigned long long full_bar[RING_SLOTS], empty_bar[RING_SLOTS];
-  __shared__ __align__(8) unsigned long long hfull_bar, hfree_bar;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = plan.C, KS = plan.KS, Bt = plan.Bt;
-  const int rank = (int)cluster.block_rank();
-  const int d = blockIdx.y;
-  const int row0 = (blockIdx.x / C) * Bt;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const FwdRingLayout L = fwd_ring_layout(U, plan, true);
-  const int Us = L.Us, Nc = L.Nc, G = 4 * U;
-  const int NT = Nc / 8, NTp = NT / KS, K16 = L.Kp / 16;
+// ------------------------------------------------ the grid layout (past the resident widths)
+//
+// One cooperative launch of at most one block an SM takes a direction's
+// units in runs of Us (a multiple of 8): block b owns units [s Us, (s + 1)
+// Us) of direction b / (U / Us), s = b mod (U / Us), with the four gate
+// columns of each side by side ([unit][gate]: a thread's float4 of wh is one
+// unit's i, f, g, o), so the cell update stays in the block. The block's
+// column slice of wh ([Kp][4 Us], k padded to Kp with zero rows) is copied
+// into shared memory once, before the time loop, as far as it fits beside
+// the staging buffers: its first nres chunks of kc rows; the rest streams
+// each step through the ring beside the h it multiplies. Only h moves every
+// step: each block writes its units' h for the rows of the pass into a
+// double-buffered h in global memory and arrives at one grid barrier
+// (grid_sync.cuh); its producer warp, once every block has arrived, takes in
+// its direction's h chunk by chunk (k order) with bulk copies through the
+// ring, so the product of one chunk overlaps the copy of the next. Double
+// buffering makes one barrier a step enough: a block writes h(s + 1) into
+// the buffer h(s - 1) was read from, and no block passes the barrier of step
+// s before every block has consumed its chunks of step s - 1.
+//
+// The product, float32 (true float32 FMAs): the k chunks are dealt to KS
+// parts (chunk i to part i mod KS), each part 256 / KS consumer threads
+// with two ring slots or more; a thread takes one unit (4 gate columns) and
+// TR rows (row tile rt takes rows rt, rt + nrt, ...: the row tiles of a warp
+// read rows one padded stride apart, in other banks), sums its chunks in k
+// order in registers, and the parts are added in part order in shared
+// memory, so a launch is bitwise repeatable. bf16 (mma.sync m16n8k16,
+// float32 accumulators): h lies in global memory in the order of the tensor
+// cores' A fragments (a lane's fragment of a 16-row tile and a k step is one
+// 16-byte load) and wh in the order of the B fragments
+// (ops/lstm.py::ring_fragments); a part's warps split the n-tiles, each warp
+// takes every row tile of its part's chunks. Gate math and cell state stay
+// float32; hprev/cprev are rounded to Wh's type.
+//
+// Rows: a launch holds `rows` batch rows, a pass; a batch past them runs in
+// passes of rows, a launch each (ops/lstm.py::grid_plan), each reading wh
+// once a step.
 
+constexpr int GRID_SLOTS_MAX = 16;
+constexpr int GRID_WS_HEAD = 128;  // bytes of the workspace before the h buffers: the barrier's counter
+constexpr size_t GRID_SMEM_MAX = SMEM_MAX - 1024;  // dynamic shared memory: the barriers are static
+
+// how one grid launch cuts the work: the caller's plan, for one pass of rows
+struct GridCut {
+  int blocks;  // blocks of the launch: nd U / us
+  int us;      // units a block
+  int rows;    // rows the layout holds: the pass's rows, zero rows past them
+  int row0;    // the pass's first batch row
+  int nrows;   // the pass's rows
+  int tile;    // float32: rows a thread (TR); bf16: 16-row tiles (MT)
+  int ks;      // k parts: chunk i belongs to part i mod ks
+  int kc;      // k rows of a chunk
+  int kp;      // the k range, padded to a multiple of kc ks
+  int nres;    // chunks of the block's wh slice held in shared memory
+  int ns;      // ring slots, a multiple of ks
+};
+
+// byte offsets of a block of the grid layout; ops/lstm.py::grid_smem_bytes mirrors it
+struct GridLayout {
+  int Nc, ldh;                  // gate columns of a block; float32: the row stride of a staged h chunk
+  size_t hchunk, wchunk, slot;  // bytes of a chunk of h, of wh, and a ring slot
+  size_t w, ring, part, xp, cst, hst, total;
+};
+
+__host__ __device__ inline GridLayout grid_layout(const GridCut& g, bool bf) {
+  GridLayout L;
+  L.Nc = 4 * g.us;
+  L.ldh = g.kc + 4;  // 16 bytes of padding: a warp's row tiles read rows in other banks
+  if (bf) {
+    L.hchunk = (size_t)(g.kc / 16) * (g.rows / 16) * 512;  // [k steps][row tiles][32 lanes][8 bf16]
+    L.wchunk = (size_t)(g.kc / 16) * (L.Nc / 8) * 256;     // [k steps][n-tiles][32 lanes][4 bf16]
+  } else {
+    L.hchunk = (size_t)g.rows * L.ldh * 4;  // [rows][kc + 4] floats
+    L.wchunk = (size_t)g.kc * L.Nc * 4;     // [kc][Nc] floats
+  }
+  const bool streams = g.nres < g.kp / g.kc;
+  L.slot = L.hchunk + (streams ? L.wchunk : 0);
+  size_t off = 0;
+  L.w = off;
+  off += (size_t)g.nres * L.wchunk;
+  L.ring = off;
+  off += (size_t)g.ns * L.slot;
+  L.part = off;  // [rows][Nc]: the product, its parts added in order
+  off += (size_t)g.rows * L.Nc * 4;
+  L.xp = off;  // [rows][4][us] xp of the step, then [rows] mask
+  off += ((size_t)g.rows * L.Nc + g.rows + 3) / 4 * 16;
+  L.cst = off;  // [rows][us] float32 state
+  off += (size_t)g.rows * g.us * 4;
+  L.hst = off;
+  off += (size_t)g.rows * g.us * 4;
+  L.total = off;
+  return L;
+}
+
+// a bulk copy without a cache hint (a chunk of h is read once a step by each block of a direction)
+__device__ __forceinline__ void bulk_load_plain(unsigned dst, const void* src, unsigned bytes, unsigned bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// The producer of a grid block (one lane): step after step, once every
+// block has arrived at the step's barrier (step > 0), the h chunks of the
+// step in k order into the ring, each with its chunk of wh where that streams
+__device__ __forceinline__ void grid_produce(const GridCut& g, const GridLayout& L, int T, int nd, int d,
+                                             const unsigned char* hbufs, const unsigned char* wg,
+                                             const unsigned* bar, unsigned ring0, unsigned long long* full,
+                                             unsigned long long* empty) {
+  const unsigned long long keep = evict_last_policy();
+  const int nch = g.kp / g.kc;
+  int slot = 0, round = 0;
+  for (int step = 0; step < T; ++step) {
+    if (step > 0) grid_wait(bar, (unsigned)step * gridDim.x);
+    const unsigned char* hb = hbufs + (size_t)((step & 1) * nd + d) * nch * L.hchunk;
+    for (int i = 0; i < nch; ++i) {
+      if (round > 0) mbar_wait(smem_addr(&empty[slot]), (round - 1) & 1);
+      const bool streamed = i >= g.nres;
+      const unsigned fb = smem_addr(&full[slot]);
+      const unsigned dst = ring0 + (unsigned)(slot * L.slot);
+      mbar_expect(fb, (unsigned)(L.hchunk + (streamed ? L.wchunk : 0)));
+      bulk_load_plain(dst, hb + (size_t)i * L.hchunk, (unsigned)L.hchunk, fb);
+      if (streamed) bulk_load(dst + (unsigned)L.hchunk, wg + (size_t)i * L.wchunk, (unsigned)L.wchunk, fb, keep);
+      if (++slot == g.ns) slot = 0, ++round;
+    }
+  }
+}
+
+// the set-up every grid kernel shares: zero the block's buffers, copy the
+// resident chunks of its wh slice, set up the ring's barriers
+__device__ __forceinline__ void grid_setup(const GridCut& g, const GridLayout& L, const unsigned char* wg,
+                                           unsigned char* smem, unsigned long long* full,
+                                           unsigned long long* empty, int empty_count) {
+  const int tid = threadIdx.x;
+  for (size_t i = L.part / 16 + tid; i < L.total / 16; i += RING_THREADS)
+    reinterpret_cast<float4*>(smem)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (size_t i = tid; i < (size_t)g.nres * L.wchunk / 16; i += RING_THREADS)
+    reinterpret_cast<uint4*>(smem + L.w)[i] = reinterpret_cast<const uint4*>(wg)[i];
+  if (tid == 0) {
+    for (int s = 0; s < g.ns; ++s) {
+      mbar_init(smem_addr(&full[s]), 1);
+      mbar_init(smem_addr(&empty[s]), empty_count);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// A grid block's consumer threads, step after step, around their product:
+// the xp prefetch, `product(step, timed, first, later)` (the step's gate sums
+// of the block into part_s; first and later gather the cycles thread 0 waited
+// for the step's first chunk and for the others), the cell update with its
+// stores of out, of h into the next h buffer (`put_h(buf, row, k, h)`, two
+// units of a row) and of the residuals, the barrier's arrival, and the final
+// state. W is Wh's type (the residuals').
+template <typename W, class Product, class PutH>
+__device__ __forceinline__ void grid_steps(const FwdArgs& a, const float* __restrict__ mask, int T, int B, int U,
+                                           const GridCut& g, const GridLayout& L, int d, int slice, float fb,
+                                           unsigned* bar, unsigned char* smem, Product product, PutH put_h,
+                                           long long* clocks) {
+  const int tid = threadIdx.x, Us = g.us, Nc = L.Nc, rows = g.rows, G = 4 * U;
   const float* __restrict__ xp = a.xp[d];
   float* __restrict__ out = a.out[d];
-  __nv_bfloat16* hprev = static_cast<__nv_bfloat16*>(a.hprev[d]);
-  __nv_bfloat16* cprev = static_cast<__nv_bfloat16*>(a.cprev[d]);
+  W* hprev = static_cast<W*>(a.hprev[d]);
+  W* cprev = static_cast<W*>(a.cprev[d]);
   const bool reverse = a.reverse[d] != 0, save_res = hprev != nullptr;
-  const unsigned char* wg = static_cast<const unsigned char*>(a.wh[d]) + (size_t)rank * K16 * NT * 256;
+  const float* part_s = reinterpret_cast<const float*>(smem + L.part);
+  float* xp_s = reinterpret_cast<float*>(smem + L.xp);
+  float* c_st = reinterpret_cast<float*>(smem + L.cst);
+  float* h_st = reinterpret_cast<float*>(smem + L.hst);
+  const int uq = Us / 4, up = Us / 2, u_off = slice * Us;
 
-  __nv_bfloat16* h_s = reinterpret_cast<__nv_bfloat16*>(fwd_ring_smem + L.h);  // [16 MT][ldh]
-  float* part_s = reinterpret_cast<float*>(fwd_ring_smem + L.part);
-  float* xp_s = reinterpret_cast<float*>(fwd_ring_smem + L.xp);
-  float* c_st = reinterpret_cast<float*>(fwd_ring_smem + L.cst);  // [Bt][Us] float32 state
-  float* h_st = reinterpret_cast<float*>(fwd_ring_smem + L.hst);
-  const unsigned char* ring_s = fwd_ring_smem + L.ring;
-
-  // everything but the ring starts at zero: h (its rows past Bt stay so), the state, the xp tile
-  for (size_t i = tid; i < L.ring / 16; i += RING_THREADS)
-    reinterpret_cast<float4*>(fwd_ring_smem)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  const unsigned hfull = smem_addr(&hfull_bar), hfree = smem_addr(&hfree_bar);
-  const unsigned h_bytes = (unsigned)(Bt * U * 2);
-  if (tid == 0) {
-    for (int s = 0; s < L.r.NS; ++s) {
-      mbar_init(smem_addr(&full_bar[s]), 1);
-      mbar_init(smem_addr(&empty_bar[s]), FWD_THREADS / KS);  // the threads of one part
-    }
-    mbar_init(hfull, 1);
-    mbar_init(hfree, C);  // one arrival from each block of the cluster a step
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if (T > 1) mbar_expect(hfull, h_bytes);  // step 1's h
-  }
-  cluster.sync();
-
-  if (warp == RING_WARPS) {
-    if (lane == 0)
-      ring_produce_bf16(wg, T, K16, KS, NTp * 256, L.r, smem_addr(ring_s), full_bar, empty_bar);
-    __syncwarp();
-    cluster.sync();
-    return;
-  }
-
-  const int WP = RING_WARPS / KS, part = warp / WP, wl = warp - part * WP;
-  const int g = lane >> 2, tig = lane & 3;
-  const int uqn = Us / 4, nq = Bt * uqn;  // the cell update's items: 4 units of a row
   auto prefetch = [&](int t) {
-    for (int i = tid; i < Bt * Us; i += FWD_THREADS) {
+    for (int i = tid; i < g.nrows * Us; i += FWD_THREADS) {
       const int row = i / Us, rem = i - row * Us;
-      const int gate = rem / uqn, j = rem - gate * uqn;
-      if (row0 + row < B)
-        cp_async16(xp_s + row * Nc + gate * Us + 4 * j,
-                   xp + ((size_t)t * B + row0 + row) * G + gate * U + rank * Us + 4 * j);
+      const int gate = rem / uq, j = rem - gate * uq;
+      cp_async16(xp_s + row * Nc + gate * Us + 4 * j,
+                 xp + ((size_t)t * B + g.row0 + row) * G + gate * U + u_off + 4 * j);
     }
-    if (tid < Bt && row0 + tid < B) cp_async4(xp_s + Bt * Nc + tid, mask + (size_t)t * B + row0 + tid);
+    for (int r = tid; r < g.nrows; r += FWD_THREADS) cp_async4(xp_s + rows * Nc + r, mask + (size_t)t * B + g.row0 + r);
     cp_async_commit();
   };
-  auto save_state = [&](int t) {
-    for (int q = tid; q < nq; q += FWD_THREADS) {
-      const int row = q / uqn, u0 = (q - row * uqn) * 4;
-      if (row0 + row >= B) continue;
-      const size_t idx = ((size_t)t * B + row0 + row) * U + rank * Us + u0;
-      store4(hprev + idx, *reinterpret_cast<const float4*>(h_st + row * Us + u0));
-      store4(cprev + idx, *reinterpret_cast<const float4*>(c_st + row * Us + u0));
-    }
-  };
   prefetch(reverse ? T - 1 : 0);
-  if (save_res) save_state(reverse ? T - 1 : 0);
+  if (save_res)  // the state before the first step
+    for (int q = tid; q < g.nrows * up; q += FWD_THREADS) {
+      const int row = q / up, u0 = (q - row * up) * 2;
+      const size_t idx = ((size_t)(reverse ? T - 1 : 0) * B + g.row0 + row) * U + u_off + u0;
+      store2(hprev + idx, make_float2(0.0f, 0.0f));
+      store2(cprev + idx, make_float2(0.0f, 0.0f));
+    }
 
-  // clocks: as lstm_fwd_ring_kernel's
-  const bool timed = clocks != nullptr && tid == 0 && blockIdx.x == 0 && blockIdx.y == 0;
+  // clocks (optional, 5 counters): SM cycles thread 0 of block 0 spent in 0
+  // the product, 1 the cell update, 2 the arrival and the prefetch, 3 the
+  // wait for the step's first chunk (the grid barrier and its copy), 4 the
+  // waits for later chunks
+  const bool timed = clocks != nullptr && tid == 0 && blockIdx.x == 0;
   long long tick = timed ? clock64() : 0;
   long long spent[5] = {};
   auto lap = [&](int i) {
@@ -1349,92 +1186,267 @@ lstm_fwd_ring_bf16_kernel(FwdArgs a, const float* __restrict__ mask, int T, int 
   };
   for (int step = 0; step < T; ++step) {
     const int t = reverse ? T - 1 - step : step;
-    if (step > 0) {
-      mbar_wait(hfull, (step - 1) & 1);
-      if (tid == 0 && step + 1 < T) mbar_expect(hfull, h_bytes);
-    }
-    lap(3);
-    float acc[NTW][MT][4];
-    long long waited = 0;
-    ring_consume_bf16<MT, NTW>(acc, ring_s, L.r, K16, NTp, wl, WP, h_s, L.ldh, part, KS, step * L.r.nch,
-                               full_bar, empty_bar, timed, waited);
-    cp_async_wait_all();  // this step's xp tile, requested a step ago
-#pragma unroll
-    for (int j = 0; j < NTW; ++j) {
-      const int ntl = j * WP + wl;
-      if (ntl >= NTp) continue;
-      const int col = (part * NTp + ntl) * 8 + tig * 2;
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const int row = 16 * m + g;
-        if (row < Bt) *reinterpret_cast<float2*>(part_s + row * Nc + col) = make_float2(acc[j][m][0], acc[j][m][1]);
-        if (row + 8 < Bt)
-          *reinterpret_cast<float2*>(part_s + (row + 8) * Nc + col) = make_float2(acc[j][m][2], acc[j][m][3]);
-      }
-    }
-    consumers_sync();
-    // h(step) is read: every block may send this one h(step + 1)
-    if (tid < C && step + 1 < T) mbar_arrive_remote(peer_addr(hfree, tid));
+    long long first = 0, later = 0;
+    product(step, timed, first, later);
     lap(0);
-    if (timed) spent[0] -= waited, spent[4] += waited;
+    if (timed) spent[0] -= first + later, spent[3] += first, spent[4] += later;
 
-    // cell update of this block's units and this step's output
-    for (int q = tid; q < nq; q += FWD_THREADS) {
-      const int row = q / uqn, u0 = (q - row * uqn) * 4;
-      float gate[4][4];
+    // the cell update of this block's units: two units of a row an item
+    for (int q = tid; q < rows * up; q += FWD_THREADS) {
+      const int row = q / up, u0 = (q - row * up) * 2;
+      const float4 s0 = *reinterpret_cast<const float4*>(part_s + row * Nc + 4 * u0);
+      const float4 s1 = *reinterpret_cast<const float4*>(part_s + row * Nc + 4 * u0 + 4);
+      const float* xr = xp_s + row * Nc + u0;
+      const float2 xi = *reinterpret_cast<const float2*>(xr), xf = *reinterpret_cast<const float2*>(xr + Us);
+      const float2 xg = *reinterpret_cast<const float2*>(xr + 2 * Us);
+      const float2 xo = *reinterpret_cast<const float2*>(xr + 3 * Us);
+      const float gate[4][2] = {{xi.x + s0.x, xi.y + s1.x}, {xf.x + s0.y, xf.y + s1.y},
+                                {xg.x + s0.z, xg.y + s1.z}, {xo.x + s0.w, xo.y + s1.w}};
+      const float m = xp_s[rows * Nc + row];
+      const float2 c2 = *reinterpret_cast<const float2*>(c_st + row * Us + u0);
+      const float2 h2 = *reinterpret_cast<const float2*>(h_st + row * Us + u0);
+      float cv[2] = {c2.x, c2.y}, hv[2] = {h2.x, h2.y}, ov[2];
 #pragma unroll
-      for (int gi = 0; gi < 4; ++gi) {
-        const int col = row * Nc + gi * Us + u0;
-        const float4 sv = *reinterpret_cast<const float4*>(part_s + col);
-        const float4 x = *reinterpret_cast<const float4*>(xp_s + col);
-        gate[gi][0] = x.x + sv.x, gate[gi][1] = x.y + sv.y, gate[gi][2] = x.z + sv.z, gate[gi][3] = x.w + sv.w;
-      }
-      const float m = xp_s[Bt * Nc + row];
-      const float4 c4 = *reinterpret_cast<const float4*>(c_st + row * Us + u0);
-      const float4 h4 = *reinterpret_cast<const float4*>(h_st + row * Us + u0);
-      float cv[4] = {c4.x, c4.y, c4.z, c4.w}, hv[4] = {h4.x, h4.y, h4.z, h4.w}, ov[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float c_new = sigmoidf_(gate[1][i] + forget_bias) * cv[i] +
-                            sigmoidf_(gate[0][i]) * tanhf(gate[2][i]);
+      for (int i = 0; i < 2; ++i) {
+        const float c_new = sigmoidf_(gate[1][i] + fb) * cv[i] + sigmoidf_(gate[0][i]) * tanhf(gate[2][i]);
         const float h_new = sigmoidf_(gate[3][i]) * tanhf(c_new);
         hv[i] = m * h_new + (1.0f - m) * hv[i];
         cv[i] = m * c_new + (1.0f - m) * cv[i];
         ov[i] = m * h_new;
       }
-      *reinterpret_cast<float4*>(c_st + row * Us + u0) = make_float4(cv[0], cv[1], cv[2], cv[3]);
-      *reinterpret_cast<float4*>(h_st + row * Us + u0) = make_float4(hv[0], hv[1], hv[2], hv[3]);
-      if (row0 + row < B)
-        *reinterpret_cast<float4*>(out + ((size_t)t * B + row0 + row) * U + rank * Us + u0) =
-            make_float4(ov[0], ov[1], ov[2], ov[3]);
-    }
-    // this block's slice of h(step + 1), rounded to bf16, into every block, once all have read h(step)
-    if (step + 1 < T) {
-      mbar_wait_cluster(hfree, step & 1);
-      for (int q = tid; q < nq; q += FWD_THREADS) {
-        const int row = q / uqn, u0 = (q - row * uqn) * 4;
-        const float4 h4 = *reinterpret_cast<const float4*>(h_st + row * Us + u0);
-        const unsigned dst = smem_addr(h_s + row * L.ldh + rank * Us + u0);
-        for (int r = 0; r < C; ++r) store4_async(peer_addr(dst, r), peer_addr(hfull, r), h_s, h4);
+      const float2 hn = make_float2(hv[0], hv[1]), cn = make_float2(cv[0], cv[1]);
+      *reinterpret_cast<float2*>(c_st + row * Us + u0) = cn;
+      *reinterpret_cast<float2*>(h_st + row * Us + u0) = hn;
+      if (row < g.nrows) {  // rows past the pass stay zero, in h_st and in the h buffers
+        *reinterpret_cast<float2*>(out + ((size_t)t * B + g.row0 + row) * U + u_off + u0) = make_float2(ov[0], ov[1]);
+        if (step + 1 < T) {
+          put_h((step + 1) & 1, row, u_off + u0, hn);
+          if (save_res) {
+            const size_t idx = ((size_t)(reverse ? t - 1 : t + 1) * B + g.row0 + row) * U + u_off + u0;
+            store2(hprev + idx, hn);
+            store2(cprev + idx, cn);
+          }
+        }
       }
     }
     lap(1);
-
-    if (save_res && step + 1 < T) save_state(reverse ? t - 1 : t + 1);
-    consumers_sync();  // part_s and the xp tile are free
+    // every consumer's h is stored, part_s and the xp tile are free: the
+    // block arrives at the barrier of step + 1
+    consumers_sync();
+    if (tid == 0 && step + 1 < T) grid_arrive(bar);
     if (step + 1 < T) prefetch(reverse ? t - 1 : t + 1);
     lap(2);
   }
   if (timed)
     for (int i = 0; i < 5; ++i) clocks[i] += spent[i];
-  cluster.sync();  // no block leaves while a peer may still address it
-  for (int q = tid; q < nq; q += FWD_THREADS) {
-    const int row = q / uqn, u0 = (q - row * uqn) * 4;
-    if (row0 + row >= B) continue;
-    const size_t idx = (size_t)(row0 + row) * U + rank * Us + u0;
-    *reinterpret_cast<float4*>(a.hfin[d] + idx) = *reinterpret_cast<const float4*>(h_st + row * Us + u0);
-    *reinterpret_cast<float4*>(a.cfin[d] + idx) = *reinterpret_cast<const float4*>(c_st + row * Us + u0);
+  for (int q = tid; q < g.nrows * up; q += FWD_THREADS) {
+    const int row = q / up, u0 = (q - row * up) * 2;
+    const size_t idx = (size_t)(g.row0 + row) * U + u_off + u0;
+    *reinterpret_cast<float2*>(a.hfin[d] + idx) = *reinterpret_cast<const float2*>(h_st + row * Us + u0);
+    *reinterpret_cast<float2*>(a.cfin[d] + idx) = *reinterpret_cast<const float2*>(c_st + row * Us + u0);
   }
+}
+
+// the float32 grid kernel: a consumer thread takes one unit's 4 gate
+// columns and TR rows of its part's chunks; the residuals are saved where
+// the entry gives hprev
+template <int TR>
+__global__ void __launch_bounds__(RING_THREADS, 1)
+lstm_grid_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, int U, GridCut g, float fb,
+                 unsigned char* ws, long long* __restrict__ clocks) {
+  extern __shared__ __align__(16) unsigned char grid_smem[];
+  __shared__ __align__(8) unsigned long long full_bar[GRID_SLOTS_MAX], empty_bar[GRID_SLOTS_MAX];
+  const GridLayout L = grid_layout(g, false);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int Us = g.us, Nc = L.Nc, per_dir = U / Us, nd = gridDim.x / per_dir;
+  const int d = blockIdx.x / per_dir, slice = blockIdx.x - d * per_dir;
+  const int nch = g.kp / g.kc, tpp = FWD_THREADS / g.ks;
+  unsigned* bar = reinterpret_cast<unsigned*>(ws);
+  unsigned char* hbufs = ws + GRID_WS_HEAD;  // [2][nd][nch] chunks of [rows][kc + 4] floats
+  const unsigned char* wg = static_cast<const unsigned char*>(a.wh[d]) + (size_t)slice * g.kp * Nc * 4;
+  grid_setup(g, L, wg, grid_smem, full_bar, empty_bar, tpp);
+  if (warp == RING_WARPS) {
+    if (lane == 0)
+      grid_produce(g, L, T, nd, d, hbufs, wg, bar, smem_addr(grid_smem + L.ring), full_bar, empty_bar);
+    return;
+  }
+  const int part = tid / tpp, q = tid - part * tpp;
+  const int nrt = tpp / Us, u = q % Us, rt = q / Us;
+  const bool busy = rt < nrt;  // threads past nrt row tiles of Us units idle
+  const float* w_res = reinterpret_cast<const float*>(grid_smem + L.w);
+  float* part_s = reinterpret_cast<float*>(grid_smem + L.part);
+  const int kc4 = g.kc / 4, ldh = L.ldh;
+
+  auto product = [&](int step, bool timed, long long& first, long long& later) {
+    float acc[TR][4];
+#pragma unroll
+    for (int j = 0; j < TR; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+    for (int i = part; i < nch; i += g.ks) {
+      const int c = step * nch + i, slot = c % g.ns;
+      const long long w0 = timed ? clock64() : 0;
+      mbar_wait(smem_addr(&full_bar[slot]), (unsigned)(c / g.ns) & 1);
+      if (timed) (i == 0 ? first : later) += clock64() - w0;
+      const unsigned char* sl = grid_smem + L.ring + slot * L.slot;
+      const float* hs = reinterpret_cast<const float*>(sl) + rt * ldh;
+      const float* wc = (i < g.nres ? w_res + (size_t)i * g.kc * Nc : reinterpret_cast<const float*>(sl + L.hchunk)) +
+                        4 * u;
+      if (busy) {
+#pragma unroll 2
+        for (int k4 = 0; k4 < kc4; ++k4) {
+          const float4 w0v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4) * Nc);
+          const float4 w1v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4 + 1) * Nc);
+          const float4 w2v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4 + 2) * Nc);
+          const float4 w3v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4 + 3) * Nc);
+#pragma unroll
+          for (int j = 0; j < TR; ++j) {
+            const float4 hv = *reinterpret_cast<const float4*>(hs + (size_t)j * nrt * ldh + 4 * k4);
+            acc[j][0] = fmaf(hv.x, w0v.x, acc[j][0]);
+            acc[j][1] = fmaf(hv.x, w0v.y, acc[j][1]);
+            acc[j][2] = fmaf(hv.x, w0v.z, acc[j][2]);
+            acc[j][3] = fmaf(hv.x, w0v.w, acc[j][3]);
+            acc[j][0] = fmaf(hv.y, w1v.x, acc[j][0]);
+            acc[j][1] = fmaf(hv.y, w1v.y, acc[j][1]);
+            acc[j][2] = fmaf(hv.y, w1v.z, acc[j][2]);
+            acc[j][3] = fmaf(hv.y, w1v.w, acc[j][3]);
+            acc[j][0] = fmaf(hv.z, w2v.x, acc[j][0]);
+            acc[j][1] = fmaf(hv.z, w2v.y, acc[j][1]);
+            acc[j][2] = fmaf(hv.z, w2v.z, acc[j][2]);
+            acc[j][3] = fmaf(hv.z, w2v.w, acc[j][3]);
+            acc[j][0] = fmaf(hv.w, w3v.x, acc[j][0]);
+            acc[j][1] = fmaf(hv.w, w3v.y, acc[j][1]);
+            acc[j][2] = fmaf(hv.w, w3v.z, acc[j][2]);
+            acc[j][3] = fmaf(hv.w, w3v.w, acc[j][3]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(&empty_bar[slot]), 32);
+    }
+    cp_async_wait_all();  // this step's xp tile, requested a step ago
+    for (int p = 0; p < g.ks; ++p) {  // the parts into part_s, in part order
+      if (part == p && busy) {
+#pragma unroll
+        for (int j = 0; j < TR; ++j) {
+          float4* dst = reinterpret_cast<float4*>(part_s + (size_t)(rt + j * nrt) * Nc + 4 * u);
+          float4 v = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+          if (p > 0) {
+            const float4 s = *dst;
+            v = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+          }
+          *dst = v;
+        }
+      }
+      consumers_sync();
+    }
+  };
+  // two units' h of a row into h buffer `buf`: [chunk][rows][kc + 4] floats
+  auto put_h = [&](int buf, int row, int k, float2 h) {
+    float* hb = reinterpret_cast<float*>(hbufs + (size_t)(buf * nd + d) * nch * L.hchunk);
+    const int ch = k / g.kc;
+    *reinterpret_cast<float2*>(hb + ((size_t)ch * g.rows + row) * ldh + (k - ch * g.kc)) = h;
+  };
+  grid_steps<float>(a, mask, T, B, U, g, L, d, slice, fb, bar, grid_smem, product, put_h, clocks);
+}
+
+// the bf16 grid kernel: a part's warps split the n-tiles of the block's
+// columns (n-tile j WP + wl, j < NTW, WP = 8 / ks warps a part), each warp
+// takes all MT row tiles of its part's chunks on the tensor cores
+template <int MT, int NTW>
+__global__ void __launch_bounds__(RING_THREADS, 1)
+lstm_grid_bf16_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, int U, GridCut g, float fb,
+                      unsigned char* ws, long long* __restrict__ clocks) {
+  extern __shared__ __align__(16) unsigned char grid_smem[];
+  __shared__ __align__(8) unsigned long long full_bar[GRID_SLOTS_MAX], empty_bar[GRID_SLOTS_MAX];
+  const GridLayout L = grid_layout(g, true);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int Us = g.us, Nc = L.Nc, per_dir = U / Us, nd = gridDim.x / per_dir;
+  const int d = blockIdx.x / per_dir, slice = blockIdx.x - d * per_dir;
+  const int nch = g.kp / g.kc, NT = Nc / 8, kc16 = g.kc / 16;
+  unsigned* bar = reinterpret_cast<unsigned*>(ws);
+  unsigned char* hbufs = ws + GRID_WS_HEAD;  // [2][nd][k steps][MT][32 lanes][8 bf16]: A fragments
+  const unsigned char* wg = static_cast<const unsigned char*>(a.wh[d]) + (size_t)slice * g.kp * Nc * 2;
+  grid_setup(g, L, wg, grid_smem, full_bar, empty_bar, FWD_THREADS / g.ks);
+  if (warp == RING_WARPS) {
+    if (lane == 0)
+      grid_produce(g, L, T, nd, d, hbufs, wg, bar, smem_addr(grid_smem + L.ring), full_bar, empty_bar);
+    return;
+  }
+  const int WP = RING_WARPS / g.ks, part = warp / WP, wl = warp - part * WP;
+  const int gq = lane >> 2, tig = lane & 3;
+  const uint2* w_res = reinterpret_cast<const uint2*>(grid_smem + L.w);
+  float* part_s = reinterpret_cast<float*>(grid_smem + L.part);
+
+  auto product = [&](int step, bool timed, long long& first, long long& later) {
+    float acc[MT][NTW][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.0f;
+    for (int i = part; i < nch; i += g.ks) {
+      const int c = step * nch + i, slot = c % g.ns;
+      const long long w0 = timed ? clock64() : 0;
+      mbar_wait(smem_addr(&full_bar[slot]), (unsigned)(c / g.ns) & 1);
+      if (timed) (i == 0 ? first : later) += clock64() - w0;
+      const unsigned char* sl = grid_smem + L.ring + slot * L.slot;
+      const uint4* hf = reinterpret_cast<const uint4*>(sl);
+      const uint2* wf = i < g.nres ? w_res + (size_t)i * kc16 * NT * 32 : reinterpret_cast<const uint2*>(sl + L.hchunk);
+#pragma unroll 2
+      for (int s = 0; s < kc16; ++s) {
+        // every fragment of the k step first, so that their loads are in flight together
+        unsigned af[MT][4];
+        uint2 bf[NTW];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const uint4 v = hf[(s * MT + m) * 32 + lane];
+          af[m][0] = v.x, af[m][1] = v.y, af[m][2] = v.z, af[m][3] = v.w;
+        }
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) bf[j] = wf[(s * NT + min(j * WP + wl, NT - 1)) * 32 + lane];
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+          if (j * WP + wl < NT)
+#pragma unroll
+            for (int m = 0; m < MT; ++m) mma_bf16(acc[m][j], af[m], bf[j].x, bf[j].y);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(&empty_bar[slot]), 32);
+    }
+    cp_async_wait_all();  // this step's xp tile, requested a step ago
+    for (int p = 0; p < g.ks; ++p) {  // the parts into part_s, in part order
+      if (part == p) {
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          const int nt = j * WP + wl;
+          if (nt >= NT) continue;
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int hi = 0; hi < 2; ++hi) {
+              float2* dst = reinterpret_cast<float2*>(part_s + (size_t)(16 * m + gq + 8 * hi) * Nc + nt * 8 + tig * 2);
+              float2 v = make_float2(acc[m][j][2 * hi], acc[m][j][2 * hi + 1]);
+              if (p > 0) {
+                const float2 s = *dst;
+                v = make_float2(s.x + v.x, s.y + v.y);
+              }
+              *dst = v;
+            }
+        }
+      }
+      consumers_sync();
+    }
+  };
+  // two units' h of a row, rounded to bf16, into h buffer `buf` at their
+  // place in the A fragments: k step k / 16, row tile row / 16, lane
+  // 4 (row mod 8) + (k mod 8) / 2, register (row mod 16) / 8 + 2 ((k mod 16) / 8)
+  auto put_h = [&](int buf, int row, int k, float2 h) {
+    unsigned* hb = reinterpret_cast<unsigned*>(hbufs + (size_t)(buf * nd + d) * nch * L.hchunk);
+    const int r = row & 15, kk = k & 15;
+    const size_t word = (((size_t)(k >> 4) * MT + (row >> 4)) * 32 + (r & 7) * 4 + ((kk & 7) >> 1)) * 4 +
+                        (r >> 3) + 2 * (kk >> 3);
+    __nv_bfloat162 v = __floats2bfloat162_rn(h.x, h.y);
+    hb[word] = *reinterpret_cast<unsigned*>(&v);
+  };
+  grid_steps<__nv_bfloat16>(a, mask, T, B, U, g, L, d, slice, fb, bar, grid_smem, product, put_h, clocks);
 }
 
 // ------------------------------------------------------------------- VJP
@@ -1805,7 +1817,7 @@ dwh_partial_kernel_tc(BwdArgs a, float* __restrict__ partials, int M, int U, int
 // how one launch of the loop cuts the work, chosen by the caller from the shape
 struct BwdPlan {
   int C;         // blocks of a cluster = slices of the units
-  int Bt;        // batch rows of a cluster's tile (8 or 16; the ring also 24)
+  int Bt;        // batch rows of a cluster's tile (8 or 16)
   int KS;        // float32: parts the k range (the block's gate columns) is split into
   int resident;  // the block's slice of Wh^T lies in shared memory
   int ring;      // float32: the slice streams through a ring of bulk copies (lstm_bwd_ring_kernel)
@@ -2574,46 +2586,40 @@ bool bad_shape(int nd, int T, int B, int U) {
 // owns: ceil(U / 1024), so that at most 256 threads hold all U of them
 __host__ __device__ inline int ring_cw4(int U) { return (U + 1023) / 1024; }
 
-// the bf16 ring's bound on the n-tiles a consumer warp takes (NT / 8 of
-// them, rounded up to the kernels' instances: a warp past its tiles still
-// loads a fragment and skips the product), or 0 where none is built: 2, 4,
-// 8 or 16 forward, 8, 16 or 32 the VJP, with one 16-row tile (MT = 1); 2,
-// 4 or 8 forward, 8 the VJP, with two
-inline int bf16_ring_ntw(int NT, int MT, bool bwd) {
+// the VJP's bf16 ring's bound on the n-tiles a consumer warp takes (NT / 8
+// of them, rounded up to the kernels' instances: a warp past its tiles
+// still loads a fragment and skips the product), or 0 where none is built:
+// 8, 16 or 32 with one 16-row tile (MT = 1), 8 with two
+inline int bf16_ring_ntw(int NT, int MT) {
   const int need = (NT + 7) / 8;
-  for (int ntw = bwd ? 8 : 2; ntw <= (MT == 1 ? (bwd ? 32 : 16) : 8); ntw *= 2)
+  for (int ntw = 8; ntw <= (MT == 1 ? 32 : 8); ntw *= 2)
     if (need <= ntw) return ntw;
   return 0;
 }
 
-// what the forward kernel takes: C divides U into slices of a multiple of 8
-// units (16-byte column groups, 8-column mma tiles), tiles of 8 or 16 rows,
-// and a layout that fits a block's shared memory, the Wh slice resident or
-// streamed from L2 at any C
-// The float32 ring takes a thread's 4 columns for every one of `cols`
+// The VJP's float32 ring takes a thread's 4 columns for every one of `cols`
 // column groups (KS parts of the k range at most 256 threads) and a ring
 // whose chunks hold four rows at least.
 bool bad_ring(int cols, int KS, const Ring& r, size_t total) {
   return cols > FWD_THREADS || KS > RING_KS_MAX || KS * cols > FWD_THREADS || r.KC < 4 ||
          total > RING_SMEM_MAX;
 }
-// The bf16 ring takes NT n-tiles cut into KS = 1, 2, 4 or 8 pieces (the
-// parts of the 8 consumer warps), a kernel instance for its tiles a warp,
-// and a ring whose chunks hold a k step at least.
-bool bad_ring_bf16(int NT, int KS, int MT, bool bwd, const Ring& r, size_t total) {
-  return (KS != 1 && KS != 2 && KS != 4 && KS != 8) || NT % KS || bf16_ring_ntw(NT, MT, bwd) == 0 ||
+// The VJP's bf16 ring takes NT n-tiles cut into KS = 1, 2, 4 or 8 pieces
+// (the parts of the 8 consumer warps), a kernel instance for its tiles a
+// warp, and a ring whose chunks hold a k step at least.
+bool bad_ring_bf16(int NT, int KS, int MT, const Ring& r, size_t total) {
+  return (KS != 1 && KS != 2 && KS != 4 && KS != 8) || NT % KS || bf16_ring_ntw(NT, MT) == 0 ||
          r.KC < 1 || total > RING_SMEM_MAX;
 }
 
+// what the forward template takes: C divides U into slices of a multiple of
+// 8 units (16-byte column groups, 8-column mma tiles), tiles of 8 or 16
+// rows, and a layout that fits a block's shared memory, the Wh slice
+// resident or streamed from L2 at any C
 bool bad_plan(int U, FwdPlan p, bool bf) {
   if (p.C < 1 || p.C > 16 || U % p.C || (U / p.C) % 8) return true;
-  if (p.Bt != 8 && p.Bt != 16 && !(p.ring && p.Bt == 24)) return true;
-  if (p.KS < 1 || p.KS > 16 || (bf && !p.ring && p.KS != 1)) return true;
-  if (p.ring) {
-    const FwdRingLayout L = fwd_ring_layout(U, p, bf);
-    if (p.resident) return true;
-    return bf ? bad_ring_bf16(L.Nc / 8, p.KS, L.MT, false, L.r, L.total) : bad_ring(L.Nc / 4, p.KS, L.r, L.total);
-  }
+  if (p.Bt != 8 && p.Bt != 16) return true;
+  if (p.KS < 1 || p.KS > 16 || (bf && p.KS != 1)) return true;
   return fwd_layout(U, p, bf).total > SMEM_MAX;
 }
 
@@ -2627,7 +2633,7 @@ bool bad_bwd_plan(int U, BwdPlan p, bool bf) {
   if (p.ring) {
     const BwdRingLayout L = bwd_ring_layout(U, p, bf);
     if (p.resident) return true;
-    if (bf) return bad_ring_bf16(L.Np / 8, p.KS, L.MT, true, L.r, L.total);
+    if (bf) return bad_ring_bf16(L.Np / 8, p.KS, L.MT, L.r, L.total);
     const int cw4 = ring_cw4(U);
     return cw4 > 2 || p.Bt * cw4 > 24 || bad_ring(U / (4 * cw4), p.KS, L.r, L.total);
   }
@@ -2655,38 +2661,15 @@ cudaError_t prepare_cluster(K kernel, size_t smem, int C, cudaLaunchConfig_t* cf
   return cudaSuccess;
 }
 
-// the kernel of a forward plan, ready to launch or to ask about: the
-// template (resident or streamed by threads' loads), or the ring route
-// (float32, or bf16 on the tensor cores)
+// the template kernel of a forward plan, ready to launch or to ask about
+// (its slice of Wh resident, or streamed by the threads' loads)
 template <typename W, bool SAVE_RES>
 struct FwdKernel {
   using Fn = void (*)(FwdArgs, const float*, int, int, int, FwdPlan, float, long long*);
-  Fn fn;
+  Fn fn = lstm_fwd_kernel<W, SAVE_RES>;
   size_t smem;
-  int threads;
-  FwdKernel(int U, FwdPlan p) {
-    const bool bf = std::is_same<W, __nv_bfloat16>::value;
-    if (!p.ring) {
-      fn = lstm_fwd_kernel<W, SAVE_RES>, smem = fwd_layout(U, p, bf).total, threads = FWD_THREADS;
-      return;
-    }
-    const FwdRingLayout L = fwd_ring_layout(U, p, bf);
-    smem = L.total, threads = RING_THREADS;
-    if (bf) {
-      const int ntw = bf16_ring_ntw(L.Nc / 8, L.MT, false);
-      fn = L.MT == 2 ? (ntw == 2 ? lstm_fwd_ring_bf16_kernel<2, 2>
-                        : ntw == 4 ? lstm_fwd_ring_bf16_kernel<2, 4>
-                                   : lstm_fwd_ring_bf16_kernel<2, 8>)
-           : ntw == 2 ? lstm_fwd_ring_bf16_kernel<1, 2>
-           : ntw == 4 ? lstm_fwd_ring_bf16_kernel<1, 4>
-           : ntw == 8 ? lstm_fwd_ring_bf16_kernel<1, 8>
-                      : lstm_fwd_ring_bf16_kernel<1, 16>;
-      return;
-    }
-    fn = p.Bt == 24   ? lstm_fwd_ring_kernel<SAVE_RES, 24>
-         : p.Bt == 16 ? lstm_fwd_ring_kernel<SAVE_RES, 16>
-                      : lstm_fwd_ring_kernel<SAVE_RES, 8>;
-  }
+  int threads = FWD_THREADS;
+  FwdKernel(int U, FwdPlan p) : smem(fwd_layout(U, p, std::is_same<W, __nv_bfloat16>::value).total) {}
 };
 
 template <typename W, bool SAVE_RES>
@@ -2745,7 +2728,7 @@ struct BwdKernel {
     const BwdRingLayout L = bwd_ring_layout(U, p, bf);
     smem = L.total, threads = RING_THREADS;
     if (bf) {
-      const int ntw = bf16_ring_ntw(L.Np / 8, L.MT, true);
+      const int ntw = bf16_ring_ntw(L.Np / 8, L.MT);
       fn = L.MT == 2   ? lstm_bwd_ring_bf16_kernel<2, 8>
            : ntw == 8  ? lstm_bwd_ring_bf16_kernel<1, 8>
            : ntw == 16 ? lstm_bwd_ring_bf16_kernel<1, 16>
@@ -2772,18 +2755,119 @@ int info_bwd(int U, BwdPlan p, int* out) {
   return cluster_info(k.fn, &cfg, p.C, out);
 }
 
+// The bf16 grid kernel's bound on a warp's n-tiles: the NT n-tiles over
+// the 8 / ks warps of a part, rounded up to a built instance (2, 4 or 8; a
+// warp past its tiles still loads a fragment and skips the product), with
+// MT * NTW <= 16 float32 sums of 4 a lane; 0 where none is built.
+// ops/lstm.py::grid_bf16_ntw mirrors it.
+inline int grid_bf16_ntw(int NT, int ks, int MT) {
+  const int need = (NT + RING_WARPS / ks - 1) / (RING_WARPS / ks);
+  for (int ntw = 2; ntw <= 8; ntw *= 2)
+    if (need <= ntw) return MT * ntw <= 16 ? ntw : 0;
+  return 0;
+}
+
+// what the grid kernels take: a cut of U into runs of a multiple of 8 units
+// (one block each, both directions), 1, 2, 4 or 8 k parts with two ring
+// slots a part or more, chunks of a multiple of 4 rows (bf16: 16) that cut
+// the padded k range evenly among the parts, a pass of rows inside the
+// batch, a built instance (float32: TR = 4 or 8 rows a thread, the
+// layout's rows the row tiles' of a part; bf16: MT = 1, 2 or 4 tiles of 16
+// rows), and a layout that fits a block's shared memory
+bool bad_grid(int nd, int B, int U, const GridCut& g, bool bf) {
+  if (g.us < 8 || g.us % 8 || U % g.us || g.blocks != nd * (U / g.us)) return true;
+  if (g.ks != 1 && g.ks != 2 && g.ks != 4 && g.ks != 8) return true;
+  if (g.ns < 2 * g.ks || g.ns % g.ks || g.ns > GRID_SLOTS_MAX) return true;
+  if (g.kc < 4 || g.kc % (bf ? 16 : 4) || g.kp < U || g.kp % (g.kc * g.ks)) return true;
+  if (g.nres < 0 || g.nres > g.kp / g.kc) return true;
+  if (g.nrows < 1 || g.nrows > g.rows || g.row0 < 0 || g.row0 + g.nrows > B) return true;
+  if (bf) {
+    if ((g.tile != 1 && g.tile != 2 && g.tile != 4) || g.rows != 16 * g.tile) return true;
+    if (grid_bf16_ntw(g.us / 2, g.ks, g.tile) == 0) return true;
+  } else {
+    const int nrt = FWD_THREADS / g.ks / g.us;
+    if (nrt < 1 || (g.tile != 4 && g.tile != 8) || g.rows != nrt * g.tile) return true;
+  }
+  return grid_layout(g, bf).total > GRID_SMEM_MAX;
+}
+
+using GridFn = void (*)(FwdArgs, const float*, int, int, int, GridCut, float, unsigned char*, long long*);
+
+GridFn grid_kernel(const GridCut& g, bool bf) {
+  if (!bf) return g.tile == 8 ? lstm_grid_kernel<8> : lstm_grid_kernel<4>;
+  const int ntw = grid_bf16_ntw(g.us / 2, g.ks, g.tile);
+  if (g.tile == 4) return ntw == 2 ? lstm_grid_bf16_kernel<4, 2> : lstm_grid_bf16_kernel<4, 4>;
+  if (g.tile == 2)
+    return ntw == 2 ? lstm_grid_bf16_kernel<2, 2> : ntw == 4 ? lstm_grid_bf16_kernel<2, 4> : lstm_grid_bf16_kernel<2, 8>;
+  return ntw == 2 ? lstm_grid_bf16_kernel<1, 2> : ntw == 4 ? lstm_grid_bf16_kernel<1, 4> : lstm_grid_bf16_kernel<1, 8>;
+}
+
+// A grid launch: cooperative, refused (cudaErrorCooperativeLaunchTooLarge)
+// unless the card holds every block at once; no fallback. info, if not
+// null, receives the blocks the card holds at once, the dynamic shared
+// memory bytes a block, the registers a thread and the static shared memory
+// bytes; with ws null nothing is launched.
+int launch_grid_fwd(const FwdArgs& a, const float* mask, int T, int B, int U, const GridCut& g, bool bf, float fb,
+                    void* ws, long long* clocks, cudaStream_t stream, int* info) {
+  const GridFn fn = grid_kernel(g, bf);
+  const size_t smem = grid_layout(g, bf).total;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, RING_THREADS, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (info) {
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, fn);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    info[0] = per_sm * sms;
+    info[1] = (int)smem;
+    info[2] = fa.numRegs;
+    info[3] = (int)fa.sharedSizeBytes;
+  }
+  if (ws == nullptr) return 0;
+  if ((long long)per_sm * sms < g.blocks) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cfg.gridDim = dim3(g.blocks);
+  cfg.blockDim = dim3(RING_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, fn, a, mask, T, B, U, g, fb, static_cast<unsigned char*>(ws), clocks);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+GridCut grid_cut(const int* c) {
+  return GridCut{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], c[9], c[10]};
+}
+
+constexpr int ROUTE_GRID = 3;
+
 template <bool SAVE_RES>
 int fwd_entry(const float* xp0, const float* xp1, const float* mask, const void* wh0,
               const void* wh1, int nd, int rev_bits, int wh_bf16, float* out0,
               float* out1, void* hprev0, void* hprev1, void* cprev0, void* cprev1,
               float* hfin0, float* hfin1, float* cfin0, float* cfin1, int T, int B,
-              int U, float fb, FwdPlan p, long long* clocks, void* stream) {
-  if (bad_shape(nd, T, B, U) || bad_plan(U, p, wh_bf16 != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
+              int U, float fb, FwdPlan p, int route, const int* cut, void* ws, long long* clocks,
+              void* stream) {
   FwdArgs a{{xp0, xp1}, {wh0, wh1}, {out0, out1}, {hprev0, hprev1},
             {cprev0, cprev1}, {hfin0, hfin1}, {cfin0, cfin1},
             {rev_bits & 1, (rev_bits >> 1) & 1}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == ROUTE_GRID) {
+    if (cut == nullptr || ws == nullptr || bad_shape(nd, T, B, U)) return static_cast<int>(cudaErrorInvalidValue);
+    const GridCut g = grid_cut(cut);
+    if (bad_grid(nd, B, U, g, wh_bf16 != 0) || (SAVE_RES && (hprev0 == nullptr || cprev0 == nullptr)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_grid_fwd(a, mask, T, B, U, g, wh_bf16 != 0, fb, ws, clocks, s, nullptr);
+  }
+  if (route < 0 || route > 1 || bad_shape(nd, T, B, U) || bad_plan(U, p, wh_bf16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (wh_bf16) return launch_fwd<__nv_bfloat16, SAVE_RES>(a, mask, nd, T, B, U, p, fb, clocks, s);
   return launch_fwd<float, SAVE_RES>(a, mask, nd, T, B, U, p, fb, clocks, s);
 }
@@ -2847,10 +2931,9 @@ int launch_bwd(const BwdArgs& a, const float* mask, float* partials, int nd, int
 }
 
 // a plan from the entries' arguments: route 0 streams the slice by the
-// threads' loads, 1 holds it in shared memory, 2 streams it through the ring
-FwdPlan fwd_plan(int cluster, int bt, int ksplit, int route) {
-  return FwdPlan{cluster, bt, ksplit, route == 1, route == 2};
-}
+// threads' loads, 1 holds it in shared memory, 2 (the VJP) streams it
+// through the ring
+FwdPlan fwd_plan(int cluster, int bt, int ksplit, int route) { return FwdPlan{cluster, bt, ksplit, route == 1}; }
 BwdPlan bwd_plan(int cluster, int bt, int ksplit, int route) {
   return BwdPlan{cluster, bt, ksplit, route == 1, route == 2};
 }
@@ -2859,19 +2942,24 @@ BwdPlan bwd_plan(int cluster, int bt, int ksplit, int route) {
 
 // one or two directions of the recurrence -> out, final (h, c). wh0/wh1 are
 // regrouped by unit slice for `cluster` blocks (see the header); cluster,
-// bt, ksplit and route (0 streamed, 1 resident, 2 the ring) are the caller's
-// plan for the launch; clocks is null or 5 cycle counters the kernel adds to
-// (see the kernels).
+// bt, ksplit and route (0 streamed, 1 resident, 2 the ring, 3 the grid
+// layout) are the caller's plan for the launch; the grid layout reads its
+// cut from `cut` (11 ints: GridCut's fields in order) and wh0/wh1
+// regrouped by its blocks, and takes `ws`, its workspace (the barrier's
+// counter, then two h buffers; zeroed by the caller), and ignores cluster,
+// bt and ksplit; clocks is null or 5 cycle counters the kernel adds to (see
+// the kernels).
 extern "C" int plt_lstm_recurrence(const float* xp0, const float* xp1, const float* mask,
                                    const void* wh0, const void* wh1, int nd, int rev_bits,
                                    int wh_bf16, float* out0, float* out1, void* hprev0,
                                    void* hprev1, void* cprev0, void* cprev1, float* hfin0,
                                    float* hfin1, float* cfin0, float* cfin1, int T, int B,
                                    int U, float forget_bias, int cluster, int bt, int ksplit,
-                                   int route, long long* clocks, void* stream) {
+                                   int route, const int* cut, void* ws, long long* clocks, void* stream) {
   return fwd_entry<false>(xp0, xp1, mask, wh0, wh1, nd, rev_bits, wh_bf16, out0, out1,
                           hprev0, hprev1, cprev0, cprev1, hfin0, hfin1, cfin0, cfin1, T,
-                          B, U, forget_bias, fwd_plan(cluster, bt, ksplit, route), clocks, stream);
+                          B, U, forget_bias, fwd_plan(cluster, bt, ksplit, route), route, cut, ws, clocks,
+                          stream);
 }
 
 // as plt_lstm_recurrence, plus the carried state before each step
@@ -2881,10 +2969,20 @@ extern "C" int plt_lstm_residual(const float* xp0, const float* xp1, const float
                                  void* hprev1, void* cprev0, void* cprev1, float* hfin0,
                                  float* hfin1, float* cfin0, float* cfin1, int T, int B,
                                  int U, float forget_bias, int cluster, int bt, int ksplit,
-                                 int route, long long* clocks, void* stream) {
+                                 int route, const int* cut, void* ws, long long* clocks, void* stream) {
   return fwd_entry<true>(xp0, xp1, mask, wh0, wh1, nd, rev_bits, wh_bf16, out0, out1,
                          hprev0, hprev1, cprev0, cprev1, hfin0, hfin1, cfin0, cfin1, T,
-                         B, U, forget_bias, fwd_plan(cluster, bt, ksplit, route), clocks, stream);
+                         B, U, forget_bias, fwd_plan(cluster, bt, ksplit, route), route, cut, ws, clocks,
+                         stream);
+}
+
+// what the card gives a cut of the grid layout for nd directions of U
+// units: info as launch_grid_fwd's (info[0] the blocks it holds at once)
+extern "C" int plt_lstm_grid_info(int U, int nd, int wh_bf16, const int* cut, int* info) {
+  const GridCut g = grid_cut(cut);
+  if (bad_grid(nd, g.row0 + g.nrows, U, g, wh_bf16 != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  FwdArgs a{};
+  return launch_grid_fwd(a, nullptr, 1, g.row0 + g.nrows, U, g, wh_bf16 != 0, 0.0f, nullptr, nullptr, nullptr, info);
 }
 
 // what the card gives a plan of the forward kernel: info[0] = clusters it
@@ -2894,7 +2992,7 @@ extern "C" int plt_lstm_residual(const float* xp0, const float* xp1, const float
 extern "C" int plt_lstm_fwd_info(int U, int wh_bf16, int save_res, int cluster, int bt,
                                  int ksplit, int route, int* info) {
   const FwdPlan p = fwd_plan(cluster, bt, ksplit, route);
-  if (bad_plan(U, p, wh_bf16 != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (route < 0 || route > 1 || bad_plan(U, p, wh_bf16 != 0)) return static_cast<int>(cudaErrorInvalidValue);
   if (wh_bf16)
     return save_res ? info_fwd<__nv_bfloat16, true>(U, p, info)
                     : info_fwd<__nv_bfloat16, false>(U, p, info);

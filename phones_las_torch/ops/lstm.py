@@ -23,32 +23,35 @@ CPU tensors:
   also saves the carried state before each step, and ``recurrence_bwd``
   backward.
 
-The forward kernel is one template launched as thread-block clusters: a
-cluster of C blocks runs one direction for a tile of Bt batch rows over
-all T steps, block c owning units ``[c·U/C, (c+1)·U/C)`` with their four
-gate columns and holding that slice of ``wh`` in shared memory for the
-whole time loop where it fits (U up to 256 in float32, 384 in bf16), else
-streaming it from L2 at every step (up to U = ``MAX_UNITS`` = 2048): in
-float32 up to U = 512 by the threads' own loads, past it through a ring of
-bulk copies that a producer warp keeps filled (``lstm_fwd_ring_kernel``,
-clusters of up to 16 blocks); in bf16 past ``RING_UNITS_BF16`` through the
-same ring on the tensor cores (``lstm_fwd_ring_bf16_kernel``, the slice in
-``ring_fragments``' order); each step the
-blocks exchange their h slices through distributed shared memory
-(``st.async`` onto transaction barriers). The VJP's serial loop is the
-same design run backwards in time: block c multiplies the gate gradients
-of its own units by its slice of ``whᵀ`` (resident, or streamed by the
-same two routes) into a partial dh of every unit, the blocks send each
-other the parts they own and add them in rank order (so repeated runs are
-bitwise equal). What of this is layout and choice lives here, where the
-CPU tests reach it: ``regroup_wh``/``ungroup_wh`` (``wh`` by unit slice),
-``forward_plan`` and ``backward_plan`` (the route, C, Bt, the k split, the
-shared-memory bytes and the width the kernel runs at, from the shape, pure
-functions; the ring's C and Bt from a step's cost, ``_ring_step_cycles``). Every U from 1 to ``MAX_UNITS`` runs on the card: a U that is
-no multiple of 8, or that no cut fits, runs at a wider U with zero
-padding (``ops/padding.py``: exact), the results sliced back;
-``tests/test_torch_cluster_layout.py`` and
-``tests/test_torch_lstm_bwd_layout.py`` emulate the two decompositions in
+The forward kernel, up to the widths whose slices a cluster holds (U up to
+256 in float32, 384 in bf16), is one template launched as thread-block
+clusters: a cluster of C blocks runs one direction for a tile of Bt batch
+rows over all T steps, block c owning units ``[c·U/C, (c+1)·U/C)`` with
+their four gate columns and holding that slice of ``wh`` in shared memory
+for the whole time loop; each step the blocks exchange their h slices
+through distributed shared memory (``st.async`` onto transaction
+barriers). Past those widths, up to U = ``MAX_UNITS`` = 2048, the grid
+layout (``lstm_grid_kernel``, ``lstm_grid_bf16_kernel``; ``grid_plan``):
+one cooperative launch of one block an SM, each block a run of units of
+one direction with its slice of ``wh`` in shared memory as far as it fits,
+h through global memory behind one grid barrier a step, taken in by bulk
+copies that overlap the product; a batch past the rows one launch holds
+runs in passes of rows. The VJP's serial loop is the template's design run
+backwards in time: block c multiplies the gate gradients of its own units
+by its slice of ``whᵀ`` (resident, streamed by the threads' loads, or past
+``RING_UNITS`` through a ring of bulk copies) into a partial dh of every
+unit, the blocks send each other the parts they own and add them in rank
+order (so repeated runs are bitwise equal). What of this is layout and
+choice lives here, where the CPU tests reach it: ``regroup_wh``/``ungroup_wh``
+and ``grid_wh``/``ungrid_wh`` (``wh`` by unit slice), ``forward_plan``,
+``grid_plan`` and ``backward_plan`` (the route, the cut, the shared-memory
+bytes and the width the kernel runs at, from the shape, pure functions;
+the grid's and the ring's cuts from a step's cost, ``_grid_step_cycles``
+and ``_ring_step_cycles``). Every U from 1 to ``MAX_UNITS`` runs on the
+card: a U that is no multiple of 8, or that no cut fits, runs at a wider U
+with zero padding (``ops/padding.py``: exact), the results sliced back;
+``tests/test_torch_cluster_layout.py``, ``tests/test_torch_lstm_grid.py``
+and ``tests/test_torch_lstm_bwd_layout.py`` emulate the decompositions in
 plain PyTorch on them.
 
 Recurrent-dot precision is an explicit argument ``prec`` (the reference
@@ -201,12 +204,19 @@ def _recurrence_loop(xp_tm, mask_tm, wh, forget_bias, reverse, prec, save_res):
 
 
 def _count(fn, prec: str, plan) -> None:
-    """One launch of a wrapper's kernel, counted on the wrapper: in all, in
-    bf16 mode, through the float32 ring and through the bf16 ring."""
+    """One call of a wrapper's kernel, counted on the wrapper: in all and in
+    bf16 mode; the VJP's through its float32 and bf16 rings; the forward's
+    through the grid layout (a launch a pass of rows), in all and in bf16
+    mode."""
     fn.launches += 1
     fn.bf16_launches += prec == "bf16"
-    fn.ring_launches += plan.ring and prec != "bf16"
-    fn.bf16_ring_launches += plan.ring and prec == "bf16"
+    if getattr(plan, "ring", False):
+        fn.ring_launches += prec != "bf16"
+        fn.bf16_ring_launches += prec == "bf16"
+    grid = getattr(plan, "grid", None)
+    if grid is not None:
+        fn.grid_launches += grid.passes
+        fn.bf16_grid_launches += grid.passes * (prec == "bf16")
 
 
 def recurrence_plain(
@@ -283,8 +293,8 @@ def recurrence(
 
 recurrence.launches = 0
 recurrence.bf16_launches = 0
-recurrence.ring_launches = 0
-recurrence.bf16_ring_launches = 0
+recurrence.grid_launches = 0
+recurrence.bf16_grid_launches = 0
 
 
 def recurrence_residual_plain(xps, mask_tm, whs, forget_bias, reverse, prec="highest"):
@@ -326,8 +336,8 @@ def recurrence_residual(
 
 recurrence_residual.launches = 0
 recurrence_residual.bf16_launches = 0
-recurrence_residual.ring_launches = 0
-recurrence_residual.bf16_ring_launches = 0
+recurrence_residual.grid_launches = 0
+recurrence_residual.bf16_grid_launches = 0
 
 
 # the forward kernel's constants, as csrc/lstm.cu has them
@@ -344,18 +354,20 @@ XP_RING = 3  # xp tiles a block keeps in flight
 # it pass the 32 its kernels are built for (tests/test_torch_wide_kernels.py
 # derives it)
 MAX_UNITS = 2048
-# the ring: a streamed slice of wh through bulk copies, csrc/lstm.cu's
-# lstm_fwd_ring_kernel / lstm_bwd_ring_kernel and, in bf16 on the tensor
-# cores, lstm_fwd_ring_bf16_kernel / lstm_bwd_ring_bf16_kernel
+# the forward past RESIDENT_UNITS (bf16: RING_UNITS_BF16) takes the grid
+# layout (grid_plan); the VJP's loop streams its slice of whᵀ through the
+# ring, a streamed slice through bulk copies (csrc/lstm.cu's
+# lstm_bwd_ring_kernel and, in bf16 on the tensor cores,
+# lstm_bwd_ring_bf16_kernel)
 RESIDENT_UNITS = 256  # the widest float32 U whose slices a cluster holds in shared memory
-# float32 past this U takes the ring; up to it the template streams its
-# slice by the threads' loads (on the H100 the template measured faster at
-# U = 512, the ring at 1024: PERF.md)
+# the VJP in float32 past this U takes the ring; up to it the template
+# streams its slice by the threads' loads (on the H100 the template measured
+# faster at U = 512, the ring at 1024: PERF.md)
 RING_UNITS = 512
-# bf16 past this U takes the ring; up to it the template holds its slice
-# (U <= 384); past the template's last layout (U ≈ 1280) the ring is the
-# only route (on the H100 the ring measured faster than the template's
-# streamed slice at U = 448, 512 and 1024: PERF.md)
+# bf16 past this U: the forward's grid layout, the VJP's ring; up to it the
+# template holds its slice (U <= 384; on the H100 the rings, then the grid
+# layout, measured faster than the template's streamed slice at U = 448,
+# 512 and 1024: PERF.md)
 RING_UNITS_BF16 = 384
 RING_CLUSTER_SIZES = (16, 8, 4, 2)  # 16 (non-portable) where the grid runs in one wave, or nothing else fits
 RING_ROW_TILES = (8, 16, 24)  # a consumer thread takes every row of the tile
@@ -369,6 +381,7 @@ FMA_PER_CYCLE = 128  # float32 FMA lanes of an SM
 MMA_FMA_PER_CYCLE = 1024  # bf16 multiply-adds an SM's tensor cores run a cycle through mma.sync (about half the peak)
 L2_BYTES_PER_CYCLE = 2800  # the card's L2 read rate, ≈ 5.5 TB/s
 SM_BYTES_PER_CYCLE = 22  # what one SM of a cluster of 16 takes in from L2
+SMEM_BYTES_PER_CYCLE = 128  # an SM's shared-memory bandwidth
 
 
 class ForwardPlan(NamedTuple):
@@ -380,7 +393,7 @@ class ForwardPlan(NamedTuple):
     resident: bool  # the block's wh slice lies in shared memory (else it streams from L2)
     smem: int  # dynamic shared memory bytes of a block
     units: int  # the U the kernel runs at: the layer's, or wider with zero padding
-    ring: bool = False  # float32: the slice streams through the ring of bulk copies
+    grid: Optional["GridPlan"] = None  # the grid layout's cut (then cluster is 1, bt its rows, ksplit its parts)
 
 
 def kernel_units(u: int, c: int) -> int:
@@ -421,55 +434,41 @@ def ungroup_wh(wg: torch.Tensor) -> torch.Tensor:
     return wg.reshape(c, u, 4, nc // 4).permute(1, 2, 0, 3).reshape(u, 4 * u).contiguous()
 
 
-def _kernel_wh(wh: torch.Tensor, c: int, prec: str, plan: Optional["ForwardPlan"] = None) -> torch.Tensor:
-    """``wh`` as the forward kernel reads it: float32 ``[C, U, 4·U/C]``, or
-    for the tensor cores bf16 ``[C, 4·U/C, K]`` with k contiguous and zero
-    padded to K = U rounded up to 16; for the bf16 ring (``plan``) that
-    slice in ``ring_fragments``' order."""
+def _kernel_wh(wh: torch.Tensor, c: int, prec: str) -> torch.Tensor:
+    """``wh`` as the forward template reads it: float32 ``[C, U, 4·U/C]``,
+    or for the tensor cores bf16 ``[C, 4·U/C, K]`` with k contiguous and
+    zero padded to K = U rounded up to 16."""
     wg = regroup_wh(wh.detach(), c)
     if prec != "bf16":
         return wg.to(torch.float32).contiguous()
     u = wg.shape[1]
-    wt = torch.nn.functional.pad(wg.to(torch.bfloat16).transpose(1, 2), (0, -u % 16))
-    if plan is not None and plan.ring:
-        return ring_fragments(wt, plan.ksplit, ring_slots(u, c, plan.bt, plan.ksplit, bf16=True)[0])
-    return wt.contiguous()
+    return torch.nn.functional.pad(wg.to(torch.bfloat16).transpose(1, 2), (0, -u % 16)).contiguous()
 
 
-def ring_slots(u: int, c: int, bt: int, ksplit: int, bwd: bool = False, bf16: bool = False) -> Tuple[int, int]:
-    """The ring's shared memory, as ``fwd_ring_layout`` and
-    ``bwd_ring_layout`` of csrc/lstm.cu → (rows of a ring chunk, bytes in
-    all). Besides the ring, the forward holds one h buffer [Bt, U], one sum
-    of the k parts [Bt, Nc], one xp tile and the state (c, h); the VJP's
-    loop one buffer of received partials [Bt, U], dgates [Bt, Nc], the sum
-    of the k parts but the last [Bt, U] (ksplit > 1), one tile of factors
-    and the kept dh and dc. The ring has two slots for each of the ksplit
-    parts (a part takes whole chunks); a chunk holds the most rows of wh (U
-    of them, Nc floats each) or of whᵀ (Nc rows of U floats), a multiple of
-    4, that fit, at most ``RING_CHUNK_MAX`` bytes and the rows a part takes
-    in a pass; fewer than 4 rows do not fit.
+def ring_slots(u: int, c: int, bt: int, ksplit: int, bf16: bool = False) -> Tuple[int, int]:
+    """The VJP's ring's shared memory, as ``bwd_ring_layout`` of
+    csrc/lstm.cu → (rows of a ring chunk, bytes in all). Besides the ring,
+    the loop holds one buffer of received partials [Bt, U], dgates [Bt, Nc],
+    the sum of the k parts but the last [Bt, U] (ksplit > 1), one tile of
+    factors and the kept dh and dc. The ring has two slots for each of the
+    ksplit parts (a part takes whole chunks); a chunk holds the most rows of
+    whᵀ (Nc rows of U floats), a multiple of 4, that fit, at most
+    ``RING_CHUNK_MAX`` bytes and the rows a part takes in a pass; fewer than
+    4 rows do not fit.
 
-    ``bf16``: h (or dgates) is bf16 in 16-row tiles, rows padded by 8
-    values; the forward's [Bt, Nc] holds the product, the VJP keeps no k
-    parts; a "row" of a chunk is a k step of 16 of one piece (``ksplit``
-    pieces of the n-tiles: Nc / 8 forward, U / 8 rounded up to 2 the VJP's,
-    256 bytes a tile), two slots a piece where they fit, else one slot more
-    than pieces; fewer than 1 k step does not fit."""
+    ``bf16``: dgates is bf16 in 16-row tiles, rows padded by 8 values, and
+    the loop keeps no k parts; a "row" of a chunk is a k step of 16 of one
+    piece (``ksplit`` pieces of the n-tiles, U / 8 rounded up to 2, 256
+    bytes a tile), two slots a piece where they fit, else one slot more than
+    pieces; fewer than 1 k step does not fit."""
     us = u // c
     nc = 4 * us
     mt = -(-bt // 16)
-    if bwd:
-        dg = 16 * mt * (nc + 8) * 2 if bf16 else bt * nc * 4
-        used = bt * u * 4 + dg + (bt * u * 4 if ksplit > 1 and not bf16 else 0) + (bt * (nc + 3 * us) + bt) * 4
-        row_bytes, k = u * 4, nc
-    else:
-        h = 16 * mt * (-(-u // 16) * 16 + 8) * 2 if bf16 else bt * u * 4
-        used = h + bt * nc * 4 + (bt * nc + bt) * 4
-        row_bytes, k = nc * 4, u
+    dg = 16 * mt * (nc + 8) * 2 if bf16 else bt * nc * 4
+    used = bt * u * 4 + dg + (bt * u * 4 if ksplit > 1 and not bf16 else 0) + (bt * (nc + 3 * us) + bt) * 4
     used += 2 * bt * us * 4
     if bf16:
-        nt = (-(-u // 16) * 16 if bwd else nc) // 8
-        kstep, k16 = nt // ksplit * 256, (nc if bwd else -(-u // 16) * 16) // 16
+        kstep, k16 = -(-u // 16) * 16 // 8 // ksplit * 256, nc // 16
         for ns in (2 * ksplit, ksplit + 1):
             per = min(RING_CHUNK_MAX, max(0, RING_SMEM_MAX - used) // ns)
             kc = min(per // kstep, k16)
@@ -478,8 +477,8 @@ def ring_slots(u: int, c: int, bt: int, ksplit: int, bwd: bool = False, bf16: bo
         return kc, used + ns * kc * kstep
     ns = 2 * ksplit
     per = min(RING_CHUNK_MAX, max(0, RING_SMEM_MAX - used) // ns)
-    kc = min(per // row_bytes // 4 * 4, (-(-k // ksplit) + 3) // 4 * 4)
-    return kc, used + ns * kc * row_bytes
+    kc = min(per // (u * 4) // 4 * 4, (-(-nc // ksplit) + 3) // 4 * 4)
+    return kc, used + ns * kc * u * 4
 
 
 def _ring_ksplit(cols: int) -> int:
@@ -496,13 +495,13 @@ def ring_cw4(u: int) -> int:
     return -(-u // 1024)
 
 
-def bf16_ring_ntw(nt: int, mt: int, bwd: bool) -> int:
-    """The bf16 ring's bound on a consumer warp's n-tiles (csrc/lstm.cu::
-    bf16_ring_ntw): ``nt`` / 8 rounded up to a built instance, 2, 4, 8 or
-    16 forward, 8, 16 or 32 the VJP with one 16-row tile (``mt``); 2, 4 or
-    8 forward, 8 the VJP with two; 0 where none is built."""
-    need, ntw = -(-nt // 8), 8 if bwd else 2
-    while ntw <= (8 if mt == 2 else 32 if bwd else 16):
+def bf16_ring_ntw(nt: int, mt: int) -> int:
+    """The VJP's bf16 ring's bound on a consumer warp's n-tiles
+    (csrc/lstm.cu::bf16_ring_ntw): ``nt`` / 8 rounded up to a built
+    instance, 8, 16 or 32 with one 16-row tile (``mt``), 8 with two; 0 where
+    none is built."""
+    need, ntw = -(-nt // 8), 8
+    while ntw <= (8 if mt == 2 else 32):
         if need <= ntw:
             return ntw
         ntw *= 2
@@ -524,15 +523,14 @@ def ring_fragments(w: torch.Tensor, ksplit: int, kc: int) -> torch.Tensor:
     return torch.cat(groups, 1).contiguous()
 
 
-def forward_smem_bytes(u: int, c: int, bt: int, ksplit: int, resident: bool, bf16: bool, ring: bool = False) -> int:
-    """A block's dynamic shared memory, as ``fwd_layout`` of csrc/lstm.cu
-    lays it out: the wh slice (when resident), two h buffers, the partial
-    sums, three xp tiles (gates and mask) and the state (c, h, out); the
-    ring's layout is ``ring_slots``'."""
+def forward_smem_bytes(u: int, c: int, bt: int, ksplit: int, resident: bool, bf16: bool) -> int:
+    """A block's dynamic shared memory in the forward template, as
+    ``fwd_layout`` of csrc/lstm.cu lays it out: the wh slice (when
+    resident), two h buffers, the partial sums, three xp tiles (gates and
+    mask) and the state (c, h, out); the grid layout's is
+    ``grid_smem_bytes``'."""
     us = u // c
     nc = 4 * us
-    if ring:
-        return ring_slots(u, c, bt, ksplit, bf16=bf16)[1]
     kp = -(-u // 16) * 16
     if bf16:
         w = nc * (kp + 8) * 2
@@ -569,44 +567,42 @@ def _ring_step_cycles(u: int, c: int, bt: int, ksplit: int, cols: int, clusters:
     return -(-clusters // active) * max(fma, l2)
 
 
-def _ring_fits(up: int, c: int, bt: int, bwd: bool, bf16: bool) -> Optional[Tuple[int, int, int]]:
+def _ring_fits(up: int, c: int, bt: int, bf16: bool) -> Optional[Tuple[int, int, int]]:
     """(k parts or pieces, column groups a part, shared memory) of the
-    ring at a kernel U, C and Bt, or None where its kernels take no such
-    plan (csrc/lstm.cu's bad_plan / bad_bwd_plan). float32: a thread's 4
-    columns (the VJP's: ``ring_cw4`` groups of 4, Bt·cw4 ≤ 24); bf16: the
-    fewest pieces of the n-tiles whose chunks fit."""
+    VJP's ring at a kernel U, C and Bt, or None where its kernels take no
+    such plan (csrc/lstm.cu's bad_bwd_plan). float32: a thread's
+    ``ring_cw4`` groups of 4 units, Bt·cw4 ≤ 24; bf16: the fewest pieces of
+    the n-tiles whose chunks fit."""
     if bf16:
-        nt = (round_up(up, 16) if bwd else 4 * up // c) // 8
-        if not bf16_ring_ntw(nt, -(-bt // 16), bwd):
+        nt = round_up(up, 16) // 8
+        if not bf16_ring_ntw(nt, -(-bt // 16)):
             return None
         for ks in (1, 2, 4, 8):
             if nt % ks == 0:
-                kc, smem = ring_slots(up, c, bt, ks, bwd, True)
+                kc, smem = ring_slots(up, c, bt, ks, True)
                 if kc >= 1 and smem <= RING_SMEM_MAX:
                     return ks, 0, smem
         return None
-    cw4 = ring_cw4(up) if bwd else 1
+    cw4 = ring_cw4(up)
     if cw4 > 2 or bt * cw4 > 24:
         return None
-    cols = up // (4 * cw4) if bwd else up // c
+    cols = up // (4 * cw4)
     ks = _ring_ksplit(cols)
     if not ks:
         return None
-    kc, smem = ring_slots(up, c, bt, ks, bwd)
+    kc, smem = ring_slots(up, c, bt, ks)
     return (ks, cols, smem) if kc >= 4 else None
 
 
-def _ring_plan(u: int, b: int, nd: int, bwd: bool, max_active, bf16: bool = False):
-    """The ring's cheapest plan by ``_ring_step_cycles``
-    over C in ``RING_CLUSTER_SIZES`` (U zero padded to slices of a multiple
-    of 8 units where C does not cut it so) and Bt in ``RING_ROW_TILES``, or
-    None. Clusters of 16 only where ``max_active(plan)`` says the grid runs
-    in one wave; without it none, and the clusters of 8 or fewer count as
-    one wave. Where nothing else fits (U past 1024), clusters of 16 in any
-    number of waves. A thread takes 4 of the product's columns: a block's
-    4·U/C gate columns forward, the U units of the partial dh backward
-    (``ring_cw4`` groups of 4 past U = 1024); bf16 warps take n-tiles."""
-    make = BackwardPlan if bwd else ForwardPlan
+def _ring_plan(u: int, b: int, nd: int, max_active, bf16: bool = False) -> Optional["BackwardPlan"]:
+    """The VJP's ring's cheapest plan by ``_ring_step_cycles`` over C in
+    ``RING_CLUSTER_SIZES`` (U zero padded to slices of a multiple of 8 units
+    where C does not cut it so) and Bt in ``RING_ROW_TILES``, or None.
+    Clusters of 16 only where ``max_active(plan)`` says the grid runs in one
+    wave; without it none, and the clusters of 8 or fewer count as one wave.
+    Where nothing else fits (U past 1024), clusters of 16 in any number of
+    waves. A thread takes 4 of the U units of the partial dh (``ring_cw4``
+    groups of 4 past U = 1024); bf16 warps take n-tiles."""
     for any_waves in (False, True):
         best, best_cost = None, None
         for c in RING_CLUSTER_SIZES:
@@ -614,11 +610,11 @@ def _ring_plan(u: int, b: int, nd: int, bwd: bool, max_active, bf16: bool = Fals
                 continue
             up = kernel_units(u, c)
             for bt in RING_ROW_TILES:
-                fit = _ring_fits(up, c, bt, bwd, bf16)
+                fit = _ring_fits(up, c, bt, bf16)
                 if fit is None:
                     continue
                 ks, cols, smem = fit
-                plan = make(c, bt, ks, False, smem, up, True)
+                plan = BackwardPlan(c, bt, ks, False, smem, up, True)
                 clusters = -(-b // bt) * nd
                 if max_active is None:
                     if c > 8 and not any_waves:
@@ -649,42 +645,234 @@ def _choose_tile(fits, b: int, nd: int, max_active):
     return fits[0] if b <= fits[0].bt else fits[-1]
 
 
+# the grid layout (csrc/lstm.cu's lstm_grid_kernel / lstm_grid_bf16_kernel):
+# one cooperative launch of one block an SM, each block a run of units with
+# its slice of wh in shared memory as far as it fits, h through global memory
+# and one grid barrier a step
+GRID_SMS = 132  # the H100 SXM's SMs: the blocks a launch may have where no card is asked
+GRID_SLOTS_MAX = 16
+GRID_WS_HEAD = 128  # workspace bytes before the h buffers: the barrier's counter
+GRID_SMEM_MAX = SMEM_MAX - 1024  # a grid kernel's dynamic shared memory: its barriers are static
+GRID_KS = (1, 2, 4, 8)  # k parts
+GRID_TILES = {False: (4, 8), True: (1, 2, 4)}  # float32: rows a thread (16 spilled on the H100); bf16: 16-row tiles
+GRID_CHUNKS = (16, 32, 64, 128)  # k rows of a chunk
+GRID_SLOTS_A_PART = (2, 3, 4)  # ring slots a k part
+GRID_BARRIER_CYCLES = 3000  # a grid barrier and the latency of a step's first chunk, in SM cycles
+GRID_COPY_CYCLES = 2000  # a bulk copy's latency from L2: the ring's bytes in flight over it bound the intake
+
+
+class GridPlan(NamedTuple):
+    """How the grid layout cuts a forward launch (csrc/lstm.cu's GridCut
+    without the pass's rows)."""
+
+    blocks: int  # blocks of a launch: nd · units / us, at most one an SM
+    us: int  # units a block (a multiple of 8)
+    rows: int  # batch rows a launch holds (a pass)
+    tile: int  # float32: rows a thread; bf16: 16-row tiles
+    ks: int  # k parts: chunk i belongs to part i mod ks
+    kc: int  # k rows of a chunk
+    kp: int  # the k range padded to a multiple of kc · ks
+    nres: int  # chunks of a block's wh slice held in shared memory (the rest stream each step)
+    ns: int  # ring slots
+    passes: int  # launches of rows the batch takes
+
+    @property
+    def resident_share(self) -> float:
+        """The share of a block's wh slice held in shared memory."""
+        return self.nres * self.kc / self.kp
+
+
+def grid_units(u: int, nd: int, sms: int = GRID_SMS) -> Tuple[int, int]:
+    """The grid layout's cut of ``u`` units a direction over at most ``sms``
+    blocks → (units a block, the kernel U): the fewest units a block, a
+    multiple of 8, whose ``nd · ceil(u / us)`` blocks the card holds; the
+    kernel U is ``u`` rounded up to them (zero padding)."""
+    us = 8
+    while nd * -(-u // us) > sms:
+        us += 8
+    return us, round_up(u, us)
+
+
+def grid_bf16_ntw(nt: int, ks: int, mt: int) -> int:
+    """The bf16 grid kernel's bound on a warp's n-tiles (csrc/lstm.cu::
+    grid_bf16_ntw): ``nt`` over the 8 / ``ks`` warps of a part, rounded up to
+    2, 4 or 8, with ``mt`` · it ≤ 16; 0 where none is built."""
+    need = -(-nt // (FWD_THREADS // 32 // ks))
+    for ntw in (2, 4, 8):
+        if need <= ntw:
+            return ntw if mt * ntw <= 16 else 0
+    return 0
+
+
+def grid_chunk_bytes(us: int, rows: int, kc: int, bf16: bool) -> Tuple[int, int]:
+    """Bytes of a chunk of h (``rows`` rows) and of a chunk of a block's wh
+    slice, ``kc`` k rows each, as the grid kernels stage them: float32 h
+    ``[rows][kc + 4]`` (a row padded by 16 bytes), wh ``[kc][4·us]``; bf16
+    both in the tensor cores' fragment order, 512 bytes a 16-row tile and k
+    step of h, 256 an n-tile and k step of wh."""
+    nc = 4 * us
+    if bf16:
+        return kc // 16 * rows // 16 * 512, kc // 16 * nc // 8 * 256
+    return rows * (kc + 4) * 4, kc * nc * 4
+
+
+def grid_smem_bytes(us: int, rows: int, kc: int, kp: int, nres: int, ns: int, bf16: bool) -> int:
+    """A block's dynamic shared memory in the grid layout, as
+    ``grid_layout`` of csrc/lstm.cu lays it out: the resident chunks of wh,
+    the ring's slots (a chunk of h, and of wh where some of it streams), the
+    product [rows, 4·us], the xp tile and mask, and the state (c, h)."""
+    hchunk, wchunk = grid_chunk_bytes(us, rows, kc, bf16)
+    nc = 4 * us
+    slot = hchunk + (wchunk if nres < kp // kc else 0)
+    return (nres * wchunk + ns * slot + rows * nc * 4 + (rows * nc + rows + 3) // 4 * 16
+            + 2 * rows * us * 4)
+
+
+def grid_ws_bytes(plan: "GridPlan", nd: int, bf16: bool) -> int:
+    """The grid launch's workspace: the barrier's counter, then two h
+    buffers of every chunk of each direction."""
+    return GRID_WS_HEAD + 2 * nd * (plan.kp // plan.kc) * grid_chunk_bytes(plan.us, plan.rows, plan.kc, bf16)[0]
+
+
+def _grid_step_cycles(p: GridPlan, bf16: bool) -> float:
+    """A step of the grid layout in SM cycles, the cost its plan is chosen
+    by: the product (float32 FMAs on the busy threads, each k step of 4 also
+    issuing a thread's 4 + TR shared loads; or the tensor cores'
+    multiply-adds, or the shared-memory reads of their fragments where
+    those take longer: every warp of a part reads all of its chunks' h
+    fragments, and its NTW fragments of wh a k step) against the bytes a block takes in from L2 (its h and the
+    chunks of wh that stream) at one SM's rate, at what the ring keeps in
+    flight over a copy's latency, and at the card's rate; plus the grid
+    barrier, the parts' sum and the cell update."""
+    nc, nch = 4 * p.us, p.kp // p.kc
+    if bf16:
+        k16, wp = p.kp // 16, FWD_THREADS // 32 // p.ks
+        frags = wp * p.tile * k16 * 512 + p.ks * wp * grid_bf16_ntw(nc // 8, p.ks, p.tile) * (k16 // p.ks) * 256
+        product = max(p.tile * (nc // 8) * k16 * 2048 / MMA_FMA_PER_CYCLE, frags / SMEM_BYTES_PER_CYCLE)
+    else:
+        busy = p.ks * (FWD_THREADS // p.ks // p.us) * p.us / FWD_THREADS
+        issue = 16 * p.tile / (17 * p.tile + 4)
+        product = p.rows * p.kp * nc / (FMA_PER_CYCLE * busy * issue)
+    hchunk, wchunk = grid_chunk_bytes(p.us, p.rows, p.kc, bf16)
+    slot = hchunk + (wchunk if p.nres < nch else 0)
+    intake = nch * hchunk + (nch - p.nres) * wchunk
+    rate = min(SM_BYTES_PER_CYCLE, p.ns * slot / GRID_COPY_CYCLES, L2_BYTES_PER_CYCLE / p.blocks)
+    rest = GRID_BARRIER_CYCLES + p.ks * (p.rows * nc / FWD_THREADS + 100) + p.rows * p.us / 2 / FWD_THREADS * 200
+    return max(product, intake / rate) + rest
+
+
+def grid_plan(b: int, u: int, nd: int, prec: str = "highest", sms: int = GRID_SMS) -> GridPlan:
+    """The grid layout's plan for a shape — a pure function: the cut of the
+    units (``grid_units``), then of every layout its kernels take (k parts,
+    a thread's rows or the row tiles, the chunk's k rows) the one whose
+    passes of rows cost the fewest cycles (``_grid_step_cycles``), each
+    holding as many chunks of wh as fit beside two ring slots a part (the
+    rest stream). Raises ``ValueError`` where no layout fits."""
+    _check_prec(prec)
+    bf16 = prec == "bf16"
+    us, units = grid_units(u, nd, sms)
+    nc = 4 * us
+    best, best_cost = None, None
+    for ks in GRID_KS:
+        for tile in GRID_TILES[bf16]:
+            if bf16:
+                rows = 16 * tile
+                if not grid_bf16_ntw(nc // 8, ks, tile):
+                    continue
+            else:
+                nrt = FWD_THREADS // ks // us
+                if nrt < 1:
+                    continue
+                rows = nrt * tile
+            for kc, per in ((kc, per) for kc in GRID_CHUNKS for per in GRID_SLOTS_A_PART):
+                kp, ns = round_up(units, kc * ks), per * ks
+                nch = kp // kc
+                if ns > GRID_SLOTS_MAX or nch < ks:
+                    continue
+                wchunk = grid_chunk_bytes(us, rows, kc, bf16)[1]
+                nres = nch
+                if grid_smem_bytes(us, rows, kc, kp, nres, ns, bf16) > GRID_SMEM_MAX:
+                    nres = (GRID_SMEM_MAX - grid_smem_bytes(us, rows, kc, kp, 0, ns, bf16)) // wchunk
+                    if nres < 0:
+                        continue
+                plan = GridPlan(nd * units // us, us, rows, tile, ks, kc, kp, nres, ns, -(-b // rows))
+                cost = plan.passes * _grid_step_cycles(plan, bf16)
+                if best is None or cost < best_cost:
+                    best, best_cost = plan, cost
+    if best is None:
+        raise ValueError(f"no layout of the grid kernels fits U={u}")
+    return best
+
+
+def _grid_forward_plan(b: int, u: int, nd: int, prec: str, sms: int) -> ForwardPlan:
+    g = grid_plan(b, u, nd, prec, sms)
+    units = g.us * g.blocks // nd
+    smem = grid_smem_bytes(g.us, g.rows, g.kc, g.kp, g.nres, g.ns, prec == "bf16")
+    return ForwardPlan(1, g.rows, g.ks, g.nres == g.kp // g.kc, smem, units, g)
+
+
+def grid_wh(wh: torch.Tensor, plan: GridPlan, prec: str) -> torch.Tensor:
+    """``wh [U, 4U]`` as the grid kernels read it, block after block (the
+    runs of ``plan.us`` units), each block's columns its units' four gates
+    side by side ([unit][gate]) and its k range zero padded to ``plan.kp``:
+    float32 ``[blocks, kp, 4·us]``; bf16 in the tensor cores' B fragment
+    order (``ring_fragments``, one piece) → ``[blocks, kp·4·us]``."""
+    u = wh.shape[0]
+    us = plan.us
+    if wh.shape != (u, 4 * u) or u % us:
+        raise ValueError(f"grid_wh: wh must be [U, 4U] with U a multiple of {us}, got {tuple(wh.shape)}")
+    w = wh.detach().reshape(u, 4, u // us, us).permute(2, 0, 3, 1).reshape(u // us, u, 4 * us)
+    w = torch.nn.functional.pad(w, (0, 0, 0, plan.kp - u))
+    if prec != "bf16":
+        return w.to(torch.float32).contiguous()
+    wt = w.to(torch.bfloat16).transpose(1, 2)  # [blocks, 4·us, kp]: k contiguous
+    return ring_fragments(wt, 1, plan.kp // 16)
+
+
+def ungrid_wh(wg: torch.Tensor, u: int, plan: GridPlan) -> torch.Tensor:
+    """The inverse of ``grid_wh`` (float32 or bf16) → ``wh [u, 4u]``."""
+    us, kp = plan.us, plan.kp
+    n = u // us
+    if wg.dtype == torch.bfloat16:  # undo ring_fragments: [n, K16, NT, g, t, half, pair] → [n, 4·us, kp]
+        x = wg.reshape(n, kp // 16, 4 * us // 8, 8, 4, 2, 2).permute(0, 2, 3, 1, 5, 4, 6)
+        wg = x.reshape(n, 4 * us, kp).transpose(1, 2)
+    w = wg.reshape(n, kp, 4 * us)[:, :u]
+    return w.reshape(n, u, us, 4).permute(1, 3, 0, 2).reshape(u, 4 * u).contiguous()
+
+
 def forward_plan(
     b: int, u: int, nd: int, prec: str = "highest",
-    max_active: Optional[Callable[..., int]] = None, ring: Optional[bool] = None,
+    max_active: Optional[Callable[..., int]] = None, layout: Optional[str] = None, sms: int = GRID_SMS,
 ) -> ForwardPlan:
-    """The forward kernel's (C, Bt, k split, kernel U) for a shape — a pure
-    function. Takes every U that is a multiple of 8 from 8 to
-    ``MAX_UNITS`` (the wrappers pad any other U to the next multiple of 8).
+    """The forward kernel's plan for a shape — a pure function. Takes every
+    U that is a multiple of 8 from 8 to ``MAX_UNITS`` (the wrappers pad any
+    other U to the next multiple of 8).
 
-    C is the largest of ``CLUSTER_SIZES`` that divides U into slices of a
-    multiple of 8 units whose wh slice fits in shared memory beside the
-    rest; if none does, the largest such C whose layout fits with each
-    block streaming its slice of wh from L2 at every step (U past 256 in
-    float32: a block's slice is 2 MB at U = 1024, C = 8); if none does
-    either (a U of 8·k, k prime, past what one block holds), U is zero
-    padded to a multiple of 8·C for the largest C that fits
-    (``_plan_candidates``, ``ForwardPlan.units``). Bt is the smallest
-    tile (the shortest step) whose ``ceil(B/Bt)·nd`` clusters the card runs
-    at once, as ``max_active(C, Bt, ksplit, resident)`` says for the
-    plan's kernel U (on the card: ``cudaOccupancyMaxActiveClusters``);
-    without that knowledge, or if no tile fits in one wave, the largest
-    tile that fits in shared memory. Float32 past ``RING_UNITS`` and bf16
-    past ``RING_UNITS_BF16`` take the ring's cheapest plan instead
-    (``_ring_plan``; its ``max_active`` gets a fifth argument, True), as
-    does a U past the template's last layout; ``ring=True`` takes it past
-    ``RESIDENT_UNITS``, ``ring=False`` never (the two routes of a streamed
-    slice, for comparisons). Raises ``ValueError`` for a U outside that
-    range."""
+    Up to the resident widths (float32 ``RESIDENT_UNITS``, bf16
+    ``RING_UNITS_BF16``) the cluster template: C is the largest of
+    ``CLUSTER_SIZES`` that divides U into slices of a multiple of 8 units
+    whose wh slice fits in shared memory beside the rest; if none does, the
+    largest such C whose layout fits with each block streaming its slice of
+    wh from L2 at every step; if none does either (a U of 8·k, k prime, past
+    what one block holds), U is zero padded to a multiple of 8·C for the
+    largest C that fits (``_plan_candidates``, ``ForwardPlan.units``). Bt is
+    the smallest tile (the shortest step) whose ``ceil(B/Bt)·nd`` clusters
+    the card runs at once, as ``max_active(C, Bt, ksplit, resident)`` says
+    for the plan's kernel U (on the card: ``cudaOccupancyMaxActiveClusters``);
+    without that knowledge, or if no tile fits in one wave, the largest tile
+    that fits in shared memory. Past the resident widths the grid layout
+    (``grid_plan`` over ``sms`` SMs, ``ForwardPlan.grid``). ``layout``
+    forces a route, for comparisons: "template" the template at any U it
+    fits (a streamed slice past the resident widths), "grid" the grid
+    layout at any U. Raises ``ValueError`` for a U outside that range, or a
+    layout that does not fit."""
     _check_prec(prec)
     _check_units(u)
+    if layout not in (None, "template", "grid"):
+        raise ValueError(f"layout must be None, 'template' or 'grid', got {layout!r}")
     bf16 = prec == "bf16"
-    active = None if max_active is None else (
-        lambda p: max_active(p.cluster, p.bt, p.ksplit, p.resident, True))
-    if _ring_first(u, bf16, ring):
-        plan = _ring_plan(u, b, nd, False, active, bf16)
-        if plan is not None:
-            return plan
+    if layout == "grid" or (layout is None and u > (RING_UNITS_BF16 if bf16 else RESIDENT_UNITS)):
+        return _grid_forward_plan(b, u, nd, prec, sms)
     for c, resident, units in _plan_candidates(u):
         fits = []
         for bt in ROW_TILES:
@@ -695,14 +883,11 @@ def forward_plan(
         if fits:
             return _choose_tile(fits, b, nd, None if max_active is None else (
                 lambda p: max_active(p.cluster, p.bt, p.ksplit, p.resident)))
-    plan = None if ring is False else _ring_plan(u, b, nd, False, active, bf16)  # past the template's last layout
-    if plan is None:
-        raise ValueError(f"no plan of the forward kernel fits U={u} in shared memory")
-    return plan
+    raise ValueError(f"no plan of the forward template fits U={u} in shared memory")
 
 
 def _ring_first(u: int, bf16: bool, ring: Optional[bool]) -> bool:
-    """Whether a plan tries the ring before the template: past
+    """Whether a plan of the VJP's loop tries the ring before the template: past
     ``RING_UNITS`` (bf16: ``RING_UNITS_BF16``), or as ``ring`` forces it,
     and never for a slice a cluster holds (U ≤ ``RESIDENT_UNITS``)."""
     return (u > (RING_UNITS_BF16 if bf16 else RING_UNITS) if ring is None else ring) and u > RESIDENT_UNITS
@@ -710,33 +895,54 @@ def _ring_first(u: int, bf16: bool, ring: Optional[bool]) -> bool:
 
 def _route(plan) -> int:
     """The kernels' route argument: 0 streamed by the threads' loads, 1
-    resident, 2 the ring."""
-    return 2 if plan.ring else int(plan.resident)
+    resident, 2 the ring, 3 the grid layout."""
+    if getattr(plan, "grid", None) is not None:
+        return 3
+    return 2 if getattr(plan, "ring", False) else int(plan.resident)
 
 
 @functools.lru_cache(maxsize=None)
-def forward_kernel_info(u: int, bf16: bool, save_res: bool, c: int, bt: int, ksplit: int, resident: bool,
-                        ring: bool = False) -> dict:
-    """What the card gives one plan of the forward kernel (built at first
+def forward_kernel_info(u: int, bf16: bool, save_res: bool, c: int, bt: int, ksplit: int, resident: bool) -> dict:
+    """What the card gives one plan of the forward template (built at first
     use): the clusters it runs at once, its dynamic and static shared
-    memory bytes and its registers a thread."""
+    memory bytes and its registers a thread (the grid layout's:
+    ``grid_kernel_info``)."""
     from phones_las_torch.csrc import _build
 
     info = (ctypes.c_int * 4)()
-    err = _build.library().plt_lstm_fwd_info(u, int(bf16), int(save_res), c, bt, ksplit,
-                                              2 if ring else int(resident), info)
+    err = _build.library().plt_lstm_fwd_info(u, int(bf16), int(save_res), c, bt, ksplit, int(resident), info)
     _build.check(err, "plt_lstm_fwd_info")
     return {"max_active_clusters": info[0], "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3]}
 
 
+def _grid_cut(g: GridPlan, row0: int, nrows: int):
+    """csrc/lstm.cu's GridCut of a pass, as the C array its entries read."""
+    return (ctypes.c_int * 11)(g.blocks, g.us, g.rows, row0, nrows, g.tile, g.ks, g.kc, g.kp, g.nres, g.ns)
+
+
+@functools.lru_cache(maxsize=None)
+def grid_kernel_info(u: int, nd: int, bf16: bool, g: GridPlan) -> dict:
+    """What the card gives a plan of the grid layout at kernel U ``u``
+    (built at first use): the blocks it holds at once (the launch has
+    ``g.blocks``), the dynamic and static shared memory bytes and the
+    registers a thread; and the plan's resident share of wh and its passes."""
+    from phones_las_torch.csrc import _build
+
+    info = (ctypes.c_int * 4)()
+    err = _build.library().plt_lstm_grid_info(u, nd, int(bf16), _grid_cut(g, 0, g.rows), info)
+    _build.check(err, "plt_lstm_grid_info")
+    return {"max_active_blocks": info[0], "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3],
+            "blocks": g.blocks, "resident_share": g.resident_share, "passes": g.passes}
+
+
 def _launch_forward(entry, xps, mask_tm, whs, forget_bias, reverse, prec, plan: Optional[ForwardPlan] = None,
                     clocks: Optional[torch.Tensor] = None):
-    """One launch of the forward kernel. ``plan`` overrides ``forward_plan``
-    (measurements only); ``clocks``, an int64 CUDA tensor of 5, receives the
-    SM cycles one block spent in the product, the cell update, the output
-    stores, the wait for the peers' h and (the ring) the wait for chunks of
-    wh. Where the plan's kernel U is wider than the layer's, xp and wh are
-    zero padded to it and the results sliced back (``ops/padding.py``)."""
+    """One launch of the forward kernel (the grid layout: one a pass of
+    rows). ``plan`` overrides ``forward_plan`` (measurements only);
+    ``clocks``, an int64 CUDA tensor of 5, receives the SM cycles one block
+    spent in the parts of a step (``chip_smoke.py``'s ``FWD_CLOCKS``). Where
+    the plan's kernel U is wider than the layer's, xp and wh are zero padded
+    to it and the results sliced back (``ops/padding.py``)."""
     t, b, u = _check_recurrence_args(xps, mask_tm, whs, entry)
     from phones_las_torch.csrc import _build
 
@@ -744,33 +950,42 @@ def _launch_forward(entry, xps, mask_tm, whs, forget_bias, reverse, prec, plan: 
     bf16 = prec == "bf16"
     save = entry == "plt_lstm_residual"
     nd = len(xps)
+    dev = xps[0].device
     if plan is None:
         u8 = round_up(u, 8)
         plan = forward_plan(
             b, u8, nd, prec,
-            lambda c, bt, ks, res, ring=False: forward_kernel_info(
-                kernel_units(u8, c), bf16, save, c, bt, ks, res, ring)["max_active_clusters"],
+            lambda c, bt, ks, res: forward_kernel_info(
+                kernel_units(u8, c), bf16, save, c, bt, ks, res)["max_active_clusters"],
+            sms=torch.cuda.get_device_properties(dev).multi_processor_count,
         )
-    up = plan.units
+    up, grid = plan.units, plan.grid
     wdt = torch.bfloat16 if bf16 else torch.float32
     xps = [pad_gates(x, u, up).contiguous() for x in xps]
-    whs = [_kernel_wh(pad_lstm_wh(w.detach(), up), plan.cluster, prec, plan) for w in whs]
+    if grid is None:
+        whs = [_kernel_wh(pad_lstm_wh(w.detach(), up), plan.cluster, prec) for w in whs]
+    else:
+        whs = [grid_wh(pad_lstm_wh(w.detach(), up), grid, prec) for w in whs]
     mask = mask_tm.contiguous()
-    dev = xps[0].device
     outs = [torch.empty((t, b, up), dtype=torch.float32, device=dev) for _ in range(nd)]
     hprevs = [torch.empty((t, b, up), dtype=wdt, device=dev) for _ in range(nd)] if save else []
     cprevs = [torch.empty((t, b, up), dtype=wdt, device=dev) for _ in range(nd)] if save else []
     hs = [torch.empty((b, up), dtype=torch.float32, device=dev) for _ in range(nd)]
     cs = [torch.empty((b, up), dtype=torch.float32, device=dev) for _ in range(nd)]
-    err = getattr(lib, entry)(
-        *_ptrs(xps), mask.data_ptr(), *_ptrs(whs), nd, _rev_bits(reverse),
-        int(bf16), *_ptrs(outs), *_ptrs(hprevs), *_ptrs(cprevs),
-        *_ptrs(hs), *_ptrs(cs), t, b, up, float(forget_bias),
-        plan.cluster, plan.bt, plan.ksplit, _route(plan),
-        None if clocks is None else clocks.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, entry)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    passes = [(None, None)] if grid is None else [
+        (_grid_cut(grid, r0, min(grid.rows, b - r0)),
+         torch.zeros(grid_ws_bytes(grid, nd, bf16), dtype=torch.uint8, device=dev))
+        for r0 in range(0, b, grid.rows)]
+    for cut, ws in passes:
+        err = getattr(lib, entry)(
+            *_ptrs(xps), mask.data_ptr(), *_ptrs(whs), nd, _rev_bits(reverse),
+            int(bf16), *_ptrs(outs), *_ptrs(hprevs), *_ptrs(cprevs),
+            *_ptrs(hs), *_ptrs(cs), t, b, up, float(forget_bias),
+            plan.cluster, plan.bt, plan.ksplit, _route(plan), cut, None if ws is None else ws.data_ptr(),
+            None if clocks is None else clocks.data_ptr(), stream,
+        )
+        _build.check(err, entry)
     _launch_forward.last_plan = plan
     if up != u:
         cut = lambda ts: [x[..., :u].contiguous() for x in ts]
@@ -811,7 +1026,7 @@ def _kernel_wht(wh: torch.Tensor, c: int, prec: str, plan: Optional["BackwardPla
     u = wg.shape[1]
     wp = torch.nn.functional.pad(wg.to(torch.bfloat16), (0, 0, 0, -u % 16))
     if plan is not None and plan.ring:
-        return ring_fragments(wp, plan.ksplit, ring_slots(u, c, plan.bt, plan.ksplit, bwd=True, bf16=True)[0])
+        return ring_fragments(wp, plan.ksplit, ring_slots(u, c, plan.bt, plan.ksplit, bf16=True)[0])
     return wp.contiguous()
 
 
@@ -824,7 +1039,7 @@ def backward_smem_bytes(u: int, c: int, bt: int, ksplit: int, resident: bool, bf
     dout and two more factors a unit, then the mask) and the kept dh and
     dc; the ring's layout is ``ring_slots``'."""
     if ring:
-        return ring_slots(u, c, bt, ksplit, bwd=True, bf16=bf16)[1]
+        return ring_slots(u, c, bt, ksplit, bf16=bf16)[1]
     us = u // c
     nc = 4 * us
     up = -(-u // 16) * 16
@@ -877,7 +1092,7 @@ def backward_plan(
     _check_units(u)
     bf16 = prec == "bf16"
     if _ring_first(u, bf16, ring):
-        plan = _ring_plan(u, b, nd, True, max_active, bf16)
+        plan = _ring_plan(u, b, nd, max_active, bf16)
         if plan is not None:
             return plan
     for c, resident, units in _plan_candidates(u):
@@ -891,7 +1106,7 @@ def backward_plan(
                 fits.append(BackwardPlan(c, bt, ks, resident, smem, units))
         if fits:
             return _choose_tile(fits, b, nd, max_active)
-    plan = None if ring is False else _ring_plan(u, b, nd, True, max_active, bf16)  # past the template's last layout
+    plan = None if ring is False else _ring_plan(u, b, nd, max_active, bf16)  # past the template's last layout
     if plan is None:
         raise ValueError(f"no plan of the VJP's loop kernel fits U={u} in shared memory")
     return plan
@@ -1184,8 +1399,8 @@ def bidir_recurrence(
 
 bidir_recurrence.launches = 0
 bidir_recurrence.bf16_launches = 0
-bidir_recurrence.ring_launches = 0
-bidir_recurrence.bf16_ring_launches = 0
+bidir_recurrence.grid_launches = 0
+bidir_recurrence.bf16_grid_launches = 0
 
 
 def _project_tm(p: LSTMParams, x: torch.Tensor) -> torch.Tensor:

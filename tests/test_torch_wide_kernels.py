@@ -165,17 +165,21 @@ def _h100_active(c, *_):
     return 7 if c > 8 else 15
 
 
-# every forward and VJP plan of the float32 routes up to U = 1024 and of the
-# bf16 routes up to 384 (B = 8, 32, 64; one and two directions; with and
-# without the H100's occupancy), as the planners before the bf16 ring and the
-# widths past 1024 gave them: their digest
-PLANS_BEFORE = (2112, "c5c17d513283035f82856cb21f769b19a406f7632a06ed1423816c19fdff0013")
+# every VJP plan of the float32 routes up to U = 1024 and of the bf16 routes
+# up to 384, and every forward plan of those routes that the grid layout
+# leaves to the template (float32 up to 256, bf16 up to 384), at B = 8, 32,
+# 64, one and two directions, with and without the H100's occupancy, as the
+# planners before the bf16 ring, the widths past 1024 and the grid layout
+# gave them (a forward plan as its fields then: the cut, and no ring): their
+# digest
+PLANS_BEFORE = (2112, "08b452254165d07c6dab6473b88fb757c21e5e3766eea498c9b3cb6feb89f37d")
 
 
 def test_plans_below_the_new_routes_are_unchanged():
-    """The float32 plans at U <= 1024 and the bf16 plans at U <= 384 do not
-    move: the ring past 1024, the bf16 ring and clusters of 16 in several
-    waves change no plan there."""
+    """The VJP's plans at U <= 1024 (float32) and 384 (bf16), and the
+    forward plans the template keeps (float32 U <= 256, bf16 U <= 384), do
+    not move: the ring past 1024, the bf16 ring, clusters of 16 in several
+    waves and the grid layout change no plan there."""
     import hashlib
     import json
 
@@ -188,7 +192,9 @@ def test_plans_below_the_new_routes_are_unchanged():
                         f = L.forward_plan(b, u, nd, prec, active)
                         g = L.backward_plan(b, u, nd, prec, None if active is None else (lambda p: _h100_active(
                             p.cluster)))
-                        rows.append((prec, u, b, nd, active is None, tuple(f), tuple(g)))
+                        assert (f.grid is None) == (u <= (L.RESIDENT_UNITS if prec == "highest" else 384))
+                        rows.append((prec, u, b, nd, active is None, None if f.grid else tuple(f[:6]) + (False,),
+                                     tuple(g)))
     assert (len(rows), hashlib.sha256(json.dumps(rows).encode()).hexdigest()) == PLANS_BEFORE
 
 
@@ -205,13 +211,13 @@ def test_vjp_ring_plans_past_1024(prec):
             assert p.ring and not p.resident and p.units % (8 * p.cluster) == 0
             assert p.smem == L.backward_smem_bytes(p.units, p.cluster, p.bt, p.ksplit, False, prec == "bf16", True)
             assert p.smem <= L.RING_SMEM_MAX
-            kc = L.ring_slots(p.units, p.cluster, p.bt, p.ksplit, bwd=True, bf16=prec == "bf16")[0]
+            kc = L.ring_slots(p.units, p.cluster, p.bt, p.ksplit, bf16=prec == "bf16")[0]
             if prec == "highest":
                 cw4 = L.ring_cw4(p.units)
                 assert cw4 == 2 and p.units // (4 * cw4) * p.ksplit <= L.FWD_THREADS and p.bt * cw4 <= 24
                 assert kc >= 4
             else:
-                assert L.bf16_ring_ntw(-(-p.units // 16) * 2, -(-p.bt // 16), True) and kc >= 1
+                assert L.bf16_ring_ntw(-(-p.units // 16) * 2, -(-p.bt // 16)) and kc >= 1
     assert L.backward_plan(32, 2048, 2, prec).cluster == 16  # no cluster of 8 holds U = 2048's ring
 
 

@@ -1,9 +1,10 @@
 """The reference's width flags on the port's kernels, on the CPU.
 
 The listener kernels take every U that is a multiple of 8 up to
-``MAX_UNITS`` = 2048 (past 256 in float32 each block of a cluster streams
-its slice of wh from L2; float32 past 512 and bf16 past 384 through the
-ring of bulk copies),
+``MAX_UNITS`` = 2048 (the forward past 256 in float32 and 384 in bf16 on
+the grid layout; the VJP's loop past 256 in float32 streaming each block's
+slice of wh from L2, float32 past 512 and bf16 past 384 through the ring of
+bulk copies),
 the decoder kernel the LAS-4-1024 speller (U = A = 1024, M = 2048) in its
 streamed layout, and the wrappers pad any other width with zeros. Here:
 the plans over that whole range; the streamed cluster decomposition
@@ -43,6 +44,7 @@ from phones_las_torch.ops import padding as P
 from phones_las_torch.utils.param_io import params_from_numpy
 from tests.test_torch_cluster_layout import cluster_recurrence_emulated
 from tests.test_torch_lstm_bwd_layout import cluster_bwd_emulated
+from tests.test_torch_lstm_grid import grid_recurrence_emulated
 from tests.torch_threads import one_thread
 
 one_thread()
@@ -76,27 +78,46 @@ def test_plans_take_every_width_to_1024(which, prec):
     plan in both modes, at the serving and the training batch: its bytes
     are the layout's mirror and fit a block, its kernel U is U or (a prime
     number of 8-unit slices past what one block holds, or a cut of the ring
-    that U does not divide into slices of 8) a wider multiple of 8·C;
-    float32 past 512 and bf16 past ``RING_UNITS_BF16`` take the ring,
-    nothing else does; past ``MAX_UNITS``, and for a U that is no multiple
-    of 8, the plans raise."""
-    plan_fn = L.forward_plan if which == "forward" else L.backward_plan
-    smem_fn = L.forward_smem_bytes if which == "forward" else L.backward_smem_bytes
+    or of the grid layout that U does not divide) a wider multiple of 8·C
+    (the grid layout's: of its units a block); the forward takes the grid
+    layout past float32 ``RESIDENT_UNITS`` and bf16 ``RING_UNITS_BF16``, the
+    VJP's loop the ring past float32 ``RING_UNITS`` and bf16
+    ``RING_UNITS_BF16``, nothing else does; past ``MAX_UNITS``, and for a U
+    that is no multiple of 8, the plans raise."""
+    fwd = which == "forward"
+    plan_fn = L.forward_plan if fwd else L.backward_plan
+    bf16 = prec == "bf16"
     streamed = 0
     for u in range(8, L.MAX_UNITS + 1, 8):
         for b in (32, 64):
             p = plan_fn(b, u, 2, prec)
-            assert p.smem == smem_fn(p.units, p.cluster, p.bt, p.ksplit, p.resident, prec == "bf16", ring=p.ring)
+            if fwd and p.grid is not None:
+                g = p.grid
+                assert p.smem == L.grid_smem_bytes(g.us, g.rows, g.kc, g.kp, g.nres, g.ns, bf16) <= L.GRID_SMEM_MAX
+                assert p.units >= u and p.units % g.us == 0 and (p.units == u or u % g.us)
+            elif fwd:
+                assert p.smem == L.forward_smem_bytes(p.units, p.cluster, p.bt, p.ksplit, p.resident, bf16)
+            else:
+                assert p.smem == L.backward_smem_bytes(p.units, p.cluster, p.bt, p.ksplit, p.resident, bf16,
+                                                       ring=p.ring)
             assert p.smem <= L.SMEM_MAX
-            assert p.units >= u and p.units % (8 * p.cluster) == 0
-            assert p.units == u or u % (8 * p.cluster)  # padded only where the plan's cut does not divide U
-            assert p.ring == (u > (L.RING_UNITS if prec == "highest" else L.RING_UNITS_BF16))
+            if not fwd or p.grid is None:
+                assert p.units >= u and p.units % (8 * p.cluster) == 0
+                assert p.units == u or u % (8 * p.cluster)  # padded only where the plan's cut does not divide U
+            if fwd:
+                assert (p.grid is not None) == (u > (L.RESIDENT_UNITS if prec == "highest" else L.RING_UNITS_BF16))
+            else:
+                assert p.ring == (u > (L.RING_UNITS if prec == "highest" else L.RING_UNITS_BF16))
             streamed += not p.resident
     assert streamed > 0
-    # the flagship widths keep their plans; the widest is cut 8 ways and streams
+    # the flagship widths keep their plans; the widest VJP is cut 8 ways and
+    # streams, the widest forward runs on the grid layout
     assert plan_fn(32, 256, 2, prec).resident and plan_fn(32, 256, 2, prec).cluster == 8
     wide = plan_fn(64, 1024, 2, prec)
-    assert (wide.cluster, wide.resident, wide.units) == (8, False, 1024)
+    if fwd:
+        assert wide.grid is not None and wide.units == 1024
+    else:
+        assert (wide.cluster, wide.resident, wide.units) == (8, False, 1024)
     for u in (L.MAX_UNITS + 8, 2 * L.MAX_UNITS, 100, 0):
         with pytest.raises(ValueError):
             plan_fn(8, u, 1, prec)
@@ -105,14 +126,15 @@ def test_plans_take_every_width_to_1024(which, prec):
 @pytest.mark.parametrize("u,want", [(264, (1, False, 264)), (320, (8, False, 320)), (512, (8, False, 512)),
                                     (360, (8, False, 384)), (1016, (8, False, 1024))])
 def test_forward_plan_streams_or_pads(u, want):
-    """Float32 past U = 256: the largest cut of U itself with a streamed
+    """Float32 past U = 256 the template, where a comparison asks for it
+    (``layout="template"``): the largest cut of U itself with a streamed
     slice (U = 264 is 33 slices of 8: one block), and where no cut fits
     (360 = 45 · 8 and 1016 = 127 · 8 past what one block holds), the next
-    multiple of 64 cut 8 ways; past 512 through the ring (with nothing
-    known of the card, clusters of 8 at most)."""
-    p = L.forward_plan(64, u, 2, "highest")
-    assert (p.cluster, p.resident, p.units) == want
-    assert p.ring == (u > L.RING_UNITS)
+    multiple of 64 cut 8 ways; left to itself the plan takes the grid
+    layout there."""
+    p = L.forward_plan(64, u, 2, "highest", layout="template")
+    assert (p.cluster, p.resident, p.units) == want and p.grid is None
+    assert L.forward_plan(64, u, 2, "highest").grid is not None
 
 
 # what cudaOccupancyMaxActiveClusters gives every plan of the listener
@@ -126,60 +148,55 @@ def _h100_bwd_active(plan):
     return _h100_active(plan.cluster)
 
 
-# the float32 plans of the W1024 and LAS-paper widths on the H100's
-# occupancy, forward and VJP: (C, Bt, k parts, ring); at U = 512 the
-# template's, past it the ring's
+# the float32 plans of the VJP's loop at the W1024 and LAS-paper widths on
+# the H100's occupancy: (C, Bt, k parts, ring); at U = 512 the template's,
+# past it the ring's (the forward there: the grid layout,
+# tests/test_torch_lstm_grid.py)
 STREAMED_PLANS = {
-    (1024, 64, 2): ((16, 24, 4, True), (16, 24, 1, True)),
-    (1024, 32, 2): ((16, 16, 4, True), (16, 16, 1, True)),
-    (1024, 32, 1): ((16, 8, 4, True), (16, 8, 1, True)),
-    (1024, 8, 2): ((16, 8, 4, True), (16, 8, 1, True)),
-    (512, 64, 2): ((8, 16, 2, False), (8, 16, 1, False)),
-    (512, 32, 2): ((8, 8, 4, False), (8, 8, 2, False)),
-    (512, 8, 2): ((8, 8, 4, False), (8, 8, 2, False)),
+    (1024, 64, 2): (16, 24, 1, True),
+    (1024, 32, 2): (16, 16, 1, True),
+    (1024, 32, 1): (16, 8, 1, True),
+    (1024, 8, 2): (16, 8, 1, True),
+    (512, 64, 2): (8, 16, 1, False),
+    (512, 32, 2): (8, 8, 2, False),
+    (512, 8, 2): (8, 8, 2, False),
 }
 
 
 @pytest.mark.parametrize("u,b,nd", sorted(STREAMED_PLANS))
-@pytest.mark.parametrize("which", ["forward", "backward"])
+@pytest.mark.parametrize("which", ["backward"])
 def test_ring_plans_run_in_one_wave(which, u, b, nd):
-    """Float32 at U = 512 and 1024: the plan on the H100's occupancy runs
-    every cluster in one wave: at 1024 the ring's cheapest (clusters of
-    16, which the card holds 7 of, only where they fit; at B = 64 both
-    directions a tile of 24 rows makes 6), at the layout's bytes, the k
-    parts filling the consumer threads; at 512 the template's. The ring's
-    plan at 512 (asked for with ``ring=True``) runs in one wave too."""
-    fwd = which == "forward"
+    """The VJP's loop in float32 at U = 512 and 1024: the plan on the
+    H100's occupancy runs every cluster in one wave: at 1024 the ring's
+    cheapest (clusters of 16, which the card holds 7 of, only where they
+    fit), at the layout's bytes, the k parts filling the consumer threads;
+    at 512 the template's. The ring's plan at 512 (asked for with
+    ``ring=True``) runs in one wave too."""
 
     def plan(ring=None):
-        return (L.forward_plan(b, u, nd, "highest", _h100_active, ring=ring) if fwd
-                else L.backward_plan(b, u, nd, "highest", _h100_bwd_active, ring=ring))
+        return L.backward_plan(b, u, nd, "highest", _h100_bwd_active, ring=ring)
 
     p = plan()
-    assert (p.cluster, p.bt, p.ksplit, p.ring) == STREAMED_PLANS[(u, b, nd)][0 if fwd else 1]
+    assert (p.cluster, p.bt, p.ksplit, p.ring) == STREAMED_PLANS[(u, b, nd)]
     assert not p.resident and p.units == u and -(-b // p.bt) * nd <= _h100_active(p.cluster)
     q = p if p.ring else plan(ring=True)
     assert q.ring and q.units == u and -(-b // q.bt) * nd <= _h100_active(q.cluster)
-    cols = u // q.cluster if fwd else u // 4
+    cols = u // 4
     assert q.ksplit * cols <= L.FWD_THREADS and q.ksplit == min(L.RING_KS_MAX, L.FWD_THREADS // cols)
-    kc, smem = L.ring_slots(q.units, q.cluster, q.bt, q.ksplit, bwd=not fwd)
+    kc, smem = L.ring_slots(q.units, q.cluster, q.bt, q.ksplit)
     assert kc >= 4 and kc % 4 == 0 and q.smem == smem <= L.RING_SMEM_MAX
 
 
-def _declared_ring_bytes(u, c, bt, ks, bwd, bf16=False):
-    """A block's shared memory as ``fwd_ring_layout`` / ``bwd_ring_layout``
-    of csrc/lstm.cu declare it, region by region, and the ring's chunk rows
-    (bf16: its k steps of a piece, ``ring_bf16``)."""
+def _declared_ring_bytes(u, c, bt, ks, bf16=False):
+    """A block's shared memory as ``bwd_ring_layout`` of csrc/lstm.cu
+    declares it, region by region, and the ring's chunk rows (bf16: its k
+    steps of a piece, ``ring_bf16``)."""
     us, f = u // c, 4
     nc = 4 * us
     if bf16:
         up, mt = -(-u // 16) * 16, -(-bt // 16)
-        if bwd:
-            regions = [bt * u * f, 16 * mt * (nc + 8) * 2, (bt * (nc + 3 * us) + bt) * f, bt * us * f, bt * us * f]
-            step, depth = up // 8 // ks * 256, nc // 16
-        else:
-            regions = [16 * mt * (up + 8) * 2, bt * nc * f, (bt * nc + bt) * f, bt * us * f, bt * us * f]
-            step, depth = nc // 8 // ks * 256, up // 16
+        regions = [bt * u * f, 16 * mt * (nc + 8) * 2, (bt * (nc + 3 * us) + bt) * f, bt * us * f, bt * us * f]
+        step, depth = up // 8 // ks * 256, nc // 16
         used = sum(regions)
         for slots in (2 * ks, ks + 1):
             per = min(_cu_constant("RING_CHUNK_MAX"), (_cu_constant("SMEM_MAX") - 1024 - used) // slots)
@@ -187,13 +204,9 @@ def _declared_ring_bytes(u, c, bt, ks, bwd, bf16=False):
             if kc >= 1:
                 break
         return kc, used + slots * kc * step
-    if bwd:
-        regions = [bt * u * f, bt * nc * f, bt * u * f if ks > 1 else 0, (bt * (nc + 3 * us) + bt) * f,
-                   bt * us * f, bt * us * f]
-        row, depth = u * f, nc
-    else:
-        regions = [bt * u * f, bt * nc * f, (bt * nc + bt) * f, bt * us * f, bt * us * f]
-        row, depth = nc * f, u
+    regions = [bt * u * f, bt * nc * f, bt * u * f if ks > 1 else 0, (bt * (nc + 3 * us) + bt) * f,
+               bt * us * f, bt * us * f]
+    row, depth = u * f, nc
     used = sum(regions)
     slots = 2 * ks
     per = min(_cu_constant("RING_CHUNK_MAX"), (_cu_constant("SMEM_MAX") - 1024 - used) // slots)
@@ -210,39 +223,36 @@ def _cu_constant(name):
 
 
 @pytest.mark.parametrize("u", [264, 320, 512, 1024, 100, 1280, 2048])
-@pytest.mark.parametrize("which", ["forward", "backward"])
+@pytest.mark.parametrize("which", ["backward"])
 def test_ring_bytes_are_the_kernels_layout(which, u):
-    """Every plan the planners return at the width cases (both modes, the
+    """Every plan of the VJP's loop at the width cases (both modes, the
     serving, training and small batches, one and two directions, with and
     without the card's occupancy) at the bytes of the layout the kernel
     declares; the constants the mirror reads are the .cu's. The ring is
     taken past ``RING_UNITS`` (bf16: ``RING_UNITS_BF16``), or past
-    ``RESIDENT_UNITS`` where it is asked for."""
+    ``RESIDENT_UNITS`` where it is asked for (the forward's grid layout:
+    tests/test_torch_lstm_grid.py)."""
     assert (L.SMEM_MAX, L.RING_CHUNK_MAX, L.RING_KS_MAX, L.FWD_THREADS) == tuple(
         _cu_constant(n) for n in ("SMEM_MAX", "RING_CHUNK_MAX", "RING_KS_MAX", "FWD_THREADS"))
-    fwd = which == "forward"
     u = P.round_up(u, 8)  # as the wrappers ask the planners
     for prec in ("highest", "bf16"):
         for b, nd in ((64, 2), (32, 2), (32, 1), (8, 2), (3, 1)):
             for active, ring in ((None, None), (_h100_active, None), (_h100_active, True)):
-                if fwd:
-                    p = L.forward_plan(b, u, nd, prec, active, ring=ring)
-                    mirror = L.forward_smem_bytes
-                else:
-                    p = L.backward_plan(b, u, nd, prec, None if active is None else _h100_bwd_active, ring=ring)
-                    mirror = L.backward_smem_bytes
+                p = L.backward_plan(b, u, nd, prec, None if active is None else _h100_bwd_active, ring=ring)
                 limit = L.RESIDENT_UNITS if ring else L.RING_UNITS if prec == "highest" else L.RING_UNITS_BF16
                 assert p.ring == (u > limit)
-                assert p.smem == mirror(p.units, p.cluster, p.bt, p.ksplit, p.resident, prec == "bf16", ring=p.ring)
+                assert p.smem == L.backward_smem_bytes(p.units, p.cluster, p.bt, p.ksplit, p.resident, prec == "bf16",
+                                                       ring=p.ring)
                 if p.ring:
-                    kc, total = _declared_ring_bytes(p.units, p.cluster, p.bt, p.ksplit, not fwd, prec == "bf16")
+                    kc, total = _declared_ring_bytes(p.units, p.cluster, p.bt, p.ksplit, prec == "bf16")
                     assert kc >= (1 if prec == "bf16" else 4) and p.smem == total
 
 
 # every plan at U <= 256, and bf16 up to RING_UNITS_BF16, as the listener
-# kernels took them before the ring; bf16 past it (U = 512, 1024) the bf16
-# ring's: (B, U, nd, prec) -> forward, VJP (C, Bt, k split, resident,
-# bytes, kernel U), on the H100's occupancy
+# kernels took them before the ring; bf16 past it (U = 512, 1024) the
+# forward's grid layout (C = 1, Bt its rows, k split its parts) and the
+# VJP's bf16 ring: (B, U, nd, prec) -> forward, VJP (C, Bt, k split,
+# resident, bytes, kernel U), on the H100's occupancy
 UNCHANGED_PLANS = [
     (64, 256, 2, "highest", (8, 16, 4, True, 227520, 256), (8, 16, 1, True, 221312, 256)),
     (32, 256, 2, "highest", (8, 8, 8, True, 195680, 256), (8, 8, 4, True, 200768, 256)),
@@ -266,11 +276,11 @@ UNCHANGED_PLANS = [
     (64, 104, 2, "bf16", (1, 8, 1, True, 170848, 104), (1, 8, 1, True, 172096, 104)),
     (32, 248, 1, "bf16", (1, 8, 1, False, 167776, 248), (1, 8, 1, False, 183104, 248)),
     (20, 40, 2, "bf16", (1, 8, 1, True, 45920, 40), (1, 8, 1, True, 46144, 40)),
-    (64, 512, 2, "bf16", (16, 24, 1, False, 129632, 512), None),
+    (64, 512, 2, "bf16", (1, 64, 2, True, 102656, 512), None),
     (32, 512, 2, "bf16", None, (16, 16, 1, False, 121152, 512)),
-    (64, 1024, 2, "bf16", (16, 24, 1, False, 193120, 1024), None),
+    (64, 1024, 2, "bf16", (1, 64, 2, True, 221440, 1024), None),
     (32, 1024, 2, "bf16", None, (16, 16, 1, False, 176448, 1024)),
-    (32, 512, 1, "bf16", (16, 8, 1, False, 92448, 512), None),
+    (32, 512, 1, "bf16", (1, 32, 2, True, 92288, 512), None),
 ]
 
 
@@ -278,12 +288,12 @@ UNCHANGED_PLANS = [
 def test_plans_the_ring_leaves_alone(b, u, nd, prec, want_fwd, want_bwd):
     """The resident route, every plan at U <= 256 and bf16 up to
     ``RING_UNITS_BF16`` keep the plans they had (the template's, never the
-    ring); bf16 past it takes the bf16 ring's, as the card measured it
-    faster."""
+    ring or the grid layout); bf16 past it the forward takes the grid
+    layout's, the VJP the bf16 ring's, as the card measured them faster."""
     bf16 = prec == "bf16"
     if want_fwd is not None:
         p = L.forward_plan(b, u, nd, prec, _h100_active)
-        assert tuple(p[:6]) == want_fwd and p.ring == (bf16 and u > L.RING_UNITS_BF16)
+        assert tuple(p[:6]) == want_fwd and (p.grid is not None) == (bf16 and u > L.RING_UNITS_BF16)
     if want_bwd is not None:
         p = L.backward_plan(b, u, nd, prec, _h100_bwd_active)
         assert tuple(p[:6]) == want_bwd and p.ring == (bf16 and u > L.RING_UNITS_BF16)
@@ -352,10 +362,14 @@ def _lstm_case(u, seed):
 def _emulate_forward(xp, mask, wh, reverse, prec, plan):
     """The kernel's forward at its plan: the padding of ``_launch_forward``,
     the cluster decomposition of ``plan`` (a block's slice of wh is the
-    same regrouped slice whether it is held or streamed), the slicing."""
+    same regrouped slice whether it is held or streamed) or the grid
+    layout's (``plan.grid``), the slicing."""
     u, up = wh.shape[0], plan.units
-    got = cluster_recurrence_emulated(P.pad_gates(xp, u, up), mask, P.pad_lstm_wh(wh, up), 1.0, reverse, prec,
-                                      plan.cluster, plan.bt, save_res=True)
+    xpp, whp = P.pad_gates(xp, u, up), P.pad_lstm_wh(wh, up)
+    if plan.grid is not None:
+        got = grid_recurrence_emulated(xpp, mask, whp, 1.0, reverse, prec, plan.grid)
+    else:
+        got = cluster_recurrence_emulated(xpp, mask, whp, 1.0, reverse, prec, plan.cluster, plan.bt, save_res=True)
     return [x[..., :u] for x in got]
 
 
@@ -364,7 +378,10 @@ def _emulate_forward(xp, mask, wh, reverse, prec, plan):
 def test_streamed_forward_matches_plain_xla_and_pallas(prec, u):
     xp, mask, wh = _lstm_case(u, 13)
     plan = L.forward_plan(B, u, 1, prec)
-    assert not plan.resident or plan.units > u  # streamed, or (bf16 at 360) padded and held
+    if u > (L.RESIDENT_UNITS if prec == "highest" else L.RING_UNITS_BF16):
+        assert plan.grid is not None  # past the resident widths: the grid layout
+    else:
+        assert not plan.resident or plan.units > u  # streamed, or (bf16 at 360) padded and held
     reverse = u == 1024
     txp, tmask, twh = torch.from_numpy(xp), torch.from_numpy(mask), torch.from_numpy(wh)
     got = _emulate_forward(txp, tmask, twh, reverse, prec, plan)
