@@ -210,8 +210,8 @@ then:
         ms a step beside the unsharded step's (readings: gloo stages the
         tensors through the host);
      b. NCCL, a world of 1 on the card: a mesh ``Trainer`` against the
-        plain one for 2 training steps from one state (losses and leaves
-        within 1e-6), then ``cli.train --mesh`` as a process, 2 steps
+        plain one for a training step from one state (the loss and leaves
+        within 1e-6), then ``cli.train --mesh`` as a process, a step
         warm-started from the checkpoint on ``prepare speechlike`` records;
      c. ``Transcriber(data_parallel=2, devices=["cuda:0", "cuda:0"])`` on
         the eval set, greedy and beam-8, and at the flagship shape: tokens
@@ -297,14 +297,16 @@ then:
         version's largest, every entry launched twice and bitwise equal,
         each plan with the shared memory (held to the plan's) and registers
         the card gives it (the grid layout's: blocks, resident share,
-        passes), and at U = 1032, 1280 and 2048 on lengths 1..250 (fault
-        C10); the VJP's ring forced at U = 264, 320 (both modes) and 512
-        (float32); at U = 1024 and 512 (float32) and 1024 (bf16) the four
-        kernels timed at T = 999 beside cuDNN as phases 1 and 4a time them
-        (medians of 5), and there and at 512 and 448 in bf16 the forward's
-        template (its streamed slice) and grid layout, and the VJP's
-        template and ring, in turns (``compare_routes``: plans, ms and
-        cycles a step); the decoder kernel at W1024's
+        passes; masked steps passing no gradient), and at U = 1032, 1280
+        and 2048 on lengths 1..250 (fault C10); the grid layouts in passes
+        of rows (``PASS_CASES``: the passes and ``grid_launches``); at U =
+        1024 and 512 (float32) and 1024 (bf16) the four kernels timed at
+        T = 999 beside cuDNN as phases 1 and 4a time them (medians of 5),
+        and there and at 512 and 448 in bf16 the forward's template (its
+        streamed slice) and grid layout, and the VJP's template and grid
+        layout (at U = 1024 also the grid in single blocks against the
+        planner's clusters), in turns (``compare_routes``: plans, ms and
+        cycles a step by part); the decoder kernel at W1024's
         speller (B = 32, T_enc 219 and 438, 200 steps; the grid layout),
         with an attention layer of 1024 (library-built), and at the LAS
         paper's 2 × 512 speller (the held layout): tokens equal to the
@@ -335,9 +337,9 @@ then:
         8 × <= 2 s, 0 rows differing from the CPU in parity, and one
         production ``Trainer.train_step`` at B = 4 × <= 2 s within 13c's
         bound; ``lstm_layer`` at W1024's width (13c, both modes, with and
-        without grad); each wide route (the listener's grid layout, the
-        VJP's rings, the decoder's grid layout) counted and listed in the
-        last ``kernels`` line.
+        without grad); each wide route (the listener's grid layouts, the
+        forward's and the VJP's loop's, and the decoder's) counted and
+        listed in the last ``kernels`` line.
  14. the reference's entry points as the port's (``bench.py``,
      ``__graft_entry__.py``, ``tools/``):
      a. ``python -m phones_las_torch.bench`` as a process, at the
@@ -366,12 +368,18 @@ way at the training shape; the numbers behind the choice of
 unchanged, the forward's grid layout in turns against the template at
 B = 64, both modes; then the float32 streamed slice at U = 1024 (the
 forward at B = 64 both directions under every template plan and the grid
-layout's, the VJP's loop at B = 32 under every template and ring plan that
-fits), with the clusters the card runs at once (and the template's at
-C = 12, U = 1056): the numbers behind ``RING_CLUSTER_SIZES`` and
-``RING_ROW_TILES``; then, as a reading with the plan unchanged, the
-decoder's grid layout in turns against the held layout at the flagship
-shape (``layouts_in_turns``).
+layout's, the VJP's loop at B = 32 under every template plan that fits and
+the grid layout's), with the clusters the card runs at once (and the
+template's at C = 12, U = 1056); then, as a reading with the plan
+unchanged, the decoder's grid layout in turns against the held layout at
+the flagship shape (``layouts_in_turns``).
+
+``python3 chip_smoke.py --sweep-vjp`` runs none of the phases: the VJP's
+loop in its grid layout at T = 999, B = 32 (``SWEEP_VJPS``: U = 1024 and
+512 in both modes, 448 in bf16), every layout its kernels take at each
+cluster size with two or three ring slots a k part, each timed with the
+cycles a step spends in each part and the planner's modelled step: the
+numbers the step model's constants were fitted to.
 
 ``python3 chip_smoke.py --compare DIR`` runs none of the phases either: it
 times the front-end kernel (flagship shape) and the VJP (T = 999, B = 32,
@@ -382,7 +390,10 @@ path), the decoder kernel at 13a's W1024 shapes and 13d's (the layout
 each checkout plans there, ms and µs a step) and the listener's forward
 at T = 999 past the resident widths (``COMPARE_FORWARDS``: U = 1024 the
 BiLSTM at B = 64 and the residual at B = 32, both modes; U = 512 and
-448 at B = 64; the route each checkout plans there, ms), each in a
+448 at B = 64; the route each checkout plans there, ms) and the VJP at
+T = 999, B = 32 past the resident widths (``COMPARE_VJPS``: U = 1024 and
+512 in both modes, 448 in bf16; the route, the call's ms, the loop's ms
+and µs a step), each in a
 process of its own, in the order other, this, this, other on the same card, and prints
 one line a run: the numbers behind a "[was …]" in ``PERF.md``. ``--time-kernels DIR`` is one such run, of the
 package in the checkout at DIR.
@@ -409,6 +420,7 @@ device the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import glob
 import json
 import os
@@ -958,13 +970,16 @@ def rel_err(got, want) -> float:
 
 
 BWD_PARTS = ("gates_gemm", "loop", "dwh_partial", "dwh_reduce")
-BWD_CLOCKS = ("dgates", "product", "send", "prefetch", "wait", "ring_wait")
+BWD_CLOCKS = ("dgates", "product", "send", "prefetch", "wait")  # the template loop's
+GRID_BWD_CLOCK_NAMES = ("dgates", "arrive", "product", "barrier", "intake", "exchange", "partials")
 
 
 def backward_report(bargs, t):
     """The plan of the VJP's last launch, what the card gives its loop
     kernel, the milliseconds of its four kernels (median of 5 launches) and
-    (one more launch) the SM cycles a step of the loop spends in its parts."""
+    (one more launch) the SM cycles a step of the loop spends in its parts
+    (the grid layout's ``GRID_BWD_CLOCK_NAMES``, the template's
+    ``BWD_CLOCKS``)."""
     from phones_las_torch.ops import lstm as L
 
     plan = L._launch_backward.last_plan
@@ -976,25 +991,28 @@ def backward_report(bargs, t):
         L._launch_backward(*bargs, part_ms=ms)
         runs.append(ms)
     parts = {name: statistics.median(r[i] for r in runs) for i, name in enumerate(BWD_PARTS)}
-    clocks = torch.zeros(len(BWD_CLOCKS), dtype=torch.int64, device=DEV)
+    names = GRID_BWD_CLOCK_NAMES if plan.grid is not None else BWD_CLOCKS
+    clocks = torch.zeros(len(names), dtype=torch.int64, device=DEV)
     L._launch_backward(*bargs, clocks=clocks)
     torch.cuda.synchronize()
     rep = {
         "cluster": plan.cluster, "bt": plan.bt, "ksplit": plan.ksplit, "wh_in_smem": plan.resident,
-        "wh_ring": plan.ring, "kernel_units": plan.units,
+        "grid": None if plan.grid is None else plan.grid._asdict(), "kernel_units": plan.units,
         "clusters_launched": -(-xps[0].shape[1] // plan.bt) * len(xps), **info, "kernel_ms": parts, "us_per_step": parts["loop"] * 1e3 / t,
-        "cycles_per_step": dict(zip(BWD_CLOCKS, (c / t for c in clocks.tolist()))),
+        "cycles_per_step": dict(zip(names, (c / t for c in clocks.tolist()))),
     }
     if info["smem_bytes"] != plan.smem:
         fail(f"the loop kernel's shared memory ({info['smem_bytes']}) is not what backward_plan computed ({plan.smem})")
     return rep
 
 
-def check_lstm_bwd_ragged(t, b, u, seed, phase="4a"):
+def check_lstm_bwd_ragged(t, b, u, seed, phase="4a", passes_in=()):
     """The VJP on a batch that is no multiple of its tile, rows of lengths
     from 1 to T, and (U = 40, 248) widths only a cluster of one serves:
     both precisions, one and two directions, against the plain version on
-    the plain version's residuals; two runs bitwise equal."""
+    the plain version's residuals; two runs bitwise equal; masked steps pass
+    no gradient; every call's ``grid_launches`` its plan's passes, and in
+    the modes of ``passes_in`` more than one pass."""
     from phones_las_torch.ops import lstm as L
     from phones_las_torch.ops.masking import length_mask
 
@@ -1004,6 +1022,13 @@ def check_lstm_bwd_ragged(t, b, u, seed, phase="4a"):
     mask = length_mask(lengths, t).transpose(0, 1).contiguous()
     worst, plans = {}, set()
     ok = True
+
+    def counted(bargs):
+        before = L.recurrence_bwd.grid_launches
+        out = L.recurrence_bwd(*bargs)
+        grid = L._launch_backward.last_plan.grid
+        return out, L.recurrence_bwd.grid_launches - before == (grid.passes if grid is not None else 0)
+
     for prec in ("highest", "bf16"):
         tol = 1e-4 if prec == "highest" else 3e-2
         for nd in (1, 2):
@@ -1015,26 +1040,29 @@ def check_lstm_bwd_ragged(t, b, u, seed, phase="4a"):
             bargs = (xps, mask, whs, [r[1] for r in res], [r[2] for r in res],
                      [rnd(t, b, u) for _ in range(nd)], [rnd(b, u) for _ in range(nd)],
                      [rnd(b, u) for _ in range(nd)], 1.0, rev, prec)
-            got = L.recurrence_bwd(*bargs)
-            plans.add((prec, L._launch_backward.last_plan))
-            again = L.recurrence_bwd(*bargs)
+            got, counts_ok = counted(bargs)
+            plan = L._launch_backward.last_plan
+            plans.add((prec, nd, plan))
+            again, again_ok = counted(bargs)
             want = L.recurrence_bwd_plain(*bargs)
             torch.cuda.synchronize()
             err = max(rel_err(k, p) for kg, pg in zip(got, want) for k, p in zip(kg, pg))
             same = all(torch.equal(x, y) for kg, ag in zip(got, again) for x, y in zip(kg, ag))
             # masked steps pass no gradient into xp
             dead = all(float((kg[0] * (1.0 - mask)[:, :, None]).abs().max()) == 0.0 for kg in got)
-            ok = ok and err <= tol and same and dead
+            passes = plan.grid.passes if plan.grid is not None else 1
+            ok = ok and err <= tol and same and dead and counts_ok and again_ok
+            ok = ok and (passes > 1 or prec not in passes_in)
             worst[prec] = max(worst.get(prec, 0.0), err)
     infos = []
-    for prec, p in sorted(plans):
+    for prec, nd, p in sorted(plans, key=lambda x: x[:2]):
         info = L.backward_kernel_info(prec == "bf16", p)
-        infos.append({"prec": prec, "plan (cluster, bt, ksplit, wh_in_smem, smem_bytes, units)": p,
-                      "smem_bytes": info["smem_bytes"], "registers": info["registers"],
-                      "max_active_clusters": info["max_active_clusters"]})
+        infos.append({"prec": prec, "nd": nd, "plan (cluster, bt, ksplit, wh_in_smem, smem_bytes, units, grid)": p,
+                      **info})
         ok = ok and info["smem_bytes"] == p.smem
     rec = {"phase": phase, "kernel": "recurrence_bwd, ragged", "shape": f"T={t} B={b} U={u} lengths 1..{t}",
-           "max_rel_to_max": worst, "tol": "dxp, dwh max|d|/max|plain|: highest 1e-4, bf16 3e-2; bitwise repeatable",
+           "max_rel_to_max": worst, "tol": "dxp, dwh max|d|/max|plain|: highest 1e-4, bf16 3e-2; bitwise repeatable; "
+                                           "masked steps pass no gradient; grid_launches the plan's passes",
            "plans": infos, "ok": ok}
     emit(rec)
     if not ok:
@@ -1169,9 +1197,9 @@ def check_lstm_train(pair, t, prec, seed, b=TRAIN_B, ragged=False, phase="4a", o
     bad = [r["kernel"] for r in recs if not r["ok"]]
     if bad:
         fail(f"training LSTM kernels disagree with their plain versions at {shape}: {bad}")
-    if held and (launch["cluster"] <= 1 or not launch["wh_in_smem"]):
+    if held and (launch["grid"] is not None or launch["cluster"] <= 1 or not launch["wh_in_smem"]):
         fail(f"the VJP's loop did not run as a cluster with its slice of wh in shared memory: {launch}")
-    if one_wave and launch["clusters_launched"] > launch["max_active_clusters"]:
+    if one_wave and launch["grid"] is None and launch["clusters_launched"] > launch["max_active_clusters"]:
         fail(f"the VJP's clusters do not fit in one wave: {launch}")
     return recs
 
@@ -1348,6 +1376,35 @@ def split_step(tr, batch) -> dict:
             "optimizer_ms": (t3 - t2) * 1e3}
 
 
+# the VJP's four kernels, as the profiler names them (csrc/lstm.cu)
+VJP_KERNEL_NAMES = ("gates_kernel", "lstm_bwd", "dwh_partial_kernel", "dwh_reduce_kernel")
+
+
+def vjp_share(tr, batch) -> dict:
+    """One more step's backward under the profiler (its loss first, the
+    optimizer after, unprofiled): the device ms of every kernel it ran and
+    of the VJP's four kernels among them, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    loss, _ = tr.loss(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
+    tr.apply_gradients()
+    torch.cuda.synchronize()
+    kernels = [k for e in prof.events() for k in e.kernels]
+    if not kernels:
+        return {"backward_device_ms": "not measured"}
+    vjp = {}
+    for k in kernels:
+        name = next((n for n in VJP_KERNEL_NAMES if n in k.name), None)
+        if name is not None:
+            vjp[name] = vjp.get(name, 0.0) + k.duration / 1e3
+    return {"backward_device_ms": sum(k.duration for k in kernels) / 1e3, "vjp_device_ms": sum(vjp.values()),
+            "vjp_kernels_ms": vjp}
+
+
 def production_cfg(cfg):
     """The configuration in production mode, as bench.py defines it."""
     return dataclasses.replace(
@@ -1509,11 +1566,11 @@ def sweep_streamed_plans() -> None:
     """``--sweep``: float32 at U = 1024, T = 999: the forward (B = 64, both
     directions) under every plan of the template (C of 8 and 16, tiles of 8
     and 16, the k split halved until the layout fits) and the grid layout's,
-    and the VJP's loop (B = 32) under every plan of the template and of the
-    ring (C of 8 and 16, tiles of 8, 16 and 24) that fits in shared memory,
-    each timed (median of 3) with the clusters the card runs at once, and
-    held against the chosen plan's output; and how many clusters of 12 the
-    card runs (the template at U = 1056)."""
+    and the VJP's loop (B = 32) under every plan of the template that fits
+    in shared memory and the grid layout's (its layouts one by one:
+    ``--sweep-vjp``), each timed (median of 3) with the clusters the card
+    runs at once, and held against the chosen plan's output; and how many
+    clusters of 12 the card runs (the template at U = 1056)."""
     from phones_las_torch.ops import lstm as L
     from phones_las_torch.ops.masking import length_mask
 
@@ -1521,27 +1578,22 @@ def sweep_streamed_plans() -> None:
     g = torch.Generator(device=DEV).manual_seed(63)
     rnd = lambda *shape: torch.randn(shape, generator=g, device=DEV)
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
     def candidates(bwd):
-        for ring in (False, True) if bwd else (False,):
-            for c in (8, 16):
-                for bt in (L.RING_ROW_TILES if ring else L.ROW_TILES):
-                    if ring:
-                        ks = L._ring_ksplit(u // 4)
-                        kc, smem = L.ring_slots(u, c, bt, ks)
-                        if kc < 4:
-                            continue
-                    else:
-                        ks = (L._bwd_ksplit if bwd else L._ksplit)(u, c, bt, False)
-                        size = L.backward_smem_bytes if bwd else L.forward_smem_bytes
-                        while ks > 1 and size(u, c, bt, ks, False, False) > L.SMEM_MAX:
-                            ks //= 2
-                        smem = size(u, c, bt, ks, False, False)
-                        if smem > L.SMEM_MAX:
-                            continue
-                    yield L.BackwardPlan(c, bt, ks, False, smem, u, ring) if bwd else L.ForwardPlan(
-                        c, bt, ks, False, smem, u)
-        if not bwd:
-            yield L.forward_plan(FLAGSHIP_B, u, 2, "highest", sms=torch.cuda.get_device_properties(0).multi_processor_count)
+        for c in (8, 16):
+            for bt in L.ROW_TILES:
+                ks = (L._bwd_ksplit if bwd else L._ksplit)(u, c, bt, False)
+                size = L.backward_smem_bytes if bwd else L.forward_smem_bytes
+                while ks > 1 and size(u, c, bt, ks, False, False) > L.SMEM_MAX:
+                    ks //= 2
+                smem = size(u, c, bt, ks, False, False)
+                if smem <= L.SMEM_MAX:
+                    yield L.BackwardPlan(c, bt, ks, False, smem, u) if bwd else L.ForwardPlan(c, bt, ks, False, smem, u)
+        if bwd:
+            yield L.backward_plan(TRAIN_B, u, 2, "highest", functools.partial(L.backward_held, False), sms=sms)
+        else:
+            yield L.forward_plan(FLAGSHIP_B, u, 2, "highest", sms=sms)
 
     b, nd = FLAGSHIP_B, 2
     lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=DEV)
@@ -1587,6 +1639,86 @@ def sweep_streamed_plans() -> None:
         ks //= 2
     emit({"sweep": "clusters of 12", "shape": "U=1056 (the template, float32, Bt = 8)",
           **L.forward_kernel_info(1056, False, False, 12, 8, ks, False)})
+
+
+# --sweep-vjp: the VJP's loop in the grid layout at T = 999, B = TRAIN_B, both
+# directions: (U, mode); every layout with two or three ring slots a k part
+SWEEP_VJPS = ((1024, "highest"), (1024, "bf16"), (512, "highest"), (512, "bf16"), (448, "bf16"))
+# --compare: the VJP (``L.recurrence_bwd``, the route each checkout plans) at those shapes
+COMPARE_VJPS = SWEEP_VJPS
+
+
+def random_vjp_args(u: int, prec: str, seed: int, b: int = TRAIN_B, t: int = 999):
+    """The arguments of ``L.recurrence_bwd`` for both directions at U on the
+    kernel's own residuals: random xp, wh, lengths T/2..T and cotangents."""
+    from phones_las_torch.ops import lstm as L
+    from phones_las_torch.ops.masking import length_mask
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=DEV)
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=DEV)
+    lengths[0] = t
+    mask = length_mask(lengths, t).transpose(0, 1).contiguous()
+    xps, whs = [rnd(t, b, 4 * u) for _ in range(2)], [rnd(u, 4 * u) / u ** 0.5 for _ in range(2)]
+    res = L.recurrence_residual(xps, mask, whs, 1.0, [False, True], prec)
+    return (xps, mask, whs, [r[1] for r in res], [r[2] for r in res], [rnd(t, b, u) for _ in range(2)],
+            [rnd(b, u) for _ in range(2)], [rnd(b, u) for _ in range(2)], 1.0, [False, True], prec)
+
+
+def loop_reading(L, bargs, plan, reps: int) -> tuple:
+    """The VJP's loop under ``plan``: its ms (median of ``reps`` calls' loop
+    kernels; None for none) and, from one more call, the SM cycles a step
+    spends in each of its parts (the grid layout's ``GRID_BWD_CLOCK_NAMES``,
+    else ``BWD_CLOCKS``)."""
+    loops = []
+    for _ in range(reps):
+        part = []
+        L._launch_backward(*bargs, plan=plan, part_ms=part)
+        loops.append(part[1])
+    names = GRID_BWD_CLOCK_NAMES if plan.grid is not None else BWD_CLOCKS
+    clocks = torch.zeros(len(names), dtype=torch.int64, device=DEV)
+    L._launch_backward(*bargs, plan=plan, clocks=clocks)
+    torch.cuda.synchronize()
+    t = bargs[0][0].shape[0]
+    return statistics.median(loops) if loops else None, dict(zip(names, (c / t for c in clocks.tolist())))
+
+
+def sweep_grid_vjp() -> None:
+    """``--sweep-vjp``: the VJP's loop in the grid layout at each shape of
+    ``SWEEP_VJPS``: at each cluster size (a cut over the blocks the card
+    holds in such clusters) every layout its kernels take with two or three
+    ring slots a k part, timed (the loop, median of 3) with the SM cycles a
+    step spends in each part and the planner's modelled step, and held
+    against the planner's choice: the numbers behind ``_grid_bwd_step_cycles``."""
+    from phones_las_torch.ops import lstm as L
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for i, (u, prec) in enumerate(SWEEP_VJPS):
+        bf16 = prec == "bf16"
+        bargs = random_vjp_args(u, prec, 270 + i)
+        chosen = L.backward_plan(TRAIN_B, u, 2, prec, functools.partial(L.backward_held, bf16), layout="grid", sms=sms)
+        want = L._launch_backward(*bargs, plan=chosen)
+        for cl in L.GRID_CLUSTERS:
+            budget = sms
+            first = L.grid_bwd_candidates(TRAIN_B, u, 2, bf16, cl, budget)
+            if first:
+                budget = min(sms, L.backward_held(bf16, L._as_backward_plan(first[0], 2, prec)))
+            if budget < 2 * cl:
+                emit({"sweep": "vjp grid loop", "u": u, "prec": prec, "cl": cl, "held_blocks": budget})
+                continue
+            for g in L.grid_bwd_candidates(TRAIN_B, u, 2, bf16, cl, budget):
+                if g.ns > 3 * g.ks:
+                    continue
+                plan = L._as_backward_plan(g, 2, prec)
+                got = L._launch_backward(*bargs, plan=plan)
+                torch.cuda.synchronize()
+                err = max(rel_err(k, p) for kg, pg in zip(got, want) for k, p in zip(kg, pg))
+                loop_ms, cycles = loop_reading(L, bargs, plan, 3)
+                emit({"sweep": "vjp grid loop", "shape": f"T=999 B={TRAIN_B} U={u} nd=2 prec={prec}",
+                      "grid": g._asdict(), "chosen": plan == chosen, "loop_ms": loop_ms,
+                      "us_per_step": loop_ms * 1e3 / 999, "model_us_per_step": L._grid_bwd_step_cycles(g, bf16) / 1980,
+                      "cycles_per_step": cycles, "max_rel_diff_to_chosen_plan": err})
+        del bargs, want
 
 
 def vjp_cases(L, params, seed):
@@ -1648,11 +1780,12 @@ def time_kernels(tree: str) -> None:
     greedy serving call at the flagship shape (encode and decode, the
     host's dispatch included), the decoder kernel at 13a's W1024 shapes
     and 13d's (``COMPARE_DECODES``: the layout the checkout plans there, ms,
-    µs a step, rows differing from its plain version) and the listener's
+    µs a step, rows differing from its plain version), the listener's
     forward past the resident widths (``COMPARE_FORWARDS``: the route the
-    checkout plans there, ms), of the package in the checkout at DIR,
-    through calls that every slice of the port since the training slice
-    has."""
+    checkout plans there, ms) and the VJP there (``COMPARE_VJPS``: the
+    route, the ms of a call, the loop's ms and µs a step), of the package
+    in the checkout at DIR, through calls that every slice of the port
+    since the grid forward has."""
     sys.path.insert(0, tree)
     from phones_las_torch.decode.fused_greedy import greedy_decode_fused, greedy_decode_fused_plain
     from phones_las_torch.decode.greedy import greedy_decode
@@ -1700,6 +1833,23 @@ def time_kernels(tree: str) -> None:
         rec["forwards"].append({"kernel": kernel, "shape": f"T={t} B={b} U={u} nd=2 prec={prec}", "route": route,
                                 "ms": time_ms(run, reps=5)})
         del xps
+    rec["vjps"] = []
+    for i, (u, prec) in enumerate(COMPARE_VJPS):
+        bargs = random_vjp_args(u, prec, 260 + i)
+        L.recurrence_bwd(*bargs)
+        plan = L._launch_backward.last_plan
+        route = ("grid" if getattr(plan, "grid", None) is not None else "ring" if getattr(plan, "ring", False)
+                 else "template")
+        loops = []
+        for _ in range(5):
+            part = []
+            L._launch_backward(*bargs, part_ms=part)
+            loops.append(part[1])
+        loop_ms = statistics.median(loops)
+        rec["vjps"].append({"kernel": "recurrence_bwd", "shape": f"T=999 B={TRAIN_B} U={u} nd=2 prec={prec}",
+                            "route": route, "ms": time_ms(lambda: L.recurrence_bwd(*bargs), reps=5),
+                            "loop_ms": loop_ms, "loop_us_per_step": loop_ms * 1e3 / 999})
+        del bargs
     rec["decoders"] = []
     for i, (label, t, u, a, al, m, b, steps) in enumerate(COMPARE_DECODES):
         sc = SpellerConfig(vocab_size=PRESET_VOCAB[WIDTH_PRESET], embedding_dim=128, num_layers=2, units=u,
@@ -1742,10 +1892,9 @@ def launch_counts(kernels) -> dict:
 
 
 # a wrapper's counts: all its launches, of them in bf16 mode, and through each
-# wide route (the VJP's float32 and bf16 rings; the grid layouts of the
-# listener's forward, of them in bf16, and of the decoder)
-COUNTERS = ("launches", "bf16_launches", "ring_launches", "bf16_ring_launches", "grid_launches",
-            "bf16_grid_launches")
+# wide route (the grid layouts of the listener's forward and of the VJP's
+# loop, of them in bf16, and of the decoder)
+COUNTERS = ("launches", "bf16_launches", "grid_launches", "bf16_grid_launches")
 ROUTE_COUNTERS = COUNTERS[2:]
 
 
@@ -3492,9 +3641,9 @@ MESH_LAYOUTS = ((2, 2), (2, 1))  # (data, model), ranks sharing the card over gl
 MESH_LOSS_TOL = 1e-4  # |Δloss| against the unsharded step (__graft_entry__.py's bound)
 MESH_GRAD_TOL = 5e-5  # each gradient leaf's max |d| over its max |g| (the same)
 MESH_TIMED_STEPS = 1
-NCCL_STEPS = 2
+NCCL_STEPS = 1  # cut from 2 to keep the script in its time limit
 NCCL_TOL = 1e-6  # the NCCL world-1 trainer against the plain one, relative
-MESH_CLI_STEPS = 2
+MESH_CLI_STEPS = 1  # cut from 2 likewise
 MESH_TRAIN_UTTS = 128  # prepare speechlike for cli.train --mesh (32 held out)
 DP_DEVICES = ("cuda:0", "cuda:0")  # two shards, or two replicas, on the one card
 REPLICA_BATCH, REPLICA_CLIENTS = 8, 8
@@ -4783,14 +4932,17 @@ WIDTH_FLAGS = {
 WIDTH_UNITS = (264, 320, 512, 1024, 100)  # 13a: the listener kernels against their plain versions, both modes
 WIDTH_KERNEL_T, WIDTH_KERNEL_B = 24, 32  # ... on ragged lengths 1..T
 WIDE_UNITS, WIDE_T = (1032, 1280, 2048), 250  # 13a: past 1024 (fault C10), both modes, at T = 250
-# 13a: the grid layout in passes of rows (a launch each): (U, B, the modes whose every plan takes several)
+# 13a: the grid layouts (the forward's, the VJP's) in passes of rows (a launch each): (U, B, the modes whose
+# every plan takes several)
 PASS_CASES = ((1024, 130, ("highest", "bf16")), (448, 100, ("bf16",)))
 WIDTH_TIMED = ((1024, "highest"), (512, "highest"), (1024, "bf16"))  # 13a: T = 999, with cuDNN beside
 WIDTH_REPS = 5  # ... timed as the median of 5 runs (the plain versions once)
 # 13a: each kernel's two routes in turns on one card (``compare_routes``): the forward's template
 # (its slice of wh streamed) against the grid layout the plan takes past 256 (bf16: 384); the VJP's
-# template against its ring, the plan's past RING_UNITS (bf16: RING_UNITS_BF16)
+# template against its grid layout, the plan's past GRID_UNITS_BWD (bf16: RING_UNITS_BF16), and at
+# ROUTE_C1_UNITS the grid layout in single blocks (C = 1) against the planner's clusters
 ROUTE_CASES = WIDTH_TIMED + ((512, "bf16"), (448, "bf16"))
+ROUTE_C1_UNITS = (1024,)
 ROUTE_REPS = 3  # ... each turn the median of 3 launches
 # 13a: the decoder kernel at B = 32, 200 steps: (label, T_enc, U, A, AL, M)
 WIDTH_DECODES = (("W1024", 219, 1024, 1024, 256, 2048), ("W1024", 438, 1024, 1024, 256, 2048),
@@ -4827,55 +4979,6 @@ W2048_ROWS, W2048_SAMPLES = 8, 32000
 W2048_TRAIN_B, W2048_TRAIN_SAMPLES = 4, 32000
 
 
-def check_ring_ragged(t, b, u, seed, phase="13a", prec="highest"):
-    """The VJP's ring kernels at a width whose plan takes the template
-    (float32 U = 264, 320, 512; bf16 U = 264, 320), through the ring's plan
-    (``ring=True``), one and two directions, on a batch that is no multiple
-    of its tile with lengths 1..T, against the plain version at the gates
-    of ``check_lstm_bwd_ragged`` (bitwise repeatable, masked steps pass no
-    gradient); each plan's shared memory held to the mirror's."""
-    from phones_las_torch.ops import lstm as L
-    from phones_las_torch.ops.masking import length_mask
-
-    g = torch.Generator(device=DEV).manual_seed(seed)
-    rnd = lambda *shape: torch.randn(shape, generator=g, device=DEV)
-    lengths = torch.randint(1, t + 1, (b,), generator=g, device=DEV)
-    lengths[0], lengths[1] = t, 1
-    mask = length_mask(lengths, t).transpose(0, 1).contiguous()
-    bf16 = prec == "bf16"
-    vjp_tol = 3e-2 if bf16 else 1e-4
-    ok, vjp_err, plans = True, 0.0, []
-    for nd in (1, 2):
-        xps = [rnd(t, b, 4 * u) for _ in range(nd)]
-        whs = [rnd(u, 4 * u) / u ** 0.5 for _ in range(nd)]
-        rev = [False, True][:nd] if nd == 2 else [True]
-        want = L.recurrence_residual_plain(xps, mask, whs, 1.0, rev, prec)
-        bargs = (xps, mask, whs, [r[1] for r in want], [r[2] for r in want], [rnd(t, b, u) for _ in range(nd)],
-                 [rnd(b, u) for _ in range(nd)], [rnd(b, u) for _ in range(nd)], 1.0, rev, prec)
-        plan = L.backward_plan(b, u, nd, prec, lambda p: L.backward_kernel_info(bf16, p)["max_active_clusters"],
-                               ring=True)
-        got = L._launch_backward(*bargs, plan=plan)
-        again = L._launch_backward(*bargs, plan=plan)
-        pwant = L.recurrence_bwd_plain(*bargs)
-        torch.cuda.synchronize()
-        err = max(rel_err(k, p) for kg, pg in zip(got, pwant) for k, p in zip(kg, pg))
-        same = all(torch.equal(x, y) for kg, ag in zip(got, again) for x, y in zip(kg, ag))
-        dead = all(float((kg[0] * (1.0 - mask)[:, :, None]).abs().max()) == 0.0 for kg in got)
-        info = L.backward_kernel_info(bf16, plan)
-        plans.append({"entry": "plt_lstm_bwd", "nd": nd, "plan": plan, "smem_bytes": info["smem_bytes"],
-                      "registers": info["registers"], "max_active_clusters": info["max_active_clusters"]})
-        ok = ok and err <= vjp_tol and same and dead and info["smem_bytes"] == plan.smem and plan.ring
-        vjp_err = max(vjp_err, err)
-    rec = {"phase": phase, "kernel": "the VJP's ring kernels, ragged", "shape": f"T={t} B={b} U={u} lengths 1..{t}",
-           "prec": prec, "vjp_max_rel_to_max": vjp_err,
-           "tol": f"dxp, dwh max|d|/max|plain| <= {vjp_tol}, bitwise repeatable",
-           "plans": plans, "ok": ok}
-    emit(rec)
-    if not ok:
-        fail(f"a VJP ring kernel disagrees with its plain version (or the mirror's bytes) on a ragged case: {rec}")
-    return rec
-
-
 def route_plan_record(plan, b: int, nd: int, info: dict) -> dict:
     """A plan of the listener kernels as 13a prints it: the cut, the
     clusters of the launch against what the card runs at once, the waves;
@@ -4883,8 +4986,7 @@ def route_plan_record(plan, b: int, nd: int, info: dict) -> dict:
     if getattr(plan, "grid", None) is not None:
         return {"grid": plan.grid._asdict(), "kernel_units": plan.units, **info}
     clusters = -(-b // plan.bt) * nd
-    return {"cluster": plan.cluster, "bt": plan.bt, "ksplit": plan.ksplit, "ring": getattr(plan, "ring", False),
-            "wh_in_smem": plan.resident, "kernel_units": plan.units, "clusters": clusters,
+    return {"cluster": plan.cluster, "bt": plan.bt, "ksplit": plan.ksplit, "wh_in_smem": plan.resident, "kernel_units": plan.units, "clusters": clusters,
             "max_active_clusters": info["max_active_clusters"],
             "waves": -(-clusters // info["max_active_clusters"]), "smem_bytes": info["smem_bytes"],
             "registers": info["registers"]}
@@ -4896,13 +4998,16 @@ def compare_routes(u: int, seed: int, prec: str = "highest") -> list:
     card (template, other, other, template): the forward kernels under the
     template (``layout="template"``: each block's slice of wh streamed by
     its threads' loads) and the grid layout (the plan past the resident
-    widths); the VJP's loop under the template (``ring=False``) and the ring
-    (``ring=True``): each plan with its cut (clusters, ``max_active_clusters``
-    and waves; the grid's blocks, resident share and passes), the ms, and
-    the SM cycles a step spends in each part; the two routes' outputs
-    against each other and which was faster. The plain versions and the
-    gates are the other records'; the rings the grid layout replaced are
-    read against it by ``--compare``."""
+    widths); the VJP's loop under the template (``layout="template"``) and
+    its grid layout (``layout="grid"``), and at ``ROUTE_C1_UNITS`` the grid
+    layout cut in single blocks (C = 1) beside the planner's clusters: each
+    plan with its cut (clusters, ``max_active_clusters`` and waves; the
+    grid's blocks, clusters, resident share and passes), the ms, and the SM
+    cycles a step spends in each part (the grid loop's: cell gradients,
+    arrival, product, barrier, intake, exchange, partials); the routes'
+    outputs against each other and which was faster. The plain versions
+    and the gates are the other records'; the rings the grid layouts
+    replaced are read against them by ``--compare``."""
     from phones_las_torch.ops import lstm as L
     from phones_las_torch.ops.masking import length_mask
 
@@ -4960,28 +5065,32 @@ def compare_routes(u: int, seed: int, prec: str = "highest") -> list:
     res = L.recurrence_residual(xps, mask, whs, 1.0, [False, True], prec)
     bargs = (xps, mask, whs, [r[1] for r in res], [r[2] for r in res], [rnd(t, TRAIN_B, u) for _ in range(2)],
              [rnd(TRAIN_B, u) for _ in range(2)], [rnd(TRAIN_B, u) for _ in range(2)], 1.0, [False, True], prec)
-    active = lambda p: L.backward_kernel_info(prec == "bf16", p)["max_active_clusters"]
-    plans = {"template": L.backward_plan(TRAIN_B, u, 2, prec, active, ring=False),
-             "ring": L.backward_plan(TRAIN_B, u, 2, prec, active, ring=True)}
+    bf16 = prec == "bf16"
+    active = functools.partial(L.backward_held, bf16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {"template": L.backward_plan(TRAIN_B, u, 2, prec, active, layout="template", sms=sms),
+             "grid": L.backward_plan(TRAIN_B, u, 2, prec, active, layout="grid", sms=sms)}
+    if u in ROUTE_C1_UNITS:
+        plans["grid, C = 1"] = L._as_backward_plan(L.grid_bwd_plan(TRAIN_B, u, 2, prec, sms, clusters=(1,)), 2, prec)
     outs = {name: L._launch_backward(*bargs, plan=plan) for name, plan in plans.items()}
     torch.cuda.synchronize()
-    diff = max(rel_err(x, y) for kt, kr in zip(outs["template"], outs["ring"]) for x, y in zip(kt, kr))
-    loops = {"template": [], "ring": []}
-    for name in ("template", "ring", "ring", "template"):
+    diff = max(rel_err(x, y) for name in plans if name != "grid"
+               for kt, kr in zip(outs[name], outs["grid"]) for x, y in zip(kt, kr))
+    del outs
+    loops = {name: [] for name in plans}
+    for name in list(plans) + list(plans)[::-1]:
         for _ in range(ROUTE_REPS):
             part = []
             L._launch_backward(*bargs, plan=plans[name], part_ms=part)
             loops[name].append(part[1])
     routes = {}
     for name, plan in plans.items():
-        clocks = torch.zeros(len(BWD_CLOCKS), dtype=torch.int64, device=DEV)
-        L._launch_backward(*bargs, plan=plan, clocks=clocks)
-        torch.cuda.synchronize()
+        _, cycles = loop_reading(L, bargs, plan, 0)
         loop_ms = statistics.median(loops[name])
-        routes[name] = {**route_plan_record(plan, TRAIN_B, 2, L.backward_kernel_info(prec == "bf16", plan)),
-                        "loop_ms": loop_ms, "us_per_step": loop_ms * 1e3 / t,
-                        "cycles_per_step": dict(zip(BWD_CLOCKS, (c / t for c in clocks.tolist())))}
-    recs.append({"phase": "13a", "kernel": "recurrence_bwd (the loop)", "what": "the streamed slice's two routes (template, ring), in turns",
+        routes[name] = {**route_plan_record(plan, TRAIN_B, 2, L.backward_kernel_info(bf16, plan)),
+                        "loop_ms": loop_ms, "us_per_step": loop_ms * 1e3 / t, "cycles_per_step": cycles}
+    recs.append({"phase": "13a", "kernel": "recurrence_bwd (the loop)",
+                 "what": "the template's streamed slice and the grid layout (and its single blocks), in turns",
                  "shape": f"T={t} B={TRAIN_B} U={u} nd=2 prec={prec}", "routes": routes,
                  "max_rel_diff_between_routes": diff,
                  "faster": min(routes, key=lambda k: routes[k]["loop_ms"])})
@@ -4997,9 +5106,10 @@ def width_flags_argv(name: str) -> list:
 def check_width_kernels(work) -> dict:
     """Phase 13a: the listener kernels at U = 264, 320, 512, 1024 and 100
     (the forward past 256, bf16 past 384, through the grid layout; the
-    VJP's rings; the padding path) and past 1024 against their plain
-    versions in both modes on ragged lengths, the grid layout also in
-    passes of rows (``PASS_CASES``); timed at T = 999 beside cuDNN at U =
+    VJP's loop past 512, bf16 past 384, through its grid layout; the
+    padding path) and past 1024 against their plain versions in both modes
+    on ragged lengths, the grid layouts also in passes of rows
+    (``PASS_CASES``); timed at T = 999 beside cuDNN at U =
     1024 and 512 in float32 and at 1024 in bf16; each kernel's two routes
     in turns (``compare_routes``); the decoder kernel at W1024's speller (the grid
     layout), with an attention layer of 1024, and at the LAS paper's (the
@@ -5013,15 +5123,12 @@ def check_width_kernels(work) -> dict:
     for i, u in enumerate(WIDTH_UNITS):
         fwd.append(check_lstm_ragged(WIDTH_KERNEL_T, WIDTH_KERNEL_B, u, 130 + i, phase="13a"))
         vjp.append(check_lstm_bwd_ragged(WIDTH_KERNEL_T, WIDTH_KERNEL_B, u, 140 + i, phase="13a"))
-        if 256 < u <= L.RING_UNITS:  # where the plan takes the template, the ring's plan too
-            check_ring_ragged(WIDTH_KERNEL_T, WIDTH_KERNEL_B, u, 190 + i)
-        if 256 < u <= L.RING_UNITS_BF16:
-            check_ring_ragged(WIDTH_KERNEL_T, WIDTH_KERNEL_B, u, 195 + i, prec="bf16")
     for i, u in enumerate(WIDE_UNITS):  # every route past 1024 (fault C10)
         fwd.append(check_lstm_ragged(WIDE_T, WIDTH_KERNEL_B, u, 200 + i, phase="13a"))
         vjp.append(check_lstm_bwd_ragged(WIDE_T, WIDTH_KERNEL_B, u, 210 + i, phase="13a"))
     for i, (u, b, modes) in enumerate(PASS_CASES):
         fwd.append(check_lstm_ragged(WIDTH_KERNEL_T, b, u, 220 + i, phase="13a", passes_in=modes))
+        vjp.append(check_lstm_bwd_ragged(WIDTH_KERNEL_T, b, u, 225 + i, phase="13a", passes_in=modes))
     emit({"phase": "13a", "what": "listener kernels at the new widths against their plain versions",
           "forward_max_abs_err": {r["shape"]: r["max_abs_err"] for r in fwd},
           "vjp_max_rel_to_max": {r["shape"]: r["max_rel_to_max"] for r in vjp},
@@ -5189,15 +5296,17 @@ def summed(counts: list) -> dict:
 
 
 def train_widths(work, kernels, card, name="W1024", modes=("parity", "production"), b=WIDTH_TRAIN_B,
-                 samples=WIDTH_TRAIN_SAMPLES, phase="13c") -> tuple:
+                 samples=WIDTH_TRAIN_SAMPLES, phase="13c", beside=None) -> tuple:
     """Phase 13c (library): one ``Trainer.train_step`` of W1024 at B = 8 ×
     <= 4 s (13d: of W2048 in production at B = 4 × <= 2 s), dropout and
     sampling off, card against the CPU plain path: the loss within 1e-5 relative in parity,
     1e-4 in production (TF32 on the card only), every term finite, the
-    residual and VJP kernels once a listener layer, past U = 1024 the
-    forward through the grid layout and the VJP through its ring in either
-    mode → the card's launches and route counts
-    summed."""
+    residual and VJP kernels once a listener layer, past U = 1024 both
+    through their grid layouts in either mode; for W1024 then, as readings,
+    a warm step timed in its parts (``split_step``) and one more backward
+    profiled (``vjp_share``: the VJP's kernels' device ms in it), and
+    whether the process ``beside`` (13c's ``cli.train``) was still running
+    on the card then → the card's launches and route counts summed."""
     from phones_las_torch.train.loop import Trainer
 
     device = None if DEV == "cuda" else DEV
@@ -5224,6 +5333,10 @@ def train_widths(work, kernels, card, name="W1024", modes=("parity", "production
                 runs["card_step_ms"] = (time.perf_counter() - t0) * 1e3
                 launches.append(launch_counts(kernels))
                 routes.append(route_counts(kernels))
+                if name == "W1024":  # readings of warm steps after the held one
+                    runs["warm_step_split_ms"] = split_step(tr, batch)
+                    runs["warm_backward"] = vjp_share(tr, batch)
+                    runs["cli_train_running_beside"] = beside is not None and beside.poll() is None
             del tr
         tol = LOSS_TOL if mode == "parity" else PROD_LOSS_TOL
         err = abs(runs["card"]["loss"] - runs["cpu"]["loss"]) / abs(runs["cpu"]["loss"])
@@ -5234,10 +5347,10 @@ def train_widths(work, kernels, card, name="W1024", modes=("parity", "production
         if DEV == "cuda" and (la["fused_logmel"], la["recurrence_residual"], la["recurrence_bwd"]) != (
                 1, n_layers, n_layers):
             bad.append(f"{mode}: launches")
-        ring, grid = ("bf16_ring", "bf16_grid") if mode == "production" else ("ring", "grid")
+        grid = "bf16_grid" if mode == "production" else "grid"
         if DEV == "cuda" and cfg.listener.units > 1024 and (
-                ro[f"recurrence_residual {grid}"], ro[f"recurrence_bwd {ring}"]) != (n_layers, n_layers):
-            bad.append(f"{mode}: the {grid} and {ring} routes")
+                ro[f"recurrence_residual {grid}"], ro[f"recurrence_bwd {grid}"]) != (n_layers, n_layers):
+            bad.append(f"{mode}: the {grid} routes")
     rec["card"] = card
     emit(rec)
     if bad:
@@ -5407,8 +5520,8 @@ def check_widths(kernels, card, artifacts) -> dict:
     """Phase 13, in a temporary directory under ``_runs/`` removed at the
     end → {"launches", "routes": the card's launches and route counts of
     13b–13d's model runs summed, "records": the timed records of the wide
-    routes (13a's ring at U = 1024 in each mode, the decoder's grid layout
-    at W1024)}. 13c's records are prepared by a process that runs
+    routes (13a's listener kernels at U = 1024 in each mode, the decoder's
+    grid layout at W1024)}. 13c's records are prepared by a process that runs
     beside 13a, and its ``cli.train`` beside 13b and 13c's library step;
     every process it starts is stopped."""
     import shutil
@@ -5425,7 +5538,7 @@ def check_widths(kernels, card, artifacts) -> dict:
         run, train, t0 = start_width_train(work, data, started[0], started)
         parts = [serve_widths(work, kernels, card, artifacts)]
         with torch.enable_grad():
-            parts.append(train_widths(work, kernels, card))
+            parts.append(train_widths(work, kernels, card, beside=train))
             parts.append(drive_wide_lstm_layer(kernels))
         check_width_clis(data, run, train, t0, card)
         # ---- 13d: past the old limits: long encoder sequences, U = 2048
@@ -5704,6 +5817,10 @@ def main() -> int:
                          what="the flagship shape: the held layout (the plan) against the grid layout, a reading")
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--sweep-vjp"]:
+        sweep_grid_vjp()
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--presets"]:
         audio64 = torch.from_numpy(make_audio(FLAGSHIP_B)).to(DEV)
         memory, _, enc_mask = encode(params, cfg, audio64, torch.full((FLAGSHIP_B,), audio64.shape[1],
@@ -5906,7 +6023,7 @@ def main() -> int:
     emit({"phase": "end", "wall_s": round(time.perf_counter() - T0, 1)})
     lstm_cu = "phones_las_torch/csrc/lstm.cu"
     # each wide route a kernel of its own in the line: the listener's grid
-    # layout (the forward) and the VJP's rings (U = 1024 at T = 999 as 13a
+    # layouts (the forward's, the VJP's loop's; U = 1024 at T = 999 as 13a
     # times them; the one-direction forward at B = 32) and the decoder's grid
     # layout (13a's W1024 at T_enc 219), with the launches phase 13's model
     # runs (13b–13d: W1024, W2048, the 690 s call; 13c's lstm_layer) made
@@ -5915,15 +6032,12 @@ def main() -> int:
     route_entries = []
     for prec, label in (("highest", "float32"), ("bf16", "bf16")):
         timed = wrec["u1024"][prec]
-        for name, line in (("bidir_recurrence", 269), ("recurrence", 164), ("recurrence_residual", 485)):
+        for name, line in (("bidir_recurrence", 269), ("recurrence", 164), ("recurrence_residual", 485),
+                           ("recurrence_bwd", 536)):
             grid = wroutes[f"{name} bf16_grid"]
             route_entries.append(kernel_entry(f"{name} (grid layout, {label}, U = 1024)", lstm_cu,
                                               f"phones_las_tpu/ops/lstm.py:{line}", timed[name],
                                               grid if prec == "bf16" else wroutes[f"{name} grid"] - grid))
-        ring = "bf16_ring" if prec == "bf16" else "ring"
-        route_entries.append(kernel_entry(f"recurrence_bwd ({label} ring, U = 1024)", lstm_cu,
-                                          "phones_las_tpu/ops/lstm.py:536", timed["recurrence_bwd"],
-                                          wroutes[f"recurrence_bwd {ring}"]))
     route_entries.append(kernel_entry("greedy_decode_fused (grid layout)", "phones_las_torch/csrc/greedy.cu",
                                       "phones_las_tpu/decode/pallas_greedy.py:134", wrec["grid"],
                                       wroutes["greedy_decode_fused grid"]))

@@ -59,9 +59,12 @@ _SIGNATURES = {
     # xp0, xp1, mask, wh0, wh1, whg0, whg1, wht0, wht1, hprev0, hprev1, cprev0, cprev1,
     # dout0, dout1, dhfin0, dhfin1, dcfin0, dcfin1, nd, rev_bits, wh_bf16,
     # dxp0, dxp1, fac0, fac1, dwh0, dwh1, partials, dwh_split, T, B, U,
-    # forget_bias, cluster, bt, ksplit, resident, clocks, part_ms, stream
+    # forget_bias, cluster, bt, ksplit, route, npass, cuts, ws, ws_pass, clocks,
+    # part_ms, stream
     "plt_lstm_bwd": (_P,) * 19 + (_I, _I, _I) + (_P,) * 7 + (_I, _I, _I, _I, _F)
-                    + (_I,) * 4 + (_P, _P, _P),
+                    + (_I,) * 5 + (_P, _P, ctypes.c_longlong, _P, _P, _P),
+    # U, nd, wh_bf16, cut, info[5]
+    "plt_lstm_bwd_grid_info": (_I, _I, _I, _P, _P),
     # keys, mem, mask, B, T, A, M, emb, V, E, wq, v, attn_w, AL, out_w,
     # out_b, cell_ptrs, n_cells, U, bos, eos, steps, cluster, layout, act, ws,
     # cut, tokens, info[4], clocks, stream

@@ -159,21 +159,17 @@
 // loop it would double the loop's product.
 // C = 1 serves the widths no cluster divides (U = 40; at U = 248 the slice
 // streams from L2); past U = 256 in float32 the slices of a cluster stream
-// from L2 at every step by the forward's two routes: the template's loads up
-// to U = 512, past it the ring (lstm_bwd_ring_kernel: the slice of Wh^T
-// through the ring, a thread's 4 units of the partial dh for every row of
-// the tile sent to their owner from its registers, 4 ceil(U / 1024) units
-// past U = 1024 so that 256 threads hold all U; at B = 32, U = 1024, 4
-// clusters of 16 at Bt = 16 where the template ran 8 of 8 at Bt = 8); in
-// bf16 past RING_UNITS_BF16 the bf16 ring (lstm_bwd_ring_bf16_kernel: the
-// partial dh on the tensor cores, each accumulator's two units sent to
-// their owner). Past U = 2048 the loop has no plan: a chunk of four rows of
-// Wh^T (U floats each) passes a 32 KB slot, and in bf16 a warp's n-tiles of
-// the U-wide partial dh pass the 32 its kernels are built for. The
-// caller chooses the route, C, Bt, the k split and residency from the shape
-// (ops/lstm.py::backward_plan); this file refuses what does not fit. The
-// two GEMMs take any U of the range (columns by blocks of 32 units, rows of
-// T*B).
+// from L2 at every step by the threads' loads, up to GRID_UNITS_BWD = 512
+// (ops/lstm.py: on the H100 the template read faster there, PERF.md). Past
+// it in float32, and past RING_UNITS_BF16 = 384 in bf16, the loop takes the
+// grid layout (lstm_bwd_grid_kernel, lstm_bwd_grid_bf16_kernel, below: the
+// whole card holds Wh^T, the gate gradients move) up to MAX_UNITS = 2048. It
+// replaced the rings (a cluster of 16 that streamed its whole slice of Wh^T
+// from L2 every step), which it beat in turns at every shape they served
+// (PERF.md). The caller chooses the route, C, Bt, the k split and residency
+// (the grid layout's cut) from the shape (ops/lstm.py::backward_plan); this
+// file refuses what does not fit. The two GEMMs take any U of the range
+// (columns by blocks of 32 units, rows of T*B).
 //
 // Prediction, made before the first run on the card (H100, T = 999, B = 32,
 // U = 256, both directions, C = 8, Bt = 8: 8 clusters): the loop's product
@@ -194,6 +190,7 @@
 #include <cuda_runtime.h>
 
 #include <type_traits>
+#include <utility>
 
 #include "grid_sync.cuh"
 
@@ -694,105 +691,20 @@ lstm_fwd_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, int U, 
   }
 }
 
-// ------------------------------------------- the ring (the VJP's streamed float32 slice)
+// ------------------------------------------- the ring of bulk copies (the grid kernels' intake)
 //
-// The VJP's loop past U = 512 (lstm_bwd_ring_kernel, below; the forward
-// takes the grid layout there). A block's slice of Wh^T
-// arrives in chunks of whole rows (k) through a ring of
+// A grid block's moving operand (and the chunks of its wh slice that do not
+// fit in shared memory) arrive in chunks of whole k rows through a ring of
 // shared-memory slots: one producer warp keeps the slots filled with bulk
-// copies (cp.async.bulk, counted on a transaction barrier a slot, wh kept in
-// L2 by an evict_last hint) and walks the slice over and over, step after
-// step, so the next step's first chunks arrive while this step's cell update
-// and exchange run; eight consumer warps multiply each chunk as it lands
-// and release its slot. A consumer thread owns 4 columns for all Bt rows
-// of the tile (Bt * 4 float32 sums in registers, each element read once
-// from shared memory a step), and where the columns leave threads idle the
-// threads form KS k parts: part p takes the chunks p, p + KS, ... of a pass
-// whole, each part with two slots of its own; the parts meet in one
-// buffer, added in part order.
+// copies (cp.async.bulk, counted on a transaction barrier a slot), eight
+// consumer warps multiply each chunk as it lands and release its slot.
 
 constexpr int RING_WARPS = FWD_THREADS / 32;     // consumer warps
 constexpr int RING_THREADS = FWD_THREADS + 32;   // and the producer warp
-constexpr int RING_CHUNK_MAX = 32768;           // bytes of a ring slot at most
-constexpr int RING_KS_MAX = 8;                   // k parts at most
-constexpr int RING_SLOTS = 2 * RING_KS_MAX;      // two slots a part
-// the dynamic shared memory a ring kernel may take: its barriers are static
-constexpr size_t RING_SMEM_MAX = SMEM_MAX - 1024;
-
-struct Ring {
-  int KC, nch, NS;  // rows of a chunk, chunks a pass over the slice, slots
-  size_t slot;      // bytes of a slot
-};
-
-// the ring in the shared memory left after `used` bytes, over a depth of K
-// rows of `row_bytes`: two slots for each of the KS parts (one chunk in
-// flight while the other is multiplied; three slots of smaller chunks
-// measured slower), chunks of the most rows (a multiple of 4) that fit, at
-// most RING_CHUNK_MAX bytes and the rows a part takes in a pass; KC < 4
-// means it does not fit. ops/lstm.py::ring_slots mirrors it.
-__host__ __device__ inline Ring ring_after(size_t used, int row_bytes, int KS, int K) {
-  Ring r;
-  r.NS = 2 * KS;
-  size_t per = used < RING_SMEM_MAX ? (RING_SMEM_MAX - used) / r.NS : 0;
-  if (per > RING_CHUNK_MAX) per = RING_CHUNK_MAX;
-  const int share = ((K + KS - 1) / KS + 3) / 4 * 4;
-  const int kc = (int)(per / row_bytes) / 4 * 4;
-  r.KC = kc < share ? kc : share;
-  r.nch = r.KC > 0 ? (K + r.KC - 1) / r.KC : 0;
-  r.slot = (size_t)r.KC * row_bytes;
-  return r;
-}
-
-// The bf16 ring: the VJP's slice of Wh ([Np][Nc], the units by the block's
-// gate columns) is stored in the
-// order the tensor cores' B fragments read it (ops/lstm.py::ring_fragments):
-// k steps of 16, each holding the 8-column tiles of the slice, each 32 lanes
-// x 4 values, so a lane's fragment is one 8-byte load, the warp's 256
-// contiguous bytes. The tiles are cut into KS pieces (a piece = NT / KS
-// tiles, the part of the consumer warps that multiply it), and a chunk is
-// KC k steps of one piece: the pass is the KC-step groups in order, each
-// group piece after piece, and part p takes the chunks c = p (mod KS), as
-// the float32 ring's k parts do. Two slots a part where they fit, else one
-// slot more than there are parts (KC >= 1 k step either way).
-__host__ __device__ inline Ring ring_bf16(size_t used, int kstep_bytes, int KS, int K16) {
-  Ring r;
-  for (int t = 0; t < 2; ++t) {
-    r.NS = t == 0 ? 2 * KS : KS + 1;
-    size_t per = used < RING_SMEM_MAX ? (RING_SMEM_MAX - used) / r.NS : 0;
-    if (per > RING_CHUNK_MAX) per = RING_CHUNK_MAX;
-    const int kc = (int)(per / kstep_bytes);
-    r.KC = kc < K16 ? kc : K16;
-    if (r.KC >= 1) break;
-  }
-  r.nch = r.KC > 0 ? (K16 + r.KC - 1) / r.KC * KS : 0;
-  r.slot = (size_t)r.KC * kstep_bytes;
-  return r;
-}
 
 // `n` arrivals at once
 __device__ __forceinline__ void mbar_arrive(unsigned bar, unsigned n) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(n) : "memory");
-}
-// one arrival on a barrier of a block of the cluster (a shared::cluster address)
-__device__ __forceinline__ void mbar_arrive_remote(unsigned bar) {
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// as mbar_wait, for a phase completed by the blocks of the cluster
-__device__ __forceinline__ bool mbar_done_cluster(unsigned bar, unsigned parity) {
-  unsigned ok;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-  return ok != 0;
-}
-__device__ __forceinline__ void mbar_wait_cluster(unsigned bar, unsigned parity) {
-  if (mbar_done_cluster(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_done_cluster(bar, parity))
-    if (clock64() - t0 > 4000000000LL) __trap();
 }
 __device__ __forceinline__ unsigned long long evict_last_policy() {
   unsigned long long p;
@@ -810,175 +722,6 @@ __device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigne
 // the consumer warps' own block barrier (the producer warp never joins it)
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(FWD_THREADS) : "memory");
-}
-
-// The producer: `passes` passes over a slice of K rows of `row_floats`
-// float32 values each, chunk after chunk, into the ring's slots
-__device__ __forceinline__ void ring_produce(const float* src, int passes, int K, int row_floats,
-                                            const Ring& r, unsigned ring0,
-                                            unsigned long long* full, unsigned long long* empty) {
-  const unsigned long long policy = evict_last_policy();
-  int slot = 0, round = 0;
-  for (int pass = 0; pass < passes; ++pass)
-    for (int i = 0; i < r.nch; ++i) {
-      // the slot's previous chunk has been released by every consumer warp
-      if (round > 0) mbar_wait(smem_addr(&empty[slot]), (round - 1) & 1);
-      const int rows = min(r.KC, K - i * r.KC);
-      const unsigned bytes = (unsigned)(rows * row_floats * 4);
-      const unsigned fb = smem_addr(&full[slot]);
-      mbar_expect(fb, bytes);
-      bulk_load(ring0 + (unsigned)(slot * r.slot), src + (size_t)i * r.KC * row_floats, bytes, fb,
-                policy);
-      if (++slot == r.NS) slot = 0, ++round;
-    }
-}
-
-// A consumer thread's share of the pass over the ring that starts at chunk
-// c0 (chunk c lies in slot c % NS): acc[r][4 j + i] = sum over the rows k of
-// the chunks c = part (mod KS) of a[r][k] * w[k][col0 + j * jstride + i]
-// (CW4 groups of 4 columns, jstride apart), a = [TR][lda] in shared memory
-// (row r of the tile). A thread waits for each of its chunks; the first lane
-// of each run of its part's lanes in a warp releases the chunk for all of
-// them (`same`: those lanes). `waited` gathers the cycles thread 0 of the
-// timed block spent waiting for chunks.
-template <int TR, int CW4 = 1>
-__device__ __forceinline__ void ring_consume(float (&acc)[TR][4 * CW4], const float* __restrict__ ring_s,
-                                             const Ring& r, int K, int ncols, int col0, int jstride,
-                                             const float* __restrict__ a, int lda, int part,
-                                             int KS, int c0, unsigned same,
-                                             unsigned long long* full, unsigned long long* empty,
-                                             bool timed, long long& waited) {
-#pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * CW4; ++j) acc[i][j] = 0.0f;
-  const bool leader = __ffs(same) - 1 == (int)(threadIdx.x & 31);
-  for (int c = c0 + ((part - c0 % KS) % KS + KS) % KS; c < c0 + r.nch; c += KS) {
-    const int slot = c % r.NS, i = c - c0;
-    const long long w0 = timed ? clock64() : 0;
-    mbar_wait(smem_addr(&full[slot]), (unsigned)(c / r.NS) & 1);
-    if (timed) waited += clock64() - w0;
-#pragma unroll
-    for (int j = 0; j < CW4; ++j) {
-      const float* wc = ring_s + slot * (r.slot / 4) + col0 + j * jstride;
-      const float* ak = a + i * r.KC;
-      const int k4n = min(r.KC, K - i * r.KC) / 4;
-#pragma unroll 2
-      for (int k4 = 0; k4 < k4n; ++k4) {
-        const float4 w0v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4) * ncols);
-        const float4 w1v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4 + 1) * ncols);
-        const float4 w2v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4 + 2) * ncols);
-        const float4 w3v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4 + 3) * ncols);
-#pragma unroll
-        for (int rr = 0; rr < TR; ++rr) {
-          const float4 hv = *reinterpret_cast<const float4*>(ak + rr * lda + 4 * k4);
-          acc[rr][4 * j] = fmaf(hv.x, w0v.x, acc[rr][4 * j]);
-          acc[rr][4 * j + 1] = fmaf(hv.x, w0v.y, acc[rr][4 * j + 1]);
-          acc[rr][4 * j + 2] = fmaf(hv.x, w0v.z, acc[rr][4 * j + 2]);
-          acc[rr][4 * j + 3] = fmaf(hv.x, w0v.w, acc[rr][4 * j + 3]);
-          acc[rr][4 * j] = fmaf(hv.y, w1v.x, acc[rr][4 * j]);
-          acc[rr][4 * j + 1] = fmaf(hv.y, w1v.y, acc[rr][4 * j + 1]);
-          acc[rr][4 * j + 2] = fmaf(hv.y, w1v.z, acc[rr][4 * j + 2]);
-          acc[rr][4 * j + 3] = fmaf(hv.y, w1v.w, acc[rr][4 * j + 3]);
-          acc[rr][4 * j] = fmaf(hv.z, w2v.x, acc[rr][4 * j]);
-          acc[rr][4 * j + 1] = fmaf(hv.z, w2v.y, acc[rr][4 * j + 1]);
-          acc[rr][4 * j + 2] = fmaf(hv.z, w2v.z, acc[rr][4 * j + 2]);
-          acc[rr][4 * j + 3] = fmaf(hv.z, w2v.w, acc[rr][4 * j + 3]);
-          acc[rr][4 * j] = fmaf(hv.w, w3v.x, acc[rr][4 * j]);
-          acc[rr][4 * j + 1] = fmaf(hv.w, w3v.y, acc[rr][4 * j + 1]);
-          acc[rr][4 * j + 2] = fmaf(hv.w, w3v.z, acc[rr][4 * j + 2]);
-          acc[rr][4 * j + 3] = fmaf(hv.w, w3v.w, acc[rr][4 * j + 3]);
-        }
-      }
-    }
-    __syncwarp(same);
-    if (leader) mbar_arrive(smem_addr(&empty[slot]), __popc(same));
-  }
-}
-
-// ------------------------------------------------ the bf16 ring (production mode)
-//
-// The VJP's bf16 streamed slice through the same ring: the producer warp
-// copies the fragment-ordered chunks (see ring_bf16), and each consumer
-// warp of part p multiplies every chunk of its piece as it lands on the
-// tensor cores (mma.sync m16n8k16, dgates rounded to bf16 in shared memory,
-// float32 accumulators kept in registers over the whole pass, the k steps
-// in order): its n-tiles are j WP + wl of the piece (WP warps a part, wl
-// its index among them, j < NTW). A chunk is half the bytes of a float32
-// one for the same k, and the threads spend no loads on it. Gate math and
-// cell state stay float32, as in the template.
-
-// The bf16 producer: `passes` passes over a slice of K16 k steps, KS pieces
-// of `kstep_bytes` a k step, chunk after chunk into the ring's slots
-__device__ __forceinline__ void ring_produce_bf16(const unsigned char* src, int passes, int K16, int KS,
-                                                 int kstep_bytes, const Ring& r, unsigned ring0,
-                                                 unsigned long long* full, unsigned long long* empty) {
-  const unsigned long long policy = evict_last_policy();
-  const size_t group = (size_t)r.KC * KS * kstep_bytes;  // bytes of a whole group of KC k steps
-  int slot = 0, round = 0;
-  for (int pass = 0; pass < passes; ++pass)
-    for (int i = 0; i < r.nch; ++i) {
-      const int kg = i / KS, piece = i - kg * KS;
-      const int kc = min(r.KC, K16 - kg * r.KC);
-      if (round > 0) mbar_wait(smem_addr(&empty[slot]), (round - 1) & 1);
-      const unsigned bytes = (unsigned)(kc * kstep_bytes);
-      const unsigned fb = smem_addr(&full[slot]);
-      mbar_expect(fb, bytes);
-      bulk_load(ring0 + (unsigned)(slot * r.slot), src + kg * group + (size_t)piece * kc * kstep_bytes, bytes,
-                fb, policy);
-      if (++slot == r.NS) slot = 0, ++round;
-    }
-}
-
-// A consumer warp's share of the pass over the bf16 ring that starts at
-// chunk c0 (a multiple of KS): d[j][m] = the product of the rows of m tile m
-// of a ([16 MT][lda] bf16) and n-tile j WP + wl of piece `part`, over every k
-// step, in order. Lane 0 releases each chunk for its warp.
-template <int MT, int NTW>
-__device__ __forceinline__ void ring_consume_bf16(float (&d)[NTW][MT][4], const unsigned char* ring_s,
-                                                  const Ring& r, int K16, int NTp, int wl, int WP,
-                                                  const __nv_bfloat16* __restrict__ a, int lda, int part,
-                                                  int KS, int c0, unsigned long long* full,
-                                                  unsigned long long* empty, bool timed, long long& waited) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NTW; ++j)
-#pragma unroll
-    for (int m = 0; m < MT; ++m) d[j][m][0] = d[j][m][1] = d[j][m][2] = d[j][m][3] = 0.0f;
-  for (int c = c0 + part; c < c0 + r.nch; c += KS) {
-    const int slot = c % r.NS, kg = (c - c0) / KS;
-    const long long w0 = timed ? clock64() : 0;
-    mbar_wait(smem_addr(&full[slot]), (unsigned)(c / r.NS) & 1);
-    if (timed) waited += clock64() - w0;
-    const uint2* wc = reinterpret_cast<const uint2*>(ring_s + slot * r.slot);
-    const int kc = min(r.KC, K16 - kg * r.KC);
-#pragma unroll 2
-    for (int ks = 0; ks < kc; ++ks) {
-      // every fragment of the k step first (a warp's tiles past the piece
-      // read its last tile's, and skip the product), so that their loads
-      // are in flight together and not one behind each product
-      const int k0 = (kg * r.KC + ks) * 16 + tig * 2;
-      unsigned af[MT][4];
-      uint2 bf[NTW];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const __nv_bfloat16* h0 = a + (size_t)(16 * m + g) * lda + k0;
-        af[m][0] = *reinterpret_cast<const unsigned*>(h0);
-        af[m][1] = *reinterpret_cast<const unsigned*>(h0 + 8 * lda);
-        af[m][2] = *reinterpret_cast<const unsigned*>(h0 + 8);
-        af[m][3] = *reinterpret_cast<const unsigned*>(h0 + 8 * lda + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < NTW; ++j) bf[j] = wc[(ks * NTp + min(j * WP + wl, NTp - 1)) * 32 + lane];
-#pragma unroll
-      for (int j = 0; j < NTW; ++j)
-        if (j * WP + wl < NTp)
-#pragma unroll
-          for (int m = 0; m < MT; ++m) mma_bf16(d[j][m], af[m], bf[j].x, bf[j].y);
-    }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(smem_addr(&empty[slot]), 32);
-  }
 }
 
 // ------------------------------------------------ the grid layout (past the resident widths)
@@ -1026,7 +769,7 @@ constexpr size_t GRID_SMEM_MAX = SMEM_MAX - 1024;  // dynamic shared memory: the
 // how one grid launch cuts the work: the caller's plan, for one pass of rows
 struct GridCut {
   int blocks;  // blocks of the launch: nd U / us
-  int us;      // units a block
+  int us;      // units a block (its cell update's)
   int rows;    // rows the layout holds: the pass's rows, zero rows past them
   int row0;    // the pass's first batch row
   int nrows;   // the pass's rows
@@ -1036,18 +779,25 @@ struct GridCut {
   int kp;      // the k range, padded to a multiple of kc ks
   int nres;    // chunks of the block's wh slice held in shared memory
   int ns;      // ring slots, a multiple of ks
+  int cl;      // blocks of a cluster (the VJP's loop; 1 in the forward)
 };
 
-// byte offsets of a block of the grid layout; ops/lstm.py::grid_smem_bytes mirrors it
+// byte offsets of a block of the grid layout; ops/lstm.py::grid_smem_bytes
+// and grid_bwd_smem_bytes mirror it
 struct GridLayout {
-  int Nc, ldh;                  // gate columns of a block; float32: the row stride of a staged h chunk
-  size_t hchunk, wchunk, slot;  // bytes of a chunk of h, of wh, and a ring slot
-  size_t w, ring, part, xp, cst, hst, total;
+  int Nc, ldh;                  // the product's columns; float32: the row stride of a staged operand chunk
+  size_t hchunk, wchunk, slot;  // bytes of a chunk of the moving operand (h, dgates), of wh, and a ring slot
+  int tile;                     // floats of a step's tile: xp and mask (forward), the factors (VJP)
+  size_t w, ring, part, recv, xp, cst, hst, total;
 };
 
-__host__ __device__ inline GridLayout grid_layout(const GridCut& g, bool bf) {
+// bwd: the VJP's loop, whose product is [rows][cl us] (the partial dh of its
+// cluster's units) over the 4 U / cl gate columns of its k piece; it keeps
+// the cluster's partials, two tiles of factors and dh, dc in place of the
+// forward's xp tile and h, c
+__host__ __device__ inline GridLayout grid_layout(const GridCut& g, bool bf, bool bwd = false) {
   GridLayout L;
-  L.Nc = 4 * g.us;
+  L.Nc = bwd ? g.cl * g.us : 4 * g.us;
   L.ldh = g.kc + 4;  // 16 bytes of padding: a warp's row tiles read rows in other banks
   if (bf) {
     L.hchunk = (size_t)(g.kc / 16) * (g.rows / 16) * 512;  // [k steps][row tiles][32 lanes][8 bf16]
@@ -1058,6 +808,9 @@ __host__ __device__ inline GridLayout grid_layout(const GridCut& g, bool bf) {
   }
   const bool streams = g.nres < g.kp / g.kc;
   L.slot = L.hchunk + (streams ? L.wchunk : 0);
+  // forward: [rows][4][us] xp of the step, then [rows] mask; VJP: [rows][4][us]
+  // factors Fi..Fo, then dout, A, sf [rows][us] each, then [rows] mask
+  L.tile = ((bwd ? g.rows * 7 * g.us : g.rows * L.Nc) + g.rows + 3) / 4 * 4;
   size_t off = 0;
   L.w = off;
   off += (size_t)g.nres * L.wchunk;
@@ -1065,14 +818,23 @@ __host__ __device__ inline GridLayout grid_layout(const GridCut& g, bool bf) {
   off += (size_t)g.ns * L.slot;
   L.part = off;  // [rows][Nc]: the product, its parts added in order
   off += (size_t)g.rows * L.Nc * 4;
-  L.xp = off;  // [rows][4][us] xp of the step, then [rows] mask
-  off += ((size_t)g.rows * L.Nc + g.rows + 3) / 4 * 16;
-  L.cst = off;  // [rows][us] float32 state
+  L.recv = off;  // VJP, cl > 1: [2][cl][rows][us] the cluster's partial dh of this block's units
+  if (bwd && g.cl > 1) off += (size_t)2 * g.cl * g.rows * g.us * 4;
+  L.xp = off;
+  off += (size_t)(bwd ? 2 : 1) * L.tile * 4;
+  L.cst = off;  // [rows][us] float32 state (VJP: dc)
   off += (size_t)g.rows * g.us * 4;
-  L.hst = off;
+  L.hst = off;  // VJP: (1 - m) dh, what a row keeps of dh
   off += (size_t)g.rows * g.us * 4;
   L.total = off;
   return L;
+}
+
+// the VJP's loop's workspace: the barrier's counter, then two dgates
+// buffers of every chunk of every piece of each direction; ops/lstm.py::
+// grid_bwd_ws_bytes mirrors it
+__host__ __device__ inline size_t grid_bwd_ws_bytes(int nd, const GridCut& g, bool bf) {
+  return GRID_WS_HEAD + (size_t)2 * nd * g.cl * (g.kp / g.kc) * grid_layout(g, bf, true).hchunk;
 }
 
 // a bulk copy without a cache hint (a chunk of h is read once a step by each block of a direction)
@@ -1081,19 +843,21 @@ __device__ __forceinline__ void bulk_load_plain(unsigned dst, const void* src, u
                ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
-// The producer of a grid block (one lane): step after step, once every
-// block has arrived at the step's barrier (step > 0), the h chunks of the
-// step in k order into the ring, each with its chunk of wh where that streams
-__device__ __forceinline__ void grid_produce(const GridCut& g, const GridLayout& L, int T, int nd, int d,
-                                             const unsigned char* hbufs, const unsigned char* wg,
+// The producer of a grid block (one lane): for each of `steps` products,
+// once every block has arrived at barrier step + after (none where that is
+// 0), the operand chunks of the step in k order into the ring, each with
+// its chunk of wh where that streams; the step's chunks lie at src, in the
+// buffer of its parity (buf_bytes apart)
+__device__ __forceinline__ void grid_produce(const GridCut& g, const GridLayout& L, int steps, int after,
+                                             const unsigned char* src, size_t buf_bytes, const unsigned char* wg,
                                              const unsigned* bar, unsigned ring0, unsigned long long* full,
                                              unsigned long long* empty) {
   const unsigned long long keep = evict_last_policy();
   const int nch = g.kp / g.kc;
   int slot = 0, round = 0;
-  for (int step = 0; step < T; ++step) {
-    if (step > 0) grid_wait(bar, (unsigned)step * gridDim.x);
-    const unsigned char* hb = hbufs + (size_t)((step & 1) * nd + d) * nch * L.hchunk;
+  for (int step = 0; step < steps; ++step) {
+    if (step + after > 0) grid_wait(bar, (unsigned)(step + after) * gridDim.x);
+    const unsigned char* hb = src + (size_t)(step & 1) * buf_bytes;
     for (int i = 0; i < nch; ++i) {
       if (round > 0) mbar_wait(smem_addr(&empty[slot]), (round - 1) & 1);
       const bool streamed = i >= g.nres;
@@ -1247,6 +1011,175 @@ __device__ __forceinline__ void grid_steps(const FwdArgs& a, const float* __rest
   }
 }
 
+// The float32 product of a grid block's step (true float32 FMAs): the
+// consumer thread of part p = tid / (256 / ks) takes 4 columns of the
+// product (column group q mod Nc / 4: one unit's 4 gate columns in the
+// forward, 4 units of the partial dh in the VJP) and TR rows (row tile rt =
+// q / (Nc / 4) takes rows rt, rt + nrt, ...: the row tiles of a warp read
+// rows one padded stride apart, in other banks) of its part's chunks (chunk
+// i of the step to part i mod ks), sums them in k order in registers; the
+// parts are then added in part order into part_s ([rows][Nc]), so a launch
+// is bitwise repeatable. Threads past nrt row tiles idle. first and later
+// gather the cycles thread 0 of the timed block waited for the step's first
+// chunk and for the others.
+template <int TR>
+__device__ __forceinline__ void grid_product_f32(const GridCut& g, const GridLayout& L, unsigned char* smem,
+                                                 unsigned long long* full, unsigned long long* empty, int step,
+                                                 bool timed, long long& first, long long& later) {
+  const int tid = threadIdx.x, lane = tid & 31, Nc = L.Nc, ncg = Nc / 4;
+  const int nch = g.kp / g.kc, tpp = FWD_THREADS / g.ks;
+  const int part = tid / tpp, q = tid - part * tpp;
+  const int nrt = tpp / ncg, u = q % ncg, rt = q / ncg;
+  const bool busy = rt < nrt;
+  const float* w_res = reinterpret_cast<const float*>(smem + L.w);
+  float* part_s = reinterpret_cast<float*>(smem + L.part);
+  const int kc4 = g.kc / 4, ldh = L.ldh;
+  float acc[TR][4];
+#pragma unroll
+  for (int j = 0; j < TR; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  for (int i = part; i < nch; i += g.ks) {
+    const int c = step * nch + i, slot = c % g.ns;
+    const long long w0 = timed ? clock64() : 0;
+    mbar_wait(smem_addr(&full[slot]), (unsigned)(c / g.ns) & 1);
+    if (timed) (i == 0 ? first : later) += clock64() - w0;
+    const unsigned char* sl = smem + L.ring + slot * L.slot;
+    const float* hs = reinterpret_cast<const float*>(sl) + rt * ldh;
+    const float* wc = (i < g.nres ? w_res + (size_t)i * g.kc * Nc : reinterpret_cast<const float*>(sl + L.hchunk)) +
+                      4 * u;
+    if (busy) {
+#pragma unroll 2
+      for (int k4 = 0; k4 < kc4; ++k4) {
+        const float4 w0v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4) * Nc);
+        const float4 w1v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4 + 1) * Nc);
+        const float4 w2v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4 + 2) * Nc);
+        const float4 w3v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4 + 3) * Nc);
+#pragma unroll
+        for (int j = 0; j < TR; ++j) {
+          const float4 hv = *reinterpret_cast<const float4*>(hs + (size_t)j * nrt * ldh + 4 * k4);
+          acc[j][0] = fmaf(hv.x, w0v.x, acc[j][0]);
+          acc[j][1] = fmaf(hv.x, w0v.y, acc[j][1]);
+          acc[j][2] = fmaf(hv.x, w0v.z, acc[j][2]);
+          acc[j][3] = fmaf(hv.x, w0v.w, acc[j][3]);
+          acc[j][0] = fmaf(hv.y, w1v.x, acc[j][0]);
+          acc[j][1] = fmaf(hv.y, w1v.y, acc[j][1]);
+          acc[j][2] = fmaf(hv.y, w1v.z, acc[j][2]);
+          acc[j][3] = fmaf(hv.y, w1v.w, acc[j][3]);
+          acc[j][0] = fmaf(hv.z, w2v.x, acc[j][0]);
+          acc[j][1] = fmaf(hv.z, w2v.y, acc[j][1]);
+          acc[j][2] = fmaf(hv.z, w2v.z, acc[j][2]);
+          acc[j][3] = fmaf(hv.z, w2v.w, acc[j][3]);
+          acc[j][0] = fmaf(hv.w, w3v.x, acc[j][0]);
+          acc[j][1] = fmaf(hv.w, w3v.y, acc[j][1]);
+          acc[j][2] = fmaf(hv.w, w3v.z, acc[j][2]);
+          acc[j][3] = fmaf(hv.w, w3v.w, acc[j][3]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_addr(&empty[slot]), 32);
+  }
+  cp_async_wait_all();  // this step's tile, requested a step ago
+  for (int p = 0; p < g.ks; ++p) {  // the parts into part_s, in part order
+    if (part == p && busy) {
+#pragma unroll
+      for (int j = 0; j < TR; ++j) {
+        float4* dst = reinterpret_cast<float4*>(part_s + (size_t)(rt + j * nrt) * Nc + 4 * u);
+        float4 v = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+        if (p > 0) {
+          const float4 s = *dst;
+          v = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+        }
+        *dst = v;
+      }
+    }
+    consumers_sync();
+  }
+}
+
+// The bf16 product of a grid block's step (mma.sync m16n8k16, float32
+// accumulators): a part's warps split the n-tiles of the product's columns
+// (n-tile j WP + wl, j < NTW, WP = 8 / ks warps a part), each warp takes all
+// MT row tiles of its part's chunks; the operand chunk is in the A
+// fragments' order, wh in the B fragments'; the parts are added in part
+// order into part_s, as grid_product_f32's.
+template <int MT, int NTW>
+__device__ __forceinline__ void grid_product_bf16(const GridCut& g, const GridLayout& L, unsigned char* smem,
+                                                  unsigned long long* full, unsigned long long* empty, int step,
+                                                  bool timed, long long& first, long long& later) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, Nc = L.Nc;
+  const int nch = g.kp / g.kc, NT = Nc / 8, kc16 = g.kc / 16;
+  const int WP = RING_WARPS / g.ks, part = warp / WP, wl = warp - part * WP;
+  const int gq = lane >> 2, tig = lane & 3;
+  const uint2* w_res = reinterpret_cast<const uint2*>(smem + L.w);
+  float* part_s = reinterpret_cast<float*>(smem + L.part);
+  float acc[MT][NTW][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.0f;
+  for (int i = part; i < nch; i += g.ks) {
+    const int c = step * nch + i, slot = c % g.ns;
+    const long long w0 = timed ? clock64() : 0;
+    mbar_wait(smem_addr(&full[slot]), (unsigned)(c / g.ns) & 1);
+    if (timed) (i == 0 ? first : later) += clock64() - w0;
+    const unsigned char* sl = smem + L.ring + slot * L.slot;
+    const uint4* hf = reinterpret_cast<const uint4*>(sl);
+    const uint2* wf = i < g.nres ? w_res + (size_t)i * kc16 * NT * 32 : reinterpret_cast<const uint2*>(sl + L.hchunk);
+#pragma unroll 2
+    for (int s = 0; s < kc16; ++s) {
+      // every fragment of the k step first, so that their loads are in flight together
+      unsigned af[MT][4];
+      uint2 bf[NTW];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const uint4 v = hf[(s * MT + m) * 32 + lane];
+        af[m][0] = v.x, af[m][1] = v.y, af[m][2] = v.z, af[m][3] = v.w;
+      }
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) bf[j] = wf[(s * NT + min(j * WP + wl, NT - 1)) * 32 + lane];
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+        if (j * WP + wl < NT)
+#pragma unroll
+          for (int m = 0; m < MT; ++m) mma_bf16(acc[m][j], af[m], bf[j].x, bf[j].y);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_addr(&empty[slot]), 32);
+  }
+  cp_async_wait_all();  // this step's tile, requested a step ago
+  for (int p = 0; p < g.ks; ++p) {  // the parts into part_s, in part order
+    if (part == p) {
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        const int nt = j * WP + wl;
+        if (nt >= NT) continue;
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            float2* dst = reinterpret_cast<float2*>(part_s + (size_t)(16 * m + gq + 8 * hi) * Nc + nt * 8 + tig * 2);
+            float2 v = make_float2(acc[m][j][2 * hi], acc[m][j][2 * hi + 1]);
+            if (p > 0) {
+              const float2 s = *dst;
+              v = make_float2(s.x + v.x, s.y + v.y);
+            }
+            *dst = v;
+          }
+      }
+    }
+    consumers_sync();
+  }
+}
+
+// the word of an A fragment buffer ([k steps][MT row tiles][32 lanes][4
+// words]) that holds the bf16 pair (k, k + 1) of `row` (k even): k step k /
+// 16, row tile row / 16, lane 4 (row mod 8) + (k mod 8) / 2, register (row
+// mod 16) / 8 + 2 ((k mod 16) / 8)
+__device__ __forceinline__ size_t a_frag_word(int mt, int row, int k) {
+  const int r = row & 15, kk = k & 15;
+  return (((size_t)(k >> 4) * mt + (row >> 4)) * 32 + (r & 7) * 4 + ((kk & 7) >> 1)) * 4 + (r >> 3) + 2 * (kk >> 3);
+}
+
 // the float32 grid kernel: a consumer thread takes one unit's 4 gate
 // columns and TR rows of its part's chunks; the residuals are saved where
 // the entry gives hprev
@@ -1260,97 +1193,32 @@ lstm_grid_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, int U,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int Us = g.us, Nc = L.Nc, per_dir = U / Us, nd = gridDim.x / per_dir;
   const int d = blockIdx.x / per_dir, slice = blockIdx.x - d * per_dir;
-  const int nch = g.kp / g.kc, tpp = FWD_THREADS / g.ks;
+  const int nch = g.kp / g.kc;
   unsigned* bar = reinterpret_cast<unsigned*>(ws);
   unsigned char* hbufs = ws + GRID_WS_HEAD;  // [2][nd][nch] chunks of [rows][kc + 4] floats
   const unsigned char* wg = static_cast<const unsigned char*>(a.wh[d]) + (size_t)slice * g.kp * Nc * 4;
-  grid_setup(g, L, wg, grid_smem, full_bar, empty_bar, tpp);
+  grid_setup(g, L, wg, grid_smem, full_bar, empty_bar, FWD_THREADS / g.ks);
   if (warp == RING_WARPS) {
     if (lane == 0)
-      grid_produce(g, L, T, nd, d, hbufs, wg, bar, smem_addr(grid_smem + L.ring), full_bar, empty_bar);
+      grid_produce(g, L, T, 0, hbufs + (size_t)d * nch * L.hchunk, (size_t)nd * nch * L.hchunk, wg, bar,
+                   smem_addr(grid_smem + L.ring), full_bar, empty_bar);
     return;
   }
-  const int part = tid / tpp, q = tid - part * tpp;
-  const int nrt = tpp / Us, u = q % Us, rt = q / Us;
-  const bool busy = rt < nrt;  // threads past nrt row tiles of Us units idle
-  const float* w_res = reinterpret_cast<const float*>(grid_smem + L.w);
-  float* part_s = reinterpret_cast<float*>(grid_smem + L.part);
-  const int kc4 = g.kc / 4, ldh = L.ldh;
-
   auto product = [&](int step, bool timed, long long& first, long long& later) {
-    float acc[TR][4];
-#pragma unroll
-    for (int j = 0; j < TR; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-    for (int i = part; i < nch; i += g.ks) {
-      const int c = step * nch + i, slot = c % g.ns;
-      const long long w0 = timed ? clock64() : 0;
-      mbar_wait(smem_addr(&full_bar[slot]), (unsigned)(c / g.ns) & 1);
-      if (timed) (i == 0 ? first : later) += clock64() - w0;
-      const unsigned char* sl = grid_smem + L.ring + slot * L.slot;
-      const float* hs = reinterpret_cast<const float*>(sl) + rt * ldh;
-      const float* wc = (i < g.nres ? w_res + (size_t)i * g.kc * Nc : reinterpret_cast<const float*>(sl + L.hchunk)) +
-                        4 * u;
-      if (busy) {
-#pragma unroll 2
-        for (int k4 = 0; k4 < kc4; ++k4) {
-          const float4 w0v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4) * Nc);
-          const float4 w1v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4 + 1) * Nc);
-          const float4 w2v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4 + 2) * Nc);
-          const float4 w3v = *reinterpret_cast<const float4*>(wc + (size_t)(4 * k4 + 3) * Nc);
-#pragma unroll
-          for (int j = 0; j < TR; ++j) {
-            const float4 hv = *reinterpret_cast<const float4*>(hs + (size_t)j * nrt * ldh + 4 * k4);
-            acc[j][0] = fmaf(hv.x, w0v.x, acc[j][0]);
-            acc[j][1] = fmaf(hv.x, w0v.y, acc[j][1]);
-            acc[j][2] = fmaf(hv.x, w0v.z, acc[j][2]);
-            acc[j][3] = fmaf(hv.x, w0v.w, acc[j][3]);
-            acc[j][0] = fmaf(hv.y, w1v.x, acc[j][0]);
-            acc[j][1] = fmaf(hv.y, w1v.y, acc[j][1]);
-            acc[j][2] = fmaf(hv.y, w1v.z, acc[j][2]);
-            acc[j][3] = fmaf(hv.y, w1v.w, acc[j][3]);
-            acc[j][0] = fmaf(hv.z, w2v.x, acc[j][0]);
-            acc[j][1] = fmaf(hv.z, w2v.y, acc[j][1]);
-            acc[j][2] = fmaf(hv.z, w2v.z, acc[j][2]);
-            acc[j][3] = fmaf(hv.z, w2v.w, acc[j][3]);
-            acc[j][0] = fmaf(hv.w, w3v.x, acc[j][0]);
-            acc[j][1] = fmaf(hv.w, w3v.y, acc[j][1]);
-            acc[j][2] = fmaf(hv.w, w3v.z, acc[j][2]);
-            acc[j][3] = fmaf(hv.w, w3v.w, acc[j][3]);
-          }
-        }
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(smem_addr(&empty_bar[slot]), 32);
-    }
-    cp_async_wait_all();  // this step's xp tile, requested a step ago
-    for (int p = 0; p < g.ks; ++p) {  // the parts into part_s, in part order
-      if (part == p && busy) {
-#pragma unroll
-        for (int j = 0; j < TR; ++j) {
-          float4* dst = reinterpret_cast<float4*>(part_s + (size_t)(rt + j * nrt) * Nc + 4 * u);
-          float4 v = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
-          if (p > 0) {
-            const float4 s = *dst;
-            v = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
-          }
-          *dst = v;
-        }
-      }
-      consumers_sync();
-    }
+    grid_product_f32<TR>(g, L, grid_smem, full_bar, empty_bar, step, timed, first, later);
   };
   // two units' h of a row into h buffer `buf`: [chunk][rows][kc + 4] floats
   auto put_h = [&](int buf, int row, int k, float2 h) {
     float* hb = reinterpret_cast<float*>(hbufs + (size_t)(buf * nd + d) * nch * L.hchunk);
     const int ch = k / g.kc;
-    *reinterpret_cast<float2*>(hb + ((size_t)ch * g.rows + row) * ldh + (k - ch * g.kc)) = h;
+    *reinterpret_cast<float2*>(hb + ((size_t)ch * g.rows + row) * L.ldh + (k - ch * g.kc)) = h;
   };
   grid_steps<float>(a, mask, T, B, U, g, L, d, slice, fb, bar, grid_smem, product, put_h, clocks);
 }
 
 // the bf16 grid kernel: a part's warps split the n-tiles of the block's
-// columns (n-tile j WP + wl, j < NTW, WP = 8 / ks warps a part), each warp
-// takes all MT row tiles of its part's chunks on the tensor cores
+// columns, each warp takes all MT row tiles of its part's chunks on the
+// tensor cores (grid_product_bf16)
 template <int MT, int NTW>
 __global__ void __launch_bounds__(RING_THREADS, 1)
 lstm_grid_bf16_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, int U, GridCut g, float fb,
@@ -1361,90 +1229,25 @@ lstm_grid_bf16_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, i
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int Us = g.us, Nc = L.Nc, per_dir = U / Us, nd = gridDim.x / per_dir;
   const int d = blockIdx.x / per_dir, slice = blockIdx.x - d * per_dir;
-  const int nch = g.kp / g.kc, NT = Nc / 8, kc16 = g.kc / 16;
+  const int nch = g.kp / g.kc;
   unsigned* bar = reinterpret_cast<unsigned*>(ws);
   unsigned char* hbufs = ws + GRID_WS_HEAD;  // [2][nd][k steps][MT][32 lanes][8 bf16]: A fragments
   const unsigned char* wg = static_cast<const unsigned char*>(a.wh[d]) + (size_t)slice * g.kp * Nc * 2;
   grid_setup(g, L, wg, grid_smem, full_bar, empty_bar, FWD_THREADS / g.ks);
   if (warp == RING_WARPS) {
     if (lane == 0)
-      grid_produce(g, L, T, nd, d, hbufs, wg, bar, smem_addr(grid_smem + L.ring), full_bar, empty_bar);
+      grid_produce(g, L, T, 0, hbufs + (size_t)d * nch * L.hchunk, (size_t)nd * nch * L.hchunk, wg, bar,
+                   smem_addr(grid_smem + L.ring), full_bar, empty_bar);
     return;
   }
-  const int WP = RING_WARPS / g.ks, part = warp / WP, wl = warp - part * WP;
-  const int gq = lane >> 2, tig = lane & 3;
-  const uint2* w_res = reinterpret_cast<const uint2*>(grid_smem + L.w);
-  float* part_s = reinterpret_cast<float*>(grid_smem + L.part);
-
   auto product = [&](int step, bool timed, long long& first, long long& later) {
-    float acc[MT][NTW][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int j = 0; j < NTW; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.0f;
-    for (int i = part; i < nch; i += g.ks) {
-      const int c = step * nch + i, slot = c % g.ns;
-      const long long w0 = timed ? clock64() : 0;
-      mbar_wait(smem_addr(&full_bar[slot]), (unsigned)(c / g.ns) & 1);
-      if (timed) (i == 0 ? first : later) += clock64() - w0;
-      const unsigned char* sl = grid_smem + L.ring + slot * L.slot;
-      const uint4* hf = reinterpret_cast<const uint4*>(sl);
-      const uint2* wf = i < g.nres ? w_res + (size_t)i * kc16 * NT * 32 : reinterpret_cast<const uint2*>(sl + L.hchunk);
-#pragma unroll 2
-      for (int s = 0; s < kc16; ++s) {
-        // every fragment of the k step first, so that their loads are in flight together
-        unsigned af[MT][4];
-        uint2 bf[NTW];
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const uint4 v = hf[(s * MT + m) * 32 + lane];
-          af[m][0] = v.x, af[m][1] = v.y, af[m][2] = v.z, af[m][3] = v.w;
-        }
-#pragma unroll
-        for (int j = 0; j < NTW; ++j) bf[j] = wf[(s * NT + min(j * WP + wl, NT - 1)) * 32 + lane];
-#pragma unroll
-        for (int j = 0; j < NTW; ++j)
-          if (j * WP + wl < NT)
-#pragma unroll
-            for (int m = 0; m < MT; ++m) mma_bf16(acc[m][j], af[m], bf[j].x, bf[j].y);
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(smem_addr(&empty_bar[slot]), 32);
-    }
-    cp_async_wait_all();  // this step's xp tile, requested a step ago
-    for (int p = 0; p < g.ks; ++p) {  // the parts into part_s, in part order
-      if (part == p) {
-#pragma unroll
-        for (int j = 0; j < NTW; ++j) {
-          const int nt = j * WP + wl;
-          if (nt >= NT) continue;
-#pragma unroll
-          for (int m = 0; m < MT; ++m)
-#pragma unroll
-            for (int hi = 0; hi < 2; ++hi) {
-              float2* dst = reinterpret_cast<float2*>(part_s + (size_t)(16 * m + gq + 8 * hi) * Nc + nt * 8 + tig * 2);
-              float2 v = make_float2(acc[m][j][2 * hi], acc[m][j][2 * hi + 1]);
-              if (p > 0) {
-                const float2 s = *dst;
-                v = make_float2(s.x + v.x, s.y + v.y);
-              }
-              *dst = v;
-            }
-        }
-      }
-      consumers_sync();
-    }
+    grid_product_bf16<MT, NTW>(g, L, grid_smem, full_bar, empty_bar, step, timed, first, later);
   };
-  // two units' h of a row, rounded to bf16, into h buffer `buf` at their
-  // place in the A fragments: k step k / 16, row tile row / 16, lane
-  // 4 (row mod 8) + (k mod 8) / 2, register (row mod 16) / 8 + 2 ((k mod 16) / 8)
+  // two units' h of a row, rounded to bf16, into h buffer `buf` at their place in the A fragments
   auto put_h = [&](int buf, int row, int k, float2 h) {
     unsigned* hb = reinterpret_cast<unsigned*>(hbufs + (size_t)(buf * nd + d) * nch * L.hchunk);
-    const int r = row & 15, kk = k & 15;
-    const size_t word = (((size_t)(k >> 4) * MT + (row >> 4)) * 32 + (r & 7) * 4 + ((kk & 7) >> 1)) * 4 +
-                        (r >> 3) + 2 * (kk >> 3);
     __nv_bfloat162 v = __floats2bfloat162_rn(h.x, h.y);
-    hb[word] = *reinterpret_cast<unsigned*>(&v);
+    hb[a_frag_word(MT, row, k)] = *reinterpret_cast<unsigned*>(&v);
   };
   grid_steps<__nv_bfloat16>(a, mask, T, B, U, g, L, d, slice, fb, bar, grid_smem, product, put_h, clocks);
 }
@@ -1820,7 +1623,6 @@ struct BwdPlan {
   int Bt;        // batch rows of a cluster's tile (8 or 16)
   int KS;        // float32: parts the k range (the block's gate columns) is split into
   int resident;  // the block's slice of Wh^T lies in shared memory
-  int ring;      // float32: the slice streams through a ring of bulk copies (lstm_bwd_ring_kernel)
 };
 // tiles of factors, dout and mask a block keeps: one in use, one in flight,
 // requested a whole step before its use (a third measured no faster)
@@ -2074,148 +1876,122 @@ lstm_bwd_kernel(BwdArgs a, const float* __restrict__ mask, int T, int B, int U, 
   cluster.sync();  // no block leaves while a peer may still address it
 }
 
-// byte offsets of a block of the streamed loop; ops/lstm.py::ring_slots mirrors it
-struct BwdRingLayout {
-  int Us, Nc, tile, Np, ldg, MT;
-  Ring r;
-  size_t recv, dg, part, tl, dh, dc, ring, total;
-};
+// ------------------------------------------------ the VJP's loop in the grid layout (past the resident widths)
+//
+// One cooperative launch of at most one block an SM, in clusters of cl
+// blocks (cl = 1, 2, 4 or 8; a launch in clusters only where the card takes
+// a cooperative launch made so and holds all its clusters at once, which
+// the planner asks before it plans one: ops/lstm.py::backward_plan). The
+// product dgates @ Wh^T is cut twice. The U output units of a direction (the
+// units of dh) split into G groups of Ug = cl us units, a cluster each;
+// inside a cluster the k range, the direction's 4U gate columns, splits into
+// cl pieces of 4 U / cl: piece r is the gate columns of the unit run [r U /
+// cl, (r + 1) U / cl), k = 4 j + gate for its unit j (the four gates of a
+// unit side by side). Block (group g, rank r) holds the tile Wh^T[piece r,
+// units of group g] in shared memory as far as it fits (ops/lstm.py::
+// grid_wht; 4 U^2 / blocks a direction elements whatever cl: at U = 1024
+// 128 KB in bf16, all of it, 256 KB in float32, of which the rest streams
+// each step through the ring beside the dgates it multiplies), and owns the
+// us units g Ug + r us + [0, us) for the cell gradients. Per step a block
+//   1. takes the dh of its units: with cl > 1 the cluster's cl partials,
+//      added in rank order (st.async onto a transaction barrier, double
+//      buffered, as lstm_bwd_kernel's exchange), with cl = 1 its own
+//      product; forms dh', dc', dgates and what a row keeps of dh and dc
+//      from the step's factors (requested a step ahead, as the template's);
+//   2. writes dgates to dxp[t] and, for the product, into a double-buffered
+//      workspace in the operand's type and layout, chunk after chunk of each
+//      piece's k order: float32 [rows][kc + 4], bf16 the A fragments. The
+//      float32 dgates are copied rather than read from dxp: a piece's k
+//      order gathers four gate columns U apart, which no bulk copy of dxp
+//      holds together;
+//   3. arrives at one grid barrier (grid_sync.cuh);
+//   4. its producer warp takes in the step's dgates of its piece for all the
+//      pass's rows, chunk by chunk in k order, with bulk copies through the
+//      ring (grid_produce), and the consumer warps multiply each chunk by
+//      its tile as it lands (grid_product_f32 / grid_product_bf16, shared
+//      with the forward): k chunks dealt to parts, parts added in order, so
+//      a launch is bitwise repeatable;
+//   5. with cl > 1, sends each block of its cluster that block's units of
+//      the partial dh (16 bytes a store).
+// The last step has no product. Only dgates (and with cl > 1 the partial dh
+// in the cluster) move each step: a block takes in rows x 4U / cl of them
+// (cl = 1: every gate column of its direction), the cost the planner weighs
+// against the exchange (ops/lstm.py::_grid_bwd_step_cycles). Double
+// buffering makes one barrier a step enough, as the forward's h: a block
+// writes dgates(s + 1) after its product of step s, which needed every
+// block's arrival of step s, made after that block had consumed its chunks
+// of step s - 1. The partials of step s + 1 land in the buffer the cell
+// gradients of step s - 1 read, which every block had left before barrier
+// s. A block reads only its own units' columns of dxp (the factors of
+// kernel 1 on entry). Rows past the pass's stay zero; padded units and k
+// stay exactly zero (zero rows of Wh, zero dgates).
 
-__host__ __device__ inline BwdRingLayout bwd_ring_layout(int U, BwdPlan p, bool bf = false) {
-  BwdRingLayout L;
-  L.Us = U / p.C;
-  L.Nc = 4 * L.Us;
-  L.Np = (U + 15) / 16 * 16;
-  L.ldg = bf ? L.Nc + 8 : L.Nc;
-  L.MT = (p.Bt + 15) / 16;
-  size_t off = 0;
-  L.recv = off;  // [C][Bt][Us] partial dh of this block's units, one slot a sender
-  off += (size_t)p.Bt * U * 4;
-  L.dg = off;  // dgates of the step, the product's operand: [Bt][Nc] float32, or bf16 [16 MT][ldg]
-  off += bf ? (size_t)16 * L.MT * L.ldg * 2 : (size_t)p.Bt * L.Nc * 4;
-  L.part = off;  // [Bt][U]: the k parts but the last, added in order (float32, KS > 1 only)
-  if (!bf && p.KS > 1) off += (size_t)p.Bt * U * 4;
-  L.tile = p.Bt * (L.Nc + 3 * L.Us) + p.Bt;  // as bwd_layout's ring tile: one, a step ahead
-  L.tl = off;
-  off += (size_t)L.tile * 4;
-  L.dh = off;
-  off += (size_t)p.Bt * L.Us * 4;
-  L.dc = off;
-  off += (size_t)p.Bt * L.Us * 4;
-  L.ring = off;
-  L.r = bf ? ring_bf16(off, L.Np / 8 / p.KS * 256, p.KS, L.Nc / 16) : ring_after(off, U * 4, p.KS, L.Nc);
-  L.total = off + (size_t)L.r.NS * L.r.slot;
-  return L;
-}
+constexpr int GRID_BWD_CLOCKS = 7;
 
-// the streamed loop: as lstm_bwd_kernel, float32, the tile's Bt = TR rows a
-// consumer thread, the slice of Wh^T ([Nc][U], a row a gate column) through
-// the ring; a thread owns CW4 groups of 4 units of the partial dh (U / CW4
-// apart; CW4 = ceil(U / 1024), so that U / (4 CW4) threads hold all U) for
-// all rows and sends them to their owners itself (the last k part's thread,
-// after the others' sum)
-template <int TR, int CW4>
-__global__ void __launch_bounds__(RING_THREADS, 1)
-lstm_bwd_ring_kernel(BwdArgs a, const float* __restrict__ mask, int T, int B, int U, BwdPlan plan,
-                     long long* __restrict__ clocks) {
-  extern __shared__ __align__(16) unsigned char bwd_ring_smem[];
-  __shared__ __align__(8) unsigned long long full_bar[RING_SLOTS], empty_bar[RING_SLOTS];
-  __shared__ __align__(8) unsigned long long pfull_bar, pfree_bar;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = plan.C, KS = plan.KS;
-  constexpr int Bt = TR;
-  const int rank = (int)cluster.block_rank();
-  const int d = blockIdx.y;
-  const int row0 = (blockIdx.x / C) * Bt;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const BwdRingLayout L = bwd_ring_layout(U, plan);
-  const int Us = L.Us, Nc = L.Nc, G = 4 * U;
-
+// The consumer threads of a grid loop block, step after step, around their
+// product (`product(step, timed, first, later)`, into part_s) and
+// `put_dg(buf, row, u, dg)`, which stores the four dgates of the block's unit
+// u of a row into dgates buffer `buf` for the product.
+template <class Product, class PutDg>
+__device__ __forceinline__ void bwd_grid_steps(const BwdArgs& a, const float* __restrict__ mask, int T, int B,
+                                               int U, const GridCut& g, const GridLayout& L, int d, int rank,
+                                               int u_off, unsigned char* smem, unsigned* bar,
+                                               unsigned long long* rbar, Product product, PutDg put_dg,
+                                               long long* clocks) {
+  const int tid = threadIdx.x, us = g.us, cl = g.cl, Nc = L.Nc, rows = g.rows, G4 = 4 * U;
   float* dxp = a.dxp[d];  // the factors Fi, Ff, Fg, Fo of every step on entry, dgates on exit
   const float* __restrict__ dout = a.dout[d];
   const float* __restrict__ fac = a.fac[d];
   const bool reverse = a.reverse[d] != 0;
-  const float* wg = static_cast<const float*>(a.whg[d]) + (size_t)rank * Nc * U;
+  const float* part_s = reinterpret_cast<const float*>(smem + L.part);
+  float* recv_s = reinterpret_cast<float*>(smem + L.recv);
+  float* tiles = reinterpret_cast<float*>(smem + L.xp);
+  float* dc_st = reinterpret_cast<float*>(smem + L.cst);
+  float* dh_st = reinterpret_cast<float*>(smem + L.hst);
+  const int nq = rows * us, uq = us / 4, nrq = g.nrows * uq;
+  const int o_dout = rows * 4 * us, o_fa = o_dout + nq, o_fs = o_fa + nq, o_mask = o_fs + nq;
 
-  float* recv_s = reinterpret_cast<float*>(bwd_ring_smem + L.recv);
-  float* dg_s = reinterpret_cast<float*>(bwd_ring_smem + L.dg);
-  float* part_s = reinterpret_cast<float*>(bwd_ring_smem + L.part);
-  float* tl = reinterpret_cast<float*>(bwd_ring_smem + L.tl);
-  float* dh_st = reinterpret_cast<float*>(bwd_ring_smem + L.dh);  // (1-m)*dh: what a row keeps of dh
-  float* dc_st = reinterpret_cast<float*>(bwd_ring_smem + L.dc);
-  const float* ring_s = reinterpret_cast<const float*>(bwd_ring_smem + L.ring);
-  const int nq = Bt * Us;
-  const Div by_us(Us), by_uq(Us / 4), by_q4(nq / 4);
-  const int o_dout = Bt * Nc, o_fa = o_dout + nq, o_fs = o_fa + nq, o_mask = o_fs + nq;
-
-  // everything but the ring starts at zero: rows past B are never loaded
-  for (size_t i = tid; i < L.ring / 16; i += RING_THREADS)
-    reinterpret_cast<float4*>(bwd_ring_smem)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  __syncthreads();
-  for (int q = tid; q < nq; q += RING_THREADS) {
-    const int row = q / Us, u = q - row * Us;
-    if (row0 + row >= B) continue;
-    const size_t idx = (size_t)(row0 + row) * U + rank * Us + u;
+  for (int q = tid; q < g.nrows * us; q += FWD_THREADS) {
+    const int row = q / us, u = q - row * us;
+    const size_t idx = (size_t)(g.row0 + row) * U + u_off + u;
     dh_st[q] = a.dhfin[d][idx];
     dc_st[q] = a.dcfin[d][idx];
   }
-  const int uqn = Us / 4;
-  // what step t needs of this block's units for the tile's rows -> tl (consumer threads)
-  auto prefetch = [&](int t) {
-    for (int i = tid; i < nq; i += FWD_THREADS) {
-      const int row = by_us.quot(i), rem = i - row * Us;
-      const int gate = by_uq.quot(rem), j = rem - gate * uqn;
-      if (row0 + row < B)
-        cp_async16(tl + row * Nc + gate * Us + 4 * j,
-                   dxp + ((size_t)t * B + row0 + row) * G + gate * U + rank * Us + 4 * j);
+  // what step t needs of this block's units for the pass's rows -> tile
+  // `buf`: the four factors of each unit, dout, A, sf, mask[t]
+  auto prefetch = [&](int t, int buf) {
+    float* dst = tiles + buf * L.tile;
+    for (int i = tid; i < g.nrows * us; i += FWD_THREADS) {
+      const int row = i / us, rem = i - row * us;
+      const int gate = rem / uq, j = rem - gate * uq;
+      cp_async16(dst + row * 4 * us + gate * us + 4 * j,
+                 dxp + ((size_t)t * B + g.row0 + row) * G4 + gate * U + u_off + 4 * j);
     }
-    for (int i = tid; i < 3 * (nq / 4); i += FWD_THREADS) {
-      const int pt = by_q4.quot(i), r = i - pt * (nq / 4);
-      const int row = by_uq.quot(r), j = r - row * uqn;
-      if (row0 + row >= B) continue;
-      const size_t at = (size_t)t * B + row0 + row;
+    for (int i = tid; i < 3 * nrq; i += FWD_THREADS) {
+      const int pt = i / nrq, r = i - pt * nrq;
+      const int row = r / uq, j = r - row * uq;
+      const size_t at = (size_t)t * B + g.row0 + row;
       const float* src = pt == 0 ? dout + at * U : fac + at * 2 * U + (pt - 1) * U;
-      cp_async16(tl + o_dout + pt * nq + row * Us + 4 * j, src + rank * Us + 4 * j);
+      cp_async16(dst + o_dout + pt * nq + row * us + 4 * j, src + u_off + 4 * j);
     }
-    if (tid < Bt && row0 + tid < B) cp_async4(tl + o_mask + tid, mask + (size_t)t * B + row0 + tid);
+    for (int r = tid; r < g.nrows; r += FWD_THREADS) cp_async4(dst + o_mask + r, mask + (size_t)t * B + g.row0 + r);
     cp_async_commit();
   };
   auto time_of = [&](int step) { return reverse ? step : T - 1 - step; };  // opposite to the forward
-  if (tid < FWD_THREADS) prefetch(time_of(0));
-  const int ncg = U / (4 * CW4);  // a thread's CW4 x 4 units of the partial dh, all Bt rows; the k range in KS parts
-  const unsigned pfull = smem_addr(&pfull_bar), pfree = smem_addr(&pfree_bar);
-  const unsigned p_bytes = (unsigned)(Bt * U * 4);
-  if (tid == 0) {
-    for (int s = 0; s < L.r.NS; ++s) {
-      mbar_init(smem_addr(&full_bar[s]), 1);
-      mbar_init(smem_addr(&empty_bar[s]), ncg);  // the threads of one k part
-    }
-    mbar_init(pfull, 1);
-    mbar_init(pfree, C);  // one arrival from each block of the cluster a step
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if (T > 1) mbar_expect(pfull, p_bytes);  // step 1's partials
-  }
-  cluster.sync();
+  prefetch(time_of(0), 0);
+  cp_async_wait_all();
+  consumers_sync();
+  const unsigned rb0 = smem_addr(&rbar[0]), rb1 = smem_addr(&rbar[1]);
+  const unsigned p_bytes = (unsigned)(rows * Nc * 4);
 
-  if (warp == RING_WARPS) {  // the last step has no product
-    if ((tid & 31) == 0)
-      ring_produce(wg, T - 1, Nc, U, L.r, smem_addr(ring_s), full_bar, empty_bar);
-    __syncwarp();
-    cluster.sync();
-    return;
-  }
-
-  const int part = tid / ncg, cgi = tid - part * ncg;
-  const unsigned same = __match_any_sync(0xffffffffu, part);
-  const int jstride = 4 * ncg;  // floats between a thread's groups of units
-
-  // clocks (optional, 6 counters): SM cycles thread 0 of block (0, 0) spent
-  // forming dgates, in the product, adding and sending the partials,
-  // requesting the next tile, waiting for the peers' partials, and (out of
-  // the product) waiting for chunks of Wh^T
-  const bool timed = clocks != nullptr && tid == 0 && blockIdx.x == 0 && blockIdx.y == 0;
+  // clocks (optional, GRID_BWD_CLOCKS counters): SM cycles thread 0 of block
+  // 0 spent forming dgates, arriving and requesting the next tile, in the
+  // product, waiting for the step's first chunk (the grid barrier and its
+  // copy), waiting for later chunks, sending the partials, and waiting for
+  // the cluster's partials
+  const bool timed = clocks != nullptr && tid == 0 && blockIdx.x == 0;
   long long tick = timed ? clock64() : 0;
-  long long spent[6] = {};
+  long long spent[GRID_BWD_CLOCKS] = {};
   auto lap = [&](int i) {
     if (timed) {
       const long long now = clock64();
@@ -2224,284 +2000,178 @@ lstm_bwd_ring_kernel(BwdArgs a, const float* __restrict__ mask, int T, int B, in
     }
   };
   for (int step = 0; step < T; ++step) {
-    const int t = time_of(step);
-    if (step > 0) {
-      // as the forward's h: the barrier then counts the partials of step + 1,
-      // whose stores cannot come before this block has read these
-      mbar_wait(pfull, (step - 1) & 1);
-      if (tid == 0 && step + 1 < T) mbar_expect(pfull, p_bytes);
+    const int t = time_of(step), cur = step & 1, nxt = cur ^ 1;
+    if (cl > 1 && step > 0) {
+      // as lstm_bwd_kernel's: the buffer's barrier then expects step + 2
+      const unsigned rb = cur ? rb1 : rb0;
+      mbar_wait(rb, ((step - 1) >> 1) & 1);
+      if (tid == 0 && step + 2 < T) mbar_expect(rb, p_bytes);
     }
-    cp_async_wait_all();  // this step's tile
-    consumers_sync();
-    lap(4);
+    lap(6);
 
-    // 1. dh of this step, then dh', dc', dgates and what the row keeps
+    // 1-2. dh of this step, then dh', dc', dgates and what the row keeps
+    const float* tl = tiles + cur * L.tile;
+    const float* rc = recv_s + cur * cl * nq;
     for (int q = tid; q < nq; q += FWD_THREADS) {
-      const int row = by_us.quot(q), u = q - row * Us;
+      const int row = q / us, u = q - row * us;
       float dh = dh_st[q];
-      if (step > 0)
-        for (int r = 0; r < C; ++r) dh += recv_s[r * nq + q];  // in rank order
+      if (step > 0) {
+        if (cl == 1)
+          dh += part_s[row * Nc + u];
+        else
+          for (int r = 0; r < cl; ++r) dh += rc[r * nq + q];  // in rank order
+      }
       const float m = tl[o_mask + row];
       const float dc = dc_st[q];
       const float dh_tot = m * (tl[o_dout + q] + dh);
       const float dc_new = m * dc + dh_tot * tl[o_fa + q];
-      const float* f = tl + row * Nc + u;
-      const float dg[4] = {dc_new * f[0], dc_new * f[Us], dc_new * f[2 * Us], dh_tot * f[3 * Us]};
+      const float* f = tl + row * 4 * us + u;
+      const float dg[4] = {dc_new * f[0], dc_new * f[us], dc_new * f[2 * us], dh_tot * f[3 * us]};
       dh_st[q] = (1.0f - m) * dh;
       dc_st[q] = (1.0f - m) * dc + dc_new * tl[o_fs + q];
-      float* ds = dg_s + row * Nc + u;
-#pragma unroll
-      for (int gi = 0; gi < 4; ++gi) ds[gi * Us] = dg[gi];
-      if (row0 + row < B) {
-        float* gx = dxp + ((size_t)t * B + row0 + row) * G + rank * Us + u;
+      if (row < g.nrows) {  // rows past the pass stay zero, in the tiles and the dgates buffers
+        float* gx = dxp + ((size_t)t * B + g.row0 + row) * G4 + u_off + u;
 #pragma unroll
         for (int gi = 0; gi < 4; ++gi) gx[gi * U] = dg[gi];
+        if (step + 1 < T) put_dg(cur, row, u, dg);
       }
     }
     consumers_sync();
     lap(0);
-    // the partials are read and the tile is free: every block may send this
-    // one its next partials, and the next step's tile is requested
-    if (step + 1 < T) {
-      if (tid < C) mbar_arrive_remote(peer_addr(pfree, tid));
-      prefetch(time_of(step + 1));
-    }
-    lap(3);
     if (step + 1 == T) break;
 
-    // 2. partial dh of every unit from this block's gate columns
-    float acc[TR][4 * CW4];
-    long long waited = 0;
-    if (part < KS)
-      ring_consume<TR, CW4>(acc, ring_s, L.r, Nc, U, cgi * 4, jstride, dg_s, Nc, part, KS, step * L.r.nch,
-                            same, full_bar, empty_bar, timed, waited);
+    // 3. every consumer's dgates are stored: the block arrives at the
+    // barrier of this step; the next step's tile is requested
+    if (tid == 0) grid_arrive(bar);
+    prefetch(time_of(step + 1), nxt);
     lap(1);
-    if (timed) spent[1] -= waited, spent[5] += waited;
 
-    // 3. the k parts added in order, each thread's units to their owner
-    for (int g = 0; g + 1 < KS; ++g) {
-      if (part == g) {
-#pragma unroll
-        for (int j = 0; j < CW4; ++j)
-#pragma unroll
-          for (int r = 0; r < TR; ++r) {
-            float4* p = reinterpret_cast<float4*>(part_s + r * U + cgi * 4 + j * jstride);
-            float4 v = make_float4(acc[r][4 * j], acc[r][4 * j + 1], acc[r][4 * j + 2], acc[r][4 * j + 3]);
-            if (g > 0) {
-              const float4 s = *p;
-              v = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
-            }
-            *p = v;
-          }
-      }
-      consumers_sync();
-    }
-    if (part == KS - 1) {
-      mbar_wait_cluster(pfree, step & 1);  // every block has read this step's partials
-#pragma unroll
-      for (int j = 0; j < CW4; ++j) {
-        const int u0 = 4 * cgi + j * jstride, owner = by_us.quot(u0);  // the block that owns those units
-        const unsigned base = smem_addr(recv_s + rank * nq) + (unsigned)((u0 - owner * Us) * 4);
-        const unsigned bar = peer_addr(pfull, owner);
-#pragma unroll
-        for (int r = 0; r < TR; ++r) {
-          float4 v = make_float4(acc[r][4 * j], acc[r][4 * j + 1], acc[r][4 * j + 2], acc[r][4 * j + 3]);
-          if (KS > 1) {
-            const float4 s = *reinterpret_cast<const float4*>(part_s + r * U + u0);
-            v = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
-          }
-          store4_async(peer_addr(base + (unsigned)(r * Us * 4), owner), bar, v);
-        }
-      }
-    }
+    // 4. the partial dh of the cluster's units over this block's k piece
+    long long first = 0, later = 0;
+    product(step, timed, first, later);
     lap(2);
+    if (timed) spent[2] -= first + later, spent[3] += first, spent[4] += later;
+
+    // 5. each block of the cluster its units of the partial
+    if (cl > 1) {
+      const int c4n = Nc / 4;
+      const unsigned base = smem_addr(recv_s + (nxt * cl + rank) * nq);
+      const unsigned rb = nxt ? rb1 : rb0;
+      for (int i = tid; i < rows * c4n; i += FWD_THREADS) {
+        const int row = i / c4n, c4 = (i - row * c4n) * 4;
+        const int peer = c4 / us;
+        const float4 v = *reinterpret_cast<const float4*>(part_s + row * Nc + c4);
+        store4_async(peer_addr(base + (unsigned)((row * us + c4 - peer * us) * 4), peer), peer_addr(rb, peer), v);
+      }
+    }
+    lap(5);
   }
   if (timed)
-    for (int i = 0; i < 6; ++i) clocks[i] += spent[i];
-  cluster.sync();  // no block leaves while a peer may still address it
+    for (int i = 0; i < GRID_BWD_CLOCKS; ++i) clocks[i] += spent[i];
 }
 
-// the streamed bf16 loop: as lstm_bwd_ring_kernel, the product on the tensor
-// cores over the bf16 ring (the slice of Wh^T as [Np][Nc] fragments: the
-// n-tiles are units, k the block's gate columns); each thread sends the
-// partial dh of its accumulators' units (two a tile row) to their owners
+// The set-up both grid loop kernels share beside grid_setup's: the
+// partials' barriers, and (cl > 1) the cluster's sync before any block
+// stores into a peer
+__device__ __forceinline__ void bwd_grid_setup(const GridCut& g, int T, unsigned long long* rbar) {
+  if (g.cl > 1) {
+    if (threadIdx.x == 0) {
+      const unsigned p_bytes = (unsigned)(g.rows * g.cl * g.us * 4);
+      mbar_init(smem_addr(&rbar[0]), 1);
+      mbar_init(smem_addr(&rbar[1]), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      if (T > 1) mbar_expect(smem_addr(&rbar[1]), p_bytes);  // step 1's partials
+      if (T > 2) mbar_expect(smem_addr(&rbar[0]), p_bytes);  // step 2's
+    }
+    cg::this_cluster().sync();
+  }
+}
+
+// the float32 grid loop kernel: a consumer thread takes 4 units of the
+// partial dh and TR rows of its part's chunks of dgates (grid_product_f32)
+template <int TR>
+__global__ void __launch_bounds__(RING_THREADS, 1)
+lstm_bwd_grid_kernel(BwdArgs a, const float* __restrict__ mask, int T, int B, int U, GridCut g,
+                     unsigned char* ws, long long* __restrict__ clocks) {
+  extern __shared__ __align__(16) unsigned char grid_smem[];
+  __shared__ __align__(8) unsigned long long full_bar[GRID_SLOTS_MAX], empty_bar[GRID_SLOTS_MAX], rbar[2];
+  const GridLayout L = grid_layout(g, false, true);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, cl = g.cl;
+  const int per_dir = U / g.us, nd = gridDim.x / per_dir;
+  const int d = blockIdx.x / per_dir, b = blockIdx.x - d * per_dir, rank = b % cl;
+  const int piece = U / cl, nch = g.kp / g.kc;
+  const int u_off = b * g.us;  // group b / cl: units (b / cl) cl us + rank us + [0, us)
+  const int pc = u_off / piece, j0 = u_off - pc * piece;  // the k piece of this block's units, their first unit in it
+  unsigned* bar = reinterpret_cast<unsigned*>(ws);
+  unsigned char* dbufs = ws + GRID_WS_HEAD;  // [2][nd][cl pieces][nch] chunks of [rows][kc + 4] floats
+  const unsigned char* wg = static_cast<const unsigned char*>(a.whg[d]) + (size_t)b * g.kp * L.Nc * 4;
+  grid_setup(g, L, wg, grid_smem, full_bar, empty_bar, FWD_THREADS / g.ks);
+  bwd_grid_setup(g, T, rbar);
+  const size_t piece_bytes = (size_t)nch * L.hchunk;
+  if (warp == RING_WARPS) {
+    if (lane == 0)
+      grid_produce(g, L, T - 1, 1, dbufs + (size_t)(d * cl + rank) * piece_bytes, (size_t)nd * cl * piece_bytes, wg,
+                   bar, smem_addr(grid_smem + L.ring), full_bar, empty_bar);
+    __syncwarp();
+    if (cl > 1) cg::this_cluster().sync();  // no block leaves while a peer may still address it
+    return;
+  }
+  auto product = [&](int step, bool timed, long long& first, long long& later) {
+    grid_product_f32<TR>(g, L, grid_smem, full_bar, empty_bar, step, timed, first, later);
+  };
+  // the four dgates of unit u of a row at k = 4 (j0 + u) of piece pc: [chunk][rows][kc + 4] floats
+  auto put_dg = [&](int buf, int row, int u, const float (&dg)[4]) {
+    const int k = 4 * (j0 + u), ch = k / g.kc;
+    float* db = reinterpret_cast<float*>(dbufs + ((size_t)(buf * nd + d) * cl + pc) * piece_bytes + ch * L.hchunk);
+    *reinterpret_cast<float4*>(db + (size_t)row * L.ldh + (k - ch * g.kc)) = make_float4(dg[0], dg[1], dg[2], dg[3]);
+  };
+  bwd_grid_steps(a, mask, T, B, U, g, L, d, rank, u_off, grid_smem, bar, rbar, product, put_dg, clocks);
+  if (cl > 1) cg::this_cluster().sync();
+}
+
+// the bf16 grid loop kernel: the product on the tensor cores
+// (grid_product_bf16), dgates rounded to bf16 in the A fragments' order
 template <int MT, int NTW>
 __global__ void __launch_bounds__(RING_THREADS, 1)
-lstm_bwd_ring_bf16_kernel(BwdArgs a, const float* __restrict__ mask, int T, int B, int U, BwdPlan plan,
-                          long long* __restrict__ clocks) {
-  extern __shared__ __align__(16) unsigned char bwd_ring_smem[];
-  __shared__ __align__(8) unsigned long long full_bar[RING_SLOTS], empty_bar[RING_SLOTS];
-  __shared__ __align__(8) unsigned long long pfull_bar, pfree_bar;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = plan.C, KS = plan.KS, Bt = plan.Bt;
-  const int rank = (int)cluster.block_rank();
-  const int d = blockIdx.y;
-  const int row0 = (blockIdx.x / C) * Bt;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const BwdRingLayout L = bwd_ring_layout(U, plan, true);
-  const int Us = L.Us, Nc = L.Nc, G = 4 * U;
-  const int NT = L.Np / 8, NTp = NT / KS, K16 = Nc / 16;
-
-  float* dxp = a.dxp[d];  // the factors Fi, Ff, Fg, Fo of every step on entry, dgates on exit
-  const float* __restrict__ dout = a.dout[d];
-  const float* __restrict__ fac = a.fac[d];
-  const bool reverse = a.reverse[d] != 0;
-  const unsigned char* wg = static_cast<const unsigned char*>(a.whg[d]) + (size_t)rank * K16 * NT * 256;
-
-  float* recv_s = reinterpret_cast<float*>(bwd_ring_smem + L.recv);
-  __nv_bfloat16* dg_s = reinterpret_cast<__nv_bfloat16*>(bwd_ring_smem + L.dg);  // [16 MT][ldg]
-  float* tl = reinterpret_cast<float*>(bwd_ring_smem + L.tl);
-  float* dh_st = reinterpret_cast<float*>(bwd_ring_smem + L.dh);  // (1-m)*dh: what a row keeps of dh
-  float* dc_st = reinterpret_cast<float*>(bwd_ring_smem + L.dc);
-  const unsigned char* ring_s = bwd_ring_smem + L.ring;
-  const int nq = Bt * Us;
-  const Div by_us(Us), by_uq(Us / 4), by_q4(nq / 4);
-  const int o_dout = Bt * Nc, o_fa = o_dout + nq, o_fs = o_fa + nq, o_mask = o_fs + nq;
-
-  // everything but the ring starts at zero: rows past B are never loaded,
-  // the dgates' rows past Bt never written
-  for (size_t i = tid; i < L.ring / 16; i += RING_THREADS)
-    reinterpret_cast<float4*>(bwd_ring_smem)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  __syncthreads();
-  for (int q = tid; q < nq; q += RING_THREADS) {
-    const int row = q / Us, u = q - row * Us;
-    if (row0 + row >= B) continue;
-    const size_t idx = (size_t)(row0 + row) * U + rank * Us + u;
-    dh_st[q] = a.dhfin[d][idx];
-    dc_st[q] = a.dcfin[d][idx];
-  }
-  const int uqn = Us / 4;
-  auto prefetch = [&](int t) {
-    for (int i = tid; i < nq; i += FWD_THREADS) {
-      const int row = by_us.quot(i), rem = i - row * Us;
-      const int gate = by_uq.quot(rem), j = rem - gate * uqn;
-      if (row0 + row < B)
-        cp_async16(tl + row * Nc + gate * Us + 4 * j,
-                   dxp + ((size_t)t * B + row0 + row) * G + gate * U + rank * Us + 4 * j);
-    }
-    for (int i = tid; i < 3 * (nq / 4); i += FWD_THREADS) {
-      const int pt = by_q4.quot(i), r = i - pt * (nq / 4);
-      const int row = by_uq.quot(r), j = r - row * uqn;
-      if (row0 + row >= B) continue;
-      const size_t at = (size_t)t * B + row0 + row;
-      const float* src = pt == 0 ? dout + at * U : fac + at * 2 * U + (pt - 1) * U;
-      cp_async16(tl + o_dout + pt * nq + row * Us + 4 * j, src + rank * Us + 4 * j);
-    }
-    if (tid < Bt && row0 + tid < B) cp_async4(tl + o_mask + tid, mask + (size_t)t * B + row0 + tid);
-    cp_async_commit();
-  };
-  auto time_of = [&](int step) { return reverse ? step : T - 1 - step; };  // opposite to the forward
-  if (tid < FWD_THREADS) prefetch(time_of(0));
-  const unsigned pfull = smem_addr(&pfull_bar), pfree = smem_addr(&pfree_bar);
-  const unsigned p_bytes = (unsigned)(Bt * U * 4);
-  if (tid == 0) {
-    for (int s = 0; s < L.r.NS; ++s) {
-      mbar_init(smem_addr(&full_bar[s]), 1);
-      mbar_init(smem_addr(&empty_bar[s]), FWD_THREADS / KS);  // the threads of one part
-    }
-    mbar_init(pfull, 1);
-    mbar_init(pfree, C);  // one arrival from each block of the cluster a step
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if (T > 1) mbar_expect(pfull, p_bytes);  // step 1's partials
-  }
-  cluster.sync();
-
-  if (warp == RING_WARPS) {  // the last step has no product
+lstm_bwd_grid_bf16_kernel(BwdArgs a, const float* __restrict__ mask, int T, int B, int U, GridCut g,
+                          unsigned char* ws, long long* __restrict__ clocks) {
+  extern __shared__ __align__(16) unsigned char grid_smem[];
+  __shared__ __align__(8) unsigned long long full_bar[GRID_SLOTS_MAX], empty_bar[GRID_SLOTS_MAX], rbar[2];
+  const GridLayout L = grid_layout(g, true, true);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, cl = g.cl;
+  const int per_dir = U / g.us, nd = gridDim.x / per_dir;
+  const int d = blockIdx.x / per_dir, b = blockIdx.x - d * per_dir, rank = b % cl;
+  const int piece = U / cl, nch = g.kp / g.kc;
+  const int u_off = b * g.us;
+  const int pc = u_off / piece, j0 = u_off - pc * piece;
+  unsigned* bar = reinterpret_cast<unsigned*>(ws);
+  unsigned char* dbufs = ws + GRID_WS_HEAD;  // [2][nd][cl pieces][k steps][MT][32 lanes][8 bf16]: A fragments
+  const unsigned char* wg = static_cast<const unsigned char*>(a.whg[d]) + (size_t)b * g.kp * L.Nc * 2;
+  grid_setup(g, L, wg, grid_smem, full_bar, empty_bar, FWD_THREADS / g.ks);
+  bwd_grid_setup(g, T, rbar);
+  const size_t piece_bytes = (size_t)nch * L.hchunk;
+  if (warp == RING_WARPS) {
     if (lane == 0)
-      ring_produce_bf16(wg, T - 1, K16, KS, NTp * 256, L.r, smem_addr(ring_s), full_bar, empty_bar);
+      grid_produce(g, L, T - 1, 1, dbufs + (size_t)(d * cl + rank) * piece_bytes, (size_t)nd * cl * piece_bytes, wg,
+                   bar, smem_addr(grid_smem + L.ring), full_bar, empty_bar);
     __syncwarp();
-    cluster.sync();
+    if (cl > 1) cg::this_cluster().sync();
     return;
   }
-
-  const int WP = RING_WARPS / KS, part = warp / WP, wl = warp - part * WP;
-  const int g = lane >> 2, tig = lane & 3;
-
-  // clocks: as lstm_bwd_ring_kernel's
-  const bool timed = clocks != nullptr && tid == 0 && blockIdx.x == 0 && blockIdx.y == 0;
-  long long tick = timed ? clock64() : 0;
-  long long spent[6] = {};
-  auto lap = [&](int i) {
-    if (timed) {
-      const long long now = clock64();
-      spent[i] += now - tick;
-      tick = now;
-    }
+  auto product = [&](int step, bool timed, long long& first, long long& later) {
+    grid_product_bf16<MT, NTW>(g, L, grid_smem, full_bar, empty_bar, step, timed, first, later);
   };
-  for (int step = 0; step < T; ++step) {
-    const int t = time_of(step);
-    if (step > 0) {
-      mbar_wait(pfull, (step - 1) & 1);
-      if (tid == 0 && step + 1 < T) mbar_expect(pfull, p_bytes);
-    }
-    cp_async_wait_all();  // this step's tile
-    consumers_sync();
-    lap(4);
-
-    // 1. dh of this step, then dh', dc', dgates (rounded to bf16 for the product) and what the row keeps
-    for (int q = tid; q < nq; q += FWD_THREADS) {
-      const int row = by_us.quot(q), u = q - row * Us;
-      float dh = dh_st[q];
-      if (step > 0)
-        for (int r = 0; r < C; ++r) dh += recv_s[r * nq + q];  // in rank order
-      const float m = tl[o_mask + row];
-      const float dc = dc_st[q];
-      const float dh_tot = m * (tl[o_dout + q] + dh);
-      const float dc_new = m * dc + dh_tot * tl[o_fa + q];
-      const float* f = tl + row * Nc + u;
-      const float dg[4] = {dc_new * f[0], dc_new * f[Us], dc_new * f[2 * Us], dh_tot * f[3 * Us]};
-      dh_st[q] = (1.0f - m) * dh;
-      dc_st[q] = (1.0f - m) * dc + dc_new * tl[o_fs + q];
-      __nv_bfloat16* ds = dg_s + row * L.ldg + u;
-#pragma unroll
-      for (int gi = 0; gi < 4; ++gi) ds[gi * Us] = __float2bfloat16(dg[gi]);
-      if (row0 + row < B) {
-        float* gx = dxp + ((size_t)t * B + row0 + row) * G + rank * Us + u;
-#pragma unroll
-        for (int gi = 0; gi < 4; ++gi) gx[gi * U] = dg[gi];
-      }
-    }
-    consumers_sync();
-    lap(0);
-    if (step + 1 < T) {
-      if (tid < C) mbar_arrive_remote(peer_addr(pfree, tid));
-      prefetch(time_of(step + 1));
-    }
-    lap(3);
-    if (step + 1 == T) break;
-
-    // 2. partial dh of every unit from this block's gate columns
-    float acc[NTW][MT][4];
-    long long waited = 0;
-    ring_consume_bf16<MT, NTW>(acc, ring_s, L.r, K16, NTp, wl, WP, dg_s, L.ldg, part, KS, step * L.r.nch,
-                               full_bar, empty_bar, timed, waited);
-    lap(1);
-    if (timed) spent[1] -= waited, spent[5] += waited;
-
-    // 3. each accumulator's units to their owner, once every block has read this step's partials
-    mbar_wait_cluster(pfree, step & 1);
-#pragma unroll
-    for (int j = 0; j < NTW; ++j) {
-      const int ntl = j * WP + wl, u = (part * NTp + ntl) * 8 + tig * 2;
-      if (ntl >= NTp || u >= U) continue;  // the tiles past U are zero padding
-      const int owner = by_us.quot(u);
-      const unsigned base = smem_addr(recv_s + rank * nq + (u - owner * Us));
-      const unsigned bar = peer_addr(pfull, owner);
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int row = 16 * m + 8 * hh + g;
-          if (row < Bt)
-            store2_async(peer_addr(base + (unsigned)(row * Us * 4), owner), bar, recv_s,
-                         make_float2(acc[j][m][2 * hh], acc[j][m][2 * hh + 1]));
-        }
-    }
-    lap(2);
-  }
-  if (timed)
-    for (int i = 0; i < 6; ++i) clocks[i] += spent[i];
-  cluster.sync();  // no block leaves while a peer may still address it
+  // the four dgates of unit u of a row, rounded to bf16, at k = 4 (j0 + u) of
+  // piece pc: the pairs (i, f) and (g, o) in two lanes' words
+  auto put_dg = [&](int buf, int row, int u, const float (&dg)[4]) {
+    unsigned* db = reinterpret_cast<unsigned*>(dbufs + ((size_t)(buf * nd + d) * cl + pc) * piece_bytes);
+    const int k = 4 * (j0 + u);
+    __nv_bfloat162 lo = __floats2bfloat162_rn(dg[0], dg[1]), hi = __floats2bfloat162_rn(dg[2], dg[3]);
+    db[a_frag_word(MT, row, k)] = *reinterpret_cast<unsigned*>(&lo);
+    db[a_frag_word(MT, row, k + 2)] = *reinterpret_cast<unsigned*>(&hi);
+  };
+  bwd_grid_steps(a, mask, T, B, U, g, L, d, rank, u_off, grid_smem, bar, rbar, product, put_dg, clocks);
+  if (cl > 1) cg::this_cluster().sync();
 }
 
 // 3a. partial[s][u, n] = sum over rows m of split s of hprev[m, u] * dgates[m, n]
@@ -2582,36 +2252,6 @@ bool bad_shape(int nd, int T, int B, int U) {
   return nd < 1 || nd > 2 || T <= 0 || B <= 0 || U <= 0 || U > MAX_UNITS || U % 8 != 0;
 }
 
-// groups of 4 units of the partial dh a thread of the VJP's float32 ring
-// owns: ceil(U / 1024), so that at most 256 threads hold all U of them
-__host__ __device__ inline int ring_cw4(int U) { return (U + 1023) / 1024; }
-
-// the VJP's bf16 ring's bound on the n-tiles a consumer warp takes (NT / 8
-// of them, rounded up to the kernels' instances: a warp past its tiles
-// still loads a fragment and skips the product), or 0 where none is built:
-// 8, 16 or 32 with one 16-row tile (MT = 1), 8 with two
-inline int bf16_ring_ntw(int NT, int MT) {
-  const int need = (NT + 7) / 8;
-  for (int ntw = 8; ntw <= (MT == 1 ? 32 : 8); ntw *= 2)
-    if (need <= ntw) return ntw;
-  return 0;
-}
-
-// The VJP's float32 ring takes a thread's 4 columns for every one of `cols`
-// column groups (KS parts of the k range at most 256 threads) and a ring
-// whose chunks hold four rows at least.
-bool bad_ring(int cols, int KS, const Ring& r, size_t total) {
-  return cols > FWD_THREADS || KS > RING_KS_MAX || KS * cols > FWD_THREADS || r.KC < 4 ||
-         total > RING_SMEM_MAX;
-}
-// The VJP's bf16 ring takes NT n-tiles cut into KS = 1, 2, 4 or 8 pieces
-// (the parts of the 8 consumer warps), a kernel instance for its tiles a
-// warp, and a ring whose chunks hold a k step at least.
-bool bad_ring_bf16(int NT, int KS, int MT, const Ring& r, size_t total) {
-  return (KS != 1 && KS != 2 && KS != 4 && KS != 8) || NT % KS || bf16_ring_ntw(NT, MT) == 0 ||
-         r.KC < 1 || total > RING_SMEM_MAX;
-}
-
 // what the forward template takes: C divides U into slices of a multiple of
 // 8 units (16-byte column groups, 8-column mma tiles), tiles of 8 or 16
 // rows, and a layout that fits a block's shared memory, the Wh slice
@@ -2623,20 +2263,11 @@ bool bad_plan(int U, FwdPlan p, bool bf) {
   return fwd_layout(U, p, bf).total > SMEM_MAX;
 }
 
-// what the loop of the VJP takes: as bad_plan; the float32 ring's thread
-// holds ring_cw4(U) groups of 4 units (at most 2) for all Bt rows, 96 sums
-// at most (Bt = 8 where it holds 2 groups: more sums spill)
+// what the template loop of the VJP takes: as bad_plan
 bool bad_bwd_plan(int U, BwdPlan p, bool bf) {
   if (p.C < 1 || p.C > 16 || U % p.C || (U / p.C) % 8) return true;
-  if (p.Bt != 8 && p.Bt != 16 && !(p.ring && p.Bt == 24)) return true;
-  if (p.KS < 1 || p.KS > 16 || (bf && !p.ring && p.KS != 1)) return true;
-  if (p.ring) {
-    const BwdRingLayout L = bwd_ring_layout(U, p, bf);
-    if (p.resident) return true;
-    if (bf) return bad_ring_bf16(L.Np / 8, p.KS, L.MT, L.r, L.total);
-    const int cw4 = ring_cw4(U);
-    return cw4 > 2 || p.Bt * cw4 > 24 || bad_ring(U / (4 * cw4), p.KS, L.r, L.total);
-  }
+  if (p.Bt != 8 && p.Bt != 16) return true;
+  if (p.KS < 1 || p.KS > 16 || (bf && p.KS != 1)) return true;
   return bwd_layout(U, p, bf).total > SMEM_MAX;
 }
 
@@ -2712,37 +2343,14 @@ int info_fwd(int U, FwdPlan p, int* out) {
   return cluster_info(k.fn, &cfg, p.C, out);
 }
 
-// the loop kernel of a VJP plan, as FwdKernel
+// the template loop kernel of a VJP plan, as FwdKernel
 template <typename W>
 struct BwdKernel {
   using Fn = void (*)(BwdArgs, const float*, int, int, int, BwdPlan, long long*);
-  Fn fn;
+  Fn fn = lstm_bwd_kernel<W>;
   size_t smem;
-  int threads;
-  BwdKernel(int U, BwdPlan p) {
-    const bool bf = std::is_same<W, __nv_bfloat16>::value;
-    if (!p.ring) {
-      fn = lstm_bwd_kernel<W>, smem = bwd_layout(U, p, bf).total, threads = FWD_THREADS;
-      return;
-    }
-    const BwdRingLayout L = bwd_ring_layout(U, p, bf);
-    smem = L.total, threads = RING_THREADS;
-    if (bf) {
-      const int ntw = bf16_ring_ntw(L.Np / 8, L.MT);
-      fn = L.MT == 2   ? lstm_bwd_ring_bf16_kernel<2, 8>
-           : ntw == 8  ? lstm_bwd_ring_bf16_kernel<1, 8>
-           : ntw == 16 ? lstm_bwd_ring_bf16_kernel<1, 16>
-                       : lstm_bwd_ring_bf16_kernel<1, 32>;
-      return;
-    }
-    if (ring_cw4(U) == 2) {
-      fn = lstm_bwd_ring_kernel<8, 2>;
-      return;
-    }
-    fn = p.Bt == 24   ? lstm_bwd_ring_kernel<24, 1>
-         : p.Bt == 16 ? lstm_bwd_ring_kernel<16, 1>
-                      : lstm_bwd_ring_kernel<8, 1>;
-  }
+  int threads = FWD_THREADS;
+  BwdKernel(int U, BwdPlan p) : smem(bwd_layout(U, p, std::is_same<W, __nv_bfloat16>::value).total) {}
 };
 
 template <typename W>
@@ -2768,82 +2376,140 @@ inline int grid_bf16_ntw(int NT, int ks, int MT) {
 }
 
 // what the grid kernels take: a cut of U into runs of a multiple of 8 units
-// (one block each, both directions), 1, 2, 4 or 8 k parts with two ring
-// slots a part or more, chunks of a multiple of 4 rows (bf16: 16) that cut
-// the padded k range evenly among the parts, a pass of rows inside the
-// batch, a built instance (float32: TR = 4 or 8 rows a thread, the
-// layout's rows the row tiles' of a part; bf16: MT = 1, 2 or 4 tiles of 16
-// rows), and a layout that fits a block's shared memory
-bool bad_grid(int nd, int B, int U, const GridCut& g, bool bf) {
+// (one block each, both directions; the VJP's loop: clusters of cl = 1, 2,
+// 4 or 8 blocks, the k range of a block its cluster's piece, 4 U / cl gate
+// columns), 1, 2, 4 or 8 k parts with two ring slots a part or more, chunks
+// of a multiple of 4 rows (bf16: 16) that cut the padded k range evenly
+// among the parts, a pass of rows inside the batch, a built instance
+// (float32: TR = 4 or 8 rows a thread, the layout's rows the row tiles' of a
+// part; bf16: MT = 1, 2 or 4 tiles of 16 rows), and a layout that fits a
+// block's shared memory
+bool bad_grid(int nd, int B, int U, const GridCut& g, bool bf, bool bwd = false) {
   if (g.us < 8 || g.us % 8 || U % g.us || g.blocks != nd * (U / g.us)) return true;
+  if (bwd ? (g.cl != 1 && g.cl != 2 && g.cl != 4 && g.cl != 8) || (U / g.us) % g.cl : g.cl != 1) return true;
   if (g.ks != 1 && g.ks != 2 && g.ks != 4 && g.ks != 8) return true;
   if (g.ns < 2 * g.ks || g.ns % g.ks || g.ns > GRID_SLOTS_MAX) return true;
-  if (g.kc < 4 || g.kc % (bf ? 16 : 4) || g.kp < U || g.kp % (g.kc * g.ks)) return true;
+  const int k = bwd ? 4 * U / g.cl : U;
+  if (g.kc < 4 || g.kc % (bf ? 16 : 4) || g.kp < k || g.kp % (g.kc * g.ks)) return true;
   if (g.nres < 0 || g.nres > g.kp / g.kc) return true;
   if (g.nrows < 1 || g.nrows > g.rows || g.row0 < 0 || g.row0 + g.nrows > B) return true;
+  const int nc = bwd ? g.cl * g.us : 4 * g.us;  // the product's columns
   if (bf) {
     if ((g.tile != 1 && g.tile != 2 && g.tile != 4) || g.rows != 16 * g.tile) return true;
-    if (grid_bf16_ntw(g.us / 2, g.ks, g.tile) == 0) return true;
+    if (grid_bf16_ntw(nc / 8, g.ks, g.tile) == 0) return true;
   } else {
-    const int nrt = FWD_THREADS / g.ks / g.us;
+    const int nrt = FWD_THREADS / g.ks / (nc / 4);
     if (nrt < 1 || (g.tile != 4 && g.tile != 8) || g.rows != nrt * g.tile) return true;
   }
-  return grid_layout(g, bf).total > GRID_SMEM_MAX;
+  return grid_layout(g, bf, bwd).total > GRID_SMEM_MAX;
 }
 
 using GridFn = void (*)(FwdArgs, const float*, int, int, int, GridCut, float, unsigned char*, long long*);
+using BwdGridFn = void (*)(BwdArgs, const float*, int, int, int, GridCut, unsigned char*, long long*);
 
-GridFn grid_kernel(const GridCut& g, bool bf) {
-  if (!bf) return g.tile == 8 ? lstm_grid_kernel<8> : lstm_grid_kernel<4>;
-  const int ntw = grid_bf16_ntw(g.us / 2, g.ks, g.tile);
-  if (g.tile == 4) return ntw == 2 ? lstm_grid_bf16_kernel<4, 2> : lstm_grid_bf16_kernel<4, 4>;
-  if (g.tile == 2)
-    return ntw == 2 ? lstm_grid_bf16_kernel<2, 2> : ntw == 4 ? lstm_grid_bf16_kernel<2, 4> : lstm_grid_bf16_kernel<2, 8>;
-  return ntw == 2 ? lstm_grid_bf16_kernel<1, 2> : ntw == 4 ? lstm_grid_bf16_kernel<1, 4> : lstm_grid_bf16_kernel<1, 8>;
+template <class Fn, template <int> class F32, template <int, int> class BF16>
+Fn grid_instance(const GridCut& g, bool bf, int nc) {
+  if (!bf) return g.tile == 8 ? F32<8>::fn() : F32<4>::fn();
+  const int ntw = grid_bf16_ntw(nc / 8, g.ks, g.tile);
+  if (g.tile == 4) return ntw == 2 ? BF16<4, 2>::fn() : BF16<4, 4>::fn();
+  if (g.tile == 2) return ntw == 2 ? BF16<2, 2>::fn() : ntw == 4 ? BF16<2, 4>::fn() : BF16<2, 8>::fn();
+  return ntw == 2 ? BF16<1, 2>::fn() : ntw == 4 ? BF16<1, 4>::fn() : BF16<1, 8>::fn();
+}
+template <int TR> struct FwdF32 { static GridFn fn() { return lstm_grid_kernel<TR>; } };
+template <int MT, int NTW> struct FwdBf16 { static GridFn fn() { return lstm_grid_bf16_kernel<MT, NTW>; } };
+template <int TR> struct BwdF32 { static BwdGridFn fn() { return lstm_bwd_grid_kernel<TR>; } };
+template <int MT, int NTW> struct BwdBf16 { static BwdGridFn fn() { return lstm_bwd_grid_bf16_kernel<MT, NTW>; } };
+
+GridFn grid_kernel(const GridCut& g, bool bf) { return grid_instance<GridFn, FwdF32, FwdBf16>(g, bf, 4 * g.us); }
+BwdGridFn bwd_grid_kernel(const GridCut& g, bool bf) {
+  return grid_instance<BwdGridFn, BwdF32, BwdBf16>(g, bf, g.cl * g.us);
 }
 
-// A grid launch: cooperative, refused (cudaErrorCooperativeLaunchTooLarge)
-// unless the card holds every block at once; no fallback. info, if not
-// null, receives the blocks the card holds at once, the dynamic shared
-// memory bytes a block, the registers a thread and the static shared memory
-// bytes; with ws null nothing is launched.
-int launch_grid_fwd(const FwdArgs& a, const float* mask, int T, int B, int U, const GridCut& g, bool bf, float fb,
-                    void* ws, long long* clocks, cudaStream_t stream, int* info) {
-  const GridFn fn = grid_kernel(g, bf);
-  const size_t smem = grid_layout(g, bf).total;
+// A grid launch (the listener's forward, the VJP's loop): cooperative, made
+// in clusters of cl blocks where cl > 1, refused
+// (cudaErrorCooperativeLaunchTooLarge) unless the card holds every block at
+// once; no fallback. info, if not null, receives the blocks the card holds
+// at once (cl > 1: in clusters, cudaOccupancyMaxActiveClusters times cl),
+// the dynamic shared memory bytes a block, the registers a thread and the
+// static shared memory bytes; with `go` false nothing is launched.
+template <typename... P, typename... A>
+int launch_grid(void (*fn)(P...), size_t smem, int blocks, int cl, cudaStream_t stream, int* info, bool go,
+                A&&... args) {
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, RING_THREADS, smem);
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = cl;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(RING_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = cl > 1 ? 2 : 1;
+  int held = 0;
+  if (cl > 1) {
+    cudaLaunchConfig_t q = cfg;  // the clusters the card holds at once
+    q.attrs = &attr[1];
+    q.numAttrs = 1;
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&held, fn, &q);
+    held *= cl;
+  } else {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, RING_THREADS, smem);
+    held = per_sm * sms;
+  }
   if (e != cudaSuccess) return static_cast<int>(e);
   if (info) {
     cudaFuncAttributes fa;
     e = cudaFuncGetAttributes(&fa, fn);
     if (e != cudaSuccess) return static_cast<int>(e);
-    info[0] = per_sm * sms;
+    info[0] = held;
     info[1] = (int)smem;
     info[2] = fa.numRegs;
     info[3] = (int)fa.sharedSizeBytes;
   }
-  if (ws == nullptr) return 0;
-  if ((long long)per_sm * sms < g.blocks) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeCooperative;
-  attr.val.cooperative = 1;
-  cfg.gridDim = dim3(g.blocks);
-  cfg.blockDim = dim3(RING_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, fn, a, mask, T, B, U, g, fb, static_cast<unsigned char*>(ws), clocks);
+  if (!go) return 0;
+  if (held < blocks) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  e = cudaLaunchKernelEx(&cfg, fn, std::forward<A>(args)...);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
+int launch_grid_fwd(const FwdArgs& a, const float* mask, int T, int B, int U, const GridCut& g, bool bf, float fb,
+                    void* ws, long long* clocks, cudaStream_t stream, int* info) {
+  return launch_grid(grid_kernel(g, bf), grid_layout(g, bf).total, g.blocks, 1, stream, info, ws != nullptr, a, mask,
+                     T, B, U, g, fb, static_cast<unsigned char*>(ws), clocks);
+}
+
+// an empty kernel: whether the card takes a cooperative launch made in clusters
+__global__ void cluster_coop_probe() {}
+
+int coop_clusters_taken(int cl) {
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = cl;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * cl);
+  cfg.blockDim = dim3(32);
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, cluster_coop_probe);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  cudaGetLastError();  // a refused launch leaves no error behind
+  return e == cudaSuccess;
+}
+
 GridCut grid_cut(const int* c) {
-  return GridCut{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], c[9], c[10]};
+  return GridCut{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], c[9], c[10], c[11]};
 }
 
 constexpr int ROUTE_GRID = 3;
@@ -2877,8 +2543,8 @@ int fwd_entry(const float* xp0, const float* xp1, const float* mask, const void*
 // call then waits for the stream)
 template <typename W>
 int launch_bwd(const BwdArgs& a, const float* mask, float* partials, int nd, int dwh_split,
-               int T, int B, int U, float fb, BwdPlan p, long long* clocks, float* part_ms,
-               cudaStream_t stream) {
+               int T, int B, int U, float fb, BwdPlan p, const int* cuts, int npass, unsigned char* ws,
+               long long ws_pass, long long* clocks, float* part_ms, cudaStream_t stream) {
   constexpr bool bf = std::is_same<W, __nv_bfloat16>::value;
   const int M = T * B, N = 4 * U;
   cudaEvent_t ev[5] = {};
@@ -2905,15 +2571,25 @@ int launch_bwd(const BwdArgs& a, const float* mask, float* partials, int nd, int
   else gates_kernel<W><<<gates_grid, GEMM_THREADS, 0, stream>>>(a, M, U, fb);
   if ((e = cudaGetLastError()) != cudaSuccess) return finish(e);
   mark(1);
-  const BwdKernel<W> k(U, p);
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr;
-  e = prepare_cluster(k.fn, k.smem, p.C, &cfg, &attr, k.threads);
-  if (e != cudaSuccess) return finish(e);
-  cfg.gridDim = dim3(p.C * ((B + p.Bt - 1) / p.Bt), nd);
-  cfg.stream = stream;
-  e = cudaLaunchKernelEx(&cfg, k.fn, a, mask, T, B, U, p, clocks);
-  if (e != cudaSuccess || (e = cudaGetLastError()) != cudaSuccess) return finish(e);
+  if (cuts != nullptr) {  // the grid layout: a launch a pass of rows, each with its own zeroed workspace
+    for (int i = 0; i < npass; ++i) {
+      const GridCut g = grid_cut(cuts + 12 * i);
+      e = static_cast<cudaError_t>(launch_grid(bwd_grid_kernel(g, bf), grid_layout(g, bf, true).total, g.blocks,
+                                               g.cl, stream, nullptr, true, a, mask, T, B, U, g, ws + i * ws_pass,
+                                               clocks));
+      if (e != cudaSuccess) return finish(e);
+    }
+  } else {
+    const BwdKernel<W> k(U, p);
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr;
+    e = prepare_cluster(k.fn, k.smem, p.C, &cfg, &attr, k.threads);
+    if (e != cudaSuccess) return finish(e);
+    cfg.gridDim = dim3(p.C * ((B + p.Bt - 1) / p.Bt), nd);
+    cfg.stream = stream;
+    e = cudaLaunchKernelEx(&cfg, k.fn, a, mask, T, B, U, p, clocks);
+    if (e != cudaSuccess || (e = cudaGetLastError()) != cudaSuccess) return finish(e);
+  }
   mark(2);
   const int chunk = ((M + dwh_split - 1) / dwh_split + TK - 1) / TK * TK;
   const dim3 dwh_grid((N + GN - 1) / GN, (U + GM - 1) / GM, nd * dwh_split);
@@ -2931,20 +2607,18 @@ int launch_bwd(const BwdArgs& a, const float* mask, float* partials, int nd, int
 }
 
 // a plan from the entries' arguments: route 0 streams the slice by the
-// threads' loads, 1 holds it in shared memory, 2 (the VJP) streams it
-// through the ring
+// threads' loads, 1 holds it in shared memory (3, the grid layout, reads its
+// cut instead)
 FwdPlan fwd_plan(int cluster, int bt, int ksplit, int route) { return FwdPlan{cluster, bt, ksplit, route == 1}; }
-BwdPlan bwd_plan(int cluster, int bt, int ksplit, int route) {
-  return BwdPlan{cluster, bt, ksplit, route == 1, route == 2};
-}
+BwdPlan bwd_plan(int cluster, int bt, int ksplit, int route) { return BwdPlan{cluster, bt, ksplit, route == 1}; }
 
 }  // namespace
 
 // one or two directions of the recurrence -> out, final (h, c). wh0/wh1 are
 // regrouped by unit slice for `cluster` blocks (see the header); cluster,
-// bt, ksplit and route (0 streamed, 1 resident, 2 the ring, 3 the grid
+// bt, ksplit and route (0 streamed, 1 resident, 3 the grid
 // layout) are the caller's plan for the launch; the grid layout reads its
-// cut from `cut` (11 ints: GridCut's fields in order) and wh0/wh1
+// cut from `cut` (12 ints: GridCut's fields in order) and wh0/wh1
 // regrouped by its blocks, and takes `ws`, its workspace (the barrier's
 // counter, then two h buffers; zeroed by the caller), and ignores cluster,
 // bt and ksplit; clocks is null or 5 cycle counters the kernel adds to (see
@@ -3007,14 +2681,36 @@ extern "C" int plt_lstm_bwd_info(int U, int wh_bf16, int cluster, int bt, int ks
   return wh_bf16 ? info_bwd<__nv_bfloat16>(U, p, info) : info_bwd<float>(U, p, info);
 }
 
+// what the card gives a cut of the VJP's loop in the grid layout for nd
+// directions of U units: info[0..3] as plt_lstm_grid_info's (info[0] the
+// blocks it holds at once, in clusters of the cut's cl), info[4] whether
+// it takes a cooperative launch made in clusters of cl (1 where cl = 1)
+extern "C" int plt_lstm_bwd_grid_info(int U, int nd, int wh_bf16, const int* cut, int* info) {
+  const GridCut g = grid_cut(cut);
+  const bool bf = wh_bf16 != 0;
+  if (bad_grid(nd, g.row0 + g.nrows, U, g, bf, true)) return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a{};
+  const int e = launch_grid(bwd_grid_kernel(g, bf), grid_layout(g, bf, true).total, g.blocks, g.cl, nullptr, info,
+                            false, a, static_cast<const float*>(nullptr), 1, g.row0 + g.nrows, U, g,
+                            static_cast<unsigned char*>(nullptr), static_cast<long long*>(nullptr));
+  if (e != 0) return e;
+  info[4] = g.cl > 1 ? coop_clusters_taken(g.cl) : 1;
+  return 0;
+}
+
 // the VJP: dxp [T, B, 4U] and dWh [U, 4U] for each direction. wh0/wh1 are
 // Wh [U, 4U] for the float32 gates GEMM, wht0/wht1 Wh^T [4U, U] for the bf16
-// one (null in float32 mode), whg0/whg1 the loop's slices of Wh^T for
-// `cluster` blocks (see bwd_layout); cluster, bt, ksplit and route (as
-// plt_lstm_recurrence's) are the caller's plan for the loop; fac0/fac1 are scratch of T*B*2U
-// floats each, partials of nd*dwh_split*U*4U floats; clocks is null or 6 cycle counters the loop
-// adds to; part_ms is null or 4 floats on the host for the milliseconds of
-// the four kernels (the call then waits for the stream).
+// one (null in float32 mode), whg0/whg1 the loop's tiles of Wh^T (see
+// bwd_layout; the grid layout's: ops/lstm.py::grid_wht); cluster, bt, ksplit
+// and route (as plt_lstm_recurrence's) are the caller's plan for the loop;
+// the grid layout (route 3) reads the cuts of its npass passes of rows from
+// `cuts` (npass x 12 ints: GridCut's fields in order) and takes pass i's
+// zeroed workspace at ws + i ws_pass bytes (the barrier's counter, then two
+// dgates buffers), and ignores cluster, bt and ksplit; fac0/fac1 are scratch
+// of T*B*2U floats each, partials of nd*dwh_split*U*4U floats; clocks is null
+// or the loop's cycle counters (5; the grid layout's GRID_BWD_CLOCKS); part_ms
+// is null or 4 floats on the host for the milliseconds of the four kernels
+// (the call then waits for the stream).
 extern "C" int plt_lstm_bwd(const float* xp0, const float* xp1, const float* mask,
                             const void* wh0, const void* wh1, const void* whg0,
                             const void* whg1, const void* wht0, const void* wht1,
@@ -3024,19 +2720,32 @@ extern "C" int plt_lstm_bwd(const float* xp0, const float* xp1, const float* mas
                             const float* dcfin0, const float* dcfin1, int nd, int rev_bits,
                             int wh_bf16, float* dxp0, float* dxp1, float* fac0, float* fac1,
                             float* dwh0, float* dwh1, float* partials, int dwh_split, int T, int B, int U,
-                            float forget_bias, int cluster, int bt, int ksplit, int route,
-                            long long* clocks, float* part_ms, void* stream) {
+                            float forget_bias, int cluster, int bt, int ksplit, int route, int npass,
+                            const int* cuts, void* ws, long long ws_pass, long long* clocks, float* part_ms,
+                            void* stream) {
   const BwdPlan p = bwd_plan(cluster, bt, ksplit, route);
-  if (bad_shape(nd, T, B, U) || dwh_split < 1 || bad_bwd_plan(U, p, wh_bf16 != 0))
+  const bool bf = wh_bf16 != 0;
+  if (bad_shape(nd, T, B, U) || dwh_split < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == ROUTE_GRID) {
+    if (cuts == nullptr || ws == nullptr || npass < 1) return static_cast<int>(cudaErrorInvalidValue);
+    for (int i = 0; i < npass; ++i) {
+      const GridCut g = grid_cut(cuts + 12 * i);
+      if (bad_grid(nd, B, U, g, bf, true) || (long long)grid_bwd_ws_bytes(nd, g, bf) > ws_pass)
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else if (bad_bwd_plan(U, p, bf)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
   BwdArgs a{{xp0, xp1},       {wh0, wh1},       {whg0, whg1},   {wht0, wht1},     {hprev0, hprev1},
             {cprev0, cprev1}, {dout0, dout1},   {dhfin0, dhfin1}, {dcfin0, dcfin1},
             {dxp0, dxp1},     {fac0, fac1},     {dwh0, dwh1},
             {rev_bits & 1, (rev_bits >> 1) & 1}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wh_bf16)
-    return launch_bwd<__nv_bfloat16>(a, mask, partials, nd, dwh_split, T, B, U, forget_bias, p,
-                                     clocks, part_ms, s);
-  return launch_bwd<float>(a, mask, partials, nd, dwh_split, T, B, U, forget_bias, p, clocks,
-                           part_ms, s);
+  const int* cp = route == ROUTE_GRID ? cuts : nullptr;
+  unsigned char* wb = static_cast<unsigned char*>(ws);
+  if (bf)
+    return launch_bwd<__nv_bfloat16>(a, mask, partials, nd, dwh_split, T, B, U, forget_bias, p, cp, npass, wb,
+                                     ws_pass, clocks, part_ms, s);
+  return launch_bwd<float>(a, mask, partials, nd, dwh_split, T, B, U, forget_bias, p, cp, npass, wb, ws_pass,
+                           clocks, part_ms, s);
 }

@@ -36,23 +36,30 @@ one cooperative launch of one block an SM, each block a run of units of
 one direction with its slice of ``wh`` in shared memory as far as it fits,
 h through global memory behind one grid barrier a step, taken in by bulk
 copies that overlap the product; a batch past the rows one launch holds
-runs in passes of rows. The VJP's serial loop is the template's design run
-backwards in time: block c multiplies the gate gradients of its own units
-by its slice of ``whᵀ`` (resident, streamed by the threads' loads, or past
-``RING_UNITS`` through a ring of bulk copies) into a partial dh of every
-unit, the blocks send each other the parts they own and add them in rank
-order (so repeated runs are bitwise equal). What of this is layout and
-choice lives here, where the CPU tests reach it: ``regroup_wh``/``ungroup_wh``
-and ``grid_wh``/``ungrid_wh`` (``wh`` by unit slice), ``forward_plan``,
-``grid_plan`` and ``backward_plan`` (the route, the cut, the shared-memory
-bytes and the width the kernel runs at, from the shape, pure functions;
-the grid's and the ring's cuts from a step's cost, ``_grid_step_cycles``
-and ``_ring_step_cycles``). Every U from 1 to ``MAX_UNITS`` runs on the
+runs in passes of rows. The VJP's serial loop, up to ``GRID_UNITS_BWD`` =
+512 in float32 and 384 in bf16, is the template's design run backwards in
+time: block c multiplies the gate gradients of its own units by its slice
+of ``whᵀ`` (resident, or streamed by the threads' loads) into a partial dh
+of every unit, the blocks send each other the parts they own and add them
+in rank order (so repeated runs are bitwise equal). Past those widths its
+own grid layout (``lstm_bwd_grid_kernel``, ``lstm_bwd_grid_bf16_kernel``;
+``grid_bwd_plan``): one cooperative launch in clusters of cl blocks, a
+cluster's blocks the k pieces of a group of output units, each block's tile
+of ``whᵀ`` in shared memory as far as it fits, the gate gradients through
+global memory behind one grid barrier a step, the cluster's partial dh
+added in rank order. What of this is layout and choice lives here, where
+the CPU tests reach it: ``regroup_wh``/``ungroup_wh``, ``grid_wh``/
+``ungrid_wh`` and ``grid_wht``/``ungrid_wht`` (``wh`` and ``whᵀ`` by the
+blocks' cuts), ``forward_plan``, ``grid_plan``, ``backward_plan`` and
+``grid_bwd_plan`` (the route, the cut, the shared-memory bytes and the
+width the kernel runs at, from the shape, pure functions; the grid
+layouts' cuts from a step's cost, ``_grid_step_cycles`` and
+``_grid_bwd_step_cycles``). Every U from 1 to ``MAX_UNITS`` runs on the
 card: a U that is no multiple of 8, or that no cut fits, runs at a wider U
 with zero padding (``ops/padding.py``: exact), the results sliced back;
-``tests/test_torch_cluster_layout.py``, ``tests/test_torch_lstm_grid.py``
-and ``tests/test_torch_lstm_bwd_layout.py`` emulate the decompositions in
-plain PyTorch on them.
+``tests/test_torch_cluster_layout.py``, ``tests/test_torch_lstm_grid.py``,
+``tests/test_torch_lstm_bwd_layout.py`` and ``tests/test_torch_vjp_grid.py``
+emulate the decompositions in plain PyTorch on them.
 
 Recurrent-dot precision is an explicit argument ``prec`` (the reference
 reads it from the ambient ``jax.default_matmul_precision`` scope):
@@ -205,14 +212,10 @@ def _recurrence_loop(xp_tm, mask_tm, wh, forget_bias, reverse, prec, save_res):
 
 def _count(fn, prec: str, plan) -> None:
     """One call of a wrapper's kernel, counted on the wrapper: in all and in
-    bf16 mode; the VJP's through its float32 and bf16 rings; the forward's
-    through the grid layout (a launch a pass of rows), in all and in bf16
-    mode."""
+    bf16 mode; through the grid layout (the forward's, the VJP's loop's: a
+    launch a pass of rows), in all and in bf16 mode."""
     fn.launches += 1
     fn.bf16_launches += prec == "bf16"
-    if getattr(plan, "ring", False):
-        fn.ring_launches += prec != "bf16"
-        fn.bf16_ring_launches += prec == "bf16"
     grid = getattr(plan, "grid", None)
     if grid is not None:
         fn.grid_launches += grid.passes
@@ -346,41 +349,31 @@ SMEM_MAX = 232448  # dynamic shared memory a block may use on the H100
 CLUSTER_SIZES = (8, 4, 2, 1)  # tried in this order; 8 is the portable maximum
 ROW_TILES = (8, 16)
 XP_RING = 3  # xp tiles a block keeps in flight
-# the widest U the kernels take (csrc/lstm.cu's bad_shape): every route,
-# float32 and bf16, forward, residual and the VJP's loop, has a plan at
-# every multiple of 8 up to it; at the next one the VJP's loop has none, its
-# partial dh being U wide: a ring chunk of four rows of whᵀ (U floats each)
-# passes a 32 KB slot in float32, and in bf16 a consumer warp's n-tiles of
-# it pass the 32 its kernels are built for (tests/test_torch_wide_kernels.py
-# derives it)
+# the widest U the kernels take (csrc/lstm.cu's bad_shape): the widest the
+# card holds to the plain versions (chip_smoke.py: phase 13a at U = 2048,
+# W2048 served and trained in 13d). The plans in shared memory go further
+# (every multiple of 8 to 4·MAX_UNITS has a forward and a VJP grid plan:
+# tests/test_torch_wide_kernels.py), so what bounds it is what is checked,
+# not what fits
 MAX_UNITS = 2048
-# the forward past RESIDENT_UNITS (bf16: RING_UNITS_BF16) takes the grid
-# layout (grid_plan); the VJP's loop streams its slice of whᵀ through the
-# ring, a streamed slice through bulk copies (csrc/lstm.cu's
-# lstm_bwd_ring_kernel and, in bf16 on the tensor cores,
-# lstm_bwd_ring_bf16_kernel)
 RESIDENT_UNITS = 256  # the widest float32 U whose slices a cluster holds in shared memory
-# the VJP in float32 past this U takes the ring; up to it the template
-# streams its slice by the threads' loads (on the H100 the template measured
-# faster at U = 512, the ring at 1024: PERF.md)
-RING_UNITS = 512
-# bf16 past this U: the forward's grid layout, the VJP's ring; up to it the
-# template holds its slice (U <= 384; on the H100 the rings, then the grid
-# layout, measured faster than the template's streamed slice at U = 448,
-# 512 and 1024: PERF.md)
+# the forward past RESIDENT_UNITS (bf16: RING_UNITS_BF16) takes the grid
+# layout (grid_plan); the VJP's loop in float32 past GRID_UNITS_BWD and in
+# bf16 past RING_UNITS_BF16 its own grid layout (grid_bwd_plan). Up to
+# GRID_UNITS_BWD the VJP's template streams its slice by the threads' loads
+# (on the H100 it read faster than the grid layout at U = 512: PERF.md)
+GRID_UNITS_BWD = 512
+# bf16 past this U: the forward's and the VJP's grid layouts; up to it the
+# template holds its slice (U <= 384; on the H100 the grid layouts read faster
+# than the template's streamed slice at U = 448, 512 and 1024: PERF.md)
 RING_UNITS_BF16 = 384
-RING_CLUSTER_SIZES = (16, 8, 4, 2)  # 16 (non-portable) where the grid runs in one wave, or nothing else fits
-RING_ROW_TILES = (8, 16, 24)  # a consumer thread takes every row of the tile
-RING_CHUNK_MAX = 32768  # bytes of a ring slot at most
-RING_KS_MAX = 8  # k parts at most (bf16: pieces of the n-tiles)
-RING_SMEM_MAX = SMEM_MAX - 1024  # a ring kernel's dynamic shared memory: its barriers are static
-# the step's cost a ring plan is chosen by, in SM cycles (H100 SXM at 1980
+# the step's cost a grid plan is chosen by, in SM cycles (H100 SXM at 1980
 # MHz; the two rates as the listener kernels' streamed routes measured them,
 # PERF.md)
 FMA_PER_CYCLE = 128  # float32 FMA lanes of an SM
 MMA_FMA_PER_CYCLE = 1024  # bf16 multiply-adds an SM's tensor cores run a cycle through mma.sync (about half the peak)
 L2_BYTES_PER_CYCLE = 2800  # the card's L2 read rate, ≈ 5.5 TB/s
-SM_BYTES_PER_CYCLE = 22  # what one SM of a cluster of 16 takes in from L2
+SM_BYTES_PER_CYCLE = 22  # what one SM takes in from L2
 SMEM_BYTES_PER_CYCLE = 128  # an SM's shared-memory bandwidth
 
 
@@ -445,73 +438,10 @@ def _kernel_wh(wh: torch.Tensor, c: int, prec: str) -> torch.Tensor:
     return torch.nn.functional.pad(wg.to(torch.bfloat16).transpose(1, 2), (0, -u % 16)).contiguous()
 
 
-def ring_slots(u: int, c: int, bt: int, ksplit: int, bf16: bool = False) -> Tuple[int, int]:
-    """The VJP's ring's shared memory, as ``bwd_ring_layout`` of
-    csrc/lstm.cu → (rows of a ring chunk, bytes in all). Besides the ring,
-    the loop holds one buffer of received partials [Bt, U], dgates [Bt, Nc],
-    the sum of the k parts but the last [Bt, U] (ksplit > 1), one tile of
-    factors and the kept dh and dc. The ring has two slots for each of the
-    ksplit parts (a part takes whole chunks); a chunk holds the most rows of
-    whᵀ (Nc rows of U floats), a multiple of 4, that fit, at most
-    ``RING_CHUNK_MAX`` bytes and the rows a part takes in a pass; fewer than
-    4 rows do not fit.
-
-    ``bf16``: dgates is bf16 in 16-row tiles, rows padded by 8 values, and
-    the loop keeps no k parts; a "row" of a chunk is a k step of 16 of one
-    piece (``ksplit`` pieces of the n-tiles, U / 8 rounded up to 2, 256
-    bytes a tile), two slots a piece where they fit, else one slot more than
-    pieces; fewer than 1 k step does not fit."""
-    us = u // c
-    nc = 4 * us
-    mt = -(-bt // 16)
-    dg = 16 * mt * (nc + 8) * 2 if bf16 else bt * nc * 4
-    used = bt * u * 4 + dg + (bt * u * 4 if ksplit > 1 and not bf16 else 0) + (bt * (nc + 3 * us) + bt) * 4
-    used += 2 * bt * us * 4
-    if bf16:
-        kstep, k16 = -(-u // 16) * 16 // 8 // ksplit * 256, nc // 16
-        for ns in (2 * ksplit, ksplit + 1):
-            per = min(RING_CHUNK_MAX, max(0, RING_SMEM_MAX - used) // ns)
-            kc = min(per // kstep, k16)
-            if kc >= 1:
-                break
-        return kc, used + ns * kc * kstep
-    ns = 2 * ksplit
-    per = min(RING_CHUNK_MAX, max(0, RING_SMEM_MAX - used) // ns)
-    kc = min(per // (u * 4) // 4 * 4, (-(-nc // ksplit) + 3) // 4 * 4)
-    return kc, used + ns * kc * u * 4
-
-
-def _ring_ksplit(cols: int) -> int:
-    """The ring's k parts: a thread takes 4 columns of all the
-    tile's rows, so ``cols`` column groups leave 256 // cols threads for
-    each (at most ``RING_KS_MAX``); 0 where the columns outnumber the threads."""
-    return min(RING_KS_MAX, FWD_THREADS // cols) if cols <= FWD_THREADS else 0
-
-
-def ring_cw4(u: int) -> int:
-    """Groups of 4 units of the partial dh a thread of the VJP's float32 ring
-    owns (csrc/lstm.cu::ring_cw4): ceil(U / 1024), so that U / (4·cw4) ≤ 256
-    threads hold all U; the kernels are built for 1 and 2."""
-    return -(-u // 1024)
-
-
-def bf16_ring_ntw(nt: int, mt: int) -> int:
-    """The VJP's bf16 ring's bound on a consumer warp's n-tiles
-    (csrc/lstm.cu::bf16_ring_ntw): ``nt`` / 8 rounded up to a built
-    instance, 8, 16 or 32 with one 16-row tile (``mt``), 8 with two; 0 where
-    none is built."""
-    need, ntw = -(-nt // 8), 8
-    while ntw <= (8 if mt == 2 else 32):
-        if need <= ntw:
-            return ntw
-        ntw *= 2
-    return 0
-
-
 def ring_fragments(w: torch.Tensor, ksplit: int, kc: int) -> torch.Tensor:
     """A bf16 slice ``w [C, N, K]`` (N a multiple of 8: the product's
-    columns; K a multiple of 16: the contraction) in the order the bf16 ring
-    streams it: k steps of 16, each the N / 8 column tiles, each the 32
+    columns; K a multiple of 16: the contraction) in the order the bf16 grid
+    kernels read it from their ring of bulk copies: k steps of 16, each the N / 8 column tiles, each the 32
     lanes' B fragments of ``mma.m16n8k16`` (lane 4·g + t holds column g's
     k = 2t, 2t + 1, 2t + 8, 2t + 9), the tiles cut into ``ksplit`` pieces;
     chunks of ``kc`` k steps of one piece, group after group, piece after
@@ -549,87 +479,6 @@ def _ksplit(u: int, c: int, bt: int, bf16: bool) -> int:
         return 1
     items = (bt // 8) * (u // c)
     return max(1, min(16, FWD_THREADS // items, u // 4))
-
-
-def _ring_step_cycles(u: int, c: int, bt: int, ksplit: int, cols: int, clusters: int, active: int,
-                      bf16: bool = False) -> float:
-    """The ring's step in SM cycles: the product's float32 FMAs a block on
-    its busy threads (bf16: the tensor cores' multiply-adds on 16-row
-    tiles), against the L2 reads of a wave (every block reads its slice of
-    wh, 16·U²/C bytes, bf16 8·U²/C) at the card's rate and at one SM's,
-    times the waves."""
-    slice_bytes = (8 if bf16 else 16) * u * u // c
-    if bf16:
-        fma = 16 * -(-bt // 16) * 4 * u * u / c / MMA_FMA_PER_CYCLE
-    else:
-        fma = bt * 4 * u * u / c / (FMA_PER_CYCLE * min(1.0, ksplit * cols / FWD_THREADS))
-    l2 = max(min(clusters, active) * c * slice_bytes / L2_BYTES_PER_CYCLE, slice_bytes / SM_BYTES_PER_CYCLE)
-    return -(-clusters // active) * max(fma, l2)
-
-
-def _ring_fits(up: int, c: int, bt: int, bf16: bool) -> Optional[Tuple[int, int, int]]:
-    """(k parts or pieces, column groups a part, shared memory) of the
-    VJP's ring at a kernel U, C and Bt, or None where its kernels take no
-    such plan (csrc/lstm.cu's bad_bwd_plan). float32: a thread's
-    ``ring_cw4`` groups of 4 units, Bt·cw4 ≤ 24; bf16: the fewest pieces of
-    the n-tiles whose chunks fit."""
-    if bf16:
-        nt = round_up(up, 16) // 8
-        if not bf16_ring_ntw(nt, -(-bt // 16)):
-            return None
-        for ks in (1, 2, 4, 8):
-            if nt % ks == 0:
-                kc, smem = ring_slots(up, c, bt, ks, True)
-                if kc >= 1 and smem <= RING_SMEM_MAX:
-                    return ks, 0, smem
-        return None
-    cw4 = ring_cw4(up)
-    if cw4 > 2 or bt * cw4 > 24:
-        return None
-    cols = up // (4 * cw4)
-    ks = _ring_ksplit(cols)
-    if not ks:
-        return None
-    kc, smem = ring_slots(up, c, bt, ks)
-    return (ks, cols, smem) if kc >= 4 else None
-
-
-def _ring_plan(u: int, b: int, nd: int, max_active, bf16: bool = False) -> Optional["BackwardPlan"]:
-    """The VJP's ring's cheapest plan by ``_ring_step_cycles`` over C in
-    ``RING_CLUSTER_SIZES`` (U zero padded to slices of a multiple of 8 units
-    where C does not cut it so) and Bt in ``RING_ROW_TILES``, or None.
-    Clusters of 16 only where ``max_active(plan)`` says the grid runs in one
-    wave; without it none, and the clusters of 8 or fewer count as one wave.
-    Where nothing else fits (U past 1024), clusters of 16 in any number of
-    waves. A thread takes 4 of the U units of the partial dh (``ring_cw4``
-    groups of 4 past U = 1024); bf16 warps take n-tiles."""
-    for any_waves in (False, True):
-        best, best_cost = None, None
-        for c in RING_CLUSTER_SIZES:
-            if any_waves and c <= 8:
-                continue
-            up = kernel_units(u, c)
-            for bt in RING_ROW_TILES:
-                fit = _ring_fits(up, c, bt, bf16)
-                if fit is None:
-                    continue
-                ks, cols, smem = fit
-                plan = BackwardPlan(c, bt, ks, False, smem, up, True)
-                clusters = -(-b // bt) * nd
-                if max_active is None:
-                    if c > 8 and not any_waves:
-                        continue
-                    active = clusters if c <= 8 else 1
-                else:
-                    active = max_active(plan)
-                    if active < 1 or (c > 8 and clusters > active and not any_waves):
-                        continue
-                cost = _ring_step_cycles(up, c, bt, ks, cols, clusters, active, bf16)
-                if best is None or cost < best_cost:
-                    best, best_cost = plan, cost
-        if best is not None:
-            return best
-    return None
 
 
 def _choose_tile(fits, b: int, nd: int, max_active):
@@ -675,6 +524,7 @@ class GridPlan(NamedTuple):
     nres: int  # chunks of a block's wh slice held in shared memory (the rest stream each step)
     ns: int  # ring slots
     passes: int  # launches of rows the batch takes
+    cl: int = 1  # the VJP's loop: blocks of a cluster, the k pieces of a group's units (the forward: 1)
 
     @property
     def resident_share(self) -> float:
@@ -704,13 +554,14 @@ def grid_bf16_ntw(nt: int, ks: int, mt: int) -> int:
     return 0
 
 
-def grid_chunk_bytes(us: int, rows: int, kc: int, bf16: bool) -> Tuple[int, int]:
-    """Bytes of a chunk of h (``rows`` rows) and of a chunk of a block's wh
-    slice, ``kc`` k rows each, as the grid kernels stage them: float32 h
-    ``[rows][kc + 4]`` (a row padded by 16 bytes), wh ``[kc][4·us]``; bf16
-    both in the tensor cores' fragment order, 512 bytes a 16-row tile and k
-    step of h, 256 an n-tile and k step of wh."""
-    nc = 4 * us
+def grid_chunk_bytes(nc: int, rows: int, kc: int, bf16: bool) -> Tuple[int, int]:
+    """Bytes of a chunk of the moving operand (``rows`` rows: the forward's
+    h, the VJP's dgates) and of a chunk of a block's wh slice (``nc`` product
+    columns: the forward's 4·us, the VJP's cl·us), ``kc`` k rows each, as
+    the grid kernels stage them: float32 operand ``[rows][kc + 4]`` (a row
+    padded by 16 bytes), wh ``[kc][nc]``; bf16 both in the tensor cores'
+    fragment order, 512 bytes a 16-row tile and k step of the operand, 256
+    an n-tile and k step of wh."""
     if bf16:
         return kc // 16 * rows // 16 * 512, kc // 16 * nc // 8 * 256
     return rows * (kc + 4) * 4, kc * nc * 4
@@ -721,7 +572,7 @@ def grid_smem_bytes(us: int, rows: int, kc: int, kp: int, nres: int, ns: int, bf
     ``grid_layout`` of csrc/lstm.cu lays it out: the resident chunks of wh,
     the ring's slots (a chunk of h, and of wh where some of it streams), the
     product [rows, 4·us], the xp tile and mask, and the state (c, h)."""
-    hchunk, wchunk = grid_chunk_bytes(us, rows, kc, bf16)
+    hchunk, wchunk = grid_chunk_bytes(4 * us, rows, kc, bf16)
     nc = 4 * us
     slot = hchunk + (wchunk if nres < kp // kc else 0)
     return (nres * wchunk + ns * slot + rows * nc * 4 + (rows * nc + rows + 3) // 4 * 16
@@ -731,48 +582,53 @@ def grid_smem_bytes(us: int, rows: int, kc: int, kp: int, nres: int, ns: int, bf
 def grid_ws_bytes(plan: "GridPlan", nd: int, bf16: bool) -> int:
     """The grid launch's workspace: the barrier's counter, then two h
     buffers of every chunk of each direction."""
-    return GRID_WS_HEAD + 2 * nd * (plan.kp // plan.kc) * grid_chunk_bytes(plan.us, plan.rows, plan.kc, bf16)[0]
+    return GRID_WS_HEAD + 2 * nd * (plan.kp // plan.kc) * grid_chunk_bytes(4 * plan.us, plan.rows, plan.kc, bf16)[0]
 
 
-def _grid_step_cycles(p: GridPlan, bf16: bool) -> float:
-    """A step of the grid layout in SM cycles, the cost its plan is chosen
-    by: the product (float32 FMAs on the busy threads, each k step of 4 also
-    issuing a thread's 4 + TR shared loads; or the tensor cores'
-    multiply-adds, or the shared-memory reads of their fragments where
-    those take longer: every warp of a part reads all of its chunks' h
-    fragments, and its NTW fragments of wh a k step) against the bytes a block takes in from L2 (its h and the
-    chunks of wh that stream) at one SM's rate, at what the ring keeps in
-    flight over a copy's latency, and at the card's rate; plus the grid
-    barrier, the parts' sum and the cell update."""
-    nc, nch = 4 * p.us, p.kp // p.kc
+def _grid_product_cycles(p: GridPlan, nc: int, bf16: bool, copy_cycles: int = GRID_COPY_CYCLES) -> Tuple[float, float]:
+    """A grid block's step of ``nc`` product columns in SM cycles → (the
+    product, the intake): the product's float32 FMAs on the busy threads,
+    each k step of 4 also issuing a thread's 4 + TR shared loads; or the
+    tensor cores' multiply-adds, or the shared-memory reads of their
+    fragments where those take longer (every warp of a part reads all of
+    its chunks' operand fragments, and its NTW fragments of wh a k step);
+    the bytes a block takes in from L2 (the moving operand and the chunks of
+    wh that stream) at one SM's rate, at what the ring keeps in flight over
+    a copy's latency, and at the card's rate."""
+    nch = p.kp // p.kc
     if bf16:
         k16, wp = p.kp // 16, FWD_THREADS // 32 // p.ks
         frags = wp * p.tile * k16 * 512 + p.ks * wp * grid_bf16_ntw(nc // 8, p.ks, p.tile) * (k16 // p.ks) * 256
         product = max(p.tile * (nc // 8) * k16 * 2048 / MMA_FMA_PER_CYCLE, frags / SMEM_BYTES_PER_CYCLE)
     else:
-        busy = p.ks * (FWD_THREADS // p.ks // p.us) * p.us / FWD_THREADS
+        ncg = nc // 4
+        busy = p.ks * (FWD_THREADS // p.ks // ncg) * ncg / FWD_THREADS
         issue = 16 * p.tile / (17 * p.tile + 4)
         product = p.rows * p.kp * nc / (FMA_PER_CYCLE * busy * issue)
-    hchunk, wchunk = grid_chunk_bytes(p.us, p.rows, p.kc, bf16)
+    hchunk, wchunk = grid_chunk_bytes(nc, p.rows, p.kc, bf16)
     slot = hchunk + (wchunk if p.nres < nch else 0)
     intake = nch * hchunk + (nch - p.nres) * wchunk
-    rate = min(SM_BYTES_PER_CYCLE, p.ns * slot / GRID_COPY_CYCLES, L2_BYTES_PER_CYCLE / p.blocks)
+    rate = min(SM_BYTES_PER_CYCLE, p.ns * slot / copy_cycles, L2_BYTES_PER_CYCLE / p.blocks)
+    return product, intake / rate
+
+
+def _grid_step_cycles(p: GridPlan, bf16: bool) -> float:
+    """A step of the grid layout in SM cycles, the cost its plan is chosen
+    by: the product against the intake (``_grid_product_cycles``), plus the
+    grid barrier, the parts' sum and the cell update."""
+    nc = 4 * p.us
+    product, intake = _grid_product_cycles(p, nc, bf16)
     rest = GRID_BARRIER_CYCLES + p.ks * (p.rows * nc / FWD_THREADS + 100) + p.rows * p.us / 2 / FWD_THREADS * 200
-    return max(product, intake / rate) + rest
+    return max(product, intake) + rest
 
 
-def grid_plan(b: int, u: int, nd: int, prec: str = "highest", sms: int = GRID_SMS) -> GridPlan:
-    """The grid layout's plan for a shape — a pure function: the cut of the
-    units (``grid_units``), then of every layout its kernels take (k parts,
-    a thread's rows or the row tiles, the chunk's k rows) the one whose
-    passes of rows cost the fewest cycles (``_grid_step_cycles``), each
-    holding as many chunks of wh as fit beside two ring slots a part (the
-    rest stream). Raises ``ValueError`` where no layout fits."""
-    _check_prec(prec)
-    bf16 = prec == "bf16"
-    us, units = grid_units(u, nd, sms)
-    nc = 4 * us
-    best, best_cost = None, None
+def _grid_layouts(b: int, nd: int, units: int, us: int, nc: int, k: int, bf16: bool, smem, cl: int = 1):
+    """Every layout the grid kernels take for a cut of ``units`` units a
+    direction into blocks of ``us`` (clusters of ``cl``), a block's product
+    ``nc`` columns wide over a k range of ``k``: k parts, a thread's rows or
+    the row tiles, the chunk's k rows and the ring's slots, each holding as
+    many chunks of wh as fit beside the ring (the rest stream each step;
+    ``smem(rows, kc, kp, nres, ns)``: a block's bytes) → GridPlans."""
     for ks in GRID_KS:
         for tile in GRID_TILES[bf16]:
             if bf16:
@@ -780,28 +636,36 @@ def grid_plan(b: int, u: int, nd: int, prec: str = "highest", sms: int = GRID_SM
                 if not grid_bf16_ntw(nc // 8, ks, tile):
                     continue
             else:
-                nrt = FWD_THREADS // ks // us
+                nrt = FWD_THREADS // ks // (nc // 4)
                 if nrt < 1:
                     continue
                 rows = nrt * tile
             for kc, per in ((kc, per) for kc in GRID_CHUNKS for per in GRID_SLOTS_A_PART):
-                kp, ns = round_up(units, kc * ks), per * ks
+                kp, ns = round_up(k, kc * ks), per * ks
                 nch = kp // kc
                 if ns > GRID_SLOTS_MAX or nch < ks:
                     continue
-                wchunk = grid_chunk_bytes(us, rows, kc, bf16)[1]
                 nres = nch
-                if grid_smem_bytes(us, rows, kc, kp, nres, ns, bf16) > GRID_SMEM_MAX:
-                    nres = (GRID_SMEM_MAX - grid_smem_bytes(us, rows, kc, kp, 0, ns, bf16)) // wchunk
+                if smem(rows, kc, kp, nres, ns) > GRID_SMEM_MAX:
+                    nres = (GRID_SMEM_MAX - smem(rows, kc, kp, 0, ns)) // grid_chunk_bytes(nc, rows, kc, bf16)[1]
                     if nres < 0:
                         continue
-                plan = GridPlan(nd * units // us, us, rows, tile, ks, kc, kp, nres, ns, -(-b // rows))
-                cost = plan.passes * _grid_step_cycles(plan, bf16)
-                if best is None or cost < best_cost:
-                    best, best_cost = plan, cost
-    if best is None:
+                yield GridPlan(nd * units // us, us, rows, tile, ks, kc, kp, nres, ns, -(-b // rows), cl)
+
+
+def grid_plan(b: int, u: int, nd: int, prec: str = "highest", sms: int = GRID_SMS) -> GridPlan:
+    """The grid layout's plan for a shape — a pure function: the cut of the
+    units (``grid_units``), then of every layout its kernels take
+    (``_grid_layouts``) the one whose passes of rows cost the fewest cycles
+    (``_grid_step_cycles``). Raises ``ValueError`` where no layout fits."""
+    _check_prec(prec)
+    bf16 = prec == "bf16"
+    us, units = grid_units(u, nd, sms)
+    smem = lambda rows, kc, kp, nres, ns: grid_smem_bytes(us, rows, kc, kp, nres, ns, bf16)
+    plans = list(_grid_layouts(b, nd, units, us, 4 * us, units, bf16, smem))
+    if not plans:
         raise ValueError(f"no layout of the grid kernels fits U={u}")
-    return best
+    return min(plans, key=lambda p: p.passes * _grid_step_cycles(p, bf16))
 
 
 def _grid_forward_plan(b: int, u: int, nd: int, prec: str, sms: int) -> ForwardPlan:
@@ -838,6 +702,153 @@ def ungrid_wh(wg: torch.Tensor, u: int, plan: GridPlan) -> torch.Tensor:
         wg = x.reshape(n, 4 * us, kp).transpose(1, 2)
     w = wg.reshape(n, kp, 4 * us)[:, :u]
     return w.reshape(n, u, us, 4).permute(1, 3, 0, 2).reshape(u, 4 * u).contiguous()
+
+
+# the VJP's loop in the grid layout (csrc/lstm.cu's lstm_bwd_grid_kernel /
+# lstm_bwd_grid_bf16_kernel): the output units of a direction in groups of
+# cl·us, a cluster of cl blocks each; inside a cluster the k range (the 4U
+# gate columns) in cl pieces, a block's tile of whᵀ held as far as it fits
+GRID_CLUSTERS = (1, 2, 4, 8)  # blocks of a cluster (1: no exchange, every block takes in all 4U)
+GRID_BWD_CLOCKS = 7  # the loop's cycle counters (csrc/lstm.cu's GRID_BWD_CLOCKS)
+# the loop's step model, in SM cycles, its constants fitted to the H100's
+# readings of every layout at five shapes (chip_smoke.py --sweep-vjp, PERF.md)
+GRID_BWD_PRODUCT_FACTOR = {False: 1.8, True: 2.0}  # the product's cycles over _grid_product_cycles' count
+GRID_BWD_COPY_CYCLES = 4000  # a bulk copy's latency, over which the ring's bytes in flight bound the intake
+GRID_COPY_ISSUE_CYCLES = 100  # a bulk copy a step: the producer's issue and the consumers' wait for it
+GRID_BWD_FIXED_CYCLES = 5000  # the grid barrier, the arrival and the step's first chunk
+GRID_DGATES_CYCLES = 1000  # the cell gradients of a (row, unit) a thread: loads, four dgates, their stores
+GRID_EXCHANGE_CYCLES = 300  # the cluster's exchange of the partial dh: its latency, and the partials' wait ...
+GRID_EXCHANGE_BLOCK_CYCLES = 100  # ... and this more for each block of the cluster ...
+DSMEM_BYTES_PER_CYCLE = 8  # ... and its bytes at this rate
+
+
+def grid_bwd_units(u: int, nd: int, cl: int, sms: int = GRID_SMS) -> Tuple[int, int]:
+    """The VJP's grid cut of ``u`` units a direction into clusters of ``cl``
+    blocks over at most ``sms`` blocks → (units a block, the kernel U): the
+    fewest units a block, a multiple of 8, whose ``nd · cl · ceil(u / (cl ·
+    us))`` blocks the card holds; the kernel U is ``u`` rounded up to groups
+    of ``cl · us`` (zero padding)."""
+    us = 8
+    while nd * cl * -(-u // (cl * us)) > sms:
+        us += 8
+    return us, round_up(u, cl * us)
+
+
+def grid_bwd_smem_bytes(us: int, cl: int, rows: int, kc: int, kp: int, nres: int, ns: int, bf16: bool) -> int:
+    """A block's dynamic shared memory in the VJP's grid loop, as
+    ``grid_layout(..., bwd)`` of csrc/lstm.cu lays it out: the resident
+    chunks of its tile of whᵀ, the ring's slots (a chunk of dgates, and of
+    whᵀ where some of it streams), the product [rows, cl·us], the cluster's
+    partials [2, cl, rows, us] (cl > 1), two tiles of a step's factors
+    ([rows, 7·us] and the mask) and the kept dh and dc."""
+    nc = cl * us
+    hchunk, wchunk = grid_chunk_bytes(nc, rows, kc, bf16)
+    slot = hchunk + (wchunk if nres < kp // kc else 0)
+    recv = 2 * cl * rows * us * 4 if cl > 1 else 0
+    tile = (rows * 7 * us + rows + 3) // 4 * 16
+    return nres * wchunk + ns * slot + rows * nc * 4 + recv + 2 * tile + 2 * rows * us * 4
+
+
+def grid_bwd_ws_bytes(plan: GridPlan, nd: int, bf16: bool) -> int:
+    """A pass's workspace of the VJP's grid loop: the barrier's counter, then
+    two dgates buffers of every chunk of each piece of each direction."""
+    return GRID_WS_HEAD + 2 * nd * plan.cl * (plan.kp // plan.kc) * grid_chunk_bytes(
+        plan.cl * plan.us, plan.rows, plan.kc, bf16)[0]
+
+
+def _grid_bwd_step_cycles(p: GridPlan, bf16: bool) -> float:
+    """A step of the VJP's grid loop in SM cycles, the cost its plan is
+    chosen by: the product of the cluster's cl·us units over the block's k
+    piece (``_grid_product_cycles`` times ``GRID_BWD_PRODUCT_FACTOR``)
+    against the intake of that piece's dgates and the streamed whᵀ, plus a
+    cost a bulk copy, the barrier and the arrival, the parts' sum, the cell
+    gradients of the block's units and, with cl > 1, the cluster's exchange
+    of the partial dh."""
+    nc, nch = p.cl * p.us, p.kp // p.kc
+    product, intake = _grid_product_cycles(p, nc, bf16, GRID_BWD_COPY_CYCLES)
+    rest = (GRID_BWD_FIXED_CYCLES + (2 * nch - p.nres) * GRID_COPY_ISSUE_CYCLES
+            + p.ks * (p.rows * nc / FWD_THREADS + 100) + p.rows * p.us / FWD_THREADS * GRID_DGATES_CYCLES)
+    if p.cl > 1:
+        rest += GRID_EXCHANGE_CYCLES + GRID_EXCHANGE_BLOCK_CYCLES * p.cl + p.rows * nc * 4 / DSMEM_BYTES_PER_CYCLE
+    return max(product * GRID_BWD_PRODUCT_FACTOR[bf16], intake) + rest
+
+
+def grid_bwd_candidates(b: int, u: int, nd: int, bf16: bool, cl: int, sms: int = GRID_SMS):
+    """Every layout of the VJP's grid loop its kernels take at a cluster size
+    (``_grid_layouts`` of a cut by ``grid_bwd_units`` over ``sms`` blocks, a
+    block's product the cluster's cl·us units over its piece of 4U/cl gate
+    columns) → [GridPlan]."""
+    us, units = grid_bwd_units(u, nd, cl, sms)
+    smem = lambda rows, kc, kp, nres, ns: grid_bwd_smem_bytes(us, cl, rows, kc, kp, nres, ns, bf16)
+    return list(_grid_layouts(b, nd, units, us, cl * us, 4 * units // cl, bf16, smem, cl))
+
+
+def _grid_bwd_cheapest(b: int, u: int, nd: int, bf16: bool, cl: int, sms: int) -> Optional[GridPlan]:
+    plans = grid_bwd_candidates(b, u, nd, bf16, cl, sms)
+    return min(plans, key=lambda p: p.passes * _grid_bwd_step_cycles(p, bf16)) if plans else None
+
+
+def grid_bwd_plan(b: int, u: int, nd: int, prec: str = "highest", sms: int = GRID_SMS,
+                  held: Optional[Callable[[GridPlan], int]] = None, clusters: Sequence[int] = GRID_CLUSTERS) -> GridPlan:
+    """The VJP's grid loop's plan for a shape — a pure function: of the
+    cheapest layout of each cluster size in ``clusters``
+    (``grid_bwd_candidates`` by passes × ``_grid_bwd_step_cycles``), the one
+    that costs the fewest cycles among those the card takes. A cut in
+    clusters (cl > 1) is taken only where ``held(plan)``, the blocks the
+    card holds at once of that launch made cooperative in clusters (0 where
+    it refuses such a launch), covers the plan's blocks; where it holds
+    fewer, the cut is made again over that many blocks. Without ``held``
+    every cut is taken (the planner's tests; on the card the wrapper asks
+    it). Raises ``ValueError`` where no layout fits."""
+    _check_prec(prec)
+    bf16 = prec == "bf16"
+    best, best_cost = None, None
+    for cl in clusters:
+        plan = _grid_bwd_cheapest(b, u, nd, bf16, cl, sms)
+        if plan is not None and cl > 1 and held is not None:
+            n = held(plan)
+            if n < plan.blocks:
+                plan = _grid_bwd_cheapest(b, u, nd, bf16, cl, n) if n >= nd * cl else None
+                if plan is not None and held(plan) < plan.blocks:
+                    plan = None
+        if plan is None:
+            continue
+        cost = plan.passes * _grid_bwd_step_cycles(plan, bf16)
+        if best is None or cost < best_cost:
+            best, best_cost = plan, cost
+    if best is None:
+        raise ValueError(f"no layout of the VJP's grid kernels fits U={u}")
+    return best
+
+
+def grid_wht(wh: torch.Tensor, plan: GridPlan, prec: str) -> torch.Tensor:
+    """``wh [U, 4U]`` as the VJP's grid loop reads it: the tile of block g·cl
+    + r (group g, cluster rank r) is ``whᵀ`` restricted to the gate columns of
+    the unit run ``[r·U/cl, (r+1)·U/cl)`` (its k, ``4·j + gate`` for the run's
+    unit j, zero padded to ``plan.kp``) and the output units ``[g·cl·us,
+    (g+1)·cl·us)``: float32 ``[blocks, kp, cl·us]``; bf16 in the tensor
+    cores' B fragment order (``ring_fragments``, one piece) → ``[blocks,
+    kp·cl·us]``."""
+    u = wh.shape[0]
+    ug = plan.cl * plan.us
+    if wh.shape != (u, 4 * u) or u % ug:
+        raise ValueError(f"grid_wht: wh must be [U, 4U] with U a multiple of {ug}, got {tuple(wh.shape)}")
+    w = wh.detach().reshape(u // ug, ug, 4, plan.cl, u // plan.cl).permute(0, 3, 4, 2, 1)
+    w = torch.nn.functional.pad(w.reshape(u // plan.us, 4 * u // plan.cl, ug), (0, 0, 0, plan.kp - 4 * u // plan.cl))
+    if prec != "bf16":
+        return w.to(torch.float32).contiguous()
+    return ring_fragments(w.to(torch.bfloat16).transpose(1, 2), 1, plan.kp // 16)
+
+
+def ungrid_wht(wg: torch.Tensor, u: int, plan: GridPlan) -> torch.Tensor:
+    """The inverse of ``grid_wht`` (float32 or bf16) → ``wh [u, 4u]``."""
+    cl, kp, ug = plan.cl, plan.kp, plan.cl * plan.us
+    n = u // plan.us
+    if wg.dtype == torch.bfloat16:  # undo ring_fragments: [n, K16, NT, g, t, half, pair] → [n, ug, kp]
+        x = wg.reshape(n, kp // 16, ug // 8, 8, 4, 2, 2).permute(0, 2, 3, 1, 5, 4, 6)
+        wg = x.reshape(n, ug, kp).transpose(1, 2)
+    w = wg.reshape(n, kp, ug)[:, :4 * u // cl]
+    return w.reshape(u // ug, cl, u // cl, 4, ug).permute(0, 4, 3, 1, 2).reshape(u, 4 * u).contiguous()
 
 
 def forward_plan(
@@ -886,19 +897,10 @@ def forward_plan(
     raise ValueError(f"no plan of the forward template fits U={u} in shared memory")
 
 
-def _ring_first(u: int, bf16: bool, ring: Optional[bool]) -> bool:
-    """Whether a plan of the VJP's loop tries the ring before the template: past
-    ``RING_UNITS`` (bf16: ``RING_UNITS_BF16``), or as ``ring`` forces it,
-    and never for a slice a cluster holds (U ≤ ``RESIDENT_UNITS``)."""
-    return (u > (RING_UNITS_BF16 if bf16 else RING_UNITS) if ring is None else ring) and u > RESIDENT_UNITS
-
-
 def _route(plan) -> int:
     """The kernels' route argument: 0 streamed by the threads' loads, 1
-    resident, 2 the ring, 3 the grid layout."""
-    if getattr(plan, "grid", None) is not None:
-        return 3
-    return 2 if getattr(plan, "ring", False) else int(plan.resident)
+    resident, 3 the grid layout."""
+    return 3 if getattr(plan, "grid", None) is not None else int(plan.resident)
 
 
 @functools.lru_cache(maxsize=None)
@@ -915,9 +917,14 @@ def forward_kernel_info(u: int, bf16: bool, save_res: bool, c: int, bt: int, ksp
     return {"max_active_clusters": info[0], "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3]}
 
 
+def _grid_cut_fields(g: GridPlan, row0: int, nrows: int) -> Tuple[int, ...]:
+    """csrc/lstm.cu's GridCut of a pass: its 12 fields in order."""
+    return g.blocks, g.us, g.rows, row0, nrows, g.tile, g.ks, g.kc, g.kp, g.nres, g.ns, g.cl
+
+
 def _grid_cut(g: GridPlan, row0: int, nrows: int):
     """csrc/lstm.cu's GridCut of a pass, as the C array its entries read."""
-    return (ctypes.c_int * 11)(g.blocks, g.us, g.rows, row0, nrows, g.tile, g.ks, g.kc, g.kp, g.nres, g.ns)
+    return (ctypes.c_int * 12)(*_grid_cut_fields(g, row0, nrows))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1006,40 +1013,34 @@ class BackwardPlan(NamedTuple):
     resident: bool  # the block's slice of whᵀ lies in shared memory (else it streams from L2)
     smem: int  # dynamic shared memory bytes of a block
     units: int  # the U the kernels run at: the layer's, or wider with zero padding
-    ring: bool = False  # float32: the slice streams through the ring of bulk copies
+    grid: Optional[GridPlan] = None  # the grid layout's cut (then cluster is its cl, bt its rows, ksplit its parts)
 
 
 BWD_RING = 2  # tiles of factors, dout and mask a block keeps: one in use, one in flight
 
 
-def _kernel_wht(wh: torch.Tensor, c: int, prec: str, plan: Optional["BackwardPlan"] = None) -> torch.Tensor:
-    """The slices of ``whᵀ`` as the VJP's loop kernel reads them. Block s
-    multiplies the gate gradients of its units (its 4·U/C columns, in
-    ``regroup_wh``'s order) by the matching rows of ``whᵀ``: float32
+def _kernel_wht(wh: torch.Tensor, c: int, prec: str) -> torch.Tensor:
+    """The slices of ``whᵀ`` as the VJP's template loop kernel reads them.
+    Block s multiplies the gate gradients of its units (its 4·U/C columns,
+    in ``regroup_wh``'s order) by the matching rows of ``whᵀ``: float32
     ``[C, 4·U/C, U]`` (U contiguous), or for the tensor cores bf16
     ``[C, Up, 4·U/C]`` with the contracted gate columns contiguous and the
-    units zero padded to Up = U rounded up to 16; for the bf16 ring
-    (``plan``) that slice in ``ring_fragments``' order."""
+    units zero padded to Up = U rounded up to 16 (the grid layout's:
+    ``grid_wht``)."""
     wg = regroup_wh(wh.detach(), c)  # [C, U, 4·Us]
     if prec != "bf16":
         return wg.to(torch.float32).transpose(1, 2).contiguous()
     u = wg.shape[1]
-    wp = torch.nn.functional.pad(wg.to(torch.bfloat16), (0, 0, 0, -u % 16))
-    if plan is not None and plan.ring:
-        return ring_fragments(wp, plan.ksplit, ring_slots(u, c, plan.bt, plan.ksplit, bf16=True)[0])
-    return wp.contiguous()
+    return torch.nn.functional.pad(wg.to(torch.bfloat16), (0, 0, 0, -u % 16)).contiguous()
 
 
-def backward_smem_bytes(u: int, c: int, bt: int, ksplit: int, resident: bool, bf16: bool,
-                        ring: bool = False) -> int:
+def backward_smem_bytes(u: int, c: int, bt: int, ksplit: int, resident: bool, bf16: bool) -> int:
     """A block's dynamic shared memory in the VJP's loop kernel, as
     ``bwd_layout`` of csrc/lstm.cu lays it out: the slice of whᵀ, two
     buffers of received partial dh, this step's dgates, the k parts of the
     product, ``BWD_RING`` tiles (a step's four factors a gate column, then
     dout and two more factors a unit, then the mask) and the kept dh and
-    dc; the ring's layout is ``ring_slots``'."""
-    if ring:
-        return ring_slots(u, c, bt, ksplit, bf16=bf16)[1]
+    dc; the grid layout's is ``grid_bwd_smem_bytes``'."""
     us = u // c
     nc = 4 * us
     up = -(-u // 16) * 16
@@ -1065,36 +1066,53 @@ def _bwd_ksplit(u: int, c: int, bt: int, bf16: bool) -> int:
     return max(1, min(16, FWD_THREADS // items, u // c))
 
 
+def _grid_backward_plan(b: int, u: int, nd: int, prec: str, max_active, sms: int) -> BackwardPlan:
+    g = grid_bwd_plan(b, u, nd, prec, sms, None if max_active is None else (
+        lambda gp: max_active(_as_backward_plan(gp, nd, prec))))
+    return _as_backward_plan(g, nd, prec)
+
+
+def _as_backward_plan(g: GridPlan, nd: int, prec: str) -> BackwardPlan:
+    smem = grid_bwd_smem_bytes(g.us, g.cl, g.rows, g.kc, g.kp, g.nres, g.ns, prec == "bf16")
+    return BackwardPlan(g.cl, g.rows, g.ks, g.nres == g.kp // g.kc, smem, g.us * g.blocks // nd, grid=g)
+
+
 def backward_plan(
     b: int, u: int, nd: int, prec: str = "highest",
-    max_active: Optional[Callable[[BackwardPlan], int]] = None, ring: Optional[bool] = None,
+    max_active: Optional[Callable[[BackwardPlan], int]] = None, layout: Optional[str] = None,
+    sms: int = GRID_SMS,
 ) -> BackwardPlan:
-    """The (C, Bt, k split, kernel U) of the VJP's loop kernel for a shape —
-    a pure function, the companion of ``forward_plan``, over the same U
-    (multiples of 8 from 8 to ``MAX_UNITS``).
+    """The plan of the VJP's loop kernel for a shape — a pure function, the
+    companion of ``forward_plan``, over the same U (multiples of 8 from 8 to
+    ``MAX_UNITS``).
 
-    C is the largest of ``CLUSTER_SIZES`` that divides U into slices of a
-    multiple of 8 units whose slice of whᵀ fits in shared memory beside the
-    rest; if none does, the largest such C whose layout fits with each
-    block streaming its slice of whᵀ from L2 at every step; if none does
-    either, U is zero padded to a multiple of 8·C for the largest C that
-    fits (``_plan_candidates``). For each tile Bt the k split is the
-    largest that fits (halved until it does). Bt is then chosen as
-    ``forward_plan`` chooses it: the smallest tile whose ``ceil(B/Bt)·nd``
-    clusters the card runs at once, as ``max_active(plan)`` says (on the
-    card: ``cudaOccupancyMaxActiveClusters``); without that knowledge, or
-    if no tile fits in one wave, the largest tile that fits in shared
-    memory. Float32 past ``RING_UNITS`` and bf16 past ``RING_UNITS_BF16``
-    take the ring's cheapest plan instead, as does a U past the template's
-    last layout (``_ring_plan``; ``ring`` as ``forward_plan``'s). Raises
-    ``ValueError`` for a U outside that range."""
+    Up to the resident widths (float32 ``GRID_UNITS_BWD``, bf16
+    ``RING_UNITS_BF16``) the cluster template: C is the largest of
+    ``CLUSTER_SIZES`` that divides U into slices of a multiple of 8 units
+    whose slice of whᵀ fits in shared memory beside the rest; if none does,
+    the largest such C whose layout fits with each block streaming its
+    slice of whᵀ from L2 at every step; if none does either, U is zero padded
+    to a multiple of 8·C for the largest C that fits (``_plan_candidates``).
+    For each tile Bt the k split is the largest that fits (halved until it
+    does). Bt is then chosen as ``forward_plan`` chooses it: the smallest
+    tile whose ``ceil(B/Bt)·nd`` clusters the card runs at once, as
+    ``max_active(plan)`` says (on the card: ``cudaOccupancyMaxActiveClusters``);
+    without that knowledge, or if no tile fits in one wave, the largest tile
+    that fits in shared memory. Past those widths the grid layout
+    (``grid_bwd_plan`` over ``sms`` SMs, ``BackwardPlan.grid``), its cuts in
+    clusters only where ``max_active(plan)``, the blocks the card holds at
+    once of that launch (0 where it refuses a cooperative launch in
+    clusters), covers them. ``layout`` forces a route, for comparisons:
+    "template" the template at any U it fits, "grid" the grid layout at
+    any U. Raises ``ValueError`` for a U outside that range,
+    or a layout that does not fit."""
     _check_prec(prec)
     _check_units(u)
+    if layout not in (None, "template", "grid"):
+        raise ValueError(f"layout must be None, 'template' or 'grid', got {layout!r}")
     bf16 = prec == "bf16"
-    if _ring_first(u, bf16, ring):
-        plan = _ring_plan(u, b, nd, max_active, bf16)
-        if plan is not None:
-            return plan
+    if layout == "grid" or (layout is None and u > (RING_UNITS_BF16 if bf16 else GRID_UNITS_BWD)):
+        return _grid_backward_plan(b, u, nd, prec, max_active, sms)
     for c, resident, units in _plan_candidates(u):
         fits = []
         for bt in ROW_TILES:
@@ -1106,16 +1124,19 @@ def backward_plan(
                 fits.append(BackwardPlan(c, bt, ks, resident, smem, units))
         if fits:
             return _choose_tile(fits, b, nd, max_active)
-    plan = None if ring is False else _ring_plan(u, b, nd, max_active, bf16)  # past the template's last layout
-    if plan is None:
-        raise ValueError(f"no plan of the VJP's loop kernel fits U={u} in shared memory")
-    return plan
+    if layout is None:  # past the template's last layout
+        return _grid_backward_plan(b, u, nd, prec, max_active, sms)
+    raise ValueError(f"no plan of the VJP's loop kernel fits U={u} in shared memory")
 
 
 @functools.lru_cache(maxsize=None)
 def backward_kernel_info(bf16: bool, plan: BackwardPlan) -> dict:
     """What the card gives one plan of the VJP's loop kernel (built at
-    first use) at the plan's kernel U, as ``forward_kernel_info``."""
+    first use) at the plan's kernel U, as ``forward_kernel_info``; of the
+    grid layout's, ``grid_bwd_kernel_info``'s."""
+    if plan.grid is not None:
+        g = plan.grid
+        return grid_bwd_kernel_info(plan.units, g.blocks * g.us // plan.units, bf16, g)
     from phones_las_torch.csrc import _build
 
     info = (ctypes.c_int * 4)()
@@ -1124,6 +1145,40 @@ def backward_kernel_info(bf16: bool, plan: BackwardPlan) -> dict:
     )
     _build.check(err, "plt_lstm_bwd_info")
     return {"max_active_clusters": info[0], "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3]}
+
+
+@functools.lru_cache(maxsize=None)
+def grid_bwd_kernel_info(u: int, nd: int, bf16: bool, g: GridPlan) -> dict:
+    """What the card gives a plan of the VJP's grid loop at kernel U ``u``
+    (built at first use): whether it takes a cooperative launch made in
+    clusters of ``g.cl``, the blocks it holds at once of that launch (0
+    where it refuses it), the dynamic and static shared memory bytes and the
+    registers a thread; and the plan's cut, resident share and passes."""
+    from phones_las_torch.csrc import _build
+
+    info = (ctypes.c_int * 5)()
+    err = _build.library().plt_lstm_bwd_grid_info(u, nd, int(bf16), _grid_cut(g, 0, g.rows), info)
+    _build.check(err, "plt_lstm_bwd_grid_info")
+    return {"cooperative_clusters": bool(info[4]), "max_active_blocks": info[0] if info[4] else 0,
+            "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3], "blocks": g.blocks,
+            "cluster": g.cl, "resident_share": g.resident_share, "passes": g.passes}
+
+
+@functools.lru_cache(maxsize=None)
+def _card_backward_plan(b: int, u: int, nd: int, prec: str, device_index: int) -> BackwardPlan:
+    """``backward_plan`` with the card's answers, once a shape and card: the
+    plan walks every layout of the grid loop (milliseconds of host time,
+    which a call would otherwise add before its first launch)."""
+    return backward_plan(b, u, nd, prec, functools.partial(backward_held, prec == "bf16"),
+                         sms=torch.cuda.get_device_properties(device_index).multi_processor_count)
+
+
+def backward_held(bf16: bool, plan: BackwardPlan) -> int:
+    """What the card runs at once of a plan's loop launch (``backward_plan``'s
+    ``max_active``): clusters (the template), or blocks (the grid
+    layout; 0 where the card refuses its cooperative launch in clusters)."""
+    info = backward_kernel_info(bf16, plan)
+    return info["max_active_blocks"] if plan.grid is not None else info["max_active_clusters"]
 
 
 def recurrence_bwd_plain(xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins,
@@ -1190,12 +1245,13 @@ def recurrence_bwd(
     (``csrc/lstm.cu``) or raises. That is four kernels on one stream: the
     gate-recompute GEMM, whose epilogue turns the gates and cprev into the
     factors of each step that do not depend on dh (the sigmoids and tanhs
-    leave the serial chain); the serial reverse loop as thread-block
-    clusters (``backward_plan``: a cluster of C blocks per direction and
-    tile of Bt rows, each block with its slice of whᵀ in shared memory or,
-    past U = 256 in float32, streamed from L2, the partial dh exchanged
-    through distributed shared memory and added in rank order); the
-    split-K dWh GEMM and its ordered reduction. In
+    leave the serial chain); the serial reverse loop (``backward_plan``:
+    up to the resident widths a cluster of C blocks per direction and tile
+    of Bt rows, each block with its slice of whᵀ in shared memory or, past
+    U = 256 in float32, streamed from L2; past them the grid layout, one
+    cooperative launch a pass of rows with whᵀ held across the card; the
+    partial dh exchanged through distributed shared memory and added in
+    rank order); the split-K dWh GEMM and its ordered reduction. In
     bf16 mode the loop's product and both GEMMs run on the tensor cores.
     Repeated runs give bitwise equal results."""
     _check_prec(prec)
@@ -1212,19 +1268,20 @@ def recurrence_bwd(
 
 recurrence_bwd.launches = 0
 recurrence_bwd.bf16_launches = 0
-recurrence_bwd.ring_launches = 0
-recurrence_bwd.bf16_ring_launches = 0
+recurrence_bwd.grid_launches = 0
+recurrence_bwd.bf16_grid_launches = 0
 
 
 def _launch_backward(xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins, forget_bias, reverse, prec,
                      plan: Optional[BackwardPlan] = None, clocks: Optional[torch.Tensor] = None,
                      part_ms: Optional[list] = None):
-    """One launch of ``plt_lstm_bwd``. For measurements: ``plan`` overrides
-    ``backward_plan``; ``clocks``, an int64 CUDA tensor of 6, receives the SM
-    cycles one block of the loop spent forming dgates, in the product,
-    sending the partials, requesting a later tile, waiting for the peers
-    and (the ring) waiting for chunks of whᵀ; ``part_ms``, a list, receives the milliseconds of the four
-    kernels (the call then waits for the stream)."""
+    """One call of ``plt_lstm_bwd`` (the grid layout's loop: a launch a pass
+    of rows). For measurements: ``plan`` overrides ``backward_plan``;
+    ``clocks``, an int64 CUDA tensor of 5 (the grid layout's:
+    ``GRID_BWD_CLOCKS``), receives the SM cycles one block of the loop spent
+    in the parts of a step (``chip_smoke.py``'s ``BWD_CLOCKS`` and
+    ``GRID_BWD_CLOCK_NAMES``); ``part_ms``, a list, receives the milliseconds
+    of the four kernels (the call then waits for the stream)."""
     t, b, u = _check_recurrence_args(xps, mask_tm, whs, "plt_lstm_bwd")
     nd = len(xps)
     bf16 = prec == "bf16"
@@ -1236,20 +1293,21 @@ def _launch_backward(xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins, f
     from phones_las_torch.csrc import _build
 
     lib = _build.library()
+    dev = xps[0].device
     if plan is None:
-        plan = backward_plan(b, round_up(u, 8), nd, prec, lambda p: backward_kernel_info(bf16, p)["max_active_clusters"])
-    up = plan.units
+        plan = _card_backward_plan(b, round_up(u, 8), nd, prec,
+                                   dev.index if dev.index is not None else torch.cuda.current_device())
+    up, grid = plan.units, plan.grid
     f32 = lambda ts: [pad_units(x.float(), u, up).contiguous() for x in ts]
     xps = [pad_gates(x.float(), u, up).contiguous() for x in xps]
     douts, dhfins, dcfins = f32(douts), f32(dhfins), f32(dcfins)
     whs = [pad_lstm_wh(w.detach(), up) for w in whs]
     whs_d = [w.to(wdt).contiguous() for w in whs]
-    whgs = [_kernel_wht(w, plan.cluster, prec, plan) for w in whs]
+    whgs = [_kernel_wht(w, plan.cluster, prec) if grid is None else grid_wht(w, grid, prec) for w in whs]
     whts = [w.t().contiguous() for w in whs_d] if bf16 else []  # the tensor-core gates GEMM reads k contiguous
     hprevs = [pad_units(x, u, up).contiguous() for x in hprevs]
     cprevs = [pad_units(x, u, up).contiguous() for x in cprevs]
     mask = mask_tm.contiguous()
-    dev = xps[0].device
     dxps = [torch.empty((t, b, 4 * up), dtype=torch.float32, device=dev) for _ in range(nd)]
     dwhs = [torch.empty((up, 4 * up), dtype=torch.float32, device=dev) for _ in range(nd)]
     facs = [torch.empty((t, b, 2 * up), dtype=torch.float32, device=dev) for _ in range(nd)]
@@ -1259,13 +1317,21 @@ def _launch_backward(xps, mask_tm, whs, hprevs, cprevs, douts, dhfins, dcfins, f
     dwh_split = max(1, min(16, (t * b) // 1024, (1 << 25) // (nd * up * 4 * up)))
     partials = torch.empty((nd, dwh_split, up, 4 * up), dtype=torch.float32, device=dev)
     ms = (ctypes.c_float * 4)() if part_ms is not None else None
+    npass, cuts, ws, ws_pass = 0, None, None, 0
+    if grid is not None:  # a pass of rows a launch, each with its own zeroed workspace
+        starts = range(0, b, grid.rows)
+        npass = len(starts)
+        cuts = (ctypes.c_int * (12 * npass))(*[
+            v for r0 in starts for v in _grid_cut_fields(grid, r0, min(grid.rows, b - r0))])
+        ws_pass = round_up(grid_bwd_ws_bytes(grid, nd, bf16), 256)
+        ws = torch.zeros(npass * ws_pass, dtype=torch.uint8, device=dev)
     err = lib.plt_lstm_bwd(
         *_ptrs(xps), mask.data_ptr(), *_ptrs(whs_d), *_ptrs(whgs), *_ptrs(whts), *_ptrs(hprevs),
         *_ptrs(cprevs), *_ptrs(douts), *_ptrs(dhfins), *_ptrs(dcfins), nd,
         _rev_bits(reverse), int(bf16), *_ptrs(dxps), *_ptrs(facs), *_ptrs(dwhs),
         partials.data_ptr(), dwh_split, t, b, up, float(forget_bias),
-        plan.cluster, plan.bt, plan.ksplit, _route(plan),
-        None if clocks is None else clocks.data_ptr(), ms,
+        plan.cluster, plan.bt, plan.ksplit, _route(plan), npass, cuts, None if ws is None else ws.data_ptr(),
+        ws_pass, None if clocks is None else clocks.data_ptr(), ms,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "plt_lstm_bwd")

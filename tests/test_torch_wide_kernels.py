@@ -1,13 +1,13 @@
 """The kernels past their former limits, on the CPU: the decoder kernel's
 plans at every encoder length and at spellers up to U = A = AL = 2048,
 M = 4096 (the held layout where a block holds it, the grid layout past it),
-the listener kernels up to ``MAX_UNITS`` (the VJP's ring past U = 1024, the
-bf16 ring) and the plain versions against JAX at those widths.
+the listener kernels up to ``MAX_UNITS`` (the VJP's grid layout past U =
+1024) and the plain versions against JAX at those widths.
 
 A CUDA kernel does not run here, so what can go wrong in its index
 arithmetic is checked against the .cu: the held layout's shared memory
-region by region, the bf16 ring's fragment order against the tensor cores'
-B fragments."""
+region by region, the bf16 grid kernels' fragment order against the tensor
+cores' B fragments."""
 
 import math
 import os
@@ -139,14 +139,14 @@ def test_greedy_past_the_streamed_layout_matches_jax():
 
 
 def test_max_units_is_the_widest_with_every_plan(monkeypatch):
-    """``MAX_UNITS`` (the .cu's too) is the widest multiple of 8 at which
-    every route has a plan: float32 and bf16, the forward (and residual)
-    and the VJP's loop, one and two directions, at the serving and the
-    training batch; at the next multiple of 8 the VJP's loop has none (its
-    U-wide partial dh: four rows of whᵀ pass a 32 KB ring slot in float32,
-    a warp's n-tiles pass 32 in bf16)."""
-    assert L.MAX_UNITS == _cu_constant("lstm.cu", "MAX_UNITS") >= 2048
-    monkeypatch.setattr(L, "MAX_UNITS", L.MAX_UNITS + 64)
+    """``MAX_UNITS`` (the .cu's too) is 2048, the widest U that every route
+    has a plan for and the card is held to: float32 and bf16, the forward
+    (and residual) and the VJP's loop, one and two directions, at the
+    serving and the training batch. The grid layouts' plans go further
+    (every multiple of 8 to 4·``MAX_UNITS`` has one, at one launch a pass of
+    rows), so the bound is what chip_smoke.py checks on the card (13a at
+    2048, W2048 in 13d), not what fits; past it the wrappers refuse."""
+    assert L.MAX_UNITS == _cu_constant("lstm.cu", "MAX_UNITS") == 2048
 
     def routes(u):
         for prec in ("highest", "bf16"):
@@ -154,37 +154,38 @@ def test_max_units_is_the_widest_with_every_plan(monkeypatch):
                 L.forward_plan(b, u, nd, prec)
                 L.backward_plan(b, u, nd, prec)
 
-    for u in (1032, 1280, 1536, 2040, L.MAX_UNITS - 64):
+    for u in (1032, 1280, 1536, 2040, L.MAX_UNITS):
         routes(u)
-    routes(L.MAX_UNITS - 64)  # the range is walked whole by test_plans_take_every_width_to_1024
-    with pytest.raises(ValueError, match="VJP"):
-        routes(L.MAX_UNITS - 64 + 8)  # = the module's MAX_UNITS + 8
+    with pytest.raises(ValueError, match="2048"):
+        routes(L.MAX_UNITS + 8)
+    monkeypatch.setattr(L, "MAX_UNITS", 4 * L.MAX_UNITS)
+    for u in range(2056, 4 * 2048 + 1, 8 * 37):
+        routes(u)
+    routes(4 * 2048)
 
 
 def _h100_active(c, *_):
     return 7 if c > 8 else 15
 
 
-# every VJP plan of the float32 routes up to U = 1024 and of the bf16 routes
-# up to 384, and every forward plan of those routes that the grid layout
+# every VJP plan of the template up to U = 512 (float32, GRID_UNITS_BWD) and
+# 384 (bf16), and every forward plan of those routes that the grid layout
 # leaves to the template (float32 up to 256, bf16 up to 384), at B = 8, 32,
 # 64, one and two directions, with and without the H100's occupancy, as the
-# planners before the bf16 ring, the widths past 1024 and the grid layout
-# gave them (a forward plan as its fields then: the cut, and no ring): their
-# digest
-PLANS_BEFORE = (2112, "08b452254165d07c6dab6473b88fb757c21e5e3766eea498c9b3cb6feb89f37d")
+# planners before the VJP's grid layout gave them (a plan as its first six
+# fields, the cut; a forward plan with no ring): their digest
+PLANS_BEFORE = (1344, "832664fde76967e49221d3b8120b50239d5d13ca670925f8407356647c6b4a72")
 
 
 def test_plans_below_the_new_routes_are_unchanged():
-    """The VJP's plans at U <= 1024 (float32) and 384 (bf16), and the
+    """The VJP's plans at U <= 512 (float32) and 384 (bf16), and the
     forward plans the template keeps (float32 U <= 256, bf16 U <= 384), do
-    not move: the ring past 1024, the bf16 ring, clusters of 16 in several
-    waves and the grid layout change no plan there."""
+    not move: the grid layouts change no plan there."""
     import hashlib
     import json
 
     rows = []
-    for prec, top in (("highest", 1024), ("bf16", 384)):
+    for prec, top in (("highest", L.GRID_UNITS_BWD), ("bf16", 384)):
         for u in range(8, top + 1, 8):
             for b in (8, 32, 64):
                 for nd in (1, 2):
@@ -193,38 +194,41 @@ def test_plans_below_the_new_routes_are_unchanged():
                         g = L.backward_plan(b, u, nd, prec, None if active is None else (lambda p: _h100_active(
                             p.cluster)))
                         assert (f.grid is None) == (u <= (L.RESIDENT_UNITS if prec == "highest" else 384))
+                        assert g.grid is None
                         rows.append((prec, u, b, nd, active is None, None if f.grid else tuple(f[:6]) + (False,),
-                                     tuple(g)))
+                                     tuple(g[:6])))
     assert (len(rows), hashlib.sha256(json.dumps(rows).encode()).hexdigest()) == PLANS_BEFORE
 
 
+# what the H100 holds at once of the VJP's grid launch, in blocks (PERF.md)
+H100_GRID_HELD = {1: 132, 2: 132, 4: 120, 8: 120}
+
+
 @pytest.mark.parametrize("prec", ["highest", "bf16"])
-def test_vjp_ring_plans_past_1024(prec):
-    """The VJP's loop from U = 1032 to 2048: the ring, at the mirror's bytes;
-    float32 with a thread owning ``ring_cw4`` = ceil(U / 1024) groups of 4
-    units (at most 256 threads for all U, at most 96 sums a thread), bf16
-    with a warp's n-tiles within a built instance; clusters of 16 where
-    nothing smaller fits."""
+def test_vjp_grid_plans_past_1024(prec):
+    """The VJP's loop from U = 1032 to 2048: the grid layout, at the
+    mirror's bytes, its blocks what the card holds in its clusters, its
+    kernel U a whole number of its clusters' units; the tile of whᵀ mostly
+    streams (float32 at 2048: held in part)."""
+    bf16 = prec == "bf16"
+    active = lambda q: H100_GRID_HELD[q.grid.cl] if q.grid is not None else _h100_active(q.cluster)
     for u in range(1032, L.MAX_UNITS + 1, 8):
-        for b, active in ((32, None), (8, _h100_active), (32, _h100_active)):
-            p = L.backward_plan(b, u, 2, prec, None if active is None else (lambda q: active(q.cluster)))
-            assert p.ring and not p.resident and p.units % (8 * p.cluster) == 0
-            assert p.smem == L.backward_smem_bytes(p.units, p.cluster, p.bt, p.ksplit, False, prec == "bf16", True)
-            assert p.smem <= L.RING_SMEM_MAX
-            kc = L.ring_slots(p.units, p.cluster, p.bt, p.ksplit, bf16=prec == "bf16")[0]
-            if prec == "highest":
-                cw4 = L.ring_cw4(p.units)
-                assert cw4 == 2 and p.units // (4 * cw4) * p.ksplit <= L.FWD_THREADS and p.bt * cw4 <= 24
-                assert kc >= 4
-            else:
-                assert L.bf16_ring_ntw(-(-p.units // 16) * 2, -(-p.bt // 16)) and kc >= 1
-    assert L.backward_plan(32, 2048, 2, prec).cluster == 16  # no cluster of 8 holds U = 2048's ring
+        for b, act in ((32, None), (8, active), (32, active)):
+            p = L.backward_plan(b, u, 2, prec, act)
+            g = p.grid
+            assert g is not None and p.units >= u and p.units % (g.cl * g.us) == 0
+            assert p.smem == L.grid_bwd_smem_bytes(g.us, g.cl, g.rows, g.kc, g.kp, g.nres, g.ns, bf16)
+            assert p.smem <= L.GRID_SMEM_MAX and g.blocks <= L.GRID_SMS
+            if act is not None:
+                assert g.blocks <= H100_GRID_HELD[g.cl]
+    g = L.backward_plan(32, 2048, 2, prec, active).grid
+    assert g.blocks == 128 and g.passes == 1 and 0 < g.nres < g.kp // g.kc
 
 
 def test_ring_fragments_are_the_mma_layout():
-    """``ring_fragments`` read back as the bf16 ring's producer and
-    consumer address it (chunk after chunk of ``kc`` k steps of one piece;
-    a lane's four values at ((step·NTp + tile)·32 + lane)·4): lane 4·g + t
+    """``ring_fragments`` read back as a consumer of bf16 chunks addresses
+    it (chunk after chunk of ``kc`` k steps of one piece; a lane's four
+    values at ((step·NTp + tile)·32 + lane)·4): lane 4·g + t
     holds column g's k = 2t, 2t + 1, 2t + 8, 2t + 9 of its tile and k step,
     the B fragment of ``mma.m16n8k16``."""
     c, n, k, ks, kc = 2, 32, 48, 2, 2

@@ -3,8 +3,8 @@
 The listener kernels take every U that is a multiple of 8 up to
 ``MAX_UNITS`` = 2048 (the forward past 256 in float32 and 384 in bf16 on
 the grid layout; the VJP's loop past 256 in float32 streaming each block's
-slice of wh from L2, float32 past 512 and bf16 past 384 through the ring of
-bulk copies),
+slice of wh from L2, float32 past 512 and bf16 past 384 on its own grid
+layout),
 the decoder kernel the LAS-4-1024 speller (U = A = 1024, M = 2048) in its
 streamed layout, and the wrappers pad any other width with zeros. Here:
 the plans over that whole range; the streamed cluster decomposition
@@ -77,11 +77,11 @@ def test_plans_take_every_width_to_1024(which, prec):
     """Every U that is a multiple of 8 from 8 to ``MAX_UNITS`` (2048) has a
     plan in both modes, at the serving and the training batch: its bytes
     are the layout's mirror and fit a block, its kernel U is U or (a prime
-    number of 8-unit slices past what one block holds, or a cut of the ring
-    or of the grid layout that U does not divide) a wider multiple of 8·C
-    (the grid layout's: of its units a block); the forward takes the grid
-    layout past float32 ``RESIDENT_UNITS`` and bf16 ``RING_UNITS_BF16``, the
-    VJP's loop the ring past float32 ``RING_UNITS`` and bf16
+    number of 8-unit slices past what one block holds, or a cut of a grid
+    layout that U does not divide) a wider multiple of 8·C (the grid
+    layouts': of a block's units, of a cluster's); the forward takes the
+    grid layout past float32 ``RESIDENT_UNITS`` and bf16 ``RING_UNITS_BF16``,
+    the VJP's loop its grid layout past float32 ``GRID_UNITS_BWD`` and bf16
     ``RING_UNITS_BF16``, nothing else does; past ``MAX_UNITS``, and for a U
     that is no multiple of 8, the plans raise."""
     fwd = which == "forward"
@@ -91,33 +91,36 @@ def test_plans_take_every_width_to_1024(which, prec):
     for u in range(8, L.MAX_UNITS + 1, 8):
         for b in (32, 64):
             p = plan_fn(b, u, 2, prec)
-            if fwd and p.grid is not None:
-                g = p.grid
+            g = p.grid
+            if fwd and g is not None:
                 assert p.smem == L.grid_smem_bytes(g.us, g.rows, g.kc, g.kp, g.nres, g.ns, bf16) <= L.GRID_SMEM_MAX
                 assert p.units >= u and p.units % g.us == 0 and (p.units == u or u % g.us)
+            elif g is not None:
+                assert p.smem == L.grid_bwd_smem_bytes(g.us, g.cl, g.rows, g.kc, g.kp, g.nres, g.ns, bf16)
+                assert p.smem <= L.GRID_SMEM_MAX and p.units % (g.cl * g.us) == 0
+                assert p.units >= u and (p.units == u or u % (g.cl * g.us))
             elif fwd:
                 assert p.smem == L.forward_smem_bytes(p.units, p.cluster, p.bt, p.ksplit, p.resident, bf16)
             else:
-                assert p.smem == L.backward_smem_bytes(p.units, p.cluster, p.bt, p.ksplit, p.resident, bf16,
-                                                       ring=p.ring)
+                assert p.smem == L.backward_smem_bytes(p.units, p.cluster, p.bt, p.ksplit, p.resident, bf16)
             assert p.smem <= L.SMEM_MAX
-            if not fwd or p.grid is None:
+            if g is None:
                 assert p.units >= u and p.units % (8 * p.cluster) == 0
                 assert p.units == u or u % (8 * p.cluster)  # padded only where the plan's cut does not divide U
             if fwd:
-                assert (p.grid is not None) == (u > (L.RESIDENT_UNITS if prec == "highest" else L.RING_UNITS_BF16))
+                assert (g is not None) == (u > (L.RESIDENT_UNITS if prec == "highest" else L.RING_UNITS_BF16))
             else:
-                assert p.ring == (u > (L.RING_UNITS if prec == "highest" else L.RING_UNITS_BF16))
+                assert (g is not None) == (u > (L.GRID_UNITS_BWD if prec == "highest" else L.RING_UNITS_BF16))
             streamed += not p.resident
     assert streamed > 0
-    # the flagship widths keep their plans; the widest VJP is cut 8 ways and
-    # streams, the widest forward runs on the grid layout
+    # the flagship widths keep their plans; at U = 1024 both kernels run on
+    # their grid layouts, and the VJP's template at 512 streams, cut 8 ways
     assert plan_fn(32, 256, 2, prec).resident and plan_fn(32, 256, 2, prec).cluster == 8
     wide = plan_fn(64, 1024, 2, prec)
-    if fwd:
-        assert wide.grid is not None and wide.units == 1024
-    else:
-        assert (wide.cluster, wide.resident, wide.units) == (8, False, 1024)
+    assert wide.grid is not None and wide.units == 1024
+    if not fwd and prec == "highest":
+        mid = plan_fn(64, 512, 2, prec)
+        assert (mid.grid, mid.cluster, mid.resident, mid.units) == (None, 8, False, 512)
     for u in (L.MAX_UNITS + 8, 2 * L.MAX_UNITS, 100, 0):
         with pytest.raises(ValueError):
             plan_fn(8, u, 1, prec)
@@ -144,75 +147,70 @@ def _h100_active(c, *_):
     return 7 if c > 8 else 15
 
 
+# what the H100 holds at once of the VJP's grid launch, in blocks
+# (plt_lstm_bwd_grid_info, PERF.md): 132 in clusters of 1 or 2, 120 in
+# clusters of 4 or 8
+H100_GRID_HELD = {1: 132, 2: 132, 4: 120, 8: 120}
+
+
 def _h100_bwd_active(plan):
+    if plan.grid is not None:
+        return H100_GRID_HELD[plan.grid.cl]
     return _h100_active(plan.cluster)
 
 
 # the float32 plans of the VJP's loop at the W1024 and LAS-paper widths on
-# the H100's occupancy: (C, Bt, k parts, ring); at U = 512 the template's,
-# past it the ring's (the forward there: the grid layout,
-# tests/test_torch_lstm_grid.py)
+# the H100's occupancy: at U = 512 the template's (C, Bt, k parts); past it
+# the grid layout's (cl, rows, k parts)
 STREAMED_PLANS = {
-    (1024, 64, 2): (16, 24, 1, True),
-    (1024, 32, 2): (16, 16, 1, True),
-    (1024, 32, 1): (16, 8, 1, True),
-    (1024, 8, 2): (16, 8, 1, True),
-    (512, 64, 2): (8, 16, 1, False),
-    (512, 32, 2): (8, 8, 2, False),
-    (512, 8, 2): (8, 8, 2, False),
+    (1024, 64, 2): ("grid", 2, 64, 2),
+    (1024, 32, 2): ("grid", 2, 32, 4),
+    (1024, 32, 1): ("grid", 2, 32, 8),
+    (1024, 8, 2): ("grid", 8, 8, 2),
+    (512, 64, 2): ("template", 8, 16, 1),
+    (512, 32, 2): ("template", 8, 8, 2),
+    (512, 8, 2): ("template", 8, 8, 2),
 }
 
 
 @pytest.mark.parametrize("u,b,nd", sorted(STREAMED_PLANS))
 @pytest.mark.parametrize("which", ["backward"])
-def test_ring_plans_run_in_one_wave(which, u, b, nd):
-    """The VJP's loop in float32 at U = 512 and 1024: the plan on the
-    H100's occupancy runs every cluster in one wave: at 1024 the ring's
-    cheapest (clusters of 16, which the card holds 7 of, only where they
-    fit), at the layout's bytes, the k parts filling the consumer threads;
-    at 512 the template's. The ring's plan at 512 (asked for with
-    ``ring=True``) runs in one wave too."""
+def test_vjp_plans_run_in_one_launch(which, u, b, nd):
+    """The VJP's loop in float32 at U = 512 and 1024 on the H100's
+    occupancy: at 512 the template's plan, its clusters in one wave; at 1024
+    the grid layout's, one launch a pass of rows whose blocks the card holds
+    in its clusters (at B = 8 clusters of 8, over 120 blocks of 24 units: U
+    padded to 1152), at the layout's bytes, the pass's rows the row tiles of
+    a part's threads; the grid layout asked for at 512 (``layout="grid"``)
+    fits the card too."""
+    p = L.backward_plan(b, u, nd, "highest", _h100_bwd_active)
+    want = STREAMED_PLANS[(u, b, nd)]
+    assert ("grid" if p.grid is not None else "template", p.cluster, p.bt, p.ksplit) == want
+    if p.grid is None:
+        assert not p.resident and p.units == u and -(-b // p.bt) * nd <= _h100_active(p.cluster)
+    q = p if p.grid is not None else L.backward_plan(b, u, nd, "highest", _h100_bwd_active, layout="grid")
+    g = q.grid
+    assert g.blocks <= H100_GRID_HELD[g.cl] and g.passes == -(-b // g.rows)
+    assert q.units == u or (q.units > u and u % (g.cl * g.us))  # padded only where its clusters do not cut U
+    assert g.rows == L.FWD_THREADS // g.ks // (g.cl * g.us // 4) * g.tile
+    assert q.smem == L.grid_bwd_smem_bytes(g.us, g.cl, g.rows, g.kc, g.kp, g.nres, g.ns, False) <= L.GRID_SMEM_MAX
 
-    def plan(ring=None):
-        return L.backward_plan(b, u, nd, "highest", _h100_bwd_active, ring=ring)
 
-    p = plan()
-    assert (p.cluster, p.bt, p.ksplit, p.ring) == STREAMED_PLANS[(u, b, nd)]
-    assert not p.resident and p.units == u and -(-b // p.bt) * nd <= _h100_active(p.cluster)
-    q = p if p.ring else plan(ring=True)
-    assert q.ring and q.units == u and -(-b // q.bt) * nd <= _h100_active(q.cluster)
-    cols = u // 4
-    assert q.ksplit * cols <= L.FWD_THREADS and q.ksplit == min(L.RING_KS_MAX, L.FWD_THREADS // cols)
-    kc, smem = L.ring_slots(q.units, q.cluster, q.bt, q.ksplit)
-    assert kc >= 4 and kc % 4 == 0 and q.smem == smem <= L.RING_SMEM_MAX
-
-
-def _declared_ring_bytes(u, c, bt, ks, bf16=False):
-    """A block's shared memory as ``bwd_ring_layout`` of csrc/lstm.cu
-    declares it, region by region, and the ring's chunk rows (bf16: its k
-    steps of a piece, ``ring_bf16``)."""
-    us, f = u // c, 4
-    nc = 4 * us
+def _declared_grid_bwd_bytes(g, bf16=False):
+    """A block's shared memory as ``grid_layout(..., bwd)`` of csrc/lstm.cu
+    declares it, region by region: resident chunks of the tile of whᵀ, the
+    ring's slots, the product, the cluster's partials, two factor tiles, dc
+    and the kept dh."""
+    nc, f = g.cl * g.us, 4
     if bf16:
-        up, mt = -(-u // 16) * 16, -(-bt // 16)
-        regions = [bt * u * f, 16 * mt * (nc + 8) * 2, (bt * (nc + 3 * us) + bt) * f, bt * us * f, bt * us * f]
-        step, depth = up // 8 // ks * 256, nc // 16
-        used = sum(regions)
-        for slots in (2 * ks, ks + 1):
-            per = min(_cu_constant("RING_CHUNK_MAX"), (_cu_constant("SMEM_MAX") - 1024 - used) // slots)
-            kc = min(per // step, depth)
-            if kc >= 1:
-                break
-        return kc, used + slots * kc * step
-    regions = [bt * u * f, bt * nc * f, bt * u * f if ks > 1 else 0, (bt * (nc + 3 * us) + bt) * f,
-               bt * us * f, bt * us * f]
-    row, depth = u * f, nc
-    used = sum(regions)
-    slots = 2 * ks
-    per = min(_cu_constant("RING_CHUNK_MAX"), (_cu_constant("SMEM_MAX") - 1024 - used) // slots)
-    share = ((depth + ks - 1) // ks + 3) // 4 * 4
-    kc = min(per // row // 4 * 4, share)
-    return kc, used + slots * kc * row
+        hchunk, wchunk = g.kc // 16 * g.rows // 16 * 512, g.kc // 16 * nc // 8 * 256
+    else:
+        hchunk, wchunk = g.rows * (g.kc + 4) * f, g.kc * nc * f
+    slot = hchunk + (wchunk if g.nres < g.kp // g.kc else 0)
+    tile = (g.rows * 7 * g.us + g.rows + 3) // 4 * 4 * f
+    regions = [g.nres * wchunk, g.ns * slot, g.rows * nc * f, 2 * g.cl * g.rows * g.us * f if g.cl > 1 else 0,
+               2 * tile, g.rows * g.us * f, g.rows * g.us * f]
+    return sum(regions)
 
 
 def _cu_constant(name):
@@ -224,34 +222,38 @@ def _cu_constant(name):
 
 @pytest.mark.parametrize("u", [264, 320, 512, 1024, 100, 1280, 2048])
 @pytest.mark.parametrize("which", ["backward"])
-def test_ring_bytes_are_the_kernels_layout(which, u):
+def test_vjp_bytes_are_the_kernels_layout(which, u):
     """Every plan of the VJP's loop at the width cases (both modes, the
     serving, training and small batches, one and two directions, with and
     without the card's occupancy) at the bytes of the layout the kernel
-    declares; the constants the mirror reads are the .cu's. The ring is
-    taken past ``RING_UNITS`` (bf16: ``RING_UNITS_BF16``), or past
-    ``RESIDENT_UNITS`` where it is asked for (the forward's grid layout:
+    declares; the constants the mirror reads are the .cu's. The grid layout
+    is taken past ``GRID_UNITS_BWD`` (bf16: ``RING_UNITS_BF16``), or at any U
+    where it is asked for (the forward's grid layout:
     tests/test_torch_lstm_grid.py)."""
-    assert (L.SMEM_MAX, L.RING_CHUNK_MAX, L.RING_KS_MAX, L.FWD_THREADS) == tuple(
-        _cu_constant(n) for n in ("SMEM_MAX", "RING_CHUNK_MAX", "RING_KS_MAX", "FWD_THREADS"))
+    assert (L.SMEM_MAX, L.GRID_SLOTS_MAX, L.FWD_THREADS) == tuple(
+        _cu_constant(n) for n in ("SMEM_MAX", "GRID_SLOTS_MAX", "FWD_THREADS"))
     u = P.round_up(u, 8)  # as the wrappers ask the planners
     for prec in ("highest", "bf16"):
+        bf16 = prec == "bf16"
         for b, nd in ((64, 2), (32, 2), (32, 1), (8, 2), (3, 1)):
-            for active, ring in ((None, None), (_h100_active, None), (_h100_active, True)):
-                p = L.backward_plan(b, u, nd, prec, None if active is None else _h100_bwd_active, ring=ring)
-                limit = L.RESIDENT_UNITS if ring else L.RING_UNITS if prec == "highest" else L.RING_UNITS_BF16
-                assert p.ring == (u > limit)
-                assert p.smem == L.backward_smem_bytes(p.units, p.cluster, p.bt, p.ksplit, p.resident, prec == "bf16",
-                                                       ring=p.ring)
-                if p.ring:
-                    kc, total = _declared_ring_bytes(p.units, p.cluster, p.bt, p.ksplit, prec == "bf16")
-                    assert kc >= (1 if prec == "bf16" else 4) and p.smem == total
+            for active, layout in ((None, None), (_h100_bwd_active, None), (_h100_bwd_active, "grid")):
+                p = L.backward_plan(b, u, nd, prec, active, layout=layout)
+                limit = 0 if layout else L.GRID_UNITS_BWD if prec == "highest" else L.RING_UNITS_BF16
+                assert (p.grid is not None) == (u > limit)
+                if p.grid is None:
+                    assert p.smem == L.backward_smem_bytes(p.units, p.cluster, p.bt, p.ksplit, p.resident, bf16)
+                    continue
+                g = p.grid
+                assert p.smem == _declared_grid_bwd_bytes(g, bf16) <= L.SMEM_MAX - 1024
+                assert p.units >= u and g.blocks * g.us == nd * p.units
+                if active is not None and g.cl > 1:
+                    assert g.blocks <= H100_GRID_HELD[g.cl]
 
 
 # every plan at U <= 256, and bf16 up to RING_UNITS_BF16, as the listener
-# kernels took them before the ring; bf16 past it (U = 512, 1024) the
-# forward's grid layout (C = 1, Bt its rows, k split its parts) and the
-# VJP's bf16 ring: (B, U, nd, prec) -> forward, VJP (C, Bt, k split,
+# kernels took them before the rings; bf16 past it (U = 512, 1024) the
+# grid layouts (the forward's: C = 1, Bt its rows, k split its parts; the
+# VJP's: C its clusters): (B, U, nd, prec) -> forward, VJP (C, Bt, k split,
 # resident, bytes, kernel U), on the H100's occupancy
 UNCHANGED_PLANS = [
     (64, 256, 2, "highest", (8, 16, 4, True, 227520, 256), (8, 16, 1, True, 221312, 256)),
@@ -277,9 +279,9 @@ UNCHANGED_PLANS = [
     (32, 248, 1, "bf16", (1, 8, 1, False, 167776, 248), (1, 8, 1, False, 183104, 248)),
     (20, 40, 2, "bf16", (1, 8, 1, True, 45920, 40), (1, 8, 1, True, 46144, 40)),
     (64, 512, 2, "bf16", (1, 64, 2, True, 102656, 512), None),
-    (32, 512, 2, "bf16", None, (16, 16, 1, False, 121152, 512)),
+    (32, 512, 2, "bf16", None, (2, 32, 4, True, 153856, 512)),
     (64, 1024, 2, "bf16", (1, 64, 2, True, 221440, 1024), None),
-    (32, 1024, 2, "bf16", None, (16, 16, 1, False, 176448, 1024)),
+    (32, 1024, 2, "bf16", None, (2, 32, 4, False, 225536, 1024)),
     (32, 512, 1, "bf16", (1, 32, 2, True, 92288, 512), None),
 ]
 
@@ -287,16 +289,16 @@ UNCHANGED_PLANS = [
 @pytest.mark.parametrize("b,u,nd,prec,want_fwd,want_bwd", UNCHANGED_PLANS)
 def test_plans_the_ring_leaves_alone(b, u, nd, prec, want_fwd, want_bwd):
     """The resident route, every plan at U <= 256 and bf16 up to
-    ``RING_UNITS_BF16`` keep the plans they had (the template's, never the
-    ring or the grid layout); bf16 past it the forward takes the grid
-    layout's, the VJP the bf16 ring's, as the card measured them faster."""
+    ``RING_UNITS_BF16`` keep the plans they had (the template's, never a
+    grid layout); bf16 past it the forward and the VJP take their grid
+    layouts', as the card measured them faster."""
     bf16 = prec == "bf16"
     if want_fwd is not None:
         p = L.forward_plan(b, u, nd, prec, _h100_active)
         assert tuple(p[:6]) == want_fwd and (p.grid is not None) == (bf16 and u > L.RING_UNITS_BF16)
     if want_bwd is not None:
         p = L.backward_plan(b, u, nd, prec, _h100_bwd_active)
-        assert tuple(p[:6]) == want_bwd and p.ring == (bf16 and u > L.RING_UNITS_BF16)
+        assert tuple(p[:6]) == want_bwd and (p.grid is not None) == (bf16 and u > L.RING_UNITS_BF16)
 
 
 def test_decoder_plan_takes_the_wide_spellers():
@@ -409,7 +411,7 @@ def test_streamed_vjp_matches_plain_pallas_and_jax_grad(prec, u):
     dh, dc = rs.randn(B, u).astype(np.float32), rs.randn(B, u).astype(np.float32)
     _, hprev, cprev, _, _ = _recurrence_pallas_residual(jnp.asarray(xp), jnp.asarray(mask), jnp.asarray(wh),
                                                         reverse=reverse, interpret=True, prec=prec)
-    plan = L.backward_plan(B, u, 1, prec)
+    plan = L.backward_plan(B, u, 1, prec, layout="template")
     assert not plan.resident and plan.units == u
     rdt = torch.bfloat16 if prec == "bf16" else torch.float32
     t = lambda x: torch.from_numpy(np.asarray(x, np.float32).copy())
