@@ -20,8 +20,9 @@ then:
      tile or group, what ``cudaOccupancyMaxActiveClusters`` says, shared
      memory and registers, µs per step and the SM cycles a step spends in
      each of its parts; then holds both on ragged cases (a batch that is no
-     multiple of the tile, rows of very different lengths, widths that
-     only a cluster of one serves) at a short T;
+     multiple of the tile, rows of very different lengths, U = 40 and
+     248: the forward at 248, which no cluster cut holds, in the grid
+     layout) at a short T;
   2. decodes the committed checkpoint on all 64 utterances of the
      committed eval set on the card (load_artifact → encode →
      greedy_decode, launch counters set to 0 just before and read just
@@ -302,11 +303,14 @@ then:
         of rows (``PASS_CASES``: the passes and ``grid_launches``); at U =
         1024 and 512 (float32) and 1024 (bf16) the four kernels timed at
         T = 999 beside cuDNN as phases 1 and 4a time them (medians of 5),
-        and there and at 512 and 448 in bf16 the forward's template (its
-        streamed slice) and grid layout, and the VJP's template and grid
+        the bf16 BiLSTM also at 13b's 8 rows (its plan's mma.sync route;
+        at B = 64 wgmma), and there and at 512 and 448 in bf16 the VJP's template and grid
         layout (at U = 1024 also the grid in single blocks against the
         planner's clusters), in turns (``compare_routes``: plans, ms and
-        cycles a step by part); the decoder kernel at W1024's
+        cycles a step by part); the forward's grid layout at each of those
+        widths with the cycles a step spends in each part (the product,
+        bf16 on wgmma; the cell update; the publication of its chunks; the
+        waits for the step's first and later chunks); the decoder kernel at W1024's
         speller (B = 32, T_enc 219 and 438, 200 steps; the grid layout),
         with an attention layer of 1024 (library-built), and at the LAS
         paper's 2 × 512 speller (the held layout): tokens equal to the
@@ -337,13 +341,15 @@ then:
         8 × <= 2 s, 0 rows differing from the CPU in parity, and one
         production ``Trainer.train_step`` at B = 4 × <= 2 s within 13c's
         bound; ``lstm_layer`` at W1024's width (13c, both modes, with and
-        without grad); each wide route (the listener's grid layouts, the
-        forward's and the VJP's loop's, and the decoder's) counted and
-        listed in the last ``kernels`` line.
+        without grad) and ``bilstm_layer`` there at B = 64 in bf16 (the
+        wgmma route); each wide route (the listener's grid layouts, the
+        forward's in bf16 by kernel, wgmma or mma.sync, and the VJP's loop's,
+        and the decoder's) counted and listed in the last ``kernels`` line.
  14. the reference's entry points as the port's (``bench.py``,
      ``__graft_entry__.py``, ``tools/``):
      a. ``python -m phones_las_torch.bench`` as a process, at the
-        reference's shapes and iterations (greedy B = 64 × 10 s, 200 steps,
+        reference's shapes, every row once (``PLU_BENCH_PREWARM``: a depth
+        cut for the time limit) (greedy B = 64 × 10 s, 200 steps,
         both modes; beam-8 at B = 32 in parity, production, with joint CTC
         and with Luong attention; the training step at B = 32, both modes;
         the accuracy row; the CPU baseline): its one JSON line printed in a
@@ -366,13 +372,27 @@ output, and prints one line a plan; then the VJP's loop kernel the same
 way at the training shape; the numbers behind the choice of
 ``CLUSTER_SIZES`` in ``ops/lstm.py``, and, as a reading with the plan
 unchanged, the forward's grid layout in turns against the template at
-B = 64, both modes; then the float32 streamed slice at U = 1024 (the
-forward at B = 64 both directions under every template plan and the grid
-layout's, the VJP's loop at B = 32 under every template plan that fits and
-the grid layout's), with the clusters the card runs at once (and the
-template's at C = 12, U = 1056); then, as a reading with the plan
+B = 64, both modes; then the VJP's float32 streamed slice at U = 1024
+(its loop at B = 32 under every template plan that fits and the grid
+layout's), with the clusters the card runs at once; then, as a reading with the plan
 unchanged, the decoder's grid layout in turns against the held layout at
 the flagship shape (``layouts_in_turns``).
+
+``python3 chip_smoke.py --sweep-forward`` runs none of the phases: the
+forward's grid layout at T = 999 (``SWEEP_FORWARDS``: U = 1024 the
+BiLSTM at B = 64 and the residual at B = 32 in both modes, 512 at B = 64
+in both), every layout its kernels take with at most two passes of rows
+(float32: three ring slots a k part), each timed with the cycles a step spends in
+each part and the planner's modelled step: the numbers the forward's step
+model was fitted to.
+
+``python3 chip_smoke.py --bf16-routes`` runs none of the phases: the bf16
+forward's grid layout at T = 999 (``BF16_ROUTE_SHAPES``: U = 1024 the
+BiLSTM at B = 64, 32 and 8, the residual and one direction at B = 32, U
+= 2048 at B = 64, U = 512 the BiLSTM at B = 64 and the residual at B =
+32, U = 448 at B = 64), the plan of each of its two routes (wgmma,
+mma.sync) timed in turns, with the readings' spread and the planner's
+choice: the numbers behind keeping both.
 
 ``python3 chip_smoke.py --sweep-vjp`` runs none of the phases: the VJP's
 loop in its grid layout at T = 999, B = 32 (``SWEEP_VJPS``: U = 1024 and
@@ -389,8 +409,13 @@ this one, the greedy serving call at the flagship shape (phase 3's
 path), the decoder kernel at 13a's W1024 shapes and 13d's (the layout
 each checkout plans there, ms and µs a step) and the listener's forward
 at T = 999 past the resident widths (``COMPARE_FORWARDS``: U = 1024 the
-BiLSTM at B = 64 and the residual at B = 32, both modes; U = 512 and
-448 at B = 64; the route each checkout plans there, ms) and the VJP at
+BiLSTM at B = 64, the residual and one direction at B = 32, both modes;
+U = 512 and 448 at B = 64, and in bf16 at B = 32 the BiLSTM, the residual
+and at 512 one direction; and at B = 64 the widths below them where no cluster cut
+holds its slices, float32 U = 200 and 248, bf16 264 and 368; the route
+each checkout plans there, ms of the wrapper's call and of a launch with
+the checkout's plan given, made once beforehand: the kernels alone,
+whether or not the checkout caches its plan) and the VJP at
 T = 999, B = 32 past the resident widths (``COMPARE_VJPS``: U = 1024 and
 512 in both modes, 448 in bf16; the route, the call's ms, the loop's ms
 and µs a step), each in a
@@ -619,12 +644,13 @@ def check_frontend(cfg_fe, audio, what="flagship"):
 
 # the forward kernel's cycle counters: the product, the cell update with its
 # sends, the output stores and prefetch, the wait for the peers' h (the
-# exchange), unused; the grid layout's: the product, the cell update with
-# its stores, the barrier's arrival and the prefetch, the wait for a step's
-# first chunk (the grid barrier and the copy of its h), the waits for later
-# chunks (h and the streamed part of wh, from L2)
+# exchange), unused; the grid layout's: the product (bf16: wgmma), the cell
+# update with its stores of h, the publication of the block's chunks with
+# the stores of out and the residuals and the prefetch, the wait for a
+# step's first chunk (its writers' publication and the copy of its h), the
+# waits for later chunks (h and the streamed part of wh, from L2)
 FWD_CLOCKS = ("product", "cell_update", "stores_prefetch", "h_wait", "unused")
-GRID_CLOCKS = ("product", "cell_update", "arrive_prefetch", "barrier_first_chunk", "later_chunks")
+GRID_CLOCKS = ("product", "cell_update", "publish_stores_prefetch", "first_chunk", "later_chunks")
 
 
 def plan_info(plan, nd: int, prec: str, save_res: bool) -> dict:
@@ -635,8 +661,7 @@ def plan_info(plan, nd: int, prec: str, save_res: bool) -> dict:
 
     if plan.grid is not None:
         return L.grid_kernel_info(plan.units, nd, prec == "bf16", plan.grid)
-    return L.forward_kernel_info(plan.units, prec == "bf16", save_res, plan.cluster, plan.bt, plan.ksplit,
-                                 plan.resident)
+    return L.forward_kernel_info(plan.units, prec == "bf16", save_res, plan.cluster, plan.bt, plan.ksplit)
 
 
 def forward_report(entry, xps, mask, whs, reverse, prec, ms=None):
@@ -743,7 +768,7 @@ def forward_rel_tol(u: int, prec: str) -> float:
 def check_lstm_ragged(t, b, u, seed, phase=1, passes_in=()):
     """The forward kernel on a batch that is no multiple of its tile, rows
     of lengths from 1 to T, and (U = 40, 248) widths only a cluster of one
-    serves: both precisions, one and two directions, both entries, each
+    or the grid layout serves: both precisions, one and two directions, both entries, each
     launched twice and held bitwise equal, and within ``forward_rel_tol``
     of the plain version's largest; each plan with the shared memory and
     registers the card gives it (its shared memory held to
@@ -1530,7 +1555,7 @@ def sweep_forward_plans(params) -> None:
             for c in (8, 16):
                 for bt in L.ROW_TILES:
                     ks = L._ksplit(u, c, bt, prec == "bf16")
-                    smem = L.forward_smem_bytes(u, c, bt, ks, True, prec == "bf16")
+                    smem = L.forward_smem_bytes(u, c, bt, ks, prec == "bf16")
                     if smem > L.SMEM_MAX:
                         continue
                     plan = L.ForwardPlan(c, bt, ks, True, smem, u)
@@ -1538,7 +1563,7 @@ def sweep_forward_plans(params) -> None:
                     torch.cuda.synchronize()
                     err, _, _ = compare([k[0] for k in got], [k[0] for k in want], 0.0, 0.0)
                     ms = time_ms(lambda: L._launch_forward(entry, xps, mask, whs, 1.0, rev, prec, plan), reps=5)
-                    info = L.forward_kernel_info(u, prec == "bf16", False, c, bt, ks, True)
+                    info = L.forward_kernel_info(u, prec == "bf16", False, c, bt, ks)
                     emit({
                         "sweep": "lstm forward", "shape": f"T={t} B={b} U={u} nd={nd} prec={prec}",
                         "cluster": c, "bt": bt, "ksplit": ks, "chosen": plan == chosen,
@@ -1563,65 +1588,42 @@ def sweep_forward_plans(params) -> None:
 
 
 def sweep_streamed_plans() -> None:
-    """``--sweep``: float32 at U = 1024, T = 999: the forward (B = 64, both
-    directions) under every plan of the template (C of 8 and 16, tiles of 8
-    and 16, the k split halved until the layout fits) and the grid layout's,
-    and the VJP's loop (B = 32) under every plan of the template that fits
-    in shared memory and the grid layout's (its layouts one by one:
-    ``--sweep-vjp``), each timed (median of 3) with the clusters the card
-    runs at once, and held against the chosen plan's output; and how many
-    clusters of 12 the card runs (the template at U = 1056)."""
+    """``--sweep``: float32 at U = 1024, T = 999: the VJP's loop (B = 32)
+    under every plan of the template that fits in shared memory (C of 8 and
+    16, tiles of 8 and 16, the k split halved until the layout fits, the
+    block's slice of whᵀ streamed) and the grid layout's (its layouts one
+    by one: ``--sweep-vjp``), each timed (median of 3) with the clusters
+    the card runs at once, and held against the chosen plan's output."""
     from phones_las_torch.ops import lstm as L
     from phones_las_torch.ops.masking import length_mask
 
-    t, u = 999, 1024
+    t, u, nd = 999, 1024, 2
     g = torch.Generator(device=DEV).manual_seed(63)
     rnd = lambda *shape: torch.randn(shape, generator=g, device=DEV)
-
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def candidates(bwd):
+    def candidates():
         for c in (8, 16):
             for bt in L.ROW_TILES:
-                ks = (L._bwd_ksplit if bwd else L._ksplit)(u, c, bt, False)
-                size = L.backward_smem_bytes if bwd else L.forward_smem_bytes
-                while ks > 1 and size(u, c, bt, ks, False, False) > L.SMEM_MAX:
+                ks = L._bwd_ksplit(u, c, bt, False)
+                while ks > 1 and L.backward_smem_bytes(u, c, bt, ks, False, False) > L.SMEM_MAX:
                     ks //= 2
-                smem = size(u, c, bt, ks, False, False)
+                smem = L.backward_smem_bytes(u, c, bt, ks, False, False)
                 if smem <= L.SMEM_MAX:
-                    yield L.BackwardPlan(c, bt, ks, False, smem, u) if bwd else L.ForwardPlan(c, bt, ks, False, smem, u)
-        if bwd:
-            yield L.backward_plan(TRAIN_B, u, 2, "highest", functools.partial(L.backward_held, False), sms=sms)
-        else:
-            yield L.forward_plan(FLAGSHIP_B, u, 2, "highest", sms=sms)
+                    yield L.BackwardPlan(c, bt, ks, False, smem, u)
+        yield L.backward_plan(TRAIN_B, u, 2, "highest", functools.partial(L.backward_held, False), sms=sms)
 
-    b, nd = FLAGSHIP_B, 2
+    b, rev = TRAIN_B, [False, True]
     lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=DEV)
     mask = length_mask(lengths, t).transpose(0, 1).contiguous()
-    xps, whs, rev = [rnd(t, b, 4 * u) for _ in range(nd)], [rnd(u, 4 * u) / u ** 0.5 for _ in range(nd)], [False, True]
-    entry = "plt_lstm_recurrence"
-    want = L._launch_forward(entry, xps, mask, whs, 1.0, rev, "highest")
-    chosen = L._launch_forward.last_plan
-    for plan in candidates(False):
-        got = L._launch_forward(entry, xps, mask, whs, 1.0, rev, "highest", plan)
-        torch.cuda.synchronize()
-        err, _, _ = compare([k[0] for k in got], [k[0] for k in want], 0.0, 0.0)
-        ms = time_ms(lambda: L._launch_forward(entry, xps, mask, whs, 1.0, rev, "highest", plan), reps=3)
-        info = plan_info(plan, nd, "highest", False)
-        emit({"sweep": "streamed forward", "shape": f"T={t} B={b} U={u} nd={nd} prec=highest",
-              **route_plan_record(plan, b, nd, info), "chosen": plan == chosen, "ms": ms,
-              "us_per_step": ms * 1e3 / t, "max_abs_diff_to_chosen_plan": err})
-    del xps, want
-    b = TRAIN_B
-    lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=DEV)
-    mask = length_mask(lengths, t).transpose(0, 1).contiguous()
+    whs = [rnd(u, 4 * u) / u ** 0.5 for _ in range(nd)]
     xps = [rnd(t, b, 4 * u) for _ in range(nd)]
     res = L.recurrence_residual(xps, mask, whs, 1.0, rev, "highest")
     bargs = (xps, mask, whs, [r[1] for r in res], [r[2] for r in res], [rnd(t, b, u) for _ in range(nd)],
              [rnd(b, u) for _ in range(nd)], [rnd(b, u) for _ in range(nd)], 1.0, rev, "highest")
     want = L.recurrence_bwd(*bargs)
     chosen = L._launch_backward.last_plan
-    for plan in candidates(True):
+    for plan in candidates():
         got = L._launch_backward(*bargs, plan=plan)
         torch.cuda.synchronize()
         err = max(rel_err(k, p) for kg, pg in zip(got, want) for k, p in zip(kg, pg))
@@ -1634,11 +1636,6 @@ def sweep_streamed_plans() -> None:
         emit({"sweep": "streamed vjp loop", "shape": f"T={t} B={b} U={u} nd={nd} prec=highest",
               **route_plan_record(plan, b, nd, L.backward_kernel_info(False, plan)), "chosen": plan == chosen,
               "loop_ms": loop_ms, "us_per_step": loop_ms * 1e3 / t, "max_rel_diff_to_chosen_plan": err})
-    ks = L._ksplit(1056, 12, 8, False)
-    while L.forward_smem_bytes(1056, 12, 8, ks, False, False) > L.SMEM_MAX:
-        ks //= 2
-    emit({"sweep": "clusters of 12", "shape": "U=1056 (the template, float32, Bt = 8)",
-          **L.forward_kernel_info(1056, False, False, 12, 8, ks, False)})
 
 
 # --sweep-vjp: the VJP's loop in the grid layout at T = 999, B = TRAIN_B, both
@@ -1719,6 +1716,110 @@ def sweep_grid_vjp() -> None:
                       "us_per_step": loop_ms * 1e3 / 999, "model_us_per_step": L._grid_bwd_step_cycles(g, bf16) / 1980,
                       "cycles_per_step": cycles, "max_rel_diff_to_chosen_plan": err})
         del bargs, want
+
+
+# --sweep-forward: the forward's grid layout at T = 999, both directions:
+# (entry, U, mode, B); every layout with at most two passes of rows (float32:
+# three ring slots a k part)
+SWEEP_FORWARDS = (("plt_lstm_recurrence", 1024, "highest", FLAGSHIP_B), ("plt_lstm_residual", 1024, "highest", TRAIN_B),
+                  ("plt_lstm_recurrence", 1024, "bf16", FLAGSHIP_B), ("plt_lstm_residual", 1024, "bf16", TRAIN_B),
+                  ("plt_lstm_recurrence", 512, "highest", FLAGSHIP_B), ("plt_lstm_recurrence", 512, "bf16", FLAGSHIP_B))
+
+
+def sweep_grid_forward() -> None:
+    """``--sweep-forward``: the forward's grid layout at each shape of
+    ``SWEEP_FORWARDS``: every layout its kernels take with at most two
+    passes (float32: three ring slots a k part), timed (median of 3) with the SM
+    cycles a step spends in each part and the planner's modelled step, and
+    held against the planner's choice: the numbers behind
+    ``_grid_step_cycles``."""
+    from phones_las_torch.ops import lstm as L
+    from phones_las_torch.ops.masking import length_mask
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t = 999
+    for i, (entry, u, prec, b) in enumerate(SWEEP_FORWARDS):
+        bf16 = prec == "bf16"
+        g = torch.Generator(device=DEV).manual_seed(280 + i)
+        lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=DEV)
+        mask = length_mask(lengths, t).transpose(0, 1).contiguous()
+        xps = [torch.randn((t, b, 4 * u), generator=g, device=DEV) for _ in range(2)]
+        whs = [torch.randn((u, 4 * u), generator=g, device=DEV) / u ** 0.5 for _ in range(2)]
+        rev = [False, True]
+        chosen = L.forward_plan(b, u, 2, prec, sms=sms)
+        want = L._launch_forward(entry, xps, mask, whs, 1.0, rev, prec, chosen)
+        for gp in L.grid_candidates(b, u, 2, prec, sms):
+            if (not bf16 and gp.ns > 3 * gp.ks) or gp.passes > 2:
+                continue
+            plan = chosen._replace(bt=gp.rows, ksplit=gp.ks, resident=gp.nres == gp.kp // gp.kc,
+                                   smem=L.grid_smem_bytes(gp.us, gp.rows, gp.kc, gp.kp, gp.nres, gp.ns, bf16), grid=gp)
+            got = L._launch_forward(entry, xps, mask, whs, 1.0, rev, prec, plan)
+            torch.cuda.synchronize()
+            err, _, _ = compare([k[0] for k in got], [k[0] for k in want], 0.0, 0.0)
+            ms = time_ms(lambda: L._launch_forward(entry, xps, mask, whs, 1.0, rev, prec, plan), reps=3)
+            clocks = torch.zeros(len(GRID_CLOCKS), dtype=torch.int64, device=DEV)
+            L._launch_forward(entry, xps, mask, whs, 1.0, rev, prec, plan, clocks)
+            torch.cuda.synchronize()
+            emit({"sweep": "forward grid layout", "shape": f"T={t} B={b} U={u} nd=2 prec={prec} {entry}",
+                  "grid": gp._asdict(), "chosen": gp == chosen.grid, "ms": ms, "us_per_step": ms * 1e3 / t,
+                  "model_us_per_step": gp.passes * L._grid_step_cycles(gp, bf16) / 1980,
+                  "cycles_per_step": dict(zip(GRID_CLOCKS, (c / t / gp.passes for c in clocks.tolist()))),
+                  "max_abs_diff_to_chosen_plan": err})
+        del xps, want
+
+
+# --bf16-routes: the bf16 forward's two routes at T = 999: (entry, U, nd, B); B = 8 as 13b serves W1024
+BF16_ROUTE_SHAPES = (("plt_lstm_recurrence", 1024, 2, FLAGSHIP_B), ("plt_lstm_recurrence", 1024, 2, TRAIN_B),
+                     ("plt_lstm_recurrence", 1024, 2, 8), ("plt_lstm_residual", 1024, 2, TRAIN_B),
+                     ("plt_lstm_recurrence", 1024, 1, TRAIN_B), ("plt_lstm_recurrence", 2048, 2, FLAGSHIP_B),
+                     ("plt_lstm_recurrence", 512, 2, FLAGSHIP_B), ("plt_lstm_residual", 512, 2, TRAIN_B),
+                     ("plt_lstm_recurrence", 448, 2, FLAGSHIP_B))
+
+
+def route_plan(L, b: int, u: int, nd: int, mma: bool, sms: int):
+    """The plan ``grid_plan`` would make in bf16 were the route (``mma``:
+    mma.sync, else wgmma) the only one → a ForwardPlan."""
+    g = min((p for p in L.grid_candidates(b, u, nd, "bf16", sms) if p.mma == mma),
+            key=lambda p: p.passes * L._grid_step_cycles(p, True))
+    return L.ForwardPlan(1, g.rows, g.ks, g.nres == g.kp // g.kc,
+                         L.grid_smem_bytes(g.us, g.rows, g.kc, g.kp, g.nres, g.ns, True, g.mma),
+                         g.us * g.blocks // nd, g)
+
+
+def bf16_routes() -> None:
+    """``--bf16-routes``: the bf16 forward's grid layout at each shape of
+    ``BF16_ROUTE_SHAPES``, the plan of each route (``route_plan``) timed in
+    turns (wgmma, mma.sync, mma.sync, wgmma, wgmma, mma.sync; median of 5
+    each) with the readings' spread, the planner's choice and the largest
+    difference between the routes' outputs: the numbers behind keeping
+    both routes."""
+    from phones_las_torch.ops import lstm as L
+    from phones_las_torch.ops.masking import length_mask
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t = 999
+    for i, (entry, u, nd, b) in enumerate(BF16_ROUTE_SHAPES):
+        g = torch.Generator(device=DEV).manual_seed(300 + i)
+        lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=DEV)
+        lengths[0] = t
+        mask = length_mask(lengths, t).transpose(0, 1).contiguous()
+        xps = [torch.randn((t, b, 4 * u), generator=g, device=DEV) for _ in range(nd)]
+        whs = [torch.randn((u, 4 * u), generator=g, device=DEV) / u ** 0.5 for _ in range(nd)]
+        rev = [False, True][:nd]
+        plans = {"wgmma": route_plan(L, b, u, nd, False, sms), "mma.sync": route_plan(L, b, u, nd, True, sms)}
+        outs = {k: L._launch_forward(entry, xps, mask, whs, 1.0, rev, "bf16", p) for k, p in plans.items()}
+        torch.cuda.synchronize()
+        err, _, _ = compare([o[0] for o in outs["wgmma"]], [o[0] for o in outs["mma.sync"]], 0.0, 0.0)
+        ms = {k: [] for k in plans}
+        for k in ("wgmma", "mma.sync", "mma.sync", "wgmma", "wgmma", "mma.sync"):
+            ms[k].append(time_ms(lambda: L._launch_forward(entry, xps, mask, whs, 1.0, rev, "bf16", plans[k]), reps=5))
+        emit({"bf16 routes": f"T={t} B={b} U={u} nd={nd} {entry}", "card": card_line(),
+              "chosen": "mma.sync" if L.forward_plan(b, u, nd, "bf16", sms=sms).grid.mma else "wgmma",
+              **{k: {"grid": plans[k].grid._asdict(), "ms": statistics.mean(v), "min_ms": min(v), "max_ms": max(v),
+                     "model_ms": plans[k].grid.passes * L._grid_step_cycles(plans[k].grid, True) / 1980 * t / 1e3}
+                 for k, v in ms.items()},
+              "max_abs_diff_between_routes": err})
+        del xps, outs
 
 
 def vjp_cases(L, params, seed):
@@ -1824,14 +1925,21 @@ def time_kernels(tree: str) -> None:
         whs = [torch.randn((u, 4 * u), generator=g, device=DEV) / u ** 0.5 for _ in range(2)]
         if kernel == "bidir_recurrence":
             run = lambda: L.bidir_recurrence(xps[0], xps[1], mask, whs[0], whs[1], 1.0, prec)
+        elif kernel == "recurrence":
+            run = lambda: L.recurrence(xps[0], mask, whs[0], 1.0, False, prec)
         else:
             run = lambda: L.recurrence_residual(xps, mask, whs, 1.0, [False, True], prec)
         run()
         plan = L._launch_forward.last_plan
         route = ("grid" if getattr(plan, "grid", None) is not None else "ring" if getattr(plan, "ring", False)
                  else "template")
-        rec["forwards"].append({"kernel": kernel, "shape": f"T={t} B={b} U={u} nd=2 prec={prec}", "route": route,
-                                "ms": time_ms(run, reps=5)})
+        # the launch with the plan given (made once, outside the timing): the kernels alone, whether or not the
+        # checkout caches its plan
+        nd = 1 if kernel == "recurrence" else 2
+        entry = "plt_lstm_residual" if kernel == "recurrence_residual" else "plt_lstm_recurrence"
+        launch = lambda: L._launch_forward(entry, xps[:nd], mask, whs[:nd], 1.0, [False, True][:nd], prec, plan)
+        rec["forwards"].append({"kernel": kernel, "shape": f"T={t} B={b} U={u} nd={nd} prec={prec}", "route": route,
+                                "ms": time_ms(run, reps=5), "plan_given_ms": time_ms(launch, reps=5)})
         del xps
     rec["vjps"] = []
     for i, (u, prec) in enumerate(COMPARE_VJPS):
@@ -1893,8 +2001,8 @@ def launch_counts(kernels) -> dict:
 
 # a wrapper's counts: all its launches, of them in bf16 mode, and through each
 # wide route (the grid layouts of the listener's forward and of the VJP's
-# loop, of them in bf16, and of the decoder)
-COUNTERS = ("launches", "bf16_launches", "grid_launches", "bf16_grid_launches")
+# loop, of them in bf16, of the forward's bf16 on wgmma, and of the decoder)
+COUNTERS = ("launches", "bf16_launches", "grid_launches", "bf16_grid_launches", "wgmma_grid_launches")
 ROUTE_COUNTERS = COUNTERS[2:]
 
 
@@ -4934,7 +5042,7 @@ WIDTH_KERNEL_T, WIDTH_KERNEL_B = 24, 32  # ... on ragged lengths 1..T
 WIDE_UNITS, WIDE_T = (1032, 1280, 2048), 250  # 13a: past 1024 (fault C10), both modes, at T = 250
 # 13a: the grid layouts (the forward's, the VJP's) in passes of rows (a launch each): (U, B, the modes whose
 # every plan takes several)
-PASS_CASES = ((1024, 130, ("highest", "bf16")), (448, 100, ("bf16",)))
+PASS_CASES = ((1024, 130, ("highest", "bf16")), (448, 200, ("bf16",)))
 WIDTH_TIMED = ((1024, "highest"), (512, "highest"), (1024, "bf16"))  # 13a: T = 999, with cuDNN beside
 WIDTH_REPS = 5  # ... timed as the median of 5 runs (the plain versions once)
 # 13a: each kernel's two routes in turns on one card (``compare_routes``): the forward's template
@@ -4966,11 +5074,21 @@ PASS_DECODE = (4096, 219, 12)  # 13a: W1024 at B = 4096 (two grid launches), T_e
 COMPARE_DECODES = tuple((label, t, u, a, al, m, WIDTH_KERNEL_B, DECODE_STEPS)
                         for label, t, u, a, al, m in WIDTH_DECODES if u == 1024) + tuple(
     (label, t, u, a, al, m, LONG_B, LONG_STEPS) for label, t, u, a, al, m, _ in LONG_DECODES)
-# --compare: the listener's forward at T = 999 past the resident widths: (kernel, U, mode, B), both directions
+# --compare: the listener's forward at T = 999 past the resident widths: (kernel, U, mode, B), both
+# directions (one with "recurrence")
 COMPARE_FORWARDS = (("bidir_recurrence", 1024, "highest", FLAGSHIP_B), ("recurrence_residual", 1024, "highest", TRAIN_B),
+                    ("recurrence", 1024, "highest", TRAIN_B), ("recurrence", 1024, "bf16", TRAIN_B),
                     ("bidir_recurrence", 1024, "bf16", FLAGSHIP_B), ("recurrence_residual", 1024, "bf16", TRAIN_B),
                     ("bidir_recurrence", 512, "highest", FLAGSHIP_B), ("bidir_recurrence", 512, "bf16", FLAGSHIP_B),
-                    ("bidir_recurrence", 448, "bf16", FLAGSHIP_B))
+                    ("bidir_recurrence", 448, "bf16", FLAGSHIP_B),
+                    # U = 512 and 448 in bf16 at the training batch, both entries and one direction
+                    ("bidir_recurrence", 512, "bf16", TRAIN_B), ("recurrence_residual", 512, "bf16", TRAIN_B),
+                    ("recurrence", 512, "bf16", TRAIN_B), ("bidir_recurrence", 448, "bf16", TRAIN_B),
+                    ("recurrence_residual", 448, "bf16", TRAIN_B),
+                    # the widths no cluster cut holds: the template's streamed slice in checkouts before the
+                    # forward's second grid layout, the grid layout since
+                    ("bidir_recurrence", 200, "highest", FLAGSHIP_B), ("bidir_recurrence", 248, "highest", FLAGSHIP_B),
+                    ("bidir_recurrence", 264, "bf16", FLAGSHIP_B), ("bidir_recurrence", 368, "bf16", FLAGSHIP_B))
 LONG_SECONDS = 690  # 13d: one Transcriber.transcribe of 690 s at the checkpoint's widths (T_enc ≈ 17,250)
 # 13d: W2048: encoder, decoder and attention units 2048, one listener layer (M = 4096), served at 8 × 2 s
 # greedy in parity, and one production training step at 13c's bounds
@@ -4994,20 +5112,21 @@ def route_plan_record(plan, b: int, nd: int, info: dict) -> dict:
 
 def compare_routes(u: int, seed: int, prec: str = "highest") -> list:
     """13a: the four listener kernels at U in a mode, T = 999 (the BiLSTM
-    forward at B = 64, the others at the training batch), in turns on one
-    card (template, other, other, template): the forward kernels under the
-    template (``layout="template"``: each block's slice of wh streamed by
-    its threads' loads) and the grid layout (the plan past the resident
-    widths); the VJP's loop under the template (``layout="template"``) and
-    its grid layout (``layout="grid"``), and at ``ROUTE_C1_UNITS`` the grid
-    layout cut in single blocks (C = 1) beside the planner's clusters: each
-    plan with its cut (clusters, ``max_active_clusters`` and waves; the
-    grid's blocks, clusters, resident share and passes), the ms, and the SM
-    cycles a step spends in each part (the grid loop's: cell gradients,
-    arrival, product, barrier, intake, exchange, partials); the routes'
-    outputs against each other and which was faster. The plain versions
-    and the gates are the other records'; the rings the grid layouts
-    replaced are read against them by ``--compare``."""
+    forward at B = 64, the others at the training batch): the forward
+    kernels in the grid layout the plan takes past the resident widths
+    (median of ``ROUTE_REPS``); the VJP's loop under the template
+    (``layout="template"``) and its grid layout (``layout="grid"``) in turns
+    on one card (template, grid, grid, template), and at
+    ``ROUTE_C1_UNITS`` the grid layout cut in single blocks (C = 1) beside
+    the planner's clusters: each plan with its cut (clusters,
+    ``max_active_clusters`` and waves; the grid's blocks, clusters,
+    resident share and passes), the ms, and the SM cycles a step spends in
+    each part (the forward's: product, cell update, publication, first and
+    later chunks; the grid loop's: cell gradients, arrival, product,
+    barrier, intake, exchange, partials); the VJP's routes' outputs against
+    each other and which was faster. The plain versions and the gates are
+    the other records'; the layouts the grid layouts replaced are read
+    against them by ``--compare``."""
     from phones_las_torch.ops import lstm as L
     from phones_las_torch.ops.masking import length_mask
 
@@ -5021,46 +5140,28 @@ def compare_routes(u: int, seed: int, prec: str = "highest") -> list:
         mask = length_mask(lengths, t).transpose(0, 1).contiguous()
         return [rnd(t, b, 4 * u) for _ in range(nd)], mask, [rnd(u, 4 * u) / u ** 0.5 for _ in range(nd)]
 
-    def in_turns(run, other):
-        ms = {"template": [], other: []}
-        for name in ("template", other, other, "template"):
-            ms[name].append(time_ms(lambda: run(name), reps=ROUTE_REPS))
-        return {name: statistics.median(v) for name, v in ms.items()}
-
     recs = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for kernel, entry, b, nd in (("bidir_recurrence", "plt_lstm_recurrence", FLAGSHIP_B, 2),
                                  ("recurrence", "plt_lstm_recurrence", TRAIN_B, 1),
                                  ("recurrence_residual", "plt_lstm_residual", TRAIN_B, 2)):
         xps, mask, whs = case(b, nd)
         rev = [False, True][:nd]
         save = entry == "plt_lstm_residual"
-        bf16 = prec == "bf16"
-        active = lambda c, bt, ks, res: L.forward_kernel_info(
-            L.kernel_units(u, c), bf16, save, c, bt, ks, res)["max_active_clusters"]
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        plans = {"template": L.forward_plan(b, u, nd, prec, active, layout="template"),
-                 "grid": L.forward_plan(b, u, nd, prec, active, sms=sms)}
-        run = lambda name: L._launch_forward(entry, xps, mask, whs, 1.0, rev, prec, plans[name])
-        outs = {name: run(name) for name in plans}
-        torch.cuda.synchronize()
-        diff = max(float((x - y).abs().max()) for kt, kr in zip(outs["template"], outs["grid"])
-                   for x, y in zip(kt, kr) if x is not None)
-        ms = in_turns(run, "grid")
-        routes = {}
-        for name, plan in plans.items():
-            clocks = torch.zeros(len(FWD_CLOCKS), dtype=torch.int64, device=DEV)
-            L._launch_forward(entry, xps, mask, whs, 1.0, rev, prec, plan, clocks)
-            torch.cuda.synchronize()
-            names = GRID_CLOCKS if plan.grid else FWD_CLOCKS
-            routes[name] = {**route_plan_record(plan, b, nd, plan_info(plan, nd, prec, save)), "ms": ms[name],
-                            "us_per_step": ms[name] * 1e3 / t,
-                            "cycles_per_step": dict(zip(names, (c / t for c in clocks.tolist())))}
-        if plans["grid"].grid is None:
+        plan = L.forward_plan(b, u, nd, prec, sms=sms)
+        if plan.grid is None:
             fail(f"phase 13a: the forward did not plan the grid layout at U = {u} ({prec})")
-        recs.append({"phase": "13a", "kernel": kernel, "what": "the template's streamed slice and the grid layout, in turns",
-                     "shape": f"T={t} B={b} U={u} nd={nd} prec={prec}", "routes": routes,
-                     "max_abs_diff_between_routes": diff, "faster": min(ms, key=ms.get)})
-        del xps, outs
+        run = lambda: L._launch_forward(entry, xps, mask, whs, 1.0, rev, prec, plan)
+        ms = time_ms(run, reps=ROUTE_REPS)
+        clocks = torch.zeros(len(GRID_CLOCKS), dtype=torch.int64, device=DEV)
+        L._launch_forward(entry, xps, mask, whs, 1.0, rev, prec, plan, clocks)
+        torch.cuda.synchronize()
+        recs.append({"phase": "13a", "kernel": kernel, "what": "the grid layout",
+                     "shape": f"T={t} B={b} U={u} nd={nd} prec={prec}",
+                     "routes": {"grid": {**route_plan_record(plan, b, nd, plan_info(plan, nd, prec, save)), "ms": ms,
+                                         "us_per_step": ms * 1e3 / t,
+                                         "cycles_per_step": dict(zip(GRID_CLOCKS, (c / t for c in clocks.tolist())))}}})
+        del xps
     xps, mask, whs = case(TRAIN_B, 2)
     res = L.recurrence_residual(xps, mask, whs, 1.0, [False, True], prec)
     bargs = (xps, mask, whs, [r[1] for r in res], [r[2] for r in res], [rnd(t, TRAIN_B, u) for _ in range(2)],
@@ -5110,8 +5211,8 @@ def check_width_kernels(work) -> dict:
     padding path) and past 1024 against their plain versions in both modes
     on ragged lengths, the grid layouts also in passes of rows
     (``PASS_CASES``); timed at T = 999 beside cuDNN at U =
-    1024 and 512 in float32 and at 1024 in bf16; each kernel's two routes
-    in turns (``compare_routes``); the decoder kernel at W1024's speller (the grid
+    1024 and 512 in float32 and at 1024 in bf16; the forward's grid layout
+    and the VJP's two routes in turns (``compare_routes``); the decoder kernel at W1024's speller (the grid
     layout), with an attention layer of 1024, and at the LAS paper's (the
     held layout, 6.4 KB under the limit); W1024's at B = 4096 in passes
     (``check_grid_passes``)."""
@@ -5151,6 +5252,15 @@ def check_width_kernels(work) -> dict:
                                      reps=WIDTH_REPS)
         timed.append({"u": u, "prec": prec, "bidir_recurrence": rec, "recurrence": train[0],
                       "recurrence_residual": train[1], "recurrence_bwd": train[2]})
+    # the bf16 BiLSTM at U = 1024 at 13b's served rows, the plan's other bf16 route (mma.sync) than at B = 64
+    gen, g = torch.Generator().manual_seed(WIDTH_SEED + 9), torch.Generator(device=DEV).manual_seed(159)
+    pair = [L.init_lstm_params(4096, 1024, gen, device=DEV) for _ in range(2)]
+    lengths = torch.randint(499, 1000, (WIDTH_ROWS,), generator=g, device=DEV)
+    lengths[0] = 999
+    xpf, xpb = (torch.randn((999, WIDTH_ROWS, 4096), generator=g, device=DEV) for _ in range(2))
+    rows_rec = check_bilstm_inputs(pair[0], pair[1], xpf, xpb, lengths, "bf16", g, phase="13a", held=False,
+                                   plain_reps=1, reps=WIDTH_REPS)
+    del xpf, xpb
     routes = [compare_routes(u, 180 + i, prec) for i, (u, prec) in enumerate(ROUTE_CASES)]
     decs = []
     for i, (label, t, u, a, al, m) in enumerate(WIDTH_DECODES):
@@ -5169,7 +5279,7 @@ def check_width_kernels(work) -> dict:
         decs.append(rec)
         del sp, memory
     decs.append(check_grid_passes())
-    return {"timed": timed, "routes": routes, "decoders": decs}
+    return {"timed": timed, "bidir_bf16_rows": rows_rec, "routes": routes, "decoders": decs}
 
 
 def check_grid_passes() -> dict:
@@ -5556,7 +5666,8 @@ def check_widths(kernels, card, artifacts) -> dict:
     u1024 = {prec: next(r for r in kern["timed"] if r["u"] == 1024 and r["prec"] == prec)
              for prec in ("highest", "bf16")}
     return {"launches": summed([p[0] for p in parts]), "routes": summed([p[1] for p in parts]),
-            "records": {"u1024": u1024, "grid": kern["decoders"][0], "long": long_rec}}
+            "records": {"u1024": u1024, "bidir_bf16_rows": kern["bidir_bf16_rows"], "grid": kern["decoders"][0],
+                        "long": long_rec}}
 
 
 def drive_wide_lstm_layer(kernels) -> tuple:
@@ -5564,8 +5675,10 @@ def drive_wide_lstm_layer(kernels) -> tuple:
     a pyramid layer's 2048-wide input, B = 8, T = 250) in both modes:
     without grad (the ``recurrence`` kernel, each direction; in parity
     against the CPU plain path within 1e-5) and under grad (residual and
-    VJP, one direction; finite) → the card's launches and route counts."""
-    from phones_las_torch.ops.lstm import init_lstm_params, lstm_layer
+    VJP, one direction; finite); then ``bilstm_layer`` at B = 64 in bf16
+    without grad (the BiLSTM on wgmma; finite) → the card's launches and
+    route counts."""
+    from phones_las_torch.ops.lstm import bilstm_layer, init_lstm_params, lstm_layer
 
     u, d, b, t = 1024, 2048, 8, 250
     rs = np.random.RandomState(WIDTH_SEED)
@@ -5589,10 +5702,20 @@ def drive_wide_lstm_layer(kernels) -> tuple:
                 want = [lstm_layer(p_cpu, x_cpu, lens_cpu, reverse=rev)[0] for rev in (False, True)]
             rec["max_abs_err_no_grad"], _, ok = compare([o.cpu() for o in outs], want, 1e-5, 1e-5)
             finite = finite and ok
+    # the BiLSTM at the flagship batch in bf16, the shape the bf16 plan takes to wgmma
+    pb = init_lstm_params(d, u, torch.Generator().manual_seed(WIDTH_SEED + 1), device=DEV)
+    xb = torch.from_numpy(rs.randn(FLAGSHIP_B, t, d).astype(np.float32)).to(DEV)
+    lens_b = torch.from_numpy(rs.randint(t // 2, t + 1, FLAGSHIP_B)).to(DEV)
+    with torch.no_grad():
+        out_b, _ = bilstm_layer(p, pb, xb, lens_b, prec="bf16")
+    torch.cuda.synchronize()
+    finite = finite and bool(torch.isfinite(out_b).all())
+    rec["bilstm_layer"] = f"B={FLAGSHIP_B} T={t} D={d} U={u} prec=bf16"
     launches, routes = launch_counts(kernels), route_counts(kernels)
     rec.update(ok=finite, launches=launches, routes=routes)
     emit(rec)
-    if not finite or launches["recurrence"] != 4 or routes["recurrence grid"] != 4:
+    if (not finite or launches["recurrence"] != 4 or routes["recurrence grid"] != 4
+            or routes["bidir_recurrence wgmma_grid"] != 1):
         fail(f"phase 13c: lstm_layer at W1024's width did not run its kernels as expected: {rec}")
     return launches, routes
 
@@ -5621,16 +5744,18 @@ BENCH_KEYS = ("value", "vs_baseline", "value_parity", "rtf_x_parity", "value_pro
 
 def run_bench(card) -> dict:
     """Phase 14a: ``python -m phones_las_torch.bench`` as a process, as a
-    user runs it (the reference's shapes and iterations; its worker
-    reuses the kernels built in phase 0) → the launches of its rows,
-    summed. Its progress lines go to this script's stderr."""
+    user runs it, at the reference's shapes but every row once (its own
+    ``PLU_BENCH_PREWARM``: the depth cut to keep this script in its time
+    limit; its worker reuses the kernels built in phase 0) → the launches
+    of its rows, summed. Its progress lines go to this script's stderr."""
     import signal
 
     from phones_las_torch.bench import ROW_ORDER
 
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    for key in ("PLU_BENCH_TINY", "PLU_BENCH_ASSETS_DIR", "PLU_BENCH_FORCE_FAIL", "PLU_BENCH_PREWARM"):
+    for key in ("PLU_BENCH_TINY", "PLU_BENCH_ASSETS_DIR", "PLU_BENCH_FORCE_FAIL"):
         env.pop(key, None)
+    env["PLU_BENCH_PREWARM"] = "1"
     t0 = time.perf_counter()
     # a process group of its own, so that a timeout stops its worker too
     proc = subprocess.Popen([sys.executable, "-m", "phones_las_torch.bench"], cwd=REPO, env=env,
@@ -5772,6 +5897,9 @@ def main() -> int:
         time_kernels(sys.argv[2])
         return 0
     sys.path.insert(0, REPO)
+    if sys.argv[1:2] == ["--bf16-routes"]:
+        bf16_routes()
+        return 0
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank(sys.argv[2], int(sys.argv[3]))
     from phones_las_torch.csrc import _build
@@ -5780,7 +5908,8 @@ def main() -> int:
     from phones_las_torch.frontend.fused_frontend import fused_logmel
     from phones_las_torch.models.las import encode, featurize
     from phones_las_torch.models.listener import listen
-    from phones_las_torch.ops.lstm import bidir_recurrence, recurrence, recurrence_bwd, recurrence_residual
+    from phones_las_torch.ops.lstm import (bidir_recurrence, forward_plan, recurrence, recurrence_bwd,
+                                           recurrence_residual)
     from phones_las_torch.ops.masking import length_mask
     from phones_las_torch.utils.device import set_parity_mode
     from phones_las_torch.utils.metrics import edit_distance_stats, per_from_stats
@@ -5815,6 +5944,10 @@ def main() -> int:
                                                                        dtype=torch.int32, device=DEV))
         layouts_in_turns(params.speller, cfg.speller, memory.contiguous(), enc_mask.contiguous(), DECODE_STEPS,
                          what="the flagship shape: the held layout (the plan) against the grid layout, a reading")
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:] == ["--sweep-forward"]:
+        sweep_grid_forward()
         print(card, flush=True)
         return 0
     if sys.argv[1:] == ["--sweep-vjp"]:
@@ -6030,14 +6163,27 @@ def main() -> int:
     # through them
     wrec, wroutes = widths["records"], widths["routes"]
     route_entries = []
-    for prec, label in (("highest", "float32"), ("bf16", "bf16")):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for prec in ("highest", "bf16"):
         timed = wrec["u1024"][prec]
-        for name, line in (("bidir_recurrence", 269), ("recurrence", 164), ("recurrence_residual", 485),
-                           ("recurrence_bwd", 536)):
-            grid = wroutes[f"{name} bf16_grid"]
-            route_entries.append(kernel_entry(f"{name} (grid layout, {label}, U = 1024)", lstm_cu,
-                                              f"phones_las_tpu/ops/lstm.py:{line}", timed[name],
-                                              grid if prec == "bf16" else wroutes[f"{name} grid"] - grid))
+        for name, line, b, nd in (("bidir_recurrence", 269, FLAGSHIP_B, 2), ("recurrence", 164, TRAIN_B, 1),
+                                  ("recurrence_residual", 485, TRAIN_B, 2), ("recurrence_bwd", 536, TRAIN_B, 2)):
+            grid, replaces = wroutes[f"{name} bf16_grid"], f"phones_las_tpu/ops/lstm.py:{line}"
+            if prec == "highest" or name == "recurrence_bwd":
+                label = "float32" if prec == "highest" else "bf16, mma.sync"
+                route_entries.append(kernel_entry(f"{name} (grid layout, {label}, U = 1024)", lstm_cu, replaces,
+                                                  timed[name], grid if prec == "bf16" else wroutes[f"{name} grid"] - grid))
+                continue
+            # the bf16 forward's two kernels, each with the launches made through it: the route the plan takes at
+            # each timed shape (the BiLSTM also at 13b's served rows)
+            wgmma = wroutes[f"{name} wgmma_grid"]
+            timed_at = [(timed[name], b)] + ([(wrec["bidir_bf16_rows"], WIDTH_ROWS)] if nd == 2 and b == FLAGSHIP_B
+                                             else [])
+            for rec, rows in timed_at:
+                mma = forward_plan(rows, 1024, nd, prec, sms=sms).grid.mma
+                route_entries.append(kernel_entry(
+                    f"{name} (grid layout, bf16, {'mma.sync' if mma else 'wgmma'}, U = 1024, B = {rows})", lstm_cu,
+                    replaces, rec, grid - wgmma if mma else wgmma))
     route_entries.append(kernel_entry("greedy_decode_fused (grid layout)", "phones_las_torch/csrc/greedy.cu",
                                       "phones_las_tpu/decode/pallas_greedy.py:134", wrec["grid"],
                                       wroutes["greedy_decode_fused grid"]))

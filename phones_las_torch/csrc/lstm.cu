@@ -57,37 +57,38 @@
 //      and starts the cp.async of a later xp tile; the next step begins
 //      when the block's own barrier has seen all Bt * U values. No fence
 //      and no cluster-wide barrier is paid per step.
-// C = 1 is one block that owns every unit. Where a block's slice does not
-// fit in shared memory it streams from L2 at every step by the threads'
-// 16-byte loads, each element used for the Bt rows of the tile from
-// registers (the planner takes that only where nothing else fits, e.g. a
-// U of a prime number of 8-unit slices).
+// C = 1 is one block that owns every unit. Where a cut of U fits a block
+// only without its slice of Wh (e.g. a U of a prime number of 8-unit
+// slices), the planner takes the grid layout below. (The template's former
+// streamed slice, each step's Wh from L2 by the threads' 16-byte loads, read
+// 2-3x slower than the grid layout at the widths it served: PERF.md.)
 //
 // Past the resident widths (float32 past U = 256, bf16 past 384; the
 // constants are ops/lstm.py's) the forward takes the grid layout
-// (lstm_grid_kernel, lstm_grid_bf16_kernel, below) up to MAX_UNITS = 2048:
-// a cluster has no room for its slices there, so the whole card holds Wh.
-// One cooperative launch of one block an SM, each block a run of units
-// with its slice of Wh in shared memory as far as it fits (at U = 1024 both
-// directions of bf16 Wh, 16.8 MB, fit the 132 SMs; float32, 33.5 MB, about
-// half of it), and only h moves each step: written by its blocks into
-// global memory, one grid barrier, then taken in chunk by chunk by every
-// block of its direction through a ring of bulk copies that overlaps the
-// product. It beat in turns on the card (PERF.md) both routes it
-// replaced: the rings (a cluster of 16 that streamed its whole slice of Wh
-// from L2 every step) and the template's streamed slice past U = 256.
-// Multicast is not used: the launch is not made in clusters,
-// and what bounds a step is the product (float32) and the per-step barrier
-// and h intake (bf16). U is a multiple of 8 up to MAX_UNITS = 2048; the
-// caller chooses the route and its cut from the shape, pads any other U
-// with zeros to one that a plan takes, and this file refuses what does not
-// fit.
+// (lstm_grid_kernel, lstm_grid_bf16_kernel, lstm_grid_mma_kernel, below) up
+// to MAX_UNITS = 2048: a cluster has no room for its slices there, so the
+// whole card holds Wh. One cooperative launch of one block an SM, each
+// block a run of units with its slice of Wh in shared memory as far as it
+// fits (at U = 1024 both directions of bf16 Wh, 16.8 MB, fit the 132 SMs;
+// float32, 33.5 MB, about half of it), and only h moves each step: written
+// by its blocks into global memory, each chunk of it published on a
+// readiness counter, and taken in chunk by chunk by every block of its
+// direction through a ring of bulk copies that overlaps the product, a
+// chunk copied as soon as its writers have published it (no grid barrier).
+// The product: float32 on true FMAs (8 columns by 4 or 8 rows a thread, h
+// k-major); bf16 on wgmma (both operands in its canonical swizzled layout)
+// or, where the planner measured it faster, on mma.sync in the fragments'
+// order. The first form of this layout (one grid barrier a step, a unit a
+// thread in float32) beat in turns both routes it replaced, the rings and
+// the template's streamed slice past U = 256, and this one beat it
+// (PERF.md). Multicast of h to clusters of 2 read slower on the H100 and is
+// not used. U is a multiple of 8 up to MAX_UNITS = 2048; the caller
+// chooses the route and its cut from the shape, pads any other U with zeros
+// to one that a plan takes, and this file refuses what does not fit.
 //
-// Prediction for the grid layout, from the planner's step cost
-// (ops/lstm.py::_grid_step_cycles) before its first timed run (H100, T =
-// 999, U = 1024): float32 forward B = 64 19.8 ms (the ring 65.22), the
-// residual at B = 32 10.9 ms (43.93); bf16 4.8 ms (23.19) and 3.2 ms
-// (18.97). The measurements, and why they fall short, are in PERF.md.
+// Predictions for the grid layout, from the planner's step cost
+// (ops/lstm.py::_grid_step_cycles) and from cycle counts, before the first
+// timed runs, and the measurements, are in PERF.md.
 //
 // Prediction, made before the first run on the card (H100, B = 64, U = 256,
 // C = 8): the float32 product is 16*256*128 FMA a step and block at
@@ -215,6 +216,20 @@ template <typename W>
 __device__ __forceinline__ float dot_in(float x) { return to_f(from_f<W>(x)); }
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
+// the gate activations of a step, in Wh's mode: float32 as sigmoidf_ and
+// tanhf; bf16 (its dots already rounded to bf16, a few 1e-3 off) by the fast
+// exponential and division (relative errors near 1e-6), a few times fewer
+// instructions on the cell update that every step waits for
+template <typename W>
+__device__ __forceinline__ float gate_sigmoid(float x) {
+  if constexpr (std::is_same<W, float>::value) return sigmoidf_(x);
+  else return __fdividef(1.0f, 1.0f + __expf(-x));
+}
+template <typename W>
+__device__ __forceinline__ float gate_tanh(float x) {
+  if constexpr (std::is_same<W, float>::value) return tanhf(x);
+  else return 2.0f * gate_sigmoid<W>(2.0f * x) - 1.0f;
+}
 
 // n / d for the small index ranges of a step (n < 2^32 / d, d >= 2) as one
 // multiply: the divisors are run-time values, and a step pays for every
@@ -248,10 +263,9 @@ struct FwdArgs {
 
 // how one launch cuts the work, chosen by the caller from the shape
 struct FwdPlan {
-  int C;         // blocks of a cluster = slices of the units
-  int Bt;        // batch rows of a cluster's tile (8 or 16)
-  int KS;        // float32: parts the k range is split into
-  int resident;  // the block's slice of Wh lies in shared memory
+  int C;   // blocks of a cluster = slices of the units
+  int Bt;  // batch rows of a cluster's tile (8 or 16)
+  int KS;  // float32: parts the k range is split into
 };
 
 // byte offsets of a block's shared memory; ops/lstm.py::forward_smem_bytes mirrors it
@@ -270,10 +284,10 @@ __host__ __device__ inline FwdLayout fwd_layout(int U, FwdPlan p, bool bf) {
   // bf16 rows are padded by 8 elements (16 bytes) so that the 8 rows a
   // warp's mma fragment loads fall into different banks
   L.ldh = bf ? L.Kp + 8 : U;
-  L.ldw = bf ? (p.resident ? L.Kp + 8 : L.Kp) : L.Nc;
+  L.ldw = bf ? L.Kp + 8 : L.Nc;
   size_t off = 0;
   L.w = off;
-  if (p.resident) off += bf ? (size_t)L.Nc * L.ldw * 2 : (size_t)U * L.Nc * 4;
+  off += bf ? (size_t)L.Nc * L.ldw * 2 : (size_t)U * L.Nc * 4;
   L.h = off;
   off += bf ? (size_t)2 * MMA_M * L.ldh * 2 : (size_t)2 * p.Bt * U * 4;
   L.part = off;
@@ -518,16 +532,14 @@ lstm_fwd_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, int U, 
   // tiles (rows past B are never loaded)
   for (size_t i = L.h / 16 + tid; i < L.total / 16; i += FWD_THREADS)
     reinterpret_cast<float4*>(fwd_smem)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (plan.resident) {
-    if (BF) {  // [Nc][Kp] -> rows padded to ldw
-      const int cpr = L.Kp / 8;
-      for (int i = tid; i < Nc * cpr; i += FWD_THREADS)
-        *reinterpret_cast<uint4*>(w_s + (size_t)(i / cpr) * L.ldw + (i % cpr) * 8) =
-            reinterpret_cast<const uint4*>(wg)[i];
-    } else {
-      for (int i = tid; i < U * Nc / 4; i += FWD_THREADS)
-        reinterpret_cast<float4*>(w_s)[i] = reinterpret_cast<const float4*>(wg)[i];
-    }
+  if (BF) {  // [Nc][Kp] -> rows padded to ldw
+    const int cpr = L.Kp / 8;
+    for (int i = tid; i < Nc * cpr; i += FWD_THREADS)
+      *reinterpret_cast<uint4*>(w_s + (size_t)(i / cpr) * L.ldw + (i % cpr) * 8) =
+          reinterpret_cast<const uint4*>(wg)[i];
+  } else {
+    for (int i = tid; i < U * Nc / 4; i += FWD_THREADS)
+      reinterpret_cast<float4*>(w_s)[i] = reinterpret_cast<const float4*>(wg)[i];
   }
   __syncthreads();
 
@@ -604,18 +616,10 @@ lstm_fwd_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, int U, 
     lap(3);
     if (BF) {
       const __nv_bfloat16* hb = reinterpret_cast<const __nv_bfloat16*>(h_s) + cur * hbuf;
-      if (plan.resident)
-        product_bf16(reinterpret_cast<const __nv_bfloat16*>(w_s), L.ldw, hb, L.ldh, part_s,
-                     L.Kp, Bt, Nc);
-      else
-        product_bf16(reinterpret_cast<const __nv_bfloat16*>(wg), L.ldw, hb, L.ldh, part_s,
-                     L.Kp, Bt, Nc);
+      product_bf16(reinterpret_cast<const __nv_bfloat16*>(w_s), L.ldw, hb, L.ldh, part_s, L.Kp, Bt, Nc);
     } else {
       const float* hb = reinterpret_cast<const float*>(h_s) + cur * hbuf;
-      if (plan.resident)
-        product_f32(reinterpret_cast<const float*>(w_s), hb, part_s, U, Bt, Nc, KS);
-      else
-        product_f32(reinterpret_cast<const float*>(wg), hb, part_s, U, Bt, Nc, KS);
+      product_f32(reinterpret_cast<const float*>(w_s), hb, part_s, U, Bt, Nc, KS);
     }
     cp_async_wait_but_one();
     __syncthreads();
@@ -727,40 +731,42 @@ __device__ __forceinline__ void consumers_sync() {
 // ------------------------------------------------ the grid layout (past the resident widths)
 //
 // One cooperative launch of at most one block an SM takes a direction's
-// units in runs of Us (a multiple of 8): block b owns units [s Us, (s + 1)
-// Us) of direction b / (U / Us), s = b mod (U / Us), with the four gate
-// columns of each side by side ([unit][gate]: a thread's float4 of wh is one
-// unit's i, f, g, o), so the cell update stays in the block. The block's
-// column slice of wh ([Kp][4 Us], k padded to Kp with zero rows) is copied
-// into shared memory once, before the time loop, as far as it fits beside
-// the staging buffers: its first nres chunks of kc rows; the rest streams
-// each step through the ring beside the h it multiplies. Only h moves every
-// step: each block writes its units' h for the rows of the pass into a
-// double-buffered h in global memory and arrives at one grid barrier
-// (grid_sync.cuh); its producer warp, once every block has arrived, takes in
-// its direction's h chunk by chunk (k order) with bulk copies through the
-// ring, so the product of one chunk overlaps the copy of the next. Double
-// buffering makes one barrier a step enough: a block writes h(s + 1) into
-// the buffer h(s - 1) was read from, and no block passes the barrier of step
-// s before every block has consumed its chunks of step s - 1.
+// units in runs of Us (a multiple of 8): block b
+// owns units [s Us, (s + 1) Us) of direction b / (U / Us), s = b mod (U /
+// Us), with the four gate columns of each side by side ([unit][gate]: a
+// float4 of a k row of wh is one unit's i, f, g, o), so the cell update
+// stays in the block. The block's column slice of wh (k padded to Kp with
+// zero rows) is copied into shared memory once, before the time loop, as
+// far as it fits beside the staging buffers: its first nres chunks of kc
+// rows; the rest streams each step through the ring beside the h it
+// multiplies. Only h moves every step: each block writes its units' h for
+// the rows of the pass into a double-buffered h in global memory; the
+// producer warp of every block of the direction takes it in chunk by chunk
+// (k order) with bulk copies through the ring, so the product of one chunk
+// overlaps the copy of the next. A chunk is copied once the blocks that
+// write it have published it (one readiness counter a chunk, grid_sync.cuh):
+// a step waits on the h it reads, not on a grid barrier (grid_steps says
+// why the double buffer stays safe).
 //
-// The product, float32 (true float32 FMAs): the k chunks are dealt to KS
-// parts (chunk i to part i mod KS), each part 256 / KS consumer threads
-// with two ring slots or more; a thread takes one unit (4 gate columns) and
-// TR rows (row tile rt takes rows rt, rt + nrt, ...: the row tiles of a warp
-// read rows one padded stride apart, in other banks), sums its chunks in k
-// order in registers, and the parts are added in part order in shared
-// memory, so a launch is bitwise repeatable. bf16 (mma.sync m16n8k16,
-// float32 accumulators): h lies in global memory in the order of the tensor
-// cores' A fragments (a lane's fragment of a 16-row tile and a k step is one
-// 16-byte load) and wh in the order of the B fragments
-// (ops/lstm.py::ring_fragments); a part's warps split the n-tiles, each warp
-// takes every row tile of its part's chunks. Gate math and cell state stay
-// float32; hprev/cprev are rounded to Wh's type.
+// The product. float32 (true float32 FMAs, fwd_product_f32): the k chunks
+// are dealt to KS parts (chunk i to part i mod KS), each part 256 / KS
+// consumer threads with two ring slots or more; a thread takes two units (8
+// gate columns) and TR rows, sums its chunks in k order in registers, and
+// the parts are added in part order in shared memory, so a launch is
+// bitwise repeatable. bf16 (wgmma m64nNk16, float32 accumulators,
+// fwd_product_bf16): wh and h in wgmma's canonical swizzled K-major layout,
+// M the block's gate columns (zero rows up to whole tiles of 64), N the
+// pass's rows; a warpgroup a part (or, with one part, half the M tiles). Gate math and cell state stay float32;
+// hprev/cprev are rounded to Wh's type.
 //
 // Rows: a launch holds `rows` batch rows, a pass; a batch past them runs in
 // passes of rows, a launch each (ops/lstm.py::grid_plan), each reading wh
 // once a step.
+//
+// The VJP's loop (below) keeps this file's first grid design: a grid
+// barrier a step (grid_produce), the products grid_product_f32 (a unit a
+// thread, h rows padded by 16 bytes) and grid_product_bf16 (mma.sync on
+// fragment-ordered operands).
 
 constexpr int GRID_SLOTS_MAX = 16;
 constexpr int GRID_WS_HEAD = 128;  // bytes of the workspace before the h buffers: the barrier's counter
@@ -773,7 +779,7 @@ struct GridCut {
   int rows;    // rows the layout holds: the pass's rows, zero rows past them
   int row0;    // the pass's first batch row
   int nrows;   // the pass's rows
-  int tile;    // float32: rows a thread (TR); bf16: 16-row tiles (MT)
+  int tile;    // float32: rows a thread (TR); bf16: the VJP's 16-row tiles (MT), the forward's M tiles a warpgroup
   int ks;      // k parts: chunk i belongs to part i mod ks
   int kc;      // k rows of a chunk
   int kp;      // the k range, padded to a multiple of kc ks
@@ -782,22 +788,23 @@ struct GridCut {
   int cl;      // blocks of a cluster (the VJP's loop; 1 in the forward)
 };
 
-// byte offsets of a block of the grid layout; ops/lstm.py::grid_smem_bytes
-// and grid_bwd_smem_bytes mirror it
+// byte offsets of a block of the VJP's grid loop; ops/lstm.py::
+// grid_bwd_smem_bytes mirrors it (the forward's: FwdGridLayout)
 struct GridLayout {
-  int Nc, ldh;                  // the product's columns; float32: the row stride of a staged operand chunk
-  size_t hchunk, wchunk, slot;  // bytes of a chunk of the moving operand (h, dgates), of wh, and a ring slot
-  int tile;                     // floats of a step's tile: xp and mask (forward), the factors (VJP)
+  int Nc, ldh, ldp;             // the product's columns; float32: the row stride of a staged operand chunk;
+                                // part_s's row stride
+  size_t hchunk, wchunk, slot;  // bytes of a chunk of the moving operand (dgates), of Wh^T, and a ring slot
+  int tile;                     // floats of a step's tile of factors
   size_t w, ring, part, recv, xp, cst, hst, total;
 };
 
-// bwd: the VJP's loop, whose product is [rows][cl us] (the partial dh of its
+// the VJP's loop, whose product is [rows][cl us] (the partial dh of its
 // cluster's units) over the 4 U / cl gate columns of its k piece; it keeps
-// the cluster's partials, two tiles of factors and dh, dc in place of the
-// forward's xp tile and h, c
-__host__ __device__ inline GridLayout grid_layout(const GridCut& g, bool bf, bool bwd = false) {
+// the cluster's partials, two tiles of factors and dh, dc
+__host__ __device__ inline GridLayout grid_layout(const GridCut& g, bool bf) {
   GridLayout L;
-  L.Nc = bwd ? g.cl * g.us : 4 * g.us;
+  L.Nc = g.cl * g.us;
+  L.ldp = L.Nc;
   L.ldh = g.kc + 4;  // 16 bytes of padding: a warp's row tiles read rows in other banks
   if (bf) {
     L.hchunk = (size_t)(g.kc / 16) * (g.rows / 16) * 512;  // [k steps][row tiles][32 lanes][8 bf16]
@@ -808,9 +815,8 @@ __host__ __device__ inline GridLayout grid_layout(const GridCut& g, bool bf, boo
   }
   const bool streams = g.nres < g.kp / g.kc;
   L.slot = L.hchunk + (streams ? L.wchunk : 0);
-  // forward: [rows][4][us] xp of the step, then [rows] mask; VJP: [rows][4][us]
-  // factors Fi..Fo, then dout, A, sf [rows][us] each, then [rows] mask
-  L.tile = ((bwd ? g.rows * 7 * g.us : g.rows * L.Nc) + g.rows + 3) / 4 * 4;
+  // [rows][4][us] factors Fi..Fo, then dout, A, sf [rows][us] each, then [rows] mask
+  L.tile = (g.rows * 7 * g.us + g.rows + 3) / 4 * 4;
   size_t off = 0;
   L.w = off;
   off += (size_t)g.nres * L.wchunk;
@@ -818,13 +824,13 @@ __host__ __device__ inline GridLayout grid_layout(const GridCut& g, bool bf, boo
   off += (size_t)g.ns * L.slot;
   L.part = off;  // [rows][Nc]: the product, its parts added in order
   off += (size_t)g.rows * L.Nc * 4;
-  L.recv = off;  // VJP, cl > 1: [2][cl][rows][us] the cluster's partial dh of this block's units
-  if (bwd && g.cl > 1) off += (size_t)2 * g.cl * g.rows * g.us * 4;
+  L.recv = off;  // cl > 1: [2][cl][rows][us] the cluster's partial dh of this block's units
+  if (g.cl > 1) off += (size_t)2 * g.cl * g.rows * g.us * 4;
   L.xp = off;
-  off += (size_t)(bwd ? 2 : 1) * L.tile * 4;
-  L.cst = off;  // [rows][us] float32 state (VJP: dc)
+  off += (size_t)2 * L.tile * 4;
+  L.cst = off;  // [rows][us] dc
   off += (size_t)g.rows * g.us * 4;
-  L.hst = off;  // VJP: (1 - m) dh, what a row keeps of dh
+  L.hst = off;  // (1 - m) dh, what a row keeps of dh
   off += (size_t)g.rows * g.us * 4;
   L.total = off;
   return L;
@@ -834,7 +840,7 @@ __host__ __device__ inline GridLayout grid_layout(const GridCut& g, bool bf, boo
 // buffers of every chunk of every piece of each direction; ops/lstm.py::
 // grid_bwd_ws_bytes mirrors it
 __host__ __device__ inline size_t grid_bwd_ws_bytes(int nd, const GridCut& g, bool bf) {
-  return GRID_WS_HEAD + (size_t)2 * nd * g.cl * (g.kp / g.kc) * grid_layout(g, bf, true).hchunk;
+  return GRID_WS_HEAD + (size_t)2 * nd * g.cl * (g.kp / g.kc) * grid_layout(g, bf).hchunk;
 }
 
 // a bulk copy without a cache hint (a chunk of h is read once a step by each block of a direction)
@@ -891,19 +897,162 @@ __device__ __forceinline__ void grid_setup(const GridCut& g, const GridLayout& L
   __syncthreads();
 }
 
-// A grid block's consumer threads, step after step, around their product:
-// the xp prefetch, `product(step, timed, first, later)` (the step's gate sums
-// of the block into part_s; first and later gather the cycles thread 0 waited
-// for the step's first chunk and for the others), the cell update with its
-// stores of out, of h into the next h buffer (`put_h(buf, row, k, h)`, two
-// units of a row) and of the residuals, the barrier's arrival, and the final
-// state. W is Wh's type (the residuals').
+// The listener's forward in the grid layout: its shared-memory layout, the
+// readiness of h, the producer, the two products and the step loop.
+//
+// A block's shared memory (ops/lstm.py::grid_smem_bytes mirrors it): the
+// resident chunks of its wh slice, the ring's slots (a chunk of h, and of wh
+// where some of it streams), the product [rows][Nc + 4] (4 floats of
+// padding a row: the bf16 product's stores of one column land in other
+// banks), the xp tile and mask, c, h and the step's out. bf16 operands lie in wgmma's
+// canonical K-major layout with the 128-byte swizzle: a chunk of 64 k is,
+// for each of its R rows (wh: the block's 4 us gate columns, zero rows up to
+// whole M tiles of 64; h: the pass's rows), 128 bytes whose 16-byte groups are permuted by row mod 8 (group
+// j of row r at j ^ (r & 7)), 8 rows a 1024-byte atom, so the regions start
+// on 1024 bytes (the dynamic region is aligned at run time: 1024 bytes more
+// are reserved). float32 h chunks are k-major, [kc][rows] floats: a warp's
+// row tiles read neighbouring float4 without padding.
+struct FwdGridLayout {
+  int Nc, Ncp, ldp, nch;        // the product's columns (bf16: padded to whole M tiles of 64); part_s's row stride;
+                                // chunks a step
+  size_t hchunk, wchunk, slot;  // bytes of a chunk of h, of wh, and a ring slot
+  int tile;                     // floats of a step's xp tile and mask
+  size_t align;                 // bytes reserved to align the region (bf16)
+  size_t w, ring, part, xp, cst, hst, ost, total;
+};
+
+// mma: the bf16 product on mma.sync (grid_product_bf16), its operands in the
+// fragments' order, no M tiles to pad and no swizzle to align
+__host__ __device__ inline FwdGridLayout fwd_grid_layout(const GridCut& g, bool bf, bool mma = false) {
+  FwdGridLayout L;
+  L.Nc = 4 * g.us;
+  L.Ncp = bf && !mma ? (L.Nc + 63) / 64 * 64 : L.Nc;
+  L.ldp = L.Nc + 4;
+  L.nch = g.kp / g.kc;
+  L.hchunk = (size_t)g.rows * g.kc * (bf ? 2 : 4);
+  L.wchunk = (size_t)g.kc * L.Ncp * (bf ? 2 : 4);
+  L.slot = L.hchunk + (g.nres < L.nch ? L.wchunk : 0);
+  L.tile = (g.rows * L.Nc + g.rows + 3) / 4 * 4;
+  L.align = bf && !mma ? 1024 : 0;
+  size_t off = 0;
+  L.w = off;
+  off += (size_t)g.nres * L.wchunk;
+  L.ring = off;
+  off += (size_t)g.ns * L.slot;
+  L.part = off;
+  off += (size_t)g.rows * L.ldp * 4;
+  L.xp = off;
+  off += (size_t)L.tile * 4;
+  L.cst = off;
+  off += (size_t)g.rows * g.us * 4;
+  L.hst = off;
+  off += (size_t)g.rows * g.us * 4;
+  L.ost = off;
+  off += (size_t)g.rows * g.us * 4;
+  L.total = off;
+  return L;
+}
+
+// the forward's workspace: the readiness counters of every chunk of each
+// direction (rounded to 128 bytes), then two h buffers of every chunk of
+// each direction; ops/lstm.py::grid_ws_bytes mirrors it
+__host__ __device__ inline size_t fwd_grid_head(int nd, int nch) { return ((size_t)4 * nd * nch + 127) / 128 * 128; }
+
+// the blocks of a direction (us units each, per_dir of them) whose units
+// fall in chunk ch of kc k rows: what its counter gains a step
+__device__ __forceinline__ unsigned chunk_writers(int ch, int kc, int us, int per_dir) {
+  const int first = ch * kc / us;
+  if (first >= per_dir) return 0;  // k padding: never written, zero
+  return (unsigned)(min(per_dir - 1, (ch * kc + kc - 1) / us) - first + 1);
+}
+
+// the forward's set-up: zero the block's buffers, copy the resident chunks
+// of its wh slice (handed to the async proxy, which wgmma reads through),
+// set up the ring's barriers (`readers`: the consumer threads that read a
+// chunk)
+__device__ __forceinline__ void fwd_grid_setup(const GridCut& g, const FwdGridLayout& L, const unsigned char* wg,
+                                               unsigned char* smem, unsigned long long* full,
+                                               unsigned long long* empty, int readers) {
+  const int tid = threadIdx.x;
+  for (size_t i = L.part / 16 + tid; i < L.total / 16; i += RING_THREADS)
+    reinterpret_cast<float4*>(smem)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (size_t i = tid; i < (size_t)g.nres * L.wchunk / 16; i += RING_THREADS)
+    reinterpret_cast<uint4*>(smem + L.w)[i] = reinterpret_cast<const uint4*>(wg)[i];
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (tid == 0) {
+    for (int s = 0; s < g.ns; ++s) {
+      mbar_init(smem_addr(&full[s]), 1);
+      mbar_init(smem_addr(&empty[s]), readers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer warp of a forward grid block: each step's chunks of its
+// direction's h in k order into the ring (lane 0 issues the copies), each
+// copied once its counter says every block writing into it has stored the
+// step's h (step 0's h is the zeroed buffer), each with its chunk of wh
+// where that streams (requested first: it waits on nothing); the step's
+// chunks lie at src, in the buffer of its parity (buf_bytes apart). The
+// warp's lanes poll the counters of 32 chunks at once (one round trip to
+// L2 for all), so a chunk found ready costs no wait of its own.
+__device__ __forceinline__ void fwd_grid_produce(const GridCut& g, const FwdGridLayout& L, int T, int per_dir,
+                                                 const unsigned char* src, size_t buf_bytes, const unsigned* ready,
+                                                 const unsigned char* wg, unsigned ring0, unsigned long long* full,
+                                                 unsigned long long* empty) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long keep = evict_last_policy();
+  int slot = 0, round = 0;
+  for (int step = 0; step < T; ++step) {
+    const unsigned char* hb = src + (size_t)(step & 1) * buf_bytes;
+    unsigned seen = 0;  // the chunks of the current 32 known to be ready
+    for (int i = 0; i < L.nch; ++i) {
+      const int bit = i & 31;
+      const bool streamed = i >= g.nres;
+      const unsigned fb = smem_addr(&full[slot]);
+      const unsigned dst = ring0 + (unsigned)(slot * L.slot);
+      if (lane == 0) {
+        if (round > 0) mbar_wait(smem_addr(&empty[slot]), (round - 1) & 1);
+        mbar_expect(fb, (unsigned)(L.hchunk + (streamed ? L.wchunk : 0)));
+        if (streamed) bulk_load(dst + (unsigned)L.hchunk, wg + (size_t)i * L.wchunk, (unsigned)L.wchunk, fb, keep);
+      }
+      if (bit == 0) seen = step == 0 ? ~0u : 0u;
+      if (!((seen >> bit) & 1)) {
+        const int c = i - bit + lane;  // this lane's chunk of the 32
+        seen = chunks_wait(ready + c, c < L.nch ? (unsigned)step * chunk_writers(c, g.kc, g.us, per_dir) : 0u, bit);
+        if (lane == 0) asm volatile("fence.acq_rel.gpu;\n fence.proxy.async;\n" ::: "memory");
+      }
+      if (lane == 0) bulk_load_plain(dst, hb + (size_t)i * L.hchunk, (unsigned)L.hchunk, fb);
+      if (++slot == g.ns) slot = 0, ++round;
+    }
+  }
+}
+
+// A forward grid block's consumer threads, step after step, around their
+// product: the xp prefetch, `product(step, timed, first, later)` (the step's
+// gate sums of the block into part_s; first and later gather the cycles
+// thread 0 waited for the step's first chunk and for the others), the cell
+// update with its stores of out, of h into the next h buffer (`put_h(buf,
+// row, k, h)`, two units of a row) and of the residuals, the publication of
+// the chunks it wrote, and the final state. W is Wh's type (the
+// residuals').
+//
+// No grid barrier: a block raises the counters of the chunks it writes
+// once its h of the step is stored, and a block's producer copies a chunk
+// once its counter says so, so a step waits on the chunks it reads, in k
+// order, and a direction never on the other. The double buffer stays safe:
+// a block writes h(s + 1) (into the buffer of h(s - 1)) only after its
+// product of step s, which took in every chunk of h(s), so every block of
+// its direction had published h(s); a block publishes h(s) only after its
+// own product of step s - 1, whose copies of every chunk of h(s - 1) had
+// landed. So no block still reads h(s - 1) when any block writes h(s + 1).
 template <typename W, class Product, class PutH>
 __device__ __forceinline__ void grid_steps(const FwdArgs& a, const float* __restrict__ mask, int T, int B, int U,
-                                           const GridCut& g, const GridLayout& L, int d, int slice, float fb,
-                                           unsigned* bar, unsigned char* smem, Product product, PutH put_h,
+                                           const GridCut& g, const FwdGridLayout& L, int d, int slice, float fb,
+                                           unsigned* ready, unsigned char* smem, Product product, PutH put_h,
                                            long long* clocks) {
-  const int tid = threadIdx.x, Us = g.us, Nc = L.Nc, rows = g.rows, G = 4 * U;
+  const int tid = threadIdx.x, Us = g.us, Nc = L.Nc, ldp = L.ldp, rows = g.rows, G = 4 * U;
   const float* __restrict__ xp = a.xp[d];
   float* __restrict__ out = a.out[d];
   W* hprev = static_cast<W*>(a.hprev[d]);
@@ -913,7 +1062,9 @@ __device__ __forceinline__ void grid_steps(const FwdArgs& a, const float* __rest
   float* xp_s = reinterpret_cast<float*>(smem + L.xp);
   float* c_st = reinterpret_cast<float*>(smem + L.cst);
   float* h_st = reinterpret_cast<float*>(smem + L.hst);
+  float* o_st = reinterpret_cast<float*>(smem + L.ost);
   const int uq = Us / 4, up = Us / 2, u_off = slice * Us;
+  const int c0 = u_off / g.kc, c1 = (u_off + Us - 1) / g.kc;  // the chunks this block writes
 
   auto prefetch = [&](int t) {
     for (int i = tid; i < g.nrows * Us; i += FWD_THREADS) {
@@ -935,8 +1086,9 @@ __device__ __forceinline__ void grid_steps(const FwdArgs& a, const float* __rest
     }
 
   // clocks (optional, 5 counters): SM cycles thread 0 of block 0 spent in 0
-  // the product, 1 the cell update, 2 the arrival and the prefetch, 3 the
-  // wait for the step's first chunk (the grid barrier and its copy), 4 the
+  // the product, 1 the cell update with its stores of h, 2 the
+  // publication, the stores of out and the residuals and the prefetch, 3
+  // the wait for the step's first chunk (its writers and its copy), 4 the
   // waits for later chunks
   const bool timed = clocks != nullptr && tid == 0 && blockIdx.x == 0;
   long long tick = timed ? clock64() : 0;
@@ -955,49 +1107,58 @@ __device__ __forceinline__ void grid_steps(const FwdArgs& a, const float* __rest
     lap(0);
     if (timed) spent[0] -= first + later, spent[3] += first, spent[4] += later;
 
-    // the cell update of this block's units: two units of a row an item
-    for (int q = tid; q < rows * up; q += FWD_THREADS) {
-      const int row = q / up, u0 = (q - row * up) * 2;
-      const float4 s0 = *reinterpret_cast<const float4*>(part_s + row * Nc + 4 * u0);
-      const float4 s1 = *reinterpret_cast<const float4*>(part_s + row * Nc + 4 * u0 + 4);
+    // the cell update of this block's units, four units of a row an item (four
+    // independent chains): h into the next h buffer first, so the
+    // publication waits on those stores alone
+    for (int q = tid; q < rows * uq; q += FWD_THREADS) {
+      const int row = q / uq, u0 = (q - row * uq) * 4;
+      const float* ps = part_s + row * ldp + 4 * u0;
       const float* xr = xp_s + row * Nc + u0;
-      const float2 xi = *reinterpret_cast<const float2*>(xr), xf = *reinterpret_cast<const float2*>(xr + Us);
-      const float2 xg = *reinterpret_cast<const float2*>(xr + 2 * Us);
-      const float2 xo = *reinterpret_cast<const float2*>(xr + 3 * Us);
-      const float gate[4][2] = {{xi.x + s0.x, xi.y + s1.x}, {xf.x + s0.y, xf.y + s1.y},
-                                {xg.x + s0.z, xg.y + s1.z}, {xo.x + s0.w, xo.y + s1.w}};
+      const float4 x4[4] = {*reinterpret_cast<const float4*>(xr), *reinterpret_cast<const float4*>(xr + Us),
+                            *reinterpret_cast<const float4*>(xr + 2 * Us),
+                            *reinterpret_cast<const float4*>(xr + 3 * Us)};
       const float m = xp_s[rows * Nc + row];
-      const float2 c2 = *reinterpret_cast<const float2*>(c_st + row * Us + u0);
-      const float2 h2 = *reinterpret_cast<const float2*>(h_st + row * Us + u0);
-      float cv[2] = {c2.x, c2.y}, hv[2] = {h2.x, h2.y}, ov[2];
+      const float4 c4 = *reinterpret_cast<const float4*>(c_st + row * Us + u0);
+      const float4 h4 = *reinterpret_cast<const float4*>(h_st + row * Us + u0);
+      const float xg[4][4] = {{x4[0].x, x4[0].y, x4[0].z, x4[0].w}, {x4[1].x, x4[1].y, x4[1].z, x4[1].w},
+                              {x4[2].x, x4[2].y, x4[2].z, x4[2].w}, {x4[3].x, x4[3].y, x4[3].z, x4[3].w}};
+      float cv[4] = {c4.x, c4.y, c4.z, c4.w}, hv[4] = {h4.x, h4.y, h4.z, h4.w}, ov[4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float c_new = sigmoidf_(gate[1][i] + fb) * cv[i] + sigmoidf_(gate[0][i]) * tanhf(gate[2][i]);
-        const float h_new = sigmoidf_(gate[3][i]) * tanhf(c_new);
+      for (int i = 0; i < 4; ++i) {
+        const float4 sg = *reinterpret_cast<const float4*>(ps + 4 * i);  // unit u0 + i's i, f, g, o sums
+        const float c_new = gate_sigmoid<W>(xg[1][i] + sg.y + fb) * cv[i] +
+                            gate_sigmoid<W>(xg[0][i] + sg.x) * gate_tanh<W>(xg[2][i] + sg.z);
+        const float h_new = gate_sigmoid<W>(xg[3][i] + sg.w) * gate_tanh<W>(c_new);
         hv[i] = m * h_new + (1.0f - m) * hv[i];
         cv[i] = m * c_new + (1.0f - m) * cv[i];
         ov[i] = m * h_new;
       }
-      const float2 hn = make_float2(hv[0], hv[1]), cn = make_float2(cv[0], cv[1]);
-      *reinterpret_cast<float2*>(c_st + row * Us + u0) = cn;
-      *reinterpret_cast<float2*>(h_st + row * Us + u0) = hn;
-      if (row < g.nrows) {  // rows past the pass stay zero, in h_st and in the h buffers
-        *reinterpret_cast<float2*>(out + ((size_t)t * B + g.row0 + row) * U + u_off + u0) = make_float2(ov[0], ov[1]);
-        if (step + 1 < T) {
-          put_h((step + 1) & 1, row, u_off + u0, hn);
-          if (save_res) {
-            const size_t idx = ((size_t)(reverse ? t - 1 : t + 1) * B + g.row0 + row) * U + u_off + u0;
-            store2(hprev + idx, hn);
-            store2(cprev + idx, cn);
-          }
-        }
+      *reinterpret_cast<float4*>(c_st + row * Us + u0) = make_float4(cv[0], cv[1], cv[2], cv[3]);
+      *reinterpret_cast<float4*>(h_st + row * Us + u0) = make_float4(hv[0], hv[1], hv[2], hv[3]);
+      *reinterpret_cast<float4*>(o_st + row * Us + u0) = make_float4(ov[0], ov[1], ov[2], ov[3]);
+      if (row < g.nrows && step + 1 < T) {  // rows past the pass stay zero
+        put_h((step + 1) & 1, row, u_off + u0, make_float2(hv[0], hv[1]));
+        put_h((step + 1) & 1, row, u_off + u0 + 2, make_float2(hv[2], hv[3]));
       }
     }
     lap(1);
     // every consumer's h is stored, part_s and the xp tile are free: the
-    // block arrives at the barrier of step + 1
+    // block publishes its chunks of h(step + 1), then stores out[t] (and
+    // the residuals of the next step) and requests the next xp tile
     consumers_sync();
-    if (tid == 0 && step + 1 < T) grid_arrive(bar);
+    if (tid == 0 && step + 1 < T)
+      for (int c = c0; c <= c1; ++c) chunk_publish(ready + c);
+    for (int q = tid; q < g.nrows * up; q += FWD_THREADS) {
+      const int row = q / up, u0 = (q - row * up) * 2;
+      const float2 hn = *reinterpret_cast<const float2*>(h_st + row * Us + u0);
+      *reinterpret_cast<float2*>(out + ((size_t)t * B + g.row0 + row) * U + u_off + u0) =
+          *reinterpret_cast<const float2*>(o_st + row * Us + u0);
+      if (save_res && step + 1 < T) {
+        const size_t idx = ((size_t)(reverse ? t - 1 : t + 1) * B + g.row0 + row) * U + u_off + u0;
+        store2(hprev + idx, hn);
+        store2(cprev + idx, *reinterpret_cast<const float2*>(c_st + row * Us + u0));
+      }
+    }
     if (step + 1 < T) prefetch(reverse ? t - 1 : t + 1);
     lap(2);
   }
@@ -1101,12 +1262,13 @@ __device__ __forceinline__ void grid_product_f32(const GridCut& g, const GridLay
 // (n-tile j WP + wl, j < NTW, WP = 8 / ks warps a part), each warp takes all
 // MT row tiles of its part's chunks; the operand chunk is in the A
 // fragments' order, wh in the B fragments'; the parts are added in part
-// order into part_s, as grid_product_f32's.
-template <int MT, int NTW>
-__device__ __forceinline__ void grid_product_bf16(const GridCut& g, const GridLayout& L, unsigned char* smem,
+// order into part_s (rows L.ldp apart), as grid_product_f32's. The
+// forward's mma.sync route shares it (its FwdGridLayout).
+template <int MT, int NTW, class Layout>
+__device__ __forceinline__ void grid_product_bf16(const GridCut& g, const Layout& L, unsigned char* smem,
                                                   unsigned long long* full, unsigned long long* empty, int step,
                                                   bool timed, long long& first, long long& later) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, Nc = L.Nc;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, Nc = L.Nc, ldp = L.ldp;
   const int nch = g.kp / g.kc, NT = Nc / 8, kc16 = g.kc / 16;
   const int WP = RING_WARPS / g.ks, part = warp / WP, wl = warp - part * WP;
   const int gq = lane >> 2, tig = lane & 3;
@@ -1157,7 +1319,7 @@ __device__ __forceinline__ void grid_product_bf16(const GridCut& g, const GridLa
         for (int m = 0; m < MT; ++m)
 #pragma unroll
           for (int hi = 0; hi < 2; ++hi) {
-            float2* dst = reinterpret_cast<float2*>(part_s + (size_t)(16 * m + gq + 8 * hi) * Nc + nt * 8 + tig * 2);
+            float2* dst = reinterpret_cast<float2*>(part_s + (size_t)(16 * m + gq + 8 * hi) * ldp + nt * 8 + tig * 2);
             float2 v = make_float2(acc[m][j][2 * hi], acc[m][j][2 * hi + 1]);
             if (p > 0) {
               const float2 s = *dst;
@@ -1180,64 +1342,354 @@ __device__ __forceinline__ size_t a_frag_word(int mt, int row, int k) {
   return (((size_t)(k >> 4) * mt + (row >> 4)) * 32 + (r & 7) * 4 + ((kk & 7) >> 1)) * 4 + (r >> 3) + 2 * (kk >> 3);
 }
 
-// the float32 grid kernel: a consumer thread takes one unit's 4 gate
-// columns and TR rows of its part's chunks; the residuals are saved where
-// the entry gives hprev
+// The float32 product of a forward grid block's step (true float32 FMAs).
+// A consumer thread of part p = tid / (256 / ks) takes 8 columns (unit cg
+// and unit cg + us / 2, each its 4 gate columns: two float4 of a k row of
+// wh) and TR consecutive rows (row tile rt) of its part's chunks (chunk i
+// of the step to part i mod ks), summing them in k order in registers; the
+// parts are then added in part order into part_s, so a launch is bitwise
+// repeatable. h chunks are k-major ([kc][rows]), so a k step is two float4
+// of wh and TR / 4 of h for 8 TR FMAs, with no more than 8 TR + 16
+// registers of sums and operands; a warp's loads of wh are 8 neighbouring
+// float4 and of h 4 row tiles' neighbouring float4 (one wavefront each).
+// Threads past nrt row tiles idle.
+template <int TR>
+__device__ __forceinline__ void fwd_product_f32(const GridCut& g, const FwdGridLayout& L, unsigned char* smem,
+                                                unsigned long long* full, unsigned long long* empty, int step,
+                                                bool timed, long long& first, long long& later) {
+  const int tid = threadIdx.x, lane = tid & 31, Nc = L.Nc, half = Nc / 2, ncg = Nc / 8, ldp = L.ldp;
+  const int tpp = FWD_THREADS / g.ks, part = tid / tpp, q = tid - part * tpp;
+  const int nrt = tpp / ncg, cg = q % ncg, rt = q / ncg;
+  const bool busy = rt < nrt;
+  const float* w_res = reinterpret_cast<const float*>(smem + L.w);
+  float* part_s = reinterpret_cast<float*>(smem + L.part);
+  const int kc = g.kc, rows = g.rows;
+  float acc[TR][8];
+#pragma unroll
+  for (int j = 0; j < TR; ++j)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[j][c] = 0.0f;
+  for (int i = part; i < L.nch; i += g.ks) {
+    const int c = step * L.nch + i, slot = c % g.ns;
+    const long long w0 = timed ? clock64() : 0;
+    mbar_wait(smem_addr(&full[slot]), (unsigned)(c / g.ns) & 1);
+    if (timed) (i == 0 ? first : later) += clock64() - w0;
+    const unsigned char* sl = smem + L.ring + slot * L.slot;
+    const float* hs = reinterpret_cast<const float*>(sl) + rt * TR;
+    const float* wc = (i < g.nres ? w_res + (size_t)i * kc * Nc : reinterpret_cast<const float*>(sl + L.hchunk)) +
+                      4 * cg;
+    if (busy) {
+#pragma unroll 4
+      for (int k = 0; k < kc; ++k) {
+        const float4 wa = *reinterpret_cast<const float4*>(wc + (size_t)k * Nc);
+        const float4 wb = *reinterpret_cast<const float4*>(wc + (size_t)k * Nc + half);
+        float hk[TR];
+#pragma unroll
+        for (int j = 0; j < TR; j += 4) {
+          const float4 hv = *reinterpret_cast<const float4*>(hs + (size_t)k * rows + j);
+          hk[j] = hv.x, hk[j + 1] = hv.y, hk[j + 2] = hv.z, hk[j + 3] = hv.w;
+        }
+#pragma unroll
+        for (int j = 0; j < TR; ++j) {
+          acc[j][0] = fmaf(hk[j], wa.x, acc[j][0]);
+          acc[j][1] = fmaf(hk[j], wa.y, acc[j][1]);
+          acc[j][2] = fmaf(hk[j], wa.z, acc[j][2]);
+          acc[j][3] = fmaf(hk[j], wa.w, acc[j][3]);
+          acc[j][4] = fmaf(hk[j], wb.x, acc[j][4]);
+          acc[j][5] = fmaf(hk[j], wb.y, acc[j][5]);
+          acc[j][6] = fmaf(hk[j], wb.z, acc[j][6]);
+          acc[j][7] = fmaf(hk[j], wb.w, acc[j][7]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_addr(&empty[slot]), 32);
+  }
+  cp_async_wait_all();  // this step's tile, requested a step ago
+  for (int p = 0; p < g.ks; ++p) {  // the parts into part_s, in part order
+    if (part == p && busy) {
+#pragma unroll
+      for (int j = 0; j < TR; ++j) {
+#pragma unroll
+        for (int hlf = 0; hlf < 2; ++hlf) {
+          float4* dst = reinterpret_cast<float4*>(part_s + (size_t)(rt * TR + j) * ldp + hlf * half + 4 * cg);
+          float4 v = make_float4(acc[j][4 * hlf], acc[j][4 * hlf + 1], acc[j][4 * hlf + 2], acc[j][4 * hlf + 3]);
+          if (p > 0) {
+            const float4 s = *dst;
+            v = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+          }
+          *dst = v;
+        }
+      }
+    }
+    consumers_sync();
+  }
+}
+
+// ---- wgmma (the bf16 forward's product): m64nNk16, both operands K-major
+// in shared memory with the 128-byte swizzle, float32 accumulators
+
+// the descriptor of a K-major operand with the 128-byte swizzle at shared
+// address `addr` (1024-byte atoms of 8 rows; the leading offset unused, the
+// stride between 8-row atoms 1024 bytes); a k step of 16 within an atom
+// starts 32 bytes further
+__device__ __forceinline__ unsigned long long sw128_desc(unsigned addr) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((unsigned long long)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving an accumulator across an asynchronous
+// product: before a group is issued and after a wait (never between: a use
+// of an accumulator in flight makes the compiler wait for its group)
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) asm volatile("" : "+f"(d[j])::"memory");
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N]^T, A and B by descriptor
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], unsigned long long da, unsigned long long db);
+template <>
+__device__ __forceinline__ void wgmma_bf16<16>(float (&d)[8], unsigned long long da, unsigned long long db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], unsigned long long da, unsigned long long db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], unsigned long long da, unsigned long long db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]),
+        "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], unsigned long long da, unsigned long long db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]),
+        "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]),
+        "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The bf16 product of a forward grid block's step on wgmma: M the block's
+// 4 us gate columns (MT tiles of 64, zero rows past them), N the pass's
+// rows, K the chunk's 128 k (two 64-k atom columns of the swizzled layout,
+// eight k steps of 16). With ks = 1 both warpgroups take every chunk,
+// warpgroup w the M tiles w MTW .. w MTW + MTW - 1; with ks = 2 warpgroup w
+// takes every M tile of the chunks i with i mod 2 = w. A chunk's k steps
+// are issued back to back as one asynchronous group, waited on at once to
+// free the chunk's slot. (On the H100 the ring's chunks, not the product,
+// set a step's pace: a step takes its h in few large chunks, and a group
+// left in flight across chunks held its slot and read slower.)
+// The parts are added in part order into part_s ([rows][Nc + 4]; accumulator
+// d[j] of lane l in warp w of the warpgroup is column 16 w + l / 4 + 8 ((j /
+// 2) mod 2) of its M tile, row 8 (j / 4) + 2 (l mod 4) + j mod 2).
+template <int N, int MTW>
+__device__ __forceinline__ void fwd_product_bf16(const GridCut& g, const FwdGridLayout& L, unsigned char* smem,
+                                                 unsigned long long* full, unsigned long long* empty, int step,
+                                                 bool timed, long long& first, long long& later) {
+  const int tid = threadIdx.x, wgi = tid / 128, wl = (tid >> 5) & 3, lane = tid & 31, ldp = L.ldp, Nc = L.Nc;
+  const int i0 = g.ks == 1 ? 0 : wgi, di = g.ks == 1 ? 1 : 2, mt0 = g.ks == 1 ? wgi * MTW : 0;
+  const unsigned w_res = smem_addr(smem + L.w), ring = smem_addr(smem + L.ring);
+  const unsigned mstride = 64 * 128;              // bytes of an M tile of an atom column
+  const unsigned acol = L.Ncp * 128, bcol = N * 128;  // bytes of an atom column of wh, of h
+  float* part_s = reinterpret_cast<float*>(smem + L.part);
+  float acc[MTW][N / 2];
+#pragma unroll
+  for (int m = 0; m < MTW; ++m)
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) acc[m][j] = 0.0f;
+  auto fence_all = [&]() {
+#pragma unroll
+    for (int m = 0; m < MTW; ++m) fence_acc(acc[m]);
+  };
+  auto release = [&](int slot) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_addr(&empty[slot]), 32);
+  };
+  for (int i = i0; i < L.nch; i += di) {
+    const int c = step * L.nch + i, slot = c % g.ns;
+    const long long w0 = timed ? clock64() : 0;
+    mbar_wait(smem_addr(&full[slot]), (unsigned)(c / g.ns) & 1);
+    if (timed) (i == 0 ? first : later) += clock64() - w0;
+    __syncwarp();
+    const unsigned sl = ring + (unsigned)(slot * L.slot);
+    const unsigned a0 = (i < g.nres ? w_res + (unsigned)(i * L.wchunk) : sl + (unsigned)L.hchunk) + mt0 * mstride;
+    fence_all();
+    wgmma_fence();
+#pragma unroll
+    for (int m = 0; m < MTW; ++m)
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_bf16<N>(acc[m], sw128_desc(a0 + m * mstride + (kk >> 2) * acol + 32 * (kk & 3)),
+                      sw128_desc(sl + (kk >> 2) * bcol + 32 * (kk & 3)));
+    wgmma_commit();
+    wgmma_wait<0>();  // the chunk is read: free its slot at once
+    fence_all();
+    release(slot);
+  }
+  cp_async_wait_all();  // this step's tile, requested a step ago
+  for (int p = 0; p < g.ks; ++p) {  // the parts into part_s, in part order
+    if (g.ks == 1 || p == wgi) {
+#pragma unroll
+      for (int m = 0; m < MTW; ++m)
+#pragma unroll
+        for (int j = 0; j < N / 2; ++j) {
+          const int col = 64 * (mt0 + m) + 16 * wl + (lane >> 2) + 8 * ((j >> 1) & 1);
+          const int row = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+          float* dst = part_s + (size_t)row * ldp + col;
+          if (col < Nc) *dst = p > 0 ? *dst + acc[m][j] : acc[m][j];
+        }
+    }
+    consumers_sync();
+  }
+}
+
+// The two forward grid kernels: one block an SM, 8 consumer warps and a
+// producer warp (fwd_grid_produce); block b the units [s us, (s + 1) us) of
+// direction b / (U / us), s = b mod (U / us); the workspace ws holds the
+// readiness counters, then the two h buffers of each direction. The
+// residuals are saved where the entry gives hprev.
+//
+// float32: a consumer thread takes 8 columns and TR rows of its part's
+// chunks (fwd_product_f32); h chunks k-major
 template <int TR>
 __global__ void __launch_bounds__(RING_THREADS, 1)
 lstm_grid_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, int U, GridCut g, float fb,
                  unsigned char* ws, long long* __restrict__ clocks) {
   extern __shared__ __align__(16) unsigned char grid_smem[];
   __shared__ __align__(8) unsigned long long full_bar[GRID_SLOTS_MAX], empty_bar[GRID_SLOTS_MAX];
-  const GridLayout L = grid_layout(g, false);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int Us = g.us, Nc = L.Nc, per_dir = U / Us, nd = gridDim.x / per_dir;
+  const FwdGridLayout L = fwd_grid_layout(g, false);
+  const int warp = threadIdx.x >> 5;
+  const int per_dir = U / g.us, nd = gridDim.x / per_dir;
   const int d = blockIdx.x / per_dir, slice = blockIdx.x - d * per_dir;
-  const int nch = g.kp / g.kc;
-  unsigned* bar = reinterpret_cast<unsigned*>(ws);
-  unsigned char* hbufs = ws + GRID_WS_HEAD;  // [2][nd][nch] chunks of [rows][kc + 4] floats
-  const unsigned char* wg = static_cast<const unsigned char*>(a.wh[d]) + (size_t)slice * g.kp * Nc * 4;
-  grid_setup(g, L, wg, grid_smem, full_bar, empty_bar, FWD_THREADS / g.ks);
+  unsigned* ready = reinterpret_cast<unsigned*>(ws) + d * L.nch;
+  unsigned char* hbufs = ws + fwd_grid_head(nd, L.nch);  // [2][nd][nch] chunks of [kc][rows] floats
+  const unsigned char* wg = static_cast<const unsigned char*>(a.wh[d]) + (size_t)slice * g.kp * L.Nc * 4;
+  fwd_grid_setup(g, L, wg, grid_smem, full_bar, empty_bar, FWD_THREADS / g.ks);
   if (warp == RING_WARPS) {
-    if (lane == 0)
-      grid_produce(g, L, T, 0, hbufs + (size_t)d * nch * L.hchunk, (size_t)nd * nch * L.hchunk, wg, bar,
-                   smem_addr(grid_smem + L.ring), full_bar, empty_bar);
+    fwd_grid_produce(g, L, T, per_dir, hbufs + (size_t)d * L.nch * L.hchunk, (size_t)nd * L.nch * L.hchunk, ready, wg,
+                     smem_addr(grid_smem + L.ring), full_bar, empty_bar);
     return;
   }
   auto product = [&](int step, bool timed, long long& first, long long& later) {
-    grid_product_f32<TR>(g, L, grid_smem, full_bar, empty_bar, step, timed, first, later);
+    fwd_product_f32<TR>(g, L, grid_smem, full_bar, empty_bar, step, timed, first, later);
   };
-  // two units' h of a row into h buffer `buf`: [chunk][rows][kc + 4] floats
+  // two units' h of a row into h buffer `buf`: a chunk k-major, [kc][rows]
   auto put_h = [&](int buf, int row, int k, float2 h) {
-    float* hb = reinterpret_cast<float*>(hbufs + (size_t)(buf * nd + d) * nch * L.hchunk);
-    const int ch = k / g.kc;
-    *reinterpret_cast<float2*>(hb + ((size_t)ch * g.rows + row) * L.ldh + (k - ch * g.kc)) = h;
+    float* hb = reinterpret_cast<float*>(hbufs + (size_t)(buf * nd + d) * L.nch * L.hchunk) + (size_t)k * g.rows + row;
+    hb[0] = h.x;
+    hb[g.rows] = h.y;
   };
-  grid_steps<float>(a, mask, T, B, U, g, L, d, slice, fb, bar, grid_smem, product, put_h, clocks);
+  grid_steps<float>(a, mask, T, B, U, g, L, d, slice, fb, ready, grid_smem, product, put_h, clocks);
 }
 
-// the bf16 grid kernel: a part's warps split the n-tiles of the block's
-// columns, each warp takes all MT row tiles of its part's chunks on the
-// tensor cores (grid_product_bf16)
-template <int MT, int NTW>
+// bf16: the product on wgmma (fwd_product_bf16), N = rows; wh and h in the
+// canonical swizzled layout (ops/lstm.py::grid_wh, put_h below), the
+// dynamic region aligned to 1024 bytes
+template <int N, int MTW>
 __global__ void __launch_bounds__(RING_THREADS, 1)
 lstm_grid_bf16_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, int U, GridCut g, float fb,
                       unsigned char* ws, long long* __restrict__ clocks) {
   extern __shared__ __align__(16) unsigned char grid_smem[];
   __shared__ __align__(8) unsigned long long full_bar[GRID_SLOTS_MAX], empty_bar[GRID_SLOTS_MAX];
-  const GridLayout L = grid_layout(g, true);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int Us = g.us, Nc = L.Nc, per_dir = U / Us, nd = gridDim.x / per_dir;
+  const FwdGridLayout L = fwd_grid_layout(g, true);
+  unsigned char* smem = grid_smem + ((1024 - (smem_addr(grid_smem) & 1023)) & 1023);
+  const int warp = threadIdx.x >> 5;
+  const int per_dir = U / g.us, nd = gridDim.x / per_dir;
   const int d = blockIdx.x / per_dir, slice = blockIdx.x - d * per_dir;
-  const int nch = g.kp / g.kc;
-  unsigned* bar = reinterpret_cast<unsigned*>(ws);
-  unsigned char* hbufs = ws + GRID_WS_HEAD;  // [2][nd][k steps][MT][32 lanes][8 bf16]: A fragments
-  const unsigned char* wg = static_cast<const unsigned char*>(a.wh[d]) + (size_t)slice * g.kp * Nc * 2;
-  grid_setup(g, L, wg, grid_smem, full_bar, empty_bar, FWD_THREADS / g.ks);
+  unsigned* ready = reinterpret_cast<unsigned*>(ws) + d * L.nch;
+  unsigned char* hbufs = ws + fwd_grid_head(nd, L.nch);  // [2][nd][nch] chunks of [rows][64] bf16, swizzled
+  const unsigned char* wg = static_cast<const unsigned char*>(a.wh[d]) + (size_t)slice * g.kp * L.Ncp * 2;
+  fwd_grid_setup(g, L, wg, smem, full_bar, empty_bar, FWD_THREADS / g.ks);
   if (warp == RING_WARPS) {
-    if (lane == 0)
-      grid_produce(g, L, T, 0, hbufs + (size_t)d * nch * L.hchunk, (size_t)nd * nch * L.hchunk, wg, bar,
-                   smem_addr(grid_smem + L.ring), full_bar, empty_bar);
+    fwd_grid_produce(g, L, T, per_dir, hbufs + (size_t)d * L.nch * L.hchunk, (size_t)nd * L.nch * L.hchunk, ready, wg,
+                     smem_addr(smem + L.ring), full_bar, empty_bar);
+    return;
+  }
+  auto product = [&](int step, bool timed, long long& first, long long& later) {
+    fwd_product_bf16<N, MTW>(g, L, smem, full_bar, empty_bar, step, timed, first, later);
+  };
+  // two units' h of a row, rounded to bf16, into h buffer `buf`: 16-byte
+  // group j of a chunk's row r at j ^ (r & 7)
+  auto put_h = [&](int buf, int row, int k, float2 h) {
+    __nv_bfloat16* hb = reinterpret_cast<__nv_bfloat16*>(hbufs + (size_t)(buf * nd + d) * L.nch * L.hchunk);
+    const int ch = k >> 6, kk = k & 63;
+    *reinterpret_cast<__nv_bfloat162*>(hb + ((size_t)ch * g.rows + row) * 64 + (((kk >> 3) ^ (row & 7)) << 3) +
+                                       (kk & 7)) = __floats2bfloat162_rn(h.x, h.y);
+  };
+  grid_steps<__nv_bfloat16>(a, mask, T, B, U, g, L, d, slice, fb, ready, smem, product, put_h, clocks);
+}
+
+// bf16 on mma.sync (grid_product_bf16, as the VJP's loop): h in the A
+// fragments' order (a_frag_word), wh in the B fragments' (ops/lstm.py::
+// grid_wh, ring_fragments); MT 16-row tiles, a warp NTW n-tiles
+template <int MT, int NTW>
+__global__ void __launch_bounds__(RING_THREADS, 1)
+lstm_grid_mma_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, int U, GridCut g, float fb,
+                     unsigned char* ws, long long* __restrict__ clocks) {
+  extern __shared__ __align__(16) unsigned char grid_smem[];
+  __shared__ __align__(8) unsigned long long full_bar[GRID_SLOTS_MAX], empty_bar[GRID_SLOTS_MAX];
+  const FwdGridLayout L = fwd_grid_layout(g, true, true);
+  const int warp = threadIdx.x >> 5;
+  const int per_dir = U / g.us, nd = gridDim.x / per_dir;
+  const int d = blockIdx.x / per_dir, slice = blockIdx.x - d * per_dir;
+  unsigned* ready = reinterpret_cast<unsigned*>(ws) + d * L.nch;
+  unsigned char* hbufs = ws + fwd_grid_head(nd, L.nch);  // [2][nd][k steps][MT][32 lanes][8 bf16]: A fragments
+  const unsigned char* wg = static_cast<const unsigned char*>(a.wh[d]) + (size_t)slice * g.kp * L.Nc * 2;
+  fwd_grid_setup(g, L, wg, grid_smem, full_bar, empty_bar, FWD_THREADS / g.ks);
+  if (warp == RING_WARPS) {
+    fwd_grid_produce(g, L, T, per_dir, hbufs + (size_t)d * L.nch * L.hchunk, (size_t)nd * L.nch * L.hchunk, ready, wg,
+                     smem_addr(grid_smem + L.ring), full_bar, empty_bar);
     return;
   }
   auto product = [&](int step, bool timed, long long& first, long long& later) {
@@ -1245,11 +1697,11 @@ lstm_grid_bf16_kernel(FwdArgs a, const float* __restrict__ mask, int T, int B, i
   };
   // two units' h of a row, rounded to bf16, into h buffer `buf` at their place in the A fragments
   auto put_h = [&](int buf, int row, int k, float2 h) {
-    unsigned* hb = reinterpret_cast<unsigned*>(hbufs + (size_t)(buf * nd + d) * nch * L.hchunk);
+    unsigned* hb = reinterpret_cast<unsigned*>(hbufs + (size_t)(buf * nd + d) * L.nch * L.hchunk);
     __nv_bfloat162 v = __floats2bfloat162_rn(h.x, h.y);
     hb[a_frag_word(MT, row, k)] = *reinterpret_cast<unsigned*>(&v);
   };
-  grid_steps<__nv_bfloat16>(a, mask, T, B, U, g, L, d, slice, fb, bar, grid_smem, product, put_h, clocks);
+  grid_steps<__nv_bfloat16>(a, mask, T, B, U, g, L, d, slice, fb, ready, grid_smem, product, put_h, clocks);
 }
 
 // ------------------------------------------------------------------- VJP
@@ -2095,7 +2547,7 @@ lstm_bwd_grid_kernel(BwdArgs a, const float* __restrict__ mask, int T, int B, in
                      unsigned char* ws, long long* __restrict__ clocks) {
   extern __shared__ __align__(16) unsigned char grid_smem[];
   __shared__ __align__(8) unsigned long long full_bar[GRID_SLOTS_MAX], empty_bar[GRID_SLOTS_MAX], rbar[2];
-  const GridLayout L = grid_layout(g, false, true);
+  const GridLayout L = grid_layout(g, false);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, cl = g.cl;
   const int per_dir = U / g.us, nd = gridDim.x / per_dir;
   const int d = blockIdx.x / per_dir, b = blockIdx.x - d * per_dir, rank = b % cl;
@@ -2137,7 +2589,7 @@ lstm_bwd_grid_bf16_kernel(BwdArgs a, const float* __restrict__ mask, int T, int 
                           unsigned char* ws, long long* __restrict__ clocks) {
   extern __shared__ __align__(16) unsigned char grid_smem[];
   __shared__ __align__(8) unsigned long long full_bar[GRID_SLOTS_MAX], empty_bar[GRID_SLOTS_MAX], rbar[2];
-  const GridLayout L = grid_layout(g, true, true);
+  const GridLayout L = grid_layout(g, true);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, cl = g.cl;
   const int per_dir = U / g.us, nd = gridDim.x / per_dir;
   const int d = blockIdx.x / per_dir, b = blockIdx.x - d * per_dir, rank = b % cl;
@@ -2254,8 +2706,8 @@ bool bad_shape(int nd, int T, int B, int U) {
 
 // what the forward template takes: C divides U into slices of a multiple of
 // 8 units (16-byte column groups, 8-column mma tiles), tiles of 8 or 16
-// rows, and a layout that fits a block's shared memory, the Wh slice
-// resident or streamed from L2 at any C
+// rows, and a layout that fits a block's shared memory with its slice of Wh
+// resident
 bool bad_plan(int U, FwdPlan p, bool bf) {
   if (p.C < 1 || p.C > 16 || U % p.C || (U / p.C) % 8) return true;
   if (p.Bt != 8 && p.Bt != 16) return true;
@@ -2293,7 +2745,6 @@ cudaError_t prepare_cluster(K kernel, size_t smem, int C, cudaLaunchConfig_t* cf
 }
 
 // the template kernel of a forward plan, ready to launch or to ask about
-// (its slice of Wh resident, or streamed by the threads' loads)
 template <typename W, bool SAVE_RES>
 struct FwdKernel {
   using Fn = void (*)(FwdArgs, const float*, int, int, int, FwdPlan, float, long long*);
@@ -2375,25 +2826,24 @@ inline int grid_bf16_ntw(int NT, int ks, int MT) {
   return 0;
 }
 
-// what the grid kernels take: a cut of U into runs of a multiple of 8 units
-// (one block each, both directions; the VJP's loop: clusters of cl = 1, 2,
-// 4 or 8 blocks, the k range of a block its cluster's piece, 4 U / cl gate
-// columns), 1, 2, 4 or 8 k parts with two ring slots a part or more, chunks
-// of a multiple of 4 rows (bf16: 16) that cut the padded k range evenly
-// among the parts, a pass of rows inside the batch, a built instance
-// (float32: TR = 4 or 8 rows a thread, the layout's rows the row tiles' of a
-// part; bf16: MT = 1, 2 or 4 tiles of 16 rows), and a layout that fits a
-// block's shared memory
-bool bad_grid(int nd, int B, int U, const GridCut& g, bool bf, bool bwd = false) {
+// what the VJP's grid kernels take: a cut of U into clusters of cl = 1, 2,
+// 4 or 8 runs of a multiple of 8 units, one block each, both directions,
+// the k range of a block its cluster's piece, 4 U / cl gate columns; 1, 2,
+// 4 or 8 k parts with two ring slots a part or more, chunks of a multiple
+// of 4 rows (bf16: 16) that cut the padded k range evenly among the parts,
+// a pass of rows inside the batch, a built instance (float32: TR = 4 or 8
+// rows a thread, the layout's rows the row tiles' of a part; bf16: MT = 1,
+// 2 or 4 tiles of 16 rows), and a layout that fits a block's shared memory
+bool bad_grid(int nd, int B, int U, const GridCut& g, bool bf) {
   if (g.us < 8 || g.us % 8 || U % g.us || g.blocks != nd * (U / g.us)) return true;
-  if (bwd ? (g.cl != 1 && g.cl != 2 && g.cl != 4 && g.cl != 8) || (U / g.us) % g.cl : g.cl != 1) return true;
+  if ((g.cl != 1 && g.cl != 2 && g.cl != 4 && g.cl != 8) || (U / g.us) % g.cl) return true;
   if (g.ks != 1 && g.ks != 2 && g.ks != 4 && g.ks != 8) return true;
   if (g.ns < 2 * g.ks || g.ns % g.ks || g.ns > GRID_SLOTS_MAX) return true;
-  const int k = bwd ? 4 * U / g.cl : U;
+  const int k = 4 * U / g.cl;
   if (g.kc < 4 || g.kc % (bf ? 16 : 4) || g.kp < k || g.kp % (g.kc * g.ks)) return true;
   if (g.nres < 0 || g.nres > g.kp / g.kc) return true;
   if (g.nrows < 1 || g.nrows > g.rows || g.row0 < 0 || g.row0 + g.nrows > B) return true;
-  const int nc = bwd ? g.cl * g.us : 4 * g.us;  // the product's columns
+  const int nc = g.cl * g.us;  // the product's columns
   if (bf) {
     if ((g.tile != 1 && g.tile != 2 && g.tile != 4) || g.rows != 16 * g.tile) return true;
     if (grid_bf16_ntw(nc / 8, g.ks, g.tile) == 0) return true;
@@ -2401,28 +2851,83 @@ bool bad_grid(int nd, int B, int U, const GridCut& g, bool bf, bool bwd = false)
     const int nrt = FWD_THREADS / g.ks / (nc / 4);
     if (nrt < 1 || (g.tile != 4 && g.tile != 8) || g.rows != nrt * g.tile) return true;
   }
-  return grid_layout(g, bf, bwd).total > GRID_SMEM_MAX;
+  return grid_layout(g, bf).total > GRID_SMEM_MAX;
+}
+
+// a built instance of the bf16 forward grid kernel: N = rows of 16, 32, 64
+// or 128, MTW = 1, 2 or 4 M tiles a warpgroup, at most 64 accumulators a
+// thread
+inline bool fwd_bf16_built(int rows, int mtw) {
+  return (rows == 16 || rows == 32 || rows == 64 || rows == 128) && (mtw == 1 || mtw == 2 || mtw == 4) &&
+         mtw * rows <= 128;
+}
+
+// what the forward's grid kernels take: a cut of U into runs of a multiple
+// of 8 units, one block each, both directions; 1, 2, 4 or 8 k parts (bf16:
+// ks = 1, an even number of M tiles of 64 gate columns, half a warpgroup;
+// or 2, a warpgroup every M tile of its part's chunks) with two ring slots a
+// part or more; float32: chunks of 32, 64 or 128 k rows, TR = 4 or 8 rows a
+// thread and the layout's rows the row tiles' of a part; bf16: chunks of 128
+// k rows, tile the M tiles a warpgroup takes, a built instance of rows; bf16
+// on mma.sync: chunks of a multiple of 16 k rows, MT = 1, 2 or 4 16-row tiles
+// and a built instance of a warp's n-tiles; the chunks cutting the padded k
+// range evenly among the parts, a pass of rows inside the batch, and a
+// layout that fits a block's shared memory
+bool bad_fwd_grid(int nd, int B, int U, const GridCut& g, bool bf, bool mma = false) {
+  if (g.us < 8 || g.us % 8 || U % g.us || g.blocks != nd * (U / g.us) || g.cl != 1) return true;
+  if (g.nrows < 1 || g.nrows > g.rows || g.row0 < 0 || g.row0 + g.nrows > B) return true;
+  if (g.ks < 1 || g.ks > 8 || (g.ks & (g.ks - 1)) || g.ns < 2 * g.ks || g.ns % g.ks || g.ns > GRID_SLOTS_MAX)
+    return true;
+  if (g.kc < (mma ? 16 : 32) || g.kp < U || g.kp % (g.kc * g.ks) || g.nres < 0 || g.nres > g.kp / g.kc) return true;
+  if (bf && mma) {
+    if (g.kc % 16 || g.ns < 2 * g.ks || g.ns % g.ks || (g.tile != 1 && g.tile != 2 && g.tile != 4)) return true;
+    if (g.rows != 16 * g.tile || grid_bf16_ntw(4 * g.us / 8, g.ks, g.tile) == 0) return true;
+  } else if (bf) {
+    const int mt = (g.us + 15) / 16;
+    if (g.kc != 128 || g.ks > 2 || (g.ks == 1 && mt % 2) || g.tile != (g.ks == 1 ? mt / 2 : mt)) return true;
+    if (!fwd_bf16_built(g.rows, g.tile)) return true;
+  } else {
+    const int nrt = FWD_THREADS / g.ks / (g.us / 2);
+    if ((g.kc != 32 && g.kc != 64 && g.kc != 128) || nrt < 1) return true;
+    if ((g.tile != 4 && g.tile != 8) || g.rows != nrt * g.tile) return true;
+  }
+  const FwdGridLayout L = fwd_grid_layout(g, bf, mma);
+  return L.total + L.align > GRID_SMEM_MAX;
 }
 
 using GridFn = void (*)(FwdArgs, const float*, int, int, int, GridCut, float, unsigned char*, long long*);
 using BwdGridFn = void (*)(BwdArgs, const float*, int, int, int, GridCut, unsigned char*, long long*);
 
-template <class Fn, template <int> class F32, template <int, int> class BF16>
-Fn grid_instance(const GridCut& g, bool bf, int nc) {
-  if (!bf) return g.tile == 8 ? F32<8>::fn() : F32<4>::fn();
-  const int ntw = grid_bf16_ntw(nc / 8, g.ks, g.tile);
-  if (g.tile == 4) return ntw == 2 ? BF16<4, 2>::fn() : BF16<4, 4>::fn();
-  if (g.tile == 2) return ntw == 2 ? BF16<2, 2>::fn() : ntw == 4 ? BF16<2, 4>::fn() : BF16<2, 8>::fn();
-  return ntw == 2 ? BF16<1, 2>::fn() : ntw == 4 ? BF16<1, 4>::fn() : BF16<1, 8>::fn();
-}
-template <int TR> struct FwdF32 { static GridFn fn() { return lstm_grid_kernel<TR>; } };
-template <int MT, int NTW> struct FwdBf16 { static GridFn fn() { return lstm_grid_bf16_kernel<MT, NTW>; } };
 template <int TR> struct BwdF32 { static BwdGridFn fn() { return lstm_bwd_grid_kernel<TR>; } };
 template <int MT, int NTW> struct BwdBf16 { static BwdGridFn fn() { return lstm_bwd_grid_bf16_kernel<MT, NTW>; } };
 
-GridFn grid_kernel(const GridCut& g, bool bf) { return grid_instance<GridFn, FwdF32, FwdBf16>(g, bf, 4 * g.us); }
+GridFn grid_kernel(const GridCut& g, bool bf, bool mma) {
+  if (!bf) return g.tile == 8 ? lstm_grid_kernel<8> : lstm_grid_kernel<4>;
+  if (mma) {
+    const int ntw = grid_bf16_ntw(4 * g.us / 8, g.ks, g.tile);
+    if (g.tile == 4) return ntw == 2 ? lstm_grid_mma_kernel<4, 2> : lstm_grid_mma_kernel<4, 4>;
+    if (g.tile == 2)
+      return ntw == 2 ? lstm_grid_mma_kernel<2, 2> : ntw == 4 ? lstm_grid_mma_kernel<2, 4> : lstm_grid_mma_kernel<2, 8>;
+    return ntw == 2 ? lstm_grid_mma_kernel<1, 2> : ntw == 4 ? lstm_grid_mma_kernel<1, 4> : lstm_grid_mma_kernel<1, 8>;
+  }
+  switch (g.rows * 8 + g.tile) {
+    case 16 * 8 + 1: return lstm_grid_bf16_kernel<16, 1>;
+    case 16 * 8 + 2: return lstm_grid_bf16_kernel<16, 2>;
+    case 16 * 8 + 4: return lstm_grid_bf16_kernel<16, 4>;
+    case 32 * 8 + 1: return lstm_grid_bf16_kernel<32, 1>;
+    case 32 * 8 + 2: return lstm_grid_bf16_kernel<32, 2>;
+    case 32 * 8 + 4: return lstm_grid_bf16_kernel<32, 4>;
+    case 64 * 8 + 1: return lstm_grid_bf16_kernel<64, 1>;
+    case 64 * 8 + 2: return lstm_grid_bf16_kernel<64, 2>;
+    default: return lstm_grid_bf16_kernel<128, 1>;  // bad_fwd_grid refuses every other
+  }
+}
 BwdGridFn bwd_grid_kernel(const GridCut& g, bool bf) {
-  return grid_instance<BwdGridFn, BwdF32, BwdBf16>(g, bf, g.cl * g.us);
+  const int ntw = grid_bf16_ntw(g.cl * g.us / 8, g.ks, g.tile);
+  if (!bf) return g.tile == 8 ? BwdF32<8>::fn() : BwdF32<4>::fn();
+  if (g.tile == 4) return ntw == 2 ? BwdBf16<4, 2>::fn() : BwdBf16<4, 4>::fn();
+  if (g.tile == 2) return ntw == 2 ? BwdBf16<2, 2>::fn() : ntw == 4 ? BwdBf16<2, 4>::fn() : BwdBf16<2, 8>::fn();
+  return ntw == 2 ? BwdBf16<1, 2>::fn() : ntw == 4 ? BwdBf16<1, 4>::fn() : BwdBf16<1, 8>::fn();
 }
 
 // A grid launch (the listener's forward, the VJP's loop): cooperative, made
@@ -2480,10 +2985,11 @@ int launch_grid(void (*fn)(P...), size_t smem, int blocks, int cl, cudaStream_t 
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-int launch_grid_fwd(const FwdArgs& a, const float* mask, int T, int B, int U, const GridCut& g, bool bf, float fb,
-                    void* ws, long long* clocks, cudaStream_t stream, int* info) {
-  return launch_grid(grid_kernel(g, bf), grid_layout(g, bf).total, g.blocks, 1, stream, info, ws != nullptr, a, mask,
-                     T, B, U, g, fb, static_cast<unsigned char*>(ws), clocks);
+int launch_grid_fwd(const FwdArgs& a, const float* mask, int T, int B, int U, const GridCut& g, bool bf, bool mma,
+                    float fb, void* ws, long long* clocks, cudaStream_t stream, int* info) {
+  const FwdGridLayout L = fwd_grid_layout(g, bf, mma);
+  return launch_grid(grid_kernel(g, bf, mma), L.total + L.align, g.blocks, 1, stream, info, ws != nullptr, a, mask, T, B,
+                     U, g, fb, static_cast<unsigned char*>(ws), clocks);
 }
 
 // an empty kernel: whether the card takes a cooperative launch made in clusters
@@ -2512,7 +3018,8 @@ GridCut grid_cut(const int* c) {
   return GridCut{c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], c[9], c[10], c[11]};
 }
 
-constexpr int ROUTE_GRID = 3;
+constexpr int ROUTE_GRID = 3;      // the grid layout (bf16: wgmma)
+constexpr int ROUTE_GRID_MMA = 4;  // the grid layout, bf16 on mma.sync
 
 template <bool SAVE_RES>
 int fwd_entry(const float* xp0, const float* xp1, const float* mask, const void* wh0,
@@ -2525,14 +3032,16 @@ int fwd_entry(const float* xp0, const float* xp1, const float* mask, const void*
             {cprev0, cprev1}, {hfin0, hfin1}, {cfin0, cfin1},
             {rev_bits & 1, (rev_bits >> 1) & 1}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == ROUTE_GRID) {
-    if (cut == nullptr || ws == nullptr || bad_shape(nd, T, B, U)) return static_cast<int>(cudaErrorInvalidValue);
-    const GridCut g = grid_cut(cut);
-    if (bad_grid(nd, B, U, g, wh_bf16 != 0) || (SAVE_RES && (hprev0 == nullptr || cprev0 == nullptr)))
+  if (route == ROUTE_GRID || route == ROUTE_GRID_MMA) {
+    const bool mma = route == ROUTE_GRID_MMA;
+    if (cut == nullptr || ws == nullptr || bad_shape(nd, T, B, U) || (mma && !wh_bf16))
       return static_cast<int>(cudaErrorInvalidValue);
-    return launch_grid_fwd(a, mask, T, B, U, g, wh_bf16 != 0, fb, ws, clocks, s, nullptr);
+    const GridCut g = grid_cut(cut);
+    if (bad_fwd_grid(nd, B, U, g, wh_bf16 != 0, mma) || (SAVE_RES && (hprev0 == nullptr || cprev0 == nullptr)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_grid_fwd(a, mask, T, B, U, g, wh_bf16 != 0, mma, fb, ws, clocks, s, nullptr);
   }
-  if (route < 0 || route > 1 || bad_shape(nd, T, B, U) || bad_plan(U, p, wh_bf16 != 0))
+  if (route != 1 || bad_shape(nd, T, B, U) || bad_plan(U, p, wh_bf16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (wh_bf16) return launch_fwd<__nv_bfloat16, SAVE_RES>(a, mask, nd, T, B, U, p, fb, clocks, s);
   return launch_fwd<float, SAVE_RES>(a, mask, nd, T, B, U, p, fb, clocks, s);
@@ -2574,7 +3083,7 @@ int launch_bwd(const BwdArgs& a, const float* mask, float* partials, int nd, int
   if (cuts != nullptr) {  // the grid layout: a launch a pass of rows, each with its own zeroed workspace
     for (int i = 0; i < npass; ++i) {
       const GridCut g = grid_cut(cuts + 12 * i);
-      e = static_cast<cudaError_t>(launch_grid(bwd_grid_kernel(g, bf), grid_layout(g, bf, true).total, g.blocks,
+      e = static_cast<cudaError_t>(launch_grid(bwd_grid_kernel(g, bf), grid_layout(g, bf).total, g.blocks,
                                                g.cl, stream, nullptr, true, a, mask, T, B, U, g, ws + i * ws_pass,
                                                clocks));
       if (e != cudaSuccess) return finish(e);
@@ -2606,21 +3115,22 @@ int launch_bwd(const BwdArgs& a, const float* mask, float* partials, int nd, int
   return finish(e);
 }
 
-// a plan from the entries' arguments: route 0 streams the slice by the
-// threads' loads, 1 holds it in shared memory (3, the grid layout, reads its
-// cut instead)
-FwdPlan fwd_plan(int cluster, int bt, int ksplit, int route) { return FwdPlan{cluster, bt, ksplit, route == 1}; }
+// a plan from the entries' arguments (the VJP's: route 0 streams the slice
+// by the threads' loads, 1 holds it in shared memory; 3, the grid layout,
+// reads its cut instead)
+FwdPlan fwd_plan(int cluster, int bt, int ksplit) { return FwdPlan{cluster, bt, ksplit}; }
 BwdPlan bwd_plan(int cluster, int bt, int ksplit, int route) { return BwdPlan{cluster, bt, ksplit, route == 1}; }
 
 }  // namespace
 
 // one or two directions of the recurrence -> out, final (h, c). wh0/wh1 are
 // regrouped by unit slice for `cluster` blocks (see the header); cluster,
-// bt, ksplit and route (0 streamed, 1 resident, 3 the grid
-// layout) are the caller's plan for the launch; the grid layout reads its
+// bt, ksplit and route (1 the template, its slice of Wh resident; 3 the grid
+// layout, bf16 on wgmma; 4 the grid layout, bf16 on mma.sync) are the
+// caller's plan for the launch; the grid layout reads its
 // cut from `cut` (12 ints: GridCut's fields in order) and wh0/wh1
-// regrouped by its blocks, and takes `ws`, its workspace (the barrier's
-// counter, then two h buffers; zeroed by the caller), and ignores cluster,
+// regrouped by its blocks, and takes `ws`, its workspace (the readiness
+// counters, then two h buffers; zeroed by the caller), and ignores cluster,
 // bt and ksplit; clocks is null or 5 cycle counters the kernel adds to (see
 // the kernels).
 extern "C" int plt_lstm_recurrence(const float* xp0, const float* xp1, const float* mask,
@@ -2632,7 +3142,7 @@ extern "C" int plt_lstm_recurrence(const float* xp0, const float* xp1, const flo
                                    int route, const int* cut, void* ws, long long* clocks, void* stream) {
   return fwd_entry<false>(xp0, xp1, mask, wh0, wh1, nd, rev_bits, wh_bf16, out0, out1,
                           hprev0, hprev1, cprev0, cprev1, hfin0, hfin1, cfin0, cfin1, T,
-                          B, U, forget_bias, fwd_plan(cluster, bt, ksplit, route), route, cut, ws, clocks,
+                          B, U, forget_bias, fwd_plan(cluster, bt, ksplit), route, cut, ws, clocks,
                           stream);
 }
 
@@ -2646,17 +3156,20 @@ extern "C" int plt_lstm_residual(const float* xp0, const float* xp1, const float
                                  int route, const int* cut, void* ws, long long* clocks, void* stream) {
   return fwd_entry<true>(xp0, xp1, mask, wh0, wh1, nd, rev_bits, wh_bf16, out0, out1,
                          hprev0, hprev1, cprev0, cprev1, hfin0, hfin1, cfin0, cfin1, T,
-                         B, U, forget_bias, fwd_plan(cluster, bt, ksplit, route), route, cut, ws, clocks,
+                         B, U, forget_bias, fwd_plan(cluster, bt, ksplit), route, cut, ws, clocks,
                          stream);
 }
 
 // what the card gives a cut of the grid layout for nd directions of U
-// units: info as launch_grid_fwd's (info[0] the blocks it holds at once)
+// units (wh_bf16: 0 float32, 1 bf16 on wgmma, 2 bf16 on mma.sync): info as
+// launch_grid_fwd's (info[0] the blocks it holds at once)
 extern "C" int plt_lstm_grid_info(int U, int nd, int wh_bf16, const int* cut, int* info) {
   const GridCut g = grid_cut(cut);
-  if (bad_grid(nd, g.row0 + g.nrows, U, g, wh_bf16 != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_fwd_grid(nd, g.row0 + g.nrows, U, g, wh_bf16 != 0, wh_bf16 == 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   FwdArgs a{};
-  return launch_grid_fwd(a, nullptr, 1, g.row0 + g.nrows, U, g, wh_bf16 != 0, 0.0f, nullptr, nullptr, nullptr, info);
+  return launch_grid_fwd(a, nullptr, 1, g.row0 + g.nrows, U, g, wh_bf16 != 0, wh_bf16 == 2, 0.0f, nullptr, nullptr,
+                         nullptr, info);
 }
 
 // what the card gives a plan of the forward kernel: info[0] = clusters it
@@ -2665,8 +3178,8 @@ extern "C" int plt_lstm_grid_info(int U, int nd, int wh_bf16, const int* cut, in
 // shared memory bytes
 extern "C" int plt_lstm_fwd_info(int U, int wh_bf16, int save_res, int cluster, int bt,
                                  int ksplit, int route, int* info) {
-  const FwdPlan p = fwd_plan(cluster, bt, ksplit, route);
-  if (route < 0 || route > 1 || bad_plan(U, p, wh_bf16 != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  const FwdPlan p = fwd_plan(cluster, bt, ksplit);
+  if (route != 1 || bad_plan(U, p, wh_bf16 != 0)) return static_cast<int>(cudaErrorInvalidValue);
   if (wh_bf16)
     return save_res ? info_fwd<__nv_bfloat16, true>(U, p, info)
                     : info_fwd<__nv_bfloat16, false>(U, p, info);
@@ -2688,9 +3201,9 @@ extern "C" int plt_lstm_bwd_info(int U, int wh_bf16, int cluster, int bt, int ks
 extern "C" int plt_lstm_bwd_grid_info(int U, int nd, int wh_bf16, const int* cut, int* info) {
   const GridCut g = grid_cut(cut);
   const bool bf = wh_bf16 != 0;
-  if (bad_grid(nd, g.row0 + g.nrows, U, g, bf, true)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_grid(nd, g.row0 + g.nrows, U, g, bf)) return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a{};
-  const int e = launch_grid(bwd_grid_kernel(g, bf), grid_layout(g, bf, true).total, g.blocks, g.cl, nullptr, info,
+  const int e = launch_grid(bwd_grid_kernel(g, bf), grid_layout(g, bf).total, g.blocks, g.cl, nullptr, info,
                             false, a, static_cast<const float*>(nullptr), 1, g.row0 + g.nrows, U, g,
                             static_cast<unsigned char*>(nullptr), static_cast<long long*>(nullptr));
   if (e != 0) return e;
@@ -2730,7 +3243,7 @@ extern "C" int plt_lstm_bwd(const float* xp0, const float* xp1, const float* mas
     if (cuts == nullptr || ws == nullptr || npass < 1) return static_cast<int>(cudaErrorInvalidValue);
     for (int i = 0; i < npass; ++i) {
       const GridCut g = grid_cut(cuts + 12 * i);
-      if (bad_grid(nd, B, U, g, bf, true) || (long long)grid_bwd_ws_bytes(nd, g, bf) > ws_pass)
+      if (bad_grid(nd, B, U, g, bf) || (long long)grid_bwd_ws_bytes(nd, g, bf) > ws_pass)
         return static_cast<int>(cudaErrorInvalidValue);
     }
   } else if (bad_bwd_plan(U, p, bf)) {

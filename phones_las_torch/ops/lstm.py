@@ -30,13 +30,16 @@ rows over all T steps, block c owning units ``[c·U/C, (c+1)·U/C)`` with
 their four gate columns and holding that slice of ``wh`` in shared memory
 for the whole time loop; each step the blocks exchange their h slices
 through distributed shared memory (``st.async`` onto transaction
-barriers). Past those widths, up to U = ``MAX_UNITS`` = 2048, the grid
-layout (``lstm_grid_kernel``, ``lstm_grid_bf16_kernel``; ``grid_plan``):
-one cooperative launch of one block an SM, each block a run of units of
-one direction with its slice of ``wh`` in shared memory as far as it fits,
-h through global memory behind one grid barrier a step, taken in by bulk
-copies that overlap the product; a batch past the rows one launch holds
-runs in passes of rows. The VJP's serial loop, up to ``GRID_UNITS_BWD`` =
+barriers). Past those widths, up to U = ``MAX_UNITS`` = 2048, and below
+them where a cut fits a block only without its slice, the grid layout
+(``lstm_grid_kernel``, ``lstm_grid_bf16_kernel`` on wgmma,
+``lstm_grid_mma_kernel`` on mma.sync; ``grid_plan``): one cooperative
+launch of one block an SM, each block a run of units of one direction with
+its slice of ``wh`` in shared memory as far as it fits, h through global
+memory, each chunk published on a readiness counter and taken in by bulk
+copies that overlap the product as soon as its writers have published it
+(no grid barrier); a batch past the rows one launch holds runs in passes
+of rows. The VJP's serial loop, up to ``GRID_UNITS_BWD`` =
 512 in float32 and 384 in bf16, is the template's design run backwards in
 time: block c multiplies the gate gradients of its own units by its slice
 of ``whᵀ`` (resident, or streamed by the threads' loads) into a partial dh
@@ -50,7 +53,8 @@ global memory behind one grid barrier a step, the cluster's partial dh
 added in rank order. What of this is layout and choice lives here, where
 the CPU tests reach it: ``regroup_wh``/``ungroup_wh``, ``grid_wh``/
 ``ungrid_wh`` and ``grid_wht``/``ungrid_wht`` (``wh`` and ``whᵀ`` by the
-blocks' cuts), ``forward_plan``, ``grid_plan``, ``backward_plan`` and
+blocks' cuts), ``grid_h``/``ungrid_h`` (the forward's h buffers),
+``forward_plan``, ``grid_plan``, ``backward_plan`` and
 ``grid_bwd_plan`` (the route, the cut, the shared-memory bytes and the
 width the kernel runs at, from the shape, pure functions; the grid
 layouts' cuts from a step's cost, ``_grid_step_cycles`` and
@@ -213,13 +217,16 @@ def _recurrence_loop(xp_tm, mask_tm, wh, forget_bias, reverse, prec, save_res):
 def _count(fn, prec: str, plan) -> None:
     """One call of a wrapper's kernel, counted on the wrapper: in all and in
     bf16 mode; through the grid layout (the forward's, the VJP's loop's: a
-    launch a pass of rows), in all and in bf16 mode."""
+    launch a pass of rows), in all, in bf16 mode and, of the forward's bf16
+    launches, on wgmma (the rest on mma.sync)."""
     fn.launches += 1
     fn.bf16_launches += prec == "bf16"
     grid = getattr(plan, "grid", None)
     if grid is not None:
         fn.grid_launches += grid.passes
         fn.bf16_grid_launches += grid.passes * (prec == "bf16")
+        if hasattr(fn, "wgmma_grid_launches"):
+            fn.wgmma_grid_launches += grid.passes * (prec == "bf16" and not grid.mma)
 
 
 def recurrence_plain(
@@ -298,6 +305,7 @@ recurrence.launches = 0
 recurrence.bf16_launches = 0
 recurrence.grid_launches = 0
 recurrence.bf16_grid_launches = 0
+recurrence.wgmma_grid_launches = 0
 
 
 def recurrence_residual_plain(xps, mask_tm, whs, forget_bias, reverse, prec="highest"):
@@ -341,6 +349,7 @@ recurrence_residual.launches = 0
 recurrence_residual.bf16_launches = 0
 recurrence_residual.grid_launches = 0
 recurrence_residual.bf16_grid_launches = 0
+recurrence_residual.wgmma_grid_launches = 0
 
 
 # the forward kernel's constants, as csrc/lstm.cu has them
@@ -396,7 +405,8 @@ def kernel_units(u: int, c: int) -> int:
 
 
 def _plan_candidates(u: int) -> List[Tuple[int, bool, int]]:
-    """The (C, resident, kernel U) the plans try, in order: the cuts of U
+    """The (C, resident, kernel U) the template plans try, in order (the
+    forward's takes the grid layout at the first that is not resident): the cuts of U
     itself into slices of a multiple of 8 units, first with the block's
     slice of wh resident in shared memory, then streamed from L2; then the
     cuts of a U padded to a multiple of 8·C, resident, then streamed."""
@@ -453,22 +463,23 @@ def ring_fragments(w: torch.Tensor, ksplit: int, kc: int) -> torch.Tensor:
     return torch.cat(groups, 1).contiguous()
 
 
-def forward_smem_bytes(u: int, c: int, bt: int, ksplit: int, resident: bool, bf16: bool) -> int:
+def _wh_slice_bytes(u: int, c: int, bf16: bool) -> int:
+    """A forward template block's slice of wh in shared memory (bf16 rows
+    padded by 16 bytes)."""
+    nc, kp = 4 * (u // c), -(-u // 16) * 16
+    return nc * (kp + 8) * 2 if bf16 else u * nc * 4
+
+
+def forward_smem_bytes(u: int, c: int, bt: int, ksplit: int, bf16: bool) -> int:
     """A block's dynamic shared memory in the forward template, as
-    ``fwd_layout`` of csrc/lstm.cu lays it out: the wh slice (when
-    resident), two h buffers, the partial sums, three xp tiles (gates and
-    mask) and the state (c, h, out); the grid layout's is
-    ``grid_smem_bytes``'."""
+    ``fwd_layout`` of csrc/lstm.cu lays it out: the wh slice, two h
+    buffers, the partial sums, three xp tiles (gates and mask) and the state
+    (c, h, out); the grid layout's is ``grid_smem_bytes``'."""
     us = u // c
     nc = 4 * us
     kp = -(-u // 16) * 16
-    if bf16:
-        w = nc * (kp + 8) * 2
-        h = 2 * 16 * (kp + 8) * 2
-    else:
-        w = u * nc * 4
-        h = 2 * bt * u * 4
-    return (w if resident else 0) + h + ksplit * bt * nc * 4 + XP_RING * (bt * nc + bt) * 4 + 3 * bt * us * 4
+    h = 2 * 16 * (kp + 8) * 2 if bf16 else 2 * bt * u * 4
+    return _wh_slice_bytes(u, c, bf16) + h + ksplit * bt * nc * 4 + XP_RING * (bt * nc + bt) * 4 + 3 * bt * us * 4
 
 
 def _ksplit(u: int, c: int, bt: int, bf16: bool) -> int:
@@ -494,30 +505,51 @@ def _choose_tile(fits, b: int, nd: int, max_active):
     return fits[0] if b <= fits[0].bt else fits[-1]
 
 
-# the grid layout (csrc/lstm.cu's lstm_grid_kernel / lstm_grid_bf16_kernel):
-# one cooperative launch of one block an SM, each block a run of units with
-# its slice of wh in shared memory as far as it fits, h through global memory
-# and one grid barrier a step
+# the grid layouts (csrc/lstm.cu): one cooperative launch of one block an
+# SM, each block a run of units with its slice of wh (the VJP: whᵀ) in
+# shared memory as far as it fits, the moving operand through global memory
 GRID_SMS = 132  # the H100 SXM's SMs: the blocks a launch may have where no card is asked
 GRID_SLOTS_MAX = 16
-GRID_WS_HEAD = 128  # workspace bytes before the h buffers: the barrier's counter
+GRID_WS_HEAD = 128  # the VJP's workspace bytes before the dgates buffers: the barrier's counter
 GRID_SMEM_MAX = SMEM_MAX - 1024  # a grid kernel's dynamic shared memory: its barriers are static
 GRID_KS = (1, 2, 4, 8)  # k parts
-GRID_TILES = {False: (4, 8), True: (1, 2, 4)}  # float32: rows a thread (16 spilled on the H100); bf16: 16-row tiles
-GRID_CHUNKS = (16, 32, 64, 128)  # k rows of a chunk
+GRID_TILES = {False: (4, 8), True: (1, 2, 4)}  # the VJP's: float32 rows a thread; bf16 16-row tiles
+GRID_CHUNKS = (16, 32, 64, 128)  # the VJP's k rows of a chunk
 GRID_SLOTS_A_PART = (2, 3, 4)  # ring slots a k part
-GRID_BARRIER_CYCLES = 3000  # a grid barrier and the latency of a step's first chunk, in SM cycles
 GRID_COPY_CYCLES = 2000  # a bulk copy's latency from L2: the ring's bytes in flight over it bound the intake
+
+# the forward's grid layout (lstm_grid_kernel / lstm_grid_bf16_kernel): no
+# grid barrier, a readiness counter a chunk of h; float32 a thread's 8
+# columns × 4 or 8 rows, h chunks k-major; bf16 on wgmma, M the block's gate
+# columns in tiles of 64 (zero rows past them), N the pass's rows, both
+# operands in the canonical 128-byte-swizzled K-major layout
+FWD_GRID_TILES_F32 = (4, 8)  # float32: rows a thread
+FWD_GRID_KS = {False: GRID_KS, True: (1, 2)}  # k parts (bf16: one, or a warpgroup each)
+FWD_GRID_SLOTS_BF16 = (2, 3, 4, 6, 8)  # bf16 on wgmma: ring slots a k part
+FWD_GRID_MTW = (1, 2, 4)  # bf16: M tiles a warpgroup
+FWD_GRID_CHUNKS = {False: (32, 64, 128), True: (128,)}  # k rows of a chunk (wgmma: two of the swizzle's atoms)
+FWD_GRID_ROWS_BF16 = (16, 32, 64, 128)  # the wgmma's N: rows a bf16 launch holds
+FWD_GRID_ALIGN_BF16 = 1024  # bytes reserved to align the bf16 kernel's region to the swizzle's atoms
+# the step's cost a forward plan is chosen by, in SM cycles (H100 SXM at 1980
+# MHz), its constants fitted to the H100's readings of every layout at six
+# shapes (chip_smoke.py --sweep-forward, PERF.md)
+FWD_F32_FMA_SHARE = {4: 0.57, 8: 0.65}  # the float32 product's share of the FMA rate on its busy threads, by TR
+WGMMA_FMA_PER_CYCLE = 1000  # bf16 multiply-adds an SM's tensor cores ran a cycle through wgmma
+WGMMA_CHUNK_CYCLES = 1600  # a warpgroup's chunk of 128 k on wgmma: its group issued and waited on
+FWD_RING_CHUNK_CYCLES = 600  # each chunk of a step's h through the ring: its copy, waits and release
+FWD_FIXED_CYCLES = 3800  # the publication (its release), the stores that follow it, the first chunk's latency
+FWD_CELL_CYCLES = {False: 3000, True: 1700}  # the cell update of 4 units of a row a thread (bf16: fast exp)
 
 
 class GridPlan(NamedTuple):
-    """How the grid layout cuts a forward launch (csrc/lstm.cu's GridCut
-    without the pass's rows)."""
+    """How a grid layout cuts a launch (csrc/lstm.cu's GridCut without the
+    pass's rows): the forward's (``grid_plan``) or the VJP's loop's
+    (``grid_bwd_plan``)."""
 
     blocks: int  # blocks of a launch: nd · units / us, at most one an SM
-    us: int  # units a block (a multiple of 8)
+    us: int  # units a block (a multiple of 8; the bf16 forward: of 16)
     rows: int  # batch rows a launch holds (a pass)
-    tile: int  # float32: rows a thread; bf16: 16-row tiles
+    tile: int  # float32: rows a thread; bf16: the forward's M tiles a warpgroup, the VJP's 16-row tiles
     ks: int  # k parts: chunk i belongs to part i mod ks
     kc: int  # k rows of a chunk
     kp: int  # the k range padded to a multiple of kc · ks
@@ -525,6 +557,7 @@ class GridPlan(NamedTuple):
     ns: int  # ring slots
     passes: int  # launches of rows the batch takes
     cl: int = 1  # the VJP's loop: blocks of a cluster, the k pieces of a group's units (the forward: 1)
+    mma: bool = False  # the bf16 forward: its product on mma.sync (tile: 16-row tiles), not on wgmma
 
     @property
     def resident_share(self) -> float:
@@ -532,19 +565,20 @@ class GridPlan(NamedTuple):
         return self.nres * self.kc / self.kp
 
 
-def grid_units(u: int, nd: int, sms: int = GRID_SMS) -> Tuple[int, int]:
-    """The grid layout's cut of ``u`` units a direction over at most ``sms``
-    blocks → (units a block, the kernel U): the fewest units a block, a
-    multiple of 8, whose ``nd · ceil(u / us)`` blocks the card holds; the
-    kernel U is ``u`` rounded up to them (zero padding)."""
-    us = 8
+def grid_units(u: int, nd: int, sms: int = GRID_SMS, least: int = 8) -> Tuple[int, int]:
+    """The forward's grid cut of ``u`` units a direction over at most
+    ``sms`` blocks → (units a block, the kernel U): the fewest units a
+    block, a multiple of 8 and at least ``least`` (the bf16 kernel's 16: a
+    whole M tile of gate columns), whose ``nd · ceil(u / us)`` blocks the
+    card holds; the kernel U is ``u`` rounded up to them (zero padding)."""
+    us = least
     while nd * -(-u // us) > sms:
         us += 8
     return us, round_up(u, us)
 
 
 def grid_bf16_ntw(nt: int, ks: int, mt: int) -> int:
-    """The bf16 grid kernel's bound on a warp's n-tiles (csrc/lstm.cu::
+    """The VJP's bf16 grid kernel's bound on a warp's n-tiles (csrc/lstm.cu::
     grid_bf16_ntw): ``nt`` over the 8 / ``ks`` warps of a part, rounded up to
     2, 4 or 8, with ``mt`` · it ≤ 16; 0 where none is built."""
     need = -(-nt // (FWD_THREADS // 32 // ks))
@@ -555,46 +589,61 @@ def grid_bf16_ntw(nt: int, ks: int, mt: int) -> int:
 
 
 def grid_chunk_bytes(nc: int, rows: int, kc: int, bf16: bool) -> Tuple[int, int]:
-    """Bytes of a chunk of the moving operand (``rows`` rows: the forward's
-    h, the VJP's dgates) and of a chunk of a block's wh slice (``nc`` product
-    columns: the forward's 4·us, the VJP's cl·us), ``kc`` k rows each, as
-    the grid kernels stage them: float32 operand ``[rows][kc + 4]`` (a row
-    padded by 16 bytes), wh ``[kc][nc]``; bf16 both in the tensor cores'
-    fragment order, 512 bytes a 16-row tile and k step of the operand, 256
-    an n-tile and k step of wh."""
+    """Bytes of a chunk of the VJP's moving operand (``rows`` rows of
+    dgates) and of a chunk of a block's tile of whᵀ (``nc`` product
+    columns), ``kc`` k rows each, as its grid kernels stage them: float32
+    operand ``[rows][kc + 4]`` (a row padded by 16 bytes), whᵀ ``[kc][nc]``;
+    bf16 both in the tensor cores' fragment order, 512 bytes a 16-row tile
+    and k step of the operand, 256 an n-tile and k step of whᵀ."""
     if bf16:
         return kc // 16 * rows // 16 * 512, kc // 16 * nc // 8 * 256
     return rows * (kc + 4) * 4, kc * nc * 4
 
 
-def grid_smem_bytes(us: int, rows: int, kc: int, kp: int, nres: int, ns: int, bf16: bool) -> int:
-    """A block's dynamic shared memory in the grid layout, as
-    ``grid_layout`` of csrc/lstm.cu lays it out: the resident chunks of wh,
-    the ring's slots (a chunk of h, and of wh where some of it streams), the
-    product [rows, 4·us], the xp tile and mask, and the state (c, h)."""
-    hchunk, wchunk = grid_chunk_bytes(4 * us, rows, kc, bf16)
+def fwd_chunk_bytes(nc: int, rows: int, kc: int, bf16: bool, mma: bool = False) -> Tuple[int, int]:
+    """Bytes of a chunk of the forward's h (``rows`` rows) and of wh (``nc``
+    gate columns), ``kc`` k rows each: float32 [kc][rows] and [kc][nc];
+    bf16 on wgmma [rows][kc] and [nc rounded up to 64][kc], K-major, the
+    swizzle permuting within rows; bf16 on mma.sync the same bytes in the
+    fragments' order, nc unpadded."""
+    if bf16:
+        return rows * kc * 2, kc * (nc if mma else round_up(nc, 64)) * 2
+    return rows * kc * 4, kc * nc * 4
+
+
+def grid_smem_bytes(us: int, rows: int, kc: int, kp: int, nres: int, ns: int, bf16: bool, mma: bool = False) -> int:
+    """A block's dynamic shared memory in the forward's grid layout, as
+    ``fwd_grid_layout`` of csrc/lstm.cu lays it out: the resident chunks of
+    wh, the ring's slots (a chunk of h, and of wh where some of it streams),
+    the product [rows, 4·us + 4], the xp tile and mask, the state (c, h)
+    and the step's out, and in bf16 on wgmma the bytes that align the region
+    to 1024."""
     nc = 4 * us
+    hchunk, wchunk = fwd_chunk_bytes(nc, rows, kc, bf16, mma)
     slot = hchunk + (wchunk if nres < kp // kc else 0)
-    return (nres * wchunk + ns * slot + rows * nc * 4 + (rows * nc + rows + 3) // 4 * 16
-            + 2 * rows * us * 4)
+    return (nres * wchunk + ns * slot + rows * (nc + 4) * 4 + (rows * nc + rows + 3) // 4 * 16
+            + 3 * rows * us * 4 + (FWD_GRID_ALIGN_BF16 if bf16 and not mma else 0))
 
 
 def grid_ws_bytes(plan: "GridPlan", nd: int, bf16: bool) -> int:
-    """The grid launch's workspace: the barrier's counter, then two h
-    buffers of every chunk of each direction."""
-    return GRID_WS_HEAD + 2 * nd * (plan.kp // plan.kc) * grid_chunk_bytes(4 * plan.us, plan.rows, plan.kc, bf16)[0]
+    """The forward's grid workspace: a readiness counter a chunk of each
+    direction (rounded to 128 bytes), then two h buffers of every chunk of
+    each direction."""
+    nch = plan.kp // plan.kc
+    return (round_up(4 * nd * nch, 128)
+            + 2 * nd * nch * fwd_chunk_bytes(4 * plan.us, plan.rows, plan.kc, bf16, plan.mma)[0])
 
 
 def _grid_product_cycles(p: GridPlan, nc: int, bf16: bool, copy_cycles: int = GRID_COPY_CYCLES) -> Tuple[float, float]:
-    """A grid block's step of ``nc`` product columns in SM cycles → (the
-    product, the intake): the product's float32 FMAs on the busy threads,
-    each k step of 4 also issuing a thread's 4 + TR shared loads; or the
-    tensor cores' multiply-adds, or the shared-memory reads of their
-    fragments where those take longer (every warp of a part reads all of
-    its chunks' operand fragments, and its NTW fragments of wh a k step);
-    the bytes a block takes in from L2 (the moving operand and the chunks of
-    wh that stream) at one SM's rate, at what the ring keeps in flight over
-    a copy's latency, and at the card's rate."""
+    """A block's step of the VJP's grid loop, ``nc`` product columns, in SM
+    cycles → (the product, the intake): the product's float32 FMAs on the
+    busy threads, each k step of 4 also issuing a thread's 4 + TR shared
+    loads; or the tensor cores' multiply-adds, or the shared-memory reads of
+    their fragments where those take longer (every warp of a part reads all
+    of its chunks' operand fragments, and its NTW fragments of whᵀ a k
+    step); the bytes a block takes in from L2 (the moving operand and the
+    chunks of whᵀ that stream) at one SM's rate, at what the ring keeps in
+    flight over a copy's latency, and at the card's rate."""
     nch = p.kp // p.kc
     if bf16:
         k16, wp = p.kp // 16, FWD_THREADS // 32 // p.ks
@@ -606,29 +655,63 @@ def _grid_product_cycles(p: GridPlan, nc: int, bf16: bool, copy_cycles: int = GR
         issue = 16 * p.tile / (17 * p.tile + 4)
         product = p.rows * p.kp * nc / (FMA_PER_CYCLE * busy * issue)
     hchunk, wchunk = grid_chunk_bytes(nc, p.rows, p.kc, bf16)
-    slot = hchunk + (wchunk if p.nres < nch else 0)
-    intake = nch * hchunk + (nch - p.nres) * wchunk
-    rate = min(SM_BYTES_PER_CYCLE, p.ns * slot / copy_cycles, L2_BYTES_PER_CYCLE / p.blocks)
-    return product, intake / rate
+    return product, _intake_cycles(p, nch * hchunk + (nch - p.nres) * wchunk, hchunk + (
+        wchunk if p.nres < nch else 0), copy_cycles)
+
+
+def _intake_cycles(p: GridPlan, nbytes: int, slot: int, copy_cycles: int) -> float:
+    """A block's step of intake from L2: ``nbytes`` at one SM's rate, at what
+    the ring's slots keep in flight over a copy's latency, and at its share
+    of the card's rate."""
+    return nbytes / min(SM_BYTES_PER_CYCLE, p.ns * slot / copy_cycles, L2_BYTES_PER_CYCLE / p.blocks)
+
+
+def _fwd_product_cycles(p: GridPlan, bf16: bool) -> Tuple[float, float]:
+    """A block's step of the forward's grid layout in SM cycles → (the
+    product, the intake). float32: the FMAs (rows · kp · 4us) on the busy
+    threads at the share of the FMA rate the card gave them, and a part's
+    chunks' waits; bf16 on wgmma: the multiply-adds (over whole M tiles) at
+    the rate wgmma gave them, or a warpgroup's groups one after another,
+    where those take longer; bf16 on mma.sync: as the VJP's loop's
+    (``_grid_product_cycles``). The intake: h and the chunks of wh that stream
+    (``_intake_cycles``)."""
+    nc, nch = 4 * p.us, p.kp // p.kc
+    if bf16 and p.mma:
+        product = _grid_product_cycles(p, nc, True)[0]  # as the VJP's loop on mma.sync
+    elif bf16:
+        chain = (nch if p.ks == 1 else nch / 2) * p.tile * WGMMA_CHUNK_CYCLES
+        product = max(p.rows * p.kp * round_up(nc, 64) / WGMMA_FMA_PER_CYCLE, chain)
+    else:
+        ncg = nc // 8
+        busy = p.ks * (FWD_THREADS // p.ks // ncg) * ncg / FWD_THREADS
+        product = p.rows * p.kp * nc / (FMA_PER_CYCLE * busy * FWD_F32_FMA_SHARE[p.tile])
+    hchunk, wchunk = fwd_chunk_bytes(nc, p.rows, p.kc, bf16, p.mma)
+    return product, _intake_cycles(p, nch * hchunk + (nch - p.nres) * wchunk, hchunk + (
+        wchunk if p.nres < nch else 0), GRID_COPY_CYCLES)
 
 
 def _grid_step_cycles(p: GridPlan, bf16: bool) -> float:
-    """A step of the grid layout in SM cycles, the cost its plan is chosen
-    by: the product against the intake (``_grid_product_cycles``), plus the
-    grid barrier, the parts' sum and the cell update."""
+    """A step of the forward's grid layout in SM cycles, the cost its plan
+    is chosen by: the product against the intake (``_fwd_product_cycles``),
+    plus the publication with the stores that follow it and the step's
+    first chunk (its writers' publication and its copy: no grid barrier),
+    each chunk's way through the ring, the parts' sum and the cell
+    update."""
     nc = 4 * p.us
-    product, intake = _grid_product_cycles(p, nc, bf16)
-    rest = GRID_BARRIER_CYCLES + p.ks * (p.rows * nc / FWD_THREADS + 100) + p.rows * p.us / 2 / FWD_THREADS * 200
+    product, intake = _fwd_product_cycles(p, bf16)
+    rest = (FWD_FIXED_CYCLES + p.kp // p.kc * FWD_RING_CHUNK_CYCLES + p.ks * (p.rows * nc / FWD_THREADS + 100)
+            + -(-p.rows * p.us // (4 * FWD_THREADS)) * FWD_CELL_CYCLES[bf16])
     return max(product, intake) + rest
 
 
 def _grid_layouts(b: int, nd: int, units: int, us: int, nc: int, k: int, bf16: bool, smem, cl: int = 1):
-    """Every layout the grid kernels take for a cut of ``units`` units a
-    direction into blocks of ``us`` (clusters of ``cl``), a block's product
-    ``nc`` columns wide over a k range of ``k``: k parts, a thread's rows or
-    the row tiles, the chunk's k rows and the ring's slots, each holding as
-    many chunks of wh as fit beside the ring (the rest stream each step;
-    ``smem(rows, kc, kp, nres, ns)``: a block's bytes) → GridPlans."""
+    """Every layout the VJP's grid kernels take for a cut of ``units`` units
+    a direction into blocks of ``us`` (clusters of ``cl``), a block's
+    product ``nc`` columns wide over a k range of ``k``: k parts, a thread's
+    rows or the row tiles, the chunk's k rows and the ring's slots, each
+    holding as many chunks of whᵀ as fit beside the ring (the rest stream
+    each step; ``smem(rows, kc, kp, nres, ns)``: a block's bytes) →
+    GridPlans."""
     for ks in GRID_KS:
         for tile in GRID_TILES[bf16]:
             if bf16:
@@ -640,29 +723,96 @@ def _grid_layouts(b: int, nd: int, units: int, us: int, nc: int, k: int, bf16: b
                 if nrt < 1:
                     continue
                 rows = nrt * tile
-            for kc, per in ((kc, per) for kc in GRID_CHUNKS for per in GRID_SLOTS_A_PART):
-                kp, ns = round_up(k, kc * ks), per * ks
-                nch = kp // kc
-                if ns > GRID_SLOTS_MAX or nch < ks:
-                    continue
-                nres = nch
-                if smem(rows, kc, kp, nres, ns) > GRID_SMEM_MAX:
-                    nres = (GRID_SMEM_MAX - smem(rows, kc, kp, 0, ns)) // grid_chunk_bytes(nc, rows, kc, bf16)[1]
-                    if nres < 0:
-                        continue
-                yield GridPlan(nd * units // us, us, rows, tile, ks, kc, kp, nres, ns, -(-b // rows), cl)
+            yield from _with_chunks(b, nd, units, us, rows, tile, ks, k, GRID_CHUNKS, nc * (2 if bf16 else 4), smem, cl)
+
+
+def _with_chunks(b, nd, units, us, rows, tile, ks, k, chunks, wrow: int, smem, cl: int = 1, slots=None):
+    """A layout's plans at each chunk and ring depth (``slots``: the ring's
+    slots to try, by default 2, 3 or 4 a k part), each holding as many
+    chunks of wh as fit beside the ring (``wrow``: bytes of a k row of a
+    block's wh)."""
+    for kc, ns in ((kc, ns) for kc in chunks for ns in (slots or [per * ks for per in GRID_SLOTS_A_PART])):
+        kp = round_up(k, kc * ks)
+        nch = kp // kc
+        if ns > GRID_SLOTS_MAX or nch < ks:
+            continue
+        nres = nch
+        if smem(rows, kc, kp, nres, ns) > GRID_SMEM_MAX:
+            nres = (GRID_SMEM_MAX - smem(rows, kc, kp, 0, ns)) // (kc * wrow)
+            if nres < 0:
+                continue
+        yield GridPlan(nd * units // us, us, rows, tile, ks, kc, kp, nres, ns, -(-b // rows), cl)
+
+
+def _fwd_grid_layouts(b: int, nd: int, units: int, us: int, bf16: bool, smem):
+    """Every layout the forward's grid kernels take for a cut of ``units``
+    units a direction into blocks of ``us``: float32 k parts and a thread's
+    rows (a part's row tiles of 8 columns × 4 or 8 rows a thread), at every
+    chunk and ring depth (``_with_chunks``); bf16 one part (an even number
+    of M tiles of 64 gate columns, half a warpgroup) or two (a warpgroup a
+    part), the rows a launch holds (a built instance), at 2–8 ring slots a
+    part → GridPlans."""
+    nc = 4 * us
+    if bf16:
+        mt = -(-us // 16)
+        for ks in FWD_GRID_KS[True]:
+            mtw = mt // 2 if ks == 1 else mt
+            if (ks == 1 and mt % 2) or mtw not in FWD_GRID_MTW:
+                continue
+            for rows in FWD_GRID_ROWS_BF16:
+                if mtw * rows <= 128:
+                    yield from _with_chunks(b, nd, units, us, rows, mtw, ks, units, FWD_GRID_CHUNKS[True],
+                                            round_up(nc, 64) * 2, smem,
+                                            slots=[per * ks for per in FWD_GRID_SLOTS_BF16])
+        return
+    for ks in FWD_GRID_KS[False]:
+        nrt = FWD_THREADS // ks // (nc // 8)
+        for tile in FWD_GRID_TILES_F32 if nrt >= 1 else ():
+            yield from _with_chunks(b, nd, units, us, nrt * tile, tile, ks, units, FWD_GRID_CHUNKS[False], nc * 4, smem)
+
+
+def grid_candidates(b: int, u: int, nd: int, prec: str = "highest", sms: int = GRID_SMS) -> List[GridPlan]:
+    """Every layout the forward's grid kernels take for a shape: the cut of
+    the units (``grid_units``: bf16 on wgmma in runs of 16 units or more,
+    half-empty M tiles reading slower on the H100; and wider runs where no
+    layout takes that one), then ``_fwd_grid_layouts``; bf16 also every
+    layout of its mma.sync route (``_fwd_mma_layouts``)."""
+    bf16 = prec == "bf16"
+    plans = _fwd_cut_layouts(u, nd, sms, 16 if bf16 else 8,
+                             lambda us, units, smem: _fwd_grid_layouts(b, nd, units, us, bf16, smem), bf16, False)
+    if bf16:
+        plans += _fwd_cut_layouts(u, nd, sms, 8, lambda us, units, smem: _fwd_mma_layouts(b, nd, units, us, smem),
+                                  True, True)
+    return plans
+
+
+def _fwd_cut_layouts(u, nd, sms, least, layouts, bf16, mma) -> List[GridPlan]:
+    us, units = grid_units(u, nd, sms, least)
+    while True:  # wider runs where no layout takes this one (wgmma: an odd number of M tiles past 2)
+        smem = lambda rows, kc, kp, nres, ns: grid_smem_bytes(us, rows, kc, kp, nres, ns, bf16, mma)
+        plans = list(layouts(us, units, smem))
+        if plans or us >= units:
+            return plans
+        us += 8
+        units = round_up(u, us)
+
+
+def _fwd_mma_layouts(b: int, nd: int, units: int, us: int, smem):
+    """Every layout of the bf16 forward's mma.sync route for a cut into
+    blocks of ``us`` units: the VJP's loop's layouts (``_grid_layouts``: k
+    parts, 16-row tiles, chunks of a multiple of 16 k rows, 2–4 ring slots a
+    part) over the block's 4·us gate columns → GridPlans (``mma``)."""
+    return (p._replace(mma=True) for p in _grid_layouts(b, nd, units, us, 4 * us, units, True, smem))
 
 
 def grid_plan(b: int, u: int, nd: int, prec: str = "highest", sms: int = GRID_SMS) -> GridPlan:
-    """The grid layout's plan for a shape — a pure function: the cut of the
-    units (``grid_units``), then of every layout its kernels take
-    (``_grid_layouts``) the one whose passes of rows cost the fewest cycles
-    (``_grid_step_cycles``). Raises ``ValueError`` where no layout fits."""
+    """The forward's grid layout plan for a shape — a pure function: of
+    every layout its kernels take (``grid_candidates``) the one whose passes
+    of rows cost the fewest cycles (``_grid_step_cycles``). Raises
+    ``ValueError`` where no layout fits."""
     _check_prec(prec)
     bf16 = prec == "bf16"
-    us, units = grid_units(u, nd, sms)
-    smem = lambda rows, kc, kp, nres, ns: grid_smem_bytes(us, rows, kc, kp, nres, ns, bf16)
-    plans = list(_grid_layouts(b, nd, units, us, 4 * us, units, bf16, smem))
+    plans = grid_candidates(b, u, nd, prec, sms)
     if not plans:
         raise ValueError(f"no layout of the grid kernels fits U={u}")
     return min(plans, key=lambda p: p.passes * _grid_step_cycles(p, bf16))
@@ -671,16 +821,31 @@ def grid_plan(b: int, u: int, nd: int, prec: str = "highest", sms: int = GRID_SM
 def _grid_forward_plan(b: int, u: int, nd: int, prec: str, sms: int) -> ForwardPlan:
     g = grid_plan(b, u, nd, prec, sms)
     units = g.us * g.blocks // nd
-    smem = grid_smem_bytes(g.us, g.rows, g.kc, g.kp, g.nres, g.ns, prec == "bf16")
+    smem = grid_smem_bytes(g.us, g.rows, g.kc, g.kp, g.nres, g.ns, prec == "bf16", g.mma)
     return ForwardPlan(1, g.rows, g.ks, g.nres == g.kp // g.kc, smem, units, g)
 
 
+def sw128_swizzle(n: int) -> torch.Tensor:
+    """The 128-byte swizzle of wgmma's canonical K-major layout on a chunk
+    of ``n`` rows of 64 bf16: for each stored element, the logical one (row,
+    k) it holds → a flat index of length 64·n. A row's 16-byte group j lies
+    at j ^ (row mod 8); an involution."""
+    r = torch.arange(n)[:, None, None]
+    j = torch.arange(8)[None, :, None]
+    e = torch.arange(8)[None, None, :]
+    return (r * 64 + ((j ^ (r % 8)) * 8) + e).reshape(-1)
+
+
 def grid_wh(wh: torch.Tensor, plan: GridPlan, prec: str) -> torch.Tensor:
-    """``wh [U, 4U]`` as the grid kernels read it, block after block (the
-    runs of ``plan.us`` units), each block's columns its units' four gates
-    side by side ([unit][gate]) and its k range zero padded to ``plan.kp``:
-    float32 ``[blocks, kp, 4·us]``; bf16 in the tensor cores' B fragment
-    order (``ring_fragments``, one piece) → ``[blocks, kp·4·us]``."""
+    """``wh [U, 4U]`` as the forward's grid kernels read it, block after
+    block (the runs of ``plan.us`` units), each block's columns its units'
+    four gates side by side ([unit][gate]) and its k range zero padded to
+    ``plan.kp``: float32 ``[blocks, kp, 4·us]``; bf16 the K-major operand A
+    of wgmma, chunk after chunk of 64 k, each ``[4·us][64]`` (zero rows up
+    to a multiple of 64) with the 128-byte swizzle (``sw128_swizzle``) →
+    ``[blocks, kp·ncp]``; bf16 on mma.sync (``plan.mma``) in the tensor
+    cores' B fragment order (``ring_fragments``, one piece) → ``[blocks,
+    kp·4·us]``."""
     u = wh.shape[0]
     us = plan.us
     if wh.shape != (u, 4 * u) or u % us:
@@ -689,19 +854,73 @@ def grid_wh(wh: torch.Tensor, plan: GridPlan, prec: str) -> torch.Tensor:
     w = torch.nn.functional.pad(w, (0, 0, 0, plan.kp - u))
     if prec != "bf16":
         return w.to(torch.float32).contiguous()
-    wt = w.to(torch.bfloat16).transpose(1, 2)  # [blocks, 4·us, kp]: k contiguous
-    return ring_fragments(wt, 1, plan.kp // 16)
+    if plan.mma:  # the B fragments of mma.m16n8k16, one piece
+        return ring_fragments(w.to(torch.bfloat16).transpose(1, 2), 1, plan.kp // 16)
+    n, ncp = u // us, round_up(4 * us, 64)
+    x = torch.nn.functional.pad(w.to(torch.bfloat16), (0, ncp - 4 * us))  # zero rows of A up to whole M tiles
+    x = x.reshape(n, plan.kp // 64, 64, ncp).transpose(2, 3).reshape(n, plan.kp // 64, ncp * 64)
+    return x[:, :, sw128_swizzle(ncp)].reshape(n, plan.kp * ncp).contiguous()
 
 
 def ungrid_wh(wg: torch.Tensor, u: int, plan: GridPlan) -> torch.Tensor:
     """The inverse of ``grid_wh`` (float32 or bf16) → ``wh [u, 4u]``."""
     us, kp = plan.us, plan.kp
-    n = u // us
-    if wg.dtype == torch.bfloat16:  # undo ring_fragments: [n, K16, NT, g, t, half, pair] → [n, 4·us, kp]
-        x = wg.reshape(n, kp // 16, 4 * us // 8, 8, 4, 2, 2).permute(0, 2, 3, 1, 5, 4, 6)
-        wg = x.reshape(n, 4 * us, kp).transpose(1, 2)
-    w = wg.reshape(n, kp, 4 * us)[:, :u]
+    n, nc = u // us, 4 * us
+    if wg.dtype == torch.bfloat16 and plan.mma:  # undo ring_fragments: [n, K16, NT, g, t, half, pair] → [n, nc, kp]
+        x = wg.reshape(n, kp // 16, nc // 8, 8, 4, 2, 2).permute(0, 2, 3, 1, 5, 4, 6)
+        wg = x.reshape(n, nc, kp).transpose(1, 2)
+    elif wg.dtype == torch.bfloat16:  # undo the swizzle (an involution), the K-major order and the zero rows
+        ncp = round_up(nc, 64)
+        x = wg.reshape(n, kp // 64, ncp * 64)[:, :, sw128_swizzle(ncp)]
+        wg = x.reshape(n, kp // 64, ncp, 64).transpose(2, 3).reshape(n, kp, ncp)[..., :nc]
+    w = wg.reshape(n, kp, nc)[:, :u]
     return w.reshape(n, u, us, 4).permute(1, 3, 0, 2).reshape(u, 4 * u).contiguous()
+
+
+def grid_h(h: torch.Tensor, plan: GridPlan, prec: str) -> torch.Tensor:
+    """A pass's h ``[rows, kernel U]`` as the forward's grid kernels store it
+    in an h buffer (their ``put_h``), chunk after chunk of ``plan.kc`` k,
+    k padded with zeros to ``plan.kp``: float32 k-major ``[kc][rows]``;
+    bf16 (rounded) the K-major operand B of wgmma, ``[rows][64]`` with the
+    128-byte swizzle; bf16 on mma.sync the A fragments of m16n8k16
+    (``_a_frag_index``) → flat."""
+    rows = plan.rows
+    if prec == "bf16" and plan.mma:
+        x = torch.nn.functional.pad(h, (0, plan.kp - h.shape[1])).to(torch.bfloat16)
+        out = torch.empty(rows * plan.kp, dtype=torch.bfloat16)
+        out[_a_frag_index(rows, plan.kp)] = x.reshape(-1)
+        return out
+    if prec == "bf16":  # atom columns of 64 k, each [rows][64] swizzled (a chunk: kc / 64 of them)
+        x = torch.nn.functional.pad(h, (0, plan.kp - h.shape[1])).reshape(rows, plan.kp // 64, 64)
+        x = x.transpose(0, 1).to(torch.bfloat16).reshape(-1, rows * 64)
+        return x[:, sw128_swizzle(rows)].reshape(-1).contiguous()
+    x = torch.nn.functional.pad(h, (0, plan.kp - h.shape[1])).reshape(rows, plan.kp // plan.kc, plan.kc)
+    return x.permute(1, 2, 0).reshape(-1).contiguous()
+
+
+def _a_frag_index(rows: int, kp: int) -> torch.Tensor:
+    """Where csrc/lstm.cu's ``a_frag_word`` puts h[row, k] (bf16) in an h
+    buffer of the mma.sync route: k steps of 16, each the rows' 16-row tiles,
+    each the 32 lanes' A fragments of m16n8k16 (lane 4·(r mod 8) + (k mod 8)
+    / 2 holds rows r and r + 8 at k mod 16 and k mod 16 + 8) → for each (row,
+    k) in row-major order its element's index."""
+    row = torch.arange(rows)[:, None]
+    k = torch.arange(kp)[None, :]
+    r, kk = row % 16, k % 16
+    word = (((k // 16) * (rows // 16) + row // 16) * 32 + (r % 8) * 4 + (kk % 8) // 2) * 4 + r // 8 + 2 * (kk // 8)
+    return (word * 2 + k % 2).reshape(-1)
+
+
+def ungrid_h(hg: torch.Tensor, u: int, plan: GridPlan) -> torch.Tensor:
+    """The inverse of ``grid_h`` → ``h [rows, u]``."""
+    rows, kc = plan.rows, plan.kc
+    if hg.dtype == torch.bfloat16 and plan.mma:
+        return hg[_a_frag_index(rows, plan.kp)].reshape(rows, plan.kp)[:, :u].contiguous()
+    if hg.dtype == torch.bfloat16:
+        x = hg.reshape(-1, rows * 64)[:, sw128_swizzle(rows)].reshape(-1, rows, 64).transpose(0, 1)
+    else:
+        x = hg.reshape(-1, kc, rows).permute(2, 0, 1)
+    return x.reshape(rows, -1)[:, :u].contiguous()
 
 
 # the VJP's loop in the grid layout (csrc/lstm.cu's lstm_bwd_grid_kernel /
@@ -862,49 +1081,53 @@ def forward_plan(
     Up to the resident widths (float32 ``RESIDENT_UNITS``, bf16
     ``RING_UNITS_BF16``) the cluster template: C is the largest of
     ``CLUSTER_SIZES`` that divides U into slices of a multiple of 8 units
-    whose wh slice fits in shared memory beside the rest; if none does, the
-    largest such C whose layout fits with each block streaming its slice of
-    wh from L2 at every step; if none does either (a U of 8·k, k prime, past
-    what one block holds), U is zero padded to a multiple of 8·C for the
-    largest C that fits (``_plan_candidates``, ``ForwardPlan.units``). Bt is
-    the smallest tile (the shortest step) whose ``ceil(B/Bt)·nd`` clusters
-    the card runs at once, as ``max_active(C, Bt, ksplit, resident)`` says
-    for the plan's kernel U (on the card: ``cudaOccupancyMaxActiveClusters``);
-    without that knowledge, or if no tile fits in one wave, the largest tile
-    that fits in shared memory. Past the resident widths the grid layout
-    (``grid_plan`` over ``sms`` SMs, ``ForwardPlan.grid``). ``layout``
-    forces a route, for comparisons: "template" the template at any U it
-    fits (a streamed slice past the resident widths), "grid" the grid
-    layout at any U. Raises ``ValueError`` for a U outside that range, or a
-    layout that does not fit."""
+    whose wh slice fits in shared memory beside the rest; where none does
+    and no cut of U fits a block even without its slice, the largest C whose
+    slices of U zero padded to a multiple of 8·C fit (``_plan_candidates``,
+    ``ForwardPlan.units``: bf16 U = 360, 376). Bt is the
+    smallest tile (the shortest step) whose ``ceil(B/Bt)·nd`` clusters the
+    card runs at once, as ``max_active(C, Bt, ksplit)`` says (on the card:
+    ``cudaOccupancyMaxActiveClusters``); without that knowledge, or if no
+    tile fits in one wave, the largest tile that fits in shared memory.
+    Past the resident widths, and below them where a cut of U fits a block
+    only without its slice of wh (float32 U = 104–248 but 112, 128, 160,
+    192; bf16 136–368 in the cuts' gaps: on the H100 the grid layout read
+    2–3× faster there than the template's former streamed slice, each
+    step's slice from L2, PERF.md), the grid layout
+    (``grid_plan`` over ``sms`` SMs, ``ForwardPlan.grid``). ``layout="grid"``
+    forces the grid layout at any U, for comparisons. Raises ``ValueError``
+    for a U outside that range."""
     _check_prec(prec)
     _check_units(u)
-    if layout not in (None, "template", "grid"):
-        raise ValueError(f"layout must be None, 'template' or 'grid', got {layout!r}")
+    if layout not in (None, "grid"):
+        raise ValueError(f"layout must be None or 'grid', got {layout!r}")
     bf16 = prec == "bf16"
-    if layout == "grid" or (layout is None and u > (RING_UNITS_BF16 if bf16 else RESIDENT_UNITS)):
-        return _grid_forward_plan(b, u, nd, prec, sms)
-    for c, resident, units in _plan_candidates(u):
-        fits = []
-        for bt in ROW_TILES:
-            ks = _ksplit(units, c, bt, bf16)
-            smem = forward_smem_bytes(units, c, bt, ks, resident, bf16)
-            if smem <= SMEM_MAX:
-                fits.append(ForwardPlan(c, bt, ks, resident, smem, units))
-        if fits:
-            return _choose_tile(fits, b, nd, None if max_active is None else (
-                lambda p: max_active(p.cluster, p.bt, p.ksplit, p.resident)))
-    raise ValueError(f"no plan of the forward template fits U={u} in shared memory")
+    if layout is None and u <= (RING_UNITS_BF16 if bf16 else RESIDENT_UNITS):
+        for c, resident, units in _plan_candidates(u):
+            fits = []
+            for bt in ROW_TILES:
+                ks = _ksplit(units, c, bt, bf16)
+                smem = forward_smem_bytes(units, c, bt, ks, bf16)
+                if smem - (0 if resident else _wh_slice_bytes(units, c, bf16)) <= SMEM_MAX:
+                    fits.append(ForwardPlan(c, bt, ks, True, smem, units))
+            if fits and not resident:
+                break  # it fits only without its slice: the grid layout
+            if fits:
+                return _choose_tile(fits, b, nd, None if max_active is None else (
+                    lambda p: max_active(p.cluster, p.bt, p.ksplit)))
+    return _grid_forward_plan(b, u, nd, prec, sms)
 
 
 def _route(plan) -> int:
-    """The kernels' route argument: 0 streamed by the threads' loads, 1
-    resident, 3 the grid layout."""
-    return 3 if getattr(plan, "grid", None) is not None else int(plan.resident)
+    """The kernels' route argument: 0 streamed by the threads' loads (the
+    VJP's template), 1 resident, 3 the grid layout (bf16 on wgmma), 4 the
+    grid layout with bf16 on mma.sync."""
+    g = getattr(plan, "grid", None)
+    return (4 if g.mma else 3) if g is not None else int(plan.resident)
 
 
 @functools.lru_cache(maxsize=None)
-def forward_kernel_info(u: int, bf16: bool, save_res: bool, c: int, bt: int, ksplit: int, resident: bool) -> dict:
+def forward_kernel_info(u: int, bf16: bool, save_res: bool, c: int, bt: int, ksplit: int) -> dict:
     """What the card gives one plan of the forward template (built at first
     use): the clusters it runs at once, its dynamic and static shared
     memory bytes and its registers a thread (the grid layout's:
@@ -912,7 +1135,7 @@ def forward_kernel_info(u: int, bf16: bool, save_res: bool, c: int, bt: int, ksp
     from phones_las_torch.csrc import _build
 
     info = (ctypes.c_int * 4)()
-    err = _build.library().plt_lstm_fwd_info(u, int(bf16), int(save_res), c, bt, ksplit, int(resident), info)
+    err = _build.library().plt_lstm_fwd_info(u, int(bf16), int(save_res), c, bt, ksplit, 1, info)
     _build.check(err, "plt_lstm_fwd_info")
     return {"max_active_clusters": info[0], "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3]}
 
@@ -936,7 +1159,7 @@ def grid_kernel_info(u: int, nd: int, bf16: bool, g: GridPlan) -> dict:
     from phones_las_torch.csrc import _build
 
     info = (ctypes.c_int * 4)()
-    err = _build.library().plt_lstm_grid_info(u, nd, int(bf16), _grid_cut(g, 0, g.rows), info)
+    err = _build.library().plt_lstm_grid_info(u, nd, int(bf16) + int(g.mma), _grid_cut(g, 0, g.rows), info)
     _build.check(err, "plt_lstm_grid_info")
     return {"max_active_blocks": info[0], "smem_bytes": info[1], "registers": info[2], "static_smem_bytes": info[3],
             "blocks": g.blocks, "resident_share": g.resident_share, "passes": g.passes}
@@ -959,13 +1182,8 @@ def _launch_forward(entry, xps, mask_tm, whs, forget_bias, reverse, prec, plan: 
     nd = len(xps)
     dev = xps[0].device
     if plan is None:
-        u8 = round_up(u, 8)
-        plan = forward_plan(
-            b, u8, nd, prec,
-            lambda c, bt, ks, res: forward_kernel_info(
-                kernel_units(u8, c), bf16, save, c, bt, ks, res)["max_active_clusters"],
-            sms=torch.cuda.get_device_properties(dev).multi_processor_count,
-        )
+        plan = _card_forward_plan(b, round_up(u, 8), nd, prec, save,
+                                  dev.index if dev.index is not None else torch.cuda.current_device())
     up, grid = plan.units, plan.grid
     wdt = torch.bfloat16 if bf16 else torch.float32
     xps = [pad_gates(x, u, up).contiguous() for x in xps]
@@ -1002,6 +1220,18 @@ def _launch_forward(entry, xps, mask_tm, whs, forget_bias, reverse, prec, plan: 
 
 
 _launch_forward.last_plan = None  # the plan of the last launch, for reports
+
+
+@functools.lru_cache(maxsize=None)
+def _card_forward_plan(b: int, u: int, nd: int, prec: str, save: bool, device_index: int) -> ForwardPlan:
+    """``forward_plan`` with the card's answers, once a shape and card: the
+    grid layout's plan walks every layout of its kernels (a millisecond or
+    two of host time, which a call would otherwise add before its first
+    launch)."""
+    bf16 = prec == "bf16"
+    return forward_plan(b, u, nd, prec, lambda c, bt, ks: forward_kernel_info(
+        kernel_units(u, c), bf16, save, c, bt, ks)["max_active_clusters"],
+        sms=torch.cuda.get_device_properties(device_index).multi_processor_count)
 
 
 class BackwardPlan(NamedTuple):
@@ -1467,6 +1697,7 @@ bidir_recurrence.launches = 0
 bidir_recurrence.bf16_launches = 0
 bidir_recurrence.grid_launches = 0
 bidir_recurrence.bf16_grid_launches = 0
+bidir_recurrence.wgmma_grid_launches = 0
 
 
 def _project_tm(p: LSTMParams, x: torch.Tensor) -> torch.Tensor:

@@ -250,13 +250,13 @@ FLAGSHIP_U = 256
 def test_forward_plan_flagship(b, nd, prec, max_active, want):
     seen = []
 
-    def active(c, bt, ks, resident):
+    def active(c, bt, ks):
         seen.append((c, bt))
         return max_active
 
     plan = L.forward_plan(b, FLAGSHIP_U, nd, prec, None if max_active is None else active)
     assert tuple(plan[:4]) == want
-    assert plan.smem == L.forward_smem_bytes(FLAGSHIP_U, plan.cluster, plan.bt, plan.ksplit, plan.resident, prec == "bf16")
+    assert plan.smem == L.forward_smem_bytes(FLAGSHIP_U, plan.cluster, plan.bt, plan.ksplit, prec == "bf16")
     assert plan.smem <= L.SMEM_MAX
     # the same arguments give the same plan: nothing is read but the shape
     assert L.forward_plan(b, FLAGSHIP_U, nd, prec, None if max_active is None else active) == plan
@@ -268,8 +268,8 @@ def test_forward_plan_flagship(b, nd, prec, max_active, want):
         (8, "highest", (1, True)),  # slices of 8 units: only the whole of U = 8
         (40, "highest", (1, True)),
         (40, "bf16", (1, True)),
-        (248, "highest", (1, False)),  # 31 · 8 units: one block, and wh (984 KB) streams
-        (248, "bf16", (1, False)),
+        (248, "highest", (1, True)),  # 31 · 8 units: no cluster cut holds wh (984 KB): the grid layout
+        (248, "bf16", (1, True)),
         (64, "highest", (8, True)),
         (128, "highest", (8, True)),
         (16, "bf16", (2, True)),
@@ -277,7 +277,7 @@ def test_forward_plan_flagship(b, nd, prec, max_active, want):
 )
 def test_forward_plan_other_widths(u, prec, want):
     plan = L.forward_plan(20, u, 2, prec, lambda *a: 16)
-    assert (plan.cluster, plan.resident) == want
+    assert (plan.cluster, plan.resident) == want and (plan.grid is not None) == (u == 248)
     assert u % plan.cluster == 0 and (u // plan.cluster) % 8 == 0
     assert plan.smem <= L.SMEM_MAX
 

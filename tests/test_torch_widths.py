@@ -80,8 +80,9 @@ def test_plans_take_every_width_to_1024(which, prec):
     number of 8-unit slices past what one block holds, or a cut of a grid
     layout that U does not divide) a wider multiple of 8·C (the grid
     layouts': of a block's units, of a cluster's); the forward takes the
-    grid layout past float32 ``RESIDENT_UNITS`` and bf16 ``RING_UNITS_BF16``,
-    the VJP's loop its grid layout past float32 ``GRID_UNITS_BWD`` and bf16
+    grid layout past float32 ``RESIDENT_UNITS`` and bf16 ``RING_UNITS_BF16``
+    and below them where no cluster cut holds its slices, the VJP's loop its
+    grid layout past float32 ``GRID_UNITS_BWD`` and bf16
     ``RING_UNITS_BF16``, nothing else does; past ``MAX_UNITS``, and for a U
     that is no multiple of 8, the plans raise."""
     fwd = which == "forward"
@@ -93,14 +94,14 @@ def test_plans_take_every_width_to_1024(which, prec):
             p = plan_fn(b, u, 2, prec)
             g = p.grid
             if fwd and g is not None:
-                assert p.smem == L.grid_smem_bytes(g.us, g.rows, g.kc, g.kp, g.nres, g.ns, bf16) <= L.GRID_SMEM_MAX
+                assert p.smem == L.grid_smem_bytes(g.us, g.rows, g.kc, g.kp, g.nres, g.ns, bf16, g.mma) <= L.GRID_SMEM_MAX
                 assert p.units >= u and p.units % g.us == 0 and (p.units == u or u % g.us)
             elif g is not None:
                 assert p.smem == L.grid_bwd_smem_bytes(g.us, g.cl, g.rows, g.kc, g.kp, g.nres, g.ns, bf16)
                 assert p.smem <= L.GRID_SMEM_MAX and p.units % (g.cl * g.us) == 0
                 assert p.units >= u and (p.units == u or u % (g.cl * g.us))
             elif fwd:
-                assert p.smem == L.forward_smem_bytes(p.units, p.cluster, p.bt, p.ksplit, p.resident, bf16)
+                assert p.smem == L.forward_smem_bytes(p.units, p.cluster, p.bt, p.ksplit, bf16) and p.resident
             else:
                 assert p.smem == L.backward_smem_bytes(p.units, p.cluster, p.bt, p.ksplit, p.resident, bf16)
             assert p.smem <= L.SMEM_MAX
@@ -108,7 +109,12 @@ def test_plans_take_every_width_to_1024(which, prec):
                 assert p.units >= u and p.units % (8 * p.cluster) == 0
                 assert p.units == u or u % (8 * p.cluster)  # padded only where the plan's cut does not divide U
             if fwd:
-                assert (g is not None) == (u > (L.RESIDENT_UNITS if prec == "highest" else L.RING_UNITS_BF16))
+                held = any(u % (8 * c) == 0 and L.forward_smem_bytes(u, c, bt, L._ksplit(u, c, bt, bf16), bf16)
+                           <= L.SMEM_MAX for c in L.CLUSTER_SIZES for bt in L.ROW_TILES)
+                if u > (L.RESIDENT_UNITS if prec == "highest" else L.RING_UNITS_BF16):
+                    assert g is not None
+                else:  # the template where a cut holds its slices, else the grid layout (or a padded cut)
+                    assert (g is None and p.resident) if held else (g is not None or p.units > u)
             else:
                 assert (g is not None) == (u > (L.GRID_UNITS_BWD if prec == "highest" else L.RING_UNITS_BF16))
             streamed += not p.resident
@@ -126,18 +132,28 @@ def test_plans_take_every_width_to_1024(which, prec):
             plan_fn(8, u, 1, prec)
 
 
-@pytest.mark.parametrize("u,want", [(264, (1, False, 264)), (320, (8, False, 320)), (512, (8, False, 512)),
-                                    (360, (8, False, 384)), (1016, (8, False, 1024))])
+@pytest.mark.parametrize("u,want", [(264, ("highest", 104)), (320, ("highest", 200)), (512, ("highest", 248)),
+                                    (360, ("bf16", 264)), (1016, ("bf16", 368))])
 def test_forward_plan_streams_or_pads(u, want):
-    """Float32 past U = 256 the template, where a comparison asks for it
-    (``layout="template"``): the largest cut of U itself with a streamed
-    slice (U = 264 is 33 slices of 8: one block), and where no cut fits
-    (360 = 45 · 8 and 1016 = 127 · 8 past what one block holds), the next
-    multiple of 64 cut 8 ways; left to itself the plan takes the grid
-    layout there."""
-    p = L.forward_plan(64, u, 2, "highest", layout="template")
-    assert (p.cluster, p.resident, p.units) == want and p.grid is None
+    """No route streams the forward's slice of wh now: float32 past U = 256
+    the plan takes the grid layout and ``layout="template"`` (once the
+    template's streamed slice, for comparisons) is refused; and below the
+    resident widths, where no cut of U holds its slices in a cluster
+    (float32 104 = 13 · 8, 200 = 25 · 8 and 248 = 31 · 8 past what a block
+    of one holds; bf16 264 and 368: ``want``), the forward takes the grid
+    layout too (the template's streamed slice read 2–3× slower on the H100,
+    PERF.md), at U itself or the next multiple of its blocks' units, its wh
+    held whole, in one launch of the batch."""
     assert L.forward_plan(64, u, 2, "highest").grid is not None
+    with pytest.raises(ValueError):
+        L.forward_plan(64, u, 2, "highest", layout="template")
+    prec, w = want
+    p = L.forward_plan(64, w, 2, prec)
+    g = p.grid
+    assert g is not None and p.cluster == 1 and p.resident and g.passes == 1
+    assert p.units % g.us == 0 and 0 <= p.units - w < g.us and g.blocks == 2 * p.units // g.us
+    assert all(w % (8 * c) or L.forward_smem_bytes(w, c, bt, L._ksplit(w, c, bt, prec == "bf16"), prec == "bf16")
+               > L.SMEM_MAX for c in L.CLUSTER_SIZES for bt in L.ROW_TILES)
 
 
 # what cudaOccupancyMaxActiveClusters gives every plan of the listener
@@ -251,10 +267,11 @@ def test_vjp_bytes_are_the_kernels_layout(which, u):
 
 
 # every plan at U <= 256, and bf16 up to RING_UNITS_BF16, as the listener
-# kernels took them before the rings; bf16 past it (U = 512, 1024) the
-# grid layouts (the forward's: C = 1, Bt its rows, k split its parts; the
-# VJP's: C its clusters): (B, U, nd, prec) -> forward, VJP (C, Bt, k split,
-# resident, bytes, kernel U), on the H100's occupancy
+# kernels took them before the rings (the forward's at U = 104 and 248, once
+# the template's streamed slice, the grid layout's since); bf16 past it (U =
+# 512, 1024) the grid layouts (the forward's: C = 1, Bt its rows, k split
+# its parts; the VJP's: C its clusters): (B, U, nd, prec) -> forward, VJP
+# (C, Bt, k split, resident, bytes, kernel U), on the H100's occupancy
 UNCHANGED_PLANS = [
     (64, 256, 2, "highest", (8, 16, 4, True, 227520, 256), (8, 16, 1, True, 221312, 256)),
     (32, 256, 2, "highest", (8, 8, 8, True, 195680, 256), (8, 8, 4, True, 200768, 256)),
@@ -264,8 +281,8 @@ UNCHANGED_PLANS = [
     (64, 160, 2, "highest", (4, 16, 3, True, 192192, 160), (4, 16, 3, True, 204928, 160)),
     (64, 96, 2, "highest", (4, 16, 5, True, 103104, 96), (4, 16, 5, True, 110720, 96)),
     (16, 96, 2, "highest", (4, 8, 10, True, 85344, 96), (4, 8, 10, True, 89152, 96)),
-    (64, 104, 2, "highest", (1, 16, 1, False, 139968, 104), (1, 16, 4, False, 173184, 104)),
-    (32, 248, 1, "highest", (1, 8, 1, False, 166752, 248), (1, 8, 4, False, 206400, 248)),
+    (64, 104, 2, "highest", (1, 64, 4, True, 105728, 104), (1, 16, 4, False, 173184, 104)),
+    (32, 248, 1, "highest", (1, 32, 8, True, 110208, 248), (1, 8, 4, False, 206400, 248)),
     (20, 40, 2, "highest", (1, 8, 6, True, 78176, 40), (1, 8, 16, True, 74304, 40)),
     (64, 256, 2, "bf16", (8, 16, 1, True, 123584, 256), (8, 16, 1, True, 156032, 256)),
     (32, 256, 2, "bf16", (8, 8, 1, True, 104032, 256), (8, 8, 1, True, 115008, 256)),
@@ -276,26 +293,28 @@ UNCHANGED_PLANS = [
     (64, 96, 2, "bf16", (4, 16, 1, True, 56000, 96), (4, 16, 1, True, 66432, 96)),
     (16, 96, 2, "bf16", (4, 8, 1, True, 41312, 96), (4, 8, 1, True, 44864, 96)),
     (64, 104, 2, "bf16", (1, 8, 1, True, 170848, 104), (1, 8, 1, True, 172096, 104)),
-    (32, 248, 1, "bf16", (1, 8, 1, False, 167776, 248), (1, 8, 1, False, 183104, 248)),
+    (32, 248, 1, "bf16", (1, 32, 2, True, 77440, 248), (1, 8, 1, False, 183104, 248)),
     (20, 40, 2, "bf16", (1, 8, 1, True, 45920, 40), (1, 8, 1, True, 46144, 40)),
-    (64, 512, 2, "bf16", (1, 64, 2, True, 102656, 512), None),
+    (64, 512, 2, "bf16", (1, 64, 2, True, 122112, 512), None),
     (32, 512, 2, "bf16", None, (2, 32, 4, True, 153856, 512)),
-    (64, 1024, 2, "bf16", (1, 64, 2, True, 221440, 1024), None),
+    (64, 1024, 2, "bf16", (1, 64, 2, False, 227584, 1024), None),
     (32, 1024, 2, "bf16", None, (2, 32, 4, False, 225536, 1024)),
-    (32, 512, 1, "bf16", (1, 32, 2, True, 92288, 512), None),
+    (32, 512, 1, "bf16", (1, 32, 2, True, 93824, 512), None),
 ]
 
 
 @pytest.mark.parametrize("b,u,nd,prec,want_fwd,want_bwd", UNCHANGED_PLANS)
 def test_plans_the_ring_leaves_alone(b, u, nd, prec, want_fwd, want_bwd):
     """The resident route, every plan at U <= 256 and bf16 up to
-    ``RING_UNITS_BF16`` keep the plans they had (the template's, never a
-    grid layout); bf16 past it the forward and the VJP take their grid
-    layouts', as the card measured them faster."""
+    ``RING_UNITS_BF16`` keep the plans they had (the template's) but where
+    the template streamed its slice of wh (float32 U = 104, 248, bf16 248:
+    the grid layout now); bf16 past it the forward and the VJP take their
+    grid layouts', as the card measured them faster."""
     bf16 = prec == "bf16"
+    grid_below = (u, prec) in ((104, "highest"), (248, "highest"), (248, "bf16"))  # the former streamed slice
     if want_fwd is not None:
         p = L.forward_plan(b, u, nd, prec, _h100_active)
-        assert tuple(p[:6]) == want_fwd and (p.grid is not None) == (bf16 and u > L.RING_UNITS_BF16)
+        assert tuple(p[:6]) == want_fwd and (p.grid is not None) == ((bf16 and u > L.RING_UNITS_BF16) or grid_below)
     if want_bwd is not None:
         p = L.backward_plan(b, u, nd, prec, _h100_bwd_active)
         assert tuple(p[:6]) == want_bwd and (p.grid is not None) == (bf16 and u > L.RING_UNITS_BF16)
@@ -380,10 +399,11 @@ def _emulate_forward(xp, mask, wh, reverse, prec, plan):
 def test_streamed_forward_matches_plain_xla_and_pallas(prec, u):
     xp, mask, wh = _lstm_case(u, 13)
     plan = L.forward_plan(B, u, 1, prec)
-    if u > (L.RESIDENT_UNITS if prec == "highest" else L.RING_UNITS_BF16):
-        assert plan.grid is not None  # past the resident widths: the grid layout
+    if u > (L.RESIDENT_UNITS if prec == "highest" else L.RING_UNITS_BF16) or u == 264:
+        # past the resident widths, or where U's cuts fit only streaming wh (33 slices of 8): the grid layout
+        assert plan.grid is not None
     else:
-        assert not plan.resident or plan.units > u  # streamed, or (bf16 at 360) padded and held
+        assert plan.grid is None and plan.resident and plan.units > u  # bf16 at 360: padded and held
     reverse = u == 1024
     txp, tmask, twh = torch.from_numpy(xp), torch.from_numpy(mask), torch.from_numpy(wh)
     got = _emulate_forward(txp, tmask, twh, reverse, prec, plan)
