@@ -22,7 +22,9 @@ then:
      each of its parts; then holds both on ragged cases (a batch that is no
      multiple of the tile, rows of very different lengths, U = 40 and
      248: the forward at 248, which no cluster cut holds, in the grid
-     layout) at a short T;
+     layout) at a short T; the decoder also on batches of 13, 5 and 9 rows
+     of lengths 1..T and with each layout forced (held, grid) there, at
+     the flagship shape and at W1024, each against its plain version;
   2. decodes the committed checkpoint on all 64 utterances of the
      committed eval set on the card (load_artifact → encode →
      greedy_decode, launch counters set to 0 just before and read just
@@ -145,7 +147,7 @@ then:
      at the end, every process it starts stopped:
      a. the CLIs as processes on the card (``python -m
         phones_las_torch.cli.*``): ``prepare speechlike`` (128 + 32
-        utterances, seeds 7 and 8), ``train`` warm-started with
+        utterances, seeds 7 and 8; started beside phase 7), ``train`` warm-started with
         ``--init-checkpoint`` from the committed checkpoint written as a
         workdir by the library, 1 profiled step and 1 more (its trace must
         name the residual and VJP kernels); then at once ``infer`` on the
@@ -184,12 +186,13 @@ then:
      c. 5 steps of ``_train_from`` at the CLI's widths on the card and the
         CPU from one init (losses within 1e-5 relative, leaves within 1e-5
         outside Adam's eps region), 5 timed steps and one profiled; then
-        ``cli.g2p train`` (1,200 steps) as a process: dev PER at each
+        ``cli.g2p train`` (600 steps) as a process: dev PER at each
         eval, the saved model's gold PER <= 0.15 beside the shipped
         model's and the rule tables', and ``cli.g2p apply`` on 5 words;
      d. mini LibriSpeech (FLAC) and Common Voice (es, it, en WAV) trees
         through ``cli.prepare ... --g2p-model bundled`` on the card and
-        with ``--device cpu``, at once with the training process: records,
+        with ``--device cpu``, all four started before 9a and run beside
+        9a–9c and the training process: records,
         indexes and vocabularies byte-equal (but for the targets of a word
         the model transcribes differently, at most 1), CMVN within 1e-6.
  10. several devices, in parity mode at the committed checkpoint's widths,
@@ -281,7 +284,8 @@ then:
         B = 32 and longest bucket, ms, device ms, launches and busy share
         of a profiled step (readings);
      d. ``cli.train --preset timit_multitask`` on ``prepare speechlike
-        --graphemes`` records, 4 steps and one eval, then ``cli.infer --head
+        --graphemes`` records (prepared beside phases 9–11), 4 steps and one
+        eval (beside 12b and 12c), then ``cli.infer --head
         grapheme`` on its workdir against ``Transcriber(head='grapheme')``:
         the same tokens on every row.
  13. the reference's width flags, from ``librispeech_char_las`` (V = 34)
@@ -374,9 +378,19 @@ way at the training shape; the numbers behind the choice of
 unchanged, the forward's grid layout in turns against the template at
 B = 64, both modes; then the VJP's float32 streamed slice at U = 1024
 (its loop at B = 32 under every template plan that fits and the grid
-layout's), with the clusters the card runs at once; then, as a reading with the plan
-unchanged, the decoder's grid layout in turns against the held layout at
-the flagship shape (``layouts_in_turns``).
+layout's), with the clusters the card runs at once.
+
+``python3 chip_smoke.py --sweep-decoder [LABEL ...]`` runs none of the
+phases: the decoder at every shape of ``DECODER_SHAPES`` (``PERF.md``
+row 3: the flagship at B = 64 and 8, the G2P, 12a's four, 13a's, 13d's
+and one row of 13d's first; or those labelled), each layout it fits
+forced in turn (the held layout, the grid layout), held to its plain
+version, timed in turns, with the cycles a step spends
+in each part (the dense stages' rings and products, their waits on
+readiness counters, epilogues and publications, the rings' start-up, the
+attention's passes and waits, the context's merge, the argmax's wait and
+exchange) and the step model's µs: the readings
+``decode/fused_greedy.py``'s step model is fitted to.
 
 ``python3 chip_smoke.py --sweep-forward`` runs none of the phases: the
 forward's grid layout at T = 999 (``SWEEP_FORWARDS``: U = 1024 the
@@ -406,8 +420,9 @@ times the front-end kernel (flagship shape) and the VJP (T = 999, B = 32,
 both precisions) of another checkout of this repository unpacked at DIR
 (say the parent commit, ``git archive`` into an ignored directory) and of
 this one, the greedy serving call at the flagship shape (phase 3's
-path), the decoder kernel at 13a's W1024 shapes and 13d's (the layout
-each checkout plans there, ms and µs a step) and the listener's forward
+path), the decoder kernel at every shape of ``DECODER_SHAPES`` (the layout
+each checkout plans there, ms, its two readings' spread and µs a step;
+``--compare DIR decoder``: the serving call and the decoder alone) and the listener's forward
 at T = 999 past the resident widths (``COMPARE_FORWARDS``: U = 1024 the
 BiLSTM at B = 64, the residual and one direction at B = 32, both modes;
 U = 512 and 448 at B = 64, and in bf16 at B = 32 the BiLSTM, the residual
@@ -486,7 +501,7 @@ LSTM_CASES = ((999, 0, "highest"), (999, 0, "bf16"), (250, 2, "highest"), (250, 
 # ragged agreement checks of the LSTM forward kernel: (T, B, U), each in both
 # precisions, one and two directions, with and without the residuals
 RAGGED_LSTM = ((37, 13, 256), (20, 5, 40), (20, 9, 248))
-RAGGED_DECODER_B = 13
+RAGGED_DECODER_BS = (13, 5, 9)  # phase 1: ragged batches (lengths 1..T) through the plan's and every layout
 RAGGED_DECODER_STEPS = 60
 DECODER_BATCHES = (8, 64)
 GATE_LSTM = (240, 16, 96)  # (T, B, U) at the long-gate listener's width, held in phase 1
@@ -554,9 +569,9 @@ def make_audio(b: int, seed: int = 0) -> np.ndarray:
     return (rs.randn(b, int(SECONDS * SAMPLE_RATE)) * 2000).astype(np.float32)
 
 
-# the plain versions (20–200× slower than their kernels) are timed as the
-# median of fewer runs, so the whole script keeps to half its time limit
-PLAIN_REPS = 3
+# the plain versions (20–200× slower than their kernels) are timed in one
+# run, so the whole script keeps within its time limit
+PLAIN_REPS = 1
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 1) -> float:
@@ -880,20 +895,20 @@ def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=Tru
     row_steps, first, bms, by = greedy_bound(sp, sc, tok, t, steps)
     a, m, v = sc.attention_units, sc.memory_dim, sc.vocab_size
     wparams = sum(p.numel() for p in sp.parameters())
-    clocks = torch.zeros(len(fused_greedy.CLOCK_NAMES), dtype=torch.int64, device=DEV)
+    clocks = torch.zeros(fused_greedy.CLOCKS, dtype=torch.int64, device=DEV)
     wp, widths = fused_greedy._unflatten(fused_greedy.flat_weights(sp), mem, sc.bos_id, sc.eos_id)
     fused_greedy._launch(wp, widths, mem, mask, steps, clocks)
     torch.cuda.synchronize()
     launch = dict(greedy_decode_fused.last_launch)
     counts = clocks.tolist()
-    steps_run = max(counts[-1], 1)  # of the first group
-    launch["steps_of_first_group"] = counts[-1]
+    steps_run = max(counts[15], 1)  # of the first group
+    launch["steps_of_first_group"] = counts[15]
     launch["cycles_per_step"] = step_cycles(launch["layout"], counts)
     # the design's own floor: the weights the kernel reads once a group (the
     # grid layout: once) and step, each row's keys and memory up to its last
     # valid position once a step; from L2 at 5.5 TB/s where what a step
     # reads fits its 50 MB, else from device memory at 3.35 TB/s
-    groups = 1 if launch["layout"] == "grid" else -(-b // launch["rows"])
+    groups = -(-b // launch["rows"]) if launch["layout"] == "held" else 1
     step_weights = wparams - sp.attention.wk.numel()  # the keys are made once a call, before the kernel
     valid = (mask != 0).int()
     positions = int(torch.where(valid.any(1), t - valid.flip(1).argmax(1), 0).sum())
@@ -928,65 +943,177 @@ def check_greedy(params, cfg, memory, enc_mask, b, steps=DECODE_STEPS, timed=Tru
     # kernel's widths), all dynamic
     if (launch["smem_bytes"], launch["static_smem_bytes"]) != (launch["smem_expected"], 0):
         fail(f"the greedy kernel's shared memory is not decoder_smem_bytes: {rec}")
-    if timed and launch["cluster"] <= 1 and launch["layout"] != "grid":
+    if timed and launch["cluster"] <= 1 and launch["layout"] == "held":
         fail(f"the greedy kernel did not run as a cluster: {launch}")
     return rec
 
 
 def step_cycles(layout: str, counts) -> dict:
-    """The decoder kernel's cycle counters (16, the steps last) → cycles a
+    """The decoder kernel's cycle counters (the steps at 15) → cycles a
     step of each part, by the layout's names."""
     from phones_las_torch.decode.fused_greedy import CLOCK_NAMES, GRID_CLOCK_NAMES
 
-    names = GRID_CLOCK_NAMES if layout == "grid" else CLOCK_NAMES
-    steps = max(counts[-1], 1)
-    return {n: c / steps for n, c in zip(names[:-1], counts)}
+    names = CLOCK_NAMES if layout == "held" else GRID_CLOCK_NAMES
+    steps = max(counts[15], 1)
+    return {n: c / steps for n, c in zip(names, counts) if n != "steps"}
 
 
-def layouts_in_turns(sp, sc, mem, mask, steps, layouts=(None, "grid"), phase="sweep", what=None) -> dict:
-    """The decoder kernel in two layouts (``decoder_plan``'s ``layout``:
-    None the plan, "grid" the grid layout) on one card in turns (first, second, second, first; medians of ROUTE_REPS): each
-    layout's plan, ms, µs a step and cycles a part, its tokens against the
-    other's and the plain version's, and two launches of each bitwise equal
-    → the record (failed unless every launch gives the plain version's
-    tokens and repeats itself)."""
-    from phones_las_torch.decode import fused_greedy
-    from phones_las_torch.decode.fused_greedy import greedy_decode_fused, greedy_decode_fused_plain
+# the decoder at each shape of PERF.md's row 3 (--sweep-decoder, --compare, the phases' checks):
+# (label, B, T_enc, steps, V, cells, U, A, AL, M, E); the first two decode the checkpoint's encoder
+# memory of random PCM (phase 1's), the others a random init (seed 21) on random memory, ragged
+DECODER_SHAPES = (
+    ("flagship", 64, 250, 200, 26, 2, 256, 256, 256, 512, 128),
+    ("flagship B=8", 8, 250, 200, 26, 2, 256, 256, 256, 512, 128),
+    ("G2P", 64, 28, 24, 45, 1, 160, 160, 160, 320, 64),
+    ("TIMIT", 32, 400, 80, 65, 1, 256, 256, 256, 512, 128),
+    ("grapheme head", 32, 400, 120, 32, 1, 256, 256, 256, 512, 128),
+    ("Common Voice", 32, 438, 200, 120, 1, 256, 256, 256, 512, 128),
+    ("offline", 256, 438, 300, 34, 2, 256, 256, 256, 512, 128),
+    ("W1024", 32, 219, 200, 34, 2, 1024, 1024, 256, 2048, 128),
+    ("W1024 T=438", 32, 438, 200, 34, 2, 1024, 1024, 256, 2048, 128),
+    ("W1024 AL=1024", 32, 219, 200, 34, 2, 1024, 1024, 1024, 2048, 128),
+    ("LAS 2x512", 32, 438, 200, 34, 2, 512, 512, 256, 512, 128),
+    ("T=17100", 8, 17100, 60, 34, 2, 256, 256, 256, 512, 128),
+    ("T=17100 one row", 1, 17100, 60, 34, 2, 256, 256, 256, 512, 128),
+    ("T=40000", 8, 40000, 60, 34, 2, 256, 256, 256, 512, 128),
+    ("W1024 speller T=5900", 8, 5900, 60, 34, 2, 1024, 1024, 256, 2048, 128),
+    ("W2048", 8, 219, 60, 34, 2, 2048, 2048, 2048, 4096, 128),
+)
+DECODER_LAYOUTS = ("held", "grid")  # decoder_plan's layouts, each forced in turn
+SWEEP_DECODER_REPS = 5
 
-    wp, widths = fused_greedy._unflatten(fused_greedy.flat_weights(sp), mem, sc.bos_id, sc.eos_id)
-    run = lambda layout: fused_greedy._launch(wp, widths, mem, mask, steps, layout=layout)
-    plain, _ = greedy_decode_fused_plain(sp, sc, mem, mask, steps)
-    recs, toks, names = {}, {}, {}
-    for layout in layouts:
-        toks[layout] = [run(layout), run(layout)]
+
+def decoder_case(shape, params, cfg, memory, enc_mask):
+    """One of DECODER_SHAPES → (speller params, its config, memory, mask,
+    steps): the checkpoint's speller on phase 1's memory for the flagship
+    shapes, else a random init on random memory of ragged lengths."""
+    from phones_las_torch.models.speller import SpellerConfig, init_speller
+    from phones_las_torch.ops.masking import length_mask
+
+    label, b, t, steps, v, n, u, a, al, m, e = shape
+    if label.startswith("flagship"):
+        return params.speller, cfg.speller, memory[:b].contiguous(), enc_mask[:b].contiguous(), steps
+    sc = SpellerConfig(vocab_size=v, embedding_dim=e, num_layers=n, units=u, memory_dim=m, attention_units=a,
+                       attention_layer_size=al)
+    g = torch.Generator(device=DEV).manual_seed(21)
+    sp = init_speller(sc, torch.Generator().manual_seed(21), device=DEV)
+    mem = torch.randn(b, t, m, generator=g, device=DEV)
+    lens = torch.randint(max(1, t // 2), t + 1, (b,), generator=g, device=DEV)
+    lens[0] = t
+    return sp, sc, mem, length_mask(lens, t), steps
+
+
+def decoder_layouts(sp, sc, mem, mask, steps, reps=SWEEP_DECODER_REPS) -> dict:
+    """Each layout that fits the shape, forced (``_launch(layout=)``): its
+    plan, its tokens against the plain version's (two launches bitwise
+    equal), its cycles a step by part and the modelled µs a step; then the
+    layouts timed in turns (each forward, then backward; medians of
+    ``reps``) → {layout: record}."""
+    from phones_las_torch.decode import fused_greedy as FG
+
+    wp, widths = FG._unflatten(FG.flat_weights(sp), mem, sc.bos_id, sc.eos_id)
+    b, t = mem.shape[:2]
+    plain, _ = FG.greedy_decode_fused_plain(sp, sc, mem, mask, steps)
+    out = {}
+    for layout in DECODER_LAYOUTS:
+        try:
+            FG.kernel_widths(b, widths, t, layout, torch.cuda.get_device_properties(0).multi_processor_count)
+        except ValueError:
+            continue
+        run = lambda layout=layout: FG._launch(wp, widths, mem, mask, steps, layout=layout)
+        toks = [run(), run()]
         torch.cuda.synchronize()
-        launch = greedy_decode_fused.last_launch
-        names[layout] = launch["layout"]  # held or grid
-        clocks = torch.zeros(len(fused_greedy.CLOCK_NAMES), dtype=torch.int64, device=DEV)
-        fused_greedy._launch(wp, widths, mem, mask, steps, clocks, layout=layout)
+        launch = dict(FG.greedy_decode_fused.last_launch)
+        clocks = torch.zeros(FG.CLOCKS, dtype=torch.int64, device=DEV)
+        FG._launch(wp, widths, mem, mask, steps, clocks, layout=layout)
         torch.cuda.synchronize()
-        recs[names[layout]] = {
-            "cluster": launch["cluster"], "grid": launch["grid"], "smem_bytes": launch["smem_bytes"],
+        counts = clocks.tolist()
+        out[layout] = {
+            "plan": launch["layout"], "cluster": launch["cluster"], "grid": launch["grid"], "passes": launch["passes"],
+            "smem_bytes": launch["smem_bytes"], "smem_expected": launch["smem_expected"],
             "registers": launch["registers"], "co_resident": launch["max_active_clusters"],
-            "steps_run": int(clocks[-1]), "cycles_per_step": step_cycles(launch["layout"], clocks.tolist()),
-            "rows_differing_from_plain": int((toks[layout][0] != plain).any(1).sum()),
-            "bitwise_repeatable": bool(torch.equal(*toks[layout]))}
-    ms = {x: [] for x in layouts}
-    for layout in (layouts[0], layouts[1], layouts[1], layouts[0]):
-        ms[layout].append(time_ms(lambda: run(layout), reps=ROUTE_REPS))
-    for layout in layouts:
-        r = recs[names[layout]]
-        r["ms"] = statistics.median(ms[layout])
-        r["us_per_step"] = r["ms"] * 1e3 / max(r["steps_run"], 1)
-    first, second = (recs[names[x]] for x in layouts)
-    rec = {"phase": phase, "kernel": "greedy_decode_fused", "what": what or "two layouts in turns",
-           "shape": f"B={mem.shape[0]} T={mem.shape[1]} steps={steps}", "layouts": recs,
-           "rows_differing_between": int((toks[layouts[0]][0] != toks[layouts[1]][0]).any(1).sum()),
-           "faster": min(recs, key=lambda k: recs[k]["ms"]), "speedup": first["ms"] / second["ms"]}
-    emit(rec)
-    if any(r["rows_differing_from_plain"] or not r["bitwise_repeatable"] for r in recs.values()):
-        fail(f"phase {phase}: a decoder layout disagrees with the plain version or with itself: {rec}")
-    return rec
+            "modelled_us_per_step": launch["modelled_us_per_step"], "steps_run": counts[15],
+            "cycles_per_step": step_cycles(launch["layout"], counts),
+            "rows_differing_from_plain": int((toks[0] != plain).any(1).sum()),
+            "bitwise_repeatable": bool(torch.equal(*toks)), "run": run}
+    names = list(out)
+    ms = {x: [] for x in names}
+    for layout in (names + names[::-1]) if reps else ():
+        ms[layout].append(time_ms(out[layout]["run"], reps=reps))
+    for layout in names:
+        r = out[layout]
+        del r["run"]
+        if reps:
+            r["ms"] = statistics.mean(ms[layout])
+            r["ms_turns"] = ms[layout]
+            r["us_per_step"] = r["ms"] * 1e3 / max(r["steps_run"], 1)
+    return out
+
+
+def layouts_agree(recs: dict) -> list:
+    """The layouts of ``decoder_layouts``' records that disagree with the
+    plain version, with themselves or with ``decoder_smem_bytes``."""
+    return [k for k, r in recs.items() if r["rows_differing_from_plain"] or not r["bitwise_repeatable"]
+            or r["smem_bytes"] != r["smem_expected"]]
+
+
+def check_decoder_layouts(params, cfg, memory, enc_mask, card) -> None:
+    """Phase 1: batches that are no multiple of the group, rows of very
+    different lengths (1..T), through the plan's layout (``check_greedy``)
+    and each layout forced; each layout forced at the flagship shape and
+    at W1024 (B = 32, T_enc 219, random init; the grid alone fits); each against the plain
+    version (tokens equal, two launches bitwise equal, shared memory
+    ``decoder_smem_bytes``)."""
+    from phones_las_torch.ops.masking import length_mask
+
+    t_enc = memory.shape[1]
+    cases = []
+    for i, b in enumerate(RAGGED_DECODER_BS):
+        g = torch.Generator(device=DEV).manual_seed(50 + i)
+        rag_len = torch.randint(1, t_enc + 1, (b,), generator=g, device=DEV)
+        rag_len[0], rag_len[1] = t_enc, 1
+        mask = length_mask(rag_len, t_enc)
+        check_greedy(params, cfg, memory, mask, b, steps=RAGGED_DECODER_STEPS, timed=False)
+        cases.append((f"ragged B={b}", params.speller, cfg.speller, memory[:b].contiguous(), mask,
+                      RAGGED_DECODER_STEPS))
+    cases.append(("flagship", params.speller, cfg.speller, memory, enc_mask, DECODE_STEPS))
+    w1024 = next(x for x in DECODER_SHAPES if x[0] == "W1024")
+    cases.append(("W1024", *decoder_case(w1024, params, cfg, memory, enc_mask)))
+    out = {}
+    for label, sp, sc, mem, mask, steps in cases:
+        recs = decoder_layouts(sp, sc, mem, mask, steps, reps=0)
+        out[label] = {k: {x: r[x] for x in ("plan", "smem_bytes", "registers", "rows_differing_from_plain",
+                                             "bitwise_repeatable", "steps_run")} for k, r in recs.items()}
+        if layouts_agree(recs) or len(recs) < (1 if label == "W1024" else 2):  # W1024 fits only the grid
+            fail(f"phase 1: a decoder layout disagrees with the plain version, with itself or with "
+                 f"decoder_smem_bytes, or does not run, at {label}: {recs}")
+    emit({"phase": 1, "kernel": "greedy_decode_fused", "what": "every layout forced", "layouts": out, "card": card})
+
+
+def sweep_decoder(params, cfg, memory, enc_mask, labels=()) -> None:
+    """``--sweep-decoder``: every layout at each of DECODER_SHAPES (or those
+    labelled), held to the plain version, timed in turns, with the cycles
+    a step by part and the step model's µs: the readings the model's
+    constants are fitted to. Fails on a layout that disagrees with the
+    plain version or with itself, or whose shared memory is not
+    ``decoder_smem_bytes``."""
+    from phones_las_torch.decode import fused_greedy as FG
+
+    for shape in DECODER_SHAPES:
+        if labels and shape[0] not in labels:
+            continue
+        sp, sc, mem, mask, steps = decoder_case(shape, params, cfg, memory, enc_mask)
+        recs = decoder_layouts(sp, sc, mem, mask, steps)
+        b, t = mem.shape[:2]
+        plan = FG.decoder_plan(b, FG.kernel_widths(b, sc, t)[0], t).name
+        rec = {"phase": "sweep-decoder", "shape": shape[0], "B": b, "T": t, "steps": steps, "vocab": sc.vocab_size,
+               "cells": sc.num_layers, "units": sc.units, "plan": plan, "layouts": recs,
+               "fastest": min(recs, key=lambda k: recs[k]["ms"])}
+        emit(rec)
+        bad = layouts_agree(recs)
+        if bad:
+            fail(f"--sweep-decoder: {bad} disagree with the plain version, with themselves or with "
+                 f"decoder_smem_bytes at {shape[0]}: {rec}")
 
 
 def rel_err(got, want) -> float:
@@ -1876,12 +2003,14 @@ def sweep_backward_plans(params) -> None:
                 })
 
 
-def time_kernels(tree: str) -> None:
+def time_kernels(tree: str, only_decoder: bool = False) -> None:
     """``--time-kernels DIR``: the kernels a ``--compare`` is about, the
     greedy serving call at the flagship shape (encode and decode, the
-    host's dispatch included), the decoder kernel at 13a's W1024 shapes
-    and 13d's (``COMPARE_DECODES``: the layout the checkout plans there, ms,
-    µs a step, rows differing from its plain version), the listener's
+    host's dispatch included), the decoder kernel at every shape of
+    ``DECODER_SHAPES`` (the flagship at B = 64 and 8, 12a's, offline
+    B = 256, 13a's and 13d's: the layout the checkout plans there, ms, µs a
+    step, rows differing from its plain version; ``only_decoder``: these
+    two alone), the listener's
     forward past the resident widths (``COMPARE_FORWARDS``: the route the
     checkout plans there, ms) and the VJP there (``COMPARE_VJPS``: the
     route, the ms of a call, the loop's ms and µs a step), of the package
@@ -1915,7 +2044,7 @@ def time_kernels(tree: str) -> None:
 
     rec["serving_call_ms"] = time_ms(serve)
     rec["forwards"] = []
-    for i, (kernel, u, prec, b) in enumerate(COMPARE_FORWARDS):
+    for i, (kernel, u, prec, b) in enumerate(() if only_decoder else COMPARE_FORWARDS):
         t = 999
         g = torch.Generator(device=DEV).manual_seed(250 + i)
         lengths = torch.randint(t // 2, t + 1, (b,), generator=g, device=DEV)
@@ -1942,7 +2071,7 @@ def time_kernels(tree: str) -> None:
                                 "ms": time_ms(run, reps=5), "plan_given_ms": time_ms(launch, reps=5)})
         del xps
     rec["vjps"] = []
-    for i, (u, prec) in enumerate(COMPARE_VJPS):
+    for i, (u, prec) in enumerate(() if only_decoder else COMPARE_VJPS):
         bargs = random_vjp_args(u, prec, 260 + i)
         L.recurrence_bwd(*bargs)
         plan = L._launch_backward.last_plan
@@ -1959,37 +2088,45 @@ def time_kernels(tree: str) -> None:
                             "loop_ms": loop_ms, "loop_us_per_step": loop_ms * 1e3 / 999})
         del bargs
     rec["decoders"] = []
-    for i, (label, t, u, a, al, m, b, steps) in enumerate(COMPARE_DECODES):
-        sc = SpellerConfig(vocab_size=PRESET_VOCAB[WIDTH_PRESET], embedding_dim=128, num_layers=2, units=u,
-                           memory_dim=m, attention_units=a, attention_layer_size=al)
-        sp = init_speller(sc, torch.Generator().manual_seed(WIDTH_SEED + 20 + i), device=DEV)
-        g = torch.Generator(device=DEV).manual_seed(240 + i)
-        memory = torch.randn(b, t, m, generator=g, device=DEV)
-        lens = torch.randint(t // 4, t + 1, (b,), generator=g, device=DEV)
-        lens[0] = t
-        mask = length_mask(lens, t)
-        tok, _ = greedy_decode_fused(sp, sc, memory, mask, steps)
+    memory, _, enc_mask = encode(params, cfg, audio, lens)
+    # the cycles a step spends in each part at the flagship shape, in the plan's layout and the grid layout
+    # (the checkout's own counters and names)
+    from phones_las_torch.decode import fused_greedy as FG
+
+    wp, widths = FG._unflatten(FG.flat_weights(params.speller), memory, cfg.speller.bos_id, cfg.speller.eos_id)
+    rec["flagship_cycles"] = {}
+    for layout in (None, "grid"):
+        clocks = torch.zeros(20, dtype=torch.int64, device=DEV)
+        FG._launch(wp, widths, memory, enc_mask, DECODE_STEPS, clocks, layout=layout)
+        torch.cuda.synchronize()
+        name = greedy_decode_fused.last_launch["layout"]
+        names = FG.CLOCK_NAMES if name == "held" else FG.GRID_CLOCK_NAMES
+        counts = clocks.tolist()
+        rec["flagship_cycles"][f"{layout or 'plan'}: {name}"] = {
+            n: c / max(counts[15], 1) for n, c in zip(names, counts) if n != "steps"}
+    for shape in DECODER_SHAPES:
+        sp, sc, mem, mask, steps = decoder_case(shape, params, cfg, memory, enc_mask)
+        tok, _ = greedy_decode_fused(sp, sc, mem, mask, steps)
         launch = greedy_decode_fused.last_launch
-        plain, _ = greedy_decode_fused_plain(sp, sc, memory, mask, steps)
+        plain, _ = greedy_decode_fused_plain(sp, sc, mem, mask, steps)
         is_eos = (tok == sc.eos_id).int()
         ran = int(torch.where(is_eos.any(1), is_eos.argmax(1) + 1, steps).max())  # the steps the launch ran
-        ms = time_ms(lambda: greedy_decode_fused(sp, sc, memory, mask, steps))
+        ms = [time_ms(lambda: greedy_decode_fused(sp, sc, mem, mask, steps), reps=5) for _ in range(2)]
         rec["decoders"].append({
-            "shape": f"{label}, B={b} T_enc={t} steps={steps}",
-            "layout": launch.get("layout") or ("tiled" if launch["tiled"] else "streamed" if launch["streamed"]
-                                               else "held"),
-            "ms": ms, "us_per_step": ms * 1e3 / max(ran, 1), "steps_run": ran,
-            "rows_differing_from_plain": int((tok != plain).any(1).sum())})
-        del sp, memory
+            "shape": f"{shape[0]}, B={mem.shape[0]} T_enc={mem.shape[1]} steps={steps}", "layout": launch["layout"],
+            "ms": statistics.mean(ms), "ms_spread": max(ms) - min(ms), "us_per_step": statistics.mean(ms) * 1e3
+            / max(ran, 1), "steps_run": ran, "rows_differing_from_plain": int((tok != plain).any(1).sum())})
+        del sp, mem
     emit(rec)
 
 
-def compare_trees(other: str) -> int:
-    """``--compare DIR``: ``--time-kernels`` of the checkout at DIR and of
-    this one, in turns, each in its own process."""
+def compare_trees(other: str, parts=()) -> int:
+    """``--compare DIR [decoder]``: ``--time-kernels`` of the checkout at DIR
+    and of this one, in turns, each in its own process (``decoder``: the
+    serving call and the decoder alone)."""
     other = os.path.abspath(other)
     for tree in (other, REPO, REPO, other):
-        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-kernels", tree])
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-kernels", tree, *parts])
         if run.returncode:
             return run.returncode
     return 0
@@ -2974,8 +3111,8 @@ def check_clis(ckpt, cfg, work, started):
     data, source, run = (os.path.join(work, n) for n in ("data", "source", "run"))
     secs = {}
     t0 = time.perf_counter()
-    cli("prepare", "speechlike", "--out", data, "--n-utts", str(FRONT_TRAIN_UTTS), "--seed", str(DATA_TRAIN_SEED))
-    secs["prepare"] = time.perf_counter() - t0
+    finish(started[0], "prepare")  # started beside phase 7 (start_front_prepare)
+    secs["prepare_wait"] = time.perf_counter() - t0
     # the warm start's source: the committed checkpoint as a workdir, written by the library
     preset, vocab, *_ = resolve_preset(WORKDIR_PRESET, data, None)
     if dataclasses.asdict(preset.model) != dataclasses.asdict(cfg):
@@ -3321,24 +3458,39 @@ def check_export(run, out, flagship_dir, held, kernels) -> dict:
     return rec
 
 
-def check_front_doors(ckpt, cfg, kernels) -> None:
-    """Phase 8, in a temporary directory under ``_runs/`` removed at the end;
-    every process it starts is stopped."""
-    import shutil
+def start_front_prepare(started) -> str:
+    """8a's records: ``prepare speechlike`` started as a process (appended
+    to ``started``) beside phase 7 → phase 8's temporary directory under
+    ``_runs/``."""
     import tempfile
 
     os.makedirs(os.path.join(REPO, "_runs"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_front_", dir=os.path.join(REPO, "_runs"))
-    started = []
+    cli("prepare", "speechlike", "--out", os.path.join(work, "data"), "--n-utts", str(FRONT_TRAIN_UTTS), "--seed",
+        str(DATA_TRAIN_SEED), started=started)
+    return work
+
+
+def stop(started) -> None:
+    """Every process of ``started`` that still runs, stopped."""
+    for p in started:
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=60)
+
+
+def check_front_doors(ckpt, cfg, kernels, work, started) -> None:
+    """Phase 8, in ``work`` (``start_front_prepare``'s, its first process
+    the records' ``prepare``), removed at the end; every process it starts
+    is stopped."""
+    import shutil
+
     try:
         run, held, vocab, serve_proc, export_dir, flagship_dir = check_clis(ckpt, cfg, work, started)
         check_server(run, held, vocab, serve_proc, kernels)
         check_export(run, export_dir, flagship_dir, held, kernels)
     finally:
-        for p in started:
-            if p.poll() is None:
-                p.kill()
-                p.wait(timeout=60)
+        stop(started)
         shutil.rmtree(work, ignore_errors=True)
 
 
@@ -3378,7 +3530,7 @@ G2P_TRAIN = dict(batch_size=G2P_TRAIN_B, learning_rate=G2P_LR, label_smoothing=0
                  eval_every=150, seed=0)  # train_g2p's defaults, the CLI's widths
 G2P_LIB_STEPS = 5  # 9c: library steps, card against CPU
 G2P_TIMED_STEPS = 5  # 9c: timed steps
-G2P_CLI_STEPS = 1200
+G2P_CLI_STEPS = 600  # cut from 1,200 for the script's time (dev PER 0.045 at step 600 on an H100)
 G2P_LOSS_RTOL = 1e-5  # 9c: each step's loss, card against CPU, relative
 G2P_LEAF_TOL = 1e-5  # 9c: every leaf after 5 steps, max |d|
 # 9c: gradient elements in Adam's eps region (|g| below this on the CPU's
@@ -3680,19 +3832,13 @@ def check_g2p(kernels) -> dict:
 
     from phones_las_torch.models.g2p_model import NeuralG2P
 
-    bundled = NeuralG2P.bundled(device=DEV)
-    check_g2p_kernels(bundled)
-    launches = serve_g2p(kernels)
-    for k, v in train_g2p_library(kernels).items():
-        launches[k] += v
     os.makedirs(os.path.join(REPO, "_runs"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_g2p_", dir=os.path.join(REPO, "_runs"))
     started = []
     try:
-        ls, cv = write_g2p_corpora(work)
-        model_path = os.path.join(work, "g2p.npz")
+        # 9d's four preps, started first: they run beside 9a-9c
         t0 = time.perf_counter()
-        train = cli("g2p", "train", "--out", model_path, "--steps", str(G2P_CLI_STEPS), started=started)
+        ls, cv = write_g2p_corpora(work)
         preps = {}
         for dev in ("card", "cpu"):
             extra = ("--device", "cpu") if dev == "cpu" else ()
@@ -3702,6 +3848,14 @@ def check_g2p(kernels) -> dict:
             preps["common_voice", dev] = cli(
                 "prepare", "common_voice", "--root", cv, "--out", os.path.join(work, f"cv_{dev}"), "--langs",
                 *G2P_CV, "--g2p-model", "bundled", *extra, started=started)
+        bundled = NeuralG2P.bundled(device=DEV)
+        check_g2p_kernels(bundled)
+        launches = serve_g2p(kernels)
+        for k, v in train_g2p_library(kernels).items():
+            launches[k] += v
+        model_path = os.path.join(work, "g2p.npz")
+        t1 = time.perf_counter()
+        train = cli("g2p", "train", "--out", model_path, "--steps", str(G2P_CLI_STEPS), started=started)
         for (corpus, dev), proc in preps.items():
             finish(proc, f"prepare {corpus} ({dev})")
         prep_s = time.perf_counter() - t0
@@ -3709,12 +3863,12 @@ def check_g2p(kernels) -> dict:
         if len(differing) > G2P_MAX_DIFF_WORDS:
             fail(f"{len(differing)} corpus words transcribed differently on the card and the CPU: {differing}")
         emit({
-            "phase": "9d", "seconds_four_preps_at_once": prep_s, "words_differing_from_cpu": differing,
+            "phase": "9d", "seconds_four_preps_at_once_beside_9a_9c": prep_s, "words_differing_from_cpu": differing,
             "librispeech": compare_prep(os.path.join(work, "ls_card"), os.path.join(work, "ls_cpu"), differing),
             "common_voice": compare_prep(os.path.join(work, "cv_card"), os.path.join(work, "cv_cpu"), differing),
         })
         out = finish(train, "g2p train")
-        train_s = time.perf_counter() - t0
+        train_s = time.perf_counter() - t1
         evals = [dict(zip(("step", "loss", "dev_per", "best"), map(float, m)))
                  for m in re.findall(r"g2p step (\d+): loss ([0-9.]+) dev_per ([0-9.]+) best ([0-9.]+)", out)]
         trained = NeuralG2P(model_path, device=DEV)
@@ -4964,19 +5118,25 @@ def start_preset_prepare(work, started):
     return data
 
 
-def check_preset_front_doors(work, data, prepare, kernels, card) -> dict:
-    """Phase 12d: once the ``prepare`` process has written ``data``,
-    ``cli.train --preset timit_multitask`` on its records, a few steps and
-    one eval, then ``cli.infer --head grapheme`` on its workdir against the
-    library's ``Transcriber(head='grapheme')``."""
+def start_preset_train(work, data, prepare, started):
+    """12d's ``cli.train --preset timit_multitask`` on the records of the
+    ``prepare`` process, a few steps and one eval, started as a process
+    (appended to ``started``) once they are written."""
+    finish(prepare, "prepare")
+    return cli("train", "--preset", "timit_multitask", "--data", data, "--workdir", os.path.join(work, "front_run"),
+               "--num-steps", str(FRONT12_STEPS), "--eval-every", str(FRONT12_STEPS), started=started)
+
+
+def check_preset_front_doors(work, data, train, kernels, card) -> dict:
+    """Phase 12d: once the ``train`` process (``start_preset_train``, beside
+    12b and 12c) has ended, ``cli.infer --head grapheme`` on its workdir
+    against the library's ``Transcriber(head='grapheme')``."""
     from phones_las_torch import Transcriber
     from phones_las_torch.data.records import RecordReader
 
     run = os.path.join(work, "front_run")
     t0 = time.perf_counter()
-    finish(prepare, "prepare")
-    train_out = cli("train", "--preset", "timit_multitask", "--data", data, "--workdir", run, "--num-steps",
-                    str(FRONT12_STEPS), "--eval-every", str(FRONT12_STEPS)).stdout
+    train_out = finish(train, "train")
     hyps = os.path.join(run, "hyps_grapheme.tsv")
     infer_out = cli("infer", "--workdir", run, "--data", os.path.join(data, "test.plu"), "--beam-width", "0",
                     "--head", "grapheme", "--output", hyps).stdout
@@ -4999,29 +5159,37 @@ def check_preset_front_doors(work, data, prepare, kernels, card) -> dict:
     return la
 
 
-def check_presets(ckpt_cfg, ckpt_rec, kernels, card, artifacts) -> dict:
-    """Phase 12, in a temporary directory under ``_runs/`` removed at the
-    end → the card's launches of 12b–d summed. 12d's records are prepared
-    by a process that runs beside 12b and 12c (after 12a's timings); every
-    process it starts is stopped."""
-    import shutil
+def make_preset_work() -> str:
+    """Phase 12's temporary directory under ``_runs/``."""
     import tempfile
 
     os.makedirs(os.path.join(REPO, "_runs"), exist_ok=True)
-    work = tempfile.mkdtemp(prefix="chip_smoke_presets_", dir=os.path.join(REPO, "_runs"))
-    started = []
+    return tempfile.mkdtemp(prefix="chip_smoke_presets_", dir=os.path.join(REPO, "_runs"))
+
+
+def check_presets(ckpt_cfg, ckpt_rec, kernels, card, artifacts, work=None, started=None) -> dict:
+    """Phase 12, in ``work`` (``make_preset_work``'s; made here if None)
+    removed at the end → the card's launches of 12b–d summed. 12d's records
+    are prepared by a process started beside phases 9–11 (the first of
+    ``started``; here, if None, after 12a), and its ``cli.train`` runs
+    beside 12b and 12c (after 12a's timings); every process it starts is
+    stopped."""
+    import shutil
+
+    work = work or make_preset_work()
+    started = [] if started is None else started
     try:
+        data = os.path.join(work, "front_data")
         check_preset_decoders(work, ckpt_rec, card)
-        data = start_preset_prepare(work, started)
+        if not started:
+            start_preset_prepare(work, started)
+        train = start_preset_train(work, data, started[0], started)
         parts = [serve_presets(work, ckpt_cfg, kernels, card, artifacts)]
         with torch.enable_grad():
             parts.append(train_presets(work, kernels, card))
-        parts.append(check_preset_front_doors(work, data, started[0], kernels, card))
+        parts.append(check_preset_front_doors(work, data, train, kernels, card))
     finally:
-        for p in started:
-            if p.poll() is None:
-                p.kill()
-                p.wait(timeout=60)
+        stop(started)
         shutil.rmtree(work, ignore_errors=True)
     return {k: sum(p[k] for p in parts) for k in parts[0]}
 
@@ -5044,6 +5212,9 @@ WIDE_UNITS, WIDE_T = (1032, 1280, 2048), 250  # 13a: past 1024 (fault C10), both
 # every plan takes several)
 PASS_CASES = ((1024, 130, ("highest", "bf16")), (448, 200, ("bf16",)))
 WIDTH_TIMED = ((1024, "highest"), (512, "highest"), (1024, "bf16"))  # 13a: T = 999, with cuDNN beside
+# 13a: cuDNN's BiLSTM alone at T = 999, B = 64 at the widths where the forward's grid layout stands in for the
+# template's streamed slice (float32 200, 248; bf16 264, 368): PERF.md's row 2 library column
+LIBRARY_UNITS = (200, 248, 264, 368)
 WIDTH_REPS = 5  # ... timed as the median of 5 runs (the plain versions once)
 # 13a: each kernel's two routes in turns on one card (``compare_routes``): the forward's template
 # (its slice of wh streamed) against the grid layout the plan takes past 256 (bf16: 384); the VJP's
@@ -5069,11 +5240,6 @@ LONG_DECODES = (("the checkpoint's speller", 17100, 256, 256, 256, 512, True),
                 ("U = A = AL = 2048, M = 4096", 219, 2048, 2048, 2048, 4096, False))
 LONG_B, LONG_STEPS = 8, 60
 PASS_DECODE = (4096, 219, 12)  # 13a: W1024 at B = 4096 (two grid launches), T_enc 219, 12 steps
-# --compare: the decoder at 13a's W1024 shapes (B = 32, 200 steps) and 13d's (B = 8, 60 steps):
-# (label, T_enc, U, A, AL, M, B, steps)
-COMPARE_DECODES = tuple((label, t, u, a, al, m, WIDTH_KERNEL_B, DECODE_STEPS)
-                        for label, t, u, a, al, m in WIDTH_DECODES if u == 1024) + tuple(
-    (label, t, u, a, al, m, LONG_B, LONG_STEPS) for label, t, u, a, al, m, _ in LONG_DECODES)
 # --compare: the listener's forward at T = 999 past the resident widths: (kernel, U, mode, B), both
 # directions (one with "recurrence")
 COMPARE_FORWARDS = (("bidir_recurrence", 1024, "highest", FLAGSHIP_B), ("recurrence_residual", 1024, "highest", TRAIN_B),
@@ -5213,9 +5379,11 @@ def check_width_kernels(work) -> dict:
     (``PASS_CASES``); timed at T = 999 beside cuDNN at U =
     1024 and 512 in float32 and at 1024 in bf16; the forward's grid layout
     and the VJP's two routes in turns (``compare_routes``); the decoder kernel at W1024's speller (the grid
-    layout), with an attention layer of 1024, and at the LAS paper's (the
-    held layout, 6.4 KB under the limit); W1024's at B = 4096 in passes
+    layout), with an attention layer of 1024, and at the LAS paper's (whose
+    held layout fits 6.4 KB under the limit; the plan takes the grid
+    layout), each in its plan's layout; W1024's at B = 4096 in passes
     (``check_grid_passes``)."""
+    from phones_las_torch.decode.fused_greedy import kernel_widths
     from phones_las_torch.models.speller import SpellerConfig, init_speller
     from phones_las_torch.ops import lstm as L
     from phones_las_torch.ops.masking import length_mask
@@ -5235,6 +5403,16 @@ def check_width_kernels(work) -> dict:
           "vjp_max_rel_to_max": {r["shape"]: r["max_rel_to_max"] for r in vjp},
           "readings_at_u256": "forward within 3.6e-7, VJP 9.4e-7 / 6.0e-4 (f32 / bf16) of the plain version's "
                               "largest (PERF.md, section 6)"})
+    library = {}
+    for i, u in enumerate(LIBRARY_UNITS):  # as check_bilstm_inputs reads it: a pyramid layer's input width, float32
+        lstm = torch.nn.LSTM(4 * u, u, bidirectional=True).to(DEV)
+        x_in = torch.randn((999, FLAGSHIP_B, 4 * u), generator=torch.Generator(device=DEV).manual_seed(190 + i),
+                           device=DEV)
+        library[f"U={u}"] = time_ms(lambda: lstm(x_in), reps=WIDTH_REPS)
+        del lstm, x_in
+    emit({"phase": "13a", "kernel": "bidir_recurrence", "what": "cuDNN's BiLSTM alone, the library column",
+          "shape": f"T=999 B={FLAGSHIP_B}", "library": "torch.nn.LSTM(4U, U, bidirectional=True), includes the input "
+          "projection", "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32, "library_ms": library})
     timed = []
     for i, (u, prec) in enumerate(WIDTH_TIMED):
         gen = torch.Generator().manual_seed(WIDTH_SEED + i)
@@ -5274,8 +5452,8 @@ def check_width_kernels(work) -> dict:
         mask = length_mask(lens, t)
         rec = check_greedy(SimpleNamespace(speller=sp), SimpleNamespace(speller=sc), memory, mask,
                            WIDTH_KERNEL_B, steps=DECODE_STEPS, phase="13a", what=f"{label}, T_enc {t}, ragged")
-        if rec["launch"]["layout"] != ("grid" if u == 1024 else "held"):
-            fail(f"phase 13a: the decoder took the wrong layout at {label}: {rec['launch']}")
+        if rec["launch"]["layout"] != kernel_widths(WIDTH_KERNEL_B, sc, t)[1].name:
+            fail(f"phase 13a: the decoder did not take its plan's layout at {label}: {rec['launch']}")
         decs.append(rec)
         del sp, memory
     decs.append(check_grid_passes())
@@ -5328,7 +5506,7 @@ def check_grid_passes() -> dict:
     rec["row_steps"], _, rec["bound_ms"], rec["bound_by"] = greedy_bound(sp, sc, tok, t, steps)
     emit(rec)
     if launches != rec["passes"] or rec["passes"] < 2 or any(not d["tie"] for d in differ) or not rec[
-            "bitwise_repeatable"] or launch["layout"] != "grid":
+            "bitwise_repeatable"] or launch["layout"] == "held":
         fail(f"phase 13a: the grid layout's passes failed: {rec}")
     return rec
 
@@ -5892,9 +6070,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--compare"]:
-        return compare_trees(sys.argv[2])
+        return compare_trees(sys.argv[2], sys.argv[3:])
     if sys.argv[1:2] == ["--time-kernels"]:
-        time_kernels(sys.argv[2])
+        time_kernels(sys.argv[2], sys.argv[3:] == ["decoder"])
         return 0
     sys.path.insert(0, REPO)
     if sys.argv[1:2] == ["--bf16-routes"]:
@@ -5937,13 +6115,13 @@ def main() -> int:
         sweep_forward_plans(params)
         sweep_backward_plans(params)
         sweep_streamed_plans()
-        # a reading, the plan unchanged: the grid layout at the flagship shape
-        # in turns against the held layout the plan keeps there
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:2] == ["--sweep-decoder"]:
         audio64 = torch.from_numpy(make_audio(FLAGSHIP_B)).to(DEV)
         memory, _, enc_mask = encode(params, cfg, audio64, torch.full((FLAGSHIP_B,), audio64.shape[1],
                                                                        dtype=torch.int32, device=DEV))
-        layouts_in_turns(params.speller, cfg.speller, memory.contiguous(), enc_mask.contiguous(), DECODE_STEPS,
-                         what="the flagship shape: the held layout (the plan) against the grid layout, a reading")
+        sweep_decoder(params, cfg, memory.contiguous(), enc_mask.contiguous(), tuple(sys.argv[2:]))
         print(card, flush=True)
         return 0
     if sys.argv[1:] == ["--sweep-forward"]:
@@ -6007,13 +6185,7 @@ def main() -> int:
     check_lstm_ragged(*GATE_LSTM, seed=45)
     memory, _, enc_mask = encode(params, cfg, audio64, full_len)
     dec_recs = [check_greedy(params, cfg, memory, enc_mask, b) for b in DECODER_BATCHES]
-    # a batch that is no multiple of the group, rows of very different lengths
-    g = torch.Generator(device=DEV).manual_seed(50)
-    t_enc = memory.shape[1]
-    rag_len = torch.randint(1, t_enc + 1, (RAGGED_DECODER_B,), generator=g, device=DEV)
-    rag_len[0], rag_len[1] = t_enc, 1
-    check_greedy(params, cfg, memory, length_mask(rag_len, t_enc), RAGGED_DECODER_B,
-                 steps=RAGGED_DECODER_STEPS, timed=False)
+    check_decoder_layouts(params, cfg, memory, enc_mask, card)
 
     # ---- phase 2: the committed checkpoint on the committed eval set
     cap = int(data["decode_cap"][0])
@@ -6108,17 +6280,28 @@ def main() -> int:
         train_gate_augmented(data, kernels)
         check_workdir(ckpt, data, kernels)
 
-    # ---- phase 7: the data layer and fit over record files (its fine-tuned run kept for phase 14)
-    tuned = check_data_layer(ckpt, cfg, kernels)
+    # ---- phase 7: the data layer and fit over record files (its fine-tuned run kept for phase 14), with 8a's
+    # records prepared beside it
+    front_started = []
+    front_work = start_front_prepare(front_started)
+    try:
+        tuned = check_data_layer(ckpt, cfg, kernels)
+    except BaseException:
+        stop(front_started)
+        shutil.rmtree(front_work, ignore_errors=True)
+        raise
 
     try:
         # ---- phase 8: the CLIs, the HTTP server and exported programs
-        check_front_doors(ckpt, cfg, kernels)
+        check_front_doors(ckpt, cfg, kernels, front_work, front_started)
 
-        # the artifacts that phases 12b and 13b serve, written by a thread beside phases 9–11
+        # the artifacts that phases 12b and 13b serve, written by a thread beside phases 9–11, and 12d's
+        # records prepared beside them
         artifacts = Prewritten()
         artifacts.queue_served()
+        preset_work, preset_started = make_preset_work(), []
         try:
+            start_preset_prepare(preset_work, preset_started)
             # ---- phase 9: the seq2seq G2P at its widths: kernels, serving, training, corpus prep
             g2p_launches = check_g2p(kernels)
 
@@ -6132,12 +6315,14 @@ def main() -> int:
 
             # ---- phase 12: the reference's five presets at their own widths: the decoder kernel, serving,
             # training, CLIs
-            preset_launches = check_presets(cfg, dec_recs[-1], kernels, card, artifacts)
+            preset_launches = check_presets(cfg, dec_recs[-1], kernels, card, artifacts, preset_work, preset_started)
 
             # ---- phase 13: the reference's width flags: LAS-4-1024 and an odd width through every kernel
             widths = check_widths(kernels, card, artifacts)
             width_launches = widths["launches"]
         finally:
+            stop(preset_started)
+            shutil.rmtree(preset_work, ignore_errors=True)
             artifacts.close()
 
         # ---- phase 14: the reference's entry points: the bench's rows, entry(), the bench assets

@@ -31,9 +31,13 @@
 // a step, latency of dependent L2 loads.
 //
 // Two layouts: the held one (greedy_kernel) runs clusters, the grid one
-// (greedy_grid_kernel, below) the whole card. The plan keeps the held
-// layout wherever it fits a block's shared memory and takes the grid layout
-// everywhere else (decode/fused_greedy.py::decoder_plan).
+// (greedy_grid_kernel, below) the whole card. The plan takes, at each shape, the
+// layout a step model fitted to the card's readings says is the faster
+// (decode/fused_greedy.py::decoder_plan, ::step_us): on an NVIDIA H100
+// 80GB HBM3 the held layout at the serving shapes (the flagship B = 64,
+// T_enc 250: 81.4 us a step against the grid's 105.7), the grid at
+// offline B = 256 (204.7 against 250.1), at the LAS paper's 2 x 512
+// speller and wherever the held layout does not fit.
 //
 // The held layout: a cluster of C blocks decodes a group of R = 8 rows (the
 // TPU kernel's own group) and loops over the steps inside the kernel;
@@ -93,59 +97,68 @@
 // ~40 GB/s each. Hence the grid layout there.
 //
 // The grid layout (greedy_grid_kernel): one cooperative launch of one block
-// an SM, every block in every stage of a step, a grid barrier (a counter in
-// the workspace) after each; the activations [B][width] in global memory
-// (act: grid_ws).
+// an SM, every block in every stage of a step; the activations [B][width]
+// in global memory (act: grid_ws); no grid barrier in the steps: each
+// stage's writers raise readiness counters (a row tile's or a row's) and
+// its readers wait on those of the rows they read (see the kernel).
 //   - Dense stages (each cell, wq, the attention layer, the logits): the
 //     output columns are cut into column blocks over the grid (a cell's by
 //     units with their four gates), the rows into as many row groups as
 //     the block's intake k (width + rows) is least (decode/fused_greedy.py
 //     ::StageCut, ::grid_cuts): each weight is read once a step for the
-//     whole batch. A block takes its rows in passes of up to 8 P rows; a
-//     thread holds 8 rows x 4 columns of one k part; each tile of k comes
-//     through a ring of three slots in shared memory, its weight rows in one
-//     bulk copy (the Tensor Memory Accelerator, counted on the slot's
-//     transaction barrier), its input rows 16 bytes a thread (cp.async), two
-//     tiles in flight while one is multiplied; the parts meet in shared
-//     memory and are added in a fixed order (four chains).
+//     whole batch, its rows in a bulk copy a tile (the Tensor Memory
+//     Accelerator, counted on the slot's transaction barrier). (Holding
+//     each block's weights in shared memory for the launch was measured
+//     slower at every shape: the ring it leaves is smaller.) A block takes
+//     its rows in passes of up to 8 P rows; a thread holds 8 rows x 4
+//     columns of one k part; each tile of k comes through a ring of three
+//     slots (of up to 64 KB: few tiles, each a round trip), its input rows
+//     16 bytes a thread (cp.async; a bulk copy a row segment costs the copy
+//     engine more than its bytes), two tiles in flight while one is
+//     multiplied; the parts meet in shared memory and each output's parts
+//     are added in a fixed order (four chains) by a thread of its own.
 //   - Attention: each live row's valid positions are cut into chunks in
 //     proportion to its length, 1 + floor((blocks - live rows) tl / sum tl)
 //     a row (one each past as many live rows as blocks), recut only when a
 //     row finishes; chunk idx goes to block idx % grid. Pass 1: a chunk's
-//     keys come through the ring in bulk copies, a warp a position scores
-//     them into ws and the block writes the chunk's maximum. Pass 2: every
-//     block of the row takes the row's maximum over the chunks' (exact in
-//     any order), forms exp(s - max) * mask in ws and writes the chunk's
-//     sum. Pass 3: the row's sum of the chunks' sums in chunk order (the
-//     same in every block), the chunk's memory rows through the ring, its
-//     part of the context; after a barrier the parts are added in chunk
-//     order, each row's columns spread over the grid. Nothing grows with T
-//     but the workspace.
+//     keys come through the ring in bulk copies (issued before q is ready),
+//     a warp a position scores them into ws and the block writes the
+//     chunk's maximum. Pass 2, once every chunk maximum of the row is
+//     published: the row's maximum (exact in any order), e = exp(s - max)
+//     * mask as the chunk's memory rows come through the ring, the chunk's
+//     sum of e and its unnormalised part of the context; once the row's
+//     parts are all stored, each chunk's block merges a slice of the
+//     row's context columns, each chunk's part divided by the row's sum
+//     (its chunks' sums in chunk order), added in chunk order. Nothing
+//     grows with T but the workspace. Where they fit
+//     the L2 with room to spare, a step's keys are prefetched into L2 at its
+//     start and each chunk's memory rows at its scores.
 //   - The logits are a dense stage; each column block writes each row's
-//     (maximum, first index), and after the barrier every block merges the
-//     pairs in column block order, the smallest index winning a tie, so all
-//     hold the same tokens and stop together (when every row has emitted
-//     <eos>; a finished row writes <eos>, skips its attention, and its other
-//     results are discarded).
-//   - Every block keeps every row's fed token, finished flag, length and
-//     chunks in its shared memory (five ints a row), so a launch takes at
-//     most a few thousand rows (3,512 at A = 1024); the wrapper decodes a
-//     larger batch in passes of rows, a launch each.
-//   - Nine grid barriers a step at two cells. The order of the sums differs
-//     from the held layout's (k parts, chunks), fixed by the shape, so a
-//     launch is bitwise repeatable.
-// What bounds it: a step's bytes (weights once, the rows' keys and memory
-// once: 150 MB at W1024, B = 32, T_enc 219; 426 MB at the checkpoint's
-// speller, B = 8, T_enc 17,100) from device memory over the whole card,
-// plus each block's intake of its row group's input rows from L2 and the
-// barriers.
-// Prediction, made before its first timed run on the card (PERF.md, section 6):
-// W1024 at B = 32 55-70 us a step (against 287 for a cluster layout that
-// streamed its operands), the checkpoint's speller at T_enc 17,100 100-140 us
-// (against 1582), U = A = AL = 2048 120-140 us (against 1084). Measured
-// (NVIDIA H100 80GB HBM3): 180, 179 and 264 us a step: the dense stages'
-// input rows (16-byte copies) and each stage's fixed costs (barriers, a
-// tile's first latency), not the bytes, bound it (PERF.md, section 6).
+//     (maximum, first index), and every block, once every row tile's pairs
+//     are published (the one wait on the whole grid a step), merges them in
+//     column block order, the smallest index winning a tie, so all hold the
+//     same tokens and stop together (when every row has emitted <eos>; a
+//     finished row writes <eos>, skips its attention, and its other results
+//     are discarded).
+//   - Every block keeps every row's fed token, finished flag, length,
+//     chunks and chunks so far in its shared memory (six ints a row), so a
+//     launch takes at most a few thousand rows (2,920 at A = 1024); the
+//     wrapper decodes a larger batch in passes of rows, a launch each.
+//   - The order of the sums differs from the held layout's (k parts,
+//     chunks, the context's parts divided by the row's sum), fixed by the
+//     shape, so a launch is bitwise repeatable.
+// What bounds it: a step's chain of dependent stages (two cells, the
+// query, the scores, the context, the merge, the attention layer, the
+// logits, the argmax), each a publication, a wait and a round trip of its
+// first tile through L2; then the attention's keys and memory (49 MB a
+// step at the flagship shape, from L2 where prefetched, else device
+// memory: 9-15 us a step) and the dense stages' input rows (each row read
+// by every column block of its group). Measured on an NVIDIA H100 80GB HBM3
+// (PERF.md, section 6; chip_smoke.py --sweep-decoder gives each part's
+// cycles): the flagship 105.7 us a step (115.9 with the weights held in
+// shared memory), the chain's waits and fixed costs most of it; W1024 at
+// B = 32, T_enc 219 165 us (178 when nine grid barriers a step ended its
+// stages, in turns).
 //
 // Every offset into keys, memory, the mask, the workspace and the tokens is
 // taken in 64 bits: B T M passes 2^32 at B = 64, T = 17,100, M = 4096.
@@ -197,7 +210,9 @@ constexpr int N_STAGES = 5;  // the first cell, the other cells, the query, the 
 enum GridStage { ST_CELL0 = 0, ST_CELLS = 1, ST_QUERY = 2, ST_LAYER = 3, ST_LOGITS = 4 };
 struct GridCut {
   StageCut st[N_STAGES];
+  int slot;  // floats of a slot of the ring
 };
+constexpr int CUT_INTS = 5 * N_STAGES + 1;  // the C API's cut: each stage's five numbers, then slot
 
 struct DecArgs {
   const float* keys;    // [B, T, A]
@@ -220,9 +235,9 @@ struct DecArgs {
 // decoder_plan).
 constexpr int LAYOUT_HELD = 0;  // clusters: every activation a block reads whole in its own shared memory
 constexpr int LAYOUT_GRID = 1;  // no clusters: every block of the grid in every stage (greedy_grid_kernel)
-constexpr int SLOT = 12288;    // grid: floats of a slot of the ring that stages every streamed operand
 constexpr int NSLOT = 3;       // grid: slots of the ring (two tiles in flight while one is used)
 constexpr int KS_MAX = 32;     // grid: most k parts of a dense stage
+constexpr long long L2_PREFETCH_BYTES = 40LL << 20;  // grid: most bytes a step prefetches into the 50 MB L2
 constexpr int MAX_TILES = 128; // grid: most row tiles of 8 in a pass
 
 // float offsets of a held block's shared memory; decode/fused_greedy.py::
@@ -729,27 +744,30 @@ __host__ __device__ inline size_t round8(size_t n) { return (n + 7) / 8 * 8; }
 // float offsets of a grid block's shared memory; decode/fused_greedy.py::
 // decoder_smem_bytes(grid=) mirrors it
 struct GridLayout {
-  size_t ring, mbar, pw, q, v, tok, fin, tl, nch, off, flag, red, total;
+  size_t ring, mbar, pw, q, v, tok, fin, tl, nch, base, off, flag, red, tile, total;
 };
-__host__ __device__ inline GridLayout grid_layout(int B, int A) {
+__host__ __device__ inline GridLayout grid_layout(int B, int A, const GridCut& g) {
   GridLayout L;
   size_t off = 0;
   // the ring's slots: a dense stage's tiles of input rows and weights, the
-  // scores' tiles of keys and mask, the context's tiles of memory rows;
-  // after a dense stage's last tile its partial sums, after the context's
-  // its parts
-  L.ring = off, off += (size_t)NSLOT * SLOT;
-  L.mbar = off, off += 2 * 4;                  // the slots' transaction barriers (8 bytes each)
-  L.pw = off, off += (size_t)NSLOT * THREADS;  // each slot's mask (the scores) or weights e / sum (the context)
+  // scores' tiles of keys, the context's tiles of memory rows; after a
+  // dense stage's last tile its partial sums, after the context's its
+  // parts, in the merge its staged parts
+  L.ring = off, off += (size_t)NSLOT * g.slot;
+  L.mbar = off, off += pad4(2 * NSLOT);        // the slots' transaction barriers (8 bytes each; 16-byte aligned after)
+  L.pw = off, off += (size_t)NSLOT * THREADS;  // each slot's mask (the scores) or exp(score - max) * mask (the context)
   L.q = off, off += pad4(A);                   // q of the row being scored
   L.v = off, off += pad4(A);
   L.tok = off, off += round8(B);      // ints: the token fed to every row
   L.fin = off, off += round8(B);      // ints: every row's finished flag
   L.tl = off, off += round8(B);       // ints: one past every row's last valid position
   L.nch = off, off += round8(B);      // ints: every row's chunks this step
+  L.base = off, off += round8(B);     // ints: every row's chunks over the steps before this one
   L.off = off, off += round8(B + 1);  // ints: its first chunk's index among all rows' chunks
-  L.flag = off, off += 4;             // int: a row finished at the last step (the chunks are cut anew)
+  L.flag = off, off += 4;             // ints: a row finished at the last step (the chunks are cut anew); the
+                                      // step's reads are prefetched into L2
   L.red = off, off += 64;
+  L.tile = off, off += 4 * N_STAGES;  // ints: each dense stage's DenseTile
   L.total = off;
   return L;
 }
@@ -757,10 +775,10 @@ __host__ __device__ inline GridLayout grid_layout(int B, int A) {
 // float offsets of the grid layout's workspace in global memory (act), B
 // rows padded to 8; decode/fused_greedy.py::grid_act_floats mirrors it
 struct GridWs {
-  size_t h, c, attn, q, ctx, cmax, csum, pctx, pmax, pidx, tl, bar, total;
+  size_t h, c, attn, q, ctx, cmax, csum, pctx, pmax, pidx, tl, cnt, total;
 };
 __host__ __device__ inline GridWs grid_ws(int B, int A, int M, int AL, int U, int n_cells, int G, int lcols) {
-  const size_t bp = round8(B), chunks = pad4(bp > (size_t)G ? bp : (size_t)G);
+  const size_t bp = round8(B), chunks = pad4(bp > (size_t)G ? bp : (size_t)G), nt = bp / 8;
   GridWs W;
   size_t off = 0;
   W.h = off, off += (size_t)n_cells * 2 * bp * U;  // [n_cells][2][B][U], double-buffered by step
@@ -771,10 +789,15 @@ __host__ __device__ inline GridWs grid_ws(int B, int A, int M, int AL, int U, in
   W.cmax = off, off += chunks;                     // [chunks of all rows] each chunk's maximum score
   W.csum = off, off += chunks;                     // each chunk's sum of exp(score - max) * mask
   W.pctx = off, off += chunks * M;                 // [chunks][M] each chunk's part of its row's context
-  W.pmax = off, off += pad4(bp * lcols);           // [B][logits' column blocks] each block's maximum
-  W.pidx = off, off += pad4(bp * lcols);           // ints, its first index
+  W.pmax = off, off += 2 * pad4(bp * lcols);       // [2][B][logits' column blocks] each block's maximum, by step parity
+  W.pidx = off, off += 2 * pad4(bp * lcols);       // ints, its first index
   W.tl = off, off += bp;                           // ints: every row's length
-  W.bar = off, off += 4;                           // the grid barrier's arrivals (unsigned)
+  // unsigned counters: the prologue's grid barrier, the argmax's arrivals
+  // by step parity, one unused; then the readiness counters of each row
+  // tile of 8: h of each cell [n_cells][B / 8], q, the attention vector,
+  // the logits' pairs; then of each row: its chunks' maxima, its chunks'
+  // parts of the context, its context's merged slices
+  W.cnt = off, off += pad4(4 + (n_cells + 3) * nt + 3 * bp);
   W.total = off;
   return W;
 }
@@ -782,20 +805,23 @@ __host__ __device__ inline GridWs grid_ws(int B, int A, int M, int AL, int U, in
 // How a pass of a dense stage cuts its k (decode/fused_greedy.py::
 // grid_tile): a thread an item (k part, row tile, column group of 4), at
 // most KS_MAX parts; tile j holds float4s [j KS S4, (j + 1) KS S4) of k,
-// part ks its float4s [ks S4, (ks + 1) S4) of each tile; a slot holds a
-// tile's input rows (Rp rows of ld floats) and its weight rows (kt rows of
-// wc floats).
+// part ks its float4s [ks S4, (ks + 1) S4) of each tile; a slot of `slot`
+// floats holds a tile's input rows (Rp rows of ld floats) and its weight
+// rows (kt rows of wc floats). Of the cuts a slot
+// holds, the one of the fewest tiles, then of the most parts. The kernel
+// takes each stage's from the block's shared memory (made once).
 struct DenseTile {
   int KS, S4, ld, ntiles;
 };
-__host__ __device__ inline DenseTile grid_tile(int k4n, int wc, int tiles) {
-  const int Rp = 8 * tiles, ncg = wc / 4;
-  DenseTile d;
-  d.KS = imax(1, imin(imin(KS_MAX, THREADS / (ncg * tiles)), imin(k4n, (SLOT - 4 * Rp) / (4 * Rp + 4 * wc))));
-  const int deep = (k4n + d.KS - 1) / d.KS;  // float4s of a part over all k
-  d.S4 = imax(1, imin(deep, (SLOT - 4 * Rp) / (4 * d.KS * (Rp + wc))));
-  d.ld = 4 * d.KS * d.S4 + 4;  // 4 floats of padding: neighbouring staged rows start in other banks
-  d.ntiles = (k4n + d.KS * d.S4 - 1) / (d.KS * d.S4);
+__host__ __device__ inline DenseTile grid_tile(int k4n, int wc, int tiles, int slot) {
+  const int Rp = 8 * tiles, ncg = wc / 4, per4 = 4 * (Rp + wc);  // a float4 of k in the slot
+  const int avail = (slot - 4 * Rp) / per4;  // float4s of k a slot holds
+  DenseTile d{0, 0, 0, 0x7fffffff};
+  // the fewest tiles (each a round trip through the ring), then the most parts
+  for (int ks = imax(1, imin(imin(KS_MAX, THREADS / (ncg * tiles)), k4n)); ks >= 1; --ks) {
+    const int s4 = imax(1, imin((k4n + ks - 1) / ks, avail / ks)), n = (k4n + ks * s4 - 1) / (ks * s4);
+    if (n < d.ntiles) d = DenseTile{ks, s4, 4 * ks * s4 + 4, n};
+  }
   return d;
 }
 
@@ -836,6 +862,10 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+// `bytes` (a multiple of 16) of global memory into L2, ahead of their reads
+__device__ __forceinline__ void l2_prefetch(const float* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
+}
 // `bytes` (a multiple of 16) from global memory (through L2) into this
 // block's shared memory, counted on `bar`
 __device__ __forceinline__ void bulk_load(float* dst, const float* src, unsigned bytes, unsigned bar) {
@@ -843,76 +873,129 @@ __device__ __forceinline__ void bulk_load(float* dst, const float* src, unsigned
                ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
-// The ring: NSLOT slots of SLOT floats, a transaction barrier each (a phase:
-// thread 0's arrival with the bytes of the tile's bulk copy), and the
-// parity each barrier's next phase completes with. A tile's 16-byte copies
-// are a cp.async group of each thread.
+// Readiness (grid_sync.cuh's chunk_publish is the release): warp 0 waits
+// until counter ctr[i] has reached target(i) for every i < n (target 0: no
+// wait), its lanes polling 32 counters at once. Each lane's acquire orders
+// its counters' writers' stores before its later operations, the warp
+// barrier before every lane's, and the block barrier the caller passes next
+// before every thread's (which read the data through L2: ld.cg,
+// cp.async.cg). A wait of seconds ends the kernel with an error, as
+// grid_wait's.
+template <class Target>
+__device__ __forceinline__ void ready_wait(const unsigned* ctr, int n, Target target) {
+  const int lane = threadIdx.x & 31;
+  const long long t0 = clock64();
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    const unsigned tg = i < n ? target(i) : 0u;
+    for (;;) {
+      unsigned seen = tg;
+      if (tg != 0) asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(ctr + i) : "memory");
+      if (__all_sync(0xffffffffu, (int)(seen - tg) >= 0)) break;
+      if (clock64() - t0 > 4000000000LL) __trap();
+    }
+  }
+  __syncwarp();
+}
+
+// The ring: NSLOT slots of `slot` floats, a transaction barrier each (a
+// phase: thread 0's arrival with the bytes of the tile's bulk copies), and
+// the parity each barrier's next phase completes with.
 struct Ring {
   float* slots;
   unsigned bar0;   // shared address of slot 0's barrier; slot s's at bar0 + 8 s
   unsigned phase;  // bit s: the parity of slot s's next phase
+  int slot;        // floats of a slot
 };
 
 // ntiles tiles through the ring: fill(j, slot, bar) issues tile j's copies
-// (thread 0 its bulk copy and its arrival on the slot's barrier with the
-// bytes, every thread its cp.async copies, committed as one group here); use(j, slot) reads the tile once its bytes have landed; the
-// next NSLOT - 1 tiles are in flight while one is used. Every thread of the
-// block calls it alike.
+// (thread 0 its bulk copies and its arrival on the slot's barrier with
+// their bytes, every thread its cp.async copies, committed as one group
+// here) and may store beside them; use(j, slot) reads the tile once its
+// bytes have landed; the next NSLOT - 1 tiles are in flight while one is
+// used. Every thread of the block calls it alike.
+template <class Fill>
+__device__ __forceinline__ void ring_start(int ntiles, Ring& rg, Fill fill) {  // the first NSLOT - 1 fills
+  for (int j = 0; j < NSLOT - 1; ++j) {
+    if (j < ntiles) fill(j, rg.slots + (size_t)j * rg.slot, rg.bar0 + 8 * j);
+    cp_async_commit();
+  }
+}
+// the rest of ring_run, after ring_start (which a caller may issue before a
+// wait that the first tiles' copies do not depend on)
 template <class Fill, class Use>
-__device__ __forceinline__ void ring_run(int ntiles, Ring& rg, Fill fill, Use use, long long* clocks) {
+__device__ __forceinline__ void ring_rest(int ntiles, Ring& rg, Fill fill, Use use, long long* clocks, int fills) {
   long long t0 = clocks ? clock64() : 0;
-  auto lap = [&](int i) {  // the cycles of each part of the ring: 0 fills, 2 waits, 10 uses
+  auto lap = [&](int i) {  // the cycles of each part of the ring: `fills` its fills, 5 the first tile's wait, 2
+                           // the others', 10 uses
     if (clocks) {
       const long long now = clock64();
       clocks[i] += now - t0;
       t0 = now;
     }
   };
-  for (int j = 0; j < NSLOT - 1; ++j) {
-    if (j < ntiles) fill(j, rg.slots + (size_t)j * SLOT, rg.bar0 + 8 * j);
-    cp_async_commit();
-  }
-  lap(0);
   for (int j = 0; j < ntiles; ++j) {
     if (j + NSLOT - 1 < ntiles) {
       const int f = (j + NSLOT - 1) % NSLOT;
-      fill(j + NSLOT - 1, rg.slots + (size_t)f * SLOT, rg.bar0 + 8 * f);
+      fill(j + NSLOT - 1, rg.slots + (size_t)f * rg.slot, rg.bar0 + 8 * f);
     }
     cp_async_commit();
-    lap(0);
+    lap(fills);
     const int sl = j % NSLOT;
     cp_async_wait<NSLOT - 1>();
     mbar_wait(rg.bar0 + 8 * sl, (rg.phase >> sl) & 1u);
     rg.phase ^= 1u << sl;
     __syncthreads();  // and what the fills stored beside the copies
-    lap(2);
-    use(j, rg.slots + (size_t)sl * SLOT);
+    lap(j == 0 ? 5 : 2);
+    use(j, rg.slots + (size_t)sl * rg.slot);
     __syncthreads();  // the slot is refilled with tile j + NSLOT
     lap(10);
   }
 }
+template <class Fill, class Use>
+__device__ __forceinline__ void ring_run(int ntiles, Ring& rg, Fill fill, Use use, long long* clocks, int fills = 0) {
+  long long t0 = clocks ? clock64() : 0;
+  ring_start(ntiles, rg, fill);
+  if (clocks) clocks[fills] += clock64() - t0;
+  ring_rest(ntiles, rg, fill, use, clocks, fills);
+}
 
-// grid_sync (grid_sync.cuh): the grid barrier after each stage
+// sum over the k parts of one output of a pass, in a fixed order: four
+// chains (parts ks = 4 i + j on chain j, the rest on chain 0), as gather()
+__device__ __forceinline__ float grid_gather(const float* part, int KS, int Rp, int wc, int rl, int col) {
+  const float* p = part + (size_t)rl * wc + col;
+  const size_t stride = (size_t)Rp * wc;
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int ks = 0;
+  for (; ks + 4 <= KS; ks += 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j] += p[(ks + j) * stride];
+  }
+  for (; ks < KS; ++ks) s[0] += p[ks * stride];
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
 
 // One pass of a dense stage: part[ks][rl][col] = the sum over k part ks of
-// in[rl][k] * w[k][col] for the Rp = 8 P rows of the pass, w [K][wc] this
-// block's column block, read once a pass. Tile j (grid_tile's cut) brings
-// each row's k range [j kt, (j + 1) kt) through src(rl, k, n) (the address
-// of input float k of row rl, n floats on from it contiguous; null past
-// the pass's rows, whose sums are not read), 16 bytes a thread, and the
-// weight rows of that range in one bulk copy, through the ring. A thread an
-// item (k part, row tile, column group): 8 rows x 4 columns in registers
-// across the tiles.
-// Staged row rl lies at row (rl % 8) P + rl / 8 of a slot, so that a warp's
-// row tiles read other banks. The sums land in the ring once every tile has
-// been read; returns the number of k parts.
+// in[rl][k] * w[k][col] for the rows [rb, re) of the pass (Rp = 8 P slots
+// of rows), w [K][wc] this block's column block, read once a pass
+// through the ring. Tile j (grid_tile's cut)
+// brings each row's k range [j kt, (j + 1) kt) through src(r, k, n) (the
+// address of input float k of row r, n floats on from it contiguous), 16
+// bytes a thread (cp.async: a bulk copy a row segment costs the copy
+// engine more than the bytes), and the weight rows of that range in one
+// bulk copy. A
+// thread an item (k part, row tile, column group): 8 rows x 4 columns in
+// registers across the tiles. Staged row rl lies at row (rl % 8) P + rl / 8
+// of a slot, so that a warp's row tiles read other banks; the slots of rows
+// past re are not written, and their sums not read. The parts' sums land in
+// the ring once every tile has been read, and each output's sum of its
+// parts in part 0; returns 1, the parts the epilogue reads.
 template <class Src>
-__device__ __forceinline__ int grid_dense(const float* __restrict__ w, int K, int wc, int P, Src src, Ring& rg,
-                                          long long* clocks) {
+__device__ __forceinline__ int grid_dense(const float* __restrict__ w, int K, int wc, int P, const DenseTile d, int rb,
+                                          int re, Src src, Ring& rg, long long* clocks) {
   const int ncg = wc / 4, k4n = K / 4, Rp = 8 * P;
-  const DenseTile d = grid_tile(k4n, wc, P);
   const int KS = d.KS, S4 = d.S4, ld = d.ld, kt = 4 * KS * S4;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, nv = re - rb;
   const int cg = tid % ncg, rt = (tid / ncg) % P, ks = tid / (ncg * P);
   const bool active = ks < KS;
   auto fill = [&](int j, float* slot, unsigned bar) {
@@ -922,11 +1005,10 @@ __device__ __forceinline__ int grid_dense(const float* __restrict__ w, int K, in
       bulk_load(slot + (size_t)Rp * ld, w + (size_t)kb * wc, (unsigned)kl * wc * 4, bar);
     }
     // the input rows, a float4 a thread at a time (L2 hits, shared by the grid)
-    for (int i = tid; i < Rp * kq; i += THREADS) {
+    for (int i = tid; i < nv * kq; i += THREADS) {
       const int rl = i / kq, k = kb + 4 * (i - rl * kq);
       int n;
-      const float* p = src(rl, k, n);
-      if (p) cp_async16(slot + (size_t)((rl & 7) * P + (rl >> 3)) * ld + (k - kb), p);
+      cp_async16(slot + (size_t)((rl & 7) * P + (rl >> 3)) * ld + (k - kb), src(rb + rl, k, n));
     }
   };
   float acc[DR][4];
@@ -973,22 +1055,34 @@ __device__ __forceinline__ int grid_dense(const float* __restrict__ w, int K, in
       *reinterpret_cast<float4*>(rg.slots + ((size_t)(ks * Rp + rt * DR + r) * wc + 4 * cg)) =
           make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
   __syncthreads();
-  return KS;
+  // each output's k parts summed (grid_gather's order) by a thread of its
+  // own, into part 0: the epilogue then reads one sum an output
+  for (int o = tid; o < nv * wc; o += THREADS) {
+    const int rl = o / wc, col = o - rl * wc;
+    rg.slots[o] = grid_gather(rg.slots, KS, Rp, wc, rl, col);
+  }
+  __syncthreads();
+  return 1;
 }
 
-// sum over the k parts of one output of a pass, in a fixed order: four
-// chains (parts ks = 4 i + j on chain j, the rest on chain 0), as gather()
-__device__ __forceinline__ float grid_gather(const float* part, int KS, int Rp, int wc, int rl, int col) {
-  const float* p = part + (size_t)rl * wc + col;
-  const size_t stride = (size_t)Rp * wc;
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  int ks = 0;
-  for (; ks + 4 <= KS; ks += 4) {
+// a warp's (maximum, first index) pairs merged into every lane's (index V:
+// none): the larger maximum, the smaller index on a tie, so the merge is
+// the first index of the maximum in any order
+__device__ __forceinline__ void pair_max(float& best, int& bi, int V) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[j] += p[(ks + j) * stride];
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+    if (oi < V && (bi == V || ob > best || (ob == best && oi < bi))) best = ob, bi = oi;
   }
-  for (; ks < KS; ++ks) s[0] += p[ks * stride];
-  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+// A pass's row tiles published on their counters, one thread, after a
+// block barrier that gathered the others' stores: one fence, then a
+// relaxed add a counter (a release pattern, as chunk_publish's release).
+__device__ __forceinline__ void tiles_publish(unsigned* ctr, int t0, int t1) {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+  for (int t = t0; t < t1; ++t) asm volatile("red.relaxed.gpu.global.add.u32 [%0], 1;\n" ::"l"(ctr + t) : "memory");
 }
 
 // the row whose chunks hold chunk index idx: the last r with off[r] <= idx
@@ -1003,17 +1097,61 @@ __device__ __forceinline__ int chunk_row(const int* off, int B, int idx) {
   return lo;
 }
 
+// The grid layout's steps. One grid barrier in the prologue; in the steps,
+// none: each stage's writers raise a readiness counter for each row tile
+// (or row) they wrote, once a block barrier has gathered their stores
+// (chunk_publish or tiles_publish, a release), and each stage's reader
+// waits (ready_wait, an acquire) on the counters of the rows it reads:
+//   cell l     h of cell l - 1 of its row tiles, this step (l > 0);
+//   query      h of the last cell of its row tiles;
+//   scores     q of the chunk's row tile;
+//   context    every chunk maximum of the chunk's row (pass 1's counter);
+//   the merge  every chunk's part of the chunk's row (pass 2's counter);
+//   the layer  h of the last cell of its row tiles and every slice of the
+//              context of each live row of them (the merge's counter);
+//   logits     the attention vector of its row tiles, and every block's
+//              arrival after the argmax of two steps before (the pairs
+//              are double-buffered by step parity; the arrivals are
+//              counted by step parity too, or a fast block's arrivals of
+//              later steps would stand in for a lagging block's);
+//   argmax     the pairs of every row tile: the one wait on the whole grid
+//              a step (every block needs every row's token and finished
+//              flag: the chunks are cut from them).
+// A row's context is merged in slices of its columns, one by each of its
+// chunks' blocks: the chunks' sums added in chunk order, then each chunk's
+// part divided by that sum and the parts added in chunk order. A row's
+// counters count its chunks over the steps (base_s), so a row's target is
+// its chunks so far and this step's.
+// Why no write overwrites what another block still reads. A block starts
+// step s + 1 only after its argmax of step s, which waited on every row
+// tile's logits of step s; those waited (through the chain above) on every
+// read of step s but the argmax's own: each dense stage's input rows, the
+// query's and the chunks' reads (a finished row has no chunks and no
+// reader of its context; a dense stage's reads of a row tile whose rows
+// have all finished may lag, and their results are discarded). So every
+// write of step s + 1 comes after every read of step s whose result is
+// used but those of the pairs, which are double-buffered and
+// written at step s + 2 only once every block has arrived after its argmax
+// of step s. Within a step, a buffer is written before it is read, but h:
+// a cell reads its own h of the last step while its peers write this
+// step's, so h is double-buffered by step parity. The same chain orders
+// the writes of step s before the reads of step s + 1 that wait on no
+// counter of their own (the first cell's input, each cell's h of the last
+// step): their writers' stores reached the logits' writers before the
+// argmax's acquire. tests/test_torch_decoder_resident.py models the waits
+// over three steps.
 __global__ void __launch_bounds__(THREADS, 1)
 greedy_grid_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ clocks) {
   extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int G = gridDim.x, blk = blockIdx.x;
-  const int B = a.B, T = a.T, A = a.A, M = a.M, V = a.V, E = a.E, AL = a.AL, U = a.U;
+  const int B = a.B, T = a.T, A = a.A, M = a.M, V = a.V, E = a.E, AL = a.AL, U = a.U, NC = a.n_cells;
   const size_t Bp = round8(B);
-  const GridLayout L = grid_layout(B, A);
+  const int NT = (int)(Bp / 8);
+  const GridLayout L = grid_layout(B, A, a.g);
   const int lcols = a.g.st[ST_LOGITS].cols;
-  const GridWs W = grid_ws(B, A, M, AL, U, a.n_cells, G, lcols);
-  Ring rg{smem + L.ring, smem_addr(smem + L.mbar), 0u};
+  const GridWs W = grid_ws(B, A, M, AL, U, NC, G, lcols);
+  Ring rg{smem + L.ring, smem_addr(smem + L.mbar), 0u, a.g.slot};
   float* pw_s = smem + L.pw;
   float* q_s = smem + L.q;
   float* v_s = smem + L.v;
@@ -1021,8 +1159,12 @@ greedy_grid_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ 
   int* fin_s = reinterpret_cast<int*>(smem + L.fin);
   int* tl_s = reinterpret_cast<int*>(smem + L.tl);
   int* nch_s = reinterpret_cast<int*>(smem + L.nch);
+  int* base_s = reinterpret_cast<int*>(smem + L.base);
   int* off_s = reinterpret_cast<int*>(smem + L.off);
   int* changed_s = reinterpret_cast<int*>(smem + L.flag);
+  int* pf_s = changed_s + 1;
+  DenseTile* tile_s = reinterpret_cast<DenseTile*>(smem + L.tile);
+  const int K_of[N_STAGES] = {E + AL + U, 2 * U, U, U + M, AL};
   float* red_s = smem + L.red;
   float* h = a.act + W.h;
   float* cst = a.act + W.c;
@@ -1035,14 +1177,25 @@ greedy_grid_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ 
   float* pmax = a.act + W.pmax;
   int* pidx = reinterpret_cast<int*>(a.act + W.pidx);
   int* tlg = reinterpret_cast<int*>(a.act + W.tl);
-  unsigned* bar = reinterpret_cast<unsigned*>(a.act + W.bar);
+  unsigned* cnt = reinterpret_cast<unsigned*>(a.act + W.cnt);
+  unsigned* bar = cnt;                // the prologue's grid barrier
+  unsigned* done = cnt + 1;           // [2] each block's arrival after its argmax, by step parity
+  unsigned* c_h = cnt + 4;            // [NC][NT]
+  unsigned* c_q = c_h + (size_t)NC * NT;
+  unsigned* c_attn = c_q + NT;
+  unsigned* c_lg = c_attn + NT;
+  unsigned* c_p1 = c_lg + NT;         // [Bp]
+  unsigned* c_p2 = c_p1 + Bp;
+  unsigned* c_ctx = c_p2 + Bp;
   unsigned epoch = 0;
 
   for (int i = tid; i < A; i += THREADS) v_s[i] = a.v[i];
   for (int r = tid; r < (int)Bp; r += THREADS) {
     tok_s[r] = a.bos;
     fin_s[r] = r >= B;
+    base_s[r] = 0;
   }
+  if (tid < N_STAGES) tile_s[tid] = grid_tile(K_of[tid] / 4, a.g.st[tid].width, a.g.st[tid].tiles, a.g.slot);
   if (tid == 0) {
     *changed_s = 1;
     for (int i = 0; i < NSLOT; ++i) mbar_init(rg.bar0 + 8 * i, 1);
@@ -1061,13 +1214,17 @@ greedy_grid_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ 
   for (int r = tid; r < B; r += THREADS) tl_s[r] = __ldcg(tlg + r);
   __syncthreads();
 
-  // clocks (optional): SM cycles thread 0 of block 0 spent in 1 the cells'
-  // products and updates, 3 their barriers, 4 the query's product, 5 its
-  // barrier, 6 the scores and their barrier, 7 the softmax's exponentials
-  // and chunk sums and their barrier, 8 the context, 9 its barrier, 11 the
-  // attention layer's product, 12 its barrier, 13 the logits and the block's
-  // pairs, 14 their barrier and the reduction of the pairs; 15 counts the
-  // steps (0, 2 and 10 stay 0: the staging overlaps the products)
+  // clocks (optional, 19; GRID_CLOCK_NAMES): SM cycles thread 0 of block
+  // 0 spent in 1 the cells' rings and products, 3 the dense stages' waits
+  // on their inputs' counters, 4 the query's, 18 the dense stages'
+  // epilogues (the k parts' sums, the cell update, the stores), 17 their
+  // publications, 6 the scores, 7 the softmax and the context's parts, 8
+  // the attention's waits on counters, 9 the context's merge, 11 the
+  // attention layer's ring and product, 12 the logits', 13 the argmax's wait
+  // on every row tile's pairs, 14 the argmax; inside those, 0 the dense
+  // rings' fills, 16 the attention rings' fills, 5 the rings' first tile's
+  // waits (their start-up), 2 their other tiles' waits, 10 their uses; 15
+  // counts the steps
   const bool timed = clocks != nullptr && tid == 0 && blk == 0;
   long long* rclk = timed ? clocks : nullptr;  // the ring's own parts
   long long tick = timed ? clock64() : 0;
@@ -1079,21 +1236,32 @@ greedy_grid_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ 
     }
   };
   // a dense stage: this block's column block for its row group's rows, in
-  // passes; epi(first row, end row, k parts, column block, rows of the pass)
-  // reads the pass's sums
-  auto dense_stage = [&](const StageCut sc, int K, const float* w, auto src, auto epi) {
+  // passes; wait(rb, re) (warp 0) waits on the counters of the pass's input
+  // rows, epi(first row, end row, k parts, column block, rows of the pass)
+  // reads the pass's sums, then the block publishes each row tile of the
+  // pass on pub
+  auto dense_stage = [&](int si, int K, const float* w, auto src, auto wait, auto epi, unsigned* pub, int part) {
+    const StageCut sc = a.g.st[si];
     const int grp = blk / sc.cols, cb = blk - grp * sc.cols;
     if (grp >= sc.groups) return;
     const float* wb = w + (size_t)cb * K * sc.width;
     const int rend = imin(B, (grp + 1) * sc.rows), Rp = 8 * sc.tiles;
     for (int rb = grp * sc.rows; rb < rend; rb += Rp) {
       const int re = imin(rend, rb + Rp);
-      auto s = [&](int rl, int k, int& n) -> const float* { return rb + rl < re ? src(rb + rl, k, n) : nullptr; };
-      const int KS = grid_dense(wb, K, sc.width, sc.tiles, s, rg, rclk);
+      if (warp == 0) wait(rb, re);
+      __syncthreads();  // warp 0's acquire, before every thread's copies of the rows
+      lap(3);
+      const int KS = grid_dense(wb, K, sc.width, sc.tiles, tile_s[si], rb, re, src, rg, rclk);
+      lap(part);
       epi(rb, re, KS, cb, Rp);
-      __syncthreads();  // the sums are read before the next pass stages over them
+      __syncthreads();  // the pass's stores are made, and its sums read before the next pass stages over them
+      lap(18);
+      if (tid == 0) tiles_publish(pub, rb / 8, (re + 7) / 8);
+      lap(17);
     }
   };
+  const StageCut last_cut = a.g.st[NC > 1 ? ST_CELLS : ST_CELL0];
+  unsigned* c_hout = c_h + (size_t)(NC - 1) * NT;
 
   int s = 0;
   for (; s < a.steps; ++s) {
@@ -1101,6 +1269,7 @@ greedy_grid_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ 
     for (int r = tid; r < B; r += THREADS) live = live || !fin_s[r];
     if (!__syncthreads_or(live)) break;  // the same in every block
     const int cur = s & 1, nxt = cur ^ 1;
+    const unsigned now = (unsigned)s + 1;  // the counters' rounds once this step is written
     // each live row's attention in 1 + floor((G - live rows) tl / sum of tl)
     // chunks (1 each past G live rows), in row order: chunk index idx is
     // taken by block idx % G; the same in every block
@@ -1121,23 +1290,43 @@ greedy_grid_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ 
         }
         off_s[B] = off;
         *changed_s = 0;
+        // prefetch (below) a step's keys, or its memory rows, only while
+        // they fit L2 with room to spare beside the weights
+        long long wbytes = 0;
+        for (int st = 0; st < N_STAGES; ++st)
+          wbytes += (long long)(st == ST_CELLS ? NC - 1 : 1) * K_of[st] * a.g.st[st].cols * a.g.st[st].width * 4;
+        *pf_s = (wsum * A * 4 + wbytes <= L2_PREFETCH_BYTES) | (wsum * M * 4 + wbytes <= L2_PREFETCH_BYTES) << 1;
       }
       __syncthreads();
     }
     const int nchunks = off_s[B];
+    // this block's chunks' keys into L2 while the dense stages run, and
+    // (at its scores) each chunk's memory rows: the attention's reads then
+    // hit L2
+    if (tid == 0 && (*pf_s & 1))
+      for (int idx = blk; idx < nchunks; idx += G) {
+        const int r = chunk_row(off_s, B, idx), n = nch_s[r], tl = tl_s[r], cs = (tl + n - 1) / n;
+        const int t0 = imin(tl, (idx - off_s[r]) * cs), t1 = imin(tl, t0 + cs);
+        if (t1 > t0) l2_prefetch(a.keys + ((size_t)r * T + t0) * A, (unsigned)(t1 - t0) * A * 4);
+      }
 
     // the cells: each block its column block's units (4 gates each) for its rows
-    for (int l = 0; l < a.n_cells; ++l) {
-      const StageCut sc = a.g.st[l == 0 ? ST_CELL0 : ST_CELLS];
+    for (int l = 0; l < NC; ++l) {
+      const int si = l == 0 ? ST_CELL0 : ST_CELLS;
+      const StageCut sc = a.g.st[si];
       const int K = (l == 0 ? E + AL : U) + U, Us = sc.width / 4;
       float* hl = h + (size_t)l * 2 * Bp * U;
       const float* below = hl - 2 * Bp * U + (size_t)nxt * Bp * U;  // h of cell l - 1, this step
       const float* mine = hl + (size_t)cur * Bp * U;                // h of cell l, the last step
+      const unsigned below_n = now * (unsigned)a.g.st[l == 1 ? ST_CELL0 : ST_CELLS].cols;
       auto src = [&](int r, int k, int& n) -> const float* {
         if (l > 0) return k < U ? (n = U - k, below + (size_t)r * U + k) : (n = K - k, mine + (size_t)r * U + k - U);
         if (k < E) return n = E - k, a.emb + (size_t)tok_s[r] * E + k;
         if (k < E + AL) return n = E + AL - k, attn + (size_t)r * AL + k - E;
         return n = K - k, mine + (size_t)r * U + k - E - AL;
+      };
+      auto wait = [&](int rb, int re) {
+        if (l > 0) ready_wait(c_h + (size_t)(l - 1) * NT + rb / 8, (re + 7) / 8 - rb / 8, [&](int) { return below_n; });
       };
       auto epi = [&](int rb, int re, int KS, int cb, int Rp) {
         const float* bias = a.cells[2 * l + 1] + (size_t)cb * sc.width;
@@ -1154,34 +1343,31 @@ greedy_grid_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ 
           hl[((size_t)nxt * Bp + r) * U + unit] = sigmoidf(go) * tanhf(c_new);
         }
       };
-      dense_stage(sc, K, a.cells[2 * l], src, epi);
-      lap(1);
-      grid_sync(bar, epoch);
-      lap(3);
+      dense_stage(si, K, a.cells[2 * l], src, wait, epi, c_h + (size_t)l * NT, 1);
     }
-    const float* hout = h + ((size_t)(a.n_cells - 1) * 2 + nxt) * Bp * U;  // [B][U]
+    const float* hout = h + ((size_t)(NC - 1) * 2 + nxt) * Bp * U;  // [B][U]
+    const unsigned hout_n = now * (unsigned)last_cut.cols;
 
     // the query
     {
       const StageCut sc = a.g.st[ST_QUERY];
       auto src = [&](int r, int k, int& n) -> const float* { return n = U - k, hout + (size_t)r * U + k; };
+      auto wait = [&](int rb, int re) { ready_wait(c_hout + rb / 8, (re + 7) / 8 - rb / 8, [&](int) { return hout_n; }); };
       auto epi = [&](int rb, int re, int KS, int cb, int Rp) {
         for (int i = tid; i < (re - rb) * sc.width; i += THREADS) {
           const int rl = i / sc.width, j = i - rl * sc.width, col = cb * sc.width + j;
           if (col < A) qg[(size_t)(rb + rl) * A + col] = grid_gather(rg.slots, KS, Rp, sc.width, rl, j);
         }
       };
-      dense_stage(sc, U, a.wq, src, epi);
-      lap(4);
-      grid_sync(bar, epoch);
-      lap(5);
+      dense_stage(ST_QUERY, U, a.wq, src, wait, epi, c_q, 4);
     }
+    const unsigned q_n = now * (unsigned)a.g.st[ST_QUERY].cols;
 
     // attention pass 1: chunk c of row r, a contiguous run of its valid
     // positions, its keys and mask staged TP positions a tile through the
     // ring; a warp a position, its lanes over A: the scores into ws, the
     // chunk's maximum into cmax
-    const int TP = imax(1, imin(THREADS, SLOT / A));
+    const int TP = imax(1, imin(THREADS, rg.slot / A));
     for (int idx = blk; idx < nchunks; idx += G) {
       const int r = chunk_row(off_s, B, idx), c = idx - off_s[r], n = nch_s[r];
       const int tl = tl_s[r], cs = (tl + n - 1) / n, t0 = imin(tl, c * cs), t1 = imin(tl, t0 + cs);
@@ -1189,9 +1375,7 @@ greedy_grid_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ 
       const float* mkr = a.mask + (size_t)r * T;
       float* scr = a.ws + (size_t)r * T;
       const int ntiles = (t1 - t0 + TP - 1) / TP;
-      __syncthreads();  // q_s of the last chunk has been read
-      for (int i = tid; i < A / 4; i += THREADS)
-        reinterpret_cast<float4*>(q_s)[i] = __ldcg(reinterpret_cast<const float4*>(qg + (size_t)r * A) + i);
+      if (tid == 0 && (*pf_s & 2) && t1 > t0) l2_prefetch(a.mem + ((size_t)r * T + t0) * M, (unsigned)(t1 - t0) * M * 4);
       float mx = -CUDART_INF_F;
       float mk = 0.0f;  // the mask of this thread's position of the tile NSLOT - 1 ahead
       auto fill = [&](int j, float* slot, unsigned bar) {
@@ -1205,6 +1389,7 @@ greedy_grid_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ 
         else mk = x;
       };
       auto use = [&](int j, const float* slot) {
+        const int lane = tid & 31;
         const int tb = t0 + j * TP, np = imin(TP, t1 - tb);
         const float* mks = pw_s + (j % NSLOT) * THREADS;
         for (int p = warp; p < np; p += NWARPS) {
@@ -1227,73 +1412,74 @@ greedy_grid_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ 
         }
         if (j + NSLOT - 1 < ntiles) pw_s[((j + NSLOT - 1) % NSLOT) * THREADS + tid] = mk;
       };
-      ring_run(ntiles, rg, fill, use, rclk);
+      ring_start(ntiles, rg, fill);  // the keys and the mask, before q is ready
+      lap(16);
+      if (warp == 0) ready_wait(c_q + r / 8, 1, [&](int) { return q_n; });
+      lap(8);
+      __syncthreads();  // q is published
+      for (int i = tid; i < A / 4; i += THREADS)
+        reinterpret_cast<float4*>(q_s)[i] = __ldcg(reinterpret_cast<const float4*>(qg + (size_t)r * A) + i);
+      ring_rest(ntiles, rg, fill, use, rclk, 16);  // its first wait's barrier orders q_s before the uses
       mx = block_reduce<true>(mx, red_s);
-      if (tid == 0) cmax[idx] = mx;
-    }
-    lap(6);
-    grid_sync(bar, epoch);
-    lap(6);
-
-    // pass 2: the row's maximum over its chunks' (exact in any order), then
-    // exp(s - max) * mask over the chunk into ws and the chunk's sum
-    for (int idx = blk; idx < nchunks; idx += G) {
-      const int r = chunk_row(off_s, B, idx), c = idx - off_s[r], n = nch_s[r];
-      const int tl = tl_s[r], cs = (tl + n - 1) / n, t0 = imin(tl, c * cs), t1 = imin(tl, t0 + cs);
-      const float* mkr = a.mask + (size_t)r * T;
-      float* scr = a.ws + (size_t)r * T;
-      __syncthreads();  // pw_s of the last chunk has been read
-      for (int cc = tid; cc < n; cc += THREADS) pw_s[cc] = __ldcg(cmax + off_s[r] + cc);
-      __syncthreads();
-      float mx = -CUDART_INF_F;
-      for (int cc = 0; cc < n; ++cc) mx = fmaxf(mx, pw_s[cc]);
-      float sum = 0.0f;
-      for (int t = t0 + tid; t < t1; t += THREADS) {
-        const float e = expf(__ldcg(scr + t) - mx) * __ldg(mkr + t);
-        scr[t] = e;
-        sum += e;
+      if (tid == 0) {
+        cmax[idx] = mx;
+        chunk_publish(c_p1 + r);  // after block_reduce's barriers: the scores are stored
       }
-      sum = block_reduce<false>(sum, red_s);
-      if (tid == 0) csum[idx] = sum;
+      lap(6);
     }
-    lap(7);
-    grid_sync(bar, epoch);
-    lap(7);
 
-    // pass 3: each chunk's part of the context, sum over its positions of
-    // e / sum times the memory row, the row's sum of its chunks' sums taken
-    // in chunk order (the same in every block). The chunk's memory rows come
-    // TM positions a tile, whole, one bulk copy each, their weights beside
-    // (each loaded one tile ahead of use); an item (part of the tile's
-    // positions, 4 columns) a thread: part ts takes the tile's positions q
-    // with q % TS == ts, the parts added in order into pctx[chunk]
-    const int mq = M / 4, TS = imax(1, THREADS / mq), TM = imax(1, imin(THREADS, SLOT / M));
+    // pass 2: once every chunk maximum of the row is published, the row's
+    // maximum over them (exact in any order); each position's e = exp(s -
+    // max) * mask, formed as its memory row comes through the ring; the
+    // chunk's sum of e and its part of the context, the sum over its
+    // positions of e times the memory row (an item a thread: part ts of the
+    // tile's positions, those q with q % TS == ts, and 4 columns; the parts
+    // added in order), unnormalised, into csum and pctx; each chunk's block
+    // then merges a slice of the row's context (below).
+    const int mq = M / 4, TS = imax(1, THREADS / mq), TM = imax(1, imin(THREADS, rg.slot / M));
     for (int idx = blk; idx < nchunks; idx += G) {
       const int r = chunk_row(off_s, B, idx), c = idx - off_s[r], n = nch_s[r];
       const int tl = tl_s[r], cs = (tl + n - 1) / n, t0 = imin(tl, c * cs), t1 = imin(tl, t0 + cs);
       const float* Mr = a.mem + (size_t)r * T * M;
+      const float* mkr = a.mask + (size_t)r * T;
       const float* scr = a.ws + (size_t)r * T;
-      for (int cc = tid; cc < n; cc += THREADS) pw_s[cc] = __ldcg(csum + off_s[r] + cc);
-      __syncthreads();
-      float sum = 0.0f;
-      for (int cc = 0; cc < n; ++cc) sum += pw_s[cc];
-      sum = fmaxf(sum, 1e-30f);
-      __syncthreads();  // pw_s is read before the ring's weights land there
+      const unsigned row_n = (unsigned)(base_s[r] + n);
       const int ntiles = (t1 - t0 + TM - 1) / TM;
       const int ts = tid / imin(mq, THREADS), m4 = tid - ts * imin(mq, THREADS);
       const bool active = ts < TS;
-      float ev = 0.0f;  // the weight of this thread's position of the tile NSLOT - 1 ahead
+      float mx = -CUDART_INF_F, esum = 0.0f;
+      // the score and mask of this thread's position of each tile in
+      // flight, loaded with its copy and turned into e (once the row's
+      // maximum is known, then as each tile is used)
+      float xr = 0.0f, mr = 0.0f, x0 = 0.0f, m0 = 0.0f;
+      auto weight = [&](int j, float x, float mk) {  // e of this thread's position of tile j, into its slot's weights
+        const float e = tid < imin(TM, t1 - t0 - j * TM) ? expf(x - mx) * mk : 0.0f;
+        esum += e;
+        pw_s[(j % NSLOT) * THREADS + tid] = e;
+      };
       auto fill = [&](int j, float* slot, unsigned bar) {
         const int tb = t0 + j * TM, np = imin(TM, t1 - tb);
-        const unsigned bytes = tid == 0 ? (unsigned)np * M * 4 : 0u;
         if (tid == 0) {
-          mbar_expect(bar, bytes);
-          bulk_load(slot, Mr + (size_t)tb * M, bytes, bar);
+          mbar_expect(bar, (unsigned)np * M * 4);
+          bulk_load(slot, Mr + (size_t)tb * M, (unsigned)np * M * 4, bar);
         }
-        const float x = tid < np ? __ldcg(scr + tb + tid) : 0.0f;
-        if (j < NSLOT - 1) pw_s[j * THREADS + tid] = x / sum;
-        else ev = x;
+        if (j == 1) x0 = xr, m0 = mr;  // ring_start's first tile, held while its second loads
+        xr = tid < np ? __ldcg(scr + tb + tid) : 0.0f;
+        mr = tid < np ? __ldg(mkr + tb + tid) : 0.0f;
       };
+      __syncthreads();  // pw_s and the ring of the last chunk have been read
+      ring_start(ntiles, rg, fill);  // the memory rows, before the maxima are ready
+      if (ntiles == 1) x0 = xr, m0 = mr;
+      lap(16);
+      if (warp == 0) ready_wait(c_p1 + r, 1, [&](int) { return row_n; });
+      lap(8);
+      __syncthreads();  // the maxima are published
+      float* mxs = pw_s + (NSLOT - 1) * THREADS;  // the last slot's weights, not yet written: n <= G maxima
+      for (int cc = tid; cc < n; cc += THREADS) mxs[cc] = __ldcg(cmax + off_s[r] + cc);
+      __syncthreads();
+      for (int cc = 0; cc < n; ++cc) mx = fmaxf(mx, mxs[cc]);
+      if (ntiles > 0) weight(0, x0, m0);
+      if (ntiles > 1) weight(1, xr, mr);
       float4 acc[2] = {make_float4(0.0f, 0.0f, 0.0f, 0.0f), make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
       auto use = [&](int j, const float* slot) {
         const int np = imin(TM, t1 - t0 - j * TM);
@@ -1314,51 +1500,71 @@ greedy_grid_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ 
             }
             acc[h2] = s4;
           }
-        if (j + NSLOT - 1 < ntiles) pw_s[((j + NSLOT - 1) % NSLOT) * THREADS + tid] = ev / sum;
+        if (j + NSLOT - 1 < ntiles) weight(j + NSLOT - 1, xr, mr);
       };
-      ring_run(ntiles, rg, fill, use, rclk);
+      ring_rest(ntiles, rg, fill, use, rclk, 16);  // its first wait's barrier orders the weights before the uses
       float* part = rg.slots;  // [TS][M], every tile read
       if (active)
         for (int h2 = 0; h2 < 2 && m4 + h2 * THREADS < mq; ++h2)
           reinterpret_cast<float4*>(part + (size_t)ts * M)[m4 + h2 * THREADS] = acc[h2];
-      __syncthreads();
+      esum = block_reduce<false>(esum, red_s);  // its barriers also order the parts' stores before their reads
       for (int m = tid; m < M; m += THREADS) {
         float cv = part[m];
         for (int p = 1; p < TS; ++p) cv += part[(size_t)p * M + m];
         pctx[(size_t)idx * M + m] = cv;
       }
-      __syncthreads();  // part is read before the ring is filled again
+      if (tid == 0) csum[idx] = esum;
+      __syncthreads();  // part is read before the ring is filled again; the chunk's stores are made
+      if (tid == 0) chunk_publish(c_p2 + r);
+      lap(7);
     }
-    lap(8);
-    grid_sync(bar, epoch);
-    // the context of every live row: its chunks' parts added in chunk order,
-    // the rows' float4 columns spread over the grid
-    for (int o = blk * THREADS + tid; o < B * mq; o += G * THREADS) {
-      const int r = o / mq, m4 = o - r * mq;
-      const int n = nch_s[r];
-      if (n == 0) continue;
-      const float4* pr = reinterpret_cast<const float4*>(pctx + (size_t)off_s[r] * M) + m4;
-      float4 cv = __ldcg(pr);
-      for (int c0 = 1; c0 < n; c0 += 4) {  // four loads in flight, then added in order
-        float4 x[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c0 + j < n) x[j] = __ldcg(pr + (size_t)(c0 + j) * mq);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c0 + j < n) cv.x += x[j].x, cv.y += x[j].y, cv.z += x[j].z, cv.w += x[j].w;
+    // the merge, once every chunk of a row is stored: each chunk's block its
+    // slice of the row's context columns, each element the chunks' parts
+    // over the row's sum (its chunks' sums in chunk order), added in chunk
+    // order. After every part of this block's chunks: a block that waited
+    // here between its chunks could wait on one of its own later chunks
+    // through another block doing the same.
+    for (int idx = blk; idx < nchunks; idx += G) {
+      const int r = chunk_row(off_s, B, idx), c = idx - off_s[r], n = nch_s[r], o = off_s[r];
+      const unsigned row_n = (unsigned)(base_s[r] + n);
+      const int per = (mq + n - 1) / n, q0 = imin(mq, c * per), q1 = imin(mq, q0 + per);  // this chunk's float4s
+      if (warp == 0) ready_wait(c_p2 + r, 1, [&](int) { return row_n; });
+      lap(8);
+      __syncthreads();  // every part of the row is published; the ring and pw_s are free
+      // the slice's parts ([n][w] float4s) and the chunks' sums staged by
+      // every thread at once, then added in chunk order from shared memory
+      const int w = q1 - q0;
+      float4* stg = reinterpret_cast<float4*>(rg.slots);  // n w <= mq + n float4s
+      for (int i = tid; i < n * w; i += THREADS) {
+        const int cc = i / w;
+        stg[i] = __ldcg(reinterpret_cast<const float4*>(pctx + (size_t)(o + cc) * M) + q0 + i - cc * w);
       }
-      reinterpret_cast<float4*>(ctx + (size_t)r * M)[m4] = cv;
+      for (int cc = tid; cc < n; cc += THREADS) pw_s[cc] = __ldcg(csum + o + cc);
+      __syncthreads();
+      float sum = 0.0f;
+      for (int cc = 0; cc < n; ++cc) sum += pw_s[cc];
+      sum = fmaxf(sum, 1e-30f);
+      for (int q = tid; q < w; q += THREADS) {
+        float4 cv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int cc = 0; cc < n; ++cc) {
+          const float4 x = stg[cc * w + q];
+          cv.x += x.x / sum, cv.y += x.y / sum, cv.z += x.z / sum, cv.w += x.w / sum;
+        }
+        reinterpret_cast<float4*>(ctx + (size_t)r * M)[q0 + q] = cv;
+      }
+      __syncthreads();  // the slice is stored, the staging read
+      if (tid == 0) chunk_publish(c_ctx + r);
+      lap(9);
     }
-    lap(8);
-    grid_sync(bar, epoch);
-    lap(9);
-
     // the attention vector, from [h; context]
     {
       const StageCut sc = a.g.st[ST_LAYER];
       auto src = [&](int r, int k, int& n) -> const float* {
         return k < U ? (n = U - k, hout + (size_t)r * U + k) : (n = U + M - k, ctx + (size_t)r * M + k - U);
+      };
+      auto wait = [&](int rb, int re) {
+        ready_wait(c_hout + rb / 8, (re + 7) / 8 - rb / 8, [&](int) { return hout_n; });
+        ready_wait(c_ctx + rb, re - rb, [&](int i) { return fin_s[rb + i] ? 0u : (unsigned)(base_s[rb + i] + nch_s[rb + i]); });
       };
       auto epi = [&](int rb, int re, int KS, int cb, int Rp) {
         for (int i = tid; i < (re - rb) * sc.width; i += THREADS) {
@@ -1366,48 +1572,61 @@ greedy_grid_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ 
           if (col < AL) attn[(size_t)(rb + rl) * AL + col] = grid_gather(rg.slots, KS, Rp, sc.width, rl, j);
         }
       };
-      dense_stage(sc, U + M, a.attn_w, src, epi);
-      lap(11);
-      grid_sync(bar, epoch);
-      lap(12);
+      dense_stage(ST_LAYER, U + M, a.attn_w, src, wait, epi, c_attn, 11);
     }
 
     // the logits of each column block, and its (maximum, first index) of each row
+    float* pmx = pmax + (size_t)cur * pad4(Bp * lcols);
+    int* pix = pidx + (size_t)cur * pad4(Bp * lcols);
     {
       const StageCut sc = a.g.st[ST_LOGITS];
+      const unsigned attn_n = now * (unsigned)a.g.st[ST_LAYER].cols;
+      const unsigned done_n = (unsigned)(s / 2) * (unsigned)G;  // the arrivals after steps s - 2, s - 4, ...
       auto src = [&](int r, int k, int& n) -> const float* { return n = AL - k, attn + (size_t)r * AL + k; };
-      auto epi = [&](int rb, int re, int KS, int cb, int Rp) {
-        for (int rl = tid; rl < re - rb; rl += THREADS) {
+      auto wait = [&](int rb, int re) {
+        ready_wait(done + cur, 1, [&](int) { return done_n; });  // the pairs of step s - 2 are read
+        ready_wait(c_attn + rb / 8, (re + 7) / 8 - rb / 8, [&](int) { return attn_n; });
+      };
+      auto epi = [&](int rb, int re, int KS, int cb, int Rp) {  // a warp a row, its lanes over the columns
+        const int lane = tid & 31;
+        for (int rl = warp; rl < re - rb; rl += NWARPS) {
           float best = -CUDART_INF_F;
           int bi = V;
-          for (int j = 0; j < sc.width && cb * sc.width + j < V; ++j) {
+          for (int j = lane; j < sc.width && cb * sc.width + j < V; j += 32) {
             const float x = grid_gather(rg.slots, KS, Rp, sc.width, rl, j) + __ldg(a.out_b + cb * sc.width + j);
             if (x > best || bi == V) best = x, bi = cb * sc.width + j;
           }
-          pmax[(size_t)(rb + rl) * lcols + cb] = best;
-          pidx[(size_t)(rb + rl) * lcols + cb] = bi;
+          pair_max(best, bi, V);
+          if (lane == 0) {
+            pmx[(size_t)(rb + rl) * lcols + cb] = best;
+            pix[(size_t)(rb + rl) * lcols + cb] = bi;
+          }
         }
       };
-      dense_stage(sc, AL, a.out_w, src, epi);
-      lap(13);
-      grid_sync(bar, epoch);
+      dense_stage(ST_LOGITS, AL, a.out_w, src, wait, epi, c_lg, 12);
     }
     // every block reduces the pairs of every row in column block order, the
     // smallest index winning a tie: all hold the same tokens and flags
+    const unsigned lg_n = now * (unsigned)lcols;
+    if (warp == 0) ready_wait(c_lg, NT, [&](int) { return lg_n; });
+    lap(13);
+    __syncthreads();
     for (int r = tid; r < B; r += THREADS) {
       float best = -CUDART_INF_F;
       int bi = V;
       for (int p = 0; p < lcols; ++p) {
-        const float ob = __ldcg(pmax + (size_t)r * lcols + p);
-        const int oi = __ldcg(pidx + (size_t)r * lcols + p);
+        const float ob = __ldcg(pmx + (size_t)r * lcols + p);
+        const int oi = __ldcg(pix + (size_t)r * lcols + p);
         if (oi < V && (bi == V || ob > best || (ob == best && oi < bi))) best = ob, bi = oi;
       }
       const int token = fin_s[r] ? a.eos : bi;
+      base_s[r] += nch_s[r];
       tok_s[r] = token;
       if (!fin_s[r] && token == a.eos) fin_s[r] = 1, *changed_s = 1;
       if (blk == 0) tokens[(size_t)r * a.steps + s] = token;
     }
     __syncthreads();
+    if (tid == 0) chunk_publish(done + cur);
     lap(14);
     if (timed) clocks[15] += 1;
   }
@@ -1419,12 +1638,15 @@ greedy_grid_kernel(DecArgs a, int* __restrict__ tokens, long long* __restrict__ 
 
 // the grid layout's cut: every stage's blocks within the grid, its column
 // blocks covering its columns (a cell's units), its row groups the batch,
-// an item a thread
+// an item a thread, each pass's tiles and sums within the ring, the
+// scores' and the context's tiles within a slot
 bool bad_grid(const DecArgs& a) {
   const GridCut& g = a.g;
   if (a.C < 1 || a.act == nullptr || a.ws == nullptr) return true;
   if (a.M > 8 * THREADS) return true;  // the context: two float4 columns a thread at most
+  if (g.slot < a.A || g.slot < a.M || g.slot % 4 || (long long)NSLOT * g.slot < 4LL * THREADS) return true;
   const int outs[N_STAGES] = {a.U, a.U, a.A, a.AL, a.V};  // units (the cells) or columns
+  const int ks[N_STAGES] = {a.E + a.AL + a.U, 2 * a.U, a.U, a.U + a.M, a.AL};
   for (int i = 0; i < N_STAGES; ++i) {
     const StageCut& c = g.st[i];
     if (c.cols < 1 || c.groups < 1 || (long long)c.cols * c.groups > a.C) return true;
@@ -1432,8 +1654,12 @@ bool bad_grid(const DecArgs& a) {
     if (c.rows < DR || c.rows % DR || (long long)c.rows * c.groups < a.B) return true;
     if (c.tiles < 1 || c.tiles > MAX_TILES || c.tiles * (c.width / 4) > THREADS) return true;
     if ((long long)c.cols * (i < ST_QUERY ? c.width / 4 : c.width) < outs[i]) return true;
+    const DenseTile d = grid_tile(ks[i] / 4, c.width, c.tiles, g.slot);
+    const long long kt = 4LL * d.KS * d.S4, rp = 8LL * c.tiles;
+    if (rp * d.ld + kt * c.width > g.slot) return true;
+    if ((long long)d.KS * rp * c.width > (long long)NSLOT * g.slot) return true;
   }
-  return grid_layout(a.B, a.A).total * sizeof(float) > SMEM_MAX;
+  return grid_layout(a.B, a.A, g).total * sizeof(float) > SMEM_MAX;
 }
 
 bool bad_shape(const DecArgs& a, int layout) {
@@ -1483,7 +1709,7 @@ int launch_held(const DecArgs& a, int* tokens, int* info, long long* clocks, cud
 // The grid layout: a cooperative launch of `cluster` blocks, refused
 // (cudaErrorCooperativeLaunchTooLarge) unless the card holds them all at once.
 int launch_grid(const DecArgs& a, int* tokens, int* info, long long* clocks, cudaStream_t stream) {
-  const size_t smem = grid_layout(a.B, a.A).total * sizeof(float);
+  const size_t smem = grid_layout(a.B, a.A, a.g).total * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(greedy_grid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int dev = 0, sms = 0, per_sm = 0;
@@ -1521,7 +1747,8 @@ int launch_grid(const DecArgs& a, int* tokens, int* info, long long* clocks, cud
 // or the grid (1) layout. The held layout: wq, attn_w and the cells' weights
 // are regrouped into `cluster` column slices (see DecArgs); `act`, `ws` and
 // `cut` are null. The grid layout: `cluster` is the grid's blocks, `cut` its
-// GridCut as ints (each stage's cols, width, groups, rows, tiles), wq,
+// GridCut as CUT_INTS ints (each stage's cols, width, groups, rows, tiles;
+// then the ring's slot), wq,
 // attn_w, each cell's weights and bias, out_w and out_b regrouped into each
 // stage's column blocks ([cols][K][width], the bias and out_b
 // [cols][width]), `act` the workspace (grid_ws, zeroed by the caller), `ws`
@@ -1531,7 +1758,8 @@ int launch_grid(const DecArgs& a, int* tokens, int* info, long long* clocks, cud
 // blocks it holds at once), info[1] = dynamic shared memory bytes a block
 // (dec_layout's or grid_layout's, all the shared memory the kernel uses),
 // info[2] = registers a thread, info[3] = static shared memory bytes (0);
-// clocks is null or 16 cycle counters the kernel adds to (see the kernels).
+// clocks is null or 16 cycle counters (the grid layout's: 19) the kernel
+// adds to (see the kernels).
 // A shape whose layout passes SMEM_MAX, or a cut that does not cover the
 // shape, returns cudaErrorInvalidValue; the wrapper's decoder_plan refuses
 // it first.
@@ -1550,6 +1778,7 @@ extern "C" int plt_greedy_decode(const float* keys, const float* mem, const floa
     if (cut == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     for (int i = 0; i < N_STAGES; ++i) a.g.st[i] = StageCut{cut[5 * i], cut[5 * i + 1], cut[5 * i + 2], cut[5 * i + 3],
                                                             cut[5 * i + 4]};
+    a.g.slot = cut[CUT_INTS - 1];
   }
   if (bad_shape(a, layout)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -17,24 +17,32 @@ with V / C (``decoder_smem_bytes``) and the phone vocabularies fit. A group
 stops when all its rows have emitted <eos>; the last group is padded with
 rows that start finished.
 
-Wherever the held layout does not fit a block (the speller widths of
+The grid layout (``csrc/greedy.cu::greedy_grid_kernel``): one cooperative
+launch of one block an SM, every block in every stage of a step, no grid
+barrier between them: each stage's writers raise readiness counters of
+the row tiles (or rows) they wrote and its readers wait on those of the
+rows they read. Each dense stage's columns are cut over the grid
+(``grid_cuts``: column blocks, and row groups where they cut the blocks'
+intake), so a weight is read once a step for the whole batch (holding
+each block's weights in its shared memory for the launch was measured
+slower: the ring it leaves is smaller); each live row's attention is cut
+over the grid in chunks of positions in proportion to its length
+(``grid_chunks``): the chunks' maxima, then each chunk's sum and
+unnormalised part of the context, merged in slices of columns by the
+row's chunks' blocks (each part over the row's sum, in chunk order). It
+takes every encoder length and spellers up to U = A = AL = 2048, M =
+4096, and stops when every row has emitted <eos>. Every block keeps each row's flags in its shared memory, so a
+launch takes at most ``grid_rows`` rows (2,920 at A = 1024, 2,584 at A =
+2048); a larger batch is decoded in passes of rows, a launch each
+(``DecoderPlan.passes``), so no batch size is refused.
+The plan (``decoder_plan``) takes, at each shape, the layout whose step
+is the shorter by a model fitted to the card's readings (``step_us``,
+``HELD_MODEL``, ``GRID_MODEL``): on an NVIDIA H100 the held layout at the
+serving shapes, the grid at offline B = 256, at the LAS paper's speller
+and wherever the held layout does not fit (the speller widths of
 LAS-4-1024, U = A = 1024, M = 2048; encoder lengths past a few thousand;
-vocabularies past a few thousand entries), the plan takes the grid layout
-(``csrc/greedy.cu::greedy_grid_kernel``): one cooperative launch of one
-block an SM, every block in every stage of a step, a grid barrier after
-each. Each dense stage's columns are cut over the grid (``grid_cuts``:
-column blocks, and row groups where they cut the blocks' intake), so a
-weight is read once a step for the whole batch; each live row's attention
-is cut over the grid in chunks of positions in proportion to its length
-(``grid_chunks``), a two-pass softmax over the chunks' maxima and sums,
-the chunks' parts of the context merged in chunk order. It takes every
-encoder length and spellers up to U = A = AL = 2048, M = 4096, and stops
-when every row has emitted <eos>. Every block keeps each row's flags in its
-shared memory, so a launch takes at most ``grid_rows`` rows (3,512 at
-A = 1024, 3,104 at A = 2048); a larger batch is decoded in passes of rows,
-a launch each (``DecoderPlan.passes``), so no batch size is refused.
-``decoder_plan(..., layout="grid")`` forces the grid layout where the held
-one fits, for a reading of the two in turns.
+vocabularies past a few thousand entries). ``layout`` forces one
+(``LAYOUTS``), for readings in turns.
 Every width runs: a width that is no multiple of the kernel's
 granularity is zero padded (``ops/padding.py``, exact) to one that a plan
 takes (``kernel_widths``). The layout work the kernel needs
@@ -52,9 +60,12 @@ Bounds on the H100 at the main path's shape (B = 64, T = 250, 200 steps,
 2 × 256 cells): about 3.3 MFLOP of float32 per row and step, ≈ 0.6 ms at
 67 TFLOP/s when every row runs to the cap — if the operands lay on chip.
 The weights (≈ 5.6 MB) and a row's keys and memory (768 KB) exceed a
-cluster's shared memory, so they stream from L2 each step: ≈ 94 MB a step
-at B = 64, which at ≈ 5.5 TB/s is the design's own floor of ≈ 17 µs a
-step (3.4 ms for 200 steps).
+cluster's shared memory, so the held layout streams them from L2 each
+step: ≈ 94 MB a step at B = 64, which at ≈ 5.5 TB/s is its own floor of
+≈ 17 µs a step (3.4 ms for 200 steps). The grid layout reads the
+weights once a step (L2-resident), so its floor is about the keys and
+memory, 49 MB a step (9–15 µs), and what bounds it is its chain of
+dependent stages.
 
 Reproduced exactly from the reference kernel: the forget bias
 hard-coded to 1.0, float32 dots, and the masked softmax
@@ -65,6 +76,7 @@ hard-coded to 1.0, float32 dots, and the masked softmax
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from types import SimpleNamespace
 from typing import TYPE_CHECKING, List, NamedTuple, Optional, Tuple
@@ -89,13 +101,17 @@ CLOCK_NAMES = (
     "scores", "softmax", "context", "context_exchange", "layer_staging", "layer_product",
     "layer_exchange", "logits", "argmax", "steps",
 )
-# the grid layout's counters: the ring's fills, waits and uses (every streamed
-# stage's, counted inside the others), the stages, the barriers
+# the grid layout's counters: the stages (each with its ring), the waits on
+# readiness counters (the dense stages' for their input rows, the
+# attention's, the argmax's for every row tile's pairs), the context's
+# merge; inside the stages, the ring's fills, its first tile's waits (its
+# start-up), its other tiles' waits and its uses
 GRID_CLOCK_NAMES = (
-    "ring_fill", "cells", "ring_wait", "cell_barriers", "query_product", "query_barrier", "scores",
-    "softmax", "context", "context_merge_barrier", "ring_use", "layer_product", "layer_barrier", "logits",
-    "argmax", "steps",
+    "dense_fill", "cells", "ring_wait", "dense_waits", "query", "ring_first_wait", "scores",
+    "softmax_context", "attention_waits", "context_merge", "ring_use", "layer", "logits", "argmax_wait",
+    "argmax", "steps", "attention_fill", "dense_publish", "dense_epilogue",
 )
+CLOCKS = len(GRID_CLOCK_NAMES)  # the counters a measurement hands _launch (the held layout's 16 first)
 
 
 def supports(cfg: "SpellerConfig") -> bool:
@@ -165,15 +181,29 @@ def _pad4(n: int) -> int:
 
 # the grid layout (csrc/greedy.cu's constants of the same names)
 GRID_BLOCKS = 132  # blocks of the grid on an H100 SXM: one a streaming multiprocessor
-SLOT = 12288  # floats of a slot of the ring that stages every streamed operand
+SLOT_STREAMED = 12288  # the smallest slot of a launch (grid_rows)
+SLOT_MAX = 16384  # floats of a slot at most: a cell's pass at the checkpoint's widths in two tiles
 NSLOT = 3  # slots of the ring: two tiles in flight while one is used
 KS_MAX = 32  # most parts a dense stage's k is split into
 MAX_TILES = 128  # most row tiles of 8 in one pass of a dense stage
-# the layouts a caller may ask for: None the plan (held where it fits, else
-# grid), "grid" the grid layout at every shape
-LAYOUTS = (None, "grid")
+CUT_INTS = 26  # the C API's cut: each stage's five numbers, then the slot's floats
+# the layouts a caller may ask for: None the plan (the faster of the held
+# layout and the grid layout by the step model), "held" the held layout,
+# "grid" the grid layout
+LAYOUTS = (None, "held", "grid")
 # the grid layout's dense stages, in the order of GridPlan.stages
 GRID_STAGES = ("first cell", "other cells", "query", "attention layer", "logits")
+
+# The step model, µs a step, that chooses the layout (``step_us``): the
+# held layout waves · (a + bytes a block · (1 / r1 + blocks at once / r2))
+# (its weights over the cluster and its rows' keys and memory, from L2
+# shared by the clusters); the grid layout a0 + a1 · cells (the chain of
+# dependent stages) + c · the ring's round trips a block (each dense
+# stage's tiles, its share of the attention's tiles of keys and memory)
+# + its FMAs a block / f. Fitted to ``chip_smoke.py --sweep-decoder``'s
+# readings on an NVIDIA H100 80GB HBM3 (PERF.md, section 6).
+HELD_MODEL = (23.5, 42.1e3, 4.92e6)  # a µs, r1 bytes/µs, r2 bytes/µs
+GRID_MODEL = (45.2, 10.0, 2.73, 385e3)  # a0 µs, a1 µs a cell, c µs a round trip, f FMAs/µs
 
 
 class StageCut(NamedTuple):
@@ -196,10 +226,11 @@ class GridPlan(NamedTuple):
 
     blocks: int  # blocks of the grid, all co-resident
     stages: Tuple[StageCut, ...]  # GRID_STAGES' cuts
+    slot: int = SLOT_MAX  # floats of a slot of the ring
 
     def flat(self) -> List[int]:
-        """The C API's ``cut`` argument: each stage's five numbers."""
-        return [x for st in self.stages for x in st]
+        """The C API's ``cut`` argument: each stage's five numbers, the slot."""
+        return [x for st in self.stages for x in st] + [self.slot]
 
 
 class DenseTile(NamedTuple):
@@ -214,15 +245,30 @@ class DenseTile(NamedTuple):
     ntiles: int
 
 
-def grid_tile(k4n: int, wc: int, tiles: int) -> DenseTile:
+def grid_tile(k4n: int, wc: int, tiles: int, slot: int = SLOT_MAX) -> DenseTile:
     """The cut of a pass whose k has ``k4n`` float4s, with a column block
     of ``wc`` columns and ``tiles`` row tiles: at most ``KS_MAX`` parts, as
-    many as the threads hold and a slot holds one float4 of each (its input
-    rows and its 4 weight rows), the tile as deep as a slot holds."""
+    many as the threads hold, each part ``s4`` float4s of a tile as deep as
+    a slot of ``slot`` floats holds (its input rows and its weight rows);
+    of those, the cut of the fewest tiles (each a round trip through the
+    ring), then of the most parts."""
     rp = 8 * tiles
-    ks = max(1, min(KS_MAX, THREADS // (wc // 4 * tiles), k4n, (SLOT - 4 * rp) // (4 * rp + 4 * wc)))
-    s4 = max(1, min(-(-k4n // ks), (SLOT - 4 * rp) // (4 * ks * (rp + wc))))
-    return DenseTile(ks, s4, 4 * ks * s4 + 4, -(-k4n // (ks * s4)))
+    avail = (slot - 4 * rp) // (4 * (rp + wc))  # float4s of k a slot holds
+    best = None
+    for ks in range(max(1, min(KS_MAX, THREADS // (wc // 4 * tiles), k4n)), 0, -1):
+        s4 = max(1, min(-(-k4n // ks), avail // ks))
+        n = -(-k4n // (ks * s4))
+        if best is None or n < best.ntiles:
+            best = DenseTile(ks, s4, 4 * ks * s4 + 4, n)
+    return best
+
+
+def _tile_fits(k: int, st: "StageCut", slot: int) -> bool:
+    """A pass's tile within a slot and its k parts' sums within the ring
+    (``csrc/greedy.cu::bad_grid``)."""
+    tile = grid_tile(k // 4, st.width, st.tiles, slot)
+    rp = 8 * st.tiles
+    return rp * tile.ld + 4 * tile.parts * tile.s4 * st.width <= slot and tile.parts * rp * st.width <= NSLOT * slot
 
 
 def grid_part_k4(k4n: int, tile: DenseTile) -> List[List[int]]:
@@ -261,17 +307,55 @@ def _stage_cut(b: int, n: int, grid: int, cells: bool) -> Optional[StageCut]:
     return best
 
 
+def _stage_n(cfg) -> Tuple[int, ...]:
+    """Each dense stage's outputs: units (the cells) or columns."""
+    return (cfg.units, cfg.units, cfg.attention_units, cfg.attention_layer_size, cfg.vocab_size)
+
+
+def _stage_mult(cfg) -> Tuple[int, ...]:
+    """How many weight matrices each dense stage's cut serves: the other
+    cells' is their number."""
+    return (1, cfg.num_layers - 1, 1, 1, 1)
+
+
+def _grid_fixed_floats(b: int, cfg) -> int:
+    """Floats of a grid block's shared memory but the ring: the slots'
+    barriers, each slot's mask or context weights, q and v of a row, every
+    row's fed token, finished flag, length, chunks, chunks before this step
+    and first chunk (B + 1), the flags, the reduction, each stage's tile
+    cut."""
+    return (_pad4(2 * NSLOT) + NSLOT * THREADS + 2 * _pad4(cfg.attention_units) + 5 * round_up(b, 8)
+            + round_up(b + 1, 8) + 4 + 64 + 4 * len(GRID_STAGES))
+
+
+def _slot(b: int, cfg) -> int:
+    """The largest slot (at most ``SLOT_MAX``) whose ring fits a block beside
+    the rows' flags."""
+    return min(SLOT_MAX, (SMEM_MAX // 4 - _grid_fixed_floats(b, cfg)) // NSLOT // 4 * 4)
+
+
+def _fit_tiles(k: int, st: StageCut, slot: int) -> Optional[StageCut]:
+    """The cut with as many row tiles a pass (at most its own) as a slot holds."""
+    for tiles in range(st.tiles, 0, -1):
+        if _tile_fits(k, st._replace(tiles=tiles), slot):
+            return st._replace(tiles=tiles)
+    return None
+
+
 def grid_cuts(b: int, cfg, grid: int = GRID_BLOCKS) -> Optional[GridPlan]:
     """The grid layout's cut of a batch of ``b`` rows over ``grid`` blocks
     (a pure function of the batch and the widths; no encoder length
-    enters): the five dense stages' cuts. None where a stage cannot be
+    enters): the five dense stages' cuts, and the ring's slot, as large as
+    fits beside the rows' flags (``_slot``). None where a stage cannot be
     cut."""
     u, a, al, v = cfg.units, cfg.attention_units, cfg.attention_layer_size, cfg.vocab_size
     stages = (_stage_cut(b, u, grid, True), _stage_cut(b, u, grid, True), _stage_cut(b, a, grid, False),
               _stage_cut(b, al, grid, False), _stage_cut(b, v, grid, False))
-    if b < 1 or grid < 1 or any(st is None for st in stages):
+    slot = _slot(b, cfg)
+    if b < 1 or grid < 1 or any(st is None for st in stages) or slot < SLOT_STREAMED:
         return None
-    return GridPlan(grid, stages)
+    stages = tuple(_fit_tiles(k, st, slot) for k, st in zip(grid_stage_k(cfg), stages))
+    return GridPlan(grid, stages, slot) if all(stages) else None
 
 
 def grid_stage_k(cfg) -> Tuple[int, ...]:
@@ -288,14 +372,8 @@ def decoder_smem_bytes(b: int, t: int, cfg, c: int, grid: Optional[GridPlan] = N
     ``grid_layout`` (the held layout's the same at every batch ``b``; the
     grid layout's the same at every ``t``). ``cfg`` is a ``SpellerConfig``
     or ``DecoderWidths``."""
-    if grid is not None:
-        # the ring's slots and their barriers, each slot's mask or context
-        # weights, q and v of a row, every row's fed token, finished flag,
-        # length, chunks and first chunk (B + 1), the flag of a finished row,
-        # the reduction
-        floats = (NSLOT * SLOT + 8 + NSLOT * THREADS + 2 * _pad4(cfg.attention_units) + 4 * round_up(b, 8)
-                  + round_up(b + 1, 8) + 4 + 64)
-        return 4 * floats
+    if grid is not None:  # the ring's slots, then the rest (_grid_fixed_floats)
+        return 4 * (NSLOT * grid.slot + _grid_fixed_floats(b, cfg))
     e, u, a, al = cfg.embedding_dim, cfg.units, cfg.attention_units, cfg.attention_layer_size
     m, n_cells, r = cfg.memory_dim, cfg.num_layers, GROUP_ROWS
     vc = _pad4(-(-cfg.vocab_size // c))  # vocabulary columns a block owns
@@ -312,11 +390,11 @@ def decoder_smem_bytes(b: int, t: int, cfg, c: int, grid: Optional[GridPlan] = N
 
 
 def grid_rows(cfg) -> int:
-    """The most rows one grid launch takes: the largest multiple of 8 whose
-    flags (``decoder_smem_bytes``' five ints a row) fit a block beside the
-    ring; 0 where none do."""
-    fixed = decoder_smem_bytes(0, 1, cfg, 1, grid=GridPlan(0, ())) // 4 - 8  # the floats no row adds
-    return max(0, (SMEM_MAX // 4 - fixed - 8) // 5 // 8 * 8)
+    """The most rows one grid launch takes: the
+    largest multiple of 8 whose flags (six ints a row) fit a block beside
+    a ring of ``SLOT_STREAMED`` floats a slot; 0 where none do."""
+    fixed = NSLOT * SLOT_STREAMED + _grid_fixed_floats(0, cfg) - 8  # the floats no row adds
+    return max(0, (SMEM_MAX // 4 - fixed - 8) // 6 // 8 * 8)
 
 
 def grid_act_floats(b: int, cfg, plan: GridPlan) -> int:
@@ -325,11 +403,14 @@ def grid_act_floats(b: int, cfg, plan: GridPlan) -> int:
     [2][B][U] and c [B][U], the attention vector [B][AL], q [B][A], the
     context [B][M], the chunks' maxima, sums and parts of the context (at
     most max(B, blocks) chunks), the logits' column blocks' (maximum,
-    index) pairs [B][cols], every row's length, the barrier's counter."""
+    index) pairs [2][B][cols] (by step parity), every row's length, the
+    counters (the prologue's barrier, the argmax's arrivals, each row
+    tile's of h of each cell, q, the attention vector and the pairs, each
+    row's of its chunks' maxima, parts and context)."""
     bp, n = round_up(b, 8), cfg.num_layers
     cl, chunks = plan.stages[-1].cols, _pad4(max(bp, plan.blocks))
     return (3 * n * bp * cfg.units + bp * (cfg.attention_layer_size + cfg.attention_units + cfg.memory_dim)
-            + chunks * (2 + cfg.memory_dim) + 2 * _pad4(bp * cl) + bp + 4)
+            + chunks * (2 + cfg.memory_dim) + 4 * _pad4(bp * cl) + bp + _pad4(4 + (n + 3) * bp // 8 + 3 * bp))
 
 
 class DecoderPlan(NamedTuple):
@@ -345,6 +426,11 @@ class DecoderPlan(NamedTuple):
     def layout(self) -> int:
         """The C API's layout argument: 0 held, 1 grid."""
         return int(self.grid is not None)
+
+    @property
+    def name(self) -> str:
+        """"held" or "grid"."""
+        return "held" if self.grid is None else "grid"
 
 
 def _cuts(cfg) -> List[int]:
@@ -371,21 +457,84 @@ def _grid_fit(b: int, cfg, blocks: int) -> Optional[DecoderPlan]:
     return None if g is None else DecoderPlan(1, GROUP_ROWS, -(-b // GROUP_ROWS), grid=g, passes=passes)
 
 
+def _dense_weights(cfg) -> int:
+    """Floats of the dense stages' weights a step reads."""
+    return sum(m * k * n * (4 if i < 2 else 1)
+               for i, (m, k, n) in enumerate(zip(_stage_mult(cfg), grid_stage_k(cfg), _stage_n(cfg))))
+
+
+def grid_step_terms(b: int, t: int, cfg, g: GridPlan) -> Tuple[float, float]:
+    """What the grid layout's step model counts for ``b`` rows of ``t``
+    positions: a block's round trips through the ring (each dense stage's
+    passes of tiles, its share of the attention's tiles of keys and of
+    memory rows) and its FMAs."""
+    mult, ks = _stage_mult(cfg), grid_stage_k(cfg)
+    a, m = cfg.attention_units, cfg.memory_dim
+    trips = sum(mu * -(-st.rows // (8 * st.tiles)) * grid_tile(k // 4, st.width, st.tiles, g.slot).ntiles
+                for mu, k, st in zip(mult, ks, g.stages))
+    pos = b * t / g.blocks  # a block's positions a step
+    trips += -(-pos // max(1, g.slot // a)) + -(-pos // max(1, g.slot // m))
+    fma = sum(mu * k * st.width * st.rows for mu, k, st in zip(mult, ks, g.stages))
+    return trips, fma
+
+
+def _grid_step_us(b: int, t: int, cfg, g: GridPlan) -> float:
+    """The grid layout's modelled µs a step (GRID_MODEL): its chain, its
+    most loaded block's round trips and FMAs (``grid_step_terms``)."""
+    a0, a1, c, f = GRID_MODEL
+    trips, fma = grid_step_terms(b, t, cfg, g)
+    return a0 + a1 * cfg.num_layers + c * trips + fma / f
+
+
+def step_us(b: int, t: int, cfg, plan: DecoderPlan, grid: int = GRID_BLOCKS) -> float:
+    """The step model: a plan's modelled µs a step at ``b`` rows of ``t``
+    encoder positions (HELD_MODEL, GRID_MODEL), a pass of rows after
+    another."""
+    if plan.grid is not None:
+        return plan.passes * _grid_step_us(-(-b // plan.passes), t, cfg, plan.grid)
+    a, r1, r2 = HELD_MODEL
+    c = plan.cluster
+    at_once = max(1, grid // c)  # clusters the card runs at once
+    waves = -(-plan.groups // at_once)
+    blocks = c * min(plan.groups, at_once)
+    nbytes = 4 * (_dense_weights(cfg) / c + GROUP_ROWS / c * t * (cfg.attention_units + cfg.memory_dim))
+    return waves * (a + nbytes * (1.0 / r1 + blocks / r2))
+
+
+def _plan_key(cfg) -> Tuple[int, ...]:
+    return (cfg.vocab_size, cfg.embedding_dim, cfg.units, cfg.attention_units, cfg.attention_layer_size,
+            cfg.memory_dim, cfg.num_layers)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(b: int, key: Tuple[int, ...], t: int, layout: Optional[str], grid: int) -> Optional[DecoderPlan]:
+    cfg = SimpleNamespace(**dict(zip(("vocab_size", "embedding_dim", "units", "attention_units",
+                                      "attention_layer_size", "memory_dim", "num_layers"), key)))
+    if layout == "held":
+        return _held_fit(b, cfg, t)
+    if layout == "grid":
+        return _grid_fit(b, cfg, grid)
+    plans = [p for p in (_held_fit(b, cfg, t), _grid_fit(b, cfg, grid)) if p is not None]
+    return min(plans, key=lambda p: step_us(b, t, cfg, p, grid)) if plans else None
+
+
 def decoder_plan(b: int, cfg: "SpellerConfig", t: int = 1, layout: Optional[str] = None,
                  grid: int = GRID_BLOCKS) -> DecoderPlan:
     """The kernel's layout (and cluster size, or grid cut) for a batch,
-    ``t`` encoder positions and a config — a pure function.
+    ``t`` encoder positions and a config — a pure function, cached a shape.
 
     The held layout: C is the largest of ``DECODER_CLUSTERS`` that cuts
     the units, the attention units and the attention layer into slices of
     a multiple of 4 columns (16-byte loads) and whose layout fits a block's
-    shared memory (``decoder_smem_bytes`` ≤ ``SMEM_MAX``). Where no cut
-    fits, the grid layout of ``grid`` blocks, in as few passes of rows as
-    ``grid_rows`` allows. ``layout="grid"`` forces the grid layout, for a
-    reading of the two in turns. Raises ``ValueError`` for widths the
-    kernel does not take (every width a multiple of 4, the attention layer
-    of 8: ``kernel_widths`` pads the others) and for a shape that no layout
-    fits."""
+    shared memory (``decoder_smem_bytes`` ≤ ``SMEM_MAX``). The grid layout
+    of ``grid`` blocks, in as few passes of rows as ``grid_rows`` allows,
+    its blocks holding their weights where they fit and the step model
+    says so (``grid_cuts``). The plan takes the one of the two that fit
+    whose modelled step (``step_us``) is the shorter. ``layout`` forces a
+    layout (``LAYOUTS``), for readings in turns. Raises ``ValueError`` for
+    widths the kernel does not take (every width a multiple of 4, the
+    attention layer of 8: ``kernel_widths`` pads the others) and for a
+    shape that the layout asked for, or none, fits."""
     widths = {
         "embedding_dim": cfg.embedding_dim, "units": cfg.units, "attention_units": cfg.attention_units,
         "attention_layer_size": cfg.attention_layer_size, "memory_dim": cfg.memory_dim,
@@ -398,37 +547,42 @@ def decoder_plan(b: int, cfg: "SpellerConfig", t: int = 1, layout: Optional[str]
             f"the fused greedy decoder takes a batch, encoder length and vocabulary >= 1 and widths that are "
             f"multiples of 4 (the attention layer of 8), got B={b}, T={t}, V={cfg.vocab_size}, {odd}"
         )
-    plan = _held_fit(b, cfg, t) if layout is None else None
-    if plan is None:
-        plan = _grid_fit(b, cfg, grid)
+    plan = _plan(b, _plan_key(cfg), t, layout, grid)
     if plan is not None:
         return plan
-    raise ValueError(f"the fused greedy decoder fits no layout at B={b}, T={t}, {cfg.num_layers} cell(s) of "
-                     f"{cfg.units}, attention {cfg.attention_units}, memory {cfg.memory_dim}: the grid layout of "
-                     f"{grid} blocks takes {grid_rows(cfg)} rows a pass and M <= {8 * THREADS}")
+    raise ValueError(f"the fused greedy decoder fits {'no layout' if layout is None else f'no {layout} layout'} at "
+                     f"B={b}, T={t}, {cfg.num_layers} cell(s) of {cfg.units}, attention {cfg.attention_units}, "
+                     f"memory {cfg.memory_dim}: the grid layout of {grid} blocks takes {grid_rows(cfg)} rows a pass "
+                     f"and M <= {8 * THREADS}")
 
 
 def kernel_widths(b: int, cfg, t: int, layout: Optional[str] = None,
                   grid: int = GRID_BLOCKS) -> Tuple["DecoderWidths", DecoderPlan]:
     """The widths the kernel runs ``cfg`` at, and ``layout``'s plan there
     (``decoder_plan``): each width rounded up to the kernel's granularity
-    (E, U, A and M to 4, the attention layer to 8); where the held layout
-    fits no cut of those, also to the cut of C blocks (U, A and the
-    attention layer to 4·C) for the largest C whose held layout fits. Where
-    none does, the grid layout at the granular widths (it pads its own
+    (E, U, A and M to 4, the attention layer to 8). Where the held layout
+    fits no cut of those, it is tried at the cut of C blocks (U, A and the
+    attention layer to 4·C) for the largest C whose held layout fits; the
+    plan (``layout`` None) then takes it if its modelled step is shorter
+    than the grid layout's at the granular widths (the grid pads its own
     column blocks). The padding is exact (``ops/padding.py``); raises
     ``ValueError`` where nothing fits (``decoder_plan``'s message)."""
     w = DecoderWidths(cfg.vocab_size, round_up(cfg.embedding_dim, 4), round_up(cfg.units, 4),
                       round_up(cfg.attention_units, 4), round_up(cfg.attention_layer_size, 8),
                       round_up(cfg.memory_dim, 4), cfg.bos_id, cfg.eos_id, cfg.num_layers)
-    candidates = [w] + [w._replace(units=round_up(w.units, 4 * c), attention_units=round_up(w.attention_units, 4 * c),
-                                   attention_layer_size=round_up(w.attention_layer_size, math.lcm(8, 4 * c)))
-                        for c in DECODER_CLUSTERS]
-    if layout is None and b >= 1 and t >= 1:
-        for cand in candidates:
-            if (plan := _held_fit(b, cand, t)) is not None:
-                return cand, plan
-    return w, decoder_plan(b, w, t, layout or "grid", grid)  # raises where nothing fits
+    if layout in (None, "held") and b >= 1 and t >= 1 and _held_fit(b, w, t) is None:
+        for c in DECODER_CLUSTERS:
+            cand = w._replace(units=round_up(w.units, 4 * c), attention_units=round_up(w.attention_units, 4 * c),
+                              attention_layer_size=round_up(w.attention_layer_size, math.lcm(8, 4 * c)))
+            if (held := _held_fit(b, cand, t)) is None:
+                continue
+            if layout == "held":
+                return cand, held
+            grid_plan = _plan(b, _plan_key(w), t, "grid", grid)
+            if grid_plan is None or step_us(b, t, cand, held, grid) < step_us(b, t, w, grid_plan, grid):
+                return cand, held
+            break
+    return w, decoder_plan(b, w, t, layout, grid)  # raises where nothing fits
 
 
 def pad_speller(weights: List[torch.Tensor], memory: torch.Tensor, widths, kw) -> Tuple[List[torch.Tensor], torch.Tensor]:
@@ -556,9 +710,9 @@ def _launch(params, widths: DecoderWidths, memory, enc_mask, max_steps: int,
             clocks: Optional[torch.Tensor] = None, layout: Optional[str] = None) -> torch.Tensor:
     """The kernel's launches (built at first use) → tokens: one, or (the
     grid layout past ``grid_rows``) one a pass of rows. ``clocks``
-    (measurements only), an int64 CUDA tensor of 16, receives the SM cycles
-    the first block spent in each part of a step (``CLOCK_NAMES``; the grid
-    layout's ``GRID_CLOCK_NAMES``) and, last, the steps it ran. ``layout``
+    (measurements only), an int64 CUDA tensor of ``CLOCKS``, receives the SM
+    cycles the first block spent in each part of a step (``CLOCK_NAMES``;
+    the grid layout's ``GRID_CLOCK_NAMES``) and, at 15, the steps it ran. ``layout``
     forces a layout (``decoder_plan``; measurements only); the grid layout
     takes as many blocks as the card has SMs. Widths the kernel does not
     take as they are run zero padded (``kernel_widths``, ``pad_speller``)."""
@@ -619,9 +773,9 @@ def _launch(params, widths: DecoderWidths, memory, enc_mask, max_steps: int,
     greedy_decode_fused.launches += 1
     greedy_decode_fused.grid_launches += plan.layout == 1  # of them, in the grid layout
     greedy_decode_fused.last_launch = {
-        "layout": ("held", "grid")[plan.layout],
+        "layout": plan.name, "modelled_us_per_step": step_us(b, t, kw, plan, g.blocks if g is not None else GRID_BLOCKS),
         "cluster": plan.cluster, "rows": plan.rows, "groups": plan.groups, "passes": plan.passes,
-        "grid": None if g is None else {"blocks": g.blocks, **{
+        "grid": None if g is None else {"blocks": g.blocks, "slot": g.slot, **{
             name: st._asdict() for name, st in zip(GRID_STAGES, g.stages)}},
         "kernel_widths": {k: getattr(kw, k) for k in ("embedding_dim", "units", "attention_units",
                                                         "attention_layer_size", "memory_dim")},

@@ -4,7 +4,9 @@ TF ``GreedyEmbeddingHelper`` + ``dynamic_decode`` semantics: start from
 <sos>, feed back the argmax token, and stop a row once it emits <eos>
 (finished rows keep emitting <eos>). A CUDA tensor whose config the
 fused decoder supports goes through the CUDA kernel
-(``decode/fused_greedy.py``) at every batch size; otherwise the decode is
+(``decode/fused_greedy.py``) at every batch size, in the layout its plan's
+step model says is the fastest at the shape (clusters, or the whole card
+with the weights held in shared memory or streamed); otherwise the decode is
 a Python loop over ``speller_step``. That loop is also the reference's
 own path for what the kernel does not compute (the ``*_monotonic``
 attention variants, binf 'logits' and 'embedding', no attention layer).

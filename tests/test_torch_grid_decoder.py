@@ -8,9 +8,9 @@ arithmetic is checked on the Python cut the wrapper hands it (every row,
 column, position and k covered exactly once) and its summation order is
 emulated in PyTorch: each dense stage's column blocks and k parts summed
 as the kernel sums them, each row's attention cut into the kernel's
-chunks (scores, a two-pass softmax over the chunks' maxima and sums, each
-chunk's part of the context, the parts merged in chunk order) and the
-argmax merged in column block order."""
+chunks (scores, the row's maximum over the chunks' maxima, each chunk's
+sum and unnormalised part of the context, the parts over the row's sum
+merged in chunk order) and the argmax merged in column block order."""
 
 import math
 import os
@@ -74,41 +74,51 @@ def _cu_regions(function, names):
     evaluated with ``names`` (the function's arguments and locals)."""
     body = re.search(rf"{function}\(.*?\n}}\n", _cu(), re.S).group(0)
     exprs = re.findall(r"off \+= ([^;]+);", body)
-    env = {"pad4": _pad4, "round8": _round8, "NSLOT": FG.NSLOT, "SLOT": FG.SLOT, "THREADS": THREADS, **names}
+    env = {"pad4": _pad4, "round8": _round8, "NSLOT": FG.NSLOT, "THREADS": THREADS, "N_STAGES": len(FG.GRID_STAGES),
+           **names}
     return [eval(re.sub(r"\((?:size_t|int)\)", "", x), {}, env) for x in exprs]
 
 
 def test_constants_are_the_kernels():
     """The Python mirror's constants are the .cu's."""
-    for name in ("THREADS", "SLOT", "NSLOT", "KS_MAX", "MAX_TILES", "SMEM_MAX"):
+    for name in ("THREADS", "NSLOT", "KS_MAX", "MAX_TILES", "SMEM_MAX"):
         assert getattr(FG, name) == _cu_constant(name), name
     assert _cu_constant("DR") == DR and (_cu_constant("LAYOUT_HELD"), _cu_constant("LAYOUT_GRID")) == (0, 1)
     assert FG.DecoderPlan(1, 8, 1, grid=FG.grid_cuts(8, CHECKPOINT)).layout == 1
 
 
-# ---- the plan: the held layout where it was, the grid layout past it
+# ---- the plan: the faster layout by the step model, the grid layout past the held one
 
-# the held layout's shapes on the main paths: phases 1 and 3 (the flagship,
-# B = 8 and the eval set's 64 rows), 5 and 6 (the eval set), 9 (the G2P),
-# 12a (each preset's serving shape), 13a (the LAS paper's speller), 14 (the
-# bench's greedy rows, V = 34): (B, T_enc, speller, cluster, groups)
+# the held layout's shapes on the main paths before the step model chose:
+# phases 1 and 3 (the flagship, B = 8 and the eval set's 64 rows), 5 and 6
+# (the eval set), 9 (the G2P), 12a (each preset's serving shape), 13a (the
+# LAS paper's speller), 14 (the bench's greedy rows, V = 34): (B, T_enc,
+# speller, cluster, groups, the layout the plan takes now)
 HELD = [
-    (64, 250, CHECKPOINT, 8, 8), (8, 250, CHECKPOINT, 8, 1), (64, 101, CHECKPOINT, 8, 8),
-    (64, 28, _speller(160, 320, v=45, e=64, n_cells=1), 8, 8),
-    (32, 400, _speller(256, 512, v=65, n_cells=1), 8, 4), (32, 400, _speller(256, 512, v=32, n_cells=1), 8, 4),
-    (32, 438, _speller(256, 512, v=120, n_cells=1), 8, 4), (256, 438, _speller(256, 512), 8, 32),
-    (32, 438, _speller(512, 512, al=256), 8, 4), (64, 250, _speller(256, 512), 8, 8),
+    (64, 250, CHECKPOINT, 8, 8, "held"), (8, 250, CHECKPOINT, 8, 1, "held"), (64, 101, CHECKPOINT, 8, 8, "held"),
+    (64, 28, _speller(160, 320, v=45, e=64, n_cells=1), 8, 8, "held"),
+    (32, 400, _speller(256, 512, v=65, n_cells=1), 8, 4, "held"),
+    (32, 400, _speller(256, 512, v=32, n_cells=1), 8, 4, "held"),
+    (32, 438, _speller(256, 512, v=120, n_cells=1), 8, 4, "held"), (256, 438, _speller(256, 512), 8, 32, "grid"),
+    (32, 438, _speller(512, 512, al=256), 8, 4, "grid"), (64, 250, _speller(256, 512), 8, 8, "held"),
 ]
 
 
-@pytest.mark.parametrize("b,t,cfg,cluster,groups", HELD)
-def test_the_held_layout_keeps_its_plan(b, t, cfg, cluster, groups):
-    """Wherever the held layout was planned, it still is, at the same
-    widths and cluster: the largest cut whose layout fits a block."""
-    kw, plan = FG.kernel_widths(b, cfg, t)
+@pytest.mark.parametrize("b,t,cfg,cluster,groups,takes", HELD)
+def test_the_held_layout_keeps_its_plan(b, t, cfg, cluster, groups, takes):
+    """Wherever the held layout was planned, its plan (``layout="held"``)
+    is the same, at the same widths and cluster: the largest cut whose
+    layout fits a block; the plan takes it where the step model says it is
+    the faster (every serving shape), else the grid layout (offline B = 256,
+    the LAS paper's speller)."""
+    kw, plan = FG.kernel_widths(b, cfg, t, "held")
     assert _widths(kw) == _widths(cfg) and plan == FG.DecoderPlan(cluster, DR, groups) and plan.layout == 0
-    assert FG.decoder_plan(b, cfg, t) == plan and FG.decoder_smem_bytes(b, t, cfg, cluster) <= FG.SMEM_MAX
+    assert FG.decoder_plan(b, cfg, t, "held") == plan and FG.decoder_smem_bytes(b, t, cfg, cluster) <= FG.SMEM_MAX
     assert all(FG.decoder_smem_bytes(b, t, cfg, c) > FG.SMEM_MAX for c in FG.DECODER_CLUSTERS if c > cluster)
+    chosen = FG.kernel_widths(b, cfg, t)[1]
+    assert chosen.name == takes and (chosen == plan) == (takes == "held")
+    grid = FG.decoder_plan(b, cfg, t, "grid")
+    assert (FG.step_us(b, t, cfg, plan) <= FG.step_us(b, t, cfg, grid)) == (takes == "held")
 
 
 def _held_fits(b, t, kw):
@@ -127,8 +137,9 @@ def _held_fits(b, t, kw):
 def test_the_plan_takes_the_grid_past_the_held_layout(name):
     """Past the held layout (W1024 at every T_enc, long recordings at the
     checkpoint's widths, W2048) the plan takes the grid layout at the
-    granular widths; ``layout="grid"`` forces the grid anywhere, and no
-    other layout is taken."""
+    granular widths, and where the held layout fits, the grid wherever the
+    step model says it is the faster; ``layout="grid"`` forces the grid
+    anywhere, and no other layout is taken."""
     cfg = SPELLERS[name]
     grid_seen = 0
     for b in (1, 8, 32, 64):
@@ -137,7 +148,9 @@ def test_the_plan_takes_the_grid_past_the_held_layout(name):
             if plan.layout == 0:
                 assert FG.decoder_smem_bytes(b, t, kw, plan.cluster) <= FG.SMEM_MAX
             else:
-                assert not _held_fits(b, t, kw)
+                if _held_fits(b, t, kw):
+                    held_kw, held = FG.kernel_widths(b, cfg, t, "held")
+                    assert FG.step_us(b, t, kw, plan) < FG.step_us(b, t, held_kw, held)
                 assert plan == FG.DecoderPlan(1, DR, -(-b // DR), grid=FG.grid_cuts(b, kw))
                 assert kw.units == cfg.units and kw.attention_units == cfg.attention_units  # no padding to a cut
                 grid_seen += 1
@@ -161,9 +174,10 @@ def test_the_grid_takes_every_vocabulary(v, n_cells):
 
 @pytest.mark.parametrize("name", ["checkpoint", "W1024", "W2048", "W100"])
 def test_the_grid_takes_every_batch_in_passes(name):
-    """Each block keeps five ints a row (a launch holds ``grid_rows`` rows:
-    the largest multiple of 8 whose bytes fit, 3,512 at A = 1024, 3,104 at
-    A = 2048); past
+    """Each block keeps six ints a row (a launch holds ``grid_rows`` rows:
+    the largest multiple of 8 whose bytes fit beside a ring of
+    ``SLOT_STREAMED`` floats a slot, 2,920 at A = 1024, 2,584 at A = 2048);
+    past
     that the plan decodes the batch in passes of at most as many rows, a
     launch each, as few passes as will do: the passes cover every row once
     and each is a launch of one pass that fits. W1024 at B = 4096 takes two
@@ -171,8 +185,8 @@ def test_the_grid_takes_every_batch_in_passes(name):
     cfg = SPELLERS[name]
     most = FG.grid_rows(cfg)
     assert most % 8 == 0 and FG.decoder_smem_bytes(most, 1, cfg, 1, grid=FG.grid_cuts(most, cfg)) <= FG.SMEM_MAX
-    assert FG.decoder_smem_bytes(most + 8, 1, cfg, 1, grid=FG.grid_cuts(most + 8, cfg)) > FG.SMEM_MAX
-    assert most == {"checkpoint": 3816, "W1024": 3512, "W2048": 3104, "W100": 3896}[name]
+    assert FG._slot(most, cfg) >= FG.SLOT_STREAMED > FG._slot(most + 8, cfg)
+    assert most == {"checkpoint": 3176, "W1024": 2920, "W2048": 2584, "W100": 3248}[name]
     for b in (1, most - 1, most, most + 1, 4096, 2 * most + 1, 10000, 100000):
         plan = FG.decoder_plan(b, cfg, 219, "grid")
         passes = -(-b // most)
@@ -227,11 +241,11 @@ def test_grid_cuts_cover_every_row_and_column(name):
                 assert [r for p in passes for r in p] == list(rows)
                 covered += [(r, c) for r in rows for c in range(cb * per, min(n, (cb + 1) * per))]
             _covered_once(covered, [(r, c) for r in range(b) for c in range(n)])
-            tile = FG.grid_tile(k // 4, st.width, st.tiles)
+            tile = FG.grid_tile(k // 4, st.width, st.tiles, g.slot)
             rp = 8 * st.tiles
             assert st.width // 4 * st.tiles * tile.parts <= THREADS
-            assert rp * tile.ld + 4 * tile.parts * tile.s4 * st.width <= FG.SLOT
-            assert tile.parts * rp * st.width <= FG.NSLOT * FG.SLOT
+            assert rp * tile.ld + 4 * tile.parts * tile.s4 * st.width <= g.slot
+            assert tile.parts * rp * st.width <= FG.NSLOT * g.slot
             _covered_once([k4 for part in FG.grid_part_k4(k // 4, tile) for k4 in part], range(k // 4))
             assert tile.ntiles * tile.parts * tile.s4 >= k // 4
         assert FG.decoder_smem_bytes(b, 100000, cfg, 1, grid=g) <= FG.SMEM_MAX
@@ -268,13 +282,13 @@ def test_grid_smem_and_workspace_are_the_kernels():
     for cfg in (CHECKPOINT, W1024, W2048, SPELLERS["W100"]):
         for b in (1, 8, 33, 512):
             g = FG.grid_cuts(b, cfg)
-            smem = _cu_regions("GridLayout grid_layout", {"A": cfg.attention_units, "B": b})
+            smem = _cu_regions("GridLayout grid_layout", {"A": cfg.attention_units, "B": b, "g": g})
             assert FG.decoder_smem_bytes(b, 219, cfg, 1, grid=g) == 4 * sum(smem)
             bp = _round8(b)
             ws = _cu_regions("GridWs grid_ws", {
                 "bp": bp, "chunks": _pad4(max(bp, g.blocks)), "n_cells": cfg.num_layers, "U": cfg.units,
                 "AL": cfg.attention_layer_size, "A": cfg.attention_units, "M": cfg.memory_dim,
-                "lcols": g.stages[-1].cols})
+                "lcols": g.stages[-1].cols, "nt": bp // 8})
             assert FG.grid_act_floats(b, cfg, g) == sum(ws)
 
 
@@ -310,13 +324,13 @@ def _gather4(parts):
     return (s[0] + s[1]) + (s[2] + s[3])
 
 
-def _dense(x, w, st, n, gates=1):
+def _dense(x, w, st, n, gates=1, slot=FG.SLOT_MAX):
     """A dense stage as the grid sums it: x [B, K] @ w [K, gates·n] →
     [B, gates·n], each column block from its slice, each k part summed in
     order, the parts gathered on four chains."""
     k = x.shape[1]
     slices = FG.grid_slices(w, st, n, gates)
-    tile = FG.grid_tile(k // 4, st.width, st.tiles)
+    tile = FG.grid_tile(k // 4, st.width, st.tiles, slot)
     parts_k = FG.grid_part_k4(k // 4, tile)
     out = torch.zeros(x.shape[0], gates * n)
     per = st.width // gates
@@ -344,12 +358,12 @@ def _warp_sum(v):
     return v[0]
 
 
-def _block_sum(vals):
+def _block_sum(vals, per=THREADS):
     """block_reduce<false> of one value a thread (position i on thread i %
-    THREADS, each thread's in order)."""
+    per, each thread's in order)."""
     th = torch.zeros(THREADS)
     for i, x in enumerate(vals):
-        th[i % THREADS] = th[i % THREADS] + x
+        th[i % per] = th[i % per] + x
     red = torch.stack([_warp_sum(th[32 * w:32 * w + 32]) for w in range(NWARPS)])
     return _warp_sum(torch.cat([red, torch.zeros(32 - NWARPS)]))
 
@@ -384,19 +398,20 @@ def _emulate_grid(w, cfg, memory, mask, steps, grid):
     fin = [False] * b
     tokens = torch.full((b, steps), cfg.eos_id, dtype=torch.int32)
     contexts = []
-    tm = max(1, min(THREADS, FG.SLOT // m))  # the context's positions a tile
+    tm = max(1, min(THREADS, plan.slot // m))  # the context's positions a tile
+    dense = lambda *args, **kw: _dense(*args, **kw, slot=plan.slot)
     ts_n = max(1, THREADS // (m // 4))  # its parts of a tile's positions
     for s in range(steps):
         if all(fin):
             break
         x = torch.cat([w["emb"][tok], attn], 1)
         for i, (wx, wh, bias) in enumerate(w["cells"]):
-            g = _dense(torch.cat([x, h[i]], 1), torch.cat([wx, wh]), st[0 if i == 0 else 1], u, 4) + bias
+            g = dense(torch.cat([x, h[i]], 1), torch.cat([wx, wh]), st[0 if i == 0 else 1], u, 4) + bias
             gi, gf, gg, go = g.split(u, 1)
             c[i] = torch.sigmoid(gf + 1.0) * c[i] + torch.sigmoid(gi) * torch.tanh(gg)
             h[i] = torch.sigmoid(go) * torch.tanh(c[i])
             x = h[i]
-        q = _dense(x, w["wq"], st[2], cfg.attention_units)
+        q = dense(x, w["wq"], st[2], cfg.attention_units)
         ctx = torch.zeros(b, m)
         chunks = FG.grid_chunks(tl, fin, grid)
         for r in range(b):
@@ -409,30 +424,29 @@ def _emulate_grid(w, cfg, memory, mask, steps, grid):
                               for tt in range(tl[r])]) if tl[r] else torch.zeros(0)
             mx = max([float(sc[list(sp)].max()) for sp in spans if len(sp)], default=-np.inf)
             e = torch.exp(sc - mx) * mask[r, :tl[r]]
-            csum = [_block_sum([e[tt] for tt in sp]) for sp in spans]
+            csum = [_block_sum([e[tt] for tt in sp], tm) for sp in spans]
             total = torch.zeros(())
             for x_ in csum:
                 total = total + x_
             total = torch.clamp_min(total, 1e-30)
-            pctx = []
+            pctx = []  # each chunk's part, unnormalised
             for sp in spans:
                 parts = [torch.zeros(m) for _ in range(ts_n)]
                 for j0 in range(sp.start, sp.stop, tm):
                     for qi, tt in enumerate(range(j0, min(sp.stop, j0 + tm))):
-                        parts[qi % ts_n] = parts[qi % ts_n] + (e[tt] / total) * memory[r, tt]
+                        parts[qi % ts_n] = parts[qi % ts_n] + e[tt] * memory[r, tt]
                 cv = parts[0]
                 for p_ in parts[1:]:
                     cv = cv + p_
                 pctx.append(cv)
-            ctx[r] = pctx[0]
-            for p_ in pctx[1:]:
-                ctx[r] = ctx[r] + p_
+            for p_ in pctx:  # merged: each part over the row's sum, in chunk order
+                ctx[r] = ctx[r] + p_ / total
             # the plain formula on the same scores
             probs = torch.exp(sc - sc.max()) * mask[r, :tl[r]] if tl[r] else torch.zeros(0)
             plain = (probs / torch.clamp_min(probs.sum(), 1e-30)) @ memory[r, :tl[r]] if tl[r] else torch.zeros(m)
             contexts.append((s, r, ctx[r].clone(), plain))
-        attn = _dense(torch.cat([x, ctx], 1), w["attn"], st[3], al)
-        lg = _dense(attn, w["out_w"], st[4], v_n) + w["out_b"]
+        attn = dense(torch.cat([x, ctx], 1), w["attn"], st[3], al)
+        lg = dense(attn, w["out_w"], st[4], v_n) + w["out_b"]
         lw = st[4].width
         for r in range(b):
             best, bi = None, v_n

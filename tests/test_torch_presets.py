@@ -252,11 +252,13 @@ LONGEST = [("timit_phone_las", 65, 1, 400), ("timit_multitask grapheme head", 32
 
 @pytest.mark.parametrize("what,v,n_cells,t", LONGEST)
 def test_every_preset_fits_the_decoder(what, v, n_cells, t):
-    """Each preset's longest bucket fits a block at the cluster size
-    ``decoder_plan`` picks; the phone vocabularies (65, 120) did not fit
-    the old layout at any cluster size (fault C6)."""
+    """Each preset's longest bucket fits a block at the cluster size the
+    held layout's plan picks (``layout="held"``; the plan itself may take
+    the grid layout where the step model says it is faster); the phone
+    vocabularies (65, 120) did not fit the old layout at any cluster size
+    (fault C6)."""
     cfg = _speller(v, n_cells)
-    plan = FG.decoder_plan(256, cfg, t)
+    plan = FG.decoder_plan(256, cfg, t, "held")
     assert plan.cluster == 8
     assert FG.decoder_smem_bytes(256, t, cfg, plan.cluster) <= FG.SMEM_MAX
     assert (_old_layout_bytes(t, cfg, 8) > FG.SMEM_MAX) == (v >= 65)
@@ -280,8 +282,10 @@ def test_decoder_plan_refuses_what_no_cluster_fits(v, n_cells, t):
     else:
         limit = {120: 9064, 34: 7900}[v]
         edge, tt = [cfg, cfg], [limit, limit + 1]
-    assert FG.decoder_plan(8, edge[0], tt[0]) == FG.DecoderPlan(8, 8, 1)
+    assert FG.decoder_plan(8, edge[0], tt[0], "held") == FG.DecoderPlan(8, 8, 1)
     assert FG.decoder_plan(8, edge[1], tt[1]).layout == 1
+    with pytest.raises(ValueError, match="no held layout"):
+        FG.decoder_plan(8, edge[1], tt[1], "held")
 
 
 def test_decoder_smem_bytes_shrinks_with_the_cluster():

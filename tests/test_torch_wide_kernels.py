@@ -62,24 +62,29 @@ def test_decoder_plans_every_encoder_length(name, cfg):
     """``kernel_widths`` plans, and never raises, for B >= 1 and T_enc up to
     100,000 (faults C9 and C11) at the checkpoint's, W1024's and W2048's
     speller widths: the held layout (C = 8, at the mirror's bytes within a
-    block's) up to the longest sequence it holds, 8436 positions at the
-    checkpoint's speller and none at W1024's or W2048's; past it, at no
-    cluster size, the grid layout in one launch, its bytes the same at
-    every T."""
+    block's) fits up to the longest sequence it holds, 8436 positions at the
+    checkpoint's speller and none at W1024's or W2048's; the plan takes it
+    there where the step model says it is the faster, else, and past it at
+    no cluster size, the grid layout in one launch within a block's bytes."""
     for b in (1, 8, 64):
-        grid_bytes = set()
         for t in (1, 219, 438, 5868, 5869, 8436, 8437, 17020, 17021, 17100, 40000, 100000):
             kw, plan = FG.kernel_widths(b, cfg, t)
             assert kw == FG.kernel_widths(1, cfg, 1, "grid")[0] and plan.groups == -(-b // 8)
-            assert plan.layout == (0 if name == "checkpoint" and t <= 8436 else 1)
-            if plan.layout == 0:
-                assert plan == FG.DecoderPlan(8, 8, -(-b // 8))
-                assert FG.decoder_smem_bytes(b, t, kw, 8) <= FG.SMEM_MAX
+            fits = name == "checkpoint" and t <= 8436
+            if fits:
+                held = FG.kernel_widths(b, cfg, t, "held")[1]
+                assert held == FG.DecoderPlan(8, 8, -(-b // 8)) and FG.decoder_smem_bytes(b, t, kw, 8) <= FG.SMEM_MAX
             else:
                 assert all(FG.decoder_smem_bytes(b, t, kw, c) > FG.SMEM_MAX for c in FG.DECODER_CLUSTERS)
+                with pytest.raises(ValueError, match="no held layout"):
+                    FG.kernel_widths(b, cfg, t, "held")
+            if plan.layout == 0:
+                assert fits and FG.step_us(b, t, kw, plan) <= FG.step_us(b, t, kw, FG.decoder_plan(b, kw, t, "grid"))
+            else:
                 assert plan == FG.DecoderPlan(1, 8, -(-b // 8), grid=FG.grid_cuts(b, kw))
-                grid_bytes.add(FG.decoder_smem_bytes(b, t, kw, 1, grid=plan.grid))
-        assert len(grid_bytes) == 1 and grid_bytes.pop() <= FG.SMEM_MAX
+                assert FG.decoder_smem_bytes(b, t, kw, 1, grid=plan.grid) <= FG.SMEM_MAX
+                if fits:
+                    assert FG.step_us(b, t, kw, plan) < FG.step_us(b, t, kw, held)
 
 
 def _cu_layout_regions(function, names):

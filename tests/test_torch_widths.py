@@ -322,14 +322,17 @@ def test_plans_the_ring_leaves_alone(b, u, nd, prec, want_fwd, want_bwd):
 
 def test_decoder_plan_takes_the_wide_spellers():
     """The LAS paper's speller (2 × 512, attention 512, listener 256 a
-    direction) fits the held layout at 226,016 bytes, at C = 8; the
-    LAS-4-1024 speller (U = A = 1024, M = 2048) fits it at no cluster size
-    (the attention layer at 256 or 1024, V up to 120, one or two cells, every
-    encoder length to 2000), and the plan takes the grid layout there, in
-    one launch of the batch, its cut ``grid_cuts``'."""
+    direction) fits the held layout at 226,016 bytes, at C = 8, but the plan
+    takes the grid layout there (faster by the step model, and on an NVIDIA
+    H100: 118.6 against 159.7 µs a step); the LAS-4-1024 speller (U = A =
+    1024, M = 2048) fits it at no cluster size (the attention layer at 256
+    or 1024, V up to 120, one or two cells, every encoder length to 2000),
+    and the plan takes the grid layout there, in one launch of the batch,
+    its cut ``grid_cuts``'."""
     las = SpellerConfig(vocab_size=34, embedding_dim=128, num_layers=2, units=512, memory_dim=512,
                         attention_units=512, attention_layer_size=256)
-    assert FG.decoder_plan(32, las, 438) == FG.DecoderPlan(8, 8, 4)
+    assert FG.decoder_plan(32, las, 438, "held") == FG.DecoderPlan(8, 8, 4)
+    assert FG.decoder_plan(32, las, 438).name == "grid"
     assert FG.decoder_smem_bytes(32, 438, las, 8) == 226016
     for v in (34, 120):
         for al in (256, 1024):
@@ -348,20 +351,25 @@ def test_kernel_widths_pad_to_what_a_plan_takes():
     """W100's speller (E = 30, U = 36, A = 60, the preset's AL = 256, M =
     200) runs its embedding at 32 in the held layout; widths that only a
     cut of one block takes where the held layout does not fit it are
-    rounded to the granularity of the largest cut whose held layout fits
-    (U = A = 274: 276 does not fit at C = 1, 288 does at C = 8); where none
-    fits, the plan runs them in the grid layout, which pads its own column
-    blocks, at the granular widths."""
+    rounded, for the held layout, to the granularity of the largest cut
+    whose held layout fits (U = A = 274: 276 does not fit at C = 1, 288
+    does at C = 8), and the plan takes that or the grid layout at the
+    granular widths, whichever the step model says is faster; where none fits, the plan runs them in the grid layout, which
+    pads its own column blocks, at the granular widths."""
     w100 = FG.DecoderWidths(34, 30, 36, 60, 256, 200, 1, 2, 2)
     kw, plan = FG.kernel_widths(8, w100, 125)
     assert kw == w100._replace(embedding_dim=32) and plan == FG.DecoderPlan(1, 8, 1) and plan.layout == 0
     mid = FG.DecoderWidths(34, 30, 274, 274, 250, 548, 1, 2, 2)
-    kw, plan = FG.kernel_widths(8, mid, 438)
+    kw, plan = FG.kernel_widths(8, mid, 438, "held")
     assert FG.decoder_smem_bytes(8, 438, mid._replace(embedding_dim=32, units=276, attention_units=276,
                                                       attention_layer_size=256), 1) > FG.SMEM_MAX
     assert (kw.embedding_dim, kw.units, kw.attention_units, kw.attention_layer_size, kw.memory_dim) == (
         32, 288, 288, 256, 548)
-    assert plan == FG.DecoderPlan(8, 8, 1) and FG.decoder_plan(8, kw, 438) == plan
+    assert plan == FG.DecoderPlan(8, 8, 1) and FG.decoder_plan(8, kw, 438, "held") == plan
+    granular = mid._replace(embedding_dim=32, units=276, attention_units=276, attention_layer_size=256)
+    grid = FG.decoder_plan(8, granular, 438, "grid")
+    held_faster = FG.step_us(8, 438, kw, plan) <= FG.step_us(8, 438, granular, grid)
+    assert FG.kernel_widths(8, mid, 438) == ((kw, plan) if held_faster else (granular, grid))
     odd = FG.DecoderWidths(34, 30, 1018, 1022, 250, 2046, 1, 2, 2)  # the held layout fits no cut of them
     kw, plan = FG.kernel_widths(8, odd, 438)
     assert plan.layout == 1 and (kw.units, kw.attention_units, kw.attention_layer_size) == (1020, 1024, 256)
