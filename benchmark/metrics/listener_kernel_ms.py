@@ -1,0 +1,9 @@
+"""Listener recurrence layer: the recurrence kernels' device time, ms a
+``transcribe_batch`` call."""
+
+STEMS = ("lstm_",)
+
+
+def read(run):
+    t = run.trace.kernel_seconds(STEMS)
+    return 1e3 * t / run.calls if t > 0 and run.calls else None
