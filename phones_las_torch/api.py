@@ -39,6 +39,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from phones_las_torch.utils.diagnostics import annotate
+
 
 def _smoothed_energy(audio: np.ndarray, frame: int, smooth: int) -> np.ndarray:
     """Per-frame RMS energy, mean-smoothed over ``smooth`` frames.
@@ -390,24 +392,30 @@ class Transcriber:
         wave = min(n, self.max_device_batch * dp)
         return -(-wave // dp) * dp
 
-    def _decode(self, wav_batch: np.ndarray, wav_lens: np.ndarray, max_steps: int,
-                params=None, aligned: bool = False):
-        """One wave → (tokens [B, S], lengths [B], attention peaks [B, S] or
-        None): on the device, as device tensors (not fetched); with
-        ``data_parallel`` shards, gathered on the host."""
+    def _stage(self, wav_batch: np.ndarray, wav_lens: np.ndarray):
+        """One wave's host arrays → its inputs to ``_decode``: on the device
+        (one device), or left on the host for ``data_parallel`` shards,
+        which ``map_row_shards`` copies shard by shard."""
+        if self.data_parallel > 1:
+            return wav_batch, wav_lens
+        return torch.from_numpy(wav_batch).to(self.device), torch.from_numpy(wav_lens).to(self.device)
+
+    def _decode(self, audio, lengths, max_steps: int, params=None, aligned: bool = False):
+        """One wave, as ``_stage`` gives it → (tokens [B, S], lengths [B],
+        attention peaks [B, S] or None): on the device, as device tensors
+        (not fetched); with ``data_parallel`` shards, gathered on the host."""
         from phones_las_torch.parallel.mesh import map_row_shards, replicate
 
         if self.data_parallel == 1:
             p = self.params if params is None else params
-            return self._decode_on(p, torch.from_numpy(wav_batch).to(self.device),
-                                   torch.from_numpy(wav_lens).to(self.device), max_steps, aligned)
+            return self._decode_on(p, audio, lengths, max_steps, aligned)
         if params is None:
             shard_params = self._shard_params
         else:  # stream-adapted params: one copy for each shard's device
             shard_params = [params] + replicate(params, self.devices[1:])
         return map_row_shards(
             lambda p, audio, lengths: self._decode_on(p, audio, lengths, max_steps, aligned),
-            list(zip(self.devices, shard_params)), wav_batch, wav_lens,
+            list(zip(self.devices, shard_params)), audio, lengths,
         )
 
     def _decode_on(self, p, audio: torch.Tensor, lengths: torch.Tensor, max_steps: int, aligned: bool):
@@ -418,23 +426,25 @@ class Transcriber:
 
         lm_logp = None if self.lm_logp is None else self.lm_logp.to(audio.device)
         with torch.no_grad(), matmul_precision_scope(self.model_cfg.matmul_precision):
-            memory, _, enc_mask = encode(p, self.model_cfg, audio, lengths, prec=self.prec)
-            if self.beam:
-                res = beam_decode(
+            with annotate("plt.encode"):
+                memory, _, enc_mask = encode(p, self.model_cfg, audio, lengths, prec=self.prec)
+            with annotate("plt.decode"):
+                if self.beam:
+                    res = beam_decode(
+                        self._speller(p), self.speller_cfg, memory, enc_mask, max_steps,
+                        beam_width=self.beam, length_penalty=self.length_penalty,
+                        lm_logp=lm_logp, lm_weight=self.lm_weight,
+                        ctc_logp=None if self.ctc_joint is None else ctc_logp(p, memory),
+                        ctc_alpha=1.0 if self.ctc_joint is None else self.ctc_joint,
+                        prec=self.prec,
+                    )
+                    return res.tokens, res.lengths, res.peaks
+                toks, lens, aligns = greedy_decode(
                     self._speller(p), self.speller_cfg, memory, enc_mask, max_steps,
-                    beam_width=self.beam, length_penalty=self.length_penalty,
-                    lm_logp=lm_logp, lm_weight=self.lm_weight,
-                    ctc_logp=None if self.ctc_joint is None else ctc_logp(p, memory),
-                    ctc_alpha=1.0 if self.ctc_joint is None else self.ctc_joint,
-                    prec=self.prec,
+                    return_alignments=aligned, prec=self.prec,
                 )
-                return res.tokens, res.lengths, res.peaks
-            toks, lens, aligns = greedy_decode(
-                self._speller(p), self.speller_cfg, memory, enc_mask, max_steps,
-                return_alignments=aligned, prec=self.prec,
-            )
-            peaks = torch.argmax(aligns, dim=-1).to(torch.int32) if aligned else None
-            return toks, lens, peaks
+                peaks = torch.argmax(aligns, dim=-1).to(torch.int32) if aligned else None
+                return toks, lens, peaks
 
     @staticmethod
     def _wire_dtype(audio: Sequence[np.ndarray]):
@@ -450,27 +460,35 @@ class Transcriber:
         The batch is padded to a multiple of ``pad_quantum`` samples;
         batches beyond ``max_device_batch`` go as waves of that size (the
         tail wave zero-padded), all dispatched before any result is
-        fetched."""
-        b = len(audio)
-        lens = np.asarray([a.shape[0] for a in audio], np.int32)
-        pad = ((int(lens.max()) + pad_quantum - 1) // pad_quantum) * pad_quantum
-        wave = self._wave_size(b)
-        dt = self._wire_dtype(audio)
-        results = []
-        for ofs in range(0, b, wave):
-            n = min(wave, b - ofs)
-            wav_batch = np.zeros((wave, pad), dt)
-            for i in range(n):
-                a = audio[ofs + i]
-                wav_batch[i, : len(a)] = a
-            wav_lens = np.zeros((wave,), np.int32)
-            wav_lens[:n] = lens[ofs : ofs + n]
-            results.append((n, self._decode(wav_batch, wav_lens, self.max_steps)))
-        out: List[List[str]] = []
-        for n, (toks, out_lens, _) in results:  # fetch after all dispatches
-            toks, out_lens = toks.cpu().numpy(), out_lens.cpu().numpy()
-            out += [self.vocab.decode(toks[i][: out_lens[i]]) for i in range(n)]
-        return out
+        fetched. Each stage is a span (``annotate``), all within
+        ``plt.transcribe_batch``: a wave's ``plt.stage`` (padding and the
+        copy to the device), ``plt.encode`` and ``plt.decode``, then after
+        every dispatch a wave's ``plt.fetch`` and ``plt.strings``."""
+        with annotate("plt.transcribe_batch"):
+            b = len(audio)
+            lens = np.asarray([a.shape[0] for a in audio], np.int32)
+            pad = ((int(lens.max()) + pad_quantum - 1) // pad_quantum) * pad_quantum
+            wave = self._wave_size(b)
+            dt = self._wire_dtype(audio)
+            results = []
+            for ofs in range(0, b, wave):
+                n = min(wave, b - ofs)
+                with annotate("plt.stage"):
+                    wav_batch = np.zeros((wave, pad), dt)
+                    for i in range(n):
+                        a = audio[ofs + i]
+                        wav_batch[i, : len(a)] = a
+                    wav_lens = np.zeros((wave,), np.int32)
+                    wav_lens[:n] = lens[ofs : ofs + n]
+                    staged = self._stage(wav_batch, wav_lens)
+                results.append((n, self._decode(*staged, self.max_steps)))
+            out: List[List[str]] = []
+            for n, (toks, out_lens, _) in results:  # fetch after all dispatches
+                with annotate("plt.fetch"):
+                    toks, out_lens = toks.cpu().numpy(), out_lens.cpu().numpy()
+                with annotate("plt.strings"):
+                    out += [self.vocab.decode(toks[i][: out_lens[i]]) for i in range(n)]
+            return out
 
     def transcribe(self, audio: np.ndarray) -> List[str]:
         return self.transcribe_batch([audio])[0]
@@ -569,7 +587,7 @@ class Transcriber:
                 wav_batch[i, : len(seg)] = seg
                 wav_lens[i] = len(seg)
             dispatched.append(
-                (len(chunk), self._decode(wav_batch, wav_lens, steps_cap, params=params, aligned=True))
+                (len(chunk), self._decode(*self._stage(wav_batch, wav_lens), steps_cap, params=params, aligned=True))
             )
         out = []
         for n, (toks, lens, peaks) in dispatched:  # fetch after dispatch

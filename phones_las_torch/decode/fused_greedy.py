@@ -86,6 +86,7 @@ import torch
 from phones_las_torch.ops.attention import precompute_keys
 from phones_las_torch.ops.padding import pad_blocks, pad_gates, round_up
 from phones_las_torch.utils.device import check_kernel_device
+from phones_las_torch.utils.diagnostics import annotate
 
 if TYPE_CHECKING:  # the model code stays out of an exported program's loader
     from phones_las_torch.models.speller import SpellerConfig, SpellerParams
@@ -508,14 +509,15 @@ def _plan_key(cfg) -> Tuple[int, ...]:
 
 @functools.lru_cache(maxsize=4096)
 def _plan(b: int, key: Tuple[int, ...], t: int, layout: Optional[str], grid: int) -> Optional[DecoderPlan]:
-    cfg = SimpleNamespace(**dict(zip(("vocab_size", "embedding_dim", "units", "attention_units",
-                                      "attention_layer_size", "memory_dim", "num_layers"), key)))
-    if layout == "held":
-        return _held_fit(b, cfg, t)
-    if layout == "grid":
-        return _grid_fit(b, cfg, grid)
-    plans = [p for p in (_held_fit(b, cfg, t), _grid_fit(b, cfg, grid)) if p is not None]
-    return min(plans, key=lambda p: step_us(b, t, cfg, p, grid)) if plans else None
+    with annotate("plt.plan"):  # cached: a span a plan made, on a new shape only
+        cfg = SimpleNamespace(**dict(zip(("vocab_size", "embedding_dim", "units", "attention_units",
+                                          "attention_layer_size", "memory_dim", "num_layers"), key)))
+        if layout == "held":
+            return _held_fit(b, cfg, t)
+        if layout == "grid":
+            return _grid_fit(b, cfg, grid)
+        plans = [p for p in (_held_fit(b, cfg, t), _grid_fit(b, cfg, grid)) if p is not None]
+        return min(plans, key=lambda p: step_us(b, t, cfg, p, grid)) if plans else None
 
 
 def decoder_plan(b: int, cfg: "SpellerConfig", t: int = 1, layout: Optional[str] = None,
@@ -715,53 +717,57 @@ def _launch(params, widths: DecoderWidths, memory, enc_mask, max_steps: int,
     the grid layout's ``GRID_CLOCK_NAMES``) and, at 15, the steps it ran. ``layout``
     forces a layout (``decoder_plan``; measurements only); the grid layout
     takes as many blocks as the card has SMs. Widths the kernel does not
-    take as they are run zero padded (``kernel_widths``, ``pad_speller``)."""
+    take as they are run zero padded (``kernel_widths``, ``pad_speller``).
+    The host's work before each launch is the span ``plt.decode.prep``."""
     from phones_las_torch.csrc import _build
 
     lib = _build.library()
     b, t, _ = memory.shape
     dev = memory.device
-    kw, plan = kernel_widths(b, widths, t, layout, torch.cuda.get_device_properties(dev).multi_processor_count)
+    with annotate("plt.decode.prep"):  # the plan; the rest of the prep below
+        kw, plan = kernel_widths(b, widths, t, layout, torch.cuda.get_device_properties(dev).multi_processor_count)
     if plan.passes > 1:  # more rows than a grid launch holds: a launch a pass
         n = -(-b // plan.passes)
         tokens = torch.cat([_launch(params, widths, memory[r:r + n], enc_mask[r:r + n], max_steps, clocks, layout)
                             for r in range(0, b, n)])
         greedy_decode_fused.last_launch["passes"] = plan.passes
         return tokens
-    g = plan.grid
-    c = g.blocks if g is not None else plan.cluster  # the C API's cluster argument: the grid's blocks there
-    f32 = lambda x: x.detach().to(torch.float32).contiguous()
-    weights, memory = pad_speller([f32(w) for w in flat_weights(params)], memory, widths, kw)
-    params, _ = _unflatten(weights, memory, kw.bos_id, kw.eos_id)
-    u, a, al, m, v_n = kw.units, kw.attention_units, kw.attention_layer_size, kw.memory_dim, kw.vocab_size
-    keys = precompute_keys(params.attention, memory).contiguous()
-    mem = memory.contiguous()
-    mask = enc_mask.to(torch.float32).contiguous()
-    emb, v, out_w, out_b = f32(params.embedding), f32(params.attention.v), f32(params.out_w), f32(params.out_b)
-    if emb.data_ptr() % 16:  # the kernel reads embedding rows in 16-byte loads
-        emb = emb.clone()
-    cells = []  # per cell: wx over wh [slices, din + U, width], bias [slices, width]
-    if g is None:  # a cluster's column slices
-        wq = column_slices(f32(params.attention.wq), c)
-        attn_w = column_slices(f32(params.attention_layer), c)
-        for cell in params.cells:
-            cells += [column_slices(torch.cat([f32(cell.wx), f32(cell.wh)]), c, gates=4),
-                      column_slices(f32(cell.b), c, gates=4)]
-    else:  # the grid's column blocks, each stage its own cut; out_w and out_b too
-        wq = grid_slices(f32(params.attention.wq), g.stages[2], a)
-        attn_w = grid_slices(f32(params.attention_layer), g.stages[3], al)
-        for i, cell in enumerate(params.cells):
-            cut = g.stages[0 if i == 0 else 1]
-            cells += [grid_slices(torch.cat([f32(cell.wx), f32(cell.wh)]), cut, u, 4), grid_slices(f32(cell.b), cut, u, 4)]
-        out_w, out_b = grid_slices(out_w, g.stages[4], v_n), grid_slices(out_b, g.stages[4], v_n)
-    cell_ptrs = torch.tensor([x.data_ptr() for x in cells], dtype=torch.int64, device=dev)
-    # the grid layout's workspace (zero: h, c and the attention vector before
-    # the first step, the barrier's counter) and its rows' scores
-    act = torch.zeros(grid_act_floats(b, kw, g), device=dev) if g is not None else None
-    ws = torch.empty((round_up(b, GROUP_ROWS), t), device=dev) if g is not None else None
-    cut = (ctypes.c_int * len(g.flat()))(*g.flat()) if g is not None else None
-    tokens = torch.empty((b, max_steps), dtype=torch.int32, device=dev)
-    info = (ctypes.c_int * 4)()
+    with annotate("plt.decode.prep"):  # everything else before the launch, a pass
+        g = plan.grid
+        c = g.blocks if g is not None else plan.cluster  # the C API's cluster argument: the grid's blocks there
+        f32 = lambda x: x.detach().to(torch.float32).contiguous()
+        weights, memory = pad_speller([f32(w) for w in flat_weights(params)], memory, widths, kw)
+        params, _ = _unflatten(weights, memory, kw.bos_id, kw.eos_id)
+        u, a, al, m, v_n = kw.units, kw.attention_units, kw.attention_layer_size, kw.memory_dim, kw.vocab_size
+        keys = precompute_keys(params.attention, memory).contiguous()
+        mem = memory.contiguous()
+        mask = enc_mask.to(torch.float32).contiguous()
+        emb, v, out_w, out_b = f32(params.embedding), f32(params.attention.v), f32(params.out_w), f32(params.out_b)
+        if emb.data_ptr() % 16:  # the kernel reads embedding rows in 16-byte loads
+            emb = emb.clone()
+        cells = []  # per cell: wx over wh [slices, din + U, width], bias [slices, width]
+        if g is None:  # a cluster's column slices
+            wq = column_slices(f32(params.attention.wq), c)
+            attn_w = column_slices(f32(params.attention_layer), c)
+            for cell in params.cells:
+                cells += [column_slices(torch.cat([f32(cell.wx), f32(cell.wh)]), c, gates=4),
+                          column_slices(f32(cell.b), c, gates=4)]
+        else:  # the grid's column blocks, each stage its own cut; out_w and out_b too
+            wq = grid_slices(f32(params.attention.wq), g.stages[2], a)
+            attn_w = grid_slices(f32(params.attention_layer), g.stages[3], al)
+            for i, cell in enumerate(params.cells):
+                cut = g.stages[0 if i == 0 else 1]
+                cells += [grid_slices(torch.cat([f32(cell.wx), f32(cell.wh)]), cut, u, 4),
+                          grid_slices(f32(cell.b), cut, u, 4)]
+            out_w, out_b = grid_slices(out_w, g.stages[4], v_n), grid_slices(out_b, g.stages[4], v_n)
+        cell_ptrs = torch.tensor([x.data_ptr() for x in cells], dtype=torch.int64, device=dev)
+        # the grid layout's workspace (zero: h, c and the attention vector before
+        # the first step, the barrier's counter) and its rows' scores
+        act = torch.zeros(grid_act_floats(b, kw, g), device=dev) if g is not None else None
+        ws = torch.empty((round_up(b, GROUP_ROWS), t), device=dev) if g is not None else None
+        cut = (ctypes.c_int * len(g.flat()))(*g.flat()) if g is not None else None
+        tokens = torch.empty((b, max_steps), dtype=torch.int32, device=dev)
+        info = (ctypes.c_int * 4)()
     err = lib.plt_greedy_decode(
         keys.data_ptr(), mem.data_ptr(), mask.data_ptr(), b, t, a, m, emb.data_ptr(), v_n,
         kw.embedding_dim, wq.data_ptr(), v.data_ptr(), attn_w.data_ptr(), al, out_w.data_ptr(), out_b.data_ptr(),

@@ -87,6 +87,7 @@ from torch import nn
 from phones_las_torch.ops.masking import length_mask
 from phones_las_torch.ops.padding import pad_gates, pad_lstm_wh, pad_units, round_up, slice_gates
 from phones_las_torch.utils.device import check_kernel_device
+from phones_las_torch.utils.diagnostics import annotate
 
 PRECISIONS = ("highest", "bf16")
 
@@ -1227,11 +1228,12 @@ def _card_forward_plan(b: int, u: int, nd: int, prec: str, save: bool, device_in
     """``forward_plan`` with the card's answers, once a shape and card: the
     grid layout's plan walks every layout of its kernels (a millisecond or
     two of host time, which a call would otherwise add before its first
-    launch)."""
+    launch). A span (``plt.plan``) a plan made."""
     bf16 = prec == "bf16"
-    return forward_plan(b, u, nd, prec, lambda c, bt, ks: forward_kernel_info(
-        kernel_units(u, c), bf16, save, c, bt, ks)["max_active_clusters"],
-        sms=torch.cuda.get_device_properties(device_index).multi_processor_count)
+    with annotate("plt.plan"):
+        return forward_plan(b, u, nd, prec, lambda c, bt, ks: forward_kernel_info(
+            kernel_units(u, c), bf16, save, c, bt, ks)["max_active_clusters"],
+            sms=torch.cuda.get_device_properties(device_index).multi_processor_count)
 
 
 class BackwardPlan(NamedTuple):
@@ -1398,9 +1400,11 @@ def grid_bwd_kernel_info(u: int, nd: int, bf16: bool, g: GridPlan) -> dict:
 def _card_backward_plan(b: int, u: int, nd: int, prec: str, device_index: int) -> BackwardPlan:
     """``backward_plan`` with the card's answers, once a shape and card: the
     plan walks every layout of the grid loop (milliseconds of host time,
-    which a call would otherwise add before its first launch)."""
-    return backward_plan(b, u, nd, prec, functools.partial(backward_held, prec == "bf16"),
-                         sms=torch.cuda.get_device_properties(device_index).multi_processor_count)
+    which a call would otherwise add before its first launch). A span
+    (``plt.plan``) a plan made."""
+    with annotate("plt.plan"):
+        return backward_plan(b, u, nd, prec, functools.partial(backward_held, prec == "bf16"),
+                             sms=torch.cuda.get_device_properties(device_index).multi_processor_count)
 
 
 def backward_held(bf16: bool, plan: BackwardPlan) -> int:

@@ -3,7 +3,7 @@
 
 * tracing: ``torch.profiler`` in place of ``jax.profiler``, a Chrome
   trace of the host's operators and the card's kernels written under
-  ``logdir``, plus named ranges around the hot steps (``annotate``);
+  ``logdir``, plus spans around the serving path's stages (``annotate``);
 * the sanitizer: autograd's anomaly mode (a backward that produces NaN
   raises and names the forward operation) in place of ``jax_debug_nans``,
   and a host-side finite check over named leaves.
@@ -43,19 +43,27 @@ def profile_trace(logdir: str) -> Iterator[torch.profiler.profile]:
     prof.export_chrome_trace(os.path.join(logdir, f"trace_{time.strftime('%Y%m%d_%H%M%S')}.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named range that shows in profiler timelines (and as an NVTX range
-    when a card is present)."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+_PROFILING = torch._C._autograd._profiler_enabled
+_SPAN = torch._C._profiler._RecordFunctionFast
+_OFF = contextlib.nullcontext()
+
+
+def annotate(name: str):
+    """A span: a named range over the work inside it, seen by a running
+    ``torch.profiler`` (``profile_trace``, the benchmark's traced window)
+    as a host operation on the profiler's own clock, nested in the ranges
+    and operators around it. It is an operator-scope range
+    (``RecordFunctionFast``), never a user-scope one, so it puts no event
+    on the device's timeline, and it pushes no NVTX range. While no
+    profiler runs it costs one check and allocates nothing. The port's
+    spans are named ``plt.<stage>``; ``benchmark/metrics`` reads them.
+
+    Usage::
+
+        with annotate("plt.encode"):
+            memory, _, enc_mask = encode(...)
+    """
+    return _SPAN(name) if _PROFILING() else _OFF
 
 
 def enable_nan_checks(enable: bool = True) -> None:
