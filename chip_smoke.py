@@ -79,6 +79,14 @@ then:
         utterances differing a mode; ``transcribe_long`` of their
         concatenation with and without ``adapt_cmvn``, at most 2 tokens
         of edit distance a stream;
+     d. the same artifact's ``Transcriber`` staging each wave through its
+        pinned ring against the pageable staging it had before
+        (``pageable_stage``): staged tensors and tokens equal at the
+        benchmark cells' waves (64 × 160,000 and 32 × 280,000 samples), on
+        a ragged call of three waves and a short call after it; a
+        ``decode_aligned`` thread beside a ``transcribe_batch`` thread
+        answering as each alone; the ring's counters; the host's ms of the
+        staging and of the call, both versions in turns;
   6. production (bf16) mode, augmentation and persistence, each driven with
      the launch counters set to 0 just before and read just after:
      a. the committed checkpoint in production mode (``matmul_precision=
@@ -2321,6 +2329,132 @@ def check_gate_transcriber(data, kernels) -> dict:
     emit(rec)
     if bad:
         fail(f"the long-gate Transcriber on the card disagrees with the CPU plain path in {bad}: {rec}")
+    return rec
+
+
+# phase 5d: the benchmark cells' waves (rows, samples a row, the pad transcribe_batch gives them), timed in turns
+STAGE_SHAPES = ((64, 160000, 160000), (32, 280000, 288000))
+STAGE_ROUNDS = 4
+STAGE_THREAD_CALLS = 3  # calls each of the two threads makes side by side
+
+
+def pageable_stage(self, rows, wave, pad, dtype):
+    """The staging before the pinned ring, the plain version of
+    ``Transcriber._stage``: a fresh array, the rows filled one by one, and
+    copies to the card from pageable memory (the host waits for each)."""
+    wav_batch = np.zeros((wave, pad), dtype)
+    for i, a in enumerate(rows):
+        wav_batch[i, : len(a)] = a
+    wav_lens = np.zeros((wave,), np.int32)
+    wav_lens[: len(rows)] = [len(a) for a in rows]
+    return torch.from_numpy(wav_batch).to(self.device), torch.from_numpy(wav_lens).to(self.device)
+
+
+def check_staging() -> dict:
+    """Phase 5d: ``transcribe_batch`` and ``decode_aligned`` staging through
+    the pinned ring against ``pageable_stage``, on the long-gate artifact:
+    the staged tensors and the tokens equal at both benchmark cells' waves,
+    on a ragged call of three waves and on a short call after a long one;
+    a ``decode_aligned`` thread beside a ``transcribe_batch`` thread giving
+    what each gives alone; the ring's counters engaged; the host's ms of
+    the staging (as ``plt.stage`` covers it) and of the whole call, both
+    versions in turns at the cells' waves."""
+    import threading
+    import types
+
+    from phones_las_torch.api import Transcriber, stage_wave
+
+    dev = None if DEV == "cuda" else DEV
+    pinned = Transcriber.from_artifact(GATE_ASSET, device=dev)
+    plain = Transcriber.from_artifact(GATE_ASSET, device=dev)
+    plain._stage = types.MethodType(pageable_stage, plain)
+    rng = np.random.default_rng(25)
+    pcm = lambda lens: [rng.integers(-3000, 3000, size=int(n), dtype=np.int16) for n in lens]
+    calls = {f"b{b}x{n}": pcm([n] * b) for b, n, _ in STAGE_SHAPES}
+    calls["ragged_3_waves"] = pcm(rng.integers(1, 160001, size=150))  # waves of 64, 64 and 22
+    calls["short_after_long"] = pcm([8000, 19000, 1])
+    rec = {"phase": "5d", "artifact": os.path.relpath(GATE_ASSET, REPO), "cases": {}}
+    bad = []
+    waves0, plain0, growths0 = stage_wave.pinned_waves, stage_wave.plain_waves, stage_wave.growths
+    waves = 0
+    for name, call in calls.items():  # in this order: the short call after the ragged one's long waves
+        pad = -(-max(len(a) for a in call) // 32000) * 32000
+        wave = pinned._wave_size(len(call))
+        staged_equal = all(
+            all(torch.equal(x, y) for x, y in zip(pinned._stage(call[o : o + wave], wave, pad, np.int16),
+                                                 plain._stage(call[o : o + wave], wave, pad, np.int16)))
+            for o in range(0, len(call), wave))
+        got, want = pinned.transcribe_batch(call), plain.transcribe_batch(call)
+        waves += 2 * -(-len(call) // wave)
+        rec["cases"][name] = {"rows": len(call), "pad": pad, "staged_equal": staged_equal,
+                              "tokens_equal": got == want, "tokens": sum(map(len, got))}
+        if not (staged_equal and got == want):
+            bad.append(name)
+
+    # a decode_aligned thread beside a transcribe_batch thread, each call's answer against its own alone
+    call = calls[f"b{STAGE_SHAPES[0][0]}x{STAGE_SHAPES[0][1]}"]
+    windows, win = pcm([80000, 61000, 96000, 5]), 96000
+    alone_tb = pinned.transcribe_batch(call)
+    alone_da = pinned.decode_aligned(windows, window_samples=win)
+    same_da = lambda got: all(np.array_equal(a, c) and np.array_equal(b, d)
+                              for (a, b), (c, d) in zip(got, alone_da))
+    results, errors = {"transcribe_batch": [], "decode_aligned": []}, []
+
+    def run(name, fn):
+        try:
+            for _ in range(STAGE_THREAD_CALLS):
+                results[name].append(fn())
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=("transcribe_batch", lambda: pinned.transcribe_batch(call))),
+               threading.Thread(target=run, args=("decode_aligned",
+                                                  lambda: pinned.decode_aligned(windows, window_samples=win)))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    waves += 2 + 2 * STAGE_THREAD_CALLS
+    rec["threads"] = {
+        "transcribe_batch_as_alone": [r == alone_tb for r in results["transcribe_batch"]],
+        "decode_aligned_as_alone": [same_da(r) for r in results["decode_aligned"]],
+        "errors": errors, "alive": [t.is_alive() for t in threads]}
+    th = rec["threads"]
+    if (errors or any(th["alive"]) or len(th["transcribe_batch_as_alone"]) != STAGE_THREAD_CALLS
+            or not all(th["transcribe_batch_as_alone"] + th["decode_aligned_as_alone"])
+            or len(th["decode_aligned_as_alone"]) != STAGE_THREAD_CALLS):
+        bad.append("threads")
+
+    # the host's ms of the staging and of the call, both versions in turns at the cells' waves
+    for b, n, pad in STAGE_SHAPES:
+        call = calls[f"b{b}x{n}"]
+        ms = {"pageable": {"stage": [], "call": []}, "pinned": {"stage": [], "call": []}}
+        for r in range(STAGE_ROUNDS):
+            order = ("pageable", "pinned") if r % 2 == 0 else ("pinned", "pageable")
+            for name in order + order[::-1]:
+                t = plain if name == "pageable" else pinned
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t._stage(call, b, pad, np.int16)
+                ms[name]["stage"].append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t.transcribe_batch(call)
+                ms[name]["call"].append((time.perf_counter() - t0) * 1e3)
+        waves += 4 * STAGE_ROUNDS
+        rec[f"ms_b{b}x{n}"] = {k: {part: {"median": statistics.median(v), "all": [round(x, 3) for x in v]}
+                                   for part, v in parts.items()} for k, parts in ms.items()}
+    rec["counters"] = {"pinned_waves": stage_wave.pinned_waves - waves0,
+                       "plain_waves": stage_wave.plain_waves - plain0, "growths": stage_wave.growths - growths0,
+                       "pinned_waves_expected": waves}
+    # every wave of the pinned transcriber through its ring; the plain one staged by pageable_stage
+    if rec["counters"]["pinned_waves"] != waves or rec["counters"]["plain_waves"] != 0 \
+            or not 2 <= rec["counters"]["growths"] <= 8:
+        bad.append("counters")
+    rec["card"] = card_line()
+    emit(rec)
+    if bad:
+        fail(f"phase 5d: the pinned staging disagrees with the pageable one in {bad}: {rec}")
     return rec
 
 
@@ -6271,6 +6405,7 @@ def main() -> int:
     check_beam_eval(params, params_cpu, cfg, data, kernels)
     time_beam_flagship(params, cfg, kernels, card)
     check_gate_transcriber(data, kernels)
+    check_staging()
 
     # ---- phase 6: production mode, augmentation, checkpoints and the workdir Transcriber
     check_production_eval(params, params_cpu, cfg, data, kernels)

@@ -30,10 +30,12 @@ drainers take whole micro-batches each (``cli/serve.py``). Both take a
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
 import os
+import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -166,6 +168,128 @@ def merge_window_hypotheses(
     return merged
 
 
+# the rows one copy to the card takes on the pinned path: about 4 MB, so the
+# copy of one group overlaps the filling of the next
+STAGE_GROUP_BYTES = 4 << 20
+# the wire dtypes (``Transcriber._wire_dtype``) as torch's
+_TORCH_DTYPE = {np.dtype(np.int16): torch.int16, np.dtype(np.float32): torch.float32}
+
+
+class _Slot:
+    """One host buffer of a ``StagingRing``: its bytes, the lock a thread
+    holds from filling it to recording the event behind its copies, and
+    that event."""
+
+    def __init__(self):
+        self.buf: Optional[torch.Tensor] = None  # flat uint8
+        self.lock = threading.Lock()
+        self.copied = None  # a CUDA event behind the last copy out of it
+
+
+class StagingRing:
+    """Host buffers reused wave after wave, pinned (plain memory where
+    there is no CUDA to pin it). A thread takes the next free slot (or
+    waits for the next in turn), waits for the last copy out of it to end,
+    fills it, queues its copies and gives it back; two slots, so one
+    wave's filling does not wait for the previous wave's copy."""
+
+    def __init__(self):
+        self.slots = [_Slot(), _Slot()]
+        self._next = 0
+        self._choose = threading.Lock()
+
+    @contextlib.contextmanager
+    def hold(self, nbytes: int):
+        """A slot of at least ``nbytes`` bytes, held by this thread alone,
+        no copy out of it in flight; grown where it is smaller."""
+        with self._choose:
+            order = self.slots[self._next:] + self.slots[: self._next]
+            slot = next((s for s in order if s.lock.acquire(blocking=False)), None)
+            if slot is None:  # every slot held: wait for the next in turn
+                slot = order[0]
+                slot.lock.acquire()
+            self._next = (self.slots.index(slot) + 1) % len(self.slots)
+        try:
+            if slot.copied is not None:
+                slot.copied.synchronize()
+            if slot.buf is None or slot.buf.numel() < nbytes:
+                slot.buf = None  # the old one freed before the new is made
+                slot.buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=torch.cuda.is_available())
+                stage_wave.growths += 1
+            yield slot
+        finally:
+            slot.lock.release()
+
+
+def stage_wave(rows: Sequence, wave: int, pad: int, dtype, device=None, ring: Optional[StagingRing] = None):
+    """One wave's rows (1-D, at most ``wave`` of them, none longer than
+    ``pad``) → ``Transcriber._decode``'s inputs: ``audio`` [wave, pad] in
+    ``dtype`` (each row's samples, then zeros; rows past the last all zero)
+    and ``lengths`` [wave] int32.
+
+    Through ``ring``: the rows are filled into a slot a group of about
+    ``STAGE_GROUP_BYTES`` at a time, each group's copy to ``device`` queued
+    as soon as it is filled (asynchronous and stream-ordered from pinned
+    memory, so the copy of one group overlaps the filling of the next),
+    the lengths copied from the same slot, and a CUDA event recorded
+    behind the copies before the slot is given back. Without a ring: a
+    fresh array, copied with ``.to(device)``, or left on the host where
+    ``device`` is None. Counts the waves each way (``pinned_waves``,
+    ``plain_waves``) and the slots' allocations (``growths``)."""
+    n = len(rows)
+    if ring is None:
+        stage_wave.plain_waves += 1
+        audio = np.zeros((wave, pad), dtype)
+        lengths = np.zeros((wave,), np.int32)
+        for i, a in enumerate(rows):
+            audio[i, : len(a)] = a
+            lengths[i] = len(a)
+        if device is None:
+            return audio, lengths
+        return torch.from_numpy(audio).to(device), torch.from_numpy(lengths).to(device)
+    stage_wave.pinned_waves += 1
+    tdt = _TORCH_DTYPE[np.dtype(dtype)]
+    row_bytes = pad * np.dtype(dtype).itemsize
+    ofs = -(-wave * 4 // 64) * 64  # the lengths first, the rows 64-byte aligned after them
+    audio = torch.empty((wave, pad), dtype=tdt, device=device)
+    lengths = torch.empty((wave,), dtype=torch.int32, device=device)
+    group = max(1, STAGE_GROUP_BYTES // max(1, row_bytes))
+    with ring.hold(ofs + wave * row_bytes) as slot:
+        h_lengths = slot.buf[: wave * 4].view(torch.int32)
+        h_audio = slot.buf[ofs : ofs + wave * row_bytes].view(tdt).view(wave, pad)
+        a_lengths, a_audio = h_lengths.numpy(), h_audio.numpy()
+        a_lengths[:n] = [len(a) for a in rows]
+        a_lengths[n:] = 0
+        lengths.copy_(h_lengths, non_blocking=True)
+        for g in range(0, wave, group):
+            end = min(g + group, wave)
+            for i in range(g, min(end, n)):
+                a = rows[i]
+                a_audio[i, : len(a)] = a
+                a_audio[i, len(a) :] = 0
+            a_audio[max(g, n) : end] = 0
+            audio[g:end].copy_(h_audio[g:end], non_blocking=True)
+        if audio.is_cuda:
+            if slot.copied is None:
+                slot.copied = torch.cuda.Event()
+            slot.copied.record(torch.cuda.current_stream(audio.device))
+    return audio, lengths
+
+
+stage_wave.pinned_waves = 0
+stage_wave.plain_waves = 0
+stage_wave.growths = 0
+
+
+def _staging_ring(devices: list) -> Optional[StagingRing]:
+    """The pinned ring of a transcriber on one CUDA card; none on the CPU
+    (a fresh array a wave: ``.to('cpu')`` would alias a reused buffer) or
+    with ``data_parallel`` shards (host arrays, ``map_row_shards``)."""
+    if len(devices) == 1 and torch.device(devices[0]).type == "cuda":
+        return StagingRing()
+    return None
+
+
 def _devices(data_parallel: int, devices: Optional[Sequence], device) -> list:
     """The devices a transcriber decodes on (see ``Transcriber.__init__``)."""
     from phones_las_torch.parallel.mesh import pick_devices
@@ -282,6 +406,7 @@ class Transcriber:
         self.data_parallel = len(self.devices)
         self.params = params
         self._shard_params = [params] + replicate(params, self.devices[1:])
+        self._ring = _staging_ring(self.devices)  # each transcriber its own, replicas too
 
     def _set_ctc_joint(self, ctc_joint: Optional[float]) -> None:
         self.ctc_joint = None if ctc_joint is None else float(ctc_joint)
@@ -392,13 +517,12 @@ class Transcriber:
         wave = min(n, self.max_device_batch * dp)
         return -(-wave // dp) * dp
 
-    def _stage(self, wav_batch: np.ndarray, wav_lens: np.ndarray):
-        """One wave's host arrays → its inputs to ``_decode``: on the device
-        (one device), or left on the host for ``data_parallel`` shards,
-        which ``map_row_shards`` copies shard by shard."""
-        if self.data_parallel > 1:
-            return wav_batch, wav_lens
-        return torch.from_numpy(wav_batch).to(self.device), torch.from_numpy(wav_lens).to(self.device)
+    def _stage(self, rows: Sequence, wave: int, pad: int, dtype):
+        """One wave's rows → its inputs to ``_decode`` (``stage_wave``): on
+        the device (one device; through this transcriber's pinned ring on a
+        card), or left on the host for ``data_parallel`` shards, which
+        ``map_row_shards`` copies shard by shard."""
+        return stage_wave(rows, wave, pad, dtype, None if self.data_parallel > 1 else self.device, self._ring)
 
     def _decode(self, audio, lengths, max_steps: int, params=None, aligned: bool = False):
         """One wave, as ``_stage`` gives it → (tokens [B, S], lengths [B],
@@ -461,8 +585,9 @@ class Transcriber:
         batches beyond ``max_device_batch`` go as waves of that size (the
         tail wave zero-padded), all dispatched before any result is
         fetched. Each stage is a span (``annotate``), all within
-        ``plt.transcribe_batch``: a wave's ``plt.stage`` (padding and the
-        copy to the device), ``plt.encode`` and ``plt.decode``, then after
+        ``plt.transcribe_batch``: a wave's ``plt.stage`` (``_stage``: the
+        rows padded into a reused pinned buffer on a card, and the copies
+        to the device), ``plt.encode`` and ``plt.decode``, then after
         every dispatch a wave's ``plt.fetch`` and ``plt.strings``."""
         with annotate("plt.transcribe_batch"):
             b = len(audio)
@@ -474,13 +599,7 @@ class Transcriber:
             for ofs in range(0, b, wave):
                 n = min(wave, b - ofs)
                 with annotate("plt.stage"):
-                    wav_batch = np.zeros((wave, pad), dt)
-                    for i in range(n):
-                        a = audio[ofs + i]
-                        wav_batch[i, : len(a)] = a
-                    wav_lens = np.zeros((wave,), np.int32)
-                    wav_lens[:n] = lens[ofs : ofs + n]
-                    staged = self._stage(wav_batch, wav_lens)
+                    staged = self._stage(audio[ofs : ofs + n], wave, pad, dt)
                 results.append((n, self._decode(*staged, self.max_steps)))
             out: List[List[str]] = []
             for n, (toks, out_lens, _) in results:  # fetch after all dispatches
@@ -579,16 +698,11 @@ class Transcriber:
         dispatched = []
         for ofs in range(0, len(windows), wave):
             chunk = windows[ofs : ofs + wave]
-            wav_batch = np.zeros((wave, window_samples), dt)
-            wav_lens = np.zeros((wave,), np.int32)
-            for i, seg in enumerate(chunk):
+            for seg in chunk:
                 if len(seg) > window_samples:
                     raise ValueError(f"window of {len(seg)} samples exceeds {window_samples}")
-                wav_batch[i, : len(seg)] = seg
-                wav_lens[i] = len(seg)
-            dispatched.append(
-                (len(chunk), self._decode(*self._stage(wav_batch, wav_lens), steps_cap, params=params, aligned=True))
-            )
+            staged = self._stage(chunk, wave, window_samples, dt)
+            dispatched.append((len(chunk), self._decode(*staged, steps_cap, params=params, aligned=True)))
         out = []
         for n, (toks, lens, peaks) in dispatched:  # fetch after dispatch
             toks, lens, peaks = toks.cpu().numpy(), lens.cpu().numpy(), peaks.cpu().numpy()
